@@ -1,0 +1,67 @@
+"""Builds the port's CUDA sources into shared libraries at first use.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
+for ``sm_90a`` into ``build/repro_torch/lib<name>-<hash>.so`` at the root of
+the checkout (``.gitignore`` lists ``build/``), then loaded with ``ctypes``.
+The hash covers the source and the flags, so an edited source is rebuilt
+and an unchanged one is loaded as it is.  Nothing is built at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+# nvcc's output (ptxas register, shared-memory and spill counts) per library
+# built in this process; empty for a library that was already built.
+build_logs: dict[str, str] = {}
+
+
+def find_nvcc() -> str:
+    """``nvcc`` from ``PATH``, else from ``CUDA_HOME`` (or PyTorch's guess)."""
+    nvcc = shutil.which("nvcc")
+    if nvcc:
+        return nvcc
+    homes = [os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")]
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    homes.append(CUDA_HOME)
+    for home in homes:
+        if home and (Path(home) / "bin" / "nvcc").is_file():
+            return str(Path(home) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The library built from ``csrc/<name>.cu``, compiling it if needed."""
+    if name in _LIBS:
+        return _LIBS[name]
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+        build_logs[name] = proc.stdout + proc.stderr
+    _LIBS[name] = ctypes.CDLL(str(out))
+    return _LIBS[name]

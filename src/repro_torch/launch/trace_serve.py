@@ -1,0 +1,88 @@
+"""Where a serving request's device time goes: one traced ``generate``.
+
+    PYTHONPATH=src python -m repro_torch.launch.trace_serve --arch granite-8b \
+        --batch 4 --prompt-len 1000 --decode-steps 4
+
+Runs one untraced warm-up, then traces a prefill and a decode loop apart with
+``torch.profiler`` and prints, for each: the host-clock wall time, the summed
+device time of the kernels it ran (CUDA activity), the device idle share
+(1 - device time / wall time; the port runs on one stream, so kernels do
+not overlap), and the kernels that took the most device time.  Card only: device time is what it
+reports, and a CPU run has none.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from pathlib import Path
+
+if __name__ == "__main__" and not __package__:
+    sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.compat import default_device
+from repro_torch.configs.base import get_config
+from repro_torch.models import lm
+
+TOP_KERNELS = 12
+
+
+def _report(name: str, prof, wall_s: float) -> None:
+    # Kernel events only: a CPU op's self device time repeats its kernels'.
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    print(f"{name}: wall {wall_s * 1e3} ms, device busy {device_us / 1e3} ms, "
+          f"idle share {1 - device_us / 1e3 / (wall_s * 1e3)}")
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:TOP_KERNELS]:
+        t = e.self_device_time_total
+        print(f"  {t / 1e3:12.3f} ms {t / device_us:7.2%} x{e.count:<5d} {e.key[:100]}")
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description="Trace one granite-style serving request")
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=1000)
+    ap.add_argument("--decode-steps", type=int, default=4)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    device = default_device()
+    cfg = get_config(args.arch)
+    model = lm.init(args.seed, cfg, device)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    B, S = args.batch, args.prompt_len
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=device)
+    max_len = S + args.decode_steps
+    lm.prefill(model, {"tokens": tokens}, cfg, pad_to=max_len)  # warm-up
+    torch.cuda.synchronize()
+    print(f"device: {torch.cuda.get_device_name(device)}")
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        logits, cache = lm.prefill(model, {"tokens": tokens}, cfg, pad_to=max_len)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _report(f"prefill {B}x{S}", prof, wall)
+
+    tok = logits.argmax(-1)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for i in range(args.decode_steps):
+            logits, cache = lm.decode_step(
+                model, {"token": tok, "pos": S + i, "cache": cache}, cfg
+            )
+            tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _report(f"decode {args.decode_steps} steps", prof, wall)
+
+
+if __name__ == "__main__":
+    main()

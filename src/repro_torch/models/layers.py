@@ -1,0 +1,172 @@
+"""Model primitives: the dense subset of ``repro.models.layers``.
+
+Each layer is ``f(params, inputs, cfg) -> out``, as in the reference, with
+``params`` an ``nn.Module`` holding the reference's named weights in its
+layouts: projections ``(d_in, d_out)``, activations ``(B, S, H, D)``, KV
+caches ``(B, KV, T, D)``.  Norms and softmax accumulate in fp32; matmul
+inputs are ``cfg.activation_dtype``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..configs.base import torch_dtype
+from ..kernels import ops
+from ..kernels.ref import NEG_INF
+from ..parallel.options import get_options
+
+
+def truncated_normal(gen, shape, scale, dtype, device):
+    """Standard normal truncated to [-2, 2], times ``scale``, drawn in fp32."""
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    nn.init.trunc_normal_(t, a=-2.0, b=2.0, generator=gen)
+    return t.mul_(scale).to(dtype)
+
+
+def dense_init(gen, d_in, d_out, dtype, device, scale=None):
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    return truncated_normal(gen, (d_in, d_out), scale, dtype, device)
+
+
+def parameter(t):
+    return nn.Parameter(t, requires_grad=False)
+
+
+# ---------------------------------------------------------------------------
+# Norms / positional
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x, w, eps: float = 1e-6):
+    dt = x.dtype
+    xf = x.float()
+    scale = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    if get_options().lowp_norm and dt != torch.float32:
+        # statistics in fp32, elementwise scaling in the activation dtype.
+        return x * scale.to(dt) * (1.0 + w.float()).to(dt)
+    return (xf * scale * (1.0 + w.float())).to(dt)
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None):
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exponents)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, D); positions: (..., S) int.  Split-half rotation."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, x.device)  # (D/2,)
+    angles = positions[..., None].float() * freqs  # (..., S, D/2)
+    sin = torch.sin(angles)[..., None, :]
+    cos = torch.cos(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA; causal / sliding-window self-attention)
+# ---------------------------------------------------------------------------
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg, gen, device):
+        super().__init__()
+        dt, hd = torch_dtype(cfg.param_dtype), cfg.hd
+        self.wq = parameter(dense_init(gen, cfg.d_model, cfg.n_heads * hd, dt, device))
+        self.wk = parameter(dense_init(gen, cfg.d_model, cfg.n_kv_heads * hd, dt, device))
+        self.wv = parameter(dense_init(gen, cfg.d_model, cfg.n_kv_heads * hd, dt, device))
+        self.wo = parameter(dense_init(gen, cfg.n_heads * hd, cfg.d_model, dt, device))
+        self.norm = parameter(torch.zeros(cfg.d_model, dtype=dt, device=device))
+
+
+def _split_heads(x, n_heads, head_dim):
+    return x.reshape(*x.shape[:-1], n_heads, head_dim)
+
+
+def attention(p, x, cfg, *, causal=True, window=0, positions=None):
+    """Self-attention over a full sequence (train / prefill).
+
+    x: (B, S, d_model).  Returns (out (B, S, d_model), k, v) with k and v the
+    rotated keys and the values as (B, KV, S, D), which prefill caches.
+    Both attention impls of ``ModelOptions`` go through ``ops.attention``:
+    the flash-attention kernel on the card, its plain version on the CPU.
+    """
+    hd = cfg.hd
+    B, S, _ = x.shape
+    q = _split_heads(x @ p.wq, cfg.n_heads, hd)
+    k = _split_heads(x @ p.wk, cfg.n_kv_heads, hd)
+    v = _split_heads(x @ p.wv, cfg.n_kv_heads, hd)
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    k, v = k.transpose(1, 2), v.transpose(1, 2)  # (B, KV, S, D)
+    out = ops.attention(q.transpose(1, 2), k, v, causal=causal, window=window)
+    out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * hd)
+    return out @ p.wo, k, v
+
+
+def attention_decode(p, x, cache_k, cache_v, pos, cfg, *, window: int = 0):
+    """One-token decode against a KV cache, in plain PyTorch.
+
+    x: (B, d_model); cache_k/v: (B, KV, T, D); pos: the current index.
+    Writes the new key and value into ``cache_k``/``cache_v`` in place (the
+    reference returns updated copies) and returns (out (B, d_model),
+    cache_k, cache_v).
+    """
+    hd = cfg.hd
+    B = x.shape[0]
+    pos = int(pos)
+    q = _split_heads(x @ p.wq, cfg.n_heads, hd)
+    k = _split_heads(x @ p.wk, cfg.n_kv_heads, hd)
+    v = _split_heads(x @ p.wv, cfg.n_kv_heads, hd)
+    posb = torch.full((B, 1), pos, device=x.device)
+    q = apply_rope(q[:, None], posb, cfg.rope_theta)[:, 0]
+    k = apply_rope(k[:, None], posb, cfg.rope_theta)[:, 0]
+
+    T = cache_k.shape[2]
+    rolling = window > 0 and window == T
+    slot = pos % T if rolling else pos  # rolling window cache: slot = pos % window
+    cache_k[:, :, slot] = k.to(cache_k.dtype)
+    cache_v[:, :, slot] = v.to(cache_v.dtype)
+
+    g = cfg.n_heads // cfg.n_kv_heads
+    qg = q.reshape(B, cfg.n_kv_heads, g, hd)
+    scale = 1.0 / math.sqrt(hd)
+    scores = torch.einsum("bkgd,bktd->bkgt", qg, cache_k).float() * scale
+    t_idx = torch.arange(T, device=x.device)
+    if rolling:
+        valid = (t_idx <= slot) | (pos >= T)  # whole ring valid once wrapped
+    else:
+        valid = t_idx <= pos
+    scores = torch.where(valid, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgt,bktd->bkgd", probs.to(cache_v.dtype), cache_v)
+    out = out.reshape(B, cfg.n_heads * hd)
+    return out @ p.wo, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU)
+# ---------------------------------------------------------------------------
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg, gen, device):
+        super().__init__()
+        dt = torch_dtype(cfg.param_dtype)
+        self.wg = parameter(dense_init(gen, cfg.d_model, cfg.d_ff, dt, device))
+        self.wu = parameter(dense_init(gen, cfg.d_model, cfg.d_ff, dt, device))
+        self.wd = parameter(dense_init(gen, cfg.d_ff, cfg.d_model, dt, device))
+        self.norm = parameter(torch.zeros(cfg.d_model, dtype=dt, device=device))
+
+
+def mlp(p, x):
+    h = F.silu(x @ p.wg) * (x @ p.wu)
+    return h @ p.wd

@@ -26,3 +26,7 @@ def pytest_configure(config):
         "markers",
         "slow: multi-minute subprocess tests; deselect with -m \"not slow\"",
     )
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card; skips without one (python -m pytest -m gpu)",
+    )

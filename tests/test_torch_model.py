@@ -1,0 +1,159 @@
+"""The port's granite-8b smoke model against the JAX package's, on the same
+weights (copied in with ``params_from_jax``) and the same numpy prompts."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import base as jbase
+from repro.models import lm as jlm
+from repro_torch.configs import base as tbase
+from repro_torch.launch.serve import generate
+from repro_torch.models import lm
+from repro_torch.weights import params_from_jax
+
+B, S = 2, 24
+# test_models_smoke.py's fp32 bar for prefill/decode against the full forward.
+FP32 = dict(rtol=2e-4, atol=2e-4)
+
+
+def _cfgs(dtype="float32", **over):
+    over = dict(param_dtype=dtype, activation_dtype=dtype, **over)
+    jcfg = dataclasses.replace(jbase.get_config("granite-8b").smoke(), **over)
+    tcfg = dataclasses.replace(tbase.get_config("granite-8b").smoke(), **over)
+    return jcfg, tcfg
+
+
+def _models(jcfg, tcfg, seed=0):
+    jparams = jlm.init(jax.random.PRNGKey(seed), jcfg)
+    model = lm.init(seed, tcfg, device="cpu")
+    model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jparams), tcfg))
+    return jparams, model
+
+
+def _tokens(cfg, n, seed=0):
+    return np.random.default_rng(seed).integers(0, cfg.vocab, (B, n)).astype(np.int32)
+
+
+def _np(t):
+    return t.float().numpy() if isinstance(t, torch.Tensor) else np.asarray(t, np.float32)
+
+
+KV_CASES = pytest.mark.parametrize("over", [{}, {"n_kv_heads": 2}], ids=["mqa", "gqa2"])
+
+
+@pytest.mark.parametrize("arch", sorted(jbase.all_configs()))
+def test_configs_match_reference(arch):
+    jcfg, tcfg = jbase.get_config(arch), tbase.get_config(arch)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    assert dataclasses.asdict(tcfg.smoke()) == dataclasses.asdict(jcfg.smoke())
+    if jcfg.family == "recsys":
+        return
+    for shape in jbase.ALL_SHAPES:
+        jspecs = jbase.cache_specs(jcfg, 2, shape.seq_len)
+        tspecs = tbase.cache_specs(tcfg, 2, shape.seq_len)
+        assert sorted(tspecs) == sorted(jspecs)
+        for name, (tshape, tdt) in tspecs.items():
+            assert tshape == jspecs[name].shape
+            assert str(tdt).removeprefix("torch.") == jspecs[name].dtype.name
+
+
+@KV_CASES
+def test_forward_matches_reference_fp32(over):
+    jcfg, tcfg = _cfgs(**over)
+    jparams, model = _models(jcfg, tcfg)
+    tok = _tokens(tcfg, S)
+    expect, _ = jlm.forward(jparams, {"tokens": jnp.asarray(tok)}, jcfg, remat="none")
+    logits, aux = lm.forward(model, {"tokens": torch.from_numpy(tok)}, tcfg)
+    np.testing.assert_allclose(_np(logits), np.asarray(expect), **FP32)
+    assert float(aux) == 0.0
+
+
+@KV_CASES
+def test_prefill_and_decode_match_reference_fp32(over):
+    jcfg, tcfg = _cfgs(**over)
+    jparams, model = _models(jcfg, tcfg)
+    tok = _tokens(tcfg, S + 1)
+    jlogits, jcache = jlm.prefill(jparams, {"tokens": jnp.asarray(tok[:, :S])}, jcfg, pad_to=S + 4)
+    logits, cache = lm.prefill(model, {"tokens": torch.from_numpy(tok[:, :S])}, tcfg, pad_to=S + 4)
+    np.testing.assert_allclose(_np(logits), np.asarray(jlogits), **FP32)
+    for name in ("k", "v"):
+        assert tuple(cache[name].shape) == jcache[name].shape
+        np.testing.assert_allclose(_np(cache[name]), np.asarray(jcache[name]), **FP32)
+
+    jd, jcache2 = jlm.decode_step(
+        jparams, {"token": jnp.asarray(tok[:, S]), "pos": jnp.int32(S), "cache": jcache}, jcfg
+    )
+    d, cache2 = lm.decode_step(
+        model, {"token": torch.from_numpy(tok[:, S]), "pos": S, "cache": cache}, tcfg
+    )
+    np.testing.assert_allclose(_np(d), np.asarray(jd), **FP32)
+    assert cache2["k"] is cache["k"]  # updated in place
+    np.testing.assert_allclose(_np(cache2["k"]), np.asarray(jcache2["k"]), **FP32)
+
+
+def _jax_generate(jparams, jcfg, tok, steps):
+    """The greedy loop of repro.launch.serve (serve.py:45-66)."""
+    S = tok.shape[1]
+    prefill = jax.jit(lambda p, b: jlm.prefill(p, b, jcfg, pad_to=S + steps))
+    decode = jax.jit(lambda p, b: jlm.decode_step(p, b, jcfg))
+    logits, cache = prefill(jparams, {"tokens": jnp.asarray(tok)})
+    tokens = jnp.argmax(logits, axis=-1)
+    generated = [tokens]
+    for i in range(steps - 1):
+        logits, cache = decode(jparams, {"token": tokens, "pos": jnp.int32(S + i), "cache": cache})
+        tokens = jnp.argmax(logits, axis=-1)
+        generated.append(tokens)
+    return np.stack([np.asarray(t) for t in generated], axis=1)
+
+
+@KV_CASES
+def test_generate_matches_reference_greedy_fp32(over):
+    jcfg, tcfg = _cfgs(**over)
+    jparams, model = _models(jcfg, tcfg, seed=3)
+    tok = _tokens(tcfg, 16, seed=3)
+    expect = _jax_generate(jparams, jcfg, tok, 8)
+    out = generate(model, torch.from_numpy(tok), 8)
+    assert out.shape == (B, 8)
+    np.testing.assert_array_equal(out.numpy(), expect)
+
+
+@KV_CASES
+def test_prefill_matches_reference_bf16(over):
+    """JAX rounds scores and probabilities to bf16 (layers._sdpa) where the
+    port keeps them in fp32, and 4 layers compound it: 3e-2 of max|ref|."""
+    jcfg, tcfg = _cfgs("bfloat16", **over)
+    jparams, model = _models(jcfg, tcfg)
+    tok = _tokens(tcfg, S)
+    jlogits, _ = jlm.prefill(jparams, {"tokens": jnp.asarray(tok)}, jcfg)
+    logits, _ = lm.prefill(model, {"tokens": torch.from_numpy(tok)}, tcfg)
+    assert logits.dtype == torch.bfloat16
+    ref = np.asarray(jlogits.astype(jnp.float32))
+    assert np.abs(_np(logits) - ref).max() <= 3e-2 * np.abs(ref).max()
+
+
+def test_init_draws_on_device_with_reference_shapes():
+    jcfg, tcfg = _cfgs("bfloat16")
+    model = lm.init(0, tcfg, device="cpu")
+    ref = params_from_jax(jax.tree.map(np.asarray, jlm.init(jax.random.PRNGKey(0), jcfg)), tcfg)
+    sd = model.state_dict()
+    assert sorted(sd) == sorted(ref)
+    for name, t in sd.items():
+        assert t.shape == ref[name].shape and t.dtype == torch.bfloat16, name
+    assert float(sd["blocks.0.attn.norm"].abs().max()) == 0.0
+    wq = sd["blocks.0.attn.wq"].float()
+    assert float(wq.abs().max()) <= 2.0 / np.sqrt(tcfg.d_model) + 1e-2
+    # Same seed, same weights; another seed, other weights.
+    assert torch.equal(lm.init(0, tcfg, device="cpu").embed, model.embed)
+    assert not torch.equal(lm.init(1, tcfg, device="cpu").embed, model.embed)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "falcon-mamba-7b", "llama-3.2-vision-11b", "hubert-xlarge"])
+def test_unported_families_raise(arch):
+    cfg = tbase.get_config(arch).smoke()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        lm.init(0, cfg, device="cpu")
