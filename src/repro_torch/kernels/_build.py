@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -65,3 +66,10 @@ def load(name: str) -> ctypes.CDLL:
         build_logs[name] = proc.stdout + proc.stderr
     _LIBS[name] = ctypes.CDLL(str(out))
     return _LIBS[name]
+
+
+def load_all(names) -> None:
+    """Builds and loads several libraries at once: one ``nvcc`` per source,
+    all started together."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        list(pool.map(load, names))

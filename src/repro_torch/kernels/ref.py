@@ -33,3 +33,8 @@ def ref_flash_attention(q, k, v, causal=True, window=0):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgst,bktd->bkgsd", p, v.float())
     return o.reshape(B, H, Sq, D).to(q.dtype)
+
+
+def ref_moe_gmm(x, w):
+    """x: (E, C, D); w: (E, D, F) -> (E, C, F) in x's dtype, summed in fp32."""
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)

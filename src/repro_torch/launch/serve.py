@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
         --batch 4 --prompt-len 1000 --decode-steps 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \
+        --batch 4 --prompt-len 1000 --decode-steps 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b --smoke \
         --device cpu
 

@@ -44,7 +44,7 @@ def _report(name: str, prof, wall_s: float) -> None:
 
 
 def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(description="Trace one granite-style serving request")
+    ap = argparse.ArgumentParser(description="Trace one serving request")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=1000)

@@ -1,4 +1,4 @@
-"""Model primitives: the dense subset of ``repro.models.layers``.
+"""Model primitives: the dense and MoE subset of ``repro.models.layers``.
 
 Each layer is ``f(params, inputs, cfg) -> out``, as in the reference, with
 ``params`` an ``nn.Module`` holding the reference's named weights in its
@@ -170,3 +170,85 @@ class MLP(nn.Module):
 def mlp(p, x):
     h = F.silu(x @ p.wg) * (x @ p.wu)
     return h @ p.wd
+
+
+# ---------------------------------------------------------------------------
+# Mixture-of-Experts (capacity-based token dropping, sort-based dispatch)
+# ---------------------------------------------------------------------------
+
+
+class MoE(nn.Module):
+    """``init_moe``'s weights: the router stays fp32 whatever ``param_dtype`` is."""
+
+    def __init__(self, cfg, gen, device):
+        super().__init__()
+        dt = torch_dtype(cfg.param_dtype)
+        E, D, F_ = cfg.n_experts, cfg.d_model, cfg.d_ff
+        s = 1.0 / math.sqrt(D)
+        self.router = parameter(dense_init(gen, D, E, torch.float32, device))
+        self.wg = parameter(truncated_normal(gen, (E, D, F_), s, dt, device))
+        self.wu = parameter(truncated_normal(gen, (E, D, F_), s, dt, device))
+        self.wd = parameter(truncated_normal(gen, (E, F_, D), 1.0 / math.sqrt(F_), dt, device))
+        self.norm = parameter(torch.zeros(D, dtype=dt, device=device))
+
+
+def moe(p, x, cfg):
+    """Top-k routed MoE with per-expert capacity (GShard-style dropping).
+
+    Step for step ``repro.models.layers.moe``: a stable sort of the (token,
+    expert) entries, a scatter into an (E, C, D) buffer, three grouped
+    matmuls through ``ops.grouped_matmul``, then gather and weighted combine.
+    Nothing here waits on the device: counts are a ``scatter_add_``, drops
+    are masked rather than indexed out.  Returns (out (B, S, D), aux_loss).
+    """
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    N = B * S
+    xt = x.reshape(N, D)
+
+    logits = xt.float() @ p.router
+    probs = torch.softmax(logits, dim=-1)
+    top_vals, top_idx = torch.topk(probs, K, dim=-1)  # (N, K)
+    top_vals = top_vals / top_vals.sum(dim=-1, keepdim=True)
+
+    flat_e = top_idx.reshape(-1)  # (N*K,)
+    counts = torch.zeros(E, dtype=torch.int64, device=x.device)
+    counts.scatter_add_(0, flat_e, torch.ones_like(flat_e))
+
+    # Load-balancing aux loss (Switch): E * sum_e f_e * p_e, where f_e, the
+    # mean over tokens of the one-hot top-k sum, is counts / N.
+    token_frac = counts.float() / N
+    prob_frac = probs.mean(dim=0)
+    aux = E * torch.sum(token_frac * prob_frac) / K
+
+    C = max(1, int(cfg.capacity_factor * N * K / E))
+
+    order = torch.argsort(flat_e, stable=True)  # as jnp.argsort: slots follow token order
+    sorted_e = flat_e[order]
+    starts = torch.cumsum(counts, dim=0) - counts
+    pos_in_e = torch.arange(N * K, device=x.device) - starts[sorted_e]
+    keep = pos_in_e < C
+    slot = torch.where(keep, pos_in_e, 0)
+
+    tok_of = order // K  # source token per dispatch entry
+    dispatched = torch.where(keep[:, None], xt[tok_of], 0.0)
+    # Dropped entries add zero rows to slot 0, as the reference's .at[].add.
+    # Each slot gets at most one row that is not zero, so the sum is exact
+    # in any order and the adds need no sort.
+    buf = torch.zeros((E * C, D), dtype=xt.dtype, device=x.device)
+    buf.index_add_(0, sorted_e * C + slot, dispatched)
+    buf = buf.view(E, C, D)
+
+    h = F.silu(ops.grouped_matmul(buf, p.wg)) * ops.grouped_matmul(buf, p.wu)
+    y = ops.grouped_matmul(h, p.wd)
+
+    gathered = y[sorted_e, slot]  # (N*K, D)
+    wts = top_vals.reshape(-1)[order]
+    gathered = gathered * torch.where(keep, wts, 0.0)[:, None].to(y.dtype)
+    # Combine without atomics: put the entries back in (token, k) order and
+    # sum over k.  The reference scatter-adds them one by one; in bf16 that
+    # order of rounding differs from this sum only within the bf16 bar, and
+    # in fp32 only by the order of K additions.
+    per_token = torch.empty_like(gathered).index_copy_(0, order, gathered)
+    out = per_token.reshape(N, K, D).sum(dim=1)
+    return out.reshape(B, S, D), aux

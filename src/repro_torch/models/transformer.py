@@ -1,9 +1,10 @@
-"""Transformer stacks: the dense (llama-arch) family of
-``repro.models.transformer``.
+"""Transformer stacks: the dense (llama-arch) and MoE (qwen3-arch) families
+of ``repro.models.transformer``.
 
 The reference scans stacked layer weights; here the layers are a
-``ModuleList`` walked by a Python loop.  Families other than ``dense`` are
-not ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
+``ModuleList`` walked by a Python loop.  Families other than ``dense`` and
+``moe`` are not ported yet and raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -16,7 +17,6 @@ from . import layers as L
 
 # ROADMAP.md queue 1 items that port the other families.
 NOT_PORTED = {
-    "moe": "ROADMAP.md queue 1, item 2 (MoE serving)",
     "ssm": "ROADMAP.md queue 1, item 3 (recurrent serving)",
     "hybrid": "ROADMAP.md queue 1, item 3 (recurrent serving)",
     "recsys": "ROADMAP.md queue 1, item 4 (DLRM)",
@@ -25,8 +25,11 @@ NOT_PORTED = {
 }
 
 
-def require_dense(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
+PORTED = ("dense", "moe")
+
+
+def require_ported(cfg: ArchConfig) -> None:
+    if cfg.family not in PORTED:
         where = NOT_PORTED.get(cfg.family, "ROADMAP.md queue 1")
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet ({where})"
@@ -34,14 +37,19 @@ def require_dense(cfg: ArchConfig) -> None:
 
 
 class Block(nn.Module):
+    """``init_self_block``: attention, then an MLP or (``moe`` family) experts."""
+
     def __init__(self, cfg, gen, device):
         super().__init__()
         self.attn = L.Attention(cfg, gen, device)
-        self.mlp = L.MLP(cfg, gen, device)
+        if cfg.family == "moe":
+            self.moe = L.MoE(cfg, gen, device)
+        else:
+            self.mlp = L.MLP(cfg, gen, device)
 
 
 class Transformer(nn.Module):
-    """Parameters of a dense decoder LM (``init_params`` in the reference).
+    """Parameters of a decoder LM (``init_params`` in the reference).
 
     Weights are drawn on ``device`` from a ``torch.Generator`` seeded with
     ``seed``; the same seed gives other numbers than ``jax.random`` does,
@@ -50,7 +58,7 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ArchConfig, seed: int, device: torch.device):
         super().__init__()
-        require_dense(cfg)
+        require_ported(cfg)
         self.cfg = cfg
         dt = torch_dtype(cfg.param_dtype)
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -69,13 +77,17 @@ class Transformer(nn.Module):
 
 
 def _self_block_apply(blk, x, cfg, positions):
-    """One layer -> (new residual stream, k, v) with k/v as (B, KV, S, D)."""
+    """One layer -> (new residual stream, aux loss, k, v), k/v as (B, KV, S, D)."""
     att, k, v = L.attention(
         blk.attn, L.rms_norm(x, blk.attn.norm), cfg,
         causal=True, window=cfg.attn_window, positions=positions,
     )
     h = x + att
-    return h + L.mlp(blk.mlp, L.rms_norm(h, blk.mlp.norm)), k, v
+    if hasattr(blk, "moe"):
+        y, aux = L.moe(blk.moe, L.rms_norm(h, blk.moe.norm), cfg)
+        return h + y, aux, k, v
+    y = L.mlp(blk.mlp, L.rms_norm(h, blk.mlp.norm))
+    return h + y, 0.0, k, v
 
 
 def _embed(params, cfg, tokens):
@@ -87,10 +99,12 @@ def forward(params: Transformer, cfg: ArchConfig, tokens):
     """Full-sequence forward -> (logits (B, S, V), aux_loss)."""
     x = _embed(params, cfg, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in params.blocks:
-        x, _, _ = _self_block_apply(blk, x, cfg, positions)
+        x, a, _, _ = _self_block_apply(blk, x, cfg, positions)
+        aux = aux + a
     x = L.rms_norm(x, params.final_norm)
-    return x @ params.head(), torch.zeros((), dtype=torch.float32, device=x.device)
+    return x @ params.head(), aux
 
 
 # ---------------------------------------------------------------------------
@@ -114,7 +128,7 @@ def prefill(params: Transformer, cfg: ArchConfig, tokens, pad_to: int = 0):
         for name, (shape, dt) in cache_specs(cfg, B, max(pad_to, S)).items()
     }
     for i, blk in enumerate(params.blocks):
-        x, k, v = _self_block_apply(blk, x, cfg, positions)
+        x, _, k, v = _self_block_apply(blk, x, cfg, positions)
         cache["k"][i, :, :, :S] = k
         cache["v"][i, :, :, :S] = v
     x = L.rms_norm(x[:, -1], params.final_norm)
@@ -135,6 +149,10 @@ def decode_step(params: Transformer, cfg: ArchConfig, token, pos, cache):
             pos, cfg, window=cfg.attn_window,
         )
         x = x + att
-        x = x + L.mlp(blk.mlp, L.rms_norm(x, blk.mlp.norm))
+        if hasattr(blk, "moe"):  # N = B tokens of one position each
+            y, _ = L.moe(blk.moe, L.rms_norm(x, blk.moe.norm)[:, None], cfg)
+            x = x + y[:, 0]
+        else:
+            x = x + L.mlp(blk.mlp, L.rms_norm(x, blk.mlp.norm))
     x = L.rms_norm(x, params.final_norm)
     return x @ params.head(), cache

@@ -1,4 +1,5 @@
-"""The CUDA flash-attention kernel against its plain version, on the card.
+"""The CUDA kernels (flash attention, grouped matmul) against their plain
+versions, and the narrow models on the card against the CPU.
 
 Run on a machine with a CUDA card: ``python -m pytest -m gpu tests/test_torch_gpu.py``.
 Every test here skips without one (decided in the fixture, never at import).
@@ -12,7 +13,8 @@ import torch
 from repro_torch.configs.base import get_config
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.ref import ref_flash_attention
+from repro_torch.kernels.moe_gmm import moe_gmm
+from repro_torch.kernels.ref import ref_flash_attention, ref_moe_gmm
 from repro_torch.models import lm
 
 pytestmark = pytest.mark.gpu
@@ -97,3 +99,125 @@ def test_model_on_card_matches_plain_model_on_cpu(cuda):
     lg, cg = lm.prefill(model_gpu, {"tokens": tokens.to(cuda)}, cfg, pad_to=80)
     torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(cg["k"].cpu(), cc["k"], rtol=1e-4, atol=1e-4)
+
+
+def _xw(device, E, C, D, F, dtype, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(E, C, D, generator=gen, device=device).to(dtype)
+    w = (torch.randn(E, D, F, generator=gen, device=device) / D**0.5).to(dtype)
+    return x, w
+
+
+@pytest.mark.parametrize(
+    "E,C,D,F,dtype",
+    [
+        # qwen3-moe-30b-a3b's expert products at prefill (C = 312) and decode (C = 1).
+        (128, 312, 2048, 768, torch.bfloat16),
+        (128, 312, 768, 2048, torch.bfloat16),
+        (128, 312, 2048, 768, torch.float32),
+        (128, 312, 768, 2048, torch.float32),
+        (128, 1, 2048, 768, torch.bfloat16),
+        (128, 1, 768, 2048, torch.bfloat16),
+        # Ragged on every axis; around the skinny/tiled switch at C = 16;
+        # D and F off the vector widths (element-wise loads).
+        (3, 77, 200, 136, torch.bfloat16),
+        (3, 77, 200, 136, torch.float16),
+        (3, 77, 200, 136, torch.float32),
+        (5, 5, 64, 136, torch.bfloat16),
+        (5, 16, 300, 520, torch.float32),
+        (5, 17, 300, 520, torch.bfloat16),
+        (2, 70, 201, 135, torch.bfloat16),
+        (2, 3, 201, 135, torch.float32),
+    ],
+)
+def test_gmm_kernel_matches_plain(cuda, E, C, D, F, dtype):
+    x, w = _xw(cuda, E, C, D, F, dtype)
+    out = moe_gmm(x, w)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (E, C, F)
+    torch.testing.assert_close(out.float(), ref_moe_gmm(x, w).float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_gmm_kernel_with_zero_rows_past_each_count(cuda):
+    """A dispatch buffer as the MoE layer leaves it: rows past each expert's
+    count are zero, so those rows of the output are zero too."""
+    x, w = _xw(cuda, 16, 312, 2048, 768, torch.bfloat16)
+    counts = torch.randint(0, 313, (16,), generator=torch.Generator().manual_seed(0))
+    rows = torch.arange(312)[None, :] < counts[:, None]
+    x = x * rows[..., None].to(cuda, x.dtype)
+    out = moe_gmm(x, w)
+    torch.testing.assert_close(out.float(), ref_moe_gmm(x, w).float(), rtol=2e-2, atol=2e-2)
+    assert float(out[~rows.to(cuda)].abs().max()) == 0.0
+
+
+def test_gmm_kernel_takes_strided_views(cuda):
+    x, w = _xw(cuda, 8, 40, 256, 384, torch.bfloat16)
+    xt = x.transpose(1, 2).contiguous().transpose(1, 2)
+    wt = w.transpose(0, 1).contiguous().transpose(0, 1)
+    assert not xt.is_contiguous() and not wt.is_contiguous()
+    torch.testing.assert_close(moe_gmm(xt, wt), moe_gmm(x, w), rtol=0, atol=0)
+    torch.testing.assert_close(moe_gmm(x[:, :1], w), moe_gmm(x[:, :1].contiguous(), w),
+                               rtol=0, atol=0)
+
+
+def test_ops_counts_gmm_launches_and_rejects_mixed_dtypes(cuda, monkeypatch):
+    monkeypatch.setattr(ops, "grouped_matmul_launches", 0)
+    x, w = _xw(cuda, 4, 20, 64, 32, torch.bfloat16)
+    ops.grouped_matmul(x, w)
+    ops.grouped_matmul(x[:, :1], w)
+    assert ops.grouped_matmul_launches == 2
+    with pytest.raises(ValueError, match="share"):
+        ops.grouped_matmul(x, w.float())
+    with pytest.raises(ValueError):
+        ops.grouped_matmul(x, w[:, :32])
+    assert ops.grouped_matmul_launches == 2
+
+
+def _narrow_moe_config():
+    """qwen3-moe's smoke config widened to head dim 64, in fp32, at capacity
+    1.0 so that prefill drops entries."""
+    return dataclasses.replace(
+        get_config("qwen3-moe-30b-a3b").smoke(), d_model=256, n_heads=4, n_kv_heads=2,
+        head_dim=64, d_ff=128, n_experts=8, top_k=2, capacity_factor=1.0,
+        param_dtype="float32", activation_dtype="float32",
+    )
+
+
+def test_moe_model_on_card_matches_plain_model_on_cpu(cuda, monkeypatch):
+    cfg = _narrow_moe_config()
+    model_cpu = lm.init(0, cfg, device="cpu")
+    model_gpu = lm.init(0, cfg, device=cuda)
+    model_gpu.load_state_dict(model_cpu.state_dict())
+    tokens = torch.randint(0, cfg.vocab, (2, 77), generator=torch.Generator().manual_seed(0))
+    monkeypatch.setattr(ops, "grouped_matmul_launches", 0)
+    fc, ac = lm.forward(model_cpu, {"tokens": tokens}, cfg)
+    fg, ag = lm.forward(model_gpu, {"tokens": tokens.to(cuda)}, cfg)
+    assert ops.grouped_matmul_launches == 3 * cfg.n_layers
+    torch.testing.assert_close(fg.cpu(), fc, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(ag.cpu(), ac, rtol=1e-4, atol=1e-4)
+    lc, cc = lm.prefill(model_cpu, {"tokens": tokens}, cfg, pad_to=80)
+    lg, cg = lm.prefill(model_gpu, {"tokens": tokens.to(cuda)}, cfg, pad_to=80)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    for pos in (77, 78):
+        tok = lc.argmax(-1)
+        lc, cc = lm.decode_step(model_cpu, {"token": tok, "pos": pos, "cache": cc}, cfg)
+        lg, cg = lm.decode_step(model_gpu, {"token": tok.to(cuda), "pos": pos, "cache": cg}, cfg)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+
+
+def test_moe_model_never_waits_on_the_card(cuda):
+    """Prefill and decode enqueue their work without a host sync (no
+    ``.item()``, no ``bincount``, no boolean-mask indexing): the decode step
+    is bound by the host already."""
+    cfg = _narrow_moe_config()
+    model = lm.init(0, cfg, device=cuda)
+    tokens = torch.randint(0, cfg.vocab, (4, 100), device=cuda)
+    logits, cache = lm.prefill(model, {"tokens": tokens}, cfg, pad_to=104)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, cache = lm.prefill(model, {"tokens": tokens}, cfg, pad_to=104)
+        lm.decode_step(model, {"token": logits.argmax(-1), "pos": 100, "cache": cache}, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")

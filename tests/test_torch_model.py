@@ -1,5 +1,6 @@
-"""The port's granite-8b smoke model against the JAX package's, on the same
-weights (copied in with ``params_from_jax``) and the same numpy prompts."""
+"""The port's granite-8b and qwen3-moe-30b-a3b smoke models against the JAX
+package's, on the same weights (copied in with ``params_from_jax``) and the
+same numpy prompts."""
 
 import dataclasses
 
@@ -10,10 +11,14 @@ import pytest
 import torch
 
 from repro.configs import base as jbase
+from repro.models import layers as jL
 from repro.models import lm as jlm
+from repro.models import transformer as jT
 from repro_torch.configs import base as tbase
 from repro_torch.launch.serve import generate
+from repro_torch.models import layers as L
 from repro_torch.models import lm
+from repro_torch.models import transformer as T
 from repro_torch.weights import params_from_jax
 
 B, S = 2, 24
@@ -21,10 +26,10 @@ B, S = 2, 24
 FP32 = dict(rtol=2e-4, atol=2e-4)
 
 
-def _cfgs(dtype="float32", **over):
+def _cfgs(dtype="float32", arch="granite-8b", **over):
     over = dict(param_dtype=dtype, activation_dtype=dtype, **over)
-    jcfg = dataclasses.replace(jbase.get_config("granite-8b").smoke(), **over)
-    tcfg = dataclasses.replace(tbase.get_config("granite-8b").smoke(), **over)
+    jcfg = dataclasses.replace(jbase.get_config(arch).smoke(), **over)
+    tcfg = dataclasses.replace(tbase.get_config(arch).smoke(), **over)
     return jcfg, tcfg
 
 
@@ -152,8 +157,103 @@ def test_init_draws_on_device_with_reference_shapes():
     assert not torch.equal(lm.init(1, tcfg, device="cpu").embed, model.embed)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "falcon-mamba-7b", "llama-3.2-vision-11b", "hubert-xlarge"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "falcon-mamba-7b", "llama-3.2-vision-11b", "hubert-xlarge"])
 def test_unported_families_raise(arch):
     cfg = tbase.get_config(arch).smoke()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lm.init(0, cfg, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# qwen3-moe-30b-a3b (the MoE family): its smoke config is dropless
+# (capacity 4.0), so prefill and decode route exactly as the full forward.
+# ---------------------------------------------------------------------------
+
+MOE = "qwen3-moe-30b-a3b"
+
+
+def test_moe_forward_and_aux_match_reference_fp32():
+    jcfg, tcfg = _cfgs(arch=MOE)
+    jparams, model = _models(jcfg, tcfg)
+    tok = _tokens(tcfg, S)
+    expect, expect_aux = jlm.forward(jparams, {"tokens": jnp.asarray(tok)}, jcfg, remat="none")
+    logits, aux = lm.forward(model, {"tokens": torch.from_numpy(tok)}, tcfg)
+    np.testing.assert_allclose(_np(logits), np.asarray(expect), **FP32)
+    assert float(expect_aux) > 0.0  # summed over layers, as the reference does
+    np.testing.assert_allclose(float(aux), float(expect_aux), **FP32)
+
+
+def test_moe_prefill_and_decode_match_reference_fp32():
+    jcfg, tcfg = _cfgs(arch=MOE)
+    jparams, model = _models(jcfg, tcfg, seed=1)
+    tok = _tokens(tcfg, S + 1, seed=1)
+    jlogits, jcache = jlm.prefill(jparams, {"tokens": jnp.asarray(tok[:, :S])}, jcfg, pad_to=S + 4)
+    logits, cache = lm.prefill(model, {"tokens": torch.from_numpy(tok[:, :S])}, tcfg, pad_to=S + 4)
+    np.testing.assert_allclose(_np(logits), np.asarray(jlogits), **FP32)
+    for name in ("k", "v"):
+        assert tuple(cache[name].shape) == jcache[name].shape
+        np.testing.assert_allclose(_np(cache[name]), np.asarray(jcache[name]), **FP32)
+
+    jd, _ = jlm.decode_step(
+        jparams, {"token": jnp.asarray(tok[:, S]), "pos": jnp.int32(S), "cache": jcache}, jcfg
+    )
+    d, _ = lm.decode_step(
+        model, {"token": torch.from_numpy(tok[:, S]), "pos": S, "cache": cache}, tcfg
+    )
+    np.testing.assert_allclose(_np(d), np.asarray(jd), **FP32)
+
+
+def test_moe_generate_matches_reference_greedy_fp32():
+    jcfg, tcfg = _cfgs(arch=MOE)
+    jparams, model = _models(jcfg, tcfg, seed=3)
+    tok = _tokens(tcfg, 16, seed=3)
+    expect = _jax_generate(jparams, jcfg, tok, 8)
+    out = generate(model, torch.from_numpy(tok), 8)
+    assert out.shape == (B, 8)
+    np.testing.assert_array_equal(out.numpy(), expect)
+
+
+def test_moe_prefill_matches_reference_bf16():
+    """bf16, layer by layer on the reference's own residual stream, at the
+    dense case's bar (3e-2 of max|ref|) for every layer and for the logits.
+
+    Run end to end instead, the two packages' streams part by an ulp after
+    the first attention (JAX rounds scores and probabilities to bf16), and
+    with 4 experts that flips a near-tied top-2 choice for one token on
+    seeds 0 and 2 of 0-3: another routing, which moves the logits past the
+    bar, not an arithmetic error.  Fed the same input, each layer must agree.
+    """
+    jcfg, tcfg = _cfgs("bfloat16", arch=MOE)
+    jparams, model = _models(jcfg, tcfg)
+    tok = _tokens(tcfg, S)
+    x = jparams["embed"][jnp.asarray(tok)].astype(jnp.bfloat16)
+    jpos, tpos = jnp.arange(S)[None, :], torch.arange(S)[None, :]
+
+    def close(out, ref):
+        ref = np.asarray(ref.astype(jnp.float32))
+        assert np.abs(_np(out) - ref).max() <= 3e-2 * np.abs(ref).max()
+
+    for i, blk in enumerate(model.blocks):
+        jblk = jax.tree.map(lambda a, i=i: a[i], jparams["blocks"])
+        expect, _ = jT._self_block_apply(jblk, x, jcfg, None, jpos)
+        out, _, _, _ = T._self_block_apply(blk, torch.from_numpy(_np(x)).bfloat16(), tcfg, tpos)
+        assert out.dtype == torch.bfloat16
+        close(out, expect)
+        x = expect
+    last = torch.from_numpy(_np(x[:, -1])).bfloat16()
+    close(L.rms_norm(last, model.final_norm) @ model.head(),
+          jL.rms_norm(x[:, -1], jparams["final_norm"]) @ jparams["lm_head"])
+
+
+def test_moe_weights_keep_the_router_in_fp32():
+    jcfg, tcfg = _cfgs("bfloat16", arch=MOE)
+    jparams = jlm.init(jax.random.PRNGKey(0), jcfg)
+    sd = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg)
+    model_sd = lm.init(0, tcfg, device="cpu").state_dict()
+    assert sorted(sd) == sorted(model_sd)
+    for name, t in sd.items():
+        want = torch.float32 if name.endswith(".moe.router") else torch.bfloat16
+        assert t.dtype == want and model_sd[name].dtype == want, name
+        assert t.shape == model_sd[name].shape, name
+    router = np.asarray(jparams["blocks"]["moe"]["router"][1])
+    assert np.array_equal(sd["blocks.1.moe.router"].numpy(), router)  # not rounded

@@ -26,6 +26,14 @@ def test_main_on_cpu_prints_its_lines(capsys):
     assert out[3].startswith("generated ids (first seq):")
 
 
+def test_main_serves_the_moe_family_on_cpu(capsys):
+    args = [a if a != "granite-8b" else "qwen3-moe-30b-a3b" for a in SMOKE]
+    serve.main([*args, "--device", "cpu"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[1].startswith("prefill: 2x8 in ")
+    assert out[3].startswith("generated ids (first seq):")
+
+
 def test_main_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
