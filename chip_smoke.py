@@ -11,11 +11,16 @@ result line:
 2. build: every CUDA kernel of the serving paths, from ``src/repro_torch/csrc``
    (one ``nvcc`` per source, all started together);
 3. kernels vs their plain PyTorch versions at the serving shapes, with times
-   beside the bound and beside one PyTorch library call: flash attention at
-   granite-8b's and qwen3-moe-30b-a3b's attention (B=4, H=32, KV=8 or 4,
-   D=128; S=1000 and 2048), the grouped matmul at qwen3-moe-30b-a3b's expert
-   products (E=128; C=312 at prefill, C=1 at decode); then narrow fp32
-   granite and MoE models on the card against the same models on the CPU;
+   beside the bound and beside one PyTorch library call where one computes
+   the same function: flash attention at granite-8b's and
+   qwen3-moe-30b-a3b's attention (B=4, H=32, KV=8 or 4, D=128; S=1000 and
+   2048) and at recurrentgemma-9b's (B=4, H=16, KV=1, S=2048, D=256, window
+   2048), the grouped matmul at qwen3-moe-30b-a3b's expert products (E=128;
+   C=312 at prefill, C=1 at decode), the Mamba selective scan at
+   falcon-mamba-7b's prefill (B=4, L=1000, DI=8192, ST=16) and the RG-LRU
+   scan at recurrentgemma-9b's (B=4, L=2048, D=4096), each also at a ragged
+   shape; then narrow fp32 granite, MoE, Mamba and Griffin models on the
+   card against the same models on the CPU;
 4. serve granite-8b at full width and depth in bf16 through
    ``repro_torch.launch.serve.generate`` (4 requests, prompt 1000, 16 decode
    steps), counting kernel launches, and hold its prefill against
@@ -24,12 +29,22 @@ result line:
    parameters in bf16), counting both kernels' launches in the prefill and
    in the decode loop, then hold its first MoE layer on the card in bf16
    against the same layer on the CPU in fp32;
+4c. serve falcon-mamba-7b the same way (64 Mamba layers, a selective-scan
+   launch in each at prefill, plain steps at decode), and hold its prefill
+   against prefill(S-1) plus a decode step;
+4d. serve recurrentgemma-9b the same way at a 2048-token prompt, its
+   attention window (26 RG-LRU scans and 12 flash-attention launches per
+   prefill), and hold prefill(2049) against prefill(2048) plus a decode
+   step on the ring-buffer cache;
 5. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, and the
    result line ``{"ok": true, "device": {...}}`` last.
 
-Times come from CUDA events (kernels) or the host clock after a synchronise
-(serving).  Bounds use the H100 SXM's published peaks at 700 W: 989 TFLOP/s
-bf16/fp16 dense, 67 TFLOP/s fp32 without tensor cores, 3.35 TB/s.
+Each serving phase sets every kernel's launch count to 0 just before its
+run and reads the counts just after.  Times come from CUDA events (kernels)
+or the host clock after a synchronise (serving).  Bounds use the H100 SXM's
+published peaks at 700 W: 989 TFLOP/s bf16/fp16 dense, 67 TFLOP/s fp32
+without tensor cores, 3.35 TB/s; exps run on the special-function units,
+16 a clock on each SM beside the 128 fp32 lanes, so at 1/8 of 67e12 / 2.
 """
 
 from __future__ import annotations
@@ -49,6 +64,7 @@ import torch  # noqa: E402
 
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
+SFU_EXP_PER_S = PEAK_FLOPS[torch.float32] / 2 / 128 * 16  # 4.19e12 exps/s
 # bf16/fp16: tests/test_kernels.py's fp16 bar.  fp32: sums of up to 2048
 # terms run in another order on the card than in the plain version.
 TOL = {torch.bfloat16: 2e-2, torch.float16: 2e-2, torch.float32: 1e-4}
@@ -56,6 +72,10 @@ B, H, KV, D = 4, 32, 8, 128  # granite-8b's attention at the serving batch
 PROMPT, DECODE_STEPS = 1000, 16
 E_MOE, D_MOE, F_MOE = 128, 2048, 768  # qwen3-moe-30b-a3b's experts
 C_PREFILL = int(1.25 * B * PROMPT * 8 / E_MOE)  # 312: capacity at the serving prefill
+DI_MAMBA, ST_MAMBA, R_MAMBA = 8192, 16, 256  # falcon-mamba-7b's scan
+PROMPT_RG, D_RG = 2048, 4096  # recurrentgemma-9b: prompt = attention window; LRU width
+COUNTERS = ("attention_launches", "grouped_matmul_launches", "selective_scan_launches",
+            "lru_scan_launches")
 
 
 def require(ok, what: str) -> None:
@@ -116,6 +136,128 @@ def gmm_bound(x, w) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+def mamba_bound(xc, dt, a, b, c, d_skip) -> tuple[float, str, float, float]:
+    """Least time for the card: the larger of the bytes (each input read once,
+    b and c only where the scan reads them, y and h written once) over
+    3.35 TB/s and the B*L*DI*ST exps over the SFU rate.  Also both times."""
+    Bm, L, DI = xc.shape
+    ST = a.shape[1]
+    nbytes = (xc.numel() * xc.element_size() + (dt.numel() + a.numel() + d_skip.numel()) * 4
+              + (b.numel() + c.numel()) * b.element_size() + (Bm * L * DI + Bm * DI * ST) * 4)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, Bm * L * DI * ST / SFU_EXP_PER_S
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
+            t_bytes * 1e3, t_ops * 1e3)
+
+
+def lru_bound(a, b) -> tuple[float, str]:
+    """Least time for the card: a and b read once and h_all and h_final (fp32)
+    written once, against 2 flops a step and lane over the fp32 peak."""
+    Bm, L, Dl = a.shape
+    nbytes = (a.numel() + b.numel()) * a.element_size() + (Bm * L * Dl + Bm * Dl) * 4
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, 2.0 * Bm * L * Dl / PEAK_FLOPS[torch.float32]
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def mamba_inputs(gen, Bm, L, DI, ST, dtype, R=None):
+    """Inputs as the Mamba layer makes them: dt in softplus's range near
+    0.01, A = -(1..ST) per channel as ``a_log`` starts; with ``R``, b and c
+    are the strided slices of one (B, L, R + 2 ST) projection."""
+    dev = gen.device
+    xc = torch.randn(Bm, L, DI, generator=gen, device=dev).to(dtype)
+    dt = torch.rand(Bm, L, DI, generator=gen, device=dev) * 0.099 + 0.001
+    a = -torch.arange(1, ST + 1, dtype=torch.float32, device=dev).repeat(DI, 1)
+    if R is None:
+        b = torch.randn(Bm, L, ST, generator=gen, device=dev).to(dtype)
+        c = torch.randn(Bm, L, ST, generator=gen, device=dev).to(dtype)
+    else:
+        xdbc = torch.randn(Bm, L, R + 2 * ST, generator=gen, device=dev).to(dtype)
+        b, c = xdbc[..., R:R + ST], xdbc[..., R + ST:]
+    return xc, dt, a, b, c, torch.randn(DI, generator=gen, device=dev)
+
+
+def narrow_config(get_config, arch):
+    """An arch's smoke config widened to d_model 256 and head dim 64 (the
+    attention kernel's smallest), in fp32."""
+    over = dict(d_model=256, param_dtype="float32", activation_dtype="float32")
+    if arch == "granite-8b":
+        over.update(n_heads=4, n_kv_heads=2, head_dim=64, d_ff=512)
+    elif arch == "qwen3-moe-30b-a3b":  # 8 experts at capacity 1.0: prefill drops entries
+        over.update(n_heads=4, n_kv_heads=2, head_dim=64, d_ff=128, n_experts=8, top_k=2,
+                    capacity_factor=1.0)
+    elif arch == "falcon-mamba-7b":
+        over.update(ssm_state=16, dt_rank=16)
+    else:  # recurrentgemma-9b: a 32-token window, which the 77-token prompts pass
+        over.update(n_heads=4, n_kv_heads=1, head_dim=64, d_ff=512, lru_width=256,
+                    attn_window=32)
+    return dataclasses.replace(get_config(arch).smoke(), **over)
+
+
+def served(lm, ops, generate, model, tokens):
+    """``generate`` with every launch count set to 0 just before it and read
+    just after, and again after the prefill; each step's logits are kept and
+    checked after the run, so the loop never waits on the card.  The peak
+    memory statistic is reset just before it too: the peak it leaves is the
+    request's, not the random init's (whose fp32 draws are transients that
+    loaded bf16 weights do not have).  Returns (ids, timings, prefill counts,
+    decode-loop counts, logits)."""
+    seen: dict = {"logits": []}
+    real_prefill, real_decode = lm.prefill, lm.decode_step
+
+    def counted_prefill(*args, **kwargs):
+        logits, cache = real_prefill(*args, **kwargs)
+        seen["prefill"] = {n: getattr(ops, n) for n in COUNTERS}
+        seen["logits"].append(logits)
+        return logits, cache
+
+    def kept_decode(*args, **kwargs):
+        logits, cache = real_decode(*args, **kwargs)
+        seen["logits"].append(logits)
+        return logits, cache
+
+    lm.prefill, lm.decode_step = counted_prefill, kept_decode
+    try:
+        for n in COUNTERS:
+            setattr(ops, n, 0)
+        torch.cuda.reset_peak_memory_stats()
+        timings: dict = {}
+        ids = generate(model, tokens, DECODE_STEPS, timings)
+        total = {n: getattr(ops, n) for n in COUNTERS}
+    finally:
+        lm.prefill, lm.decode_step = real_prefill, real_decode
+    decode = {n: total[n] - seen["prefill"][n] for n in COUNTERS}
+    return ids, timings, seen["prefill"], decode, seen["logits"]
+
+
+def check_served(cfg, ids, logits) -> None:
+    require(len(logits) == DECODE_STEPS, "one logits tensor per generated token")
+    require(all(bool(torch.isfinite(t).all()) for t in logits), f"finite {cfg.name} logits")
+    require(tuple(ids.shape) == (B, DECODE_STEPS), f"generated ids shape {tuple(ids.shape)}")
+    require(bool(((ids >= 0) & (ids < cfg.vocab)).all()), "generated ids in the vocabulary")
+
+
+def check_narrow_model(lm, cfg, dev, toks, label) -> dict:
+    """A narrow fp32 model on the card against the same weights on the CPU:
+    forward, prefill (logits and every cache entry) and two decode steps."""
+    m_cpu = lm.init(0, cfg, device="cpu")
+    m_gpu = lm.init(0, cfg, device=dev)
+    m_gpu.load_state_dict(m_cpu.state_dict())
+    fc, _ = lm.forward(m_cpu, {"tokens": toks}, cfg)
+    fg, _ = lm.forward(m_gpu, {"tokens": toks.to(dev)}, cfg)
+    lc, cc = lm.prefill(m_cpu, {"tokens": toks}, cfg)
+    lg, cg = lm.prefill(m_gpu, {"tokens": toks.to(dev)}, cfg)
+    errs = {"forward": float((fg.cpu() - fc).abs().max()),
+            "prefill": float((lg.cpu() - lc).abs().max())}
+    errs.update({f"cache {n}": float((cg[n].cpu() - cc[n]).abs().max()) for n in cc})
+    S = toks.shape[1]
+    for pos in (S, S + 1):
+        tok = lc.argmax(-1)
+        lc, cc = lm.decode_step(m_cpu, {"token": tok, "pos": pos, "cache": cc}, cfg)
+        lg, cg = lm.decode_step(m_gpu, {"token": tok.to(dev), "pos": pos, "cache": cg}, cfg)
+        errs[f"decode@{pos}"] = float((lg.cpu() - lc).abs().max())
+    require(max(errs.values()) <= 1e-4, f"narrow {label}, card vs CPU: {errs}")
+    return errs
+
+
 def dispatch_like(x, gen):
     """Zeroes the rows of an (E, C, D) buffer past each expert's count, as
     the MoE layer's dispatch leaves them: counts from 4000 tokens' top-8 of
@@ -136,8 +278,12 @@ def main() -> int:
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mamba_scan import mamba_scan
     from repro_torch.kernels.moe_gmm import moe_gmm
-    from repro_torch.kernels.ref import ref_flash_attention, ref_moe_gmm
+    from repro_torch.kernels.ref import (
+        ref_flash_attention, ref_mamba_scan, ref_moe_gmm, ref_rglru_scan,
+    )
+    from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch.launch.serve import generate
     from repro_torch.models import layers, lm
 
@@ -148,10 +294,12 @@ def main() -> int:
     print(f"phase 1 device: torch: {kind}, count {count}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}")
 
+    kernels = ["flash_attention", "moe_gmm", "mamba_scan", "rglru_scan"]
     t0 = time.perf_counter()
-    _build.load_all(["flash_attention", "moe_gmm"])
-    print(f"phase 2 build: flash_attention.cu and moe_gmm.cu in {time.perf_counter() - t0:.2f} s")
-    for name in ("flash_attention", "moe_gmm"):
+    _build.load_all(kernels)
+    print(f"phase 2 build: {', '.join(k + '.cu' for k in kernels)} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name in kernels:
         for line in _build.build_logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"phase 2 build: ptxas {name}: {line.strip()}")
@@ -159,46 +307,54 @@ def main() -> int:
     # Phase 3: the kernel against its plain version at the serving shapes.
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def qkv(S, dh, dtype, kv):
+    def qkv(S, dh, dtype, kv, h):
         return tuple(
             torch.randn(B, n, S, dh, generator=gen, device=dev).to(dtype)
-            for n in (H, kv, kv)
+            for n in (h, kv, kv)
         )
 
-    cases = [  # (S, D, dtype, causal, window, KV)
-        (PROMPT, D, torch.bfloat16, True, 0, KV),
-        (PROMPT, D, torch.float32, True, 0, KV),
-        (2048, D, torch.bfloat16, True, 0, KV),
-        (2048, D, torch.float32, True, 0, KV),
-        (PROMPT, 64, torch.bfloat16, True, 128, KV),
-        (PROMPT, D, torch.bfloat16, False, 0, KV),
-        (PROMPT, D, torch.bfloat16, True, 0, 4),  # qwen3-moe-30b-a3b's prefill
+    cases = [  # (S, D, dtype, causal, window, KV, H)
+        (PROMPT, D, torch.bfloat16, True, 0, KV, H),
+        (PROMPT, D, torch.float32, True, 0, KV, H),
+        (2048, D, torch.bfloat16, True, 0, KV, H),
+        (2048, D, torch.float32, True, 0, KV, H),
+        (PROMPT, 64, torch.bfloat16, True, 128, KV, H),
+        (PROMPT, D, torch.bfloat16, False, 0, KV, H),
+        (PROMPT, D, torch.bfloat16, True, 0, 4, H),  # qwen3-moe-30b-a3b's prefill
+        (PROMPT_RG, 256, torch.bfloat16, True, PROMPT_RG, 1, 16),  # recurrentgemma-9b's
+        (PROMPT_RG, 256, torch.float32, True, PROMPT_RG, 1, 16),
     ]
-    main_case = {}
-    for S, dh, dtype, causal, window, kv in cases:
-        q, k, v = qkv(S, dh, dtype, kv)
+    main_case, rg_case = {}, {}
+    for S, dh, dtype, causal, window, kv, h in cases:
+        q, k, v = qkv(S, dh, dtype, kv, h)
         out = flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         ref = ref_flash_attention(q, k, v, causal=causal, window=window)
         err = float((out.float() - ref.float()).abs().max())
         tol = TOL[dtype]
-        label = f"KV={kv} S={S} D={dh} {str(dtype)[6:]} causal={causal} window={window}"
+        label = (f"H={h} KV={kv} S={S} D={dh} {str(dtype)[6:]} causal={causal} "
+                 f"window={window}")
         require(bool(torch.isfinite(out).all()), f"finite kernel output, {label}")
         require(torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol),
                 f"kernel vs plain at {tol}, {label}: max|err| {err}")
         kernel_ms = time_ms(lambda: flash_attention(q, k, v, causal=causal, window=window), 20)
         plain_ms = time_ms(lambda: ref_flash_attention(q, k, v, causal=causal, window=window), 5)
         library_ms = None
-        if window == 0:  # SDPA has no sliding window; a yardstick only, never on the port's path
+        # SDPA has no sliding window (a window of S or more is none); a
+        # yardstick only, never on the port's path.
+        if window == 0 or window >= S:
             library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=True), 20)
         bound_ms, bound_by = attention_bound(q, k, causal, window)
         print(f"phase 3 kernel: flash_attention {label}: max|err| {err} (tol {tol}) "
               f"kernel_ms {kernel_ms} plain_ms {plain_ms} library_ms {library_ms} "
               f"bound_ms {bound_ms} ({bound_by}) on {smi}")
-        if (S, dh, dtype, causal, window, kv) == cases[0]:
-            main_case = dict(max_abs_err=err, kernel_ms=kernel_ms, plain_ms=plain_ms,
-                             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+        numbers = dict(max_abs_err=err, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                       library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+        if (S, dh, dtype, causal, window, kv, h) == cases[0]:
+            main_case = numbers
+        if (S, dh, dtype, causal, window, kv, h) == cases[7]:
+            rg_case = numbers
         del q, k, v, out, ref
     torch.cuda.empty_cache()
 
@@ -247,12 +403,79 @@ def main() -> int:
         del x, w, out, ref
     torch.cuda.empty_cache()
 
+    # The selective scan at falcon-mamba-7b's prefill (b and c strided, as the
+    # layer passes them) and at a ragged shape (L not a multiple of 16 or 32,
+    # DI not of the 64-channel block), with bf16 inputs and in fp32.  The bar
+    # is 1e-4 of max|y| in fp32 and 2e-2 with bf16 inputs.  No PyTorch call
+    # computes a linear recurrence, so there is no library time.
+    mamba_cases = [  # (B, L, DI, ST, R, dtype)
+        (B, PROMPT, DI_MAMBA, ST_MAMBA, R_MAMBA, torch.bfloat16),
+        (B, PROMPT, DI_MAMBA, ST_MAMBA, R_MAMBA, torch.float32),
+        (2, 37, 200, ST_MAMBA, None, torch.bfloat16),
+        (2, 37, 200, ST_MAMBA, None, torch.float32),
+    ]
+    mamba_main = {}
+    for Bm, L, DI, ST, R, dtype in mamba_cases:
+        args = mamba_inputs(gen, Bm, L, DI, ST, dtype, R)
+        y, h = mamba_scan(*args)
+        torch.cuda.synchronize()
+        ey, eh = ref_mamba_scan(*args)
+        err, herr = float((y - ey).abs().max()), float((h - eh).abs().max())
+        tol = 1e-4 * float(ey.abs().max()) if dtype == torch.float32 else TOL[dtype]
+        htol = max(tol, 1e-4 * float(eh.abs().max()))
+        label = f"B={Bm} L={L} DI={DI} ST={ST} {str(dtype)[6:]}" + (" b,c strided" if R else "")
+        require(bool(torch.isfinite(y).all() and torch.isfinite(h).all()),
+                f"finite kernel output, {label}")
+        require(err <= tol and herr <= htol,
+                f"kernel vs plain, {label}: max|err| y {err} (tol {tol}), h {herr} (tol {htol})")
+        kernel_ms = time_ms(lambda: mamba_scan(*args), 20)
+        plain_ms = time_ms(lambda: ref_mamba_scan(*args), 3, warmup=1)
+        bound_ms, bound_by, bytes_ms, exp_ms = mamba_bound(*args)
+        print(f"phase 3 kernel: mamba_scan {label}: max|err| y {err} (tol {tol}) h {herr} "
+              f"(tol {htol}) kernel_ms {kernel_ms} plain_ms {plain_ms} library_ms None "
+              f"bound_ms {bound_ms} ({bound_by}; bytes {bytes_ms} ms, exps {exp_ms} ms) on {smi}")
+        if (Bm, L, DI, ST, R, dtype) == mamba_cases[0]:
+            mamba_main = dict(max_abs_err=err, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                              library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+        del args, y, h, ey, eh
+
+    # The RG-LRU scan at recurrentgemma-9b's prefill (fp32, as the layer
+    # passes it) and at a ragged shape, in fp32 and with bf16 inputs.
+    lru_cases = [  # (B, L, D, dtype)
+        (B, PROMPT_RG, D_RG, torch.float32),
+        (B, PROMPT_RG, D_RG, torch.bfloat16),
+        (3, 1000, 200, torch.float32),
+        (3, 1000, 200, torch.bfloat16),
+    ]
+    lru_main = {}
+    for Bm, L, Dl, dtype in lru_cases:
+        a = (torch.rand(Bm, L, Dl, generator=gen, device=dev) * 0.89 + 0.1).to(dtype)
+        bb = torch.randn(Bm, L, Dl, generator=gen, device=dev).to(dtype)
+        h_all, h_fin = rglru_scan(a, bb)
+        torch.cuda.synchronize()
+        e_all, e_fin = ref_rglru_scan(a, bb)
+        err = max(float((h_all - e_all).abs().max()), float((h_fin - e_fin).abs().max()))
+        tol = 1e-5  # fp32 arithmetic from the same inputs in both
+        label = f"B={Bm} L={L} D={Dl} {str(dtype)[6:]}"
+        require(bool(torch.isfinite(h_all).all()), f"finite kernel output, {label}")
+        require(torch.allclose(h_all, e_all, rtol=tol, atol=tol)
+                and torch.allclose(h_fin, e_fin, rtol=tol, atol=tol),
+                f"kernel vs plain at {tol}, {label}: max|err| {err}")
+        kernel_ms = time_ms(lambda: rglru_scan(a, bb), 20)
+        plain_ms = time_ms(lambda: ref_rglru_scan(a, bb), 3, warmup=1)
+        bound_ms, bound_by = lru_bound(a, bb)
+        print(f"phase 3 kernel: rglru_scan {label}: max|err| {err} (tol {tol}) kernel_ms "
+              f"{kernel_ms} plain_ms {plain_ms} library_ms None bound_ms {bound_ms} "
+              f"({bound_by}) on {smi}")
+        if (Bm, L, Dl, dtype) == lru_cases[0]:
+            lru_main = dict(max_abs_err=err, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                            library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+        del a, bb, h_all, h_fin, e_all, e_fin
+    torch.cuda.empty_cache()
+
     # A narrow granite in fp32 (head dim 64): kernel prefill on the card vs the
     # plain model on the CPU, same weights and prompts.
-    small = dataclasses.replace(
-        get_config("granite-8b").smoke(), d_model=256, n_heads=4, n_kv_heads=2,
-        head_dim=64, d_ff=512, param_dtype="float32", activation_dtype="float32",
-    )
+    small = narrow_config(get_config, "granite-8b")
     m_cpu = lm.init(0, small, device="cpu")
     m_gpu = lm.init(0, small, device=dev)
     m_gpu.load_state_dict(m_cpu.state_dict())
@@ -268,11 +491,7 @@ def main() -> int:
 
     # A narrow qwen3-moe in fp32 (head dim 64, 8 experts, top 2) at capacity
     # 1.0, so prefill drops entries: both kernels on the card vs the CPU.
-    small_moe = dataclasses.replace(
-        get_config("qwen3-moe-30b-a3b").smoke(), d_model=256, n_heads=4, n_kv_heads=2,
-        head_dim=64, d_ff=128, n_experts=8, top_k=2, capacity_factor=1.0,
-        param_dtype="float32", activation_dtype="float32",
-    )
+    small_moe = narrow_config(get_config, "qwen3-moe-30b-a3b")
     m_cpu = lm.init(0, small_moe, device="cpu")
     m_gpu = lm.init(0, small_moe, device=dev)
     m_gpu.load_state_dict(m_cpu.state_dict())
@@ -295,9 +514,15 @@ def main() -> int:
           "(tol 1e-4)")
     del m_cpu, m_gpu, cg
 
+    # Narrow fp32 falcon-mamba and Griffin: the scans (and Griffin's windowed
+    # attention at head dim 64) on the card vs the plain models on the CPU.
+    for arch in ("falcon-mamba-7b", "recurrentgemma-9b"):
+        errs = check_narrow_model(lm, narrow_config(get_config, arch), dev, toks, arch)
+        print(f"phase 3 model: narrow fp32 {arch}, card vs CPU plain: max|err| {errs} "
+              "(tol 1e-4)")
+
     # Phase 4: serve granite-8b at full width and depth.
     cfg = get_config("granite-8b")
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = lm.init(0, cfg, device=dev)
     torch.cuda.synchronize()
@@ -307,16 +532,14 @@ def main() -> int:
     tokens = torch.randint(0, cfg.vocab, (B, PROMPT), generator=gen, device=dev)
     generate(model, tokens[:, :64], 2)  # warm-up: cuBLAS handles and heuristics
 
-    ops.attention_launches = 0
-    ops.grouped_matmul_launches = 0
-    timings: dict = {}
-    ids = generate(model, tokens, DECODE_STEPS, timings)
-    launches = ops.attention_launches
-    require(ops.grouped_matmul_launches == 0, "granite-8b has no experts: no moe_gmm launch")
-    require(launches == cfg.n_layers,
-            f"{launches} flash_attention launches in one prefill, want {cfg.n_layers}")
-    require(tuple(ids.shape) == (B, DECODE_STEPS), f"generated ids shape {tuple(ids.shape)}")
-    require(bool(((ids >= 0) & (ids < cfg.vocab)).all()), "generated ids in the vocabulary")
+    ids, timings, pre, dec, logits = served(lm, ops, generate, model, tokens)
+    check_served(cfg, ids, logits)
+    launches = pre["attention_launches"] + dec["attention_launches"]
+    require(launches == cfg.n_layers and pre["attention_launches"] == cfg.n_layers,
+            f"flash_attention launches: {pre} in the prefill, {dec} in the decode loop, "
+            f"want {cfg.n_layers} in the prefill and none after")
+    require(sum(pre.values()) + sum(dec.values()) == launches,
+            f"granite-8b runs no other kernel: {pre}, {dec}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     decode_ms = timings["decode_s"] / (DECODE_STEPS - 1) * 1e3
     print(f"phase 4 serve: {B}x{PROMPT} prefill {timings['prefill_s'] * 1e3} ms, decode "
@@ -341,10 +564,9 @@ def main() -> int:
 
     # Phase 4b: serve qwen3-moe-30b-a3b at full width and depth.  Its 61 GB
     # of weights need the room granite's model and caches hold.
-    del model, full, part, step, cache, tokens, ids
+    del model, full, part, step, cache, tokens, ids, logits
     gc.collect()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     cfg = get_config("qwen3-moe-30b-a3b")
     t0 = time.perf_counter()
     model = lm.init(0, cfg, device=dev)
@@ -355,33 +577,12 @@ def main() -> int:
     tokens = torch.randint(0, cfg.vocab, (B, PROMPT), generator=gen, device=dev)
     generate(model, tokens[:, :64], 2)  # warm-up
 
-    # Count each kernel's launches in the prefill and in the decode loop, and
-    # keep every step's logits (checked after the run, so the loop never syncs).
-    seen: dict = {"logits": []}
-    real_prefill, real_decode = lm.prefill, lm.decode_step
-
-    def counted_prefill(*args, **kwargs):
-        logits, cache = real_prefill(*args, **kwargs)
-        seen["prefill"] = (ops.attention_launches, ops.grouped_matmul_launches)
-        seen["logits"].append(logits)
-        return logits, cache
-
-    def kept_decode(*args, **kwargs):
-        logits, cache = real_decode(*args, **kwargs)
-        seen["logits"].append(logits)
-        return logits, cache
-
-    lm.prefill, lm.decode_step = counted_prefill, kept_decode
-    try:
-        ops.attention_launches = 0
-        ops.grouped_matmul_launches = 0
-        timings = {}
-        ids = generate(model, tokens, DECODE_STEPS, timings)
-        att_total, gmm_total = ops.attention_launches, ops.grouped_matmul_launches
-    finally:
-        lm.prefill, lm.decode_step = real_prefill, real_decode
-    att_prefill, gmm_prefill = seen["prefill"]
-    gmm_decode_loop = gmm_total - gmm_prefill
+    ids, timings, pre, dec, logits = served(lm, ops, generate, model, tokens)
+    check_served(cfg, ids, logits)
+    att_prefill, gmm_prefill = pre["attention_launches"], pre["grouped_matmul_launches"]
+    att_total = att_prefill + dec["attention_launches"]
+    gmm_decode_loop = dec["grouped_matmul_launches"]
+    gmm_total = gmm_prefill + gmm_decode_loop
     per_layer = 3 * cfg.n_layers  # gate, up and down products in every layer
     require(att_prefill == cfg.n_layers and att_total == cfg.n_layers,
             f"flash_attention launches: {att_prefill} in the prefill, {att_total} in all, "
@@ -391,10 +592,9 @@ def main() -> int:
     require(gmm_decode_loop == per_layer * (DECODE_STEPS - 1),
             f"{gmm_decode_loop} moe_gmm launches in {DECODE_STEPS - 1} decode steps, "
             f"want {per_layer * (DECODE_STEPS - 1)}")
-    require(len(seen["logits"]) == DECODE_STEPS, "one logits tensor per generated token")
-    require(all(bool(torch.isfinite(t).all()) for t in seen["logits"]), "finite qwen logits")
-    require(tuple(ids.shape) == (B, DECODE_STEPS), f"generated ids shape {tuple(ids.shape)}")
-    require(bool(((ids >= 0) & (ids < cfg.vocab)).all()), "generated ids in the vocabulary")
+    require(pre["selective_scan_launches"] + pre["lru_scan_launches"]
+            + dec["selective_scan_launches"] + dec["lru_scan_launches"] == 0,
+            "qwen3-moe-30b-a3b runs no scan")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     decode_ms = timings["decode_s"] / (DECODE_STEPS - 1) * 1e3
     print(f"phase 4b serve: {B}x{PROMPT} prefill {timings['prefill_s'] * 1e3} ms, decode "
@@ -402,7 +602,7 @@ def main() -> int:
           f"flash_attention launches {att_prefill} (prefill), moe_gmm launches {gmm_prefill} "
           f"(prefill) + {gmm_decode_loop} ({DECODE_STEPS - 1} decode steps), on {smi}")
     print(f"phase 4b serve: generated ids (first request): {ids[0].tolist()}")
-    del seen
+    del logits
 
     # The served model's first MoE layer, bf16 on the card, against an fp32
     # copy on the CPU, on 64 tokens (N = 64, C = 5): dispatch, the kernel and
@@ -421,6 +621,16 @@ def main() -> int:
           f"{max(1, int(cfg.capacity_factor * 64 * cfg.top_k / cfg.n_experts))}), bf16 card "
           f"vs fp32 CPU: max|err| {err} (tol 2e-2), max|out| {float(y_cpu.abs().max())}, "
           f"aux {float(aux_gpu)} vs {float(aux_cpu)}")
+    qwen_name = cfg.name
+    del model, moe0, moe_cpu, x_in, y_gpu, y_cpu, tokens, ids
+
+    # Phases 4c and 4d: the recurrent families, each after the previous model
+    # is freed.  Each layer's scan runs the kernel at prefill and a plain step
+    # at decode.
+    falcon = serve_recurrent(lm, ops, generate, get_config("falcon-mamba-7b"), PROMPT, gen,
+                             dev, smi, "4c")
+    griffin = serve_recurrent(lm, ops, generate, get_config("recurrentgemma-9b"), PROMPT_RG,
+                              gen, dev, smi, "4d")
 
     print(json.dumps({"kernels": [{
         "name": "flash_attention",
@@ -428,8 +638,9 @@ def main() -> int:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:84",
         "tpu_ref": "kernels/flash_attention.py:84",
-        "launches": granite_attention_launches + att_total,
-        "launches_by_path": {"granite-8b": granite_attention_launches, cfg.name: att_total},
+        "launches": granite_attention_launches + att_total + griffin["attention_launches"],
+        "launches_by_path": {"granite-8b": granite_attention_launches, qwen_name: att_total,
+                             "recurrentgemma-9b": griffin["attention_launches"]},
         "max_abs_err": main_case["max_abs_err"],
         "max_err_bf16": main_case["max_abs_err"],
         "ms": main_case["kernel_ms"],
@@ -438,6 +649,11 @@ def main() -> int:
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
+        "d256_kernel_ms": rg_case["kernel_ms"],
+        "d256_plain_ms": rg_case["plain_ms"],
+        "d256_bound_ms": rg_case["bound_ms"],
+        "d256_library_ms": rg_case["library_ms"],
+        "d256_max_abs_err": rg_case["max_abs_err"],
     }, {
         "name": "moe_gmm",
         "route": "cuda",
@@ -458,10 +674,83 @@ def main() -> int:
         "decode_kernel_ms": gmm_decode["kernel_ms"],
         "decode_bound_ms": gmm_decode["bound_ms"],
         "decode_library_ms": gmm_decode["library_ms"],
+    }, {
+        "name": "mamba_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/mamba_scan.cu",
+        "replaces": "src/repro/kernels/mamba_scan.py:57",
+        "tpu_ref": "kernels/mamba_scan.py:57",
+        "launches": falcon["selective_scan_launches"],
+        "launches_by_path": {"falcon-mamba-7b": falcon["selective_scan_launches"]},
+        "ms": mamba_main["kernel_ms"],
+        **mamba_main,
+    }, {
+        "name": "rglru_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan.py:42",
+        "tpu_ref": "kernels/rglru_scan.py:42",
+        "launches": griffin["lru_scan_launches"],
+        "launches_by_path": {"recurrentgemma-9b": griffin["lru_scan_launches"]},
+        "ms": lru_main["kernel_ms"],
+        **lru_main,
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0
+
+
+def serve_recurrent(lm, ops, generate, cfg, prompt, gen, dev, smi, phase) -> dict:
+    """Serves a recurrent model at full width and depth after freeing the
+    card, checks its launch counts and outputs, holds prefill(S + 1) against
+    prefill(S) plus a decode step, and returns the prefill's launch counts."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = lm.init(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"phase {phase} serve: {cfg.name} init on the card: {n_params} parameters "
+          f"({cfg.param_dtype}; scan parameters fp32) in {time.perf_counter() - t0:.2f} s")
+    tokens = torch.randint(0, cfg.vocab, (B, prompt + 1), generator=gen, device=dev)
+    generate(model, tokens[:, :64], 2)  # warm-up
+
+    ids, timings, pre, dec, logits = served(lm, ops, generate, model, tokens[:, :prompt])
+    check_served(cfg, ids, logits)
+    if cfg.family == "ssm":
+        want = {"selective_scan_launches": cfg.n_layers}
+    else:
+        n_blocks = cfg.n_layers // len(cfg.block_pattern)  # each: rec, rec, attn
+        want = {"lru_scan_launches": 2 * n_blocks + len(cfg.tail_pattern),
+                "attention_launches": n_blocks}
+    want = {n: want.get(n, 0) for n in COUNTERS}
+    require(pre == want, f"{cfg.name} prefill launches {pre}, want {want}")
+    require(not any(dec.values()), f"{cfg.name} decode loop launched {dec}, want none")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    decode_ms = timings["decode_s"] / (DECODE_STEPS - 1) * 1e3
+    print(f"phase {phase} serve: {B}x{prompt} prefill {timings['prefill_s'] * 1e3} ms, decode "
+          f"{decode_ms} ms/token over {DECODE_STEPS - 1} steps, peak memory {peak_gb} GB, "
+          f"launches: prefill {pre}, decode loop {dec}, on {smi}")
+    print(f"phase {phase} serve: generated ids (first request): {ids[0].tolist()}")
+    del logits
+
+    # prefill(S) is exact for the next step at S: falcon's states at any S,
+    # Griffin's ring-buffer cache at S = its window.
+    full, _ = lm.prefill(model, {"tokens": tokens}, cfg)
+    part, cache = lm.prefill(model, {"tokens": tokens[:, :prompt]}, cfg)
+    step, _ = lm.decode_step(
+        model, {"token": tokens[:, prompt], "pos": prompt, "cache": cache}, cfg
+    )
+    for name, t in (("prefill S+1", full), ("prefill", part), ("decode", step)):
+        require(bool(torch.isfinite(t).all()), f"finite {name} logits")
+    diff = float((step.float() - full.float()).abs().max())
+    bar = 5e-2 * float(full.float().abs().max())
+    require(diff <= bar, f"{cfg.name} prefill vs prefill+decode: max|diff| {diff} > {bar}")
+    agree = int((full.argmax(-1) == step.argmax(-1)).sum())
+    print(f"phase {phase} consistency: last-token logits, kernel prefill(S+1) vs prefill(S)"
+          f"+plain decode: max|diff| {diff} <= {bar} (5e-2 max|logits|); argmax agrees "
+          f"{agree}/{B}")
+    return pre
 
 
 if __name__ == "__main__":

@@ -7,21 +7,27 @@
 // set to -1e30; online softmax with m, l and the output accumulator in fp32;
 // l floored at 1e-30; output in q's dtype.
 //
-// Design.  One thread block of 256 threads per (64-row q tile, q head,
-// batch).  A loop over 64-row k/v tiles inside the block takes the place of
+// Design.  One thread block of 256 threads per (BQ-row q tile, q head,
+// batch).  A loop over BK-row k/v tiles inside the block takes the place of
 // the TPU's sequential kv grid axis, carrying m, l and the accumulator in
 // registers.  With `causal`, k tiles wholly above the diagonal are skipped
 // (the TPU kernel keeps them as grid steps); with a window, k tiles wholly
 // before it are skipped the same way.  The block computes its own offsets
 // for contiguous inputs and masks the ragged tails of Sq and Sk itself, so
 // the wrapper pads nothing.  Tiles are staged in shared memory as fp32
-// (Q, K, V: 64 x (D + 4), P: 64 x 68; 116 KB at D = 128), which is above
+// (Q: BQ x (D + 4), K, V: BK x (D + 4), P: BQ x (BK + 4)), which is above
 // the 48 KB static limit and so is dynamic shared memory.  The +4 padding
 // keeps 16-byte rows while spreading rows across banks.  Thread (ty, tx) of
-// a 16 x 16 grid owns query rows 4*ty .. 4*ty+3: it computes the scores of
-// those rows against keys tx + 16*j (j < 4), and the output columns
-// 64*g + 4*tx .. +3.  Row maxima and sums are reduced over the 16 threads
-// of a row with warp shuffles.
+// a 16 x 16 grid owns query rows RQ*ty .. RQ*ty+RQ-1 (RQ = BQ / 16): it
+// computes the scores of those rows against keys tx + 16*j (j < BK / 16),
+// and the output columns 64*g + 4*tx .. +3 (g < D / 64).  Row maxima and
+// sums are reduced over the 16 threads of a row with warp shuffles.
+//
+// Tiles by head dim: BQ = BK = 64 at D = 64 and 128 (116 KB of shared
+// memory and 32 accumulators a thread at D = 128).  At D = 256
+// (recurrentgemma-9b) 64-row tiles would need 212 KB of shared memory and
+// 64 accumulators a thread, so D = 256 takes 32-row q and k/v tiles: 102 KB
+// (two blocks on an SM) and again 32 accumulators a thread.
 //
 // Bound on the H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): for the serving
 // slice's prefill (B = 4, H = 32, KV = 8, S = 1000, D = 128, causal, bf16)
@@ -42,9 +48,7 @@
 
 namespace {
 
-constexpr int TILE = 64;      // q rows and k/v rows per tile
 constexpr int THREADS = 256;  // 16 x 16 threads
-constexpr int LDP = TILE + 4; // row stride of the P tile, in floats
 constexpr float NEG_INF = -1e30f;
 
 template <typename T> __device__ __forceinline__ float to_float(T x);
@@ -61,21 +65,25 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
   return __float2bfloat16_rn(x);
 }
 
-template <int D>
+// Rows of a q tile and of a k/v tile for each head dim.
+template <int D> struct Tiles { static constexpr int BQ = 64, BK = 64; };
+template <> struct Tiles<256> { static constexpr int BQ = 32, BK = 32; };
+
+template <int D, int BQ, int BK>
 constexpr int smem_bytes() {
-  return (3 * TILE * (D + 4) + TILE * LDP) * (int)sizeof(float);
+  return (BQ * (D + 4) + 2 * BK * (D + 4) + BQ * (BK + 4)) * (int)sizeof(float);
 }
 
-// Copies rows [row0, row0 + TILE) of a contiguous (rows, D) matrix into
+// Copies rows [row0, row0 + ROWS) of a contiguous (rows, D) matrix into
 // shared memory as fp32 with row stride D + 4; rows at or past `rows` are
 // zero, so padded keys add nothing before the mask removes them.
-template <typename T, int D>
+template <typename T, int D, int ROWS>
 __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int row0,
                                           int rows, int tid) {
   constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load: 4 or 8
   constexpr int VPR = D / VEC;         // 16-byte loads per row
   constexpr int LD = D + 4;
-  for (int i = tid; i < TILE * VPR; i += THREADS) {
+  for (int i = tid; i < ROWS * VPR; i += THREADS) {
     const int r = i / VPR;
     const int c = (i % VPR) * VEC;
     float* d = dst + r * LD + c;
@@ -96,18 +104,21 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int BQ, int BK>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ o, int H, int KV,
                            int Sq, int Sk, int causal, int window, float scale) {
   constexpr int LD = D + 4;
-  constexpr int NG = D / 64;  // groups of 4 output columns per thread
+  constexpr int LDP = BK + 4;  // row stride of the P tile, in floats
+  constexpr int NG = D / 64;   // groups of 4 output columns per thread
+  constexpr int RQ = BQ / 16;  // query rows per thread
+  constexpr int KJ = BK / 16;  // keys per thread in a k/v tile
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
-  float* sK = sQ + TILE * LD;
-  float* sV = sK + TILE * LD;
-  float* sP = sV + TILE * LD;
+  float* sK = sQ + BQ * LD;
+  float* sV = sK + BK * LD;
+  float* sP = sV + BK * LD;
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;
@@ -117,25 +128,25 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (H / KV);
-  const int q0 = qt * TILE;
+  const int q0 = qt * BQ;
 
   const T* qp = q + (size_t)(b * H + h) * Sq * D;
   const T* kp = k + (size_t)(b * KV + kvh) * Sk * D;
   const T* vp = v + (size_t)(b * KV + kvh) * Sk * D;
   T* op = o + (size_t)(b * H + h) * Sq * D;
 
-  load_tile<T, D>(sQ, qp, q0, Sq, tid);
+  load_tile<T, D, BQ>(sQ, qp, q0, Sq, tid);
 
   // k tiles this q tile can see: none above the diagonal, none before the window.
-  const int nk = (Sk + TILE - 1) / TILE;
+  const int nk = (Sk + BK - 1) / BK;
   int kt_end = nk;
-  if (causal) kt_end = min(nk, (q0 + TILE - 1) / TILE + 1);
+  if (causal) kt_end = min(nk, (q0 + BQ - 1) / BK + 1);
   int kt_begin = 0;
-  if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / TILE;
+  if (window > 0 && q0 - window + 1 > 0) kt_begin = (q0 - window + 1) / BK;
 
-  float m[4], l[4], acc[4][4 * NG];
+  float m[RQ], l[RQ], acc[RQ][4 * NG];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RQ; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.f;
 #pragma unroll
@@ -143,31 +154,31 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * TILE;
+    const int k0 = kt * BK;
     __syncthreads();  // the previous tile's readers of sK, sV and sP are done
-    load_tile<T, D>(sK, kp, k0, Sk, tid);
-    load_tile<T, D>(sV, vp, k0, Sk, tid);
+    load_tile<T, D, BK>(sK, kp, k0, Sk, tid);
+    load_tile<T, D, BK>(sV, vp, k0, Sk, tid);
     __syncthreads();
 
-    // s[i][j] = q[4*ty + i] . k[tx + 16*j]
-    float s[4][4];
+    // s[i][j] = q[RQ*ty + i] . k[tx + 16*j]
+    float s[RQ][KJ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RQ; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < KJ; ++j) s[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; d += 4) {
-      float4 qv[4], kv[4];
+      float4 qv[RQ], kv[KJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(sQ + (4 * ty + i) * LD + d);
+      for (int i = 0; i < RQ; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(sQ + (RQ * ty + i) * LD + d);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < KJ; ++j)
         kv[j] = *reinterpret_cast<const float4*>(sK + (tx + 16 * j) * LD + d);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RQ; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < KJ; ++j) {
           s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
           s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
           s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
@@ -177,11 +188,11 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // Mask, then the online-softmax update of each row.
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + 4 * ty + i;
+    for (int i = 0; i < RQ; ++i) {
+      const int qpos = q0 + RQ * ty + i;
       float rmax = NEG_INF;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < KJ; ++j) {
         const int kpos = k0 + tx + 16 * j;
         bool keep = kpos < Sk;
         if (causal) keep = keep && kpos <= qpos;
@@ -196,9 +207,9 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float alpha = expf(m[i] - m_new);
       float rsum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < KJ; ++j) {
         const float p = expf(s[i][j] - m_new);
-        sP[(4 * ty + i) * LDP + tx + 16 * j] = p;
+        sP[(RQ * ty + i) * LDP + tx + 16 * j] = p;
         rsum += p;
       }
 #pragma unroll
@@ -211,13 +222,13 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    // acc[i][4g + c] += sum_j p[4*ty + i][j] * v[j][64g + 4tx + c]
+    // acc[i][4g + c] += sum_j p[RQ*ty + i][j] * v[j][64g + 4tx + c]
 #pragma unroll 2
-    for (int j = 0; j < TILE; j += 4) {
-      float4 pv[4];
+    for (int j = 0; j < BK; j += 4) {
+      float4 pv[RQ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(sP + (4 * ty + i) * LDP + j);
+      for (int i = 0; i < RQ; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(sP + (RQ * ty + i) * LDP + j);
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
 #pragma unroll
@@ -225,7 +236,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const float4 vv =
               *reinterpret_cast<const float4*>(sV + (j + jj) * LD + 64 * g + 4 * tx);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
+          for (int i = 0; i < RQ; ++i) {
             const float p = jj == 0 ? pv[i].x : jj == 1 ? pv[i].y : jj == 2 ? pv[i].z : pv[i].w;
             acc[i][4 * g + 0] = fmaf(p, vv.x, acc[i][4 * g + 0]);
             acc[i][4 * g + 1] = fmaf(p, vv.y, acc[i][4 * g + 1]);
@@ -238,8 +249,8 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qpos = q0 + 4 * ty + i;
+  for (int i = 0; i < RQ; ++i) {
+    const int qpos = q0 + RQ * ty + i;
     if (qpos >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
     T* orow = op + (size_t)qpos * D;
@@ -254,13 +265,14 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
                    int Sq, int Sk, int causal, int window, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_fwd_kernel<T, D>,
+  constexpr int BQ = Tiles<D>::BQ, BK = Tiles<D>::BK;
+  constexpr int bytes = smem_bytes<D, BQ, BK>();
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_fwd_kernel<T, D, BQ, BK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + TILE - 1) / TILE, H, B);
+  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   const float scale = 1.0f / sqrtf((float)D);
-  flash_attention_fwd_kernel<T, D><<<grid, THREADS, bytes, stream>>>(
+  flash_attention_fwd_kernel<T, D, BQ, BK><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), H, KV, Sq, Sk, causal, window, scale);
   return cudaGetLastError();
@@ -272,6 +284,7 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, int B
                      cudaStream_t stream) {
   if (D == 64) return launch<T, 64>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, stream);
   if (D == 128) return launch<T, 128>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, stream);
+  if (D == 256) return launch<T, 256>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -279,7 +292,7 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, int B
 
 // q, k, v, o: contiguous device arrays, 16-byte aligned; q and o are
 // (B, H, Sq, D), k and v (B, KV, Sk, D).  dtype: 0 float32, 1 float16,
-// 2 bfloat16.  D: 64 or 128.  Returns a cudaError_t (0 on success).
+// 2 bfloat16.  D: 64, 128 or 256.  Returns a cudaError_t (0 on success).
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                          int B, int H, int KV, int Sq, int Sk, int D,
                                          int causal, int window, int dtype, void* stream) {

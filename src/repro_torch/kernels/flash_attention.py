@@ -16,7 +16,7 @@ import torch
 from . import _build
 
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 
 
 def _entry():

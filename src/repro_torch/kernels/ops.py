@@ -4,19 +4,22 @@ Counterpart of ``repro.kernels.ops``.  A wrapper takes the plain PyTorch
 path only because its input lies on the CPU; on a CUDA tensor it launches
 the kernel or raises, with no fallback.  Each wrapper counts its kernel
 launches in a module-level integer, so a run can show that its main path
-went through the kernel.  The reference's other three wrappers
-(``selective_scan``, ``lru_scan``, ``bag_lookup``) come with the slices
-that port their kernels (ROADMAP.md).
+went through the kernel.  The reference's last wrapper, ``bag_lookup``,
+comes with the slice that ports its kernel (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 from .flash_attention import flash_attention
+from .mamba_scan import mamba_scan
 from .moe_gmm import moe_gmm
-from .ref import ref_flash_attention, ref_moe_gmm
+from .ref import ref_flash_attention, ref_mamba_scan, ref_moe_gmm, ref_rglru_scan
+from .rglru_scan import rglru_scan
 
 attention_launches = 0
 grouped_matmul_launches = 0
+selective_scan_launches = 0
+lru_scan_launches = 0
 
 
 def attention(q, k, v, causal: bool = True, window: int = 0):
@@ -36,4 +39,26 @@ def grouped_matmul(x, w):
         return ref_moe_gmm(x, w)
     out = moe_gmm(x, w)
     grouped_matmul_launches += 1
+    return out
+
+
+def selective_scan(xc, dt, a, b, c, d_skip):
+    """Mamba-1 scan from h = 0: xc, dt (B, L, DI); a (DI, ST); b, c (B, L, ST);
+    d_skip (DI,) -> (y (B, L, DI) fp32, h_final (B, DI, ST) fp32)."""
+    global selective_scan_launches
+    if xc.device.type == "cpu":
+        return ref_mamba_scan(xc, dt, a, b, c, d_skip)
+    out = mamba_scan(xc, dt, a, b, c, d_skip)
+    selective_scan_launches += 1
+    return out
+
+
+def lru_scan(a, b):
+    """``h_t = a_t * h_{t-1} + b_t`` from h = 0: a, b (B, L, D) ->
+    (h_all (B, L, D) fp32, h_final (B, D) fp32)."""
+    global lru_scan_launches
+    if a.device.type == "cpu":
+        return ref_rglru_scan(a, b)
+    out = rglru_scan(a, b)
+    lru_scan_launches += 1
     return out

@@ -38,3 +38,33 @@ def ref_flash_attention(q, k, v, causal=True, window=0):
 def ref_moe_gmm(x, w):
     """x: (E, C, D); w: (E, D, F) -> (E, C, F) in x's dtype, summed in fp32."""
     return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+
+
+def ref_mamba_scan(xc, dt, a, b, c, d_skip):
+    """Sequential selective scan from h = 0.  xc, dt: (B, L, DI); a: (DI, ST);
+    b, c: (B, L, ST); d_skip: (DI,) -> (y (B, L, DI) fp32, h (B, DI, ST) fp32)."""
+    B, L, DI = xc.shape
+    ST = a.shape[1]
+    a = a.float()
+    xs, dts, bs, cs = xc.float(), dt.float(), b.float(), c.float()
+    h = torch.zeros((B, DI, ST), dtype=torch.float32, device=xc.device)
+    ys = []
+    for t in range(L):
+        x_t, dt_t = xs[:, t], dts[:, t]
+        decay = torch.exp(dt_t[:, :, None] * a[None])  # (B, DI, ST)
+        drive = (dt_t * x_t)[:, :, None] * bs[:, t, None, :]
+        h = decay * h + drive
+        ys.append(torch.einsum("bds,bs->bd", h, cs[:, t]) + d_skip * x_t)
+    return torch.stack(ys, dim=1), h
+
+
+def ref_rglru_scan(a, b):
+    """``h_t = a_t * h_{t-1} + b_t`` from h = 0.  a, b: (B, L, D) ->
+    (h_all (B, L, D) fp32, h_final (B, D) fp32)."""
+    h = torch.zeros((a.shape[0], a.shape[2]), dtype=torch.float32, device=a.device)
+    af, bf = a.float(), b.float()
+    hs = []
+    for t in range(a.shape[1]):
+        h = af[:, t] * h + bf[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1), h

@@ -4,13 +4,21 @@
         --batch 4 --prompt-len 1000 --decode-steps 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \
         --batch 4 --prompt-len 1000 --decode-steps 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
+        --batch 4 --prompt-len 1000 --decode-steps 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b \
+        --batch 4 --prompt-len 2048 --decode-steps 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b --smoke \
         --device cpu
 
 Runs on the card unless ``--device cpu`` is given; without a card it raises.
 Weights are drawn on the device from ``--seed``; prompts are the same numpy
-draws as ``repro.launch.serve``'s.  The smoke config's head dim (16) is not
-one the CUDA attention kernel takes, so ``--smoke`` runs with ``--device cpu``.
+draws as ``repro.launch.serve``'s.  The smoke configs' head dim (16) is not
+one the CUDA attention kernel takes, so ``--smoke`` runs with ``--device cpu``
+(falcon-mamba-7b's smoke model has no attention and also runs on the card).
+recurrentgemma-9b's decode cache is exact once the prompt reaches its
+2048-token window; below it the reference overwrites the last prompt key,
+and the port does the same.
 """
 
 from __future__ import annotations

@@ -2,13 +2,19 @@
 
     PYTHONPATH=src python -m repro_torch.launch.trace_serve --arch granite-8b \
         --batch 4 --prompt-len 1000 --decode-steps 4
+    PYTHONPATH=src python -m repro_torch.launch.trace_serve --arch falcon-mamba-7b \
+        --batch 4 --prompt-len 1000 --decode-steps 4
+    PYTHONPATH=src python -m repro_torch.launch.trace_serve --arch recurrentgemma-9b \
+        --batch 4 --prompt-len 2048 --decode-steps 4
 
 Runs one untraced warm-up, then traces a prefill and a decode loop apart with
 ``torch.profiler`` and prints, for each: the host-clock wall time, the summed
 device time of the kernels it ran (CUDA activity), the device idle share
 (1 - device time / wall time; the port runs on one stream, so kernels do
 not overlap), and the kernels that took the most device time.  Card only: device time is what it
-reports, and a CPU run has none.
+reports, and a CPU run has none.  ``--smoke`` traces the arch's smoke config,
+which the card takes only where it has no attention (falcon-mamba-7b): the
+others' smoke head dim (16) is not one the attention kernel takes.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ def _report(name: str, prof, wall_s: float) -> None:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="Trace one serving request")
     ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=1000)
     ap.add_argument("--decode-steps", type=int, default=4)
@@ -54,6 +61,8 @@ def main(argv=None) -> None:
 
     device = default_device()
     cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = cfg.smoke()
     model = lm.init(args.seed, cfg, device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     B, S = args.batch, args.prompt_len

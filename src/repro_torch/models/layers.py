@@ -1,4 +1,5 @@
-"""Model primitives: the dense and MoE subset of ``repro.models.layers``.
+"""Model primitives: the dense, MoE and recurrent (Mamba-1, RG-LRU) subset of
+``repro.models.layers``.
 
 Each layer is ``f(params, inputs, cfg) -> out``, as in the reference, with
 ``params`` an ``nn.Module`` holding the reference's named weights in its
@@ -132,7 +133,11 @@ def attention_decode(p, x, cache_k, cache_v, pos, cfg, *, window: int = 0):
 
     T = cache_k.shape[2]
     rolling = window > 0 and window == T
-    slot = pos % T if rolling else pos  # rolling window cache: slot = pos % window
+    # Rolling window cache: slot = pos % window.  Otherwise slot = pos, clamped
+    # to the last slot as the reference's lax.dynamic_update_slice clamps it
+    # (a windowed cache shorter than the window, after a prompt shorter than
+    # the window: the new key overwrites the last prompt key).
+    slot = pos % T if rolling else min(pos, T - 1)
     cache_k[:, :, slot] = k.to(cache_k.dtype)
     cache_v[:, :, slot] = v.to(cache_v.dtype)
 
@@ -252,3 +257,146 @@ def moe(p, x, cfg):
     per_token = torch.empty_like(gathered).index_copy_(0, order, gathered)
     out = per_token.reshape(N, K, D).sum(dim=1)
     return out.reshape(B, S, D), aux
+
+
+# ---------------------------------------------------------------------------
+# Linear recurrences: Mamba-1 and RG-LRU
+# ---------------------------------------------------------------------------
+#
+# The reference's train/prefill path runs both recurrences through
+# ``chunked_linear_scan`` (an associative scan).  Here prefill and forward
+# start from h = 0 and go through ``ops.selective_scan`` / ``ops.lru_scan``
+# (the CUDA kernels on the card, their plain sequential versions on the CPU);
+# a step from a carried state (decode) is one plain step.
+
+
+def causal_conv1d(x, w, prev=None):
+    """Depthwise causal conv along time.  x: (B, L, D); w: (W, D).
+
+    ``prev``: (B, W-1, D) carried context for decode.  Returns (out, new_prev)."""
+    W = w.shape[0]
+    if prev is None:
+        prev = torch.zeros((x.shape[0], W - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+    xp = torch.cat([prev, x], dim=1)
+    L = x.shape[1]
+    out = xp[:, 0:L] * w[0]
+    for i in range(1, W):
+        out = out + xp[:, i : i + L] * w[i]
+    new_prev = xp[:, -(W - 1):] if W > 1 else prev
+    return out, new_prev
+
+
+def _plain_scan_from(h, a, b):
+    """``h_t = a_t * h_{t-1} + b_t`` from a carried ``h``, one step at a time
+    (decode takes one); a, b: (B, L, ...) -> (h_all, h_last)."""
+    hs = []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1), h
+
+
+class Mamba(nn.Module):
+    """``init_mamba``'s weights: ``b_dt``, ``a_log`` and ``d_skip`` stay fp32."""
+
+    def __init__(self, cfg, gen, device):
+        super().__init__()
+        dt = torch_dtype(cfg.param_dtype)
+        D, DI, ST, R = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank_
+        f32 = torch.float32
+        self.w_in = parameter(dense_init(gen, D, 2 * DI, dt, device))
+        self.conv_w = parameter(
+            truncated_normal(gen, (cfg.d_conv, DI), 1.0 / math.sqrt(cfg.d_conv), dt, device)
+        )
+        self.conv_b = parameter(torch.zeros(DI, dtype=dt, device=device))
+        self.w_xdbc = parameter(dense_init(gen, DI, R + 2 * ST, dt, device))
+        self.w_dt = parameter(dense_init(gen, R, DI, dt, device))
+        self.b_dt = parameter(torch.full((DI,), -4.6, dtype=f32, device=device))  # softplus^-1(0.01)
+        a_init = torch.arange(1, ST + 1, dtype=f32, device=device).log().repeat(DI, 1)
+        self.a_log = parameter(a_init)
+        self.d_skip = parameter(torch.ones(DI, dtype=f32, device=device))
+        self.w_out = parameter(dense_init(gen, DI, D, dt, device))
+        self.norm = parameter(torch.zeros(D, dtype=dt, device=device))
+
+
+def mamba_ssm(p, xc, cfg, h0=None):
+    """Selective scan given the post-conv activations xc: (B, L, DI).
+
+    ``h0`` None: the scan from h = 0 through ``ops.selective_scan``.
+    Otherwise plain steps from ``h0`` (decode).  Returns (y (B, L, DI) in
+    xc's dtype, h_last (B, DI, ST) fp32)."""
+    ST, R = cfg.ssm_state, cfg.dt_rank_
+    xdbc = xc @ p.w_xdbc
+    dt_r, b_ssm, c_ssm = xdbc[..., :R], xdbc[..., R : R + ST], xdbc[..., R + ST :]
+    dt = F.softplus((dt_r @ p.w_dt).float() + p.b_dt)  # (B, L, DI)
+    a = -torch.exp(p.a_log)  # (DI, ST)
+    if h0 is None:
+        y, h_last = ops.selective_scan(xc, dt, a, b_ssm, c_ssm, p.d_skip)
+        return y.to(xc.dtype), h_last
+    xf = xc.float()
+    decay = torch.exp(dt[..., None] * a)  # (B, L, DI, ST)
+    drive = (dt * xf)[..., None] * b_ssm.float()[:, :, None, :]
+    h_all, h_last = _plain_scan_from(h0, decay, drive)
+    y = torch.einsum("blds,bls->bld", h_all, c_ssm.float()) + p.d_skip * xf
+    return y.to(xc.dtype), h_last
+
+
+def mamba_block(p, x, cfg, state=None):
+    """Full Mamba-1 block.  x: (B, L, D).  state: None (prefill / forward) or
+    {'conv': (B, W-1, DI), 'ssm': (B, DI, ST)} (decode).  Returns (out, new_state)."""
+    xi, z = (x @ p.w_in).chunk(2, dim=-1)
+    prev = state["conv"] if state is not None else None
+    xc, new_conv = causal_conv1d(xi, p.conv_w, prev)
+    xc = F.silu(xc + p.conv_b)
+    h0 = state["ssm"] if state is not None else None
+    y, h_last = mamba_ssm(p, xc, cfg, h0=h0)
+    y = y * F.silu(z)
+    return y @ p.w_out, {"conv": new_conv.to(x.dtype), "ssm": h_last}
+
+
+class RGLRU(nn.Module):
+    """``init_rglru``'s weights: ``lambda_p`` stays fp32."""
+
+    def __init__(self, cfg, gen, device):
+        super().__init__()
+        dt = torch_dtype(cfg.param_dtype)
+        D, DI = cfg.d_model, cfg.d_inner
+        self.w_x = parameter(dense_init(gen, D, DI, dt, device))
+        self.w_y = parameter(dense_init(gen, D, DI, dt, device))  # gelu branch
+        self.conv_w = parameter(truncated_normal(gen, (4, DI), 0.5, dt, device))
+        self.conv_b = parameter(torch.zeros(DI, dtype=dt, device=device))
+        self.w_input_gate = parameter(dense_init(gen, DI, DI, dt, device))
+        self.w_rec_gate = parameter(dense_init(gen, DI, DI, dt, device))
+        # softplus domain
+        self.lambda_p = parameter(torch.linspace(0.9, 5.0, DI, dtype=torch.float32, device=device))
+        self.w_out = parameter(dense_init(gen, DI, D, dt, device))
+        self.norm = parameter(torch.zeros(D, dtype=dt, device=device))
+
+
+RGLRU_C = 8.0
+
+
+def rglru_block(p, x, cfg, state=None):
+    """Griffin recurrent block: conv1d -> RG-LRU, gated by a GeLU branch.
+
+    x: (B, L, D); state: None or {'conv': (B, 3, DI), 'lru': (B, DI) fp32}.
+    Returns (out, new_state)."""
+    xb = x @ p.w_x
+    yb = F.gelu(x @ p.w_y, approximate="tanh")  # jax.nn.gelu's default
+    prev = state["conv"] if state is not None else None
+    xc, new_conv = causal_conv1d(xb, p.conv_w, prev)
+    xc = xc + p.conv_b
+
+    i_gate = torch.sigmoid((xc @ p.w_input_gate).float())
+    r_gate = torch.sigmoid((xc @ p.w_rec_gate).float())
+    log_a = -RGLRU_C * r_gate * F.softplus(p.lambda_p)
+    a = torch.exp(log_a)
+    gated_x = i_gate * xc.float()
+    drive = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) * gated_x
+
+    if state is None:
+        h_all, h_last = ops.lru_scan(a, drive)
+    else:
+        h_all, h_last = _plain_scan_from(state["lru"], a, drive)
+    out = (h_all.to(x.dtype) * yb) @ p.w_out
+    return out, {"conv": new_conv.to(x.dtype), "lru": h_last}

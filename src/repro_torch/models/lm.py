@@ -1,8 +1,9 @@
 """Uniform model facade used by serving (``repro.models.lm``'s counterpart).
 
 ``init`` / ``forward`` / ``prefill`` / ``decode_step`` take the reference's
-arguments, with a ``Transformer`` module in place of the parameter pytree.
-The dense and MoE families are served so far; the others raise
+arguments, with a module in place of the parameter pytree, and dispatch on
+``cfg.family``: ``ssm`` and ``hybrid`` to ``models.recurrent``, ``dense``
+and ``moe`` to ``models.transformer``.  The other families raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -12,25 +13,45 @@ import torch
 
 from ..compat import resolve_device
 from ..configs.base import ArchConfig
-from . import transformer
+from . import recurrent, transformer
 
 
 def init(seed: int, cfg: ArchConfig, device: str | torch.device | None = None):
     """Random weights drawn directly on ``device`` (the card by default)."""
     transformer.require_ported(cfg)
-    return transformer.Transformer(cfg, seed, resolve_device(device))
+    device = resolve_device(device)
+    if cfg.family == "ssm":
+        return recurrent.MambaLM(cfg, seed, device)
+    if cfg.family == "hybrid":
+        return recurrent.GriffinLM(cfg, seed, device)
+    return transformer.Transformer(cfg, seed, device)
 
 
 def forward(params, batch, cfg: ArchConfig):
     transformer.require_ported(cfg)
+    if cfg.family == "ssm":
+        return recurrent.mamba_forward(params, cfg, batch["tokens"])
+    if cfg.family == "hybrid":
+        return recurrent.griffin_forward(params, cfg, batch["tokens"])
     return transformer.forward(params, cfg, batch["tokens"])
 
 
 def prefill(params, batch, cfg: ArchConfig, pad_to: int = 0):
+    """``pad_to`` sizes a transformer's KV cache; the recurrent families'
+    caches do not grow, and they ignore it, as the reference does."""
     transformer.require_ported(cfg)
+    if cfg.family == "ssm":
+        return recurrent.mamba_prefill(params, cfg, batch["tokens"])
+    if cfg.family == "hybrid":
+        return recurrent.griffin_prefill(params, cfg, batch["tokens"])
     return transformer.prefill(params, cfg, batch["tokens"], pad_to=pad_to)
 
 
 def decode_step(params, batch, cfg: ArchConfig):
     transformer.require_ported(cfg)
-    return transformer.decode_step(params, cfg, batch["token"], batch["pos"], batch["cache"])
+    token, pos, cache = batch["token"], batch["pos"], batch["cache"]
+    if cfg.family == "ssm":
+        return recurrent.mamba_decode_step(params, cfg, token, pos, cache)
+    if cfg.family == "hybrid":
+        return recurrent.griffin_decode_step(params, cfg, token, pos, cache)
+    return transformer.decode_step(params, cfg, token, pos, cache)

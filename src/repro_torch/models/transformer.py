@@ -2,9 +2,9 @@
 of ``repro.models.transformer``.
 
 The reference scans stacked layer weights; here the layers are a
-``ModuleList`` walked by a Python loop.  Families other than ``dense`` and
-``moe`` are not ported yet and raise ``NotImplementedError`` naming their
-ROADMAP item.
+``ModuleList`` walked by a Python loop.  The recurrent families (``ssm``,
+``hybrid``) live in ``models.recurrent``; the families not ported yet raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -17,15 +17,13 @@ from . import layers as L
 
 # ROADMAP.md queue 1 items that port the other families.
 NOT_PORTED = {
-    "ssm": "ROADMAP.md queue 1, item 3 (recurrent serving)",
-    "hybrid": "ROADMAP.md queue 1, item 3 (recurrent serving)",
     "recsys": "ROADMAP.md queue 1, item 4 (DLRM)",
     "vlm": "ROADMAP.md queue 1, item 6 (VLM and audio families)",
     "audio": "ROADMAP.md queue 1, item 6 (VLM and audio families)",
 }
 
 
-PORTED = ("dense", "moe")
+PORTED = ("dense", "moe", "ssm", "hybrid")
 
 
 def require_ported(cfg: ArchConfig) -> None:

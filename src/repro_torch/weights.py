@@ -1,11 +1,20 @@
 """Moves the JAX package's parameters into the port's modules.
 
-The reference keeps an LM's layers stacked along a leading ``n_layers``
-axis (``blocks.attn.{wq,wk,wv,wo,norm}``, then ``blocks.mlp.{wg,wu,wd,norm}``
-or, in the MoE family, ``blocks.moe.{router,wg,wu,wd,norm}``); the port has
-one module per layer.  The input is that pytree with numpy leaves
-(``jax.tree.map(np.asarray, p)``), so this module needs neither JAX nor
-``ml_dtypes``.
+The reference keeps an LM's layers stacked along leading axes; the port has
+one module per layer:
+
+* dense and MoE: ``blocks.attn.*`` and ``blocks.mlp.*`` (or
+  ``blocks.moe.*``) stacked over ``n_layers`` -> ``blocks.{i}.{part}.*``;
+* ``ssm`` (Falcon-Mamba): ``blocks.*`` stacked over ``n_layers`` ->
+  ``blocks.{i}.*``;
+* ``hybrid`` (Griffin): ``blocks.rec.{rec,mlp}.*`` stacked (n_blocks, 2),
+  ``blocks.attn.{attn,mlp}.*`` stacked (n_blocks,) and ``tail.{rec,mlp}.*``
+  stacked (len(tail_pattern),) -> ``layers.{j}.{part}.*`` with layer
+  j = 3*block + r for the recurrent layers, 3*block + 2 for the attention
+  layer, and 3*n_blocks + t for the tail.
+
+The input is that pytree with numpy leaves (``jax.tree.map(np.asarray, p)``),
+so this module needs neither JAX nor ``ml_dtypes``.
 """
 
 from __future__ import annotations
@@ -16,27 +25,59 @@ import torch
 from .configs.base import ArchConfig, torch_dtype
 from .models.transformer import require_ported
 
+# Leaves the reference initialises in fp32 whatever ``param_dtype`` is.
+FP32_LEAVES = {("moe", "router"), ("mamba", "b_dt"), ("mamba", "a_log"),
+               ("mamba", "d_skip"), ("rec", "lambda_p")}
+
 
 def params_from_jax(np_params: dict, cfg: ArchConfig) -> dict[str, torch.Tensor]:
-    """A ``state_dict`` for ``models.transformer.Transformer`` (CPU tensors)."""
+    """A ``state_dict`` for the module ``models.lm.init`` builds (CPU tensors)."""
     require_ported(cfg)
     dt = torch_dtype(cfg.param_dtype)
 
-    def tensor(a, dtype=dt) -> torch.Tensor:
+    def tensor(a, part, name) -> torch.Tensor:
         # JAX's bfloat16 arrives as an ml_dtypes dtype torch cannot take;
         # float32 holds every bf16/fp16 value exactly.
-        return torch.from_numpy(np.ascontiguousarray(np.asarray(a).astype(np.float32))).to(dtype)
+        leaf_dt = torch.float32 if (part, name) in FP32_LEAVES else dt
+        return torch.from_numpy(np.ascontiguousarray(np.asarray(a).astype(np.float32))).to(leaf_dt)
 
-    sd = {"embed": tensor(np_params["embed"]), "final_norm": tensor(np_params["final_norm"])}
-    if "lm_head" in np_params:
-        sd["lm_head"] = tensor(np_params["lm_head"])
+    sd = {name: tensor(np_params[name], None, name)
+          for name in ("embed", "final_norm", "lm_head") if name in np_params}
     blocks = np_params["blocks"]
+    if cfg.family == "ssm":
+        for name, stacked in blocks.items():
+            _check_depth(f"blocks.{name}", stacked, cfg.n_layers)
+            for i in range(cfg.n_layers):
+                sd[f"blocks.{i}.{name}"] = tensor(stacked[i], "mamba", name)
+        return sd
+    if cfg.family == "hybrid":
+        n_blocks = cfg.n_layers // len(cfg.block_pattern)
+        for part, tree in blocks["rec"].items():
+            for name, stacked in tree.items():
+                _check_depth(f"blocks.rec.{part}.{name}", stacked, n_blocks)
+                for i in range(n_blocks):
+                    for r in range(2):
+                        sd[f"layers.{3 * i + r}.{part}.{name}"] = tensor(stacked[i][r], part, name)
+        for part, tree in blocks["attn"].items():
+            for name, stacked in tree.items():
+                _check_depth(f"blocks.attn.{part}.{name}", stacked, n_blocks)
+                for i in range(n_blocks):
+                    sd[f"layers.{3 * i + 2}.{part}.{name}"] = tensor(stacked[i], part, name)
+        n_tail = len(cfg.tail_pattern)
+        for part, tree in np_params["tail"].items():
+            for name, stacked in tree.items():
+                _check_depth(f"tail.{part}.{name}", stacked, n_tail)
+                for t in range(n_tail):
+                    sd[f"layers.{3 * n_blocks + t}.{part}.{name}"] = tensor(stacked[t], part, name)
+        return sd
     for part in ("attn", "mlp", "moe"):
         for name, stacked in blocks.get(part, {}).items():
-            if len(stacked) != cfg.n_layers:
-                raise ValueError(f"blocks.{part}.{name}: {len(stacked)} layers, want {cfg.n_layers}")
-            # init_moe keeps the router in fp32 whatever param_dtype is.
-            leaf_dt = torch.float32 if (part, name) == ("moe", "router") else dt
+            _check_depth(f"blocks.{part}.{name}", stacked, cfg.n_layers)
             for i in range(cfg.n_layers):
-                sd[f"blocks.{i}.{part}.{name}"] = tensor(stacked[i], leaf_dt)
+                sd[f"blocks.{i}.{part}.{name}"] = tensor(stacked[i], part, name)
     return sd
+
+
+def _check_depth(where: str, stacked, want: int) -> None:
+    if len(stacked) != want:
+        raise ValueError(f"{where}: {len(stacked)} layers, want {want}")

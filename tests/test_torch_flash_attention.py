@@ -12,6 +12,8 @@ from repro_torch.kernels import _build, ops
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ref import ref_flash_attention
 
+torch.set_num_threads(2)  # several test processes share the cores
+
 SHAPES = [
     (2, 4, 4, 256, 64, True, 0),     # MHA causal
     (1, 8, 2, 256, 128, True, 0),    # GQA 4:1

@@ -1,5 +1,6 @@
-"""The CUDA kernels (flash attention, grouped matmul) against their plain
-versions, and the narrow models on the card against the CPU.
+"""The CUDA kernels (flash attention, grouped matmul, Mamba selective scan,
+RG-LRU scan) against their plain versions, and the narrow models on the card
+against the CPU.
 
 Run on a machine with a CUDA card: ``python -m pytest -m gpu tests/test_torch_gpu.py``.
 Every test here skips without one (decided in the fixture, never at import).
@@ -13,9 +14,15 @@ import torch
 from repro_torch.configs.base import get_config
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.mamba_scan import mamba_scan
 from repro_torch.kernels.moe_gmm import moe_gmm
-from repro_torch.kernels.ref import ref_flash_attention, ref_moe_gmm
+from repro_torch.kernels.ref import (
+    ref_flash_attention, ref_mamba_scan, ref_moe_gmm, ref_rglru_scan,
+)
+from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.models import lm
+
+torch.set_num_threads(2)  # several test processes share the cores
 
 pytestmark = pytest.mark.gpu
 
@@ -50,6 +57,9 @@ def _qkv(device, B, H, KV, Sq, Sk, D, dtype, seed=0):
         (2, 4, 4, 300, 300, 64, False, 0),     # bidirectional
         (1, 4, 2, 100, 300, 128, False, 0),    # Sq != Sk
         (1, 2, 2, 1, 1, 64, True, 0),          # one token
+        (1, 4, 1, 300, 300, 256, True, 0),     # recurrentgemma's head dim, MQA
+        (2, 16, 1, 256, 256, 256, True, 128),  # head dim 256, sliding window
+        (1, 2, 1, 100, 300, 256, False, 0),    # head dim 256, Sq != Sk
     ],
 )
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
@@ -221,3 +231,127 @@ def test_moe_model_never_waits_on_the_card(cuda):
         lm.decode_step(model, {"token": logits.argmax(-1), "pos": 100, "cache": cache}, cfg)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+# ---------------------------------------------------------------------------
+# The recurrent scans and the recurrent models
+# ---------------------------------------------------------------------------
+
+
+def _mamba_inputs(device, B, L, DI, ST, dtype, seed=0, R=None):
+    """Inputs as the Mamba layer makes them; with ``R``, b and c are strided
+    slices of one (B, L, R + 2 ST) projection."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+
+    xc = randn(B, L, DI).to(dtype)
+    dt = torch.rand(B, L, DI, generator=gen, device=device) * 0.099 + 0.001
+    a = -torch.arange(1, ST + 1, dtype=torch.float32, device=device).repeat(DI, 1)
+    if R is None:
+        b, c = randn(B, L, ST).to(dtype), randn(B, L, ST).to(dtype)
+    else:
+        xdbc = randn(B, L, R + 2 * ST).to(dtype)
+        b, c = xdbc[..., R:R + ST], xdbc[..., R + ST:]
+    return xc, dt, a, b, c, randn(DI)
+
+
+@pytest.mark.parametrize(
+    "B,L,DI,ST,R",
+    [
+        (4, 1000, 8192, 16, 256),  # falcon-mamba-7b's prefill, b and c strided
+        (2, 37, 200, 16, None),    # L not a multiple of 16, DI not of the block
+        (3, 64, 32, 4, None),      # fewer states than a thread holds
+        (1, 50, 72, 24, 8),        # states padded to 32
+        (2, 20, 40, 128, None),    # the most states the kernel takes
+        (1, 1, 8, 5, None),        # one step
+    ],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_kernel_matches_plain(cuda, B, L, DI, ST, R, dtype):
+    """fp32 arithmetic either way; the bar is 1e-4 of max|y| (2e-2 with bf16
+    inputs, the bf16 bar)."""
+    args = _mamba_inputs(cuda, B, L, DI, ST, dtype, R=R)
+    y, h = mamba_scan(*args)
+    torch.cuda.synchronize()
+    ey, eh = ref_mamba_scan(*args)
+    assert y.dtype == h.dtype == torch.float32
+    assert y.shape == (B, L, DI) and h.shape == (B, DI, ST)
+    tol = 1e-4 * float(ey.abs().max()) if dtype == torch.float32 else 2e-2
+    assert float((y - ey).abs().max()) <= tol
+    assert float((h - eh).abs().max()) <= max(tol, 1e-4 * float(eh.abs().max()))
+
+
+@pytest.mark.parametrize(
+    "B,L,D", [(4, 2048, 4096), (3, 1000, 200), (2, 17, 130), (1, 1, 5)],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+def test_rglru_kernel_matches_plain(cuda, B, L, D, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    a = (torch.rand(B, L, D, generator=gen, device=cuda) * 0.89 + 0.1).to(dtype)
+    b = torch.randn(B, L, D, generator=gen, device=cuda).to(dtype)
+    h, f = rglru_scan(a, b)
+    torch.cuda.synchronize()
+    eh, ef = ref_rglru_scan(a, b)
+    assert h.dtype == f.dtype == torch.float32 and f.shape == (B, D)
+    torch.testing.assert_close(h, eh, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(f, ef, rtol=1e-5, atol=1e-5)
+
+
+def test_ops_count_scan_launches_and_reject_bad_inputs(cuda, monkeypatch):
+    monkeypatch.setattr(ops, "selective_scan_launches", 0)
+    monkeypatch.setattr(ops, "lru_scan_launches", 0)
+    xc, dt, a, b, c, d = _mamba_inputs(cuda, 1, 8, 16, 8, torch.float32)
+    ops.selective_scan(xc, dt, a, b, c, d)
+    ops.lru_scan(dt, xc)
+    assert ops.selective_scan_launches == 1 and ops.lru_scan_launches == 1
+    with pytest.raises(ValueError, match="float32"):
+        ops.selective_scan(xc, dt.half(), a, b, c, d)
+    with pytest.raises(ValueError, match="share"):
+        ops.selective_scan(xc, dt, a, b.half(), c, d)
+    with pytest.raises(ValueError, match="shapes"):
+        ops.selective_scan(xc, dt, a, b[:, :4], c, d)
+    with pytest.raises(ValueError, match="share"):
+        ops.lru_scan(dt, xc.half())
+    assert ops.selective_scan_launches == 1 and ops.lru_scan_launches == 1
+
+
+def _narrow_recurrent_config(arch):
+    """The smoke configs widened, in fp32; Griffin's attention at head dim 64
+    with a 32-token window, which the 77-token prompts pass."""
+    over = dict(d_model=256, param_dtype="float32", activation_dtype="float32")
+    if arch == "falcon-mamba-7b":
+        over.update(ssm_state=16, dt_rank=16)
+    else:
+        over.update(n_heads=4, n_kv_heads=1, head_dim=64, d_ff=512, lru_width=256,
+                    attn_window=32)
+    return dataclasses.replace(get_config(arch).smoke(), **over)
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-9b"])
+def test_recurrent_model_on_card_matches_plain_model_on_cpu(cuda, arch, monkeypatch):
+    cfg = _narrow_recurrent_config(arch)
+    model_cpu = lm.init(0, cfg, device="cpu")
+    model_gpu = lm.init(0, cfg, device=cuda)
+    model_gpu.load_state_dict(model_cpu.state_dict())
+    tokens = torch.randint(0, cfg.vocab, (2, 77), generator=torch.Generator().manual_seed(0))
+    monkeypatch.setattr(ops, "selective_scan_launches", 0)
+    monkeypatch.setattr(ops, "lru_scan_launches", 0)
+    fc, _ = lm.forward(model_cpu, {"tokens": tokens}, cfg)
+    fg, _ = lm.forward(model_gpu, {"tokens": tokens.to(cuda)}, cfg)
+    scans = ops.selective_scan_launches + ops.lru_scan_launches
+    n_rec = cfg.n_layers if arch == "falcon-mamba-7b" else 2 * (cfg.n_layers // 3) + 2
+    assert scans == n_rec
+    torch.testing.assert_close(fg.cpu(), fc, rtol=1e-4, atol=1e-4)
+    lc, cc = lm.prefill(model_cpu, {"tokens": tokens}, cfg)
+    lg, cg = lm.prefill(model_gpu, {"tokens": tokens.to(cuda)}, cfg)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    for name in cc:
+        torch.testing.assert_close(cg[name].cpu(), cc[name], rtol=1e-4, atol=1e-4)
+    for pos in (77, 78):
+        tok = lc.argmax(-1)
+        lc, cc = lm.decode_step(model_cpu, {"token": tok, "pos": pos, "cache": cc}, cfg)
+        lg, cg = lm.decode_step(model_gpu, {"token": tok.to(cuda), "pos": pos, "cache": cg}, cfg)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    assert ops.selective_scan_launches + ops.lru_scan_launches == 2 * n_rec  # none at decode

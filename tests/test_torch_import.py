@@ -6,6 +6,10 @@ import subprocess
 import sys
 from pathlib import Path
 
+import torch
+
+torch.set_num_threads(2)  # several test processes share the cores
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 
@@ -18,8 +22,16 @@ for name in names:
     importlib.import_module(name)
 leaked = sorted(k for k in sys.modules if k == "repro" or k.startswith("repro."))
 assert not leaked, leaked
+print(" ".join(names))
 print(len(names))
 """
+
+# Modules each slice added; the walk above must reach every one of them.
+SLICE_MODULES = (
+    "repro_torch.models.transformer", "repro_torch.kernels.flash_attention",
+    "repro_torch.kernels.moe_gmm", "repro_torch.models.recurrent",
+    "repro_torch.kernels.mamba_scan", "repro_torch.kernels.rglru_scan",
+)
 
 
 def test_port_imports_without_jax_and_without_repro():
@@ -29,7 +41,9 @@ def test_port_imports_without_jax_and_without_repro():
         env=env, cwd=ROOT, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 20  # every module was reached
+    assert int(proc.stdout.split()[-1]) >= 23  # every module was reached
+    walked = set(proc.stdout.splitlines()[-2].split())
+    assert set(SLICE_MODULES) <= walked
 
 
 def _imported_modules(path: Path):

@@ -21,6 +21,8 @@ from repro_torch.kernels.moe_gmm import moe_gmm
 from repro_torch.kernels.ref import ref_moe_gmm
 from repro_torch.models import layers as L
 
+torch.set_num_threads(2)  # several test processes share the cores
+
 # test_kernels.py:96-106: (E, C, D, F) with the Pallas blocks (bc, bf, bd).
 SHAPES = [(4, 128, 256, 128, 64, 64, 128), (8, 64, 64, 256, 64, 128, 64)]
 # test_models_smoke.py's fp32 bar for the models.

@@ -12,6 +12,8 @@ from repro_torch.configs.base import get_config
 from repro_torch.launch import serve
 from repro_torch.models import lm
 
+torch.set_num_threads(2)  # several test processes share the cores
+
 ROOT = Path(__file__).resolve().parents[1]
 SMOKE = ["--arch", "granite-8b", "--smoke", "--batch", "2", "--prompt-len", "8",
          "--decode-steps", "4"]
@@ -34,12 +36,22 @@ def test_main_serves_the_moe_family_on_cpu(capsys):
     assert out[3].startswith("generated ids (first seq):")
 
 
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-9b"])
+def test_main_serves_the_recurrent_families_on_cpu(capsys, arch):
+    args = [a if a != "granite-8b" else arch for a in SMOKE]
+    serve.main([*args, "--device", "cpu"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[1].startswith("prefill: 2x8 in ")
+    assert out[3].startswith("generated ids (first seq):")
+
+
 def test_main_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(SMOKE)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        lm.init(0, get_config("granite-8b").smoke())
+    for arch in ("granite-8b", "falcon-mamba-7b", "recurrentgemma-9b"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            lm.init(0, get_config(arch).smoke())
 
 
 def test_generate_starts_from_prefill_argmax():
@@ -57,6 +69,7 @@ def test_generate_starts_from_prefill_argmax():
 def test_script_runs_as_a_file():
     """``python src/repro_torch/launch/serve.py`` finds its package by itself."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "2"  # several test processes share the cores
     proc = subprocess.run(
         [sys.executable, str(ROOT / "src" / "repro_torch" / "launch" / "serve.py"),
          *SMOKE, "--device", "cpu"],
