@@ -19,8 +19,13 @@ result line:
    C=312 at prefill, C=1 at decode), the Mamba selective scan at
    falcon-mamba-7b's prefill (B=4, L=1000, DI=8192, ST=16) and the RG-LRU
    scan at recurrentgemma-9b's (B=4, L=2048, D=4096), each also at a ragged
-   shape; then narrow fp32 granite, MoE, Mamba and Griffin models on the
-   card against the same models on the CPU;
+   shape, and the embedding bag on the paper DLRM's tables (T=8, R=1e7,
+   E=128, fp32: 40.96 GB) at its serving lookup (B=128, one id a bag), at
+   B=4096, at a multi-hot shape (B=4096, 32 ids a bag), with bf16 tables,
+   ids near the end of every table (offsets past 2^31) and ids past it
+   (clamped and wrapped), and on ragged tables (E=13, int64 ids); then
+   narrow fp32 granite, MoE, Mamba, Griffin and DLRM models on the card
+   against the same models on the CPU;
 4. serve granite-8b at full width and depth in bf16 through
    ``repro_torch.launch.serve.generate`` (4 requests, prompt 1000, 16 decode
    steps), counting kernel launches, and hold its prefill against
@@ -36,6 +41,11 @@ result line:
    attention window (26 RG-LRU scans and 12 flash-attention launches per
    prefill), and hold prefill(2049) against prefill(2048) plus a decode
    step on the ring-buffer cache;
+4e. score the paper's DLRM (``models.dlrm.paper_config(8)``: 8 tables of
+   1e7 x 128 fp32, a bottom MLP of 8 x 2048, a top MLP of 16 x 4096) at
+   batches 128 and 4096, one embedding-bag launch per forward, and hold its
+   logits against a forward whose lookup is the plain version (bitwise) and
+   against 16 samples recomputed on the CPU;
 5. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, and the
    result line ``{"ok": true, "device": {...}}`` last.
 
@@ -60,6 +70,7 @@ from types import SimpleNamespace
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
@@ -75,7 +86,10 @@ C_PREFILL = int(1.25 * B * PROMPT * 8 / E_MOE)  # 312: capacity at the serving p
 DI_MAMBA, ST_MAMBA, R_MAMBA = 8192, 16, 256  # falcon-mamba-7b's scan
 PROMPT_RG, D_RG = 2048, 4096  # recurrentgemma-9b: prompt = attention window; LRU width
 COUNTERS = ("attention_launches", "grouped_matmul_launches", "selective_scan_launches",
-            "lru_scan_launches")
+            "lru_scan_launches", "bag_lookup_launches")
+T_DLRM, R_DLRM, E_DLRM = 8, 10_000_000, 128  # the paper DLRM's tables, one host's 8 of 64
+DLRM_BATCHES = (128, 4096)  # workloads.DLRM.batch_per_gpu, and a large scoring batch
+DLRM_PATH = "dlrm-paper-8t"
 
 
 def require(ok, what: str) -> None:
@@ -156,6 +170,21 @@ def lru_bound(a, b) -> tuple[float, str]:
     nbytes = (a.numel() + b.numel()) * a.element_size() + (Bm * L * Dl + Bm * Dl) * 4
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, 2.0 * Bm * L * Dl / PEAK_FLOPS[torch.float32]
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def bag_bound(tables, ids, out) -> tuple[float, str, int]:
+    """Least time for the card: the distinct rows the ids select (after the
+    clamp and wrap) read once, the ids read once and the output written once
+    over 3.35 TB/s, against one fp32 add per value summed.  Also the rows."""
+    T, R, E = tables.shape
+    rows = ids.long()
+    rows = torch.where(rows < 0, rows + R, rows).clamp_(0, R - 1)
+    rows = rows + torch.arange(T, device=ids.device)[None, :, None] * R
+    n_rows = int(torch.unique(rows).numel())
+    nbytes = (n_rows * E * tables.element_size() + ids.numel() * ids.element_size()
+              + out.numel() * out.element_size())
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ids.numel() * E / PEAK_FLOPS[torch.float32]
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes", n_rows
 
 
 def mamba_inputs(gen, Bm, L, DI, ST, dtype, R=None):
@@ -277,15 +306,16 @@ def main() -> int:
 
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.embedding_bag import embedding_bag
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.mamba_scan import mamba_scan
     from repro_torch.kernels.moe_gmm import moe_gmm
     from repro_torch.kernels.ref import (
-        ref_flash_attention, ref_mamba_scan, ref_moe_gmm, ref_rglru_scan,
+        ref_embedding_bag, ref_flash_attention, ref_mamba_scan, ref_moe_gmm, ref_rglru_scan,
     )
     from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch.launch.serve import generate
-    from repro_torch.models import layers, lm
+    from repro_torch.models import dlrm, layers, lm
 
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
@@ -294,7 +324,7 @@ def main() -> int:
     print(f"phase 1 device: torch: {kind}, count {count}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}")
 
-    kernels = ["flash_attention", "moe_gmm", "mamba_scan", "rglru_scan"]
+    kernels = ["flash_attention", "moe_gmm", "mamba_scan", "rglru_scan", "embedding_bag"]
     t0 = time.perf_counter()
     _build.load_all(kernels)
     print(f"phase 2 build: {', '.join(k + '.cu' for k in kernels)} in "
@@ -473,6 +503,9 @@ def main() -> int:
         del a, bb, h_all, h_fin, e_all, e_fin
     torch.cuda.empty_cache()
 
+    bag_main, bag_multi = check_bag(embedding_bag, ref_embedding_bag, gen, dev, smi)
+    torch.cuda.empty_cache()
+
     # A narrow granite in fp32 (head dim 64): kernel prefill on the card vs the
     # plain model on the CPU, same weights and prompts.
     small = narrow_config(get_config, "granite-8b")
@@ -520,6 +553,27 @@ def main() -> int:
         errs = check_narrow_model(lm, narrow_config(get_config, arch), dev, toks, arch)
         print(f"phase 3 model: narrow fp32 {arch}, card vs CPU plain: max|err| {errs} "
               "(tol 1e-4)")
+
+    # A narrow fp32 DLRM: the embedding bag on the card vs the plain lookup
+    # on the CPU, same weights and batch (forward and loss).
+    small_dlrm = dlrm.DLRMConfig(n_tables=4, rows_per_table=1000, embed_dim=16,
+                                 bottom_mlp=(32, 32), top_mlp=(32, 32, 1))
+    m_cpu = dlrm.init(0, small_dlrm, device="cpu")
+    m_gpu = dlrm.init(0, small_dlrm, device=dev)
+    m_gpu.load_state_dict(m_cpu.state_dict())
+    batch = dlrm_batch(np.random.default_rng(0), small_dlrm, 64, "cpu")
+    fc = dlrm.forward(m_cpu, batch["dense"], batch["sparse"], small_dlrm)
+    lc, _ = dlrm.loss_fn(m_cpu, batch, small_dlrm)
+    gb = {k: v.to(dev) for k, v in batch.items()}
+    fg = dlrm.forward(m_gpu, gb["dense"], gb["sparse"], small_dlrm)
+    lg, _ = dlrm.loss_fn(m_gpu, gb, small_dlrm)
+    errs = {"forward": float((fg.cpu() - fc).abs().max()), "loss": abs(float(lg) - float(lc))}
+    require(torch.allclose(fg.cpu(), fc, rtol=1e-4, atol=1e-4)
+            and torch.allclose(lg.cpu(), lc, rtol=1e-4, atol=1e-4),
+            f"narrow DLRM, card vs CPU: {errs}")
+    print(f"phase 3 model: narrow fp32 DLRM (T=4, R=1000, E=16, MLPs of 32), card vs CPU "
+          f"plain: max|err| {errs} (tol 1e-4)")
+    del m_cpu, m_gpu, gb
 
     # Phase 4: serve granite-8b at full width and depth.
     cfg = get_config("granite-8b")
@@ -631,6 +685,7 @@ def main() -> int:
                              dev, smi, "4c")
     griffin = serve_recurrent(lm, ops, generate, get_config("recurrentgemma-9b"), PROMPT_RG,
                               gen, dev, smi, "4d")
+    bag_launches = score_dlrm(dlrm, ops, ref_embedding_bag, dev, smi)
 
     print(json.dumps({"kernels": [{
         "name": "flash_attention",
@@ -694,10 +749,222 @@ def main() -> int:
         "launches_by_path": {"recurrentgemma-9b": griffin["lru_scan_launches"]},
         "ms": lru_main["kernel_ms"],
         **lru_main,
+    }, {
+        "name": "embedding_bag",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/embedding_bag.cu",
+        "replaces": "src/repro/kernels/embedding_bag.py:33",
+        "tpu_ref": "kernels/embedding_bag.py:33",
+        "launches": sum(bag_launches.values()),
+        "launches_by_path": {DLRM_PATH: sum(bag_launches.values())},
+        "launches_per_forward": bag_launches,
+        "ms": bag_main["kernel_ms"],
+        **bag_main,
+        **{f"multihot_{k}": v for k, v in bag_multi.items()},
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0
+
+
+def check_bag(embedding_bag, ref_embedding_bag, gen, dev, smi):
+    """The embedding bag against its plain version on the paper DLRM's
+    tables; returns the numbers at the serving lookup and the multi-hot
+    shape.  One id a bag sums one row, so those cases must be bitwise equal;
+    otherwise test_kernels.py's bars (fp32: rtol 1e-6 and NNZ ulps of the
+    largest term; bf16: 2e-2)."""
+    T, R, E = T_DLRM, R_DLRM, E_DLRM
+
+    def ids(Bb, nnz, low=0, high=R, dtype=torch.int32):
+        return torch.randint(low, high, (Bb, T, nnz), generator=gen, device=dev).to(dtype)
+
+    def case(label, tab, idx, exact=False) -> dict:
+        out = embedding_bag(tab, idx)
+        torch.cuda.synchronize()
+        ref = ref_embedding_bag(tab, idx)
+        err = float((out.float() - ref.float()).abs().max())
+        if exact:
+            ok, tol = torch.equal(out, ref), 0.0
+        elif tab.dtype == torch.float32:
+            lo, hi = tab.aminmax()  # no (T, R, E) temporary, as abs() would make
+            tol = idx.shape[2] * torch.finfo(torch.float32).eps * max(-float(lo), float(hi))
+            ok = torch.allclose(out, ref, rtol=1e-6, atol=tol)
+        else:
+            tol = 2e-2
+            ok = torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)
+        require(bool(torch.isfinite(out).all()), f"finite kernel output, {label}")
+        require(ok, f"embedding_bag vs plain, {label}: max|err| {err} (tol {tol})")
+        numbers = bag_times(embedding_bag, ref_embedding_bag, tab, idx, out)
+        numbers["max_abs_err"] = err
+        print(f"phase 3 kernel: embedding_bag {label}: max|err| {err} (tol {tol}"
+              f"{', bitwise' if exact else ''}) kernel_ms {numbers['kernel_ms']} plain_ms "
+              f"{numbers['plain_ms']} library_ms {numbers['library_ms']} (max|err| "
+              f"{numbers['library_err']}) bound_ms {numbers['bound_ms']} "
+              f"({numbers['bound_by']}; {numbers['rows_read']} distinct rows) on {smi}")
+        return {k: numbers[k] for k in BAG_KEYS}
+
+    tables = torch.randn(T, R, E, generator=gen, device=dev)  # 40.96 GB
+    main = case("serving B=128 NNZ=1 fp32 int32", tables, ids(128, 1), exact=True)
+    case("B=4096 NNZ=1 fp32 int32", tables, ids(4096, 1), exact=True)
+    multi = case("multi-hot B=4096 NNZ=32 fp32 int32", tables, ids(4096, 32))
+    case("ids near R-1 B=128 NNZ=4 fp32 int32", tables, ids(128, 4, R - 1000))
+    # Ids past the table read the rows the reference's gather clamps and wraps to.
+    rows = {R: R - 1, R + 5: R - 1, -1: R - 1, -R: 0, -R - 3: 0, 2**31 - 1: R - 1,
+            -(2**31): 0, 0: 0}
+    past = torch.tensor(list(rows), device=dev).repeat(16)
+    want = torch.tensor([rows[int(i)] for i in past.tolist()], device=dev)
+    past = past[:, None, None].expand(-1, T, 1).to(torch.int32)
+    require(torch.equal(embedding_bag(tables, past),
+                        tables[torch.arange(T, device=dev)[None, :], want[:, None]]),
+            "ids R, -1 and beyond read the clamped and wrapped rows")
+    case("ids past the table B=128 NNZ=1 fp32 int32", tables, past, exact=True)
+    del tables
+    torch.cuda.empty_cache()
+
+    tables = torch.randn(T, R, E, generator=gen, device=dev, dtype=torch.bfloat16)
+    case("serving B=128 NNZ=1 bf16 int32", tables, ids(128, 1), exact=True)
+    case("multi-hot B=4096 NNZ=32 bf16 int32", tables, ids(4096, 32))
+    del tables
+    torch.cuda.empty_cache()
+    # Rows of 52 bytes (E = 13: the scalar kernel), with int64 ids.
+    tables = torch.randn(T, R, 13, generator=gen, device=dev)
+    case("ragged E=13 B=128 NNZ=7 fp32 int64", tables, ids(128, 7, dtype=torch.int64))
+    del tables
+    return main, multi
+
+
+BAG_KEYS = ("max_abs_err", "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+
+
+def bag_times(embedding_bag, ref_embedding_bag, tables, ids, out) -> dict:
+    """Kernel, plain and library times (CUDA events) and the bound.  The
+    library call is ``F.embedding_bag`` over the tables seen as one (T*R, E)
+    table, with ids in range offset by t*R: a yardstick only, never on the
+    port's path."""
+    T, R, E = tables.shape
+    B, _, nnz = ids.shape
+    iters = 20 if B * nnz > 4096 else 200
+    kernel_ms = time_ms(lambda: embedding_bag(tables, ids), iters)
+    plain_ms = time_ms(lambda: ref_embedding_bag(tables, ids), 5)
+    library_ms = library_err = None
+    if bool(((ids >= 0) & (ids < R)).all()):
+        flat = (ids.long() + torch.arange(T, device=ids.device)[None, :, None] * R)
+        flat = flat.view(B * T, nnz)
+        table2d = tables.view(T * R, E)
+        lib = torch.nn.functional.embedding_bag(flat, table2d, mode="sum").view(B, T, E)
+        library_err = float((lib.float() - out.float()).abs().max())
+        library_ms = time_ms(
+            lambda: torch.nn.functional.embedding_bag(flat, table2d, mode="sum"), iters)
+    bound_ms, bound_by, n_rows = bag_bound(tables, ids, out)
+    return dict(kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                library_err=library_err, bound_ms=bound_ms, bound_by=bound_by,
+                rows_read=n_rows)
+
+
+def dlrm_batch(rng, cfg, batch, device):
+    """Dense features and ids drawn with numpy from ``rng``; labels are
+    ``sparse[:, 0] % 2``, as ``examples/dlrm_testbed.py`` makes them."""
+    sparse = rng.integers(0, cfg.rows_per_table, (batch, cfg.n_tables)).astype(np.int32)
+    dense = rng.standard_normal((batch, cfg.dense_features)).astype(np.float32)
+    return {"dense": torch.from_numpy(dense).to(device),
+            "sparse": torch.from_numpy(sparse).to(device),
+            "label": torch.from_numpy((sparse[:, 0] % 2).astype(np.float32)).to(device)}
+
+
+def score_dlrm(dlrm, ops, ref_embedding_bag, dev, smi) -> dict:
+    """Phase 4e: scores the paper's DLRM (8 tables) at full width on the
+    freed card, at each batch of ``DLRM_BATCHES``; returns the embedding-bag
+    launches of each batch's request."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dlrm.paper_config(T_DLRM)
+    before_gb = torch.cuda.memory_allocated() / 1e9  # what earlier phases left allocated
+    t0 = time.perf_counter()
+    model = dlrm.init(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    n_mlp = sum(p.numel() for n, p in model.named_parameters() if n != "tables")
+    print(f"phase 4e score: {DLRM_PATH} init on the card: tables {tuple(model.tables.shape)} "
+          f"fp32 ({model.tables.numel() * 4 / 1e9} GB), MLPs {n_mlp} parameters "
+          f"({n_mlp * 4 / 1e9} GB) in {time.perf_counter() - t0:.2f} s; allocated before "
+          f"the init {before_gb} GB, after it {torch.cuda.memory_allocated() / 1e9} GB")
+    rng = np.random.default_rng(0)
+    launches = {}
+    for batch_size in DLRM_BATCHES:
+        batch = dlrm_batch(rng, cfg, batch_size, dev)
+        dense, sparse = batch["dense"], batch["sparse"]
+        for _ in range(3):  # warm-up: cuBLAS handles and heuristics
+            dlrm.forward(model, dense, sparse, cfg)
+        torch.cuda.synchronize()
+        # The request, with every count set to 0 just before it.
+        for n in COUNTERS:
+            setattr(ops, n, 0)
+        torch.cuda.reset_peak_memory_stats()
+        start_gb = torch.cuda.memory_allocated() / 1e9
+        logits = dlrm.forward(model, dense, sparse, cfg)
+        torch.cuda.synchronize()
+        counts = {n: getattr(ops, n) for n in COUNTERS}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = {n: int(n == "bag_lookup_launches") for n in COUNTERS}
+        require(counts == want, f"{DLRM_PATH} B={batch_size} launches {counts}, want {want}")
+        launches[f"B={batch_size}"] = counts["bag_lookup_launches"]
+        loss, _ = dlrm.loss_fn(model, batch, cfg)
+        require(tuple(logits.shape) == (batch_size,) and bool(torch.isfinite(logits).all())
+                and bool(torch.isfinite(loss)), f"finite {DLRM_PATH} logits and loss")
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            dlrm.forward(model, dense, sparse, cfg)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        fwd_ms = float(np.median(times)) * 1e3
+        print(f"phase 4e score: B={batch_size} forward {fwd_ms} ms (median of 20, min "
+              f"{min(times) * 1e3}, max {max(times) * 1e3}), {batch_size / fwd_ms * 1e3} "
+              f"samples/s, bag_lookup launches {counts['bag_lookup_launches']} per forward, "
+              f"loss {float(loss)}, max|logit| {float(logits.abs().max())}, peak memory "
+              f"{peak_gb} GB ({start_gb} GB allocated at the request's start), on {smi}")
+
+        # (a) The same forward with the plain lookup on the card: bitwise.
+        real = ops.bag_lookup
+        ops.bag_lookup = ref_embedding_bag
+        try:
+            plain_logits = dlrm.forward(model, dense, sparse, cfg)
+        finally:
+            ops.bag_lookup = real
+        diff = float((plain_logits - logits).abs().max())
+        require(torch.equal(plain_logits, logits),
+                f"{DLRM_PATH} B={batch_size} kernel vs plain lookup: max|diff| {diff}")
+        # (b) 16 samples recomputed on the CPU from the rows they gather.
+        n = 16
+        rows = model.tables[torch.arange(T_DLRM, device=dev)[None, :], sparse[:n].long()]
+        cpu = SimpleNamespace(
+            tables=rows.transpose(0, 1).contiguous().cpu(),  # (T, 16, E): row i is sample i's
+            bottom=[SimpleNamespace(w=m.w.cpu(), b=m.b.cpu()) for m in model.bottom],
+            top=[SimpleNamespace(w=m.w.cpu(), b=m.b.cpu()) for m in model.top])
+        cfg_cpu = dataclasses.replace(cfg, rows_per_table=n)
+        sub = {"dense": dense[:n].cpu(), "label": batch["label"][:n].cpu(),
+               "sparse": torch.arange(n)[:, None].expand(n, T_DLRM)}
+        logits_cpu = dlrm.forward(cpu, sub["dense"], sub["sparse"], cfg_cpu)
+        loss_cpu, _ = dlrm.loss_fn(cpu, sub, cfg_cpu)
+        loss_card, _ = dlrm.loss_fn(model, {"dense": dense[:n], "sparse": sparse[:n],
+                                            "label": batch["label"][:n]}, cfg)
+        bar = 1e-4 * float(logits_cpu.abs().max())
+        # The loss sits near log 2, where one fp32 ulp (6e-8) can exceed the
+        # logits' bar: its 16 terms are summed in another order on the card.
+        loss_bar = bar + 8 * torch.finfo(torch.float32).eps * abs(float(loss_cpu))
+        err = float((logits[:n].cpu() - logits_cpu).abs().max())
+        loss_err = abs(float(loss_card) - float(loss_cpu))
+        require(err <= bar and loss_err <= loss_bar,
+                f"{DLRM_PATH} B={batch_size} card vs CPU on {n} samples: logits {err} "
+                f"(bar {bar}), loss {loss_err} (bar {loss_bar})")
+        print(f"phase 4e consistency: B={batch_size} kernel vs plain lookup on the card: "
+              f"bitwise (max|diff| {diff}); {n} samples recomputed on the CPU in fp32: logits "
+              f"max|err| {err} <= {bar} (1e-4 max|logit|), loss {float(loss_card)} vs "
+              f"{float(loss_cpu)}, |err| {loss_err} <= {loss_bar}")
+        del batch, dense, sparse, logits, plain_logits, rows, cpu
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def serve_recurrent(lm, ops, generate, cfg, prompt, gen, dev, smi, phase) -> dict:

@@ -4,22 +4,25 @@ Counterpart of ``repro.kernels.ops``.  A wrapper takes the plain PyTorch
 path only because its input lies on the CPU; on a CUDA tensor it launches
 the kernel or raises, with no fallback.  Each wrapper counts its kernel
 launches in a module-level integer, so a run can show that its main path
-went through the kernel.  The reference's last wrapper, ``bag_lookup``,
-comes with the slice that ports its kernel (ROADMAP.md).
+went through the kernel.
 """
 
 from __future__ import annotations
 
+from .embedding_bag import embedding_bag
 from .flash_attention import flash_attention
 from .mamba_scan import mamba_scan
 from .moe_gmm import moe_gmm
-from .ref import ref_flash_attention, ref_mamba_scan, ref_moe_gmm, ref_rglru_scan
+from .ref import (
+    ref_embedding_bag, ref_flash_attention, ref_mamba_scan, ref_moe_gmm, ref_rglru_scan,
+)
 from .rglru_scan import rglru_scan
 
 attention_launches = 0
 grouped_matmul_launches = 0
 selective_scan_launches = 0
 lru_scan_launches = 0
+bag_lookup_launches = 0
 
 
 def attention(q, k, v, causal: bool = True, window: int = 0):
@@ -61,4 +64,15 @@ def lru_scan(a, b):
         return ref_rglru_scan(a, b)
     out = rglru_scan(a, b)
     lru_scan_launches += 1
+    return out
+
+
+def bag_lookup(tables, indices):
+    """tables: (T, R, E); indices: (B, T, NNZ) -> (B, T, E):
+    ``out[b, t] = sum_j tables[t, indices[b, t, j]]``."""
+    global bag_lookup_launches
+    if tables.device.type == "cpu":
+        return ref_embedding_bag(tables, indices)
+    out = embedding_bag(tables, indices)
+    bag_lookup_launches += 1
     return out

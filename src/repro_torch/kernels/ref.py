@@ -68,3 +68,15 @@ def ref_rglru_scan(a, b):
         h = af[:, t] * h + bf[:, t]
         hs.append(h)
     return torch.stack(hs, dim=1), h
+
+
+def ref_embedding_bag(tables, indices):
+    """tables: (T, R, E); indices: (B, T, NNZ) -> (B, T, E), summed in fp32
+    and cast to the tables' dtype, as the Pallas kernel does.  Ids follow the
+    reference's gather: a negative id wraps by R, then every id clamps to
+    [0, R - 1]."""
+    T, R = tables.shape[:2]
+    ids = indices.long()
+    ids = torch.where(ids < 0, ids + R, ids).clamp_(0, R - 1)
+    gathered = tables[torch.arange(T, device=tables.device)[None, :, None], ids]  # (B,T,NNZ,E)
+    return gathered.float().sum(dim=2).to(tables.dtype)

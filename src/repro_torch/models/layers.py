@@ -22,11 +22,16 @@ from ..kernels.ref import NEG_INF
 from ..parallel.options import get_options
 
 
+def truncated_normal_(t, gen, scale):
+    """Fills ``t`` in place: standard normal truncated to [-2, 2], times ``scale``."""
+    nn.init.trunc_normal_(t, a=-2.0, b=2.0, generator=gen)
+    return t.mul_(scale)
+
+
 def truncated_normal(gen, shape, scale, dtype, device):
     """Standard normal truncated to [-2, 2], times ``scale``, drawn in fp32."""
     t = torch.empty(shape, dtype=torch.float32, device=device)
-    nn.init.trunc_normal_(t, a=-2.0, b=2.0, generator=gen)
-    return t.mul_(scale).to(dtype)
+    return truncated_normal_(t, gen, scale).to(dtype)
 
 
 def dense_init(gen, d_in, d_out, dtype, device, scale=None):

@@ -4,7 +4,8 @@
 arguments, with a module in place of the parameter pytree, and dispatch on
 ``cfg.family``: ``ssm`` and ``hybrid`` to ``models.recurrent``, ``dense``
 and ``moe`` to ``models.transformer``.  The other families raise
-``NotImplementedError`` naming their ROADMAP item.
+``NotImplementedError``: ``recsys`` (DLRM) lives in ``models.dlrm``, the
+rest name their ROADMAP item.
 """
 
 from __future__ import annotations

@@ -3,8 +3,9 @@ of ``repro.models.transformer``.
 
 The reference scans stacked layer weights; here the layers are a
 ``ModuleList`` walked by a Python loop.  The recurrent families (``ssm``,
-``hybrid``) live in ``models.recurrent``; the families not ported yet raise
-``NotImplementedError`` naming their ROADMAP item.
+``hybrid``) live in ``models.recurrent``; the other families raise
+``NotImplementedError`` saying where they are (DLRM: ``models.dlrm``) or
+which ROADMAP item ports them.
 """
 
 from __future__ import annotations
@@ -15,11 +16,12 @@ from torch import nn
 from ..configs.base import ArchConfig, cache_specs, torch_dtype
 from . import layers as L
 
-# ROADMAP.md queue 1 items that port the other families.
+# Why the LM facade takes no config of the other families.
 NOT_PORTED = {
-    "recsys": "ROADMAP.md queue 1, item 4 (DLRM)",
-    "vlm": "ROADMAP.md queue 1, item 6 (VLM and audio families)",
-    "audio": "ROADMAP.md queue 1, item 6 (VLM and audio families)",
+    "recsys": "DLRM is no LM, and this facade takes it no more than repro.models.lm "
+              "does: it lives in repro_torch.models.dlrm (init, forward, loss_fn)",
+    "vlm": "not ported yet: ROADMAP.md queue 1, item 6 (VLM and audio families)",
+    "audio": "not ported yet: ROADMAP.md queue 1, item 6 (VLM and audio families)",
 }
 
 
@@ -28,10 +30,8 @@ PORTED = ("dense", "moe", "ssm", "hybrid")
 
 def require_ported(cfg: ArchConfig) -> None:
     if cfg.family not in PORTED:
-        where = NOT_PORTED.get(cfg.family, "ROADMAP.md queue 1")
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet ({where})"
-        )
+        why = NOT_PORTED.get(cfg.family, "not ported yet: ROADMAP.md queue 1")
+        raise NotImplementedError(f"{cfg.name}: the {cfg.family!r} family: {why}")
 
 
 class Block(nn.Module):

@@ -13,8 +13,12 @@ one module per layer:
   j = 3*block + r for the recurrent layers, 3*block + 2 for the attention
   layer, and 3*n_blocks + t for the tail.
 
+DLRM (``dlrm_params_from_jax``): ``tables`` as it is, and the ``bottom`` and
+``top`` lists of ``{"w", "b"}`` -> ``bottom.{i}.{w,b}`` and ``top.{i}.{w,b}``.
+
 The input is that pytree with numpy leaves (``jax.tree.map(np.asarray, p)``),
-so this module needs neither JAX nor ``ml_dtypes``.
+so this module needs neither JAX nor ``ml_dtypes``.  Projections stay
+``(d_in, d_out)``, as the reference keeps them.
 """
 
 from __future__ import annotations
@@ -81,3 +85,21 @@ def params_from_jax(np_params: dict, cfg: ArchConfig) -> dict[str, torch.Tensor]
 def _check_depth(where: str, stacked, want: int) -> None:
     if len(stacked) != want:
         raise ValueError(f"{where}: {len(stacked)} layers, want {want}")
+
+
+def dlrm_params_from_jax(np_params: dict, cfg) -> dict[str, torch.Tensor]:
+    """A ``state_dict`` for the module ``models.dlrm.init`` builds from the
+    reference's DLRM parameters (CPU tensors, fp32); ``cfg`` is a
+    ``DLRMConfig``."""
+
+    def tensor(a) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, dtype=np.float32))
+
+    sd = {"tables": tensor(np_params["tables"])}
+    want = {"bottom": len(cfg.bottom_mlp) + 1, "top": len(cfg.top_mlp)}
+    for name, n in want.items():
+        _check_depth(name, np_params[name], n)
+        for i, lyr in enumerate(np_params[name]):
+            sd[f"{name}.{i}.w"] = tensor(lyr["w"])
+            sd[f"{name}.{i}.b"] = tensor(lyr["b"])
+    return sd

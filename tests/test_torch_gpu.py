@@ -1,6 +1,6 @@
 """The CUDA kernels (flash attention, grouped matmul, Mamba selective scan,
-RG-LRU scan) against their plain versions, and the narrow models on the card
-against the CPU.
+RG-LRU scan, embedding bag) against their plain versions, and the narrow
+models (and a narrow DLRM) on the card against the CPU.
 
 Run on a machine with a CUDA card: ``python -m pytest -m gpu tests/test_torch_gpu.py``.
 Every test here skips without one (decided in the fixture, never at import).
@@ -13,14 +13,15 @@ import torch
 
 from repro_torch.configs.base import get_config
 from repro_torch.kernels import ops
+from repro_torch.kernels.embedding_bag import embedding_bag
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.mamba_scan import mamba_scan
 from repro_torch.kernels.moe_gmm import moe_gmm
 from repro_torch.kernels.ref import (
-    ref_flash_attention, ref_mamba_scan, ref_moe_gmm, ref_rglru_scan,
+    ref_embedding_bag, ref_flash_attention, ref_mamba_scan, ref_moe_gmm, ref_rglru_scan,
 )
 from repro_torch.kernels.rglru_scan import rglru_scan
-from repro_torch.models import lm
+from repro_torch.models import dlrm, lm
 
 torch.set_num_threads(2)  # several test processes share the cores
 
@@ -355,3 +356,126 @@ def test_recurrent_model_on_card_matches_plain_model_on_cpu(cuda, arch, monkeypa
         lg, cg = lm.decode_step(model_gpu, {"token": tok.to(cuda), "pos": pos, "cache": cg}, cfg)
         torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
     assert ops.selective_scan_launches + ops.lru_scan_launches == 2 * n_rec  # none at decode
+
+
+def _bag_inputs(device, T, R, E, B, NNZ, dtype, id_dtype, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tables = torch.randn(T, R, E, generator=gen, device=device).to(dtype)
+    ids = torch.randint(0, R, (B, T, NNZ), generator=gen, device=device).to(id_dtype)
+    return tables, ids
+
+
+def _assert_bag_close(out, expect, tables, NNZ):
+    """test_kernels.py's bars: in fp32 rtol 1e-6 and an atol of NNZ ulps of
+    the largest term (the sums run in another order); 2e-2 in bf16/fp16."""
+    assert out.dtype == tables.dtype and out.shape == expect.shape
+    if tables.dtype == torch.float32:
+        atol = NNZ * torch.finfo(torch.float32).eps * float(tables.abs().max())
+        torch.testing.assert_close(out, expect, rtol=1e-6, atol=atol)
+    else:
+        torch.testing.assert_close(out.float(), expect.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("NNZ", [1, 7, 32])
+@pytest.mark.parametrize("E", [128, 16, 13, 200])
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+def test_bag_kernel_matches_plain(cuda, dtype, id_dtype, E, NNZ):
+    tables, ids = _bag_inputs(cuda, 3, 1000, E, 5, NNZ, dtype, id_dtype)
+    out = embedding_bag(tables, ids)
+    torch.cuda.synchronize()
+    _assert_bag_close(out, ref_embedding_bag(tables, ids), tables, NNZ)
+
+
+def test_bag_kernel_with_one_id_equals_the_rows_bitwise(cuda):
+    tables, ids = _bag_inputs(cuda, 4, 5000, 128, 64, 1, torch.float32, torch.int32)
+    out = embedding_bag(tables, ids)
+    rows = tables[torch.arange(4, device=cuda)[None, :], ids[:, :, 0].long()]
+    assert torch.equal(out, rows)
+
+
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+def test_bag_kernel_clamps_and_wraps_ids_past_the_table(cuda, id_dtype):
+    """An id >= R reads row R - 1, a negative id wraps by R (then clamps to 0),
+    as the reference's XLA gather does."""
+    R = 50
+    tables, _ = _bag_inputs(cuda, 2, R, 16, 1, 1, torch.float32, id_dtype)
+    raw = [R, R + 7, -1, -R, -R - 3, 2**31 - 1, -(2**31)]
+    ids = torch.tensor(raw, device=cuda).to(id_dtype)[:, None, None].expand(-1, 2, 1)
+    out = embedding_bag(tables, ids)
+    rows = [R - 1, R - 1, R - 1, 0, 0, R - 1, 0]
+    expect = tables[:, rows].transpose(0, 1)
+    assert torch.equal(out, expect)
+    assert torch.equal(ref_embedding_bag(tables, ids), expect)
+
+
+def test_bag_kernel_takes_strided_views(cuda):
+    """Row-sliced, column-sliced and transposed tables, and strided ids: the
+    same sums as on contiguous copies."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    big = torch.randn(3, 400, 16, generator=gen, device=cuda)
+    ids_big = torch.randint(0, 200, (6, 3, 10), generator=gen, device=cuda)
+    ids = ids_big[:, :, ::2]  # (6, 3, 5), last stride 2
+    views = [
+        big[:, :, :13],  # 16-byte rows, ragged E: vector loads and a scalar tail
+        big[:, ::2, :],  # every other row
+        big.transpose(1, 2).contiguous().transpose(1, 2),  # element stride R: scalar kernel
+        big[:, :, 1:9],  # rows not 16-byte aligned: scalar kernel
+    ]
+    for tables in views:
+        out = embedding_bag(tables, ids)
+        expect = embedding_bag(tables.contiguous(), ids.contiguous())
+        assert torch.equal(out, expect)
+        _assert_bag_close(out, ref_embedding_bag(tables, ids), tables, 5)
+    sparse = ids_big[:, :, 0].t().contiguous().t()  # (6, 3) transposed, as a view
+    out = embedding_bag(big, sparse[:, :, None])
+    assert torch.equal(out, embedding_bag(big, sparse.contiguous()[:, :, None]))
+
+
+def test_bag_kernel_offsets_past_int32(cuda):
+    """Table 2 of (3, 9e6, 128) starts 2.3e9 elements in, past INT_MAX."""
+    T, R, E = 3, 9_000_000, 128
+    tables = torch.randn(T, R, E, device=cuda, dtype=torch.bfloat16)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    ids = torch.randint(R - 1000, R, (64, T, 4), generator=gen, device=cuda)
+    out = embedding_bag(tables, ids)
+    _assert_bag_close(out, ref_embedding_bag(tables, ids), tables, 4)
+    one = embedding_bag(tables, ids[:, :, :1])
+    assert torch.equal(one, tables[torch.arange(T, device=cuda)[None, :], ids[:, :, 0]])
+
+
+def test_ops_counts_bag_launches_and_rejects_bad_inputs(cuda, monkeypatch):
+    monkeypatch.setattr(ops, "bag_lookup_launches", 0)
+    tables, ids = _bag_inputs(cuda, 2, 100, 16, 3, 2, torch.float32, torch.int32)
+    ops.bag_lookup(tables, ids)
+    ops.bag_lookup(tables.bfloat16(), ids.long())
+    assert ops.bag_lookup_launches == 2
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ops.bag_lookup(tables, ids.cpu())
+    with pytest.raises(ValueError, match="tables must be"):
+        ops.bag_lookup(tables.double(), ids)
+    with pytest.raises(ValueError, match="indices must be"):
+        ops.bag_lookup(tables, ids.short())
+    with pytest.raises(ValueError, match="indices"):
+        ops.bag_lookup(tables, ids[:, :1])
+    assert ops.bag_lookup_launches == 2
+
+
+def test_dlrm_on_card_matches_plain_dlrm_on_cpu(cuda, monkeypatch):
+    cfg = dlrm.DLRMConfig(n_tables=4, rows_per_table=1000, embed_dim=16,
+                          bottom_mlp=(32, 32), top_mlp=(32, 32, 1))
+    model_cpu = dlrm.init(0, cfg, device="cpu")
+    model_gpu = dlrm.init(0, cfg, device=cuda)
+    model_gpu.load_state_dict(model_cpu.state_dict())
+    gen = torch.Generator().manual_seed(0)
+    batch = {"dense": torch.randn(64, cfg.dense_features, generator=gen),
+             "sparse": torch.randint(0, cfg.rows_per_table, (64, cfg.n_tables), generator=gen)}
+    batch["label"] = batch["sparse"][:, 0] % 2
+    monkeypatch.setattr(ops, "bag_lookup_launches", 0)
+    lc, _ = dlrm.loss_fn(model_cpu, batch, cfg)
+    lg, _ = dlrm.loss_fn(model_gpu, {k: v.to(cuda) for k, v in batch.items()}, cfg)
+    fc = dlrm.forward(model_cpu, batch["dense"], batch["sparse"], cfg)
+    fg = dlrm.forward(model_gpu, batch["dense"].to(cuda), batch["sparse"].to(cuda), cfg)
+    assert ops.bag_lookup_launches == 2
+    torch.testing.assert_close(fg.cpu(), fc, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)

@@ -31,6 +31,7 @@ SLICE_MODULES = (
     "repro_torch.models.transformer", "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.moe_gmm", "repro_torch.models.recurrent",
     "repro_torch.kernels.mamba_scan", "repro_torch.kernels.rglru_scan",
+    "repro_torch.models.dlrm", "repro_torch.kernels.embedding_bag",
 )
 
 
@@ -41,7 +42,7 @@ def test_port_imports_without_jax_and_without_repro():
         env=env, cwd=ROOT, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 23  # every module was reached
+    assert int(proc.stdout.split()[-1]) >= 25  # every module was reached
     walked = set(proc.stdout.splitlines()[-2].split())
     assert set(SLICE_MODULES) <= walked
 
