@@ -9,14 +9,22 @@ result line:
 1. device: the card's name and power limit (``nvidia-smi``), its torch name
    and the device count;
 2. build: every CUDA kernel of the serving paths, from ``src/repro_torch/csrc``
-   (one ``nvcc`` per source, all started together);
+   (one ``nvcc`` per source, all started together), with ptxas's registers,
+   shared memory, spills and wgmma serialisation warnings for each kernel;
+   the warp-specialised wgmma kernels must report the 168 registers their
+   setmaxnreg split (240 x 256 + 24 x 128) is sized for;
 3. kernels vs their plain PyTorch versions at the serving shapes, with times
    beside the bound and beside one PyTorch library call where one computes
-   the same function: flash attention at granite-8b's and
+   the same function, each case printing the tiling that served it (wgmma
+   for bf16/fp16, fma for fp32, skinny for C <= 16), and the bf16 serving
+   shapes also timed on the fma tiling: flash attention at granite-8b's and
    qwen3-moe-30b-a3b's attention (B=4, H=32, KV=8 or 4, D=128; S=1000 and
    2048) and at recurrentgemma-9b's (B=4, H=16, KV=1, S=2048, D=256, window
-   2048), the grouped matmul at qwen3-moe-30b-a3b's expert products (E=128;
-   C=312 at prefill, C=1 at decode), the Mamba selective scan at
+   2048), in bf16, fp16 and fp32, and at ragged edges of the 128-row q and
+   64-row k tiles (Sq = Sk = 127, 129; Sq != Sk), the grouped matmul at
+   qwen3-moe-30b-a3b's expert products (E=128; C=312 at prefill in bf16,
+   fp16 and fp32, C=1 at decode) and around its 128 x 256 tiles (C = 129;
+   D = 72, F = 136), the Mamba selective scan at
    falcon-mamba-7b's prefill (B=4, L=1000, DI=8192, ST=16) and the RG-LRU
    scan at recurrentgemma-9b's (B=4, L=2048, D=4096), each also at a ragged
    shape, and the embedding bag on the paper DLRM's tables (T=8, R=1e7,
@@ -28,11 +36,14 @@ result line:
    against the same models on the CPU;
 4. serve granite-8b at full width and depth in bf16 through
    ``repro_torch.launch.serve.generate`` (4 requests, prompt 1000, 16 decode
-   steps), counting kernel launches, and hold its prefill against
-   prefill-then-decode, which attends in plain PyTorch;
+   steps), counting kernel launches (every prefill attention on the wgmma
+   tiling), and hold its prefill against prefill-then-decode, which attends
+   in plain PyTorch;
 4b. serve qwen3-moe-30b-a3b the same way at full width and depth (30.5 B
    parameters in bf16), counting both kernels' launches in the prefill and
-   in the decode loop, then hold its first MoE layer on the card in bf16
+   in the decode loop (prefill attention and grouped matmuls on the wgmma
+   tiling, decode grouped matmuls on the skinny one), then hold its first
+   MoE layer on the card in bf16
    against the same layer on the CPU in fp32;
 4c. serve falcon-mamba-7b the same way (64 Mamba layers, a selective-scan
    launch in each at prefill, plain steps at decode), and hold its prefill
@@ -85,8 +96,13 @@ E_MOE, D_MOE, F_MOE = 128, 2048, 768  # qwen3-moe-30b-a3b's experts
 C_PREFILL = int(1.25 * B * PROMPT * 8 / E_MOE)  # 312: capacity at the serving prefill
 DI_MAMBA, ST_MAMBA, R_MAMBA = 8192, 16, 256  # falcon-mamba-7b's scan
 PROMPT_RG, D_RG = 2048, 4096  # recurrentgemma-9b: prompt = attention window; LRU width
-COUNTERS = ("attention_launches", "grouped_matmul_launches", "selective_scan_launches",
-            "lru_scan_launches", "bag_lookup_launches")
+KERNEL_COUNTERS = ("attention_launches", "grouped_matmul_launches", "selective_scan_launches",
+                   "lru_scan_launches", "bag_lookup_launches")
+# The same launches again, by the tiling that served them.
+TILING_COUNTERS = ("attention_wgmma_launches", "attention_fma_launches",
+                   "grouped_matmul_wgmma_launches", "grouped_matmul_fma_launches",
+                   "grouped_matmul_skinny_launches")
+COUNTERS = KERNEL_COUNTERS + TILING_COUNTERS
 T_DLRM, R_DLRM, E_DLRM = 8, 10_000_000, 128  # the paper DLRM's tables, one host's 8 of 64
 DLRM_BATCHES = (128, 4096)  # workloads.DLRM.batch_per_gpu, and a large scoring batch
 DLRM_PATH = "dlrm-paper-8t"
@@ -103,6 +119,40 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return proc.stdout.strip().splitlines()[0]
+
+
+def ptxas_report(log: str) -> dict:
+    """Per kernel in an ``nvcc -Xptxas -v`` log: registers, static shared
+    memory, spill bytes and whether ptxas serialised its wgmma instructions
+    (warning C7512).  Kernels are named by their unmangled base and template
+    arguments as they appear in the mangled name."""
+    import re
+
+    def short(mangled):
+        m = re.search(r"([a-z_]+_kernel)(I.*?E)E?v", mangled)
+        return m.group(1) + m.group(2) if m else mangled
+
+    out: dict = {}
+    fn = None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            fn = short(m.group(1))
+            out.setdefault(fn, dict(registers=None, smem=0, spill_stores=0, spill_loads=0,
+                                    serialised=False))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn:
+            out[fn]["spill_stores"], out[fn]["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and fn:
+            out[fn]["registers"] = int(m.group(1))
+            out[fn]["smem"] = int(m.group(2) or 0)
+        m = re.search(r"C7512.*function '(\w+)'", line)
+        if m:
+            out.setdefault(short(m.group(1)), dict(registers=None, smem=0, spill_stores=0,
+                                                   spill_loads=0, serialised=False))
+            out[short(m.group(1))]["serialised"] = True
+    return out
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -307,9 +357,9 @@ def main() -> int:
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.embedding_bag import embedding_bag
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import attention_tiling, flash_attention
     from repro_torch.kernels.mamba_scan import mamba_scan
-    from repro_torch.kernels.moe_gmm import moe_gmm
+    from repro_torch.kernels.moe_gmm import gmm_tiling, moe_gmm
     from repro_torch.kernels.ref import (
         ref_embedding_bag, ref_flash_attention, ref_mamba_scan, ref_moe_gmm, ref_rglru_scan,
     )
@@ -330,77 +380,97 @@ def main() -> int:
     print(f"phase 2 build: {', '.join(k + '.cu' for k in kernels)} in "
           f"{time.perf_counter() - t0:.2f} s")
     for name in kernels:
-        for line in _build.build_logs.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"phase 2 build: ptxas {name}: {line.strip()}")
+        for fn, info in ptxas_report(_build.build_logs.get(name, "")).items():
+            print(f"phase 2 build: ptxas {name}: {fn}: {info['registers']} registers, "
+                  f"{info['smem']} bytes static smem, spill stores {info['spill_stores']} "
+                  f"loads {info['spill_loads']} bytes, wgmma serialised: {info['serialised']}")
+            if "wgmma_kernel" in fn:
+                # setmaxnreg moves registers within the block's launch-time
+                # allotment: consumers at 240 and the producer at 24 need 168.
+                require(info["registers"] == 168,
+                        f"{fn} uses {info['registers']} registers, want the 168 that its "
+                        "setmaxnreg split (2 x 128 x 240 + 128 x 24) is sized for")
+                require(info["spill_stores"] == info["spill_loads"] == 0
+                        and not info["serialised"], f"{fn} spills or serialises: {info}")
 
     # Phase 3: the kernel against its plain version at the serving shapes.
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def qkv(S, dh, dtype, kv, h):
-        return tuple(
-            torch.randn(B, n, S, dh, generator=gen, device=dev).to(dtype)
-            for n in (h, kv, kv)
-        )
-
-    cases = [  # (S, D, dtype, causal, window, KV, H)
-        (PROMPT, D, torch.bfloat16, True, 0, KV, H),
-        (PROMPT, D, torch.float32, True, 0, KV, H),
-        (2048, D, torch.bfloat16, True, 0, KV, H),
-        (2048, D, torch.float32, True, 0, KV, H),
-        (PROMPT, 64, torch.bfloat16, True, 128, KV, H),
-        (PROMPT, D, torch.bfloat16, False, 0, KV, H),
-        (PROMPT, D, torch.bfloat16, True, 0, 4, H),  # qwen3-moe-30b-a3b's prefill
-        (PROMPT_RG, 256, torch.bfloat16, True, PROMPT_RG, 1, 16),  # recurrentgemma-9b's
-        (PROMPT_RG, 256, torch.float32, True, PROMPT_RG, 1, 16),
+    cases = [  # (Sq, Sk, D, dtype, causal, window, KV, H)
+        (PROMPT, PROMPT, D, torch.bfloat16, True, 0, KV, H),  # granite-8b's prefill
+        (PROMPT, PROMPT, D, torch.float16, True, 0, KV, H),
+        (PROMPT, PROMPT, D, torch.float32, True, 0, KV, H),
+        (2048, 2048, D, torch.bfloat16, True, 0, KV, H),
+        (2048, 2048, D, torch.float32, True, 0, KV, H),
+        (PROMPT, PROMPT, 64, torch.bfloat16, True, 128, KV, H),
+        (PROMPT, PROMPT, D, torch.bfloat16, False, 0, KV, H),
+        (PROMPT, PROMPT, D, torch.bfloat16, True, 0, 4, H),  # qwen3-moe-30b-a3b's prefill
+        (PROMPT_RG, PROMPT_RG, 256, torch.bfloat16, True, PROMPT_RG, 1, 16),  # recurrentgemma-9b's
+        (PROMPT_RG, PROMPT_RG, 256, torch.float16, True, PROMPT_RG, 1, 16),
+        (PROMPT_RG, PROMPT_RG, 256, torch.float32, True, PROMPT_RG, 1, 16),
+        # Ragged edges of the 128-row q tiles and 64-row k tiles.
+        (127, 127, D, torch.bfloat16, True, 0, KV, H),
+        (129, 129, D, torch.bfloat16, True, 0, KV, H),
+        (129, 129, 256, torch.float16, True, 64, 1, 16),
+        (100, 300, D, torch.bfloat16, False, 0, KV, H),
+        (300, 100, 64, torch.bfloat16, True, 0, KV, H),
     ]
-    main_case, rg_case = {}, {}
-    for S, dh, dtype, causal, window, kv, h in cases:
-        q, k, v = qkv(S, dh, dtype, kv, h)
+    attn = {}  # numbers of each case, by its tuple
+    for Sq, Sk, dh, dtype, causal, window, kv, h in cases:
+        q = torch.randn(B, h, Sq, dh, generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn(B, kv, Sk, dh, generator=gen, device=dev).to(dtype) for _ in "kv")
         out = flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         ref = ref_flash_attention(q, k, v, causal=causal, window=window)
         err = float((out.float() - ref.float()).abs().max())
         tol = TOL[dtype]
-        label = (f"H={h} KV={kv} S={S} D={dh} {str(dtype)[6:]} causal={causal} "
-                 f"window={window}")
+        tiling = attention_tiling(dtype, dh)
+        label = (f"H={h} KV={kv} Sq={Sq} Sk={Sk} D={dh} {str(dtype)[6:]} causal={causal} "
+                 f"window={window} tiling={tiling}")
         require(bool(torch.isfinite(out).all()), f"finite kernel output, {label}")
         require(torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol),
                 f"kernel vs plain at {tol}, {label}: max|err| {err}")
         kernel_ms = time_ms(lambda: flash_attention(q, k, v, causal=causal, window=window), 20)
         plain_ms = time_ms(lambda: ref_flash_attention(q, k, v, causal=causal, window=window), 5)
-        library_ms = None
+        library_ms = fma_ms = None
         # SDPA has no sliding window (a window of S or more is none); a
         # yardstick only, never on the port's path.
-        if window == 0 or window >= S:
+        if window == 0 or window >= max(Sq, Sk):
             library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=True), 20)
+        if tiling == "wgmma" and Sq == Sk >= PROMPT:  # the earlier tiling, on the same inputs
+            fma_ms = time_ms(lambda: flash_attention(q, k, v, causal=causal, window=window,
+                                                     tiling="fma"), 20)
         bound_ms, bound_by = attention_bound(q, k, causal, window)
         print(f"phase 3 kernel: flash_attention {label}: max|err| {err} (tol {tol}) "
               f"kernel_ms {kernel_ms} plain_ms {plain_ms} library_ms {library_ms} "
-              f"bound_ms {bound_ms} ({bound_by}) on {smi}")
-        numbers = dict(max_abs_err=err, kernel_ms=kernel_ms, plain_ms=plain_ms,
-                       library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
-        if (S, dh, dtype, causal, window, kv, h) == cases[0]:
-            main_case = numbers
-        if (S, dh, dtype, causal, window, kv, h) == cases[7]:
-            rg_case = numbers
+              f"bound_ms {bound_ms} ({bound_by}) fma_ms {fma_ms} on {smi}")
+        attn[(Sq, Sk, dh, dtype, causal, window, kv, h)] = dict(
+            tiling=tiling, max_abs_err=err, kernel_ms=kernel_ms, plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, fma_ms=fma_ms)
         del q, k, v, out, ref
     torch.cuda.empty_cache()
+    main_case, rg_case = attn[cases[0]], attn[cases[8]]
+    main_fp32, rg_fp32 = attn[cases[2]], attn[cases[10]]
 
     # The grouped matmul against its plain version at qwen3-moe-30b-a3b's
     # expert products: gate/up (D, F) = (2048, 768) and down (768, 2048).
     gmm_cases = [  # (E, C, D, F, dtype, dispatch-like buffer)
         (E_MOE, C_PREFILL, D_MOE, F_MOE, torch.bfloat16, False),
         (E_MOE, C_PREFILL, F_MOE, D_MOE, torch.bfloat16, False),
+        (E_MOE, C_PREFILL, D_MOE, F_MOE, torch.float16, False),
         (E_MOE, C_PREFILL, D_MOE, F_MOE, torch.float32, False),
         (E_MOE, C_PREFILL, F_MOE, D_MOE, torch.float32, False),
         (E_MOE, C_PREFILL, D_MOE, F_MOE, torch.bfloat16, True),
         (E_MOE, 1, D_MOE, F_MOE, torch.bfloat16, False),
         (E_MOE, 1, F_MOE, D_MOE, torch.bfloat16, False),
         (3, 77, 200, 136, torch.bfloat16, False),
+        # Around the 128 x 256 tiles: one row past a tile; D and F ragged.
+        (8, 129, D_MOE, F_MOE, torch.bfloat16, False),
+        (4, 129, 72, 136, torch.bfloat16, False),
+        (4, 129, 72, 136, torch.float16, False),
     ]
-    gmm_main, gmm_decode = {}, {}
+    gmm = {}
     for E, C, Dx, F, dtype, realistic in gmm_cases:
         x = torch.randn(E, C, Dx, generator=gen, device=dev).to(dtype)
         w = (torch.randn(E, Dx, F, generator=gen, device=dev) / Dx**0.5).to(dtype)
@@ -411,7 +481,8 @@ def main() -> int:
         ref = ref_moe_gmm(x, w)
         err = float((out.float() - ref.float()).abs().max())
         tol = TOL[dtype]
-        label = (f"E={E} C={C} D={Dx} F={F} {str(dtype)[6:]}"
+        tiling = gmm_tiling(dtype, C, Dx, F)
+        label = (f"E={E} C={C} D={Dx} F={F} {str(dtype)[6:]} tiling={tiling}"
                  + (" rows past each count zero" if realistic else ""))
         require(bool(torch.isfinite(out).all()), f"finite kernel output, {label}")
         require(torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol),
@@ -420,18 +491,20 @@ def main() -> int:
         plain_ms = time_ms(lambda: ref_moe_gmm(x, w), 5)
         # torch.bmm: a yardstick only, never on the port's path.
         library_ms = time_ms(lambda: torch.bmm(x, w), 20)
+        fma_ms = None
+        if tiling == "wgmma" and E == E_MOE:  # the earlier tiling, on the same inputs
+            fma_ms = time_ms(lambda: moe_gmm(x, w, tiling="fma"), 20)
         bound_ms, bound_by = gmm_bound(x, w)
         print(f"phase 3 kernel: moe_gmm {label}: max|err| {err} (tol {tol}) "
               f"kernel_ms {kernel_ms} plain_ms {plain_ms} library_ms {library_ms} "
-              f"bound_ms {bound_ms} ({bound_by}) on {smi}")
-        numbers = dict(max_abs_err=err, kernel_ms=kernel_ms, plain_ms=plain_ms,
-                       library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
-        if (E, C, Dx, F, dtype, realistic) == gmm_cases[0]:
-            gmm_main = numbers
-        if (E, C, Dx, F, dtype, realistic) == gmm_cases[5]:
-            gmm_decode = numbers
+              f"bound_ms {bound_ms} ({bound_by}) fma_ms {fma_ms} on {smi}")
+        gmm[(E, C, Dx, F, dtype, realistic)] = dict(
+            tiling=tiling, max_abs_err=err, kernel_ms=kernel_ms, plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, fma_ms=fma_ms)
         del x, w, out, ref
     torch.cuda.empty_cache()
+    gmm_main, gmm_down, gmm_fp32 = gmm[gmm_cases[0]], gmm[gmm_cases[1]], gmm[gmm_cases[3]]
+    gmm_decode = gmm[gmm_cases[6]]
 
     # The selective scan at falcon-mamba-7b's prefill (b and c strided, as the
     # layer passes them) and at a ragged shape (L not a multiple of 16 or 32,
@@ -592,13 +665,17 @@ def main() -> int:
     require(launches == cfg.n_layers and pre["attention_launches"] == cfg.n_layers,
             f"flash_attention launches: {pre} in the prefill, {dec} in the decode loop, "
             f"want {cfg.n_layers} in the prefill and none after")
-    require(sum(pre.values()) + sum(dec.values()) == launches,
+    require(pre["attention_wgmma_launches"] == cfg.n_layers,
+            f"every prefill attention on the wgmma tiling: {pre}")
+    require(sum(pre[n] + dec[n] for n in KERNEL_COUNTERS) == launches
+            and sum(pre[n] + dec[n] for n in TILING_COUNTERS) == launches,
             f"granite-8b runs no other kernel: {pre}, {dec}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     decode_ms = timings["decode_s"] / (DECODE_STEPS - 1) * 1e3
     print(f"phase 4 serve: {B}x{PROMPT} prefill {timings['prefill_s'] * 1e3} ms, decode "
           f"{decode_ms} ms/token over {DECODE_STEPS - 1} steps, peak memory {peak_gb} GB, "
-          f"flash_attention launches {launches}, on {smi}")
+          f"flash_attention launches {launches} ({pre['attention_wgmma_launches']} on wgmma), "
+          f"on {smi}")
     print(f"phase 4 serve: generated ids (first request): {ids[0].tolist()}")
 
     full, _ = lm.prefill(model, {"tokens": tokens}, cfg)
@@ -649,12 +726,21 @@ def main() -> int:
     require(pre["selective_scan_launches"] + pre["lru_scan_launches"]
             + dec["selective_scan_launches"] + dec["lru_scan_launches"] == 0,
             "qwen3-moe-30b-a3b runs no scan")
+    require(pre["attention_wgmma_launches"] == att_prefill
+            and pre["grouped_matmul_wgmma_launches"] == gmm_prefill,
+            f"every prefill attention and grouped matmul on the wgmma tiling: {pre}")
+    require(dec["grouped_matmul_skinny_launches"] == gmm_decode_loop,
+            f"every decode grouped matmul on the skinny tiling: {dec}")
+    require(pre["attention_fma_launches"] + dec["attention_fma_launches"]
+            + pre["grouped_matmul_fma_launches"] + dec["grouped_matmul_fma_launches"] == 0,
+            f"no bf16 launch on an fma tiling: {pre}, {dec}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     decode_ms = timings["decode_s"] / (DECODE_STEPS - 1) * 1e3
     print(f"phase 4b serve: {B}x{PROMPT} prefill {timings['prefill_s'] * 1e3} ms, decode "
           f"{decode_ms} ms/token over {DECODE_STEPS - 1} steps, peak memory {peak_gb} GB, "
-          f"flash_attention launches {att_prefill} (prefill), moe_gmm launches {gmm_prefill} "
-          f"(prefill) + {gmm_decode_loop} ({DECODE_STEPS - 1} decode steps), on {smi}")
+          f"flash_attention launches {att_prefill} (prefill, wgmma), moe_gmm launches "
+          f"{gmm_prefill} (prefill, wgmma) + {gmm_decode_loop} ({DECODE_STEPS - 1} decode "
+          f"steps, skinny), on {smi}")
     print(f"phase 4b serve: generated ids (first request): {ids[0].tolist()}")
     del logits
 
@@ -693,6 +779,7 @@ def main() -> int:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:84",
         "tpu_ref": "kernels/flash_attention.py:84",
+        "tiling": main_case["tiling"],
         "launches": granite_attention_launches + att_total + griffin["attention_launches"],
         "launches_by_path": {"granite-8b": granite_attention_launches, qwen_name: att_total,
                              "recurrentgemma-9b": griffin["attention_launches"]},
@@ -704,17 +791,24 @@ def main() -> int:
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
+        "bf16_fma_ms": main_case["fma_ms"],
+        "fp32_tiling": main_fp32["tiling"],
+        "fp32_fma_ms": main_fp32["kernel_ms"],
         "d256_kernel_ms": rg_case["kernel_ms"],
         "d256_plain_ms": rg_case["plain_ms"],
         "d256_bound_ms": rg_case["bound_ms"],
         "d256_library_ms": rg_case["library_ms"],
         "d256_max_abs_err": rg_case["max_abs_err"],
+        "d256_bf16_fma_ms": rg_case["fma_ms"],
+        "d256_fp32_fma_ms": rg_fp32["kernel_ms"],
     }, {
         "name": "moe_gmm",
         "route": "cuda",
         "source": "src/repro_torch/csrc/moe_gmm.cu",
         "replaces": "src/repro/kernels/moe_gmm.py:40",
         "tpu_ref": "kernels/moe_gmm.py:40",
+        "tiling": gmm_main["tiling"],
+        "decode_tiling": gmm_decode["tiling"],
         "launches": gmm_total,
         "launches_prefill": gmm_prefill,
         "launches_per_decode_step": gmm_decode_loop // (DECODE_STEPS - 1),
@@ -726,12 +820,19 @@ def main() -> int:
         "bound_ms": gmm_main["bound_ms"],
         "bound_by": gmm_main["bound_by"],
         "library_ms": gmm_main["library_ms"],
+        "bf16_fma_ms": gmm_main["fma_ms"],
+        "fp32_tiling": gmm_fp32["tiling"],
+        "fp32_fma_ms": gmm_fp32["kernel_ms"],
+        "down_kernel_ms": gmm_down["kernel_ms"],
+        "down_bound_ms": gmm_down["bound_ms"],
+        "down_library_ms": gmm_down["library_ms"],
         "decode_kernel_ms": gmm_decode["kernel_ms"],
         "decode_bound_ms": gmm_decode["bound_ms"],
         "decode_library_ms": gmm_decode["library_ms"],
     }, {
         "name": "mamba_scan",
         "route": "cuda",
+        "tiling": "sequential",
         "source": "src/repro_torch/csrc/mamba_scan.cu",
         "replaces": "src/repro/kernels/mamba_scan.py:57",
         "tpu_ref": "kernels/mamba_scan.py:57",
@@ -742,6 +843,7 @@ def main() -> int:
     }, {
         "name": "rglru_scan",
         "route": "cuda",
+        "tiling": "sequential",
         "source": "src/repro_torch/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan.py:42",
         "tpu_ref": "kernels/rglru_scan.py:42",
@@ -752,6 +854,7 @@ def main() -> int:
     }, {
         "name": "embedding_bag",
         "route": "cuda",
+        "tiling": "gather",
         "source": "src/repro_torch/csrc/embedding_bag.cu",
         "replaces": "src/repro/kernels/embedding_bag.py:33",
         "tpu_ref": "kernels/embedding_bag.py:33",
@@ -989,7 +1092,7 @@ def serve_recurrent(lm, ops, generate, cfg, prompt, gen, dev, smi, phase) -> dic
     else:
         n_blocks = cfg.n_layers // len(cfg.block_pattern)  # each: rec, rec, attn
         want = {"lru_scan_launches": 2 * n_blocks + len(cfg.tail_pattern),
-                "attention_launches": n_blocks}
+                "attention_launches": n_blocks, "attention_wgmma_launches": n_blocks}
     want = {n: want.get(n, 0) for n in COUNTERS}
     require(pre == want, f"{cfg.name} prefill launches {pre}, want {want}")
     require(not any(dec.values()), f"{cfg.name} decode loop launched {dec}, want none")

@@ -7,35 +7,10 @@
 // x's dtype.  The TPU kernel's innermost sequential D grid axis, whose
 // accumulator lives in VMEM scratch, becomes a loop over D tiles inside one
 // thread block with the accumulator in registers.  The TPU wrapper requires
-// C, D and F to be multiples of its blocks; this kernel takes any C, D, F
-// >= 1 and masks rows c >= C and the tails of D and F itself (loads past an
-// edge read zero, stores past it are skipped), so its wrapper pads nothing.
-// x and w are contiguous and row-major, so F is the fastest axis of w.
-//
-// Two tilings of the same function, chosen by C:
-//
-// * Tiled (C > SKINNY_MAX_C; prefill, C = 312 at the serving shape).  The
-//   grid is (F tiles, C tiles, E).  A block of 256 threads computes one
-//   64 (C) x 128 (F) output tile; it walks D in tiles of 16, staging x's
-//   64 x 16 tile transposed and w's 16 x 128 tile in shared memory as fp32.
-//   The next D tile is loaded into registers while the current one is
-//   multiplied.  Thread (ty, tx) of a 16 x 16 grid owns rows 4*ty .. 4*ty+3
-//   and columns 4*tx .. 4*tx+3 and 64+4*tx .. 64+4*tx+3 (a 4 x 8 register
-//   tile), so a half-warp reads 256 contiguous bytes of each w row in shared
-//   memory.  w's tile is read from device memory as 16-byte vectors along F
-//   by consecutive threads.  C = 312 is 4 full row tiles and one of 56 rows.
-//
-// * Skinny (C <= SKINNY_MAX_C; decode, C = 1).  Here each launch is a
-//   stream of the experts' weights (403 MB at E = 128, D = 2048, F = 768 in
-//   bf16) with R = 1 (C = 1) or R = 4 rows of x to multiply them by.  The
-//   grid is (C / R row groups, F / (32 * VEC), E); the row groups of one w
-//   tile are neighbours in the launch order, so they share it through L2.
-//   A block of 8 warps owns 32 * VEC columns of F (VEC = 8 bf16/fp16 or 4
-//   fp32 values, one 16-byte load); lane l reads columns l*VEC .. l*VEC+VEC-1
-//   of a w row, so a warp reads 512 contiguous bytes of that row, and warp
-//   i reads rows d = i, i + 8, i + 16, ...  x's rows are staged in shared
-//   memory 256 columns at a time.  The 8 warps' partial sums are added in
-//   shared memory at the end, in a fixed order.
+// C, D and F to be multiples of its blocks; every tiling here takes ragged
+// C, D and F (loads past an edge read zero, stores past it are skipped), so
+// the wrapper pads nothing.  x and w are contiguous and row-major, so F is
+// the fastest axis of w.
 //
 // Bound on the H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s), at the MoE
 // serving shapes of qwen3-moe-30b-a3b (E = 128, bf16):
@@ -44,16 +19,64 @@
 //     bound by bytes, because the capacity buffer multiplies every expert's
 //     full weights;
 //   decode, C = 1: 403 MB of weights, 0.120 ms: bound by bytes.
-// This first version does its products as fp32 FMAs on the CUDA cores
-// (67 TFLOP/s peak), so at prefill it is bound by those operations and sits
-// far above the byte bound; at decode the skinny tiling reads each weight
-// once, in coalesced 16-byte vectors, which is all a byte bound asks.
-// Tensor-core products (mma.sync, then wgmma with TMA) are the next step.
+//
+// Three tilings, one C entry point each; kernels/moe_gmm.py's `gmm_tiling`
+// chooses among them:
+//
+// * wgmma (C > 16, bf16/fp16, D and F multiples of 8; every prefill product
+//   of the served model).  A warp-specialised tensor-core GEMM.  A block of
+//   three warpgroups owns one 128 (C) x 256 (F) output tile of one expert;
+//   the grid is (C tiles, F tiles, E), so one expert's tiles are neighbours
+//   in launch order, C tiles fastest: the three C tiles that read one w tile
+//   and the F tiles that read one x tile meet in L2, and each expert's
+//   x (1.28 MB) and w (3.1 MB) come from device memory about once.  The
+//   producer warpgroup gives its registers to the consumers (setmaxnreg) and
+//   one of its threads starts TMA loads of 64-deep D tiles into a 4-stage
+//   ring (x 128 x 64 and w 64 x 256 a stage, 48 KB; 192 KB in all).  TMA
+//   fills zeros past C (312 = 2 x 128 + 56) and past a ragged D, so no load
+//   is masked.  Each of the two consumer warpgroups multiplies 64 rows by
+//   256 columns with wgmma m64n256k16, x as a K-major A operand and w as an
+//   MN-major B operand (F is its fastest axis: the transpose bit), keeping
+//   128 fp32 accumulators a thread in registers.  A consumer releases a stage
+//   once the products that read it have finished (one wgmma group stays in
+//   flight).  The epilogue casts to x's dtype and stores rows < C and
+//   columns < F.  What this does about the byte bound: every x and w byte is
+//   read from device memory about once, and the tensor cores take the
+//   operations below the time those bytes need.
+// * fma (C > 16, fp32, or a D or F that TMA cannot stride).  The grid is
+//   (F tiles, C tiles, E).  A block of 256 threads computes one 64 (C) x 128
+//   (F) output tile with fp32 FMAs on the CUDA cores; it walks D in tiles of
+//   16, staging x's 64 x 16 tile transposed and w's 16 x 128 tile in shared
+//   memory as fp32, loading the next D tile into registers while the
+//   current one is multiplied.  Thread (ty, tx) of a 16 x 16 grid owns rows
+//   4*ty .. 4*ty+3 and columns 4*tx .. +3 and 64+4*tx .. +3.  Exact fp32.
+// * skinny (C <= 16; decode, C = 1).  Each launch is a stream of the
+//   experts' weights (403 MB at E = 128, D = 2048, F = 768 in bf16) with
+//   R = 1 (C = 1) or R = 4 rows of x to multiply them by.  The grid is
+//   (C / R row groups, F / (32 * VEC), E); the row groups of one w tile are
+//   neighbours in the launch order, so they share it through L2.  A block
+//   of 8 warps owns 32 * VEC columns of F (VEC = 8 bf16/fp16 or 4 fp32
+//   values, one 16-byte load); lane l reads columns l*VEC .. l*VEC+VEC-1 of
+//   a w row, and warp i reads rows d = i, i + 8, ...  x's rows are staged in
+//   shared memory 256 columns at a time, and the 8 warps' partial sums are
+//   added in shared memory at the end, in a fixed order.  It reads each
+//   weight once in coalesced 16-byte vectors, which is all a byte bound asks.
+//
+// Measured on NVIDIA H100 80GB HBM3, 700.00 W (chip_smoke.py phase 3,
+// CUDA-event means over 20 launches; PERF.md section 6, row 3): wgmma
+// 0.295 ms at the prefill gate/up shape and 0.328 ms at the down shape
+// (torch.bmm 0.234 and 0.217 ms; bound 0.187 ms by bytes); the fma tiling
+// takes 3.57 ms on the same bf16 inputs and 3.39 ms in fp32; skinny
+// 0.164 ms at decode (bmm 0.132 ms, bound 0.120 ms).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -284,49 +307,205 @@ gmm_skinny_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restric
   }
 }
 
+// wgmma kernel.
+namespace wg {
+constexpr int BM = 128;  // rows of x per block (two consumer warpgroups of 64)
+constexpr int BN = 256;  // columns of w per block (four 64-wide TMA boxes)
+constexpr int BK = 64;   // depth of one D tile (one 128-byte swizzle row)
+constexpr int STAGES = 4;
+constexpr int THREADS = 384;  // consumer warpgroups 0 and 1, producer 2
+constexpr int A_BYTES = BM * BK * 2;
+constexpr int B_BYTES = BK * BN * 2;
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;  // 48 KB
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
+}  // namespace wg
+
 template <typename T>
-cudaError_t launch(const void* x, const void* w, void* out, int E, int C, int D, int F,
-                   cudaStream_t stream) {
-  const T* xp = static_cast<const T*>(x);
-  const T* wp = static_cast<const T*>(w);
-  T* op = static_cast<T*>(out);
+__global__ void __launch_bounds__(wg::THREADS, 1)
+gmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                 const __grid_constant__ CUtensorMap map_w, T* __restrict__ out, int C, int D,
+                 int F) {
+  using namespace wg;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+
+  const int c0 = blockIdx.x * BM;
+  const int f0 = blockIdx.y * BN;
+  const int e = blockIdx.z;
+  const int nk = (D + BK - 1) / BK;
+  const int warpgroup = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);   // the producer's arrive, plus the TMA bytes
+      hopper::mbar_init(&empty[s], 8);  // one arrive per consumer warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warpgroup == 2) {  // producer
+    hopper::regs_dealloc<24>();
+    if (threadIdx.x == 256) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % STAGES;
+        hopper::mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);
+        uint8_t* a = smem + s * STAGE_BYTES;
+        uint8_t* b = a + A_BYTES;
+        hopper::mbar_arrive_expect_tx(&full[s], STAGE_BYTES);
+        hopper::tma_load_3d(a, &map_x, &full[s], kt * BK, c0, e);
+#pragma unroll
+        for (int c = 0; c < BN / 64; ++c)
+          hopper::tma_load_3d(b + c * BK * 128, &map_w, &full[s], f0 + 64 * c, kt * BK, e);
+      }
+    }
+  } else {  // consumers: rows 64 * warpgroup .. +63 of the tile
+    hopper::regs_alloc<240>();
+    const int lane = threadIdx.x & 31;
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % STAGES;
+      hopper::mbar_wait(&full[s], (kt / STAGES) & 1);
+      const uint32_t a = hopper::smem_u32(smem + s * STAGE_BYTES + warpgroup * (64 * 128));
+      const uint32_t b = a - warpgroup * (64 * 128) + A_BYTES;
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        hopper::Wgmma<BN, T>::template ss<1>(acc, hopper::desc_sw128(a + kk * 32, 16, 1024),
+                                             hopper::desc_sw128(b + kk * 2048, BK * 128, 1024),
+                                             1);
+      hopper::wgmma_commit();
+      hopper::fence_regs(acc);
+      hopper::wgmma_wait<1>();  // the products of tile kt - 1 are done: free its stage
+      if (kt > 0 && lane == 0) hopper::mbar_arrive(&empty[(kt - 1) % STAGES]);
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+
+    // acc[4j + 2i + c]: row 16 * warp + lane / 4 + 8i, column 8j + 2 (lane % 4) + c.
+    const int warp = (threadIdx.x / 32) % 4;
+    T* oe = out + (size_t)e * C * F;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = c0 + 64 * warpgroup + 16 * warp + lane / 4 + 8 * i;
+      if (row >= C) continue;
+      T* orow = oe + (size_t)row * F;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = f0 + 8 * j + 2 * (lane % 4);
+        if (col < F)  // F is even, so col + 1 < F too
+          *reinterpret_cast<uint32_t*>(orow + col) =
+              hopper::pack2<T>(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+      }
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_wgmma(const void* x, const void* w, void* out, int E, int C, int D, int F,
+                         cudaStream_t stream) {
+  constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+  CUtensorMap map_x, map_w;
+  cudaError_t err = hopper::make_map_3d(&map_x, x, bf16, D, C, E, wg::BM);
+  if (err != cudaSuccess) return err;
+  err = hopper::make_map_3d(&map_w, w, bf16, F, D, E, wg::BK);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(gmm_wgmma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             wg::SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((C + wg::BM - 1) / wg::BM, (F + wg::BN - 1) / wg::BN, E);
+  gmm_wgmma_kernel<T><<<grid, wg::THREADS, wg::SMEM_BYTES, stream>>>(map_x, map_w,
+                                                                     static_cast<T*>(out), C, D, F);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_fma(const void* x, const void* w, void* out, int E, int C, int D, int F,
+                       cudaStream_t stream) {
   constexpr int VEC = 16 / sizeof(T);
   // Vector loads need every row to start on a vector boundary (the base
   // pointers are 16-byte aligned by the caller).
+  const dim3 grid((F + BF - 1) / BF, (C + BC - 1) / BC, E);
+  gmm_tiled_kernel<T><<<grid, THREADS, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out), C, D, F,
+      D % 4 == 0, F % VEC == 0);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_skinny(const void* x, const void* w, void* out, int E, int C, int D, int F,
+                          cudaStream_t stream) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int BFS = 32 * VEC;
+  const T* xp = static_cast<const T*>(x);
+  const T* wp = static_cast<const T*>(w);
+  T* op = static_cast<T*>(out);
+  const unsigned groups_f = (F + BFS - 1) / BFS;
   const int vec_w = F % VEC == 0;
-  if (C <= SKINNY_MAX_C) {
-    constexpr int BFS = 32 * VEC;
-    const unsigned groups_f = (F + BFS - 1) / BFS;
-    if (C == 1) {
-      gmm_skinny_kernel<T, 1><<<dim3(1, groups_f, E), THREADS, 0, stream>>>(xp, wp, op, C, D, F,
-                                                                            vec_w);
-    } else {
-      gmm_skinny_kernel<T, 4><<<dim3((C + 3) / 4, groups_f, E), THREADS, 0, stream>>>(
-          xp, wp, op, C, D, F, vec_w);
-    }
+  if (C == 1) {
+    gmm_skinny_kernel<T, 1><<<dim3(1, groups_f, E), THREADS, 0, stream>>>(xp, wp, op, C, D, F,
+                                                                          vec_w);
   } else {
-    const int vec_x = D % 4 == 0;
-    const dim3 grid((F + BF - 1) / BF, (C + BC - 1) / BC, E);
-    gmm_tiled_kernel<T><<<grid, THREADS, 0, stream>>>(xp, wp, op, C, D, F, vec_x, vec_w);
+    gmm_skinny_kernel<T, 4><<<dim3((C + 3) / 4, groups_f, E), THREADS, 0, stream>>>(
+        xp, wp, op, C, D, F, vec_w);
   }
   return cudaGetLastError();
+}
+
+bool valid(int E, int C, int D, int F) {
+  return E >= 1 && C >= 1 && D >= 1 && F >= 1 && E <= 65535 && (C + 63) / 64 <= 65535 &&
+         (F + 127) / 128 <= 65535;
 }
 
 }  // namespace
 
 // x (E, C, D), w (E, D, F), out (E, C, F): contiguous device arrays of one
 // dtype, each 16-byte aligned.  dtype: 0 float32, 1 float16, 2 bfloat16.
-// Launches on `stream` and returns a cudaError_t (0 on success).
-extern "C" int repro_moe_gmm(const void* x, const void* w, void* out, int E, int C, int D, int F,
-                             int dtype, void* stream) {
-  if (E < 1 || C < 1 || D < 1 || F < 1 || E > 65535 || (C + BC - 1) / BC > 65535 ||
-      (F + 127) / 128 > 65535)
+// Each entry point launches one tiling on `stream` and returns a
+// cudaError_t (0 on success); a shape or dtype its tiling does not take
+// returns cudaErrorInvalidValue.
+
+// Tensor cores; C > 16, float16 or bfloat16, D and F multiples of 8.
+extern "C" int repro_moe_gmm_wgmma(const void* x, const void* w, void* out, int E, int C, int D,
+                                   int F, int dtype, void* stream) {
+  if (!valid(E, C, D, F) || C <= SKINNY_MAX_C || D % 8 != 0 || F % 8 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return (int)launch<float>(x, w, out, E, C, D, F, s);
-    case 1: return (int)launch<__half>(x, w, out, E, C, D, F, s);
-    case 2: return (int)launch<__nv_bfloat16>(x, w, out, E, C, D, F, s);
+    case 1: return (int)launch_wgmma<__half>(x, w, out, E, C, D, F, s);
+    case 2: return (int)launch_wgmma<__nv_bfloat16>(x, w, out, E, C, D, F, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// fp32 FMAs on the CUDA cores; any C, D, F and dtype.
+extern "C" int repro_moe_gmm_fma(const void* x, const void* w, void* out, int E, int C, int D,
+                                 int F, int dtype, void* stream) {
+  if (!valid(E, C, D, F)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return (int)launch_fma<float>(x, w, out, E, C, D, F, s);
+    case 1: return (int)launch_fma<__half>(x, w, out, E, C, D, F, s);
+    case 2: return (int)launch_fma<__nv_bfloat16>(x, w, out, E, C, D, F, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The weight stream for C <= 16; any D, F and dtype.
+extern "C" int repro_moe_gmm_skinny(const void* x, const void* w, void* out, int E, int C, int D,
+                                    int F, int dtype, void* stream) {
+  if (!valid(E, C, D, F) || C > SKINNY_MAX_C) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return (int)launch_skinny<float>(x, w, out, E, C, D, F, s);
+    case 1: return (int)launch_skinny<__half>(x, w, out, E, C, D, F, s);
+    case 2: return (int)launch_skinny<__nv_bfloat16>(x, w, out, E, C, D, F, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into ``build/repro_torch/lib<name>-<hash>.so`` at the root of
 the checkout (``.gitignore`` lists ``build/``), then loaded with ``ctypes``.
-The hash covers the source and the flags, so an edited source is rebuilt
-and an unchanged one is loaded as it is.  Nothing is built at import time.
+The hash covers the source, every shared header ``csrc/*.cuh`` and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+loaded as it is.  Nothing is built at import time.
 """
 
 from __future__ import annotations
@@ -45,13 +46,22 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
 
 
+def lib_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` is built, named by a hash of
+    the source, the headers beside it and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
 def load(name: str) -> ctypes.CDLL:
     """The library built from ``csrc/<name>.cu``, compiling it if needed."""
     if name in _LIBS:
         return _LIBS[name]
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    out = lib_path(name)
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")

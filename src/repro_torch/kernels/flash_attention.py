@@ -1,10 +1,12 @@
 """Flash attention on Hopper: the wrapper of ``csrc/flash_attention.cu``.
 
 Replaces the Pallas TPU kernel ``repro.kernels.flash_attention``.  The CUDA
-kernel computes the same function (GQA; causal, sliding-window or full; fp32
-online softmax; output in q's dtype) and masks ragged sequence tails itself,
-so nothing here pads.  Its plain PyTorch version is
-:func:`repro_torch.kernels.ref.ref_flash_attention`.
+kernels compute the same function (GQA; causal, sliding-window or full; fp32
+online softmax; output in q's dtype) and mask ragged sequence tails
+themselves, so nothing here pads.  Two tilings, one C entry point each:
+``wgmma`` (tensor cores, TMA loads; bf16/fp16) and ``fma`` (fp32 FMAs on the
+CUDA cores; fp32).  :func:`attention_tiling` chooses.  Their plain PyTorch
+version is :func:`repro_torch.kernels.ref.ref_flash_attention`.
 """
 
 from __future__ import annotations
@@ -16,11 +18,23 @@ import torch
 from . import _build
 
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+HALF_DTYPES = (torch.float16, torch.bfloat16)
 HEAD_DIMS = (64, 128, 256)
+TILINGS = ("wgmma", "fma")
 
 
-def _entry():
-    fn = _build.load("flash_attention").repro_flash_attention_fwd
+def attention_tiling(dtype: torch.dtype, head_dim: int) -> str:
+    """The tiling that serves q, k, v of this dtype and head dim: ``"wgmma"``
+    for bf16/fp16, ``"fma"`` for fp32."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {head_dim} not in {HEAD_DIMS}")
+    if dtype not in DTYPE_CODES:
+        raise ValueError(f"flash_attention: dtype {dtype} not in {list(DTYPE_CODES)}")
+    return "wgmma" if dtype in HALF_DTYPES else "fma"
+
+
+def _entry(tiling: str):
+    fn = getattr(_build.load("flash_attention"), f"repro_flash_attention_{tiling}")
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p]
@@ -29,16 +43,17 @@ def _entry():
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous, with a 16-byte-aligned start (the kernel's vector loads)."""
+    """Contiguous, with a 16-byte-aligned start (vector and TMA loads)."""
     t = t.contiguous()
     return t.clone() if t.data_ptr() % 16 else t
 
 
-def flash_attention(q, k, v, causal: bool = True, window: int = 0):
+def flash_attention(q, k, v, causal: bool = True, window: int = 0, tiling: str | None = None):
     """q: (B, H, Sq, D); k/v: (B, KV, Sk, D) on one CUDA device -> (B, H, Sq, D).
 
-    Launches the CUDA kernel once, or raises: this function never computes
-    on another path.
+    ``tiling`` defaults to :func:`attention_tiling`'s choice; a tiling that
+    does not take the dtype raises.  Launches the CUDA kernel once, or
+    raises: this function never computes on another path.
     """
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention: q, k and v must lie on one CUDA device")
@@ -53,18 +68,20 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0):
     _, KV, Sk, _ = k.shape
     if k.shape[0] != B or k.shape[3] != D or KV < 1 or H % KV:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} vs k {tuple(k.shape)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+    chosen = attention_tiling(q.dtype, D)  # also refuses a head dim no tiling takes
+    tiling = tiling or chosen
+    if tiling not in TILINGS or (tiling == "wgmma" and q.dtype not in HALF_DTYPES):
+        raise ValueError(f"flash_attention: tiling {tiling!r} does not take {q.dtype}")
     if min(B, H, Sq, Sk) < 1 or window < 0:
         raise ValueError("flash_attention: empty input or negative window")
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        err = _entry()(
+        err = _entry(tiling)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, H, KV, Sq, Sk, D, int(bool(causal)), int(window),
             DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err:
-        raise RuntimeError(f"flash_attention: CUDA error {err} at launch")
+        raise RuntimeError(f"flash_attention ({tiling}): CUDA error {err} at launch")
     return out

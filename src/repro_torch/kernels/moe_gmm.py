@@ -1,9 +1,12 @@
 """Grouped (per-expert) matmul on Hopper: the wrapper of ``csrc/moe_gmm.cu``.
 
-Replaces the Pallas TPU kernel ``repro.kernels.moe_gmm``.  The CUDA kernel
-computes the same function (``out[e] = x[e] @ w[e]``, fp32 accumulation,
-output in x's dtype) for any C, D and F, masking the ragged edges itself,
-so nothing here pads.  Its plain PyTorch version is
+Replaces the Pallas TPU kernel ``repro.kernels.moe_gmm``.  The CUDA kernels
+compute the same function (``out[e] = x[e] @ w[e]``, fp32 accumulation,
+output in x's dtype) and mask the ragged edges of C, D and F themselves, so
+nothing here pads.  Three tilings, one C entry point each: ``wgmma``
+(tensor cores, TMA loads; prefill in bf16/fp16), ``fma`` (fp32 FMAs on the
+CUDA cores) and ``skinny`` (a weight stream for decode's few rows).
+:func:`gmm_tiling` chooses.  Their plain PyTorch version is
 :func:`repro_torch.kernels.ref.ref_moe_gmm`.
 """
 
@@ -14,11 +17,35 @@ import ctypes
 import torch
 
 from . import _build
-from .flash_attention import DTYPE_CODES, _aligned
+from .flash_attention import DTYPE_CODES, HALF_DTYPES, _aligned
+
+SKINNY_MAX_C = 16  # rows of x up to which the weight stream beats a tiled product
+TILINGS = ("wgmma", "fma", "skinny")
 
 
-def _entry():
-    fn = _build.load("moe_gmm").repro_moe_gmm
+def gmm_tiling(dtype: torch.dtype, C: int, D: int, F: int) -> str:
+    """The tiling that serves (E, C, D) @ (E, D, F) in this dtype: ``"skinny"``
+    for C <= 16, ``"wgmma"`` for bf16/fp16 with D and F multiples of 8 (TMA's
+    16-byte row strides), ``"fma"`` otherwise."""
+    if dtype not in DTYPE_CODES:
+        raise ValueError(f"moe_gmm: dtype {dtype} not in {list(DTYPE_CODES)}")
+    if C <= SKINNY_MAX_C:
+        return "skinny"
+    if dtype in HALF_DTYPES and D % 8 == 0 and F % 8 == 0:
+        return "wgmma"
+    return "fma"
+
+
+def _takes(tiling: str, dtype: torch.dtype, C: int, D: int, F: int) -> bool:
+    if tiling == "wgmma":
+        return gmm_tiling(dtype, C, D, F) == "wgmma"
+    if tiling == "skinny":
+        return C <= SKINNY_MAX_C
+    return tiling == "fma"
+
+
+def _entry(tiling: str):
+    fn = getattr(_build.load("moe_gmm"), f"repro_moe_gmm_{tiling}")
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, i, i, i, i, i, p]
@@ -26,11 +53,12 @@ def _entry():
     return fn
 
 
-def moe_gmm(x, w):
+def moe_gmm(x, w, tiling: str | None = None):
     """x: (E, C, D); w: (E, D, F) on one CUDA device -> (E, C, F) in x's dtype.
 
-    Launches the CUDA kernel once, or raises: this function never computes
-    on another path.
+    ``tiling`` defaults to :func:`gmm_tiling`'s choice; a tiling that does
+    not take the shape or dtype raises.  Launches the CUDA kernel once, or
+    raises: this function never computes on another path.
     """
     if not (x.is_cuda and w.device == x.device):
         raise ValueError("moe_gmm: x and w must lie on one CUDA device")
@@ -46,13 +74,16 @@ def moe_gmm(x, w):
         raise ValueError("moe_gmm: empty input")
     if E > 65535 or C > 65535 * 64 or F > 65535 * 128 or D >= 2**31:
         raise ValueError(f"moe_gmm: grid too large: x {tuple(x.shape)}, w {tuple(w.shape)}")
+    tiling = tiling or gmm_tiling(x.dtype, C, D, F)
+    if tiling not in TILINGS or not _takes(tiling, x.dtype, C, D, F):
+        raise ValueError(f"moe_gmm: tiling {tiling!r} does not take {x.dtype} at C={C} D={D} F={F}")
     x, w = _aligned(x), _aligned(w)
     out = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        err = _entry()(
+        err = _entry(tiling)(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), E, C, D, F,
             DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err:
-        raise RuntimeError(f"moe_gmm: CUDA error {err} at launch")
+        raise RuntimeError(f"moe_gmm ({tiling}): CUDA error {err} at launch")
     return out

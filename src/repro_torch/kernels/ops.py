@@ -4,22 +4,28 @@ Counterpart of ``repro.kernels.ops``.  A wrapper takes the plain PyTorch
 path only because its input lies on the CPU; on a CUDA tensor it launches
 the kernel or raises, with no fallback.  Each wrapper counts its kernel
 launches in a module-level integer, so a run can show that its main path
-went through the kernel.
+went through the kernel; attention and the grouped matmul also count each
+launch under the tiling that served it (``attention_wgmma_launches``, ...).
 """
 
 from __future__ import annotations
 
 from .embedding_bag import embedding_bag
-from .flash_attention import flash_attention
+from .flash_attention import attention_tiling, flash_attention
 from .mamba_scan import mamba_scan
-from .moe_gmm import moe_gmm
+from .moe_gmm import gmm_tiling, moe_gmm
 from .ref import (
     ref_embedding_bag, ref_flash_attention, ref_mamba_scan, ref_moe_gmm, ref_rglru_scan,
 )
 from .rglru_scan import rglru_scan
 
 attention_launches = 0
+attention_wgmma_launches = 0
+attention_fma_launches = 0
 grouped_matmul_launches = 0
+grouped_matmul_wgmma_launches = 0
+grouped_matmul_fma_launches = 0
+grouped_matmul_skinny_launches = 0
 selective_scan_launches = 0
 lru_scan_launches = 0
 bag_lookup_launches = 0
@@ -27,21 +33,34 @@ bag_lookup_launches = 0
 
 def attention(q, k, v, causal: bool = True, window: int = 0):
     """q: (B, H, Sq, D); k/v: (B, KV, Sk, D) -> (B, H, Sq, D)."""
-    global attention_launches
+    global attention_launches, attention_wgmma_launches, attention_fma_launches
     if q.device.type == "cpu":
         return ref_flash_attention(q, k, v, causal=causal, window=window)
-    out = flash_attention(q, k, v, causal=causal, window=window)
+    tiling = attention_tiling(q.dtype, q.shape[-1])
+    out = flash_attention(q, k, v, causal=causal, window=window, tiling=tiling)
     attention_launches += 1
+    if tiling == "wgmma":
+        attention_wgmma_launches += 1
+    else:
+        attention_fma_launches += 1
     return out
 
 
 def grouped_matmul(x, w):
     """x: (E, C, D); w: (E, D, F) -> (E, C, F): ``out[e] = x[e] @ w[e]``."""
-    global grouped_matmul_launches
+    global grouped_matmul_launches, grouped_matmul_wgmma_launches
+    global grouped_matmul_fma_launches, grouped_matmul_skinny_launches
     if x.device.type == "cpu":
         return ref_moe_gmm(x, w)
-    out = moe_gmm(x, w)
+    tiling = gmm_tiling(x.dtype, x.shape[1], x.shape[2], w.shape[-1])
+    out = moe_gmm(x, w, tiling=tiling)
     grouped_matmul_launches += 1
+    if tiling == "wgmma":
+        grouped_matmul_wgmma_launches += 1
+    elif tiling == "fma":
+        grouped_matmul_fma_launches += 1
+    else:
+        grouped_matmul_skinny_launches += 1
     return out
 
 

@@ -9,7 +9,7 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as pallas_flash_attention
 from repro_torch.kernels import _build, ops
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import TILINGS, attention_tiling, flash_attention
 from repro_torch.kernels.ref import ref_flash_attention
 
 torch.set_num_threads(2)  # several test processes share the cores
@@ -75,13 +75,26 @@ def test_plain_attention_ragged_length(block_q, block_k):
     )
 
 
-def test_ops_attention_on_cpu_runs_plain_version(monkeypatch):
-    monkeypatch.setattr(ops, "attention_launches", 0)
-    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 1, 4, 2, 40, 40, 64, np.float32))
+ATTENTION_COUNTERS = ("attention_launches", "attention_wgmma_launches", "attention_fma_launches")
+
+
+def _check_ops_attention_on_cpu(monkeypatch, dtype):
+    for name in ATTENTION_COUNTERS:
+        monkeypatch.setattr(ops, name, 0)
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in _qkv(2, 1, 4, 2, 40, 40, 64, np.float32))
     out = ops.attention(q, k, v, causal=True, window=16)
     torch.testing.assert_close(out, ref_flash_attention(q, k, v, causal=True, window=16),
                                rtol=0, atol=0)
-    assert ops.attention_launches == 0
+    assert all(getattr(ops, name) == 0 for name in ATTENTION_COUNTERS)
+
+
+def test_ops_attention_on_cpu_runs_plain_version(monkeypatch):
+    _check_ops_attention_on_cpu(monkeypatch, torch.float32)
+
+
+def test_ops_attention_on_cpu_counts_no_tiling_in_bf16(monkeypatch):
+    """bf16 would take the wgmma tiling on a card; on the CPU it is plain."""
+    _check_ops_attention_on_cpu(monkeypatch, torch.bfloat16)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
@@ -89,6 +102,57 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     q, k, v = (torch.from_numpy(a) for a in _qkv(3, 1, 2, 2, 8, 8, 64, np.float32))
     with pytest.raises(ValueError, match="CUDA device"):
         flash_attention(q, k, v)
+
+
+@pytest.mark.parametrize("tiling", TILINGS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_wrapper_refuses_cpu_tensors_for_every_tiling(tiling, dtype):
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in _qkv(3, 1, 2, 2, 8, 8, 64, np.float32))
+    with pytest.raises(ValueError, match="CUDA device"):
+        flash_attention(q, k, v, tiling=tiling)
+
+
+@pytest.mark.parametrize(
+    "dtype,head_dim,want",
+    [
+        (torch.bfloat16, 128, "wgmma"),  # granite-8b and qwen3-moe-30b-a3b prefill
+        (torch.bfloat16, 256, "wgmma"),  # recurrentgemma-9b prefill
+        (torch.bfloat16, 64, "wgmma"),
+        (torch.float16, 128, "wgmma"),
+        (torch.float16, 256, "wgmma"),
+        (torch.float32, 64, "fma"),  # the narrow fp32 models
+        (torch.float32, 128, "fma"),
+        (torch.float32, 256, "fma"),
+        (torch.bfloat16, 16, ValueError),  # the smoke configs' head dim: CPU only
+        (torch.float32, 72, ValueError),
+        (torch.int32, 128, ValueError),
+    ],
+)
+def test_attention_tiling(dtype, head_dim, want):
+    if isinstance(want, str):
+        assert attention_tiling(dtype, head_dim) == want
+    else:
+        with pytest.raises(want):
+            attention_tiling(dtype, head_dim)
+
+
+def test_library_name_changes_with_a_header(tmp_path, monkeypatch):
+    """A library is named by a hash of its source, the headers beside it and
+    the flags, so an edited header is never served from a stale build."""
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "hopper.cuh"\n')
+    (tmp_path / "hopper.cuh").write_text("// v1\n")
+    first = _build.lib_path("k")
+    assert _build.lib_path("k") == first
+    (tmp_path / "hopper.cuh").write_text("// v2\n")
+    second = _build.lib_path("k")
+    assert second != first and second.parent == first.parent
+    (tmp_path / "other.cuh").write_text("// new header\n")
+    assert _build.lib_path("k") not in (first, second)
+    (tmp_path / "other.cuh").unlink()
+    assert _build.lib_path("k") == second
+    (tmp_path / "k.cu").write_text('#include "hopper.cuh"\n// edited\n')
+    assert _build.lib_path("k") not in (first, second)
 
 
 def test_build_raises_without_nvcc(monkeypatch):

@@ -61,6 +61,12 @@ def _qkv(device, B, H, KV, Sq, Sk, D, dtype, seed=0):
         (1, 4, 1, 300, 300, 256, True, 0),     # recurrentgemma's head dim, MQA
         (2, 16, 1, 256, 256, 256, True, 128),  # head dim 256, sliding window
         (1, 2, 1, 100, 300, 256, False, 0),    # head dim 256, Sq != Sk
+        # Around the wgmma tiling's 128-row q tiles and 64-row k tiles.
+        (1, 4, 2, 127, 127, 128, True, 0),
+        (1, 4, 2, 129, 129, 128, True, 0),
+        (1, 4, 1, 129, 129, 256, True, 64),
+        (1, 4, 2, 300, 100, 64, True, 0),      # causal, Sq > Sk
+        (1, 4, 2, 65, 200, 128, True, 0),      # causal, Sq < Sk
     ],
 )
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
@@ -139,6 +145,12 @@ def _xw(device, E, C, D, F, dtype, seed=0):
         (5, 17, 300, 520, torch.bfloat16),
         (2, 70, 201, 135, torch.bfloat16),
         (2, 3, 201, 135, torch.float32),
+        # Around the wgmma tiling's 128 x 256 tiles: one row past a tile,
+        # D and F off the 64-wide boxes; and fp16 at the prefill shape.
+        (3, 129, 2048, 768, torch.bfloat16),
+        (4, 129, 72, 136, torch.bfloat16),
+        (4, 129, 72, 136, torch.float16),
+        (128, 312, 2048, 768, torch.float16),
     ],
 )
 def test_gmm_kernel_matches_plain(cuda, E, C, D, F, dtype):
@@ -183,6 +195,45 @@ def test_ops_counts_gmm_launches_and_rejects_mixed_dtypes(cuda, monkeypatch):
     with pytest.raises(ValueError):
         ops.grouped_matmul(x, w[:, :32])
     assert ops.grouped_matmul_launches == 2
+
+
+TILING_COUNTERS = ("attention_wgmma_launches", "attention_fma_launches",
+                   "grouped_matmul_wgmma_launches", "grouped_matmul_fma_launches",
+                   "grouped_matmul_skinny_launches")
+
+
+def test_served_shapes_take_the_wgmma_tiling(cuda, monkeypatch):
+    """bf16 prefill attention (granite-8b's D = 128, recurrentgemma-9b's
+    D = 256) and the prefill grouped matmul count on the wgmma tiling, decode's
+    grouped matmul on the skinny one, and the fma tiling's counts stay 0."""
+    for name in TILING_COUNTERS:
+        monkeypatch.setattr(ops, name, 0)
+    ops.attention(*_qkv(cuda, 1, 32, 8, 300, 300, 128, torch.bfloat16))
+    ops.attention(*_qkv(cuda, 1, 16, 1, 300, 300, 256, torch.bfloat16), window=2048)
+    x, w = _xw(cuda, 8, 312, 2048, 768, torch.bfloat16)
+    ops.grouped_matmul(x, w)
+    ops.grouped_matmul(x[:, :1], w)
+    counts = {name: getattr(ops, name) for name in TILING_COUNTERS}
+    assert counts == {"attention_wgmma_launches": 2, "attention_fma_launches": 0,
+                      "grouped_matmul_wgmma_launches": 1, "grouped_matmul_fma_launches": 0,
+                      "grouped_matmul_skinny_launches": 1}
+    ops.attention(*_qkv(cuda, 1, 4, 2, 64, 64, 64, torch.float32))
+    ops.grouped_matmul(x.float(), w.float())
+    assert ops.attention_fma_launches == 1 and ops.grouped_matmul_fma_launches == 1
+
+
+def test_wrappers_refuse_a_tiling_that_does_not_take_the_input(cuda):
+    q, k, v = _qkv(cuda, 1, 4, 2, 64, 64, 64, torch.float32)
+    with pytest.raises(ValueError, match="tiling"):
+        flash_attention(q, k, v, tiling="wgmma")
+    x, w = _xw(cuda, 2, 40, 64, 32, torch.float32)
+    with pytest.raises(ValueError, match="tiling"):
+        moe_gmm(x, w, tiling="wgmma")
+    with pytest.raises(ValueError, match="tiling"):
+        moe_gmm(x, w, tiling="skinny")
+    xb, wb = _xw(cuda, 2, 40, 60, 32, torch.bfloat16)  # D % 8 != 0: no TMA stride
+    with pytest.raises(ValueError, match="tiling"):
+        moe_gmm(xb, wb, tiling="wgmma")
 
 
 def _narrow_moe_config():

@@ -17,7 +17,7 @@ from repro.kernels.moe_gmm import moe_gmm as pallas_moe_gmm
 from repro.models import layers as jL
 from repro_torch.configs import base as tbase
 from repro_torch.kernels import ops
-from repro_torch.kernels.moe_gmm import moe_gmm
+from repro_torch.kernels.moe_gmm import TILINGS, gmm_tiling, moe_gmm
 from repro_torch.kernels.ref import ref_moe_gmm
 from repro_torch.models import layers as L
 
@@ -72,17 +72,74 @@ def test_plain_gmm_ragged_matches_jax_oracle(C, dtype):
     np.testing.assert_allclose(_port(x, w), np.asarray(expect, np.float32), **_tol(dtype))
 
 
+GMM_COUNTERS = ("grouped_matmul_launches", "grouped_matmul_wgmma_launches",
+                "grouped_matmul_fma_launches", "grouped_matmul_skinny_launches")
+
+
 def test_grouped_matmul_on_cpu_runs_plain_and_counts_nothing(monkeypatch):
-    monkeypatch.setattr(ops, "grouped_matmul_launches", 0)
+    for name in GMM_COUNTERS:
+        monkeypatch.setattr(ops, name, 0)
     x, w = (torch.from_numpy(a) for a in _xw(2, 2, 5, 16, 8, np.float32))
     torch.testing.assert_close(ops.grouped_matmul(x, w), ref_moe_gmm(x, w), rtol=0, atol=0)
-    assert ops.grouped_matmul_launches == 0
+    assert all(getattr(ops, name) == 0 for name in GMM_COUNTERS)
+
+
+@pytest.mark.parametrize("C", [1, 40])  # the skinny and the wgmma tilings' shapes on a card
+def test_grouped_matmul_on_cpu_counts_no_tiling_in_bf16(monkeypatch, C):
+    for name in GMM_COUNTERS:
+        monkeypatch.setattr(ops, name, 0)
+    x, w = (torch.from_numpy(a).to(torch.bfloat16) for a in _xw(2, 2, C, 64, 32, np.float32))
+    torch.testing.assert_close(ops.grouped_matmul(x, w), ref_moe_gmm(x, w), rtol=0, atol=0)
+    assert all(getattr(ops, name) == 0 for name in GMM_COUNTERS)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
     x, w = (torch.from_numpy(a) for a in _xw(2, 2, 5, 16, 8, np.float32))
     with pytest.raises(ValueError, match="CUDA"):
         moe_gmm(x, w)
+
+
+@pytest.mark.parametrize("tiling", TILINGS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_wrapper_refuses_cpu_tensors_for_every_tiling(tiling, dtype):
+    x, w = (torch.from_numpy(a).to(dtype) for a in _xw(2, 2, 40, 64, 32, np.float32))
+    with pytest.raises(ValueError, match="CUDA"):
+        moe_gmm(x, w, tiling=tiling)
+
+
+@pytest.mark.parametrize(
+    "dtype,C,D,F,want",
+    [
+        # qwen3-moe-30b-a3b at prefill (C = 312): gate/up and down products.
+        (torch.bfloat16, 312, 2048, 768, "wgmma"),
+        (torch.bfloat16, 312, 768, 2048, "wgmma"),
+        (torch.float16, 312, 2048, 768, "wgmma"),
+        (torch.float16, 312, 768, 2048, "wgmma"),
+        (torch.float32, 312, 2048, 768, "fma"),
+        (torch.float32, 312, 768, 2048, "fma"),
+        # At decode (C = 1), and the skinny/tiled switch at C = 16.
+        (torch.bfloat16, 1, 2048, 768, "skinny"),
+        (torch.bfloat16, 1, 768, 2048, "skinny"),
+        (torch.float32, 1, 2048, 768, "skinny"),
+        (torch.bfloat16, 16, 2048, 768, "skinny"),
+        (torch.bfloat16, 17, 2048, 768, "wgmma"),
+        (torch.bfloat16, 5, 201, 135, "skinny"),
+        # The narrow MoE model's products (fp32) and ragged shapes: TMA
+        # needs D and F to be multiples of 8.
+        (torch.float32, 40, 256, 128, "fma"),
+        (torch.bfloat16, 129, 72, 136, "wgmma"),
+        (torch.bfloat16, 77, 200, 136, "wgmma"),
+        (torch.bfloat16, 70, 201, 136, "fma"),
+        (torch.float16, 70, 200, 135, "fma"),
+        (torch.int8, 312, 2048, 768, ValueError),
+    ],
+)
+def test_gmm_tiling(dtype, C, D, F, want):
+    if isinstance(want, str):
+        assert gmm_tiling(dtype, C, D, F) == want
+    else:
+        with pytest.raises(want):
+            gmm_tiling(dtype, C, D, F)
 
 
 def _moe_pair(capacity_factor, seed=0):
