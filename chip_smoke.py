@@ -12,7 +12,8 @@ result line:
    (one ``nvcc`` per source, all started together), with ptxas's registers,
    shared memory, spills and wgmma serialisation warnings for each kernel;
    the warp-specialised wgmma kernels must report the 168 registers their
-   setmaxnreg split (240 x 256 + 24 x 128) is sized for;
+   setmaxnreg split (240 x 256 + 24 x 128) is sized for, and the skinny
+   grouped matmul and the Mamba scan must not spill;
 3. kernels vs their plain PyTorch versions at the serving shapes, with times
    beside the bound and beside one PyTorch library call where one computes
    the same function, each case printing the tiling that served it (wgmma
@@ -21,10 +22,14 @@ result line:
    qwen3-moe-30b-a3b's attention (B=4, H=32, KV=8 or 4, D=128; S=1000 and
    2048) and at recurrentgemma-9b's (B=4, H=16, KV=1, S=2048, D=256, window
    2048), in bf16, fp16 and fp32, and at ragged edges of the 128-row q and
-   64-row k tiles (Sq = Sk = 127, 129; Sq != Sk), the grouped matmul at
+   64-row k tiles (Sq = Sk = 127, 129; Sq != Sk), and with rows that see
+   no key (Sq 256, Sk 200, window 16) on both tilings; the grouped matmul at
    qwen3-moe-30b-a3b's expert products (E=128; C=312 at prefill in bf16,
-   fp16 and fp32, C=1 at decode) and around its 128 x 256 tiles (C = 129;
-   D = 72, F = 136), the Mamba selective scan at
+   fp16 and fp32, C=1 at decode with every expert filled) and around its
+   128 x 256 tiles (C = 129; D = 72, F = 136), and on a decode step's own
+   buffers (``layers.moe`` at 4 requests: most experts' rows zero), timed
+   against a bound that counts only the live experts' weights, with the
+   live experts printed; the Mamba selective scan at
    falcon-mamba-7b's prefill (B=4, L=1000, DI=8192, ST=16) and the RG-LRU
    scan at recurrentgemma-9b's (B=4, L=2048, D=4096), each also at a ragged
    shape, and the embedding bag on the paper DLRM's tables (T=8, R=1e7,
@@ -173,31 +178,30 @@ def attention_bound(q, k, causal: bool, window: int) -> tuple[float, str]:
     """Least time for the card: the larger of operations over the dtype's peak
     and bytes (q, k, v read once, the output written once) over 3.35 TB/s.
     Operations count the (query, key) pairs the mask keeps on these shapes."""
+    from repro_torch.kernels.ref import attention_mask
+
     Bq, Hq, Sq, Dq = q.shape
-    Sk = k.shape[2]
-    qi = torch.arange(Sq, device=q.device)[:, None]
-    kj = torch.arange(Sk, device=q.device)[None, :]
-    keep = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device)
-    if causal:
-        keep &= kj <= qi
-    if window > 0:
-        keep &= kj > qi - window
-    pairs = int(keep.sum())
+    pairs = int(attention_mask(Sq, k.shape[2], causal, window, q.device).sum())
     flops = 4.0 * Bq * Hq * Dq * pairs  # q.k and p.v: 2 flops per multiply-add each
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     t_ops, t_bytes = flops / PEAK_FLOPS[q.dtype], nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def gmm_bound(x, w) -> tuple[float, str]:
-    """Least time for the card: 2*E*C*D*F operations over the dtype's peak,
-    against x and w read once and the (E, C, F) output written once."""
+def gmm_bound(x, w) -> tuple[float, str, int]:
+    """Least time for the card: x read once, the weights of each expert that
+    holds a non-zero row of x read once, and the (E, C, F) output written
+    once, against 2*D*F operations for each non-zero row, over the dtype's
+    peak.  An expert whose rows are all zero needs no weight (0 * w = 0 for
+    finite w): the work depends on the data.  Also the live experts."""
     E, C, Dx = x.shape
     F = w.shape[2]
-    flops = 2.0 * E * C * Dx * F
-    nbytes = (x.numel() + w.numel() + E * C * F) * x.element_size()
+    nonzero_rows = x.ne(0).any(dim=-1)  # (E, C)
+    live = int(nonzero_rows.any(dim=-1).sum())
+    flops = 2.0 * int(nonzero_rows.sum()) * Dx * F
+    nbytes = (x.numel() + live * Dx * F + E * C * F) * x.element_size()
     t_ops, t_bytes = flops / PEAK_FLOPS[x.dtype], nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes", live
 
 
 def mamba_bound(xc, dt, a, b, c, d_skip) -> tuple[float, str, float, float]:
@@ -349,6 +353,30 @@ def dispatch_like(x, gen):
     return x * rows[..., None].to(x.dtype)
 
 
+def moe_decode_buffers(layers, ops, cfg, dev, gen):
+    """What ``layers.moe`` passes to the grouped matmul at one decode step of
+    the B served requests (one token each) on a full-width MoE layer of
+    ``cfg`` with random weights (seed 0): [("gate", x (E, 1, D), wg),
+    ("down", h (E, 1, F), wd)].  Experts that no token picked hold zero rows."""
+    moe = layers.MoE(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    tokens = torch.randn(B, 1, cfg.d_model, generator=gen, device=dev).to(moe.wg.dtype)
+    x = layers.rms_norm(tokens, moe.norm)
+    seen = []
+    real = ops.grouped_matmul
+
+    def capture(xb, w):
+        seen.append((xb, w))
+        return real(xb, w)
+
+    ops.grouped_matmul = capture
+    try:
+        layers.moe(moe, x, cfg)
+    finally:
+        ops.grouped_matmul = real
+    (xg, wg), _, (hd, wd) = seen
+    return [("gate", xg, wg), ("down", hd, wd)]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -357,7 +385,9 @@ def main() -> int:
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.embedding_bag import embedding_bag
-    from repro_torch.kernels.flash_attention import attention_tiling, flash_attention
+    from repro_torch.kernels.flash_attention import (
+        attention_tiling, first_masked_row, flash_attention,
+    )
     from repro_torch.kernels.mamba_scan import mamba_scan
     from repro_torch.kernels.moe_gmm import gmm_tiling, moe_gmm
     from repro_torch.kernels.ref import (
@@ -392,6 +422,8 @@ def main() -> int:
                         "setmaxnreg split (2 x 128 x 240 + 128 x 24) is sized for")
                 require(info["spill_stores"] == info["spill_loads"] == 0
                         and not info["serialised"], f"{fn} spills or serialises: {info}")
+            if "skinny_kernel" in fn or "mamba_scan_kernel" in fn:  # the streams and the scan
+                require(info["spill_stores"] == info["spill_loads"] == 0, f"{fn} spills: {info}")
 
     # Phase 3: the kernel against its plain version at the serving shapes.
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -449,6 +481,28 @@ def main() -> int:
             tiling=tiling, max_abs_err=err, kernel_ms=kernel_ms, plain_ms=plain_ms,
             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, fma_ms=fma_ms)
         del q, k, v, out, ref
+    # Rows that see no key (Sq 256, Sk 200, causal, window 16: rows 215 on)
+    # take the mean of v over all Sk keys, as in the plain version, on both
+    # tilings; the rows that see a key are held to the same bar.
+    masked_rows = {}
+    for dtype, tiling in ((torch.bfloat16, "wgmma"), (torch.bfloat16, "fma"),
+                          (torch.float32, "fma")):
+        q = torch.randn(B, H, 256, D, generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn(B, KV, 200, D, generator=gen, device=dev).to(dtype) for _ in "kv")
+        out = flash_attention(q, k, v, causal=True, window=16, tiling=tiling)
+        torch.cuda.synchronize()
+        ref = ref_flash_attention(q, k, v, causal=True, window=16)
+        first = first_masked_row(256, 200, True, 16)
+        err = float((out.float() - ref.float()).abs().max())
+        masked_err = float((out[:, :, first:].float() - ref[:, :, first:].float()).abs().max())
+        tol = TOL[dtype]
+        label = f"Sq=256 Sk=200 D={D} {str(dtype)[6:]} causal window=16 tiling={tiling}"
+        require(torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol),
+                f"kernel vs plain at {tol}, {label}: max|err| {err}")
+        print(f"phase 3 kernel: flash_attention fully masked rows {first}..255, {label}: "
+              f"max|err| {err}, on the masked rows {masked_err} (tol {tol})")
+        masked_rows[f"{str(dtype)[6:]} {tiling}"] = err
+        del q, k, v, out, ref
     torch.cuda.empty_cache()
     main_case, rg_case = attn[cases[0]], attn[cases[8]]
     main_fp32, rg_fp32 = attn[cases[2]], attn[cases[10]]
@@ -494,7 +548,7 @@ def main() -> int:
         fma_ms = None
         if tiling == "wgmma" and E == E_MOE:  # the earlier tiling, on the same inputs
             fma_ms = time_ms(lambda: moe_gmm(x, w, tiling="fma"), 20)
-        bound_ms, bound_by = gmm_bound(x, w)
+        bound_ms, bound_by, _ = gmm_bound(x, w)
         print(f"phase 3 kernel: moe_gmm {label}: max|err| {err} (tol {tol}) "
               f"kernel_ms {kernel_ms} plain_ms {plain_ms} library_ms {library_ms} "
               f"bound_ms {bound_ms} ({bound_by}) fma_ms {fma_ms} on {smi}")
@@ -504,7 +558,40 @@ def main() -> int:
         del x, w, out, ref
     torch.cuda.empty_cache()
     gmm_main, gmm_down, gmm_fp32 = gmm[gmm_cases[0]], gmm[gmm_cases[1]], gmm[gmm_cases[3]]
-    gmm_decode = gmm[gmm_cases[6]]
+    gmm_decode, gmm_decode_down = gmm[gmm_cases[6]], gmm[gmm_cases[7]]
+
+    # A decode step's own buffers: what layers.moe passes to the grouped
+    # matmul for the 4 served requests on a full-width layer.  Experts that
+    # no token picked hold zero rows, which the skinny tiling skips, and the
+    # bound counts only the live experts' weights.
+    decode_like = {}
+    for name, x, w in moe_decode_buffers(layers, ops, get_config("qwen3-moe-30b-a3b"), dev, gen):
+        out = moe_gmm(x, w)
+        torch.cuda.synchronize()
+        ref = ref_moe_gmm(x, w)
+        err = float((out.float() - ref.float()).abs().max())
+        tol = TOL[x.dtype]
+        E, C, Dx = x.shape
+        F = w.shape[2]
+        tiling = gmm_tiling(x.dtype, C, Dx, F)
+        require(tiling == "skinny", f"decode-like {name} on the skinny tiling, not {tiling}")
+        require(bool(torch.isfinite(out).all())
+                and torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol),
+                f"kernel vs plain at {tol}, decode-like {name}: max|err| {err}")
+        kernel_ms = time_ms(lambda: moe_gmm(x, w), 20)
+        plain_ms = time_ms(lambda: ref_moe_gmm(x, w), 5)
+        library_ms = time_ms(lambda: torch.bmm(x, w), 20)
+        bound_ms, bound_by, live = gmm_bound(x, w)
+        print(f"phase 3 kernel: moe_gmm decode-like {name} E={E} C={C} D={Dx} F={F} "
+              f"{str(x.dtype)[6:]} tiling={tiling}: live experts {live} of {E}, max|err| {err} "
+              f"(tol {tol}) kernel_ms {kernel_ms} plain_ms {plain_ms} library_ms {library_ms} "
+              f"bound_ms {bound_ms} ({bound_by}; the live experts' weights) "
+              f"share of bound {bound_ms / kernel_ms} on {smi}")
+        decode_like[name] = dict(kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                                 bound_ms=bound_ms, bound_by=bound_by, live=live,
+                                 max_abs_err=err)
+        del x, w, out, ref
+    torch.cuda.empty_cache()
 
     # The selective scan at falcon-mamba-7b's prefill (b and c strided, as the
     # layer passes them) and at a ragged shape (L not a multiple of 16 or 32,
@@ -801,6 +888,7 @@ def main() -> int:
         "d256_max_abs_err": rg_case["max_abs_err"],
         "d256_bf16_fma_ms": rg_case["fma_ms"],
         "d256_fp32_fma_ms": rg_fp32["kernel_ms"],
+        "masked_rows_max_abs_err": masked_rows,
     }, {
         "name": "moe_gmm",
         "route": "cuda",
@@ -829,6 +917,18 @@ def main() -> int:
         "decode_kernel_ms": gmm_decode["kernel_ms"],
         "decode_bound_ms": gmm_decode["bound_ms"],
         "decode_library_ms": gmm_decode["library_ms"],
+        "decode_down_kernel_ms": gmm_decode_down["kernel_ms"],
+        "decode_down_bound_ms": gmm_decode_down["bound_ms"],
+        "decode_down_library_ms": gmm_decode_down["library_ms"],
+        "skinny_decode_like_kernel_ms": decode_like["gate"]["kernel_ms"],
+        "skinny_decode_like_bound_ms": decode_like["gate"]["bound_ms"],
+        "skinny_decode_like_library_ms": decode_like["gate"]["library_ms"],
+        "skinny_decode_like_max_abs_err": decode_like["gate"]["max_abs_err"],
+        "skinny_live_experts": decode_like["gate"]["live"],
+        "skinny_decode_like_down_kernel_ms": decode_like["down"]["kernel_ms"],
+        "skinny_decode_like_down_bound_ms": decode_like["down"]["bound_ms"],
+        "skinny_decode_like_down_library_ms": decode_like["down"]["library_ms"],
+        "skinny_live_experts_down": decode_like["down"]["live"],
     }, {
         "name": "mamba_scan",
         "route": "cuda",

@@ -311,14 +311,6 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, int B
 
 // wgmma kernel.
 
-// 2^x by the special-function unit (ex2.approx: about 2 ulp; p is rounded to
-// a 16-bit type before it meets v).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // The value of x, hidden from the optimiser: descriptors computed from it
 // inside the kv loop stay there, instead of being hoisted out of it and
 // held in registers for the whole loop.
@@ -478,13 +470,13 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
             mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
           mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
           mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-          alpha[r] = fast_exp2(m[r] - mx);
+          alpha[r] = hopper::exp2_approx(m[r] - mx);
           m[r] = mx;
           float sum = 0.f;
 #pragma unroll
           for (int j = 0; j < BK / 8; ++j) {
-            const float p0 = fast_exp2(sc[4 * j + 2 * r] - mx);
-            const float p1 = fast_exp2(sc[4 * j + 2 * r + 1] - mx);
+            const float p0 = hopper::exp2_approx(sc[4 * j + 2 * r] - mx);
+            const float p1 = hopper::exp2_approx(sc[4 * j + 2 * r + 1] - mx);
             sc[4 * j + 2 * r] = p0;
             sc[4 * j + 2 * r + 1] = p1;
             sum += p0 + p1;

@@ -1,11 +1,14 @@
-// Hopper (sm_90a) building blocks shared by the port's tensor-core kernels,
-// flash_attention.cu and moe_gmm.cu: mbarriers, TMA tile loads, wgmma
-// shared-memory descriptors and products, the producer/consumer register
-// split, and the host-side encoding of TMA tensor maps.
+// Hopper (sm_90a) building blocks shared by the port's kernels
+// (flash_attention.cu, moe_gmm.cu, mamba_scan.cu): mbarriers, TMA tile
+// loads, the SFU's exp2, wgmma shared-memory descriptors and products, the
+// producer/consumer register split, and the host-side encoding of TMA
+// tensor maps.
 //
-// Layout convention.  Every tile is loaded by TMA with the 128-byte swizzle
-// in boxes whose inner extent is 64 16-bit values (128 bytes), so a box of
-// R rows is R x 128 bytes, and wider tiles are several boxes side by side.
+// Layout convention of the tensor-core kernels (the skinny weight stream
+// and the Mamba scan read plain, unswizzled boxes).  Every wgmma operand
+// tile is loaded by TMA with the 128-byte swizzle in boxes whose inner
+// extent is 64 16-bit values (128 bytes), so a box of R rows is R x 128
+// bytes, and wider tiles are several boxes side by side.
 // A wgmma operand is then described as follows (CUTLASS's canonical SW128
 // layouts, in bytes):
 //   K-major (the reduction axis is the fastest): rows 128 bytes apart, each
@@ -95,6 +98,13 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// 2^x by the special-function unit (ex2.approx: about 2 ulp).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Producer/consumer register split (setmaxnreg): a warpgroup gives back or
@@ -264,26 +274,47 @@ inline cudaError_t encode_tiled_fn(EncodeTiledFn* fn) {
   return cudaSuccess;
 }
 
-// A tensor map over a contiguous 16-bit array of extents (n0 innermost, n1,
-// n2), read in boxes of (64, box1, 1) with the 128-byte swizzle; reads past
-// an edge fill zeros.  Encoded on the host at every launch (a few
+// A tensor map over a 3-D array of extents (n0 innermost, n1, n2) whose dims
+// 1 and 2 lie s1 and s2 bytes apart, read in boxes of (box0, box1, 1); reads
+// past an edge fill zeros.  Encoded on the host at every launch (a few
 // microseconds, against kernels of tens of microseconds and more).  TMA
-// needs a 16-byte-aligned base and n0 a multiple of 8.
-inline cudaError_t make_map_3d(CUtensorMap* map, const void* base, bool bf16, uint64_t n0,
-                               uint64_t n1, uint64_t n2, uint32_t box1) {
+// needs a 16-byte-aligned base, s1, s2 and box0 times the element size
+// multiples of 16 bytes, and box0, box1 <= 256.
+inline cudaError_t encode_3d(CUtensorMap* map, const void* base, CUtensorMapDataType type,
+                             uint64_t n0, uint64_t n1, uint64_t n2, uint64_t s1, uint64_t s2,
+                             uint32_t box0, uint32_t box1, CUtensorMapSwizzle swizzle) {
   EncodeTiledFn encode;
   cudaError_t err = encode_tiled_fn(&encode);
   if (err != cudaSuccess) return err;
   const cuuint64_t dims[3] = {n0, n1, n2};
-  const cuuint64_t strides[2] = {n0 * 2, n0 * n1 * 2};  // bytes, of dims 1 and 2
-  const cuuint32_t box[3] = {64, box1, 1};
+  const cuuint64_t strides[2] = {s1, s2};
+  const cuuint32_t box[3] = {box0, box1, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
-  const CUresult r = encode(
-      map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 3,
-      const_cast<void*>(base), dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = encode(map, type, 3, const_cast<void*>(base), dims, strides, box,
+                            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The tensor-core kernels' map: a contiguous 16-bit array read in boxes of
+// (64, box1, 1) with the 128-byte swizzle (the layout convention above).
+inline cudaError_t make_map_3d(CUtensorMap* map, const void* base, bool bf16, uint64_t n0,
+                               uint64_t n1, uint64_t n2, uint32_t box1) {
+  return encode_3d(map, base,
+                   bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+                   n0, n1, n2, n0 * 2, n0 * n1 * 2, 64, box1, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// An unswizzled map of fp32 (elem_bytes 4) or bf16 / fp16 values: a box
+// lands in shared memory as box1 rows of box0 values.
+inline cudaError_t make_map_3d_plain(CUtensorMap* map, const void* base, int elem_bytes,
+                                     bool bf16, uint64_t n0, uint64_t n1, uint64_t n2,
+                                     uint64_t s1, uint64_t s2, uint32_t box0, uint32_t box1) {
+  const CUtensorMapDataType type = elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                   : bf16          ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                   : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  return encode_3d(map, base, type, n0, n1, n2, s1, s2, box0, box1,
+                   CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 }  // namespace hopper

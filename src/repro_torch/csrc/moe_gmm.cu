@@ -18,7 +18,13 @@
 //     0.127 ms; (E*C*D + E*D*F + E*C*F) * 2 bytes = 628 MB, 0.187 ms:
 //     bound by bytes, because the capacity buffer multiplies every expert's
 //     full weights;
-//   decode, C = 1: 403 MB of weights, 0.120 ms: bound by bytes.
+//   decode, C = 1, every expert holding a row: 403 MB of weights, 0.120 ms:
+//     bound by bytes.  The bound depends on the data: an expert whose rows
+//     of x are all zero needs none of its weights (for finite weights
+//     0 * w = 0), so the least time counts only the weights of experts that
+//     hold a non-zero row, plus x and out.  At the served decode (4 tokens,
+//     top 8, C = max(1, int(1.25 * 32 / 128)) = 1) at most 32 of the 128
+//     experts hold a row: about 100 MB for gate or up, 0.030 ms.
 //
 // Three tilings, one C entry point each; kernels/moe_gmm.py's `gmm_tiling`
 // chooses among them:
@@ -50,25 +56,40 @@
 //   memory as fp32, loading the next D tile into registers while the
 //   current one is multiplied.  Thread (ty, tx) of a 16 x 16 grid owns rows
 //   4*ty .. 4*ty+3 and columns 4*tx .. +3 and 64+4*tx .. +3.  Exact fp32.
-// * skinny (C <= 16; decode, C = 1).  Each launch is a stream of the
-//   experts' weights (403 MB at E = 128, D = 2048, F = 768 in bf16) with
-//   R = 1 (C = 1) or R = 4 rows of x to multiply them by.  The grid is
-//   (C / R row groups, F / (32 * VEC), E); the row groups of one w tile are
-//   neighbours in the launch order, so they share it through L2.  A block
-//   of 8 warps owns 32 * VEC columns of F (VEC = 8 bf16/fp16 or 4 fp32
-//   values, one 16-byte load); lane l reads columns l*VEC .. l*VEC+VEC-1 of
-//   a w row, and warp i reads rows d = i, i + 8, ...  x's rows are staged in
-//   shared memory 256 columns at a time, and the 8 warps' partial sums are
-//   added in shared memory at the end, in a fixed order.  It reads each
-//   weight once in coalesced 16-byte vectors, which is all a byte bound asks.
+// * skinny (C <= 16; decode, C = 1).  A weight stream that skips experts
+//   holding no row.  The grid is (C / R row groups, F / BF slabs, E), R = 1
+//   (C = 1) or 4 rows of x a block, BF = 256 bytes of columns (128 bf16 /
+//   fp16, 64 fp32): 6 slabs at F = 768, so the 30-odd live experts of a
+//   decode step still give about 190 working blocks for 132 SMs.  A block
+//   first loads its R rows of x (all D of them, as fp32 in shared memory);
+//   if every value is 0 it writes zeros and returns before any weight load
+//   is issued (`__syncthreads_or`), so an empty expert costs a few KB of x.
+//   Otherwise one producer warp streams the slab of w[e] through a ring of
+//   6 stages of 32 rows (8 KB each, 48 KB in flight a block, three blocks
+//   an SM: Little's law at 3.35 TB/s and about 1 us asks for 25 KB an SM):
+//   one thread issues one TMA box (256 bytes x 32 rows) a stage, completing
+//   on the stage's mbarrier.  (A bulk copy a row instead, 32 a stage, was
+//   bound by the rate at which the copies are issued, not by HBM.)  Eight
+//   consumer warps wait on it; thread (cg, rl)
+//   reads 16 bytes (one column group) of rows rl and rl + 16 from the stage
+//   and multiplies them by x's values in fp32, and each warp frees the
+//   stage with one arrive.  The 16 partial sums of each output are then
+//   added in the ring in a fixed order (no atomics: the result does not
+//   depend on block order).  TMA fills zeros past D and F; columns past F
+//   are never stored.  When w's rows are not 16-byte aligned (ragged F) the
+//   producer's lanes load and store the rows instead of TMA.  What this
+//   does about the byte bound: weights of empty experts are never read, and
+//   the rest are read once with enough bytes in flight to keep HBM busy.
 //
 // Measured on NVIDIA H100 80GB HBM3, 700.00 W (chip_smoke.py phase 3,
 // CUDA-event means over 20 launches; PERF.md section 6, row 3): wgmma
-// 0.295 ms at the prefill gate/up shape and 0.328 ms at the down shape
-// (torch.bmm 0.234 and 0.217 ms; bound 0.187 ms by bytes); the fma tiling
-// takes 3.57 ms on the same bf16 inputs and 3.39 ms in fp32; skinny
-// 0.164 ms at decode (bmm 0.132 ms, bound 0.120 ms).
-
+// 0.297 ms at the prefill gate/up shape and 0.326 ms at the down shape
+// (torch.bmm 0.240 and 0.222 ms; bound 0.187 ms by bytes); the fma tiling
+// takes 3.57 ms on the same bf16 inputs and 3.39 ms in fp32.  Skinny:
+// 0.139 ms with every expert filled (torch.bmm 0.137 ms, bound 0.120 ms;
+// the first version took 0.164 ms), and 0.043 ms on a decode step's own
+// buffers with 29 live experts (bound 0.027 ms; bmm, which reads every
+// expert, 0.137 ms).
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -89,9 +110,6 @@ constexpr int BF = 128;  // columns of w per block
 constexpr int BD = 16;   // depth of one D tile
 constexpr int LDA = BC + 4;
 
-// Skinny kernel.
-constexpr int WARPS = THREADS / 32;
-constexpr int DK = 256;  // columns of x staged at a time
 
 template <typename T> __device__ __forceinline__ float to_float(T x);
 template <> __device__ __forceinline__ float to_float<float>(float x) { return x; }
@@ -243,67 +261,186 @@ gmm_tiled_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict
   }
 }
 
-template <typename T, int R>
-__global__ void __launch_bounds__(THREADS)
-gmm_skinny_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out, int C,
-                  int D, int F, int vec_w) {
+// Skinny kernel: a weight stream through a ring of TMA boxes.
+namespace sk {
+constexpr int ROW_BYTES = 256;                 // bytes of one w row in a block's F slab
+constexpr int CG = ROW_BYTES / 16;             // 16-byte column groups of a slab row
+constexpr int CONSUMERS = 256;                 // 8 consumer warps
+constexpr int RL = CONSUMERS / CG;             // consumers that share a column group
+constexpr int BLOCK = CONSUMERS + 32;          // and one producer warp
+constexpr int DS = 32;                         // w rows a stage holds: one a producer lane
+constexpr int STAGES = 6;
+constexpr int STAGE_BYTES = DS * ROW_BYTES;    // 8 KB
+constexpr int RING_BYTES = STAGES * STAGE_BYTES;
+constexpr int BAR_BYTES = 256;                 // 2 * STAGES mbarriers, padded
+constexpr int MAX_SMEM = 232448;               // what a block may use on the H100
+static_assert(DS % RL == 0 && DS <= 256, "whole rows a consumer; a TMA box is <= 256 rows");
+static_assert(2 * STAGES * 8 <= BAR_BYTES, "the mbarriers fit");
+
+// Dynamic shared memory: the ring (1024-byte aligned, hence the 1024 more),
+// the mbarriers and R rows of x over D as fp32.
+inline size_t smem_bytes(int R, int D) {
+  return 1024 + RING_BYTES + BAR_BYTES + (size_t)R * D * sizeof(float);
+}
+}  // namespace sk
+
+// Block (row group, F slab, expert): out[e, c0 .. c0+R-1, f0 .. f0+BF-1].
+// TMA: w's rows are 16-byte aligned (F * sizeof(T) a multiple of 16), so the
+// producer loads each stage as one TMA box through map_w (F, D, E); otherwise
+// its lanes load and store the rows (ragged F, off the served path).
+template <typename T, int R, bool TMA>
+__global__ void __launch_bounds__(sk::BLOCK)
+gmm_skinny_kernel(const __grid_constant__ CUtensorMap map_w, const T* __restrict__ x,
+                  const T* __restrict__ w, T* __restrict__ out, int C, int D, int F) {
+  using namespace sk;
   constexpr int VEC = 16 / sizeof(T);
-  constexpr int BFS = 32 * VEC;  // columns of w per block
-  __shared__ __align__(16) float sX[R][DK];
-  __shared__ __align__(16) float sRed[WARPS][R][BFS];
+  constexpr int BF = ROW_BYTES / sizeof(T);  // columns of w per block
+  static_assert(RL * R * BF * sizeof(float) <= RING_BYTES, "the reduction fits in the ring");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = hopper::align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + RING_BYTES);
+  uint64_t* empty = full + STAGES;
+  float* sx = reinterpret_cast<float*>(ring + RING_BYTES + BAR_BYTES);  // sx[r * D + d]
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const int c0 = blockIdx.x * R;
-  const int f0 = blockIdx.y * BFS;
+  const int f0 = blockIdx.y * BF;
   const int e = blockIdx.z;
-  const int f = f0 + lane * VEC;
-
+  const int rows = min(R, C - c0);   // rows of x this block multiplies
+  const int cols = min(BF, F - f0);  // columns of its slab inside F
   const T* xe = x + (size_t)e * C * D;
   const T* we = w + (size_t)e * D * F;
+  T* oe = out + (size_t)e * C * F;
 
+  // x's rows first, as fp32.  A block whose rows are all zero (an expert
+  // that no token was routed to) writes zeros and issues no weight load.
+  bool nonzero = false;
+  if (D * sizeof(T) % 16 == 0) {  // 16-byte loads: one or two a thread at the served shapes
+    constexpr int VX = 16 / sizeof(T);
+    const int nv = D / VX;
+    for (int i = tid; i < R * nv; i += BLOCK) {
+      const int r = i / nv, k = i - r * nv;
+      float f[VX];
+      if (r < rows) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(xe + (size_t)(c0 + r) * D + k * VX);
+        const T* ev = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+        for (int v = 0; v < VX; ++v) f[v] = to_float<T>(ev[v]);
+      } else {
+#pragma unroll
+        for (int v = 0; v < VX; ++v) f[v] = 0.f;
+      }
+#pragma unroll
+      for (int v = 0; v < VX; v += 4) {
+        *reinterpret_cast<float4*>(&sx[r * D + k * VX + v]) =
+            make_float4(f[v], f[v + 1], f[v + 2], f[v + 3]);
+        nonzero |= f[v] != 0.f || f[v + 1] != 0.f || f[v + 2] != 0.f || f[v + 3] != 0.f;
+      }
+    }
+  } else {
+    for (int r = 0; r < R; ++r)
+#pragma unroll 4
+      for (int d = tid; d < D; d += BLOCK) {
+        const float v = r < rows ? to_float<T>(xe[(size_t)(c0 + r) * D + d]) : 0.f;
+        sx[r * D + d] = v;
+        nonzero |= v != 0.f;  // NaN counts as non-zero
+      }
+  }
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], TMA ? 1 : 32);  // the expect_tx arrive, or every lane's
+      hopper::mbar_init(&empty[s], CONSUMERS / 32);  // one arrive per consumer warp
+    }
+    hopper::mbar_fence_init();
+  }
+  if (!__syncthreads_or(nonzero)) {
+    for (int i = tid; i < R * BF; i += BLOCK) {
+      const int r = i / BF, j = i % BF;
+      if (r < rows && j < cols) oe[(size_t)(c0 + r) * F + f0 + j] = from_float<T>(0.f);
+    }
+    return;
+  }
+
+  const int nst = (D + DS - 1) / DS;
+  if (tid >= CONSUMERS) {  // producer warp: stage i holds w rows i*DS .. i*DS+DS-1
+    const int lane = tid - CONSUMERS;
+    for (int i = 0; i < nst; ++i) {
+      const int s = i % STAGES;
+      const int d0 = i * DS;
+      if constexpr (TMA) {  // one box of DS rows x BF columns; zeros past D and F
+        if (lane == 0) {
+          hopper::mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+          hopper::mbar_arrive_expect_tx(&full[s], STAGE_BYTES);
+          hopper::tma_load_3d(ring + s * STAGE_BYTES, &map_w, &full[s], f0, d0, e);
+        }
+      } else {
+        if (lane == 0) hopper::mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+        __syncwarp();
+        T* st = reinterpret_cast<T*>(ring + s * STAGE_BYTES);
+        for (int r = 0; r < min(DS, D - d0); ++r)
+          for (int j = lane; j < BF; j += 32)
+            st[r * BF + j] = j < cols ? we[(size_t)(d0 + r) * F + f0 + j] : from_float<T>(0.f);
+        hopper::mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  // Consumers: column group cg (VEC columns), rows rl, rl + RL, ... of each
+  // stage.  Rows past D are never read; columns past F are never stored.
+  const int lane = tid & 31;
+  const int cg = tid % CG;
+  const int rl = tid / CG;
   float acc[R][VEC];
 #pragma unroll
   for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int v = 0; v < VEC; ++v) acc[r][v] = 0.f;
 
-  for (int dk = 0; dk < D; dk += DK) {
-    const int dlen = min(DK, D - dk);
-    __syncthreads();  // the previous chunk's readers of sX are done
-    for (int i = tid; i < R * DK; i += THREADS) {
-      const int r = i / DK, d = i % DK;
-      sX[r][d] = (c0 + r < C && d < dlen) ? to_float<T>(xe[(size_t)(c0 + r) * D + dk + d]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int dd = warp; dd < dlen; dd += WARPS) {
-      float wv[VEC];
-      load_run<T, VEC>(wv, we + (size_t)(dk + dd) * F, f, F, vec_w);
+  for (int i = 0; i < nst; ++i) {
+    const int s = i % STAGES;
+    const int d0 = i * DS;
+    const int nrows = min(DS, D - d0);
+    hopper::mbar_wait(&full[s], (i / STAGES) & 1);
+    const uint8_t* src = ring + s * STAGE_BYTES + cg * 16;
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float xv = sX[r][dd];
+    for (int k = 0; k < DS / RL; ++k) {
+      const int r = rl + k * RL;
+      if (r < nrows) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(src + r * ROW_BYTES);
+        const T* ev = reinterpret_cast<const T*>(&raw);
+        float wv[VEC];
 #pragma unroll
-        for (int v = 0; v < VEC; ++v) acc[r][v] = fmaf(xv, wv[v], acc[r][v]);
+        for (int v = 0; v < VEC; ++v) wv[v] = to_float<T>(ev[v]);
+#pragma unroll
+        for (int rr = 0; rr < R; ++rr) {
+          const float xv = sx[rr * D + d0 + r];
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) acc[rr][v] = fmaf(xv, wv[v], acc[rr][v]);
+        }
       }
     }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
   }
 
+  // The RL partial sums of each output, added in a fixed order in the ring
+  // (every stage has been read: named barrier 1 over the consumers alone).
+  float* red = reinterpret_cast<float*>(ring);  // red[(k * R + r) * BF + j]
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
 #pragma unroll
   for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int v = 0; v < VEC; v += 4)
-      *reinterpret_cast<float4*>(&sRed[warp][r][lane * VEC + v]) =
+      *reinterpret_cast<float4*>(&red[(rl * R + r) * BF + cg * VEC + v]) =
           make_float4(acc[r][v], acc[r][v + 1], acc[r][v + 2], acc[r][v + 3]);
-  __syncthreads();
-  T* oe = out + (size_t)e * C * F;
-  for (int i = tid; i < R * BFS; i += THREADS) {
-    const int r = i / BFS, j = i % BFS;
-    float s = 0.f;
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
+  for (int i = tid; i < R * BF; i += CONSUMERS) {
+    const int r = i / BF, j = i % BF;
+    float sum = 0.f;
 #pragma unroll
-    for (int k = 0; k < WARPS; ++k) s += sRed[k][r][j];
-    if (c0 + r < C && f0 + j < F) oe[(size_t)(c0 + r) * F + f0 + j] = from_float<T>(s);
+    for (int k = 0; k < RL; ++k) sum += red[(k * R + r) * BF + j];
+    if (r < rows && j < cols) oe[(size_t)(c0 + r) * F + f0 + j] = from_float<T>(sum);
   }
 }
 
@@ -438,24 +575,40 @@ cudaError_t launch_fma(const void* x, const void* w, void* out, int E, int C, in
   return cudaGetLastError();
 }
 
+template <typename T, int R, bool TMA>
+cudaError_t launch_skinny_r(const void* x, const void* w, void* out, int E, int C, int D, int F,
+                            cudaStream_t stream) {
+  constexpr int BF = sk::ROW_BYTES / sizeof(T);
+  CUtensorMap map_w = {};
+  cudaError_t err = cudaSuccess;
+  if (TMA)
+    err = hopper::make_map_3d_plain(&map_w, w, sizeof(T), std::is_same<T, __nv_bfloat16>::value,
+                                    F, D, E, (uint64_t)F * sizeof(T),
+                                    (uint64_t)D * F * sizeof(T), BF, sk::DS);
+  if (err != cudaSuccess) return err;
+  const size_t smem = sk::smem_bytes(R, D);
+  err = cudaFuncSetAttribute(gmm_skinny_kernel<T, R, TMA>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((C + R - 1) / R, (F + BF - 1) / BF, E);
+  gmm_skinny_kernel<T, R, TMA><<<grid, sk::BLOCK, smem, stream>>>(
+      map_w, static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out), C, D, F);
+  return cudaGetLastError();
+}
+
+// R = 4 rows of x a block for C > 1 where they fit in shared memory, else 1.
+// TMA where w's rows are 16-byte aligned (F * sizeof(T) a multiple of 16).
 template <typename T>
 cudaError_t launch_skinny(const void* x, const void* w, void* out, int E, int C, int D, int F,
                           cudaStream_t stream) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int BFS = 32 * VEC;
-  const T* xp = static_cast<const T*>(x);
-  const T* wp = static_cast<const T*>(w);
-  T* op = static_cast<T*>(out);
-  const unsigned groups_f = (F + BFS - 1) / BFS;
-  const int vec_w = F % VEC == 0;
-  if (C == 1) {
-    gmm_skinny_kernel<T, 1><<<dim3(1, groups_f, E), THREADS, 0, stream>>>(xp, wp, op, C, D, F,
-                                                                          vec_w);
-  } else {
-    gmm_skinny_kernel<T, 4><<<dim3((C + 3) / 4, groups_f, E), THREADS, 0, stream>>>(
-        xp, wp, op, C, D, F, vec_w);
-  }
-  return cudaGetLastError();
+  if (sk::smem_bytes(1, D) > sk::MAX_SMEM) return cudaErrorInvalidValue;
+  const bool r4 = C > 1 && sk::smem_bytes(4, D) <= sk::MAX_SMEM;
+  const bool tma = (size_t)F * sizeof(T) % 16 == 0;
+  if (r4)
+    return tma ? launch_skinny_r<T, 4, true>(x, w, out, E, C, D, F, stream)
+               : launch_skinny_r<T, 4, false>(x, w, out, E, C, D, F, stream);
+  return tma ? launch_skinny_r<T, 1, true>(x, w, out, E, C, D, F, stream)
+             : launch_skinny_r<T, 1, false>(x, w, out, E, C, D, F, stream);
 }
 
 bool valid(int E, int C, int D, int F) {
@@ -497,7 +650,8 @@ extern "C" int repro_moe_gmm_fma(const void* x, const void* w, void* out, int E,
   }
 }
 
-// The weight stream for C <= 16; any D, F and dtype.
+// The weight stream for C <= 16 and D <= 49,000 or so (x's rows, in fp32,
+// must fit in shared memory beside the ring); any F and dtype.
 extern "C" int repro_moe_gmm_skinny(const void* x, const void* w, void* out, int E, int C, int D,
                                     int F, int dtype, void* stream) {
   if (!valid(E, C, D, F) || C > SKINNY_MAX_C) return (int)cudaErrorInvalidValue;

@@ -7,6 +7,15 @@ themselves, so nothing here pads.  Two tilings, one C entry point each:
 ``wgmma`` (tensor cores, TMA loads; bf16/fp16) and ``fma`` (fp32 FMAs on the
 CUDA cores; fp32).  :func:`attention_tiling` chooses.  Their plain PyTorch
 version is :func:`repro_torch.kernels.ref.ref_flash_attention`.
+
+A query row that sees no key (a window with ``Sq >= Sk + window``; see
+:func:`first_masked_row`) gets what the plain version and the JAX oracle
+give it: their softmax over a row of equal masked scores is uniform, so the
+row is the mean of v over all Sk keys.  The kernels skip key tiles that are
+wholly masked, so they leave such rows at 0 or at a mean over the tiles they
+did not skip; the wrapper writes those rows itself after the launch.  The
+shapes alone mark them, so this is deterministic, touches no row that sees
+a key, and does nothing at Sq = Sk (every served prefill).
 """
 
 from __future__ import annotations
@@ -31,6 +40,18 @@ def attention_tiling(dtype: torch.dtype, head_dim: int) -> str:
     if dtype not in DTYPE_CODES:
         raise ValueError(f"flash_attention: dtype {dtype} not in {list(DTYPE_CODES)}")
     return "wgmma" if dtype in HALF_DTYPES else "fma"
+
+
+def first_masked_row(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """The first query row that sees no key; ``Sq`` if every row sees one.
+
+    Query and key positions both count from 0.  A row q sees keys k < Sk
+    with ``k <= q`` (causal) and ``k > q - window`` (window > 0).  Without a
+    window every row sees key 0.  With one, the oldest key row q may see is
+    ``q - window + 1``, causal or not, so exactly the rows
+    ``q >= Sk + window - 1`` see none.
+    """
+    return Sq if window <= 0 else min(Sq, Sk + window - 1)
 
 
 def _entry(tiling: str):
@@ -84,4 +105,8 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0, tiling: str |
         )
     if err:
         raise RuntimeError(f"flash_attention ({tiling}): CUDA error {err} at launch")
+    first = first_masked_row(Sq, Sk, causal, window)
+    if first < Sq:  # rows that see no key: the mean of v over all Sk keys
+        v_mean = v.float().mean(dim=2).repeat_interleave(H // KV, dim=1)  # (B, H, D)
+        out[:, :, first:] = v_mean[:, :, None].to(out.dtype)
     return out

@@ -5,9 +5,9 @@ compute the same function (``out[e] = x[e] @ w[e]``, fp32 accumulation,
 output in x's dtype) and mask the ragged edges of C, D and F themselves, so
 nothing here pads.  Three tilings, one C entry point each: ``wgmma``
 (tensor cores, TMA loads; prefill in bf16/fp16), ``fma`` (fp32 FMAs on the
-CUDA cores) and ``skinny`` (a weight stream for decode's few rows).
-:func:`gmm_tiling` chooses.  Their plain PyTorch version is
-:func:`repro_torch.kernels.ref.ref_moe_gmm`.
+CUDA cores) and ``skinny`` (a weight stream for decode's few rows, which
+skips experts whose rows of x are all zero).  :func:`gmm_tiling` chooses.
+Their plain PyTorch version is :func:`repro_torch.kernels.ref.ref_moe_gmm`.
 """
 
 from __future__ import annotations
@@ -20,17 +20,18 @@ from . import _build
 from .flash_attention import DTYPE_CODES, HALF_DTYPES, _aligned
 
 SKINNY_MAX_C = 16  # rows of x up to which the weight stream beats a tiled product
+SKINNY_MAX_D = 32768  # x's rows are staged in shared memory as fp32 beside the ring
 TILINGS = ("wgmma", "fma", "skinny")
 
 
 def gmm_tiling(dtype: torch.dtype, C: int, D: int, F: int) -> str:
     """The tiling that serves (E, C, D) @ (E, D, F) in this dtype: ``"skinny"``
-    for C <= 16, ``"wgmma"`` for bf16/fp16 with D and F multiples of 8 (TMA's
-    16-byte row strides), ``"fma"`` otherwise."""
+    for C <= 16 and D <= 32768, ``"wgmma"`` for C > 16 in bf16/fp16 with D and
+    F multiples of 8 (TMA's 16-byte row strides), ``"fma"`` otherwise."""
     if dtype not in DTYPE_CODES:
         raise ValueError(f"moe_gmm: dtype {dtype} not in {list(DTYPE_CODES)}")
     if C <= SKINNY_MAX_C:
-        return "skinny"
+        return "skinny" if D <= SKINNY_MAX_D else "fma"
     if dtype in HALF_DTYPES and D % 8 == 0 and F % 8 == 0:
         return "wgmma"
     return "fma"
@@ -40,7 +41,7 @@ def _takes(tiling: str, dtype: torch.dtype, C: int, D: int, F: int) -> bool:
     if tiling == "wgmma":
         return gmm_tiling(dtype, C, D, F) == "wgmma"
     if tiling == "skinny":
-        return C <= SKINNY_MAX_C
+        return C <= SKINNY_MAX_C and D <= SKINNY_MAX_D
     return tiling == "fma"
 
 
@@ -59,6 +60,13 @@ def moe_gmm(x, w, tiling: str | None = None):
     ``tiling`` defaults to :func:`gmm_tiling`'s choice; a tiling that does
     not take the shape or dtype raises.  Launches the CUDA kernel once, or
     raises: this function never computes on another path.
+
+    The ``skinny`` tiling writes zeros for a block of rows of x (R = 1 at
+    C = 1, else 4 rows) that are all exactly zero, without reading the
+    expert's weights: the MoE layer leaves every expert that no token was
+    routed to with such rows.  For finite weights that is the same function
+    (0 * w = 0); where w holds an inf or a NaN, the plain version gives NaN
+    in those rows and the kernel 0.
     """
     if not (x.is_cuda and w.device == x.device):
         raise ValueError("moe_gmm: x and w must lie on one CUDA device")

@@ -14,6 +14,18 @@ import torch
 NEG_INF = -1e30
 
 
+def attention_mask(Sq, Sk, causal, window, device=None):
+    """(Sq, Sk) bool: True where query row i may see key j."""
+    qi = torch.arange(Sq, device=device)[:, None]
+    kj = torch.arange(Sk, device=device)[None, :]
+    m = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        m &= kj <= qi
+    if window > 0:
+        m &= kj > qi - window
+    return m
+
+
 def ref_flash_attention(q, k, v, causal=True, window=0):
     """q: (B, H, Sq, D); k/v: (B, KV, Sk, D) -> (B, H, Sq, D)."""
     B, H, Sq, D = q.shape
@@ -22,14 +34,7 @@ def ref_flash_attention(q, k, v, causal=True, window=0):
     qg = q.reshape(B, KV, g, Sq, D).float()
     s = torch.einsum("bkgsd,bktd->bkgst", qg, k.float())
     s = s / math.sqrt(D)
-    qi = torch.arange(Sq, device=q.device)[:, None]
-    kj = torch.arange(Sk, device=q.device)[None, :]
-    m = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        m &= kj <= qi
-    if window > 0:
-        m &= kj > qi - window
-    s = torch.where(m, s, NEG_INF)
+    s = torch.where(attention_mask(Sq, Sk, causal, window, q.device), s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgst,bktd->bkgsd", p, v.float())
     return o.reshape(B, H, Sq, D).to(q.dtype)

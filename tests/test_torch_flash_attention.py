@@ -9,8 +9,10 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as pallas_flash_attention
 from repro_torch.kernels import _build, ops
-from repro_torch.kernels.flash_attention import TILINGS, attention_tiling, flash_attention
-from repro_torch.kernels.ref import ref_flash_attention
+from repro_torch.kernels.flash_attention import (
+    TILINGS, attention_tiling, first_masked_row, flash_attention,
+)
+from repro_torch.kernels.ref import attention_mask, ref_flash_attention
 
 torch.set_num_threads(2)  # several test processes share the cores
 
@@ -73,6 +75,51 @@ def test_plain_attention_ragged_length(block_q, block_k):
     np.testing.assert_allclose(
         _port(q, k, v, causal=True), np.asarray(expect), rtol=3e-5, atol=3e-5
     )
+
+
+@pytest.mark.parametrize(
+    "Sq,Sk,causal,window",
+    [
+        (256, 200, True, 16),     # rows 215.. see no key
+        (256, 200, False, 16),
+        (219, 200, True, 16),     # the last four rows
+        (214, 200, True, 16),     # one row short of the first masked one: none
+        (256, 256, True, 0),      # the served prefills: Sq = Sk
+        (1000, 1000, True, 128),
+        (2048, 2048, True, 2048),
+        (300, 100, True, 0),      # causal, Sq > Sk, no window: key 0 is always seen
+        (100, 300, False, 0),
+        (64, 8, True, 1),         # a window of one key
+        (10, 3, False, 4),
+        (5, 1, True, 1),
+    ],
+)
+def test_first_masked_row_matches_the_plain_mask(Sq, Sk, causal, window):
+    """The rows the wrapper repairs are exactly those in which the plain
+    version's mask keeps no key."""
+    seen = attention_mask(Sq, Sk, causal, window).any(dim=1)
+    first = first_masked_row(Sq, Sk, causal, window)
+    assert 0 <= first <= Sq
+    assert bool(seen[:first].all()) and not bool(seen[first:].any())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [np.float32, np.float16])
+def test_plain_attention_gives_fully_masked_rows_the_mean_of_v(causal, dtype):
+    """Sq 256, Sk 200, window 16: rows 215.. see no key.  The JAX oracle and
+    the plain version give them the mean of v over all Sk keys."""
+    B, H, KV, Sq, Sk, D, window = 2, 4, 2, 256, 200, 64, 16
+    q, k, v = _qkv(5, B, H, KV, Sq, Sk, D, dtype)
+    out = _port(q, k, v, causal=causal, window=window)
+    expect = jref.ref_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                      causal=causal, window=window)
+    np.testing.assert_allclose(out, np.asarray(expect, np.float32), **_tol(dtype))
+    first = first_masked_row(Sq, Sk, causal, window)
+    assert first == Sk + window - 1 < Sq
+    mean = np.repeat(v.astype(np.float32).mean(axis=2), H // KV, axis=1)  # (B, H, D)
+    np.testing.assert_allclose(out[:, :, first:],
+                               np.broadcast_to(mean[:, :, None], out[:, :, first:].shape),
+                               **_tol(dtype))
 
 
 ATTENTION_COUNTERS = ("attention_launches", "attention_wgmma_launches", "attention_fma_launches")

@@ -14,7 +14,7 @@ import torch
 from repro_torch.configs.base import get_config
 from repro_torch.kernels import ops
 from repro_torch.kernels.embedding_bag import embedding_bag
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import first_masked_row, flash_attention
 from repro_torch.kernels.mamba_scan import mamba_scan
 from repro_torch.kernels.moe_gmm import moe_gmm
 from repro_torch.kernels.ref import (
@@ -67,6 +67,9 @@ def _qkv(device, B, H, KV, Sq, Sk, D, dtype, seed=0):
         (1, 4, 1, 129, 129, 256, True, 64),
         (1, 4, 2, 300, 100, 64, True, 0),      # causal, Sq > Sk
         (1, 4, 2, 65, 200, 128, True, 0),      # causal, Sq < Sk
+        # Rows that see no key (q >= Sk + window - 1): the mean of v over Sk.
+        (1, 4, 2, 256, 200, 128, True, 16),
+        (1, 4, 1, 256, 200, 64, False, 16),
     ],
 )
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
@@ -77,6 +80,31 @@ def test_kernel_matches_plain(cuda, B, H, KV, Sq, Sk, D, causal, window, dtype):
     expect = ref_flash_attention(q, k, v, causal=causal, window=window)
     assert out.dtype == dtype and out.shape == q.shape
     torch.testing.assert_close(out.float(), expect.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("tiling,dtype", [("wgmma", torch.bfloat16), ("wgmma", torch.float16),
+                                          ("fma", torch.bfloat16), ("fma", torch.float32)])
+@pytest.mark.parametrize(
+    "B,H,KV,Sq,Sk,D,causal,window",
+    [
+        (2, 8, 2, 256, 200, 128, True, 16),   # rows 215..255 see no key
+        (1, 4, 1, 256, 200, 256, True, 16),
+        (1, 4, 2, 219, 200, 64, False, 16),   # the last 4 rows, across a 64-row warpgroup
+        (1, 4, 2, 300, 64, 64, True, 1),      # a window of one key: rows 64.. see none
+    ],
+)
+def test_kernel_fully_masked_rows_on_both_tilings(cuda, tiling, dtype, B, H, KV, Sq, Sk, D,
+                                                   causal, window):
+    q, k, v = _qkv(cuda, B, H, KV, Sq, Sk, D, dtype, seed=3)
+    out = flash_attention(q, k, v, causal=causal, window=window, tiling=tiling)
+    torch.cuda.synchronize()
+    expect = ref_flash_attention(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(out.float(), expect.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    first = first_masked_row(Sq, Sk, causal, window)
+    assert first < Sq
+    mean = v.float().mean(dim=2).repeat_interleave(H // KV, dim=1)[:, :, None]
+    torch.testing.assert_close(out[:, :, first:].float(), mean.expand(-1, -1, Sq - first, -1),
+                               rtol=TOL[dtype], atol=TOL[dtype])
 
 
 def test_kernel_takes_strided_views(cuda):
@@ -172,6 +200,61 @@ def test_gmm_kernel_with_zero_rows_past_each_count(cuda):
     out = moe_gmm(x, w)
     torch.testing.assert_close(out.float(), ref_moe_gmm(x, w).float(), rtol=2e-2, atol=2e-2)
     assert float(out[~rows.to(cuda)].abs().max()) == 0.0
+
+
+def _with_empty_experts(x, C):
+    """Experts 0..E/2-1 all zero (no token routed there); of the rest, expert
+    E/2 keeps only its first row and E/2 + 1 only its last, so at C > 1
+    some 4-row blocks are partly zero and must not be skipped."""
+    E = x.shape[0]
+    x = x.clone()
+    x[: E // 2] = 0
+    if C > 1:
+        x[E // 2, 1:] = 0
+        x[E // 2 + 1, :-1] = 0
+    return x
+
+
+@pytest.mark.parametrize("C", [1, 4, 16])
+@pytest.mark.parametrize(
+    "D,F,dtype",
+    [
+        (2048, 768, torch.bfloat16),  # qwen3-moe's gate/up and down widths
+        (768, 2048, torch.bfloat16),
+        (512, 384, torch.float16),
+        (512, 384, torch.float32),
+        (300, 135, torch.bfloat16),   # ragged D; F rows off 16 bytes: the non-bulk producer
+        (301, 130, torch.float32),
+    ],
+)
+def test_gmm_skinny_skips_empty_experts(cuda, C, D, F, dtype):
+    """Blocks whose rows of x are all zero write zeros without reading w;
+    with finite weights that is the plain version's result."""
+    x, w = _xw(cuda, 8, C, D, F, dtype, seed=C)
+    x = _with_empty_experts(x, C)
+    out = moe_gmm(x, w, tiling="skinny")
+    torch.cuda.synchronize()
+    expect = ref_moe_gmm(x, w)
+    torch.testing.assert_close(out.float(), expect.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    assert float(out[:4].float().abs().max()) == 0.0
+    assert bool(out[4].ne(0).any()) and bool(out[5].ne(0).any())
+
+
+def test_gmm_skinny_empty_expert_contract_is_for_finite_weights(cuda):
+    """The wrapper's stated contract: an expert whose rows are all zero gets
+    zeros without its weights being read, so a NaN or inf weight there gives
+    0 where the plain version gives NaN; a live expert's NaN still shows."""
+    x, w = _xw(cuda, 4, 1, 256, 128, torch.bfloat16)
+    x[0] = 0
+    w[0, 3, 5] = float("nan")
+    w[1, 7, 9] = float("inf")
+    w[2, 0, 1] = float("nan")
+    out = moe_gmm(x, w, tiling="skinny")
+    expect = ref_moe_gmm(x, w)
+    assert bool(expect[0].isnan().any()) and float(out[0].float().abs().max()) == 0.0
+    assert bool(out[1].isinf().any() or out[1].isnan().any())
+    assert bool(out[2, 0, 1].isnan())
+    torch.testing.assert_close(out[3].float(), expect[3].float(), rtol=2e-2, atol=2e-2)
 
 
 def test_gmm_kernel_takes_strided_views(cuda):
@@ -318,6 +401,15 @@ def _mamba_inputs(device, B, L, DI, ST, dtype, seed=0, R=None):
         (1, 50, 72, 24, 8),        # states padded to 32
         (2, 20, 40, 128, None),    # the most states the kernel takes
         (1, 1, 8, 5, None),        # one step
+        # L off the 16-step staging chunk, every lanes-a-channel width
+        # (1, 2, 4, 8 at 16 states a thread), b and c strided, and both
+        # producers: TMA boxes, and plain loads where rows are off 16 bytes.
+        (2, 33, 72, 1, None),      # one state
+        (1, 45, 40, 64, None),     # 4 lanes a channel
+        (2, 50, 96, 16, 8),        # b and c strided, on 16 bytes: TMA
+        (1, 19, 33, 16, None),     # DI odd: plain loads
+        (1, 20, 24, 5, 3),         # b and c rows off 16 bytes: plain loads
+        (2, 17, 16, 128, 4),       # 8 lanes a channel, strided
     ],
 )
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

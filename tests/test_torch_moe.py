@@ -124,6 +124,9 @@ def test_kernel_wrapper_refuses_cpu_tensors_for_every_tiling(tiling, dtype):
         (torch.bfloat16, 16, 2048, 768, "skinny"),
         (torch.bfloat16, 17, 2048, 768, "wgmma"),
         (torch.bfloat16, 5, 201, 135, "skinny"),
+        # The skinny tiling stages x's rows in shared memory: D up to 32768.
+        (torch.bfloat16, 1, 32768, 64, "skinny"),
+        (torch.float32, 4, 32769, 64, "fma"),
         # The narrow MoE model's products (fp32) and ragged shapes: TMA
         # needs D and F to be multiples of 8.
         (torch.float32, 40, 256, 128, "fma"),
@@ -185,3 +188,43 @@ def test_moe_init_matches_reference_layouts():
     assert sd["router"].dtype == torch.float32
     assert float(sd["norm"].abs().max()) == 0.0
     assert float(sd["wd"].float().abs().max()) <= 2.0 / np.sqrt(cfg.d_ff) + 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_moe_decode_buffers_are_zero_for_experts_without_a_kept_entry(monkeypatch, dtype):
+    """At qwen3-moe-30b-a3b's decode routing (E 128, top 8, 4 requests of one
+    token, capacity 1.25: C = 1), every expert that keeps no (token, expert)
+    entry has exactly zero rows in the gate/up input and in the down input.
+    The skinny tiling's skip of all-zero rows relies on this."""
+    full = tbase.get_config("qwen3-moe-30b-a3b")
+    cfg = dataclasses.replace(
+        full.smoke(), n_experts=full.n_experts, top_k=full.top_k,
+        capacity_factor=full.capacity_factor, d_model=64, d_ff=32,
+        param_dtype=str(dtype).removeprefix("torch."),
+        activation_dtype=str(dtype).removeprefix("torch."),
+    )
+    mod = L.MoE(cfg, torch.Generator().manual_seed(0), torch.device("cpu"))
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal((4, 1, cfg.d_model))).to(dtype)
+    seen = []
+    real = ops.grouped_matmul
+
+    def capture(xb, w):
+        seen.append(xb.clone())
+        return real(xb, w)
+
+    monkeypatch.setattr(ops, "grouped_matmul", capture)
+    L.moe(mod, x, cfg)
+    E, K, N = cfg.n_experts, cfg.top_k, 4
+    C = max(1, int(cfg.capacity_factor * N * K / E))
+    assert C == 1 and len(seen) == 3
+    gate_in, up_in, down_in = seen
+    assert gate_in.shape == (E, C, cfg.d_model) and down_in.shape == (E, C, cfg.d_ff)
+    assert torch.equal(gate_in, up_in)
+    probs = torch.softmax(x.reshape(N, -1).float() @ mod.router, dim=-1)
+    counts = torch.bincount(torch.topk(probs, K, dim=-1).indices.reshape(-1), minlength=E)
+    empty = counts == 0
+    assert 0 < int((~empty).sum()) <= N * K and int(empty.sum()) >= E - N * K
+    for buf in (gate_in, down_in):
+        assert buf.dtype == dtype
+        assert not bool(buf[empty].ne(0).any())  # exactly zero, every row and value
+        assert bool(buf[~empty].ne(0).any(dim=-1).all())  # each kept expert's row is not
