@@ -21,9 +21,12 @@ result line:
    shapes also timed on the fma tiling: flash attention at granite-8b's and
    qwen3-moe-30b-a3b's attention (B=4, H=32, KV=8 or 4, D=128; S=1000 and
    2048) and at recurrentgemma-9b's (B=4, H=16, KV=1, S=2048, D=256, window
-   2048), in bf16, fp16 and fp32, and at ragged edges of the 128-row q and
-   64-row k tiles (Sq = Sk = 127, 129; Sq != Sk), and with rows that see
-   no key (Sq 256, Sk 200, window 16) on both tilings; the grouped matmul at
+   2048), in bf16, fp16 and fp32, at hubert-xlarge's (B=4, H=KV=16, S=1000,
+   D=80, both ways; a 128-wide compute on wgmma) and at llama-3.2-vision-11b's
+   cross-attention (H=32, KV=8, Sq=1000, Sk=1601, D=128, unmasked), and at
+   ragged edges of the 128-row q and 64-row k tiles (Sq = Sk = 127, 129;
+   Sq != Sk; D = 128 and 80), and with rows that see no key (Sq 256, Sk 200,
+   window 16) on both tilings; the grouped matmul at
    qwen3-moe-30b-a3b's expert products (E=128; C=312 at prefill in bf16,
    fp16 and fp32, C=1 at decode with every expert filled) and around its
    128 x 256 tiles (C = 129; D = 72, F = 136), and on a decode step's own
@@ -38,7 +41,8 @@ result line:
    ids near the end of every table (offsets past 2^31) and ids past it
    (clamped and wrapped), and on ragged tables (E=13, int64 ids); then
    narrow fp32 granite, MoE, Mamba, Griffin and DLRM models on the card
-   against the same models on the CPU;
+   against the same models on the CPU, and a narrow fp32 VLM (head dim 128,
+   two super-blocks, cross gates opened) and encoder (4 heads of 80);
 4. serve granite-8b at full width and depth in bf16 through
    ``repro_torch.launch.serve.generate`` (4 requests, prompt 1000, 16 decode
    steps), counting kernel launches (every prefill attention on the wgmma
@@ -62,7 +66,15 @@ result line:
    batches 128 and 4096, one embedding-bag launch per forward, and hold its
    logits against a forward whose lookup is the plain version (bitwise) and
    against 16 samples recomputed on the CPU;
-5. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, and the
+4f. serve llama-3.2-vision-11b the same way (1601 image tokens drawn with
+   numpy; its 8 cross gates set to 1 first, since tanh(0) = 0 at init
+   throws the cross-attention away): 32 self and 8 cross flash-attention
+   launches per prefill, all wgmma, none in decode, and prefill(1001)
+   against prefill(1000) plus a decode step whose cross-attention is plain;
+4g. encode 4 clips of 1000 frames with hubert-xlarge (48 flash-attention
+   launches at D = 80 per forward, all wgmma), timing the forward, and hold
+   its first layer (bf16, card) against the same layer in fp32 on the CPU;
+5. the script's wall time, one JSON line of per-kernel numbers, the ``nvidia-smi`` line, and the
    result line ``{"ok": true, "device": {...}}`` last.
 
 Each serving phase sets every kernel's launch count to 0 just before its
@@ -77,7 +89,9 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import copy
 import json
+import math
 import subprocess
 import sys
 import time
@@ -88,6 +102,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+
+T_START = time.perf_counter()
 
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
@@ -101,6 +117,14 @@ E_MOE, D_MOE, F_MOE = 128, 2048, 768  # qwen3-moe-30b-a3b's experts
 C_PREFILL = int(1.25 * B * PROMPT * 8 / E_MOE)  # 312: capacity at the serving prefill
 DI_MAMBA, ST_MAMBA, R_MAMBA = 8192, 16, 256  # falcon-mamba-7b's scan
 PROMPT_RG, D_RG = 2048, 4096  # recurrentgemma-9b: prompt = attention window; LRU width
+IMG_TOKENS = 1601  # llama-3.2-vision-11b's image: 1 CLS + 40 x 40 patches
+H_AU, D_AU = 16, 80  # hubert-xlarge's heads (KV = H) and head dim
+# Attention cases (Sq, Sk, D, dtype, causal, window, KV, H) of the new paths:
+# hubert-xlarge's encoder at 1000 frames in bf16, fp16 and fp32, and
+# llama-3.2-vision-11b's cross-attention from the prompt to the image.
+HUBERT_CASES = tuple((PROMPT, PROMPT, D_AU, dt, False, 0, H_AU, H_AU)
+                     for dt in (torch.bfloat16, torch.float16, torch.float32))
+CROSS_CASE = (PROMPT, IMG_TOKENS, D, torch.bfloat16, False, 0, KV, H)
 KERNEL_COUNTERS = ("attention_launches", "grouped_matmul_launches", "selective_scan_launches",
                    "lru_scan_launches", "bag_lookup_launches")
 # The same launches again, by the tiling that served them.
@@ -260,7 +284,8 @@ def mamba_inputs(gen, Bm, L, DI, ST, dtype, R=None):
 
 def narrow_config(get_config, arch):
     """An arch's smoke config widened to d_model 256 and head dim 64 (the
-    attention kernel's smallest), in fp32."""
+    attention kernel's smallest; the VLM 128, the encoder 80 at d_model
+    320), in fp32."""
     over = dict(d_model=256, param_dtype="float32", activation_dtype="float32")
     if arch == "granite-8b":
         over.update(n_heads=4, n_kv_heads=2, head_dim=64, d_ff=512)
@@ -269,13 +294,18 @@ def narrow_config(get_config, arch):
                     capacity_factor=1.0)
     elif arch == "falcon-mamba-7b":
         over.update(ssm_state=16, dt_rank=16)
+    elif arch == "llama-3.2-vision-11b":  # two super-blocks of 4 self + 1 cross layer
+        over.update(n_heads=4, n_kv_heads=2, head_dim=128, d_ff=512, n_layers=10,
+                    cross_attn_every=5, img_tokens=100)
+    elif arch == "hubert-xlarge":
+        over.update(d_model=320, n_heads=4, n_kv_heads=4, head_dim=D_AU, d_ff=640, n_layers=2)
     else:  # recurrentgemma-9b: a 32-token window, which the 77-token prompts pass
         over.update(n_heads=4, n_kv_heads=1, head_dim=64, d_ff=512, lru_width=256,
                     attn_window=32)
     return dataclasses.replace(get_config(arch).smoke(), **over)
 
 
-def served(lm, ops, generate, model, tokens):
+def served(lm, ops, generate, model, tokens, image_embeds=None):
     """``generate`` with every launch count set to 0 just before it and read
     just after, and again after the prefill; each step's logits are kept and
     checked after the run, so the loop never waits on the card.  The peak
@@ -303,7 +333,7 @@ def served(lm, ops, generate, model, tokens):
             setattr(ops, n, 0)
         torch.cuda.reset_peak_memory_stats()
         timings: dict = {}
-        ids = generate(model, tokens, DECODE_STEPS, timings)
+        ids = generate(model, tokens, DECODE_STEPS, timings, image_embeds)
         total = {n: getattr(ops, n) for n in COUNTERS}
     finally:
         lm.prefill, lm.decode_step = real_prefill, real_decode
@@ -318,21 +348,34 @@ def check_served(cfg, ids, logits) -> None:
     require(bool(((ids >= 0) & (ids < cfg.vocab)).all()), "generated ids in the vocabulary")
 
 
-def check_narrow_model(lm, cfg, dev, toks, label) -> dict:
+def open_gates(model, value: float = 1.0) -> list:
+    """Sets every cross block's gate to ``value`` and returns the gates: at
+    init they are 0, and tanh(0) = 0 throws the cross-attention away, so no
+    check could see it."""
+    gates = [p for n, p in model.named_parameters() if n.endswith(".attn.gate")]
+    for g in gates:
+        g.fill_(value)
+    return gates
+
+
+def check_narrow_model(lm, cfg, dev, batch, label) -> dict:
     """A narrow fp32 model on the card against the same weights on the CPU:
-    forward, prefill (logits and every cache entry) and two decode steps."""
+    forward, prefill (logits and every cache entry) and, but for an encoder,
+    two decode steps.  A VLM's cross gates are opened first."""
     m_cpu = lm.init(0, cfg, device="cpu")
+    open_gates(m_cpu)
     m_gpu = lm.init(0, cfg, device=dev)
     m_gpu.load_state_dict(m_cpu.state_dict())
-    fc, _ = lm.forward(m_cpu, {"tokens": toks}, cfg)
-    fg, _ = lm.forward(m_gpu, {"tokens": toks.to(dev)}, cfg)
-    lc, cc = lm.prefill(m_cpu, {"tokens": toks}, cfg)
-    lg, cg = lm.prefill(m_gpu, {"tokens": toks.to(dev)}, cfg)
+    gpu_batch = {k: v.to(dev) for k, v in batch.items()}
+    fc, _ = lm.forward(m_cpu, batch, cfg)
+    fg, _ = lm.forward(m_gpu, gpu_batch, cfg)
+    S = next(iter(batch.values())).shape[1]
+    lc, cc = lm.prefill(m_cpu, batch, cfg, pad_to=S + 2)
+    lg, cg = lm.prefill(m_gpu, gpu_batch, cfg, pad_to=S + 2)
     errs = {"forward": float((fg.cpu() - fc).abs().max()),
             "prefill": float((lg.cpu() - lc).abs().max())}
     errs.update({f"cache {n}": float((cg[n].cpu() - cc[n]).abs().max()) for n in cc})
-    S = toks.shape[1]
-    for pos in (S, S + 1):
+    for pos in () if cfg.is_encoder else (S, S + 1):
         tok = lc.argmax(-1)
         lc, cc = lm.decode_step(m_cpu, {"token": tok, "pos": pos, "cache": cc}, cfg)
         lg, cg = lm.decode_step(m_gpu, {"token": tok.to(dev), "pos": pos, "cache": cg}, cfg)
@@ -446,6 +489,12 @@ def main() -> int:
         (129, 129, 256, torch.float16, True, 64, 1, 16),
         (100, 300, D, torch.bfloat16, False, 0, KV, H),
         (300, 100, 64, torch.bfloat16, True, 0, KV, H),
+        *HUBERT_CASES, CROSS_CASE,
+        # Head dim 80 at the ragged edges, Sq != Sk among them.
+        (127, 127, D_AU, torch.bfloat16, True, 0, H_AU, H_AU),
+        (129, 129, D_AU, torch.bfloat16, True, 0, H_AU, H_AU),
+        (127, 129, D_AU, torch.bfloat16, False, 0, H_AU, H_AU),
+        (129, 127, D_AU, torch.float32, False, 0, H_AU, H_AU),
     ]
     attn = {}  # numbers of each case, by its tuple
     for Sq, Sk, dh, dtype, causal, window, kv, h in cases:
@@ -470,7 +519,7 @@ def main() -> int:
         if window == 0 or window >= max(Sq, Sk):
             library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=True), 20)
-        if tiling == "wgmma" and Sq == Sk >= PROMPT:  # the earlier tiling, on the same inputs
+        if tiling == "wgmma" and Sq >= PROMPT:  # the earlier tiling, on the same inputs
             fma_ms = time_ms(lambda: flash_attention(q, k, v, causal=causal, window=window,
                                                      tiling="fma"), 20)
         bound_ms, bound_by = attention_bound(q, k, causal, window)
@@ -506,6 +555,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     main_case, rg_case = attn[cases[0]], attn[cases[8]]
     main_fp32, rg_fp32 = attn[cases[2]], attn[cases[10]]
+    au_case, au_fp16, au_fp32 = (attn[c] for c in HUBERT_CASES)
+    cross_case = attn[CROSS_CASE]
 
     # The grouped matmul against its plain version at qwen3-moe-30b-a3b's
     # expert products: gate/up (D, F) = (2048, 768) and down (768, 2048).
@@ -709,10 +760,21 @@ def main() -> int:
 
     # Narrow fp32 falcon-mamba and Griffin: the scans (and Griffin's windowed
     # attention at head dim 64) on the card vs the plain models on the CPU.
-    for arch in ("falcon-mamba-7b", "recurrentgemma-9b"):
-        errs = check_narrow_model(lm, narrow_config(get_config, arch), dev, toks, arch)
-        print(f"phase 3 model: narrow fp32 {arch}, card vs CPU plain: max|err| {errs} "
-              "(tol 1e-4)")
+    # Then a narrow VLM (self and cross attention at head dim 128, gates
+    # opened) and a narrow encoder (head dim 80, both ways).
+    cpu_gen = torch.Generator().manual_seed(1)
+    for arch in ("falcon-mamba-7b", "recurrentgemma-9b", "llama-3.2-vision-11b",
+                 "hubert-xlarge"):
+        small = narrow_config(get_config, arch)
+        batch = {"tokens": toks}
+        if small.family == "vlm":
+            batch["image_embeds"] = torch.randn(2, small.img_tokens, small.d_model,
+                                                generator=cpu_gen)
+        elif small.family == "audio":
+            batch = {"frames": torch.randn(2, 77, small.d_model, generator=cpu_gen)}
+        errs = check_narrow_model(lm, small, dev, batch, arch)
+        print(f"phase 3 model: narrow fp32 {arch} (head dim {small.hd}), card vs CPU plain: "
+              f"max|err| {errs} (tol 1e-4)")
 
     # A narrow fp32 DLRM: the embedding bag on the card vs the plain lookup
     # on the CPU, same weights and batch (forward and loss).
@@ -853,12 +915,18 @@ def main() -> int:
 
     # Phases 4c and 4d: the recurrent families, each after the previous model
     # is freed.  Each layer's scan runs the kernel at prefill and a plain step
-    # at decode.
-    falcon = serve_recurrent(lm, ops, generate, get_config("falcon-mamba-7b"), PROMPT, gen,
-                             dev, smi, "4c")
-    griffin = serve_recurrent(lm, ops, generate, get_config("recurrentgemma-9b"), PROMPT_RG,
-                              gen, dev, smi, "4d")
+    # at decode.  Then DLRM (4e), the VLM (4f) and the audio encoder (4g).
+    falcon = serve_checked(lm, ops, generate, get_config("falcon-mamba-7b"), PROMPT, gen,
+                           dev, smi, "4c")
+    griffin = serve_checked(lm, ops, generate, get_config("recurrentgemma-9b"), PROMPT_RG,
+                            gen, dev, smi, "4d")
     bag_launches = score_dlrm(dlrm, ops, ref_embedding_bag, dev, smi)
+    vlm = serve_checked(lm, ops, generate, get_config("llama-3.2-vision-11b"), PROMPT, gen,
+                        dev, smi, "4f")
+    hubert = encode_audio(lm, ops, get_config("hubert-xlarge"), dev, smi)
+
+    print(f"chip_smoke: wall time {time.perf_counter() - T_START} s, the kernels' build "
+          "included")
 
     print(json.dumps({"kernels": [{
         "name": "flash_attention",
@@ -867,9 +935,12 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:84",
         "tpu_ref": "kernels/flash_attention.py:84",
         "tiling": main_case["tiling"],
-        "launches": granite_attention_launches + att_total + griffin["attention_launches"],
+        "launches": (granite_attention_launches + att_total + griffin["attention_launches"]
+                     + vlm["attention_launches"] + hubert["attention_launches"]),
         "launches_by_path": {"granite-8b": granite_attention_launches, qwen_name: att_total,
-                             "recurrentgemma-9b": griffin["attention_launches"]},
+                             "recurrentgemma-9b": griffin["attention_launches"],
+                             "llama-3.2-vision-11b": vlm["attention_launches"],
+                             "hubert-xlarge": hubert["attention_launches"]},
         "max_abs_err": main_case["max_abs_err"],
         "max_err_bf16": main_case["max_abs_err"],
         "ms": main_case["kernel_ms"],
@@ -889,6 +960,23 @@ def main() -> int:
         "d256_bf16_fma_ms": rg_case["fma_ms"],
         "d256_fp32_fma_ms": rg_fp32["kernel_ms"],
         "masked_rows_max_abs_err": masked_rows,
+        "d80_tiling": au_case["tiling"],
+        "d80_kernel_ms": au_case["kernel_ms"],
+        "d80_plain_ms": au_case["plain_ms"],
+        "d80_bound_ms": au_case["bound_ms"],
+        "d80_bound_by": au_case["bound_by"],
+        "d80_library_ms": au_case["library_ms"],
+        "d80_max_abs_err": au_case["max_abs_err"],
+        "d80_bf16_fma_ms": au_case["fma_ms"],
+        "d80_fp16_kernel_ms": au_fp16["kernel_ms"],
+        "d80_fp32_fma_ms": au_fp32["kernel_ms"],
+        "cross_kernel_ms": cross_case["kernel_ms"],
+        "cross_plain_ms": cross_case["plain_ms"],
+        "cross_bound_ms": cross_case["bound_ms"],
+        "cross_bound_by": cross_case["bound_by"],
+        "cross_library_ms": cross_case["library_ms"],
+        "cross_max_abs_err": cross_case["max_abs_err"],
+        "cross_bf16_fma_ms": cross_case["fma_ms"],
     }, {
         "name": "moe_gmm",
         "route": "cuda",
@@ -1170,25 +1258,41 @@ def score_dlrm(dlrm, ops, ref_embedding_bag, dev, smi) -> dict:
     return launches
 
 
-def serve_recurrent(lm, ops, generate, cfg, prompt, gen, dev, smi, phase) -> dict:
-    """Serves a recurrent model at full width and depth after freeing the
-    card, checks its launch counts and outputs, holds prefill(S + 1) against
-    prefill(S) plus a decode step, and returns the prefill's launch counts."""
+def serve_checked(lm, ops, generate, cfg, prompt, gen, dev, smi, phase) -> dict:
+    """Serves a recurrent model or the VLM at full width and depth after
+    freeing the card, checks its launch counts and outputs, holds
+    prefill(S + 1) against prefill(S) plus a decode step, and returns the
+    prefill's launch counts.  The VLM's cross gates are set to 1 first, and
+    its image (``launch.serve.image_draw``, numpy seed 0) goes into every
+    prefill."""
+    from repro_torch.launch.serve import image_draw
+
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     model = lm.init(0, cfg, device=dev)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
+    fp32 = "" if cfg.family == "vlm" else "; scan parameters fp32"
     print(f"phase {phase} serve: {cfg.name} init on the card: {n_params} parameters "
-          f"({cfg.param_dtype}; scan parameters fp32) in {time.perf_counter() - t0:.2f} s")
+          f"({cfg.param_dtype}{fp32}) in {time.perf_counter() - t0:.2f} s")
+    extra = {}
+    if cfg.family == "vlm":
+        gates = open_gates(model)
+        extra["image_embeds"] = image_draw(np.random.default_rng(0), cfg, B).to(dev)
+        print(f"phase {phase} serve: cross gates {[float(g) for g in gates]} (tanh "
+              f"{math.tanh(1.0)}; 0 at init, where tanh(0) = 0 throws the cross-attention "
+              f"away), image {tuple(extra['image_embeds'].shape)} drawn with numpy")
+    image = extra.get("image_embeds")
     tokens = torch.randint(0, cfg.vocab, (B, prompt + 1), generator=gen, device=dev)
-    generate(model, tokens[:, :64], 2)  # warm-up
+    generate(model, tokens[:, :64], 2, image_embeds=image)  # warm-up
 
-    ids, timings, pre, dec, logits = served(lm, ops, generate, model, tokens[:, :prompt])
+    ids, timings, pre, dec, logits = served(lm, ops, generate, model, tokens[:, :prompt], image)
     check_served(cfg, ids, logits)
     if cfg.family == "ssm":
         want = {"selective_scan_launches": cfg.n_layers}
+    elif cfg.family == "vlm":  # 32 self and 8 cross layers
+        want = {"attention_launches": cfg.n_layers, "attention_wgmma_launches": cfg.n_layers}
     else:
         n_blocks = cfg.n_layers // len(cfg.block_pattern)  # each: rec, rec, attn
         want = {"lru_scan_launches": 2 * n_blocks + len(cfg.tail_pattern),
@@ -1205,9 +1309,11 @@ def serve_recurrent(lm, ops, generate, cfg, prompt, gen, dev, smi, phase) -> dic
     del logits
 
     # prefill(S) is exact for the next step at S: falcon's states at any S,
-    # Griffin's ring-buffer cache at S = its window.
-    full, _ = lm.prefill(model, {"tokens": tokens}, cfg)
-    part, cache = lm.prefill(model, {"tokens": tokens[:, :prompt]}, cfg)
+    # Griffin's ring-buffer cache at S = its window, the VLM's KV cache with
+    # room for one more key (its step attends to the image in plain PyTorch).
+    full, _ = lm.prefill(model, {"tokens": tokens, **extra}, cfg)
+    part, cache = lm.prefill(model, {"tokens": tokens[:, :prompt], **extra}, cfg,
+                             pad_to=prompt + 1)
     step, _ = lm.decode_step(
         model, {"token": tokens[:, prompt], "pos": prompt, "cache": cache}, cfg
     )
@@ -1221,6 +1327,76 @@ def serve_recurrent(lm, ops, generate, cfg, prompt, gen, dev, smi, phase) -> dic
           f"+plain decode: max|diff| {diff} <= {bar} (5e-2 max|logits|); argmax agrees "
           f"{agree}/{B}")
     return pre
+
+
+def encode_audio(lm, ops, cfg, dev, smi) -> dict:
+    """Phase 4g: encodes B clips of PROMPT frames (20 s each at HuBERT's
+    20 ms frame rate; standard normal from numpy seed 0) with the encoder
+    at full width and depth on the freed card: one flash-attention launch a
+    layer, all wgmma at D = 80, logits finite of shape (B, PROMPT, vocab),
+    the forward timed (host clock after a synchronise, median of 10 after a
+    warm-up), and layer 0 in bf16 on the card held against the same layer
+    in fp32 on the CPU.  Returns the forward's launch counts."""
+    from repro_torch.models import transformer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = lm.init(0, cfg, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"phase 4g encode: {cfg.name} init on the card: {n_params} parameters "
+          f"({cfg.param_dtype}) in {time.perf_counter() - t0:.2f} s")
+    draw = np.random.default_rng(0).standard_normal((B, PROMPT, cfg.d_model))
+    frames = torch.from_numpy(draw).to(torch.bfloat16).to(dev)
+    lm.forward(model, {"frames": frames[:, :64]}, cfg)  # warm-up
+    torch.cuda.synchronize()
+
+    for n in COUNTERS:
+        setattr(ops, n, 0)
+    torch.cuda.reset_peak_memory_stats()
+    logits, _ = lm.forward(model, {"frames": frames}, cfg)
+    torch.cuda.synchronize()
+    counts = {n: getattr(ops, n) for n in COUNTERS}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {n: 0 for n in COUNTERS}
+    want.update(attention_launches=cfg.n_layers, attention_wgmma_launches=cfg.n_layers)
+    require(counts == want, f"{cfg.name} forward launches {counts}, want {want}")
+    require(tuple(logits.shape) == (B, PROMPT, cfg.vocab) and bool(torch.isfinite(logits).all()),
+            f"finite {cfg.name} logits of shape {(B, PROMPT, cfg.vocab)}: {tuple(logits.shape)}")
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        lm.forward(model, {"frames": frames}, cfg)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    fwd_ms = float(np.median(times)) * 1e3
+    print(f"phase 4g encode: {B}x{PROMPT} frames forward {fwd_ms} ms (median of 10, min "
+          f"{min(times) * 1e3}, max {max(times) * 1e3}), peak memory {peak_gb} GB, "
+          f"flash_attention launches {counts['attention_launches']} "
+          f"({counts['attention_wgmma_launches']} on wgmma at D = {cfg.hd}), logits "
+          f"{tuple(logits.shape)}, on {smi}")
+
+    # Layer 0 at full width on one clip: the kernel's bf16 encoder attention
+    # against the plain layer in fp32 on the CPU.
+    blk = model.blocks[0]
+    x = frames[:1]
+    positions = torch.arange(PROMPT, device=dev)[None, :]
+    ops.attention_launches = 0
+    y_gpu, _, _, _ = transformer._self_block_apply(blk, x, cfg, positions)
+    require(ops.attention_launches == 1, "layer 0 ran one flash_attention launch")
+    blk_cpu = copy.deepcopy(blk).float().cpu()
+    y_cpu, _, _, _ = transformer._self_block_apply(blk_cpu, x.float().cpu(), cfg,
+                                                   positions.cpu())
+    err = float((y_gpu.float().cpu() - y_cpu).abs().max())
+    bar = 2e-2 * float(y_cpu.abs().max())
+    require(err <= bar, f"{cfg.name} layer 0, bf16 card vs fp32 CPU: max|err| {err} > {bar}")
+    print(f"phase 4g layer: {cfg.name} layer 0 at full width, 1x{PROMPT} frames, bf16 card vs "
+          f"fp32 CPU: max|err| {err} <= {bar} (2e-2 max|ref|)")
+    del model, blk, blk_cpu, frames, logits, y_gpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
 
 
 if __name__ == "__main__":

@@ -17,12 +17,15 @@
 // is 4*B*H*D flops a kept (query, key) pair, 32.8 GFLOP, 0.033 ms on the
 // tensor cores, against 82 MB of q, k, v and output, 0.024 ms: bound by
 // operations.  At recurrentgemma-9b's (B = 4, H = 16, KV = 1, S = 2048,
-// D = 256, window 2048) 0.139 ms, by operations.
+// D = 256, window 2048) 0.139 ms, at hubert-xlarge's (B = 4, H = KV = 16,
+// S = 1000, D = 80, both ways) 0.021 ms and at llama-3.2-vision-11b's
+// cross-attention (B = 4, H = 32, KV = 8, Sq = 1000, Sk = 1601, D = 128,
+// unmasked) 0.106 ms, all by operations.
 //
 // Two tilings, one C entry point each; kernels/flash_attention.py's
 // `attention_tiling` chooses among them:
 //
-// * wgmma (bf16/fp16; D = 64, 128 or 256; every prefill of the served
+// * wgmma (bf16/fp16; D = 64, 80, 128 or 256; every prefill of the served
 //   models).  An FA3-style forward on the tensor cores.  A block of three
 //   warpgroups owns 128 query rows of one (batch, head).  The producer
 //   warpgroup gives its registers to the consumers (setmaxnreg); one of its
@@ -42,20 +45,29 @@
 //   each: 96 KB at D = 128, 192 KB at D = 256.  What this does about the
 //   operation bound: every product runs on the tensor cores, and the work
 //   the mask discards is skipped at 64-key granularity per warpgroup.
-// * fma (fp32, any of the three head dims; exact fp32 for the narrow fp32
+//   A head dim that is no multiple of 64 (hubert-xlarge's 80) runs at the
+//   compute width DP = D rounded up to 64: the tensor maps keep the real
+//   inner extent D (row stride 2D bytes), so TMA fills columns D .. DP-1
+//   of the last box with zeros; Q K^T issues only ceil(D / 16) k16 steps,
+//   P V produces DP columns of which the epilogue stores the first D, and
+//   the scale is 1/sqrt(D).
+// * fma (fp32, any of the four head dims; exact fp32 for the narrow fp32
 //   models).  One block of 256 threads per (BQ-row q tile, q head, batch),
 //   tiles staged in shared memory as fp32 (Q: BQ x (D + 4), K, V: BK x
 //   (D + 4), P: BQ x (BK + 4)); thread (ty, tx) of a 16 x 16 grid owns
 //   query rows RQ*ty .. RQ*ty+RQ-1 (RQ = BQ / 16), scores against keys
-//   tx + 16*j and output columns 64*g + 4*tx .. +3, with fp32 FMAs on the
-//   CUDA cores.  BQ = BK = 64 at D = 64 and 128, 32 at D = 256.
+//   tx + 16*j and output columns 64*g + 4*tx .. +3 (g < ceil(D / 64);
+//   at D = 80 only threads tx < 4 own columns in group 1), with fp32 FMAs
+//   on the CUDA cores.  BQ = BK = 64 at D = 64, 80 and 128, 32 at D = 256.
 //
 // Measured on NVIDIA H100 80GB HBM3, 700.00 W (chip_smoke.py phase 3,
 // CUDA-event means over 20 launches; PERF.md section 6, row 1): wgmma
 // 0.123 ms at granite-8b's shape (SDPA 0.085 ms, bound 0.033 ms) and
 // 0.318 ms at recurrentgemma-9b's (SDPA 0.250 ms, bound 0.139 ms); the fma
 // tiling takes 1.31 and 6.87 ms on the same bf16 inputs, 1.40 and 6.93 ms
-// in fp32.
+// in fp32; at hubert-xlarge's shape wgmma 0.088 ms (SDPA 0.066, bound
+// 0.021), fma 0.99; at the VLM's cross shape 0.277 ms (SDPA 0.192, bound
+// 0.106), fma 3.74.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -132,7 +144,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            int Sq, int Sk, int causal, int window, float scale) {
   constexpr int LD = D + 4;
   constexpr int LDP = BK + 4;  // row stride of the P tile, in floats
-  constexpr int NG = D / 64;   // groups of 4 output columns per thread
+  constexpr int NG = (D + 63) / 64;  // groups of 4 output columns per thread
   constexpr int RQ = BQ / 16;  // query rows per thread
   constexpr int KJ = BK / 16;  // keys per thread in a k/v tile
   extern __shared__ float4 smem4[];
@@ -254,6 +266,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int jj = 0; jj < 4; ++jj) {
 #pragma unroll
         for (int g = 0; g < NG; ++g) {
+          if (D % 64 != 0 && 64 * g + 4 * tx >= D) continue;  // columns past D
           const float4 vv =
               *reinterpret_cast<const float4*>(sV + (j + jj) * LD + 64 * g + 4 * tx);
 #pragma unroll
@@ -276,10 +289,12 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = fmaxf(l[i], 1e-30f);
     T* orow = op + (size_t)qpos * D;
 #pragma unroll
-    for (int g = 0; g < NG; ++g)
+    for (int g = 0; g < NG; ++g) {
+      if (D % 64 != 0 && 64 * g + 4 * tx >= D) continue;
 #pragma unroll
       for (int c = 0; c < 4; ++c)
         orow[64 * g + 4 * tx + c] = from_float<T>(acc[i][4 * g + c] / denom);
+    }
   }
 }
 
@@ -304,6 +319,7 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, int B
                      int KV, int Sq, int Sk, int D, int causal, int window,
                      cudaStream_t stream) {
   if (D == 64) return launch<T, 64>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, stream);
+  if (D == 80) return launch<T, 80>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, stream);
   if (D == 128) return launch<T, 128>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, stream);
   if (D == 256) return launch<T, 256>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, stream);
   return cudaErrorInvalidValue;
@@ -325,6 +341,9 @@ constexpr int BK = 64;   // keys per k/v tile
 constexpr int STAGES = 2;
 constexpr int THREADS = 384;  // consumer warpgroups 0 and 1, producer 2
 
+// The compute width of head dim D: whole 64-wide boxes (80 -> 128).
+template <int D> struct Width { static constexpr int value = (D + 63) / 64 * 64; };
+
 template <int D> struct Smem {
   static constexpr int Q = BQ * D * 2;   // D / 64 boxes of BQ x 128 bytes
   static constexpr int KV = BK * D * 2;  // one k or v tile: D / 64 boxes of 64 x 128 bytes
@@ -342,8 +361,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   using wg::BK;
   using wg::BQ;
   using wg::STAGES;
-  using S = wg::Smem<D>;
-  constexpr int CH = D / 64;  // 64-wide column boxes of a row
+  constexpr int DP = wg::Width<D>::value;
+  using S = wg::Smem<DP>;
+  constexpr int CH = DP / 64;  // 64-wide column boxes of a row
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = hopper::align_1024(smem_raw);
   uint8_t* sq = smem;
@@ -410,9 +430,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     const int row0 = wq0 + 16 * warp + lane / 4;  // this thread's rows: row0 and row0 + 8
     const int col0 = 2 * (lane % 4);              // and columns col0, col0 + 1 of each 8
 
-    float acc[D / 2];  // O: acc[4j + 2i + c] is row row0 + 8i, column 8j + col0 + c
+    float acc[DP / 2];  // O: acc[4j + 2i + c] is row row0 + 8i, column 8j + col0 + c
 #pragma unroll
-    for (int n = 0; n < D / 2; ++n) acc[n] = 0.f;
+    for (int n = 0; n < DP / 2; ++n) acc[n] = 0.f;
     float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 
     hopper::mbar_wait(q_full, 0);
@@ -436,7 +456,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         hopper::fence_regs(sc);
         hopper::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {  // box kk / 4, 32 bytes a k16 step within it
+        for (int kk = 0; kk < (D + 15) / 16; ++kk) {  // box kk / 4, 32 bytes a k16 step in it
           const int step = (kk % 4) * 32;
           hopper::Wgmma<BK, T>::template ss<0>(
               sc, hopper::desc_sw128(qw + (kk / 4) * BQ * 128 + step, 16, 1024),
@@ -494,14 +514,14 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
           pa[kk][3] = hopper::pack2<T>(sc[8 * kk + 6], sc[8 * kk + 7]);
         }
 #pragma unroll
-        for (int n = 0; n < D / 2; ++n) acc[n] *= alpha[(n / 2) % 2];
+        for (int n = 0; n < DP / 2; ++n) acc[n] *= alpha[(n / 2) % 2];
 
         hopper::mbar_wait(&v_full[s], parity);
         hopper::fence_regs(acc);
         hopper::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)  // 16 keys, 16 rows of v's boxes, a step
-          hopper::Wgmma<D, T>::template rs<1>(
+          hopper::Wgmma<DP, T>::template rs<1>(
               acc, pa[kk], hopper::desc_sw128(vs + kk * 2048, BK * 128, 1024), 1);
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
@@ -537,7 +557,7 @@ template <typename T, int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int H,
                          int KV, int Sq, int Sk, int causal, int window, cudaStream_t stream) {
   constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int bytes = wg::Smem<D>::BYTES;
+  constexpr int bytes = wg::Smem<wg::Width<D>::value>::BYTES;
   CUtensorMap map_q, map_k, map_v;
   cudaError_t err = hopper::make_map_3d(&map_q, q, bf16, D, Sq, (uint64_t)B * H, wg::BQ);
   if (err == cudaSuccess)
@@ -560,6 +580,7 @@ cudaError_t launch_wgmma_d(const void* q, const void* k, const void* v, void* o,
                            int KV, int Sq, int Sk, int D, int causal, int window,
                            cudaStream_t stream) {
   if (D == 64) return launch_wgmma<T, 64>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, stream);
+  if (D == 80) return launch_wgmma<T, 80>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, stream);
   if (D == 128) return launch_wgmma<T, 128>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, stream);
   if (D == 256) return launch_wgmma<T, 256>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, stream);
   return cudaErrorInvalidValue;
@@ -574,7 +595,7 @@ bool valid(int B, int H, int KV, int Sq, int Sk, int window) {
 
 // q, k, v, o: contiguous device arrays, 16-byte aligned; q and o are
 // (B, H, Sq, D), k and v (B, KV, Sk, D).  dtype: 0 float32, 1 float16,
-// 2 bfloat16.  D: 64, 128 or 256.  Each entry point launches one tiling on
+// 2 bfloat16.  D: 64, 80, 128 or 256.  Each entry point launches one tiling on
 // `stream` and returns a cudaError_t (0 on success); a shape or dtype its
 // tiling does not take returns cudaErrorInvalidValue.
 

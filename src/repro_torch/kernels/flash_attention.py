@@ -5,7 +5,9 @@ kernels compute the same function (GQA; causal, sliding-window or full; fp32
 online softmax; output in q's dtype) and mask ragged sequence tails
 themselves, so nothing here pads.  Two tilings, one C entry point each:
 ``wgmma`` (tensor cores, TMA loads; bf16/fp16) and ``fma`` (fp32 FMAs on the
-CUDA cores; fp32).  :func:`attention_tiling` chooses.  Their plain PyTorch
+CUDA cores; fp32), each at head dims 64, 80, 128 and 256, and at any Sq and
+Sk (cross-attention: Sq the prompt, Sk the image tokens).
+:func:`attention_tiling` chooses.  Their plain PyTorch
 version is :func:`repro_torch.kernels.ref.ref_flash_attention`.
 
 A query row that sees no key (a window with ``Sq >= Sk + window``; see
@@ -28,7 +30,7 @@ from . import _build
 
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 HALF_DTYPES = (torch.float16, torch.bfloat16)
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 80, 128, 256)  # 80: hubert-xlarge, at a compute width of 128 on wgmma
 TILINGS = ("wgmma", "fma")
 
 

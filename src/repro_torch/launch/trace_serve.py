@@ -6,6 +6,10 @@
         --batch 4 --prompt-len 1000 --decode-steps 4
     PYTHONPATH=src python -m repro_torch.launch.trace_serve --arch recurrentgemma-9b \
         --batch 4 --prompt-len 2048 --decode-steps 4
+    PYTHONPATH=src python -m repro_torch.launch.trace_serve --arch llama-3.2-vision-11b \
+        --batch 4 --prompt-len 1000 --decode-steps 4
+    PYTHONPATH=src python -m repro_torch.launch.trace_serve --arch hubert-xlarge \
+        --batch 4 --prompt-len 1000
     PYTHONPATH=src python -m repro_torch.launch.trace_serve --dlrm 8 --batch 4096
 
 Runs one untraced warm-up, then traces a prefill and a decode loop apart with
@@ -13,7 +17,11 @@ Runs one untraced warm-up, then traces a prefill and a decode loop apart with
 device time of the kernels it ran (CUDA activity), the device idle share
 (1 - device time / wall time; the port runs on one stream, so kernels do
 not overlap), and the kernels that took the most device time.  Card only: device time is what it
-reports, and a CPU run has none.  ``--smoke`` traces the arch's smoke config,
+reports, and a CPU run has none.  The VLM prefills with image embeddings
+(``img_tokens`` of them: ``launch.serve.image_draw`` from numpy's
+``--seed``); an encoder-only arch (hubert-xlarge) has no
+decode, so one ``lm.forward`` over ``--prompt-len`` frames (standard normal,
+numpy, ``--seed``) is traced instead.  ``--smoke`` traces the arch's smoke config,
 which the card takes only where it has no attention (falcon-mamba-7b): the
 others' smoke head dim (16) is not one the attention kernel takes.
 ``--dlrm N`` traces one forward of the paper's DLRM with N tables
@@ -37,7 +45,8 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.compat import default_device
-from repro_torch.configs.base import get_config
+from repro_torch.configs.base import get_config, torch_dtype
+from repro_torch.launch.serve import image_draw
 from repro_torch.models import dlrm, lm
 
 TOP_KERNELS = 12
@@ -96,18 +105,35 @@ def main(argv=None) -> None:
     if args.smoke:
         cfg = cfg.smoke()
     model = lm.init(args.seed, cfg, device)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
     B, S = args.batch, args.prompt_len
+    rng = np.random.default_rng(args.seed)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    if cfg.is_encoder:
+        frames = torch.from_numpy(rng.standard_normal((B, S, cfg.d_model)))
+        batch = {"frames": frames.to(torch_dtype(cfg.activation_dtype)).to(device)}
+        lm.forward(model, batch, cfg)  # warm-up
+        torch.cuda.synchronize()
+        print(f"device: {torch.cuda.get_device_name(device)}")
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            lm.forward(model, batch, cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        _report(f"encoder forward {B}x{S} frames", prof, wall)
+        return
+    gen = torch.Generator(device=device).manual_seed(args.seed)
     tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=device)
+    batch = {"tokens": tokens}
+    if cfg.family == "vlm":
+        batch["image_embeds"] = image_draw(rng, cfg, B).to(device)
     max_len = S + args.decode_steps
-    lm.prefill(model, {"tokens": tokens}, cfg, pad_to=max_len)  # warm-up
+    lm.prefill(model, batch, cfg, pad_to=max_len)  # warm-up
     torch.cuda.synchronize()
     print(f"device: {torch.cuda.get_device_name(device)}")
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        logits, cache = lm.prefill(model, {"tokens": tokens}, cfg, pad_to=max_len)
+        logits, cache = lm.prefill(model, batch, cfg, pad_to=max_len)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     _report(f"prefill {B}x{S}", prof, wall)

@@ -1,5 +1,5 @@
-"""Model primitives: the dense, MoE and recurrent (Mamba-1, RG-LRU) subset of
-``repro.models.layers``.
+"""Model primitives: the dense, MoE, cross-attention, GELU-MLP and recurrent
+(Mamba-1, RG-LRU) layers of ``repro.models.layers``.
 
 Each layer is ``f(params, inputs, cfg) -> out``, as in the reference, with
 ``params`` an ``nn.Module`` holding the reference's named weights in its
@@ -76,12 +76,16 @@ def apply_rope(x, positions, theta: float):
 
 
 # ---------------------------------------------------------------------------
-# Attention (GQA; causal / sliding-window self-attention)
+# Attention (GQA; causal / bidirectional / sliding-window; self / cross)
 # ---------------------------------------------------------------------------
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg, gen, device):
+    """``init_attention``'s weights; ``cross=True`` adds the Llama-3.2-vision
+    gate (a scalar, zero at init) and ``xnorm``, and keeps ``norm``, which
+    the cross block never reads, as the reference does."""
+
+    def __init__(self, cfg, gen, device, cross: bool = False):
         super().__init__()
         dt, hd = torch_dtype(cfg.param_dtype), cfg.hd
         self.wq = parameter(dense_init(gen, cfg.d_model, cfg.n_heads * hd, dt, device))
@@ -89,30 +93,41 @@ class Attention(nn.Module):
         self.wv = parameter(dense_init(gen, cfg.d_model, cfg.n_kv_heads * hd, dt, device))
         self.wo = parameter(dense_init(gen, cfg.n_heads * hd, cfg.d_model, dt, device))
         self.norm = parameter(torch.zeros(cfg.d_model, dtype=dt, device=device))
+        if cross:
+            self.gate = parameter(torch.zeros((), dtype=dt, device=device))
+            self.xnorm = parameter(torch.zeros(cfg.d_model, dtype=dt, device=device))
 
 
 def _split_heads(x, n_heads, head_dim):
     return x.reshape(*x.shape[:-1], n_heads, head_dim)
 
 
-def attention(p, x, cfg, *, causal=True, window=0, positions=None):
-    """Self-attention over a full sequence (train / prefill).
+def attention(p, x, cfg, *, causal=True, window=0, positions=None, kv_x=None,
+              use_rope=True):
+    """Self- or cross-attention over full sequences (train / prefill).
 
-    x: (B, S, d_model).  Returns (out (B, S, d_model), k, v) with k and v the
-    rotated keys and the values as (B, KV, S, D), which prefill caches.
-    Both attention impls of ``ModelOptions`` go through ``ops.attention``:
-    the flash-attention kernel on the card, its plain version on the CPU.
+    x: (B, S, d_model); kv_x: (B, T, d_model) for cross-attention, whose keys
+    and values come from it, unrotated and unmasked, as in the reference.
+    Rope applies only to self-attention with ``use_rope``.  Returns (out
+    (B, S, d_model), k, v) with k and v as (B, KV, T, D), which prefill
+    caches.  Both attention impls of ``ModelOptions`` go through
+    ``ops.attention``: the flash-attention kernel on the card, its plain
+    version on the CPU.
     """
     hd = cfg.hd
     B, S, _ = x.shape
+    src = x if kv_x is None else kv_x
     q = _split_heads(x @ p.wq, cfg.n_heads, hd)
-    k = _split_heads(x @ p.wk, cfg.n_kv_heads, hd)
-    v = _split_heads(x @ p.wv, cfg.n_kv_heads, hd)
-    if positions is None:
-        positions = torch.arange(S, device=x.device)[None, :]
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    k, v = k.transpose(1, 2), v.transpose(1, 2)  # (B, KV, S, D)
+    k = _split_heads(src @ p.wk, cfg.n_kv_heads, hd)
+    v = _split_heads(src @ p.wv, cfg.n_kv_heads, hd)
+    if use_rope and kv_x is None:
+        if positions is None:
+            positions = torch.arange(S, device=x.device)[None, :]
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    if kv_x is not None:
+        causal, window = False, 0
+    k, v = k.transpose(1, 2), v.transpose(1, 2)  # (B, KV, T, D)
     out = ops.attention(q.transpose(1, 2), k, v, causal=causal, window=window)
     out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * hd)
     return out @ p.wo, k, v
@@ -163,23 +178,33 @@ def attention_decode(p, x, cache_k, cache_v, pos, cfg, *, window: int = 0):
 
 
 # ---------------------------------------------------------------------------
-# MLP (SwiGLU)
+# MLPs (SwiGLU; GELU for the audio encoder)
 # ---------------------------------------------------------------------------
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg, gen, device):
+    """``init_mlp``'s weights: ``wg``, ``wu``, ``wd`` (``kind="swiglu"``) or
+    ``w1``, ``w2`` (``kind="gelu"``), and ``norm``."""
+
+    def __init__(self, cfg, gen, device, kind: str = "swiglu"):
         super().__init__()
-        dt = torch_dtype(cfg.param_dtype)
-        self.wg = parameter(dense_init(gen, cfg.d_model, cfg.d_ff, dt, device))
-        self.wu = parameter(dense_init(gen, cfg.d_model, cfg.d_ff, dt, device))
-        self.wd = parameter(dense_init(gen, cfg.d_ff, cfg.d_model, dt, device))
-        self.norm = parameter(torch.zeros(cfg.d_model, dtype=dt, device=device))
+        dt, D, F_ = torch_dtype(cfg.param_dtype), cfg.d_model, cfg.d_ff
+        if kind == "swiglu":
+            self.wg = parameter(dense_init(gen, D, F_, dt, device))
+            self.wu = parameter(dense_init(gen, D, F_, dt, device))
+            self.wd = parameter(dense_init(gen, F_, D, dt, device))
+        else:
+            self.w1 = parameter(dense_init(gen, D, F_, dt, device))
+            self.w2 = parameter(dense_init(gen, F_, D, dt, device))
+        self.norm = parameter(torch.zeros(D, dtype=dt, device=device))
 
 
 def mlp(p, x):
-    h = F.silu(x @ p.wg) * (x @ p.wu)
-    return h @ p.wd
+    """SwiGLU where ``p`` holds ``wg``, else GELU (``jax.nn.gelu``'s default,
+    the tanh approximation), as the reference dispatches on ``"wg" in p``."""
+    if hasattr(p, "wg"):
+        return (F.silu(x @ p.wg) * (x @ p.wu)) @ p.wd
+    return F.gelu(x @ p.w1, approximate="tanh") @ p.w2
 
 
 # ---------------------------------------------------------------------------

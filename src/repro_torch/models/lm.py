@@ -2,10 +2,9 @@
 
 ``init`` / ``forward`` / ``prefill`` / ``decode_step`` take the reference's
 arguments, with a module in place of the parameter pytree, and dispatch on
-``cfg.family``: ``ssm`` and ``hybrid`` to ``models.recurrent``, ``dense``
-and ``moe`` to ``models.transformer``.  The other families raise
-``NotImplementedError``: ``recsys`` (DLRM) lives in ``models.dlrm``, the
-rest name their ROADMAP item.
+``cfg.family``: ``ssm`` and ``hybrid`` to ``models.recurrent``; ``dense``,
+``moe``, ``vlm`` and ``audio`` to ``models.transformer``.  ``recsys`` (DLRM)
+raises ``NotImplementedError``: it lives in ``models.dlrm``.
 """
 
 from __future__ import annotations
@@ -34,18 +33,26 @@ def forward(params, batch, cfg: ArchConfig):
         return recurrent.mamba_forward(params, cfg, batch["tokens"])
     if cfg.family == "hybrid":
         return recurrent.griffin_forward(params, cfg, batch["tokens"])
-    return transformer.forward(params, cfg, batch["tokens"])
+    if cfg.family == "audio":
+        return transformer.forward(params, cfg, frames=batch["frames"])
+    return transformer.forward(params, cfg, tokens=batch.get("tokens"),
+                               image_embeds=batch.get("image_embeds"))
 
 
 def prefill(params, batch, cfg: ArchConfig, pad_to: int = 0):
     """``pad_to`` sizes a transformer's KV cache; the recurrent families'
-    caches do not grow, and they ignore it, as the reference does."""
+    caches do not grow, and they ignore it, as the reference does.  The
+    audio encoder returns the full sequence's logits and no cache."""
     transformer.require_ported(cfg)
     if cfg.family == "ssm":
         return recurrent.mamba_prefill(params, cfg, batch["tokens"])
     if cfg.family == "hybrid":
         return recurrent.griffin_prefill(params, cfg, batch["tokens"])
-    return transformer.prefill(params, cfg, batch["tokens"], pad_to=pad_to)
+    if cfg.family == "audio":
+        logits, _ = transformer.forward(params, cfg, frames=batch["frames"])
+        return logits, {}
+    return transformer.prefill(params, cfg, batch["tokens"],
+                               image_embeds=batch.get("image_embeds"), pad_to=pad_to)
 
 
 def decode_step(params, batch, cfg: ArchConfig):

@@ -3,8 +3,14 @@
 The reference keeps an LM's layers stacked along leading axes; the port has
 one module per layer:
 
-* dense and MoE: ``blocks.attn.*`` and ``blocks.mlp.*`` (or
-  ``blocks.moe.*``) stacked over ``n_layers`` -> ``blocks.{i}.{part}.*``;
+* dense, MoE and audio: ``blocks.attn.*`` and ``blocks.mlp.*`` (or
+  ``blocks.moe.*``) stacked over ``n_layers`` -> ``blocks.{i}.{part}.*``
+  (audio has no ``embed``);
+* ``vlm`` (Llama-3.2-vision): ``blocks.self.{attn,mlp}.*`` stacked
+  (n_super, inner) and ``blocks.cross.{attn,mlp}.*`` stacked (n_super,) ->
+  ``blocks.{j}.{part}.*`` with layer j = k*s + r for self block r of
+  super-block s and k*s + k - 1 for its cross block (k =
+  ``cross_attn_every``, inner = k - 1);
 * ``ssm`` (Falcon-Mamba): ``blocks.*`` stacked over ``n_layers`` ->
   ``blocks.{i}.*``;
 * ``hybrid`` (Griffin): ``blocks.rec.{rec,mlp}.*`` stacked (n_blocks, 2),
@@ -43,7 +49,8 @@ def params_from_jax(np_params: dict, cfg: ArchConfig) -> dict[str, torch.Tensor]
         # JAX's bfloat16 arrives as an ml_dtypes dtype torch cannot take;
         # float32 holds every bf16/fp16 value exactly.
         leaf_dt = torch.float32 if (part, name) in FP32_LEAVES else dt
-        return torch.from_numpy(np.ascontiguousarray(np.asarray(a).astype(np.float32))).to(leaf_dt)
+        # np.array keeps a 0-d leaf (the VLM's gate) 0-d; ascontiguousarray would not.
+        return torch.from_numpy(np.array(np.asarray(a), dtype=np.float32)).to(leaf_dt)
 
     sd = {name: tensor(np_params[name], None, name)
           for name in ("embed", "final_norm", "lm_head") if name in np_params}
@@ -73,6 +80,22 @@ def params_from_jax(np_params: dict, cfg: ArchConfig) -> dict[str, torch.Tensor]
                 _check_depth(f"tail.{part}.{name}", stacked, n_tail)
                 for t in range(n_tail):
                     sd[f"layers.{3 * n_blocks + t}.{part}.{name}"] = tensor(stacked[t], part, name)
+        return sd
+    if cfg.family == "vlm":
+        k = cfg.cross_attn_every
+        n_super, inner = cfg.n_layers // k, k - 1
+        for part, tree in blocks["self"].items():
+            for name, stacked in tree.items():
+                _check_depth(f"blocks.self.{part}.{name}", stacked, n_super)
+                for s in range(n_super):
+                    _check_depth(f"blocks.self.{part}.{name}[{s}]", stacked[s], inner)
+                    for r in range(inner):
+                        sd[f"blocks.{k * s + r}.{part}.{name}"] = tensor(stacked[s][r], part, name)
+        for part, tree in blocks["cross"].items():
+            for name, stacked in tree.items():
+                _check_depth(f"blocks.cross.{part}.{name}", stacked, n_super)
+                for s in range(n_super):
+                    sd[f"blocks.{k * s + inner}.{part}.{name}"] = tensor(stacked[s], part, name)
         return sd
     for part in ("attn", "mlp", "moe"):
         for name, stacked in blocks.get(part, {}).items():

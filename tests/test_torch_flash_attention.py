@@ -64,6 +64,31 @@ def test_plain_attention_matches_jax(B, H, KV, S, D, causal, window, dtype, targ
     np.testing.assert_allclose(out, np.asarray(expect, np.float32), **_tol(dtype))
 
 
+@pytest.mark.parametrize("target", ["jax_ref", "pallas_interpret"])
+@pytest.mark.parametrize(
+    "B,H,KV,Sq,Sk,D,causal",
+    [
+        (2, 4, 4, 200, 200, 80, False),  # hubert-xlarge's head dim, bidirectional
+        (1, 4, 2, 129, 129, 80, True),   # head dim 80, causal, GQA
+        (1, 4, 1, 127, 300, 80, False),  # head dim 80, Sq != Sk
+        (1, 8, 2, 40, 101, 128, False),  # cross-attention: Sq the prompt, ragged Sk the image
+        (2, 4, 4, 130, 37, 64, False),   # cross-attention, Sk < Sq
+    ],
+)
+@pytest.mark.parametrize("dtype", [np.float32, np.float16])
+def test_plain_attention_matches_jax_head_dim_80_and_cross(B, H, KV, Sq, Sk, D, causal, dtype,
+                                                          target):
+    q, k, v = _qkv(4, B, H, KV, Sq, Sk, D, dtype)
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    if target == "jax_ref":
+        expect = jref.ref_flash_attention(jq, jk, jv, causal=causal)
+    else:
+        expect = pallas_flash_attention(jq, jk, jv, causal=causal, interpret=True)
+    out = _port(q, k, v, causal=causal)
+    assert out.shape == (B, H, Sq, D)
+    np.testing.assert_allclose(out, np.asarray(expect, np.float32), **_tol(dtype))
+
+
 @pytest.mark.parametrize("block_q,block_k", [(64, 64), (128, 256), (37, 53)])
 def test_plain_attention_ragged_length(block_q, block_k):
     """The 222-long sequence: Pallas pads to its blocks, the plain path does not."""
@@ -170,6 +195,9 @@ def test_kernel_wrapper_refuses_cpu_tensors_for_every_tiling(tiling, dtype):
         (torch.float32, 64, "fma"),  # the narrow fp32 models
         (torch.float32, 128, "fma"),
         (torch.float32, 256, "fma"),
+        (torch.bfloat16, 80, "wgmma"),  # hubert-xlarge's prefill
+        (torch.float16, 80, "wgmma"),
+        (torch.float32, 80, "fma"),
         (torch.bfloat16, 16, ValueError),  # the smoke configs' head dim: CPU only
         (torch.float32, 72, ValueError),
         (torch.int32, 128, ValueError),

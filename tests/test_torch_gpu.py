@@ -67,6 +67,14 @@ def _qkv(device, B, H, KV, Sq, Sk, D, dtype, seed=0):
         (1, 4, 1, 129, 129, 256, True, 64),
         (1, 4, 2, 300, 100, 64, True, 0),      # causal, Sq > Sk
         (1, 4, 2, 65, 200, 128, True, 0),      # causal, Sq < Sk
+        # hubert-xlarge's head dim 80 (a 128-wide compute on wgmma).
+        (2, 16, 16, 300, 300, 80, False, 0),
+        (1, 4, 2, 127, 127, 80, True, 0),
+        (1, 4, 2, 129, 129, 80, True, 0),
+        (1, 4, 1, 127, 129, 80, False, 0),     # Sq != Sk
+        (1, 4, 2, 256, 256, 80, True, 64),
+        # llama-3.2-vision-11b's cross-attention: Sk = 1601 image tokens.
+        (1, 32, 8, 100, 1601, 128, False, 0),
         # Rows that see no key (q >= Sk + window - 1): the mean of v over Sk.
         (1, 4, 2, 256, 200, 128, True, 16),
         (1, 4, 1, 256, 200, 64, False, 16),
@@ -107,6 +115,28 @@ def test_kernel_fully_masked_rows_on_both_tilings(cuda, tiling, dtype, B, H, KV,
                                rtol=TOL[dtype], atol=TOL[dtype])
 
 
+@pytest.mark.parametrize("tiling,dtype", [("wgmma", torch.bfloat16), ("wgmma", torch.float16),
+                                          ("fma", torch.bfloat16), ("fma", torch.float32)])
+@pytest.mark.parametrize(
+    "B,H,KV,Sq,Sk,D,causal",
+    [
+        (2, 16, 16, 200, 200, 80, False),   # hubert-xlarge's attention, narrowed
+        (1, 4, 2, 129, 127, 80, True),
+        (1, 32, 8, 130, 1601, 128, False),  # the VLM's cross-attention
+    ],
+)
+def test_kernel_head_dim_80_and_cross_shape_on_both_tilings(cuda, tiling, dtype, B, H, KV, Sq,
+                                                             Sk, D, causal):
+    """Head dim 80 and the cross-attention shape on each tiling; at D = 80 the
+    columns past D stay untouched (the output holds exactly D of them)."""
+    q, k, v = _qkv(cuda, B, H, KV, Sq, Sk, D, dtype, seed=5)
+    out = flash_attention(q, k, v, causal=causal, tiling=tiling)
+    torch.cuda.synchronize()
+    expect = ref_flash_attention(q, k, v, causal=causal)
+    assert out.shape == (B, H, Sq, D) and bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out.float(), expect.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
 def test_kernel_takes_strided_views(cuda):
     """(B, S, H, D) activations transposed to (B, H, S, D), as prefill passes them."""
     q, k, v = _qkv(cuda, 2, 8, 2, 200, 200, 128, torch.bfloat16)
@@ -144,6 +174,55 @@ def test_model_on_card_matches_plain_model_on_cpu(cuda):
     lg, cg = lm.prefill(model_gpu, {"tokens": tokens.to(cuda)}, cfg, pad_to=80)
     torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(cg["k"].cpu(), cc["k"], rtol=1e-4, atol=1e-4)
+
+
+def _narrow_vlm_and_encoder_configs():
+    """llama-3.2-vision-11b at head dim 128 (two super-blocks of 4 self and 1
+    cross layer, 100 image tokens) and hubert-xlarge at head dim 80, in fp32."""
+    fp32 = dict(param_dtype="float32", activation_dtype="float32")
+    vlm = dataclasses.replace(
+        get_config("llama-3.2-vision-11b").smoke(), d_model=256, n_heads=4, n_kv_heads=2,
+        head_dim=128, d_ff=512, n_layers=10, cross_attn_every=5, img_tokens=100, **fp32)
+    enc = dataclasses.replace(
+        get_config("hubert-xlarge").smoke(), d_model=320, n_heads=4, n_kv_heads=4,
+        head_dim=80, d_ff=640, n_layers=2, **fp32)
+    return vlm, enc
+
+
+def test_vlm_and_encoder_on_card_match_plain_models_on_cpu(cuda, monkeypatch):
+    """Every attention of both (self, cross, encoder) on the kernel, with the
+    VLM's cross gates opened (at 0 they throw the cross-attention away)."""
+    vlm, enc = _narrow_vlm_and_encoder_configs()
+    gen = torch.Generator().manual_seed(0)
+    monkeypatch.setattr(ops, "attention_launches", 0)
+    for cfg in (vlm, enc):
+        model_cpu = lm.init(0, cfg, device="cpu")
+        for blk in model_cpu.blocks:
+            if hasattr(blk.attn, "gate"):
+                blk.attn.gate.fill_(1.0)
+        model_gpu = lm.init(0, cfg, device=cuda)
+        model_gpu.load_state_dict(model_cpu.state_dict())
+        if cfg.family == "vlm":
+            batch = {"tokens": torch.randint(0, cfg.vocab, (2, 77), generator=gen),
+                     "image_embeds": torch.randn(2, cfg.img_tokens, cfg.d_model, generator=gen)}
+        else:
+            batch = {"frames": torch.randn(2, 77, cfg.d_model, generator=gen)}
+        gpu_batch = {k: v.to(cuda) for k, v in batch.items()}
+        fc, _ = lm.forward(model_cpu, batch, cfg)
+        fg, _ = lm.forward(model_gpu, gpu_batch, cfg)
+        torch.testing.assert_close(fg.cpu(), fc, rtol=1e-4, atol=1e-4)
+        lc, cc = lm.prefill(model_cpu, batch, cfg, pad_to=80)
+        lg, cg = lm.prefill(model_gpu, gpu_batch, cfg, pad_to=80)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+        for name in cc:
+            torch.testing.assert_close(cg[name].cpu(), cc[name], rtol=1e-4, atol=1e-4)
+        if cfg.family == "vlm":
+            tok = lc.argmax(-1)
+            dc, _ = lm.decode_step(model_cpu, {"token": tok, "pos": 77, "cache": cc}, cfg)
+            dg, _ = lm.decode_step(model_gpu, {"token": tok.to(cuda), "pos": 77, "cache": cg}, cfg)
+            torch.testing.assert_close(dg.cpu(), dc, rtol=1e-4, atol=1e-4)
+    # forward and prefill: 8 self + 2 cross layers each, then 2 encoder layers each
+    assert ops.attention_launches == 2 * 10 + 2 * 2
 
 
 def _xw(device, E, C, D, F, dtype, seed=0):
@@ -287,17 +366,18 @@ TILING_COUNTERS = ("attention_wgmma_launches", "attention_fma_launches",
 
 def test_served_shapes_take_the_wgmma_tiling(cuda, monkeypatch):
     """bf16 prefill attention (granite-8b's D = 128, recurrentgemma-9b's
-    D = 256) and the prefill grouped matmul count on the wgmma tiling, decode's
+    D = 256, hubert-xlarge's D = 80) and the prefill grouped matmul count on the wgmma tiling, decode's
     grouped matmul on the skinny one, and the fma tiling's counts stay 0."""
     for name in TILING_COUNTERS:
         monkeypatch.setattr(ops, name, 0)
     ops.attention(*_qkv(cuda, 1, 32, 8, 300, 300, 128, torch.bfloat16))
     ops.attention(*_qkv(cuda, 1, 16, 1, 300, 300, 256, torch.bfloat16), window=2048)
+    ops.attention(*_qkv(cuda, 1, 16, 16, 300, 300, 80, torch.bfloat16), causal=False)
     x, w = _xw(cuda, 8, 312, 2048, 768, torch.bfloat16)
     ops.grouped_matmul(x, w)
     ops.grouped_matmul(x[:, :1], w)
     counts = {name: getattr(ops, name) for name in TILING_COUNTERS}
-    assert counts == {"attention_wgmma_launches": 2, "attention_fma_launches": 0,
+    assert counts == {"attention_wgmma_launches": 3, "attention_fma_launches": 0,
                       "grouped_matmul_wgmma_launches": 1, "grouped_matmul_fma_launches": 0,
                       "grouped_matmul_skinny_launches": 1}
     ops.attention(*_qkv(cuda, 1, 4, 2, 64, 64, 64, torch.float32))

@@ -1,6 +1,7 @@
 """The port's granite-8b, qwen3-moe-30b-a3b, falcon-mamba-7b and
 recurrentgemma-9b smoke models against the JAX package's, on the same weights
-(copied in with ``params_from_jax``) and the same numpy prompts."""
+(copied in with ``params_from_jax``) and the same numpy prompts.  The VLM and
+audio families are in ``test_torch_vlm_audio.py``."""
 
 import dataclasses
 
@@ -157,13 +158,6 @@ def test_init_draws_on_device_with_reference_shapes():
     # Same seed, same weights; another seed, other weights.
     assert torch.equal(lm.init(0, tcfg, device="cpu").embed, model.embed)
     assert not torch.equal(lm.init(1, tcfg, device="cpu").embed, model.embed)
-
-
-@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "hubert-xlarge"])
-def test_unported_families_raise(arch):
-    cfg = tbase.get_config(arch).smoke()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm.init(0, cfg, device="cpu")
 
 
 # ---------------------------------------------------------------------------

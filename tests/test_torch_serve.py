@@ -49,7 +49,8 @@ def test_main_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(SMOKE)
-    for arch in ("granite-8b", "falcon-mamba-7b", "recurrentgemma-9b"):
+    for arch in ("granite-8b", "falcon-mamba-7b", "recurrentgemma-9b", "llama-3.2-vision-11b",
+                 "hubert-xlarge"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             lm.init(0, get_config(arch).smoke())
 
