@@ -8,12 +8,13 @@ result line:
 
 1. device: the card's name and power limit (``nvidia-smi``), its torch name
    and the device count;
-2. build: every CUDA kernel of the serving paths, from ``src/repro_torch/csrc``
-   (one ``nvcc`` per source, all started together), with ptxas's registers,
-   shared memory, spills and wgmma serialisation warnings for each kernel;
-   the warp-specialised wgmma kernels must report the 168 registers their
-   setmaxnreg split (240 x 256 + 24 x 128) is sized for, and the skinny
-   grouped matmul and the Mamba scan must not spill;
+2. build: every CUDA kernel of the serving and training paths, from
+   ``src/repro_torch/csrc`` (one ``nvcc`` per source, all started together),
+   with ptxas's registers, shared memory, spills and wgmma serialisation
+   warnings for each kernel; the warp-specialised wgmma kernels must report
+   the 168 registers their setmaxnreg split (240 x 256 + 24 x 128) is sized
+   for (the forward's lse store included), and the skinny grouped matmul,
+   the Mamba scan and the attention backward's three kernels must not spill;
 3. kernels vs their plain PyTorch versions at the serving shapes, with times
    beside the bound and beside one PyTorch library call where one computes
    the same function, each case printing the tiling that served it (wgmma
@@ -42,7 +43,14 @@ result line:
    (clamped and wrapped), and on ragged tables (E=13, int64 ids); then
    narrow fp32 granite, MoE, Mamba, Griffin and DLRM models on the card
    against the same models on the CPU, and a narrow fp32 VLM (head dim 128,
-   two super-blocks, cross gates opened) and encoder (4 heads of 80);
+   two super-blocks, cross gates opened) and encoder (4 heads of 80); the
+   attention backward and the forward's lse against autograd of the plain
+   version (fp32) at minicpm-2b's training shape (B=4, H=KV=36, S=4096,
+   D=64, causal, bf16), granite-8b's (H=32, KV=8, S=2048, D=128), in fp32
+   on the fma forward and at a ragged non-causal shape, timed beside SDPA's
+   backward and the bound; and a narrow fp32 train step (head dim 64, 2
+   layers, MHA and GQA) on the card against the CPU: loss, every gradient,
+   AdamW's arithmetic and the parameters after one SGD step;
 4. serve granite-8b at full width and depth in bf16 through
    ``repro_torch.launch.serve.generate`` (4 requests, prompt 1000, 16 decode
    steps), counting kernel launches (every prefill attention on the wgmma
@@ -74,11 +82,19 @@ result line:
 4g. encode 4 clips of 1000 frames with hubert-xlarge (48 flash-attention
    launches at D = 80 per forward, all wgmma), timing the forward, and hold
    its first layer (bf16, card) against the same layer in fp32 on the CPU;
-5. the script's wall time, one JSON line of per-kernel numbers, the ``nvidia-smi`` line, and the
-   result line ``{"ok": true, "device": {...}}`` last.
+5. train: a narrow fp32 run through ``train.loop.train`` that fails at step
+   4 and resumes from its checkpoint, against an uninterrupted one; then
+   minicpm-2b at full width and depth (bf16, fp32 AdamW state, WSD, remat
+   "full", loss chunk 1024) for 8 steps of ``batch_for_step`` at 4 x 4096,
+   each with 80 forward and 40 backward attention launches and no other
+   kernel, with its step time, tokens/s, model FLOPs share and peak memory,
+   then 6 steps on one fixed batch, whose loss must fall;
+6. the script's wall time, one JSON line of per-kernel numbers, the
+   ``nvidia-smi`` line, and the result line ``{"ok": true, "device": {...}}``
+   last.
 
-Each serving phase sets every kernel's launch count to 0 just before its
-run and reads the counts just after.  Times come from CUDA events (kernels)
+Each serving phase, and the training run, sets every kernel's launch count
+to 0 just before its run and reads the counts just after.  Times come from CUDA events (kernels)
 or the host clock after a synchronise (serving).  Bounds use the H100 SXM's
 published peaks at 700 W: 989 TFLOP/s bf16/fp16 dense, 67 TFLOP/s fp32
 without tensor cores, 3.35 TB/s; exps run on the special-function units,
@@ -125,8 +141,8 @@ H_AU, D_AU = 16, 80  # hubert-xlarge's heads (KV = H) and head dim
 HUBERT_CASES = tuple((PROMPT, PROMPT, D_AU, dt, False, 0, H_AU, H_AU)
                      for dt in (torch.bfloat16, torch.float16, torch.float32))
 CROSS_CASE = (PROMPT, IMG_TOKENS, D, torch.bfloat16, False, 0, KV, H)
-KERNEL_COUNTERS = ("attention_launches", "grouped_matmul_launches", "selective_scan_launches",
-                   "lru_scan_launches", "bag_lookup_launches")
+KERNEL_COUNTERS = ("attention_launches", "attention_bwd_launches", "grouped_matmul_launches",
+                   "selective_scan_launches", "lru_scan_launches", "bag_lookup_launches")
 # The same launches again, by the tiling that served them.
 TILING_COUNTERS = ("attention_wgmma_launches", "attention_fma_launches",
                    "grouped_matmul_wgmma_launches", "grouped_matmul_fma_launches",
@@ -135,6 +151,19 @@ COUNTERS = KERNEL_COUNTERS + TILING_COUNTERS
 T_DLRM, R_DLRM, E_DLRM = 8, 10_000_000, 128  # the paper DLRM's tables, one host's 8 of 64
 DLRM_BATCHES = (128, 4096)  # workloads.DLRM.batch_per_gpu, and a large scoring batch
 DLRM_PATH = "dlrm-paper-8t"
+# Training (phase 5): minicpm-2b at full width and depth, TRAIN_4K's sequence
+# and its global batch of 256 cut to 4 for one card; the chunked loss.
+TRAIN_ARCH, TRAIN_B, TRAIN_S, LOSS_CHUNK = "minicpm-2b", 4, 4096, 1024
+TRAIN_STEPS, FIXED_STEPS, TRAIN_LR = 8, 6, 3e-4
+# The backward kernel's cases (B, H, KV, S, D, dtype, causal): minicpm-2b's
+# and granite-8b's training attention (the first is the main path's), one
+# fp32 case on the fma forward, and a ragged non-causal one.
+BWD_CASES = (
+    (TRAIN_B, 36, 36, TRAIN_S, 64, torch.bfloat16, True),
+    (TRAIN_B, 32, 8, 2048, 128, torch.bfloat16, True),
+    (TRAIN_B, 36, 36, 1024, 64, torch.float32, True),
+    (TRAIN_B, 36, 36, 1000, 64, torch.bfloat16, False),
+)
 
 
 def require(ok, what: str) -> None:
@@ -420,6 +449,277 @@ def moe_decode_buffers(layers, ops, cfg, dev, gen):
     return [("gate", xg, wg), ("down", hd, wd)]
 
 
+def attention_bwd_bound(q, k, causal: bool) -> tuple[float, str]:
+    """Least time for the card: 5 products of 2*D flops a kept (query, key)
+    pair (half the pairs under a causal mask) over the dtype's peak, against
+    q, k, v, o, do and lse read once and dq, dk, dv written once over
+    3.35 TB/s."""
+    from repro_torch.kernels.ref import attention_mask
+
+    Bq, Hq, Sq, Dq = q.shape
+    pairs = int(attention_mask(Sq, k.shape[2], causal, 0, q.device).sum())
+    flops = 10.0 * Bq * Hq * Dq * pairs
+    nbytes = 4 * (q.numel() + k.numel()) * q.element_size() + Bq * Hq * Sq * 4
+    t_ops, t_bytes = flops / PEAK_FLOPS[q.dtype], nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def plain_attention_grads(ref_flash_attention, q, k, v, do, causal: bool):
+    """Autograd of the plain version in fp32, one batch row at a time: the
+    fp32 scores of a row of minicpm-2b's shape (36 x 4096 x 4096) take 2.4 GB
+    and autograd keeps several such tensors."""
+    grads = []
+    for b in range(q.shape[0]):
+        qf, kf, vf = (t[b:b + 1].float().requires_grad_(True) for t in (q, k, v))
+        out = ref_flash_attention(qf, kf, vf, causal=causal)
+        grads.append(torch.autograd.grad(out, (qf, kf, vf), do[b:b + 1].float()))
+    return [torch.cat(g) for g in zip(*grads)]
+
+
+def check_attention_bwd(case, gen, dev, smi) -> dict:
+    """Phase 3: the forward's lse against the plain one and the backward
+    kernel against autograd of the plain version (fp32) on the same inputs,
+    with times: kernel, the forward with and without lse, plain, SDPA's
+    backward (a yardstick only) and the bound."""
+    from repro_torch.kernels.flash_attention import (
+        attention_tiling, flash_attention, flash_attention_bwd,
+    )
+    from repro_torch.kernels.ref import ref_flash_attention, ref_flash_attention_lse
+
+    Bc, Hc, KVc, S, Dc, dtype, causal = case
+    q = torch.randn(Bc, Hc, S, Dc, generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn(Bc, KVc, S, Dc, generator=gen, device=dev).to(dtype) for _ in "kv")
+    do = torch.randn(Bc, Hc, S, Dc, generator=gen, device=dev).to(dtype)
+    lse = torch.empty(Bc, Hc, S, dtype=torch.float32, device=dev)
+    o = flash_attention(q, k, v, causal=causal, lse=lse)
+    dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    tiling = attention_tiling(dtype, Dc)
+    label = (f"B={Bc} H={Hc} KV={KVc} S={S} D={Dc} {str(dtype)[6:]} causal={causal} "
+             f"forward tiling={tiling}")
+    ref_lse = torch.cat([ref_flash_attention_lse(q[b:b + 1], k[b:b + 1], v[b:b + 1], causal)
+                         for b in range(Bc)])
+    lse_err = float((lse - ref_lse).abs().max())
+    lse_tol = 1e-4 * max(1.0, float(ref_lse.abs().max()))
+    require(lse_err <= lse_tol, f"forward lse vs plain, {label}: max|err| {lse_err} > {lse_tol}")
+    want = plain_attention_grads(ref_flash_attention, q, k, v, do, causal)
+    errs, bars = {}, {}
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        require(bool(torch.isfinite(got).all()), f"finite {name}, {label}")
+        errs[name] = float((got.float() - ref).abs().max())
+        bars[name] = TOL[dtype] * float(ref.abs().max())
+        require(errs[name] <= bars[name],
+                f"flash_attention_bwd {name} vs autograd of plain, {label}: max|err| "
+                f"{errs[name]} > {bars[name]} ({TOL[dtype]} max|ref|)")
+    del want
+    kernel_ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, causal), 10)
+    fwd_ms = time_ms(lambda: flash_attention(q, k, v, causal=causal), 10)
+    fwd_lse_ms = time_ms(lambda: flash_attention(q, k, v, causal=causal, lse=lse), 10)
+    plain_ms = time_ms(
+        lambda: plain_attention_grads(ref_flash_attention, q, k, v, do, causal), 2, warmup=1)
+    qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(qr, kr, vr, is_causal=causal,
+                                                           enable_gqa=True)
+    library_ms = time_ms(
+        lambda: torch.autograd.grad(out, (qr, kr, vr), do, retain_graph=True), 10)
+    bound_ms, bound_by = attention_bwd_bound(q, k, causal)
+    print(f"phase 3 kernel: flash_attention_bwd {label}: lse max|err| {lse_err} (tol {lse_tol}); "
+          f"max|err| {errs} (bars {bars}) kernel_ms {kernel_ms} plain_ms {plain_ms} (autograd "
+          f"of the plain version, fp32, a batch row at a time) library_ms {library_ms} (SDPA's "
+          f"backward) bound_ms {bound_ms} ({bound_by}); forward {fwd_ms} ms, with lse "
+          f"{fwd_lse_ms} ms; on {smi}")
+    return dict(max_abs_err=max(errs.values()), max_abs_err_by_grad=errs, lse_max_abs_err=lse_err,
+                kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by, fwd_ms=fwd_ms, fwd_lse_ms=fwd_lse_ms)
+
+
+def train_config(get_config, kv: int):
+    """minicpm-2b's smoke config (tied embeddings, vocab 256) at d_model 256,
+    2 layers of 4 heads of 64 (MHA at kv = 4, GQA at kv = 2), in fp32."""
+    return dataclasses.replace(
+        get_config(TRAIN_ARCH).smoke(), d_model=256, n_heads=4, n_kv_heads=kv, head_dim=64,
+        d_ff=512, n_layers=2, param_dtype="float32", activation_dtype="float32")
+
+
+def max_rel_err(got: dict, want: dict) -> float:
+    """max over the names of max|got - want| / max|want|."""
+    return max(float((got[n].detach().cpu() - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+               for n, w in want.items())
+
+
+def check_train_step(lm, make_train_step, optim, ops, cfg, dev) -> dict:
+    """Phase 3 model: the loss and every gradient of a narrow fp32 model on
+    the card (the attention kernels, forward and backward) against the same
+    model on the CPU (plain versions), then one ``make_train_step`` on each.
+    The step uses SGD with momentum, whose update is linear in the gradient,
+    so the parameters' bar follows from the gradients'; AdamW's update,
+    about lr * sign(g) at step 0, turns a gradient entry within rounding of
+    0 into a 2 lr difference, so AdamW is held on the card to the CPU's
+    arithmetic on the same gradients instead."""
+    m_cpu = lm.init(0, cfg, device="cpu")
+    m_gpu = lm.init(0, cfg, device=dev)
+    m_gpu.load_state_dict(m_cpu.state_dict())
+    toks = torch.randint(0, cfg.vocab, (2, 77), generator=torch.Generator().manual_seed(2))
+    batch = {"tokens": toks}
+    gpu_batch = {"tokens": toks.to(dev)}
+    for m in (m_cpu, m_gpu):
+        m.requires_grad_(True)
+    lc, _ = lm.loss_fn(m_cpu, batch, cfg, loss_chunk=32)
+    grads_cpu = dict(zip(dict(m_cpu.named_parameters()),
+                         torch.autograd.grad(lc, list(m_cpu.parameters()))))
+    for n in COUNTERS:
+        setattr(ops, n, 0)
+    lg, _ = lm.loss_fn(m_gpu, gpu_batch, cfg, loss_chunk=32)
+    grads_gpu = dict(zip(dict(m_gpu.named_parameters()),
+                         torch.autograd.grad(lg, list(m_gpu.parameters()))))
+    torch.cuda.synchronize()
+    counts = {n: getattr(ops, n) for n in COUNTERS}
+    want = {n: 0 for n in COUNTERS}
+    want.update(attention_launches=2 * cfg.n_layers, attention_fma_launches=2 * cfg.n_layers,
+                attention_bwd_launches=cfg.n_layers)  # remat "full": forward twice
+    require(counts == want, f"narrow train step launches {counts}, want {want}")
+    errs = {"loss": abs(float(lg.detach()) - float(lc.detach())) / abs(float(lc.detach())),
+            "grads": max_rel_err(grads_gpu, grads_cpu)}
+    # AdamW's arithmetic on the card, on the CPU's gradients.
+    opt = optim.adamw(optim.wsd(1e-3, 10))
+    params_cpu = {n: p.detach().clone() for n, p in m_cpu.named_parameters()}
+    params_gpu = {n: p.to(dev) for n, p in params_cpu.items()}
+    state_cpu, state_gpu = opt.init(params_cpu), opt.init(params_gpu)
+    for step in range(2):
+        opt.update(grads_cpu, state_cpu, params_cpu, step)
+        opt.update({n: g.to(dev) for n, g in grads_cpu.items()}, state_gpu, params_gpu, step)
+    errs["adamw update, same grads"] = max_rel_err(params_gpu, params_cpu)
+    # One train step each, SGD with momentum.
+    sgd = optim.sgd_momentum(optim.constant(0.1))
+    step_fn = make_train_step(cfg, sgd, loss_chunk=32)
+    _, _, mc = step_fn(m_cpu, sgd.init(dict(m_cpu.named_parameters())), batch, 0)
+    _, _, mg = step_fn(m_gpu, sgd.init(dict(m_gpu.named_parameters())), gpu_batch, 0)
+    errs["step loss"] = abs(float(mg["loss"]) - float(mc["loss"])) / abs(float(mc["loss"]))
+    errs["step grad_norm"] = (abs(float(mg["grad_norm"]) - float(mc["grad_norm"]))
+                              / float(mc["grad_norm"]))
+    errs["step params"] = max_rel_err(dict(m_gpu.named_parameters()),
+                                      {n: p.detach() for n, p in m_cpu.named_parameters()})
+    require(max(errs.values()) <= 1e-4, f"narrow train step, card vs CPU: {errs} (tol 1e-4)")
+    return errs
+
+
+def resume_check(train_loop, optim, cfg, dev) -> dict:
+    """Phase 5 resume: ``train.loop.train`` on the card with a checkpoint
+    every 2 steps and an injected failure at step 4, resumed to step 8,
+    against an uninterrupted run; the checkpoints go to a temporary
+    directory under ``build/`` and are removed."""
+    import tempfile
+
+    from repro_torch.configs.base import ShapeSpec
+
+    shape = ShapeSpec("resume", 64, 4, "train")
+    opt = optim.adamw(optim.wsd(1e-3, 8))
+    quiet = dict(log_every=100, logger=lambda *a: None, device=dev, loss_chunk=32)
+    whole = train_loop.train(cfg, shape, opt, total_steps=8, **quiet)
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root) as ckpt_dir:
+        try:
+            train_loop.train(cfg, shape, opt, total_steps=8, ckpt_dir=ckpt_dir, ckpt_every=2,
+                             fail_at=4, **quiet)
+            raise RuntimeError("chip_smoke: the injected failure did not happen")
+        except train_loop.InjectedFailure:
+            pass
+        resumed = train_loop.train(cfg, shape, opt, total_steps=8, ckpt_dir=ckpt_dir,
+                                   ckpt_every=2, **quiet)
+    require(resumed.final_step == 8 and len(resumed.losses) == 4,
+            f"resumed from step 4: final {resumed.final_step}, {len(resumed.losses)} losses")
+    errs = [abs(a - b) / abs(b) for a, b in zip(resumed.losses, whole.losses[4:])]
+    require(max(errs) <= 1e-5, f"resumed losses {resumed.losses} vs {whole.losses[4:]}: {errs}")
+    return dict(whole=whole.losses, resumed=resumed.losses, max_rel_err=max(errs))
+
+
+def train_full(lm, ops, optim, make_train_step, data, cfg, dev, smi) -> dict:
+    """Phase 5: trains minicpm-2b at full width and depth on the card (bf16,
+    fp32 AdamW state, WSD) for TRAIN_STEPS steps of ``batch_for_step`` at
+    TRAIN_B x TRAIN_S, then FIXED_STEPS steps on one fixed batch, with remat
+    "full" and the chunked loss.  Every count is set to 0 just before the
+    TRAIN_STEPS steps and read just after.  Returns the numbers of the run."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.configs.base import ShapeSpec
+
+    t0 = time.perf_counter()
+    model = lm.init(0, cfg, device=dev)
+    opt = optim.adamw(optim.wsd(TRAIN_LR, TRAIN_STEPS + FIXED_STEPS))
+    params = dict(model.named_parameters())
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.values())
+    state_gb = sum(t.numel() * t.element_size() for group in state.values()
+                   for t in group.values() if t.data_ptr() not in
+                   {p.data_ptr() for p in params.values()}) / 1e9
+    print(f"phase 5 train: {cfg.name} init on the card: {n_params} parameters ({cfg.param_dtype}, "
+          f"{n_params * 2 / 1e9} GB), AdamW state m, v, fp32 master {state_gb} GB, in "
+          f"{time.perf_counter() - t0:.2f} s; batch {TRAIN_B} x {TRAIN_S}, remat full, loss chunk "
+          f"{LOSS_CHUNK}, lr {TRAIN_LR} (wsd)")
+    step_fn = make_train_step(cfg, opt, remat="full", loss_chunk=LOSS_CHUNK)
+    spec = data.DataSpec(cfg=cfg, shape=ShapeSpec("train_4k_b4", TRAIN_S, TRAIN_B, "train"))
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in data.batch_for_step(spec, i).items()}
+               for i in range(TRAIN_STEPS + 1)]
+    probe = {n: params[n].detach().clone() for n in ("embed", "blocks.0.attn.wq", "final_norm")}
+    torch.cuda.synchronize()
+
+    for n in COUNTERS:
+        setattr(ops, n, 0)
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, times, per_step = [], [], [], []
+    for step in range(TRAIN_STEPS):
+        before = {n: getattr(ops, n) for n in COUNTERS}
+        t0 = time.perf_counter()
+        _, _, metrics = step_fn(model, state, batches[step], step)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        per_step.append({n: getattr(ops, n) - before[n] for n in COUNTERS})
+        print(f"phase 5 train: step {step} loss {losses[-1]} grad_norm {norms[-1]} "
+              f"{times[-1] * 1e3} ms")
+    counts = {n: getattr(ops, n) for n in COUNTERS}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    L_ = cfg.n_layers
+    want = {n: 0 for n in COUNTERS}
+    want.update(attention_launches=2 * L_, attention_wgmma_launches=2 * L_,
+                attention_bwd_launches=L_)
+    require(all(c == want for c in per_step), f"launches per step {per_step}, want {want}")
+    require(all(math.isfinite(x) for x in losses + norms), f"finite losses {losses}, norms {norms}")
+    ln_v = math.log(cfg.vocab)
+    require(abs(losses[0] - ln_v) <= 0.5, f"step 0 loss {losses[0]} not within 0.5 of ln V {ln_v}")
+    changed = {n: float((params[n].detach() - t).abs().max()) for n, t in probe.items()}
+    require(all(c > 0 for c in changed.values()), f"parameters changed: {changed}")
+
+    step_ms = float(np.median(times)) * 1e3
+    tokens = TRAIN_B * TRAIN_S
+    pairs = TRAIN_S * (TRAIN_S + 1) // 2
+    flops = 6.0 * n_params * tokens + 12.0 * L_ * TRAIN_B * cfg.n_heads * cfg.hd * pairs
+    mfu = flops / (step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
+    print(f"phase 5 train: {TRAIN_STEPS} steps, median {step_ms} ms a step (min "
+          f"{min(times) * 1e3}, max {max(times) * 1e3}), {tokens / step_ms * 1e3} tokens/s, "
+          f"model FLOPs {flops / 1e12} TFLOP a step (6 N T + attention), {mfu} of 989 TFLOP/s, "
+          f"peak memory {peak_gb} GB, launches per step {per_step[0]} (total {counts}), on {smi}")
+
+    fixed = []
+    for i in range(FIXED_STEPS):
+        _, _, metrics = step_fn(model, state, batches[TRAIN_STEPS], TRAIN_STEPS + i)
+        fixed.append(float(metrics["loss"]))
+    require(all(math.isfinite(x) for x in fixed) and fixed[-1] < fixed[0],
+            f"{FIXED_STEPS} steps on one fixed batch lower its loss: {fixed}")
+    print(f"phase 5 train: {FIXED_STEPS} steps on one fixed batch, losses {fixed}")
+    del model, params, state, batches, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, grad_norms=norms, step_ms=step_ms, step_ms_all=times,
+                tokens_per_s=tokens / step_ms * 1e3, mfu=mfu, peak_gb=peak_gb,
+                launches_per_step=per_step[0], counts=counts, fixed_losses=fixed,
+                n_params=n_params)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -437,8 +737,12 @@ def main() -> int:
         ref_embedding_bag, ref_flash_attention, ref_mamba_scan, ref_moe_gmm, ref_rglru_scan,
     )
     from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch import optim
+    from repro_torch.data import pipeline as data
     from repro_torch.launch.serve import generate
     from repro_torch.models import dlrm, layers, lm
+    from repro_torch.train import loop as train_loop
+    from repro_torch.train.steps import make_train_step
 
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
@@ -447,7 +751,8 @@ def main() -> int:
     print(f"phase 1 device: torch: {kind}, count {count}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}")
 
-    kernels = ["flash_attention", "moe_gmm", "mamba_scan", "rglru_scan", "embedding_bag"]
+    kernels = ["flash_attention", "flash_attention_bwd", "moe_gmm", "mamba_scan", "rglru_scan",
+               "embedding_bag"]
     t0 = time.perf_counter()
     _build.load_all(kernels)
     print(f"phase 2 build: {', '.join(k + '.cu' for k in kernels)} in "
@@ -465,8 +770,10 @@ def main() -> int:
                         "setmaxnreg split (2 x 128 x 240 + 128 x 24) is sized for")
                 require(info["spill_stores"] == info["spill_loads"] == 0
                         and not info["serialised"], f"{fn} spills or serialises: {info}")
-            if "skinny_kernel" in fn or "mamba_scan_kernel" in fn:  # the streams and the scan
-                require(info["spill_stores"] == info["spill_loads"] == 0, f"{fn} spills: {info}")
+            if ("skinny_kernel" in fn or "mamba_scan_kernel" in fn  # the streams and the scan
+                    or name == "flash_attention_bwd"):
+                require(info["spill_stores"] == info["spill_loads"] == 0 and not info["serialised"],
+                        f"{fn} spills: {info}")
 
     # Phase 3: the kernel against its plain version at the serving shapes.
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -552,6 +859,9 @@ def main() -> int:
               f"max|err| {err}, on the masked rows {masked_err} (tol {tol})")
         masked_rows[f"{str(dtype)[6:]} {tiling}"] = err
         del q, k, v, out, ref
+    torch.cuda.empty_cache()
+    # The backward kernel, and the forward's lse, at the training shapes.
+    bwd = [check_attention_bwd(case, gen, dev, smi) for case in BWD_CASES]
     torch.cuda.empty_cache()
     main_case, rg_case = attn[cases[0]], attn[cases[8]]
     main_fp32, rg_fp32 = attn[cases[2]], attn[cases[10]]
@@ -797,6 +1107,15 @@ def main() -> int:
           f"plain: max|err| {errs} (tol 1e-4)")
     del m_cpu, m_gpu, gb
 
+    # A narrow fp32 dense train step (head dim 64, 2 layers, d_model 256),
+    # MHA and GQA: the attention kernels, forward and backward, on the card
+    # against the plain versions on the CPU.
+    for kv in (4, 2):
+        small = train_config(get_config, kv)
+        errs = check_train_step(lm, make_train_step, optim, ops, small, dev)
+        print(f"phase 3 model: narrow fp32 train step ({TRAIN_ARCH} smoke, d_model 256, 2 layers, "
+              f"H=4 KV={kv} D=64), card vs CPU plain: max relative err {errs} (tol 1e-4)")
+
     # Phase 4: serve granite-8b at full width and depth.
     cfg = get_config("granite-8b")
     t0 = time.perf_counter()
@@ -925,6 +1244,18 @@ def main() -> int:
                         dev, smi, "4f")
     hubert = encode_audio(lm, ops, get_config("hubert-xlarge"), dev, smi)
 
+    # Phase 5: training.  The narrow config's resume first, then minicpm-2b
+    # at full width and depth.
+    resume = resume_check(train_loop, optim, train_config(get_config, 4), dev)
+    print(f"phase 5 resume: narrow fp32 {TRAIN_ARCH}, checkpoint every 2 steps, failure at step "
+          f"4, resumed to 8: last four losses {resume['resumed']} vs uninterrupted "
+          f"{resume['whole'][4:]}, max relative err {resume['max_rel_err']} (tol 1e-5)")
+    trained = train_full(lm, ops, optim, make_train_step, data, get_config(TRAIN_ARCH), dev, smi)
+    train_fwd = trained["counts"]["attention_launches"]
+    train_bwd = trained["counts"]["attention_bwd_launches"]
+    summary = {k: trained[k] for k in ("n_params", "step_ms", "tokens_per_s", "mfu", "peak_gb")}
+    print(f"phase 5 summary: {json.dumps(summary)} on {smi}")
+
     print(f"chip_smoke: wall time {time.perf_counter() - T_START} s, the kernels' build "
           "included")
 
@@ -936,11 +1267,12 @@ def main() -> int:
         "tpu_ref": "kernels/flash_attention.py:84",
         "tiling": main_case["tiling"],
         "launches": (granite_attention_launches + att_total + griffin["attention_launches"]
-                     + vlm["attention_launches"] + hubert["attention_launches"]),
+                     + vlm["attention_launches"] + hubert["attention_launches"] + train_fwd),
         "launches_by_path": {"granite-8b": granite_attention_launches, qwen_name: att_total,
                              "recurrentgemma-9b": griffin["attention_launches"],
                              "llama-3.2-vision-11b": vlm["attention_launches"],
-                             "hubert-xlarge": hubert["attention_launches"]},
+                             "hubert-xlarge": hubert["attention_launches"],
+                             f"{TRAIN_ARCH} train, {TRAIN_STEPS} steps": train_fwd},
         "max_abs_err": main_case["max_abs_err"],
         "max_err_bf16": main_case["max_abs_err"],
         "ms": main_case["kernel_ms"],
@@ -977,6 +1309,25 @@ def main() -> int:
         "cross_library_ms": cross_case["library_ms"],
         "cross_max_abs_err": cross_case["max_abs_err"],
         "cross_bf16_fma_ms": cross_case["fma_ms"],
+        "train_fwd_ms": bwd[0]["fwd_ms"],
+        "train_fwd_lse_ms": bwd[0]["fwd_lse_ms"],
+        "train_lse_max_abs_err": bwd[0]["lse_max_abs_err"],
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "tiling": "fma",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": None,  # the TPU side has no backward kernel (jax.grad of XLA code)
+        "launches": train_bwd,
+        "launches_by_path": {f"{TRAIN_ARCH} train, {TRAIN_STEPS} steps": train_bwd},
+        "launches_per_step": trained["launches_per_step"]["attention_bwd_launches"],
+        "ms": bwd[0]["kernel_ms"],
+        **{k: bwd[0][k] for k in ("max_abs_err", "max_abs_err_by_grad", "kernel_ms", "plain_ms",
+                                  "library_ms", "bound_ms", "bound_by")},
+        **{f"gqa_d128_{k}": bwd[1][k] for k in ("max_abs_err", "kernel_ms", "plain_ms",
+                                                 "library_ms", "bound_ms")},
+        **{f"fp32_{k}": bwd[2][k] for k in ("max_abs_err", "kernel_ms", "library_ms",
+                                             "bound_ms")},
     }, {
         "name": "moe_gmm",
         "route": "cuda",

@@ -140,8 +140,9 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
 template <typename T, int D, int BQ, int BK>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o, int H, int KV,
-                           int Sq, int Sk, int causal, int window, float scale) {
+                           const T* __restrict__ v, T* __restrict__ o,
+                           float* __restrict__ lse, int H, int KV, int Sq, int Sk, int causal,
+                           int window, float scale) {
   constexpr int LD = D + 4;
   constexpr int LDP = BK + 4;  // row stride of the P tile, in floats
   constexpr int NG = (D + 63) / 64;  // groups of 4 output columns per thread
@@ -287,6 +288,8 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qpos = q0 + RQ * ty + i;
     if (qpos >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    // m is in the natural-log domain of the scaled scores here: lse = m + ln l.
+    if (lse != nullptr && tx == 0) lse[(size_t)(b * H + h) * Sq + qpos] = m[i] + logf(denom);
     T* orow = op + (size_t)qpos * D;
 #pragma unroll
     for (int g = 0; g < NG; ++g) {
@@ -299,8 +302,8 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
-                   int Sq, int Sk, int causal, int window, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+                   int KV, int Sq, int Sk, int causal, int window, cudaStream_t stream) {
   constexpr int BQ = Tiles<D>::BQ, BK = Tiles<D>::BK;
   constexpr int bytes = smem_bytes<D, BQ, BK>();
   cudaError_t err = cudaFuncSetAttribute(flash_attention_fwd_kernel<T, D, BQ, BK>,
@@ -310,18 +313,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   const float scale = 1.0f / sqrtf((float)D);
   flash_attention_fwd_kernel<T, D, BQ, BK><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, KV, Sq, Sk, causal, window, scale);
+      static_cast<T*>(o), lse, H, KV, Sq, Sk, causal, window, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, int B, int H,
-                     int KV, int Sq, int Sk, int D, int causal, int window,
+cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                     int H, int KV, int Sq, int Sk, int D, int causal, int window,
                      cudaStream_t stream) {
-  if (D == 64) return launch<T, 64>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, stream);
-  if (D == 80) return launch<T, 80>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, stream);
-  if (D == 128) return launch<T, 128>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, stream);
-  if (D == 256) return launch<T, 256>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, stream);
+  if (D == 64) return launch<T, 64>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, stream);
+  if (D == 80) return launch<T, 80>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, stream);
+  if (D == 128) return launch<T, 128>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, stream);
+  if (D == 256) return launch<T, 256>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -356,8 +359,8 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                              const __grid_constant__ CUtensorMap map_k,
                              const __grid_constant__ CUtensorMap map_v, T* __restrict__ o,
-                             int H, int KV, int Sq, int Sk, int causal, int window,
-                             float scale_log2) {
+                             float* __restrict__ lse, int H, int KV, int Sq, int Sk, int causal,
+                             int window, float scale_log2) {
   using wg::BK;
   using wg::BQ;
   using wg::STAGES;
@@ -543,7 +546,12 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     for (int r = 0; r < 2; ++r) {
       const int qpos = row0 + 8 * r;
       if (qpos > wq_last) continue;
-      const float inv = 1.f / fmaxf(l[r], 1e-30f);
+      const float denom = fmaxf(l[r], 1e-30f);
+      const float inv = 1.f / denom;
+      // m is in the log2 domain of the scaled scores here (scale_log2):
+      // the natural-log lse is (m + log2 l) * ln 2.
+      if (lse != nullptr && (lane & 3) == 0)
+        lse[(size_t)bh * Sq + qpos] = (m[r] + log2f(denom)) * 0.6931471805599453f;
       T* orow = op + (size_t)qpos * D;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
@@ -554,8 +562,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 }
 
 template <typename T, int D>
-cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int H,
-                         int KV, int Sq, int Sk, int causal, int window, cudaStream_t stream) {
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                         int H, int KV, int Sq, int Sk, int causal, int window,
+                         cudaStream_t stream) {
   constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
   constexpr int bytes = wg::Smem<wg::Width<D>::value>::BYTES;
   CUtensorMap map_q, map_k, map_v;
@@ -571,18 +580,22 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, i
   const dim3 grid((Sq + wg::BQ - 1) / wg::BQ, H, B);
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
   flash_attention_wgmma_kernel<T, D><<<grid, wg::THREADS, bytes, stream>>>(
-      map_q, map_k, map_v, static_cast<T*>(o), H, KV, Sq, Sk, causal, window, scale_log2);
+      map_q, map_k, map_v, static_cast<T*>(o), lse, H, KV, Sq, Sk, causal, window, scale_log2);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_wgmma_d(const void* q, const void* k, const void* v, void* o, int B, int H,
-                           int KV, int Sq, int Sk, int D, int causal, int window,
+cudaError_t launch_wgmma_d(const void* q, const void* k, const void* v, void* o, float* lse,
+                           int B, int H, int KV, int Sq, int Sk, int D, int causal, int window,
                            cudaStream_t stream) {
-  if (D == 64) return launch_wgmma<T, 64>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, stream);
-  if (D == 80) return launch_wgmma<T, 80>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, stream);
-  if (D == 128) return launch_wgmma<T, 128>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, stream);
-  if (D == 256) return launch_wgmma<T, 256>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, stream);
+  if (D == 64)
+    return launch_wgmma<T, 64>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, stream);
+  if (D == 80)
+    return launch_wgmma<T, 80>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, stream);
+  if (D == 128)
+    return launch_wgmma<T, 128>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, stream);
+  if (D == 256)
+    return launch_wgmma<T, 256>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -594,37 +607,44 @@ bool valid(int B, int H, int KV, int Sq, int Sk, int window) {
 }  // namespace
 
 // q, k, v, o: contiguous device arrays, 16-byte aligned; q and o are
-// (B, H, Sq, D), k and v (B, KV, Sk, D).  dtype: 0 float32, 1 float16,
-// 2 bfloat16.  D: 64, 80, 128 or 256.  Each entry point launches one tiling on
-// `stream` and returns a cudaError_t (0 on success); a shape or dtype its
-// tiling does not take returns cudaErrorInvalidValue.
+// (B, H, Sq, D), k and v (B, KV, Sk, D).  lse: null (serving: nothing more
+// is stored), or a (B, H, Sq) fp32 array that gets each query row's
+// log-sum-exp of its scaled, masked scores, in natural log on both tilings
+// (the backward, csrc/flash_attention_bwd.cu, recomputes P from it).
+// dtype: 0 float32, 1 float16, 2 bfloat16.  D: 64, 80, 128 or 256.  Each
+// entry point launches one tiling on `stream` and returns a cudaError_t (0
+// on success); a shape or dtype its tiling does not take returns
+// cudaErrorInvalidValue.
 
 // Tensor cores; float16 or bfloat16.
 extern "C" int repro_flash_attention_wgmma(const void* q, const void* k, const void* v, void* o,
-                                           int B, int H, int KV, int Sq, int Sk, int D,
-                                           int causal, int window, int dtype, void* stream) {
+                                           float* lse, int B, int H, int KV, int Sq, int Sk,
+                                           int D, int causal, int window, int dtype,
+                                           void* stream) {
   if (!valid(B, H, KV, Sq, Sk, window)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 1: return (int)launch_wgmma_d<__half>(q, k, v, o, B, H, KV, Sq, Sk, D, causal, window, s);
+    case 1:
+      return (int)launch_wgmma_d<__half>(q, k, v, o, lse, B, H, KV, Sq, Sk, D, causal, window, s);
     case 2:
-      return (int)launch_wgmma_d<__nv_bfloat16>(q, k, v, o, B, H, KV, Sq, Sk, D, causal, window,
-                                                s);
+      return (int)launch_wgmma_d<__nv_bfloat16>(q, k, v, o, lse, B, H, KV, Sq, Sk, D, causal,
+                                                window, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // fp32 FMAs on the CUDA cores; any of the three dtypes.
 extern "C" int repro_flash_attention_fma(const void* q, const void* k, const void* v, void* o,
-                                         int B, int H, int KV, int Sq, int Sk, int D, int causal,
-                                         int window, int dtype, void* stream) {
+                                         float* lse, int B, int H, int KV, int Sq, int Sk, int D,
+                                         int causal, int window, int dtype, void* stream) {
   if (!valid(B, H, KV, Sq, Sk, window)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return (int)launch_d<float>(q, k, v, o, B, H, KV, Sq, Sk, D, causal, window, s);
-    case 1: return (int)launch_d<__half>(q, k, v, o, B, H, KV, Sq, Sk, D, causal, window, s);
+    case 0: return (int)launch_d<float>(q, k, v, o, lse, B, H, KV, Sq, Sk, D, causal, window, s);
+    case 1: return (int)launch_d<__half>(q, k, v, o, lse, B, H, KV, Sq, Sk, D, causal, window, s);
     case 2:
-      return (int)launch_d<__nv_bfloat16>(q, k, v, o, B, H, KV, Sq, Sk, D, causal, window, s);
+      return (int)launch_d<__nv_bfloat16>(q, k, v, o, lse, B, H, KV, Sq, Sk, D, causal, window,
+                                          s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

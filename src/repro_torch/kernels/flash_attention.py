@@ -18,6 +18,13 @@ wholly masked, so they leave such rows at 0 or at a mean over the tiles they
 did not skip; the wrapper writes those rows itself after the launch.  The
 shapes alone mark them, so this is deterministic, touches no row that sees
 a key, and does nothing at Sq = Sk (every served prefill).
+
+Training: given ``lse``, either tiling also writes each query row's
+log-sum-exp, and :func:`flash_attention_bwd` (``csrc/flash_attention_bwd.cu``,
+head dims 64 and 128) computes dq, dk and dv from it.
+:class:`FlashAttentionFn` joins the two for autograd.  The backward refuses
+shapes with rows that see no key: the mean-of-v rows have a gradient the
+kernel does not compute, and no training shape (Sq = Sk) has them.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _build
 
@@ -32,6 +40,7 @@ DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 HALF_DTYPES = (torch.float16, torch.bfloat16)
 HEAD_DIMS = (64, 80, 128, 256)  # 80: hubert-xlarge, at a compute width of 128 on wgmma
 TILINGS = ("wgmma", "fma")
+BWD_HEAD_DIMS = (64, 128)  # minicpm-2b; granite-8b/34b and deepseek-coder-33b
 
 
 def attention_tiling(dtype: torch.dtype, head_dim: int) -> str:
@@ -60,7 +69,16 @@ def _entry(tiling: str):
     fn = getattr(_build.load("flash_attention"), f"repro_flash_attention_{tiling}")
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+        fn.restype = i
+    return fn
+
+
+def _bwd_entry():
+    fn = _build.load("flash_attention_bwd").repro_flash_attention_bwd
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 10 + [i] * 9 + [p]
         fn.restype = i
     return fn
 
@@ -71,12 +89,15 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t.clone() if t.data_ptr() % 16 else t
 
 
-def flash_attention(q, k, v, causal: bool = True, window: int = 0, tiling: str | None = None):
+def flash_attention(q, k, v, causal: bool = True, window: int = 0, tiling: str | None = None,
+                    lse=None):
     """q: (B, H, Sq, D); k/v: (B, KV, Sk, D) on one CUDA device -> (B, H, Sq, D).
 
     ``tiling`` defaults to :func:`attention_tiling`'s choice; a tiling that
-    does not take the dtype raises.  Launches the CUDA kernel once, or
-    raises: this function never computes on another path.
+    does not take the dtype raises.  ``lse``: None, or a contiguous
+    (B, H, Sq) fp32 tensor on the same device that gets each row's
+    log-sum-exp (natural log).  Launches the CUDA kernel once, or raises:
+    this function never computes on another path.
     """
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention: q, k and v must lie on one CUDA device")
@@ -97,11 +118,18 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0, tiling: str |
         raise ValueError(f"flash_attention: tiling {tiling!r} does not take {q.dtype}")
     if min(B, H, Sq, Sk) < 1 or window < 0:
         raise ValueError("flash_attention: empty input or negative window")
+    if lse is not None and not (
+        lse.device == q.device and lse.dtype == torch.float32 and lse.shape == (B, H, Sq)
+        and lse.is_contiguous()
+    ):
+        raise ValueError(f"flash_attention: lse must be a contiguous ({B}, {H}, {Sq}) fp32 "
+                         "tensor on q's device")
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = _entry(tiling)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             B, H, KV, Sq, Sk, D, int(bool(causal)), int(window),
             DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
         )
@@ -112,3 +140,86 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0, tiling: str |
         v_mean = v.float().mean(dim=2).repeat_interleave(H // KV, dim=1)  # (B, H, D)
         out[:, :, first:] = v_mean[:, :, None].to(out.dtype)
     return out
+
+
+def check_bwd(q, k, causal: bool, window: int) -> None:
+    """Raises ``ValueError`` for what the backward kernel does not take: a head
+    dim outside ``BWD_HEAD_DIMS``, or rows that see no key."""
+    Sq, D = q.shape[2], q.shape[3]
+    if D not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: head dim {D} not in {BWD_HEAD_DIMS} "
+                         "(80 and 256: ROADMAP.md queue 1, the audio and hybrid slices)")
+    first = first_masked_row(Sq, k.shape[2], causal, window)
+    if first < Sq:
+        raise ValueError(f"flash_attention_bwd: rows {first}..{Sq - 1} see no key "
+                         f"(Sq {Sq}, Sk {k.shape[2]}, window {window}); their mean-of-v "
+                         "output has a gradient the kernel does not compute")
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True, window: int = 0):
+    """The gradient of :func:`flash_attention` -> (dq, dk, dv) in q's dtype.
+
+    q, o, do: (B, H, Sq, D); k, v: (B, KV, Sk, D); lse: (B, H, Sq) fp32 from
+    the forward, all on one CUDA device; D 64 or 128.  Launches the CUDA
+    backward once (three kernels on the current stream), or raises: it
+    never computes on another path.
+    """
+    ts = (q, k, v, o, lse, do)
+    if not all(t.is_cuda and t.device == q.device for t in ts):
+        raise ValueError("flash_attention_bwd: every input must lie on one CUDA device")
+    if q.dtype not in DTYPE_CODES or any(t.dtype != q.dtype for t in (k, v, o, do)):
+        raise ValueError(f"flash_attention_bwd: q, k, v, o, do must share one of "
+                         f"{list(DTYPE_CODES)}; got {[t.dtype for t in (q, k, v, o, do)]}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or o.shape != q.shape \
+            or do.shape != q.shape:
+        raise ValueError("flash_attention_bwd: q, o, do (B,H,Sq,D); k and v (B,KV,Sk,D)")
+    B, H, Sq, D = q.shape
+    _, KV, Sk, _ = k.shape
+    if k.shape[0] != B or k.shape[3] != D or KV < 1 or H % KV or min(B, H, Sq, Sk) < 1:
+        raise ValueError(f"flash_attention_bwd: q {tuple(q.shape)} vs k {tuple(k.shape)}")
+    if lse.dtype != torch.float32 or lse.shape != (B, H, Sq):
+        raise ValueError(f"flash_attention_bwd: lse must be ({B}, {H}, {Sq}) fp32")
+    if window < 0:
+        raise ValueError("flash_attention_bwd: negative window")
+    check_bwd(q, k, causal, window)
+    q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))
+    lse = lse.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _bwd_entry()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+            B, H, KV, Sq, Sk, D, int(bool(causal)), int(window), DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"flash_attention_bwd: CUDA error {err} at launch")
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with a gradient: the forward launches the kernel with
+    ``lse`` and saves what it launched on (``_aligned`` may copy) with the
+    output and ``lse``; the backward launches :func:`flash_attention_bwd`.
+    ``apply(q, k, v, causal, window, tiling)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, tiling):
+        check_bwd(q, k, causal, window)
+        q, k, v = _aligned(q), _aligned(k), _aligned(v)
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        o = flash_attention(q, k, v, causal=causal, window=window, tiling=tiling, lse=lse)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        from . import ops  # the launch counters; ops imports this module
+
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal, ctx.window)
+        ops.attention_bwd_launches += 1
+        return dq, dk, dv, None, None, None

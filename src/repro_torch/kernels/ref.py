@@ -26,18 +26,51 @@ def attention_mask(Sq, Sk, causal, window, device=None):
     return m
 
 
+def _scores(q, k, causal, window):
+    """(B, KV, g, Sq, Sk) fp32 scaled scores and the (Sq, Sk) mask."""
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    qg = q.reshape(B, KV, H // KV, Sq, D).float()
+    s = torch.einsum("bkgsd,bktd->bkgst", qg, k.float()) / math.sqrt(D)
+    return s, attention_mask(Sq, Sk, causal, window, q.device)
+
+
 def ref_flash_attention(q, k, v, causal=True, window=0):
     """q: (B, H, Sq, D); k/v: (B, KV, Sk, D) -> (B, H, Sq, D)."""
     B, H, Sq, D = q.shape
-    KV, Sk = k.shape[1], k.shape[2]
-    g = H // KV
-    qg = q.reshape(B, KV, g, Sq, D).float()
-    s = torch.einsum("bkgsd,bktd->bkgst", qg, k.float())
-    s = s / math.sqrt(D)
-    s = torch.where(attention_mask(Sq, Sk, causal, window, q.device), s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    s, mask = _scores(q, k, causal, window)
+    p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
     o = torch.einsum("bkgst,bktd->bkgsd", p, v.float())
     return o.reshape(B, H, Sq, D).to(q.dtype)
+
+
+def ref_flash_attention_lse(q, k, v, causal=True, window=0):
+    """The per-row log-sum-exp (natural log, fp32) of the scaled, masked
+    scores, as the forward kernel writes it given ``lse``: q (B, H, Sq, D),
+    k/v (B, KV, Sk, D) -> (B, H, Sq).  ``v`` is not read."""
+    B, H, Sq, _ = q.shape
+    s, mask = _scores(q, k, causal, window)
+    return torch.logsumexp(torch.where(mask, s, NEG_INF), dim=-1).reshape(B, H, Sq)
+
+
+def ref_flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=0):
+    """The backward kernel's plain version: (dq, dk, dv) in the inputs' dtype,
+    computed in fp32 with P recomputed from ``lse`` (masked entries 0) and
+    delta = rowsum(do * o); dk and dv summed over each kv head's g query
+    heads.  q, o, do: (B, H, Sq, D); k, v: (B, KV, Sk, D); lse: (B, H, Sq)."""
+    B, H, Sq, D = q.shape
+    KV = k.shape[1]
+    g = H // KV
+    s, mask = _scores(q, k, causal, window)
+    p = torch.where(mask, torch.exp(s - lse.float().reshape(B, KV, g, Sq, 1)), 0.0)
+    qg, og, dog = (t.reshape(B, KV, g, Sq, D).float() for t in (q, o, do))
+    kf, vf = k.float(), v.float()
+    dv = torch.einsum("bkgst,bkgsd->bktd", p, dog)
+    dp = torch.einsum("bkgsd,bktd->bkgst", dog, vf)
+    ds = p * (dp - (dog * og).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bkgst,bktd->bkgsd", ds, kf) / math.sqrt(D)
+    dk = torch.einsum("bkgst,bkgsd->bktd", ds, qg) / math.sqrt(D)
+    return dq.reshape(B, H, Sq, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def ref_moe_gmm(x, w):

@@ -8,6 +8,12 @@ every scan from h = 0 through the kernels (``ops.selective_scan``,
 ``ops.lru_scan``) and Griffin's local attention through ``ops.attention``;
 a decode step takes one plain step from the cached states, which it updates
 in place (the reference returns new ones).
+
+Training runs :func:`mamba_hidden` / :func:`griffin_hidden` (grad-enabled,
+stopping before the head); any ``remat`` but ``"none"`` recomputes each
+layer in the backward, as the reference checkpoints each block for any
+policy but ``"none"``.  On the card the scans have no backward kernel yet,
+so their wrappers raise under grad (``kernels/ops.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from torch import nn
 
 from ..configs.base import ArchConfig, cache_specs, torch_dtype
 from . import layers as L
+from .transformer import _remat
 
 
 class _LM(nn.Module):
@@ -32,6 +39,9 @@ class _LM(nn.Module):
         )
         self.final_norm = L.parameter(torch.zeros(cfg.d_model, dtype=dt, device=device))
         self.lm_head = L.parameter(L.dense_init(gen, cfg.d_model, cfg.vocab, dt, device))
+
+    def head(self) -> torch.Tensor:
+        return self.lm_head
 
 
 def _embed(params, cfg, tokens):
@@ -59,14 +69,25 @@ class MambaLM(_LM):
         self.blocks = nn.ModuleList(L.Mamba(cfg, gen, device) for _ in range(cfg.n_layers))
 
 
+def _mamba_layer(blk, x, cfg):
+    y, _ = L.mamba_block(blk, L.rms_norm(x, blk.norm), cfg)
+    return x + y
+
+
+def mamba_hidden(params: MambaLM, cfg: ArchConfig, tokens, remat: str = "full"):
+    """Full-sequence forward up to the final norm -> x (B, S, d_model),
+    grad-enabled."""
+    x = _embed(params, cfg, tokens)
+    layer = _remat(_mamba_layer, "none" if remat == "none" else "full")
+    for blk in params.blocks:
+        x = layer(blk, x, cfg)
+    return L.rms_norm(x, params.final_norm)
+
+
 @torch.no_grad()
 def mamba_forward(params: MambaLM, cfg: ArchConfig, tokens):
     """Full-sequence forward -> (logits (B, S, V), aux_loss 0)."""
-    x = _embed(params, cfg, tokens)
-    for blk in params.blocks:
-        y, _ = L.mamba_block(blk, L.rms_norm(x, blk.norm), cfg)
-        x = x + y
-    x = L.rms_norm(x, params.final_norm)
+    x = mamba_hidden(params, cfg, tokens, remat="none")
     return x @ params.lm_head, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -161,17 +182,27 @@ def _attn_layer_apply(lyr, h, cfg, positions):
     return h, k, v
 
 
+def _griffin_layer(lyr, x, cfg, positions):
+    if isinstance(lyr, AttnLayer):
+        return _attn_layer_apply(lyr, x, cfg, positions)[0]
+    return _rec_layer_apply(lyr, x, cfg)[0]
+
+
+def griffin_hidden(params: GriffinLM, cfg: ArchConfig, tokens, remat: str = "full"):
+    """Full-sequence forward up to the final norm -> x (B, S, d_model),
+    grad-enabled."""
+    x = _embed(params, cfg, tokens)
+    positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
+    layer = _remat(_griffin_layer, "none" if remat == "none" else "full")
+    for lyr in params.layers:
+        x = layer(lyr, x, cfg, positions)
+    return L.rms_norm(x, params.final_norm)
+
+
 @torch.no_grad()
 def griffin_forward(params: GriffinLM, cfg: ArchConfig, tokens):
     """Full-sequence forward -> (logits (B, S, V), aux_loss 0)."""
-    x = _embed(params, cfg, tokens)
-    positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
-    for lyr in params.layers:
-        if isinstance(lyr, AttnLayer):
-            x, _, _ = _attn_layer_apply(lyr, x, cfg, positions)
-        else:
-            x, _ = _rec_layer_apply(lyr, x, cfg)
-    x = L.rms_norm(x, params.final_norm)
+    x = griffin_hidden(params, cfg, tokens, remat="none")
     return x @ params.lm_head, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

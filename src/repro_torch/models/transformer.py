@@ -9,14 +9,22 @@ others :class:`Block`s, as the reference's (n_super, inner) self stack and
 (n_super,) cross stack interleave.  The recurrent families (``ssm``,
 ``hybrid``) live in ``models.recurrent``; DLRM (``recsys``) is no LM and
 raises ``NotImplementedError`` saying where it lives.
+
+Training runs :func:`hidden_forward` (grad-enabled, stopping before the
+head) with ``remat`` ``"full"`` (each self block recomputed in the
+backward, ``torch.utils.checkpoint``), ``"dots"`` (the same, keeping the
+matmul outputs) or ``"none"``; serving's :func:`forward` runs it under
+``torch.no_grad``.
 """
 
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ArchConfig, cache_specs, torch_dtype
 from . import layers as L
@@ -160,19 +168,58 @@ def _inputs(params, cfg, tokens, frames, image_embeds):
     return x, img
 
 
-@torch.no_grad()
-def forward(params: Transformer, cfg: ArchConfig, tokens=None, frames=None, image_embeds=None):
-    """Full-sequence forward -> (logits (B, S, V), aux_loss)."""
+# Matmuls without batch dimensions: what JAX's
+# ``dots_with_no_batch_dims_saveable`` keeps.  The attention and MoE
+# products (``bmm``, or the kernels) are recomputed.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    policy = ckpt.CheckpointPolicy
+    return policy.MUST_SAVE if op in _DOTS else policy.PREFER_RECOMPUTE
+
+
+def _remat(fn, policy: str):
+    """``fn`` recomputed in the backward (``"full"``), the same keeping the
+    matmul outputs (``"dots"``), or as it is (``"none"``): the reference's
+    ``transformer._remat``."""
+    if policy == "none":
+        return fn
+    if policy == "dots":
+        ctx = partial(ckpt.create_selective_checkpoint_contexts, _save_dots)
+        return partial(ckpt.checkpoint, fn, use_reentrant=False, context_fn=ctx)
+    if policy == "full":
+        return partial(ckpt.checkpoint, fn, use_reentrant=False)
+    raise ValueError(f"remat {policy!r} not in ('full', 'dots', 'none')")
+
+
+def _self_block(blk, x, cfg, positions):
+    x, aux, _, _ = _self_block_apply(blk, x, cfg, positions)
+    return x, aux
+
+
+def hidden_forward(params: Transformer, cfg: ArchConfig, tokens=None, frames=None,
+                   image_embeds=None, remat: str = "full"):
+    """Full-sequence forward up to the final norm -> (x (B, S, d_model),
+    aux_loss), grad-enabled.  Self blocks run under ``remat``; a VLM's cross
+    blocks are not rematerialized, as in the reference."""
     x, img = _inputs(params, cfg, tokens, frames, image_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    self_block = _remat(_self_block, remat)
     for blk, cross, _ in _layers(params):
         if cross:
             x, _, _ = _cross_block_apply(blk, x, img, cfg)
         else:
-            x, a, _, _ = _self_block_apply(blk, x, cfg, positions)
+            x, a = self_block(blk, x, cfg, positions)
             aux = aux + a
-    x = L.rms_norm(x, params.final_norm)
+    return L.rms_norm(x, params.final_norm), aux
+
+
+@torch.no_grad()
+def forward(params: Transformer, cfg: ArchConfig, tokens=None, frames=None, image_embeds=None):
+    """Full-sequence forward -> (logits (B, S, V), aux_loss)."""
+    x, aux = hidden_forward(params, cfg, tokens, frames, image_embeds, remat="none")
     return x @ params.head(), aux
 
 

@@ -1,6 +1,9 @@
 """The port's plain attention against the JAX package's oracle and its Pallas
 kernel (interpret mode), on the shapes and tolerances of test_kernels.py."""
 
+import math
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,9 +13,11 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as pallas_flash_attention
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.flash_attention import (
-    TILINGS, attention_tiling, first_masked_row, flash_attention,
+    TILINGS, attention_tiling, check_bwd, first_masked_row, flash_attention, flash_attention_bwd,
 )
-from repro_torch.kernels.ref import attention_mask, ref_flash_attention
+from repro_torch.kernels.ref import (
+    attention_mask, ref_flash_attention, ref_flash_attention_bwd, ref_flash_attention_lse,
+)
 
 torch.set_num_threads(2)  # several test processes share the cores
 
@@ -239,3 +244,118 @@ def test_build_raises_without_nvcc(monkeypatch):
     monkeypatch.setattr(cpp, "CUDA_HOME", None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.find_nvcc()
+
+
+# ---------------------------------------------------------------------------
+# Training: the backward kernel's plain version and the forward's lse
+# ---------------------------------------------------------------------------
+
+BWD_SHAPES = [  # (B, H, KV, Sq, Sk, D, causal, window)
+    (2, 4, 4, 64, 64, 64, True, 0),     # MHA, causal
+    (1, 8, 2, 70, 70, 128, True, 0),    # GQA 4:1, ragged
+    (2, 4, 1, 48, 48, 64, True, 16),    # MQA, sliding window
+    (1, 4, 4, 40, 40, 64, False, 0),    # bidirectional
+    (1, 4, 2, 30, 90, 64, False, 0),    # Sq < Sk
+    (1, 4, 2, 90, 30, 64, True, 0),     # causal, Sq > Sk
+    (1, 2, 2, 50, 50, 32, False, 8),    # window, not causal
+]
+BWD_TOL = dict(rtol=1e-5, atol=1e-5)  # fp32: the same math, sums in another order
+
+
+def _bwd_inputs(seed, B, H, KV, Sq, Sk, D):
+    q, k, v = (torch.from_numpy(a) for a in _qkv(seed, B, H, KV, Sq, Sk, D, np.float32))
+    do = torch.from_numpy(np.random.default_rng(seed + 100).standard_normal((B, H, Sq, D),
+                                                                            dtype=np.float32))
+    return q, k, v, do
+
+
+def _plain_bwd(q, k, v, do, causal, window):
+    o = ref_flash_attention(q, k, v, causal=causal, window=window)
+    lse = ref_flash_attention_lse(q, k, v, causal=causal, window=window)
+    return ref_flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,D,causal,window", BWD_SHAPES)
+def test_plain_bwd_matches_autograd_of_plain_attention(B, H, KV, Sq, Sk, D, causal, window):
+    q, k, v, do = _bwd_inputs(7, B, H, KV, Sq, Sk, D)
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out = ref_flash_attention(qg, kg, vg, causal=causal, window=window)
+    expect = torch.autograd.grad(out, (qg, kg, vg), do)
+    for got, want in zip(_plain_bwd(q, k, v, do, causal, window), expect):
+        assert got.shape == want.shape and got.dtype == torch.float32
+        torch.testing.assert_close(got, want, **BWD_TOL)
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,D,causal,window", BWD_SHAPES)
+def test_plain_bwd_matches_jax_grad_of_reference(B, H, KV, Sq, Sk, D, causal, window):
+    q, k, v, do = _bwd_inputs(8, B, H, KV, Sq, Sk, D)
+    _, vjp = jax.vjp(
+        lambda a, b, c: jref.ref_flash_attention(a, b, c, causal=causal, window=window),
+        *(jnp.asarray(t.numpy()) for t in (q, k, v)),
+    )
+    expect = vjp(jnp.asarray(do.numpy()))
+    for got, want in zip(_plain_bwd(q, k, v, do, causal, window), expect):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **BWD_TOL)
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,D,causal,window", BWD_SHAPES)
+def test_plain_lse_matches_logsumexp_of_masked_scores(B, H, KV, Sq, Sk, D, causal, window):
+    q, k, v, _ = _bwd_inputs(9, B, H, KV, Sq, Sk, D)
+    kk = k.repeat_interleave(H // KV, dim=1)
+    scores = torch.einsum("bhsd,bhtd->bhst", q.double(), kk.double()) / math.sqrt(D)
+    mask = attention_mask(Sq, Sk, causal, window)
+    expect = torch.logsumexp(scores.masked_fill(~mask, -math.inf), dim=-1)
+    got = ref_flash_attention_lse(q, k, v, causal=causal, window=window)
+    assert got.dtype == torch.float32 and got.shape == (B, H, Sq)
+    torch.testing.assert_close(got.double(), expect, rtol=1e-6, atol=1e-6)
+
+
+def test_plain_bwd_keeps_the_input_dtype():
+    q, k, v, do = (t.to(torch.bfloat16) for t in _bwd_inputs(10, 1, 4, 2, 33, 33, 64))
+    grads = _plain_bwd(q, k, v, do, True, 0)
+    assert [g.dtype for g in grads] == [torch.bfloat16] * 3
+    assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+
+
+@pytest.mark.parametrize(
+    "Sq,Sk,causal,window,D,match",
+    [
+        (256, 200, True, 16, 64, "see no key"),   # rows 215.. see no key
+        (256, 200, False, 16, 128, "see no key"),
+        (64, 8, True, 1, 64, "see no key"),
+        (128, 128, True, 0, 80, "head dim 80"),   # hubert-xlarge: the audio slice
+        (128, 128, True, 128, 256, "head dim 256"),  # recurrentgemma-9b: the hybrid slice
+    ],
+)
+def test_backward_refuses_what_it_does_not_take(Sq, Sk, causal, window, D, match):
+    q = torch.zeros(1, 2, Sq, D)
+    k = torch.zeros(1, 2, Sk, D)
+    with pytest.raises(ValueError, match=match):
+        check_bwd(q, k, causal, window)
+
+
+@pytest.mark.parametrize("S,D,causal,window", [(4096, 64, True, 0), (2048, 128, True, 0),
+                                               (1000, 64, False, 0), (2048, 128, True, 2048)])
+def test_backward_takes_the_training_shapes(S, D, causal, window):
+    check_bwd(torch.zeros(1, 1, S, D), torch.zeros(1, 1, S, D), causal, window)
+
+
+def test_backward_wrapper_refuses_cpu_tensors():
+    q, k, v, do = _bwd_inputs(11, 1, 2, 2, 8, 8, 64)
+    lse = torch.zeros(1, 2, 8)
+    with pytest.raises(ValueError, match="CUDA device"):
+        flash_attention_bwd(q, k, v, q, lse, do)
+
+
+def test_ops_attention_on_cpu_stays_differentiable(monkeypatch):
+    """Under grad on the CPU, ``ops.attention`` is the plain version: autograd
+    differentiates it, and no kernel launch is counted."""
+    for name in ATTENTION_COUNTERS + ("attention_bwd_launches",):
+        monkeypatch.setattr(ops, name, 0)
+    q, k, v, do = _bwd_inputs(12, 1, 4, 2, 40, 40, 64)
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out = ops.attention(qg, kg, vg, causal=True, window=16)
+    got = torch.autograd.grad(out, (qg, kg, vg), do)
+    for g, want in zip(got, _plain_bwd(q, k, v, do, True, 16)):
+        torch.testing.assert_close(g, want, **BWD_TOL)
+    assert all(getattr(ops, n) == 0 for n in ATTENTION_COUNTERS + ("attention_bwd_launches",))

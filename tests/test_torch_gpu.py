@@ -1,6 +1,7 @@
-"""The CUDA kernels (flash attention, grouped matmul, Mamba selective scan,
-RG-LRU scan, embedding bag) against their plain versions, and the narrow
-models (and a narrow DLRM) on the card against the CPU.
+"""The CUDA kernels (flash attention and its backward, grouped matmul, Mamba
+selective scan, RG-LRU scan, embedding bag) against their plain versions,
+the narrow models (and a narrow DLRM) on the card against the CPU, and a
+narrow train step on the card against the same on the CPU.
 
 Run on a machine with a CUDA card: ``python -m pytest -m gpu tests/test_torch_gpu.py``.
 Every test here skips without one (decided in the fixture, never at import).
@@ -14,14 +15,19 @@ import torch
 from repro_torch.configs.base import get_config
 from repro_torch.kernels import ops
 from repro_torch.kernels.embedding_bag import embedding_bag
-from repro_torch.kernels.flash_attention import first_masked_row, flash_attention
+from repro_torch.kernels.flash_attention import (
+    FlashAttentionFn, first_masked_row, flash_attention, flash_attention_bwd,
+)
 from repro_torch.kernels.mamba_scan import mamba_scan
 from repro_torch.kernels.moe_gmm import moe_gmm
 from repro_torch.kernels.ref import (
-    ref_embedding_bag, ref_flash_attention, ref_mamba_scan, ref_moe_gmm, ref_rglru_scan,
+    ref_embedding_bag, ref_flash_attention, ref_flash_attention_lse, ref_mamba_scan, ref_moe_gmm,
+    ref_rglru_scan,
 )
 from repro_torch.kernels.rglru_scan import rglru_scan
+from repro_torch import optim
 from repro_torch.models import dlrm, lm
+from repro_torch.train.steps import make_train_step
 
 torch.set_num_threads(2)  # several test processes share the cores
 
@@ -702,3 +708,166 @@ def test_dlrm_on_card_matches_plain_dlrm_on_cpu(cuda, monkeypatch):
     assert ops.bag_lookup_launches == 2
     torch.testing.assert_close(fg.cpu(), fc, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Training: the forward's lse, the backward kernel, the raises under grad
+# ---------------------------------------------------------------------------
+
+BWD_CASES = [  # (B, H, KV, Sq, Sk, causal, window)
+    (2, 4, 4, 200, 200, True, 0),
+    (1, 8, 2, 130, 130, True, 0),      # GQA 4:1, ragged tiles
+    (1, 4, 1, 257, 257, True, 64),     # MQA, sliding window
+    (1, 4, 2, 300, 300, False, 0),     # full
+    (1, 4, 2, 300, 300, False, 48),    # window, not causal
+    (1, 4, 4, 100, 300, False, 0),     # Sq < Sk
+    (1, 4, 2, 127, 65, True, 0),       # causal, Sq > Sk
+    (1, 2, 2, 1, 1, True, 0),          # one token
+    (1, 32, 8, 100, 1601, False, 0),   # llama-3.2-vision-11b's cross-attention to its image
+]
+
+
+def _plain_grads(q, k, v, do, causal, window):
+    qf, kf, vf = (t.float().requires_grad_(True) for t in (q, k, v))
+    out = ref_flash_attention(qf, kf, vf, causal=causal, window=window)
+    return torch.autograd.grad(out, (qf, kf, vf), do.float())
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,causal,window", BWD_CASES)
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+def test_bwd_kernel_matches_autograd_of_plain(cuda, dtype, D, B, H, KV, Sq, Sk, causal, window):
+    """dq, dk, dv within TOL max(max|ref|, 1) of autograd of the plain version
+    (fp32): relative to the largest gradient, and absolute where the gradient
+    cancels to 0 (one key: dS = dP - delta = 0 but for rounding)."""
+    q, k, v = _qkv(cuda, B, H, KV, Sq, Sk, D, dtype, seed=4)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(5),
+                     device=cuda).to(dtype)
+    lse = torch.empty(B, H, Sq, device=cuda)
+    o = flash_attention(q, k, v, causal=causal, window=window, lse=lse)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal, window)
+    torch.cuda.synchronize()
+    for g, want, t in zip(got, _plain_grads(q, k, v, do, causal, window), (q, k, v)):
+        assert g.dtype == dtype and g.shape == t.shape
+        err = float((g.float() - want).abs().max())
+        assert err <= TOL[dtype] * max(float(want.abs().max()), 1.0), err
+
+
+def test_bwd_kernel_is_deterministic(cuda):
+    q, k, v = _qkv(cuda, 2, 8, 2, 300, 300, 64, torch.bfloat16, seed=6)
+    do = torch.randn_like(q)
+    lse = torch.empty(2, 8, 300, device=cuda)
+    o = flash_attention(q, k, v, lse=lse)
+    first = flash_attention_bwd(q, k, v, o, lse, do)
+    for _ in range(3):
+        assert all(torch.equal(a, b) for a, b in zip(flash_attention_bwd(q, k, v, o, lse, do),
+                                                      first))
+
+
+@pytest.mark.parametrize("tiling,dtype", [("wgmma", torch.bfloat16), ("wgmma", torch.float16),
+                                          ("fma", torch.bfloat16), ("fma", torch.float32)])
+@pytest.mark.parametrize("D", [64, 80, 128, 256])
+@pytest.mark.parametrize("Sq,Sk,causal,window", [(200, 200, True, 0), (129, 300, False, 0),
+                                                 (256, 256, True, 64)])
+def test_forward_lse_on_both_tilings(cuda, tiling, dtype, D, Sq, Sk, causal, window):
+    """The lse either tiling writes (natural log) against the plain one; the
+    output is the same with and without it."""
+    q, k, v = _qkv(cuda, 2, 4, 2, Sq, Sk, D, dtype, seed=7)
+    lse = torch.full((2, 4, Sq), float("nan"), device=cuda)
+    out = flash_attention(q, k, v, causal=causal, window=window, tiling=tiling, lse=lse)
+    plain = flash_attention(q, k, v, causal=causal, window=window, tiling=tiling)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain)
+    want = ref_flash_attention_lse(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-4)
+
+
+def test_flash_attention_fn_counts_and_matches_plain(cuda, monkeypatch):
+    """Under grad, ``ops.attention`` goes through FlashAttentionFn: one
+    forward launch with lse, one backward launch, the plain gradients."""
+    for name in ("attention_launches", "attention_fma_launches", "attention_bwd_launches"):
+        monkeypatch.setattr(ops, name, 0)
+    q, k, v = (t.requires_grad_(True) for t in _qkv(cuda, 1, 4, 2, 100, 100, 64, torch.float32))
+    do = torch.randn_like(q)
+    out = ops.attention(q, k, v, causal=True, window=0)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, (q, k, v), do)
+    assert (ops.attention_launches, ops.attention_fma_launches,
+            ops.attention_bwd_launches) == (1, 1, 1)
+    for g, want in zip(got, _plain_grads(q.detach(), k.detach(), v.detach(), do, True, 0)):
+        torch.testing.assert_close(g, want, rtol=1e-4, atol=1e-4)
+    with torch.no_grad():  # serving: the plain launch, no lse, no graph
+        assert ops.attention(q, k, v).grad_fn is None
+    assert ops.attention_launches == 2 and ops.attention_bwd_launches == 1
+
+
+def test_bwd_wrapper_refuses_what_it_does_not_take(cuda):
+    q, k, v = _qkv(cuda, 1, 4, 2, 256, 200, 64, torch.bfloat16)
+    lse = torch.empty(1, 4, 256, device=cuda)
+    with pytest.raises(ValueError, match="see no key"):
+        flash_attention_bwd(q, k, v, q, lse, q, True, 16)
+    with pytest.raises(ValueError, match="see no key"):
+        FlashAttentionFn.apply(q.requires_grad_(True), k, v, True, 16, "wgmma")
+    q80, k80, v80 = _qkv(cuda, 1, 4, 2, 64, 64, 80, torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 80"):
+        flash_attention_bwd(q80, k80, v80, q80, torch.empty(1, 4, 64, device=cuda), q80)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q[:, :, :200], k, v, q[:, :, :200], lse.half()[:, :, :200],
+                            q[:, :, :200])
+
+
+def test_kernels_without_a_backward_raise_under_grad(cuda):
+    """moe_gmm, mamba_scan, rglru_scan and embedding_bag have no backward
+    kernel yet: on a CUDA input that requires grad they raise, naming the
+    ROADMAP item, rather than hand autograd a constant; under no_grad, or
+    with inputs that need no grad, they launch as in serving."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn(4, 8, 64, generator=gen, device=cuda)
+    w = torch.randn(4, 64, 32, generator=gen, device=cuda)
+    a = torch.rand(2, 10, 64, generator=gen, device=cuda)
+    b = torch.randn(2, 10, 64, generator=gen, device=cuda)
+    xc, dt, am, bm, cm, ds = _mamba_inputs(cuda, 2, 10, 64, 16, torch.float32)
+    tables, ids = _bag_inputs(cuda, 2, 100, 16, 3, 2, torch.float32, torch.int32)
+    calls = {
+        "moe_gmm.*C2": (ops.grouped_matmul, (x, w), 1),
+        "mamba_scan.*C3": (ops.selective_scan, (xc, dt, am, bm, cm, ds), 0),
+        "rglru_scan.*C4": (ops.lru_scan, (a, b), 1),
+        "embedding_bag.*C5": (ops.bag_lookup, (tables, ids), 0),
+    }
+    for match, (fn, args, i) in calls.items():
+        fn(*args)  # no input needs grad: the kernel launches
+        args = list(args)
+        args[i] = args[i].detach().clone().requires_grad_(True)
+        with pytest.raises(NotImplementedError, match=match):
+            fn(*args)
+        with torch.no_grad():
+            fn(*args)
+
+
+@pytest.mark.parametrize("remat", ["full", "dots", "none"])
+def test_train_step_on_card_matches_cpu(cuda, remat, monkeypatch):
+    """One narrow fp32 train step (head dim 64, 2 layers, GQA): loss, grad
+    norm and every updated parameter within 1e-4 of the same step on the
+    CPU, and the attention launches remat implies.  SGD: its update is
+    linear in the gradient (AdamW's sign-like first step is held in
+    test_torch_train.py on the CPU)."""
+    for name in ("attention_launches", "attention_bwd_launches"):
+        monkeypatch.setattr(ops, name, 0)
+    cfg = dataclasses.replace(
+        get_config("minicpm-2b").smoke(), d_model=256, n_heads=4, n_kv_heads=2, head_dim=64,
+        d_ff=512, n_layers=2, param_dtype="float32", activation_dtype="float32")
+    m_cpu = lm.init(0, cfg, device="cpu")
+    m_gpu = lm.init(0, cfg, device=cuda)
+    m_gpu.load_state_dict(m_cpu.state_dict())
+    toks = torch.randint(0, cfg.vocab, (2, 77), generator=torch.Generator().manual_seed(3))
+    opt = optim.sgd_momentum(optim.constant(0.1))
+    step = make_train_step(cfg, opt, remat=remat, loss_chunk=32)
+    _, _, mc = step(m_cpu, opt.init(dict(m_cpu.named_parameters())), {"tokens": toks}, 0)
+    _, _, mg = step(m_gpu, opt.init(dict(m_gpu.named_parameters())), {"tokens": toks.to(cuda)}, 0)
+    forward = cfg.n_layers * (1 if remat == "none" else 2)  # remat recomputes the forward
+    assert (ops.attention_launches, ops.attention_bwd_launches) == (forward, cfg.n_layers)
+    for key in ("loss", "xent", "grad_norm"):
+        torch.testing.assert_close(mg[key].cpu(), mc[key], rtol=1e-4, atol=1e-6)
+    for (name, pg), pc in zip(m_gpu.named_parameters(), m_cpu.parameters()):
+        bar = 1e-4 * float(pc.abs().max())
+        assert float((pg.detach().cpu() - pc.detach()).abs().max()) <= bar, name

@@ -32,6 +32,9 @@ SLICE_MODULES = (
     "repro_torch.kernels.moe_gmm", "repro_torch.models.recurrent",
     "repro_torch.kernels.mamba_scan", "repro_torch.kernels.rglru_scan",
     "repro_torch.models.dlrm", "repro_torch.kernels.embedding_bag",
+    "repro_torch.optim.adamw", "repro_torch.optim.schedule", "repro_torch.data.pipeline",
+    "repro_torch.checkpoint.ckpt", "repro_torch.train.steps", "repro_torch.train.loop",
+    "repro_torch.launch.train", "repro_torch.launch.trace_train",
 )
 
 
