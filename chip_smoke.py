@@ -11,10 +11,11 @@ result line:
 2. build: every CUDA kernel of the serving and training paths, from
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, all started together),
    with ptxas's registers, shared memory, spills and wgmma serialisation
-   warnings for each kernel; the warp-specialised wgmma kernels must report
-   the 168 registers their setmaxnreg split (240 x 256 + 24 x 128) is sized
-   for (the forward's lse store included), and the skinny grouped matmul,
-   the Mamba scan and the attention backward's three kernels must not spill;
+   warnings for each kernel; the warp-specialised wgmma kernels (attention
+   forward, the attention backward's dk/dv and dq, the grouped matmul) must
+   report the 168 registers their setmaxnreg split (240 x 256 + 24 x 128) is
+   sized for (the forward's lse store included), and the skinny grouped
+   matmul, the Mamba scan and every attention backward kernel must not spill;
 3. kernels vs their plain PyTorch versions at the serving shapes, with times
    beside the bound and beside one PyTorch library call where one computes
    the same function, each case printing the tiling that served it (wgmma
@@ -47,8 +48,10 @@ result line:
    attention backward and the forward's lse against autograd of the plain
    version (fp32) at minicpm-2b's training shape (B=4, H=KV=36, S=4096,
    D=64, causal, bf16), granite-8b's (H=32, KV=8, S=2048, D=128), in fp32
-   on the fma forward and at a ragged non-causal shape, timed beside SDPA's
-   backward and the bound; and a narrow fp32 train step (head dim 64, 2
+   on the fma forward and at a ragged non-causal shape, bf16 inputs on both
+   backward tilings (wgmma and fma), timed beside SDPA's backward and the
+   bound, and at the training shape the plain forward and SDPA's forward
+   beside the forward kernel; and a narrow fp32 train step (head dim 64, 2
    layers, MHA and GQA) on the card against the CPU: loss, every gradient,
    AdamW's arithmetic and the parameters after one SGD step;
 4. serve granite-8b at full width and depth in bf16 through
@@ -86,9 +89,10 @@ result line:
    4 and resumes from its checkpoint, against an uninterrupted one; then
    minicpm-2b at full width and depth (bf16, fp32 AdamW state, WSD, remat
    "full", loss chunk 1024) for 8 steps of ``batch_for_step`` at 4 x 4096,
-   each with 80 forward and 40 backward attention launches and no other
-   kernel, with its step time, tokens/s, model FLOPs share and peak memory,
-   then 6 steps on one fixed batch, whose loss must fall;
+   each with 80 forward and 40 backward attention launches, all on the
+   wgmma tilings, and no other kernel, with its step time, tokens/s, model
+   FLOPs share and peak memory, then 6 steps on one fixed batch, whose loss
+   must fall;
 6. the script's wall time, one JSON line of per-kernel numbers, the
    ``nvidia-smi`` line, and the result line ``{"ok": true, "device": {...}}``
    last.
@@ -145,6 +149,7 @@ KERNEL_COUNTERS = ("attention_launches", "attention_bwd_launches", "grouped_matm
                    "selective_scan_launches", "lru_scan_launches", "bag_lookup_launches")
 # The same launches again, by the tiling that served them.
 TILING_COUNTERS = ("attention_wgmma_launches", "attention_fma_launches",
+                   "attention_bwd_wgmma_launches", "attention_bwd_fma_launches",
                    "grouped_matmul_wgmma_launches", "grouped_matmul_fma_launches",
                    "grouped_matmul_skinny_launches")
 COUNTERS = KERNEL_COUNTERS + TILING_COUNTERS
@@ -479,10 +484,13 @@ def plain_attention_grads(ref_flash_attention, q, k, v, do, causal: bool):
 def check_attention_bwd(case, gen, dev, smi) -> dict:
     """Phase 3: the forward's lse against the plain one and the backward
     kernel against autograd of the plain version (fp32) on the same inputs,
-    with times: kernel, the forward with and without lse, plain, SDPA's
-    backward (a yardstick only) and the bound."""
+    on the tiling that serves the dtype and, for bf16/fp16 inputs, on the fma
+    tiling too, with times: each tiling, the forward with and without lse,
+    plain, SDPA's backward (a yardstick only) and the bound.  At the main
+    path's shape (``train_shape``) also the plain forward and SDPA's
+    forward, row 1's yardsticks at the training shape."""
     from repro_torch.kernels.flash_attention import (
-        attention_tiling, flash_attention, flash_attention_bwd,
+        attention_bwd_tiling, attention_tiling, flash_attention, flash_attention_bwd,
     )
     from repro_torch.kernels.ref import ref_flash_attention, ref_flash_attention_lse
 
@@ -492,27 +500,30 @@ def check_attention_bwd(case, gen, dev, smi) -> dict:
     do = torch.randn(Bc, Hc, S, Dc, generator=gen, device=dev).to(dtype)
     lse = torch.empty(Bc, Hc, S, dtype=torch.float32, device=dev)
     o = flash_attention(q, k, v, causal=causal, lse=lse)
-    dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal)
+    tiling = attention_bwd_tiling(dtype, Dc)
+    tilings = (tiling, "fma") if tiling != "fma" else (tiling,)
+    grads = {t: flash_attention_bwd(q, k, v, o, lse, do, causal, tiling=t) for t in tilings}
     torch.cuda.synchronize()
-    tiling = attention_tiling(dtype, Dc)
     label = (f"B={Bc} H={Hc} KV={KVc} S={S} D={Dc} {str(dtype)[6:]} causal={causal} "
-             f"forward tiling={tiling}")
+             f"forward tiling={attention_tiling(dtype, Dc)}")
     ref_lse = torch.cat([ref_flash_attention_lse(q[b:b + 1], k[b:b + 1], v[b:b + 1], causal)
                          for b in range(Bc)])
     lse_err = float((lse - ref_lse).abs().max())
     lse_tol = 1e-4 * max(1.0, float(ref_lse.abs().max()))
     require(lse_err <= lse_tol, f"forward lse vs plain, {label}: max|err| {lse_err} > {lse_tol}")
     want = plain_attention_grads(ref_flash_attention, q, k, v, do, causal)
-    errs, bars = {}, {}
-    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
-        require(bool(torch.isfinite(got).all()), f"finite {name}, {label}")
-        errs[name] = float((got.float() - ref).abs().max())
-        bars[name] = TOL[dtype] * float(ref.abs().max())
-        require(errs[name] <= bars[name],
-                f"flash_attention_bwd {name} vs autograd of plain, {label}: max|err| "
-                f"{errs[name]} > {bars[name]} ({TOL[dtype]} max|ref|)")
-    del want
-    kernel_ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, causal), 10)
+    errs, bars = {t: {} for t in tilings}, {}
+    for t in tilings:
+        for name, got, ref in zip(("dq", "dk", "dv"), grads[t], want):
+            require(bool(torch.isfinite(got).all()), f"finite {name}, {label}, tiling {t}")
+            errs[t][name] = float((got.float() - ref).abs().max())
+            bars[name] = TOL[dtype] * float(ref.abs().max())
+            require(errs[t][name] <= bars[name],
+                    f"flash_attention_bwd {name} vs autograd of plain, {label}, tiling {t}: "
+                    f"max|err| {errs[t][name]} > {bars[name]} ({TOL[dtype]} max|ref|)")
+    del want, grads
+    kernel_ms = {t: time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, causal, tiling=t),
+                            10) for t in tilings}
     fwd_ms = time_ms(lambda: flash_attention(q, k, v, causal=causal), 10)
     fwd_lse_ms = time_ms(lambda: flash_attention(q, k, v, causal=causal, lse=lse), 10)
     plain_ms = time_ms(
@@ -522,15 +533,29 @@ def check_attention_bwd(case, gen, dev, smi) -> dict:
                                                            enable_gqa=True)
     library_ms = time_ms(
         lambda: torch.autograd.grad(out, (qr, kr, vr), do, retain_graph=True), 10)
+    del out, qr, kr, vr
     bound_ms, bound_by = attention_bwd_bound(q, k, causal)
+    extra = {}
+    if tiling != "fma":
+        extra = dict(fma_kernel_ms=kernel_ms["fma"], fma_max_abs_err=max(errs["fma"].values()))
+    fwd_yardsticks = ""
+    if case == BWD_CASES[0]:  # the training forward: plain (a batch row at a time) and SDPA
+        extra["fwd_plain_ms"] = time_ms(lambda: [ref_flash_attention(
+            q[b:b + 1], k[b:b + 1], v[b:b + 1], causal=causal) for b in range(Bc)], 2, warmup=1)
+        extra["fwd_library_ms"] = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True), 10)
+        fwd_yardsticks = (f", plain forward {extra['fwd_plain_ms']} ms (a batch row at a time), "
+                          f"SDPA's forward {extra['fwd_library_ms']} ms")
     print(f"phase 3 kernel: flash_attention_bwd {label}: lse max|err| {lse_err} (tol {lse_tol}); "
-          f"max|err| {errs} (bars {bars}) kernel_ms {kernel_ms} plain_ms {plain_ms} (autograd "
-          f"of the plain version, fp32, a batch row at a time) library_ms {library_ms} (SDPA's "
-          f"backward) bound_ms {bound_ms} ({bound_by}); forward {fwd_ms} ms, with lse "
-          f"{fwd_lse_ms} ms; on {smi}")
-    return dict(max_abs_err=max(errs.values()), max_abs_err_by_grad=errs, lse_max_abs_err=lse_err,
-                kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by, fwd_ms=fwd_ms, fwd_lse_ms=fwd_lse_ms)
+          f"max|err| by tiling {errs} (bars {bars}) kernel_ms by tiling {kernel_ms} plain_ms "
+          f"{plain_ms} (autograd of the plain version, fp32, a batch row at a time) library_ms "
+          f"{library_ms} (SDPA's backward) bound_ms {bound_ms} ({bound_by}; 7 products where "
+          f"the bound counts 5, so at most 5/7 of its rate); forward {fwd_ms} ms, with lse "
+          f"{fwd_lse_ms} ms{fwd_yardsticks}; on {smi}")
+    return dict(tiling=tiling, max_abs_err=max(errs[tiling].values()),
+                max_abs_err_by_grad=errs[tiling], lse_max_abs_err=lse_err,
+                kernel_ms=kernel_ms[tiling], plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by, fwd_ms=fwd_ms, fwd_lse_ms=fwd_lse_ms, **extra)
 
 
 def train_config(get_config, kv: int):
@@ -576,7 +601,8 @@ def check_train_step(lm, make_train_step, optim, ops, cfg, dev) -> dict:
     counts = {n: getattr(ops, n) for n in COUNTERS}
     want = {n: 0 for n in COUNTERS}
     want.update(attention_launches=2 * cfg.n_layers, attention_fma_launches=2 * cfg.n_layers,
-                attention_bwd_launches=cfg.n_layers)  # remat "full": forward twice
+                attention_bwd_launches=cfg.n_layers,  # remat "full": forward twice
+                attention_bwd_fma_launches=cfg.n_layers)  # fp32: exact products
     require(counts == want, f"narrow train step launches {counts}, want {want}")
     errs = {"loss": abs(float(lg.detach()) - float(lc.detach())) / abs(float(lc.detach())),
             "grads": max_rel_err(grads_gpu, grads_cpu)}
@@ -686,7 +712,7 @@ def train_full(lm, ops, optim, make_train_step, data, cfg, dev, smi) -> dict:
     L_ = cfg.n_layers
     want = {n: 0 for n in COUNTERS}
     want.update(attention_launches=2 * L_, attention_wgmma_launches=2 * L_,
-                attention_bwd_launches=L_)
+                attention_bwd_launches=L_, attention_bwd_wgmma_launches=L_)
     require(all(c == want for c in per_step), f"launches per step {per_step}, want {want}")
     require(all(math.isfinite(x) for x in losses + norms), f"finite losses {losses}, norms {norms}")
     ln_v = math.log(cfg.vocab)
@@ -762,7 +788,7 @@ def main() -> int:
             print(f"phase 2 build: ptxas {name}: {fn}: {info['registers']} registers, "
                   f"{info['smem']} bytes static smem, spill stores {info['spill_stores']} "
                   f"loads {info['spill_loads']} bytes, wgmma serialised: {info['serialised']}")
-            if "wgmma_kernel" in fn:
+            if "wgmma_kernel" in fn:  # forward, backward (dkdv_, dq_) and grouped matmul
                 # setmaxnreg moves registers within the block's launch-time
                 # allotment: consumers at 240 and the producer at 24 need 168.
                 require(info["registers"] == 168,
@@ -774,6 +800,10 @@ def main() -> int:
                     or name == "flash_attention_bwd"):
                 require(info["spill_stores"] == info["spill_loads"] == 0 and not info["serialised"],
                         f"{fn} spills: {info}")
+    bwd_report = ptxas_report(_build.build_logs.get("flash_attention_bwd", ""))
+    if bwd_report:  # built in this run: the checks above saw both tilings' kernels
+        for base in ("dkdv_wgmma_kernel", "dq_wgmma_kernel", "dkdv_kernel", "dq_kernel"):
+            require(any(fn.startswith(base) for fn in bwd_report), f"ptxas reports no {base}")
 
     # Phase 3: the kernel against its plain version at the serving shapes.
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1311,22 +1341,26 @@ def main() -> int:
         "cross_bf16_fma_ms": cross_case["fma_ms"],
         "train_fwd_ms": bwd[0]["fwd_ms"],
         "train_fwd_lse_ms": bwd[0]["fwd_lse_ms"],
+        "train_fwd_plain_ms": bwd[0]["fwd_plain_ms"],
+        "train_fwd_library_ms": bwd[0]["fwd_library_ms"],
         "train_lse_max_abs_err": bwd[0]["lse_max_abs_err"],
     }, {
         "name": "flash_attention_bwd",
         "route": "cuda",
-        "tiling": "fma",
+        "tiling": bwd[0]["tiling"],
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
         "replaces": None,  # the TPU side has no backward kernel (jax.grad of XLA code)
         "launches": train_bwd,
         "launches_by_path": {f"{TRAIN_ARCH} train, {TRAIN_STEPS} steps": train_bwd},
         "launches_per_step": trained["launches_per_step"]["attention_bwd_launches"],
+        "launches_wgmma": trained["counts"]["attention_bwd_wgmma_launches"],
         "ms": bwd[0]["kernel_ms"],
         **{k: bwd[0][k] for k in ("max_abs_err", "max_abs_err_by_grad", "kernel_ms", "plain_ms",
-                                  "library_ms", "bound_ms", "bound_by")},
-        **{f"gqa_d128_{k}": bwd[1][k] for k in ("max_abs_err", "kernel_ms", "plain_ms",
-                                                 "library_ms", "bound_ms")},
-        **{f"fp32_{k}": bwd[2][k] for k in ("max_abs_err", "kernel_ms", "library_ms",
+                                  "library_ms", "bound_ms", "bound_by", "fma_kernel_ms",
+                                  "fma_max_abs_err")},
+        **{f"gqa_d128_{k}": bwd[1][k] for k in ("tiling", "max_abs_err", "kernel_ms", "plain_ms",
+                                                 "library_ms", "bound_ms", "fma_kernel_ms")},
+        **{f"fp32_{k}": bwd[2][k] for k in ("tiling", "max_abs_err", "kernel_ms", "library_ms",
                                              "bound_ms")},
     }, {
         "name": "moe_gmm",

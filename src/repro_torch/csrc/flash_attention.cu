@@ -330,14 +330,6 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, float
 
 // wgmma kernel.
 
-// The value of x, hidden from the optimiser: descriptors computed from it
-// inside the kv loop stay there, instead of being hoisted out of it and
-// held in registers for the whole loop.
-__device__ __forceinline__ uint32_t opaque(uint32_t x) {
-  asm volatile("" : "+r"(x));
-  return x;
-}
-
 namespace wg {
 constexpr int BQ = 128;  // query rows per block: two consumer warpgroups of 64
 constexpr int BK = 64;   // keys per k/v tile
@@ -444,9 +436,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       const uint32_t parity = (i / STAGES) & 1;
       const int k0 = kt * BK;
       // Shared-memory addresses of this warpgroup's q rows and of the stage.
-      const uint32_t qw = opaque(hopper::smem_u32(sq) + warpgroup * 64 * 128);
-      const uint32_t ks = opaque(hopper::smem_u32(sk) + s * S::KV);
-      const uint32_t vs = opaque(hopper::smem_u32(sv) + s * S::KV);
+      const uint32_t qw = hopper::opaque(hopper::smem_u32(sq) + warpgroup * 64 * 128);
+      const uint32_t ks = hopper::opaque(hopper::smem_u32(sk) + s * S::KV);
+      const uint32_t vs = hopper::opaque(hopper::smem_u32(sv) + s * S::KV);
       hopper::mbar_wait(&k_full[s], parity);
       // A tile wholly masked for this warpgroup's rows (or a warpgroup past
       // Sq) only waits for its loads and frees the stage.
@@ -509,13 +501,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         // P as wgmma A fragments, one per 16 keys: the accumulator layout of
         // keys 16kk .. 16kk+15 is the A fragment's.
         uint32_t pa[BK / 16][4];
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          pa[kk][0] = hopper::pack2<T>(sc[8 * kk + 0], sc[8 * kk + 1]);
-          pa[kk][1] = hopper::pack2<T>(sc[8 * kk + 2], sc[8 * kk + 3]);
-          pa[kk][2] = hopper::pack2<T>(sc[8 * kk + 4], sc[8 * kk + 5]);
-          pa[kk][3] = hopper::pack2<T>(sc[8 * kk + 6], sc[8 * kk + 7]);
-        }
+        hopper::to_a_frags<T>(pa, sc);
 #pragma unroll
         for (int n = 0; n < DP / 2; ++n) acc[n] *= alpha[(n / 2) % 2];
 

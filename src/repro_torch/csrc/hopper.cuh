@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels
-// (flash_attention.cu, moe_gmm.cu, mamba_scan.cu): mbarriers, TMA tile
-// loads, the SFU's exp2, wgmma shared-memory descriptors and products, the
-// producer/consumer register split, and the host-side encoding of TMA
-// tensor maps.
+// (flash_attention.cu, flash_attention_bwd.cu, moe_gmm.cu, mamba_scan.cu):
+// mbarriers, TMA tile loads, the SFU's exp2, wgmma shared-memory
+// descriptors and products, the producer/consumer register split, and the
+// host-side encoding of TMA tensor maps.
 //
 // Layout convention of the tensor-core kernels (the skinny weight stream
 // and the Mamba scan read plain, unswizzled boxes).  Every wgmma operand
@@ -136,6 +136,14 @@ template <int N> __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
+// The value of x, hidden from the optimiser: shared-memory descriptors
+// computed from it inside a tile loop stay there, instead of being hoisted
+// out of it and held in registers for the whole loop.
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
 // Keeps the compiler from moving reads or writes of accumulator registers
 // across an asynchronous wgmma (before it starts and after it is waited for).
 template <int N> __device__ __forceinline__ void fence_regs(float (&d)[N]) {
@@ -153,6 +161,18 @@ template <> __device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, f
 template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
   __half2 v = __floats2half2_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// An m64nN accumulator fragment (N/2 fp32 registers a thread) as the wgmma
+// A fragments of its K = N/16 k16 steps, rounded to T: the layouts agree
+// (see Wgmma below), so a product's output feeds the next product from
+// registers, as P feeds P V in attention.
+template <typename T, int K>
+__device__ __forceinline__ void to_a_frags(uint32_t (&a)[K][4], const float (&d)[8 * K]) {
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[kk][e] = pack2<T>(d[8 * kk + 2 * e], d[8 * kk + 2 * e + 1]);
 }
 
 // wgmma.mma_async m64nNk16 with an fp32 accumulator d of N/2 registers a

@@ -21,8 +21,10 @@ a key, and does nothing at Sq = Sk (every served prefill).
 
 Training: given ``lse``, either tiling also writes each query row's
 log-sum-exp, and :func:`flash_attention_bwd` (``csrc/flash_attention_bwd.cu``,
-head dims 64 and 128) computes dq, dk and dv from it.
-:class:`FlashAttentionFn` joins the two for autograd.  The backward refuses
+head dims 64 and 128) computes dq, dk and dv from it on one of two tilings,
+``wgmma`` (bf16/fp16) and ``fma`` (any dtype; exact fp32), one C entry point
+each; :func:`attention_bwd_tiling` chooses.  :class:`FlashAttentionFn` joins
+the forward and the backward for autograd.  The backward refuses
 shapes with rows that see no key: the mean-of-v rows have a gradient the
 kernel does not compute, and no training shape (Sq = Sk) has them.
 """
@@ -74,8 +76,19 @@ def _entry(tiling: str):
     return fn
 
 
-def _bwd_entry():
-    fn = _build.load("flash_attention_bwd").repro_flash_attention_bwd
+def attention_bwd_tiling(dtype: torch.dtype, head_dim: int) -> str:
+    """The backward tiling for this dtype and head dim: ``"wgmma"`` for
+    bf16/fp16, ``"fma"`` for fp32 (exact fp32 products, which TF32 would not
+    give)."""
+    if head_dim not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: head dim {head_dim} not in {BWD_HEAD_DIMS}")
+    if dtype not in DTYPE_CODES:
+        raise ValueError(f"flash_attention_bwd: dtype {dtype} not in {list(DTYPE_CODES)}")
+    return "wgmma" if dtype in HALF_DTYPES else "fma"
+
+
+def _bwd_entry(tiling: str):
+    fn = getattr(_build.load("flash_attention_bwd"), f"repro_flash_attention_bwd_{tiling}")
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p] * 10 + [i] * 9 + [p]
@@ -156,13 +169,15 @@ def check_bwd(q, k, causal: bool, window: int) -> None:
                          "output has a gradient the kernel does not compute")
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True, window: int = 0):
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True, window: int = 0,
+                        tiling: str | None = None):
     """The gradient of :func:`flash_attention` -> (dq, dk, dv) in q's dtype.
 
     q, o, do: (B, H, Sq, D); k, v: (B, KV, Sk, D); lse: (B, H, Sq) fp32 from
-    the forward, all on one CUDA device; D 64 or 128.  Launches the CUDA
-    backward once (three kernels on the current stream), or raises: it
-    never computes on another path.
+    the forward, all on one CUDA device; D 64 or 128.  ``tiling`` defaults
+    to :func:`attention_bwd_tiling`'s choice; a tiling that does not take
+    the dtype raises.  Launches the CUDA backward once (three kernels on the
+    current stream), or raises: it never computes on another path.
     """
     ts = (q, k, v, o, lse, do)
     if not all(t.is_cuda and t.device == q.device for t in ts):
@@ -182,27 +197,31 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True, window: int = 
     if window < 0:
         raise ValueError("flash_attention_bwd: negative window")
     check_bwd(q, k, causal, window)
+    tiling = tiling or attention_bwd_tiling(q.dtype, D)
+    if tiling not in TILINGS or (tiling == "wgmma" and q.dtype not in HALF_DTYPES):
+        raise ValueError(f"flash_attention_bwd: tiling {tiling!r} does not take {q.dtype}")
     q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))
     lse = lse.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = _bwd_entry()(
+        err = _bwd_entry(tiling)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
             B, H, KV, Sq, Sk, D, int(bool(causal)), int(window), DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err:
-        raise RuntimeError(f"flash_attention_bwd: CUDA error {err} at launch")
+        raise RuntimeError(f"flash_attention_bwd ({tiling}): CUDA error {err} at launch")
     return dq, dk, dv
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """Flash attention with a gradient: the forward launches the kernel with
     ``lse`` and saves what it launched on (``_aligned`` may copy) with the
-    output and ``lse``; the backward launches :func:`flash_attention_bwd`.
-    ``apply(q, k, v, causal, window, tiling)``."""
+    output and ``lse``; the backward launches :func:`flash_attention_bwd` on
+    :func:`attention_bwd_tiling`'s choice.  ``apply(q, k, v, causal, window,
+    tiling)``, ``tiling`` the forward's."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, tiling):
@@ -220,6 +239,11 @@ class FlashAttentionFn(torch.autograd.Function):
         from . import ops  # the launch counters; ops imports this module
 
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal, ctx.window)
+        tiling = attention_bwd_tiling(q.dtype, q.shape[-1])
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal, ctx.window, tiling)
         ops.attention_bwd_launches += 1
+        if tiling == "wgmma":
+            ops.attention_bwd_wgmma_launches += 1
+        else:
+            ops.attention_bwd_fma_launches += 1
         return dq, dk, dv, None, None, None

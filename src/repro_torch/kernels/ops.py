@@ -9,7 +9,8 @@ launch under the tiling that served it (``attention_wgmma_launches``, ...).
 
 Training: on a CUDA input that needs a gradient, ``attention`` goes through
 :class:`FlashAttentionFn`, whose forward also writes the log-sum-exp and
-whose backward launches the backward kernel (``attention_bwd_launches``).
+whose backward launches the backward kernel (``attention_bwd_launches``, and
+by tiling ``attention_bwd_wgmma_launches`` or ``attention_bwd_fma_launches``).
 The other kernels have no backward yet: their wrappers raise
 ``NotImplementedError`` on a CUDA input that requires grad while grad is
 enabled, rather than hand autograd a constant.  The CPU path (the plain
@@ -33,6 +34,8 @@ attention_launches = 0
 attention_wgmma_launches = 0
 attention_fma_launches = 0
 attention_bwd_launches = 0  # counted by FlashAttentionFn.backward
+attention_bwd_wgmma_launches = 0
+attention_bwd_fma_launches = 0
 grouped_matmul_launches = 0
 grouped_matmul_wgmma_launches = 0
 grouped_matmul_fma_launches = 0

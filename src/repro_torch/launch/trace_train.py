@@ -9,8 +9,8 @@ one untraced warm-up step on ``batch_for_step(0)``, then traces step 1 with
 ``torch.profiler`` and prints the host-clock wall time, the summed device
 time of its kernels, the device idle share, the kernels that took the most
 device time (as ``trace_serve`` does) and the device time by group: the
-attention backward kernels, the attention forward kernels, cuBLAS GEMMs and
-the rest.  Card only: device time is what it reports.
+attention backward kernels (either tiling), the attention forward kernels,
+cuBLAS GEMMs and the rest.  Card only: device time is what it reports.
 """
 
 from __future__ import annotations
@@ -38,10 +38,15 @@ from repro_torch.train.steps import make_train_step
 
 # Kernel-name patterns of each group, tried in order; the rest is "other".
 GROUPS = (
-    ("attention backward", re.compile(r"delta_kernel|dkdv_kernel|dq_kernel")),
+    ("attention backward", re.compile(r"delta_kernel|dkdv_(wgmma_)?kernel|dq_(wgmma_)?kernel")),
     ("attention forward", re.compile(r"flash_attention_(wgmma|fwd)_kernel")),
     ("GEMM", re.compile(r"gemm|cutlass|xmma|sm90_|nvjet", re.IGNORECASE)),  # cuBLAS
 )
+
+
+def group_of(kernel: str) -> str:
+    """The group of a kernel, by its name as the profiler reports it."""
+    return next((name for name, pat in GROUPS if pat.search(kernel)), "other")
 
 
 def _groups(prof) -> None:
@@ -49,8 +54,7 @@ def _groups(prof) -> None:
     total = sum(e.self_device_time_total for e in kernels)
     sums = {name: 0.0 for name, _ in GROUPS} | {"other": 0.0}
     for e in kernels:
-        group = next((name for name, pat in GROUPS if pat.search(e.key)), "other")
-        sums[group] += e.self_device_time_total
+        sums[group_of(e.key)] += e.self_device_time_total
     for name, t in sums.items():
         print(f"  group {name}: {t / 1e3} ms ({t / total:.2%})")
 

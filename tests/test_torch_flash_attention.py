@@ -11,10 +11,13 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as pallas_flash_attention
+from repro.models.layers import _sdpa, causal_mask
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.flash_attention import (
-    TILINGS, attention_tiling, check_bwd, first_masked_row, flash_attention, flash_attention_bwd,
+    TILINGS, attention_bwd_tiling, attention_tiling, check_bwd, first_masked_row,
+    flash_attention, flash_attention_bwd,
 )
+from repro_torch.launch.trace_train import group_of
 from repro_torch.kernels.ref import (
     attention_mask, ref_flash_attention, ref_flash_attention_bwd, ref_flash_attention_lse,
 )
@@ -347,10 +350,14 @@ def test_backward_wrapper_refuses_cpu_tensors():
         flash_attention_bwd(q, k, v, q, lse, do)
 
 
+BWD_COUNTERS = ("attention_bwd_launches", "attention_bwd_wgmma_launches",
+                "attention_bwd_fma_launches")
+
+
 def test_ops_attention_on_cpu_stays_differentiable(monkeypatch):
     """Under grad on the CPU, ``ops.attention`` is the plain version: autograd
-    differentiates it, and no kernel launch is counted."""
-    for name in ATTENTION_COUNTERS + ("attention_bwd_launches",):
+    differentiates it, and no kernel launch is counted, on either tiling."""
+    for name in ATTENTION_COUNTERS + BWD_COUNTERS:
         monkeypatch.setattr(ops, name, 0)
     q, k, v, do = _bwd_inputs(12, 1, 4, 2, 40, 40, 64)
     qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
@@ -358,4 +365,151 @@ def test_ops_attention_on_cpu_stays_differentiable(monkeypatch):
     got = torch.autograd.grad(out, (qg, kg, vg), do)
     for g, want in zip(got, _plain_bwd(q, k, v, do, True, 16)):
         torch.testing.assert_close(g, want, **BWD_TOL)
-    assert all(getattr(ops, n) == 0 for n in ATTENTION_COUNTERS + ("attention_bwd_launches",))
+    assert all(getattr(ops, n) == 0 for n in ATTENTION_COUNTERS + BWD_COUNTERS)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_ops_attention_on_cpu_in_half_counts_no_backward_tiling(monkeypatch, dtype):
+    """bf16 would take the wgmma backward on a card; on the CPU autograd
+    differentiates the plain version and no backward tiling is counted."""
+    for name in ATTENTION_COUNTERS + BWD_COUNTERS:
+        monkeypatch.setattr(ops, name, 0)
+    q, k, v, do = (t.to(dtype) for t in _bwd_inputs(13, 1, 4, 2, 40, 40, 64))
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    got = torch.autograd.grad(ops.attention(qg, kg, vg, causal=True, window=0), (qg, kg, vg), do)
+    qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+    want = torch.autograd.grad(ref_flash_attention(qr, kr, vr, causal=True), (qr, kr, vr), do)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert all(getattr(ops, n) == 0 for n in ATTENTION_COUNTERS + BWD_COUNTERS)
+
+
+# ---------------------------------------------------------------------------
+# The backward's two tilings: the choice, and the wgmma tiling's roundings
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "dtype,head_dim,want",
+    [
+        (torch.bfloat16, 64, "wgmma"),   # minicpm-2b's training attention
+        (torch.bfloat16, 128, "wgmma"),  # granite-8b/34b, deepseek-coder-33b
+        (torch.float16, 64, "wgmma"),
+        (torch.float16, 128, "wgmma"),
+        (torch.float32, 64, "fma"),      # the narrow fp32 models: exact fp32 products
+        (torch.float32, 128, "fma"),
+        (torch.bfloat16, 80, ValueError),   # hubert-xlarge: the audio slice
+        (torch.bfloat16, 256, ValueError),  # recurrentgemma-9b: the hybrid slice
+        (torch.float32, 16, ValueError),    # the smoke configs' head dim: CPU only
+        (torch.int32, 64, ValueError),
+    ],
+)
+def test_attention_bwd_tiling(dtype, head_dim, want):
+    if isinstance(want, str):
+        assert attention_bwd_tiling(dtype, head_dim) == want
+    else:
+        with pytest.raises(want):
+            attention_bwd_tiling(dtype, head_dim)
+
+
+@pytest.mark.parametrize("tiling", TILINGS)
+def test_backward_wrapper_refuses_cpu_tensors_for_every_tiling(tiling):
+    q, k, v, do = (t.to(torch.bfloat16) for t in _bwd_inputs(11, 1, 2, 2, 8, 8, 64))
+    with pytest.raises(ValueError, match="CUDA device"):
+        flash_attention_bwd(q, k, v, q, torch.zeros(1, 2, 8), do, tiling=tiling)
+
+
+def _wgmma_bwd_emulation(q, k, v, do, causal, window):
+    """The wgmma backward tiling's arithmetic on the CPU: q, k, v, do in their
+    16-bit dtype, o as the forward stores it (rounded to that dtype), S, dP,
+    P and dS in fp32, P and dS rounded to the 16-bit dtype where the kernel
+    packs them into wgmma A fragments, the dV, dK and dQ products summed in
+    fp32, and the gradients rounded to the dtype."""
+    dtype = q.dtype
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    o = ref_flash_attention(q, k, v, causal=causal, window=window)
+    lse = ref_flash_attention_lse(q, k, v, causal=causal, window=window)
+    qf, of, dof = (t.float().reshape(B, KV, H // KV, Sq, D) for t in (q, o, do))
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bkgsd,bktd->bkgst", qf, kf) / math.sqrt(D)
+    mask = attention_mask(Sq, Sk, causal, window)
+    p = torch.where(mask, torch.exp(s - lse.reshape(B, KV, H // KV, Sq, 1)), 0.0)
+    dp = torch.einsum("bkgsd,bktd->bkgst", dof, vf)
+    ds = p * (dp - (dof * of).sum(dim=-1, keepdim=True))
+    p16, ds16 = p.to(dtype).float(), ds.to(dtype).float()
+    dv = torch.einsum("bkgst,bkgsd->bktd", p16, dof)
+    dk = torch.einsum("bkgst,bkgsd->bktd", ds16, qf) / math.sqrt(D)
+    dq = torch.einsum("bkgst,bktd->bkgsd", ds16, kf) / math.sqrt(D)
+    return dq.reshape(B, H, Sq, D).to(dtype), dk.to(dtype), dv.to(dtype)
+
+
+def _jax_grad_of_sdpa(q, k, v, do, causal, window):
+    """jax.grad of the JAX model's ``_sdpa`` (fp32, on the same values) in the
+    port's layouts: q, do (B, H, Sq, D); k, v (B, KV, Sk, D); unmasked when
+    not causal."""
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    to_q = lambda t: jnp.asarray(t.float().numpy().reshape(B, KV, H // KV, Sq, D)
+                                 .transpose(0, 3, 1, 2, 4))
+    to_k = lambda t: jnp.asarray(t.float().numpy().transpose(0, 2, 1, 3))
+    mask = causal_mask(Sq, Sk, window=window) if causal else None
+    dog = to_q(do)
+    loss = lambda a, b, c: jnp.sum(_sdpa(a, b, c, mask) * dog)
+    dq, dk, dv = jax.grad(loss, argnums=(0, 1, 2))(to_q(q), to_k(k), to_k(v))
+    return (np.asarray(dq).transpose(0, 2, 3, 1, 4).reshape(B, H, Sq, D),
+            np.asarray(dk).transpose(0, 2, 1, 3), np.asarray(dv).transpose(0, 2, 1, 3))
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 48), (False, 0)])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_wgmma_bwd_roundings_match_jax_grad_of_sdpa(dtype, D, causal, window):
+    """The wgmma tiling rounds P and dS to 16 bits before its dV, dK and dQ
+    products (as the JAX model rounds its probabilities to v's dtype); on
+    the same inputs its gradients stay within the card's bar, 2e-2 of the
+    largest gradient, of jax.grad of the reference attention.  S = 130 puts
+    ragged edges in the 64-row tiles, and GQA 2:1 sums dk and dv over two
+    heads."""
+    q, k, v, do = (t.to(dtype) for t in _bwd_inputs(21, 2, 4, 2, 130, 130, D))
+    got = _wgmma_bwd_emulation(q, k, v, do, causal, window)
+    want = _jax_grad_of_sdpa(q, k, v, do, causal, window)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        err = float(np.abs(g.float().numpy() - w).max())
+        assert err <= 2e-2 * float(np.abs(w).max()), (name, err)
+
+
+def test_wgmma_bwd_emulation_in_fp32_is_the_plain_backward():
+    """Without the 16-bit roundings the emulation is the plain backward: the
+    rounding is the one thing it adds."""
+    q, k, v, do = _bwd_inputs(22, 1, 4, 2, 70, 70, 64)
+    for got, want in zip(_wgmma_bwd_emulation(q, k, v, do, True, 16),
+                         _plain_bwd(q, k, v, do, True, 16)):
+        torch.testing.assert_close(got, want, **BWD_TOL)
+
+
+@pytest.mark.parametrize(
+    "kernel,group",
+    [
+        ("void (anonymous namespace)::dkdv_wgmma_kernel<__nv_bfloat16, 64>(CUtensorMap_st, "
+         "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float const*, float const*, "
+         "__nv_bfloat16*, __nv_bfloat16*, int, int, int, int, int, int, float, float)",
+         "attention backward"),
+        ("void (anonymous namespace)::dq_wgmma_kernel<__half, 128>(CUtensorMap_st)",
+         "attention backward"),
+        ("void (anonymous namespace)::dkdv_kernel<float, 64>(float const*)", "attention backward"),
+        ("void (anonymous namespace)::dq_kernel<float, 128>(float const*)", "attention backward"),
+        ("void (anonymous namespace)::delta_kernel<__nv_bfloat16, 64>(__nv_bfloat16 const*)",
+         "attention backward"),
+        ("void (anonymous namespace)::flash_attention_wgmma_kernel<__nv_bfloat16, 64>("
+         "CUtensorMap_st)", "attention forward"),
+        ("void (anonymous namespace)::flash_attention_fwd_kernel<float, 64, 64, 64>(float const*)",
+         "attention forward"),
+        ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", "GEMM"),
+        ("void at::native::vectorized_elementwise_kernel<4, at::native::AUnaryFunctor>", "other"),
+    ],
+)
+def test_trace_train_groups_both_backward_tilings(kernel, group):
+    assert group_of(kernel) == group

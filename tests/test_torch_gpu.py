@@ -733,19 +733,28 @@ def _plain_grads(q, k, v, do, causal, window):
     return torch.autograd.grad(out, (qf, kf, vf), do.float())
 
 
+BWD_TILINGS = [("wgmma", torch.bfloat16), ("wgmma", torch.float16), ("fma", torch.float32),
+               ("fma", torch.float16), ("fma", torch.bfloat16)]
+BWD_COUNTERS = ("attention_launches", "attention_wgmma_launches", "attention_fma_launches",
+                "attention_bwd_launches", "attention_bwd_wgmma_launches",
+                "attention_bwd_fma_launches")
+
+
 @pytest.mark.parametrize("B,H,KV,Sq,Sk,causal,window", BWD_CASES)
 @pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
-def test_bwd_kernel_matches_autograd_of_plain(cuda, dtype, D, B, H, KV, Sq, Sk, causal, window):
+@pytest.mark.parametrize("tiling,dtype", BWD_TILINGS)
+def test_bwd_kernel_matches_autograd_of_plain(cuda, tiling, dtype, D, B, H, KV, Sq, Sk, causal,
+                                              window):
     """dq, dk, dv within TOL max(max|ref|, 1) of autograd of the plain version
-    (fp32): relative to the largest gradient, and absolute where the gradient
-    cancels to 0 (one key: dS = dP - delta = 0 but for rounding)."""
+    (fp32), on either tiling: relative to the largest gradient, and absolute
+    where the gradient cancels to 0 (one key: dS = dP - delta = 0 but for
+    rounding)."""
     q, k, v = _qkv(cuda, B, H, KV, Sq, Sk, D, dtype, seed=4)
     do = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(5),
                      device=cuda).to(dtype)
     lse = torch.empty(B, H, Sq, device=cuda)
     o = flash_attention(q, k, v, causal=causal, window=window, lse=lse)
-    got = flash_attention_bwd(q, k, v, o, lse, do, causal, window)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal, window, tiling=tiling)
     torch.cuda.synchronize()
     for g, want, t in zip(got, _plain_grads(q, k, v, do, causal, window), (q, k, v)):
         assert g.dtype == dtype and g.shape == t.shape
@@ -753,15 +762,34 @@ def test_bwd_kernel_matches_autograd_of_plain(cuda, dtype, D, B, H, KV, Sq, Sk, 
         assert err <= TOL[dtype] * max(float(want.abs().max()), 1.0), err
 
 
-def test_bwd_kernel_is_deterministic(cuda):
-    q, k, v = _qkv(cuda, 2, 8, 2, 300, 300, 64, torch.bfloat16, seed=6)
+@pytest.mark.parametrize("tiling", ["wgmma", "fma"])
+@pytest.mark.parametrize("D", [64, 128])
+def test_bwd_kernel_is_deterministic(cuda, tiling, D):
+    """No atomics: every sum runs in a fixed order, so repeated launches give
+    the same bits (GQA 4:1, so dk and dv sum over 4 heads)."""
+    q, k, v = _qkv(cuda, 2, 8, 2, 300, 300, D, torch.bfloat16, seed=6)
     do = torch.randn_like(q)
     lse = torch.empty(2, 8, 300, device=cuda)
     o = flash_attention(q, k, v, lse=lse)
-    first = flash_attention_bwd(q, k, v, o, lse, do)
+    first = flash_attention_bwd(q, k, v, o, lse, do, tiling=tiling)
     for _ in range(3):
-        assert all(torch.equal(a, b) for a, b in zip(flash_attention_bwd(q, k, v, o, lse, do),
-                                                      first))
+        again = flash_attention_bwd(q, k, v, o, lse, do, tiling=tiling)
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
+
+
+@pytest.mark.parametrize("D", [80, 256])
+def test_bwd_kernel_refuses_head_dims_it_does_not_take(cuda, D):
+    q, k, v = _qkv(cuda, 1, 2, 2, 64, 64, D, torch.bfloat16)
+    lse = torch.zeros(1, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match=f"head dim {D}"):
+        flash_attention_bwd(q, k, v, q, lse, q)
+
+
+def test_bwd_wgmma_tiling_refuses_fp32(cuda):
+    q, k, v = _qkv(cuda, 1, 2, 2, 64, 64, 64, torch.float32)
+    lse = torch.zeros(1, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="does not take"):
+        flash_attention_bwd(q, k, v, q, lse, q, tiling="wgmma")
 
 
 @pytest.mark.parametrize("tiling,dtype", [("wgmma", torch.bfloat16), ("wgmma", torch.float16),
@@ -785,15 +813,16 @@ def test_forward_lse_on_both_tilings(cuda, tiling, dtype, D, Sq, Sk, causal, win
 def test_flash_attention_fn_counts_and_matches_plain(cuda, monkeypatch):
     """Under grad, ``ops.attention`` goes through FlashAttentionFn: one
     forward launch with lse, one backward launch, the plain gradients."""
-    for name in ("attention_launches", "attention_fma_launches", "attention_bwd_launches"):
+    for name in BWD_COUNTERS:
         monkeypatch.setattr(ops, name, 0)
     q, k, v = (t.requires_grad_(True) for t in _qkv(cuda, 1, 4, 2, 100, 100, 64, torch.float32))
     do = torch.randn_like(q)
     out = ops.attention(q, k, v, causal=True, window=0)
     assert out.grad_fn is not None
     got = torch.autograd.grad(out, (q, k, v), do)
-    assert (ops.attention_launches, ops.attention_fma_launches,
-            ops.attention_bwd_launches) == (1, 1, 1)
+    assert {n: getattr(ops, n) for n in BWD_COUNTERS} == dict(
+        attention_launches=1, attention_wgmma_launches=0, attention_fma_launches=1,
+        attention_bwd_launches=1, attention_bwd_wgmma_launches=0, attention_bwd_fma_launches=1)
     for g, want in zip(got, _plain_grads(q.detach(), k.detach(), v.detach(), do, True, 0)):
         torch.testing.assert_close(g, want, rtol=1e-4, atol=1e-4)
     with torch.no_grad():  # serving: the plain launch, no lse, no graph
@@ -871,3 +900,21 @@ def test_train_step_on_card_matches_cpu(cuda, remat, monkeypatch):
     for (name, pg), pc in zip(m_gpu.named_parameters(), m_cpu.parameters()):
         bar = 1e-4 * float(pc.abs().max())
         assert float((pg.detach().cpu() - pc.detach()).abs().max()) <= bar, name
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_attention_fn_counts_one_wgmma_backward_in_half(cuda, monkeypatch, dtype):
+    """In bf16 and fp16 both passes run on the tensor cores: one wgmma forward
+    and one wgmma backward, with the gradients of the plain version."""
+    for name in BWD_COUNTERS:
+        monkeypatch.setattr(ops, name, 0)
+    q, k, v = (t.requires_grad_(True) for t in _qkv(cuda, 1, 8, 2, 200, 200, 128, dtype, seed=8))
+    do = torch.randn_like(q)
+    got = torch.autograd.grad(ops.attention(q, k, v, causal=True, window=0), (q, k, v), do)
+    assert {n: getattr(ops, n) for n in BWD_COUNTERS} == dict(
+        attention_launches=1, attention_wgmma_launches=1, attention_fma_launches=0,
+        attention_bwd_launches=1, attention_bwd_wgmma_launches=1, attention_bwd_fma_launches=0)
+    for g, want in zip(got, _plain_grads(q.detach(), k.detach(), v.detach(), do, True, 0)):
+        assert g.dtype == dtype
+        err = float((g.float() - want).abs().max())
+        assert err <= TOL[dtype] * float(want.abs().max()), err
