@@ -93,7 +93,27 @@ result line:
    wgmma tilings, and no other kernel, with its step time, tokens/s, model
    FLOPs share and peak memory, then 6 steps on one fixed batch, whose loss
    must fall;
-6. the script's wall time, one JSON line of per-kernel numbers, the
+6. plan: the planner (``repro_torch.core``) on the card at the paper's
+   128-server scale (degree 4, 100 Gbps links), each result held against
+   the same call on the CPU or against the NumPy oracles: (6a) pricing 256
+   pool demands of the paper's jobs with ``TorchPlanEvaluator`` (within
+   1e-9 of the NumPy evaluator, two calls bitwise equal; its device busy
+   time, wall time and idle share, beside one ``index_put_(accumulate=True)``
+   over the same stream, the design it is held against); (6b) the flat and
+   grid chain programs at the fused admission's shape (V of 4 candidates x
+   4 tenants x 64 strategies x 416 links, the ladder 0.05-0.4, 16 chains,
+   200 iterations) index for index against ``run_chains_reference`` /
+   ``run_grid_reference`` on their first 4 chains, energies at rtol 1e-12,
+   two runs bitwise equal; (6c) ``alternating_optimize`` of DLRM through
+   its defaults, which plan on the card (2 rounds, 200 iterations, 32
+   chains, pool 64), with the plan of the same
+   call on the CPU (strategy ``hybrid``, topology, ``iter_time`` to the
+   bit), and CANDLE staying ``dp``; (6d) the fused four-tenant admission
+   ``co_optimize_jobset`` over 4 placements (16 chains, the default ladder,
+   2 rounds) with the CPU's plan.  It prints wall times beside the NumPy
+   backend's, and the chain programs' device time, launches and idle share
+   (``torch.profiler``);
+7. the script's wall time, one JSON line of per-kernel numbers, the
    ``nvidia-smi`` line, and the result line ``{"ok": true, "device": {...}}``
    last.
 
@@ -1286,6 +1306,10 @@ def main() -> int:
     summary = {k: trained[k] for k in ("n_params", "step_ms", "tokens_per_s", "mfu", "peak_gb")}
     print(f"phase 5 summary: {json.dumps(summary)} on {smi}")
 
+    # Phase 6: the planner on the card.
+    planned = plan_phase(dev, smi)
+    print(f"phase 6 summary: {json.dumps(planned)} on {smi}")
+
     print(f"chip_smoke: wall time {time.perf_counter() - T_START} s, the kernels' build "
           "included")
 
@@ -1782,6 +1806,319 @@ def encode_audio(lm, ops, cfg, dev, smi) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return counts
+
+
+# Phase 6 (the planner): the paper's 128-server simulations (§5) at degree 4
+# and 100 Gbps links; the fused admission's four tenants (32 servers each)
+# over four placements shifted by 8 servers.
+PLAN_N, PLAN_DEGREE, PLAN_LINK_BW = 128, 4, 12.5e9
+PLAN_DEMANDS = 256
+PLAN_ROUNDS, PLAN_ITERS, PLAN_CHAINS, PLAN_POOL = 2, 200, 32, 64
+ADMIT_CHAINS, ADMIT_SEED, ADMIT_SHIFTS = 16, 3, (0, 8, 16, 24)
+ORACLE_CHAINS = 4  # the NumPy oracles replay the first 4 chains
+
+
+def admission_candidates(wl, n: int = PLAN_N) -> list:
+    """DLRM (weight 2), BERT, CANDLE and VGG16 on 32 servers each, under
+    each placement shift."""
+    specs = ((wl.DLRM, 2.0), (wl.BERT, 1.0), (wl.CANDLE, 1.0), (wl.VGG16, 1.0))
+    return [
+        wl.JobSet(n=n, tenants=[
+            wl.TenantJob(spec=spec, weight=w, name=spec.name,
+                         servers=tuple((32 * i + j + off) % n for j in range(32)))
+            for i, (spec, w) in enumerate(specs)
+        ])
+        for off in ADMIT_SHIFTS
+    ]
+
+
+def device_trace(fn) -> dict:
+    """Runs ``fn`` once under ``torch.profiler``; returns its result, the
+    traced host wall time, the summed device time of its kernels, the
+    kernel launches and the copies (memcpy and memset) it made."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    copies = [e for e in events if e.key.startswith(("Memcpy", "Memset"))]
+    return dict(out=out, traced_wall_s=wall,
+                busy_ms=sum(e.self_device_time_total for e in events) / 1e3,
+                launches=sum(e.count for e in events) - sum(e.count for e in copies),
+                copies=sum(e.count for e in copies))
+
+
+def program_stats(call, parts: dict) -> dict:
+    """Runs ``call`` three times: cold, then steady with each of ``parts``
+    (label -> (owner, method name)) wrapped to sum its calls' host wall
+    time between synchronises, then under ``torch.profiler``.  The first
+    part is the device program: its idle share is 1 - its traced device
+    time / its steady wall time.  Returns the steady run's result and the
+    numbers."""
+    t0 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    spent = {label: [0.0, 0] for label in parts}
+    real = {label: getattr(owner, name) for label, (owner, name) in parts.items()}
+
+    def wrap(label, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[label][0] += time.perf_counter() - t0
+            spent[label][1] += 1
+            return res
+        return timed
+
+    try:
+        for label, (owner, name) in parts.items():
+            setattr(owner, name, wrap(label, real[label]))
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for label, (owner, name) in parts.items():
+            setattr(owner, name, real[label])
+    tr = device_trace(call)
+    program = next(iter(parts))
+    program_ms = spent[program][0] * 1e3
+    return dict(out=out, first_s=first_s, wall_s=wall,
+                parts_ms={label: t * 1e3 for label, (t, _) in spent.items()},
+                programs=spent[program][1], program_wall_ms=program_ms,
+                busy_ms=tr["busy_ms"], launches=tr["launches"], copies=tr["copies"],
+                idle_share=1.0 - tr["busy_ms"] / program_ms,
+                traced_wall_s=tr["traced_wall_s"])
+
+
+def plan_phase(dev, smi) -> dict:
+    """Phase 6: the planner at the paper's 128-server scale on the card
+    (see the module docstring); returns its numbers."""
+    from repro_torch.core import alternating as alt
+    from repro_torch.core import planeval_torch as pt
+    from repro_torch.core import workloads as wl
+    from repro_torch.core.netsim import HardwareSpec
+    from repro_torch.core.planeval import plan_evaluator
+    from repro_torch.core.strategy_search import default_strategy
+    from repro_torch.core.topology_finder import topology_finder
+
+    hw = HardwareSpec(link_bandwidth=PLAN_LINK_BW, degree=PLAN_DEGREE)
+    n = PLAN_N
+    out: dict = {}
+
+    # 6a: pricing.
+    topo = topology_finder(default_strategy(wl.DLRM).demand(wl.DLRM, n), hw.degree)
+    jobs = list(wl.PAPER_JOBS.values())
+    per_job = -(-PLAN_DEMANDS // len(jobs))
+    demands = [s.demand(job, n) for j, job in enumerate(jobs)
+               for s in pt.strategy_pool(job, n, per_job, seed=j)][:PLAN_DEMANDS]
+    ev = plan_evaluator(topo, hw)
+    t0 = time.perf_counter()
+    want = np.array([ev.comm_time(d) for d in demands])
+    numpy_s = time.perf_counter() - t0
+    tev = pt.TorchPlanEvaluator(topo, hw, dev)
+    t0 = time.perf_counter()
+    got = tev.comm_times(demands)
+    card_s = time.perf_counter() - t0
+    again = tev.comm_times(demands)
+    rel = float((np.abs(got - want) / np.maximum(np.abs(want), 1e-30)).max())
+    require(rel <= pt.TORCH_EQUIV_RTOL, f"pricing vs NumPy: max rel err {rel}")
+    require(np.array_equal(got, again), "two pricing calls differ")
+    pk = tev.pack(demands)
+    occ = int(pk.seg.numel())
+    # The event span of back-to-back calls is the host's launch rate for
+    # this loop of small launches; the profiler's busy time is the device's.
+    wall_ms = time_ms(lambda: tev.bottlenecks(pk), iters=20)
+    tr = device_trace(lambda: tev.bottlenecks(pk))
+    bound_ms = (occ * 16 + pk.n_links * 8 + len(demands) * 8) / PEAK_BYTES_PER_S * 1e3
+    seg_len = np.bincount(pk.seg.cpu().numpy())
+    # The design the rank loop is held against: one index_put_(accumulate=
+    # True) over the whole stream (CUDA's sort-based accumulate, no float
+    # atomics).  Measured here, used nowhere in the port.
+    caps_t = torch.from_numpy(np.ascontiguousarray(tev.ev.caps)).to(dev)
+
+    def put_pricing():
+        acc = torch.zeros(pk.rows * pk.n_links * 2, dtype=torch.float64, device=dev)
+        acc.index_put_((pk.seg,), pk.share, accumulate=True)
+        acc = acc.view(pk.rows, pk.n_links, 2)
+        return ((acc[:, :, 0] + acc[:, :, 1]) / caps_t).amax(dim=1)
+
+    put = put_pricing().cpu().numpy()
+    put_again = put_pricing().cpu().numpy()
+    put_rel = float((np.abs(put - want) / np.maximum(np.abs(want), 1e-30)).max())
+    put_ms = time_ms(put_pricing, iters=20)
+    put_tr = device_trace(put_pricing)
+    out["pricing"] = dict(demands=len(demands), links=pk.n_links, occurrences=occ,
+                          ranks=len(pk.bounds) - 1, max_rel_err=rel,
+                          bitwise_numpy=bool(np.array_equal(got, want)),
+                          device_ms=tr["busy_ms"], wall_ms=wall_ms,
+                          idle_share=1.0 - tr["busy_ms"] / wall_ms,
+                          launches=tr["launches"], copies=tr["copies"],
+                          bound_ms=bound_ms, bound_by="bytes", call_s=card_s,
+                          numpy_s=numpy_s, segments_32_or_more=int((seg_len >= 32).sum()),
+                          index_put=dict(bitwise_numpy=bool(np.array_equal(put, want)),
+                                         repeatable=bool(np.array_equal(put, put_again)),
+                                         max_rel_err=put_rel, device_ms=put_tr["busy_ms"],
+                                         wall_ms=put_ms, launches=put_tr["launches"]))
+    print(f"phase 6a pricing: {len(demands)} demands of {len(jobs)} paper jobs on {n} "
+          f"servers ({pk.n_links} links, {occ} occurrences in {len(pk.bounds) - 1} ranks, "
+          f"{out['pricing']['segments_32_or_more']} segments of 32 or more): max rel err vs "
+          f"NumPy {rel} (bar {pt.TORCH_EQUIV_RTOL}; bitwise {out['pricing']['bitwise_numpy']}), "
+          f"two calls bitwise equal; device {tr['busy_ms']} ms busy ({tr['launches']} "
+          f"launches, torch.profiler) in {wall_ms} ms wall a batch (CUDA events over 20 "
+          f"calls), idle {out['pricing']['idle_share']:.2%}; bound {bound_ms} ms (bytes); "
+          f"call {card_s} s with the host pack, NumPy {numpy_s} s; one index_put_ "
+          f"(accumulate) instead: bitwise vs NumPy {out['pricing']['index_put']['bitwise_numpy']}"
+          f", max rel err {put_rel}, repeatable {out['pricing']['index_put']['repeatable']}, "
+          f"{put_tr['busy_ms']} ms busy ({put_tr['launches']} launches) in {put_ms} ms wall, "
+          f"on {smi}")
+
+    # 6b: the chain programs at the fused admission's shape.
+    cands = admission_candidates(wl, n)
+    init = {t.label: default_strategy(t.spec) for t in cands[0].tenants}
+    pools = [pt.strategy_pool(t.spec, t.k, PLAN_POOL, ADMIT_SEED + pt._POOL_SEED_OFFSET + i,
+                              init=init[t.label])
+             for i, t in enumerate(cands[0].tenants)]
+    topos = [topology_finder(js.union_for(init), hw.degree, pack="per_node") for js in cands]
+    V, caps, comps, weights, _, _ = pt.pack_jobset_grid(cands, topos, hw, pools)
+    C, T, S, L = V.shape
+    require((C, T, S) == (len(ADMIT_SHIFTS), 4, PLAN_POOL), f"grid shape {V.shape}")
+    ladder = np.array(pt.DEFAULT_TEMPER_LADDER)
+    M, K, iters, k = len(ladder), ADMIT_CHAINS, PLAN_ITERS, ORACLE_CHAINS
+    t_idx, s_idx, u = pt.draw_grid_streams(ADMIT_SEED, C, K, M, iters, T, S)
+    su = pt.draw_swap_streams(ADMIT_SEED, C, K, M, iters)
+    init_a = np.zeros((C, T), dtype=np.int64)
+    grid = pt.TorchChainKernel(V, caps, comps, weights, device=dev)
+    g_args = (init_a, ladder, t_idx, s_idx, u, su)
+    g1, g2 = grid.run_grid(*g_args), grid.run_grid(*g_args)
+    require(all(np.array_equal(a, b) for a, b in zip(g1, g2)), "two grid runs differ")
+    t0 = time.perf_counter()
+    gref = pt.run_grid_reference(V, caps, comps, weights, 0.0, "union", init_a, ladder,
+                                 t_idx[:, :k], s_idx[:, :k], u[:, :k], su[:, :k])
+    oracle_s = time.perf_counter() - t0
+    require(np.array_equal(g1[0][:, :k], gref[0]), "grid chains vs run_grid_reference")
+    g_err = float(np.abs(g1[1][:, :k] / gref[1] - 1).max())
+    h_err = float(np.abs(g1[2][:, :k] / gref[2] - 1).max())
+    require(g_err <= 1e-12 and h_err <= 1e-12, f"grid energies rel err {g_err}, {h_err}")
+    flat = pt.TorchChainKernel(V[0], caps[0], comps, weights, device=dev)
+    f_t, f_s, f_u = pt.draw_proposal_streams(ADMIT_SEED, K, iters, T, S)
+    f_args = (np.zeros(T, dtype=np.int64), np.full(K, 0.1), f_t, f_s, f_u)
+    f1, f2 = flat.run(*f_args), flat.run(*f_args)
+    require(all(np.array_equal(a, b) for a, b in zip(f1, f2)), "two flat runs differ")
+    fref = pt.run_chains_reference(V[0], caps[0], comps, weights, 0.0, "union",
+                                   f_args[0], f_args[1][:k], f_t[:k], f_s[:k], f_u[:k])
+    require(np.array_equal(f1[0][:k], fref[0]), "flat chains vs run_chains_reference")
+    f_err = float(max(np.abs(f1[1][:k] / fref[1] - 1).max(),
+                      np.abs(f1[2][:k] / fref[2] - 1).max()))
+    require(f_err <= 1e-12, f"flat energies rel err {f_err}")
+    for name, kern, fn, rows in (
+        ("grid", grid, lambda: grid.run_grid(*g_args), C * K * M * T),
+        ("flat", flat, lambda: flat.run(*f_args), K * T),
+    ):
+        t0 = time.perf_counter()
+        fn()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        tr = device_trace(fn)
+        gathered = rows * L * 8 * (iters + 1)  # bytes of V gathered, all steps
+        stats = dict(shape=[C, T, S, L] if name == "grid" else [T, S, L], chains=K,
+                     rungs=M if name == "grid" else 1, iters=iters, wall_ms=wall_ms,
+                     device_ms=tr["busy_ms"], launches=tr["launches"], copies=tr["copies"],
+                     idle_share=1.0 - tr["busy_ms"] / wall_ms,
+                     bound_ms=gathered / PEAK_BYTES_PER_S * 1e3, bound_by="bytes")
+        out[f"chains_{name}"] = stats
+        print(f"phase 6b chains: {name} program, V {tuple(stats['shape'])}, {K} chains x "
+              f"{stats['rungs']} rungs, {iters} iterations: {wall_ms} ms wall (host clock), "
+              f"{tr['busy_ms']} ms device ({tr['launches']} launches, {tr['copies']} copies, "
+              f"{tr['launches'] / iters} launches an iteration), idle {stats['idle_share']:.2%}; "
+              f"bound {stats['bound_ms']} ms (bytes of V gathered: {gathered})")
+    print(f"phase 6b chains: first {k} chains index for index against the NumPy oracles "
+          f"(grid energies rel err {g_err}, history {h_err}; flat {f_err}; bar 1e-12), two "
+          f"runs of each bitwise equal; the grid oracle took {oracle_s} s on the host")
+
+    # 6c: alternating optimization of one job.
+    kw = dict(rounds=PLAN_ROUNDS, mcmc_iters=PLAN_ITERS, seed=0, chains=PLAN_CHAINS,
+              pool_size=PLAN_POOL)
+    card = program_stats(  # the defaults: backend="torch" on the card
+        lambda: alt.alternating_optimize(wl.DLRM, n, hw, **kw),
+        {"chain programs": (pt.TorchChainKernel, "run"), "pools": (pt, "strategy_pool"),
+         "topology_finder": (alt, "topology_finder"), "evaluate": (alt, "evaluate")})
+    plan = card.pop("out")
+    t0 = time.perf_counter()
+    on_cpu = alt.alternating_optimize(wl.DLRM, n, hw, backend="torch", device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    numpy_plan = alt.alternating_optimize(wl.DLRM, n, hw, rounds=PLAN_ROUNDS,
+                                          mcmc_iters=PLAN_ITERS, seed=0, backend="numpy")
+    numpy_s = time.perf_counter() - t0
+    require(plan.strategy == on_cpu.strategy and plan.iter_time == on_cpu.iter_time
+            and sorted(plan.topology.graph.edges()) == sorted(on_cpu.topology.graph.edges()),
+            f"DLRM plan on the card {plan.strategy} {plan.iter_time} vs the CPU's "
+            f"{on_cpu.strategy} {on_cpu.iter_time}")
+    require(plan.strategy.mode == "hybrid", f"DLRM plan {plan.strategy}")
+    candle = alt.alternating_optimize(wl.CANDLE, n, hw, **kw)
+    require(candle.strategy.mode == "dp", f"CANDLE plan {candle.strategy}")
+    out["alternating"] = dict(
+        dlrm_mode=plan.strategy.mode, dlrm_iter_time=plan.iter_time, rounds=plan.rounds,
+        candle_mode=candle.strategy.mode, candle_iter_time=candle.iter_time,
+        cpu_s=cpu_s, numpy_s=numpy_s, numpy_iter_time=numpy_plan.iter_time, **card)
+    print(f"phase 6c alternating: DLRM on {n} servers, {PLAN_ROUNDS} rounds x {PLAN_ITERS} "
+          f"iterations, {PLAN_CHAINS} chains, pool {PLAN_POOL}: {plan.strategy.mode} "
+          f"({len(plan.strategy.table_hosts)} table hosts), iter_time {plan.iter_time!r} "
+          f"(rounds {plan.rounds}), the CPU's plan to the bit; CANDLE {candle.strategy.mode} "
+          f"{candle.iter_time!r}; wall {card['wall_s']} s on the card, {cpu_s} s torch on "
+          f"the CPU, NumPy backend {numpy_s} s (its plan {numpy_plan.strategy.mode} "
+          f"{numpy_plan.iter_time!r}); first call on the card {card['first_s']} s; steady "
+          f"host wall by part (ms) {card['parts_ms']}, the rest (pricing the pools, the "
+          f"NumPy re-price) {card['wall_s'] * 1e3 - sum(card['parts_ms'].values())} ms; chain "
+          f"programs: {card['programs']} runs, {card['busy_ms']} ms device, "
+          f"{card['launches']} launches, {card['copies']} copies, idle "
+          f"{card['idle_share']:.2%}, on {smi}")
+
+    # 6d: the fused four-tenant admission.
+    def admit(device=None):
+        cs = admission_candidates(wl, n)
+        return alt.co_optimize_jobset(
+            cs[0], hw, rounds=PLAN_ROUNDS, mcmc_iters=PLAN_ITERS, seed=ADMIT_SEED,
+            placement_candidates=cs, chains=ADMIT_CHAINS,
+            temperatures=pt.DEFAULT_TEMPER_LADDER, device=device)
+
+    steady = program_stats(admit, {
+        "grid programs": (pt.TorchChainKernel, "run_grid"),
+        "pool pricing": (pt, "pack_jobset_grid"),
+        "topology_finder": (alt, "topology_finder"),
+        "pools": (pt, "strategy_pool"),
+    })
+    fused = steady.pop("out")
+    t0 = time.perf_counter()
+    on_cpu = admit("cpu")
+    cpu_s = time.perf_counter() - t0
+    same = lambda a, b: (a.candidate_index == b.candidate_index  # noqa: E731
+                         and a.strategies == b.strategies and a.iter_time == b.iter_time
+                         and sorted(a.topology.graph.edges())
+                         == sorted(b.topology.graph.edges()))
+    require(same(fused, on_cpu),
+            f"admission plans differ: card {fused.iter_time}, CPU {on_cpu.iter_time}")
+    modes = {k: v.mode for k, v in fused.strategies.items()}
+    out["admission"] = dict(candidate=fused.candidate_index, iter_time=fused.iter_time,
+                            modes=modes, grid=[C, T, S, L], cpu_s=cpu_s, **steady)
+    print(f"phase 6d admission: 4 tenants x {len(ADMIT_SHIFTS)} placements, ladder "
+          f"{pt.DEFAULT_TEMPER_LADDER}, {ADMIT_CHAINS} chains, {PLAN_ROUNDS} rounds x "
+          f"{PLAN_ITERS} iterations: candidate {fused.candidate_index}, {modes}, iter_time "
+          f"{fused.iter_time!r}, the CPU's plan; wall {steady['first_s']} s first call, "
+          f"{steady['wall_s']} s steady, {cpu_s} s torch on the CPU; steady host wall by "
+          f"part (ms) {steady['parts_ms']}, the rest "
+          f"{steady['wall_s'] * 1e3 - sum(steady['parts_ms'].values())} ms; grid programs: "
+          f"{steady['programs']} runs, {steady['busy_ms']} ms device, {steady['launches']} "
+          f"launches, {steady['copies']} copies, idle {steady['idle_share']:.2%}, on {smi}")
+    return out
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """The CUDA kernels (flash attention and its backward, grouped matmul, Mamba
 selective scan, RG-LRU scan, embedding bag) against their plain versions,
-the narrow models (and a narrow DLRM) on the card against the CPU, and a
-narrow train step on the card against the same on the CPU.
+the narrow models (and a narrow DLRM) on the card against the CPU, a
+narrow train step on the card against the same on the CPU, and the
+planner's device path (pricing and chains) against its NumPy oracles.
 
 Run on a machine with a CUDA card: ``python -m pytest -m gpu tests/test_torch_gpu.py``.
 Every test here skips without one (decided in the fixture, never at import).
@@ -9,6 +10,7 @@ Every test here skips without one (decided in the fixture, never at import).
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -26,6 +28,12 @@ from repro_torch.kernels.ref import (
 )
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch import optim
+from repro_torch.core import planeval_torch as pt
+from repro_torch.core import workloads as wl
+from repro_torch.core.netsim import HardwareSpec
+from repro_torch.core.planeval import plan_evaluator
+from repro_torch.core.strategy_search import default_strategy
+from repro_torch.core.topology_finder import remove_pair, topology_finder
 from repro_torch.models import dlrm, lm
 from repro_torch.train.steps import make_train_step
 
@@ -918,3 +926,83 @@ def test_flash_attention_fn_counts_one_wgmma_backward_in_half(cuda, monkeypatch,
         assert g.dtype == dtype
         err = float((g.float() - want).abs().max())
         assert err <= TOL[dtype] * float(want.abs().max()), err
+
+
+# ---------------------------------------------------------------------------
+# The planner's device path: pricing and chains against the NumPy oracles
+# ---------------------------------------------------------------------------
+
+PLAN_HW = HardwareSpec(link_bandwidth=12.5e9, degree=4)
+
+
+@pytest.mark.parametrize("n,degraded", [(16, False), (16, True), (64, False)])
+def test_planner_pricing_on_card(cuda, n, degraded):
+    """Within TORCH_EQUIV_RTOL of the NumPy evaluator and bitwise repeatable."""
+    topo = topology_finder(default_strategy(wl.DLRM).demand(wl.DLRM, n), PLAN_HW.degree)
+    if degraded:
+        topo = remove_pair(topo, (0, 1))
+    demands = []
+    for j, job in enumerate(wl.PAPER_JOBS.values()):
+        demands += [s.demand(job, n) for s in pt.strategy_pool(job, n, 6, seed=j)]
+    tev = pt.TorchPlanEvaluator(topo, PLAN_HW, cuda)
+    got = tev.comm_times(demands)
+    want = np.array([plan_evaluator(topo, PLAN_HW).comm_time(d) for d in demands])
+    rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-30)
+    assert float(rel.max()) <= pt.TORCH_EQUIV_RTOL
+    assert np.array_equal(tev.comm_times(demands), got)
+
+
+@pytest.mark.parametrize("objective", ["union", "decomposed"])
+@pytest.mark.parametrize("latency", [0.0, 3e-3])
+def test_planner_flat_chains_on_card(cuda, objective, latency):
+    rs = np.random.RandomState(7)
+    T, S, L, K, iters = 4, 16, 96, 8, 100
+    V = rs.rand(T, S, L) * 1e9
+    V[V < 0.4e9] = 0.0
+    caps, comps, w = rs.rand(L) * 12.5e9 + 1e9, rs.rand(T) * 0.01, rs.rand(T) * 2 + 0.25
+    steps = rs.randint(1, 9, size=(T, S)).astype(np.float64)
+    kw = dict(steps=steps, alpha=latency)
+    t_idx, s_idx, u = pt.draw_proposal_streams(3, K, iters, T, S)
+    temps, init = np.linspace(0.05, 0.5, K), np.zeros(T, dtype=np.int64)
+    kern = pt.TorchChainKernel(V, caps, comps, w, overlap=0.3, objective=objective,
+                               device=cuda, **kw)
+    got = kern.run(init, temps, t_idx, s_idx, u)
+    ref = pt.run_chains_reference(V, caps, comps, w, 0.3, objective, init, temps,
+                                  t_idx, s_idx, u, **kw)
+    assert np.array_equal(got[0], ref[0])
+    np.testing.assert_allclose(got[1], ref[1], rtol=1e-12)
+    np.testing.assert_allclose(got[2], ref[2], rtol=1e-12)
+    again = kern.run(init, temps, t_idx, s_idx, u)
+    assert all(np.array_equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("objective", ["union", "decomposed"])
+@pytest.mark.parametrize("ladder", [(0.1,), (0.05, 0.1, 0.3), (0.05, 0.1, 0.2, 0.4)])
+def test_planner_grid_chains_on_card(cuda, objective, ladder):
+    rs = np.random.RandomState(11)
+    C, T, S, L, K, iters = 3, 3, 16, 64, 4, 60
+    V = rs.rand(C, T, S, L) * 1e9
+    V[V < 0.4e9] = 0.0
+    V[..., L - 8:] = 0.0  # dummy padded links
+    caps = rs.rand(C, L) * 12.5e9 + 1e9
+    comps, w = rs.rand(T) * 0.01, rs.rand(T) * 2 + 0.25
+    M = len(ladder)
+    t_idx, s_idx, u = pt.draw_grid_streams(5, C, K, M, iters, T, S)
+    su = pt.draw_swap_streams(5, C, K, M, iters)
+    init = rs.randint(0, S, size=(C, T))
+    kern = pt.TorchChainKernel(V, caps, comps, w, overlap=0.2, objective=objective,
+                               device=cuda)
+    got = kern.run_grid(init, np.array(ladder), t_idx, s_idx, u, su)
+    ref = pt.run_grid_reference(V, caps, comps, w, 0.2, objective, init, np.array(ladder),
+                                t_idx, s_idx, u, su)
+    assert np.array_equal(got[0], ref[0])
+    np.testing.assert_allclose(got[1], ref[1], rtol=1e-12)
+    np.testing.assert_allclose(got[2], ref[2], rtol=1e-12)
+    again = kern.run_grid(init, np.array(ladder), t_idx, s_idx, u, su)
+    assert all(np.array_equal(a, b) for a, b in zip(got, again))
+
+
+def test_planner_first_argmin_ties_on_card(cuda):
+    x = torch.tensor([[3.0, 1.0, 1.0, 2.0], [0.5] * 4, [2.0, 2.0, 1.0, 1.0]],
+                     dtype=torch.float64, device=cuda)
+    assert pt.first_argmin(x, dim=1).tolist() == [1, 0, 2]

@@ -35,7 +35,11 @@ SLICE_MODULES = (
     "repro_torch.optim.adamw", "repro_torch.optim.schedule", "repro_torch.data.pipeline",
     "repro_torch.checkpoint.ckpt", "repro_torch.train.steps", "repro_torch.train.loop",
     "repro_torch.launch.train", "repro_torch.launch.trace_train",
-)
+) + tuple(f"repro_torch.core.{m}" for m in (
+    "totient", "select_perms", "routing", "demand", "topology_finder", "netsim", "planeval",
+    "costmodel", "schedules", "workloads", "strategy_search", "planeval_torch",
+    "ocs_reconfig", "simengine", "alternating",
+)) + ("repro_torch.core",)
 
 
 def test_port_imports_without_jax_and_without_repro():
@@ -68,3 +72,28 @@ def test_no_jax_or_repro_import_in_port_sources():
     assert len(files) > 20
     bad = [(f.name, m) for f in files for m in _imported_modules(f) if _forbidden(m)]
     assert not bad
+
+
+_IMPORT_CORE = """
+import importlib, sys
+from test_torch_import import SLICE_MODULES
+core = [m for m in SLICE_MODULES if m.startswith("repro_torch.core")]
+for name in core:
+    importlib.import_module(name)
+assert "jax" not in sys.modules, "jax was imported"
+leaked = sorted(k for k in sys.modules if k == "repro" or k.startswith("repro."))
+assert not leaked, leaked
+print(len(core))
+"""
+
+
+def test_planner_core_imports_leave_jax_and_repro_out():
+    """The planner (``repro_torch.core`` and its 15 modules) imports neither
+    JAX nor the JAX package, not even the NumPy half it was forked from."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT / "tests")]))
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_CORE], capture_output=True, text=True,
+        env=env, cwd=ROOT, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) == 16
