@@ -112,7 +112,25 @@ result line:
    ``co_optimize_jobset`` over 4 placements (16 chains, the default ladder,
    2 rounds) with the CPU's plan.  It prints wall times beside the NumPy
    backend's, and the chain programs' device time, launches and idle share
-   (``torch.profiler``);
+   (``torch.profiler``); then the online planner (``repro_torch.core.online``),
+   its policies at their defaults, which plan on the card: (6e) the admission
+   an arriving job waits for, ``JobSetController.admit`` of VGG16 on 32
+   servers beside DLRM (weight 2), BERT (32 servers each) and CANDLE (16)
+   on the 128-server fabric, through 4 placement candidates and the fused
+   co-search (the ladder, 16 chains, 2 rounds x 40 iterations): admitted on
+   free servers, no plan violation, the plan's NumPy re-price equal to its
+   ``iter_time``; its wall time split into the optimizer, the fluid probes
+   (``SimEngine.run``), placement and the rest, and the optimizer call run
+   again for the grid programs' device time, launches and idle share; (6f)
+   replays, each on the card and then as the same call with
+   ``device="cpu"``, equal to the bit (totals, iteration times, replans,
+   failures, fibers moved, records, final placements, strategies and
+   topology): ``run_online_jobset`` on the JAX package's churn trace
+   (``benchmarks/bench_multitenant.py``) at 32 servers, static and reactive
+   (the arrival through the fused admission), ``run_online`` of DLRM at 16
+   on ``benchmarks/bench_online.py``'s FAILURES trace, reactive, and a
+   seeded ``FaultModel`` storm (flapping fibers and server 1's domain) at
+   16, reactive with a one-iteration hysteresis;
 7. the script's wall time, one JSON line of per-kernel numbers, the
    ``nvidia-smi`` line, and the result line ``{"ok": true, "device": {...}}``
    last.
@@ -127,6 +145,7 @@ without tensor cores, 3.35 TB/s; exps run on the special-function units,
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import copy
@@ -1309,6 +1328,8 @@ def main() -> int:
     # Phase 6: the planner on the card.
     planned = plan_phase(dev, smi)
     print(f"phase 6 summary: {json.dumps(planned)} on {smi}")
+    replanned = online_phase(dev, smi)
+    print(f"phase 6e-6f summary: {json.dumps(replanned)} on {smi}")
 
     print(f"chip_smoke: wall time {time.perf_counter() - T_START} s, the kernels' build "
           "included")
@@ -1853,6 +1874,36 @@ def device_trace(fn) -> dict:
                 copies=sum(e.count for e in copies))
 
 
+@contextlib.contextmanager
+def timed_parts(parts: dict):
+    """Wraps each of ``parts`` (label -> (owner, name)) to sum its calls'
+    host wall time between synchronises; yields label -> [seconds, calls,
+    (args, kwargs, result) of the last call].  Nested parts each count
+    their own time."""
+    spent = {label: [0.0, 0, None] for label in parts}
+    real = {label: getattr(owner, name) for label, (owner, name) in parts.items()}
+
+    def wrap(label, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[label][0] += time.perf_counter() - t0
+            spent[label][1] += 1
+            spent[label][2] = (args, kwargs, res)
+            return res
+        return timed
+
+    try:
+        for label, (owner, name) in parts.items():
+            setattr(owner, name, wrap(label, real[label]))
+        yield spent
+    finally:
+        for label, (owner, name) in parts.items():
+            setattr(owner, name, real[label])
+
+
 def program_stats(call, parts: dict) -> dict:
     """Runs ``call`` three times: cold, then steady with each of ``parts``
     (label -> (owner, method name)) wrapped to sum its calls' host wall
@@ -1864,35 +1915,16 @@ def program_stats(call, parts: dict) -> dict:
     call()
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    spent = {label: [0.0, 0] for label in parts}
-    real = {label: getattr(owner, name) for label, (owner, name) in parts.items()}
-
-    def wrap(label, fn):
-        def timed(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            spent[label][0] += time.perf_counter() - t0
-            spent[label][1] += 1
-            return res
-        return timed
-
-    try:
-        for label, (owner, name) in parts.items():
-            setattr(owner, name, wrap(label, real[label]))
+    with timed_parts(parts) as spent:
         t0 = time.perf_counter()
         out = call()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    finally:
-        for label, (owner, name) in parts.items():
-            setattr(owner, name, real[label])
     tr = device_trace(call)
     program = next(iter(parts))
     program_ms = spent[program][0] * 1e3
     return dict(out=out, first_s=first_s, wall_s=wall,
-                parts_ms={label: t * 1e3 for label, (t, _) in spent.items()},
+                parts_ms={label: t * 1e3 for label, (t, _, _) in spent.items()},
                 programs=spent[program][1], program_wall_ms=program_ms,
                 busy_ms=tr["busy_ms"], launches=tr["launches"], copies=tr["copies"],
                 idle_share=1.0 - tr["busy_ms"] / program_ms,
@@ -2120,6 +2152,200 @@ def plan_phase(dev, smi) -> dict:
           f"launches, {steady['copies']} copies, idle {steady['idle_share']:.2%}, on {smi}")
     return out
 
+
+
+# Phases 6e and 6f (the online planner): the admission at the paper's scale,
+# then replays on the card against the same calls on the CPU.  6e: DLRM
+# (weight 2) and BERT resident on 32 servers each and CANDLE on 16, VGG16
+# arriving on 32 of the 48 free servers through 4 placement candidates (with
+# 32 free, every candidate would be the same 32 and nothing would be
+# co-searched).  6f: the churn trace of the JAX
+# package's bench_multitenant.py at 32 servers, bench_online.py's FAILURES
+# trace with DLRM at 16, and a seeded fault storm (bench_faults.py's shape) at
+# 16; the traces end at iteration 4, so 5 iterations replay them whole.
+ADMIT_RESIDENTS = (("DLRM", 2.0, range(0, 32)), ("BERT", 1.0, range(32, 64)),
+                   ("CANDLE", 1.0, range(64, 80)))
+ADMIT_ARRIVAL, ADMIT_K, ADMIT_CANDIDATES = "VGG16", 32, 4
+CHURN_N, FAILURES_N, ONLINE_ITERS = 32, 16, 5
+STORM_ITERS, STORM_SCALE, STORM_SEED = 3, 16.0, 0
+
+
+def replay_view(r) -> dict:
+    """Everything a replay reports, every float exact (the records by repr)."""
+    strategies = getattr(r.final_plan, "strategies", None) or {"": r.final_plan.strategy}
+    view = dict(total_time=r.total_time, iter_times=r.iter_times, n_replans=r.n_replans,
+                n_failures=r.n_failures, edges_moved=r.edges_moved, log=repr(r.log),
+                strategies={k: repr(v) for k, v in strategies.items()},
+                edges=sorted(r.final_plan.topology.graph.edges()),
+                iter_time=r.final_plan.iter_time)
+    if hasattr(r, "final_jobset"):
+        view.update(job_times=r.job_times, migrations=repr(r.migrations), refused=r.refused,
+                    placements={t.label: t.servers for t in r.final_jobset.tenants})
+    return view
+
+
+def online_phase(dev, smi) -> dict:
+    """Phases 6e and 6f (see the module docstring); returns their numbers."""
+    from repro_torch.core import alternating as alt
+    from repro_torch.core import online
+    from repro_torch.core import planeval_torch as pt
+    from repro_torch.core import workloads as wl
+    from repro_torch.core.faults import FaultModel, server_domain
+    from repro_torch.core.netsim import HardwareSpec
+    from repro_torch.core.simengine import SimEngine
+    from repro_torch.core.strategy_search import evaluate_jobset
+
+    hw = HardwareSpec(link_bandwidth=PLAN_LINK_BW, degree=PLAN_DEGREE)
+    ladder = pt.DEFAULT_TEMPER_LADDER
+    out: dict = {}
+
+    # 6e: the admission an arriving job waits for, at 128 servers.
+    residents = wl.JobSet(n=PLAN_N, tenants=[
+        wl.TenantJob(spec=getattr(wl, name), weight=w, name=name, servers=tuple(servers))
+        for name, w, servers in ADMIT_RESIDENTS])
+    t0 = time.perf_counter()
+    plan = alt.co_optimize_jobset(residents, hw, rounds=PLAN_ROUNDS, mcmc_iters=PLAN_ITERS,
+                                  seed=ADMIT_SEED, chains=ADMIT_CHAINS, temperatures=ladder)
+    setup_s = time.perf_counter() - t0
+    policy = online.ReoptPolicy.reactive(replan_latency=0.0, candidates=ADMIT_CANDIDATES,
+                                         chains=ADMIT_CHAINS, temperatures=ladder)
+    ctrl = online.JobSetController(residents, hw=hw, policy=policy, seed=ADMIT_SEED, plan=plan)
+    free = ctrl.jobset.free_servers()
+    parts = {"optimizer": (online, "co_optimize_jobset"), "fluid probes": (SimEngine, "run"),
+             "place_arrival": (online, "place_arrival"),
+             "place_candidates": (online, "place_candidates"),
+             "fused": (alt, "_co_optimize_fused"),
+             "grid programs": (pt.TorchChainKernel, "run_grid")}
+    with timed_parts(parts) as spent:
+        t0 = time.perf_counter()
+        admitted = ctrl.admit(getattr(wl, ADMIT_ARRIVAL), ADMIT_K, name=ADMIT_ARRIVAL, now=0.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    require(admitted is not None, "the arrival was refused")
+    servers, _ = admitted
+    require(len(servers) == ADMIT_K and set(servers) <= free,
+            f"admitted on {servers}, free were {sorted(free)}")
+    fused_args = spent["fused"][2]
+    require(spent["fused"][1] == 1 and fused_args[1]["device"] is None
+            and len(fused_args[0][1]) == ADMIT_CANDIDATES and spent["grid programs"][1] >= 1,
+            "the admission did not run the fused co-search on the card: calls "
+            f"{ {label: n for label, (_, n, _) in spent.items()} }")
+    require(ADMIT_ARRIVAL in ctrl.plan.strategies, f"the admission kept the old plan: {ctrl.log}")
+    bad = ctrl.plan_violations(ctrl.topology)
+    require(not bad, f"plan violations: {bad}")
+    repriced = evaluate_jobset(ctrl.plan.strategies, ctrl.jobset, ctrl.plan.topology, hw)[0]
+    require(repriced == ctrl.plan.iter_time,
+            f"NumPy re-price {repriced!r} vs the plan's {ctrl.plan.iter_time!r}")
+    split = {label: spent[label][0] * 1e3 for label in
+             ("optimizer", "fluid probes", "place_arrival", "place_candidates")}
+    split["rest"] = wall * 1e3 - sum(split.values())
+    # The chain programs' device time: the admission's optimizer call again.
+    args, kwargs, result = spent["optimizer"][2]
+    steady = program_stats(lambda: alt.co_optimize_jobset(*args, **kwargs), {
+        "grid programs": (pt.TorchChainKernel, "run_grid"),
+        "pool pricing": (pt, "pack_jobset_grid"),
+        "topology_finder": (alt, "topology_finder"),
+        "pools": (pt, "strategy_pool"),
+    })
+    again = steady.pop("out")
+    require(again.candidate_index == result.candidate_index
+            and again.strategies == result.strategies and again.iter_time == result.iter_time
+            and sorted(again.topology.graph.edges()) == sorted(result.topology.graph.edges()),
+            "the admission's optimizer call does not repeat to the bit")
+    out["admission"] = dict(n=PLAN_N, setup_s=setup_s, wall_s=wall, parts_ms=split,
+                            probes=spent["fluid probes"][1], candidate=ctrl.plan.candidate_index,
+                            iter_time=ctrl.plan.iter_time, servers=[min(servers), max(servers)],
+                            optimizer=steady)
+    sizes = ", ".join(f"{t.label} on {t.k}" for t in residents.tenants)
+    print(f"phase 6e admission: {sizes} of {PLAN_N} servers (their plan {setup_s} s on the "
+          f"card, {PLAN_ROUNDS} rounds x {PLAN_ITERS} iterations, ladder {ladder}, "
+          f"{ADMIT_CHAINS} chains); "
+          f"JobSetController.admit({ADMIT_ARRIVAL}, {ADMIT_K}) over {ADMIT_CANDIDATES} "
+          f"candidates, fused, {policy.rounds} rounds x {policy.mcmc_iters} iterations: servers "
+          f"{min(servers)}..{max(servers)}, candidate {ctrl.plan.candidate_index}, iter_time "
+          f"{ctrl.plan.iter_time!r} (NumPy re-price to the bit), no plan violation; wall "
+          f"{wall} s, by part (ms) {split}, {spent['fluid probes'][1]} fluid probes; the "
+          f"optimizer call again: {steady['wall_s']} s steady, by part (ms) "
+          f"{steady['parts_ms']}; grid programs {steady['programs']} runs, {steady['busy_ms']} "
+          f"ms device, {steady['launches']} launches, {steady['copies']} copies, idle "
+          f"{steady['idle_share']:.2%}, on {smi}")
+
+    # 6f: replays, each on the card and then as the same call on the CPU.
+    def replay(run, policy, **kw) -> dict:
+        with timed_parts({"replans": (online.ReoptController, "replan")}) as spent:
+            t0 = time.perf_counter()
+            card = run(policy=policy, **kw)
+            card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on_cpu = run(policy=dataclasses.replace(policy, device="cpu"), **kw)
+        cpu_s = time.perf_counter() - t0
+        require(replay_view(card) == replay_view(on_cpu),
+                f"replay on the card differs from the CPU's: {replay_view(card)} vs "
+                f"{replay_view(on_cpu)}")
+        return dict(card_s=card_s, cpu_s=cpu_s, replan_ms=spent["replans"][0] * 1e3,
+                    replan_calls=spent["replans"][1],
+                    total_time=card.total_time, n_replans=card.n_replans,
+                    n_failures=card.n_failures, edges_moved=card.edges_moved)
+
+    third = CHURN_N // 3
+    shared = wl.JobSet(n=CHURN_N, tenants=[
+        wl.TenantJob(spec=wl.DLRM, servers=tuple(range(0, third)), name="dlrm"),
+        wl.TenantJob(spec=wl.BERT, servers=tuple(range(third, 2 * third)), name="bert")])
+    churn = (
+        online.TraceEvent(iteration=1, kind="arrive", job=wl.MOE_16E,
+                          k=max(2, CHURN_N - 2 * third), name="moe"),
+        online.TraceEvent(iteration=2, kind="fail", link=(0, 3)),
+        online.TraceEvent(iteration=3, kind="depart", name="bert"),
+        online.TraceEvent(iteration=4, kind="fail", link=(1, third), frac=0.5),
+    )
+    shared_plan = alt.co_optimize_jobset(shared, hw, rounds=2, mcmc_iters=60, seed=1)
+    run_shared = lambda policy: online.run_online_jobset(  # noqa: E731
+        shared, hw, policy=policy, trace=churn, n_iters=ONLINE_ITERS, seed=0, plan=shared_plan)
+    static = replay(run_shared, online.ReoptPolicy.never())
+    reactive = replay(run_shared, policy)
+    require(reactive["n_replans"] >= 1, "the reactive churn replay never replanned")
+    failures = (
+        online.TraceEvent(iteration=1, kind="fail", link=(0, 1)),
+        online.TraceEvent(iteration=2, kind="fail", link=(3, 7), frac=0.4),
+        online.TraceEvent(iteration=4, kind="fail", link=(2, 6)),
+    )
+    dlrm_plan = alt.alternating_optimize(wl.DLRM, FAILURES_N, hw, rounds=3, mcmc_iters=80,
+                                         seed=1)
+    run_dlrm = lambda policy, trace, n_iters: online.run_online(  # noqa: E731
+        wl.DLRM, FAILURES_N, hw, policy=policy, trace=trace, n_iters=n_iters, seed=0,
+        plan=dlrm_plan)
+    dlrm = replay(run_dlrm, online.ReoptPolicy.reactive(), trace=failures,
+                  n_iters=ONLINE_ITERS)
+    require(dlrm["n_replans"] >= 1, "the reactive FAILURES replay never replanned")
+    iter_s = run_dlrm(online.ReoptPolicy.never(), (), 1).total_time
+    pairs = sorted({(min(a, b), max(a, b)) for a, b in dlrm_plan.topology.graph.edges()})
+    horizon = STORM_ITERS * iter_s
+    storm = FaultModel.for_topology(
+        dlrm_plan.topology, link_mtbf=STORM_SCALE * horizon, link_mttr=0.1 * horizon,
+        domains=[server_domain(1, pairs, mtbf=horizon, mttr=0.05 * horizon)],
+        seed=STORM_SEED).events(STORM_ITERS, iter_s)
+    stormed = replay(run_dlrm, online.ReoptPolicy.reactive(min_interval=iter_s), trace=storm,
+                     n_iters=STORM_ITERS)
+    require(stormed["n_failures"] >= 1 and stormed["n_replans"] >= 1,
+            f"the storm replay saw no failure or no replan: {stormed}")
+    out["replays"] = dict(churn_static=static, churn_reactive=reactive, failures=dlrm,
+                          storm=dict(events=len(storm), **stormed))
+    def said(r: dict) -> str:
+        return (f"total {r['total_time']!r} s, {r['n_failures']} failures, {r['n_replans']} "
+                f"replans ({r['replan_calls']} replan calls, {r['replan_ms']} ms), "
+                f"{r['edges_moved']} fibers moved; {r['card_s']} s on the card, {r['cpu_s']} "
+                "s on the CPU")
+
+    print(f"phase 6f replay: run_online_jobset, churn at {CHURN_N} servers, {ONLINE_ITERS} "
+          f"iterations: static {said(static)}; reactive {said(reactive)}; static/reactive "
+          f"{static['total_time'] / reactive['total_time']}")
+    print(f"phase 6f replay: run_online, DLRM at {FAILURES_N} on FAILURES, {ONLINE_ITERS} "
+          f"iterations, reactive: {said(dlrm)}")
+    print(f"phase 6f replay: run_online, fault storm (seed {STORM_SEED}, server 1's domain "
+          f"and {len(pairs)} flapping pairs: {len(storm)} events) over {STORM_ITERS} "
+          f"iterations, reactive with a {iter_s} s hysteresis: {said(stormed)}")
+    print(f"phase 6f replay: every replay on the card equal to the CPU's to the bit, on {smi}")
+    return out
 
 if __name__ == "__main__":
     sys.exit(main())

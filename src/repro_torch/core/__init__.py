@@ -15,6 +15,12 @@ float64, that the JAX package runs in ``planeval_jax``:
   and fused admission, ``backend="torch"`` (the default: the card) or
   ``"numpy"`` (the host walk)
 - simengine / netsim / ocs_reconfig: the fluid and flow simulators
+- online: ReoptPolicy/ReoptController/JobSetController/run_online[_jobset] —
+  TopoOpt re-planning on failures, arrivals and departures (the replans and
+  the fused admission on the card by default), plus topology-aware placement
+- faults: seeded fault storms (FaultModel, correlated failure domains)
+- fabrics / scheduler: the §5 baseline fabrics and App. C's look-ahead
+  scheduler; packetsim: a deprecated shim over simengine
 - costmodel: §5.2 cost analysis
 """
 
@@ -34,6 +40,17 @@ from .demand import (
     union_demand,
 )
 from .netsim import HardwareSpec, _iteration_time as iteration_time, compute_time
+from .online import (
+    JobSetController,
+    ReoptController,
+    ReoptPolicy,
+    TraceEvent,
+    edge_churn,
+    place_arrival,
+    place_candidates,
+    run_online,
+    run_online_jobset,
+)
 from .planeval import JobSetEvaluator, LRUCache, PlanEvaluator, plan_evaluator
 from .planeval_torch import (
     TORCH_EQUIV_RTOL,
@@ -74,6 +91,7 @@ __all__ = [
     "FairnessPolicy",
     "HardwareSpec",
     "JobSet",
+    "JobSetController",
     "JobSetEvaluator",
     "JobSetPlan",
     "JobSpec",
@@ -81,6 +99,8 @@ __all__ = [
     "MigrationRecord",
     "PlanEvaluator",
     "PAPER_JOBS",
+    "ReoptController",
+    "ReoptPolicy",
     "RingPermutation",
     "SimEngine",
     "Strategy",
@@ -88,6 +108,7 @@ __all__ = [
     "TenantJob",
     "Topology",
     "TorchChainKernel",
+    "TraceEvent",
     "TorchPlanEvaluator",
     "TrafficDemand",
     "WeightedFairness",
@@ -98,6 +119,7 @@ __all__ = [
     "coin_change_mod",
     "compute_time",
     "coprimes",
+    "edge_churn",
     "initial_topology",
     "iteration_time",
     "job_demand",
@@ -105,6 +127,8 @@ __all__ = [
     "mcmc_search_jobset",
     "migration_cost",
     "path_length_stats",
+    "place_arrival",
+    "place_candidates",
     "placement_diff",
     "plan_evaluator",
     "prime_coprimes",
@@ -113,6 +137,8 @@ __all__ = [
     "remove_pair",
     "repair_topology",
     "ring_edges",
+    "run_online",
+    "run_online_jobset",
     "select_permutations",
     "tenant_comm_times",
     "theorem1_bound",

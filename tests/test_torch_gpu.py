@@ -1,8 +1,9 @@
 """The CUDA kernels (flash attention and its backward, grouped matmul, Mamba
 selective scan, RG-LRU scan, embedding bag) against their plain versions,
 the narrow models (and a narrow DLRM) on the card against the CPU, a
-narrow train step on the card against the same on the CPU, and the
-planner's device path (pricing and chains) against its NumPy oracles.
+narrow train step on the card against the same on the CPU, the planner's
+device path (pricing and chains) against its NumPy oracles, and the online
+controller's fused admission on the card against the same on the CPU.
 
 Run on a machine with a CUDA card: ``python -m pytest -m gpu tests/test_torch_gpu.py``.
 Every test here skips without one (decided in the fixture, never at import).
@@ -1006,3 +1007,38 @@ def test_planner_first_argmin_ties_on_card(cuda):
     x = torch.tensor([[3.0, 1.0, 1.0, 2.0], [0.5] * 4, [2.0, 2.0, 1.0, 1.0]],
                      dtype=torch.float64, device=cuda)
     assert pt.first_argmin(x, dim=1).tolist() == [1, 0, 2]
+
+
+def test_online_admission_on_card_matches_cpu(cuda, monkeypatch):
+    """``chip_smoke.py`` phase 6e's admission at N = 16: the default policy
+    runs the fused co-search on the card and adopts the CPU's plan."""
+    from repro_torch.core import alternating as alt
+    from repro_torch.core import online
+    from repro_torch.core.strategy_search import evaluate_jobset
+
+    fused, seen = alt._co_optimize_fused, []
+    monkeypatch.setattr(alt, "_co_optimize_fused",
+                        lambda *a, **k: seen.append(k["device"]) or fused(*a, **k))
+
+    def admit(device):
+        residents = wl.JobSet(n=16, tenants=[
+            wl.TenantJob(spec=wl.DLRM, weight=2.0, name="DLRM", servers=tuple(range(0, 4))),
+            wl.TenantJob(spec=wl.BERT, name="BERT", servers=tuple(range(4, 8))),
+            wl.TenantJob(spec=wl.CANDLE, name="CANDLE", servers=(8, 9))])
+        policy = online.ReoptPolicy.reactive(replan_latency=0.0, candidates=4, chains=4,
+                                             temperatures=pt.DEFAULT_TEMPER_LADDER,
+                                             device=device)
+        ctrl = online.JobSetController(residents, hw=PLAN_HW, policy=policy, seed=3)
+        return ctrl, ctrl.admit(wl.VGG16, 4, name="VGG16", now=0.0)
+
+    card, card_out = admit(None)
+    cpu, cpu_out = admit("cpu")
+    assert seen == [None, "cpu"]
+    assert card_out == cpu_out and len(card_out[0]) == 4
+    assert card.plan.candidate_index == cpu.plan.candidate_index
+    assert card.plan.strategies == cpu.plan.strategies
+    assert card.plan.iter_time == cpu.plan.iter_time
+    assert sorted(card.topology.graph.edges()) == sorted(cpu.topology.graph.edges())
+    assert "VGG16" in card.plan.strategies and not card.plan_violations(card.topology)
+    repriced = evaluate_jobset(card.plan.strategies, card.jobset, card.plan.topology, PLAN_HW)
+    assert repriced[0] == card.plan.iter_time

@@ -38,7 +38,8 @@ SLICE_MODULES = (
 ) + tuple(f"repro_torch.core.{m}" for m in (
     "totient", "select_perms", "routing", "demand", "topology_finder", "netsim", "planeval",
     "costmodel", "schedules", "workloads", "strategy_search", "planeval_torch",
-    "ocs_reconfig", "simengine", "alternating",
+    "ocs_reconfig", "simengine", "alternating", "online", "faults", "fabrics", "scheduler",
+    "packetsim",
 )) + ("repro_torch.core",)
 
 
@@ -88,7 +89,7 @@ print(len(core))
 
 
 def test_planner_core_imports_leave_jax_and_repro_out():
-    """The planner (``repro_torch.core`` and its 15 modules) imports neither
+    """The planner (``repro_torch.core`` and its 20 modules) imports neither
     JAX nor the JAX package, not even the NumPy half it was forked from."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT / "tests")]))
     proc = subprocess.run(
@@ -96,4 +97,4 @@ def test_planner_core_imports_leave_jax_and_repro_out():
         env=env, cwd=ROOT, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) == 16
+    assert int(proc.stdout.split()[-1]) == 21
