@@ -15,7 +15,8 @@ result line:
    forward, the attention backward's dk/dv and dq, the grouped matmul) must
    report the 168 registers their setmaxnreg split (240 x 256 + 24 x 128) is
    sized for (the forward's lse store included), and the skinny grouped
-   matmul, the Mamba scan and every attention backward kernel must not spill;
+   matmul, the Mamba scan, every attention backward kernel and the embedding
+   bag's backward must not spill;
 3. kernels vs their plain PyTorch versions at the serving shapes, with times
    beside the bound and beside one PyTorch library call where one computes
    the same function, each case printing the tiling that served it (wgmma
@@ -41,10 +42,23 @@ result line:
    E=128, fp32: 40.96 GB) at its serving lookup (B=128, one id a bag), at
    B=4096, at a multi-hot shape (B=4096, 32 ids a bag), with bf16 tables,
    ids near the end of every table (offsets past 2^31) and ids past it
-   (clamped and wrapped), and on ragged tables (E=13, int64 ids); then
+   (clamped and wrapped), and on ragged tables (E=13, int64 ids), with the
+   serving lookup's device time from ``torch.profiler`` beside its
+   CUDA-event time; the embedding bag's backward against its plain version
+   on the DLRM training run's tables (T=2, R=1e7, E=128, fp32: 10.24 GB of
+   gradient) at the training batch (B=128, one id a bag), at B=4096, at
+   B=4096 with 32 ids a bag drawn from 4096 hot rows a table (long runs),
+   in bf16, with ids near the end of table 1 (offsets past 2^31), with ids
+   past the table and negative ids (their gradient dropped), and ragged
+   (E=13, int64 ids): two launches equal to the bit, the kernel's profiler
+   device time beside its bound, the wrapper's whole time, the zero fill
+   of the gradient apart, the plain version and ``index_add_``; then
    narrow fp32 granite, MoE, Mamba, Griffin and DLRM models on the card
    against the same models on the CPU, and a narrow fp32 VLM (head dim 128,
    two super-blocks, cross gates opened) and encoder (4 heads of 80); the
+   narrow DLRM's train step (ids past the table among them: both bag
+   kernels) against the CPU's, loss and every gradient within 1e-5 of each
+   leaf's max and the parameters after one AdamW step within 1e-4; the
    attention backward and the forward's lse against autograd of the plain
    version (fp32) at minicpm-2b's training shape (B=4, H=KV=36, S=4096,
    D=64, causal, bf16), granite-8b's (H=32, KV=8, S=2048, D=128), in fp32
@@ -93,6 +107,15 @@ result line:
    wgmma tilings, and no other kernel, with its step time, tokens/s, model
    FLOPs share and peak memory, then 6 steps on one fixed batch, whose loss
    must fall;
+5b. train the paper's DLRM (``models.dlrm.paper_config(2)``: 2 of its 64
+   tables of 1e7 x 128, fp32, the paper's MLPs) through
+   ``launch.dlrm_testbed.train_dlrm`` at batch 128, AdamW at 3e-3: 2
+   warm-up and 8 timed steps (median, range, samples/s, peak memory), one
+   forward and one backward bag launch a step and no other kernel, finite
+   losses; then 10 steps on one fixed batch, whose loss must fall, and one
+   step's device time under ``torch.profiler`` split into the tables'
+   AdamW, the gradient's zero fill, the MLP GEMMs, the two bag kernels and
+   the rest, with the idle share;
 6. plan: the planner (``repro_torch.core``) on the card at the paper's
    128-server scale (degree 4, 100 Gbps links), each result held against
    the same call on the CPU or against the NumPy oracles: (6a) pricing 256
@@ -185,7 +208,8 @@ HUBERT_CASES = tuple((PROMPT, PROMPT, D_AU, dt, False, 0, H_AU, H_AU)
                      for dt in (torch.bfloat16, torch.float16, torch.float32))
 CROSS_CASE = (PROMPT, IMG_TOKENS, D, torch.bfloat16, False, 0, KV, H)
 KERNEL_COUNTERS = ("attention_launches", "attention_bwd_launches", "grouped_matmul_launches",
-                   "selective_scan_launches", "lru_scan_launches", "bag_lookup_launches")
+                   "selective_scan_launches", "lru_scan_launches", "bag_lookup_launches",
+                   "bag_lookup_bwd_launches")
 # The same launches again, by the tiling that served them.
 TILING_COUNTERS = ("attention_wgmma_launches", "attention_fma_launches",
                    "attention_bwd_wgmma_launches", "attention_bwd_fma_launches",
@@ -195,6 +219,12 @@ COUNTERS = KERNEL_COUNTERS + TILING_COUNTERS
 T_DLRM, R_DLRM, E_DLRM = 8, 10_000_000, 128  # the paper DLRM's tables, one host's 8 of 64
 DLRM_BATCHES = (128, 4096)  # workloads.DLRM.batch_per_gpu, and a large scoring batch
 DLRM_PATH = "dlrm-paper-8t"
+# Training the paper's DLRM (phase 5b): 2 of its 64 tables (20.48 GB of fp32
+# training state a table), the training batch (workloads.DLRM.batch_per_gpu)
+# and the example's learning rate.
+T_TRAIN_DLRM, DLRM_TRAIN_B, DLRM_TRAIN_LR = 2, 128, 3e-3
+DLRM_TRAIN_PATH = "dlrm-paper-2t-train"
+DLRM_WARMUP, DLRM_TIMED, DLRM_FIXED = 2, 8, 10
 # Training (phase 5): minicpm-2b at full width and depth, TRAIN_4K's sequence
 # and its global batch of 256 cut to 4 for one card; the chunked loss.
 TRAIN_ARCH, TRAIN_B, TRAIN_S, LOSS_CHUNK = "minicpm-2b", 4, 4096, 1024
@@ -668,6 +698,42 @@ def check_train_step(lm, make_train_step, optim, ops, cfg, dev) -> dict:
     return errs
 
 
+def check_dlrm_train_step(dlrm, dlrm_testbed, optim, ops, cfg, batch, dev) -> dict:
+    """Phase 3 model: the loss and every gradient of a narrow fp32 DLRM on the
+    card (the embedding bag's forward and backward kernels) against the same
+    model on the CPU (plain versions), then one ``dlrm_testbed.make_step``
+    (AdamW) on each.  Gradients within 1e-5 of each leaf's max; parameters
+    within 1e-4, AdamW's g / (|g| + eps) moving a gradient entry within
+    rounding of 0 by up to 2 lr."""
+    m_cpu = dlrm.init(0, cfg, device="cpu")
+    m_gpu = dlrm.init(0, cfg, device=dev)
+    m_gpu.load_state_dict(m_cpu.state_dict())
+    gpu_batch = {k: v.to(dev) for k, v in batch.items()}
+    losses, grads = {}, {}
+    for name, m, b in (("cpu", m_cpu, batch), ("card", m_gpu, gpu_batch)):
+        m.requires_grad_(True)
+        params = dict(m.named_parameters())
+        for n in COUNTERS:
+            setattr(ops, n, 0)
+        loss, _ = dlrm.loss_fn(m, b, cfg)
+        grads[name] = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        losses[name] = float(loss.detach())
+    torch.cuda.synchronize()
+    counts = {n: getattr(ops, n) for n in COUNTERS}
+    want = {n: int(n in ("bag_lookup_launches", "bag_lookup_bwd_launches")) for n in COUNTERS}
+    require(counts == want, f"narrow DLRM train step launches {counts}, want {want}")
+    errs = {"loss": abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"]),
+            "grads": max_rel_err(grads["card"], grads["cpu"])}
+    require(max(errs.values()) <= 1e-5, f"narrow DLRM loss and gradients, card vs CPU: {errs}")
+    for m, b in ((m_cpu, batch), (m_gpu, gpu_batch)):
+        opt = optim.adamw(optim.constant(DLRM_TRAIN_LR), weight_decay=0.0)
+        dlrm_testbed.make_step(cfg, opt)(m, opt.init(dict(m.named_parameters())), b, 0)
+    errs["adamw step params"] = max_rel_err(
+        dict(m_gpu.named_parameters()), {n: p.detach() for n, p in m_cpu.named_parameters()})
+    require(errs["adamw step params"] <= 1e-4, f"narrow DLRM AdamW step, card vs CPU: {errs}")
+    return errs
+
+
 def resume_check(train_loop, optim, cfg, dev) -> dict:
     """Phase 5 resume: ``train.loop.train`` on the card with a checkpoint
     every 2 steps and an injected failure at step 4, resumed to step 8,
@@ -785,6 +851,105 @@ def train_full(lm, ops, optim, make_train_step, data, cfg, dev, smi) -> dict:
                 n_params=n_params)
 
 
+def train_dlrm_paper(dlrm, dlrm_testbed, optim, ops, group_of, dev, smi) -> dict:
+    """Phase 5b: trains the paper's DLRM (``paper_config(T_TRAIN_DLRM)``) on the
+    freed card through ``dlrm_testbed.train_dlrm`` for DLRM_WARMUP +
+    DLRM_TIMED steps, with every count set to 0 just before and read just
+    after; then DLRM_FIXED steps of a fresh AdamW on one fixed batch, whose
+    loss must fall, and one step under ``torch.profiler``.  Returns the
+    numbers of the run."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dlrm.paper_config(T_TRAIN_DLRM)
+    steps = DLRM_WARMUP + DLRM_TIMED
+    for n in COUNTERS:
+        setattr(ops, n, 0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = dlrm_testbed.train_dlrm(cfg, steps, DLRM_TRAIN_B, DLRM_TRAIN_LR, seed=0, device=dev)
+    wall_s = time.perf_counter() - t0
+    counts = {n: getattr(ops, n) for n in COUNTERS}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {n: 0 for n in COUNTERS}
+    want.update(bag_lookup_launches=steps, bag_lookup_bwd_launches=steps)
+    require(counts == want, f"{DLRM_TRAIN_PATH} launches {counts}, want {want}")
+    require(all(math.isfinite(x) for x in run.losses), f"finite losses {run.losses}")
+    model = run.model
+    n_params = sum(p.numel() for p in model.parameters())
+    times = run.step_s[DLRM_WARMUP:]
+    step_ms = float(np.median(times)) * 1e3
+    print(f"phase 5b train: {DLRM_TRAIN_PATH}: tables {tuple(model.tables.shape)} fp32, "
+          f"{n_params} parameters, batch {DLRM_TRAIN_B}, AdamW lr {DLRM_TRAIN_LR}; {steps} "
+          f"steps in {wall_s:.2f} s with the init; losses {run.losses}")
+    print(f"phase 5b train: {DLRM_TIMED} steps after {DLRM_WARMUP} warm-up, median {step_ms} ms "
+          f"a step (min {min(times) * 1e3}, max {max(times) * 1e3}), "
+          f"{DLRM_TRAIN_B / step_ms * 1e3} samples/s, peak memory {peak_gb} GB, launches a "
+          f"step: bag_lookup {counts['bag_lookup_launches'] / steps}, bag_lookup_bwd "
+          f"{counts['bag_lookup_bwd_launches'] / steps} (total {counts}), on {smi}")
+    del run
+
+    opt = optim.adamw(optim.constant(DLRM_TRAIN_LR), weight_decay=0.0)
+    params = dict(model.named_parameters())
+    state = opt.init(params)
+    step = dlrm_testbed.make_step(cfg, opt)
+    batch = dlrm_testbed.draw_batch(np.random.default_rng(1), cfg, DLRM_TRAIN_B, dev)
+    fixed, per_step = [], []
+    for i in range(DLRM_FIXED):
+        before = {n: getattr(ops, n) for n in COUNTERS}
+        fixed.append(float(step(model, state, batch, i)))
+        per_step.append({n: getattr(ops, n) - before[n] for n in COUNTERS
+                         if getattr(ops, n) != before[n]})
+    one_each = {"bag_lookup_launches": 1, "bag_lookup_bwd_launches": 1}
+    require(all(c == one_each for c in per_step), f"launches per fixed step {per_step}")
+    require(all(math.isfinite(x) for x in fixed) and fixed[-1] < fixed[0],
+            f"{DLRM_FIXED} steps on one fixed batch lower its loss: {fixed}")
+    print(f"phase 5b train: {DLRM_FIXED} steps on one fixed batch, losses {fixed}")
+
+    # One step's device time by part.  The tables' AdamW runs the same
+    # elementwise kernels as the MLPs', so it is traced apart: its update
+    # alone on the next step's gradient.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(model, state, batch, DLRM_FIXED)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA}
+    with torch.enable_grad():
+        loss, _ = dlrm.loss_fn(model, batch, cfg)
+        (g,) = torch.autograd.grad(loss, [params["tables"]])
+    del loss
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        opt.update({"tables": g}, state, {"tables": params["tables"]}, DLRM_FIXED + 1)
+        torch.cuda.synchronize()
+    tables_adamw = sum(e.self_device_time_total / 1e3 for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA)
+    del g
+    busy = sum(kernels.values())
+    split = {"tables' AdamW (traced apart)": tables_adamw,
+             "zero fill": named_ms(kernels, *FILL_KERNELS),
+             "MLP GEMMs": sum(t for k, t in kernels.items() if group_of(k) == "GEMM"),
+             "embedding_bag": named_ms(kernels, "embedding_bag_kernel"),
+             "embedding_bag_bwd": named_ms(kernels, "embedding_bag_bwd_kernel")}
+    split["rest"] = busy - sum(split.values())
+    idle = 1.0 - busy / traced_ms
+    print(f"phase 5b trace: one step {traced_ms} ms traced wall, {busy} ms device busy, idle "
+          f"{idle:.4f}; " + ", ".join(f"{k} {v} ms ({v / busy:.2%})" for k, v in split.items())
+          + f"; on {smi}")
+    del model, params, state, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(n_params=n_params, step_ms=step_ms, step_ms_all=[t * 1e3 for t in times],
+                samples_per_s=DLRM_TRAIN_B / step_ms * 1e3, peak_gb=peak_gb, counts=counts,
+                steps=steps, fixed_losses=fixed, traced_ms=traced_ms, busy_ms=busy,
+                idle_share=idle, split_ms=split)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -792,19 +957,22 @@ def main() -> int:
 
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import _build, ops
-    from repro_torch.kernels.embedding_bag import embedding_bag
+    from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_bwd
     from repro_torch.kernels.flash_attention import (
         attention_tiling, first_masked_row, flash_attention,
     )
     from repro_torch.kernels.mamba_scan import mamba_scan
     from repro_torch.kernels.moe_gmm import gmm_tiling, moe_gmm
     from repro_torch.kernels.ref import (
-        ref_embedding_bag, ref_flash_attention, ref_mamba_scan, ref_moe_gmm, ref_rglru_scan,
+        ref_embedding_bag, ref_embedding_bag_bwd, ref_flash_attention, ref_mamba_scan,
+        ref_moe_gmm, ref_rglru_scan,
     )
     from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch import optim
     from repro_torch.data import pipeline as data
+    from repro_torch.launch import dlrm_testbed
     from repro_torch.launch.serve import generate
+    from repro_torch.launch.trace_train import group_of
     from repro_torch.models import dlrm, layers, lm
     from repro_torch.train import loop as train_loop
     from repro_torch.train.steps import make_train_step
@@ -817,7 +985,7 @@ def main() -> int:
           f"cuda {torch.version.cuda}")
 
     kernels = ["flash_attention", "flash_attention_bwd", "moe_gmm", "mamba_scan", "rglru_scan",
-               "embedding_bag"]
+               "embedding_bag", "embedding_bag_bwd"]
     t0 = time.perf_counter()
     _build.load_all(kernels)
     print(f"phase 2 build: {', '.join(k + '.cu' for k in kernels)} in "
@@ -836,13 +1004,17 @@ def main() -> int:
                 require(info["spill_stores"] == info["spill_loads"] == 0
                         and not info["serialised"], f"{fn} spills or serialises: {info}")
             if ("skinny_kernel" in fn or "mamba_scan_kernel" in fn  # the streams and the scan
-                    or name == "flash_attention_bwd"):
+                    or name in ("flash_attention_bwd", "embedding_bag_bwd")):
                 require(info["spill_stores"] == info["spill_loads"] == 0 and not info["serialised"],
                         f"{fn} spills: {info}")
     bwd_report = ptxas_report(_build.build_logs.get("flash_attention_bwd", ""))
     if bwd_report:  # built in this run: the checks above saw both tilings' kernels
         for base in ("dkdv_wgmma_kernel", "dq_wgmma_kernel", "dkdv_kernel", "dq_kernel"):
             require(any(fn.startswith(base) for fn in bwd_report), f"ptxas reports no {base}")
+    bag_bwd_report = ptxas_report(_build.build_logs.get("embedding_bag_bwd", ""))
+    if bag_bwd_report:  # built in this run: 3 dtypes x (16-byte, scalar) kernels seen above
+        require(sum(fn.startswith("embedding_bag_bwd_kernel") for fn in bag_bwd_report) == 6,
+                f"ptxas reports 6 embedding_bag_bwd kernels: {sorted(bag_bwd_report)}")
 
     # Phase 3: the kernel against its plain version at the serving shapes.
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1095,6 +1267,8 @@ def main() -> int:
 
     bag_main, bag_multi = check_bag(embedding_bag, ref_embedding_bag, gen, dev, smi)
     torch.cuda.empty_cache()
+    bag_bwd = check_bag_bwd(embedding_bag_bwd, ref_embedding_bag_bwd, gen, dev, smi)
+    torch.cuda.empty_cache()
 
     # A narrow granite in fp32 (head dim 64): kernel prefill on the card vs the
     # plain model on the CPU, same weights and prompts.
@@ -1175,6 +1349,14 @@ def main() -> int:
     print(f"phase 3 model: narrow fp32 DLRM (T=4, R=1000, E=16, MLPs of 32), card vs CPU "
           f"plain: max|err| {errs} (tol 1e-4)")
     del m_cpu, m_gpu, gb
+    # Its train step: both bag kernels on the card against the plain versions
+    # on the CPU, with ids past the table and negative ids in the batch.
+    step_batch = dict(batch, sparse=batch["sparse"].clone())
+    step_batch["sparse"][:4] = torch.tensor([1000, -1, 1003, -1007], dtype=torch.int32)
+    errs = check_dlrm_train_step(dlrm, dlrm_testbed, optim, ops, small_dlrm, step_batch, dev)
+    print(f"phase 3 model: narrow fp32 DLRM train step (ids 1000, -1, 1003, -1007 among them), "
+          f"card vs CPU plain: max relative err {errs} (loss, gradients tol 1e-5; AdamW step "
+          f"params tol 1e-4)")
 
     # A narrow fp32 dense train step (head dim 64, 2 layers, d_model 256),
     # MHA and GQA: the attention kernels, forward and backward, on the card
@@ -1324,6 +1506,12 @@ def main() -> int:
     train_bwd = trained["counts"]["attention_bwd_launches"]
     summary = {k: trained[k] for k in ("n_params", "step_ms", "tokens_per_s", "mfu", "peak_gb")}
     print(f"phase 5 summary: {json.dumps(summary)} on {smi}")
+    dlrm_trained = train_dlrm_paper(dlrm, dlrm_testbed, optim, ops, group_of, dev, smi)
+    summary = {k: dlrm_trained[k] for k in ("n_params", "step_ms", "samples_per_s", "peak_gb",
+                                             "idle_share", "split_ms")}
+    print(f"phase 5b summary: {json.dumps(summary)} on {smi}")
+    train_bag_fwd = dlrm_trained["counts"]["bag_lookup_launches"]
+    train_bag_bwd = dlrm_trained["counts"]["bag_lookup_bwd_launches"]
 
     # Phase 6: the planner on the card.
     planned = plan_phase(dev, smi)
@@ -1476,12 +1664,27 @@ def main() -> int:
         "source": "src/repro_torch/csrc/embedding_bag.cu",
         "replaces": "src/repro/kernels/embedding_bag.py:33",
         "tpu_ref": "kernels/embedding_bag.py:33",
-        "launches": sum(bag_launches.values()),
-        "launches_by_path": {DLRM_PATH: sum(bag_launches.values())},
+        "launches": sum(bag_launches.values()) + train_bag_fwd,
+        "launches_by_path": {DLRM_PATH: sum(bag_launches.values()),
+                             f"{DLRM_TRAIN_PATH}, {dlrm_trained['steps']} steps": train_bag_fwd},
         "launches_per_forward": bag_launches,
         "ms": bag_main["kernel_ms"],
         **bag_main,
         **{f"multihot_{k}": v for k, v in bag_multi.items()},
+    }, {
+        "name": "embedding_bag_bwd",
+        "route": "cuda",
+        "tiling": "sorted runs",
+        "source": "src/repro_torch/csrc/embedding_bag_bwd.cu",
+        # The TPU side has no backward kernel (jax.grad of the gather).
+        "replaces": "none: jax.grad of the gather at src/repro/models/dlrm.py:78",
+        "launches": train_bag_bwd,
+        "launches_by_path": {f"{DLRM_TRAIN_PATH}, {dlrm_trained['steps']} steps": train_bag_bwd},
+        "launches_per_step": train_bag_bwd / dlrm_trained["steps"],
+        "ms": bag_bwd["training"]["kernel_ms"],
+        **bag_bwd["training"],
+        **{f"{name}_{k}": v for name, numbers in bag_bwd.items() if name != "training"
+           for k, v in numbers.items()},
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
@@ -1525,7 +1728,15 @@ def check_bag(embedding_bag, ref_embedding_bag, gen, dev, smi):
         return {k: numbers[k] for k in BAG_KEYS}
 
     tables = torch.randn(T, R, E, generator=gen, device=dev)  # 40.96 GB
-    main = case("serving B=128 NNZ=1 fp32 int32", tables, ids(128, 1), exact=True)
+    serving = ids(128, 1)
+    main = case("serving B=128 NNZ=1 fp32 int32", tables, serving, exact=True)
+    # The same lookup's device time alone: the CUDA-event time above is of
+    # back-to-back launches that the host paces.
+    main["device_ms"] = named_ms(kernel_device_ms(lambda: embedding_bag(tables, serving), 200),
+                                 "embedding_bag_kernel")
+    print(f"phase 3 kernel: embedding_bag serving B=128 NNZ=1 fp32: device_ms "
+          f"{main['device_ms']} (torch.profiler, mean of 200 launches) beside kernel_ms "
+          f"{main['kernel_ms']} (CUDA events) on {smi}")
     case("B=4096 NNZ=1 fp32 int32", tables, ids(4096, 1), exact=True)
     multi = case("multi-hot B=4096 NNZ=32 fp32 int32", tables, ids(4096, 32))
     case("ids near R-1 B=128 NNZ=4 fp32 int32", tables, ids(128, 4, R - 1000))
@@ -1552,6 +1763,149 @@ def check_bag(embedding_bag, ref_embedding_bag, gen, dev, smi):
     case("ragged E=13 B=128 NNZ=7 fp32 int64", tables, ids(128, 7, dtype=torch.int64))
     del tables
     return main, multi
+
+
+def kernel_device_ms(fn, iters: int) -> dict:
+    """Device time (ms per call of ``fn``) of each kernel ``fn`` launches, by
+    name, from ``torch.profiler`` over ``iters`` calls after one warm-up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / iters
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+def named_ms(times: dict, *patterns: str) -> float:
+    """The summed ms of the kernels whose names hold one of ``patterns``;
+    fails when the profiler saw none."""
+    hits = [t for k, t in times.items() if any(p in k for p in patterns)]
+    require(hits, f"the profiler saw a kernel named like {patterns}: {sorted(times)}")
+    return sum(hits)
+
+
+FILL_KERNELS = ("FillFunctor", "Memset")  # torch.zeros' fill, by the profiler's names
+
+
+def rows_of(a):
+    """``a`` as (rows, E) slices of at most 2**22 rows (2 GB in fp32), so a
+    comparison of two 10 GB gradients makes no full-size temporary."""
+    flat = a.view(-1, a.shape[-1])
+    return [flat[i:i + (1 << 22)] for i in range(0, flat.shape[0], 1 << 22)]
+
+
+def check_bag_bwd(embedding_bag_bwd, ref_embedding_bag_bwd, gen, dev, smi):
+    """The embedding bag's backward against its plain version on the DLRM
+    training run's tables (T_TRAIN_DLRM x 1e7 x 128); returns each case's
+    numbers, by label.  fp32: rtol 1e-6 and an atol of (the longest run)
+    ulps of max|dout|, the plain version's index_add_ adding in no fixed
+    order on the card; bf16: 2e-2.  Two launches on the same inputs must
+    give the same bits."""
+    T, R, E = T_TRAIN_DLRM, R_DLRM, E_DLRM
+
+    def ids(Bb, nnz, low=0, high=R, dtype=torch.int32):
+        return torch.randint(low, high, (Bb, T, nnz), generator=gen, device=dev).to(dtype)
+
+    def hot_ids(Bb, nnz, hot=4096):
+        rows = torch.randint(0, R, (T, hot), generator=gen, device=dev)
+        pick = torch.randint(0, hot, (Bb, T, nnz), generator=gen, device=dev)
+        return rows[torch.arange(T, device=dev)[None, :, None], pick].to(torch.int32)
+
+    def case(label, dout, idx) -> dict:
+        dtype, width = dout.dtype, dout.shape[-1]
+        out = embedding_bag_bwd(dout, idx, R, dtype)
+        torch.cuda.synchronize()
+        again = embedding_bag_bwd(dout, idx, R, dtype)
+        same = all(torch.equal(a, b) for a, b in zip(rows_of(out), rows_of(again)))
+        require(same, f"embedding_bag_bwd {label}: two launches differ")
+        del again
+        # The in-range entries: their keys, dout rows, the rows they write.
+        wrapped = idx.long()
+        wrapped = torch.where(wrapped < 0, wrapped + R, wrapped)
+        keep = (wrapped >= 0) & (wrapped < R)
+        keys = (wrapped + torch.arange(T, device=dev)[None, :, None] * R)[keep]
+        rows = dout[:, :, None, :].expand(*idx.shape, width)[keep]
+        written, counts = torch.unique(keys, return_counts=True)
+        longest = int(counts.max())
+        ref = ref_embedding_bag_bwd(dout, idx, R, dtype)
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(rows_of(out), rows_of(ref)))
+        if dtype == torch.float32:
+            tol = longest * torch.finfo(torch.float32).eps * float(dout.abs().max())
+            ok = all(torch.allclose(a, b, rtol=1e-6, atol=tol)
+                     for a, b in zip(rows_of(out), rows_of(ref)))
+        else:
+            tol = 2e-2
+            ok = all(torch.allclose(a.float(), b.float(), rtol=tol, atol=tol)
+                     for a, b in zip(rows_of(out), rows_of(ref)))
+        nonzero = sum(int(a.ne(0).any(dim=1).sum()) for a in rows_of(out))
+        require(ok and nonzero <= written.numel(),
+                f"embedding_bag_bwd vs plain, {label}: max|err| {err} (tol {tol}), "
+                f"{nonzero} rows non-zero of {written.numel()} written")
+        del ref
+        wrapper_ms = time_ms(lambda: embedding_bag_bwd(dout, idx, R, dtype), 10)
+        prof = kernel_device_ms(lambda: embedding_bag_bwd(dout, idx, R, dtype), 10)
+        kernel_ms = named_ms(prof, "embedding_bag_bwd_kernel")
+        fill_dev_ms = named_ms(prof, *FILL_KERNELS)
+        fill_ms = time_ms(lambda: torch.zeros((T, R, width), dtype=dtype, device=dev), 10)
+        plain_ms = time_ms(lambda: ref_embedding_bag_bwd(dout, idx, R, dtype), 3)
+        del out
+        # One PyTorch call for the same sums, without the fill: a yardstick
+        # only, never on the port's path.
+        buf = torch.zeros((T * R, width), dtype=dtype, device=dev)
+        library_ms = time_ms(lambda: buf.index_add_(0, keys, rows), 20)
+        del buf
+        nbytes = ((dout.numel() + written.numel() * width) * dout.element_size()
+                  + idx.numel() * idx.element_size())
+        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, keys.numel() * width / PEAK_FLOPS[
+            torch.float32]
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        print(f"phase 3 kernel: embedding_bag_bwd {label}: max|err| {err} (tol {tol}; longest "
+              f"run {longest}), two launches bitwise equal, {written.numel()} rows written of "
+              f"{T * R}; kernel_ms {kernel_ms} (torch.profiler) wrapper_ms {wrapper_ms} (keys, "
+              f"sort, fill, kernel; CUDA events) fill_ms {fill_ms} (device {fill_dev_ms}) "
+              f"plain_ms {plain_ms} library_ms {library_ms} (index_add_, no fill) bound_ms "
+              f"{bound_ms} ({bound_by}) on {smi}")
+        return dict(max_abs_err=err, kernel_ms=kernel_ms, wrapper_ms=wrapper_ms, fill_ms=fill_ms,
+                    plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, longest_run=longest)
+
+    def dout(Bb, width=E, dtype=torch.float32):
+        return torch.randn(Bb, T, width, generator=gen, device=dev).to(dtype)
+
+    cases = {}
+    cases["training"] = case("training B=128 NNZ=1 fp32 int32", dout(128), ids(128, 1))
+    cases["B=4096"] = case("B=4096 NNZ=1 fp32 int32", dout(4096), ids(4096, 1))
+    cases["hot"] = case("B=4096 NNZ=32 from 4096 hot rows a table fp32 int32", dout(4096),
+                        hot_ids(4096, 32))
+    cases["bf16"] = case("B=4096 NNZ=32 from 4096 hot rows a table bf16 int32",
+                         dout(4096, dtype=torch.bfloat16), hot_ids(4096, 32))
+    cases["end"] = case("ids near R-1 (table 1 past 2^31) B=128 NNZ=4 fp32 int32", dout(128),
+                        ids(128, 4, R - 1000))
+    # Ids past the table and wrapping to below 0 get no gradient; -1 and -R
+    # wrap to rows R-1 and 0.
+    raw = torch.tensor([R, R + 5, -1, -R, -R - 3, 2**31 - 1, -(2**31), 0], device=dev).repeat(16)
+    past = raw[:, None, None].expand(-1, T, 1).to(torch.int32)
+    d = dout(past.shape[0])
+    got = embedding_bag_bwd(d, past, R, torch.float32)
+    lands = {R - 1: raw == -1, 0: (raw == -R) | (raw == 0)}
+    atol = past.shape[0] * torch.finfo(torch.float32).eps * float(d.abs().max())
+    for row, sel in lands.items():
+        require(torch.allclose(got[:, row], d[sel].sum(dim=0), rtol=1e-6, atol=atol),
+                f"ids landing on row {row} sum there")
+    require(sum(int(a.ne(0).any(dim=1).sum()) for a in rows_of(got)) == 2 * T,
+            "only rows 0 and R-1 of each table get a gradient")
+    del got
+    cases["outside"] = case("ids past the table and negative B=128 NNZ=1 fp32 int32", d, past)
+    cases["ragged"] = case("ragged E=13 B=128 NNZ=7 fp32 int64", dout(128, 13),
+                           ids(128, 7, dtype=torch.int64))
+    return cases
 
 
 BAG_KEYS = ("max_abs_err", "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")

@@ -28,62 +28,9 @@
 // B = 4096, T = 8, NNZ = 32, E = 128 fp32 (537 MB of rows).  At the DLRM
 // serving batch (B = 128, NNZ = 1: 0.5 MB) the launch dominates.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "embedding_bag.cuh"
 
 namespace {
-
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int U = 4;  // ids (and rows) in flight per lane
-
-template <typename T> __device__ __forceinline__ float to_float(T x);
-template <> __device__ __forceinline__ float to_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_float<__half>(__half x) { return __half2float(x); }
-template <> __device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __half from_float<__half>(float x) {
-  return __float2half_rn(x);
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// The values of T in the 16 bytes of one vector load.
-template <typename T> struct Vec { static constexpr int N = 16 / sizeof(T); };
-
-// Splits one 32-bit word of a 16-byte load into its T values, as floats.
-template <typename T> __device__ __forceinline__ void unpack(uint32_t w, float* f);
-template <> __device__ __forceinline__ void unpack<float>(uint32_t w, float* f) {
-  f[0] = __uint_as_float(w);
-}
-template <> __device__ __forceinline__ void unpack<__half>(uint32_t w, float* f) {
-  f[0] = __half2float(__ushort_as_half((unsigned short)(w & 0xffffu)));
-  f[1] = __half2float(__ushort_as_half((unsigned short)(w >> 16)));
-}
-template <> __device__ __forceinline__ void unpack<__nv_bfloat16>(uint32_t w, float* f) {
-  f[0] = __uint_as_float(w << 16);
-  f[1] = __uint_as_float(w & 0xffff0000u);
-}
-
-template <typename T> __device__ __forceinline__ uint32_t pack(const float* f);
-template <> __device__ __forceinline__ uint32_t pack<float>(const float* f) {
-  return __float_as_uint(f[0]);
-}
-template <> __device__ __forceinline__ uint32_t pack<__half>(const float* f) {
-  return (uint32_t)__half_as_ushort(__float2half_rn(f[0])) |
-         ((uint32_t)__half_as_ushort(__float2half_rn(f[1])) << 16);
-}
-template <> __device__ __forceinline__ uint32_t pack<__nv_bfloat16>(const float* f) {
-  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(f[0])) |
-         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(f[1])) << 16);
-}
 
 // The row an id selects: negative ids wrap by R, then all clamp to [0, R).
 template <typename I>
@@ -101,46 +48,6 @@ __device__ __forceinline__ void load_ids(int64_t (&ids)[U], const I* ip, int j0,
     const int j = j0 + u;
     ids[u] = j < nnz ? row_of<I>(ip[(int64_t)j * si_j], R) : 0;
   }
-}
-
-// One lane's chunk of a row: `width` (<= VEC) values from rp, as floats.
-template <typename T, int VEC>
-__device__ __forceinline__ void load_chunk(float (&v)[VEC], const T* rp, int width,
-                                           int64_t st_e) {
-  if constexpr (VEC > 1) {
-    if (width == VEC) {  // one 16-byte load
-      const uint4 w = __ldg(reinterpret_cast<const uint4*>(rp));
-      constexpr int PER = VEC / 4;  // T values per 32-bit word
-      unpack<T>(w.x, &v[0]);
-      unpack<T>(w.y, &v[PER]);
-      unpack<T>(w.z, &v[2 * PER]);
-      unpack<T>(w.w, &v[3 * PER]);
-      return;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) v[i] = i < width ? to_float<T>(rp[(int64_t)i * st_e]) : 0.f;
-}
-
-// Rounds a chunk's sums to T and stores them; one 16-byte store where the
-// output row is aligned (E a multiple of VEC).
-template <typename T, int VEC>
-__device__ __forceinline__ void store_chunk(T* op, const float (&acc)[VEC], int width, int E) {
-  if constexpr (VEC > 1) {
-    if (width == VEC && E % VEC == 0) {
-      constexpr int PER = VEC / 4;
-      uint4 w;
-      w.x = pack<T>(&acc[0]);
-      w.y = pack<T>(&acc[PER]);
-      w.z = pack<T>(&acc[2 * PER]);
-      w.w = pack<T>(&acc[3 * PER]);
-      *reinterpret_cast<uint4*>(op) = w;
-      return;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < VEC; ++i)
-    if (i < width) op[i] = from_float<T>(acc[i]);
 }
 
 // VEC = Vec<T>::N: rows are 16-byte aligned with unit element stride, and a
@@ -193,12 +100,6 @@ embedding_bag_kernel(const T* __restrict__ tables, const I* __restrict__ idx,
     }
     store_chunk<T, VEC>(op + e0, acc, width, E);
   }
-}
-
-int lanes_per_bag(int n_chunks) {
-  int L = 1;
-  while (L < n_chunks && L < 32) L *= 2;
-  return L;
 }
 
 template <typename T, typename I, int VEC>

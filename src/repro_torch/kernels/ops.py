@@ -10,10 +10,14 @@ launch under the tiling that served it (``attention_wgmma_launches``, ...).
 Training: on a CUDA input that needs a gradient, ``attention`` goes through
 :class:`FlashAttentionFn`, whose forward also writes the log-sum-exp and
 whose backward launches the backward kernel (``attention_bwd_launches``, and
-by tiling ``attention_bwd_wgmma_launches`` or ``attention_bwd_fma_launches``).
-The other kernels have no backward yet: their wrappers raise
+by tiling ``attention_bwd_wgmma_launches`` or ``attention_bwd_fma_launches``);
+``bag_lookup`` goes through :class:`EmbeddingBagFn`, whose backward launches
+the embedding bag's backward kernel (``bag_lookup_bwd_launches``), and on the
+CPU under grad through the same Function on the plain versions, whose
+gradient drops ids outside the table as ``jax.grad`` of the reference's
+gather does.  The other kernels have no backward yet: their wrappers raise
 ``NotImplementedError`` on a CUDA input that requires grad while grad is
-enabled, rather than hand autograd a constant.  The CPU path (the plain
+enabled, rather than hand autograd a constant.  Their CPU path (the plain
 versions) stays differentiable by autograd.
 """
 
@@ -21,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from .embedding_bag import embedding_bag
+from .embedding_bag import EmbeddingBagFn, embedding_bag
 from .flash_attention import FlashAttentionFn, attention_tiling, flash_attention
 from .mamba_scan import mamba_scan
 from .moe_gmm import gmm_tiling, moe_gmm
@@ -43,6 +47,7 @@ grouped_matmul_skinny_launches = 0
 selective_scan_launches = 0
 lru_scan_launches = 0
 bag_lookup_launches = 0
+bag_lookup_bwd_launches = 0  # counted by EmbeddingBagFn.backward
 
 
 def _needs_grad(*tensors) -> bool:
@@ -123,9 +128,11 @@ def bag_lookup(tables, indices):
     """tables: (T, R, E); indices: (B, T, NNZ) -> (B, T, E):
     ``out[b, t] = sum_j tables[t, indices[b, t, j]]``."""
     global bag_lookup_launches
-    if tables.device.type == "cpu":
-        return ref_embedding_bag(tables, indices)
-    _refuse_grad("embedding_bag", "C5", tables)
-    out = embedding_bag(tables, indices)
-    bag_lookup_launches += 1
+    on_cpu = tables.device.type == "cpu"
+    if _needs_grad(tables):  # the kernels on the card, the plain versions on the CPU
+        out = EmbeddingBagFn.apply(tables, indices)
+    else:
+        out = (ref_embedding_bag if on_cpu else embedding_bag)(tables, indices)
+    if not on_cpu:
+        bag_lookup_launches += 1
     return out

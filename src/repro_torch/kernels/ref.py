@@ -118,3 +118,25 @@ def ref_embedding_bag(tables, indices):
     ids = torch.where(ids < 0, ids + R, ids).clamp_(0, R - 1)
     gathered = tables[torch.arange(T, device=tables.device)[None, :, None], ids]  # (B,T,NNZ,E)
     return gathered.float().sum(dim=2).to(tables.dtype)
+
+
+def ref_embedding_bag_bwd(dout, indices, R, dtype):
+    """The lookup's gradient for the tables: dout (B, T, E); indices (B, T,
+    NNZ) int32/int64 -> dtables (T, R, E) in ``dtype``.  Each row is the sum,
+    in fp32 and in (b, j) order, of the dout rows whose id selects it,
+    rounded once; rows no id selects are 0.  Ids follow ``jax.grad`` of the
+    reference's gather: a negative id wraps once by R, and an id still
+    outside [0, R) gets no gradient (the forward clamps it, the scatter
+    drops it).  On the CPU ``index_add_`` adds in index order, which is
+    (b, j) order for each row; on the card it adds with atomics, in no fixed
+    order."""
+    B, T, NNZ = indices.shape
+    E = dout.shape[-1]
+    ids = indices.long()
+    ids = torch.where(ids < 0, ids + R, ids)
+    keep = (ids >= 0) & (ids < R)
+    keys = ids + torch.arange(T, device=ids.device)[None, :, None] * R
+    rows = dout.float()[:, :, None, :].expand(B, T, NNZ, E)
+    acc = torch.zeros((T * R, E), dtype=torch.float32, device=dout.device)
+    acc.index_add_(0, keys[keep], rows[keep])
+    return acc.view(T, R, E).to(dtype)

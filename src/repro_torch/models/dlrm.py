@@ -6,8 +6,11 @@ facebookresearch/dlrm.  Every embedding lookup goes through
 ``ops.bag_lookup`` (the embedding-bag kernel on the card) with one id per
 bag, which computes the reference's gather; the MLPs and the interaction
 are plain matrix products (cuBLAS), as the reference leaves them to XLA.
-This module scores (``forward``, ``loss_fn``); training comes with the
-optimizer and the lookup's gradient (ROADMAP.md queue 1, item 5).
+``loss_fn`` trains as well as scores: under grad the lookup goes through
+``kernels.embedding_bag.EmbeddingBagFn``, whose backward is the
+deterministic embedding-bag backward kernel on the card (the plain version
+on the CPU), with ``jax.grad``'s rule for ids outside the table.  The
+training loop is ``repro_torch.launch.dlrm_testbed.train_dlrm``.
 """
 
 from __future__ import annotations

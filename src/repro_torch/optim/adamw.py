@@ -6,8 +6,11 @@ names: ``"m"``, ``"v"`` and, for bf16/fp16 parameters, an fp32
 SGD.  ``update(grads, state, params, step)`` follows the reference's
 arithmetic but runs leaf by leaf in place under ``torch.no_grad``, so an
 update adds no full copy of the state (minicpm-2b's is 43.6 GB): only a
-few fp32 temporaries of the leaf at hand.  It returns ``(params, state)``,
-the same objects.
+few fp32 temporaries of the leaf at hand.  AdamW updates a leaf of more
+than ``SLICE_ELEMENTS`` elements (DLRM's tables: 2.56e9 at 2 tables) slice
+by slice along dim 0 of its flattened view, so those temporaries stay near
+1 GB; every element sees the same arithmetic, so the result is bitwise the
+whole leaf's.  It returns ``(params, state)``, the same objects.
 """
 
 from __future__ import annotations
@@ -15,6 +18,10 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+
+
+# AdamW's largest slice of a leaf: 2**28 fp32 elements, 1.07 GB a temporary.
+SLICE_ELEMENTS = 2**28
 
 
 class Optimizer(NamedTuple):
@@ -47,6 +54,18 @@ def adamw(
                                for n, p in params.items()}
         return state
 
+    def update_leaf(lr, c1, c2, g, m, v, src, p):
+        g = g.float()
+        m.mul_(b1).add_(g, alpha=1 - b1)
+        v.mul_(b2).add_(g * g, alpha=1 - b2)
+        pf = src if src.dtype == torch.float32 else src.float()
+        step_vec = (m / c1).div_((v / c2).sqrt_().add_(eps)).add_(pf, alpha=weight_decay)
+        pf.sub_(step_vec.mul_(lr))
+        if pf is not src:
+            src.copy_(pf)
+        if src.data_ptr() != p.data_ptr():
+            p.copy_(pf)
+
     @torch.no_grad()
     def update(grads, state, params, step):
         lr = lr_fn(step)
@@ -54,20 +73,16 @@ def adamw(
         c1 = 1.0 - b1**t
         c2 = 1.0 - b2**t
         for name, p in params.items():
-            g = grads[name].float()
-            m, v = state["m"][name], state["v"][name]
-            m.mul_(b1).add_(g, alpha=1 - b1)
-            v.mul_(b2).add_(g * g, alpha=1 - b2)
             # The master (the parameter itself where it is fp32) updates in
             # place; a bf16/fp16 parameter without one goes through an fp32 copy.
             src = state["master"][name] if "master" in state else p.detach()
-            pf = src if src.dtype == torch.float32 else src.float()
-            step_vec = (m / c1).div_((v / c2).sqrt_().add_(eps)).add_(pf, alpha=weight_decay)
-            pf.sub_(step_vec.mul_(lr))
-            if pf is not src:
-                src.copy_(pf)
-            if src.data_ptr() != p.data_ptr():
-                p.copy_(pf)
+            leaf = (grads[name], state["m"][name], state["v"][name], src, p.detach())
+            if p.numel() > SLICE_ELEMENTS:
+                flat = [leaf[0].reshape(-1)] + [x.view(-1) for x in leaf[1:]]
+                for i in range(0, p.numel(), SLICE_ELEMENTS):
+                    update_leaf(lr, c1, c2, *(x[i:i + SLICE_ELEMENTS] for x in flat))
+            else:
+                update_leaf(lr, c1, c2, *leaf)
         return params, state
 
     return Optimizer(init=init, update=update)

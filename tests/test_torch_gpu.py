@@ -1,7 +1,8 @@
 """The CUDA kernels (flash attention and its backward, grouped matmul, Mamba
-selective scan, RG-LRU scan, embedding bag) against their plain versions,
-the narrow models (and a narrow DLRM) on the card against the CPU, a
-narrow train step on the card against the same on the CPU, the planner's
+selective scan, RG-LRU scan, embedding bag and its backward) against their
+plain versions, the narrow models (and a narrow DLRM) on the card against
+the CPU, narrow train steps (dense and DLRM) on the card against the same
+on the CPU, the planner's
 device path (pricing and chains) against its NumPy oracles, and the online
 controller's fused admission on the card against the same on the CPU.
 
@@ -17,15 +18,15 @@ import torch
 
 from repro_torch.configs.base import get_config
 from repro_torch.kernels import ops
-from repro_torch.kernels.embedding_bag import embedding_bag
+from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_bwd
 from repro_torch.kernels.flash_attention import (
     FlashAttentionFn, first_masked_row, flash_attention, flash_attention_bwd,
 )
 from repro_torch.kernels.mamba_scan import mamba_scan
 from repro_torch.kernels.moe_gmm import moe_gmm
 from repro_torch.kernels.ref import (
-    ref_embedding_bag, ref_flash_attention, ref_flash_attention_lse, ref_mamba_scan, ref_moe_gmm,
-    ref_rglru_scan,
+    ref_embedding_bag, ref_embedding_bag_bwd, ref_flash_attention, ref_flash_attention_lse,
+    ref_mamba_scan, ref_moe_gmm, ref_rglru_scan,
 )
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch import optim
@@ -719,6 +720,158 @@ def test_dlrm_on_card_matches_plain_dlrm_on_cpu(cuda, monkeypatch):
     torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
 
 
+def _bag_bwd_inputs(device, T, R, E, B, NNZ, dtype, id_dtype, kind="uniform", seed=0):
+    """dout (B, T, E) and ids (B, T, NNZ): uniform in [0, R), drawn from 8
+    rows a table (long runs), or from [-2R, 2R) (some dropped)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dout = torch.randn(B, T, E, generator=gen, device=device).to(dtype)
+    if kind == "hot":
+        hot = torch.randint(0, R, (8,), generator=gen, device=device)
+        ids = hot[torch.randint(0, 8, (B, T, NNZ), generator=gen, device=device)]
+    elif kind == "outside":
+        ids = torch.randint(-2 * R, 2 * R, (B, T, NNZ), generator=gen, device=device)
+    else:
+        ids = torch.randint(0, R, (B, T, NNZ), generator=gen, device=device)
+    return dout, ids.to(id_dtype)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "hot", "outside"])
+@pytest.mark.parametrize("NNZ", [1, 7, 32])
+@pytest.mark.parametrize("E", [128, 16, 13, 200])
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+def test_bag_bwd_kernel_matches_plain(cuda, dtype, id_dtype, E, NNZ, kind):
+    """Bitwise the plain version on the CPU, which adds in the kernel's (b, j)
+    order in fp32 and rounds once; within the forward's bars of the plain
+    version on the card, whose index_add_ adds in no fixed order."""
+    dout, ids = _bag_bwd_inputs(cuda, 3, 1000, E, 5, NNZ, dtype, id_dtype, kind)
+    out = embedding_bag_bwd(dout, ids, 1000, dtype)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (3, 1000, E)
+    assert torch.equal(out.cpu(), ref_embedding_bag_bwd(dout.cpu(), ids.cpu(), 1000, dtype))
+    expect = ref_embedding_bag_bwd(dout, ids, 1000, dtype)
+    if dtype == torch.float32:
+        # B * NNZ = 5 * NNZ: the longest run a row can have.
+        atol = 5 * NNZ * torch.finfo(torch.float32).eps * float(dout.abs().max())
+        torch.testing.assert_close(out, expect, rtol=1e-6, atol=atol)
+    else:
+        torch.testing.assert_close(out.float(), expect.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bag_bwd_kernel_is_deterministic(cuda, dtype):
+    """Rows that 4096 x 32 ids (8 hot rows a table) hit thousands of times:
+    two launches give the same bits."""
+    dout, ids = _bag_bwd_inputs(cuda, 2, 5000, 128, 4096, 32, dtype, torch.int32, "hot")
+    first = embedding_bag_bwd(dout, ids, 5000, dtype)
+    assert torch.equal(first, embedding_bag_bwd(dout, ids, 5000, dtype))
+    assert torch.equal(first.cpu(), ref_embedding_bag_bwd(dout.cpu(), ids.cpu(), 5000, dtype))
+
+
+def test_bag_bwd_kernel_takes_strided_dout(cuda):
+    """dout as DLRM's backward hands it (a (B, T, E) slice of the (B, T + 1,
+    E) gradient of the features), transposed, not 16-byte aligned, and
+    expanded: the same rows as from a contiguous copy."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    big = torch.randn(6, 4, 16, generator=gen, device=cuda)
+    ids = torch.randint(-5, 60, (6, 3, 4), generator=gen, device=cuda)
+    views = [big[:, 1:], big[:, 1:].transpose(0, 1).contiguous().transpose(0, 1),
+             big[:, 1:, 1:14], torch.ones(1, 1, 16, device=cuda).expand(6, 3, 16)]
+    for dout in views:
+        out = embedding_bag_bwd(dout, ids, 50, torch.float32)
+        assert torch.equal(out, embedding_bag_bwd(dout.contiguous(), ids, 50, torch.float32))
+        assert torch.equal(out.cpu(), ref_embedding_bag_bwd(dout.cpu(), ids.cpu(), 50,
+                                                             torch.float32))
+
+
+def test_bag_bwd_kernel_offsets_past_int32(cuda):
+    """Table 1 of (2, 1e7, 128) starts 1.28e9 elements in and its last rows
+    lie 2.56e9 in, past INT_MAX (bf16: 5.12 GB)."""
+    T, R, E = 2, 10_000_000, 128
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    dout = torch.randn(64, T, E, generator=gen, device=cuda).bfloat16()
+    ids = torch.randint(R - 1000, R, (64, T, 4), generator=gen, device=cuda)
+    out = embedding_bag_bwd(dout, ids, R, torch.bfloat16)
+    keys = (ids + torch.arange(T, device=cuda)[None, :, None] * R).reshape(-1).unique()
+    rows = out.view(T * R, E)
+    expect = torch.zeros(T * R, E, device=cuda).index_add_(
+        0, (ids + torch.arange(T, device=cuda)[None, :, None] * R).reshape(-1),
+        dout.float()[:, :, None, :].expand(64, T, 4, E).reshape(-1, E))
+    torch.testing.assert_close(rows[keys].float(), expect[keys], rtol=2e-2, atol=2e-2)
+    assert int(rows.ne(0).any(dim=1).sum()) == keys.numel()  # zero elsewhere
+
+
+def test_bag_bwd_wrapper_refuses_what_it_does_not_take(cuda):
+    dout, ids = _bag_bwd_inputs(cuda, 2, 100, 16, 3, 2, torch.float32, torch.int32)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        embedding_bag_bwd(dout, ids.cpu(), 100, torch.float32)
+    with pytest.raises(ValueError, match="tables' dtype"):
+        embedding_bag_bwd(dout, ids, 100, torch.bfloat16)
+    with pytest.raises(ValueError, match="dout must be"):
+        embedding_bag_bwd(dout.double(), ids, 100, torch.float64)
+    with pytest.raises(ValueError, match="indices must be"):
+        embedding_bag_bwd(dout, ids.short(), 100, torch.float32)
+    with pytest.raises(ValueError, match="indices"):
+        embedding_bag_bwd(dout, ids[:, :1], 100, torch.float32)
+    with pytest.raises(ValueError, match="out of range"):
+        embedding_bag_bwd(dout, ids, 0, torch.float32)
+
+
+def test_bag_lookup_under_grad_launches_both_kernels(cuda, monkeypatch):
+    """ops.bag_lookup on tables that need a gradient: one forward launch, one
+    backward launch when autograd asks, the gradient bitwise the CPU's."""
+    monkeypatch.setattr(ops, "bag_lookup_launches", 0)
+    monkeypatch.setattr(ops, "bag_lookup_bwd_launches", 0)
+    tables, _ = _bag_inputs(cuda, 3, 200, 16, 5, 4, torch.float32, torch.int32)
+    dout, ids = _bag_bwd_inputs(cuda, 3, 200, 16, 5, 4, torch.float32, torch.int32, "outside")
+    leaf = tables.clone().requires_grad_(True)
+    out = ops.bag_lookup(leaf, ids)
+    assert (ops.bag_lookup_launches, ops.bag_lookup_bwd_launches) == (1, 0)
+    (grad,) = torch.autograd.grad(out, leaf, dout)
+    assert (ops.bag_lookup_launches, ops.bag_lookup_bwd_launches) == (1, 1)
+    assert torch.equal(out, embedding_bag(tables, ids))
+    assert torch.equal(grad.cpu(), ref_embedding_bag_bwd(dout.cpu(), ids.cpu(), 200,
+                                                          torch.float32))
+
+
+def test_dlrm_train_step_on_card_matches_cpu(cuda, monkeypatch):
+    """One narrow fp32 DLRM step of ``launch.dlrm_testbed.make_step`` (ids past
+    the table and negative among them): the loss and every gradient within
+    1e-5 of the leaf's max of the CPU's, and the parameters after the AdamW
+    step within 1e-4 (AdamW's g / (|g| + eps) near g = 0)."""
+    from repro_torch.launch.dlrm_testbed import make_step
+
+    cfg = dlrm.DLRMConfig(n_tables=4, rows_per_table=1000, embed_dim=16,
+                          bottom_mlp=(32, 32), top_mlp=(32, 32, 1))
+    models = {d: dlrm.init(0, cfg, device=d) for d in ("cpu", cuda)}
+    models[cuda].load_state_dict(models["cpu"].state_dict())
+    gen = torch.Generator().manual_seed(0)
+    sparse = torch.randint(-1500, 2500, (64, cfg.n_tables), generator=gen)
+    batch = {"dense": torch.randn(64, cfg.dense_features, generator=gen), "sparse": sparse,
+             "label": (sparse[:, 0] % 2).float()}
+    grads, losses = {}, {}
+    for d, m in models.items():
+        m.requires_grad_(True)
+        params = dict(m.named_parameters())
+        loss, _ = dlrm.loss_fn(m, {k: v.to(d) for k, v in batch.items()}, cfg)
+        grads[d] = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        losses[d] = float(loss.detach())
+    assert abs(losses[cuda] - losses["cpu"]) <= 1e-5 * abs(losses["cpu"])
+    for n, g in grads["cpu"].items():
+        err = float((grads[cuda][n].cpu() - g).abs().max())
+        assert err <= 1e-5 * float(g.abs().max()), (n, err)
+    monkeypatch.setattr(ops, "bag_lookup_bwd_launches", 0)
+    for d, m in models.items():
+        opt = optim.adamw(optim.constant(3e-3), weight_decay=0.0)
+        make_step(cfg, opt)(m, opt.init(dict(m.named_parameters())),
+                            {k: v.to(d) for k, v in batch.items()}, 0)
+    assert ops.bag_lookup_bwd_launches == 1
+    for n, p in models["cpu"].named_parameters():
+        err = float((dict(models[cuda].named_parameters())[n].detach().cpu() - p.detach())
+                    .abs().max())
+        assert err <= 1e-4 * float(p.detach().abs().max()), (n, err)
+
+
 # ---------------------------------------------------------------------------
 # Training: the forward's lse, the backward kernel, the raises under grad
 # ---------------------------------------------------------------------------
@@ -855,22 +1008,21 @@ def test_bwd_wrapper_refuses_what_it_does_not_take(cuda):
 
 
 def test_kernels_without_a_backward_raise_under_grad(cuda):
-    """moe_gmm, mamba_scan, rglru_scan and embedding_bag have no backward
-    kernel yet: on a CUDA input that requires grad they raise, naming the
-    ROADMAP item, rather than hand autograd a constant; under no_grad, or
-    with inputs that need no grad, they launch as in serving."""
+    """moe_gmm, mamba_scan and rglru_scan have no backward kernel yet: on a
+    CUDA input that requires grad they raise, naming the ROADMAP item,
+    rather than hand autograd a constant; under no_grad, or with inputs that
+    need no grad, they launch as in serving.  (The embedding bag has its
+    backward: test_bag_lookup_under_grad_launches_both_kernels.)"""
     gen = torch.Generator(device=cuda).manual_seed(8)
     x = torch.randn(4, 8, 64, generator=gen, device=cuda)
     w = torch.randn(4, 64, 32, generator=gen, device=cuda)
     a = torch.rand(2, 10, 64, generator=gen, device=cuda)
     b = torch.randn(2, 10, 64, generator=gen, device=cuda)
     xc, dt, am, bm, cm, ds = _mamba_inputs(cuda, 2, 10, 64, 16, torch.float32)
-    tables, ids = _bag_inputs(cuda, 2, 100, 16, 3, 2, torch.float32, torch.int32)
     calls = {
         "moe_gmm.*C2": (ops.grouped_matmul, (x, w), 1),
         "mamba_scan.*C3": (ops.selective_scan, (xc, dt, am, bm, cm, ds), 0),
         "rglru_scan.*C4": (ops.lru_scan, (a, b), 1),
-        "embedding_bag.*C5": (ops.bag_lookup, (tables, ids), 0),
     }
     for match, (fn, args, i) in calls.items():
         fn(*args)  # no input needs grad: the kernel launches
