@@ -16,7 +16,8 @@ result line:
    report the 168 registers their setmaxnreg split (240 x 256 + 24 x 128) is
    sized for (the forward's lse store included), and the skinny grouped
    matmul, the Mamba scan, every attention backward kernel and the embedding
-   bag's backward must not spill;
+   bag's backward (the small tiling's 6 kernels, the sorted tiling's 12 and
+   the keys kernel's 4) must not spill;
 3. kernels vs their plain PyTorch versions at the serving shapes, with times
    beside the bound and beside one PyTorch library call where one computes
    the same function, each case printing the tiling that served it (wgmma
@@ -42,17 +43,23 @@ result line:
    E=128, fp32: 40.96 GB) at its serving lookup (B=128, one id a bag), at
    B=4096, at a multi-hot shape (B=4096, 32 ids a bag), with bf16 tables,
    ids near the end of every table (offsets past 2^31) and ids past it
-   (clamped and wrapped), and on ragged tables (E=13, int64 ids), with the
-   serving lookup's device time from ``torch.profiler`` beside its
-   CUDA-event time; the embedding bag's backward against its plain version
+   (clamped and wrapped), and on ragged tables (E=13, int64 ids), with each
+   case's device time and ``F.embedding_bag``'s from ``torch.profiler``
+   beside their CUDA-event times; the embedding bag's backward against its
+   plain version
    on the DLRM training run's tables (T=2, R=1e7, E=128, fp32: 10.24 GB of
    gradient) at the training batch (B=128, one id a bag), at B=4096, at
    B=4096 with 32 ids a bag drawn from 4096 hot rows a table (long runs),
    in bf16, with ids near the end of table 1 (offsets past 2^31), with ids
    past the table and negative ids (their gradient dropped), and ragged
-   (E=13, int64 ids): two launches equal to the bit, the kernel's profiler
-   device time beside its bound, the wrapper's whole time, the zero fill
-   of the gradient apart, the plain version and ``index_add_``; then
+   (E=13, int64 ids), each on the tiling the wrapper picks (``small`` up to
+   N_SMALL entries, ``sorted`` above): two launches equal to the bit, and
+   where the small tiling serves the sorted one equal to it too; the
+   kernel's and the wrapper's path's profiler device time without the zero
+   fill (with the path's launches a call, and the other tiling's where both
+   take the case) beside the bound, the wrapper's whole time, the fill
+   apart, the plain version and ``index_add_`` (CUDA events and the
+   profiler); then
    narrow fp32 granite, MoE, Mamba, Griffin and DLRM models on the card
    against the same models on the CPU, and a narrow fp32 VLM (head dim 128,
    two super-blocks, cross gates opened) and encoder (4 heads of 80); the
@@ -112,10 +119,12 @@ result line:
    ``launch.dlrm_testbed.train_dlrm`` at batch 128, AdamW at 3e-3: 2
    warm-up and 8 timed steps (median, range, samples/s, peak memory), one
    forward and one backward bag launch a step and no other kernel, finite
-   losses; then 10 steps on one fixed batch, whose loss must fall, and one
+   losses, every backward launch on the small tiling; then 10 steps on one
+   fixed batch, whose loss must fall, and one
    step's device time under ``torch.profiler`` split into the tables'
-   AdamW, the gradient's zero fill, the MLP GEMMs, the two bag kernels and
-   the rest, with the idle share;
+   AdamW, the gradient's zero fill, the MLP GEMMs, the two bag kernels, the
+   bag backward's bookkeeping (keys and sort; none on the small tiling the
+   training batch takes) and the rest, with the idle share;
 6. plan: the planner (``repro_torch.core``) on the card at the paper's
    128-server scale (degree 4, 100 Gbps links), each result held against
    the same call on the CPU or against the NumPy oracles: (6a) pricing 256
@@ -214,7 +223,8 @@ KERNEL_COUNTERS = ("attention_launches", "attention_bwd_launches", "grouped_matm
 TILING_COUNTERS = ("attention_wgmma_launches", "attention_fma_launches",
                    "attention_bwd_wgmma_launches", "attention_bwd_fma_launches",
                    "grouped_matmul_wgmma_launches", "grouped_matmul_fma_launches",
-                   "grouped_matmul_skinny_launches")
+                   "grouped_matmul_skinny_launches", "bag_lookup_bwd_small_launches",
+                   "bag_lookup_bwd_sorted_launches")
 COUNTERS = KERNEL_COUNTERS + TILING_COUNTERS
 T_DLRM, R_DLRM, E_DLRM = 8, 10_000_000, 128  # the paper DLRM's tables, one host's 8 of 64
 DLRM_BATCHES = (128, 4096)  # workloads.DLRM.batch_per_gpu, and a large scoring batch
@@ -705,6 +715,8 @@ def check_dlrm_train_step(dlrm, dlrm_testbed, optim, ops, cfg, batch, dev) -> di
     (AdamW) on each.  Gradients within 1e-5 of each leaf's max; parameters
     within 1e-4, AdamW's g / (|g| + eps) moving a gradient entry within
     rounding of 0 by up to 2 lr."""
+    from repro_torch.kernels.embedding_bag import bag_bwd_tiling
+
     m_cpu = dlrm.init(0, cfg, device="cpu")
     m_gpu = dlrm.init(0, cfg, device=dev)
     m_gpu.load_state_dict(m_cpu.state_dict())
@@ -720,7 +732,9 @@ def check_dlrm_train_step(dlrm, dlrm_testbed, optim, ops, cfg, batch, dev) -> di
         losses[name] = float(loss.detach())
     torch.cuda.synchronize()
     counts = {n: getattr(ops, n) for n in COUNTERS}
-    want = {n: int(n in ("bag_lookup_launches", "bag_lookup_bwd_launches")) for n in COUNTERS}
+    tiling = f"bag_lookup_bwd_{bag_bwd_tiling(batch['sparse'].numel())}_launches"
+    want = {n: int(n in ("bag_lookup_launches", "bag_lookup_bwd_launches", tiling))
+            for n in COUNTERS}
     require(counts == want, f"narrow DLRM train step launches {counts}, want {want}")
     errs = {"loss": abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"]),
             "grads": max_rel_err(grads["card"], grads["cpu"])}
@@ -856,8 +870,12 @@ def train_dlrm_paper(dlrm, dlrm_testbed, optim, ops, group_of, dev, smi) -> dict
     freed card through ``dlrm_testbed.train_dlrm`` for DLRM_WARMUP +
     DLRM_TIMED steps, with every count set to 0 just before and read just
     after; then DLRM_FIXED steps of a fresh AdamW on one fixed batch, whose
-    loss must fall, and one step under ``torch.profiler``.  Returns the
+    loss must fall, and one step under ``torch.profiler``, whose split names
+    the bag backward's bookkeeping (``BAG_BWD_BOOKKEEPING``: the sorted
+    tiling's keys and sort, none on the small tiling) apart.  Returns the
     numbers of the run."""
+    from repro_torch.kernels.embedding_bag import bag_bwd_tiling
+
     gc.collect()
     torch.cuda.empty_cache()
     cfg = dlrm.paper_config(T_TRAIN_DLRM)
@@ -871,7 +889,9 @@ def train_dlrm_paper(dlrm, dlrm_testbed, optim, ops, group_of, dev, smi) -> dict
     counts = {n: getattr(ops, n) for n in COUNTERS}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = {n: 0 for n in COUNTERS}
-    want.update(bag_lookup_launches=steps, bag_lookup_bwd_launches=steps)
+    bwd_tiling = f"bag_lookup_bwd_{bag_bwd_tiling(DLRM_TRAIN_B * T_TRAIN_DLRM)}_launches"
+    want.update({"bag_lookup_launches": steps, "bag_lookup_bwd_launches": steps,
+                 bwd_tiling: steps})
     require(counts == want, f"{DLRM_TRAIN_PATH} launches {counts}, want {want}")
     require(all(math.isfinite(x) for x in run.losses), f"finite losses {run.losses}")
     model = run.model
@@ -885,7 +905,8 @@ def train_dlrm_paper(dlrm, dlrm_testbed, optim, ops, group_of, dev, smi) -> dict
           f"a step (min {min(times) * 1e3}, max {max(times) * 1e3}), "
           f"{DLRM_TRAIN_B / step_ms * 1e3} samples/s, peak memory {peak_gb} GB, launches a "
           f"step: bag_lookup {counts['bag_lookup_launches'] / steps}, bag_lookup_bwd "
-          f"{counts['bag_lookup_bwd_launches'] / steps} (total {counts}), on {smi}")
+          f"{counts['bag_lookup_bwd_launches'] / steps} ({bwd_tiling} {counts[bwd_tiling]}; "
+          f"total {counts}), on {smi}")
     del run
 
     opt = optim.adamw(optim.constant(DLRM_TRAIN_LR), weight_decay=0.0)
@@ -899,7 +920,7 @@ def train_dlrm_paper(dlrm, dlrm_testbed, optim, ops, group_of, dev, smi) -> dict
         fixed.append(float(step(model, state, batch, i)))
         per_step.append({n: getattr(ops, n) - before[n] for n in COUNTERS
                          if getattr(ops, n) != before[n]})
-    one_each = {"bag_lookup_launches": 1, "bag_lookup_bwd_launches": 1}
+    one_each = {"bag_lookup_launches": 1, "bag_lookup_bwd_launches": 1, bwd_tiling: 1}
     require(all(c == one_each for c in per_step), f"launches per fixed step {per_step}")
     require(all(math.isfinite(x) for x in fixed) and fixed[-1] < fixed[0],
             f"{DLRM_FIXED} steps on one fixed batch lower its loss: {fixed}")
@@ -935,7 +956,8 @@ def train_dlrm_paper(dlrm, dlrm_testbed, optim, ops, group_of, dev, smi) -> dict
              "zero fill": named_ms(kernels, *FILL_KERNELS),
              "MLP GEMMs": sum(t for k, t in kernels.items() if group_of(k) == "GEMM"),
              "embedding_bag": named_ms(kernels, "embedding_bag_kernel"),
-             "embedding_bag_bwd": named_ms(kernels, "embedding_bag_bwd_kernel")}
+             "embedding_bag_bwd": named_ms(kernels, *BAG_BWD_KERNELS),
+             "embedding_bag_bwd bookkeeping": bag_bwd_bookkeeping_ms(kernels)}
     split["rest"] = busy - sum(split.values())
     idle = 1.0 - busy / traced_ms
     print(f"phase 5b trace: one step {traced_ms} ms traced wall, {busy} ms device busy, idle "
@@ -1012,9 +1034,13 @@ def main() -> int:
         for base in ("dkdv_wgmma_kernel", "dq_wgmma_kernel", "dkdv_kernel", "dq_kernel"):
             require(any(fn.startswith(base) for fn in bwd_report), f"ptxas reports no {base}")
     bag_bwd_report = ptxas_report(_build.build_logs.get("embedding_bag_bwd", ""))
-    if bag_bwd_report:  # built in this run: 3 dtypes x (16-byte, scalar) kernels seen above
-        require(sum(fn.startswith("embedding_bag_bwd_kernel") for fn in bag_bwd_report) == 6,
-                f"ptxas reports 6 embedding_bag_bwd kernels: {sorted(bag_bwd_report)}")
+    if bag_bwd_report:  # built in this run, every kernel checked for spills above: 3 dtypes
+        # x (16-byte, scalar) small kernels, the same x (int32, int64 keys) sorted ones, and
+        # the keys kernel for 2 id types x 2 key types
+        for base, want in zip((*BAG_BWD_KERNELS, "embedding_bag_keys_kernel"), (6, 12, 4)):
+            got = sum(fn.startswith(base) for fn in bag_bwd_report)
+            require(got == want, f"ptxas reports {want} {base}s, not {got}: "
+                                 f"{sorted(bag_bwd_report)}")
 
     # Phase 3: the kernel against its plain version at the serving shapes.
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1265,10 +1291,14 @@ def main() -> int:
         del a, bb, h_all, h_fin, e_all, e_fin
     torch.cuda.empty_cache()
 
-    bag_main, bag_multi = check_bag(embedding_bag, ref_embedding_bag, gen, dev, smi)
+    t_bag = time.perf_counter()
+    bag_main, bag_multi, bag_scoring = check_bag(embedding_bag, ref_embedding_bag, gen, dev,
+                                                 smi)
     torch.cuda.empty_cache()
     bag_bwd = check_bag_bwd(embedding_bag_bwd, ref_embedding_bag_bwd, gen, dev, smi)
     torch.cuda.empty_cache()
+    print(f"phase 3 kernel: the embedding bag's checks, forward and backward, took "
+          f"{time.perf_counter() - t_bag:.2f} s")
 
     # A narrow granite in fp32 (head dim 64): kernel prefill on the card vs the
     # plain model on the CPU, same weights and prompts.
@@ -1671,13 +1701,17 @@ def main() -> int:
         "ms": bag_main["kernel_ms"],
         **bag_main,
         **{f"multihot_{k}": v for k, v in bag_multi.items()},
+        **{f"scoring_b4096_{k}": v for k, v in bag_scoring.items()},
     }, {
         "name": "embedding_bag_bwd",
         "route": "cuda",
-        "tiling": "sorted runs",
+        "tiling": bag_bwd["training"]["tiling"],
+        "launches_small": dlrm_trained["counts"]["bag_lookup_bwd_small_launches"],
+        "launches_sorted": dlrm_trained["counts"]["bag_lookup_bwd_sorted_launches"],
         "source": "src/repro_torch/csrc/embedding_bag_bwd.cu",
         # The TPU side has no backward kernel (jax.grad of the gather).
         "replaces": "none: jax.grad of the gather at src/repro/models/dlrm.py:78",
+        "library": "index_add_ (no fill)",
         "launches": train_bag_bwd,
         "launches_by_path": {f"{DLRM_TRAIN_PATH}, {dlrm_trained['steps']} steps": train_bag_bwd},
         "launches_per_step": train_bag_bwd / dlrm_trained["steps"],
@@ -1723,21 +1757,18 @@ def check_bag(embedding_bag, ref_embedding_bag, gen, dev, smi):
         print(f"phase 3 kernel: embedding_bag {label}: max|err| {err} (tol {tol}"
               f"{', bitwise' if exact else ''}) kernel_ms {numbers['kernel_ms']} plain_ms "
               f"{numbers['plain_ms']} library_ms {numbers['library_ms']} (max|err| "
-              f"{numbers['library_err']}) bound_ms {numbers['bound_ms']} "
-              f"({numbers['bound_by']}; {numbers['rows_read']} distinct rows) on {smi}")
+              f"{numbers['library_err']}; CUDA events) device_ms {numbers['device_ms']} "
+              f"library_device_ms {numbers['library_device_ms']} (torch.profiler) bound_ms "
+              f"{numbers['bound_ms']} ({numbers['bound_by']}; {numbers['rows_read']} distinct "
+              f"rows) on {smi}")
         return {k: numbers[k] for k in BAG_KEYS}
 
     tables = torch.randn(T, R, E, generator=gen, device=dev)  # 40.96 GB
     serving = ids(128, 1)
+    # The serving lookup's CUDA-event time is of back-to-back launches that
+    # the host paces; its device_ms (the profiler) is the kernel's alone.
     main = case("serving B=128 NNZ=1 fp32 int32", tables, serving, exact=True)
-    # The same lookup's device time alone: the CUDA-event time above is of
-    # back-to-back launches that the host paces.
-    main["device_ms"] = named_ms(kernel_device_ms(lambda: embedding_bag(tables, serving), 200),
-                                 "embedding_bag_kernel")
-    print(f"phase 3 kernel: embedding_bag serving B=128 NNZ=1 fp32: device_ms "
-          f"{main['device_ms']} (torch.profiler, mean of 200 launches) beside kernel_ms "
-          f"{main['kernel_ms']} (CUDA events) on {smi}")
-    case("B=4096 NNZ=1 fp32 int32", tables, ids(4096, 1), exact=True)
+    scoring = case("B=4096 NNZ=1 fp32 int32", tables, ids(4096, 1), exact=True)
     multi = case("multi-hot B=4096 NNZ=32 fp32 int32", tables, ids(4096, 32))
     case("ids near R-1 B=128 NNZ=4 fp32 int32", tables, ids(128, 4, R - 1000))
     # Ids past the table read the rows the reference's gather clamps and wraps to.
@@ -1762,12 +1793,13 @@ def check_bag(embedding_bag, ref_embedding_bag, gen, dev, smi):
     tables = torch.randn(T, R, 13, generator=gen, device=dev)
     case("ragged E=13 B=128 NNZ=7 fp32 int64", tables, ids(128, 7, dtype=torch.int64))
     del tables
-    return main, multi
+    return main, multi, scoring
 
 
-def kernel_device_ms(fn, iters: int) -> dict:
+def kernel_device_ms(fn, iters: int, launches: dict | None = None) -> dict:
     """Device time (ms per call of ``fn``) of each kernel ``fn`` launches, by
-    name, from ``torch.profiler`` over ``iters`` calls after one warm-up."""
+    name, from ``torch.profiler`` over ``iters`` calls after one warm-up;
+    ``launches``, if given, gets each kernel's launches per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1777,8 +1809,10 @@ def kernel_device_ms(fn, iters: int) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / iters
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if launches is not None:
+        launches.update({e.key: e.count / iters for e in events})
+    return {e.key: e.self_device_time_total / 1e3 / iters for e in events}
 
 
 def named_ms(times: dict, *patterns: str) -> float:
@@ -1790,6 +1824,27 @@ def named_ms(times: dict, *patterns: str) -> float:
 
 
 FILL_KERNELS = ("FillFunctor", "Memset")  # torch.zeros' fill, by the profiler's names
+# The backward's kernels by tiling, by the names ptxas and the profiler give them,
+# and what the sorted tiling launches before its kernel: the keys and torch.sort's
+# radix passes.
+BAG_BWD_KERNELS = ("embedding_bag_bwd_small_kernel", "embedding_bag_bwd_sorted_kernel")
+BAG_BWD_BOOKKEEPING = ("embedding_bag_keys_kernel", "DeviceRadixSort", "fill_reverse_indices")
+
+
+def bag_bwd_bookkeeping_ms(kernels: dict) -> float:
+    """The device ms of the sorted tiling's keys and sort among ``kernels``;
+    0 where no keys kernel ran (the small tiling launches none).  The sort's
+    kernels share their names with other sorts (the DLRM interaction's
+    index backward sorts too), so they count only beside the keys kernel."""
+    if not any("embedding_bag_keys_kernel" in k for k in kernels):
+        return 0.0
+    return sum(t for k, t in kernels.items() if any(b in k for b in BAG_BWD_BOOKKEEPING))
+
+
+def short_name(kernel: str) -> str:
+    """A profiler kernel name without its namespaces, template and arguments."""
+    name = kernel.replace("(anonymous namespace)", "anonymous")
+    return name.split("(")[0].split("<")[0].split("::")[-1].strip()
 
 
 def rows_of(a):
@@ -1804,8 +1859,15 @@ def check_bag_bwd(embedding_bag_bwd, ref_embedding_bag_bwd, gen, dev, smi):
     training run's tables (T_TRAIN_DLRM x 1e7 x 128); returns each case's
     numbers, by label.  fp32: rtol 1e-6 and an atol of (the longest run)
     ulps of max|dout|, the plain version's index_add_ adding in no fixed
-    order on the card; bf16: 2e-2.  Two launches on the same inputs must
-    give the same bits."""
+    order on the card; bf16: 2e-2.  Each case runs on the tiling the
+    wrapper picks; two launches must give the same bits, and where the
+    small tiling serves (n <= N_SMALL) the sorted tiling must give them
+    too.  Times: the kernel's and the wrapper's whole path's device time
+    without the fill (``torch.profiler``), with the path's launches a call,
+    the other tiling's where both take the case, and ``index_add_`` on the
+    same clock beside its CUDA-event time."""
+    from repro_torch.kernels.embedding_bag import N_SMALL, bag_bwd_tiling
+
     T, R, E = T_TRAIN_DLRM, R_DLRM, E_DLRM
 
     def ids(Bb, nnz, low=0, high=R, dtype=torch.int32):
@@ -1816,14 +1878,37 @@ def check_bag_bwd(embedding_bag_bwd, ref_embedding_bag_bwd, gen, dev, smi):
         pick = torch.randint(0, hot, (Bb, T, nnz), generator=gen, device=dev)
         return rows[torch.arange(T, device=dev)[None, :, None], pick].to(torch.int32)
 
+    def equal(a, b) -> bool:
+        return all(torch.equal(x, y) for x, y in zip(rows_of(a), rows_of(b)))
+
+    def path(dout, idx, dtype, tiling) -> dict:
+        """One tiling's device times (profiler, 10 calls): its kernel, every
+        kernel the wrapper launches but the fill, and their launches."""
+        launches: dict = {}
+        prof = kernel_device_ms(lambda: embedding_bag_bwd(dout, idx, R, dtype, tiling), 10,
+                                launches)
+        fill = [k for k in prof if any(f in k for f in FILL_KERNELS)]
+        rest = {k: t for k, t in prof.items() if k not in fill}
+        kernel = [k for k in rest if f"embedding_bag_bwd_{tiling}_kernel" in k]
+        require(kernel, f"the profiler saw embedding_bag_bwd_{tiling}_kernel: {sorted(prof)}")
+        return dict(kernel_ms=sum(rest[k] for k in kernel), path_ms=sum(rest.values()),
+                    path_launches=sum(launches[k] for k in rest),
+                    fill_device_ms=sum(prof[k] for k in fill),
+                    bookkeeping=sorted({short_name(k) for k in rest if k not in kernel}))
+
     def case(label, dout, idx) -> dict:
         dtype, width = dout.dtype, dout.shape[-1]
+        tiling = bag_bwd_tiling(idx.numel())
         out = embedding_bag_bwd(dout, idx, R, dtype)
         torch.cuda.synchronize()
         again = embedding_bag_bwd(dout, idx, R, dtype)
-        same = all(torch.equal(a, b) for a, b in zip(rows_of(out), rows_of(again)))
-        require(same, f"embedding_bag_bwd {label}: two launches differ")
+        require(equal(out, again), f"embedding_bag_bwd {label}: two launches differ")
         del again
+        both = idx.numel() <= N_SMALL
+        if both:  # the sorted tiling takes the case too, and must give the same bits
+            other = embedding_bag_bwd(dout, idx, R, dtype, "sorted")
+            require(equal(out, other), f"embedding_bag_bwd {label}: small and sorted differ")
+            del other
         # The in-range entries: their keys, dout rows, the rows they write.
         wrapped = idx.long()
         wrapped = torch.where(wrapped < 0, wrapped + R, wrapped)
@@ -1849,16 +1934,22 @@ def check_bag_bwd(embedding_bag_bwd, ref_embedding_bag_bwd, gen, dev, smi):
                 f"{nonzero} rows non-zero of {written.numel()} written")
         del ref
         wrapper_ms = time_ms(lambda: embedding_bag_bwd(dout, idx, R, dtype), 10)
-        prof = kernel_device_ms(lambda: embedding_bag_bwd(dout, idx, R, dtype), 10)
-        kernel_ms = named_ms(prof, "embedding_bag_bwd_kernel")
-        fill_dev_ms = named_ms(prof, *FILL_KERNELS)
+        own = path(dout, idx, dtype, tiling)
+        sorted_path = path(dout, idx, dtype, "sorted") if both else None
         fill_ms = time_ms(lambda: torch.zeros((T, R, width), dtype=dtype, device=dev), 10)
         plain_ms = time_ms(lambda: ref_embedding_bag_bwd(dout, idx, R, dtype), 3)
         del out
         # One PyTorch call for the same sums, without the fill: a yardstick
-        # only, never on the port's path.
+        # only, never on the port's path; by CUDA events and by the profiler.
         buf = torch.zeros((T * R, width), dtype=dtype, device=dev)
         library_ms = time_ms(lambda: buf.index_add_(0, keys, rows), 20)
+        library_device_ms = sum(kernel_device_ms(lambda: buf.index_add_(0, keys, rows),
+                                                 20).values())
+        # The same after a zero fill of buf, as the kernel runs after the
+        # wrapper's: its inputs no longer in L2.
+        cold = kernel_device_ms(lambda: (buf.zero_(), buf.index_add_(0, keys, rows)), 10)
+        library_after_fill_ms = sum(t for k, t in cold.items()
+                                    if not any(f in k for f in FILL_KERNELS))
         del buf
         nbytes = ((dout.numel() + written.numel() * width) * dout.element_size()
                   + idx.numel() * idx.element_size())
@@ -1866,15 +1957,30 @@ def check_bag_bwd(embedding_bag_bwd, ref_embedding_bag_bwd, gen, dev, smi):
             torch.float32]
         bound_ms = max(t_bytes, t_ops) * 1e3
         bound_by = "operations" if t_ops >= t_bytes else "bytes"
-        print(f"phase 3 kernel: embedding_bag_bwd {label}: max|err| {err} (tol {tol}; longest "
-              f"run {longest}), two launches bitwise equal, {written.numel()} rows written of "
-              f"{T * R}; kernel_ms {kernel_ms} (torch.profiler) wrapper_ms {wrapper_ms} (keys, "
-              f"sort, fill, kernel; CUDA events) fill_ms {fill_ms} (device {fill_dev_ms}) "
-              f"plain_ms {plain_ms} library_ms {library_ms} (index_add_, no fill) bound_ms "
-              f"{bound_ms} ({bound_by}) on {smi}")
-        return dict(max_abs_err=err, kernel_ms=kernel_ms, wrapper_ms=wrapper_ms, fill_ms=fill_ms,
-                    plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                    bound_by=bound_by, longest_run=longest)
+        print(f"phase 3 kernel: embedding_bag_bwd {label}: tiling {tiling}, max|err| {err} "
+              f"(tol {tol}; longest run {longest}), two launches bitwise equal"
+              f"{', the sorted tiling bitwise equal' if both else ''}, {written.numel()} rows "
+              f"written of {T * R}; kernel_ms {own['kernel_ms']} path_ms {own['path_ms']} "
+              f"({own['path_launches']} launches a call without the fill: the kernel and "
+              f"{own['bookkeeping']}; torch.profiler) wrapper_ms {wrapper_ms} (CUDA events) "
+              f"fill_ms {fill_ms} (device {own['fill_device_ms']}) plain_ms {plain_ms} "
+              f"library_ms {library_ms} library_device_ms {library_device_ms} "
+              f"library_after_fill_ms {library_after_fill_ms} (index_add_, no fill; after one) "
+              f"bound_ms {bound_ms} ({bound_by}) on {smi}")
+        numbers = dict(tiling=tiling, max_abs_err=err, kernel_ms=own["kernel_ms"],
+                       path_ms=own["path_ms"], path_launches=own["path_launches"],
+                       wrapper_ms=wrapper_ms, fill_ms=fill_ms, plain_ms=plain_ms,
+                       library_ms=library_ms, library_device_ms=library_device_ms,
+                       library_after_fill_ms=library_after_fill_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, longest_run=longest)
+        if sorted_path:
+            print(f"phase 3 kernel: embedding_bag_bwd {label} forced to sorted: kernel_ms "
+                  f"{sorted_path['kernel_ms']} path_ms {sorted_path['path_ms']} "
+                  f"({sorted_path['path_launches']} launches a call without the fill; "
+                  f"torch.profiler) on {smi}")
+            numbers.update({f"sorted_{k}": sorted_path[k]
+                            for k in ("kernel_ms", "path_ms", "path_launches")})
+        return numbers
 
     def dout(Bb, width=E, dtype=torch.float32):
         return torch.randn(Bb, T, width, generator=gen, device=dev).to(dtype)
@@ -1908,20 +2014,24 @@ def check_bag_bwd(embedding_bag_bwd, ref_embedding_bag_bwd, gen, dev, smi):
     return cases
 
 
-BAG_KEYS = ("max_abs_err", "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+BAG_KEYS = ("max_abs_err", "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "device_ms", "library_device_ms")
 
 
 def bag_times(embedding_bag, ref_embedding_bag, tables, ids, out) -> dict:
-    """Kernel, plain and library times (CUDA events) and the bound.  The
-    library call is ``F.embedding_bag`` over the tables seen as one (T*R, E)
-    table, with ids in range offset by t*R: a yardstick only, never on the
-    port's path."""
+    """Kernel, plain and library times (CUDA events), the kernel's and the
+    library call's device times on one clock (``torch.profiler``), and the
+    bound.  The library call is ``F.embedding_bag`` over the tables seen as
+    one (T*R, E) table, with ids in range offset by t*R: a yardstick only,
+    never on the port's path."""
     T, R, E = tables.shape
     B, _, nnz = ids.shape
     iters = 20 if B * nnz > 4096 else 200
     kernel_ms = time_ms(lambda: embedding_bag(tables, ids), iters)
+    device_ms = named_ms(kernel_device_ms(lambda: embedding_bag(tables, ids), iters),
+                         "embedding_bag_kernel")
     plain_ms = time_ms(lambda: ref_embedding_bag(tables, ids), 5)
-    library_ms = library_err = None
+    library_ms = library_device_ms = library_err = None
     if bool(((ids >= 0) & (ids < R)).all()):
         flat = (ids.long() + torch.arange(T, device=ids.device)[None, :, None] * R)
         flat = flat.view(B * T, nnz)
@@ -1930,8 +2040,12 @@ def bag_times(embedding_bag, ref_embedding_bag, tables, ids, out) -> dict:
         library_err = float((lib.float() - out.float()).abs().max())
         library_ms = time_ms(
             lambda: torch.nn.functional.embedding_bag(flat, table2d, mode="sum"), iters)
+        library_device_ms = sum(kernel_device_ms(
+            lambda: torch.nn.functional.embedding_bag(flat, table2d, mode="sum"),
+            iters).values())
     bound_ms, bound_by, n_rows = bag_bound(tables, ids, out)
-    return dict(kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+    return dict(kernel_ms=kernel_ms, device_ms=device_ms, plain_ms=plain_ms,
+                library_ms=library_ms, library_device_ms=library_device_ms,
                 library_err=library_err, bound_ms=bound_ms, bound_by=bound_by,
                 rows_read=n_rows)
 

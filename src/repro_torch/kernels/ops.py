@@ -12,8 +12,9 @@ Training: on a CUDA input that needs a gradient, ``attention`` goes through
 whose backward launches the backward kernel (``attention_bwd_launches``, and
 by tiling ``attention_bwd_wgmma_launches`` or ``attention_bwd_fma_launches``);
 ``bag_lookup`` goes through :class:`EmbeddingBagFn`, whose backward launches
-the embedding bag's backward kernel (``bag_lookup_bwd_launches``), and on the
-CPU under grad through the same Function on the plain versions, whose
+the embedding bag's backward kernel (``bag_lookup_bwd_launches``, and by
+tiling ``bag_lookup_bwd_small_launches`` or ``bag_lookup_bwd_sorted_launches``),
+and on the CPU under grad through the same Function on the plain versions, whose
 gradient drops ids outside the table as ``jax.grad`` of the reference's
 gather does.  The other kernels have no backward yet: their wrappers raise
 ``NotImplementedError`` on a CUDA input that requires grad while grad is
@@ -48,6 +49,8 @@ selective_scan_launches = 0
 lru_scan_launches = 0
 bag_lookup_launches = 0
 bag_lookup_bwd_launches = 0  # counted by EmbeddingBagFn.backward
+bag_lookup_bwd_small_launches = 0
+bag_lookup_bwd_sorted_launches = 0
 
 
 def _needs_grad(*tensors) -> bool:

@@ -22,7 +22,9 @@ from repro import optim as jopt
 from repro.kernels import ref as jref
 from repro.models import dlrm as jdlrm
 from repro_torch.kernels import _build, ops
-from repro_torch.kernels.embedding_bag import EmbeddingBagFn, embedding_bag_bwd, sorted_keys
+from repro_torch.kernels.embedding_bag import (
+    EmbeddingBagFn, embedding_bag_bwd, key_dtype, sorted_keys,
+)
 from repro_torch.kernels.ref import ref_embedding_bag, ref_embedding_bag_bwd
 from repro_torch.launch import dlrm_testbed
 from repro_torch.models import dlrm
@@ -131,7 +133,8 @@ def test_sorted_keys_feed_the_kernels_walk_to_the_plain_sums_bitwise(kind, dtype
     ids = torch.from_numpy(_ids(rng, kind, 5, np.int64))
     dout = torch.from_numpy(rng.standard_normal((B, T, E)).astype(np.float32)).to(dtype)
     keys, pos = sorted_keys(ids, R)
-    assert keys.dtype == pos.dtype == torch.int64 and keys.shape == (ids.numel(),)
+    assert keys.dtype == key_dtype(T, R) and pos.dtype == torch.int64
+    assert keys.shape == (ids.numel(),)
     assert bool((keys[1:] >= keys[:-1]).all())
     same = keys[1:] == keys[:-1]
     assert bool((pos[1:][same] > pos[:-1][same]).all())  # stable: (b, j) order in a run

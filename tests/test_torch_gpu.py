@@ -18,7 +18,10 @@ import torch
 
 from repro_torch.configs.base import get_config
 from repro_torch.kernels import ops
-from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_bwd
+from repro_torch.kernels.embedding_bag import (
+    BWD_TILINGS, N_SMALL, bag_bwd_tiling, embedding_bag, embedding_bag_bwd, key_dtype,
+    sorted_keys,
+)
 from repro_torch.kernels.flash_attention import (
     FlashAttentionFn, first_masked_row, flash_attention, flash_attention_bwd,
 )
@@ -735,17 +738,19 @@ def _bag_bwd_inputs(device, T, R, E, B, NNZ, dtype, id_dtype, kind="uniform", se
     return dout, ids.to(id_dtype)
 
 
+@pytest.mark.parametrize("tiling", BWD_TILINGS)
 @pytest.mark.parametrize("kind", ["uniform", "hot", "outside"])
 @pytest.mark.parametrize("NNZ", [1, 7, 32])
 @pytest.mark.parametrize("E", [128, 16, 13, 200])
 @pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
-def test_bag_bwd_kernel_matches_plain(cuda, dtype, id_dtype, E, NNZ, kind):
+def test_bag_bwd_kernel_matches_plain(cuda, dtype, id_dtype, E, NNZ, kind, tiling):
     """Bitwise the plain version on the CPU, which adds in the kernel's (b, j)
     order in fp32 and rounds once; within the forward's bars of the plain
-    version on the card, whose index_add_ adds in no fixed order."""
+    version on the card, whose index_add_ adds in no fixed order.  Each
+    tiling forced (B * T * NNZ <= 480: both take it)."""
     dout, ids = _bag_bwd_inputs(cuda, 3, 1000, E, 5, NNZ, dtype, id_dtype, kind)
-    out = embedding_bag_bwd(dout, ids, 1000, dtype)
+    out = embedding_bag_bwd(dout, ids, 1000, dtype, tiling)
     torch.cuda.synchronize()
     assert out.dtype == dtype and out.shape == (3, 1000, E)
     assert torch.equal(out.cpu(), ref_embedding_bag_bwd(dout.cpu(), ids.cpu(), 1000, dtype))
@@ -761,37 +766,124 @@ def test_bag_bwd_kernel_matches_plain(cuda, dtype, id_dtype, E, NNZ, kind):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bag_bwd_kernel_is_deterministic(cuda, dtype):
     """Rows that 4096 x 32 ids (8 hot rows a table) hit thousands of times:
-    two launches give the same bits."""
+    two launches give the same bits (the sorted tiling: n > N_SMALL)."""
     dout, ids = _bag_bwd_inputs(cuda, 2, 5000, 128, 4096, 32, dtype, torch.int32, "hot")
+    assert bag_bwd_tiling(ids.numel()) == "sorted"
     first = embedding_bag_bwd(dout, ids, 5000, dtype)
     assert torch.equal(first, embedding_bag_bwd(dout, ids, 5000, dtype))
     assert torch.equal(first.cpu(), ref_embedding_bag_bwd(dout.cpu(), ids.cpu(), 5000, dtype))
 
 
-def test_bag_bwd_kernel_takes_strided_dout(cuda):
+@pytest.mark.parametrize("tiling", BWD_TILINGS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bag_bwd_tiling_gives_the_same_bits_twice(cuda, dtype, tiling):
+    """128 x 2 x 32 ids from 8 hot rows a table (n = N_SMALL, both tilings
+    take it; runs of about 500): two launches of one tiling equal, and
+    equal to the other tiling and the CPU's plain version."""
+    dout, ids = _bag_bwd_inputs(cuda, 2, 5000, 128, 128, 32, dtype, torch.int32, "hot")
+    assert ids.numel() == N_SMALL
+    first = embedding_bag_bwd(dout, ids, 5000, dtype, tiling)
+    assert torch.equal(first, embedding_bag_bwd(dout, ids, 5000, dtype, tiling))
+    other = "sorted" if tiling == "small" else "small"
+    assert torch.equal(first, embedding_bag_bwd(dout, ids, 5000, dtype, other))
+    assert torch.equal(first.cpu(), ref_embedding_bag_bwd(dout.cpu(), ids.cpu(), 5000, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["uniform", "hot", "outside"])
+@pytest.mark.parametrize("shape", [(128, 2, 1), (128, 64, 1), (64, 2, 4), (4096, 2, 1)])
+def test_bag_bwd_tilings_agree_bitwise(cuda, shape, kind, dtype):
+    """Each tiling forced on the same inputs at the DLRM shapes the small
+    tiling serves (the training batch, 64 tables, multi-hot, B = 4096):
+    bitwise equal to each other and to the CPU's plain version; fp32 within
+    rtol 1e-6 and (the longest run) ulps of the plain version on the card
+    (index_add_ adds in no fixed order there), bf16 within 2e-2."""
+    B, T, NNZ = shape
+    R = 10_000
+    dout, ids = _bag_bwd_inputs(cuda, T, R, 128, B, NNZ, dtype, torch.int32, kind)
+    assert bag_bwd_tiling(ids.numel()) == "small"
+    small = embedding_bag_bwd(dout, ids, R, dtype, "small")
+    assert torch.equal(small, embedding_bag_bwd(dout, ids, R, dtype))  # the default
+    assert torch.equal(small, embedding_bag_bwd(dout, ids, R, dtype, "sorted"))
+    assert torch.equal(small.cpu(), ref_embedding_bag_bwd(dout.cpu(), ids.cpu(), R, dtype))
+    expect = ref_embedding_bag_bwd(dout, ids, R, dtype)
+    if dtype == torch.float32:
+        atol = B * NNZ * torch.finfo(torch.float32).eps * float(dout.abs().max())
+        torch.testing.assert_close(small, expect, rtol=1e-6, atol=atol)
+    else:
+        torch.testing.assert_close(small.float(), expect.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("extra", [-1, 0, 1])
+def test_bag_bwd_at_the_small_boundary(cuda, extra):
+    """n = N_SMALL - 1, N_SMALL, N_SMALL + 1 entries in one table (T = 1: up
+    to 64 KB of staged keys in a block), ids from 8 hot rows: the default
+    tiling is ``bag_bwd_tiling``'s, it equals the sorted tiling's bits, and
+    the small tiling refuses past N_SMALL."""
+    B = N_SMALL + extra
+    dout, ids = _bag_bwd_inputs(cuda, 1, 5000, 128, B, 1, torch.float32, torch.int64, "hot")
+    out = embedding_bag_bwd(dout, ids, 5000, torch.float32)
+    assert torch.equal(out, embedding_bag_bwd(dout, ids, 5000, torch.float32, "sorted"))
+    assert torch.equal(out.cpu(), ref_embedding_bag_bwd(dout.cpu(), ids.cpu(), 5000,
+                                                        torch.float32))
+    if extra <= 0:
+        assert torch.equal(out, embedding_bag_bwd(dout, ids, 5000, torch.float32, "small"))
+    else:
+        with pytest.raises(ValueError, match="does not take"):
+            embedding_bag_bwd(dout, ids, 5000, torch.float32, "small")
+
+
+@pytest.mark.parametrize("R", [100, 2**31 + 8])
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+def test_sorted_keys_on_the_card_equal_the_cpus(cuda, id_dtype, R):
+    """The keys kernel (one pass) then the stable sort: the same keys and
+    positions as the plain steps on the CPU, at strided ids too, with int32
+    keys (R = 100) and int64 keys (R past INT_MAX, ids within a few rows of
+    R, or of 2^31 - 1 for int32 ids)."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    ids = torch.randint(-200, 300, (40, 3, 5), generator=gen, device=cuda)
+    if R > 2**31:
+        shift = R - 200 if id_dtype == torch.int64 else 2**31 - 1 - 300
+        ids = torch.where(ids >= 0, ids + shift, ids)
+    ids = ids.to(id_dtype)
+    for view in (ids, ids.transpose(0, 1).contiguous().transpose(0, 1), ids[:, :, ::2]):
+        keys, pos = sorted_keys(view, R)
+        want_keys, want_pos = sorted_keys(view.cpu(), R)
+        assert keys.dtype == key_dtype(3, R)
+        assert torch.equal(keys.cpu(), want_keys) and torch.equal(pos.cpu(), want_pos)
+
+
+@pytest.mark.parametrize("tiling", BWD_TILINGS)
+def test_bag_bwd_kernel_takes_strided_dout(cuda, tiling):
     """dout as DLRM's backward hands it (a (B, T, E) slice of the (B, T + 1,
     E) gradient of the features), transposed, not 16-byte aligned, and
-    expanded: the same rows as from a contiguous copy."""
+    expanded, with strided ids: the same rows as from contiguous copies."""
     gen = torch.Generator(device=cuda).manual_seed(3)
     big = torch.randn(6, 4, 16, generator=gen, device=cuda)
     ids = torch.randint(-5, 60, (6, 3, 4), generator=gen, device=cuda)
     views = [big[:, 1:], big[:, 1:].transpose(0, 1).contiguous().transpose(0, 1),
              big[:, 1:, 1:14], torch.ones(1, 1, 16, device=cuda).expand(6, 3, 16)]
     for dout in views:
-        out = embedding_bag_bwd(dout, ids, 50, torch.float32)
-        assert torch.equal(out, embedding_bag_bwd(dout.contiguous(), ids, 50, torch.float32))
+        out = embedding_bag_bwd(dout, ids, 50, torch.float32, tiling)
+        assert torch.equal(out, embedding_bag_bwd(dout.contiguous(), ids, 50, torch.float32,
+                                                  tiling))
         assert torch.equal(out.cpu(), ref_embedding_bag_bwd(dout.cpu(), ids.cpu(), 50,
                                                              torch.float32))
+    wide = torch.randint(-5, 60, (6, 3, 8), generator=gen, device=cuda)[:, :, ::2]
+    out = embedding_bag_bwd(views[0], wide, 50, torch.float32, tiling)
+    assert torch.equal(out, embedding_bag_bwd(views[0], wide.contiguous(), 50, torch.float32,
+                                              tiling))
 
 
-def test_bag_bwd_kernel_offsets_past_int32(cuda):
+@pytest.mark.parametrize("tiling", BWD_TILINGS)
+def test_bag_bwd_kernel_offsets_past_int32(cuda, tiling):
     """Table 1 of (2, 1e7, 128) starts 1.28e9 elements in and its last rows
     lie 2.56e9 in, past INT_MAX (bf16: 5.12 GB)."""
     T, R, E = 2, 10_000_000, 128
     gen = torch.Generator(device=cuda).manual_seed(4)
     dout = torch.randn(64, T, E, generator=gen, device=cuda).bfloat16()
     ids = torch.randint(R - 1000, R, (64, T, 4), generator=gen, device=cuda)
-    out = embedding_bag_bwd(dout, ids, R, torch.bfloat16)
+    out = embedding_bag_bwd(dout, ids, R, torch.bfloat16, tiling)
     keys = (ids + torch.arange(T, device=cuda)[None, :, None] * R).reshape(-1).unique()
     rows = out.view(T * R, E)
     expect = torch.zeros(T * R, E, device=cuda).index_add_(
@@ -801,20 +893,66 @@ def test_bag_bwd_kernel_offsets_past_int32(cuda):
     assert int(rows.ne(0).any(dim=1).sum()) == keys.numel()  # zero elsewhere
 
 
-def test_bag_bwd_wrapper_refuses_what_it_does_not_take(cuda):
+def test_bag_bwd_keys_past_int32(cuda):
+    """T * R past INT_MAX (one table of 2^31 + 8 rows, E = 1, fp16: 4.3 GB of
+    gradient): the sorted tiling's keys are int64; both tilings write the
+    same bits, each touched row the fp32 sum of its dout values in (b, j)
+    order, rounded once, and no other row."""
+    R = 2**31 + 8
+    assert key_dtype(1, R) == torch.int64
+    ids = torch.tensor([[[R - 1, 0, R - 1, 5]], [[R - 1, -1, 7, 0]]], device=cuda)
+    dout = torch.tensor([[[0.3]], [[-1.7]]], device=cuda).half()
+    got = embedding_bag_bwd(dout, ids, R, torch.float16, "sorted")
+    assert torch.equal(got, embedding_bag_bwd(dout, ids, R, torch.float16, "small"))
+    d0, d1 = dout.float().cpu().view(2).numpy()
+
+    def f32(*xs):  # added one by one in fp32 from 0, then rounded once
+        acc = np.float32(0)
+        for x in xs:
+            acc = np.float32(acc + x)
+        return torch.tensor(acc).half()
+
+    want = {R - 1: f32(d0, d0, d1, d1), 0: f32(d0, d1), 5: f32(d0), 7: f32(d1)}
+    for row, value in want.items():
+        assert torch.equal(got[0, row, 0].cpu(), value)
+    assert int(got.ne(0).sum()) == len(want)
+
+
+@pytest.mark.parametrize("tiling", BWD_TILINGS)
+def test_bag_bwd_wrapper_refuses_what_it_does_not_take(cuda, tiling):
     dout, ids = _bag_bwd_inputs(cuda, 2, 100, 16, 3, 2, torch.float32, torch.int32)
     with pytest.raises(ValueError, match="one CUDA device"):
-        embedding_bag_bwd(dout, ids.cpu(), 100, torch.float32)
+        embedding_bag_bwd(dout, ids.cpu(), 100, torch.float32, tiling)
     with pytest.raises(ValueError, match="tables' dtype"):
-        embedding_bag_bwd(dout, ids, 100, torch.bfloat16)
+        embedding_bag_bwd(dout, ids, 100, torch.bfloat16, tiling)
     with pytest.raises(ValueError, match="dout must be"):
-        embedding_bag_bwd(dout.double(), ids, 100, torch.float64)
+        embedding_bag_bwd(dout.double(), ids, 100, torch.float64, tiling)
     with pytest.raises(ValueError, match="indices must be"):
-        embedding_bag_bwd(dout, ids.short(), 100, torch.float32)
+        embedding_bag_bwd(dout, ids.short(), 100, torch.float32, tiling)
     with pytest.raises(ValueError, match="indices"):
-        embedding_bag_bwd(dout, ids[:, :1], 100, torch.float32)
+        embedding_bag_bwd(dout, ids[:, :1], 100, torch.float32, tiling)
     with pytest.raises(ValueError, match="out of range"):
-        embedding_bag_bwd(dout, ids, 0, torch.float32)
+        embedding_bag_bwd(dout, ids, 0, torch.float32, tiling)
+    with pytest.raises(ValueError, match="does not take"):
+        embedding_bag_bwd(dout, ids, 100, torch.float32, tiling + "s")
+
+
+@pytest.mark.parametrize("B,tiling", [(5, "small"), (N_SMALL, "sorted")])
+def test_bag_lookup_counts_bwd_launches_by_tiling(cuda, monkeypatch, B, tiling):
+    """ops.bag_lookup under grad: the backward's launch counted once, and once
+    under the tiling ``bag_bwd_tiling`` picks (B x 3 x 4 entries)."""
+    names = ("bag_lookup_bwd_launches", "bag_lookup_bwd_small_launches",
+             "bag_lookup_bwd_sorted_launches")
+    for name in names:
+        monkeypatch.setattr(ops, name, 0)
+    tables, _ = _bag_inputs(cuda, 3, 200, 16, B, 4, torch.float32, torch.int32)
+    dout, ids = _bag_bwd_inputs(cuda, 3, 200, 16, B, 4, torch.float32, torch.int32, "hot")
+    leaf = tables.clone().requires_grad_(True)
+    (grad,) = torch.autograd.grad(ops.bag_lookup(leaf, ids), leaf, dout)
+    assert bag_bwd_tiling(ids.numel()) == tiling
+    assert [getattr(ops, n) for n in names] == [1, int(tiling == "small"),
+                                                int(tiling == "sorted")]
+    assert torch.equal(grad, embedding_bag_bwd(dout, ids, 200, torch.float32, tiling))
 
 
 def test_bag_lookup_under_grad_launches_both_kernels(cuda, monkeypatch):
