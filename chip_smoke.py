@@ -15,9 +15,9 @@ result line:
    forward, the attention backward's dk/dv and dq, the grouped matmul) must
    report the 168 registers their setmaxnreg split (240 x 256 + 24 x 128) is
    sized for (the forward's lse store included), and the skinny grouped
-   matmul, the Mamba scan, every attention backward kernel and the embedding
-   bag's backward (the small tiling's 6 kernels, the sorted tiling's 12 and
-   the keys kernel's 4) must not spill;
+   matmul, the Mamba scan, every attention backward kernel, the embedding
+   bag's 12 forward kernels and its backward (the small tiling's 6 kernels,
+   the sorted tiling's 12 and the keys kernel's 4) must not spill;
 3. kernels vs their plain PyTorch versions at the serving shapes, with times
    beside the bound and beside one PyTorch library call where one computes
    the same function, each case printing the tiling that served it (wgmma
@@ -41,12 +41,14 @@ result line:
    scan at recurrentgemma-9b's (B=4, L=2048, D=4096), each also at a ragged
    shape, and the embedding bag on the paper DLRM's tables (T=8, R=1e7,
    E=128, fp32: 40.96 GB) at its serving lookup (B=128, one id a bag), at
-   B=4096, at a multi-hot shape (B=4096, 32 ids a bag), with bf16 tables,
-   ids near the end of every table (offsets past 2^31) and ids past it
-   (clamped and wrapped), and on ragged tables (E=13, int64 ids), with each
-   case's device time and ``F.embedding_bag``'s from ``torch.profiler``
-   beside their CUDA-event times; the embedding bag's backward against its
-   plain version
+   B=4096 (int32 and int64 ids), at a multi-hot shape (B=4096, 32 ids a
+   bag), at B=4095 over 7 tables (a last unit of one bag), with bf16 tables
+   (serving, B=4096, multi-hot), ids near the end of every table (offsets
+   past 2^31) and ids past it (clamped and wrapped), and on ragged tables
+   (E=13, int64 ids), each case bitwise the sum in j's order and printing
+   its tiling and its share of the bound, with each case's device time and
+   ``F.embedding_bag``'s from ``torch.profiler`` beside their CUDA-event
+   times; the embedding bag's backward against its plain version
    on the DLRM training run's tables (T=2, R=1e7, E=128, fp32: 10.24 GB of
    gradient) at the training batch (B=128, one id a bag), at B=4096, at
    B=4096 with 32 ids a bag drawn from 4096 hot rows a table (long runs),
@@ -1026,7 +1028,7 @@ def main() -> int:
                 require(info["spill_stores"] == info["spill_loads"] == 0
                         and not info["serialised"], f"{fn} spills or serialises: {info}")
             if ("skinny_kernel" in fn or "mamba_scan_kernel" in fn  # the streams and the scan
-                    or name in ("flash_attention_bwd", "embedding_bag_bwd")):
+                    or name in ("flash_attention_bwd", "embedding_bag", "embedding_bag_bwd")):
                 require(info["spill_stores"] == info["spill_loads"] == 0 and not info["serialised"],
                         f"{fn} spills: {info}")
     bwd_report = ptxas_report(_build.build_logs.get("flash_attention_bwd", ""))
@@ -1041,6 +1043,11 @@ def main() -> int:
             got = sum(fn.startswith(base) for fn in bag_bwd_report)
             require(got == want, f"ptxas reports {want} {base}s, not {got}: "
                                  f"{sorted(bag_bwd_report)}")
+    bag_report = ptxas_report(_build.build_logs.get("embedding_bag", ""))
+    if bag_report:  # built in this run: 3 dtypes x 2 id types x (16-byte, scalar) kernels
+        got = sum(fn.startswith("embedding_bag_kernel") for fn in bag_report)
+        require(got == 12, f"ptxas reports 12 embedding_bag_kernels, not {got}: "
+                           f"{sorted(bag_report)}")
 
     # Phase 3: the kernel against its plain version at the serving shapes.
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1292,8 +1299,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t_bag = time.perf_counter()
-    bag_main, bag_multi, bag_scoring = check_bag(embedding_bag, ref_embedding_bag, gen, dev,
-                                                 smi)
+    bag = check_bag(embedding_bag, ref_embedding_bag, gen, dev, smi)
     torch.cuda.empty_cache()
     bag_bwd = check_bag_bwd(embedding_bag_bwd, ref_embedding_bag_bwd, gen, dev, smi)
     torch.cuda.empty_cache()
@@ -1690,7 +1696,6 @@ def main() -> int:
     }, {
         "name": "embedding_bag",
         "route": "cuda",
-        "tiling": "gather",
         "source": "src/repro_torch/csrc/embedding_bag.cu",
         "replaces": "src/repro/kernels/embedding_bag.py:33",
         "tpu_ref": "kernels/embedding_bag.py:33",
@@ -1698,10 +1703,12 @@ def main() -> int:
         "launches_by_path": {DLRM_PATH: sum(bag_launches.values()),
                              f"{DLRM_TRAIN_PATH}, {dlrm_trained['steps']} steps": train_bag_fwd},
         "launches_per_forward": bag_launches,
-        "ms": bag_main["kernel_ms"],
-        **bag_main,
-        **{f"multihot_{k}": v for k, v in bag_multi.items()},
-        **{f"scoring_b4096_{k}": v for k, v in bag_scoring.items()},
+        "ms": bag["serving"]["kernel_ms"],
+        **bag["serving"],
+        **{f"multihot_{k}": v for k, v in bag["multi"].items()},
+        **{f"scoring_b4096_{k}": v for k, v in bag["scoring"].items()},
+        **{f"{name}_{k}": v for name, numbers in bag.items()
+           if name not in ("serving", "multi", "scoring") for k, v in numbers.items()},
     }, {
         "name": "embedding_bag_bwd",
         "route": "cuda",
@@ -1725,16 +1732,21 @@ def main() -> int:
     return 0
 
 
-def check_bag(embedding_bag, ref_embedding_bag, gen, dev, smi):
+def check_bag(embedding_bag, ref_embedding_bag, gen, dev, smi) -> dict:
     """The embedding bag against its plain version on the paper DLRM's
-    tables; returns the numbers at the serving lookup and the multi-hot
-    shape.  One id a bag sums one row, so those cases must be bitwise equal;
-    otherwise test_kernels.py's bars (fp32: rtol 1e-6 and NNZ ulps of the
-    largest term; bf16: 2e-2)."""
+    tables; returns each case's numbers, by name.  One id a bag sums one
+    row, so those cases must be bitwise equal; otherwise test_kernels.py's
+    bars (fp32: rtol 1e-6 and NNZ ulps of the largest term; bf16: 2e-2), and
+    every case bitwise equal to the sum in j's order
+    (``ref_embedding_bag_in_order``), the kernel's own order.  Each case
+    prints its tiling and its device time as a share of its bound."""
+    from repro_torch.kernels.embedding_bag import bag_fwd_split
+    from repro_torch.kernels.ref import ref_embedding_bag_in_order
+
     T, R, E = T_DLRM, R_DLRM, E_DLRM
 
-    def ids(Bb, nnz, low=0, high=R, dtype=torch.int32):
-        return torch.randint(low, high, (Bb, T, nnz), generator=gen, device=dev).to(dtype)
+    def ids(Bb, nnz, low=0, high=R, dtype=torch.int32, nT=T):
+        return torch.randint(low, high, (Bb, nT, nnz), generator=gen, device=dev).to(dtype)
 
     def case(label, tab, idx, exact=False) -> dict:
         out = embedding_bag(tab, idx)
@@ -1750,27 +1762,43 @@ def check_bag(embedding_bag, ref_embedding_bag, gen, dev, smi):
         else:
             tol = 2e-2
             ok = torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)
+        del ref
         require(bool(torch.isfinite(out).all()), f"finite kernel output, {label}")
         require(ok, f"embedding_bag vs plain, {label}: max|err| {err} (tol {tol})")
+        require(torch.equal(out, ref_embedding_bag_in_order(tab, idx)),
+                f"embedding_bag {label}: not bitwise the sum in j's order")
+        split = bag_fwd_split(tab, idx)
         numbers = bag_times(embedding_bag, ref_embedding_bag, tab, idx, out)
         numbers["max_abs_err"] = err
+        numbers["bound_share"] = numbers["bound_ms"] / numbers["device_ms"]
+        numbers["bound_share_cold"] = numbers["bound_ms"] / numbers["device_cold_ms"]
+        numbers["tiling"] = (f"gather G={split['unit']} L={split['lanes']} VEC={split['vec']} "
+                             f"Q={split['rows']}")
         print(f"phase 3 kernel: embedding_bag {label}: max|err| {err} (tol {tol}"
-              f"{', bitwise' if exact else ''}) kernel_ms {numbers['kernel_ms']} plain_ms "
-              f"{numbers['plain_ms']} library_ms {numbers['library_ms']} (max|err| "
-              f"{numbers['library_err']}; CUDA events) device_ms {numbers['device_ms']} "
-              f"library_device_ms {numbers['library_device_ms']} (torch.profiler) bound_ms "
-              f"{numbers['bound_ms']} ({numbers['bound_by']}; {numbers['rows_read']} distinct "
-              f"rows) on {smi}")
+              f"{', bitwise' if exact else ''}; bitwise the sum in j's order) kernel_ms "
+              f"{numbers['kernel_ms']} plain_ms {numbers['plain_ms']} library_ms "
+              f"{numbers['library_ms']} (max|err| {numbers['library_err']}; CUDA events) "
+              f"device_ms {numbers['device_ms']} library_device_ms "
+              f"{numbers['library_device_ms']} (torch.profiler, back to back) device_cold_ms "
+              f"{numbers['device_cold_ms']} library_device_cold_ms "
+              f"{numbers['library_device_cold_ms']} (each call after a read of "
+              f"{L2_FLUSH_BYTES >> 20} MB) bound_ms {numbers['bound_ms']} ({numbers['bound_by']}; "
+              f"{numbers['rows_read']} distinct rows; {numbers['bound_share']:.1%} of it back to "
+              f"back, {numbers['bound_share_cold']:.1%} cold) tiling {numbers['tiling']} (G bags "
+              f"a unit, L lanes a row, VEC values a load, Q rows in flight a lane) on {smi}")
         return {k: numbers[k] for k in BAG_KEYS}
 
+    cases = {}
     tables = torch.randn(T, R, E, generator=gen, device=dev)  # 40.96 GB
-    serving = ids(128, 1)
     # The serving lookup's CUDA-event time is of back-to-back launches that
     # the host paces; its device_ms (the profiler) is the kernel's alone.
-    main = case("serving B=128 NNZ=1 fp32 int32", tables, serving, exact=True)
-    scoring = case("B=4096 NNZ=1 fp32 int32", tables, ids(4096, 1), exact=True)
-    multi = case("multi-hot B=4096 NNZ=32 fp32 int32", tables, ids(4096, 32))
-    case("ids near R-1 B=128 NNZ=4 fp32 int32", tables, ids(128, 4, R - 1000))
+    cases["serving"] = case("serving B=128 NNZ=1 fp32 int32", tables, ids(128, 1), exact=True)
+    cases["scoring"] = case("B=4096 NNZ=1 fp32 int32", tables, ids(4096, 1), exact=True)
+    cases["scoring_int64"] = case("B=4096 NNZ=1 fp32 int64", tables,
+                                  ids(4096, 1, dtype=torch.int64), exact=True)
+    cases["multi"] = case("multi-hot B=4096 NNZ=32 fp32 int32", tables, ids(4096, 32))
+    cases["near_end"] = case("ids near R-1 B=128 NNZ=4 fp32 int32", tables,
+                             ids(128, 4, R - 1000))
     # Ids past the table read the rows the reference's gather clamps and wraps to.
     rows = {R: R - 1, R + 5: R - 1, -1: R - 1, -R: 0, -R - 3: 0, 2**31 - 1: R - 1,
             -(2**31): 0, 0: 0}
@@ -1780,39 +1808,66 @@ def check_bag(embedding_bag, ref_embedding_bag, gen, dev, smi):
     require(torch.equal(embedding_bag(tables, past),
                         tables[torch.arange(T, device=dev)[None, :], want[:, None]]),
             "ids R, -1 and beyond read the clamped and wrapped rows")
-    case("ids past the table B=128 NNZ=1 fp32 int32", tables, past, exact=True)
+    cases["past"] = case("ids past the table B=128 NNZ=1 fp32 int32", tables, past, exact=True)
+    # B * T = 28665 bags: one past a whole number of units (and of warps).
+    cases["ragged_b"] = case("ragged B=4095 T=7 NNZ=1 fp32 int32", tables[:7],
+                             ids(4095, 1, nT=7), exact=True)
     del tables
     torch.cuda.empty_cache()
 
     tables = torch.randn(T, R, E, generator=gen, device=dev, dtype=torch.bfloat16)
-    case("serving B=128 NNZ=1 bf16 int32", tables, ids(128, 1), exact=True)
-    case("multi-hot B=4096 NNZ=32 bf16 int32", tables, ids(4096, 32))
+    cases["serving_bf16"] = case("serving B=128 NNZ=1 bf16 int32", tables, ids(128, 1),
+                                 exact=True)
+    cases["scoring_bf16"] = case("B=4096 NNZ=1 bf16 int32", tables, ids(4096, 1), exact=True)
+    cases["multi_bf16"] = case("multi-hot B=4096 NNZ=32 bf16 int32", tables, ids(4096, 32))
     del tables
     torch.cuda.empty_cache()
-    # Rows of 52 bytes (E = 13: the scalar kernel), with int64 ids.
+    # Rows of 52 bytes (E = 13: one value a lane), with int64 ids.
     tables = torch.randn(T, R, 13, generator=gen, device=dev)
-    case("ragged E=13 B=128 NNZ=7 fp32 int64", tables, ids(128, 7, dtype=torch.int64))
+    cases["ragged_e13"] = case("ragged E=13 B=128 NNZ=7 fp32 int64", tables,
+                               ids(128, 7, dtype=torch.int64))
     del tables
-    return main, multi, scoring
+    return cases
 
 
 def kernel_device_ms(fn, iters: int, launches: dict | None = None) -> dict:
     """Device time (ms per call of ``fn``) of each kernel ``fn`` launches, by
     name, from ``torch.profiler`` over ``iters`` calls after one warm-up;
-    ``launches``, if given, gets each kernel's launches per call."""
+    ``launches``, if given, gets each kernel's launches per call.  A session
+    that records no device event at all (the profiler drops a session's
+    events now and then) is run again, up to twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if events:
+            break
     if launches is not None:
         launches.update({e.key: e.count / iters for e in events})
     return {e.key: e.self_device_time_total / 1e3 / iters for e in events}
+
+
+def launch_ms(fn, iters: int, pattern: str, flush=None) -> float:
+    """The device ms per call of the one kernel named like ``pattern`` that
+    ``fn`` launches once a call, by ``torch.profiler`` over ``iters`` calls
+    (each after ``flush()``, where given, whose kernels are not counted); a
+    session that saw fewer launches than calls (the profiler drops events
+    now and then) is run again, up to twice, then the check fails."""
+    for _ in range(3):
+        launches: dict = {}
+        times = kernel_device_ms(fn if flush is None else (lambda: (flush(), fn())), iters,
+                                 launches)
+        hits = [k for k in times if pattern in k]
+        if hits and sum(launches[k] for k in hits) == 1:
+            return sum(times[k] for k in hits)
+    require(False, f"the profiler saw one {pattern} a call: {launches}")
 
 
 def named_ms(times: dict, *patterns: str) -> float:
@@ -2015,23 +2070,38 @@ def check_bag_bwd(embedding_bag_bwd, ref_embedding_bag_bwd, gen, dev, smi):
 
 
 BAG_KEYS = ("max_abs_err", "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-            "device_ms", "library_device_ms")
+            "device_ms", "library_device_ms", "device_cold_ms", "library_device_cold_ms",
+            "bound_share", "bound_share_cold", "tiling")
+
+
+L2_FLUSH_BYTES = 128 << 20  # more than twice the H100's 50 MB of L2
 
 
 def bag_times(embedding_bag, ref_embedding_bag, tables, ids, out) -> dict:
     """Kernel, plain and library times (CUDA events), the kernel's and the
-    library call's device times on one clock (``torch.profiler``), and the
+    library call's device times on one clock (``torch.profiler``), warm
+    (calls back to back: at B=4096, one id a bag, the 33.6 MB of rows and
+    output stay in L2) and cold (each call after a read of L2_FLUSH_BYTES,
+    so its rows come from device memory, as a new batch's do), and the
     bound.  The library call is ``F.embedding_bag`` over the tables seen as
     one (T*R, E) table, with ids in range offset by t*R: a yardstick only,
     never on the port's path."""
     T, R, E = tables.shape
     B, _, nnz = ids.shape
     iters = 20 if B * nnz > 4096 else 200
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, device=ids.device)
+    flush_kernels = set(kernel_device_ms(flush.sum, 1))
+
+    def cold_ms(fn) -> float:
+        times = kernel_device_ms(lambda: (flush.sum(), fn()), iters)
+        return sum(t for k, t in times.items() if k not in flush_kernels)
+
     kernel_ms = time_ms(lambda: embedding_bag(tables, ids), iters)
-    device_ms = named_ms(kernel_device_ms(lambda: embedding_bag(tables, ids), iters),
-                         "embedding_bag_kernel")
+    device_ms = launch_ms(lambda: embedding_bag(tables, ids), iters, "embedding_bag_kernel")
+    device_cold_ms = launch_ms(lambda: embedding_bag(tables, ids), iters, "embedding_bag_kernel",
+                               flush.sum)
     plain_ms = time_ms(lambda: ref_embedding_bag(tables, ids), 5)
-    library_ms = library_device_ms = library_err = None
+    library_ms = library_device_ms = library_device_cold_ms = library_err = None
     if bool(((ids >= 0) & (ids < R)).all()):
         flat = (ids.long() + torch.arange(T, device=ids.device)[None, :, None] * R)
         flat = flat.view(B * T, nnz)
@@ -2043,11 +2113,13 @@ def bag_times(embedding_bag, ref_embedding_bag, tables, ids, out) -> dict:
         library_device_ms = sum(kernel_device_ms(
             lambda: torch.nn.functional.embedding_bag(flat, table2d, mode="sum"),
             iters).values())
+        library_device_cold_ms = cold_ms(
+            lambda: torch.nn.functional.embedding_bag(flat, table2d, mode="sum"))
     bound_ms, bound_by, n_rows = bag_bound(tables, ids, out)
-    return dict(kernel_ms=kernel_ms, device_ms=device_ms, plain_ms=plain_ms,
-                library_ms=library_ms, library_device_ms=library_device_ms,
-                library_err=library_err, bound_ms=bound_ms, bound_by=bound_by,
-                rows_read=n_rows)
+    return dict(kernel_ms=kernel_ms, device_ms=device_ms, device_cold_ms=device_cold_ms,
+                plain_ms=plain_ms, library_ms=library_ms, library_device_ms=library_device_ms,
+                library_device_cold_ms=library_device_cold_ms, library_err=library_err,
+                bound_ms=bound_ms, bound_by=bound_by, rows_read=n_rows)
 
 
 def dlrm_batch(rng, cfg, batch, device):

@@ -1,9 +1,10 @@
 // What the embedding bag's forward (embedding_bag.cu) and backward
 // (embedding_bag_bwd.cu) share: the block shape, fp32 conversions of the
-// tables' types, and one lane's 16-byte (or scalar) load and store of a
-// chunk of a row.  A group of L lanes owns one row of E values and each
-// lane takes every L-th chunk of VEC values, so a row of E = 128 fp32
-// (512 bytes) is one coalesced request of a whole warp.
+// tables' types, and one lane's 16-byte (or scalar) load of a chunk of a
+// row, kept as raw bits until it is added, and the store of its sums.  A
+// group of L lanes owns one row of E values and each lane takes every L-th
+// chunk of VEC values, so a row of E = 128 fp32 (512 bytes) is one
+// coalesced request of a whole warp.
 
 #pragma once
 
@@ -16,7 +17,7 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int U = 4;  // ids (and rows) in flight per lane
+constexpr unsigned FULL = 0xffffffffu;
 
 template <typename T> __device__ __forceinline__ float to_float(T x);
 template <> __device__ __forceinline__ float to_float<float>(float x) { return x; }
@@ -64,23 +65,65 @@ template <> __device__ __forceinline__ uint32_t pack<__nv_bfloat16>(const float*
          ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(f[1])) << 16);
 }
 
-// One lane's chunk of a row: `width` (<= VEC) values from rp, as floats.
+// One lane's chunk of a row as raw bits: the VEC values of T in the 16
+// bytes of one vector load (VEC > 1), or one value (VEC = 1).  Four
+// registers a chunk whatever T is, where fp32 values of bf16 would take 8.
+template <int VEC> struct Raw { uint32_t w[VEC > 1 ? 4 : 1]; };
+
+template <typename T> __device__ __forceinline__ uint32_t load_bits(const T* p) {
+  if constexpr (sizeof(T) == 4) return __ldg(reinterpret_cast<const unsigned int*>(p));
+  else return __ldg(reinterpret_cast<const unsigned short*>(p));
+}
+
+// `width` (<= VEC) values from rp: one 16-byte load, else scalar loads
+// packed as a 16-byte load would hold them (zero past `width`).
 template <typename T, int VEC>
-__device__ __forceinline__ void load_chunk(float (&v)[VEC], const T* rp, int width,
-                                           int64_t st_e) {
+__device__ __forceinline__ void load_raw(Raw<VEC>& r, const T* rp, int width, int64_t st_e) {
   if constexpr (VEC > 1) {
-    if (width == VEC) {  // one 16-byte load
-      const uint4 w = __ldg(reinterpret_cast<const uint4*>(rp));
-      constexpr int PER = VEC / 4;  // T values per 32-bit word
-      unpack<T>(w.x, &v[0]);
-      unpack<T>(w.y, &v[PER]);
-      unpack<T>(w.z, &v[2 * PER]);
-      unpack<T>(w.w, &v[3 * PER]);
+    if (width == VEC) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(rp));
+      r.w[0] = v.x;
+      r.w[1] = v.y;
+      r.w[2] = v.z;
+      r.w[3] = v.w;
       return;
     }
-  }
+    constexpr int PER = VEC / 4;  // T values per 32-bit word
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) v[i] = i < width ? to_float<T>(rp[(int64_t)i * st_e]) : 0.f;
+    for (int q = 0; q < 4; ++q) r.w[q] = 0u;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i)
+      if (i < width)
+        r.w[i / PER] |= load_bits<T>(rp + (int64_t)i * st_e) << ((32 / PER) * (i % PER));
+  } else {
+    r.w[0] = load_bits<T>(rp);
+  }
+}
+
+template <typename T> __device__ __forceinline__ float one_float(uint32_t w);
+template <> __device__ __forceinline__ float one_float<float>(uint32_t w) {
+  return __uint_as_float(w);
+}
+template <> __device__ __forceinline__ float one_float<__half>(uint32_t w) {
+  return __half2float(__ushort_as_half((unsigned short)w));
+}
+template <> __device__ __forceinline__ float one_float<__nv_bfloat16>(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+
+// acc[i] += value i of the chunk, in fp32.
+template <typename T, int VEC>
+__device__ __forceinline__ void add_raw(float (&acc)[VEC], const Raw<VEC>& r) {
+  if constexpr (VEC > 1) {
+    constexpr int PER = VEC / 4;
+    float f[VEC];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) unpack<T>(r.w[q], &f[q * PER]);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc[i] += f[i];
+  } else {
+    acc[0] += one_float<T>(r.w[0]);
+  }
 }
 
 // Rounds a chunk's sums to T and stores them; one 16-byte store where the
@@ -109,6 +152,11 @@ int lanes_per_bag(int n_chunks) {
   int L = 1;
   while (L < n_chunks && L < 32) L *= 2;
   return L;
+}
+
+// The lanes of this lane's group of L, as a shuffle/ballot mask.
+__device__ __forceinline__ unsigned group_mask(int gbase, int L) {
+  return L == 32 ? FULL : ((1u << L) - 1u) << gbase;
 }
 
 }  // namespace

@@ -84,67 +84,6 @@ constexpr int SORTED_WARPS = 4;
 constexpr int SMALL_MIN_BLOCKS = 1, SORTED_MIN_BLOCKS = 3;  // blocks an SM, for ptxas
 constexpr int SLOTS_PER_KEY = 2;  // the small kernel's hash slots per staged key
 constexpr size_t MAX_SMEM = 227 * 1024;  // dynamic shared memory a block may use
-constexpr unsigned FULL = 0xffffffffu;
-
-// One lane's chunk of a dout row as raw bits: the VEC values of T in the 16
-// bytes of one vector load (VEC > 1), or one value (VEC = 1).
-template <int VEC> struct Raw { uint32_t w[VEC > 1 ? 4 : 1]; };
-
-template <typename T> __device__ __forceinline__ uint32_t load_bits(const T* p) {
-  if constexpr (sizeof(T) == 4) return __ldg(reinterpret_cast<const unsigned int*>(p));
-  else return __ldg(reinterpret_cast<const unsigned short*>(p));
-}
-
-// `width` (<= VEC) values from rp: one 16-byte load, else scalar loads
-// packed as a 16-byte load would hold them (zero past `width`).
-template <typename T, int VEC>
-__device__ __forceinline__ void load_raw(Raw<VEC>& r, const T* rp, int width, int64_t st_e) {
-  if constexpr (VEC > 1) {
-    if (width == VEC) {
-      const uint4 v = __ldg(reinterpret_cast<const uint4*>(rp));
-      r.w[0] = v.x;
-      r.w[1] = v.y;
-      r.w[2] = v.z;
-      r.w[3] = v.w;
-      return;
-    }
-    constexpr int PER = VEC / 4;  // T values per 32-bit word
-#pragma unroll
-    for (int q = 0; q < 4; ++q) r.w[q] = 0u;
-#pragma unroll
-    for (int i = 0; i < VEC; ++i)
-      if (i < width)
-        r.w[i / PER] |= load_bits<T>(rp + (int64_t)i * st_e) << ((32 / PER) * (i % PER));
-  } else {
-    r.w[0] = load_bits<T>(rp);
-  }
-}
-
-template <typename T> __device__ __forceinline__ float one_float(uint32_t w);
-template <> __device__ __forceinline__ float one_float<float>(uint32_t w) {
-  return __uint_as_float(w);
-}
-template <> __device__ __forceinline__ float one_float<__half>(uint32_t w) {
-  return __half2float(__ushort_as_half((unsigned short)w));
-}
-template <> __device__ __forceinline__ float one_float<__nv_bfloat16>(uint32_t w) {
-  return __uint_as_float(w << 16);
-}
-
-// acc[i] += value i of the chunk, in fp32.
-template <typename T, int VEC>
-__device__ __forceinline__ void add_raw(float (&acc)[VEC], const Raw<VEC>& r) {
-  if constexpr (VEC > 1) {
-    constexpr int PER = VEC / 4;
-    float f[VEC];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) unpack<T>(r.w[q], &f[q * PER]);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[i] += f[i];
-  } else {
-    acc[0] += one_float<T>(r.w[0]);
-  }
-}
 
 // The element offset in dout of the row of the entry at flat position
 // p = (b * T + t) * nnz + j.
@@ -162,11 +101,6 @@ __device__ __forceinline__ int64_t row_offset(int64_t p, int nnz, int nT, int64_
     t = bag - b * nT;
   }
   return b * sd_b + t * sd_t;
-}
-
-// The lanes of this lane's group of L, as a shuffle/ballot mask.
-__device__ __forceinline__ unsigned group_mask(int gbase, int L) {
-  return L == 32 ? FULL : ((1u << L) - 1u) << gbase;
 }
 
 // The hash slot of a key among 2^hbits (hbits >= 1).

@@ -4,10 +4,12 @@ with a gradient.
 
 Replaces the Pallas TPU kernel ``repro.kernels.embedding_bag``.  The CUDA
 kernel computes the same function (``out[b, t] = sum_j tables[t, idx[b, t,
-j]]``, summed in fp32 and rounded to the tables' dtype) on strided tables
-and ids of either integer width as they are, clamping and wrapping ids past
-the table as the reference's gather does, so nothing here copies or checks
-the ids.  Its plain PyTorch version is
+j]]``, summed in fp32 in j's order and rounded to the tables' dtype) on
+strided tables and ids of either integer width as they are, clamping and
+wrapping ids past the table as the reference's gather does, so nothing here
+copies or checks the ids.  A group of lanes takes units of consecutive
+bags at a time (:func:`bag_fwd_split` says how many), several rows a lane
+in flight.  Its plain PyTorch version is
 :func:`repro_torch.kernels.ref.ref_embedding_bag`.
 
 The backward (:func:`embedding_bag_bwd`) writes the dense gradient of the
@@ -20,6 +22,7 @@ Its plain version is :func:`repro_torch.kernels.ref.ref_embedding_bag_bwd`.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -31,22 +34,26 @@ from .ref import ref_embedding_bag, ref_embedding_bag_bwd
 ID_DTYPES = {torch.int32: 0, torch.int64: 1}
 
 
-def _entry():
-    fn = _build.load("embedding_bag").repro_embedding_bag
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index``, which size the forward kernel's
+    units of bags."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _entry(name: str = "repro_embedding_bag"):
+    fn = getattr(_build.load("embedding_bag"), name)
     if fn.argtypes is None:
         p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, i, i, q, i, i, q, q, q, q, q, q, i, i, p]
+        if name == "repro_embedding_bag":
+            fn.argtypes = [p, p, p, i, i, q, i, i, i, q, q, q, q, q, q, i, i, p]
+        else:
+            fn.argtypes = [p, i, i, q, q, q, q, i, i, p]
         fn.restype = i
     return fn
 
 
-def embedding_bag(tables, indices):
-    """tables: (T, R, E) fp32/fp16/bf16; indices: (B, T, NNZ) int32/int64, on
-    one CUDA device -> (B, T, E) in the tables' dtype.
-
-    Launches the CUDA kernel once, or raises: this function never computes
-    on another path.
-    """
+def _check(tables, indices):
     if not (tables.is_cuda and indices.device == tables.device):
         raise ValueError("embedding_bag: tables and indices must lie on one CUDA device")
     if tables.dtype not in DTYPE_CODES:
@@ -62,16 +69,48 @@ def embedding_bag(tables, indices):
     B, _, NNZ = indices.shape
     if min(B, T, R, E, NNZ) < 1 or max(B, T, E, NNZ) > 2**31 - 1:
         raise ValueError(f"embedding_bag: B={B}, T={T}, R={R}, E={E}, NNZ={NNZ} out of range")
+
+
+def embedding_bag(tables, indices):
+    """tables: (T, R, E) fp32/fp16/bf16; indices: (B, T, NNZ) int32/int64, on
+    one CUDA device -> (B, T, E) in the tables' dtype.
+
+    Launches the CUDA kernel once, or raises: this function never computes
+    on another path.
+    """
+    _check(tables, indices)
+    T, R, E = tables.shape
+    B, _, NNZ = indices.shape
     out = torch.empty((B, T, E), dtype=tables.dtype, device=tables.device)
     with torch.cuda.device(tables.device):
         err = _entry()(
             tables.data_ptr(), indices.data_ptr(), out.data_ptr(), B, T, R, E, NNZ,
-            *tables.stride(), *indices.stride(), DTYPE_CODES[tables.dtype],
-            ID_DTYPES[indices.dtype], torch.cuda.current_stream(tables.device).cuda_stream,
+            _sm_count(tables.device.index), *tables.stride(), *indices.stride(),
+            DTYPE_CODES[tables.dtype], ID_DTYPES[indices.dtype],
+            torch.cuda.current_stream(tables.device).cuda_stream,
         )
     if err:
         raise RuntimeError(f"embedding_bag: CUDA error {err} at launch")
     return out
+
+
+def bag_fwd_split(tables, indices) -> dict:
+    """How :func:`embedding_bag` splits this lookup on its card (the
+    kernel's own ``split_of``): ``vec`` values a lane loads at a time,
+    ``lanes`` a row, ``unit`` consecutive bags (flat ``b * T + t``) a group
+    of lanes takes at a time and ``rows`` in flight a lane.  Launches
+    nothing."""
+    _check(tables, indices)
+    T, _, E = tables.shape
+    B, _, NNZ = indices.shape
+    split = (ctypes.c_int * 4)()
+    err = _entry("repro_embedding_bag_split")(
+        tables.data_ptr(), E, NNZ, B * T, *tables.stride(), DTYPE_CODES[tables.dtype],
+        _sm_count(tables.device.index), split,
+    )
+    if err:
+        raise RuntimeError(f"bag_fwd_split: error {err}")
+    return dict(zip(("vec", "lanes", "unit", "rows"), split))
 
 
 # Entries (B * T * NNZ) up to which the backward's `small` tiling serves:

@@ -120,6 +120,22 @@ def ref_embedding_bag(tables, indices):
     return gathered.float().sum(dim=2).to(tables.dtype)
 
 
+def ref_embedding_bag_in_order(tables, indices):
+    """:func:`ref_embedding_bag` summed as the CUDA kernel and the Pallas
+    kernel sum it: in fp32 one id at a time, in j's order from 0, rounded
+    once to the tables' dtype (``sum(dim=2)`` takes its own order, which can
+    differ in the last bits past two ids a bag).  One (B, T, E) gather an
+    id, no (B, T, NNZ, E) temporary."""
+    T, R, E = tables.shape
+    ids = indices.long()
+    ids = torch.where(ids < 0, ids + R, ids).clamp_(0, R - 1)
+    t = torch.arange(T, device=tables.device)[None, :]
+    acc = torch.zeros(indices.shape[0], T, E, device=tables.device)
+    for j in range(indices.shape[2]):
+        acc += tables[t, ids[:, :, j]].float()
+    return acc.to(tables.dtype)
+
+
 def ref_embedding_bag_bwd(dout, indices, R, dtype):
     """The lookup's gradient for the tables: dout (B, T, E); indices (B, T,
     NNZ) int32/int64 -> dtables (T, R, E) in ``dtype``.  Each row is the sum,

@@ -17,10 +17,11 @@ import pytest
 import torch
 
 from repro_torch.configs.base import get_config
+from repro_torch.kernels import embedding_bag as bag_mod
 from repro_torch.kernels import ops
 from repro_torch.kernels.embedding_bag import (
-    BWD_TILINGS, N_SMALL, bag_bwd_tiling, embedding_bag, embedding_bag_bwd, key_dtype,
-    sorted_keys,
+    BWD_TILINGS, N_SMALL, bag_bwd_tiling, bag_fwd_split, embedding_bag, embedding_bag_bwd,
+    key_dtype, sorted_keys,
 )
 from repro_torch.kernels.flash_attention import (
     FlashAttentionFn, first_masked_row, flash_attention, flash_attention_bwd,
@@ -28,8 +29,8 @@ from repro_torch.kernels.flash_attention import (
 from repro_torch.kernels.mamba_scan import mamba_scan
 from repro_torch.kernels.moe_gmm import moe_gmm
 from repro_torch.kernels.ref import (
-    ref_embedding_bag, ref_embedding_bag_bwd, ref_flash_attention, ref_flash_attention_lse,
-    ref_mamba_scan, ref_moe_gmm, ref_rglru_scan,
+    ref_embedding_bag, ref_embedding_bag_bwd, ref_embedding_bag_in_order, ref_flash_attention,
+    ref_flash_attention_lse, ref_mamba_scan, ref_moe_gmm, ref_rglru_scan,
 )
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch import optim
@@ -684,6 +685,101 @@ def test_bag_kernel_offsets_past_int32(cuda):
     _assert_bag_close(out, ref_embedding_bag(tables, ids), tables, 4)
     one = embedding_bag(tables, ids[:, :, :1])
     assert torch.equal(one, tables[torch.arange(T, device=cuda)[None, :], ids[:, :, 0]])
+
+
+def _assert_bag_bits(out, tables, ids):
+    """Bitwise the sum in j's order; at one id a bag bitwise the plain
+    version too; within test_kernels.py's bars of it otherwise."""
+    assert torch.equal(out, ref_embedding_bag_in_order(tables, ids))
+    if ids.shape[2] == 1:
+        assert torch.equal(out, ref_embedding_bag(tables, ids))
+    _assert_bag_close(out, ref_embedding_bag(tables, ids), tables, ids.shape[2])
+
+
+@pytest.mark.parametrize("NNZ", [1, 3, 32])
+@pytest.mark.parametrize("E", [128, 64, 13])
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+def test_bag_kernel_at_unit_edges(cuda, monkeypatch, dtype, id_dtype, E, NNZ):
+    """With the units sized for a card of one SM, B * T bags (T = 1) at 1
+    and at the first, second and last batch of up to 1024 that the kernel's
+    split gives each unit G: every G from 1 to its cap (rows // NNZ) comes
+    up, with ragged last units and groups that stop at different units."""
+    monkeypatch.setattr(bag_mod, "_sm_count", lambda index: 1)
+    tables, _ = _bag_inputs(cuda, 1, 1000, E, 1, 1, dtype, id_dtype)
+    one = torch.zeros((1, 1, NNZ), dtype=id_dtype, device=cuda)
+    by_unit = {}  # G -> the batches it takes, in order
+    for n in range(1, 1025):
+        by_unit.setdefault(bag_fwd_split(tables, one.expand(n, 1, NNZ))["unit"], []).append(n)
+    cap = max(1, bag_fwd_split(tables, one)["rows"] // NNZ)
+    assert sorted(by_unit) == list(range(1, cap + 1))
+    gen = torch.Generator(device=cuda).manual_seed(NNZ)
+    for ns in by_unit.values():
+        for n in sorted({1, ns[0], ns[min(1, len(ns) - 1)], ns[-1]}):
+            ids = torch.randint(0, 1000, (n, 1, NNZ), generator=gen, device=cuda).to(id_dtype)
+            _assert_bag_bits(embedding_bag(tables, ids), tables, ids)
+
+
+@pytest.mark.parametrize("NNZ", [1, 32])
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+def test_bag_kernel_at_the_scoring_shape(cuda, dtype, id_dtype, NNZ):
+    """The DLRM scoring batch (B = 4096, T = 8, E = 128) on tables cut to R =
+    20000: at one id a bag a unit of the most rows a lane has in flight
+    (more units than the card holds groups, so each group walks several,
+    the next unit's ids in flight), at 32 a bag alone; with ids past the
+    table too."""
+    tables, ids = _bag_inputs(cuda, 8, 20_000, 128, 4096, NNZ, dtype, id_dtype, seed=5)
+    ids[::97, :, 0] = torch.tensor([-1, 20_000, -20_001, 2**31 - 1, 0, 19_999, -7, 3],
+                                   device=cuda).to(id_dtype)
+    split = bag_fwd_split(tables, ids)
+    assert split["unit"] == (split["rows"] if NNZ == 1 else 1)
+    _assert_bag_bits(embedding_bag(tables, ids), tables, ids)
+
+
+@pytest.mark.parametrize("sms", [1, 2, 4, None])
+@pytest.mark.parametrize("NNZ", [1, 5, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bag_kernel_gives_the_same_bits_on_any_unit(cuda, monkeypatch, dtype, NNZ, sms):
+    """The units and grid sized for cards of 1, 2 and 4 SMs (at one id a
+    bag, up to 4 bags a unit) and for this one: the same bits as this
+    card's and as the sum in j's order."""
+    tables, ids = _bag_inputs(cuda, 3, 1000, 128, 301, NNZ, dtype, torch.int32, seed=6)
+    want = embedding_bag(tables, ids)
+    if sms:
+        monkeypatch.setattr(bag_mod, "_sm_count", lambda index: sms)
+    out = embedding_bag(tables, ids)
+    assert torch.equal(out, want)
+    _assert_bag_bits(out, tables, ids)
+
+
+@pytest.mark.parametrize("NNZ", [1, 32])
+def test_bag_kernel_takes_strided_views_at_each_width(cuda, NNZ):
+    """E = 64 and E = 13 as column slices of 16-byte rows (16-byte loads, a
+    scalar tail at 13), transposed and unaligned tables (one value a lane),
+    with strided ids: bitwise the sum in j's order and the contiguous
+    copies' lookup."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    big = torch.randn(3, 400, 80, generator=gen, device=cuda)
+    wide = torch.randint(-50, 450, (37, 3, 2 * NNZ), generator=gen, device=cuda)
+    for ids in (wide[:, :, ::2], wide[:, :, :NNZ].transpose(0, 1).contiguous().transpose(0, 1)):
+        for tables in (big[:, :, :64], big[:, :, :13], big[:, ::3, 8:72],
+                       big.transpose(1, 2).contiguous().transpose(1, 2)[:, :, :13],
+                       big[:, :, 1:14]):
+            out = embedding_bag(tables, ids)
+            assert torch.equal(out, embedding_bag(tables.contiguous(), ids.contiguous()))
+            _assert_bag_bits(out, tables, ids)
+
+
+@pytest.mark.parametrize("NNZ", [1, 32])
+def test_bag_kernel_offsets_past_int32_in_j_order(cuda, NNZ):
+    """fp32 tables (3, 6e6, 128): table 2 starts 1.5e9 elements in and its
+    last rows lie 2.3e9 in, past INT_MAX (9.2 GB); int64 ids near R - 1."""
+    T, R, E = 3, 6_000_000, 128
+    tables = torch.randn(T, R, E, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    ids = torch.randint(R - 1000, R, (512, T, NNZ), generator=gen, device=cuda)
+    _assert_bag_bits(embedding_bag(tables, ids), tables, ids)
 
 
 def test_ops_counts_bag_launches_and_rejects_bad_inputs(cuda, monkeypatch):
