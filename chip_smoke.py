@@ -12,12 +12,14 @@ result line:
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, all started together),
    with ptxas's registers, shared memory, spills and wgmma serialisation
    warnings for each kernel; the warp-specialised wgmma kernels (attention
-   forward, the attention backward's dk/dv and dq, the grouped matmul) must
-   report the 168 registers their setmaxnreg split (240 x 256 + 24 x 128) is
-   sized for (the forward's lse store included), and the skinny grouped
-   matmul, the Mamba scan, every attention backward kernel, the embedding
-   bag's 12 forward kernels and its backward (the small tiling's 6 kernels,
-   the sorted tiling's 12 and the keys kernel's 4) must not spill;
+   forward, the attention backward's dk/dv and dq, the grouped matmul and
+   its backward's dx and dw) must report the 168 registers their setmaxnreg
+   split (240 x 256 + 24 x 128) is sized for (the forward's lse store
+   included), and the skinny grouped matmul, the Mamba scan, every attention
+   backward kernel, the grouped matmul's backward (4 wgmma kernels, 6 fma
+   ones), the embedding bag's 12 forward kernels and its backward (the small
+   tiling's 6 kernels, the sorted tiling's 12 and the keys kernel's 4) must
+   not spill;
 3. kernels vs their plain PyTorch versions at the serving shapes, with times
    beside the bound and beside one PyTorch library call where one computes
    the same function, each case printing the tiling that served it (wgmma
@@ -36,7 +38,13 @@ result line:
    128 x 256 tiles (C = 129; D = 72, F = 136), and on a decode step's own
    buffers (``layers.moe`` at 4 requests: most experts' rows zero), timed
    against a bound that counts only the live experts' weights, with the
-   live experts printed; the Mamba selective scan at
+   live experts printed; the grouped matmul's backward (dx and dw in one
+   call) against its plain version at qwen3-moe-30b-a3b's training products
+   (E=128, C=1280: gate/up D=2048 F=768 and down D=768 F=2048) in bf16,
+   fp16 and fp32 (the fma tiling), ragged (C=129, D=72, F=136) and at C=1,
+   two launches equal to the bit, each case printing its tiling and its
+   time (dx and dw apart too) beside the bound, the plain version and
+   ``torch.bmm`` for the same dx and dw; the Mamba selective scan at
    falcon-mamba-7b's prefill (B=4, L=1000, DI=8192, ST=16) and the RG-LRU
    scan at recurrentgemma-9b's (B=4, L=2048, D=4096), each also at a ragged
    shape, and the embedding bag on the paper DLRM's tables (T=8, R=1e7,
@@ -76,7 +84,13 @@ result line:
    bound, and at the training shape the plain forward and SDPA's forward
    beside the forward kernel; and a narrow fp32 train step (head dim 64, 2
    layers, MHA and GQA) on the card against the CPU: loss, every gradient,
-   AdamW's arithmetic and the parameters after one SGD step;
+   AdamW's arithmetic and the parameters after one SGD step; and a narrow
+   fp32 qwen3-moe train step (its smoke widths at head dim 64, 2 layers; C
+   above 16) at its dropless capacity and at capacity 1.0 (entries drop),
+   card against CPU: the grouped matmul's forward and backward kernels and
+   the attention kernels, the loss and every gradient (the router's
+   included) within 1e-5 of each leaf's max, the parameters after one AdamW
+   step within 1e-4;
 4. serve granite-8b at full width and depth in bf16 through
    ``repro_torch.launch.serve.generate`` (4 requests, prompt 1000, 16 decode
    steps), counting kernel launches (every prefill attention on the wgmma
@@ -127,6 +141,18 @@ result line:
    AdamW, the gradient's zero fill, the MLP GEMMs, the two bag kernels, the
    bag backward's bookkeeping (keys and sort; none on the small tiling the
    training batch takes) and the rest, with the idle share;
+5c. train qwen3-moe-30b-a3b at full width, cut to 4 layers (bf16, fp32
+   AdamW state, remat "full", loss chunk 1024) at 4 x 4096: 3 steps through
+   ``train.loop.train``, each with the launches below; then, through
+   ``train.steps.make_train_step``, 2 warm-up and 8
+   timed steps (median, range, tokens/s, model FLOPs share, peak memory),
+   each with 24 forward grouped-matmul launches and 12 backward calls, 8
+   forward and 4 backward attention launches, all on the wgmma tilings, and
+   no other kernel; then 6 steps on one fixed batch, whose loss must fall,
+   and one step under ``torch.profiler`` split into the grouped matmul's
+   forward and backward, attention forward and backward, cuBLAS GEMMs, the
+   MoE's dispatch and combine (index, gather and scatter kernels), AdamW
+   (traced apart) and the rest, with the idle share;
 6. plan: the planner (``repro_torch.core``) on the card at the paper's
    128-server scale (degree 4, 100 Gbps links), each result held against
    the same call on the CPU or against the NumPy oracles: (6a) pricing 256
@@ -169,7 +195,7 @@ result line:
    ``nvidia-smi`` line, and the result line ``{"ok": true, "device": {...}}``
    last.
 
-Each serving phase, and the training run, sets every kernel's launch count
+Each serving phase, and each training run, sets every kernel's launch count
 to 0 just before its run and reads the counts just after.  Times come from CUDA events (kernels)
 or the host clock after a synchronise (serving).  Bounds use the H100 SXM's
 published peaks at 700 W: 989 TFLOP/s bf16/fp16 dense, 67 TFLOP/s fp32
@@ -219,13 +245,14 @@ HUBERT_CASES = tuple((PROMPT, PROMPT, D_AU, dt, False, 0, H_AU, H_AU)
                      for dt in (torch.bfloat16, torch.float16, torch.float32))
 CROSS_CASE = (PROMPT, IMG_TOKENS, D, torch.bfloat16, False, 0, KV, H)
 KERNEL_COUNTERS = ("attention_launches", "attention_bwd_launches", "grouped_matmul_launches",
-                   "selective_scan_launches", "lru_scan_launches", "bag_lookup_launches",
-                   "bag_lookup_bwd_launches")
+                   "grouped_matmul_bwd_launches", "selective_scan_launches", "lru_scan_launches",
+                   "bag_lookup_launches", "bag_lookup_bwd_launches")
 # The same launches again, by the tiling that served them.
 TILING_COUNTERS = ("attention_wgmma_launches", "attention_fma_launches",
                    "attention_bwd_wgmma_launches", "attention_bwd_fma_launches",
                    "grouped_matmul_wgmma_launches", "grouped_matmul_fma_launches",
-                   "grouped_matmul_skinny_launches", "bag_lookup_bwd_small_launches",
+                   "grouped_matmul_skinny_launches", "grouped_matmul_bwd_wgmma_launches",
+                   "grouped_matmul_bwd_fma_launches", "bag_lookup_bwd_small_launches",
                    "bag_lookup_bwd_sorted_launches")
 COUNTERS = KERNEL_COUNTERS + TILING_COUNTERS
 T_DLRM, R_DLRM, E_DLRM = 8, 10_000_000, 128  # the paper DLRM's tables, one host's 8 of 64
@@ -241,6 +268,11 @@ DLRM_WARMUP, DLRM_TIMED, DLRM_FIXED = 2, 8, 10
 # and its global batch of 256 cut to 4 for one card; the chunked loss.
 TRAIN_ARCH, TRAIN_B, TRAIN_S, LOSS_CHUNK = "minicpm-2b", 4, 4096, 1024
 TRAIN_STEPS, FIXED_STEPS, TRAIN_LR = 8, 6, 3e-4
+# Training the MoE (phase 5c): qwen3-moe-30b-a3b at full width, its 48 layers
+# cut to 4 (49.8 GB of training state) and TRAIN_4K's global batch of 256 to
+# 4; the capacity of its expert products at that batch.
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, MOE_WARMUP = "qwen3-moe-30b-a3b", 4, 2
+C_TRAIN = int(1.25 * TRAIN_B * TRAIN_S * 8 / E_MOE)  # 1280
 # The backward kernel's cases (B, H, KV, S, D, dtype, causal): minicpm-2b's
 # and granite-8b's training attention (the first is the main path's), one
 # fp32 case on the fma forward, and a ragged non-causal one.
@@ -341,6 +373,22 @@ def gmm_bound(x, w) -> tuple[float, str, int]:
     nbytes = (x.numel() + live * Dx * F + E * C * F) * x.element_size()
     t_ops, t_bytes = flops / PEAK_FLOPS[x.dtype], nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes", live
+
+
+def gmm_bwd_bound(x, w, dy) -> tuple[float, str]:
+    """Least time for the card to compute dx = dy w^T and dw = x^T dy: x, w,
+    dy read once and dx, dw written once, against 2*D*F operations for each
+    row of dy that is not zero (dx) and each row where neither x nor dy is
+    (dw), over the dtype's peak.  A zero row adds nothing: the work depends
+    on the data."""
+    E, C, Dx = x.shape
+    F = w.shape[2]
+    live_dy = dy.ne(0).any(dim=-1)  # (E, C)
+    live_both = live_dy & x.ne(0).any(dim=-1)
+    flops = 2.0 * Dx * F * (int(live_dy.sum()) + int(live_both.sum()))
+    nbytes = 2 * (x.numel() + w.numel()) * x.element_size() + dy.numel() * dy.element_size()
+    t_ops, t_bytes = flops / PEAK_FLOPS[x.dtype], nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
 def mamba_bound(xc, dt, a, b, c, d_skip) -> tuple[float, str, float, float]:
@@ -533,6 +581,73 @@ def moe_decode_buffers(layers, ops, cfg, dev, gen):
         ops.grouped_matmul = real
     (xg, wg), _, (hd, wd) = seen
     return [("gate", xg, wg), ("down", hd, wd)]
+
+
+# The grouped matmul's backward (name, E, C, D, F, dtype): qwen3-moe-30b-a3b's
+# training products (C = C_TRAIN), gate/up (the main path's first) and down,
+# in bf16, fp16 and fp32; around the 128 x 256 tiles (C, D, F ragged); and a
+# decode-sized batch (C = 1).
+GMM_BWD_CASES = (
+    ("gate_up", E_MOE, C_TRAIN, D_MOE, F_MOE, torch.bfloat16),
+    ("down", E_MOE, C_TRAIN, F_MOE, D_MOE, torch.bfloat16),
+    ("gate_up_fp16", E_MOE, C_TRAIN, D_MOE, F_MOE, torch.float16),
+    ("down_fp16", E_MOE, C_TRAIN, F_MOE, D_MOE, torch.float16),
+    ("gate_up_fp32", E_MOE, C_TRAIN, D_MOE, F_MOE, torch.float32),
+    ("down_fp32", E_MOE, C_TRAIN, F_MOE, D_MOE, torch.float32),
+    ("ragged", 4, 129, 72, 136, torch.bfloat16),
+    ("ragged_fp16", 4, 129, 72, 136, torch.float16),
+    ("decode", E_MOE, 1, D_MOE, F_MOE, torch.bfloat16),
+)
+
+
+def check_gmm_bwd(moe_gmm_bwd, ref_moe_gmm_bwd, gmm_bwd_tiling, gen, dev, smi) -> dict:
+    """The grouped matmul's backward against its plain version on each of
+    GMM_BWD_CASES, dx and dw within the forward's bar in that dtype (TOL) and
+    two launches equal to the bit; times by CUDA events: the call (dx and
+    dw), dx and dw apart, the plain version and torch.bmm for the same dx
+    and dw (a yardstick, never on the port's path), beside the bound.
+    Returns each case's numbers, by name."""
+    out = {}
+    for name, E, C, Dx, F, dtype in GMM_BWD_CASES:
+        x = torch.randn(E, C, Dx, generator=gen, device=dev).to(dtype)
+        w = (torch.randn(E, Dx, F, generator=gen, device=dev) / Dx**0.5).to(dtype)
+        dy = torch.randn(E, C, F, generator=gen, device=dev).to(dtype)
+        dx, dw = moe_gmm_bwd(x, w, dy)
+        torch.cuda.synchronize()
+        rx, rw = ref_moe_gmm_bwd(x, w, dy)
+        tiling = gmm_bwd_tiling(dtype, C, Dx, F)
+        tol = TOL[dtype]
+        label = f"{name} E={E} C={C} D={Dx} F={F} {str(dtype)[6:]} tiling={tiling}"
+        errs = {"dx": float((dx.float() - rx.float()).abs().max()),
+                "dw": float((dw.float() - rw.float()).abs().max())}
+        require(bool(torch.isfinite(dx).all() and torch.isfinite(dw).all()),
+                f"finite backward output, {label}")
+        require(torch.allclose(dx.float(), rx.float(), rtol=tol, atol=tol)
+                and torch.allclose(dw.float(), rw.float(), rtol=tol, atol=tol),
+                f"backward vs plain at {tol}, {label}: max|err| {errs}")
+        dx2, dw2 = moe_gmm_bwd(x, w, dy)
+        require(torch.equal(dx, dx2) and torch.equal(dw, dw2),
+                f"two backward launches equal to the bit, {label}")
+        del dx, dw, rx, rw, dx2, dw2
+        iters = 20 if dtype != torch.float32 else 3
+        kernel_ms = time_ms(lambda: moe_gmm_bwd(x, w, dy), iters)
+        dx_ms = time_ms(lambda: moe_gmm_bwd(x, w, dy, True, False), iters)
+        dw_ms = time_ms(lambda: moe_gmm_bwd(x, w, dy, False, True), iters)
+        plain_ms = time_ms(lambda: ref_moe_gmm_bwd(x, w, dy), 3, warmup=1)
+        library_ms = time_ms(lambda: (torch.bmm(dy, w.transpose(1, 2)),
+                                      torch.bmm(x.transpose(1, 2), dy)), iters)
+        bound_ms, bound_by = gmm_bwd_bound(x, w, dy)
+        print(f"phase 3 kernel: moe_gmm_bwd {label}: max|err| {errs} (tol {tol}), two launches "
+              f"bitwise equal; kernel_ms {kernel_ms} (dx {dx_ms}, dw {dw_ms}) plain_ms {plain_ms} "
+              f"library_ms {library_ms} (torch.bmm, dx and dw) bound_ms {bound_ms} ({bound_by}) "
+              f"share of bound {bound_ms / kernel_ms} on {smi}")
+        out[name] = dict(tiling=tiling, max_abs_err=max(errs.values()), max_abs_err_dx=errs["dx"],
+                         max_abs_err_dw=errs["dw"], kernel_ms=kernel_ms, dx_ms=dx_ms, dw_ms=dw_ms,
+                         plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by)
+        del x, w, dy
+        torch.cuda.empty_cache()
+    return out
 
 
 def attention_bwd_bound(q, k, causal: bool) -> tuple[float, str]:
@@ -750,6 +865,108 @@ def check_dlrm_train_step(dlrm, dlrm_testbed, optim, ops, cfg, batch, dev) -> di
     return errs
 
 
+def moe_train_config(get_config, capacity_factor: float):
+    """qwen3-moe's smoke config (d_model 64, 4 experts of d_ff 32, top 2,
+    vocab 256) at head dim 64 (the attention kernels' smallest), 2 layers,
+    in fp32, at ``capacity_factor``."""
+    return dataclasses.replace(
+        get_config(MOE_TRAIN_ARCH).smoke(), head_dim=64, n_layers=2,
+        capacity_factor=capacity_factor, param_dtype="float32", activation_dtype="float32")
+
+
+def adamw_step_errs(got: dict, want: dict, grads: dict, lr: float, eps: float = 1e-8) -> dict:
+    """Parameters after one AdamW step without weight decay, ``got`` (card)
+    against ``want`` (CPU).  Its step-0 update is lr * g / (|g| + eps): where
+    the CPU's gradient entry lies within the gradients' bar of 0 (1e-5 of its
+    leaf's max) or near eps (below 100 eps), rounding alone moves that
+    update by up to 2 lr, however the gradient was computed; there only that
+    bound holds (``free``, in units of lr).  Elsewhere the update is settled
+    by the gradients' agreement: ``settled`` is max|got - want| / max|want|
+    over each leaf's other entries."""
+    settled, free, n_free = 0.0, 0.0, 0
+    for n, w in want.items():
+        g = grads[n].abs()
+        loose = (g <= 1e-5 * g.max()) | (g <= 100 * eps)
+        diff = (got[n].detach().cpu() - w).abs()
+        scale = max(float(w.abs().max()), 1e-30)
+        settled = max(settled, float(torch.where(loose, 0.0, diff).max()) / scale)
+        free = max(free, float(torch.where(loose, diff, 0.0).max()) / lr)
+        n_free += int(loose.sum())
+    return {"adamw step params": settled, "adamw step, entries with g within rounding of 0 "
+            "(in lr)": free, "those entries": n_free}
+
+
+def check_moe_train_step(lm, make_train_step, optim, ops, cfg, dev) -> dict:
+    """Phase 3 model: the loss and every gradient of a narrow fp32 MoE on the
+    card (the grouped matmul's forward and backward kernels, the attention
+    kernels) against the same model on the CPU (plain versions), then one
+    ``make_train_step`` (AdamW, lr 1e-3) on each.  Gradients within 1e-5 of
+    each leaf's max; parameters within 1e-4 where the gradient settles
+    AdamW's first update, and within its 2 lr bound on the entries whose
+    gradient is within rounding of 0 (``adamw_step_errs``).  Two sequences
+    of 77 tokens make C = capacity * 154 * 2 / 4 > 16 rows an expert, so
+    every product runs a tiled kernel, not the skinny one."""
+    m_cpu = lm.init(0, cfg, device="cpu")
+    m_gpu = lm.init(0, cfg, device=dev)
+    m_gpu.load_state_dict(m_cpu.state_dict())
+    toks = torch.randint(0, cfg.vocab, (2, 77), generator=torch.Generator().manual_seed(5))
+    batches = {"cpu": {"tokens": toks}, "card": {"tokens": toks.to(dev)}}
+    require(int(cfg.capacity_factor * 2 * 77 * cfg.top_k / cfg.n_experts) > 16,
+            "the narrow MoE step's capacity takes the tiled kernels")
+    # The (token, expert) entries the capacity drops: the rows of each layer's
+    # dispatch buffer (its gate and up products' input) that hold a token.
+    kept, real = [], ops.grouped_matmul
+
+    def capture(xb, w):
+        if xb.shape[-1] == cfg.d_model:
+            kept.append(int(xb.ne(0).any(dim=-1).sum()))
+        return real(xb, w)
+
+    ops.grouped_matmul = capture
+    try:
+        lm.forward(m_cpu, batches["cpu"], cfg)
+    finally:
+        ops.grouped_matmul = real
+    dropped = toks.numel() * cfg.top_k * cfg.n_layers - sum(kept) // 2
+    require((dropped > 0) == (cfg.capacity_factor <= 1.0),
+            f"the narrow MoE step drops {dropped} entries at capacity {cfg.capacity_factor}")
+    losses, grads = {}, {}
+    for name, m in (("cpu", m_cpu), ("card", m_gpu)):
+        m.requires_grad_(True)
+        params = dict(m.named_parameters())
+        for n in COUNTERS:
+            setattr(ops, n, 0)
+        loss, _ = lm.loss_fn(m, batches[name], cfg, loss_chunk=32)
+        grads[name] = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        losses[name] = float(loss.detach())
+    torch.cuda.synchronize()
+    counts = {n: getattr(ops, n) for n in COUNTERS}
+    L_ = cfg.n_layers
+    want = {n: 0 for n in COUNTERS}  # fp32: the fma tilings; remat "full": forwards twice
+    want.update(attention_launches=2 * L_, attention_fma_launches=2 * L_,
+                attention_bwd_launches=L_, attention_bwd_fma_launches=L_,
+                grouped_matmul_launches=6 * L_, grouped_matmul_fma_launches=6 * L_,
+                grouped_matmul_bwd_launches=3 * L_, grouped_matmul_bwd_fma_launches=3 * L_)
+    require(counts == want, f"narrow MoE train step launches {counts}, want {want}")
+    errs = {"loss": abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"]),
+            "grads": max_rel_err(grads["card"], grads["cpu"]),
+            "router grads": max_rel_err({n: g for n, g in grads["card"].items() if "router" in n},
+                                        {n: g for n, g in grads["cpu"].items() if "router" in n})}
+    require(max(errs.values()) <= 1e-5, f"narrow MoE loss and gradients, card vs CPU: {errs}")
+    lr = 1e-3
+    for m, b in ((m_cpu, batches["cpu"]), (m_gpu, batches["card"])):
+        opt = optim.adamw(optim.constant(lr), weight_decay=0.0)
+        make_train_step(cfg, opt, loss_chunk=32)(m, opt.init(dict(m.named_parameters())), b, 0)
+    errs.update(adamw_step_errs(dict(m_gpu.named_parameters()),
+                                {n: p.detach() for n, p in m_cpu.named_parameters()},
+                                grads["cpu"], lr))
+    require(errs["adamw step params"] <= 1e-4
+            and errs["adamw step, entries with g within rounding of 0 (in lr)"] <= 2.0 + 1e-3,
+            f"narrow MoE AdamW step, card vs CPU: {errs}")
+    errs["dropped entries"] = dropped
+    return errs
+
+
 def resume_check(train_loop, optim, cfg, dev) -> dict:
     """Phase 5 resume: ``train.loop.train`` on the card with a checkpoint
     every 2 steps and an injected failure at step 4, resumed to step 8,
@@ -781,19 +998,50 @@ def resume_check(train_loop, optim, cfg, dev) -> dict:
     return dict(whole=whole.losses, resumed=resumed.losses, max_rel_err=max(errs))
 
 
-def train_full(lm, ops, optim, make_train_step, data, cfg, dev, smi) -> dict:
-    """Phase 5: trains minicpm-2b at full width and depth on the card (bf16,
-    fp32 AdamW state, WSD) for TRAIN_STEPS steps of ``batch_for_step`` at
-    TRAIN_B x TRAIN_S, then FIXED_STEPS steps on one fixed batch, with remat
-    "full" and the chunked loss.  Every count is set to 0 just before the
-    TRAIN_STEPS steps and read just after.  Returns the numbers of the run."""
+def release(run: dict) -> dict:
+    """``run`` without the model, optimizer state and batch that train_full
+    hands on, with their memory given back to the card."""
+    for key in ("model", "state", "opt", "step_fn", "batch"):
+        run.pop(key)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def model_flops(cfg, params: dict, B: int, S: int) -> tuple[float, float]:
+    """The model FLOPs of one training step at B x S, and the parameters they
+    count: 6 a token for each parameter that the token's products read, plus
+    attention's 12 * layers * B * heads * head dim for each causal (query,
+    key) pair.  A token reads every parameter but the experts it is not
+    routed to and, where the head is untied, the input embedding (a lookup,
+    no product): every non-expert parameter, and top_k / n_experts of the
+    expert weights."""
+    total = sum(p.numel() for p in params.values())
+    experts = sum(p.numel() for n, p in params.items() if ".moe.w" in n)  # wg, wu, wd
+    lookup = 0 if cfg.tie_embeddings else params["embed"].numel()
+    active = total - experts - lookup + (experts * cfg.top_k / cfg.n_experts if experts else 0)
+    pairs = S * (S + 1) // 2
+    return 6.0 * active * B * S + 12.0 * cfg.n_layers * B * cfg.n_heads * cfg.hd * pairs, active
+
+
+def train_full(lm, ops, optim, make_train_step, data, cfg, dev, smi, phase: str, want: dict,
+               probes, warmup: int = 0, loss0_tol: float = 0.5) -> dict:
+    """Phases 5 and 5c: trains ``cfg`` on the card (bf16, fp32 AdamW state,
+    WSD) for ``warmup`` + TRAIN_STEPS steps of ``batch_for_step`` at TRAIN_B x
+    TRAIN_S, then FIXED_STEPS steps on one fixed batch, with remat "full" and
+    the chunked loss.  Every count is set to 0 just before the first step
+    and read just after the last of those runs; every one of those steps
+    must launch ``want``, the ``probes`` parameters must change, and the first
+    loss must lie within ``loss0_tol`` of ln V.  Returns
+    the numbers of the run, with the model, its optimizer state and the
+    fixed batch for a traced step."""
     gc.collect()
     torch.cuda.empty_cache()
     from repro_torch.configs.base import ShapeSpec
 
     t0 = time.perf_counter()
     model = lm.init(0, cfg, device=dev)
-    opt = optim.adamw(optim.wsd(TRAIN_LR, TRAIN_STEPS + FIXED_STEPS))
+    opt = optim.adamw(optim.wsd(TRAIN_LR, warmup + TRAIN_STEPS + FIXED_STEPS))
     params = dict(model.named_parameters())
     state = opt.init(params)
     torch.cuda.synchronize()
@@ -801,22 +1049,23 @@ def train_full(lm, ops, optim, make_train_step, data, cfg, dev, smi) -> dict:
     state_gb = sum(t.numel() * t.element_size() for group in state.values()
                    for t in group.values() if t.data_ptr() not in
                    {p.data_ptr() for p in params.values()}) / 1e9
-    print(f"phase 5 train: {cfg.name} init on the card: {n_params} parameters ({cfg.param_dtype}, "
-          f"{n_params * 2 / 1e9} GB), AdamW state m, v, fp32 master {state_gb} GB, in "
-          f"{time.perf_counter() - t0:.2f} s; batch {TRAIN_B} x {TRAIN_S}, remat full, loss chunk "
-          f"{LOSS_CHUNK}, lr {TRAIN_LR} (wsd)")
+    print(f"phase {phase} train: {cfg.name} ({cfg.n_layers} layers) init on the card: "
+          f"{n_params} parameters ({cfg.param_dtype}, {n_params * 2 / 1e9} GB), AdamW state m, "
+          f"v, fp32 master {state_gb} GB, in {time.perf_counter() - t0:.2f} s; batch {TRAIN_B} x "
+          f"{TRAIN_S}, remat full, loss chunk {LOSS_CHUNK}, lr {TRAIN_LR} (wsd)")
     step_fn = make_train_step(cfg, opt, remat="full", loss_chunk=LOSS_CHUNK)
+    steps = warmup + TRAIN_STEPS
     spec = data.DataSpec(cfg=cfg, shape=ShapeSpec("train_4k_b4", TRAIN_S, TRAIN_B, "train"))
     batches = [{k: torch.from_numpy(v).to(dev) for k, v in data.batch_for_step(spec, i).items()}
-               for i in range(TRAIN_STEPS + 1)]
-    probe = {n: params[n].detach().clone() for n in ("embed", "blocks.0.attn.wq", "final_norm")}
+               for i in range(steps + 1)]
+    probe = {n: params[n].detach().clone() for n in probes}
     torch.cuda.synchronize()
 
     for n in COUNTERS:
         setattr(ops, n, 0)
     torch.cuda.reset_peak_memory_stats()
     losses, norms, times, per_step = [], [], [], []
-    for step in range(TRAIN_STEPS):
+    for step in range(steps):
         before = {n: getattr(ops, n) for n in COUNTERS}
         t0 = time.perf_counter()
         _, _, metrics = step_fn(model, state, batches[step], step)
@@ -825,46 +1074,105 @@ def train_full(lm, ops, optim, make_train_step, data, cfg, dev, smi) -> dict:
         losses.append(float(metrics["loss"]))
         norms.append(float(metrics["grad_norm"]))
         per_step.append({n: getattr(ops, n) - before[n] for n in COUNTERS})
-        print(f"phase 5 train: step {step} loss {losses[-1]} grad_norm {norms[-1]} "
-              f"{times[-1] * 1e3} ms")
+        print(f"phase {phase} train: step {step}{' (warm-up)' if step < warmup else ''} loss "
+              f"{losses[-1]} grad_norm {norms[-1]} {times[-1] * 1e3} ms")
     counts = {n: getattr(ops, n) for n in COUNTERS}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    L_ = cfg.n_layers
-    want = {n: 0 for n in COUNTERS}
-    want.update(attention_launches=2 * L_, attention_wgmma_launches=2 * L_,
-                attention_bwd_launches=L_, attention_bwd_wgmma_launches=L_)
     require(all(c == want for c in per_step), f"launches per step {per_step}, want {want}")
     require(all(math.isfinite(x) for x in losses + norms), f"finite losses {losses}, norms {norms}")
     ln_v = math.log(cfg.vocab)
-    require(abs(losses[0] - ln_v) <= 0.5, f"step 0 loss {losses[0]} not within 0.5 of ln V {ln_v}")
+    require(abs(losses[0] - ln_v) <= loss0_tol,
+            f"step 0 loss {losses[0]} not within {loss0_tol} of ln V {ln_v}")
     changed = {n: float((params[n].detach() - t).abs().max()) for n, t in probe.items()}
     require(all(c > 0 for c in changed.values()), f"parameters changed: {changed}")
 
-    step_ms = float(np.median(times)) * 1e3
+    timed = times[warmup:]
+    step_ms = float(np.median(timed)) * 1e3
     tokens = TRAIN_B * TRAIN_S
-    pairs = TRAIN_S * (TRAIN_S + 1) // 2
-    flops = 6.0 * n_params * tokens + 12.0 * L_ * TRAIN_B * cfg.n_heads * cfg.hd * pairs
+    flops, active = model_flops(cfg, params, TRAIN_B, TRAIN_S)
     mfu = flops / (step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
-    print(f"phase 5 train: {TRAIN_STEPS} steps, median {step_ms} ms a step (min "
-          f"{min(times) * 1e3}, max {max(times) * 1e3}), {tokens / step_ms * 1e3} tokens/s, "
-          f"model FLOPs {flops / 1e12} TFLOP a step (6 N T + attention), {mfu} of 989 TFLOP/s, "
-          f"peak memory {peak_gb} GB, launches per step {per_step[0]} (total {counts}), on {smi}")
+    print(f"phase {phase} train: {TRAIN_STEPS} steps after {warmup} warm-up, median {step_ms} ms "
+          f"a step (min {min(timed) * 1e3}, max {max(timed) * 1e3}), {tokens / step_ms * 1e3} "
+          f"tokens/s, model FLOPs {flops / 1e12} TFLOP a step (6 x {active} parameters a token "
+          f"read x {tokens} tokens + attention), {mfu} of 989 TFLOP/s, peak memory {peak_gb} GB, "
+          f"launches per step {per_step[0]} (total {counts}), on {smi}")
 
     fixed = []
     for i in range(FIXED_STEPS):
-        _, _, metrics = step_fn(model, state, batches[TRAIN_STEPS], TRAIN_STEPS + i)
+        _, _, metrics = step_fn(model, state, batches[steps], steps + i)
         fixed.append(float(metrics["loss"]))
+        require(math.isfinite(float(metrics["aux"])), f"finite aux loss {metrics['aux']}")
     require(all(math.isfinite(x) for x in fixed) and fixed[-1] < fixed[0],
             f"{FIXED_STEPS} steps on one fixed batch lower its loss: {fixed}")
-    print(f"phase 5 train: {FIXED_STEPS} steps on one fixed batch, losses {fixed}")
-    del model, params, state, batches, probe
-    gc.collect()
-    torch.cuda.empty_cache()
-    return dict(losses=losses, grad_norms=norms, step_ms=step_ms, step_ms_all=times,
-                tokens_per_s=tokens / step_ms * 1e3, mfu=mfu, peak_gb=peak_gb,
+    print(f"phase {phase} train: {FIXED_STEPS} steps on one fixed batch, losses {fixed}")
+    del params, probe
+    return dict(losses=losses, grad_norms=norms, step_ms=step_ms,
+                step_ms_all=[t * 1e3 for t in timed], tokens_per_s=tokens / step_ms * 1e3,
+                mfu=mfu, model_tflop=flops / 1e12, active_params=active, peak_gb=peak_gb,
                 launches_per_step=per_step[0], counts=counts, fixed_losses=fixed,
-                n_params=n_params)
+                n_params=n_params, model=model, state=state, opt=opt, step_fn=step_fn,
+                batch=batches[steps], next_step=steps + FIXED_STEPS)
+
+
+# Kernel-name patterns of the MoE training step's device-time split (phase
+# 5c), tried in order before trace_train's groups: the grouped matmul's
+# forward tilings, its backward, and the MoE's dispatch and combine (the
+# index_add_, gathers and index_copy_ of layers.moe and their backward, the
+# routing's scatters; the embedding's lookup shares their kernels).
+MOE_SPLIT = (
+    ("grouped matmul forward", ("gmm_wgmma_kernel", "gmm_tiled_kernel", "gmm_skinny_kernel")),
+    ("grouped matmul backward", ("gmm_bwd_",)),
+    ("dispatch and combine", ("index", "Index", "gather", "scatter", "Scatter")),
+)
+
+
+def trace_train_step(lm, run: dict, cfg, group_of, phase: str, smi) -> dict:
+    """One more step of ``run`` (train_full's) on its fixed batch under
+    ``torch.profiler``: device time by part, the idle share, and AdamW's
+    update traced apart (its elementwise kernels are the same as the rest's)
+    on the next step's gradients."""
+    model, state, opt, batch = run["model"], run["state"], run["opt"], run["batch"]
+    step = run["next_step"]
+    by_op: dict = {}
+    traced_ms, kernels = profiled(lambda i: run["step_fn"](model, state, batch, step + i),
+                                  tuple(pats for _, pats in MOE_SPLIT[:2])
+                                  + (("flash_attention_wgmma_kernel",), ("dkdv_wgmma_kernel",)),
+                                  ops=by_op)
+    params = dict(model.named_parameters())
+    with torch.enable_grad():
+        total, _ = lm.loss_fn(model, batch, cfg, remat="full", loss_chunk=LOSS_CHUNK)
+        grads = dict(zip(params, torch.autograd.grad(total, list(params.values()))))
+    del total
+    _, adamw_kernels = profiled(lambda i: opt.update(grads, state, params, step + 3 + i))
+    adamw = sum(adamw_kernels.values())
+    del grads
+    busy = sum(kernels.values())
+    split = {name: 0.0 for name, _ in MOE_SPLIT}
+    split.update({"attention forward": 0.0, "attention backward": 0.0, "cuBLAS GEMMs": 0.0})
+    other = {}
+    for k, t in kernels.items():
+        part = next((name for name, pats in MOE_SPLIT if any(p in k for p in pats)), None)
+        group = group_of(k)
+        if part is None and group != "other":
+            part = "cuBLAS GEMMs" if group == "GEMM" else group
+        if part is None:
+            other[k] = t
+        else:
+            split[part] += t
+    split["AdamW (traced apart)"] = adamw
+    split["rest"] = sum(other.values()) - adamw
+    idle = 1.0 - busy / traced_ms
+    print(f"phase {phase} trace: one step {traced_ms} ms traced wall, {busy} ms device busy, idle "
+          f"{idle:.4f}; " + ", ".join(f"{k} {v} ms ({v / busy:.2%})" for k, v in split.items())
+          + f"; on {smi}")
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:10]
+    print(f"phase {phase} trace: the kernels of AdamW and the rest that took the most device "
+          "time: " + "; ".join(f"{short_name(k)} {t} ms" for k, t in top))
+    top = sorted(by_op.items(), key=lambda kv: -kv[1])[:12]
+    print(f"phase {phase} trace: the step's device time by the operator that launched it, the "
+          "most first: " + "; ".join(f"{k} {t} ms" for k, t in top))
+    return dict(traced_ms=traced_ms, busy_ms=busy, idle_share=idle, split_ms=split)
 
 
 def train_dlrm_paper(dlrm, dlrm_testbed, optim, ops, group_of, dev, smi) -> dict:
@@ -931,27 +1239,15 @@ def train_dlrm_paper(dlrm, dlrm_testbed, optim, ops, group_of, dev, smi) -> dict
     # One step's device time by part.  The tables' AdamW runs the same
     # elementwise kernels as the MLPs', so it is traced apart: its update
     # alone on the next step's gradient.
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(model, state, batch, DLRM_FIXED)
-        torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t0) * 1e3
-    kernels = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA}
+    traced_ms, kernels = profiled(lambda i: step(model, state, batch, DLRM_FIXED + i),
+                                  (("embedding_bag_kernel",), BAG_BWD_KERNELS, FILL_KERNELS))
     with torch.enable_grad():
         loss, _ = dlrm.loss_fn(model, batch, cfg)
         (g,) = torch.autograd.grad(loss, [params["tables"]])
     del loss
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        opt.update({"tables": g}, state, {"tables": params["tables"]}, DLRM_FIXED + 1)
-        torch.cuda.synchronize()
-    tables_adamw = sum(e.self_device_time_total / 1e3 for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA)
+    _, adamw_kernels = profiled(lambda i: opt.update(
+        {"tables": g}, state, {"tables": params["tables"]}, DLRM_FIXED + 3 + i))
+    tables_adamw = sum(adamw_kernels.values())
     del g
     busy = sum(kernels.values())
     split = {"tables' AdamW (traced apart)": tables_adamw,
@@ -986,10 +1282,10 @@ def main() -> int:
         attention_tiling, first_masked_row, flash_attention,
     )
     from repro_torch.kernels.mamba_scan import mamba_scan
-    from repro_torch.kernels.moe_gmm import gmm_tiling, moe_gmm
+    from repro_torch.kernels.moe_gmm import gmm_bwd_tiling, gmm_tiling, moe_gmm, moe_gmm_bwd
     from repro_torch.kernels.ref import (
         ref_embedding_bag, ref_embedding_bag_bwd, ref_flash_attention, ref_mamba_scan,
-        ref_moe_gmm, ref_rglru_scan,
+        ref_moe_gmm, ref_moe_gmm_bwd, ref_rglru_scan,
     )
     from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch import optim
@@ -1008,8 +1304,8 @@ def main() -> int:
     print(f"phase 1 device: torch: {kind}, count {count}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}")
 
-    kernels = ["flash_attention", "flash_attention_bwd", "moe_gmm", "mamba_scan", "rglru_scan",
-               "embedding_bag", "embedding_bag_bwd"]
+    kernels = ["flash_attention", "flash_attention_bwd", "moe_gmm", "moe_gmm_bwd", "mamba_scan",
+               "rglru_scan", "embedding_bag", "embedding_bag_bwd"]
     t0 = time.perf_counter()
     _build.load_all(kernels)
     print(f"phase 2 build: {', '.join(k + '.cu' for k in kernels)} in "
@@ -1019,7 +1315,8 @@ def main() -> int:
             print(f"phase 2 build: ptxas {name}: {fn}: {info['registers']} registers, "
                   f"{info['smem']} bytes static smem, spill stores {info['spill_stores']} "
                   f"loads {info['spill_loads']} bytes, wgmma serialised: {info['serialised']}")
-            if "wgmma_kernel" in fn:  # forward, backward (dkdv_, dq_) and grouped matmul
+            if "wgmma_kernel" in fn:  # attention, its backward (dkdv_, dq_), the grouped
+                # matmul and its backward (gmm_bwd_)
                 # setmaxnreg moves registers within the block's launch-time
                 # allotment: consumers at 240 and the producer at 24 need 168.
                 require(info["registers"] == 168,
@@ -1028,13 +1325,21 @@ def main() -> int:
                 require(info["spill_stores"] == info["spill_loads"] == 0
                         and not info["serialised"], f"{fn} spills or serialises: {info}")
             if ("skinny_kernel" in fn or "mamba_scan_kernel" in fn  # the streams and the scan
-                    or name in ("flash_attention_bwd", "embedding_bag", "embedding_bag_bwd")):
+                    or name in ("flash_attention_bwd", "moe_gmm_bwd", "embedding_bag",
+                                "embedding_bag_bwd")):
                 require(info["spill_stores"] == info["spill_loads"] == 0 and not info["serialised"],
                         f"{fn} spills: {info}")
     bwd_report = ptxas_report(_build.build_logs.get("flash_attention_bwd", ""))
     if bwd_report:  # built in this run: the checks above saw both tilings' kernels
         for base in ("dkdv_wgmma_kernel", "dq_wgmma_kernel", "dkdv_kernel", "dq_kernel"):
             require(any(fn.startswith(base) for fn in bwd_report), f"ptxas reports no {base}")
+    gmm_bwd_report = ptxas_report(_build.build_logs.get("moe_gmm_bwd", ""))
+    if gmm_bwd_report:  # built in this run, every kernel checked above: dx and dw on wgmma in
+        # bf16 and fp16, and on fma in each of the three dtypes
+        for base, want in (("gmm_bwd_wgmma_kernel", 4), ("gmm_bwd_fma_kernel", 6)):
+            got = sum(fn.startswith(base) for fn in gmm_bwd_report)
+            require(got == want, f"ptxas reports {want} {base}s, not {got}: "
+                                 f"{sorted(gmm_bwd_report)}")
     bag_bwd_report = ptxas_report(_build.build_logs.get("embedding_bag_bwd", ""))
     if bag_bwd_report:  # built in this run, every kernel checked for spills above: 3 dtypes
         # x (16-byte, scalar) small kernels, the same x (int32, int64 keys) sorted ones, and
@@ -1228,6 +1533,9 @@ def main() -> int:
         del x, w, out, ref
     torch.cuda.empty_cache()
 
+    # The grouped matmul's backward at qwen3-moe-30b-a3b's training products.
+    gmm_bwd = check_gmm_bwd(moe_gmm_bwd, ref_moe_gmm_bwd, gmm_bwd_tiling, gen, dev, smi)
+
     # The selective scan at falcon-mamba-7b's prefill (b and c strided, as the
     # layer passes them) and at a ragged shape (L not a multiple of 16 or 32,
     # DI not of the 64-channel block), with bf16 inputs and in fp32.  The bar
@@ -1403,6 +1711,20 @@ def main() -> int:
         print(f"phase 3 model: narrow fp32 train step ({TRAIN_ARCH} smoke, d_model 256, 2 layers, "
               f"H=4 KV={kv} D=64), card vs CPU plain: max relative err {errs} (tol 1e-4)")
 
+    # A narrow fp32 MoE train step: the grouped matmul's forward and backward
+    # kernels (and attention's) on the card against the plain versions on the
+    # CPU, dropless and at capacity 1.0, where entries drop.
+    moe_steps = {}
+    for cf in (get_config(MOE_TRAIN_ARCH).smoke().capacity_factor, 1.0):
+        small = moe_train_config(get_config, cf)
+        moe_steps[cf] = check_moe_train_step(lm, make_train_step, optim, ops, small, dev)
+        print(f"phase 3 model: narrow fp32 MoE train step ({MOE_TRAIN_ARCH} smoke, d_model "
+              f"{small.d_model}, {small.n_experts} experts of {small.d_ff}, top {small.top_k}, "
+              f"head dim 64, 2 layers, capacity {cf}: C = "
+              f"{int(cf * 154 * small.top_k / small.n_experts)}), card vs CPU plain: max relative "
+              f"err {moe_steps[cf]} (loss, gradients tol 1e-5; AdamW step params tol 1e-4, on "
+              f"entries with g within rounding of 0 2 lr)")
+
     # Phase 4: serve granite-8b at full width and depth.
     cfg = get_config("granite-8b")
     t0 = time.perf_counter()
@@ -1537,7 +1859,12 @@ def main() -> int:
     print(f"phase 5 resume: narrow fp32 {TRAIN_ARCH}, checkpoint every 2 steps, failure at step "
           f"4, resumed to 8: last four losses {resume['resumed']} vs uninterrupted "
           f"{resume['whole'][4:]}, max relative err {resume['max_rel_err']} (tol 1e-5)")
-    trained = train_full(lm, ops, optim, make_train_step, data, get_config(TRAIN_ARCH), dev, smi)
+    L_ = get_config(TRAIN_ARCH).n_layers
+    want = {n: 0 for n in COUNTERS}
+    want.update(attention_launches=2 * L_, attention_wgmma_launches=2 * L_,
+                attention_bwd_launches=L_, attention_bwd_wgmma_launches=L_)
+    trained = release(train_full(lm, ops, optim, make_train_step, data, get_config(TRAIN_ARCH),
+                                 dev, smi, "5", want, ("embed", "blocks.0.attn.wq", "final_norm")))
     train_fwd = trained["counts"]["attention_launches"]
     train_bwd = trained["counts"]["attention_bwd_launches"]
     summary = {k: trained[k] for k in ("n_params", "step_ms", "tokens_per_s", "mfu", "peak_gb")}
@@ -1548,6 +1875,60 @@ def main() -> int:
     print(f"phase 5b summary: {json.dumps(summary)} on {smi}")
     train_bag_fwd = dlrm_trained["counts"]["bag_lookup_launches"]
     train_bag_bwd = dlrm_trained["counts"]["bag_lookup_bwd_launches"]
+
+    # Phase 5c: qwen3-moe-30b-a3b trained at full width, 4 of its 48 layers
+    # (the training state of all 48, about 490 GB, does not fit one card).
+    # Remat "full" runs each layer's forward twice: 6 grouped matmuls and 2
+    # attention launches a layer, then 3 backward calls and 1 launch.
+    t_moe = time.perf_counter()
+    moe_cfg = dataclasses.replace(get_config(MOE_TRAIN_ARCH), n_layers=MOE_TRAIN_LAYERS)
+    L_ = moe_cfg.n_layers
+    want = {n: 0 for n in COUNTERS}
+    want.update(attention_launches=2 * L_, attention_wgmma_launches=2 * L_,
+                attention_bwd_launches=L_, attention_bwd_wgmma_launches=L_,
+                grouped_matmul_launches=6 * L_, grouped_matmul_wgmma_launches=6 * L_,
+                grouped_matmul_bwd_launches=3 * L_, grouped_matmul_bwd_wgmma_launches=3 * L_)
+    # First through the training loop a user calls (train.loop.train: its own
+    # model, optimizer state and data stream), 3 steps, every count set to 0
+    # just before and read just after; then the timed run below.
+    from repro_torch.configs.base import ShapeSpec
+
+    for n in COUNTERS:
+        setattr(ops, n, 0)
+    t0 = time.perf_counter()
+    looped = train_loop.train(moe_cfg, ShapeSpec("train_4k_b4", TRAIN_S, TRAIN_B, "train"),
+                              optim.adamw(optim.wsd(TRAIN_LR, 3)), total_steps=3,
+                              logger=lambda *a: None, device=dev, remat="full",
+                              loss_chunk=LOSS_CHUNK)
+    torch.cuda.synchronize()
+    loop_counts = {n: getattr(ops, n) for n in COUNTERS}
+    require(looped.final_step == 3 and all(math.isfinite(x) for x in looped.losses),
+            f"train.loop.train of {moe_cfg.name}: {looped}")
+    require(loop_counts == {n: 3 * c for n, c in want.items()},
+            f"train.loop.train launches {loop_counts}, want 3 x {want}")
+    print(f"phase 5c loop: train.loop.train of {moe_cfg.name} ({L_} layers), 3 steps at "
+          f"{TRAIN_B} x {TRAIN_S} in {time.perf_counter() - t0:.2f} s with its init: losses "
+          f"{looped.losses}, launches {loop_counts}")
+    del looped
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Its untied head's logits have a variance near 0.8 at init, which lifts
+    # the first loss about 0.4 above ln V: a bar of 1 rather than 0.5.
+    moe_run = train_full(lm, ops, optim, make_train_step, data, moe_cfg, dev, smi, "5c", want,
+                         ("embed", "lm_head", "blocks.0.attn.wq", "blocks.0.moe.router",
+                          "blocks.0.moe.wg", f"blocks.{L_ - 1}.moe.wd", "final_norm"),
+                         warmup=MOE_WARMUP, loss0_tol=1.0)
+    moe_trace = trace_train_step(lm, moe_run, moe_cfg, group_of, "5c", smi)
+    moe_trained = release(moe_run)
+    summary = {k: moe_trained[k] for k in ("n_params", "active_params", "step_ms",
+                                            "tokens_per_s", "model_tflop", "mfu", "peak_gb")}
+    summary.update(moe_trace)
+    print(f"phase 5c summary: {json.dumps(summary)} in {time.perf_counter() - t_moe:.2f} s, on "
+          f"{smi}")
+
+    moe_counts = moe_trained["counts"]
+    moe_path = (f"{MOE_TRAIN_ARCH} train ({MOE_TRAIN_LAYERS} layers), "
+                f"{MOE_WARMUP + TRAIN_STEPS} steps")
 
     # Phase 6: the planner on the card.
     planned = plan_phase(dev, smi)
@@ -1566,12 +1947,14 @@ def main() -> int:
         "tpu_ref": "kernels/flash_attention.py:84",
         "tiling": main_case["tiling"],
         "launches": (granite_attention_launches + att_total + griffin["attention_launches"]
-                     + vlm["attention_launches"] + hubert["attention_launches"] + train_fwd),
+                     + vlm["attention_launches"] + hubert["attention_launches"] + train_fwd
+                     + moe_counts["attention_launches"]),
         "launches_by_path": {"granite-8b": granite_attention_launches, qwen_name: att_total,
                              "recurrentgemma-9b": griffin["attention_launches"],
                              "llama-3.2-vision-11b": vlm["attention_launches"],
                              "hubert-xlarge": hubert["attention_launches"],
-                             f"{TRAIN_ARCH} train, {TRAIN_STEPS} steps": train_fwd},
+                             f"{TRAIN_ARCH} train, {TRAIN_STEPS} steps": train_fwd,
+                             moe_path: moe_counts["attention_launches"]},
         "max_abs_err": main_case["max_abs_err"],
         "max_err_bf16": main_case["max_abs_err"],
         "ms": main_case["kernel_ms"],
@@ -1619,10 +2002,12 @@ def main() -> int:
         "tiling": bwd[0]["tiling"],
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
         "replaces": None,  # the TPU side has no backward kernel (jax.grad of XLA code)
-        "launches": train_bwd,
-        "launches_by_path": {f"{TRAIN_ARCH} train, {TRAIN_STEPS} steps": train_bwd},
+        "launches": train_bwd + moe_counts["attention_bwd_launches"],
+        "launches_by_path": {f"{TRAIN_ARCH} train, {TRAIN_STEPS} steps": train_bwd,
+                             moe_path: moe_counts["attention_bwd_launches"]},
         "launches_per_step": trained["launches_per_step"]["attention_bwd_launches"],
-        "launches_wgmma": trained["counts"]["attention_bwd_wgmma_launches"],
+        "launches_wgmma": (trained["counts"]["attention_bwd_wgmma_launches"]
+                           + moe_counts["attention_bwd_wgmma_launches"]),
         "ms": bwd[0]["kernel_ms"],
         **{k: bwd[0][k] for k in ("max_abs_err", "max_abs_err_by_grad", "kernel_ms", "plain_ms",
                                   "library_ms", "bound_ms", "bound_by", "fma_kernel_ms",
@@ -1639,7 +2024,10 @@ def main() -> int:
         "tpu_ref": "kernels/moe_gmm.py:40",
         "tiling": gmm_main["tiling"],
         "decode_tiling": gmm_decode["tiling"],
-        "launches": gmm_total,
+        "launches": gmm_total + moe_counts["grouped_matmul_launches"],
+        "launches_by_path": {qwen_name: gmm_total,
+                             moe_path: moe_counts["grouped_matmul_launches"]},
+        "launches_per_train_step": moe_trained["launches_per_step"]["grouped_matmul_launches"],
         "launches_prefill": gmm_prefill,
         "launches_per_decode_step": gmm_decode_loop // (DECODE_STEPS - 1),
         "max_abs_err": gmm_main["max_abs_err"],
@@ -1671,6 +2059,22 @@ def main() -> int:
         "skinny_decode_like_down_bound_ms": decode_like["down"]["bound_ms"],
         "skinny_decode_like_down_library_ms": decode_like["down"]["library_ms"],
         "skinny_live_experts_down": decode_like["down"]["live"],
+    }, {
+        "name": "moe_gmm_bwd",
+        "route": "cuda",
+        "tiling": gmm_bwd["gate_up"]["tiling"],
+        "source": "src/repro_torch/csrc/moe_gmm_bwd.cu",
+        # The TPU side has no backward kernel (jax.grad of the XLA einsums).
+        "replaces": "none: jax.grad of the XLA einsums at src/repro/models/layers.py:346-348",
+        "library": "torch.bmm (dx and dw)",
+        "launches": moe_counts["grouped_matmul_bwd_launches"],
+        "launches_by_path": {moe_path: moe_counts["grouped_matmul_bwd_launches"]},
+        "launches_per_step": moe_trained["launches_per_step"]["grouped_matmul_bwd_launches"],
+        "launches_wgmma": moe_counts["grouped_matmul_bwd_wgmma_launches"],
+        "ms": gmm_bwd["gate_up"]["kernel_ms"],
+        **gmm_bwd["gate_up"],
+        **{f"{name}_{k}": v for name, numbers in gmm_bwd.items() if name != "gate_up"
+           for k, v in numbers.items()},
     }, {
         "name": "mamba_scan",
         "route": "cuda",
@@ -1868,6 +2272,34 @@ def launch_ms(fn, iters: int, pattern: str, flush=None) -> float:
         if hits and sum(launches[k] for k in hits) == 1:
             return sum(times[k] for k in hits)
     require(False, f"the profiler saw one {pattern} a call: {launches}")
+
+
+def profiled(fn, want=(), tries: int = 3, ops: dict | None = None) -> tuple[float, dict]:
+    """``fn(i)`` (i the attempt) under ``torch.profiler`` -> (host wall ms
+    after a synchronise, {kernel: device ms}); ``ops``, if given, gets the
+    device ms of the kernels each operator launched itself, by operator.  A
+    session that recorded no device event, or no kernel named like one of
+    each tuple of patterns in ``want`` (the profiler drops events now and
+    then), is run again, up to ``tries`` times; then the check fails."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn(i)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA}
+        if kernels and all(any(p in k for k in kernels for p in alts) for alts in want):
+            if ops is not None:
+                ops.update({e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+                            if e.device_type == DeviceType.CPU and e.self_device_time_total > 0})
+            return wall_ms, kernels
+    require(False, f"the profiler saw kernels named like each of {want} in {tries} sessions: "
+                   f"{sorted(kernels)}")
 
 
 def named_ms(times: dict, *patterns: str) -> float:

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels
-// (flash_attention.cu, flash_attention_bwd.cu, moe_gmm.cu, mamba_scan.cu):
+// (flash_attention.cu, flash_attention_bwd.cu, moe_gmm.cu, moe_gmm_bwd.cu,
+// mamba_scan.cu):
 // mbarriers, TMA tile loads, the SFU's exp2, wgmma shared-memory
 // descriptors and products, the producer/consumer register split, and the
 // host-side encoding of TMA tensor maps.
@@ -17,7 +18,8 @@
 //   MN-major (the output axis is the fastest): K rows 128 bytes apart, each
 //     8 K rows SBO = 1024 bytes on, each 64-wide chunk of M or N LBO bytes
 //     on (the size of one box); a k16 step moves the start 16 rows, 2048
-//     bytes.  wgmma reads it with its transpose bit set (16-bit types only).
+//     bytes.  wgmma reads it with its transpose bit set (16-bit types only),
+//     for B (TRANS_B) or for A from shared memory (TRANS_A).
 // Boxes start on 1024-byte boundaries, so the swizzle phase of an address is
 // the same for TMA and wgmma and the descriptors' base offset stays 0.
 
@@ -176,13 +178,14 @@ __device__ __forceinline__ void to_a_frags(uint32_t (&a)[K][4], const float (&d)
 }
 
 // wgmma.mma_async m64nNk16 with an fp32 accumulator d of N/2 registers a
-// thread: Wgmma<N, T>::ss<TRANS_B>(d, desc_a, desc_b, scale_d) reads A
-// (K-major) and B from shared memory; ::rs reads A from four registers a
-// thread.  TRANS_B = 1 reads B as MN-major.  scale_d = 0 overwrites d,
-// 1 accumulates.  Accumulator layout (thread t of the warpgroup, warp
-// w = t / 32, lane l): d[4j + 2i + c] holds row 16w + l/4 + 8i, column
-// 8j + 2(l%4) + c.  A fragment: a[0] rows l/4, k 2(l%4)..+1; a[1] row +8;
-// a[2] and a[3] the same at k + 8.
+// thread: Wgmma<N, T>::ss<TRANS_B, TRANS_A>(d, desc_a, desc_b, scale_d)
+// reads A and B from shared memory; ::rs reads A from four registers a
+// thread.  TRANS_B = 1 reads B as MN-major, TRANS_A = 1 (ss only; 0 by
+// default) reads A as MN-major, else each is K-major.  scale_d = 0
+// overwrites d, 1 accumulates.  Accumulator layout (thread t of the
+// warpgroup, warp w = t / 32, lane l): d[4j + 2i + c] holds row
+// 16w + l/4 + 8i, column 8j + 2(l%4) + c.  A fragment: a[0] rows l/4,
+// k 2(l%4)..+1; a[1] row +8; a[2] and a[3] the same at k + 8.
 template <int N, typename T> struct Wgmma;
 
 #define HOPPER_ACC32 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
@@ -193,14 +196,14 @@ template <int N, typename T> struct Wgmma;
 #define HOPPER_ACC128_OPS(d) "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
 #define HOPPER_WGMMA_64(CTYPE, TY) \
   template <> struct Wgmma<64, CTYPE> { \
-    template <int TRANS_B> \
+    template <int TRANS_B, int TRANS_A = 0> \
     static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, \
                                               int scale_d) { \
       asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
                    "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " \
-                   HOPPER_ACC32 ", %32, %33, p, 1, 1, 0, %35;\n}\n" \
+                   HOPPER_ACC32 ", %32, %33, p, 1, 1, %36, %35;\n}\n" \
                    : HOPPER_ACC32_OPS(d) \
-                   : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B)); \
+                   : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A)); \
     } \
     template <int TRANS_B> \
     static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], \
@@ -215,14 +218,14 @@ template <int N, typename T> struct Wgmma;
   };
 #define HOPPER_WGMMA_128(CTYPE, TY) \
   template <> struct Wgmma<128, CTYPE> { \
-    template <int TRANS_B> \
+    template <int TRANS_B, int TRANS_A = 0> \
     static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b, \
                                               int scale_d) { \
       asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" \
                    "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " \
-                   HOPPER_ACC64 ", %64, %65, p, 1, 1, 0, %67;\n}\n" \
+                   HOPPER_ACC64 ", %64, %65, p, 1, 1, %68, %67;\n}\n" \
                    : HOPPER_ACC64_OPS(d) \
-                   : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B)); \
+                   : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A)); \
     } \
     template <int TRANS_B> \
     static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], \
@@ -237,14 +240,14 @@ template <int N, typename T> struct Wgmma;
   };
 #define HOPPER_WGMMA_256(CTYPE, TY) \
   template <> struct Wgmma<256, CTYPE> { \
-    template <int TRANS_B> \
+    template <int TRANS_B, int TRANS_A = 0> \
     static __device__ __forceinline__ void ss(float (&d)[128], uint64_t a, uint64_t b, \
                                               int scale_d) { \
       asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n" \
                    "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " " \
-                   HOPPER_ACC128 ", %128, %129, p, 1, 1, 0, %131;\n}\n" \
+                   HOPPER_ACC128 ", %128, %129, p, 1, 1, %132, %131;\n}\n" \
                    : HOPPER_ACC128_OPS(d) \
-                   : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B)); \
+                   : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A)); \
     } \
     template <int TRANS_B> \
     static __device__ __forceinline__ void rs(float (&d)[128], const uint32_t (&a)[4], \
@@ -305,6 +308,14 @@ inline cudaError_t encode_3d(CUtensorMap* map, const void* base, CUtensorMapData
                              uint32_t box0, uint32_t box1, CUtensorMapSwizzle swizzle) {
   EncodeTiledFn encode;
   cudaError_t err = encode_tiled_fn(&encode);
+  if (err != cudaSuccess) return err;
+  // The encoding needs a current context.  A thread that has made no CUDA
+  // call yet has none (autograd's worker, when the first node of a backward
+  // is a kernel of this repo): cudaSetDevice makes the device's primary
+  // context current (CUDA 12), without a synchronisation.
+  int device;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const cuuint64_t dims[3] = {n0, n1, n2};
   const cuuint64_t strides[2] = {s1, s2};

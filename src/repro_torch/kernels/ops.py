@@ -11,15 +11,19 @@ Training: on a CUDA input that needs a gradient, ``attention`` goes through
 :class:`FlashAttentionFn`, whose forward also writes the log-sum-exp and
 whose backward launches the backward kernel (``attention_bwd_launches``, and
 by tiling ``attention_bwd_wgmma_launches`` or ``attention_bwd_fma_launches``);
+``grouped_matmul`` goes through :class:`GroupedMatmulFn`, whose backward
+launches the grouped matmul's backward kernel once a product, for dx and dw
+(``grouped_matmul_bwd_launches``, and by tiling
+``grouped_matmul_bwd_wgmma_launches`` or ``grouped_matmul_bwd_fma_launches``);
 ``bag_lookup`` goes through :class:`EmbeddingBagFn`, whose backward launches
 the embedding bag's backward kernel (``bag_lookup_bwd_launches``, and by
-tiling ``bag_lookup_bwd_small_launches`` or ``bag_lookup_bwd_sorted_launches``),
-and on the CPU under grad through the same Function on the plain versions, whose
-gradient drops ids outside the table as ``jax.grad`` of the reference's
-gather does.  The other kernels have no backward yet: their wrappers raise
-``NotImplementedError`` on a CUDA input that requires grad while grad is
-enabled, rather than hand autograd a constant.  Their CPU path (the plain
-versions) stays differentiable by autograd.
+tiling ``bag_lookup_bwd_small_launches`` or ``bag_lookup_bwd_sorted_launches``).
+On the CPU under grad, both go through the same Functions on the plain
+versions (the bag's gradient drops ids outside the table as ``jax.grad`` of
+the reference's gather does).  The scans have no backward yet: their
+wrappers raise ``NotImplementedError`` on a CUDA input that requires grad
+while grad is enabled, rather than hand autograd a constant.  Their CPU path
+(the plain versions) stays differentiable by autograd.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import torch
 from .embedding_bag import EmbeddingBagFn, embedding_bag
 from .flash_attention import FlashAttentionFn, attention_tiling, flash_attention
 from .mamba_scan import mamba_scan
-from .moe_gmm import gmm_tiling, moe_gmm
+from .moe_gmm import GroupedMatmulFn, gmm_tiling, moe_gmm
 from .ref import (
     ref_embedding_bag, ref_flash_attention, ref_mamba_scan, ref_moe_gmm, ref_rglru_scan,
 )
@@ -45,6 +49,9 @@ grouped_matmul_launches = 0
 grouped_matmul_wgmma_launches = 0
 grouped_matmul_fma_launches = 0
 grouped_matmul_skinny_launches = 0
+grouped_matmul_bwd_launches = 0  # counted by GroupedMatmulFn.backward
+grouped_matmul_bwd_wgmma_launches = 0
+grouped_matmul_bwd_fma_launches = 0
 selective_scan_launches = 0
 lru_scan_launches = 0
 bag_lookup_launches = 0
@@ -88,11 +95,14 @@ def grouped_matmul(x, w):
     """x: (E, C, D); w: (E, D, F) -> (E, C, F): ``out[e] = x[e] @ w[e]``."""
     global grouped_matmul_launches, grouped_matmul_wgmma_launches
     global grouped_matmul_fma_launches, grouped_matmul_skinny_launches
-    if x.device.type == "cpu":
-        return ref_moe_gmm(x, w)
-    _refuse_grad("moe_gmm", "C2", x, w)
+    on_cpu = x.device.type == "cpu"
+    if _needs_grad(x, w):  # the kernels on the card, the plain versions on the CPU
+        out = GroupedMatmulFn.apply(x, w)
+    else:
+        out = (ref_moe_gmm if on_cpu else moe_gmm)(x, w)
+    if on_cpu:
+        return out
     tiling = gmm_tiling(x.dtype, x.shape[1], x.shape[2], w.shape[-1])
-    out = moe_gmm(x, w, tiling=tiling)
     grouped_matmul_launches += 1
     if tiling == "wgmma":
         grouped_matmul_wgmma_launches += 1

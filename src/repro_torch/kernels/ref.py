@@ -78,6 +78,16 @@ def ref_moe_gmm(x, w):
     return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
 
 
+def ref_moe_gmm_bwd(x, w, dy):
+    """The gradient of :func:`ref_moe_gmm`: x (E, C, D), w (E, D, F), dy
+    (E, C, F) -> (dx = dy @ w^T (E, C, D) in x's dtype, dw = x^T @ dy
+    (E, D, F) in w's dtype), each summed in fp32 and rounded once."""
+    dyf = dy.float()
+    dx = torch.einsum("ecf,edf->ecd", dyf, w.float()).to(x.dtype)
+    dw = torch.einsum("ecd,ecf->edf", x.float(), dyf).to(w.dtype)
+    return dx, dw
+
+
 def ref_mamba_scan(xc, dt, a, b, c, d_skip):
     """Sequential selective scan from h = 0.  xc, dt: (B, L, DI); a: (DI, ST);
     b, c: (B, L, ST); d_skip: (DI,) -> (y (B, L, DI) fp32, h (B, DI, ST) fp32)."""

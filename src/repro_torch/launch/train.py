@@ -5,7 +5,18 @@
 
 Runs on the card unless given ``--device cpu``; ``--smoke`` takes the
 reduced config, whose head dim 16 the attention kernels do not take, so
-smoke runs are CPU only.  The schedule is WSD where the config asks for it
+smoke runs are CPU only.  On the card the dense and MoE families train (the
+grouped matmul has its backward kernel; the scans do not yet).
+qwen3-moe-30b-a3b's training state at full depth (about 490 GB) does not
+fit one card, so it trains there at full width and a cut depth from
+Python, as ``chip_smoke.py`` phase 5c does::
+
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b"), n_layers=4)
+    train(cfg, ShapeSpec("train", 4096, 4, "train"), adamw(wsd(3e-4, 100)),
+          total_steps=100, remat="full", loss_chunk=1024)
+
+This command line takes no depth flag, as the reference's has none.  The
+schedule is WSD where the config asks for it
 (minicpm-2b), else cosine.  ``--mesh``, ``--no-fsdp`` and
 ``--seq-parallel`` come with sharding (ROADMAP.md queue 1 item 5).
 """

@@ -1,8 +1,8 @@
-"""The CUDA kernels (flash attention and its backward, grouped matmul, Mamba
-selective scan, RG-LRU scan, embedding bag and its backward) against their
-plain versions, the narrow models (and a narrow DLRM) on the card against
-the CPU, narrow train steps (dense and DLRM) on the card against the same
-on the CPU, the planner's
+"""The CUDA kernels (flash attention and its backward, grouped matmul and its
+backward, Mamba selective scan, RG-LRU scan, embedding bag and its backward)
+against their plain versions, the narrow models (and a narrow DLRM) on the
+card against the CPU, narrow train steps (dense, MoE and DLRM) on the card
+against the same on the CPU, the planner's
 device path (pricing and chains) against its NumPy oracles, and the online
 controller's fused admission on the card against the same on the CPU.
 
@@ -27,10 +27,11 @@ from repro_torch.kernels.flash_attention import (
     FlashAttentionFn, first_masked_row, flash_attention, flash_attention_bwd,
 )
 from repro_torch.kernels.mamba_scan import mamba_scan
-from repro_torch.kernels.moe_gmm import moe_gmm
+from repro_torch.kernels.moe_gmm import BWD_TILINGS as GMM_BWD_TILINGS
+from repro_torch.kernels.moe_gmm import gmm_bwd_tiling, moe_gmm, moe_gmm_bwd
 from repro_torch.kernels.ref import (
     ref_embedding_bag, ref_embedding_bag_bwd, ref_embedding_bag_in_order, ref_flash_attention,
-    ref_flash_attention_lse, ref_mamba_scan, ref_moe_gmm, ref_rglru_scan,
+    ref_flash_attention_lse, ref_mamba_scan, ref_moe_gmm, ref_moe_gmm_bwd, ref_rglru_scan,
 )
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch import optim
@@ -40,7 +41,7 @@ from repro_torch.core.netsim import HardwareSpec
 from repro_torch.core.planeval import plan_evaluator
 from repro_torch.core.strategy_search import default_strategy
 from repro_torch.core.topology_finder import remove_pair, topology_finder
-from repro_torch.models import dlrm, lm
+from repro_torch.models import dlrm, layers, lm
 from repro_torch.train.steps import make_train_step
 
 torch.set_num_threads(2)  # several test processes share the cores
@@ -466,6 +467,221 @@ def test_moe_model_never_waits_on_the_card(cuda):
         lm.decode_step(model, {"token": logits.argmax(-1), "pos": 100, "cache": cache}, cfg)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+# ---------------------------------------------------------------------------
+# The grouped matmul's backward, and MoE training
+# ---------------------------------------------------------------------------
+
+
+def _xwdy(device, E, C, D, F, dtype, seed=0):
+    x, w = _xw(device, E, C, D, F, dtype, seed)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    return x, w, torch.randn(E, C, F, generator=gen, device=device).to(dtype)
+
+
+@pytest.mark.parametrize(
+    "E,C,D,F,dtype,tiling",
+    [
+        # qwen3-moe-30b-a3b's training products (C = 1280): gate/up and down.
+        (128, 1280, 2048, 768, torch.bfloat16, "wgmma"),
+        (128, 1280, 768, 2048, torch.bfloat16, "wgmma"),
+        (128, 1280, 2048, 768, torch.float16, "wgmma"),
+        (16, 1280, 2048, 768, torch.float32, "fma"),
+        # Ragged around the 128 x 256 tiles, a decode-sized batch, and D, F
+        # off TMA's strides.
+        (4, 129, 72, 136, torch.bfloat16, "wgmma"),
+        (4, 129, 72, 136, torch.float16, "wgmma"),
+        (4, 129, 72, 136, torch.bfloat16, "fma"),
+        (4, 129, 72, 136, torch.float32, "fma"),
+        (8, 1, 2048, 768, torch.bfloat16, "wgmma"),
+        (3, 77, 201, 135, torch.bfloat16, "fma"),
+        (3, 77, 201, 135, torch.float32, "fma"),
+    ],
+)
+def test_gmm_bwd_kernel_matches_plain(cuda, E, C, D, F, dtype, tiling):
+    """dx and dw against ``ref_moe_gmm_bwd`` at the forward's bar in each
+    dtype; each output alone equal to the bit to the pair."""
+    x, w, dy = _xwdy(cuda, E, C, D, F, dtype)
+    dx, dw = moe_gmm_bwd(x, w, dy, tiling=tiling)
+    torch.cuda.synchronize()
+    rx, rw = ref_moe_gmm_bwd(x, w, dy)
+    assert dx.dtype == dw.dtype == dtype and dx.shape == x.shape and dw.shape == w.shape
+    torch.testing.assert_close(dx.float(), rx.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    torch.testing.assert_close(dw.float(), rw.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    only_dx = moe_gmm_bwd(x, w, dy, need_dw=False, tiling=tiling)
+    only_dw = moe_gmm_bwd(x, w, dy, need_dx=False, tiling=tiling)
+    assert only_dx[1] is None and only_dw[0] is None
+    assert torch.equal(only_dx[0], dx) and torch.equal(only_dw[1], dw)
+
+
+@pytest.mark.parametrize("tiling,dtype", [("wgmma", torch.bfloat16), ("fma", torch.float32)])
+def test_gmm_bwd_kernel_is_deterministic(cuda, tiling, dtype):
+    """No split of the reduction and no atomics: two launches give the same
+    bits."""
+    x, w, dy = _xwdy(cuda, 16, 1280, 768, 2048, dtype, seed=3)
+    first = moe_gmm_bwd(x, w, dy, tiling=tiling)
+    second = moe_gmm_bwd(x, w, dy, tiling=tiling)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+def test_gmm_bwd_kernel_takes_strided_views(cuda):
+    x, w, dy = _xwdy(cuda, 4, 40, 256, 384, torch.bfloat16)
+    dyt = dy.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not dyt.is_contiguous()
+    got, want = moe_gmm_bwd(x, w, dyt), moe_gmm_bwd(x, w, dy)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_gmm_bwd_wrapper_refuses_what_it_does_not_take(cuda):
+    x, w, dy = _xwdy(cuda, 2, 40, 64, 32, torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        moe_gmm_bwd(x.cpu(), w.cpu(), dy.cpu())
+    with pytest.raises(ValueError, match="CUDA"):
+        moe_gmm_bwd(x, w, dy.cpu())
+    with pytest.raises(ValueError, match="share"):
+        moe_gmm_bwd(x, w.float(), dy)
+    with pytest.raises(ValueError, match="share"):
+        moe_gmm_bwd(x, w, dy.half())
+    with pytest.raises(ValueError, match="dy"):
+        moe_gmm_bwd(x, w, dy[:, :, :16])
+    with pytest.raises(ValueError, match="tiling"):
+        moe_gmm_bwd(x.float(), w.float(), dy.float(), tiling="wgmma")
+    xb, wb, dyb = _xwdy(cuda, 2, 40, 60, 32, torch.bfloat16)  # D % 8 != 0: no TMA stride
+    with pytest.raises(ValueError, match="tiling"):
+        moe_gmm_bwd(xb, wb, dyb, tiling="wgmma")
+    with pytest.raises(ValueError, match="tiling"):
+        moe_gmm_bwd(x, w, dy, tiling="skinny")
+    assert gmm_bwd_tiling(torch.bfloat16, 40, 60, 32) == "fma"
+    assert set(GMM_BWD_TILINGS) == {"wgmma", "fma"}
+
+
+GMM_BWD_COUNTERS = ("grouped_matmul_launches", "grouped_matmul_wgmma_launches",
+                    "grouped_matmul_fma_launches", "grouped_matmul_skinny_launches",
+                    "grouped_matmul_bwd_launches", "grouped_matmul_bwd_wgmma_launches",
+                    "grouped_matmul_bwd_fma_launches")
+
+
+@pytest.mark.parametrize("C,dtype,fwd,bwd", [(312, torch.bfloat16, "wgmma", "wgmma"),
+                                              (1, torch.bfloat16, "skinny", "wgmma"),
+                                              (40, torch.float32, "fma", "fma")])
+def test_grouped_matmul_under_grad_counts_one_backward_a_product(cuda, monkeypatch, C, dtype,
+                                                                  fwd, bwd):
+    """Under grad, ``ops.grouped_matmul`` goes through GroupedMatmulFn: one
+    forward launch on the serving tiling, one backward call when autograd
+    asks (dx and dw in it), the kernel's gradients; under no_grad no graph."""
+    for name in GMM_BWD_COUNTERS:
+        monkeypatch.setattr(ops, name, 0)
+    x, w, dy = _xwdy(cuda, 8, C, 256, 128, dtype)
+    xl, wl = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    out = ops.grouped_matmul(xl, wl)
+    assert type(out.grad_fn).__name__ == "GroupedMatmulFnBackward"
+    assert torch.equal(out, moe_gmm(x, w))
+    gx, gw = torch.autograd.grad(out, (xl, wl), dy)
+    counts = {n: getattr(ops, n) for n in GMM_BWD_COUNTERS}
+    want = {n: 0 for n in GMM_BWD_COUNTERS}
+    want.update({"grouped_matmul_launches": 1, f"grouped_matmul_{fwd}_launches": 1,
+                 "grouped_matmul_bwd_launches": 1, f"grouped_matmul_bwd_{bwd}_launches": 1})
+    assert counts == want
+    kx, kw = moe_gmm_bwd(x, w, dy)
+    assert torch.equal(gx, kx) and torch.equal(gw, kw)
+    with torch.no_grad():
+        assert ops.grouped_matmul(xl, wl).grad_fn is None
+    assert ops.grouped_matmul_bwd_launches == 1
+
+
+def test_tma_kernels_launch_from_a_thread_with_no_context(cuda):
+    """A thread that has made no CUDA call has no current context, and a TMA
+    tensor map cannot be encoded there until one is made current (autograd's
+    worker, when the first node of a backward is the grouped matmul's, failed
+    with error 1 before ``hopper.cuh`` made it so).  Each TMA kernel's first
+    launch on a fresh thread gives the main thread's bits."""
+    import threading
+
+    x, w, dy = _xwdy(cuda, 8, 312, 256, 128, torch.bfloat16)
+    q, k, v = _qkv(cuda, 1, 4, 2, 256, 256, 128, torch.bfloat16)
+    calls = {"moe_gmm_bwd": lambda: moe_gmm_bwd(x, w, dy), "moe_gmm": lambda: (moe_gmm(x, w),),
+             "flash_attention": lambda: (flash_attention(q, k, v),)}
+    for name, fn in calls.items():
+        got = {}
+        thread = threading.Thread(target=lambda: got.update(out=fn()))
+        thread.start()
+        thread.join(timeout=120)
+        assert not thread.is_alive(), name
+        torch.cuda.synchronize()
+        assert "out" in got, name  # the launch raised in the thread
+        for a, b in zip(got["out"], fn()):
+            assert torch.equal(a, b), name
+
+
+def test_moe_backward_never_waits_on_the_card(cuda):
+    """The MoE layer's forward and backward under grad enqueue their work
+    without a host sync: no ``.item()``, no ``nonzero``, no boolean-mask
+    indexing in the dispatch, the combine or their gradients."""
+    cfg = _narrow_moe_config()
+    mod = layers.MoE(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    params = list(mod.parameters())
+    for p in params:
+        p.requires_grad_(True)
+    x = torch.randn(2, 77, cfg.d_model, device=cuda, requires_grad=True)
+    out, aux = layers.moe(mod, layers.rms_norm(x, mod.norm), cfg)  # warm-up
+    torch.autograd.grad((out * out).sum() + aux, [x, *params])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, aux = layers.moe(mod, layers.rms_norm(x, mod.norm), cfg)
+        grads = torch.autograd.grad((out * out).sum() + aux, [x, *params])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+@pytest.mark.parametrize("capacity_factor", [2.0, 1.0])
+def test_moe_train_step_on_card_matches_cpu(cuda, monkeypatch, capacity_factor):
+    """One narrow fp32 MoE train step (head dim 64, 8 experts, top 2; C above
+    16, entries dropped at capacity 1.0): the loss and every gradient, the
+    router's included, within 1e-5 of the leaf's max of the CPU's, and the
+    launches remat "full" implies (each forward twice, one backward call a
+    product).  After one AdamW step (lr 1e-3, update lr * g / (|g| + eps)),
+    the parameters within 1e-4 of the leaf's max where the CPU's gradient is
+    above the gradients' bar and 100 eps; on the entries within rounding of
+    g = 0 rounding alone moves the update, by at most 2 lr."""
+    for name in GMM_BWD_COUNTERS + ("attention_launches", "attention_bwd_launches"):
+        monkeypatch.setattr(ops, name, 0)
+    cfg = dataclasses.replace(_narrow_moe_config(), n_layers=2, capacity_factor=capacity_factor)
+    m_cpu = lm.init(0, cfg, device="cpu")
+    m_gpu = lm.init(0, cfg, device=cuda)
+    m_gpu.load_state_dict(m_cpu.state_dict())
+    toks = torch.randint(0, cfg.vocab, (2, 77), generator=torch.Generator().manual_seed(4))
+    grads = {}
+    for name, m, t in (("cpu", m_cpu, toks), ("card", m_gpu, toks.to(cuda))):
+        m.requires_grad_(True)
+        params = dict(m.named_parameters())
+        loss, _ = lm.loss_fn(m, {"tokens": t}, cfg, loss_chunk=32)
+        grads[name] = (float(loss.detach()), dict(zip(params, torch.autograd.grad(loss, list(
+            params.values())))))
+    L_ = cfg.n_layers
+    assert (ops.grouped_matmul_launches, ops.grouped_matmul_fma_launches) == (6 * L_, 6 * L_)
+    assert (ops.grouped_matmul_bwd_launches, ops.grouped_matmul_bwd_fma_launches) == (3 * L_,
+                                                                                      3 * L_)
+    assert (ops.attention_launches, ops.attention_bwd_launches) == (2 * L_, L_)
+    (lc, gc_), (lg, gg) = grads["cpu"], grads["card"]
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for name, want in gc_.items():
+        bar = 1e-5 * float(want.abs().max())
+        assert float((gg[name].cpu() - want).abs().max()) <= bar, name
+    lr = 1e-3
+    for m, t in ((m_cpu, toks), (m_gpu, toks.to(cuda))):
+        opt = optim.adamw(optim.constant(lr), weight_decay=0.0)
+        make_train_step(cfg, opt, loss_chunk=32)(m, opt.init(dict(m.named_parameters())),
+                                                 {"tokens": t}, 0)
+    for (name, pg), pc in zip(m_gpu.named_parameters(), m_cpu.parameters()):
+        g = gc_[name].abs()
+        loose = (g <= 1e-5 * g.max()) | (g <= 1e-6)
+        diff = (pg.detach().cpu() - pc.detach()).abs()
+        bar = 1e-4 * float(pc.abs().max())
+        assert float(torch.where(loose, 0.0, diff).max()) <= bar, name
+        assert float(torch.where(loose, diff, 0.0).max()) <= 2 * lr * (1 + 1e-3), name
 
 
 # ---------------------------------------------------------------------------
@@ -1242,19 +1458,18 @@ def test_bwd_wrapper_refuses_what_it_does_not_take(cuda):
 
 
 def test_kernels_without_a_backward_raise_under_grad(cuda):
-    """moe_gmm, mamba_scan and rglru_scan have no backward kernel yet: on a
-    CUDA input that requires grad they raise, naming the ROADMAP item,
-    rather than hand autograd a constant; under no_grad, or with inputs that
-    need no grad, they launch as in serving.  (The embedding bag has its
-    backward: test_bag_lookup_under_grad_launches_both_kernels.)"""
+    """mamba_scan and rglru_scan have no backward kernel yet: on a CUDA input
+    that requires grad they raise, naming the ROADMAP item, rather than hand
+    autograd a constant; under no_grad, or with inputs that need no grad,
+    they launch as in serving.  (The embedding bag and the grouped matmul
+    have their backward: test_bag_lookup_under_grad_launches_both_kernels,
+    and GroupedMatmulFn in
+    test_grouped_matmul_under_grad_counts_one_backward_a_product.)"""
     gen = torch.Generator(device=cuda).manual_seed(8)
-    x = torch.randn(4, 8, 64, generator=gen, device=cuda)
-    w = torch.randn(4, 64, 32, generator=gen, device=cuda)
     a = torch.rand(2, 10, 64, generator=gen, device=cuda)
     b = torch.randn(2, 10, 64, generator=gen, device=cuda)
     xc, dt, am, bm, cm, ds = _mamba_inputs(cuda, 2, 10, 64, 16, torch.float32)
     calls = {
-        "moe_gmm.*C2": (ops.grouped_matmul, (x, w), 1),
         "mamba_scan.*C3": (ops.selective_scan, (xc, dt, am, bm, cm, ds), 0),
         "rglru_scan.*C4": (ops.lru_scan, (a, b), 1),
     }
