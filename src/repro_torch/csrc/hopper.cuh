@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels
 // (flash_attention.cu, flash_attention_bwd.cu, moe_gmm.cu, moe_gmm_bwd.cu,
 // mamba_scan.cu):
-// mbarriers, TMA tile loads, the SFU's exp2, wgmma shared-memory
-// descriptors and products, the producer/consumer register split, and the
-// host-side encoding of TMA tensor maps.
+// mbarriers, TMA tile loads, clusters (barriers across blocks), TMA stores,
+// the SFU's exp2, wgmma shared-memory descriptors and products, the
+// producer/consumer register split, and the host-side encoding of TMA
+// tensor maps.
 //
 // Layout convention of the tensor-core kernels (the skinny weight stream
 // and the Mamba scan read plain, unswizzled boxes).  Every wgmma operand
@@ -52,7 +53,8 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
 }
 
 // Makes initialised barriers visible to the other threads and to TMA; the
-// caller follows it with __syncthreads().
+// caller follows it with __syncthreads(), or with cluster_sync() in a kernel
+// launched in clusters (below).
 __device__ __forceinline__ void mbar_fence_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
@@ -100,6 +102,92 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// ------------------------------------------------------ clusters and TMA stores
+//
+// A kernel launched in clusters (cudaLaunchKernelEx with a cluster
+// dimension) initialises its barriers as above and then calls cluster_sync()
+// instead of __syncthreads(), so that no peer arrives on its barriers before
+// they exist; it calls cluster_sync() again before it returns, so that
+// nothing lands in the shared memory of a block that has gone.  Launched
+// without clusters, a block is a cluster of one and the same code serves.
+
+// This block's rank in its cluster, and the cluster's size in blocks.
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_nctarank() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
+// Every thread of every block of the cluster arrives (release) and waits
+// (acquire): a __syncthreads() that spans the cluster.  Not .aligned, so a
+// warp whose threads took different branches may call it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// Arrives on the barrier at bar's offset in the shared memory of block `cta`
+// of the cluster, this block's own included: mapa gives its address in the
+// cluster's shared window.  (The default semantics, as CUTLASS's
+// ClusterBarrier: written .release.cluster, it made the grouped-matmul
+// backward in pairs 2.3-2.5x slower, tools/gmm_bwd_variants.py.)
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(
+          smem_u32(bar)),
+      "r"(cta)
+      : "memory");
+}
+
+// One TMA store of a 3-D box from shared memory at coordinates (c0
+// innermost, c1, c2): whole lines are written, and values past the tensor's
+// edge are not.  The box is laid out as the map's swizzle says (see the
+// layout convention above).  The writing threads make their shared-memory
+// stores visible to TMA first (fence_async_shared, then a barrier); the
+// issuing thread groups its stores with bulk_commit and waits on them with
+// bulk_wait_read (the source may be written again) or bulk_wait (the
+// global writes are done).
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Waits until at most N committed groups of this thread's stores still read
+// their shared-memory source.
+template <int N> __device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Waits until at most N committed groups of this thread's stores are not
+// complete.
+template <int N> __device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// Orders this thread's earlier shared-memory writes before later reads of
+// them by TMA (the async proxy).
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A barrier among `threads` threads of the block (a multiple of 32) on
+// hardware barrier `id` (1-15; __syncthreads() is 0).  Not .aligned.
+__device__ __forceinline__ void named_barrier_sync(uint32_t id, uint32_t threads) {
+  asm volatile("barrier.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // 2^x by the special-function unit (ex2.approx: about 2 ulp).

@@ -26,29 +26,49 @@
 // Two tilings, one C entry point each; kernels/moe_gmm.py's
 // `gmm_bwd_tiling` chooses between them:
 //
-// * wgmma (bf16/fp16, D and F multiples of 8, any C).  The forward's
-//   warp-specialised structure: a block of three warpgroups owns one
-//   128 x 256 output tile of one expert; the producer warpgroup gives its
-//   registers to the two consumers (setmaxnreg 24 / 240) and one of its
-//   threads keeps TMA loads of 64-deep reduction tiles in flight through a
-//   4-stage ring (48 KB a stage); each consumer multiplies 64 rows by 256
-//   columns with wgmma m64n256k16 into 128 fp32 registers a thread.  Every
-//   operand is read in place, through wgmma's transpose bits, with no
+// * wgmma (bf16/fp16, D and F multiples of 8, any C).  A warp-specialised
+//   block of three warpgroups: the producer gives its registers to the two
+//   consumers (setmaxnreg 40 / 232) and one of its threads keeps TMA loads
+//   of 64-deep reduction tiles in flight through a 4-stage ring (48 KB a
+//   stage); each consumer multiplies 64 rows by 256 columns of a 128 x 256
+//   output tile with wgmma m64n256k16 into 128 fp32 registers a thread.
+//   Every operand is read in place, through wgmma's transpose bits, with no
 //   transposed copy (one would move 2.15 GB a call, 0.64 ms):
 //   - dx = dy . w^T (M = C, N = D, K = F).  A is dy, whose fastest axis F is
 //     the reduction: K-major, one 64 (F) x 128 (C) box a stage.  B is w^T,
 //     read from w (E, D, F), whose fastest axis is F too: K-major
-//     (TRANS_B = 0), one 64 (F) x 256 (D) box.
+//     (TRANS_B = 0), two 64 (F) x 128 (D) boxes.
 //   - dw = x^T . dy (M = D, N = F, K = C).  A is x^T, read from x (E, C, D),
 //     whose fastest axis D is the output's row: MN-major (TRANS_A = 1), two
 //     64 (D) x 64 (C) boxes.  B is dy, F fastest: MN-major (TRANS_B = 1),
 //     four 64 (F) x 64 (C) boxes, as the forward reads w.
+//   The launch is persistent and in pairs (`launch_product`, from the
+//   card's SM count):
+//   - One block an SM walks many tiles, expert-major so that the tiles that
+//     read one expert's operands run side by side in L2, as the forward's
+//     grid order does.  The barriers are set up once, and the ring runs on
+//     across tiles: the producer loads the next tile's stages while the
+//     consumers finish a tile.
+//   - Two blocks of a cluster take adjacent M tiles of one expert and one N
+//     tile, so they read the same B boxes; each loads its own copy, and a
+//     stage is free once the consumers of both blocks have released it
+//     (remote mbarrier arrives), which keeps the pair in step.  With an odd
+//     count of M tiles the last pair's second block computes zeros and
+//     stores nothing; an expert of one M tile launches blocks alone.
+//   - The epilogue rounds each 64 x 64 box into one of two 8 KB buffers a
+//     consumer warpgroup (the 128-byte swizzle: conflict-free 4-byte
+//     writes) and one thread stores it by TMA, whole lines, clipped at
+//     ragged edges, while the next box is written; the consumers go on to
+//     the next tile's products while the stores drain.  Shared memory: 4 x
+//     48 KB + 32 KB.  A 64 KB staging of the whole tile would leave room
+//     for 3 stages only, and a ring of 3 made the kernel 7-9% slower
+//     called back to back (tools/gmm_bwd_variants.py).
 //   There is no split of the reduction and no float atomic: a block walks
-//   all of its K in its own loop, so the result does not depend on block
-//   order and two launches are equal to the bit.  dw has 16 x 3 tiles an
-//   expert at gate/up (6 x 8 at down), 6144 blocks at the training shape.
+//   all of its K in its own loop, with the same m64n256k16 steps from k = 0
+//   as the first (non-persistent) design, so the bits do not depend on the
+//   schedule, two launches are equal, and both designs agree to the bit.
 //   TMA fills zeros past a ragged C, D or F (a reduction past C or F adds
-//   zeros); stores past the output's rows and columns are skipped.
+//   zeros).
 // * fma (fp32, or a D or F that TMA cannot stride).  One strided product
 //   kernel with fp32 FMAs on the CUDA cores (exact fp32, no TF32): a block
 //   of 256 threads computes one 64 x 128 output tile, staging 16-deep tiles
@@ -58,15 +78,18 @@
 //   thread (ty, tx) owns rows 4 ty .. +3 and columns 4 tx .. +3 and
 //   64 + 4 tx .. +3.  It serves the narrow fp32 checks and ragged widths.
 //
-// Measured on NVIDIA H100 80GB HBM3, 700.00 W (chip_smoke.py phase 3,
-// CUDA-event means over 20 calls; PERF.md section 6, row 3b): wgmma 2.03 ms
-// a call at gate/up (dx 1.17, dw 0.97) and 1.80 ms at down (dx 0.89, dw
-// 1.07), 51% and 58% of the 1.042 ms bound; torch.bmm takes 1.43 and
-// 1.40 ms for the same dx and dw.  dx at gate/up walks only 12 reduction
-// tiles (F = 768) a block against 32 at down, so each block's ring fill and
-// its 64 KB epilogue, which nothing overlaps (one block an SM, not
-// persistent), are a larger share of its time there.  fma (fp32): 38.0 ms
-// at gate/up (torch.bmm 19.9 ms).
+// Measured on NVIDIA H100 80GB HBM3, 700.00 W (PERF.md section 6, row 3b):
+// - in turns with the first, non-persistent design on one card
+//   (tools/time_bag_checks.py --gmm-moe), dx + dw a call: 1.497 ms at
+//   gate/up and 1.473 at down, against 1.981 and 1.780, torch.bmm 1.43 and
+//   1.41 for the same dx and dw;
+// - called back to back for 1.5 s (tools/gmm_bwd_variants.py): 1.734 and
+//   1.747 ms, bmm 1.661 and 1.680, both at the card's 700 W limit and an SM
+//   clock of 1335-1418 MHz (its maximum is 1980).  Blocks alone walking the
+//   same tiles: 1.823 and 1.835, so the pairs stay.  Pairs sharing B by a
+//   TMA multicast: 1.719 and 1.736, under the run-to-run spread, so each
+//   block loads its own B.
+// fma (fp32): 38.0 ms at gate/up (torch.bmm 19.9 ms).
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -94,8 +117,8 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
 
 // wgmma tiling.
 namespace wg {
-constexpr int BM = 128;  // output rows a block (two consumer warpgroups of 64)
-constexpr int BN = 256;  // output columns a block
+constexpr int BM = 128;  // output rows a tile (two consumer warpgroups of 64)
+constexpr int BN = 256;  // output columns a tile
 constexpr int BK = 64;   // reduction depth of a stage (one 128-byte swizzle row)
 constexpr int STAGES = 4;
 constexpr int THREADS = 384;  // consumer warpgroups 0 and 1, producer 2
@@ -103,148 +126,244 @@ constexpr int A_BYTES = BM * BK * 2;
 constexpr int B_BYTES = BK * BN * 2;
 constexpr int STAGE_BYTES = A_BYTES + B_BYTES;  // 48 KB
 constexpr int HALF_A = 64 * 128;                // a consumer's 64 rows of A: 8 KB
-constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
+constexpr int HALF_B = B_BYTES / 2;             // 128 columns of B
+constexpr int OUT_BOX = 64 * 128;               // 64 x 64 output values: one TMA store, 8 KB
+constexpr int OUT_BYTES = 2 * 2 * OUT_BOX;      // two boxes a consumer warpgroup, in turns
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + OUT_BYTES + 2 * STAGES * 8 + 1024;
+static_assert(SMEM_BYTES <= 232448, "over the 227 KB a block may use");
 }  // namespace wg
 
 // out[e] (M x N) = A[e] (M x K) . B[e] (K x N), with (see the note above)
 //   DW = false: dx = dy . w^T; map_a over dy (F, C, E) in (64, 128) boxes,
-//     map_b over w (F, D, E) in (64, 256) boxes; M = C, N = D, K = F;
+//     map_b over w (F, D, E) in (64, 128) boxes; M = C, N = D, K = F;
 //   DW = true: dw = x^T . dy; map_a over x (D, C, E) in (64, 64) boxes,
-//     map_b over dy (F, C, E) in (64, 64) boxes; M = D, N = F, K = C.
-// Block (M tile, N tile, expert); out is (E, M, N), row-major.
+//     map_b over dy (F, C, E) in (64, 64) boxes; M = D, N = F, K = C;
+// map_out over out (N, M, E), row-major, in (64, 64) boxes.
+//
+// Persistent: a block walks units (e, m pair, n tile), expert-major with m
+// fastest, from its cluster's index in steps of the number of clusters, and
+// computes the M tile 2 * (m pair) + rank of each.  Launched in clusters of
+// two, the pair reads the same B boxes at the same time: a stage is free
+// only once the consumers of both blocks have released it, which keeps the
+// two in step.  A block whose M tile lies past M (an odd count of M tiles)
+// computes zeros and stores nothing, so the pair keeps step.
 template <typename T, bool DW>
 __global__ void __launch_bounds__(wg::THREADS, 1)
 gmm_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
-                     const __grid_constant__ CUtensorMap map_b, T* __restrict__ out, int M,
-                     int N, int K) {
+                     const __grid_constant__ CUtensorMap map_b,
+                     const __grid_constant__ CUtensorMap map_out, int M, int N, int K,
+                     int E) {
   using namespace wg;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = hopper::align_1024(smem_raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
+  uint8_t* staged = smem + STAGES * STAGE_BYTES;  // the epilogue's boxes
+  uint64_t* full = reinterpret_cast<uint64_t*>(staged + OUT_BYTES);
   uint64_t* empty = full + STAGES;
 
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int e = blockIdx.z;
+  const int pair = (int)hopper::cluster_nctarank();  // 1 or 2
+  const int rank = (int)hopper::cluster_ctarank();
+  const int tiles_m = (M + BM - 1) / BM;
+  const int pairs_m = (tiles_m + pair - 1) / pair;
+  const int per_expert = pairs_m * ((N + BN - 1) / BN);
+  const int units = E * per_expert;
+  const int first = blockIdx.x / pair, step = gridDim.x / pair;
   const int nk = (K + BK - 1) / BK;
   const int warpgroup = threadIdx.x / 128;
+  // The unit's expert and this block's output tile in it.
+  auto tile = [&](int u, int& e, int& m0, int& n0) {
+    e = u / per_expert;
+    const int r = u - e * per_expert;
+    m0 = ((r % pairs_m) * pair + rank) * BM;
+    n0 = (r / pairs_m) * BN;
+  };
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      hopper::mbar_init(&full[s], 1);   // the producer's arrive, plus the TMA bytes
-      hopper::mbar_init(&empty[s], 8);  // one arrive per consumer warp
+      hopper::mbar_init(&full[s], 1);  // the producer's arrive, plus the TMA bytes
+      hopper::mbar_init(&empty[s], 8 * pair);  // one arrive per consumer warp of the pair
     }
     hopper::mbar_fence_init();
   }
-  __syncthreads();
+  hopper::cluster_sync();
 
   if (warpgroup == 2) {  // producer
-    hopper::regs_dealloc<24>();
+    hopper::regs_dealloc<40>();
     if (threadIdx.x == 256) {
-      for (int kt = 0; kt < nk; ++kt) {
-        const int s = kt % STAGES;
-        const int k0 = kt * BK;
-        hopper::mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);
-        uint8_t* a = smem + s * STAGE_BYTES;
-        uint8_t* b = a + A_BYTES;
-        hopper::mbar_arrive_expect_tx(&full[s], STAGE_BYTES);
-        if constexpr (DW) {  // 64-wide chunks of the output's rows and columns, K rows each
+      // The ring runs on across tiles: stage it % STAGES, round it / STAGES.
+      int it = 0;
+      for (int u = first; u < units; u += step) {
+        int e, m0, n0;
+        tile(u, e, m0, n0);
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % STAGES;
+          const int k0 = kt * BK;
+          hopper::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          uint8_t* a = smem + s * STAGE_BYTES;
+          uint8_t* b = a + A_BYTES;
+          hopper::mbar_arrive_expect_tx(&full[s], STAGE_BYTES);
+          if constexpr (DW) {  // 64-wide chunks of the output's rows, K rows each
 #pragma unroll
-          for (int h = 0; h < BM / 64; ++h)
-            hopper::tma_load_3d(a + h * HALF_A, &map_a, &full[s], m0 + 64 * h, k0, e);
+            for (int h = 0; h < BM / 64; ++h)
+              hopper::tma_load_3d(a + h * HALF_A, &map_a, &full[s], m0 + 64 * h, k0, e);
+          } else {  // BM rows of 64 reduction values
+            hopper::tma_load_3d(a, &map_a, &full[s], k0, m0, e);
+          }
+          // B's two 128-column halves, each block of a pair its own copy.
 #pragma unroll
-          for (int c = 0; c < BN / 64; ++c)
-            hopper::tma_load_3d(b + c * BK * 128, &map_b, &full[s], n0 + 64 * c, k0, e);
-        } else {  // BM and BN rows of 64 reduction values
-          hopper::tma_load_3d(a, &map_a, &full[s], k0, m0, e);
-          hopper::tma_load_3d(b, &map_b, &full[s], k0, n0, e);
+          for (int h = 0; h < 2; ++h) {
+#pragma unroll
+            for (int c = 0; c < (DW ? 2 : 1); ++c) {  // dw: two 64-column boxes a half
+              const int c0 = DW ? n0 + 128 * h + 64 * c : k0;
+              const int c1 = DW ? k0 : n0 + 128 * h;
+              hopper::tma_load_3d(b + h * HALF_B + c * BK * 128, &map_b, &full[s], c0, c1, e);
+            }
+          }
         }
       }
     }
-  } else {  // consumers: output rows 64 * warpgroup .. +63 of the tile
-    hopper::regs_alloc<240>();
+  } else {  // consumers: output rows 64 * warpgroup .. +63 of each tile
+    hopper::regs_alloc<232>();
     const int lane = threadIdx.x & 31;
-    float acc[BN / 2];
-#pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-
-    for (int kt = 0; kt < nk; ++kt) {
-      const int s = kt % STAGES;
-      hopper::mbar_wait(&full[s], (kt / STAGES) & 1);
-      // Either way a consumer's 64 rows of A are the stage's 8 KB at
-      // warpgroup * 8 KB: 64 K-major rows of 128 bytes, or one MN-major box.
-      const uint32_t a = hopper::smem_u32(smem + s * STAGE_BYTES + warpgroup * HALF_A);
-      const uint32_t b = a - warpgroup * HALF_A + A_BYTES;
-      hopper::fence_regs(acc);
-      hopper::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        if constexpr (DW)  // MN-major A and B: a k16 step is 16 rows, 2048 bytes
-          hopper::Wgmma<BN, T>::template ss<1, 1>(
-              acc, hopper::desc_sw128(a + kk * 2048, BK * 128, 1024),
-              hopper::desc_sw128(b + kk * 2048, BK * 128, 1024), 1);
-        else  // K-major A and B: a k16 step is 32 bytes within each 128-byte row
-          hopper::Wgmma<BN, T>::template ss<0, 0>(
-              acc, hopper::desc_sw128(a + kk * 32, 16, 1024),
-              hopper::desc_sw128(b + kk * 32, 16, 1024), 1);
-      }
-      hopper::wgmma_commit();
-      hopper::fence_regs(acc);
-      hopper::wgmma_wait<1>();  // the products of tile kt - 1 are done: free its stage
-      if (kt > 0 && lane == 0) hopper::mbar_arrive(&empty[(kt - 1) % STAGES]);
-    }
-    hopper::wgmma_wait<0>();
-    hopper::fence_regs(acc);
-
-    // acc[4j + 2i + c]: row 16 * warp + lane / 4 + 8i, column 8j + 2 (lane % 4) + c.
     const int warp = (threadIdx.x / 32) % 4;
-    T* oe = out + (size_t)e * M * N;
+    const bool leader = threadIdx.x % 128 == 0;  // issues this warpgroup's TMA stores
+    uint8_t* boxes = staged + warpgroup * 2 * OUT_BOX;  // this warpgroup's two buffers
+    // A warp's release of a stage, on both blocks of a pair.
+    auto release = [&](int s) {
+      if (lane != 0) return;
+      if (pair == 2) {
+        hopper::mbar_arrive_cluster(&empty[s], 0);
+        hopper::mbar_arrive_cluster(&empty[s], 1);
+      } else {
+        hopper::mbar_arrive(&empty[s]);
+      }
+    };
+    float acc[BN / 2];
+    int it = 0, stores = 0;
+    for (int u = first; u < units; u += step) {
+      int e, m0, n0;
+      tile(u, e, m0, n0);
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = m0 + 64 * warpgroup + 16 * warp + lane / 4 + 8 * i;
-      if (row >= M) continue;
-      T* orow = oe + (size_t)row * N;
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % STAGES;
+        hopper::mbar_wait(&full[s], (it / STAGES) & 1);
+        // Either way a consumer's 64 rows of A are the stage's 8 KB at
+        // warpgroup * 8 KB: 64 K-major rows of 128 bytes, or one MN-major box.
+        const uint32_t a = hopper::smem_u32(smem + s * STAGE_BYTES + warpgroup * HALF_A);
+        const uint32_t b = a - warpgroup * HALF_A + A_BYTES;
+        hopper::fence_regs(acc);
+        hopper::wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const int col = n0 + 8 * j + 2 * (lane % 4);
-        if (col < N)  // N is even, so col + 1 < N too
-          *reinterpret_cast<uint32_t*>(orow + col) =
-              hopper::pack2<T>(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          if constexpr (DW)  // MN-major A and B: a k16 step is 16 rows, 2048 bytes
+            hopper::Wgmma<BN, T>::template ss<1, 1>(
+                acc, hopper::desc_sw128(a + kk * 2048, BK * 128, 1024),
+                hopper::desc_sw128(b + kk * 2048, BK * 128, 1024), 1);
+          else  // K-major A and B: a k16 step is 32 bytes within each 128-byte row
+            hopper::Wgmma<BN, T>::template ss<0, 0>(
+                acc, hopper::desc_sw128(a + kk * 32, 16, 1024),
+                hopper::desc_sw128(b + kk * 32, 16, 1024), 1);
+        }
+        hopper::wgmma_commit();
+        hopper::fence_regs(acc);
+        hopper::wgmma_wait<1>();  // the products of the previous stage are done: free it
+        if (kt > 0) release((it - 1) % STAGES);
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      release((it - 1) % STAGES);  // the producer is already filling the next tile's stages
+
+      // acc[4j + 2i + c]: row 16 * warp + lane / 4 + 8i, column 8j + 2 (lane % 4) + c.
+      const int row0 = m0 + 64 * warpgroup;
+      if (row0 >= M) continue;  // rows past M (or a pair's tile past the last)
+      // Four 64 x 64 boxes, staged in turns in this warpgroup's two 8 KB
+      // buffers with the 128-byte swizzle (row r's 16-byte chunk c at chunk
+      // c ^ (r % 8): a warp's 4-byte writes fall on 32 banks) and stored by
+      // TMA; the consumers go on to the next tile while the stores drain.
+#pragma unroll
+      for (int bx = 0; bx < BN / 64; ++bx, ++stores) {
+        if (n0 + 64 * bx >= N) break;
+        uint8_t* box = boxes + (stores & 1) * OUT_BOX;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          uint8_t* row = box + (16 * warp + lane / 4 + 8 * i) * 128 + 4 * (lane % 4);
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const int j = 8 * bx + jj;
+            *reinterpret_cast<uint32_t*>(row + ((jj ^ (lane / 4)) << 4)) =
+                hopper::pack2<T>(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+          }
+        }
+        hopper::fence_async_shared();
+        // Every earlier store has read its box: after this barrier the next
+        // box may be written into the other buffer.
+        if (leader) hopper::bulk_wait_read<0>();
+        hopper::named_barrier_sync(1 + warpgroup, 128);
+        if (leader) {
+          hopper::tma_store_3d(&map_out, box, n0 + 64 * bx, row0, e);
+          hopper::bulk_commit();
+        }
       }
     }
+    if (leader) hopper::bulk_wait<0>();
   }
+  hopper::cluster_sync();
+}
+
+// One product's launch on a card of `sms` SMs: clusters of two blocks where
+// an expert has two M tiles or more, else blocks alone; one block an SM in
+// whole clusters, fewer where there are fewer units of work.
+template <typename T, bool DW>
+cudaError_t launch_product(const CUtensorMap& map_a, const CUtensorMap& map_b,
+                           const CUtensorMap& map_out, int M, int N, int K, int E, int sms,
+                           cudaStream_t stream) {
+  const void* kernel = reinterpret_cast<const void*>(gmm_bwd_wgmma_kernel<T, DW>);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wg::SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  const int tiles_m = (M + wg::BM - 1) / wg::BM;
+  const int pair = tiles_m > 1 ? 2 : 1;
+  const int64_t units = (int64_t)E * ((tiles_m + pair - 1) / pair) * ((N + wg::BN - 1) / wg::BN);
+  const int64_t clusters = sms / pair > 1 ? sms / pair : 1;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = pair;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((unsigned)((units < clusters ? units : clusters) * pair));
+  config.blockDim = dim3(wg::THREADS);
+  config.dynamicSmemBytes = wg::SMEM_BYTES;
+  config.stream = stream;
+  config.attrs = &cluster;
+  config.numAttrs = 1;
+  void* args[] = {const_cast<CUtensorMap*>(&map_a), const_cast<CUtensorMap*>(&map_b),
+                  const_cast<CUtensorMap*>(&map_out), &M, &N, &K, &E};
+  err = cudaLaunchKernelExC(&config, kernel, args);
+  return err == cudaSuccess ? cudaGetLastError() : err;
 }
 
 template <typename T>
 cudaError_t launch_wgmma(const void* x, const void* w, const void* dy, void* dx, void* dw, int E,
-                         int C, int D, int F, cudaStream_t stream) {
+                         int C, int D, int F, int sms, cudaStream_t stream) {
   constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
-  CUtensorMap map_a, map_b;
+  CUtensorMap map_a, map_b, map_out;
   cudaError_t err = cudaSuccess;
   if (dx != nullptr) {
     err = hopper::make_map_3d(&map_a, dy, bf16, F, C, E, wg::BM);
-    if (err == cudaSuccess) err = hopper::make_map_3d(&map_b, w, bf16, F, D, E, wg::BN);
+    if (err == cudaSuccess) err = hopper::make_map_3d(&map_b, w, bf16, F, D, E, wg::BN / 2);
+    if (err == cudaSuccess) err = hopper::make_map_3d(&map_out, dx, bf16, D, C, E, 64);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(gmm_bwd_wgmma_kernel<T, false>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, wg::SMEM_BYTES);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((C + wg::BM - 1) / wg::BM, (D + wg::BN - 1) / wg::BN, E);
-    gmm_bwd_wgmma_kernel<T, false><<<grid, wg::THREADS, wg::SMEM_BYTES, stream>>>(
-        map_a, map_b, static_cast<T*>(dx), C, D, F);
-    err = cudaGetLastError();
+      err = launch_product<T, false>(map_a, map_b, map_out, C, D, F, E, sms, stream);
     if (err != cudaSuccess) return err;
   }
   if (dw != nullptr) {
     err = hopper::make_map_3d(&map_a, x, bf16, D, C, E, 64);
     if (err == cudaSuccess) err = hopper::make_map_3d(&map_b, dy, bf16, F, C, E, 64);
+    if (err == cudaSuccess) err = hopper::make_map_3d(&map_out, dw, bf16, F, D, E, 64);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(gmm_bwd_wgmma_kernel<T, true>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, wg::SMEM_BYTES);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((D + wg::BM - 1) / wg::BM, (F + wg::BN - 1) / wg::BN, E);
-    gmm_bwd_wgmma_kernel<T, true><<<grid, wg::THREADS, wg::SMEM_BYTES, stream>>>(
-        map_a, map_b, static_cast<T*>(dw), D, F, C);
-    err = cudaGetLastError();
+      err = launch_product<T, true>(map_a, map_b, map_out, D, F, C, E, sms, stream);
   }
   return err;
 }
@@ -401,17 +520,20 @@ bool valid(int E, int C, int D, int F) {
 // returns a cudaError_t (0 on success); a shape or dtype its tiling does not
 // take returns cudaErrorInvalidValue.
 
-// Tensor cores; float16 or bfloat16, D and F multiples of 8, any C.
+// Tensor cores; float16 or bfloat16, D and F multiples of 8, any C.  sms:
+// the current device's SMs, which size the persistent launch
+// (`launch_product`; any size gives the same bits).
 extern "C" int repro_moe_gmm_bwd_wgmma(const void* x, const void* w, const void* dy, void* dx,
                                        void* dw, int E, int C, int D, int F, int need_dx,
-                                       int need_dw, int dtype, void* stream) {
-  if (!valid(E, C, D, F) || D % 8 != 0 || F % 8 != 0) return (int)cudaErrorInvalidValue;
+                                       int need_dw, int dtype, int sms, void* stream) {
+  if (!valid(E, C, D, F) || D % 8 != 0 || F % 8 != 0 || sms < 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   void* dxp = need_dx ? dx : nullptr;
   void* dwp = need_dw ? dw : nullptr;
   switch (dtype) {
-    case 1: return (int)launch_wgmma<__half>(x, w, dy, dxp, dwp, E, C, D, F, s);
-    case 2: return (int)launch_wgmma<__nv_bfloat16>(x, w, dy, dxp, dwp, E, C, D, F, s);
+    case 1: return (int)launch_wgmma<__half>(x, w, dy, dxp, dwp, E, C, D, F, sms, s);
+    case 2: return (int)launch_wgmma<__nv_bfloat16>(x, w, dy, dxp, dwp, E, C, D, F, sms, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -11,6 +11,7 @@ loaded as it is.  Nothing is built at import time.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -29,6 +30,16 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 # nvcc's output (ptxas register, shared-memory and spill counts) per library
 # built in this process; empty for a library that was already built.
 build_logs: dict[str, str] = {}
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index``, which size the persistent and
+    grid-stride launches (the bag forward's units, the grouped-matmul
+    backward's blocks)."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def find_nvcc() -> str:

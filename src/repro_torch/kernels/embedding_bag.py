@@ -22,23 +22,16 @@ Its plain version is :func:`repro_torch.kernels.ref.ref_embedding_bag_bwd`.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from . import _build
+from ._build import sm_count
 from .flash_attention import DTYPE_CODES
 from .ref import ref_embedding_bag, ref_embedding_bag_bwd
 
 ID_DTYPES = {torch.int32: 0, torch.int64: 1}
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    """The SMs of CUDA device ``index``, which size the forward kernel's
-    units of bags."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _entry(name: str = "repro_embedding_bag"):
@@ -85,7 +78,7 @@ def embedding_bag(tables, indices):
     with torch.cuda.device(tables.device):
         err = _entry()(
             tables.data_ptr(), indices.data_ptr(), out.data_ptr(), B, T, R, E, NNZ,
-            _sm_count(tables.device.index), *tables.stride(), *indices.stride(),
+            sm_count(tables.device.index), *tables.stride(), *indices.stride(),
             DTYPE_CODES[tables.dtype], ID_DTYPES[indices.dtype],
             torch.cuda.current_stream(tables.device).cuda_stream,
         )
@@ -106,7 +99,7 @@ def bag_fwd_split(tables, indices) -> dict:
     split = (ctypes.c_int * 4)()
     err = _entry("repro_embedding_bag_split")(
         tables.data_ptr(), E, NNZ, B * T, *tables.stride(), DTYPE_CODES[tables.dtype],
-        _sm_count(tables.device.index), split,
+        sm_count(tables.device.index), split,
     )
     if err:
         raise RuntimeError(f"bag_fwd_split: error {err}")

@@ -12,7 +12,8 @@ Their plain PyTorch version is :func:`repro_torch.kernels.ref.ref_moe_gmm`.
 Training: :func:`moe_gmm_bwd` wraps ``csrc/moe_gmm_bwd.cu``, which computes
 ``dx[e] = dy[e] @ w[e]^T`` and ``dw[e] = x[e]^T @ dy[e]`` on two tilings,
 ``wgmma`` (bf16/fp16; every operand read in place through wgmma's transpose
-bits) and ``fma`` (fp32 FMAs on the CUDA cores), one C entry point each;
+bits; persistent blocks, one an SM, in pairs at adjacent tiles) and
+``fma`` (fp32 FMAs on the CUDA cores), one C entry point each;
 :func:`gmm_bwd_tiling` chooses.  Its plain version is
 :func:`repro_torch.kernels.ref.ref_moe_gmm_bwd`.  :class:`GroupedMatmulFn`
 joins the forward and the backward for autograd.
@@ -26,6 +27,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import _build
+from ._build import sm_count
 from .flash_attention import DTYPE_CODES, HALF_DTYPES, _aligned
 from .ref import ref_moe_gmm, ref_moe_gmm_bwd
 
@@ -78,7 +80,8 @@ def _bwd_entry(tiling: str):
     fn = getattr(_build.load("moe_gmm_bwd"), f"repro_moe_gmm_bwd_{tiling}")
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+        sms = [i] if tiling == "wgmma" else []  # the SMs that size the persistent launch
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, *sms, p]
         fn.restype = i
     return fn
 
@@ -137,7 +140,8 @@ def moe_gmm_bwd(x, w, dy, need_dx: bool = True, need_dw: bool = True,
     ``tiling`` defaults to :func:`gmm_bwd_tiling`'s choice; a tiling that
     does not take the shape or dtype raises.  Launches the CUDA backward once
     (a kernel for each output asked for, on the current stream), or raises:
-    it never computes on another path.
+    it never computes on another path.  The ``wgmma`` tiling's launch is
+    sized by the device's SMs.
     """
     if not all(t.is_cuda and t.device == x.device for t in (x, w, dy)):
         raise ValueError("moe_gmm_bwd: x, w and dy must lie on one CUDA device")
@@ -160,6 +164,7 @@ def moe_gmm_bwd(x, w, dy, need_dx: bool = True, need_dw: bool = True,
                                      and gmm_bwd_tiling(x.dtype, C, D, F) != "wgmma"):
         raise ValueError(f"moe_gmm_bwd: tiling {tiling!r} does not take {x.dtype} at C={C} "
                          f"D={D} F={F}")
+    sms = [sm_count(x.device.index)] if tiling == "wgmma" else []
     x, w, dy = _aligned(x), _aligned(w), _aligned(dy)
     dx = torch.empty_like(x) if need_dx else None
     dw = torch.empty_like(w) if need_dw else None
@@ -167,7 +172,7 @@ def moe_gmm_bwd(x, w, dy, need_dx: bool = True, need_dw: bool = True,
         err = _bwd_entry(tiling)(
             x.data_ptr(), w.data_ptr(), dy.data_ptr(), 0 if dx is None else dx.data_ptr(),
             0 if dw is None else dw.data_ptr(), E, C, D, F, int(need_dx), int(need_dw),
-            DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
+            DTYPE_CODES[x.dtype], *sms, torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err:
         raise RuntimeError(f"moe_gmm_bwd ({tiling}): CUDA error {err} at launch")

@@ -28,6 +28,7 @@ from repro_torch.kernels.flash_attention import (
 )
 from repro_torch.kernels.mamba_scan import mamba_scan
 from repro_torch.kernels.moe_gmm import BWD_TILINGS as GMM_BWD_TILINGS
+from repro_torch.kernels import moe_gmm as gmm_mod
 from repro_torch.kernels.moe_gmm import gmm_bwd_tiling, moe_gmm, moe_gmm_bwd
 from repro_torch.kernels.ref import (
     ref_embedding_bag, ref_embedding_bag_bwd, ref_embedding_bag_in_order, ref_flash_attention,
@@ -525,6 +526,54 @@ def test_gmm_bwd_kernel_is_deterministic(cuda, tiling, dtype):
     assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
+# What only the persistent wgmma backward's walk can get wrong: fewer tiles
+# than SMs (E = 1, C = 128, D = F = 256); one M tile of dx (C = 1) and of dw
+# (D = 72), two (C = 129) and three (C = 300: an odd count in pairs, whose
+# second block computes zeros and stores nothing); tile counts no multiple of
+# the SMs; the ragged shape in both half types.  The launch is sized by the
+# SM count the wrapper passes (patched here): this card's; 1 << 20, one unit
+# of work a cluster (not persistent); and cards of 2, 3, 5 and 7 SMs, each
+# block (or pair) walking many tiles.  Every launch gives the default's bits.
+GMM_BWD_WALKS = [(1, 128, 256, 256, torch.bfloat16), (4, 129, 72, 136, torch.bfloat16),
+                 (4, 129, 72, 136, torch.float16), (3, 129, 136, 72, torch.bfloat16),
+                 (8, 1, 2048, 768, torch.bfloat16), (7, 300, 520, 264, torch.bfloat16),
+                 (16, 1280, 768, 2048, torch.bfloat16)]
+GMM_BWD_LAUNCHES = [None, 1 << 20, 2, 3, 5, 7]
+
+
+@pytest.mark.parametrize("E,C,D,F,dtype", GMM_BWD_WALKS)
+@pytest.mark.parametrize("launch", GMM_BWD_LAUNCHES)
+def test_gmm_bwd_walks_match_plain(cuda, monkeypatch, E, C, D, F, dtype, launch):
+    x, w, dy = _xwdy(cuda, E, C, D, F, dtype, seed=5)
+    default = moe_gmm_bwd(x, w, dy)
+    if launch is not None:
+        monkeypatch.setattr(gmm_mod, "sm_count", lambda index: launch)
+    dx, dw = moe_gmm_bwd(x, w, dy, tiling="wgmma")
+    torch.cuda.synchronize()
+    rx, rw = ref_moe_gmm_bwd(x, w, dy)
+    torch.testing.assert_close(dx.float(), rx.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    torch.testing.assert_close(dw.float(), rw.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    again = moe_gmm_bwd(x, w, dy, tiling="wgmma")
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dw)
+    assert torch.equal(default[0], dx) and torch.equal(default[1], dw)
+
+
+@pytest.mark.parametrize("sms", [1, 3, 7, 64])
+@pytest.mark.parametrize("E,C,D,F", [(16, 1280, 768, 2048), (7, 300, 520, 264), (4, 129, 72, 136)])
+def test_gmm_bwd_walks_on_fewer_blocks(cuda, monkeypatch, sms, E, C, D, F):
+    """Fewer persistent blocks than SMs (the wrapper's SM count patched):
+    each block walks many tiles, a count no multiple of its blocks, with the
+    ring running on across them; the same bits as on the whole card."""
+    x, w, dy = _xwdy(cuda, E, C, D, F, torch.bfloat16, seed=6)
+    want = moe_gmm_bwd(x, w, dy)
+    monkeypatch.setattr(gmm_mod, "sm_count", lambda index: sms)
+    got = moe_gmm_bwd(x, w, dy)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    rx, rw = ref_moe_gmm_bwd(x, w, dy)
+    torch.testing.assert_close(got[0].float(), rx.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(got[1].float(), rw.float(), rtol=2e-2, atol=2e-2)
+
+
 def test_gmm_bwd_kernel_takes_strided_views(cuda):
     x, w, dy = _xwdy(cuda, 4, 40, 256, 384, torch.bfloat16)
     dyt = dy.transpose(1, 2).contiguous().transpose(1, 2)
@@ -921,7 +970,7 @@ def test_bag_kernel_at_unit_edges(cuda, monkeypatch, dtype, id_dtype, E, NNZ):
     and at the first, second and last batch of up to 1024 that the kernel's
     split gives each unit G: every G from 1 to its cap (rows // NNZ) comes
     up, with ragged last units and groups that stop at different units."""
-    monkeypatch.setattr(bag_mod, "_sm_count", lambda index: 1)
+    monkeypatch.setattr(bag_mod, "sm_count", lambda index: 1)
     tables, _ = _bag_inputs(cuda, 1, 1000, E, 1, 1, dtype, id_dtype)
     one = torch.zeros((1, 1, NNZ), dtype=id_dtype, device=cuda)
     by_unit = {}  # G -> the batches it takes, in order
@@ -963,7 +1012,7 @@ def test_bag_kernel_gives_the_same_bits_on_any_unit(cuda, monkeypatch, dtype, NN
     tables, ids = _bag_inputs(cuda, 3, 1000, 128, 301, NNZ, dtype, torch.int32, seed=6)
     want = embedding_bag(tables, ids)
     if sms:
-        monkeypatch.setattr(bag_mod, "_sm_count", lambda index: sms)
+        monkeypatch.setattr(bag_mod, "sm_count", lambda index: sms)
     out = embedding_bag(tables, ids)
     assert torch.equal(out, want)
     _assert_bag_bits(out, tables, ids)

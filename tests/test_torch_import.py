@@ -76,6 +76,15 @@ def test_no_jax_or_repro_import_in_port_sources():
     assert not bad
 
 
+def test_no_jax_or_repro_import_in_chip_tools():
+    """The scripts that time the port on the card (``tools/``) import
+    neither JAX nor the JAX package, as ``chip_smoke.py`` does not."""
+    files = sorted((ROOT / "tools").glob("*.py"))
+    assert files
+    bad = [(f.name, m) for f in files for m in _imported_modules(f) if _forbidden(m)]
+    assert not bad
+
+
 _IMPORT_CORE = """
 import importlib, sys
 from test_torch_import import SLICE_MODULES

@@ -1,9 +1,9 @@
 """Times ``chip_smoke.py``'s embedding-bag checks (phase 3's ``check_bag`` and
-``check_bag_bwd``) of one or more checkouts on one CUDA card, each checkout
-in a process of its own, so that two versions of the checks compare on the
-same card in one run:
+``check_bag_bwd``), or with ``--gmm`` its grouped-matmul backward check, of
+one or more checkouts on one CUDA card, each checkout in a process of its
+own, so that two versions of the checks compare on the same card in one run:
 
-    python3 tools/time_bag_checks.py OUT.jsonl TREE [TREE ...]
+    python3 tools/time_bag_checks.py [--gmm | --gmm-moe] OUT.jsonl TREE [TREE ...]
 
 Each TREE is the root of a checkout (its ``chip_smoke.py`` and ``src/``),
 e.g. the parent commit unpacked by ``git archive`` into ``build/parent``
@@ -26,6 +26,17 @@ serving lookup (``wrapper_host_us``).  Then the wrapper's host µs, and a
 table of each label's forward device times and of the scoring walls,
 across the runs.  The checks' own output goes to
 OUT.jsonl's directory, one log a run.
+
+``--gmm`` runs the tree's ``check_gmm_bwd`` instead (its ``GMM_BWD_CASES``)
+and records each case's call, dx and dw times beside ``torch.bmm``'s and the
+bound (``gmm_bwd``, by case), then the SHA-256 of dx's and dw's bits at the two bf16
+training shapes (qwen3-moe-30b-a3b, C = 1280: gate/up and down) on inputs
+this tool makes from one seed for every tree (``digests``), and prints
+whether every run's bits agree.  ``--gmm-moe`` also trains phase 5c's
+model (``train_full`` and ``trace_train_step`` of the tree's
+``chip_smoke.py``: 2 + 8 steps, 6 on a fixed batch, one traced) and records
+its step times, peak memory and the traced step's grouped-matmul backward
+(``moe_step``).
 """
 
 from __future__ import annotations
@@ -167,8 +178,96 @@ def wrapper_host_us(embedding_bag, dev, gen) -> float:
     return best
 
 
-def one(tree: Path) -> dict:
-    """Runs the bag checks of the checkout at ``tree`` once; their seconds."""
+# The grouped matmul backward's bf16 training shapes (E, C, D, F) whose bits
+# every tree's kernel must give alike, on this tool's inputs.
+GMM_DIGEST_SHAPES = (("gate_up", 128, 1280, 2048, 768), ("down", 128, 1280, 768, 2048))
+
+
+def gmm_digests(moe_gmm_bwd, dev) -> dict:
+    """SHA-256 of dx's and dw's bits at GMM_DIGEST_SHAPES, on bf16 inputs
+    made from seed 26 on the card (the same for every tree)."""
+    import hashlib
+
+    import torch
+
+    out = {}
+    for name, E, C, D, F in GMM_DIGEST_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(26)
+        x = torch.randn(E, C, D, generator=gen, device=dev).bfloat16()
+        w = (torch.randn(E, D, F, generator=gen, device=dev) / D**0.5).bfloat16()
+        dy = torch.randn(E, C, F, generator=gen, device=dev).bfloat16()
+        for part, t in zip(("dx", "dw"), moe_gmm_bwd(x, w, dy)):
+            bits = t.view(torch.int16).cpu().numpy().tobytes()
+            out[f"{name} {part}"] = hashlib.sha256(bits).hexdigest()
+        del x, w, dy
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_step(cs, dev, smi) -> dict:
+    """Phase 5c of the tree's ``chip_smoke.py``: qwen3-moe-30b-a3b at 4
+    layers trained on the card, then one traced step."""
+    import dataclasses
+
+    from repro_torch import optim
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import pipeline as data
+    from repro_torch.kernels import ops
+    from repro_torch.launch.trace_train import group_of
+    from repro_torch.models import lm
+    from repro_torch.train.steps import make_train_step
+
+    cfg = dataclasses.replace(get_config(cs.MOE_TRAIN_ARCH), n_layers=cs.MOE_TRAIN_LAYERS)
+    L = cfg.n_layers
+    want = {n: 0 for n in cs.COUNTERS}
+    want.update(attention_launches=2 * L, attention_wgmma_launches=2 * L,
+                attention_bwd_launches=L, attention_bwd_wgmma_launches=L,
+                grouped_matmul_launches=6 * L, grouped_matmul_wgmma_launches=6 * L,
+                grouped_matmul_bwd_launches=3 * L, grouped_matmul_bwd_wgmma_launches=3 * L)
+    run = cs.train_full(lm, ops, optim, make_train_step, data, cfg, dev, smi, "5c", want,
+                        ("blocks.0.moe.wg", f"blocks.{L - 1}.moe.wd"), warmup=cs.MOE_WARMUP,
+                        loss0_tol=1.0)
+    trace = cs.trace_train_step(lm, run, cfg, group_of, "5c", smi)
+    numbers = {k: run[k] for k in ("step_ms", "step_ms_all", "peak_gb", "losses",
+                                   "launches_per_step")}
+    cs.release(run)
+    return dict(numbers, traced_ms=trace["traced_ms"], busy_ms=trace["busy_ms"],
+                idle_share=trace["idle_share"],
+                gmm_bwd_traced_ms=trace["split_ms"]["grouped matmul backward"],
+                gmm_fwd_traced_ms=trace["split_ms"]["grouped matmul forward"])
+
+
+def one_gmm(cs, tree: Path, moe: bool) -> dict:
+    """The grouped matmul backward's check of the checkout at ``tree``, its
+    bits at the training shapes, and with ``moe`` phase 5c."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.moe_gmm import gmm_bwd_tiling, moe_gmm_bwd
+    from repro_torch.kernels.ref import ref_moe_gmm_bwd
+
+    kernels = ["moe_gmm_bwd"]
+    if moe:
+        kernels += ["moe_gmm", "flash_attention", "flash_attention_bwd"]
+    _build.load_all(kernels)
+    dev = torch.device("cuda")
+    smi = cs.nvidia_smi_line()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    cases = cs.check_gmm_bwd(moe_gmm_bwd, ref_moe_gmm_bwd, gmm_bwd_tiling, gen, dev, smi)
+    seconds = time.perf_counter() - t0
+    keys = ("kernel_ms", "dx_ms", "dw_ms", "library_ms", "bound_ms", "plain_ms")
+    out = dict(tree=str(tree), card=smi, check_gmm_bwd_s=seconds,
+               gmm_bwd={name: {k: c[k] for k in keys} for name, c in cases.items()},
+               digests=gmm_digests(moe_gmm_bwd, dev))
+    if moe:
+        out["moe_step"] = moe_step(cs, dev, smi)
+    return out
+
+
+def one(tree: Path, what: str = "bag") -> dict:
+    """Runs the bag checks (``what`` "bag"), or the grouped matmul
+    backward's ("gmm", "gmm-moe"), of the checkout at ``tree`` once."""
     spec = importlib.util.spec_from_file_location("chip_smoke_of_tree", tree / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)  # puts tree/src first on sys.path
@@ -182,6 +281,8 @@ def one(tree: Path) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("time_bag_checks: no CUDA device")
     assert Path(_build.__file__).resolve().is_relative_to(tree.resolve()), _build.__file__
+    if what != "bag":
+        return one_gmm(cs, tree, moe=what == "gmm-moe")
     for name in ("embedding_bag", "embedding_bag_bwd"):
         _build.load(name)
     dev = torch.device("cuda")
@@ -206,10 +307,35 @@ def one(tree: Path) -> dict:
                 fwd_device_cold_ms=cold, wrapper_host_us=host_us)
 
 
+def gmm_summary(runs: list[dict]) -> None:
+    """Each case's times by run, phase 5c's numbers, and whether every run's
+    bits agree at the training shapes."""
+    print("grouped matmul backward ms by case, call (dx, dw) / torch.bmm; runs: "
+          + ", ".join(r["tree"] for r in runs))
+    for name in dict.fromkeys(k for r in runs for k in r["gmm_bwd"]):
+        cells = []
+        for r in runs:
+            c = r["gmm_bwd"].get(name)
+            cells.append("-" if c is None else
+                         f"{c['kernel_ms']} ({c['dx_ms']}, {c['dw_ms']}) / {c['library_ms']}")
+        print(f"  {name}: " + " | ".join(cells))
+    if all("moe_step" in r for r in runs):
+        for key in ("step_ms", "gmm_bwd_traced_ms", "gmm_fwd_traced_ms", "traced_ms", "idle_share",
+                    "peak_gb"):
+            print(f"phase 5c {key}: " + " ".join(str(r["moe_step"][key]) for r in runs))
+    digests = {json.dumps(r["digests"], sort_keys=True) for r in runs}
+    print(f"dx and dw bits at the bf16 training shapes equal across the runs: {len(digests) == 1}"
+          + ("" if len(digests) == 1 else
+             "; " + "; ".join(f"{r['tree']}: {r['digests']}" for r in runs)))
+
+
 def main(argv: list[str]) -> int:
     if argv[:1] == ["--one"]:
-        print(json.dumps(one(Path(argv[1]))))
+        print(json.dumps(one(Path(argv[1]), *argv[2:])))
         return 0
+    what = "bag"
+    if argv[:1] in (["--gmm"], ["--gmm-moe"]):
+        what, argv = argv[0][2:], argv[1:]
     if len(argv) < 2:
         print(__doc__, file=sys.stderr)
         return 2
@@ -219,7 +345,7 @@ def main(argv: list[str]) -> int:
     for i, tree in enumerate(argv[1:]):
         log = out.parent / f"{out.stem}.{i}.log"
         with open(log, "w") as f:
-            proc = subprocess.run([sys.executable, __file__, "--one", tree], stdout=f,
+            proc = subprocess.run([sys.executable, __file__, "--one", tree, what], stdout=f,
                                   stderr=subprocess.STDOUT, text=True)
         last = log.read_text().strip().splitlines()[-1:]
         if proc.returncode != 0 or not last:
@@ -230,6 +356,9 @@ def main(argv: list[str]) -> int:
         with open(out, "a") as f:
             f.write(last[0] + "\n")
         runs.append(json.loads(last[0]))
+    if what != "bag":
+        gmm_summary(runs)
+        return 0
     print("forward wrapper host µs a call at B=128: "
           + " ".join(str(r["wrapper_host_us"]) for r in runs))
     for key, what in (("fwd_device_ms", "forward device ms by case (back to back, the checks')"),
