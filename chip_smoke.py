@@ -17,9 +17,10 @@ result line:
    split (240 x 256 + 24 x 128) is sized for (the forward's lse store
    included), and the skinny grouped matmul, the Mamba scan, every attention
    backward kernel, the grouped matmul's backward (4 wgmma kernels, 6 fma
-   ones), the embedding bag's 12 forward kernels and its backward (the small
-   tiling's 6 kernels, the sorted tiling's 12 and the keys kernel's 4) must
-   not spill;
+   ones), the Mamba scan's backward (12 kernels, 3 dtypes x 4 lane counts,
+   and 3 sums of partials), the embedding bag's 12 forward kernels and its
+   backward (the small tiling's 6 kernels, the sorted tiling's 12 and the
+   keys kernel's 4) must not spill;
 3. kernels vs their plain PyTorch versions at the serving shapes, with times
    beside the bound and beside one PyTorch library call where one computes
    the same function, each case printing the tiling that served it (wgmma
@@ -48,7 +49,13 @@ result line:
    ``torch.bmm`` for the same dx and dw; the Mamba selective scan at
    falcon-mamba-7b's prefill (B=4, L=1000, DI=8192, ST=16) and the RG-LRU
    scan at recurrentgemma-9b's (B=4, L=2048, D=4096), each also at a ragged
-   shape, and the embedding bag on the paper DLRM's tables (T=8, R=1e7,
+   shape; the Mamba scan's backward against its plain version at
+   falcon-mamba-7b's training shape (B=4, L=4096, DI=8192, ST=16, b and c
+   strided) in bf16 and fp32, ragged (L=1001, DI=200), at ST=64 and 128 and
+   with a gradient for the final state: two launches equal to the bit, each
+   output within 1e-4 of its max|.| (bf16 outputs plus one rounding on each
+   side), its time beside the bound and the plain version's; and the
+   embedding bag on the paper DLRM's tables (T=8, R=1e7,
    E=128, fp32: 40.96 GB) at its serving lookup (B=128, one id a bag), at
    B=4096 (int32 and int64 ids), at a multi-hot shape (B=4096, 32 ids a
    bag), at B=4095 over 7 tables (a last unit of one bag), with bf16 tables
@@ -91,7 +98,12 @@ result line:
    card against CPU: the grouped matmul's forward and backward kernels and
    the attention kernels, the loss and every gradient (the router's
    included) within 1e-5 of each leaf's max, the parameters after one AdamW
-   step within 1e-4;
+   step within 1e-4; and a narrow fp32 Mamba train step (falcon-mamba-7b's
+   smoke widths at d_model 256, ssm_state 16, 2 layers, 2 x 77 tokens)
+   card against CPU: both scan kernels (2 forward and 1 backward launch a
+   layer), the loss and every gradient (a_log and d_skip included) within
+   1e-4 of each leaf's max, the parameters after one AdamW step within 1e-4
+   where the gradient settles the update;
 4. serve granite-8b at full width and depth in bf16 through
    ``repro_torch.launch.serve.generate`` (4 requests, prompt 1000, 16 decode
    steps), counting kernel launches (every prefill attention on the wgmma
@@ -154,6 +166,17 @@ result line:
    forward and backward, attention forward and backward, cuBLAS GEMMs, the
    MoE's dispatch and combine (index, gather and scatter kernels), AdamW
    (traced apart) and the rest, with the idle share;
+5d. train falcon-mamba-7b at full width, cut to 16 of its 64 layers (bf16,
+   fp32 AdamW state, remat "full", the full CE as the reference takes it)
+   at 4 x 4096 through ``train.steps.make_train_step``: 2 warm-up and 8
+   timed steps (median, range, tokens/s, model FLOPs share, peak memory),
+   each with 32 forward and 16 backward selective-scan launches and no
+   other kernel; then 6 steps on one fixed batch, whose loss must fall, and
+   one step under ``torch.profiler`` split into the scan's forward and
+   backward, cuBLAS GEMMs, the loss head (the kernels of the operators that
+   read a tensor of the logits' size or multiply by the head, in the same
+   traced step), AdamW (traced apart) and the rest, with the idle share,
+   and the phase's wall time;
 6. plan: the planner (``repro_torch.core``) on the card at the paper's
    128-server scale (degree 4, 100 Gbps links), each result held against
    the same call on the CPU or against the NumPy oracles: (6a) pricing 256
@@ -246,8 +269,9 @@ HUBERT_CASES = tuple((PROMPT, PROMPT, D_AU, dt, False, 0, H_AU, H_AU)
                      for dt in (torch.bfloat16, torch.float16, torch.float32))
 CROSS_CASE = (PROMPT, IMG_TOKENS, D, torch.bfloat16, False, 0, KV, H)
 KERNEL_COUNTERS = ("attention_launches", "attention_bwd_launches", "grouped_matmul_launches",
-                   "grouped_matmul_bwd_launches", "selective_scan_launches", "lru_scan_launches",
-                   "bag_lookup_launches", "bag_lookup_bwd_launches")
+                   "grouped_matmul_bwd_launches", "selective_scan_launches",
+                   "selective_scan_bwd_launches", "lru_scan_launches", "bag_lookup_launches",
+                   "bag_lookup_bwd_launches")
 # The same launches again, by the tiling that served them.
 TILING_COUNTERS = ("attention_wgmma_launches", "attention_fma_launches",
                    "attention_bwd_wgmma_launches", "attention_bwd_fma_launches",
@@ -274,6 +298,10 @@ TRAIN_STEPS, FIXED_STEPS, TRAIN_LR = 8, 6, 3e-4
 # 4; the capacity of its expert products at that batch.
 MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, MOE_WARMUP = "qwen3-moe-30b-a3b", 4, 2
 C_TRAIN = int(1.25 * TRAIN_B * TRAIN_S * 8 / E_MOE)  # 1280
+# Training the ssm family (phase 5d): falcon-mamba-7b at full width, its 64
+# layers cut to 16 (27 GB of training state, about 57 GB at the peak) and
+# TRAIN_4K's global batch of 256 to 4.
+SSM_TRAIN_ARCH, SSM_TRAIN_LAYERS, SSM_WARMUP = "falcon-mamba-7b", 16, 2
 # The backward kernel's cases (B, H, KV, S, D, dtype, causal): minicpm-2b's
 # and granite-8b's training attention (the first is the main path's), one
 # fp32 case on the fma forward, and a ragged non-causal one.
@@ -651,6 +679,95 @@ def check_gmm_bwd(moe_gmm_bwd, ref_moe_gmm_bwd, gmm_bwd_tiling, gen, dev, smi) -
     return out
 
 
+def mamba_bwd_bound(xc, dt, a, b, c, d_skip, dy, dh) -> tuple[float, str, float, float]:
+    """Least time for the card to compute the scan's six gradients: the
+    forward's inputs, dy and dh read once (b and c only where the scan reads
+    them) and dxc, ddt, da, db, dc, dd written once over 3.35 TB/s, against
+    one decay a (element, state), B*L*DI*ST exps, over the SFU rate.  Also
+    both times."""
+    Bm, L, DI = xc.shape
+    ST = a.shape[1]
+    xb, bb = xc.element_size(), b.element_size()
+    nbytes = (2 * xc.numel() * xb + (dt.numel() + dy.numel()) * 4 + Bm * L * DI * 4
+              + 2 * (a.numel() + d_skip.numel()) * 4 + 2 * (b.numel() + c.numel()) * bb
+              + (dh.numel() * 4 if dh is not None else 0))
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, Bm * L * DI * ST / SFU_EXP_PER_S
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes",
+            t_bytes * 1e3, t_ops * 1e3)
+
+
+# The scan backward's cases (name, B, L, DI, ST, R, dtype, with dh): falcon-
+# mamba-7b's training shape (b and c strided as the layer makes them) in bf16
+# (the main path's) and fp32; ragged (L and DI off the 8-step chunk and the
+# 128-channel block); 64 and 128 states (4 and 8 lanes a channel); a seeded
+# gradient for the final state.
+MAMBA_BWD_CASES = (
+    ("training", TRAIN_B, TRAIN_S, DI_MAMBA, ST_MAMBA, R_MAMBA, torch.bfloat16, False),
+    ("training_fp32", TRAIN_B, TRAIN_S, DI_MAMBA, ST_MAMBA, R_MAMBA, torch.float32, False),
+    ("ragged", 2, 1001, 200, ST_MAMBA, None, torch.bfloat16, False),
+    ("st64", 2, 333, 520, 64, None, torch.float32, False),
+    ("st128", 2, 100, 100, 128, 8, torch.bfloat16, False),
+    ("dh", 2, 500, 300, ST_MAMBA, 8, torch.float32, True),
+)
+
+
+def check_mamba_bwd(mamba_scan_bwd, ref_mamba_scan_bwd, gen, dev, smi) -> dict:
+    """The scan's backward against its plain version on each of
+    MAMBA_BWD_CASES: two launches equal to the bit; each fp32 output within
+    1e-4 of its max|.| (the forward's bar; the sums run over up to DI = 8192
+    channels for db and dc and B*L = 16384 steps for da and dd, in another
+    order than the plain version's), and each output in bf16 (dxc, db, dc)
+    within that plus one rounding on each side, bf16's eps (2^-7) times the
+    value; the
+    time per call (both launches) beside the bound and the plain version's
+    time.  No PyTorch call computes the function, so there is no library
+    time.  Returns each case's numbers, by name."""
+    names = ("dxc", "ddt", "da", "db", "dc", "dd")
+    out = {}
+    for name, Bm, L, DI, ST, R, dtype, with_dh in MAMBA_BWD_CASES:
+        args = mamba_inputs(gen, Bm, L, DI, ST, dtype, R)
+        dy = torch.randn(Bm, L, DI, generator=gen, device=dev)
+        dh = torch.randn(Bm, DI, ST, generator=gen, device=dev) if with_dh else None
+        got = mamba_scan_bwd(*args, dy, dh)
+        torch.cuda.synchronize()
+        again = mamba_scan_bwd(*args, dy, dh)
+        require(all(torch.equal(g, a) for g, a in zip(got, again)),
+                f"two scan backward launches equal to the bit, {name}")
+        del again
+        want = ref_mamba_scan_bwd(*args, dy, dh)
+        label = (f"{name} B={Bm} L={L} DI={DI} ST={ST} {str(dtype)[6:]}"
+                 + (" b,c strided" if R else "") + (" dh" if with_dh else ""))
+        errs, bars = {}, {}
+        for n, g, w in zip(names, got, want):
+            require(g.dtype == w.dtype and g.shape == w.shape and bool(torch.isfinite(g).all()),
+                    f"scan backward {n}: {g.dtype} {tuple(g.shape)} finite, {label}")
+            g, w = g.float(), w.float()
+            scale = float(w.abs().max())
+            diff = (g - w).abs()
+            over = diff - 1e-4 * scale
+            if n in ("dxc", "db", "dc") and dtype != torch.float32:
+                over = over - torch.finfo(dtype).eps * w.abs()
+            errs[n], bars[n] = float(diff.max()), 1e-4 * scale
+            require(float(over.max()) <= 0.0,
+                    f"scan backward {n} vs plain, {label}: max|err| {errs[n]}, max|want| {scale}")
+        del got, want
+        kernel_ms = time_ms(lambda: mamba_scan_bwd(*args, dy, dh), 10, warmup=2)
+        plain_ms = time_ms(lambda: ref_mamba_scan_bwd(*args, dy, dh), 1, warmup=0)
+        bound_ms, bound_by, bytes_ms, exp_ms = mamba_bwd_bound(*args, dy, dh)
+        print(f"phase 3 kernel: mamba_scan_bwd {label}: max|err| {errs} (bars 1e-4 max|.| "
+              f"{bars}, bf16 outputs plus 2^-7 |value|), two launches bitwise equal; kernel_ms "
+              f"{kernel_ms} plain_ms {plain_ms} library_ms None bound_ms {bound_ms} ({bound_by}; "
+              f"bytes {bytes_ms} ms, exps {exp_ms} ms) share of bound {bound_ms / kernel_ms} on "
+              f"{smi}")
+        out[name] = dict(max_abs_err=max(errs.values()), max_abs_err_by_grad=errs,
+                         kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+                         bound_ms=bound_ms, bound_by=bound_by)
+        del args, dy, dh
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def attention_bwd_bound(q, k, causal: bool) -> tuple[float, str]:
     """Least time for the card: 5 products of 2*D flops a kept (query, key)
     pair (half the pairs under a causal mask) over the dtype's peak, against
@@ -968,6 +1085,61 @@ def check_moe_train_step(lm, make_train_step, optim, ops, cfg, dev) -> dict:
     return errs
 
 
+MAMBA_STEP_S = 77  # the narrow Mamba step's tokens a sequence: ragged, across the 8-step chunks
+
+
+def check_mamba_train_step(lm, make_train_step, optim, ops, cfg, dev) -> dict:
+    """Phase 3 model: the loss and every gradient (``a_log`` and ``d_skip``
+    included) of a narrow fp32 Mamba on the card (the scan's forward and
+    backward kernels) against the same model on the CPU (plain versions),
+    then one ``make_train_step`` (AdamW, lr 1e-3) on each.  Gradients within
+    1e-4 of each leaf's max; parameters within 1e-4 where the gradient
+    settles AdamW's first update, and within its 2 lr bound on the entries
+    whose gradient is within rounding of 0 (``adamw_step_errs``).  Remat
+    "full": two forward launches a layer, one backward."""
+    m_cpu = lm.init(0, cfg, device="cpu")
+    m_gpu = lm.init(0, cfg, device=dev)
+    m_gpu.load_state_dict(m_cpu.state_dict())
+    toks = torch.randint(0, cfg.vocab, (2, MAMBA_STEP_S),
+                         generator=torch.Generator().manual_seed(7))
+    batches = {"cpu": {"tokens": toks}, "card": {"tokens": toks.to(dev)}}
+    losses, grads = {}, {}
+    for name, m in (("cpu", m_cpu), ("card", m_gpu)):
+        m.requires_grad_(True)
+        params = dict(m.named_parameters())
+        for n in COUNTERS:
+            setattr(ops, n, 0)
+        loss, _ = lm.loss_fn(m, batches[name], cfg)
+        grads[name] = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        losses[name] = float(loss.detach())
+    torch.cuda.synchronize()
+    counts = {n: getattr(ops, n) for n in COUNTERS}
+    want = {n: 0 for n in COUNTERS}
+    want.update(selective_scan_launches=2 * cfg.n_layers, selective_scan_bwd_launches=cfg.n_layers)
+    require(counts == want, f"narrow Mamba train step launches {counts}, want {want}")
+    require(any(n.endswith("a_log") for n in grads["cpu"])
+            and any(n.endswith("d_skip") for n in grads["cpu"]),
+            f"the narrow Mamba's leaves hold a_log and d_skip: {sorted(grads['cpu'])}")
+    errs = {"loss": abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"]),
+            "grads": max_rel_err(grads["card"], grads["cpu"]),
+            "a_log, d_skip grads": max_rel_err(
+                {n: g for n, g in grads["card"].items() if n.endswith(("a_log", "d_skip"))},
+                {n: g for n, g in grads["cpu"].items() if n.endswith(("a_log", "d_skip"))})}
+    require(max(errs.values()) <= 1e-4, f"narrow Mamba loss and gradients, card vs CPU: {errs}")
+    lr = 1e-3
+    for m, b in ((m_cpu, batches["cpu"]), (m_gpu, batches["card"])):
+        opt = optim.adamw(optim.constant(lr), weight_decay=0.0)
+        make_train_step(cfg, opt)(m, opt.init(dict(m.named_parameters())), b, 0)
+    errs.update(adamw_step_errs(dict(m_gpu.named_parameters()),
+                                {n: p.detach() for n, p in m_cpu.named_parameters()},
+                                grads["cpu"], lr))
+    require(errs["adamw step params"] <= 1e-4
+            and errs["adamw step, entries with g within rounding of 0 (in lr)"] <= 2.0 + 1e-3,
+            f"narrow Mamba AdamW step, card vs CPU: {errs}")
+    errs["launches"] = {n: c for n, c in counts.items() if c}
+    return errs
+
+
 def resume_check(train_loop, optim, cfg, dev) -> dict:
     """Phase 5 resume: ``train.loop.train`` on the card with a checkpoint
     every 2 steps and an injected failure at step 4, resumed to step 8,
@@ -1027,10 +1199,10 @@ def model_flops(cfg, params: dict, B: int, S: int) -> tuple[float, float]:
 
 def train_full(lm, ops, optim, make_train_step, data, cfg, dev, smi, phase: str, want: dict,
                probes, warmup: int = 0, loss0_tol: float = 0.5) -> dict:
-    """Phases 5 and 5c: trains ``cfg`` on the card (bf16, fp32 AdamW state,
-    WSD) for ``warmup`` + TRAIN_STEPS steps of ``batch_for_step`` at TRAIN_B x
-    TRAIN_S, then FIXED_STEPS steps on one fixed batch, with remat "full" and
-    the chunked loss.  Every count is set to 0 just before the first step
+    """Phases 5, 5c and 5d: trains ``cfg`` on the card (bf16, fp32 AdamW
+    state, WSD) for ``warmup`` + TRAIN_STEPS steps of ``batch_for_step`` at
+    TRAIN_B x TRAIN_S, then FIXED_STEPS steps on one fixed batch, with remat
+    "full" and LOSS_CHUNK passed to lm.loss_fn.  Every count is set to 0 just before the first step
     and read just after the last of those runs; every one of those steps
     must launch ``want``, the ``probes`` parameters must change, and the first
     loss must lie within ``loss0_tol`` of ln V.  Returns
@@ -1053,7 +1225,8 @@ def train_full(lm, ops, optim, make_train_step, data, cfg, dev, smi, phase: str,
     print(f"phase {phase} train: {cfg.name} ({cfg.n_layers} layers) init on the card: "
           f"{n_params} parameters ({cfg.param_dtype}, {n_params * 2 / 1e9} GB), AdamW state m, "
           f"v, fp32 master {state_gb} GB, in {time.perf_counter() - t0:.2f} s; batch {TRAIN_B} x "
-          f"{TRAIN_S}, remat full, loss chunk {LOSS_CHUNK}, lr {TRAIN_LR} (wsd)")
+          f"{TRAIN_S}, remat full, loss_chunk {LOSS_CHUNK}, lr {TRAIN_LR} "
+          f"(wsd)")
     step_fn = make_train_step(cfg, opt, remat="full", loss_chunk=LOSS_CHUNK)
     steps = warmup + TRAIN_STEPS
     spec = data.DataSpec(cfg=cfg, shape=ShapeSpec("train_4k_b4", TRAIN_S, TRAIN_B, "train"))
@@ -1128,18 +1301,33 @@ MOE_SPLIT = (
 )
 
 
-def trace_train_step(lm, run: dict, cfg, group_of, phase: str, smi) -> dict:
+def trace_train_step(lm, run: dict, cfg, group_of, phase: str, smi, rules=MOE_SPLIT,
+                     groups=("attention forward", "attention backward", "cuBLAS GEMMs"),
+                     want=None, head=None) -> dict:
     """One more step of ``run`` (train_full's) on its fixed batch under
-    ``torch.profiler``: device time by part, the idle share, and AdamW's
-    update traced apart (its elementwise kernels are the same as the rest's)
-    on the next step's gradients."""
+    ``torch.profiler``: device time by part (``rules``' kernel-name patterns
+    first, then trace_train's ``groups``; the rest apart), the idle share, and
+    AdamW's update traced apart (its elementwise kernels are the same as the
+    rest's) on the next step's gradients.  ``head``, if given, is (predicate,
+    GEMM bound ms): the kernels launched in the same traced step by the
+    operators for which ``predicate(name, input_shapes)`` holds form the loss
+    head's part, its GEMMs and the rest apart, and come out of the GEMMs' and
+    the rest's shares; a session whose head GEMMs took less than the bound
+    (events dropped) is traced again."""
     model, state, opt, batch = run["model"], run["state"], run["opt"], run["batch"]
     step = run["next_step"]
+    if want is None:
+        want = (tuple(pats for _, pats in MOE_SPLIT[:2])
+                + (("flash_attention_wgmma_kernel",), ("dkdv_wgmma_kernel",)))
     by_op: dict = {}
-    traced_ms, kernels = profiled(lambda i: run["step_fn"](model, state, batch, step + i),
-                                  tuple(pats for _, pats in MOE_SPLIT[:2])
-                                  + (("flash_attention_wgmma_kernel",), ("dkdv_wgmma_kernel",)),
-                                  ops=by_op)
+    head_kernels: dict = {}
+
+    def head_gemm_ms(marked: dict) -> float:
+        return sum(t for k, t in marked.items() if group_of(k) == "GEMM")
+
+    mark = None if head is None else (head[0], lambda m: head_gemm_ms(m) >= head[1], head_kernels)
+    traced_ms, kernels = profiled(lambda i: run["step_fn"](model, state, batch, step + i), want,
+                                  ops=by_op, mark=mark)
     params = dict(model.named_parameters())
     with torch.enable_grad():
         total, _ = lm.loss_fn(model, batch, cfg, remat="full", loss_chunk=LOSS_CHUNK)
@@ -1149,23 +1337,28 @@ def trace_train_step(lm, run: dict, cfg, group_of, phase: str, smi) -> dict:
     adamw = sum(adamw_kernels.values())
     del grads
     busy = sum(kernels.values())
-    split = {name: 0.0 for name, _ in MOE_SPLIT}
-    split.update({"attention forward": 0.0, "attention backward": 0.0, "cuBLAS GEMMs": 0.0})
+    split = {name: 0.0 for name, _ in rules} | {g: 0.0 for g in groups}
+    if head is not None:
+        split["loss head"] = sum(head_kernels.values())
     other = {}
     for k, t in kernels.items():
-        part = next((name for name, pats in MOE_SPLIT if any(p in k for p in pats)), None)
+        t -= head_kernels.get(k, 0.0)  # the head's launches of this kernel, counted above
+        part = next((name for name, pats in rules if any(p in k for p in pats)), None)
         group = group_of(k)
         if part is None and group != "other":
             part = "cuBLAS GEMMs" if group == "GEMM" else group
-        if part is None:
-            other[k] = t
-        else:
+        if part in split:
             split[part] += t
+        else:
+            other[k] = t
     split["AdamW (traced apart)"] = adamw
     split["rest"] = sum(other.values()) - adamw
     idle = 1.0 - busy / traced_ms
+    head_gemm = head_gemm_ms(head_kernels)
     print(f"phase {phase} trace: one step {traced_ms} ms traced wall, {busy} ms device busy, idle "
           f"{idle:.4f}; " + ", ".join(f"{k} {v} ms ({v / busy:.2%})" for k, v in split.items())
+          + (f" (the loss head: GEMMs {head_gemm} ms against their {head[1]} ms bound, the rest "
+             f"{split['loss head'] - head_gemm} ms)" if head is not None else "")
           + f"; on {smi}")
     top = sorted(other.items(), key=lambda kv: -kv[1])[:10]
     print(f"phase {phase} trace: the kernels of AdamW and the rest that took the most device "
@@ -1173,7 +1366,57 @@ def trace_train_step(lm, run: dict, cfg, group_of, phase: str, smi) -> dict:
     top = sorted(by_op.items(), key=lambda kv: -kv[1])[:12]
     print(f"phase {phase} trace: the step's device time by the operator that launched it, the "
           "most first: " + "; ".join(f"{k} {t} ms" for k, t in top))
-    return dict(traced_ms=traced_ms, busy_ms=busy, idle_share=idle, split_ms=split)
+    return dict(traced_ms=traced_ms, busy_ms=busy, idle_share=idle, split_ms=split,
+                head_gemm_ms=head_gemm if head is not None else None)
+
+
+def loss_head_ops(cfg):
+    """(predicate, GEMM bound ms) of the loss head of a TRAIN_B x TRAIN_S step
+    of ``cfg`` with the full CE, for trace_train_step: its operators are those
+    that read a tensor of the logits' size (the logits, their fp32 copy, their
+    gradients; the two backward products read one) and the product with an
+    operand shaped as the head (the logits' forward); the bound is its three
+    products at the bf16 peak."""
+    logits = TRAIN_B * TRAIN_S * cfg.vocab
+
+    def numel(shape) -> int:  # 0 for a scalar or a list of tensors
+        return math.prod(shape) if shape and all(isinstance(d, int) for d in shape) else 0
+
+    def predicate(name: str, shapes) -> bool:
+        return (any(numel(s) == logits for s in shapes)
+                or (name == "aten::mm" and [cfg.d_model, cfg.vocab] in shapes))
+
+    return predicate, 3 * 2.0 * logits * cfg.d_model / PEAK_FLOPS[torch.bfloat16] * 1e3
+
+
+def train_ssm(lm, ops, optim, make_train_step, data, group_of, cfg, dev, smi) -> dict:
+    """Phase 5d: trains ``cfg`` (falcon-mamba-7b at full width and a cut
+    depth; the training state of all 64 layers, about 116 GB, does not fit
+    one card) through train_full, each step with two forward scan launches a
+    layer (remat "full" runs each layer's forward twice) and one backward,
+    then traces one step; the model is freed before it returns.  The untied
+    head lifts the first loss, as qwen3-moe's does: a bar of 1 rather than
+    0.5.  Returns the numbers of the run."""
+    t0 = time.perf_counter()
+    L_ = cfg.n_layers
+    want = {n: 0 for n in COUNTERS}
+    want.update(selective_scan_launches=2 * L_, selective_scan_bwd_launches=L_)
+    run = train_full(lm, ops, optim, make_train_step, data, cfg, dev, smi, "5d", want,
+                     ("embed", "lm_head", "blocks.0.w_in", "blocks.0.a_log", "blocks.0.d_skip",
+                      f"blocks.{L_ - 1}.w_out", "final_norm"),
+                     warmup=SSM_WARMUP, loss0_tol=1.0)
+    trace = trace_train_step(lm, run, cfg, group_of, "5d", smi, rules=(),
+                             groups=("selective scan forward", "selective scan backward",
+                                     "cuBLAS GEMMs"),
+                             want=(("mamba_scan_kernel",), ("mamba_bwd_kernel",)),
+                             head=loss_head_ops(cfg))
+    trained = release(run)
+    summary = {k: trained[k] for k in ("n_params", "active_params", "step_ms", "tokens_per_s",
+                                        "model_tflop", "mfu", "peak_gb")}
+    summary.update(trace)
+    wall_s = time.perf_counter() - t0
+    print(f"phase 5d summary: {json.dumps(summary)} in {wall_s:.2f} s, on {smi}")
+    return dict(trained, trace=trace, wall_s=wall_s)
 
 
 def train_dlrm_paper(dlrm, dlrm_testbed, optim, ops, group_of, dev, smi) -> dict:
@@ -1282,11 +1525,11 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import (
         attention_tiling, first_masked_row, flash_attention,
     )
-    from repro_torch.kernels.mamba_scan import mamba_scan
+    from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_bwd
     from repro_torch.kernels.moe_gmm import gmm_bwd_tiling, gmm_tiling, moe_gmm, moe_gmm_bwd
     from repro_torch.kernels.ref import (
         ref_embedding_bag, ref_embedding_bag_bwd, ref_flash_attention, ref_mamba_scan,
-        ref_moe_gmm, ref_moe_gmm_bwd, ref_rglru_scan,
+        ref_mamba_scan_bwd, ref_moe_gmm, ref_moe_gmm_bwd, ref_rglru_scan,
     )
     from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch import optim
@@ -1306,7 +1549,7 @@ def main() -> int:
           f"cuda {torch.version.cuda}")
 
     kernels = ["flash_attention", "flash_attention_bwd", "moe_gmm", "moe_gmm_bwd", "mamba_scan",
-               "rglru_scan", "embedding_bag", "embedding_bag_bwd"]
+               "mamba_scan_bwd", "rglru_scan", "embedding_bag", "embedding_bag_bwd"]
     t0 = time.perf_counter()
     _build.load_all(kernels)
     print(f"phase 2 build: {', '.join(k + '.cu' for k in kernels)} in "
@@ -1328,8 +1571,8 @@ def main() -> int:
                 require(info["spill_stores"] == info["spill_loads"] == 0
                         and not info["serialised"], f"{fn} spills or serialises: {info}")
             if ("skinny_kernel" in fn or "mamba_scan_kernel" in fn  # the streams and the scan
-                    or name in ("flash_attention_bwd", "moe_gmm_bwd", "embedding_bag",
-                                "embedding_bag_bwd")):
+                    or name in ("flash_attention_bwd", "moe_gmm_bwd", "mamba_scan_bwd",
+                                "embedding_bag", "embedding_bag_bwd")):
                 require(info["spill_stores"] == info["spill_loads"] == 0 and not info["serialised"],
                         f"{fn} spills: {info}")
     bwd_report = ptxas_report(_build.build_logs.get("flash_attention_bwd", ""))
@@ -1344,6 +1587,14 @@ def main() -> int:
             got = sum(fn.startswith(base) for fn in gmm_bwd_report)
             require(got == want, f"ptxas reports {want} {base}s, not {got}: "
                                  f"{sorted(gmm_bwd_report)}")
+    scan_bwd_report = ptxas_report(_build.build_logs.get("mamba_scan_bwd", ""))
+    if scan_bwd_report:  # built in this run, every kernel checked for spills above: 3 dtypes
+        # x 4 lane counts (ST up to 16, 32, 64, 128) of the backward, and its sum of partials
+        # for each dtype
+        for base, want in (("mamba_bwd_kernel", 12), ("mamba_bwd_reduce_kernel", 3)):
+            got = sum(fn.startswith(base) for fn in scan_bwd_report)
+            require(got == want, f"ptxas reports {want} {base}s, not {got}: "
+                                 f"{sorted(scan_bwd_report)}")
     bag_bwd_report = ptxas_report(_build.build_logs.get("embedding_bag_bwd", ""))
     if bag_bwd_report:  # built in this run, every kernel checked for spills above: 3 dtypes
         # x (16-byte, scalar) small kernels, the same x (int32, int64 keys) sorted ones, and
@@ -1580,6 +1831,10 @@ def main() -> int:
                               library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
         del args, y, h, ey, eh
 
+    # The selective scan's backward at falcon-mamba-7b's training shape and
+    # the other MAMBA_BWD_CASES.
+    mamba_bwd = check_mamba_bwd(mamba_scan_bwd, ref_mamba_scan_bwd, gen, dev, smi)
+
     # The RG-LRU scan at recurrentgemma-9b's prefill (fp32, as the layer
     # passes it) and at a ragged shape, in fp32 and with bf16 inputs.
     lru_cases = [  # (B, L, D, dtype)
@@ -1732,6 +1987,15 @@ def main() -> int:
               f"{int(cf * 154 * small.top_k / small.n_experts)}), card vs CPU plain: max relative "
               f"err {moe_steps[cf]} (loss, gradients tol 1e-5; AdamW step params tol 1e-4, on "
               f"entries with g within rounding of 0 2 lr)")
+
+    # A narrow fp32 Mamba train step: the scan's forward and backward kernels
+    # on the card against the plain versions on the CPU.
+    small = dataclasses.replace(narrow_config(get_config, "falcon-mamba-7b"), n_layers=2)
+    mamba_step = check_mamba_train_step(lm, make_train_step, optim, ops, small, dev)
+    print(f"phase 3 model: narrow fp32 Mamba train step (falcon-mamba-7b smoke, d_model "
+          f"{small.d_model}, ssm_state {small.ssm_state}, 2 layers, 2 x {MAMBA_STEP_S} tokens), "
+          f"card vs CPU plain: max relative err {mamba_step} (loss, gradients tol 1e-4; AdamW "
+          f"step params tol 1e-4, on entries with g within rounding of 0 2 lr)")
 
     # Phase 4: serve granite-8b at full width and depth.
     cfg = get_config("granite-8b")
@@ -1938,6 +2202,14 @@ def main() -> int:
     moe_path = (f"{MOE_TRAIN_ARCH} train ({MOE_TRAIN_LAYERS} layers), "
                 f"{MOE_WARMUP + TRAIN_STEPS} steps")
 
+    # Phase 5d: falcon-mamba-7b trained at full width, 16 of its 64 layers.
+    ssm_trained = train_ssm(lm, ops, optim, make_train_step, data, group_of,
+                            dataclasses.replace(get_config(SSM_TRAIN_ARCH),
+                                                n_layers=SSM_TRAIN_LAYERS), dev, smi)
+    ssm_counts = ssm_trained["counts"]
+    ssm_path = (f"{SSM_TRAIN_ARCH} train ({SSM_TRAIN_LAYERS} layers), "
+                f"{SSM_WARMUP + TRAIN_STEPS} steps")
+
     # Phase 6: the planner on the card.
     planned = plan_phase(dev, smi)
     print(f"phase 6 summary: {json.dumps(planned)} on {smi}")
@@ -2096,10 +2368,27 @@ def main() -> int:
         "source": "src/repro_torch/csrc/mamba_scan.cu",
         "replaces": "src/repro/kernels/mamba_scan.py:57",
         "tpu_ref": "kernels/mamba_scan.py:57",
-        "launches": falcon["selective_scan_launches"],
-        "launches_by_path": {"falcon-mamba-7b": falcon["selective_scan_launches"]},
+        "launches": falcon["selective_scan_launches"] + ssm_counts["selective_scan_launches"],
+        "launches_by_path": {"falcon-mamba-7b": falcon["selective_scan_launches"],
+                             ssm_path: ssm_counts["selective_scan_launches"]},
+        "launches_per_train_step": ssm_trained["launches_per_step"]["selective_scan_launches"],
         "ms": mamba_main["kernel_ms"],
         **mamba_main,
+    }, {
+        "name": "mamba_scan_bwd",
+        "route": "cuda",
+        "tiling": "checkpointed reverse walk",
+        "source": "src/repro_torch/csrc/mamba_scan_bwd.cu",
+        # The TPU side has no backward kernel (jax.grad of the XLA scan).
+        "replaces": "none: jax.grad of chunked_linear_scan at src/repro/models/layers.py:364",
+        "library": None,
+        "launches": ssm_counts["selective_scan_bwd_launches"],
+        "launches_by_path": {ssm_path: ssm_counts["selective_scan_bwd_launches"]},
+        "launches_per_step": ssm_trained["launches_per_step"]["selective_scan_bwd_launches"],
+        "ms": mamba_bwd["training"]["kernel_ms"],
+        **mamba_bwd["training"],
+        **{f"{name}_{k}": v for name, numbers in mamba_bwd.items() if name != "training"
+           for k, v in numbers.items()},
     }, {
         "name": "rglru_scan",
         "route": "cuda",
@@ -2288,32 +2577,51 @@ def launch_ms(fn, iters: int, pattern: str, flush=None) -> float:
     require(False, f"the profiler saw one {pattern} a call: {launches}")
 
 
-def profiled(fn, want=(), tries: int = 3, ops: dict | None = None) -> tuple[float, dict]:
+def profiled(fn, want=(), tries: int = 3, ops: dict | None = None,
+             mark=None) -> tuple[float, dict]:
     """``fn(i)`` (i the attempt) under ``torch.profiler`` -> (host wall ms
     after a synchronise, {kernel: device ms}); ``ops``, if given, gets the
-    device ms of the kernels each operator launched itself, by operator.  A
-    session that recorded no device event, or no kernel named like one of
-    each tuple of patterns in ``want`` (the profiler drops events now and
-    then), is run again, up to ``tries`` times; then the check fails."""
+    device ms of the kernels each operator launched itself, by operator.
+    ``mark``, if given, is (predicate, enough, out): the session records input
+    shapes, and ``out`` gets the device ms, by kernel, of the kernels launched
+    by the operators for which ``predicate(name, input_shapes)`` holds.  A
+    session that recorded no device event, no kernel named like one of each
+    tuple of patterns in ``want``, or marked kernels for which ``enough``
+    fails (the profiler drops events now and then), is run again, up to
+    ``tries`` times; then the check fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for i in range(tries):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=mark is not None) as prof:
             t0 = time.perf_counter()
             fn(i)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         kernels = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA}
+        marked: dict = {}
+        if mark is not None:
+            predicate, enough, _ = mark
+            for e in prof.events():
+                if e.device_type == DeviceType.CPU and e.kernels and predicate(e.name,
+                                                                               e.input_shapes):
+                    for k in e.kernels:
+                        marked[k.name] = marked.get(k.name, 0.0) + k.duration / 1e3
+            if not enough(marked):
+                continue
         if kernels and all(any(p in k for k in kernels for p in alts) for alts in want):
+            if mark is not None:
+                mark[2].update(marked)
             if ops is not None:
                 ops.update({e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
                             if e.device_type == DeviceType.CPU and e.self_device_time_total > 0})
             return wall_ms, kernels
-    require(False, f"the profiler saw kernels named like each of {want} in {tries} sessions: "
-                   f"{sorted(kernels)}")
+    require(False, f"the profiler saw kernels named like each of {want}"
+                   + (" and enough marked kernels" if mark is not None else "")
+                   + f" in {tries} sessions: {sorted(kernels)}")
 
 
 def named_ms(times: dict, *patterns: str) -> float:

@@ -1,4 +1,5 @@
-"""Mamba-1 selective scan on Hopper: the wrapper of ``csrc/mamba_scan.cu``.
+"""Mamba-1 selective scan on Hopper: the wrappers of ``csrc/mamba_scan.cu``
+and ``csrc/mamba_scan_bwd.cu``.
 
 Replaces the Pallas TPU kernel ``repro.kernels.mamba_scan``.  The CUDA
 kernel computes the same function from h = 0 (y in fp32, the final state in
@@ -7,6 +8,12 @@ itself, so nothing here pads.  ``b`` and ``c`` may be the strided slices of
 the x_proj output as the Mamba layer makes them: the kernel takes their batch
 and time strides.  Its plain PyTorch version is
 :func:`repro_torch.kernels.ref.ref_mamba_scan`.
+
+Training: :func:`mamba_scan_bwd` wraps the backward kernel, which recomputes
+the states from checkpoints and gives the gradients of all six inputs (no
+float atomics: partial sums added in a fixed order).  Its plain version is
+:func:`repro_torch.kernels.ref.ref_mamba_scan_bwd`.  :class:`SelectiveScanFn`
+joins the forward and the backward for autograd.
 """
 
 from __future__ import annotations
@@ -14,9 +21,11 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _build
 from .flash_attention import DTYPE_CODES
+from .ref import ref_mamba_scan, ref_mamba_scan_bwd
 
 MAX_STATE = 128
 
@@ -30,6 +39,49 @@ def _entry():
     return fn
 
 
+def _bwd_entries():
+    lib = _build.load("mamba_scan_bwd")
+    fn, ws = lib.repro_mamba_scan_bwd, lib.repro_mamba_scan_bwd_workspace
+    if fn.argtypes is None:
+        p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p] * 15 + [i, i, i, i, q, q, q, q, i, p]
+        fn.restype = i
+        ws.argtypes = [i, i, i, i]
+        ws.restype = q
+    return fn, ws
+
+
+def _checked(name, xc, dt, a, b, c, d_skip):
+    """The scan's inputs checked as both kernels take them -> (xc, dt, a, b,
+    c, d_skip) with xc, dt, a and d_skip contiguous and b, c of unit state
+    stride, and (B, L, DI, ST)."""
+    ts = (xc, dt, a, b, c, d_skip)
+    if not (xc.is_cuda and all(t.device == xc.device for t in ts)):
+        raise ValueError(f"{name}: every input must lie on one CUDA device")
+    if xc.dtype not in DTYPE_CODES or b.dtype != xc.dtype or c.dtype != xc.dtype:
+        raise ValueError(
+            f"{name}: xc, b, c must share one of {list(DTYPE_CODES)}; "
+            f"got {xc.dtype}, {b.dtype}, {c.dtype}"
+        )
+    if not all(t.dtype == torch.float32 for t in (dt, a, d_skip)):
+        raise ValueError(f"{name}: dt, a and d_skip must be float32")
+    if xc.dim() != 3 or a.dim() != 2 or b.dim() != 3 or d_skip.dim() != 1:
+        raise ValueError(f"{name}: xc, dt (B,L,DI), a (DI,ST), b, c (B,L,ST), d_skip (DI,)")
+    B, L, DI = xc.shape
+    ST = a.shape[1]
+    if (dt.shape != xc.shape or a.shape[0] != DI or b.shape != (B, L, ST)
+            or c.shape != b.shape or d_skip.shape != (DI,)):
+        raise ValueError(
+            f"{name}: shapes xc {tuple(xc.shape)}, dt {tuple(dt.shape)}, a {tuple(a.shape)}, "
+            f"b {tuple(b.shape)}, c {tuple(c.shape)}, d_skip {tuple(d_skip.shape)}"
+        )
+    if min(B, L, DI, ST) < 1 or B > 65535 or ST > MAX_STATE:
+        raise ValueError(f"{name}: B={B}, L={L}, DI={DI}, ST={ST} out of range")
+    xc, dt, a, d_skip = (t.contiguous() for t in (xc, dt, a, d_skip))
+    b, c = (t if t.stride(2) == 1 else t.contiguous() for t in (b, c))
+    return (xc, dt, a, b, c, d_skip), (B, L, DI, ST)
+
+
 def mamba_scan(xc, dt, a, b, c, d_skip):
     """xc, dt: (B, L, DI); a: (DI, ST); b, c: (B, L, ST); d_skip: (DI,), all on
     one CUDA device -> (y (B, L, DI) fp32, h_final (B, DI, ST) fp32).
@@ -38,30 +90,7 @@ def mamba_scan(xc, dt, a, b, c, d_skip):
     fp32.  Launches the CUDA kernel once, or raises: this function never
     computes on another path.
     """
-    ts = (xc, dt, a, b, c, d_skip)
-    if not (xc.is_cuda and all(t.device == xc.device for t in ts)):
-        raise ValueError("mamba_scan: every input must lie on one CUDA device")
-    if xc.dtype not in DTYPE_CODES or b.dtype != xc.dtype or c.dtype != xc.dtype:
-        raise ValueError(
-            f"mamba_scan: xc, b, c must share one of {list(DTYPE_CODES)}; "
-            f"got {xc.dtype}, {b.dtype}, {c.dtype}"
-        )
-    if not all(t.dtype == torch.float32 for t in (dt, a, d_skip)):
-        raise ValueError("mamba_scan: dt, a and d_skip must be float32")
-    if xc.dim() != 3 or a.dim() != 2 or b.dim() != 3 or d_skip.dim() != 1:
-        raise ValueError("mamba_scan: xc, dt (B,L,DI), a (DI,ST), b, c (B,L,ST), d_skip (DI,)")
-    B, L, DI = xc.shape
-    ST = a.shape[1]
-    if (dt.shape != xc.shape or a.shape[0] != DI or b.shape != (B, L, ST)
-            or c.shape != b.shape or d_skip.shape != (DI,)):
-        raise ValueError(
-            f"mamba_scan: shapes xc {tuple(xc.shape)}, dt {tuple(dt.shape)}, a {tuple(a.shape)}, "
-            f"b {tuple(b.shape)}, c {tuple(c.shape)}, d_skip {tuple(d_skip.shape)}"
-        )
-    if min(B, L, DI, ST) < 1 or B > 65535 or ST > MAX_STATE:
-        raise ValueError(f"mamba_scan: B={B}, L={L}, DI={DI}, ST={ST} out of range")
-    xc, dt, a, d_skip = (t.contiguous() for t in (xc, dt, a, d_skip))
-    b, c = (t if t.stride(2) == 1 else t.contiguous() for t in (b, c))
+    (xc, dt, a, b, c, d_skip), (B, L, DI, ST) = _checked("mamba_scan", xc, dt, a, b, c, d_skip)
     y = torch.empty((B, L, DI), dtype=torch.float32, device=xc.device)
     h = torch.empty((B, DI, ST), dtype=torch.float32, device=xc.device)
     with torch.cuda.device(xc.device):
@@ -74,3 +103,80 @@ def mamba_scan(xc, dt, a, b, c, d_skip):
     if err:
         raise RuntimeError(f"mamba_scan: CUDA error {err} at launch")
     return y, h
+
+
+def mamba_scan_bwd(xc, dt, a, b, c, d_skip, dy, dh=None):
+    """The scan's gradient on the card: the forward's inputs, dy (B, L, DI)
+    fp32 and dh (B, DI, ST) fp32 or None (0) -> (dxc in xc's dtype, ddt fp32,
+    da (DI, ST) fp32, db, dc (B, L, ST) contiguous in b's dtype, dd (DI,)
+    fp32), the function of :func:`repro_torch.kernels.ref.ref_mamba_scan_bwd`.
+
+    Launches the backward kernel and its fixed-order sum of partials on the
+    current stream (scratch from PyTorch's allocator), or raises: this
+    function never computes on another path.
+    """
+    (xc, dt, a, b, c, d_skip), (B, L, DI, ST) = _checked(
+        "mamba_scan_bwd", xc, dt, a, b, c, d_skip)
+    if dy.device != xc.device or dy.dtype != torch.float32 or dy.shape != (B, L, DI):
+        raise ValueError(f"mamba_scan_bwd: dy must be float32 ({B}, {L}, {DI}) on {xc.device}; "
+                         f"got {dy.dtype} {tuple(dy.shape)} on {dy.device}")
+    if dh is not None and (dh.device != xc.device or dh.dtype != torch.float32
+                           or dh.shape != (B, DI, ST)):
+        raise ValueError(f"mamba_scan_bwd: dh must be float32 ({B}, {DI}, {ST}) on "
+                         f"{xc.device}; got {dh.dtype} {tuple(dh.shape)} on {dh.device}")
+    dy = dy.contiguous()
+    dh = None if dh is None else dh.contiguous()
+    dev = xc.device
+    dxc = torch.empty_like(xc)
+    ddt = torch.empty((B, L, DI), dtype=torch.float32, device=dev)
+    da = torch.empty((DI, ST), dtype=torch.float32, device=dev)
+    db = torch.empty((B, L, ST), dtype=b.dtype, device=dev)
+    dc = torch.empty((B, L, ST), dtype=c.dtype, device=dev)
+    dd = torch.empty((DI,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        fn, ws = _bwd_entries()
+        work = torch.empty(ws(B, L, DI, ST), dtype=torch.uint8, device=dev)
+        err = fn(
+            xc.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+            d_skip.data_ptr(), dy.data_ptr(), 0 if dh is None else dh.data_ptr(),
+            dxc.data_ptr(), ddt.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(),
+            dd.data_ptr(), work.data_ptr(), B, L, DI, ST,
+            b.stride(0), b.stride(1), c.stride(0), c.stride(1),
+            DTYPE_CODES[xc.dtype], torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"mamba_scan_bwd: CUDA error {err} at launch")
+    return dxc, ddt, da, db, dc, dd
+
+
+class SelectiveScanFn(torch.autograd.Function):
+    """The selective scan with a gradient.  ``apply(xc, dt, a, b, c, d_skip)``
+    -> (y, h_final): on the card the forward launches :func:`mamba_scan` and
+    the backward launches :func:`mamba_scan_bwd` once (counted in
+    ``ops.selective_scan_bwd_launches``); on the CPU both are the plain
+    versions.  Saves the inputs (b and c as the views they are: no copy);
+    under remat the forward, and so what it saves, is recomputed.  An unused
+    output's gradient arrives as None and counts as 0."""
+
+    @staticmethod
+    def forward(ctx, xc, dt, a, b, c, d_skip):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(xc, dt, a, b, c, d_skip)
+        if xc.device.type == "cpu":
+            return ref_mamba_scan(xc, dt, a, b, c, d_skip)
+        return mamba_scan(xc, dt, a, b, c, d_skip)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy, dh):
+        from . import ops  # the launch counter; ops imports this module
+
+        xc, dt, a, b, c, d_skip = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(xc.shape, dtype=torch.float32, device=xc.device)
+        if xc.device.type == "cpu":
+            grads = ref_mamba_scan_bwd(xc, dt, a, b, c, d_skip, dy, dh)
+        else:
+            grads = mamba_scan_bwd(xc, dt, a, b, c, d_skip, dy, dh)
+            ops.selective_scan_bwd_launches += 1
+        return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))

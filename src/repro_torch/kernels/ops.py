@@ -15,15 +15,18 @@ by tiling ``attention_bwd_wgmma_launches`` or ``attention_bwd_fma_launches``);
 launches the grouped matmul's backward kernel once a product, for dx and dw
 (``grouped_matmul_bwd_launches``, and by tiling
 ``grouped_matmul_bwd_wgmma_launches`` or ``grouped_matmul_bwd_fma_launches``);
+``selective_scan`` goes through :class:`SelectiveScanFn`, whose backward
+launches the scan's backward kernel once a call, for all six gradients
+(``selective_scan_bwd_launches``);
 ``bag_lookup`` goes through :class:`EmbeddingBagFn`, whose backward launches
 the embedding bag's backward kernel (``bag_lookup_bwd_launches``, and by
 tiling ``bag_lookup_bwd_small_launches`` or ``bag_lookup_bwd_sorted_launches``).
-On the CPU under grad, both go through the same Functions on the plain
+On the CPU under grad, each goes through the same Function on the plain
 versions (the bag's gradient drops ids outside the table as ``jax.grad`` of
-the reference's gather does).  The scans have no backward yet: their
-wrappers raise ``NotImplementedError`` on a CUDA input that requires grad
-while grad is enabled, rather than hand autograd a constant.  Their CPU path
-(the plain versions) stays differentiable by autograd.
+the reference's gather does).  The RG-LRU scan has no backward yet: its
+wrapper raises ``NotImplementedError`` on a CUDA input that requires grad
+while grad is enabled, rather than hand autograd a constant.  Its CPU path
+(the plain version) stays differentiable by autograd.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import torch
 
 from .embedding_bag import EmbeddingBagFn, embedding_bag
 from .flash_attention import FlashAttentionFn, attention_tiling, flash_attention
-from .mamba_scan import mamba_scan
+from .mamba_scan import SelectiveScanFn, mamba_scan
 from .moe_gmm import GroupedMatmulFn, gmm_tiling, moe_gmm
 from .ref import (
     ref_embedding_bag, ref_flash_attention, ref_mamba_scan, ref_moe_gmm, ref_rglru_scan,
@@ -53,6 +56,7 @@ grouped_matmul_bwd_launches = 0  # counted by GroupedMatmulFn.backward
 grouped_matmul_bwd_wgmma_launches = 0
 grouped_matmul_bwd_fma_launches = 0
 selective_scan_launches = 0
+selective_scan_bwd_launches = 0  # counted by SelectiveScanFn.backward
 lru_scan_launches = 0
 bag_lookup_launches = 0
 bag_lookup_bwd_launches = 0  # counted by EmbeddingBagFn.backward
@@ -117,11 +121,13 @@ def selective_scan(xc, dt, a, b, c, d_skip):
     """Mamba-1 scan from h = 0: xc, dt (B, L, DI); a (DI, ST); b, c (B, L, ST);
     d_skip (DI,) -> (y (B, L, DI) fp32, h_final (B, DI, ST) fp32)."""
     global selective_scan_launches
-    if xc.device.type == "cpu":
-        return ref_mamba_scan(xc, dt, a, b, c, d_skip)
-    _refuse_grad("mamba_scan", "C3", xc, dt, a, b, c, d_skip)
-    out = mamba_scan(xc, dt, a, b, c, d_skip)
-    selective_scan_launches += 1
+    on_cpu = xc.device.type == "cpu"
+    if _needs_grad(xc, dt, a, b, c, d_skip):  # the kernels on the card, plain on the CPU
+        out = SelectiveScanFn.apply(xc, dt, a, b, c, d_skip)
+    else:
+        out = (ref_mamba_scan if on_cpu else mamba_scan)(xc, dt, a, b, c, d_skip)
+    if not on_cpu:
+        selective_scan_launches += 1
     return out
 
 
@@ -131,7 +137,7 @@ def lru_scan(a, b):
     global lru_scan_launches
     if a.device.type == "cpu":
         return ref_rglru_scan(a, b)
-    _refuse_grad("rglru_scan", "C4", a, b)
+    _refuse_grad("rglru_scan", "B2", a, b)
     out = rglru_scan(a, b)
     lru_scan_launches += 1
     return out

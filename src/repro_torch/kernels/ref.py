@@ -106,6 +106,51 @@ def ref_mamba_scan(xc, dt, a, b, c, d_skip):
     return torch.stack(ys, dim=1), h
 
 
+def ref_mamba_scan_bwd(xc, dt, a, b, c, d_skip, dy, dh=None):
+    """The gradient of :func:`ref_mamba_scan` given dy (B, L, DI) and dh (B,
+    DI, ST) for h_final (None: 0) -> (dxc in xc's dtype, ddt fp32, da (DI, ST)
+    fp32, db, dc (B, L, ST) in b's and c's dtypes, dd (DI,) fp32).
+
+    A reverse-time loop that recomputes the states: with a_t = exp(dt_t a)
+    and g_t = dy_t c_t + a_{t+1} g_{t+1} (g_L = dy_L c_L + dh),
+    dx_t = d_skip dy_t + dt_t sum_s g_t b_t, ddt_t = sum_s g_t (a a_t h_{t-1}
+    + x_t b_t), da = sum_{b,t} g_t dt_t a_t h_{t-1}, db_t = sum_d g_t dt_t
+    x_t, dc_t = sum_d dy_t h_t, dd = sum_{b,t} dy_t x_t; all in fp32, each
+    output rounded once."""
+    B, L, DI = xc.shape
+    ST = a.shape[1]
+    a = a.float()
+    xs, dts, bs, cs, dys = xc.float(), dt.float(), b.float(), c.float(), dy.float()
+    h = torch.zeros((B, DI, ST), dtype=torch.float32, device=xc.device)
+    h_prev = []  # h_{t-1} of each step
+    for t in range(L):
+        h_prev.append(h)
+        decay = torch.exp(dts[:, t, :, None] * a[None])
+        h = decay * h + (dts[:, t] * xs[:, t])[:, :, None] * bs[:, t, None, :]
+    carry = torch.zeros_like(h) if dh is None else dh.float()  # a_{t+1} g_{t+1}
+    dx = torch.empty((B, L, DI), dtype=torch.float32, device=xc.device)
+    ddt = torch.empty_like(dx)
+    db = torch.empty((B, L, ST), dtype=torch.float32, device=xc.device)
+    dc = torch.empty_like(db)
+    da = torch.zeros((DI, ST), dtype=torch.float32, device=xc.device)
+    for t in reversed(range(L)):
+        x_t, dt_t, dy_t, b_t = xs[:, t], dts[:, t], dys[:, t], bs[:, t, None, :]
+        decay = torch.exp(dt_t[:, :, None] * a[None])
+        u = decay * h_prev.pop()  # a_t h_{t-1}
+        dtx = dt_t * x_t
+        h_t = u + dtx[:, :, None] * b_t
+        g = dy_t[:, :, None] * cs[:, t, None, :] + carry
+        carry = decay * g
+        gb = (g * b_t).sum(-1)  # (B, DI)
+        dx[:, t] = d_skip * dy_t + dt_t * gb
+        ddt[:, t] = (g * u * a[None]).sum(-1) + x_t * gb
+        da += (g * u * dt_t[:, :, None]).sum(0)
+        db[:, t] = (g * dtx[:, :, None]).sum(1)
+        dc[:, t] = (dy_t[:, :, None] * h_t).sum(1)
+    dd = (dys * xs).sum((0, 1))
+    return dx.to(xc.dtype), ddt, da, db.to(b.dtype), dc.to(c.dtype), dd
+
+
 def ref_rglru_scan(a, b):
     """``h_t = a_t * h_{t-1} + b_t`` from h = 0.  a, b: (B, L, D) ->
     (h_all (B, L, D) fp32, h_final (B, D) fp32)."""

@@ -5,15 +5,20 @@
 
 Runs on the card unless given ``--device cpu``; ``--smoke`` takes the
 reduced config, whose head dim 16 the attention kernels do not take, so
-smoke runs are CPU only.  On the card the dense and MoE families train (the
-grouped matmul has its backward kernel; the scans do not yet).
+smoke runs are CPU only, but for falcon-mamba-7b's (no attention).  On the
+card the dense, MoE and ssm families train (the grouped matmul and the Mamba
+scan have their backward kernels; the RG-LRU scan does not yet).
 qwen3-moe-30b-a3b's training state at full depth (about 490 GB) does not
-fit one card, so it trains there at full width and a cut depth from
-Python, as ``chip_smoke.py`` phase 5c does::
+fit one card, nor does falcon-mamba-7b's (about 116 GB), so they train there
+at full width and a cut depth from Python, as ``chip_smoke.py`` phases 5c
+and 5d do::
 
     cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b"), n_layers=4)
     train(cfg, ShapeSpec("train", 4096, 4, "train"), adamw(wsd(3e-4, 100)),
           total_steps=100, remat="full", loss_chunk=1024)
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b"), n_layers=16)
+    train(cfg, ShapeSpec("train", 4096, 4, "train"), adamw(cosine(3e-4, 100)),
+          total_steps=100, remat="full")
 
 This command line takes no depth flag, as the reference's has none.  The
 schedule is WSD where the config asks for it

@@ -352,8 +352,9 @@ class Mamba(nn.Module):
 def mamba_ssm(p, xc, cfg, h0=None):
     """Selective scan given the post-conv activations xc: (B, L, DI).
 
-    ``h0`` None: the scan from h = 0 through ``ops.selective_scan``.
-    Otherwise plain steps from ``h0`` (decode).  Returns (y (B, L, DI) in
+    ``h0`` None: the scan from h = 0 through ``ops.selective_scan`` (under
+    grad its backward kernel gives all six gradients).  Otherwise plain steps
+    from ``h0`` (decode).  Returns (y (B, L, DI) in
     xc's dtype, h_last (B, DI, ST) fp32)."""
     ST, R = cfg.ssm_state, cfg.dt_rank_
     xdbc = xc @ p.w_xdbc

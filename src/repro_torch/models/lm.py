@@ -125,7 +125,8 @@ def loss_fn(params, batch, cfg: ArchConfig, remat: str = "full", loss_chunk: int
             aux_weight: float = 0.01):
     """Scalar training loss (+ metrics dict), grad-enabled; ``batch`` holds
     tensors on the model's device.  On the card, a family whose kernel has
-    no backward yet raises ``NotImplementedError`` (``kernels/ops.py``)."""
+    no backward yet (the hybrid's RG-LRU scan) raises ``NotImplementedError``
+    (``kernels/ops.py``)."""
     transformer.require_ported(cfg)
     x, aux = _hidden(params, batch, cfg, remat)
     head = params.head()

@@ -509,6 +509,12 @@ def test_wgmma_bwd_emulation_in_fp32_is_the_plain_backward():
          "attention forward"),
         ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", "GEMM"),
         ("void at::native::vectorized_elementwise_kernel<4, at::native::AUnaryFunctor>", "other"),
+        ("void (anonymous namespace)::mamba_bwd_kernel<__nv_bfloat16, 1>((anonymous "
+         "namespace)::Args)", "selective scan backward"),
+        ("void (anonymous namespace)::mamba_bwd_reduce_kernel<__nv_bfloat16>(float const*)",
+         "selective scan backward"),
+        ("void (anonymous namespace)::mamba_scan_kernel<__nv_bfloat16, 1, true>(CUtensorMap_st)",
+         "selective scan forward"),
     ],
 )
 def test_trace_train_groups_both_backward_tilings(kernel, group):

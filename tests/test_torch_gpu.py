@@ -1,7 +1,8 @@
 """The CUDA kernels (flash attention and its backward, grouped matmul and its
-backward, Mamba selective scan, RG-LRU scan, embedding bag and its backward)
-against their plain versions, the narrow models (and a narrow DLRM) on the
-card against the CPU, narrow train steps (dense, MoE and DLRM) on the card
+backward, Mamba selective scan and its backward, RG-LRU scan, embedding bag
+and its backward) against their plain versions, the narrow models (and a
+narrow DLRM) on the card against the CPU, narrow train steps (dense, MoE,
+Mamba and DLRM) on the card
 against the same on the CPU, the planner's
 device path (pricing and chains) against its NumPy oracles, and the online
 controller's fused admission on the card against the same on the CPU.
@@ -26,13 +27,14 @@ from repro_torch.kernels.embedding_bag import (
 from repro_torch.kernels.flash_attention import (
     FlashAttentionFn, first_masked_row, flash_attention, flash_attention_bwd,
 )
-from repro_torch.kernels.mamba_scan import mamba_scan
+from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_bwd
 from repro_torch.kernels.moe_gmm import BWD_TILINGS as GMM_BWD_TILINGS
 from repro_torch.kernels import moe_gmm as gmm_mod
 from repro_torch.kernels.moe_gmm import gmm_bwd_tiling, moe_gmm, moe_gmm_bwd
 from repro_torch.kernels.ref import (
     ref_embedding_bag, ref_embedding_bag_bwd, ref_embedding_bag_in_order, ref_flash_attention,
-    ref_flash_attention_lse, ref_mamba_scan, ref_moe_gmm, ref_moe_gmm_bwd, ref_rglru_scan,
+    ref_flash_attention_lse, ref_mamba_scan, ref_mamba_scan_bwd, ref_moe_gmm, ref_moe_gmm_bwd,
+    ref_rglru_scan,
 )
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch import optim
@@ -866,6 +868,138 @@ def test_recurrent_model_on_card_matches_plain_model_on_cpu(cuda, arch, monkeypa
     assert ops.selective_scan_launches + ops.lru_scan_launches == 2 * n_rec  # none at decode
 
 
+MAMBA_BWD_NAMES = ("dxc", "ddt", "da", "db", "dc", "dd")
+
+
+def _assert_mamba_bwd_close(got, want, dtype):
+    """Each fp32 output within 1e-4 of its max|.| (the forward's bar: the sums
+    over channels and steps run in another order); an output in bf16 or fp16
+    (dxc, db, dc) within that plus one rounding on each side, the dtype's eps
+    times the value (2^-7 in bf16, 2^-10 in fp16)."""
+    for name, g, w in zip(MAMBA_BWD_NAMES, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        g, w = g.float(), w.float()
+        bar = 1e-4 * float(w.abs().max())
+        if dtype != torch.float32 and name in ("dxc", "db", "dc"):
+            bar = bar + torch.finfo(dtype).eps * w.abs()
+        assert bool(((g - w).abs() <= bar).all()), name
+
+
+@pytest.mark.parametrize(
+    "B,L,DI,ST,R,dtype,with_dh",
+    [
+        (4, 4096, 8192, 16, 256, torch.bfloat16, False),  # falcon-mamba-7b's training shape
+        (4, 4096, 8192, 16, 256, torch.float32, False),
+        (2, 1001, 200, 16, None, torch.bfloat16, False),  # L off the 8-step chunk, DI off the block
+        (2, 333, 520, 64, None, torch.float32, False),    # 4 lanes a channel
+        (2, 100, 100, 128, 8, torch.bfloat16, False),     # 8 lanes a channel, strided
+        (2, 500, 300, 16, 8, torch.float32, True),        # a gradient for h_final
+        (1, 19, 33, 5, 3, torch.float16, True),           # DI odd, b and c rows off 16 bytes
+        (3, 1, 8, 1, None, torch.float32, True),          # one step, one state
+        (2, 40, 72, 24, None, torch.bfloat16, False),     # states padded to 32
+    ],
+)
+def test_mamba_bwd_kernel_matches_plain(cuda, B, L, DI, ST, R, dtype, with_dh):
+    args = _mamba_inputs(cuda, B, L, DI, ST, dtype, R=R)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    dy = torch.randn(B, L, DI, generator=gen, device=cuda)
+    dh = torch.randn(B, DI, ST, generator=gen, device=cuda) if with_dh else None
+    got = mamba_scan_bwd(*args, dy, dh)
+    torch.cuda.synchronize()
+    _assert_mamba_bwd_close(got, ref_mamba_scan_bwd(*args, dy, dh), dtype)
+
+
+@pytest.mark.parametrize("ST,dtype", [(16, torch.bfloat16), (16, torch.float32),
+                                      (64, torch.float16), (128, torch.float32)])
+def test_mamba_bwd_kernel_is_deterministic(cuda, ST, dtype):
+    """No float atomics: two launches give the same bits."""
+    args = _mamba_inputs(cuda, 3, 300, 400, ST, dtype, R=8)
+    dy = torch.randn(3, 300, 400, device=cuda)
+    dh = torch.randn(3, 400, ST, device=cuda)
+    first = mamba_scan_bwd(*args, dy, dh)
+    second = mamba_scan_bwd(*args, dy, dh)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_mamba_bwd_wrapper_refuses_what_it_does_not_take(cuda):
+    xc, dt, a, b, c, d = _mamba_inputs(cuda, 1, 8, 16, 8, torch.float32)
+    dy = torch.randn(1, 8, 16, device=cuda)
+    with pytest.raises(ValueError, match="dy"):
+        mamba_scan_bwd(xc, dt, a, b, c, d, dy.half())
+    with pytest.raises(ValueError, match="dy"):
+        mamba_scan_bwd(xc, dt, a, b, c, d, dy[:, :4])
+    with pytest.raises(ValueError, match="dh"):
+        mamba_scan_bwd(xc, dt, a, b, c, d, dy, torch.randn(1, 16, 4, device=cuda))
+    with pytest.raises(ValueError, match="dh"):
+        mamba_scan_bwd(xc, dt, a, b, c, d, dy, torch.randn(1, 16, 8, device=cuda).double())
+    with pytest.raises(ValueError, match="share"):
+        mamba_scan_bwd(xc, dt, a, b.half(), c, d, dy)
+    with pytest.raises(ValueError, match="float32"):
+        mamba_scan_bwd(xc, dt.half(), a, b, c, d, dy)
+    with pytest.raises(ValueError, match="shapes"):
+        mamba_scan_bwd(xc, dt, a, b[:, :4], c, d, dy)
+    with pytest.raises(ValueError, match="CUDA"):
+        mamba_scan_bwd(xc, dt, a, b, c, d.cpu(), dy)
+    wide = _mamba_inputs(cuda, 1, 8, 16, 129, torch.float32)
+    with pytest.raises(ValueError, match="out of range"):
+        mamba_scan_bwd(*wide, dy)
+
+
+def test_selective_scan_under_grad_counts_one_backward(cuda, monkeypatch):
+    """Under grad, ``ops.selective_scan`` goes through SelectiveScanFn: one
+    forward launch (the serving kernel's bits), one backward call when
+    autograd asks (all six gradients in it), the kernel's gradients; under
+    no_grad no graph."""
+    for name in ("selective_scan_launches", "selective_scan_bwd_launches"):
+        monkeypatch.setattr(ops, name, 0)
+    args = _mamba_inputs(cuda, 2, 100, 256, 16, torch.bfloat16, R=8)
+    leaves = [t.detach().clone().requires_grad_(True) for t in args]
+    y, h = ops.selective_scan(*leaves)
+    assert type(y.grad_fn).__name__ == "SelectiveScanFnBackward"
+    ky, kh = mamba_scan(*args)
+    assert torch.equal(y, ky) and torch.equal(h, kh)
+    dy = torch.randn(2, 100, 256, device=cuda)
+    got = torch.autograd.grad(y, leaves, dy)
+    assert (ops.selective_scan_launches, ops.selective_scan_bwd_launches) == (1, 1)
+    want = mamba_scan_bwd(*args, dy)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with torch.no_grad():
+        assert ops.selective_scan(*leaves)[0].grad_fn is None
+    assert ops.selective_scan_bwd_launches == 1
+
+
+@pytest.mark.parametrize("remat", ["full", "none"])
+def test_mamba_train_step_on_card_matches_cpu(cuda, monkeypatch, remat):
+    """A narrow fp32 Mamba (d_model 256, ssm_state 16, 2 layers) on two
+    sequences of 77 tokens, longer than the backward's 8-step chunk: the loss
+    and every gradient, ``a_log`` and ``d_skip`` included, within 1e-4 of the
+    leaf's max of the CPU's, and one forward launch a layer (two under remat
+    "full") and one backward launch a layer."""
+    for name in ("selective_scan_launches", "selective_scan_bwd_launches"):
+        monkeypatch.setattr(ops, name, 0)
+    cfg = dataclasses.replace(_narrow_recurrent_config("falcon-mamba-7b"), n_layers=2)
+    m_cpu = lm.init(0, cfg, device="cpu")
+    m_gpu = lm.init(0, cfg, device=cuda)
+    m_gpu.load_state_dict(m_cpu.state_dict())
+    toks = torch.randint(0, cfg.vocab, (2, 77), generator=torch.Generator().manual_seed(6))
+    grads = {}
+    for name, m, t in (("cpu", m_cpu, toks), ("card", m_gpu, toks.to(cuda))):
+        m.requires_grad_(True)
+        params = dict(m.named_parameters())
+        loss, _ = lm.loss_fn(m, {"tokens": t}, cfg, remat=remat)
+        grads[name] = (float(loss.detach()), dict(zip(params, torch.autograd.grad(loss, list(
+            params.values())))))
+    L_ = cfg.n_layers
+    fwd = 2 * L_ if remat == "full" else L_
+    assert (ops.selective_scan_launches, ops.selective_scan_bwd_launches) == (fwd, L_)
+    (lc, gc_), (lg, gg) = grads["cpu"], grads["card"]
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    assert any("a_log" in n for n in gc_) and any("d_skip" in n for n in gc_)
+    for name, want in gc_.items():
+        bar = 1e-4 * float(want.abs().max())
+        assert float((gg[name].cpu() - want).abs().max()) <= bar, name
+
+
 def _bag_inputs(device, T, R, E, B, NNZ, dtype, id_dtype, seed=0):
     gen = torch.Generator(device=device).manual_seed(seed)
     tables = torch.randn(T, R, E, generator=gen, device=device).to(dtype)
@@ -1507,20 +1641,18 @@ def test_bwd_wrapper_refuses_what_it_does_not_take(cuda):
 
 
 def test_kernels_without_a_backward_raise_under_grad(cuda):
-    """mamba_scan and rglru_scan have no backward kernel yet: on a CUDA input
-    that requires grad they raise, naming the ROADMAP item, rather than hand
-    autograd a constant; under no_grad, or with inputs that need no grad,
-    they launch as in serving.  (The embedding bag and the grouped matmul
+    """rglru_scan has no backward kernel yet: on a CUDA input that requires
+    grad it raises, naming the ROADMAP item, rather than hand autograd a
+    constant; under no_grad, or with inputs that need no grad, it launches as
+    in serving.  (The embedding bag, the grouped matmul and the Mamba scan
     have their backward: test_bag_lookup_under_grad_launches_both_kernels,
-    and GroupedMatmulFn in
-    test_grouped_matmul_under_grad_counts_one_backward_a_product.)"""
+    test_grouped_matmul_under_grad_counts_one_backward_a_product and
+    test_selective_scan_under_grad_counts_one_backward.)"""
     gen = torch.Generator(device=cuda).manual_seed(8)
     a = torch.rand(2, 10, 64, generator=gen, device=cuda)
     b = torch.randn(2, 10, 64, generator=gen, device=cuda)
-    xc, dt, am, bm, cm, ds = _mamba_inputs(cuda, 2, 10, 64, 16, torch.float32)
     calls = {
-        "mamba_scan.*C3": (ops.selective_scan, (xc, dt, am, bm, cm, ds), 0),
-        "rglru_scan.*C4": (ops.lru_scan, (a, b), 1),
+        "rglru_scan.*B2": (ops.lru_scan, (a, b), 1),
     }
     for match, (fn, args, i) in calls.items():
         fn(*args)  # no input needs grad: the kernel launches
