@@ -49,12 +49,16 @@ result line:
    ``torch.bmm`` for the same dx and dw; the Mamba selective scan at
    falcon-mamba-7b's prefill (B=4, L=1000, DI=8192, ST=16) and the RG-LRU
    scan at recurrentgemma-9b's (B=4, L=2048, D=4096), each also at a ragged
-   shape; the Mamba scan's backward against its plain version at
-   falcon-mamba-7b's training shape (B=4, L=4096, DI=8192, ST=16, b and c
-   strided) in bf16 and fp32, ragged (L=1001, DI=200), at ST=64 and 128 and
-   with a gradient for the final state: two launches equal to the bit, each
-   output within 1e-4 of its max|.| (bf16 outputs plus one rounding on each
-   side), its time beside the bound and the plain version's; and the
+   shape; the Mamba scan's training path at falcon-mamba-7b's training
+   shape (B=4, L=4096, DI=8192, ST=16, b and c strided) in bf16 and fp32,
+   ragged (L=1001, DI=200), at ST=64 and 128 and with a gradient for the
+   final state: the forward with checkpoints (its y and h bitwise the
+   serving call's, its checkpoints within 1e-4 of the plain forward's), then
+   the backward on them against its plain version, two launches equal to
+   the bit, each output within 1e-4 of its max|.| (bf16 outputs plus one
+   rounding on each side), its time beside the bound and the plain
+   version's, and at the training shapes the forward's time without and
+   with checkpoints and a remat step's two forwards and one backward; and the
    embedding bag on the paper DLRM's tables (T=8, R=1e7,
    E=128, fp32: 40.96 GB) at its serving lookup (B=128, one id a bag), at
    B=4096 (int32 and int64 ids), at a multi-hot shape (B=4096, 32 ids a
@@ -711,32 +715,50 @@ MAMBA_BWD_CASES = (
 )
 
 
-def check_mamba_bwd(mamba_scan_bwd, ref_mamba_scan_bwd, gen, dev, smi) -> dict:
-    """The scan's backward against its plain version on each of
-    MAMBA_BWD_CASES: two launches equal to the bit; each fp32 output within
-    1e-4 of its max|.| (the forward's bar; the sums run over up to DI = 8192
-    channels for db and dc and B*L = 16384 steps for da and dd, in another
-    order than the plain version's), and each output in bf16 (dxc, db, dc)
-    within that plus one rounding on each side, bf16's eps (2^-7) times the
-    value; the
-    time per call (both launches) beside the bound and the plain version's
-    time.  No PyTorch call computes the function, so there is no library
-    time.  Returns each case's numbers, by name."""
+def check_mamba_bwd(mamba_scan, mamba_scan_bwd, ref_mamba_scan, ref_mamba_scan_bwd, gen, dev,
+                    smi) -> dict:
+    """The scan's training path against its plain versions on each of
+    MAMBA_BWD_CASES.  The forward with checkpoints (``mamba_scan(...,
+    checkpoints=True)``, as ``SelectiveScanFn`` runs it): y and h bitwise
+    equal to the serving call's, the checkpoints within 1e-4 of their max|.|
+    of the plain forward's.  The backward on those checkpoints: two launches
+    equal to the bit; each fp32 output within 1e-4 of its max|.| (the
+    forward's bar; the sums run over up to DI = 8192 channels for db and dc
+    and B*L = 16384 steps for da and dd, in another order than the plain
+    version's), and each output in bf16 (dxc, db, dc) within that plus one
+    rounding on each side, bf16's eps (2^-7) times the value; the time per
+    call (both launches) beside the bound and the plain version's time.  At
+    the training shapes also the forward's time without and with checkpoints
+    and a layer's scans as a remat step runs them (two forwards with
+    checkpoints, then the backward: ``pair_ms``).  No PyTorch call computes
+    the function, so there is no library time.  Returns each case's numbers,
+    by name."""
     names = ("dxc", "ddt", "da", "db", "dc", "dd")
     out = {}
     for name, Bm, L, DI, ST, R, dtype, with_dh in MAMBA_BWD_CASES:
         args = mamba_inputs(gen, Bm, L, DI, ST, dtype, R)
+        label = (f"{name} B={Bm} L={L} DI={DI} ST={ST} {str(dtype)[6:]}"
+                 + (" b,c strided" if R else "") + (" dh" if with_dh else ""))
+        y, h = mamba_scan(*args)
+        y_ck, h_ck, ckpt = mamba_scan(*args, checkpoints=True)
+        torch.cuda.synchronize()
+        require(torch.equal(y, y_ck) and torch.equal(h, h_ck),
+                f"the scan with checkpoints gives the serving call's y and h bits, {label}")
+        want_ckpt = ref_mamba_scan(*args, checkpoints=True)[2]
+        ckpt_err = float((ckpt - want_ckpt).abs().max()) if ckpt.numel() else 0.0
+        ckpt_bar = 1e-4 * float(want_ckpt.abs().max()) if ckpt.numel() else 0.0
+        require(ckpt.shape == want_ckpt.shape and ckpt_err <= ckpt_bar,
+                f"scan checkpoints vs plain, {label}: max|err| {ckpt_err}, bar {ckpt_bar}")
+        del y, h, y_ck, h_ck, want_ckpt
         dy = torch.randn(Bm, L, DI, generator=gen, device=dev)
         dh = torch.randn(Bm, DI, ST, generator=gen, device=dev) if with_dh else None
-        got = mamba_scan_bwd(*args, dy, dh)
+        got = mamba_scan_bwd(*args, dy, dh, ckpt)
         torch.cuda.synchronize()
-        again = mamba_scan_bwd(*args, dy, dh)
+        again = mamba_scan_bwd(*args, dy, dh, ckpt)
         require(all(torch.equal(g, a) for g, a in zip(got, again)),
                 f"two scan backward launches equal to the bit, {name}")
         del again
         want = ref_mamba_scan_bwd(*args, dy, dh)
-        label = (f"{name} B={Bm} L={L} DI={DI} ST={ST} {str(dtype)[6:]}"
-                 + (" b,c strided" if R else "") + (" dh" if with_dh else ""))
         errs, bars = {}, {}
         for n, g, w in zip(names, got, want):
             require(g.dtype == w.dtype and g.shape == w.shape and bool(torch.isfinite(g).all()),
@@ -751,18 +773,29 @@ def check_mamba_bwd(mamba_scan_bwd, ref_mamba_scan_bwd, gen, dev, smi) -> dict:
             require(float(over.max()) <= 0.0,
                     f"scan backward {n} vs plain, {label}: max|err| {errs[n]}, max|want| {scale}")
         del got, want
-        kernel_ms = time_ms(lambda: mamba_scan_bwd(*args, dy, dh), 10, warmup=2)
+        kernel_ms = time_ms(lambda: mamba_scan_bwd(*args, dy, dh, ckpt), 10, warmup=2)
         plain_ms = time_ms(lambda: ref_mamba_scan_bwd(*args, dy, dh), 1, warmup=0)
         bound_ms, bound_by, bytes_ms, exp_ms = mamba_bwd_bound(*args, dy, dh)
-        print(f"phase 3 kernel: mamba_scan_bwd {label}: max|err| {errs} (bars 1e-4 max|.| "
-              f"{bars}, bf16 outputs plus 2^-7 |value|), two launches bitwise equal; kernel_ms "
-              f"{kernel_ms} plain_ms {plain_ms} library_ms None bound_ms {bound_ms} ({bound_by}; "
-              f"bytes {bytes_ms} ms, exps {exp_ms} ms) share of bound {bound_ms / kernel_ms} on "
-              f"{smi}")
+        times = {}
+        if name.startswith("training"):
+            def pair():  # a layer's scans in a remat step: the forward twice, then the backward
+                mamba_scan(*args, checkpoints=True)
+                mamba_scan(*args, checkpoints=True)
+                mamba_scan_bwd(*args, dy, dh, ckpt)
+
+            times = dict(fwd_ms=time_ms(lambda: mamba_scan(*args), 10),
+                         fwd_ckpt_ms=time_ms(lambda: mamba_scan(*args, checkpoints=True), 10),
+                         pair_ms=time_ms(pair, 5, warmup=1))
+        print(f"phase 3 kernel: mamba_scan_bwd {label}: checkpoints max|err| {ckpt_err} (bar "
+              f"{ckpt_bar}), y and h bitwise equal to the serving call's; max|err| {errs} (bars "
+              f"1e-4 max|.| {bars}, bf16 outputs plus 2^-7 |value|), two launches bitwise equal; "
+              f"kernel_ms {kernel_ms} plain_ms {plain_ms} library_ms None bound_ms {bound_ms} "
+              f"({bound_by}; bytes {bytes_ms} ms, exps {exp_ms} ms) share of bound "
+              f"{bound_ms / kernel_ms} {json.dumps(times)} on {smi}")
         out[name] = dict(max_abs_err=max(errs.values()), max_abs_err_by_grad=errs,
-                         kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
-                         bound_ms=bound_ms, bound_by=bound_by)
-        del args, dy, dh
+                         ckpt_max_abs_err=ckpt_err, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                         library_ms=None, bound_ms=bound_ms, bound_by=bound_by, **times)
+        del args, dy, dh, ckpt
         gc.collect()
         torch.cuda.empty_cache()
     return out
@@ -1833,7 +1866,8 @@ def main() -> int:
 
     # The selective scan's backward at falcon-mamba-7b's training shape and
     # the other MAMBA_BWD_CASES.
-    mamba_bwd = check_mamba_bwd(mamba_scan_bwd, ref_mamba_scan_bwd, gen, dev, smi)
+    mamba_bwd = check_mamba_bwd(mamba_scan, mamba_scan_bwd, ref_mamba_scan,
+                                ref_mamba_scan_bwd, gen, dev, smi)
 
     # The RG-LRU scan at recurrentgemma-9b's prefill (fp32, as the layer
     # passes it) and at a ragged shape, in fp32 and with bf16 inputs.
@@ -2374,10 +2408,12 @@ def main() -> int:
         "launches_per_train_step": ssm_trained["launches_per_step"]["selective_scan_launches"],
         "ms": mamba_main["kernel_ms"],
         **mamba_main,
+        "training_ms": mamba_bwd["training"]["fwd_ms"],
+        "training_ckpt_ms": mamba_bwd["training"]["fwd_ckpt_ms"],
     }, {
         "name": "mamba_scan_bwd",
         "route": "cuda",
-        "tiling": "checkpointed reverse walk",
+        "tiling": "the forward's checkpoints, 8-step chunks forward then back",
         "source": "src/repro_torch/csrc/mamba_scan_bwd.cu",
         # The TPU side has no backward kernel (jax.grad of the XLA scan).
         "replaces": "none: jax.grad of chunked_linear_scan at src/repro/models/layers.py:364",

@@ -50,6 +50,21 @@
 // What this does about the bound: the consumers issue nothing but the scan
 // (no staging, no block-wide barrier), and no thread waits on device memory.
 //
+// Checkpoints for training (template flag CKPT, C entry
+// repro_mamba_scan_ckpt).  The backward (csrc/mamba_scan_bwd.cu) walks time
+// in reverse in chunks of CKPT_STEPS = 8 and needs each chunk's start state.
+// Under remat the forward runs again just before its backward, so with CKPT
+// it also writes the state after every 8 steps, (B, ceil(L / 8) - 1, DI,
+// ST4) fp32 with ST4 = ST rounded up to 4 (padded states are 0), from the
+// consumers' registers as the chunk's unrolled steps reach it: 1.07 GB at
+// falcon-mamba-7b's training shape (B = 4, L = 4096, DI = 8192, ST = 16),
+// 0.32 ms of stores under a scan bound by its exps.  The serving call runs
+// the CKPT = false instantiation, the same code as without the flag.
+// Measured there (tools/time_bag_checks.py --scan-ssm; NVIDIA H100 80GB
+// HBM3, 700.00 W): 0.974 ms with checkpoints against 0.851-0.860 without
+// in bf16, 1.069-1.076 against 0.826-0.829 in fp32; the prefill's time and
+// its y and h bits unchanged.
+//
 // Measured on NVIDIA H100 80GB HBM3, 700.00 W (chip_smoke.py phase 3;
 // PERF.md section 6, row 4): 0.219 ms at falcon-mamba-7b's prefill with bf16
 // inputs and 0.213 ms in fp32, against the 0.125 ms bound.  Splitting a
@@ -74,6 +89,7 @@ constexpr int SPT = 16;                // states a thread
 constexpr int TC = 16;                 // time steps a chunk
 constexpr int STAGES = 4;              // chunks in the ring
 constexpr int BOX_BYTES = 256;         // inner extent of one TMA box
+constexpr int CKPT_STEPS = 8;          // steps between checkpoints (the backward's chunk)
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <typename T> __device__ __forceinline__ float to_float(T x);
@@ -108,6 +124,7 @@ template <typename T, int LPC> struct Stage {
   static constexpr int BYTES = OFF_F + 2 * TC * SP * 4;
   static constexpr int TX = OFF_F;                  // bytes the TMA boxes bring
   static constexpr int SMEM = 1024 + STAGES * BYTES + 3 * STAGES * 8;
+  static_assert(TC % CKPT_STEPS == 0, "checkpoints on chunk steps");
   static_assert(X::BYTES % 128 == 0 && DT::BYTES % 128 == 0 && BC::BYTES % 128 == 0,
                 "128-byte-aligned TMA destinations");
 };
@@ -120,15 +137,16 @@ struct Maps {
 // blockIdx.x * CPB .. + CPB - 1.  The producer warp stages chunk after chunk
 // of x, dt, b and c (TMA boxes, or plain loads where TMA cannot stride the
 // input) into a ring of STAGES and converts b and c to fp32; the consumer
-// threads each run SPT states of one channel through the chunk.
-template <typename T, int LPC, bool TMA>
+// threads each run SPT states of one channel through the chunk; with CKPT
+// they also store the state after every CKPT_STEPS steps to ckpt.
+template <typename T, int LPC, bool TMA, bool CKPT>
 __global__ void __launch_bounds__(BLOCK)
 mamba_scan_kernel(const __grid_constant__ Maps maps, const T* __restrict__ xc,
                   const float* __restrict__ dt, const float* __restrict__ A,
                   const T* __restrict__ bm, const T* __restrict__ cm,
                   const float* __restrict__ dskip, float* __restrict__ y,
-                  float* __restrict__ hout, int L, int DI, int ST, long long b_sb,
-                  long long b_st, long long c_sb, long long c_st) {
+                  float* __restrict__ hout, float* __restrict__ ckpt, int L, int DI, int ST,
+                  long long b_sb, long long b_st, long long c_sb, long long c_st) {
   using S = Stage<T, LPC>;
   constexpr int CPB = S::CPB;
   constexpr int SP = S::SP;
@@ -288,6 +306,20 @@ mamba_scan_kernel(const __grid_constant__ Maps maps, const T* __restrict__ xc,
         h[j] = fmaf(hopper::exp2_approx(dv * a2[j]), h[j], dx * bv[j]);
         p[t] = fmaf(h[j], cv[j], p[t]);
       }
+      if constexpr (CKPT) {
+        // The state after step k * CKPT_STEPS - 1, checkpoint k - 1 (the last
+        // chunk's start is the last one written).
+        const int next = i * TC + t + 1;
+        if (t % CKPT_STEPS == CKPT_STEPS - 1 && next < L && d < DI) {
+          const int ST4 = (ST + 3) & ~3, NK = (L + CKPT_STEPS - 1) / CKPT_STEPS - 1;
+          float4* dst = reinterpret_cast<float4*>(
+              ckpt + (((size_t)bi * NK + next / CKPT_STEPS - 1) * DI + d) * ST4 + s0);
+#pragma unroll
+          for (int q = 0; q < SPT / 4; ++q)
+            if (s0 + 4 * q < ST4)
+              dst[q] = make_float4(h[4 * q], h[4 * q + 1], h[4 * q + 2], h[4 * q + 3]);
+        }
+      }
     }
     __syncwarp();
     if (lane == 0) hopper::mbar_arrive(&empty[s]);
@@ -311,29 +343,30 @@ mamba_scan_kernel(const __grid_constant__ Maps maps, const T* __restrict__ xc,
   }
 }
 
-template <typename T, int LPC, bool TMA>
+template <typename T, int LPC, bool TMA, bool CKPT>
 cudaError_t launch_tma(const Maps& maps, const void* xc, const void* dt, const void* A,
-                       const void* b, const void* c, const void* dskip, void* y, void* h, int B,
-                       int L, int DI, int ST, long long b_sb, long long b_st, long long c_sb,
-                       long long c_st, cudaStream_t stream) {
+                       const void* b, const void* c, const void* dskip, void* y, void* h,
+                       void* ckpt, int B, int L, int DI, int ST, long long b_sb, long long b_st,
+                       long long c_sb, long long c_st, cudaStream_t stream) {
   using S = Stage<T, LPC>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      mamba_scan_kernel<T, LPC, TMA>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+  const cudaError_t err = cudaFuncSetAttribute(mamba_scan_kernel<T, LPC, TMA, CKPT>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               S::SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid((DI + S::CPB - 1) / S::CPB, B);
-  mamba_scan_kernel<T, LPC, TMA><<<grid, BLOCK, S::SMEM, stream>>>(
+  mamba_scan_kernel<T, LPC, TMA, CKPT><<<grid, BLOCK, S::SMEM, stream>>>(
       maps, static_cast<const T*>(xc), static_cast<const float*>(dt),
       static_cast<const float*>(A), static_cast<const T*>(b), static_cast<const T*>(c),
-      static_cast<const float*>(dskip), static_cast<float*>(y), static_cast<float*>(h), L, DI,
-      ST, b_sb, b_st, c_sb, c_st);
+      static_cast<const float*>(dskip), static_cast<float*>(y), static_cast<float*>(h),
+      static_cast<float*>(ckpt), L, DI, ST, b_sb, b_st, c_sb, c_st);
   return cudaGetLastError();
 }
 
 // TMA where every row the boxes read starts 16-byte aligned; plain loads
 // by the producer warp otherwise (odd DI, or b and c slices off 16 bytes).
-template <typename T, int LPC>
+template <typename T, int LPC, bool CKPT>
 cudaError_t launch(const void* xc, const void* dt, const void* A, const void* b, const void* c,
-                   const void* dskip, void* y, void* h, int B, int L, int DI, int ST,
+                   const void* dskip, void* y, void* h, void* ckpt, int B, int L, int DI, int ST,
                    long long b_sb, long long b_st, long long c_sb, long long c_st,
                    cudaStream_t stream) {
   using S = Stage<T, LPC>;
@@ -361,26 +394,49 @@ cudaError_t launch(const void* xc, const void* dt, const void* A, const void* b,
       err = hopper::make_map_3d_plain(&maps.c, c, ES, bf16, ST, L, B, c_st * ES, cs, S::BC::W,
                                       TC);
     if (err != cudaSuccess) return err;
-    return launch_tma<T, LPC, true>(maps, xc, dt, A, b, c, dskip, y, h, B, L, DI, ST, b_sb,
-                                    b_st, c_sb, c_st, stream);
+    return launch_tma<T, LPC, true, CKPT>(maps, xc, dt, A, b, c, dskip, y, h, ckpt, B, L, DI,
+                                          ST, b_sb, b_st, c_sb, c_st, stream);
   }
-  return launch_tma<T, LPC, false>(maps, xc, dt, A, b, c, dskip, y, h, B, L, DI, ST, b_sb, b_st,
-                                   c_sb, c_st, stream);
+  return launch_tma<T, LPC, false, CKPT>(maps, xc, dt, A, b, c, dskip, y, h, ckpt, B, L, DI, ST,
+                                         b_sb, b_st, c_sb, c_st, stream);
 }
 
-template <typename T>
+template <typename T, bool CKPT>
 cudaError_t launch_st(const void* xc, const void* dt, const void* A, const void* b,
-                      const void* c, const void* dskip, void* y, void* h, int B, int L, int DI,
-                      int ST, long long b_sb, long long b_st, long long c_sb, long long c_st,
-                      cudaStream_t s) {
+                      const void* c, const void* dskip, void* y, void* h, void* ckpt, int B,
+                      int L, int DI, int ST, long long b_sb, long long b_st, long long c_sb,
+                      long long c_st, cudaStream_t s) {
 #define REPRO_MAMBA_LAUNCH(LPC)                                                              \
-  return launch<T, LPC>(xc, dt, A, b, c, dskip, y, h, B, L, DI, ST, b_sb, b_st, c_sb, c_st, s)
+  return launch<T, LPC, CKPT>(xc, dt, A, b, c, dskip, y, h, ckpt, B, L, DI, ST, b_sb, b_st,    \
+                              c_sb, c_st, s)
   if (ST <= SPT) REPRO_MAMBA_LAUNCH(1);
   if (ST <= 2 * SPT) REPRO_MAMBA_LAUNCH(2);
   if (ST <= 4 * SPT) REPRO_MAMBA_LAUNCH(4);
   if (ST <= 8 * SPT) REPRO_MAMBA_LAUNCH(8);
 #undef REPRO_MAMBA_LAUNCH
   return cudaErrorInvalidValue;
+}
+
+template <bool CKPT>
+int launch_dtype(const void* xc, const void* dt, const void* A, const void* b, const void* c,
+                 const void* dskip, void* y, void* h, void* ckpt, int B, int L, int DI, int ST,
+                 long long b_sb, long long b_st, long long c_sb, long long c_st, int dtype,
+                 void* stream) {
+  if (B < 1 || B > 65535 || L < 1 || DI < 1 || ST < 1 || ST > 8 * SPT)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return (int)launch_st<float, CKPT>(xc, dt, A, b, c, dskip, y, h, ckpt, B, L, DI, ST, b_sb,
+                                         b_st, c_sb, c_st, s);
+    case 1:
+      return (int)launch_st<__half, CKPT>(xc, dt, A, b, c, dskip, y, h, ckpt, B, L, DI, ST, b_sb,
+                                          b_st, c_sb, c_st, s);
+    case 2:
+      return (int)launch_st<__nv_bfloat16, CKPT>(xc, dt, A, b, c, dskip, y, h, ckpt, B, L, DI,
+                                                 ST, b_sb, b_st, c_sb, c_st, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -394,19 +450,19 @@ extern "C" int repro_mamba_scan(const void* xc, const void* dt, const void* A, c
                                 const void* c, const void* dskip, void* y, void* h, int B,
                                 int L, int DI, int ST, long long b_sb, long long b_st,
                                 long long c_sb, long long c_st, int dtype, void* stream) {
-  if (B < 1 || B > 65535 || L < 1 || DI < 1 || ST < 1 || ST > 8 * SPT)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return (int)launch_st<float>(xc, dt, A, b, c, dskip, y, h, B, L, DI, ST, b_sb, b_st,
-                                   c_sb, c_st, s);
-    case 1:
-      return (int)launch_st<__half>(xc, dt, A, b, c, dskip, y, h, B, L, DI, ST, b_sb, b_st,
-                                    c_sb, c_st, s);
-    case 2:
-      return (int)launch_st<__nv_bfloat16>(xc, dt, A, b, c, dskip, y, h, B, L, DI, ST, b_sb,
-                                           b_st, c_sb, c_st, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch_dtype<false>(xc, dt, A, b, c, dskip, y, h, nullptr, B, L, DI, ST, b_sb, b_st,
+                             c_sb, c_st, dtype, stream);
+}
+
+// repro_mamba_scan, and the state after every CKPT_STEPS steps written to
+// ckpt: (B, ceil(L / CKPT_STEPS) - 1, DI, ST4) fp32, contiguous and 16-byte
+// aligned, ST4 = ST rounded up to 4 (padded states 0); entry k is the state
+// after step (k + 1) * CKPT_STEPS - 1.
+extern "C" int repro_mamba_scan_ckpt(const void* xc, const void* dt, const void* A,
+                                     const void* b, const void* c, const void* dskip, void* y,
+                                     void* h, void* ckpt, int B, int L, int DI, int ST,
+                                     long long b_sb, long long b_st, long long c_sb,
+                                     long long c_st, int dtype, void* stream) {
+  return launch_dtype<true>(xc, dt, A, b, c, dskip, y, h, ckpt, B, L, DI, ST, b_sb, b_st, c_sb,
+                            c_st, dtype, stream);
 }

@@ -17,7 +17,9 @@
 //   db_ts = sum_d g_t dt_t x_t,  dc_ts = sum_d dy_t h_t         (B, L, ST), b's dtype
 // Inputs as the forward takes them: xc (B, L, DI), b and c (B, L, ST) in one
 // dtype (fp32, fp16 or bf16; b and c with any batch and time stride, read in
-// place), dt (B, L, DI), A (DI, ST) and D (DI,) in fp32.  All arithmetic is
+// place), dt (B, L, DI), A (DI, ST) and D (DI,) in fp32, and the forward's
+// checkpoints: the state after every TC = 8 steps, (B, ceil(L / 8) - 1, DI,
+// ST4) fp32 (csrc/mamba_scan.cu, repro_mamba_scan_ckpt).  All arithmetic is
 // fp32 and each output is rounded once.
 //
 // Bound on the H100 SXM at falcon-mamba-7b's training shape (B = 4,
@@ -28,39 +30,50 @@
 // do not apply (the decay differs for every channel and state).
 //
 // Design.  The backward walks time in reverse and needs h_{t-1} there.  The
-// recurrence cannot be run backwards (a_t underflows to 0), so the states are
-// recomputed from checkpoints.  One block of 128 threads owns a batch row and
-// CPB channels; a thread owns SPT = 16 states of one channel (ST up to 128
-// spreads a channel over LPC = 2, 4 or 8 lanes), as in the forward.
-// * Pass 1 walks forward from h = 0 and writes the state every TC = 8 steps
-//   to a scratch buffer (B, L/8, DI, ST) fp32: 1.07 GB at the training shape.
-// * Pass 2 walks the chunks in reverse.  It recomputes the chunk's 8 states
-//   of each step from its checkpoint into shared memory (64 KB a block, so
-//   two blocks share an SM), then runs the 8 steps backwards with g and the
-//   dA sums in registers.  The decays are recomputed with the forward's own
-//   instruction (ex2.approx.ftz on A scaled by log2 e), so the states are the
-//   forward's.
-// * Each step's db and dc terms are summed over the warp's channels by a
-//   butterfly that halves the values a lane holds at each exchange (16
-//   shuffles for 16 states), then over the block's 4 warps in shared memory,
-//   and written as fp32 partials (DI / CPB, B, L, ST); dA and dD as partials
-//   (B, DI, ST) and (B, DI).  A second kernel adds the partials in a fixed
-//   order and rounds once: no float atomics, and two launches give the same
-//   bits.
-// * The inputs of the next chunk are loaded into registers while the current
-//   one runs (x, dt, dy, b, c, and the next checkpoint), then staged in shared
-//   memory as fp32; zeros past L, DI and ST make those steps and lanes add
-//   nothing.
-// What bounds it: three decays an (element, state), one a pass, and some
-// thirty other instructions, so it is bound by instruction issue far above
-// the bytes.
+// recurrence cannot be run backwards (a_t underflows to 0), so each chunk of
+// TC = 8 steps is recomputed from the state at its start, which the forward
+// kernel wrote: under remat the forward runs again just before this kernel,
+// so no walk of the whole sequence happens here, and no checkpoints go
+// through device memory twice.  A block of 128 threads owns a batch row and
+// CPB = 64 channels; a thread owns SPL = 4 states of each of CPT = 2
+// channels, a channel's ST = 16 states spread over LPC = 4 lanes (up to 32
+// lanes at ST = 128).  That is 512 blocks at the training shape, four an SM
+// at 128 registers a thread: 16 warps an SM.
+// * Per chunk, from its checkpoint: the TC steps forward with the forward's
+//   own instructions (ex2.approx.ftz on A scaled by log2 e, then one FMA), so
+//   the states are the forward's, each step's h_{t-1} stored to the thread's
+//   column of a 32 KB shared history; then the TC steps backwards with g,
+//   a_t g_t and the dA sums in registers.  h_t in a reverse step is the later
+//   step's h_{t-1}, still in registers, and g_t a_t h_{t-1} is (a_t g_t)
+//   h_{t-1}: one FMUL, no product a_t h_{t-1}, no second FMA for h_t.
+// * Sums over lanes, each a butterfly that halves the values a lane holds at
+//   each exchange.  A lane's share of dx - D dy = dt sum_s g b and of ddt =
+//   sum_s g a h_{t-1} A + x sum_s g b for its 2 channels (4 values) over the
+//   channel's 4 lanes: each lane ends with one of them and stages it in
+//   shared memory.  The thread's db and dc terms, added over its 2 channels
+//   in registers (8 values), over the warp's 8 channel groups; then the
+//   block's 4 warps in shared memory, written as fp32 partials (DI / CPB, B,
+//   L, ST).  dA and dD go out as partials (B, DI, ST) and (B, DI).  A
+//   second kernel adds the partials in a fixed order and rounds once: no
+//   float atomics, and two launches give the same bits.
+// * The next chunk's inputs (x, dt, dy, b, c) and checkpoint are loaded into
+//   registers while the current one runs, then staged in shared memory as
+//   fp32; zeros past L, DI and ST make those steps and lanes add nothing.
+//   After the chunk, its dx (D dy added there) and ddt go out coalesced.
+// What bounds it: the sums over lanes, about 40 shuffles, selects and adds
+// a thread and step, and the two decays and some twenty FMAs and FMULs an
+// (element, state): it is bound by instruction issue, far above both the
+// bytes and the SFUs (tools/scan_bwd_variants.py, bf16, the kernel at 2.80
+// ms in that run: without the sums over lanes it takes 2.03 ms, without
+// either pass's exps 2.70-2.75; keeping the decays beside the states
+// halves the occupancy and is slower).
 //
-// Measured on NVIDIA H100 80GB HBM3, 700.00 W (chip_smoke.py phase 3;
-// PERF.md section 6, row 4b): 4.44 ms a call at the training shape in bf16
-// and 4.33 in fp32, 14.5% and 18.5% of the bound; 212-244 registers, no
-// spills.  A chunk of 16 steps (a 128 KB history, one block an SM) was
-// tried and ran slower.  Fewer recomputed decays and a cheaper sum over the
-// channels are later work.
+// Measured on NVIDIA H100 80GB HBM3, 700.00 W (tools/time_bag_checks.py
+// --scan-ssm, in turns with the design before, which walked the whole
+// sequence forward again for its own checkpoints; PERF.md section 6, row
+// 4b): 2.83 ms a call at the training shape in bf16 and 2.82-2.83 in fp32,
+// against 4.47-4.49 and 4.38 before; 22.7% and 28.4% of the bound; 128
+// registers, no spills.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -73,11 +86,13 @@ namespace {
 
 constexpr int THREADS = 128;  // 4 warps
 constexpr int WARPS = THREADS / 32;
-constexpr int SPT = 16;  // states a thread
-constexpr int TC = 8;    // steps a chunk; a checkpoint every chunk
+constexpr int SPL = 4;              // states a lane
+constexpr int CPT = 2;              // channels a thread
+constexpr int TC = 8;               // steps a chunk: the forward's checkpoint interval
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr unsigned FULL = 0xffffffffu;
+static_assert(CPT == 2, "load_channels reads two channels");
 
 template <typename T> __device__ __forceinline__ float to_float(T x);
 template <> __device__ __forceinline__ float to_float<float>(float x) { return x; }
@@ -95,21 +110,33 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
 }
 
 // Shapes of a block and its shared memory, in floats: the chunk's h_{t-1}
-// ([t][j / 4][thread][4], each thread its own column), then x, dt and dy
-// ([t][channel]), b and c ([t][state]), then the warps' sums of the db and
-// dc terms ([db, dc][warp][t][state]).
+// ([t][channel][thread][4], each thread its own column), x, dt and dy
+// ([t][channel]), b and c
+// ([t][state]), the warps' sums of the db and dc terms ([db, dc][warp][t]
+// [state]), and dx and ddt as the chunk's steps give them ([t][channel]).
+// Staging thread tid moves channel tid % CPB of steps tid / CPB + k * TPX
+// of x, dt, dy, dx and ddt, and state tid % SP of steps tid / SP + k * TPB
+// of b and c.
 template <int LPC> struct Cfg {
-  static constexpr int CPB = THREADS / LPC;      // channels a block
-  static constexpr int SP = LPC * SPT;           // states a channel, padded
-  static constexpr int NX = TC * CPB / THREADS;  // x, dt, dy values a thread stages a chunk
-  static constexpr int NB = TC * SP / THREADS;   // b, c values a thread stages a chunk
-  static constexpr int OFF_X = TC * SPT * THREADS;
+  static constexpr int GPB = THREADS / LPC;  // channel groups a block
+  static constexpr int CPB = GPB * CPT;      // channels a block
+  static constexpr int SP = LPC * SPL;       // states a channel, padded
+  static constexpr int TPX = THREADS / CPB;  // steps one pass of the threads stages
+  static constexpr int TPB = THREADS / SP;
+  static constexpr int NX = (TC + TPX - 1) / TPX;  // x, dt, dy a thread stages
+  static constexpr int NB = (TC + TPB - 1) / TPB;  // b, c a thread stages
+  static constexpr int NR = (2 * TC * SP + THREADS - 1) / THREADS;  // db, dc sums a thread adds
+  static constexpr int HIST = TC * CPT * SPL * THREADS;
+  static constexpr int OFF_X = HIST;
   static constexpr int OFF_DT = OFF_X + TC * CPB;
   static constexpr int OFF_DY = OFF_DT + TC * CPB;
-  static constexpr int OFF_B = OFF_DY + TC * CPB;
+  static constexpr int OFF_OX = OFF_DY + TC * CPB;
+  static constexpr int OFF_ODT = OFF_OX + TC * CPB;
+  static constexpr int OFF_B = OFF_ODT + TC * CPB;
   static constexpr int OFF_C = OFF_B + TC * SP;
   static constexpr int OFF_RED = OFF_C + TC * SP;
   static constexpr int SMEM = (OFF_RED + 2 * WARPS * TC * SP) * 4;
+  static_assert(THREADS % CPB == 0 && THREADS % SP == 0, "staging layout");
   static_assert(SMEM <= 232448, "shared memory of one block");
 };
 
@@ -121,127 +148,124 @@ struct Args {
   const void* c;
   const float* dskip;
   const float* dy;
-  const float* dh;  // may be null: dh = 0
+  const float* dh;    // may be null: dh = 0
+  const float* ckpt;  // (B, NC - 1, DI, ST4): the state after chunk k
   void* dxc;
   float* ddt;
-  float* ckpt;  // (B, NC - 1, DI, SP): the state after chunk k
-  float* dbp;   // (G, B, L, ST) partial sums over a block's channels
+  float* dbp;  // (G, B, L, ST) partial sums over a block's channels
   float* dcp;
-  float* dAp;   // (B, DI, ST)
-  float* dDp;   // (B, DI)
+  float* dAp;  // (B, DI, ST)
+  float* dDp;  // (B, DI)
   int B, L, DI, ST;
   long long b_sb, b_st, c_sb, c_st;
 };
 
 // A chunk's inputs as a thread loads them, raw, before it stages them in
-// shared memory as fp32.  Element e = tid + k * THREADS of a chunk is (t, ch)
-// = (e / CPB, e % CPB) of x, dt and dy and (e / SP, e % SP) of b and c.
+// shared memory as fp32; and where they come from: x, dt and dy at element
+// gx + k * TPX * DI of chunk 0, b and c at step tb + k * TPB, state sb.
 template <typename T, int LPC> struct Staged {
   using C = Cfg<LPC>;
   T x[C::NX];
   float dt[C::NX], dy[C::NX];
   T b[C::NB], c[C::NB];
 
-  template <bool GRAD>
+  // Element (bi, t0 + tid / CPB, d0 + tid % CPB) of x, dt and dy.
+  static __device__ __forceinline__ size_t at(const Args& p, int bi, int t0, int d0, int tid) {
+    return ((size_t)bi * p.L + t0 + tid / C::CPB) * p.DI + d0 + tid % C::CPB;
+  }
+
   __device__ __forceinline__ void load(const Args& p, int i, int bi, int d0, int tid) {
     const int t0 = i * TC;
+    const size_t g = at(p, bi, t0, d0, tid), step = (size_t)C::TPX * p.DI;
+    const bool d_ok = d0 + tid % C::CPB < p.DI;
     const T* xc = static_cast<const T*>(p.xc);
-    const T* bm = static_cast<const T*>(p.b);
-    const T* cm = static_cast<const T*>(p.c);
 #pragma unroll
     for (int k = 0; k < C::NX; ++k) {
-      const int e = tid + k * THREADS, t = e / C::CPB, ch = e % C::CPB;
-      const size_t g = ((size_t)bi * p.L + t0 + t) * p.DI + d0 + ch;
-      x[k] = T(0.f);
-      dt[k] = 0.f;
-      dy[k] = 0.f;
-      if (t0 + t < p.L && d0 + ch < p.DI) {
-        x[k] = xc[g];
-        dt[k] = p.dt[g];
-        if (GRAD) dy[k] = p.dy[g];
+      const int t = tid / C::CPB + k * C::TPX;
+      const bool ok = d_ok && t < TC && t0 + t < p.L;
+      x[k] = ok ? xc[g + k * step] : T(0.f);
+      dt[k] = ok ? p.dt[g + k * step] : 0.f;
+      dy[k] = ok ? p.dy[g + k * step] : 0.f;
+    }
+    const int sb = tid % C::SP;
+    const T* bm = static_cast<const T*>(p.b) + bi * p.b_sb + sb;
+    const T* cm = static_cast<const T*>(p.c) + bi * p.c_sb + sb;
+#pragma unroll
+    for (int k = 0; k < C::NB; ++k) {
+      const int t = tid / C::SP + k * C::TPB;
+      const bool ok = sb < p.ST && t < TC && t0 + t < p.L;
+      b[k] = ok ? bm[(t0 + t) * p.b_st] : T(0.f);
+      c[k] = ok ? cm[(t0 + t) * p.c_st] : T(0.f);
+    }
+  }
+
+  __device__ __forceinline__ void store(float* sm, int tid) const {
+#pragma unroll
+    for (int k = 0; k < C::NX; ++k) {
+      const int e = tid + k * THREADS;
+      if (C::NX * C::TPX <= TC || e < TC * C::CPB) {
+        sm[C::OFF_X + e] = to_float<T>(x[k]);
+        sm[C::OFF_DT + e] = dt[k];
+        sm[C::OFF_DY + e] = dy[k];
       }
     }
 #pragma unroll
     for (int k = 0; k < C::NB; ++k) {
-      const int e = tid + k * THREADS, t = e / C::SP, s = e % C::SP;
-      b[k] = T(0.f);
-      c[k] = T(0.f);
-      if (t0 + t < p.L && s < p.ST) {
-        b[k] = bm[bi * p.b_sb + (t0 + t) * p.b_st + s];
-        if (GRAD) c[k] = cm[bi * p.c_sb + (t0 + t) * p.c_st + s];
+      const int e = tid + k * THREADS;
+      if (C::NB * C::TPB <= TC || e < TC * C::SP) {
+        sm[C::OFF_B + e] = to_float<T>(b[k]);
+        sm[C::OFF_C + e] = to_float<T>(c[k]);
       }
     }
   }
 
-  template <bool GRAD> __device__ __forceinline__ void store(float* sm, int tid) const {
+  // The chunk's dx (D dy added here) and ddt, staged by the reverse steps,
+  // to device memory.
+  static __device__ __forceinline__ void write_out(const Args& p, int i, int bi, int d0,
+                                                   const float* sm, int tid) {
+    const int t0 = i * TC, ch = tid % C::CPB;
+    const size_t g = at(p, bi, t0, d0, tid), step = (size_t)C::TPX * p.DI;
+    if (d0 + ch >= p.DI) return;
+    const float dsk = p.dskip[d0 + ch];
+    T* dxc = static_cast<T*>(p.dxc);
 #pragma unroll
     for (int k = 0; k < C::NX; ++k) {
-      const int e = tid + k * THREADS;
-      sm[C::OFF_X + e] = to_float<T>(x[k]);
-      sm[C::OFF_DT + e] = dt[k];
-      if (GRAD) sm[C::OFF_DY + e] = dy[k];
-    }
-#pragma unroll
-    for (int k = 0; k < C::NB; ++k) {
-      const int e = tid + k * THREADS;
-      sm[C::OFF_B + e] = to_float<T>(b[k]);
-      if (GRAD) sm[C::OFF_C + e] = to_float<T>(c[k]);
+      const int t = tid / C::CPB + k * C::TPX;
+      if (t < TC && t0 + t < p.L) {
+        const int e = tid + k * THREADS;
+        dxc[g + k * step] = from_float<T>(fmaf(dsk, sm[C::OFF_DY + e], sm[C::OFF_OX + e]));
+        p.ddt[g + k * step] = sm[C::OFF_ODT + e];
+      }
     }
   }
 };
 
-// The state after chunk k - 1 (zeros for k = 0), from the checkpoints.
-template <int LPC>
-__device__ __forceinline__ void load_state(float (&h)[SPT], const Args& p, int k, int NC,
+// The CPT values of the thread's channels at p (8-byte aligned).
+__device__ __forceinline__ void load_channels(float (&v)[CPT], const float* p) {
+  const float2 q = *reinterpret_cast<const float2*>(p);
+  v[0] = q.x; v[1] = q.y;
+}
+
+// The state at the start of chunk k (zeros for k = 0) of channels d .. d +
+// CPT - 1, states s0 .. s0 + 3, from the checkpoints.
+__device__ __forceinline__ void load_state(float (&h)[CPT][SPL], const Args& p, int k, int NC,
                                            int bi, int d, int s0) {
-  constexpr int SP = Cfg<LPC>::SP;
+  const int ST4 = (p.ST + 3) & ~3;
+  const float* ck = p.ckpt + (((size_t)bi * (NC - 1) + k - 1) * p.DI + d) * ST4 + s0;
 #pragma unroll
-  for (int j = 0; j < SPT; ++j) h[j] = 0.f;
-  if (k == 0 || d >= p.DI) return;
-  const float4* src = reinterpret_cast<const float4*>(
-      p.ckpt + (((size_t)bi * (NC - 1) + k - 1) * p.DI + d) * SP + s0);
-#pragma unroll
-  for (int q = 0; q < SPT / 4; ++q) {
-    const float4 v = src[q];
-    h[4 * q] = v.x; h[4 * q + 1] = v.y; h[4 * q + 2] = v.z; h[4 * q + 3] = v.w;
+  for (int c = 0; c < CPT; ++c) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (k > 0 && d + c < p.DI && s0 < ST4) v = *reinterpret_cast<const float4*>(ck + c * ST4);
+    h[c][0] = v.x; h[c][1] = v.y; h[c][2] = v.z; h[c][3] = v.w;
   }
 }
 
-// The chunk's TC steps forward from h, as the forward kernel runs them (the
-// same instructions, so the same states); with HIST, each step's h_{t-1}
-// goes to the thread's column of the shared history first.
-template <int LPC, bool HIST>
-__device__ __forceinline__ void walk(float (&h)[SPT], const float (&a2)[SPT], float* sm, int tid,
-                                     int ch, int s0) {
-  using C = Cfg<LPC>;
-  float4* hist = reinterpret_cast<float4*>(sm);
-#pragma unroll
-  for (int t = 0; t < TC; ++t) {
-    const float xv = sm[C::OFF_X + t * C::CPB + ch];
-    const float dv = sm[C::OFF_DT + t * C::CPB + ch];
-    const float dx = dv * xv;
-    const float4* b4 = reinterpret_cast<const float4*>(sm + C::OFF_B + t * C::SP + s0);
-#pragma unroll
-    for (int q = 0; q < SPT / 4; ++q) {
-      if (HIST)
-        hist[(t * (SPT / 4) + q) * THREADS + tid] =
-            make_float4(h[4 * q], h[4 * q + 1], h[4 * q + 2], h[4 * q + 3]);
-      const float4 bq = b4[q];
-      const float bv[4] = {bq.x, bq.y, bq.z, bq.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int j = 4 * q + i;
-        h[j] = fmaf(hopper::exp2_approx(dv * a2[j]), h[j], dx * bv[i]);
-      }
-    }
-  }
-}
-
-// One exchange of the butterfly: lanes with bit M set keep the upper half of
-// the M values they hold, the others the lower half, each adding its
-// partner's copy of the half it keeps.  Returns the offset of the kept half.
-template <int M> __device__ __forceinline__ int halve(float (&v)[SPT], int lane) {
-  constexpr int H = M / 2;
+// One exchange of a butterfly over lane bit M on the first N values of v:
+// lanes with bit M set keep the upper half of them, the others the lower
+// half, each adding its partner's copy of the half it keeps.
+template <int N, int CAP>
+__device__ __forceinline__ void halve(float (&v)[CAP], int lane, int M) {
+  constexpr int H = N / 2;
   const bool up = lane & M;
 #pragma unroll
   for (int i = 0; i < H; ++i) {
@@ -249,168 +273,194 @@ template <int M> __device__ __forceinline__ int halve(float (&v)[SPT], int lane)
     const float keep = up ? v[i + H] : v[i];
     v[i] = keep + __shfl_xor_sync(FULL, send, M);
   }
-  return up ? H : 0;
 }
 
-// v summed over the warp's channels (the lanes with the same lane % LPC):
-// afterwards v[0 .. max(1, LPC / 2) - 1] hold the sums of states s0 + base +
-// i, where base is returned.  At LPC = 1 lanes 2m and 2m + 1 hold the same
-// sum.
-template <int LPC> __device__ __forceinline__ int sum_channels(float (&v)[SPT], int lane) {
-  int base = halve<16>(v, lane);
-  if constexpr (LPC <= 8) base += halve<8>(v, lane);
-  if constexpr (LPC <= 4) base += halve<4>(v, lane);
-  if constexpr (LPC <= 2) base += halve<2>(v, lane);
-  if constexpr (LPC == 1) v[0] += __shfl_xor_sync(FULL, v[0], 1);
-  return base;
+// v[0 .. N - 1] summed over the lanes that differ in the lane bits BIT,
+// 2 BIT, .. below END: halved while more than KEEP values are left, then
+// the rest added whole.  Afterwards v[0 .. min(N, KEEP) - 1] hold the sums
+// of values kept_base<..>(lane) .. of the original order.
+template <int N, int KEEP, int BIT, int END, int CAP>
+__device__ __forceinline__ void sum_lanes(float (&v)[CAP], int lane) {
+  if constexpr (BIT < END) {
+    if constexpr (N > KEEP) {
+      halve<N>(v, lane, BIT);
+      sum_lanes<N / 2, KEEP, 2 * BIT, END>(v, lane);
+    } else {
+#pragma unroll
+      for (int i = 0; i < N; ++i) v[i] += __shfl_xor_sync(FULL, v[i], BIT);
+      sum_lanes<N, KEEP, 2 * BIT, END>(v, lane);
+    }
+  }
 }
 
-// One block: batch row blockIdx.y, channels blockIdx.x * CPB .. + CPB - 1.
+template <int N, int KEEP, int BIT, int END>
+__device__ __forceinline__ int kept_base(int lane) {
+  if constexpr (BIT < END && N > KEEP)
+    return (lane & BIT ? N / 2 : 0) + kept_base<N / 2, KEEP, 2 * BIT, END>(lane);
+  else
+    return 0;
+}
+
+// One block: batch row blockIdx.y, channels blockIdx.x * CPB .. + CPB - 1;
+// thread tid owns states s0 .. s0 + 3 of channels ch0 .. ch0 + CPT - 1.
 template <typename T, int LPC>
-__global__ void __launch_bounds__(THREADS, 2) mamba_bwd_kernel(const Args p) {
+__global__ void __launch_bounds__(THREADS, LPC == 4 ? 4 : 2)  // 4 blocks an SM at ST <= 16
+    mamba_bwd_kernel(const Args p) {
   using C = Cfg<LPC>;
-  constexpr int CPB = C::CPB, SP = C::SP, R = LPC / 2 > 1 ? LPC / 2 : 1;
+  constexpr int CPB = C::CPB, SP = C::SP, G = 32 / LPC;
+  constexpr int KEPT = 2 * SPL / G > 1 ? 2 * SPL / G : 1;  // db, dc sums a lane keeps
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  const float4* hist = smem4;
+  float4* hist = smem4;
   float* red = sm + C::OFF_RED;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int lane_c = tid % LPC, ch = tid / LPC, s0 = lane_c * SPT;
-  const int bi = blockIdx.y, d0 = blockIdx.x * CPB, d = d0 + ch;
+  const int lane_c = tid % LPC, ch0 = (tid / LPC) * CPT, s0 = lane_c * SPL;
+  const int bi = blockIdx.y, d0 = blockIdx.x * CPB, d = d0 + ch0;
   const int L = p.L, DI = p.DI, ST = p.ST;
   const int NC = (L + TC - 1) / TC;
-  const bool dvalid = d < DI;
 
-  float a2[SPT];  // A scaled by log2(e), as the forward scales it
+  float a2[CPT][SPL];     // A scaled by log2(e), as the forward scales it
+  float carry[CPT][SPL];  // a_{t+1} g_{t+1}
+  float dA[CPT][SPL], dD[CPT];
 #pragma unroll
-  for (int j = 0; j < SPT; ++j)
-    a2[j] = (dvalid && s0 + j < ST) ? p.A[(size_t)d * ST + s0 + j] * LOG2E : 0.f;
-  const float dsk = dvalid ? p.dskip[d] : 0.f;
-
-  // Pass 1: the state after every chunk but the last, from h = 0.
-  Staged<T, LPC> stage;
-  float h[SPT];
+  for (int c = 0; c < CPT; ++c) {
 #pragma unroll
-  for (int j = 0; j < SPT; ++j) h[j] = 0.f;
-  if (NC > 1) stage.template load<false>(p, 0, bi, d0, tid);
-  for (int k = 0; k + 1 < NC; ++k) {
-    __syncthreads();
-    stage.template store<false>(sm, tid);
-    __syncthreads();
-    if (k + 2 < NC) stage.template load<false>(p, k + 1, bi, d0, tid);
-    walk<LPC, false>(h, a2, sm, tid, ch, s0);
-    if (dvalid) {
-      float4* dst = reinterpret_cast<float4*>(p.ckpt + (((size_t)bi * (NC - 1) + k) * DI + d) * SP
-                                              + s0);
-#pragma unroll
-      for (int q = 0; q < SPT / 4; ++q)
-        dst[q] = make_float4(h[4 * q], h[4 * q + 1], h[4 * q + 2], h[4 * q + 3]);
+    for (int j = 0; j < SPL; ++j) {
+      const bool ok = d + c < DI && s0 + j < ST;
+      a2[c][j] = ok ? p.A[(size_t)(d + c) * ST + s0 + j] * LOG2E : 0.f;
+      carry[c][j] = (ok && p.dh != nullptr) ? p.dh[((size_t)bi * DI + d + c) * ST + s0 + j] : 0.f;
+      dA[c][j] = 0.f;
     }
+    dD[c] = 0.f;
   }
-
-  // Pass 2: the chunks in reverse, each recomputed from its checkpoint.
-  float carry[SPT], dA[SPT], hs[SPT];  // a_{t+1} g_{t+1}; dA's sums; the next chunk's start
-  float dD = 0.f;
+  // After the sums over a channel's lanes, a lane holds KO of its channels'
+  // dx and ddt (dx of ch0, ddt of ch0, dx of ch0 + 1, ..); after the sums
+  // over the warp's groups, the db, dc sums vb .. vb + KEPT - 1 (db's
+  // states, then dc's) of its states.
+  constexpr int KO = 2 * CPT > LPC ? 2 * CPT / LPC : 1;  // dx, ddt sums a lane keeps
+  int ooff[KO];  // where in shared memory they go, at step 0
 #pragma unroll
-  for (int j = 0; j < SPT; ++j) {
-    carry[j] = (p.dh != nullptr && dvalid && s0 + j < ST)
-                   ? p.dh[((size_t)bi * DI + d) * ST + s0 + j] : 0.f;
-    dA[j] = 0.f;
+  for (int n = 0; n < KO; ++n) {
+    const int e = kept_base<2 * CPT, 1, 1, LPC>(lane) + n;
+    ooff[n] = (e % 2 ? C::OFF_ODT : C::OFF_OX) + ch0 + e / 2;
   }
-  stage.template load<true>(p, NC - 1, bi, d0, tid);
-  load_state<LPC>(hs, p, NC - 1, NC, bi, d, s0);
-  T* dxc = static_cast<T*>(p.dxc);
+  const int vb = kept_base<2 * SPL, 1, LPC, 32>(lane);
+  int roff[KEPT];
+#pragma unroll
+  for (int i = 0; i < KEPT; ++i)
+    roff[i] = ((vb + i) / SPL * WARPS + warp) * TC * SP + s0 + (vb + i) % SPL;
+  Staged<T, LPC> stage;
+  float hs[CPT][SPL];  // the next chunk's start
+  stage.load(p, NC - 1, bi, d0, tid);
+  load_state(hs, p, NC - 1, NC, bi, d, s0);
   for (int k = NC - 1; k >= 0; --k) {
     const int t0 = k * TC;
     __syncthreads();
-    stage.template store<true>(sm, tid);
+    stage.store(sm, tid);
     __syncthreads();
+    float h[CPT][SPL];
 #pragma unroll
-    for (int j = 0; j < SPT; ++j) h[j] = hs[j];
+    for (int c = 0; c < CPT; ++c)
+#pragma unroll
+      for (int j = 0; j < SPL; ++j) h[c][j] = hs[c][j];
     if (k > 0) {
-      stage.template load<true>(p, k - 1, bi, d0, tid);
-      load_state<LPC>(hs, p, k - 1, NC, bi, d, s0);
+      stage.load(p, k - 1, bi, d0, tid);
+      load_state(hs, p, k - 1, NC, bi, d, s0);
     }
-    walk<LPC, true>(h, a2, sm, tid, ch, s0);
 
-#pragma unroll 1
+    // The chunk forward from its start, as the forward kernel runs it (the
+    // same instructions, so the same states); each step's h_{t-1} to the
+    // thread's column of the history first.
+#pragma unroll
+    for (int t = 0; t < TC; ++t) {
+      float xv[CPT], dv[CPT];
+      load_channels(xv, sm + C::OFF_X + t * CPB + ch0);
+      load_channels(dv, sm + C::OFF_DT + t * CPB + ch0);
+      const float4 bq = *reinterpret_cast<const float4*>(sm + C::OFF_B + t * SP + s0);
+      const float bv[SPL] = {bq.x, bq.y, bq.z, bq.w};
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        hist[(t * CPT + c) * THREADS + tid] = make_float4(h[c][0], h[c][1], h[c][2], h[c][3]);
+        const float dx = dv[c] * xv[c];
+#pragma unroll
+        for (int j = 0; j < SPL; ++j)
+          h[c][j] = fmaf(hopper::exp2_approx(dv[c] * a2[c][j]), h[c][j], dx * bv[j]);
+      }
+    }
+
+    // The chunk backwards.  h holds h_t, the history h_{t-1}.  Unrolled by
+    // 4, not 8: fully unrolled, 128 registers spill.
+#pragma unroll 4
     for (int t = TC - 1; t >= 0; --t) {
-      const float xv = sm[C::OFF_X + t * CPB + ch];
-      const float dv = sm[C::OFF_DT + t * CPB + ch];
-      const float gy = sm[C::OFF_DY + t * CPB + ch];
-      const float dx = dv * xv;
-      const float4* b4 = reinterpret_cast<const float4*>(sm + C::OFF_B + t * SP + s0);
-      const float4* c4 = reinterpret_cast<const float4*>(sm + C::OFF_C + t * SP + s0);
-      float vb[SPT], vc[SPT];  // this channel's db and dc terms
-      float gb = 0.f, gua = 0.f;  // sum_s g b, sum_s g a h_{t-1} A log2(e)
+      float xv[CPT], dv[CPT], gy[CPT];
+      load_channels(xv, sm + C::OFF_X + t * CPB + ch0);
+      load_channels(dv, sm + C::OFF_DT + t * CPB + ch0);
+      load_channels(gy, sm + C::OFF_DY + t * CPB + ch0);
+      const float4 bq = *reinterpret_cast<const float4*>(sm + C::OFF_B + t * SP + s0);
+      const float4 cq = *reinterpret_cast<const float4*>(sm + C::OFF_C + t * SP + s0);
+      const float bv[SPL] = {bq.x, bq.y, bq.z, bq.w};
+      const float cv[SPL] = {cq.x, cq.y, cq.z, cq.w};
+      float v[2 * SPL];  // this thread's db terms, then its dc terms, over its channels
+      float pr[2 * CPT];  // per channel: this lane's terms of dx and of ddt
 #pragma unroll
-      for (int q = 0; q < SPT / 4; ++q) {
-        const float4 hq = hist[(t * (SPT / 4) + q) * THREADS + tid];
-        const float4 bq = b4[q], cq = c4[q];
-        const float hp[4] = {hq.x, hq.y, hq.z, hq.w};
-        const float bv[4] = {bq.x, bq.y, bq.z, bq.w};
-        const float cv[4] = {cq.x, cq.y, cq.z, cq.w};
+      for (int c = 0; c < CPT; ++c) {
+        const float4 hq = hist[(t * CPT + c) * THREADS + tid];
+        const float hp[SPL] = {hq.x, hq.y, hq.z, hq.w};
+        float al[SPL];  // a_t, the walk's decays again
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int j = 4 * q + i;
-          const float al = hopper::exp2_approx(dv * a2[j]);
-          const float u = al * hp[i];                   // a_t h_{t-1}
-          const float ht = fmaf(al, hp[i], dx * bv[i]);  // h_t, as the forward has it
-          const float g = fmaf(gy, cv[i], carry[j]);
-          carry[j] = al * g;
-          gb = fmaf(g, bv[i], gb);
-          const float gu = g * u;
-          gua = fmaf(gu, a2[j], gua);
-          dA[j] = fmaf(gu, dv, dA[j]);
-          vb[j] = g * dx;
-          vc[j] = gy * ht;
+        for (int j = 0; j < SPL; ++j) al[j] = hopper::exp2_approx(dv[c] * a2[c][j]);
+        const float dx = dv[c] * xv[c];
+        float gb = 0.f, gua = 0.f;
+#pragma unroll
+        for (int j = 0; j < SPL; ++j) {
+          const float g = fmaf(gy[c], cv[j], carry[c][j]);
+          carry[c][j] = al[j] * g;
+          gb = fmaf(g, bv[j], gb);
+          const float gu = carry[c][j] * hp[j];  // g_t a_t h_{t-1}
+          gua = fmaf(gu, a2[c][j], gua);
+          dA[c][j] = fmaf(gu, dv[c], dA[c][j]);
+          v[j] = c == 0 ? g * dx : fmaf(g, dx, v[j]);
+          v[SPL + j] = c == 0 ? gy[c] * h[c][j] : fmaf(gy[c], h[c][j], v[SPL + j]);
+          h[c][j] = hp[j];
         }
+        pr[2 * c] = dv[c] * gb;                       // dx - D dy = dt sum_s g b
+        pr[2 * c + 1] = fmaf(gua, LN2, xv[c] * gb);     // ddt = sum_s g a h A + x sum_s g b
+        dD[c] = fmaf(gy[c], xv[c], dD[c]);
       }
+      // dx and ddt of each channel summed over its LPC lanes: each lane ends
+      // with KO of them and stages them.
+      sum_lanes<2 * CPT, 1, 1, LPC>(pr, lane);
 #pragma unroll
-      for (int o = LPC / 2; o > 0; o >>= 1) {
-        gb += __shfl_xor_sync(FULL, gb, o);
-        gua += __shfl_xor_sync(FULL, gua, o);
-      }
-      if (lane_c == 0 && dvalid && t0 + t < L) {
-        const size_t gi = ((size_t)bi * L + t0 + t) * DI + d;
-        dxc[gi] = from_float<T>(fmaf(dsk, gy, dv * gb));
-        p.ddt[gi] = fmaf(gua, LN2, xv * gb);
-      }
-      dD = fmaf(gy, xv, dD);
-      const int base_b = sum_channels<LPC>(vb, lane);
-      const int base_c = sum_channels<LPC>(vc, lane);
-      if (LPC > 1 || !(lane & 1)) {
+      for (int n = 0; n < KO; ++n) sm[ooff[n] + t * CPB] = pr[n];
+      // The db and dc terms over the warp's channel groups.
+      sum_lanes<2 * SPL, 1, LPC, 32>(v, lane);
 #pragma unroll
-        for (int i = 0; i < R; ++i) {
-          red[((0 * WARPS + warp) * TC + t) * SP + s0 + base_b + i] = vb[i];
-          red[((1 * WARPS + warp) * TC + t) * SP + s0 + base_c + i] = vc[i];
-        }
-      }
+      for (int i = 0; i < KEPT; ++i) red[roff[i] + t * SP] = v[i];
     }
     __syncthreads();
+    Staged<T, LPC>::write_out(p, k, bi, d0, sm, tid);
     // The chunk's db and dc terms summed over the block's warps, in order.
-    for (int i = tid; i < TC * SP; i += THREADS) {
-      const int t = i / SP, s = i % SP;
-      if (s < ST && t0 + t < L) {
-        float sb = 0.f, sc = 0.f;
 #pragma unroll
-        for (int w = 0; w < WARPS; ++w) {
-          sb += red[(0 * WARPS + w) * TC * SP + i];
-          sc += red[(1 * WARPS + w) * TC * SP + i];
-        }
-        const size_t o = (((size_t)blockIdx.x * p.B + bi) * L + t0 + t) * ST + s;
-        p.dbp[o] = sb;
-        p.dcp[o] = sc;
+    for (int n = 0; n < C::NR; ++n) {
+      const int i = tid + n * THREADS, arr = i / (TC * SP), r = i % (TC * SP);
+      const int t = r / SP, s = r % SP;
+      if ((C::NR * THREADS <= 2 * TC * SP || i < 2 * TC * SP) && s < ST && t0 + t < L) {
+        float sum = 0.f;
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) sum += red[(arr * WARPS + w) * TC * SP + r];
+        (arr ? p.dcp : p.dbp)[(((size_t)blockIdx.x * p.B + bi) * L + t0 + t) * ST + s] = sum;
       }
     }
   }
 
-  if (dvalid) {
 #pragma unroll
-    for (int j = 0; j < SPT; ++j)
-      if (s0 + j < ST) p.dAp[((size_t)bi * DI + d) * ST + s0 + j] = dA[j];
-    if (lane_c == 0) p.dDp[(size_t)bi * DI + d] = dD;
+  for (int c = 0; c < CPT; ++c) {
+    if (d + c >= DI) continue;
+#pragma unroll
+    for (int j = 0; j < SPL; ++j)
+      if (s0 + j < ST) p.dAp[((size_t)bi * DI + d + c) * ST + s0 + j] = dA[c][j];
+    if (lane_c == 0) p.dDp[(size_t)bi * DI + d + c] = dD[c];
   }
 }
 
@@ -446,19 +496,22 @@ __global__ void __launch_bounds__(256) mamba_bwd_reduce_kernel(
   }
 }
 
-int lpc_of(int ST) { return ST <= SPT ? 1 : ST <= 2 * SPT ? 2 : ST <= 4 * SPT ? 4 : 8; }
+int lpc_of(int ST) { return ST <= 16 ? 4 : ST <= 32 ? 8 : ST <= 64 ? 16 : 32; }
+
+int groups_of(int DI, int ST) {
+  const int cpb = THREADS / lpc_of(ST) * CPT;
+  return (DI + cpb - 1) / cpb;
+}
 
 size_t align256(size_t n) { return (n + 255) / 256 * 256; }
 
-// Workspace layout, in bytes: checkpoints, db and dc partials, dA and dD
-// partials, each 256-byte aligned.
+// Workspace layout, in bytes: db and dc partials, dA and dD partials, each
+// 256-byte aligned.
 struct Workspace {
-  size_t ckpt, dbp, dcp, dAp, dDp, total;
+  size_t dbp, dcp, dAp, dDp, total;
   Workspace(int B, int L, int DI, int ST) {
-    const int lpc = lpc_of(ST), SP = lpc * SPT, CPB = THREADS / lpc;
-    const size_t NC = (L + TC - 1) / TC, G = (DI + CPB - 1) / CPB;
-    ckpt = 0;
-    dbp = ckpt + align256((size_t)B * (NC - 1) * DI * SP * 4);
+    const size_t G = groups_of(DI, ST);
+    dbp = 0;
     dcp = dbp + align256(G * B * L * ST * 4);
     dAp = dcp + align256(G * B * L * ST * 4);
     dDp = dAp + align256((size_t)B * DI * ST * 4);
@@ -472,7 +525,7 @@ cudaError_t launch(Args p, void* db, void* dc, float* dA, float* dD, cudaStream_
   cudaError_t err = cudaFuncSetAttribute(mamba_bwd_kernel<T, LPC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
-  const int G = (p.DI + C::CPB - 1) / C::CPB;
+  const int G = groups_of(p.DI, p.ST);
   mamba_bwd_kernel<T, LPC><<<dim3(G, p.B), THREADS, C::SMEM, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -487,10 +540,10 @@ cudaError_t launch(Args p, void* db, void* dc, float* dA, float* dD, cudaStream_
 template <typename T>
 cudaError_t launch_st(const Args& p, void* db, void* dc, float* dA, float* dD, cudaStream_t s) {
   switch (lpc_of(p.ST)) {
-    case 1: return launch<T, 1>(p, db, dc, dA, dD, s);
-    case 2: return launch<T, 2>(p, db, dc, dA, dD, s);
     case 4: return launch<T, 4>(p, db, dc, dA, dD, s);
-    default: return launch<T, 8>(p, db, dc, dA, dD, s);
+    case 8: return launch<T, 8>(p, db, dc, dA, dD, s);
+    case 16: return launch<T, 16>(p, db, dc, dA, dD, s);
+    default: return launch<T, 32>(p, db, dc, dA, dD, s);
   }
 }
 
@@ -501,9 +554,14 @@ extern "C" long long repro_mamba_scan_bwd_workspace(int B, int L, int DI, int ST
   return (long long)Workspace(B, L, DI, ST).total;
 }
 
+// Steps between the checkpoints that repro_mamba_scan_bwd reads.
+extern "C" int repro_mamba_scan_bwd_chunk() { return TC; }
+
 // xc, dt, dy (B, L, DI) contiguous; A (DI, ST), dskip (DI,) contiguous fp32;
 // b and c (B, L, ST) with unit state stride and the given batch and time
-// strides, in xc's dtype; dh (B, DI, ST) fp32 or null.  Outputs: dxc (B, L,
+// strides, in xc's dtype; dh (B, DI, ST) fp32 or null; ckpt (B, ceil(L / TC)
+// - 1, DI, ST4) fp32 contiguous and 16-byte aligned, ST4 = ST rounded up to
+// 4: the forward's checkpoints (repro_mamba_scan_ckpt).  Outputs: dxc (B, L,
 // DI) in xc's dtype, ddt (B, L, DI) fp32, dA (DI, ST) fp32, db and dc (B, L,
 // ST) contiguous in xc's dtype, dD (DI,) fp32.  workspace: 256-byte aligned,
 // repro_mamba_scan_bwd_workspace bytes.  dtype of xc, b and c: 0 float32,
@@ -511,11 +569,11 @@ extern "C" long long repro_mamba_scan_bwd_workspace(int B, int L, int DI, int ST
 // Returns a cudaError_t (0 on success).
 extern "C" int repro_mamba_scan_bwd(const void* xc, const void* dt, const void* A, const void* b,
                                     const void* c, const void* dskip, const void* dy,
-                                    const void* dh, void* dxc, void* ddt, void* dA, void* db,
-                                    void* dc, void* dD, void* workspace, int B, int L, int DI,
-                                    int ST, long long b_sb, long long b_st, long long c_sb,
-                                    long long c_st, int dtype, void* stream) {
-  if (B < 1 || B > 65535 || L < 1 || DI < 1 || ST < 1 || ST > 8 * SPT)
+                                    const void* dh, const void* ckpt, void* dxc, void* ddt,
+                                    void* dA, void* db, void* dc, void* dD, void* workspace,
+                                    int B, int L, int DI, int ST, long long b_sb, long long b_st,
+                                    long long c_sb, long long c_st, int dtype, void* stream) {
+  if (B < 1 || B > 65535 || L < 1 || DI < 1 || ST < 1 || ST > 128)
     return (int)cudaErrorInvalidValue;
   const Workspace ws(B, L, DI, ST);
   uint8_t* w = static_cast<uint8_t*>(workspace);
@@ -528,9 +586,9 @@ extern "C" int repro_mamba_scan_bwd(const void* xc, const void* dt, const void* 
   p.dskip = static_cast<const float*>(dskip);
   p.dy = static_cast<const float*>(dy);
   p.dh = static_cast<const float*>(dh);
+  p.ckpt = static_cast<const float*>(ckpt);
   p.dxc = dxc;
   p.ddt = static_cast<float*>(ddt);
-  p.ckpt = reinterpret_cast<float*>(w + ws.ckpt);
   p.dbp = reinterpret_cast<float*>(w + ws.dbp);
   p.dcp = reinterpret_cast<float*>(w + ws.dcp);
   p.dAp = reinterpret_cast<float*>(w + ws.dAp);

@@ -9,11 +9,14 @@ the x_proj output as the Mamba layer makes them: the kernel takes their batch
 and time strides.  Its plain PyTorch version is
 :func:`repro_torch.kernels.ref.ref_mamba_scan`.
 
-Training: :func:`mamba_scan_bwd` wraps the backward kernel, which recomputes
-the states from checkpoints and gives the gradients of all six inputs (no
-float atomics: partial sums added in a fixed order).  Its plain version is
-:func:`repro_torch.kernels.ref.ref_mamba_scan_bwd`.  :class:`SelectiveScanFn`
-joins the forward and the backward for autograd.
+Training: ``mamba_scan(..., checkpoints=True)`` also writes the state after
+every 8 steps (``ref.ckpt_shape``), and :func:`mamba_scan_bwd` wraps the
+backward kernel, which recomputes each 8-step chunk from those checkpoints
+and gives the gradients of all six inputs (no float atomics: partial sums
+added in a fixed order).  The plain versions are
+:func:`repro_torch.kernels.ref.ref_mamba_scan` (with the same checkpoints)
+and :func:`repro_torch.kernels.ref.ref_mamba_scan_bwd`.
+:class:`SelectiveScanFn` joins the forward and the backward for autograd.
 """
 
 from __future__ import annotations
@@ -25,16 +28,17 @@ from torch.autograd.function import once_differentiable
 
 from . import _build
 from .flash_attention import DTYPE_CODES
-from .ref import ref_mamba_scan, ref_mamba_scan_bwd
+from .ref import CKPT_STEPS, ckpt_shape, ref_mamba_scan, ref_mamba_scan_bwd
 
 MAX_STATE = 128
 
 
-def _entry():
-    fn = _build.load("mamba_scan").repro_mamba_scan
+def _entry(checkpoints: bool = False):
+    lib = _build.load("mamba_scan")
+    fn = lib.repro_mamba_scan_ckpt if checkpoints else lib.repro_mamba_scan
     if fn.argtypes is None:
         p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, q, q, q, q, i, p]
+        fn.argtypes = [p] * (9 if checkpoints else 8) + [i, i, i, i, q, q, q, q, i, p]
         fn.restype = i
     return fn
 
@@ -44,7 +48,12 @@ def _bwd_entries():
     fn, ws = lib.repro_mamba_scan_bwd, lib.repro_mamba_scan_bwd_workspace
     if fn.argtypes is None:
         p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p] * 15 + [i, i, i, i, q, q, q, q, i, p]
+        chunk = lib.repro_mamba_scan_bwd_chunk
+        chunk.restype = i
+        if chunk() != CKPT_STEPS:
+            raise RuntimeError(f"mamba_scan_bwd: the kernel's chunk is {chunk()} steps, the "
+                               f"checkpoints' {CKPT_STEPS}")
+        fn.argtypes = [p] * 16 + [i, i, i, i, q, q, q, q, i, p]
         fn.restype = i
         ws.argtypes = [i, i, i, i]
         ws.restype = q
@@ -82,9 +91,11 @@ def _checked(name, xc, dt, a, b, c, d_skip):
     return (xc, dt, a, b, c, d_skip), (B, L, DI, ST)
 
 
-def mamba_scan(xc, dt, a, b, c, d_skip):
+def mamba_scan(xc, dt, a, b, c, d_skip, checkpoints: bool = False):
     """xc, dt: (B, L, DI); a: (DI, ST); b, c: (B, L, ST); d_skip: (DI,), all on
-    one CUDA device -> (y (B, L, DI) fp32, h_final (B, DI, ST) fp32).
+    one CUDA device -> (y (B, L, DI) fp32, h_final (B, DI, ST) fp32), and with
+    ``checkpoints`` the state after every 8 steps for :func:`mamba_scan_bwd`
+    (``ref.ckpt_shape``, fp32), written by the same launch.
 
     xc, b and c share one dtype (fp32, fp16 or bf16); dt, a and d_skip are
     fp32.  Launches the CUDA kernel once, or raises: this function never
@@ -93,23 +104,29 @@ def mamba_scan(xc, dt, a, b, c, d_skip):
     (xc, dt, a, b, c, d_skip), (B, L, DI, ST) = _checked("mamba_scan", xc, dt, a, b, c, d_skip)
     y = torch.empty((B, L, DI), dtype=torch.float32, device=xc.device)
     h = torch.empty((B, DI, ST), dtype=torch.float32, device=xc.device)
+    outs = [y.data_ptr(), h.data_ptr()]
+    if checkpoints:
+        ckpt = torch.empty(ckpt_shape(B, L, DI, ST), dtype=torch.float32, device=xc.device)
+        outs.append(ckpt.data_ptr())
     with torch.cuda.device(xc.device):
-        err = _entry()(
+        err = _entry(checkpoints)(
             xc.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-            d_skip.data_ptr(), y.data_ptr(), h.data_ptr(), B, L, DI, ST,
+            d_skip.data_ptr(), *outs, B, L, DI, ST,
             b.stride(0), b.stride(1), c.stride(0), c.stride(1),
             DTYPE_CODES[xc.dtype], torch.cuda.current_stream(xc.device).cuda_stream,
         )
     if err:
         raise RuntimeError(f"mamba_scan: CUDA error {err} at launch")
-    return y, h
+    return (y, h, ckpt) if checkpoints else (y, h)
 
 
-def mamba_scan_bwd(xc, dt, a, b, c, d_skip, dy, dh=None):
+def mamba_scan_bwd(xc, dt, a, b, c, d_skip, dy, dh, ckpt):
     """The scan's gradient on the card: the forward's inputs, dy (B, L, DI)
-    fp32 and dh (B, DI, ST) fp32 or None (0) -> (dxc in xc's dtype, ddt fp32,
-    da (DI, ST) fp32, db, dc (B, L, ST) contiguous in b's dtype, dd (DI,)
-    fp32), the function of :func:`repro_torch.kernels.ref.ref_mamba_scan_bwd`.
+    fp32, dh (B, DI, ST) fp32 or None (0) and the forward's checkpoints
+    (``mamba_scan(..., checkpoints=True)``'s third output, contiguous and
+    16-byte aligned) -> (dxc in xc's dtype, ddt fp32, da (DI, ST) fp32, db,
+    dc (B, L, ST) contiguous in b's dtype, dd (DI,) fp32), the function of
+    :func:`repro_torch.kernels.ref.ref_mamba_scan_bwd`.
 
     Launches the backward kernel and its fixed-order sum of partials on the
     current stream (scratch from PyTorch's allocator), or raises: this
@@ -124,6 +141,12 @@ def mamba_scan_bwd(xc, dt, a, b, c, d_skip, dy, dh=None):
                            or dh.shape != (B, DI, ST)):
         raise ValueError(f"mamba_scan_bwd: dh must be float32 ({B}, {DI}, {ST}) on "
                          f"{xc.device}; got {dh.dtype} {tuple(dh.shape)} on {dh.device}")
+    if (ckpt.device != xc.device or ckpt.dtype != torch.float32
+            or ckpt.shape != ckpt_shape(B, L, DI, ST) or not ckpt.is_contiguous()
+            or ckpt.data_ptr() % 16):  # the kernel reads it with float4 loads
+        raise ValueError(f"mamba_scan_bwd: ckpt must be contiguous, 16-byte aligned float32 "
+                         f"{ckpt_shape(B, L, DI, ST)} on {xc.device}; got {ckpt.dtype} "
+                         f"{tuple(ckpt.shape)} on {ckpt.device}")
     dy = dy.contiguous()
     dh = None if dh is None else dh.contiguous()
     dev = xc.device
@@ -139,8 +162,8 @@ def mamba_scan_bwd(xc, dt, a, b, c, d_skip, dy, dh=None):
         err = fn(
             xc.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
             d_skip.data_ptr(), dy.data_ptr(), 0 if dh is None else dh.data_ptr(),
-            dxc.data_ptr(), ddt.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(),
-            dd.data_ptr(), work.data_ptr(), B, L, DI, ST,
+            ckpt.data_ptr(), dxc.data_ptr(), ddt.data_ptr(), da.data_ptr(), db.data_ptr(),
+            dc.data_ptr(), dd.data_ptr(), work.data_ptr(), B, L, DI, ST,
             b.stride(0), b.stride(1), c.stride(0), c.stride(1),
             DTYPE_CODES[xc.dtype], torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -151,32 +174,33 @@ def mamba_scan_bwd(xc, dt, a, b, c, d_skip, dy, dh=None):
 
 class SelectiveScanFn(torch.autograd.Function):
     """The selective scan with a gradient.  ``apply(xc, dt, a, b, c, d_skip)``
-    -> (y, h_final): on the card the forward launches :func:`mamba_scan` and
-    the backward launches :func:`mamba_scan_bwd` once (counted in
-    ``ops.selective_scan_bwd_launches``); on the CPU both are the plain
-    versions.  Saves the inputs (b and c as the views they are: no copy);
-    under remat the forward, and so what it saves, is recomputed.  An unused
+    -> (y, h_final): on the card the forward launches :func:`mamba_scan` with
+    checkpoints and the backward launches :func:`mamba_scan_bwd` once on them
+    (counted in ``ops.selective_scan_bwd_launches``); on the CPU both are the
+    plain versions.  Saves the inputs (b and c as the views they are: no
+    copy) and the checkpoints, on the CPU too; under remat the forward, and
+    so what it saves, is recomputed just before the backward.  An unused
     output's gradient arrives as None and counts as 0."""
 
     @staticmethod
     def forward(ctx, xc, dt, a, b, c, d_skip):
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(xc, dt, a, b, c, d_skip)
-        if xc.device.type == "cpu":
-            return ref_mamba_scan(xc, dt, a, b, c, d_skip)
-        return mamba_scan(xc, dt, a, b, c, d_skip)
+        scan = ref_mamba_scan if xc.device.type == "cpu" else mamba_scan
+        y, h, ckpt = scan(xc, dt, a, b, c, d_skip, checkpoints=True)
+        ctx.save_for_backward(xc, dt, a, b, c, d_skip, ckpt)
+        return y, h
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dy, dh):
         from . import ops  # the launch counter; ops imports this module
 
-        xc, dt, a, b, c, d_skip = ctx.saved_tensors
+        xc, dt, a, b, c, d_skip, ckpt = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros(xc.shape, dtype=torch.float32, device=xc.device)
         if xc.device.type == "cpu":
             grads = ref_mamba_scan_bwd(xc, dt, a, b, c, d_skip, dy, dh)
         else:
-            grads = mamba_scan_bwd(xc, dt, a, b, c, d_skip, dy, dh)
+            grads = mamba_scan_bwd(xc, dt, a, b, c, d_skip, dy, dh, ckpt)
             ops.selective_scan_bwd_launches += 1
         return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))

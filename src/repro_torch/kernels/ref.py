@@ -88,14 +88,29 @@ def ref_moe_gmm_bwd(x, w, dy):
     return dx, dw
 
 
-def ref_mamba_scan(xc, dt, a, b, c, d_skip):
+CKPT_STEPS = 8  # steps between the scan's checkpoints (the backward's chunk)
+
+
+def ckpt_shape(B: int, L: int, DI: int, ST: int) -> tuple[int, int, int, int]:
+    """The shape of the scan's checkpoints: (B, ceil(L / CKPT_STEPS) - 1, DI,
+    ST rounded up to 4)."""
+    return B, -(-L // CKPT_STEPS) - 1, DI, -(-ST // 4) * 4
+
+
+def ref_mamba_scan(xc, dt, a, b, c, d_skip, checkpoints: bool = False):
     """Sequential selective scan from h = 0.  xc, dt: (B, L, DI); a: (DI, ST);
-    b, c: (B, L, ST); d_skip: (DI,) -> (y (B, L, DI) fp32, h (B, DI, ST) fp32)."""
+    b, c: (B, L, ST); d_skip: (DI,) -> (y (B, L, DI) fp32, h (B, DI, ST) fp32),
+    and with ``checkpoints`` the state after every CKPT_STEPS steps that the
+    backward starts its chunks from: (B, ceil(L / 8) - 1, DI, ST4) fp32
+    (:func:`ckpt_shape`; entry k is the state after step 8 (k + 1) - 1, the
+    states past ST zero)."""
     B, L, DI = xc.shape
     ST = a.shape[1]
     a = a.float()
     xs, dts, bs, cs = xc.float(), dt.float(), b.float(), c.float()
     h = torch.zeros((B, DI, ST), dtype=torch.float32, device=xc.device)
+    if checkpoints:
+        ckpt = torch.zeros(ckpt_shape(B, L, DI, ST), dtype=torch.float32, device=xc.device)
     ys = []
     for t in range(L):
         x_t, dt_t = xs[:, t], dts[:, t]
@@ -103,6 +118,10 @@ def ref_mamba_scan(xc, dt, a, b, c, d_skip):
         drive = (dt_t * x_t)[:, :, None] * bs[:, t, None, :]
         h = decay * h + drive
         ys.append(torch.einsum("bds,bs->bd", h, cs[:, t]) + d_skip * x_t)
+        if checkpoints and (t + 1) % CKPT_STEPS == 0 and t + 1 < L:
+            ckpt[:, (t + 1) // CKPT_STEPS - 1, :, :ST] = h
+    if checkpoints:
+        return torch.stack(ys, dim=1), h, ckpt
     return torch.stack(ys, dim=1), h
 
 

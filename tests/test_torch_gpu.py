@@ -900,13 +900,44 @@ def _assert_mamba_bwd_close(got, want, dtype):
     ],
 )
 def test_mamba_bwd_kernel_matches_plain(cuda, B, L, DI, ST, R, dtype, with_dh):
+    """The backward on the forward kernel's checkpoints, as SelectiveScanFn
+    calls it, against the plain backward (which recomputes the states)."""
     args = _mamba_inputs(cuda, B, L, DI, ST, dtype, R=R)
     gen = torch.Generator(device=cuda).manual_seed(1)
     dy = torch.randn(B, L, DI, generator=gen, device=cuda)
     dh = torch.randn(B, DI, ST, generator=gen, device=cuda) if with_dh else None
-    got = mamba_scan_bwd(*args, dy, dh)
+    ckpt = mamba_scan(*args, checkpoints=True)[2]
+    got = mamba_scan_bwd(*args, dy, dh, ckpt)
     torch.cuda.synchronize()
     _assert_mamba_bwd_close(got, ref_mamba_scan_bwd(*args, dy, dh), dtype)
+
+
+@pytest.mark.parametrize(
+    "B,L,DI,ST,R,dtype",
+    [
+        (4, 4096, 8192, 16, 256, torch.bfloat16),  # falcon-mamba-7b's training shape
+        (2, 1001, 200, 16, None, torch.bfloat16),  # L off the 8- and 16-step chunks
+        (2, 333, 520, 64, None, torch.float32),    # 4 lanes a channel in the forward
+        (2, 100, 100, 128, 8, torch.bfloat16),     # 8 lanes a channel, strided
+        (1, 19, 33, 5, 3, torch.float16),          # DI odd, rows off 16 bytes: plain loads
+        (2, 40, 72, 24, None, torch.float32),      # states padded to 32 and to 24 in the checkpoints
+        (3, 8, 8, 1, None, torch.float32),         # one chunk: no checkpoint
+    ],
+)
+def test_mamba_scan_with_checkpoints_matches_serving_call_and_plain(cuda, B, L, DI, ST, R, dtype):
+    """The forward with checkpoints gives the serving call's y and h to the
+    bit, and checkpoints within 1e-4 of their max of the plain forward's
+    (the state after every 8 steps, states past ST zero)."""
+    args = _mamba_inputs(cuda, B, L, DI, ST, dtype, R=R)
+    y, h = mamba_scan(*args)
+    y_ck, h_ck, ckpt = mamba_scan(*args, checkpoints=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_ck) and torch.equal(h, h_ck)
+    want = ref_mamba_scan(*args, checkpoints=True)[2]
+    assert ckpt.dtype == torch.float32 and ckpt.shape == want.shape
+    if ckpt.numel():
+        assert float((ckpt - want).abs().max()) <= 1e-4 * float(want.abs().max())
+        assert not ckpt[..., ST:].any()
 
 
 @pytest.mark.parametrize("ST,dtype", [(16, torch.bfloat16), (16, torch.float32),
@@ -916,33 +947,44 @@ def test_mamba_bwd_kernel_is_deterministic(cuda, ST, dtype):
     args = _mamba_inputs(cuda, 3, 300, 400, ST, dtype, R=8)
     dy = torch.randn(3, 300, 400, device=cuda)
     dh = torch.randn(3, 400, ST, device=cuda)
-    first = mamba_scan_bwd(*args, dy, dh)
-    second = mamba_scan_bwd(*args, dy, dh)
+    ckpt = mamba_scan(*args, checkpoints=True)[2]
+    first = mamba_scan_bwd(*args, dy, dh, ckpt)
+    second = mamba_scan_bwd(*args, dy, dh, ckpt)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_mamba_bwd_wrapper_refuses_what_it_does_not_take(cuda):
     xc, dt, a, b, c, d = _mamba_inputs(cuda, 1, 8, 16, 8, torch.float32)
     dy = torch.randn(1, 8, 16, device=cuda)
+    ck = mamba_scan(xc, dt, a, b, c, d, checkpoints=True)[2]
     with pytest.raises(ValueError, match="dy"):
-        mamba_scan_bwd(xc, dt, a, b, c, d, dy.half())
+        mamba_scan_bwd(xc, dt, a, b, c, d, dy.half(), None, ck)
     with pytest.raises(ValueError, match="dy"):
-        mamba_scan_bwd(xc, dt, a, b, c, d, dy[:, :4])
+        mamba_scan_bwd(xc, dt, a, b, c, d, dy[:, :4], None, ck)
     with pytest.raises(ValueError, match="dh"):
-        mamba_scan_bwd(xc, dt, a, b, c, d, dy, torch.randn(1, 16, 4, device=cuda))
+        mamba_scan_bwd(xc, dt, a, b, c, d, dy, torch.randn(1, 16, 4, device=cuda), ck)
     with pytest.raises(ValueError, match="dh"):
-        mamba_scan_bwd(xc, dt, a, b, c, d, dy, torch.randn(1, 16, 8, device=cuda).double())
+        mamba_scan_bwd(xc, dt, a, b, c, d, dy, torch.randn(1, 16, 8, device=cuda).double(), ck)
     with pytest.raises(ValueError, match="share"):
-        mamba_scan_bwd(xc, dt, a, b.half(), c, d, dy)
+        mamba_scan_bwd(xc, dt, a, b.half(), c, d, dy, None, ck)
     with pytest.raises(ValueError, match="float32"):
-        mamba_scan_bwd(xc, dt.half(), a, b, c, d, dy)
+        mamba_scan_bwd(xc, dt.half(), a, b, c, d, dy, None, ck)
     with pytest.raises(ValueError, match="shapes"):
-        mamba_scan_bwd(xc, dt, a, b[:, :4], c, d, dy)
+        mamba_scan_bwd(xc, dt, a, b[:, :4], c, d, dy, None, ck)
     with pytest.raises(ValueError, match="CUDA"):
-        mamba_scan_bwd(xc, dt, a, b, c, d.cpu(), dy)
+        mamba_scan_bwd(xc, dt, a, b, c, d.cpu(), dy, None, ck)
     wide = _mamba_inputs(cuda, 1, 8, 16, 129, torch.float32)
     with pytest.raises(ValueError, match="out of range"):
-        mamba_scan_bwd(*wide, dy)
+        mamba_scan_bwd(*wide, dy, None, ck)
+    long = _mamba_inputs(cuda, 1, 20, 16, 8, torch.float32)
+    dy_long = torch.randn(1, 20, 16, device=cuda)
+    ckpt = mamba_scan(*long, checkpoints=True)[2]
+    assert ckpt.shape == (1, 2, 16, 8)
+    off16 = torch.empty(ckpt.numel() + 1, device=cuda)[1:].view(ckpt.shape)  # contiguous, 4 B in
+    for bad in (ckpt[:, :1], ckpt.double(), ckpt.transpose(1, 2).contiguous().transpose(1, 2),
+                ckpt.cpu(), off16):
+        with pytest.raises(ValueError, match="ckpt"):
+            mamba_scan_bwd(*long, dy_long, None, bad)
 
 
 def test_selective_scan_under_grad_counts_one_backward(cuda, monkeypatch):
@@ -961,7 +1003,7 @@ def test_selective_scan_under_grad_counts_one_backward(cuda, monkeypatch):
     dy = torch.randn(2, 100, 256, device=cuda)
     got = torch.autograd.grad(y, leaves, dy)
     assert (ops.selective_scan_launches, ops.selective_scan_bwd_launches) == (1, 1)
-    want = mamba_scan_bwd(*args, dy)
+    want = mamba_scan_bwd(*args, dy, None, mamba_scan(*args, checkpoints=True)[2])
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     with torch.no_grad():
         assert ops.selective_scan(*leaves)[0].grad_fn is None

@@ -14,7 +14,7 @@ from repro.kernels.mamba_scan import mamba_scan as pallas_mamba_scan
 from repro.kernels.rglru_scan import rglru_scan as pallas_rglru_scan
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.mamba_scan import mamba_scan
-from repro_torch.kernels.ref import ref_mamba_scan, ref_rglru_scan
+from repro_torch.kernels.ref import CKPT_STEPS, ckpt_shape, ref_mamba_scan, ref_rglru_scan
 from repro_torch.kernels.rglru_scan import rglru_scan
 
 torch.set_num_threads(2)  # several test processes share the cores
@@ -123,6 +123,36 @@ def test_ref_rglru_scan_ragged_matches_jax_oracle(B, L, D):
     h, f = ref_rglru_scan(torch.from_numpy(a), torch.from_numpy(b))
     np.testing.assert_allclose(h.numpy(), np.asarray(eh), **_lru_tol(np.float32))
     np.testing.assert_allclose(f.numpy(), np.asarray(ef), **_lru_tol(np.float32))
+
+
+# The checkpoints' shapes: the Pallas blocks', a ragged L = 1000 (off every
+# 8-step chunk), fewer states than the checkpoints' rounding to 4, and one
+# chunk or less (no checkpoint).
+CKPT_SHAPES = [(2, 256, 64, 8), (1, 128, 128, 16), (3, 64, 32, 4), (2, 1000, 24, 16),
+               (1, 21, 8, 5), (2, 8, 8, 16)]
+
+
+@pytest.mark.parametrize("B,L,DI,ST", CKPT_SHAPES)
+def test_ref_mamba_scan_checkpoints_are_the_jax_states_after_each_chunk(B, L, DI, ST):
+    """The plain forward with checkpoints (what ``SelectiveScanFn`` saves on
+    the CPU): y and h bitwise what the serving call returns, and checkpoint
+    k the final h of JAX's ``ref_mamba_scan`` on the first 8 (k + 1) steps
+    (the first two, a middle one and the last), states past ST zero."""
+    inputs = _mamba_inputs(5, B, L, DI, ST)
+    y, h, ckpt = ref_mamba_scan(*(torch.from_numpy(a) for a in inputs), checkpoints=True)
+    assert ckpt.dtype == torch.float32
+    assert ckpt.shape == ckpt_shape(B, L, DI, ST) == (B, -(-L // 8) - 1, DI, -(-ST // 4) * 4)
+    ey, eh = ref_mamba_scan(*(torch.from_numpy(a) for a in inputs))
+    assert torch.equal(y, ey) and torch.equal(h, eh)
+    assert not ckpt[..., ST:].any()
+    xc, dt, a, b, c, d = inputs
+    n_ck = ckpt.shape[1]
+    for k in sorted({0, 1, n_ck // 2, n_ck - 1} & set(range(n_ck))):
+        n = CKPT_STEPS * (k + 1)
+        _, jh = jref.ref_mamba_scan(*(jnp.asarray(t[:, :n]) for t in (xc, dt)), jnp.asarray(a),
+                                    *(jnp.asarray(t[:, :n]) for t in (b, c)), jnp.asarray(d))
+        np.testing.assert_allclose(ckpt[:, k, :, :ST].numpy(), np.asarray(jh), **MAMBA_TOL,
+                                   err_msg=f"checkpoint {k}")
 
 
 def test_ops_on_cpu_take_the_plain_path_and_count_no_launch(monkeypatch):

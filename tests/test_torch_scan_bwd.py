@@ -5,8 +5,10 @@ against ``jax.vjp`` of the reference's ``ref_mamba_scan`` on the shapes of
 ``test_torch_scan.py`` (the Pallas blocks' and L = 1000, off every chunk),
 with and without a gradient for the final state, and with bf16 inputs whose
 b and c are strided slices of one projection; :class:`SelectiveScanFn` on the
-plain versions against autograd of ``ref_mamba_scan``; ``ops.selective_scan``
-under grad; and the CUDA wrapper's refusal of CPU tensors.  Nothing here
+plain versions against autograd of ``ref_mamba_scan``, alone and under
+non-reentrant checkpointing (remat "full": the forward, and the checkpoints
+it saves, recomputed just before the backward); ``ops.selective_scan`` under
+grad; and the CUDA wrapper's refusal of CPU tensors.  Nothing here
 reaches a CUDA kernel: the card's side is ``chip_smoke.py`` and the ``gpu``
 tests.
 """
@@ -16,11 +18,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro.kernels import ref as jref
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.mamba_scan import SelectiveScanFn, mamba_scan_bwd
-from repro_torch.kernels.ref import ref_mamba_scan, ref_mamba_scan_bwd
+from repro_torch.kernels.ref import ckpt_shape, ref_mamba_scan, ref_mamba_scan_bwd
 
 torch.set_num_threads(2)  # several test processes share the cores
 
@@ -112,6 +115,57 @@ def test_selective_scan_fn_on_cpu_matches_autograd_of_the_plain_scan(with_dh):
         torch.testing.assert_close(g, e, **MAMBA_TOL, msg=name)
 
 
+@pytest.mark.parametrize("with_dh", [False, True])
+@pytest.mark.parametrize("B,L,DI,ST", [(2, 40, 24, 16), (2, 1000, 24, 16)])
+def test_selective_scan_fn_under_remat_matches_autograd_of_the_plain_scan(B, L, DI, ST, with_dh):
+    """The Function as the model trains it under remat "full": inside
+    non-reentrant ``torch.utils.checkpoint``, whose first forward's saved
+    tensors (the checkpoints among them) are dropped and recomputed before
+    the backward.  Its gradients match autograd through ``ref_mamba_scan``'s
+    loop, with and without a gradient for h_final, at L off every 8-step
+    chunk."""
+    args, dy, dh = _inputs(8, B, L, DI, ST)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    y, h = checkpoint(SelectiveScanFn.apply, *leaves, use_reentrant=False)
+    ey, eh = ref_mamba_scan(*leaves)
+    assert torch.equal(y, ey) and torch.equal(h, eh)
+    cots = (torch.from_numpy(dy), torch.from_numpy(dh))
+    got = torch.autograd.grad((y, h) if with_dh else (y,), leaves, cots if with_dh else cots[:1])
+    expect = torch.autograd.grad((ey, eh) if with_dh else (ey,), leaves,
+                                 cots if with_dh else cots[:1])
+    for name, g, e in zip(NAMES, got, expect):
+        torch.testing.assert_close(g, e, **MAMBA_TOL, msg=name)
+
+
+def test_selective_scan_fn_under_remat_takes_bf16_inputs_and_strided_b_c():
+    """Under remat with bf16 xc, b, c, b and c slices of one projection: the
+    gradients are the plain backward's on the same inputs (to the bit), and
+    those match jax.vjp of the reference's scan on their fp32 copies within
+    MAMBA_TOL (dxc, db, dc after their one rounding to bf16)."""
+    B, L, DI, ST, R = 2, 50, 16, 8, 4
+    (xc, dt, a, _, _, d), dy, dh = _inputs(9, B, L, DI, ST)
+    rng = np.random.default_rng(10)
+    xdbc = torch.from_numpy(rng.standard_normal((B, L, R + 2 * ST)).astype(np.float32))
+    xdbc = xdbc.bfloat16().requires_grad_(True)
+    b, c = xdbc[..., R:R + ST], xdbc[..., R + ST:]
+    assert not b.is_contiguous()
+    xc_t = torch.from_numpy(xc).bfloat16().requires_grad_(True)
+    rest = [torch.from_numpy(t).requires_grad_(True) for t in (dt, a)]
+    d_t = torch.from_numpy(d).requires_grad_(True)
+    y, h = checkpoint(SelectiveScanFn.apply, xc_t, *rest, b, c, d_t, use_reentrant=False)
+    got = torch.autograd.grad((y, h), [xc_t, *rest, b, c, d_t],
+                              (torch.from_numpy(dy), torch.from_numpy(dh)))
+    detached = [t.detach() for t in (xc_t, *rest, b, c, d_t)]
+    plain = ref_mamba_scan_bwd(*detached, torch.from_numpy(dy), torch.from_numpy(dh))
+    for name, g, e in zip(NAMES, got, plain):
+        assert torch.equal(g, e), name
+    expect = _jax_grads([xc_t.detach().float().numpy(), dt, a, b.detach().float().numpy(),
+                         c.detach().float().numpy(), d], dy, dh)
+    for name, g, e in zip(NAMES, got, expect):
+        rounding = 2.0**-7 * np.abs(e) if g.dtype == torch.bfloat16 else 0.0
+        assert np.all(np.abs(g.float().numpy() - e) <= 1e-4 + 1e-4 * np.abs(e) + rounding), name
+
+
 def test_selective_scan_fn_gives_only_the_gradients_asked_for():
     args, dy, _ = _inputs(5, 1, 20, 8, 4)
     xc, *rest = (torch.from_numpy(a) for a in args)
@@ -151,7 +205,9 @@ def test_bwd_wrapper_refuses_cpu_tensors_before_any_build(monkeypatch):
     args, dy, dh = _inputs(7, 1, 8, 16, 8)
     args = [torch.from_numpy(a) for a in args]
     dy, dh = torch.from_numpy(dy), torch.from_numpy(dh)
-    for call in ((*args, dy), (*args, dy, dh), (args[0].half(), *args[1:], dy),
-                 (*args, dy.double()), (*args, dy[:, :4])):
+    ck = torch.zeros(ckpt_shape(1, 8, 16, 8))
+    for call in ((*args, dy, None, ck), (*args, dy, dh, ck),
+                 (args[0].half(), *args[1:], dy, None, ck),
+                 (*args, dy.double(), None, ck), (*args, dy[:, :4], None, ck)):
         with pytest.raises(ValueError, match="CUDA"):
             mamba_scan_bwd(*call)

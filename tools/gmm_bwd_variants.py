@@ -8,7 +8,8 @@ F = 2048):
 Each variant is ``csrc/moe_gmm_bwd.cu`` and ``csrc/hopper.cuh`` with a few
 lines replaced (VARIANTS: what each one takes out or changes), built with
 ``kernels._build``'s flags into OUT_DIR (default ``build/gmm_bwd_variants``)
-and called through the same C entry point as the kernel.  RUNS launches
+and called through the same C entry point as the kernel (the build, the
+turns and the clock sampling are ``tools/kernel_variants.py``'s).  RUNS launches
 them: the design's steps in the order they were built (persistent blocks
 alone storing from each thread; + the epilogue stored by TMA; + pairs of
 blocks kept in step, the kernel as it is), the kernel with one unit of work
@@ -27,19 +28,14 @@ its clock, so only times taken in one run are compared.
 from __future__ import annotations
 
 import ctypes
-import datetime
-import random
 import statistics
-import subprocess
 import sys
-import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+import kernel_variants as kv  # noqa: E402
 
-CSRC = ROOT / "src" / "repro_torch" / "csrc"
+ROOT, CSRC = kv.ROOT, kv.CSRC
 
 # The first persistent step's epilogue: each thread stores its values.
 DIRECT_STORES = """      T* oe = reinterpret_cast<T*>(out) + (size_t)e * M * N;
@@ -265,68 +261,9 @@ ROUNDS, ITERS, SUSTAIN = 10, 10, 1.5
 def edited(name: str) -> tuple[str, str]:
     """``hopper.cuh`` and ``moe_gmm_bwd.cu`` with the variant's lines
     replaced, or raises if a line to replace is missing."""
-    header, source = (CSRC / "hopper.cuh").read_text(), (CSRC / "moe_gmm_bwd.cu").read_text()
-    for old, new in VARIANTS[name][2]:
-        if isinstance(old, tuple):  # the source from old[0] up to old[1]
-            start = source.find(old[0])
-            end = source.find(old[1], start) if start >= 0 else -1
-            if end < 0:
-                raise SystemExit(f"gmm_bwd_variants: {name}: no lines {old!r} to replace")
-            old = source[start:end]
-        if old not in header + source:
-            raise SystemExit(f"gmm_bwd_variants: {name}: no line {old!r} to replace")
-        header, source = header.replace(old, new), source.replace(old, new)
-    return header, source
-
-
-def build(out_dir: Path, name: str):
-    """The variant's library, or raises if a line to replace is missing."""
-    from repro_torch.kernels import _build
-
-    header, source = edited(name)
-    d = out_dir / name
-    d.mkdir(parents=True, exist_ok=True)
-    (d / "hopper.cuh").write_text(header)
-    (d / "moe_gmm_bwd.cu").write_text(source)
-    lib = d / "libmoe_gmm_bwd.so"
-    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-                           str(d / "moe_gmm_bwd.cu")], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise SystemExit(f"gmm_bwd_variants: {name}: nvcc failed\n{proc.stdout}{proc.stderr}")
-    return ctypes.CDLL(str(lib))
-
-
-class Smi:
-    """``nvidia-smi`` sampling the SM clock and the power draw every 50 ms
-    into ``path`` while it runs; ``between(t0, t1)`` gives the medians of the
-    samples taken in that window of the host's clock."""
-
-    def __init__(self, path: Path):
-        self.path = path
-        with open(path, "w") as out:
-            self.proc = subprocess.Popen(
-                ["nvidia-smi", "--query-gpu=timestamp,clocks.sm,power.draw",
-                 "--format=csv,noheader,nounits", "-lms", "50"],
-                stdout=out, stderr=subprocess.DEVNULL, text=True)
-
-    def stop(self) -> None:
-        self.proc.terminate()
-        self.proc.wait(timeout=10)
-        self.samples = []
-        for line in self.path.read_text().splitlines():
-            try:
-                stamp, mhz, watts = (f.strip() for f in line.split(","))
-                self.samples.append((datetime.datetime.strptime(stamp, "%Y/%m/%d %H:%M:%S.%f"),
-                                     float(mhz), float(watts)))
-            except ValueError:
-                continue
-
-    def between(self, t0, t1):
-        got = [(mhz, watts) for t, mhz, watts in self.samples if t0 <= t <= t1]
-        if not got:
-            return None, None, 0
-        return (statistics.median(m for m, _ in got), statistics.median(w for _, w in got),
-                len(got))
+    texts = kv.edited(("hopper.cuh", "moe_gmm_bwd.cu"), VARIANTS[name][2],
+                      f"gmm_bwd_variants: {name}")
+    return texts["hopper.cuh"], texts["moe_gmm_bwd.cu"]
 
 
 def main(argv: list[str]) -> int:
@@ -335,10 +272,9 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("gmm_bwd_variants: no CUDA device")
     out_dir = Path(argv[0]) if argv else ROOT / "build" / "gmm_bwd_variants"
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:
-        libs = dict(zip(VARIANTS, pool.map(lambda n: build(out_dir, n), VARIANTS)))
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+    libs = kv.build_all(out_dir, {n: dict(zip(("hopper.cuh", "moe_gmm_bwd.cu"), edited(n)))
+                                  for n in VARIANTS}, "moe_gmm_bwd.cu")
+    card = kv.card()
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -356,22 +292,12 @@ def main(argv: list[str]) -> int:
             raise RuntimeError(f"gmm_bwd_variants: CUDA error {err}")
 
     def time_ms(fn):
-        for _ in range(2):
-            fn()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(ITERS):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / ITERS
+        return kv.time_ms(fn, ITERS)
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    rnd = random.Random(0)
     print(f"gmm_bwd_variants on {card}: " + "; ".join(f"{n}: {v[0]}" for n, v in VARIANTS.items()))
     runs = [("torch.bmm", None, False)] + list(RUNS)
-    smi = Smi(out_dir / "smi.csv")
+    smi = kv.Smi(out_dir / "smi.csv")
     sustained = []  # (shape, run, ms a call, t0, t1)
     try:
         for label, E, C, D, F in SHAPES:
@@ -387,18 +313,17 @@ def main(argv: list[str]) -> int:
                     call(libs[name], x, w, dy, dx, dw, 1, 1, one_each)
                     if not (torch.equal(dx, want[0]) and torch.equal(dw, want[1])):
                         raise SystemExit(f"gmm_bwd_variants: {run} changed the bits")
-            times: dict = {}
-            for _ in range(ROUNDS):
-                rnd.shuffle(runs)
-                for run, name, one_each in runs:
-                    if run == "torch.bmm":
-                        t = (time_ms(lambda: torch.bmm(dy, w.transpose(1, 2))),
-                             time_ms(lambda: torch.bmm(x.transpose(1, 2), dy)))
-                    else:
-                        lib = libs[name]
-                        t = (time_ms(lambda: call(lib, x, w, dy, dx, dw, 1, 0, one_each)),
-                             time_ms(lambda: call(lib, x, w, dy, dx, dw, 0, 1, one_each)))
-                    times.setdefault(run, []).append(t)
+
+            def timed(name, one_each):
+                if name is None:
+                    return (time_ms(lambda: torch.bmm(dy, w.transpose(1, 2))),
+                            time_ms(lambda: torch.bmm(x.transpose(1, 2), dy)))
+                lib = libs[name]
+                return (time_ms(lambda: call(lib, x, w, dy, dx, dw, 1, 0, one_each)),
+                        time_ms(lambda: call(lib, x, w, dy, dx, dw, 0, 1, one_each)))
+
+            times = kv.in_turns({run: (lambda n=name, o=one_each: timed(n, o))
+                                 for run, name, one_each in runs}, ROUNDS)
             for run, ts in sorted(times.items()):
                 dx_ms = statistics.median(t[0] for t in ts)
                 dw_ms = statistics.median(t[1] for t in ts)
@@ -413,18 +338,7 @@ def main(argv: list[str]) -> int:
                 else:
                     def both(lib=libs[name], one_each=one_each):
                         call(lib, x, w, dy, dx, dw, 1, 1, one_each)
-                both()
-                torch.cuda.synchronize()
-                n, t0 = 0, datetime.datetime.now()
-                start = time.perf_counter()
-                while time.perf_counter() - start < SUSTAIN:
-                    for _ in range(20):
-                        both()
-                    n += 20
-                    torch.cuda.synchronize()
-                ms = (time.perf_counter() - start) * 1e3 / n
-                sustained.append((label, run, ms, t0 + datetime.timedelta(seconds=0.5),
-                                  datetime.datetime.now()))
+                sustained.append((label, run, *kv.sustained(both, SUSTAIN)))
             del x, w, dy, dx, dw, want
             torch.cuda.empty_cache()
     finally:

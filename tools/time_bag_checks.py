@@ -3,7 +3,7 @@
 one or more checkouts on one CUDA card, each checkout in a process of its
 own, so that two versions of the checks compare on the same card in one run:
 
-    python3 tools/time_bag_checks.py [--gmm | --gmm-moe] OUT.jsonl TREE [TREE ...]
+    python3 tools/time_bag_checks.py [--gmm | --gmm-moe | --scan | --scan-ssm] OUT.jsonl TREE ...
 
 Each TREE is the root of a checkout (its ``chip_smoke.py`` and ``src/``),
 e.g. the parent commit unpacked by ``git archive`` into ``build/parent``
@@ -37,12 +37,27 @@ model (``train_full`` and ``trace_train_step`` of the tree's
 ``chip_smoke.py``: 2 + 8 steps, 6 on a fixed batch, one traced) and records
 its step times, peak memory and the traced step's grouped-matmul backward
 (``moe_step``).
+
+``--scan`` runs the tree's ``check_mamba_bwd`` (its ``MAMBA_BWD_CASES``;
+each case's backward, plain and bound times, ``scan_bwd``), then times on
+every tree alike, by CUDA events: the serving forward at falcon-mamba-7b's
+prefill (``SCAN_PREFILL``, bf16, ``prefill_ms``), the forward at the training
+shape (``SCAN_TRAIN``, ``train_fwd_ms``), and one layer's scans as a remat
+step runs them through the tree's ``SelectiveScanFn`` (non-reentrant
+``torch.utils.checkpoint``: the forward twice, then the backward,
+``pair_ms``); then the SHA-256 of the serving call's y and h bits at the
+prefill shape on inputs this tool makes from one seed (``digests``), and
+prints whether every run's bits agree.  ``--scan-ssm`` also trains phase
+5d's model (the tree's ``train_ssm``: 2 + 8 steps, 6 on a fixed batch, one
+traced) and records its step times, tokens/s, model FLOPs share, peak
+memory and the traced step's scan forward and backward (``ssm_step``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import importlib.util
+import inspect
 import io
 import json
 import re
@@ -265,6 +280,108 @@ def one_gmm(cs, tree: Path, moe: bool) -> dict:
     return out
 
 
+# falcon-mamba-7b's scan at its prefill and at its training shape: (B, L, DI,
+# ST, R), b and c strided as the layer makes them, bf16.
+SCAN_PREFILL, SCAN_TRAIN = (4, 1000, 8192, 16, 256), (4, 4096, 8192, 16, 256)
+
+
+def scan_inputs(dev, B, L, DI, ST, R, seed):
+    """The scan's inputs in bf16 as the Mamba layer makes them (``xdbc`` the
+    projection b and c are slices of), made on the card from ``seed``."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xc = torch.randn(B, L, DI, generator=gen, device=dev).bfloat16()
+    dt = torch.rand(B, L, DI, generator=gen, device=dev) * 0.099 + 0.001
+    a = -torch.arange(1, ST + 1, dtype=torch.float32, device=dev).repeat(DI, 1)
+    xdbc = torch.randn(B, L, R + 2 * ST, generator=gen, device=dev).bfloat16()
+    return xc, dt, a, xdbc, torch.randn(DI, generator=gen, device=dev)
+
+
+def scan_times(cs, dev) -> dict:
+    """The tree's serving forward at SCAN_PREFILL, its forward at SCAN_TRAIN
+    and a layer's remat pair there through its SelectiveScanFn (ms a call,
+    CUDA events), and the serving call's y and h bits at SCAN_PREFILL."""
+    import hashlib
+
+    import torch
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.kernels.mamba_scan import SelectiveScanFn, mamba_scan
+
+    xc, dt, a, xdbc, d = scan_inputs(dev, *SCAN_PREFILL, seed=28)
+    R, ST = SCAN_PREFILL[4], SCAN_PREFILL[3]
+    args = (xc, dt, a, xdbc[..., R:R + ST], xdbc[..., R + ST:], d)
+    out = dict(prefill_ms=cs.time_ms(lambda: mamba_scan(*args), 20))
+    out["digests"] = {n: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+                      for n, t in zip(("y", "h"), mamba_scan(*args))}
+    xc, dt, a, xdbc, d = scan_inputs(dev, *SCAN_TRAIN, seed=29)
+    args = (xc, dt, a, xdbc[..., R:R + ST], xdbc[..., R + ST:], d)
+    out["train_fwd_ms"] = cs.time_ms(lambda: mamba_scan(*args), 10)
+    leaves = [t.requires_grad_(True) for t in (xc, dt, a, xdbc, d)]
+    dy = torch.randn(xc.shape, device=dev)
+
+    def pair():  # the checkpointed layer's scans: the forward, again, then the backward
+        y, _ = checkpoint(SelectiveScanFn.apply, xc, dt, a, xdbc[..., R:R + ST],
+                          xdbc[..., R + ST:], d, use_reentrant=False)
+        torch.autograd.grad(y, leaves, dy)
+
+    out["pair_ms"] = cs.time_ms(pair, 5, warmup=1)
+    return out
+
+
+def ssm_step(cs, dev, smi) -> dict:
+    """Phase 5d of the tree's ``chip_smoke.py``: falcon-mamba-7b at 16 layers
+    trained on the card, one step traced."""
+    import dataclasses
+
+    from repro_torch import optim
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import pipeline as data
+    from repro_torch.kernels import ops
+    from repro_torch.launch.trace_train import group_of
+    from repro_torch.models import lm
+    from repro_torch.train.steps import make_train_step
+
+    cfg = dataclasses.replace(get_config(cs.SSM_TRAIN_ARCH), n_layers=cs.SSM_TRAIN_LAYERS)
+    run = cs.train_ssm(lm, ops, optim, make_train_step, data, group_of, cfg, dev, smi)
+    trace = run["trace"]
+    return dict({k: run[k] for k in ("step_ms", "step_ms_all", "tokens_per_s", "mfu", "peak_gb",
+                                     "launches_per_step")},
+                traced_ms=trace["traced_ms"], idle_share=trace["idle_share"],
+                scan_fwd_traced_ms=trace["split_ms"]["selective scan forward"],
+                scan_bwd_traced_ms=trace["split_ms"]["selective scan backward"])
+
+
+def one_scan(cs, tree: Path, ssm: bool) -> dict:
+    """The scan backward's check of the checkout at ``tree`` (whatever its
+    signature), this tool's timings of its scans, and with ``ssm`` phase 5d."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_bwd
+    from repro_torch.kernels.ref import ref_mamba_scan, ref_mamba_scan_bwd
+
+    _build.load_all(["mamba_scan", "mamba_scan_bwd"])
+    dev = torch.device("cuda")
+    smi = cs.nvidia_smi_line()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    have = dict(mamba_scan=mamba_scan, mamba_scan_bwd=mamba_scan_bwd, ref_mamba_scan=ref_mamba_scan,
+                ref_mamba_scan_bwd=ref_mamba_scan_bwd, gen=gen, dev=dev, smi=smi)
+    check = cs.check_mamba_bwd
+    t0 = time.perf_counter()
+    cases = check(**{n: have[n] for n in inspect.signature(check).parameters})
+    seconds = time.perf_counter() - t0
+    keys = ("kernel_ms", "plain_ms", "bound_ms", "fwd_ms", "fwd_ckpt_ms", "pair_ms")
+    out = dict(tree=str(tree), card=smi, check_mamba_bwd_s=seconds,
+               scan_bwd={name: {k: c[k] for k in keys if k in c} for name, c in cases.items()},
+               **scan_times(cs, dev))
+    torch.cuda.empty_cache()
+    if ssm:
+        out["ssm_step"] = ssm_step(cs, dev, smi)
+    return out
+
+
 def one(tree: Path, what: str = "bag") -> dict:
     """Runs the bag checks (``what`` "bag"), or the grouped matmul
     backward's ("gmm", "gmm-moe"), of the checkout at ``tree`` once."""
@@ -281,6 +398,8 @@ def one(tree: Path, what: str = "bag") -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("time_bag_checks: no CUDA device")
     assert Path(_build.__file__).resolve().is_relative_to(tree.resolve()), _build.__file__
+    if what in ("scan", "scan-ssm"):
+        return one_scan(cs, tree, ssm=what == "scan-ssm")
     if what != "bag":
         return one_gmm(cs, tree, moe=what == "gmm-moe")
     for name in ("embedding_bag", "embedding_bag_bwd"):
@@ -329,12 +448,36 @@ def gmm_summary(runs: list[dict]) -> None:
              "; " + "; ".join(f"{r['tree']}: {r['digests']}" for r in runs)))
 
 
+def scan_summary(runs: list[dict]) -> None:
+    """Each case's backward by run, this tool's scan timings, phase 5d's
+    numbers, and whether every run's serving bits agree."""
+    print("scan backward ms a call by case / plain / bound; runs: "
+          + ", ".join(r["tree"] for r in runs))
+    for name in dict.fromkeys(k for r in runs for k in r["scan_bwd"]):
+        cells = []
+        for r in runs:
+            c = r["scan_bwd"].get(name)
+            cells.append("-" if c is None else f"{c['kernel_ms']} / {c['plain_ms']} / "
+                                               f"{c['bound_ms']}")
+        print(f"  {name}: " + " | ".join(cells))
+    for key in ("prefill_ms", "train_fwd_ms", "pair_ms"):
+        print(f"{key}: " + " ".join(str(r[key]) for r in runs))
+    if all("ssm_step" in r for r in runs):
+        for key in ("step_ms", "tokens_per_s", "mfu", "peak_gb", "scan_fwd_traced_ms",
+                    "scan_bwd_traced_ms", "traced_ms", "idle_share"):
+            print(f"phase 5d {key}: " + " ".join(str(r["ssm_step"][key]) for r in runs))
+    digests = {json.dumps(r["digests"], sort_keys=True) for r in runs}
+    print(f"serving y and h bits at the prefill equal across the runs: {len(digests) == 1}"
+          + ("" if len(digests) == 1 else
+             "; " + "; ".join(f"{r['tree']}: {r['digests']}" for r in runs)))
+
+
 def main(argv: list[str]) -> int:
     if argv[:1] == ["--one"]:
         print(json.dumps(one(Path(argv[1]), *argv[2:])))
         return 0
     what = "bag"
-    if argv[:1] in (["--gmm"], ["--gmm-moe"]):
+    if argv[:1] in (["--gmm"], ["--gmm-moe"], ["--scan"], ["--scan-ssm"]):
         what, argv = argv[0][2:], argv[1:]
     if len(argv) < 2:
         print(__doc__, file=sys.stderr)
@@ -356,6 +499,9 @@ def main(argv: list[str]) -> int:
         with open(out, "a") as f:
             f.write(last[0] + "\n")
         runs.append(json.loads(last[0]))
+    if what in ("scan", "scan-ssm"):
+        scan_summary(runs)
+        return 0
     if what != "bag":
         gmm_summary(runs)
         return 0
