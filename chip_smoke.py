@@ -15,12 +15,16 @@ result line:
    forward, the attention backward's dk/dv and dq, the grouped matmul and
    its backward's dx and dw) must report the 168 registers their setmaxnreg
    split (240 x 256 + 24 x 128) is sized for (the forward's lse store
-   included), and the skinny grouped matmul, the Mamba scan, every attention
-   backward kernel, the grouped matmul's backward (4 wgmma kernels, 6 fma
-   ones), the Mamba scan's backward (12 kernels, 3 dtypes x 4 lane counts,
-   and 3 sums of partials), the embedding bag's 12 forward kernels and its
-   backward (the small tiling's 6 kernels, the sorted tiling's 12 and the
-   keys kernel's 4) must not spill;
+   included; the attention backward's at head dim 256 too, whose consumers
+   split D and keep the same split), and the skinny grouped matmul, the
+   Mamba scan, every attention backward kernel (at head dims 64, 128 and
+   256 on both tilings, and the sums of the head dim 256 partials), the
+   grouped matmul's backward (4 wgmma kernels, 6 fma ones), the Mamba scan's
+   backward (12 kernels, 3 dtypes x 4 lane counts, and 3 sums of partials),
+   the RG-LRU scan's backward (a chunk and a fix-up pass for each of 3
+   dtypes, and the carry pass), the embedding bag's 12 forward kernels and
+   its backward (the small tiling's 6 kernels, the sorted tiling's 12 and
+   the keys kernel's 4) must not spill;
 3. kernels vs their plain PyTorch versions at the serving shapes, with times
    beside the bound and beside one PyTorch library call where one computes
    the same function, each case printing the tiling that served it (wgmma
@@ -58,8 +62,14 @@ result line:
    the bit, each output within 1e-4 of its max|.| (bf16 outputs plus one
    rounding on each side), its time beside the bound and the plain
    version's, and at the training shapes the forward's time without and
-   with checkpoints and a remat step's two forwards and one backward; and the
-   embedding bag on the paper DLRM's tables (T=8, R=1e7,
+   with checkpoints and a remat step's two forwards and one backward; the
+   RG-LRU scan's backward against its plain version at recurrentgemma-9b's
+   training shape (B=1, L=4096, D=4096, fp32 as the layer passes it), with
+   a gradient for the final state, with bf16 a, and ragged (B=3, L=1000,
+   D=200): two launches equal to the bit, da and db within 1e-4 of their
+   max|.| (bf16 plus one rounding), its time beside the bound and the plain
+   version's, and the forward at B=1 and a remat step's two forwards and
+   one backward; and the embedding bag on the paper DLRM's tables (T=8, R=1e7,
    E=128, fp32: 40.96 GB) at its serving lookup (B=128, one id a bag), at
    B=4096 (int32 and int64 ids), at a multi-hot shape (B=4096, 32 ids a
    bag), at B=4095 over 7 tables (a last unit of one bag), with bf16 tables
@@ -91,10 +101,13 @@ result line:
    attention backward and the forward's lse against autograd of the plain
    version (fp32) at minicpm-2b's training shape (B=4, H=KV=36, S=4096,
    D=64, causal, bf16), granite-8b's (H=32, KV=8, S=2048, D=128), in fp32
-   on the fma forward and at a ragged non-causal shape, bf16 inputs on both
-   backward tilings (wgmma and fma), timed beside SDPA's backward and the
-   bound, and at the training shape the plain forward and SDPA's forward
-   beside the forward kernel; and a narrow fp32 train step (head dim 64, 2
+   on the fma forward and at a ragged non-causal shape, recurrentgemma-9b's
+   (B=1, H=16, KV=1, S=4096, D=256, window 2048) and an fp32 one at D=256
+   (S=600, window 256), bf16 inputs on both backward tilings (wgmma and
+   fma), timed beside SDPA's backward (with a window, the window as a
+   boolean mask; the backend that served it printed) and the bound, and
+   at the training shape the plain forward and SDPA's forward beside the
+   forward kernel; and a narrow fp32 train step (head dim 64, 2
    layers, MHA and GQA) on the card against the CPU: loss, every gradient,
    AdamW's arithmetic and the parameters after one SGD step; and a narrow
    fp32 qwen3-moe train step (its smoke widths at head dim 64, 2 layers; C
@@ -107,7 +120,12 @@ result line:
    card against CPU: both scan kernels (2 forward and 1 backward launch a
    layer), the loss and every gradient (a_log and d_skip included) within
    1e-4 of each leaf's max, the parameters after one AdamW step within 1e-4
-   where the gradient settles the update;
+   where the gradient settles the update; and a narrow fp32 hybrid train step
+   (recurrentgemma-9b's smoke widths at d_model 256, 5 layers, 2 heads of
+   256 over one kv head, window 32, 2 x 77 tokens) card against CPU: 8
+   forward and 4 backward RG-LRU launches, 2 forward and 1 backward fma
+   attention launches, the loss and every gradient within 1e-4, and the
+   parameters after one SGD step within 1e-4;
 4. serve granite-8b at full width and depth in bf16 through
    ``repro_torch.launch.serve.generate`` (4 requests, prompt 1000, 16 decode
    steps), counting kernel launches (every prefill attention on the wgmma
@@ -181,6 +199,20 @@ result line:
    read a tensor of the logits' size or multiply by the head, in the same
    traced step), AdamW (traced apart) and the rest, with the idle share,
    and the phase's wall time;
+5e. train recurrentgemma-9b at full width, cut to 5 of its 38 layers (one
+   (rec, rec, attn) block and the (rec, rec) tail; bf16, fp32 AdamW state,
+   cosine, remat "full", the full CE as the reference takes it) at 1 x 4096
+   (past its 2048-token window) through ``train.steps.make_train_step``: 2
+   warm-up and 8 timed steps (median, range, tokens/s, model FLOPs share,
+   peak memory), each with 8 forward and 4 backward RG-LRU launches and 2
+   forward and 1 backward attention launches on the wgmma tilings and no
+   other kernel; then 6 steps on one fixed batch, whose loss must fall, and
+   one step under ``torch.profiler`` split into the RG-LRU forward and
+   backward, attention forward and backward, cuBLAS GEMMs, the loss head,
+   AdamW (traced apart) and the rest, with the idle share; then the twin of
+   ``examples/serve_decode.py`` on the card in a process of its own
+   (``--arch falcon-mamba-7b``, the smoke config: no attention), which must
+   exit 0 and print its tokens/s line;
 6. plan: the planner (``repro_torch.core``) on the card at the paper's
    128-server scale (degree 4, 100 Gbps links), each result held against
    the same call on the CPU or against the NumPy oracles: (6a) pricing 256
@@ -239,6 +271,7 @@ import gc
 import copy
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -274,8 +307,8 @@ HUBERT_CASES = tuple((PROMPT, PROMPT, D_AU, dt, False, 0, H_AU, H_AU)
 CROSS_CASE = (PROMPT, IMG_TOKENS, D, torch.bfloat16, False, 0, KV, H)
 KERNEL_COUNTERS = ("attention_launches", "attention_bwd_launches", "grouped_matmul_launches",
                    "grouped_matmul_bwd_launches", "selective_scan_launches",
-                   "selective_scan_bwd_launches", "lru_scan_launches", "bag_lookup_launches",
-                   "bag_lookup_bwd_launches")
+                   "selective_scan_bwd_launches", "lru_scan_launches", "lru_scan_bwd_launches",
+                   "bag_lookup_launches", "bag_lookup_bwd_launches")
 # The same launches again, by the tiling that served them.
 TILING_COUNTERS = ("attention_wgmma_launches", "attention_fma_launches",
                    "attention_bwd_wgmma_launches", "attention_bwd_fma_launches",
@@ -306,6 +339,13 @@ C_TRAIN = int(1.25 * TRAIN_B * TRAIN_S * 8 / E_MOE)  # 1280
 # layers cut to 16 (27 GB of training state, about 57 GB at the peak) and
 # TRAIN_4K's global batch of 256 to 4.
 SSM_TRAIN_ARCH, SSM_TRAIN_LAYERS, SSM_WARMUP = "falcon-mamba-7b", 16, 2
+# Training the hybrid (phase 5e): recurrentgemma-9b at full width, its 38
+# layers cut to 5 (one (rec, rec, attn) block and the (rec, rec) tail, the
+# fewest that hold an attention layer: about 52 GB of training state) and
+# TRAIN_4K's global batch of 256 to 1 (its full CE over 256,000 classes at
+# 4 x 4096 would take about 75 GB); the 4096-token sequence stays past the
+# 2048-token window.
+HYB_TRAIN_ARCH, HYB_TRAIN_LAYERS, HYB_TRAIN_B, HYB_WARMUP = "recurrentgemma-9b", 5, 1, 2
 # The backward kernel's cases (B, H, KV, S, D, dtype, causal): minicpm-2b's
 # and granite-8b's training attention (the first is the main path's), one
 # fp32 case on the fma forward, and a ragged non-causal one.
@@ -314,6 +354,11 @@ BWD_CASES = (
     (TRAIN_B, 32, 8, 2048, 128, torch.bfloat16, True),
     (TRAIN_B, 36, 36, 1024, 64, torch.float32, True),
     (TRAIN_B, 36, 36, 1000, 64, torch.bfloat16, False),
+    # recurrentgemma-9b's training attention (B, H, KV, S, D, dtype, causal,
+    # window): head dim 256, GQA 16:1, its window of 2048, bf16 (the main
+    # path's); and fp32 on the fma tiling at a smaller shape, S past the window.
+    (HYB_TRAIN_B, 16, 1, TRAIN_S, 256, torch.bfloat16, True, PROMPT_RG),
+    (2, 8, 1, 600, 256, torch.float32, True, 256),
 )
 
 
@@ -443,6 +488,17 @@ def lru_bound(a, b) -> tuple[float, str]:
     Bm, L, Dl = a.shape
     nbytes = (a.numel() + b.numel()) * a.element_size() + (Bm * L * Dl + Bm * Dl) * 4
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, 2.0 * Bm * L * Dl / PEAK_FLOPS[torch.float32]
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def lru_bwd_bound(a, dh_final) -> tuple[float, str]:
+    """Least time for the card to compute da and db: a, h_all and dh_all
+    (fp32) read once, dh_final if given, and da and db (in a's dtype)
+    written once, against 3 flops a step and lane over the fp32 peak."""
+    n = a.numel()
+    nbytes = 3 * n * a.element_size() + 2 * n * 4 + (dh_final.numel() * 4 if dh_final is not None
+                                                      else 0)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, 3.0 * n / PEAK_FLOPS[torch.float32]
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -801,31 +857,44 @@ def check_mamba_bwd(mamba_scan, mamba_scan_bwd, ref_mamba_scan, ref_mamba_scan_b
     return out
 
 
-def attention_bwd_bound(q, k, causal: bool) -> tuple[float, str]:
+def attention_bwd_bound(q, k, causal: bool, window: int = 0) -> tuple[float, str]:
     """Least time for the card: 5 products of 2*D flops a kept (query, key)
-    pair (half the pairs under a causal mask) over the dtype's peak, against
-    q, k, v, o, do and lse read once and dq, dk, dv written once over
-    3.35 TB/s."""
+    pair (half the pairs under a causal mask, fewer under a window) over the
+    dtype's peak, against q, k, v, o, do and lse read once and dq, dk, dv
+    written once over 3.35 TB/s."""
     from repro_torch.kernels.ref import attention_mask
 
     Bq, Hq, Sq, Dq = q.shape
-    pairs = int(attention_mask(Sq, k.shape[2], causal, 0, q.device).sum())
+    pairs = int(attention_mask(Sq, k.shape[2], causal, window, q.device).sum())
     flops = 10.0 * Bq * Hq * Dq * pairs
     nbytes = 4 * (q.numel() + k.numel()) * q.element_size() + Bq * Hq * Sq * 4
     t_ops, t_bytes = flops / PEAK_FLOPS[q.dtype], nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def plain_attention_grads(ref_flash_attention, q, k, v, do, causal: bool):
+def plain_attention_grads(ref_flash_attention, q, k, v, do, causal: bool, window: int = 0):
     """Autograd of the plain version in fp32, one batch row at a time: the
     fp32 scores of a row of minicpm-2b's shape (36 x 4096 x 4096) take 2.4 GB
     and autograd keeps several such tensors."""
     grads = []
     for b in range(q.shape[0]):
         qf, kf, vf = (t[b:b + 1].float().requires_grad_(True) for t in (q, k, v))
-        out = ref_flash_attention(qf, kf, vf, causal=causal)
+        out = ref_flash_attention(qf, kf, vf, causal=causal, window=window)
         grads.append(torch.autograd.grad(out, (qf, kf, vf), do[b:b + 1].float()))
     return [torch.cat(g) for g in zip(*grads)]
+
+
+def sdpa_backend(q, k, v, **kwargs) -> str:
+    """The backend PyTorch's dispatcher picks for ``scaled_dot_product_attention``
+    on these inputs and keywords (``torch._fused_sdp_choice``, as the call
+    itself asks; its backward runs on the same one).  Asked rather than read
+    from a profiler trace: profiling these SDPA calls made the embedding
+    bag's later profiler sessions drop kernel events."""
+    from torch.nn.attention import SDPBackend
+
+    names = {int(getattr(SDPBackend, n)): n.lower() for n in dir(SDPBackend) if n.isupper()}
+    choice = int(torch._fused_sdp_choice(q, k, v, **kwargs))
+    return names.get(choice, str(choice))
 
 
 def check_attention_bwd(case, gen, dev, smi) -> dict:
@@ -833,32 +902,38 @@ def check_attention_bwd(case, gen, dev, smi) -> dict:
     kernel against autograd of the plain version (fp32) on the same inputs,
     on the tiling that serves the dtype and, for bf16/fp16 inputs, on the fma
     tiling too, with times: each tiling, the forward with and without lse,
-    plain, SDPA's backward (a yardstick only) and the bound.  At the main
-    path's shape (``train_shape``) also the plain forward and SDPA's
-    forward, row 1's yardsticks at the training shape."""
+    plain, SDPA's backward (a yardstick only; with a window, the window as a
+    boolean mask, and the backend that served it) and the bound.  ``case``
+    is (B, H, KV, S, D, dtype, causal[, window]).  At the main path's shape
+    (``train_shape``) also the plain forward and SDPA's forward, row 1's
+    yardsticks at the training shape."""
     from repro_torch.kernels.flash_attention import (
         attention_bwd_tiling, attention_tiling, flash_attention, flash_attention_bwd,
     )
-    from repro_torch.kernels.ref import ref_flash_attention, ref_flash_attention_lse
+    from repro_torch.kernels.ref import (
+        attention_mask, ref_flash_attention, ref_flash_attention_bwd, ref_flash_attention_lse,
+    )
 
-    Bc, Hc, KVc, S, Dc, dtype, causal = case
+    Bc, Hc, KVc, S, Dc, dtype, causal, *rest = case
+    window = rest[0] if rest else 0
     q = torch.randn(Bc, Hc, S, Dc, generator=gen, device=dev).to(dtype)
     k, v = (torch.randn(Bc, KVc, S, Dc, generator=gen, device=dev).to(dtype) for _ in "kv")
     do = torch.randn(Bc, Hc, S, Dc, generator=gen, device=dev).to(dtype)
     lse = torch.empty(Bc, Hc, S, dtype=torch.float32, device=dev)
-    o = flash_attention(q, k, v, causal=causal, lse=lse)
+    o = flash_attention(q, k, v, causal=causal, window=window, lse=lse)
     tiling = attention_bwd_tiling(dtype, Dc)
     tilings = (tiling, "fma") if tiling != "fma" else (tiling,)
-    grads = {t: flash_attention_bwd(q, k, v, o, lse, do, causal, tiling=t) for t in tilings}
+    grads = {t: flash_attention_bwd(q, k, v, o, lse, do, causal, window, tiling=t)
+             for t in tilings}
     torch.cuda.synchronize()
     label = (f"B={Bc} H={Hc} KV={KVc} S={S} D={Dc} {str(dtype)[6:]} causal={causal} "
-             f"forward tiling={attention_tiling(dtype, Dc)}")
-    ref_lse = torch.cat([ref_flash_attention_lse(q[b:b + 1], k[b:b + 1], v[b:b + 1], causal)
-                         for b in range(Bc)])
+             f"window={window} forward tiling={attention_tiling(dtype, Dc)}")
+    ref_lse = torch.cat([ref_flash_attention_lse(q[b:b + 1], k[b:b + 1], v[b:b + 1], causal,
+                                                 window) for b in range(Bc)])
     lse_err = float((lse - ref_lse).abs().max())
     lse_tol = 1e-4 * max(1.0, float(ref_lse.abs().max()))
     require(lse_err <= lse_tol, f"forward lse vs plain, {label}: max|err| {lse_err} > {lse_tol}")
-    want = plain_attention_grads(ref_flash_attention, q, k, v, do, causal)
+    want = plain_attention_grads(ref_flash_attention, q, k, v, do, causal, window)
     errs, bars = {t: {} for t in tilings}, {}
     for t in tilings:
         for name, got, ref in zip(("dq", "dk", "dv"), grads[t], want):
@@ -868,23 +943,50 @@ def check_attention_bwd(case, gen, dev, smi) -> dict:
             require(errs[t][name] <= bars[name],
                     f"flash_attention_bwd {name} vs autograd of plain, {label}, tiling {t}: "
                     f"max|err| {errs[t][name]} > {bars[name]} ({TOL[dtype]} max|ref|)")
+    plain_errs = {}
+    if Dc == 256:  # also the backward's own plain version, on the forward's o and lse
+        plain = [torch.cat(g) for g in zip(*(ref_flash_attention_bwd(
+            *(x[b:b + 1].float() for x in (q, k, v, o)), lse[b:b + 1], do[b:b + 1].float(),
+            causal, window) for b in range(Bc)))]
+        for name, got, ref in zip(("dq", "dk", "dv"), grads[tiling], plain):
+            plain_errs[name] = float((got.float() - ref).abs().max())
+            require(plain_errs[name] <= TOL[dtype] * float(ref.abs().max()),
+                    f"flash_attention_bwd {name} vs ref_flash_attention_bwd, {label}: max|err| "
+                    f"{plain_errs[name]} > {TOL[dtype]} max|ref|")
+        del plain
     del want, grads
-    kernel_ms = {t: time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, causal, tiling=t),
-                            10) for t in tilings}
-    fwd_ms = time_ms(lambda: flash_attention(q, k, v, causal=causal), 10)
-    fwd_lse_ms = time_ms(lambda: flash_attention(q, k, v, causal=causal, lse=lse), 10)
-    plain_ms = time_ms(
-        lambda: plain_attention_grads(ref_flash_attention, q, k, v, do, causal), 2, warmup=1)
+    kernel_ms = {t: time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, causal, window,
+                                                        tiling=t), 10) for t in tilings}
+    fwd_ms = time_ms(lambda: flash_attention(q, k, v, causal=causal, window=window), 10)
+    fwd_lse_ms = time_ms(lambda: flash_attention(q, k, v, causal=causal, window=window, lse=lse),
+                         10)
+    plain_ms = time_ms(lambda: plain_attention_grads(ref_flash_attention, q, k, v, do, causal,
+                                                     window), 2, warmup=1)
     qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
-    out = torch.nn.functional.scaled_dot_product_attention(qr, kr, vr, is_causal=causal,
-                                                           enable_gqa=True)
+    # SDPA has no window argument: a window shorter than S goes in as a mask.
+    mask = (dict(attn_mask=attention_mask(S, S, causal, window, dev))
+            if 0 < window < S else dict(is_causal=causal))
+    out = torch.nn.functional.scaled_dot_product_attention(qr, kr, vr, enable_gqa=True, **mask)
     library_ms = time_ms(
         lambda: torch.autograd.grad(out, (qr, kr, vr), do, retain_graph=True), 10)
+    backend = sdpa_backend(qr, kr, vr, enable_gqa=True, **mask)
     del out, qr, kr, vr
-    bound_ms, bound_by = attention_bwd_bound(q, k, causal)
+    bound_ms, bound_by = attention_bwd_bound(q, k, causal, window)
     extra = {}
     if tiling != "fma":
         extra = dict(fma_kernel_ms=kernel_ms["fma"], fma_max_abs_err=max(errs["fma"].values()))
+    if Dc == 256 and tiling == "wgmma":
+        # The dk/dv launch with one block a key tile and kv head, all the
+        # group's query heads in it (no partials): what the split is for.
+        from repro_torch.kernels import flash_attention as fa
+
+        real = fa.sm_count
+        fa.sm_count = lambda index: 1
+        try:
+            extra["unsplit_kernel_ms"] = time_ms(
+                lambda: flash_attention_bwd(q, k, v, o, lse, do, causal, window, tiling=tiling), 10)
+        finally:
+            fa.sm_count = real
     fwd_yardsticks = ""
     if case == BWD_CASES[0]:  # the training forward: plain (a batch row at a time) and SDPA
         extra["fwd_plain_ms"] = time_ms(lambda: [ref_flash_attention(
@@ -894,15 +996,106 @@ def check_attention_bwd(case, gen, dev, smi) -> dict:
         fwd_yardsticks = (f", plain forward {extra['fwd_plain_ms']} ms (a batch row at a time), "
                           f"SDPA's forward {extra['fwd_library_ms']} ms")
     print(f"phase 3 kernel: flash_attention_bwd {label}: lse max|err| {lse_err} (tol {lse_tol}); "
-          f"max|err| by tiling {errs} (bars {bars}) kernel_ms by tiling {kernel_ms} plain_ms "
-          f"{plain_ms} (autograd of the plain version, fp32, a batch row at a time) library_ms "
-          f"{library_ms} (SDPA's backward) bound_ms {bound_ms} ({bound_by}; 7 products where "
-          f"the bound counts 5, so at most 5/7 of its rate); forward {fwd_ms} ms, with lse "
-          f"{fwd_lse_ms} ms{fwd_yardsticks}; on {smi}")
+          f"max|err| by tiling {errs} (bars {bars})"
+          + (f", vs ref_flash_attention_bwd {plain_errs}" if plain_errs else "")
+          + f" kernel_ms by tiling {kernel_ms}"
+          + (f" (wgmma with one dk/dv block a key tile, no head split: "
+             f"{extra['unsplit_kernel_ms']})" if "unsplit_kernel_ms" in extra else "")
+          + f" plain_ms {plain_ms} (autograd of the plain version, fp32, a batch row at a time) library_ms "
+          f"{library_ms} (SDPA's backward, {backend} backend) bound_ms {bound_ms} ({bound_by}; "
+          f"{11 if Dc == 256 and tiling == 'wgmma' else 7} products where the bound counts 5); "
+          f"forward {fwd_ms} ms, with lse {fwd_lse_ms} ms{fwd_yardsticks}; on {smi}")
     return dict(tiling=tiling, max_abs_err=max(errs[tiling].values()),
                 max_abs_err_by_grad=errs[tiling], lse_max_abs_err=lse_err,
                 kernel_ms=kernel_ms[tiling], plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by, fwd_ms=fwd_ms, fwd_lse_ms=fwd_lse_ms, **extra)
+                library_backend=backend, bound_ms=bound_ms, bound_by=bound_by, fwd_ms=fwd_ms,
+                fwd_lse_ms=fwd_lse_ms, fwd_bound_ms=attention_bound(q, k, causal, window)[0],
+                **extra)
+
+
+# The RG-LRU backward's cases (name, B, L, D, dtype, with dh_final):
+# recurrentgemma-9b's training shape (fp32 a and b, as the layer passes
+# them; the main path's first), with a gradient for h_final, with bf16 a;
+# and ragged (L off the 32-step chunks, D off the 128-channel blocks).
+LRU_BWD_CASES = (
+    ("training", HYB_TRAIN_B, TRAIN_S, D_RG, torch.float32, False),
+    ("training_dh", HYB_TRAIN_B, TRAIN_S, D_RG, torch.float32, True),
+    ("training_bf16", HYB_TRAIN_B, TRAIN_S, D_RG, torch.bfloat16, False),
+    ("ragged", 3, 1000, 200, torch.float32, True),
+)
+
+
+def check_lru_bwd(rglru_scan, rglru_scan_bwd, ref_rglru_scan_bwd, gen, dev, smi) -> dict:
+    """The RG-LRU scan's backward against its plain version on each of
+    LRU_BWD_CASES, on the h_all of the forward kernel: two launches equal to
+    the bit; da and db within 1e-4 of each one's max|.| (the chunks' carries
+    are products in another order than the plain walk's), plus one rounding
+    (eps times the value) where a is bf16 and the gradients come back in
+    it; the time per call (three launches) beside the bound and the plain
+    version's.  At the training shape also the forward at B = 1 and a
+    layer's scans as a remat step runs them (two forwards, then the
+    backward: ``pair_ms``).  No PyTorch call computes the function, so there
+    is no library time.  Returns each case's numbers, by name."""
+    out = {}
+    for name, Bl, L, Dl, dtype, with_dh in LRU_BWD_CASES:
+        a = (torch.rand(Bl, L, Dl, generator=gen, device=dev) * 0.89 + 0.1).to(dtype)
+        b = torch.randn(Bl, L, Dl, generator=gen, device=dev).to(dtype)
+        h_all = rglru_scan(a, b)[0]
+        dh = torch.randn(Bl, L, Dl, generator=gen, device=dev)
+        dhf = torch.randn(Bl, Dl, generator=gen, device=dev) if with_dh else None
+        label = f"{name} B={Bl} L={L} D={Dl} {str(dtype)[6:]}" + (" dh_final" if with_dh else "")
+        got = rglru_scan_bwd(a, h_all, dh, dhf)
+        torch.cuda.synchronize()
+        again = rglru_scan_bwd(a, h_all, dh, dhf)
+        require(all(torch.equal(g, x) for g, x in zip(got, again)),
+                f"two RG-LRU backward launches equal to the bit, {label}")
+        errs = {}
+        for n, g, w in zip(("da", "db"), got, ref_rglru_scan_bwd(a, h_all, dh, dhf)):
+            require(g.dtype == w.dtype == dtype and g.shape == w.shape
+                    and bool(torch.isfinite(g).all()), f"RG-LRU backward {n}: {g.dtype} "
+                    f"{tuple(g.shape)} finite, {label}")
+            g, w = g.float(), w.float()
+            over = (g - w).abs() - 1e-4 * float(w.abs().max())
+            if dtype != torch.float32:
+                over = over - torch.finfo(dtype).eps * w.abs()
+            errs[n] = float((g - w).abs().max())
+            require(float(over.max()) <= 0.0, f"RG-LRU backward {n} vs plain, {label}: max|err| "
+                                              f"{errs[n]}, max|want| {float(w.abs().max())}")
+        del got, again
+        kernel_ms = time_ms(lambda: rglru_scan_bwd(a, h_all, dh, dhf), 20)
+        plain_ms = time_ms(lambda: ref_rglru_scan_bwd(a, h_all, dh, dhf), 1, warmup=0)
+        bound_ms, bound_by = lru_bwd_bound(a, dhf)
+        times = {}
+        if name == "training":
+            def pair():  # a layer's scans in a remat step: the forward twice, then the backward
+                rglru_scan(a, b)
+                rglru_scan(a, b)
+                rglru_scan_bwd(a, h_all, dh, dhf)
+
+            times = dict(fwd_ms=time_ms(lambda: rglru_scan(a, b), 20),
+                         fwd_bound_ms=lru_bound(a, b)[0], pair_ms=time_ms(pair, 10))
+        print(f"phase 3 kernel: rglru_scan_bwd {label}: max|err| {errs} (bars 1e-4 max|.|"
+              f"{', bf16 outputs plus 2^-7 |value|' if dtype != torch.float32 else ''}), two "
+              f"launches bitwise equal; kernel_ms {kernel_ms} plain_ms {plain_ms} library_ms None "
+              f"bound_ms {bound_ms} ({bound_by}) share of bound {bound_ms / kernel_ms} "
+              f"{json.dumps(times)} on {smi}")
+        out[name] = dict(max_abs_err=max(errs.values()), max_abs_err_by_grad=errs,
+                         kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+                         bound_ms=bound_ms, bound_by=bound_by, **times)
+        del a, b, h_all, dh, dhf
+    torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_train_config(get_config):
+    """recurrentgemma-9b's smoke config at d_model 256, 5 layers (a (rec, rec,
+    attn) block and the (rec, rec) tail), 2 heads of 256 (the training
+    attention's head dim) over one kv head, LRU width 256 and a 32-token
+    window, which the 77-token sequences pass; in fp32."""
+    return dataclasses.replace(
+        get_config(HYB_TRAIN_ARCH).smoke(), d_model=256, n_heads=2, n_kv_heads=1,
+        head_dim=256, d_ff=512, lru_width=256, attn_window=32, n_layers=HYB_TRAIN_LAYERS,
+        param_dtype="float32", activation_dtype="float32")
 
 
 def train_config(get_config, kv: int):
@@ -919,10 +1112,13 @@ def max_rel_err(got: dict, want: dict) -> float:
                for n, w in want.items())
 
 
-def check_train_step(lm, make_train_step, optim, ops, cfg, dev) -> dict:
+def check_train_step(lm, make_train_step, optim, ops, cfg, dev, want=None) -> dict:
     """Phase 3 model: the loss and every gradient of a narrow fp32 model on
-    the card (the attention kernels, forward and backward) against the same
-    model on the CPU (plain versions), then one ``make_train_step`` on each.
+    the card (the attention kernels, forward and backward, and the scans'
+    where the model has them) against the same model on the CPU (plain
+    versions), then one ``make_train_step`` on each.  ``want``: the
+    launches of the card's loss and gradients, by default the dense
+    model's (attention on the fma tilings, its forward twice under remat).
     The step uses SGD with momentum, whose update is linear in the gradient,
     so the parameters' bar follows from the gradients'; AdamW's update,
     about lr * sign(g) at step 0, turns a gradient entry within rounding of
@@ -946,10 +1142,11 @@ def check_train_step(lm, make_train_step, optim, ops, cfg, dev) -> dict:
                          torch.autograd.grad(lg, list(m_gpu.parameters()))))
     torch.cuda.synchronize()
     counts = {n: getattr(ops, n) for n in COUNTERS}
-    want = {n: 0 for n in COUNTERS}
-    want.update(attention_launches=2 * cfg.n_layers, attention_fma_launches=2 * cfg.n_layers,
-                attention_bwd_launches=cfg.n_layers,  # remat "full": forward twice
-                attention_bwd_fma_launches=cfg.n_layers)  # fp32: exact products
+    if want is None:
+        want = dict(attention_launches=2 * cfg.n_layers, attention_fma_launches=2 * cfg.n_layers,
+                    attention_bwd_launches=cfg.n_layers,  # remat "full": forward twice
+                    attention_bwd_fma_launches=cfg.n_layers)  # fp32: exact products
+    want = {n: want.get(n, 0) for n in COUNTERS}
     require(counts == want, f"narrow train step launches {counts}, want {want}")
     errs = {"loss": abs(float(lg.detach()) - float(lc.detach())) / abs(float(lc.detach())),
             "grads": max_rel_err(grads_gpu, grads_cpu)}
@@ -1217,8 +1414,9 @@ def release(run: dict) -> dict:
 def model_flops(cfg, params: dict, B: int, S: int) -> tuple[float, float]:
     """The model FLOPs of one training step at B x S, and the parameters they
     count: 6 a token for each parameter that the token's products read, plus
-    attention's 12 * layers * B * heads * head dim for each causal (query,
-    key) pair.  A token reads every parameter but the experts it is not
+    attention's 12 * attention layers * B * heads * head dim for each causal
+    (query, key) pair it keeps (the hybrid: one attention layer a block, its
+    window).  A token reads every parameter but the experts it is not
     routed to and, where the head is untied, the input embedding (a lookup,
     no product): every non-expert parameter, and top_k / n_experts of the
     expert weights."""
@@ -1226,15 +1424,20 @@ def model_flops(cfg, params: dict, B: int, S: int) -> tuple[float, float]:
     experts = sum(p.numel() for n, p in params.items() if ".moe.w" in n)  # wg, wu, wd
     lookup = 0 if cfg.tie_embeddings else params["embed"].numel()
     active = total - experts - lookup + (experts * cfg.top_k / cfg.n_experts if experts else 0)
-    pairs = S * (S + 1) // 2
-    return 6.0 * active * B * S + 12.0 * cfg.n_layers * B * cfg.n_heads * cfg.hd * pairs, active
+    n_attn, w = cfg.n_layers, S
+    if cfg.family == "hybrid":
+        n_attn, w = cfg.n_layers // len(cfg.block_pattern), min(cfg.attn_window, S)
+    pairs = w * (w + 1) // 2 + (S - w) * w  # row q keeps min(q + 1, w) keys
+    return 6.0 * active * B * S + 12.0 * n_attn * B * cfg.n_heads * cfg.hd * pairs, active
 
 
 def train_full(lm, ops, optim, make_train_step, data, cfg, dev, smi, phase: str, want: dict,
-               probes, warmup: int = 0, loss0_tol: float = 0.5) -> dict:
-    """Phases 5, 5c and 5d: trains ``cfg`` on the card (bf16, fp32 AdamW
-    state, WSD) for ``warmup`` + TRAIN_STEPS steps of ``batch_for_step`` at
-    TRAIN_B x TRAIN_S, then FIXED_STEPS steps on one fixed batch, with remat
+               probes, warmup: int = 0, loss0_tol: float = 0.5, batch: int = TRAIN_B,
+               schedule: str = "wsd") -> dict:
+    """Phases 5, 5c, 5d and 5e: trains ``cfg`` on the card (bf16, fp32 AdamW
+    state, WSD or, with ``schedule="cosine"``, cosine with a one-step warm-up)
+    for ``warmup`` + TRAIN_STEPS steps of ``batch_for_step`` at ``batch`` x
+    TRAIN_S, then FIXED_STEPS steps on one fixed batch, with remat
     "full" and LOSS_CHUNK passed to lm.loss_fn.  Every count is set to 0 just before the first step
     and read just after the last of those runs; every one of those steps
     must launch ``want``, the ``probes`` parameters must change, and the first
@@ -1247,7 +1450,10 @@ def train_full(lm, ops, optim, make_train_step, data, cfg, dev, smi, phase: str,
 
     t0 = time.perf_counter()
     model = lm.init(0, cfg, device=dev)
-    opt = optim.adamw(optim.wsd(TRAIN_LR, warmup + TRAIN_STEPS + FIXED_STEPS))
+    total_steps = warmup + TRAIN_STEPS + FIXED_STEPS
+    sched = (optim.wsd(TRAIN_LR, total_steps) if schedule == "wsd"
+             else optim.cosine(TRAIN_LR, total_steps, warmup=1))
+    opt = optim.adamw(sched)
     params = dict(model.named_parameters())
     state = opt.init(params)
     torch.cuda.synchronize()
@@ -1257,12 +1463,12 @@ def train_full(lm, ops, optim, make_train_step, data, cfg, dev, smi, phase: str,
                    {p.data_ptr() for p in params.values()}) / 1e9
     print(f"phase {phase} train: {cfg.name} ({cfg.n_layers} layers) init on the card: "
           f"{n_params} parameters ({cfg.param_dtype}, {n_params * 2 / 1e9} GB), AdamW state m, "
-          f"v, fp32 master {state_gb} GB, in {time.perf_counter() - t0:.2f} s; batch {TRAIN_B} x "
+          f"v, fp32 master {state_gb} GB, in {time.perf_counter() - t0:.2f} s; batch {batch} x "
           f"{TRAIN_S}, remat full, loss_chunk {LOSS_CHUNK}, lr {TRAIN_LR} "
-          f"(wsd)")
+          f"({schedule})")
     step_fn = make_train_step(cfg, opt, remat="full", loss_chunk=LOSS_CHUNK)
     steps = warmup + TRAIN_STEPS
-    spec = data.DataSpec(cfg=cfg, shape=ShapeSpec("train_4k_b4", TRAIN_S, TRAIN_B, "train"))
+    spec = data.DataSpec(cfg=cfg, shape=ShapeSpec(f"train_4k_b{batch}", TRAIN_S, batch, "train"))
     batches = [{k: torch.from_numpy(v).to(dev) for k, v in data.batch_for_step(spec, i).items()}
                for i in range(steps + 1)]
     probe = {n: params[n].detach().clone() for n in probes}
@@ -1296,8 +1502,8 @@ def train_full(lm, ops, optim, make_train_step, data, cfg, dev, smi, phase: str,
 
     timed = times[warmup:]
     step_ms = float(np.median(timed)) * 1e3
-    tokens = TRAIN_B * TRAIN_S
-    flops, active = model_flops(cfg, params, TRAIN_B, TRAIN_S)
+    tokens = batch * TRAIN_S
+    flops, active = model_flops(cfg, params, batch, TRAIN_S)
     mfu = flops / (step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
     print(f"phase {phase} train: {TRAIN_STEPS} steps after {warmup} warm-up, median {step_ms} ms "
           f"a step (min {min(timed) * 1e3}, max {max(timed) * 1e3}), {tokens / step_ms * 1e3} "
@@ -1403,14 +1609,14 @@ def trace_train_step(lm, run: dict, cfg, group_of, phase: str, smi, rules=MOE_SP
                 head_gemm_ms=head_gemm if head is not None else None)
 
 
-def loss_head_ops(cfg):
-    """(predicate, GEMM bound ms) of the loss head of a TRAIN_B x TRAIN_S step
-    of ``cfg`` with the full CE, for trace_train_step: its operators are those
-    that read a tensor of the logits' size (the logits, their fp32 copy, their
-    gradients; the two backward products read one) and the product with an
-    operand shaped as the head (the logits' forward); the bound is its three
-    products at the bf16 peak."""
-    logits = TRAIN_B * TRAIN_S * cfg.vocab
+def loss_head_ops(cfg, batch: int = TRAIN_B):
+    """(predicate, GEMM bound ms) of the loss head of a ``batch`` x TRAIN_S
+    step of ``cfg`` with the full CE, for trace_train_step: its operators are
+    those that read a tensor of the logits' size (the logits, their fp32
+    copy, their gradients; the two backward products read one) and the
+    product with an operand shaped as the head (the logits' forward); the
+    bound is its three products at the bf16 peak."""
+    logits = batch * TRAIN_S * cfg.vocab
 
     def numel(shape) -> int:  # 0 for a scalar or a list of tensors
         return math.prod(shape) if shape and all(isinstance(d, int) for d in shape) else 0
@@ -1450,6 +1656,64 @@ def train_ssm(lm, ops, optim, make_train_step, data, group_of, cfg, dev, smi) ->
     wall_s = time.perf_counter() - t0
     print(f"phase 5d summary: {json.dumps(summary)} in {wall_s:.2f} s, on {smi}")
     return dict(trained, trace=trace, wall_s=wall_s)
+
+
+def train_hybrid(lm, ops, optim, make_train_step, data, group_of, cfg, dev, smi) -> dict:
+    """Phase 5e: trains ``cfg`` (recurrentgemma-9b at full width and a cut
+    depth; the training state of all 38 layers, about 167 GB, does not fit
+    one card) at HYB_TRAIN_B x TRAIN_S through train_full, each step with two
+    forward RG-LRU launches a recurrent layer (remat "full" runs each
+    layer's forward twice) and one backward, two forward attention launches
+    an attention layer and one backward, all on the wgmma tilings; the
+    reference's cosine schedule and full CE.  Then traces one step; the
+    model is freed before it returns.  The untied head lifts the first loss,
+    as falcon-mamba's does: a bar of 1.  Returns the numbers of the run."""
+    t0 = time.perf_counter()
+    n_attn = cfg.n_layers // len(cfg.block_pattern)
+    n_rec = cfg.n_layers - n_attn
+    want = {n: 0 for n in COUNTERS}
+    want.update(lru_scan_launches=2 * n_rec, lru_scan_bwd_launches=n_rec,
+                attention_launches=2 * n_attn, attention_wgmma_launches=2 * n_attn,
+                attention_bwd_launches=n_attn, attention_bwd_wgmma_launches=n_attn)
+    run = train_full(lm, ops, optim, make_train_step, data, cfg, dev, smi, "5e", want,
+                     ("embed", "lm_head", "layers.0.rec.w_x", "layers.0.rec.lambda_p",
+                      "layers.2.attn.wq", f"layers.{cfg.n_layers - 1}.mlp.wd", "final_norm"),
+                     warmup=HYB_WARMUP, loss0_tol=1.0, batch=HYB_TRAIN_B, schedule="cosine")
+    trace = trace_train_step(lm, run, cfg, group_of, "5e", smi, rules=(),
+                             groups=("RG-LRU forward", "RG-LRU backward", "attention forward",
+                                     "attention backward", "cuBLAS GEMMs"),
+                             want=(("rglru_scan_kernel",), ("lru_bwd_",),
+                                   ("flash_attention_wgmma_kernel",), ("dkdv_wgmma_kernel",)),
+                             head=loss_head_ops(cfg, HYB_TRAIN_B))
+    trained = release(run)
+    summary = {k: trained[k] for k in ("n_params", "active_params", "step_ms", "tokens_per_s",
+                                        "model_tflop", "mfu", "peak_gb")}
+    summary.update(trace)
+    wall_s = time.perf_counter() - t0
+    print(f"phase 5e summary: {json.dumps(summary)} in {wall_s:.2f} s, reduced: layers 38 -> "
+          f"{cfg.n_layers}, global batch 256 -> {HYB_TRAIN_B} (sequence {TRAIN_S} kept), on {smi}")
+    return dict(trained, trace=trace, wall_s=wall_s)
+
+
+def serve_decode_twin(arch: str, smi) -> str:
+    """Runs ``python -m repro_torch.launch.serve_decode --arch ARCH`` (the twin
+    of ``examples/serve_decode.py``, on the card by default) in a process of
+    its own; it must exit 0 and print the example's tokens/s line last.
+    Returns that line."""
+    root = Path(__file__).resolve().parent
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve_decode", "--arch", arch],
+        capture_output=True, text=True, timeout=300, cwd=root,
+        env={**os.environ, "PYTHONPATH": str(root / "src")},
+    )
+    lines = proc.stdout.strip().splitlines()
+    require(proc.returncode == 0 and lines and lines[-1].startswith(f"{arch} (smoke): ")
+            and lines[-1].endswith(")") and "tok/s" in lines[-1],
+            f"serve_decode --arch {arch}: exit {proc.returncode}, stdout {proc.stdout[-2000:]!r}, "
+            f"stderr {proc.stderr[-2000:]!r}")
+    print(f"phase 5e serve_decode: python -m repro_torch.launch.serve_decode --arch {arch}: exit "
+          f"0, {lines[-1]!r}, on {smi}")
+    return lines[-1]
 
 
 def train_dlrm_paper(dlrm, dlrm_testbed, optim, ops, group_of, dev, smi) -> dict:
@@ -1562,9 +1826,9 @@ def main() -> int:
     from repro_torch.kernels.moe_gmm import gmm_bwd_tiling, gmm_tiling, moe_gmm, moe_gmm_bwd
     from repro_torch.kernels.ref import (
         ref_embedding_bag, ref_embedding_bag_bwd, ref_flash_attention, ref_mamba_scan,
-        ref_mamba_scan_bwd, ref_moe_gmm, ref_moe_gmm_bwd, ref_rglru_scan,
+        ref_mamba_scan_bwd, ref_moe_gmm, ref_moe_gmm_bwd, ref_rglru_scan, ref_rglru_scan_bwd,
     )
-    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_bwd
     from repro_torch import optim
     from repro_torch.data import pipeline as data
     from repro_torch.launch import dlrm_testbed
@@ -1582,7 +1846,8 @@ def main() -> int:
           f"cuda {torch.version.cuda}")
 
     kernels = ["flash_attention", "flash_attention_bwd", "moe_gmm", "moe_gmm_bwd", "mamba_scan",
-               "mamba_scan_bwd", "rglru_scan", "embedding_bag", "embedding_bag_bwd"]
+               "mamba_scan_bwd", "rglru_scan", "rglru_scan_bwd", "embedding_bag",
+               "embedding_bag_bwd"]
     t0 = time.perf_counter()
     _build.load_all(kernels)
     print(f"phase 2 build: {', '.join(k + '.cu' for k in kernels)} in "
@@ -1605,13 +1870,27 @@ def main() -> int:
                         and not info["serialised"], f"{fn} spills or serialises: {info}")
             if ("skinny_kernel" in fn or "mamba_scan_kernel" in fn  # the streams and the scan
                     or name in ("flash_attention_bwd", "moe_gmm_bwd", "mamba_scan_bwd",
-                                "embedding_bag", "embedding_bag_bwd")):
+                                "rglru_scan_bwd", "embedding_bag", "embedding_bag_bwd")):
                 require(info["spill_stores"] == info["spill_loads"] == 0 and not info["serialised"],
                         f"{fn} spills: {info}")
     bwd_report = ptxas_report(_build.build_logs.get("flash_attention_bwd", ""))
-    if bwd_report:  # built in this run: the checks above saw both tilings' kernels
+    if bwd_report:  # built in this run: the checks above saw both tilings' kernels, at each
+        # head dim (the wgmma ones at D = 256 at the same 168 registers, its consumers splitting
+        # D rather than rows), and the sum of the D = 256 dk/dv partials in bf16 and fp16
         for base in ("dkdv_wgmma_kernel", "dq_wgmma_kernel", "dkdv_kernel", "dq_kernel"):
-            require(any(fn.startswith(base) for fn in bwd_report), f"ptxas reports no {base}")
+            for d in (64, 128, 256):
+                require(any(fn.startswith(base) and f"Li{d}E" in fn for fn in bwd_report),
+                        f"ptxas reports no {base} at D = {d}")
+        got = sum(fn.startswith("dkdv_sum_kernel") for fn in bwd_report)
+        require(got == 2, f"ptxas reports 2 dkdv_sum_kernels, not {got}")
+    lru_bwd_report = ptxas_report(_build.build_logs.get("rglru_scan_bwd", ""))
+    if lru_bwd_report:  # built in this run, every kernel checked for spills above: the chunk
+        # and fix-up passes for each dtype of a, and the carry pass
+        for base, want in (("lru_bwd_chunk_kernel", 3), ("lru_bwd_fixup_kernel", 3),
+                           ("lru_bwd_carry_kernel", 1)):
+            got = sum(base in fn for fn in lru_bwd_report)
+            require(got == want, f"ptxas reports {want} {base}s, not {got}: "
+                                 f"{sorted(lru_bwd_report)}")
     gmm_bwd_report = ptxas_report(_build.build_logs.get("moe_gmm_bwd", ""))
     if gmm_bwd_report:  # built in this run, every kernel checked above: dx and dw on wgmma in
         # bf16 and fp16 (the persistent kernel, launched alone or in pairs), and on fma in each
@@ -1902,6 +2181,9 @@ def main() -> int:
                             library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
         del a, bb, h_all, h_fin, e_all, e_fin
     torch.cuda.empty_cache()
+    # The RG-LRU scan's backward at recurrentgemma-9b's training shape and the
+    # other LRU_BWD_CASES.
+    lru_bwd = check_lru_bwd(rglru_scan, rglru_scan_bwd, ref_rglru_scan_bwd, gen, dev, smi)
 
     t_bag = time.perf_counter()
     bag = check_bag(embedding_bag, ref_embedding_bag, gen, dev, smi)
@@ -2030,6 +2312,22 @@ def main() -> int:
           f"{small.d_model}, ssm_state {small.ssm_state}, 2 layers, 2 x {MAMBA_STEP_S} tokens), "
           f"card vs CPU plain: max relative err {mamba_step} (loss, gradients tol 1e-4; AdamW "
           f"step params tol 1e-4, on entries with g within rounding of 0 2 lr)")
+
+    # A narrow fp32 hybrid train step: the RG-LRU scan's forward and backward
+    # kernels and the attention kernels at head dim 256 with a window (the fma
+    # tilings in fp32) on the card against the plain versions on the CPU.
+    small = hybrid_train_config(get_config)
+    n_attn = small.n_layers // len(small.block_pattern)
+    n_rec = small.n_layers - n_attn
+    hybrid_step = check_train_step(
+        lm, make_train_step, optim, ops, small, dev,
+        want=dict(lru_scan_launches=2 * n_rec, lru_scan_bwd_launches=n_rec,
+                  attention_launches=2 * n_attn, attention_fma_launches=2 * n_attn,
+                  attention_bwd_launches=n_attn, attention_bwd_fma_launches=n_attn))
+    print(f"phase 3 model: narrow fp32 hybrid train step ({HYB_TRAIN_ARCH} smoke, d_model "
+          f"{small.d_model}, {small.n_layers} layers, H={small.n_heads} KV={small.n_kv_heads} "
+          f"D={small.hd}, window {small.attn_window}, 2 x 77 tokens), card vs CPU plain: max "
+          f"relative err {hybrid_step} (tol 1e-4)")
 
     # Phase 4: serve granite-8b at full width and depth.
     cfg = get_config("granite-8b")
@@ -2244,6 +2542,16 @@ def main() -> int:
     ssm_path = (f"{SSM_TRAIN_ARCH} train ({SSM_TRAIN_LAYERS} layers), "
                 f"{SSM_WARMUP + TRAIN_STEPS} steps")
 
+    # Phase 5e: recurrentgemma-9b trained at full width, 5 of its 38 layers, at
+    # 1 x 4096; then the serve_decode twin on the card.
+    hyb_trained = train_hybrid(lm, ops, optim, make_train_step, data, group_of,
+                               dataclasses.replace(get_config(HYB_TRAIN_ARCH),
+                                                   n_layers=HYB_TRAIN_LAYERS), dev, smi)
+    hyb_counts = hyb_trained["counts"]
+    hyb_path = (f"{HYB_TRAIN_ARCH} train ({HYB_TRAIN_LAYERS} layers), "
+                f"{HYB_WARMUP + TRAIN_STEPS} steps")
+    decode_line = serve_decode_twin("falcon-mamba-7b", smi)
+
     # Phase 6: the planner on the card.
     planned = plan_phase(dev, smi)
     print(f"phase 6 summary: {json.dumps(planned)} on {smi}")
@@ -2262,13 +2570,14 @@ def main() -> int:
         "tiling": main_case["tiling"],
         "launches": (granite_attention_launches + att_total + griffin["attention_launches"]
                      + vlm["attention_launches"] + hubert["attention_launches"] + train_fwd
-                     + moe_counts["attention_launches"]),
+                     + moe_counts["attention_launches"] + hyb_counts["attention_launches"]),
         "launches_by_path": {"granite-8b": granite_attention_launches, qwen_name: att_total,
                              "recurrentgemma-9b": griffin["attention_launches"],
                              "llama-3.2-vision-11b": vlm["attention_launches"],
                              "hubert-xlarge": hubert["attention_launches"],
                              f"{TRAIN_ARCH} train, {TRAIN_STEPS} steps": train_fwd,
-                             moe_path: moe_counts["attention_launches"]},
+                             moe_path: moe_counts["attention_launches"],
+                             hyb_path: hyb_counts["attention_launches"]},
         "max_abs_err": main_case["max_abs_err"],
         "max_err_bf16": main_case["max_abs_err"],
         "ms": main_case["kernel_ms"],
@@ -2316,12 +2625,16 @@ def main() -> int:
         "tiling": bwd[0]["tiling"],
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
         "replaces": None,  # the TPU side has no backward kernel (jax.grad of XLA code)
-        "launches": train_bwd + moe_counts["attention_bwd_launches"],
+        "launches": (train_bwd + moe_counts["attention_bwd_launches"]
+                     + hyb_counts["attention_bwd_launches"]),
         "launches_by_path": {f"{TRAIN_ARCH} train, {TRAIN_STEPS} steps": train_bwd,
-                             moe_path: moe_counts["attention_bwd_launches"]},
+                             moe_path: moe_counts["attention_bwd_launches"],
+                             hyb_path: hyb_counts["attention_bwd_launches"]},
         "launches_per_step": trained["launches_per_step"]["attention_bwd_launches"],
+        "launches_per_step_d256": hyb_trained["launches_per_step"]["attention_bwd_launches"],
         "launches_wgmma": (trained["counts"]["attention_bwd_wgmma_launches"]
-                           + moe_counts["attention_bwd_wgmma_launches"]),
+                           + moe_counts["attention_bwd_wgmma_launches"]
+                           + hyb_counts["attention_bwd_wgmma_launches"]),
         "ms": bwd[0]["kernel_ms"],
         **{k: bwd[0][k] for k in ("max_abs_err", "max_abs_err_by_grad", "kernel_ms", "plain_ms",
                                   "library_ms", "bound_ms", "bound_by", "fma_kernel_ms",
@@ -2330,6 +2643,12 @@ def main() -> int:
                                                  "library_ms", "bound_ms", "fma_kernel_ms")},
         **{f"fp32_{k}": bwd[2][k] for k in ("tiling", "max_abs_err", "kernel_ms", "library_ms",
                                              "bound_ms")},
+        **{f"d256_{k}": bwd[4][k] for k in ("tiling", "max_abs_err", "kernel_ms", "plain_ms",
+                                             "library_ms", "library_backend", "bound_ms",
+                                             "bound_by", "fma_kernel_ms", "unsplit_kernel_ms",
+                                             "fwd_ms", "fwd_bound_ms")},
+        **{f"d256_fp32_{k}": bwd[5][k] for k in ("tiling", "max_abs_err", "kernel_ms",
+                                                  "plain_ms", "library_ms", "bound_ms")},
     }, {
         "name": "moe_gmm",
         "route": "cuda",
@@ -2432,10 +2751,29 @@ def main() -> int:
         "source": "src/repro_torch/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan.py:42",
         "tpu_ref": "kernels/rglru_scan.py:42",
-        "launches": griffin["lru_scan_launches"],
-        "launches_by_path": {"recurrentgemma-9b": griffin["lru_scan_launches"]},
+        "launches": griffin["lru_scan_launches"] + hyb_counts["lru_scan_launches"],
+        "launches_by_path": {"recurrentgemma-9b": griffin["lru_scan_launches"],
+                             hyb_path: hyb_counts["lru_scan_launches"]},
+        "launches_per_train_step": hyb_trained["launches_per_step"]["lru_scan_launches"],
         "ms": lru_main["kernel_ms"],
         **lru_main,
+        "training_ms": lru_bwd["training"]["fwd_ms"],
+        "training_bound_ms": lru_bwd["training"]["fwd_bound_ms"],
+    }, {
+        "name": "rglru_scan_bwd",
+        "route": "cuda",
+        "tiling": "32-step chunks: a walk back each, the carries in order, a fix-up walk",
+        "source": "src/repro_torch/csrc/rglru_scan_bwd.cu",
+        # The TPU side has no backward kernel (jax.grad of the XLA scan).
+        "replaces": "none: jax.grad of chunked_linear_scan at src/repro/models/layers.py:364",
+        "library": None,
+        "launches": hyb_counts["lru_scan_bwd_launches"],
+        "launches_by_path": {hyb_path: hyb_counts["lru_scan_bwd_launches"]},
+        "launches_per_step": hyb_trained["launches_per_step"]["lru_scan_bwd_launches"],
+        "ms": lru_bwd["training"]["kernel_ms"],
+        **lru_bwd["training"],
+        **{f"{name}_{k}": v for name, numbers in lru_bwd.items() if name != "training"
+           for k, v in numbers.items()},
     }, {
         "name": "embedding_bag",
         "route": "cuda",

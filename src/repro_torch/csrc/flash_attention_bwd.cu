@@ -17,7 +17,7 @@
 // fp32; dq, dk, dv in the input dtype (fp32, fp16 or bf16); all sums fp32.
 // The masks are the forward's: query and key positions both count from 0,
 // a row q sees keys k < Sk with k <= q (causal) and k > q - window
-// (window > 0).  Head dims 64 and 128.  Rows that see no key are refused
+// (window > 0).  Head dims 64, 128 and 256.  Rows that see no key are refused
 // by the wrapper (kernels/flash_attention.py), so P never needs the
 // forward's mean-of-v repair.
 //
@@ -35,7 +35,7 @@
 // Two tilings, one C entry point each; kernels/flash_attention.py's
 // `attention_bwd_tiling` chooses among them:
 //
-// * wgmma (bf16/fp16; D = 64 or 128; every training step of the card's
+// * wgmma (bf16/fp16; D = 64, 128 or 256; every training step of the card's
 //   bf16 models).  The dk/dv and dq kernels on the tensor cores, built like
 //   the wgmma forward: blocks of three warpgroups, a producer at 24
 //   registers (setmaxnreg) that feeds a 2-stage ring of 64-row tiles by TMA
@@ -72,9 +72,23 @@
 //   Shared memory: two 128-row operands and two stages of two 64-row tiles
 //   (plus 512 bytes of lse and delta a stage for dk/dv): 65 KB at D = 64,
 //   129 KB at D = 128.
+//   At D = 256 (recurrentgemma-9b) that layout needs 256 KB of shared
+//   memory and 256 accumulator registers a consumer thread, past the 227 KB
+//   and the 240 of the setmaxnreg split.  So a block owns 64 keys (dk/dv)
+//   or query rows (dq), both consumers compute S and dP for all 64 of them,
+//   and each keeps the accumulator columns of one half of D (128: 64 + 64
+//   registers for dK and dV, 64 for dQ), the dV, dK and dQ products running
+//   at N = 128 on that half of the tiles' boxes: the 64/128 kernels'
+//   register budget at 168, 194 KB of shared memory.  The price is S and dP
+//   computed twice: 11 products where the math has 5.  With one kv head and
+//   one sequence a block a key tile fills half the card (64 blocks at
+//   S = 4096), so the dk/dv launch cuts a kv head's query heads into as
+//   many splits as fill the SMs; each writes fp32 partials of dk and dv
+//   (scratch from the wrapper) that a fourth kernel adds in a fixed order.
 // * fma (fp32, fp16 or bf16; exact fp32 for the narrow fp32 models, which
 //   TF32 would not give).  Thread (ty, tx) of a 16 x 16 grid owns query
-//   rows 4ty .. 4ty+3 and keys tx + 16j of a 64 x 64 tile pair; tiles are
+//   rows 4ty .. 4ty+3 and keys tx + 16j of a 64 x 64 tile pair (2 rows of
+//   32 x 32 tiles at D = 256, whose 64-row tiles would not fit); tiles are
 //   staged in shared memory as fp32 (row stride D + 4), S and dP are fp32
 //   FMAs on the CUDA cores, P and dS go through shared memory, and dV, dK
 //   (key rows 4ty .. 4ty+3, columns 64c + 4tx .. +3) and dQ accumulate in
@@ -101,6 +115,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 #include "hopper.cuh"
@@ -108,15 +123,21 @@
 namespace {
 
 constexpr int THREADS = 256;  // 16 x 16 threads
-constexpr int BQ = 64;        // query rows of a tile
-constexpr int BK = 64;        // keys of a tile
-constexpr int RQ = BQ / 16;   // query rows a thread owns in S, dP and dQ
-constexpr int KJ = BK / 16;   // keys a thread owns in S and dP
-constexpr int RK = BK / 16;   // key rows a thread owns in dK and dV
-constexpr int LDP = BK + 4;   // row stride of the P and dS tiles, in floats
+
+// The fma tiling's tiles: 64 query rows and 64 keys, 32 at D = 256, where
+// 64-row fp32 tiles would take 294 KB of shared memory (as the forward's
+// fma tiling cuts its tiles at D = 256).
+template <int D> struct Fma {
+  static constexpr int BQ = D == 256 ? 32 : 64;  // query rows of a tile
+  static constexpr int BK = BQ;                  // keys of a tile
+  static constexpr int RQ = BQ / 16;             // query rows a thread owns in S, dP and dQ
+  static constexpr int KJ = BK / 16;             // keys a thread owns in S and dP
+  static constexpr int RK = BK / 16;             // key rows a thread owns in dK and dV
+  static constexpr int LDP = BK + 4;             // row stride of the P and dS tiles, in floats
+};
 // Blocks of the dk/dv and dq kernels that fit on an SM by shared memory (104
-// and 87 KB at D = 64, 170 and 153 KB at D = 128): the register budget
-// ptxas is given, 128 or 255 a thread.
+// and 87 KB at D = 64, 170 and 153 KB at D = 128, 139 and 135 KB at D = 256):
+// the register budget ptxas is given, 128 or 255 a thread.
 #define BLOCKS_PER_SM(D) ((D) == 64 ? 2 : 1)
 
 template <typename T> __device__ __forceinline__ float to_float(T x);
@@ -137,12 +158,14 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
 
 template <int D>
 constexpr int dkdv_smem_bytes() {  // K, V, Q, dO tiles; P, dS; lse, delta
-  return (4 * 64 * (D + 4) + 2 * BQ * LDP + 2 * BQ) * (int)sizeof(float);
+  using F = Fma<D>;
+  return (2 * (F::BK + F::BQ) * (D + 4) + 2 * F::BQ * F::LDP + 2 * F::BQ) * (int)sizeof(float);
 }
 
 template <int D>
 constexpr int dq_smem_bytes() {  // Q, dO, K, V tiles; dS; lse, delta
-  return (4 * 64 * (D + 4) + BQ * LDP + 2 * BQ) * (int)sizeof(float);
+  using F = Fma<D>;
+  return (2 * (F::BK + F::BQ) * (D + 4) + F::BQ * F::LDP + 2 * F::BQ) * (int)sizeof(float);
 }
 
 // Copies rows [row0, row0 + ROWS) of a contiguous (rows, D) matrix into
@@ -176,6 +199,7 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
 }
 
 // Copies rows [row0, row0 + BQ) of a per-row fp32 vector; 0 past `rows`.
+template <int BQ>
 __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, int row0,
                                           int rows, int tid) {
   if (tid < BQ) dst[tid] = row0 + tid < rows ? src[row0 + tid] : 0.f;
@@ -183,7 +207,7 @@ __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ 
 
 // acc[i][j] = a[RQ*ty + i] . b[tx + 16*j] over D, for two (rows, D) tiles in
 // shared memory with row stride D + 4.
-template <int D>
+template <int D, int RQ = Fma<D>::RQ, int KJ = Fma<D>::KJ>
 __device__ __forceinline__ void dot_tile(float (&acc)[RQ][KJ], const float* a, const float* b,
                                          int ty, int tx) {
   constexpr int LD = D + 4;
@@ -221,6 +245,7 @@ __device__ __forceinline__ void p_and_ds(float* sP, float* sdS, const float* sQ,
                                          const float* sdO, const float* sV, const float* sLse,
                                          const float* sDelta, int q0, int k0, int Sq, int Sk,
                                          int causal, int window, float scale, int ty, int tx) {
+  constexpr int RQ = Fma<D>::RQ, KJ = Fma<D>::KJ, LDP = Fma<D>::LDP;
   float s[RQ][KJ], dp[RQ][KJ];
   dot_tile<D>(s, sQ, sK, ty, tx);
   dot_tile<D>(dp, sdO, sV, ty, tx);
@@ -265,6 +290,7 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
             const T* __restrict__ dout, const float* __restrict__ lse,
             const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int H,
             int KV, int Sq, int Sk, int causal, int window, float scale) {
+  constexpr int BQ = Fma<D>::BQ, BK = Fma<D>::BK, RK = Fma<D>::RK, LDP = Fma<D>::LDP;
   constexpr int LD = D + 4;
   constexpr int NC = D / 64;  // groups of 4 columns a thread owns in dK and dV
   extern __shared__ float4 smem4[];
@@ -310,8 +336,8 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
       __syncthreads();  // the previous tile's readers are done
       load_tile<T, D, BQ>(sQ, qp, q0, Sq, tid);
       load_tile<T, D, BQ>(sdO, dop, q0, Sq, tid);
-      load_rows(sLse, lse + bh * Sq, q0, Sq, tid);
-      load_rows(sDelta, delta + bh * Sq, q0, Sq, tid);
+      load_rows<BQ>(sLse, lse + bh * Sq, q0, Sq, tid);
+      load_rows<BQ>(sDelta, delta + bh * Sq, q0, Sq, tid);
       __syncthreads();
       p_and_ds<D>(sP, sdS, sQ, sK, sdO, sV, sLse, sDelta, q0, k0, Sq, Sk, causal, window, scale,
                   ty, tx);
@@ -319,10 +345,18 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
       // dV[kr][c] += sum_i P[i][kr] dO[i][c];  dK[kr][c] += sum_i dS[i][kr] Q[i][c]
 #pragma unroll 2
       for (int i = 0; i < BQ; ++i) {
-        const float4 pv = *reinterpret_cast<const float4*>(sP + i * LDP + RK * ty);
-        const float4 sv = *reinterpret_cast<const float4*>(sdS + i * LDP + RK * ty);
-        const float pr[RK] = {pv.x, pv.y, pv.z, pv.w};
-        const float sr[RK] = {sv.x, sv.y, sv.z, sv.w};
+        float pr[RK], sr[RK];
+        if constexpr (RK == 4) {
+          const float4 pv = *reinterpret_cast<const float4*>(sP + i * LDP + RK * ty);
+          const float4 sv = *reinterpret_cast<const float4*>(sdS + i * LDP + RK * ty);
+          pr[0] = pv.x, pr[1] = pv.y, pr[2] = pv.z, pr[3] = pv.w;
+          sr[0] = sv.x, sr[1] = sv.y, sr[2] = sv.z, sr[3] = sv.w;
+        } else {  // RK == 2 (D = 256)
+          const float2 pv = *reinterpret_cast<const float2*>(sP + i * LDP + RK * ty);
+          const float2 sv = *reinterpret_cast<const float2*>(sdS + i * LDP + RK * ty);
+          pr[0] = pv.x, pr[1] = pv.y;
+          sr[0] = sv.x, sr[1] = sv.y;
+        }
 #pragma unroll
         for (int c = 0; c < NC; ++c) {
           const float4 dov = *reinterpret_cast<const float4*>(sdO + i * LD + 64 * c + 4 * tx);
@@ -365,6 +399,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
           const T* __restrict__ dout, const float* __restrict__ lse,
           const float* __restrict__ delta, T* __restrict__ dq, int H, int KV, int Sq, int Sk,
           int causal, int window, float scale) {
+  constexpr int BQ = Fma<D>::BQ, BK = Fma<D>::BK, RQ = Fma<D>::RQ, LDP = Fma<D>::LDP;
   constexpr int LD = D + 4;
   constexpr int NC = D / 64;  // groups of 4 columns a thread owns in dQ
   extern __shared__ float4 smem4[];
@@ -387,8 +422,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 
   load_tile<T, D, BQ>(sQ, q + bh * Sq * D, q0, Sq, tid);
   load_tile<T, D, BQ>(sdO, dout + bh * Sq * D, q0, Sq, tid);
-  load_rows(sLse, lse + bh * Sq, q0, Sq, tid);
-  load_rows(sDelta, delta + bh * Sq, q0, Sq, tid);
+  load_rows<BQ>(sLse, lse + bh * Sq, q0, Sq, tid);
+  load_rows<BQ>(sDelta, delta + bh * Sq, q0, Sq, tid);
 
   // The key tiles the forward visits: none above the diagonal, none before the window.
   const int nk = (Sk + BK - 1) / BK;
@@ -461,6 +496,7 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
                    const float* lse, void* dq, void* dk, void* dv, float* delta, int B, int H,
                    int KV, int Sq, int Sk, int causal, int window, cudaStream_t stream) {
+  constexpr int BQ = Fma<D>::BQ, BK = Fma<D>::BK;
   constexpr int dkdv_bytes = dkdv_smem_bytes<D>(), dq_bytes = dq_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(dkdv_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_bytes);
@@ -496,20 +532,35 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, const void* o,
   if (D == 128)
     return launch<T, 128>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, KV, Sq, Sk, causal,
                           window, stream);
+  if (D == 256)
+    return launch<T, 256>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, KV, Sq, Sk, causal,
+                          window, stream);
   return cudaErrorInvalidValue;
 }
 
 // wgmma tiling.
 
 namespace wg {
-constexpr int BM = 128;  // keys of a dk/dv block, query rows of a dq block: two consumers of 64
 constexpr int BN = 64;   // rows of a streamed tile: queries (dk/dv) or keys (dq)
 constexpr int STAGES = 2;
 constexpr int THREADS = 384;  // consumer warpgroups 0 and 1, producer 2
 constexpr float LOG2E = 1.4426950408889634f;
 
+// How a block's two consumer warpgroups share its work.  At D = 64 and 128
+// the block owns 128 keys (dk/dv) or query rows (dq), 64 a consumer, and
+// each consumer keeps all D columns of its accumulators.  At D = 256 that
+// would take 256 accumulator registers a thread and 256 KB of shared
+// memory, so the block owns 64 rows, both consumers compute S and dP for
+// all 64 (the same products, twice), and each keeps D / 2 = 128 of the
+// accumulators' columns: 128 registers, 194 KB.
+template <int D> struct Cfg {
+  static constexpr bool SPLIT = D == 256;
+  static constexpr int BM = SPLIT ? 64 : 128;  // the block's keys (dk/dv) or query rows (dq)
+  static constexpr int NW = SPLIT ? D / 2 : D;  // accumulator columns a consumer owns
+};
+
 template <int D> struct Smem {
-  static constexpr int BIG = BM * D * 2;   // a 128-row operand: D / 64 boxes of 128 x 128 bytes
+  static constexpr int BIG = Cfg<D>::BM * D * 2;  // the block's operand: D / 64 boxes of BM x 128
   static constexpr int TILE = BN * D * 2;  // a streamed 64-row tile: D / 64 boxes of 64 x 128
   static constexpr int ROWS = 2 * BN * 4;  // a query tile's lse and delta (dk/dv)
   static constexpr int BYTES = 2 * BIG + STAGES * (2 * TILE + ROWS) + 8 * (1 + 2 * STAGES) + 1024;
@@ -545,12 +596,15 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                   const __grid_constant__ CUtensorMap map_k,
                   const __grid_constant__ CUtensorMap map_v,
                   const __grid_constant__ CUtensorMap map_do, const float* __restrict__ lse,
-                  const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int H,
-                  int KV, int Sq, int Sk, int causal, int window, float scale, float scale_log2) {
-  using wg::BM;
+                  const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                  float* __restrict__ part, int H, int KV, int Sq, int Sk, int causal, int window,
+                  int heads_per, float scale, float scale_log2) {
   using wg::BN;
   using wg::STAGES;
   using S = wg::Smem<D>;
+  using C = wg::Cfg<D>;
+  constexpr int BM = C::BM;
+  constexpr int NW = C::NW;
   constexpr int CH = D / 64;  // 64-wide column boxes of a row
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = hopper::align_1024(smem_raw);
@@ -564,9 +618,16 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   uint64_t* empty = full + STAGES;
 
   const int k0 = blockIdx.x * BM;  // causal: key tile 0 sees the most queries and starts first
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
+  // blockIdx.y: the kv head and the group's query heads [r_begin, r_end) this
+  // block sums, in order (all g but at D = 256, where the launch may split
+  // them into partials that dkdv_sum_kernel adds in a fixed order).
   const int g = H / KV;
+  const int splits = (g + heads_per - 1) / heads_per;
+  const int kvh = blockIdx.y / splits;
+  const int split = blockIdx.y % splits;
+  const int r_begin = split * heads_per;
+  const int r_end = min(g, r_begin + heads_per);
+  const int b = blockIdx.z;
   const int bkv = b * KV + kvh;
   const int k_last = min(k0 + BM, Sk) - 1;
   // Query tiles that see a key of this block: none above it (causal), none
@@ -599,7 +660,7 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         }
       }
       int i = 0;
-      for (int r = 0; r < g; ++r) {  // the group's query heads, in order
+      for (int r = r_begin; r < r_end; ++r) {  // the group's query heads, in order
         const int bh = bkv * g + r;
         for (int qt = qt_begin; qt < qt_end; ++qt, ++i) {
           const int s = i % STAGES;
@@ -632,19 +693,21 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     hopper::regs_alloc<240>();
     const int lane = threadIdx.x & 31;
     const int warp = (threadIdx.x / 32) % 4;
-    const int wk0 = k0 + 64 * warpgroup;          // this warpgroup's first key
+    const int wk0 = k0 + (C::SPLIT ? 0 : 64 * warpgroup);  // this warpgroup's first key
     const int wk_last = min(wk0 + 63, Sk - 1);    // and its last real one (< wk0 if none)
     const int row0 = wk0 + 16 * warp + lane / 4;  // this thread's keys: row0 and row0 + 8
     const int col0 = 2 * (lane % 4);              // and queries col0, col0 + 1 of each 8
+    const int wcol = C::SPLIT ? NW * warpgroup : 0;  // the first dK, dV column it owns
 
-    float dk_acc[D / 2], dv_acc[D / 2];  // [4j + 2i + c]: key row0 + 8i, column 8j + col0 + c
+    // [4j + 2i + c]: key row0 + 8i, column wcol + 8j + col0 + c
+    float dk_acc[NW / 2], dv_acc[NW / 2];
 #pragma unroll
-    for (int n = 0; n < D / 2; ++n) dk_acc[n] = dv_acc[n] = 0.f;
+    for (int n = 0; n < NW / 2; ++n) dk_acc[n] = dv_acc[n] = 0.f;
 
     hopper::mbar_wait(kv_full, 0);
     if (warpgroup == 1) wg::pass_turn(1);  // warpgroup 0 takes the first turn
     int i = 0;
-    for (int r = 0; r < g; ++r) {
+    for (int r = r_begin; r < r_end; ++r) {
       for (int qt = qt_begin; qt < qt_end; ++qt, ++i) {
         const int s = i % STAGES;
         const int q0 = qt * BN;
@@ -656,10 +719,12 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         wg::take_turn(warpgroup);
         if (skip) wg::pass_turn(warpgroup);
         if (!skip) {
-          const uint32_t kw = hopper::opaque(hopper::smem_u32(sk) + warpgroup * 64 * 128);
-          const uint32_t vw = hopper::opaque(hopper::smem_u32(sv) + warpgroup * 64 * 128);
+          const uint32_t wrow = C::SPLIT ? 0 : warpgroup * 64 * 128;  // its keys' first row
+          const uint32_t kw = hopper::opaque(hopper::smem_u32(sk) + wrow);
+          const uint32_t vw = hopper::opaque(hopper::smem_u32(sv) + wrow);
           const uint32_t qs = hopper::opaque(hopper::smem_u32(sq) + s * S::TILE);
           const uint32_t dos = hopper::opaque(hopper::smem_u32(sdo) + s * S::TILE);
+          const uint32_t wbox = (wcol / 64) * BN * 128;  // its columns' first box of a tile
           // S^T and dP^T: [4j + 2i + c] is key row0 + 8i, query q0 + 8j + col0 + c.
           float st[BN / 2], dpt[BN / 2];
 #pragma unroll
@@ -720,10 +785,10 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
           hopper::wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < BN / 16; ++kk)  // 16 queries, 16 rows of the tiles' boxes, a step
-            hopper::Wgmma<D, T>::template rs<1>(dv_acc, pa[kk], wg::mnmajor(dos, kk), 1);
+            hopper::Wgmma<NW, T>::template rs<1>(dv_acc, pa[kk], wg::mnmajor(dos + wbox, kk), 1);
 #pragma unroll
           for (int kk = 0; kk < BN / 16; ++kk)
-            hopper::Wgmma<D, T>::template rs<1>(dk_acc, da[kk], wg::mnmajor(qs, kk), 1);
+            hopper::Wgmma<NW, T>::template rs<1>(dk_acc, da[kk], wg::mnmajor(qs + wbox, kk), 1);
           hopper::wgmma_commit();
           hopper::wgmma_wait<0>();
           hopper::fence_regs(dv_acc);
@@ -739,10 +804,22 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     for (int rr = 0; rr < 2; ++rr) {
       const int kpos = row0 + 8 * rr;
       if (kpos > wk_last) continue;
-      T* dkrow = dk + ((size_t)bkv * Sk + kpos) * D;
-      T* dvrow = dv + ((size_t)bkv * Sk + kpos) * D;
+      if (part != nullptr) {  // this block's heads' partial sums, fp32 and unscaled
+        const size_t n = (size_t)gridDim.z * KV * Sk * D;  // one partial of dk
+        const size_t at = split * n + ((size_t)bkv * Sk + kpos) * D + wcol;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+        for (int j = 0; j < NW / 8; ++j) {
+          *reinterpret_cast<float2*>(part + at + 8 * j + col0) =
+              make_float2(dk_acc[4 * j + 2 * rr], dk_acc[4 * j + 2 * rr + 1]);
+          *reinterpret_cast<float2*>(part + splits * n + at + 8 * j + col0) =
+              make_float2(dv_acc[4 * j + 2 * rr], dv_acc[4 * j + 2 * rr + 1]);
+        }
+        continue;
+      }
+      T* dkrow = dk + ((size_t)bkv * Sk + kpos) * D + wcol;
+      T* dvrow = dv + ((size_t)bkv * Sk + kpos) * D + wcol;
+#pragma unroll
+      for (int j = 0; j < NW / 8; ++j) {
         *reinterpret_cast<uint32_t*>(dkrow + 8 * j + col0) =
             hopper::pack2<T>(dk_acc[4 * j + 2 * rr] * scale, dk_acc[4 * j + 2 * rr + 1] * scale);
         *reinterpret_cast<uint32_t*>(dvrow + 8 * j + col0) =
@@ -750,6 +827,24 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       }
     }
   }
+}
+
+// dk and dv from dkdv_wgmma_kernel's partials (`splits` of them, each the
+// sum over its block's query heads): added in order, dk scaled, rounded
+// once to T.  n is the elements of dk (and of dv).
+template <typename T>
+__global__ void __launch_bounds__(256)
+dkdv_sum_kernel(const float* __restrict__ part, T* __restrict__ dk, T* __restrict__ dv,
+                int splits, size_t n, float scale) {
+  const size_t idx = (size_t)blockIdx.x * 256 + threadIdx.x;
+  if (idx >= n) return;
+  float sk = 0.f, sv = 0.f;
+  for (int p = 0; p < splits; ++p) {
+    sk += part[p * n + idx];
+    sv += part[(splits + p) * n + idx];
+  }
+  dk[idx] = from_float<T>(sk * scale);
+  dv[idx] = from_float<T>(sv);
 }
 
 template <typename T, int D>
@@ -760,10 +855,12 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                 const __grid_constant__ CUtensorMap map_do, const float* __restrict__ lse,
                 const float* __restrict__ delta, T* __restrict__ dq, int H, int KV, int Sq, int Sk,
                 int causal, int window, float scale, float scale_log2) {
-  using wg::BM;
   using wg::BN;
   using wg::STAGES;
   using S = wg::Smem<D>;
+  using C = wg::Cfg<D>;
+  constexpr int BM = C::BM;
+  constexpr int NW = C::NW;
   constexpr int CH = D / 64;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = hopper::align_1024(smem_raw);
@@ -824,10 +921,11 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     hopper::regs_alloc<240>();
     const int lane = threadIdx.x & 31;
     const int warp = (threadIdx.x / 32) % 4;
-    const int wq0 = q0 + 64 * warpgroup;          // this warpgroup's first query row
+    const int wq0 = q0 + (C::SPLIT ? 0 : 64 * warpgroup);  // this warpgroup's first query row
     const int wq_last = min(wq0 + 63, Sq - 1);    // and its last real one (< wq0 if none)
     const int row0 = wq0 + 16 * warp + lane / 4;  // this thread's rows: row0 and row0 + 8
     const int col0 = 2 * (lane % 4);              // and keys col0, col0 + 1 of each 8
+    const int wcol = C::SPLIT ? NW * warpgroup : 0;  // the first dQ column it owns
     float lse2[2], dl[2];                         // rows past Sq: 0 (never stored)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -836,9 +934,9 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       dl[r] = row < Sq ? delta[(size_t)bh * Sq + row] : 0.f;
     }
 
-    float acc[D / 2];  // dQ: acc[4j + 2i + c] is row row0 + 8i, column 8j + col0 + c
+    float acc[NW / 2];  // dQ: acc[4j + 2i + c] is row row0 + 8i, column wcol + 8j + col0 + c
 #pragma unroll
-    for (int n = 0; n < D / 2; ++n) acc[n] = 0.f;
+    for (int n = 0; n < NW / 2; ++n) acc[n] = 0.f;
 
     hopper::mbar_wait(qd_full, 0);
     if (warpgroup == 1) wg::pass_turn(1);  // warpgroup 0 takes the first turn
@@ -853,10 +951,12 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       wg::take_turn(warpgroup);
       if (skip) wg::pass_turn(warpgroup);
       if (!skip) {
-        const uint32_t qw = hopper::opaque(hopper::smem_u32(sq) + warpgroup * 64 * 128);
-        const uint32_t dow = hopper::opaque(hopper::smem_u32(sdo) + warpgroup * 64 * 128);
+        const uint32_t wrow = C::SPLIT ? 0 : warpgroup * 64 * 128;  // its rows' first
+        const uint32_t qw = hopper::opaque(hopper::smem_u32(sq) + wrow);
+        const uint32_t dow = hopper::opaque(hopper::smem_u32(sdo) + wrow);
         const uint32_t ks = hopper::opaque(hopper::smem_u32(sk) + s * S::TILE);
         const uint32_t vs = hopper::opaque(hopper::smem_u32(sv) + s * S::TILE);
+        const uint32_t wbox = (wcol / 64) * BN * 128;  // its columns' first box of a tile
         // S and dP: [4j + 2i + c] is row row0 + 8i, key k0 + 8j + col0 + c.
         float sc[BN / 2], dp[BN / 2];
 #pragma unroll
@@ -905,7 +1005,7 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         hopper::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BN / 16; ++kk)  // 16 keys, 16 rows of K's boxes, a step
-          hopper::Wgmma<D, T>::template rs<1>(acc, da[kk], wg::mnmajor(ks, kk), 1);
+          hopper::Wgmma<NW, T>::template rs<1>(acc, da[kk], wg::mnmajor(ks + wbox, kk), 1);
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
         hopper::fence_regs(acc);
@@ -920,32 +1020,48 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     for (int r = 0; r < 2; ++r) {
       const int qpos = row0 + 8 * r;
       if (qpos > wq_last) continue;
-      T* dqrow = dqp + (size_t)qpos * D;
+      T* dqrow = dqp + (size_t)qpos * D + wcol;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
+      for (int j = 0; j < NW / 8; ++j)
         *reinterpret_cast<uint32_t*>(dqrow + 8 * j + col0) =
             hopper::pack2<T>(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
     }
   }
 }
 
+// The query-head splits of the dk/dv launch (its blockIdx.y), as heads per
+// split: all g heads in one block but at D = 256, where a block a key tile
+// and kv head may leave SMs idle (recurrentgemma-9b at B = 1, KV = 1, S =
+// 4096: 64 blocks on 132 SMs); there the g heads are cut into as many
+// splits as fill the SMs, whose fp32 partials dkdv_sum_kernel adds in
+// order.  The bits depend on the split, and so on `sms`.
+template <int D>
+int heads_per_split(int B, int H, int KV, int Sk, int sms) {
+  const int g = H / KV;
+  const long blocks = (long)((Sk + wg::Cfg<D>::BM - 1) / wg::Cfg<D>::BM) * KV * B;
+  if (!wg::Cfg<D>::SPLIT || blocks >= sms) return g;
+  const int splits = (int)std::min<long>(g, sms / blocks);
+  return (g + splits - 1) / splits;
+}
+
 template <typename T, int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void* o,
                          const void* dout, const float* lse, void* dq, void* dk, void* dv,
-                         float* delta, int B, int H, int KV, int Sq, int Sk, int causal,
-                         int window, cudaStream_t stream) {
+                         float* delta, float* work, int B, int H, int KV, int Sq, int Sk,
+                         int causal, int window, int sms, cudaStream_t stream) {
   constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
   constexpr int bytes = wg::Smem<D>::BYTES;
+  constexpr int BM = wg::Cfg<D>::BM;
   const uint64_t bh = (uint64_t)B * H, bkv = (uint64_t)B * KV;
-  // dk/dv streams 64-row tiles of q and dO past 128-key blocks of k and v;
+  // dk/dv streams 64-row tiles of q and dO past BM-key blocks of k and v;
   // dq the other way round.
-  CUtensorMap q64, do64, k128, v128, q128, do128, k64, v64;
+  CUtensorMap q64, do64, k_big, v_big, q_big, do_big, k64, v64;
   cudaError_t err = hopper::make_map_3d(&q64, q, bf16, D, Sq, bh, wg::BN);
   if (err == cudaSuccess) err = hopper::make_map_3d(&do64, dout, bf16, D, Sq, bh, wg::BN);
-  if (err == cudaSuccess) err = hopper::make_map_3d(&k128, k, bf16, D, Sk, bkv, wg::BM);
-  if (err == cudaSuccess) err = hopper::make_map_3d(&v128, v, bf16, D, Sk, bkv, wg::BM);
-  if (err == cudaSuccess) err = hopper::make_map_3d(&q128, q, bf16, D, Sq, bh, wg::BM);
-  if (err == cudaSuccess) err = hopper::make_map_3d(&do128, dout, bf16, D, Sq, bh, wg::BM);
+  if (err == cudaSuccess) err = hopper::make_map_3d(&k_big, k, bf16, D, Sk, bkv, BM);
+  if (err == cudaSuccess) err = hopper::make_map_3d(&v_big, v, bf16, D, Sk, bkv, BM);
+  if (err == cudaSuccess) err = hopper::make_map_3d(&q_big, q, bf16, D, Sq, bh, BM);
+  if (err == cudaSuccess) err = hopper::make_map_3d(&do_big, dout, bf16, D, Sq, bh, BM);
   if (err == cudaSuccess) err = hopper::make_map_3d(&k64, k, bf16, D, Sk, bkv, wg::BN);
   if (err == cudaSuccess) err = hopper::make_map_3d(&v64, v, bf16, D, Sk, bkv, wg::BN);
   if (err == cudaSuccess)
@@ -957,31 +1073,46 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void
   if (err != cudaSuccess) return err;
   const float scale = 1.0f / sqrtf((float)D);
   const float scale_log2 = scale * wg::LOG2E;
+  const int g = H / KV;
+  const int heads_per = heads_per_split<D>(B, H, KV, Sk, sms);
+  const int splits = (g + heads_per - 1) / heads_per;
+  if (splits > 1 && work == nullptr) return cudaErrorInvalidValue;
 
   err = launch_delta<T, D>(o, dout, delta, (long)B * H * Sq, stream);
   if (err != cudaSuccess) return err;
-  dkdv_wgmma_kernel<T, D><<<dim3((Sk + wg::BM - 1) / wg::BM, KV, B), wg::THREADS, bytes, stream>>>(
-      q64, k128, v128, do64, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), H, KV, Sq, Sk,
-      causal, window, scale, scale_log2);
+  dkdv_wgmma_kernel<T, D><<<dim3((Sk + BM - 1) / BM, KV * splits, B), wg::THREADS, bytes,
+                            stream>>>(
+      q64, k_big, v_big, do64, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+      splits > 1 ? work : nullptr, H, KV, Sq, Sk, causal, window, heads_per, scale, scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dq_wgmma_kernel<T, D><<<dim3((Sq + wg::BM - 1) / wg::BM, H, B), wg::THREADS, bytes, stream>>>(
-      q128, k64, v64, do128, lse, delta, static_cast<T*>(dq), H, KV, Sq, Sk, causal, window, scale,
-      scale_log2);
+  if (splits > 1) {
+    const size_t n = (size_t)B * KV * Sk * D;
+    dkdv_sum_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+        work, static_cast<T*>(dk), static_cast<T*>(dv), splits, n, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  dq_wgmma_kernel<T, D><<<dim3((Sq + BM - 1) / BM, H, B), wg::THREADS, bytes, stream>>>(
+      q_big, k64, v64, do_big, lse, delta, static_cast<T*>(dq), H, KV, Sq, Sk, causal, window,
+      scale, scale_log2);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_wgmma_d(const void* q, const void* k, const void* v, const void* o,
                            const void* dout, const float* lse, void* dq, void* dk, void* dv,
-                           float* delta, int B, int H, int KV, int Sq, int Sk, int D, int causal,
-                           int window, cudaStream_t stream) {
+                           float* delta, float* work, int B, int H, int KV, int Sq, int Sk, int D,
+                           int causal, int window, int sms, cudaStream_t stream) {
   if (D == 64)
-    return launch_wgmma<T, 64>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, KV, Sq, Sk,
-                               causal, window, stream);
+    return launch_wgmma<T, 64>(q, k, v, o, dout, lse, dq, dk, dv, delta, work, B, H, KV, Sq, Sk,
+                               causal, window, sms, stream);
   if (D == 128)
-    return launch_wgmma<T, 128>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, KV, Sq, Sk,
-                                causal, window, stream);
+    return launch_wgmma<T, 128>(q, k, v, o, dout, lse, dq, dk, dv, delta, work, B, H, KV, Sq,
+                                Sk, causal, window, sms, stream);
+  if (D == 256)
+    return launch_wgmma<T, 256>(q, k, v, o, dout, lse, dq, dk, dv, delta, work, B, H, KV, Sq,
+                                Sk, causal, window, sms, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -994,36 +1125,55 @@ bool valid(int B, int H, int KV, int Sq, int Sk, int window) {
 
 // q, o, dout, dq: (B, H, Sq, D); k, v, dk, dv: (B, KV, Sk, D); lse, delta:
 // (B, H, Sq) fp32, delta scratch the call overwrites.  Contiguous device
-// arrays, 16-byte aligned.  dtype: 0 float32, 1 float16, 2 bfloat16.  D: 64
-// or 128.  Each entry point launches one tiling's three kernels on `stream`
-// and returns a cudaError_t (0 on success); a shape or dtype its tiling does
-// not take returns cudaErrorInvalidValue.
+// arrays, 16-byte aligned.  dtype: 0 float32, 1 float16, 2 bfloat16.  D: 64,
+// 128 or 256.  work: repro_flash_attention_bwd_workspace(B, H, KV, Sk, D,
+// sms) bytes of scratch (the wgmma tiling's partials of dk and dv at
+// D = 256; may be null where that is 0); sms: the card's SMs.  Each entry
+// point launches one tiling's kernels on `stream` and returns a cudaError_t
+// (0 on success); a shape or dtype its tiling does not take returns
+// cudaErrorInvalidValue.
+
+// Bytes of scratch the wgmma tiling needs (the fma tiling needs none): two
+// fp32 partials of dk and dv for each query-head split, or 0 without splits.
+extern "C" long long repro_flash_attention_bwd_workspace(int B, int H, int KV, int Sk, int D,
+                                                         int sms) {
+  if (!valid(B, H, KV, 1, Sk, 0) || sms < 1) return 0;
+  const int g = H / KV;
+  const int per = D == 256 ? heads_per_split<256>(B, H, KV, Sk, sms) : g;
+  const long long splits = (g + per - 1) / per;
+  return splits > 1 ? 2LL * splits * B * KV * Sk * D * (long long)sizeof(float) : 0;
+}
 
 // Tensor cores; float16 or bfloat16.
 extern "C" int repro_flash_attention_bwd_wgmma(const void* q, const void* k, const void* v,
                                                const void* o, const void* dout, const float* lse,
-                                               void* dq, void* dk, void* dv, float* delta, int B,
-                                               int H, int KV, int Sq, int Sk, int D, int causal,
-                                               int window, int dtype, void* stream) {
-  if (!valid(B, H, KV, Sq, Sk, window)) return (int)cudaErrorInvalidValue;
+                                               void* dq, void* dk, void* dv, float* delta,
+                                               float* work, int B, int H, int KV, int Sq, int Sk,
+                                               int D, int causal, int window, int sms, int dtype,
+                                               void* stream) {
+  if (!valid(B, H, KV, Sq, Sk, window) || sms < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 1:
-      return (int)launch_wgmma_d<__half>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, KV, Sq,
-                                         Sk, D, causal, window, s);
+      return (int)launch_wgmma_d<__half>(q, k, v, o, dout, lse, dq, dk, dv, delta, work, B, H, KV,
+                                         Sq, Sk, D, causal, window, sms, s);
     case 2:
-      return (int)launch_wgmma_d<__nv_bfloat16>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H,
-                                                KV, Sq, Sk, D, causal, window, s);
+      return (int)launch_wgmma_d<__nv_bfloat16>(q, k, v, o, dout, lse, dq, dk, dv, delta, work, B,
+                                                H, KV, Sq, Sk, D, causal, window, sms, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// fp32 FMAs on the CUDA cores; any of the three dtypes.
+// fp32 FMAs on the CUDA cores; any of the three dtypes.  `work` and `sms`
+// are not read (the same arguments as the wgmma entry).
 extern "C" int repro_flash_attention_bwd_fma(const void* q, const void* k, const void* v,
                                              const void* o, const void* dout, const float* lse,
-                                             void* dq, void* dk, void* dv, float* delta, int B,
-                                             int H, int KV, int Sq, int Sk, int D, int causal,
-                                             int window, int dtype, void* stream) {
+                                             void* dq, void* dk, void* dv, float* delta,
+                                             float* work, int B, int H, int KV, int Sq, int Sk,
+                                             int D, int causal, int window, int sms, int dtype,
+                                             void* stream) {
+  (void)work;
+  (void)sms;
   if (!valid(B, H, KV, Sq, Sk, window)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {

@@ -21,7 +21,7 @@ a key, and does nothing at Sq = Sk (every served prefill).
 
 Training: given ``lse``, either tiling also writes each query row's
 log-sum-exp, and :func:`flash_attention_bwd` (``csrc/flash_attention_bwd.cu``,
-head dims 64 and 128) computes dq, dk and dv from it on one of two tilings,
+head dims 64, 128 and 256) computes dq, dk and dv from it on one of two tilings,
 ``wgmma`` (bf16/fp16) and ``fma`` (any dtype; exact fp32), one C entry point
 each; :func:`attention_bwd_tiling` chooses.  :class:`FlashAttentionFn` joins
 the forward and the backward for autograd.  The backward refuses
@@ -37,12 +37,13 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import _build
+from ._build import sm_count
 
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 HALF_DTYPES = (torch.float16, torch.bfloat16)
 HEAD_DIMS = (64, 80, 128, 256)  # 80: hubert-xlarge, at a compute width of 128 on wgmma
 TILINGS = ("wgmma", "fma")
-BWD_HEAD_DIMS = (64, 128)  # minicpm-2b; granite-8b/34b and deepseek-coder-33b
+BWD_HEAD_DIMS = (64, 128, 256)  # minicpm-2b; granite-8b/34b, deepseek-coder-33b; recurrentgemma
 
 
 def attention_tiling(dtype: torch.dtype, head_dim: int) -> str:
@@ -87,13 +88,18 @@ def attention_bwd_tiling(dtype: torch.dtype, head_dim: int) -> str:
     return "wgmma" if dtype in HALF_DTYPES else "fma"
 
 
-def _bwd_entry(tiling: str):
-    fn = getattr(_build.load("flash_attention_bwd"), f"repro_flash_attention_bwd_{tiling}")
+def _bwd_entries(tiling: str):
+    lib = _build.load("flash_attention_bwd")
+    fn = getattr(lib, f"repro_flash_attention_bwd_{tiling}")
+    ws = lib.repro_flash_attention_bwd_workspace
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 10 + [i] * 9 + [p]
+        fn.argtypes = [p] * 11 + [i] * 10 + [p]
         fn.restype = i
-    return fn
+    if ws.argtypes is None:
+        ws.argtypes = [ctypes.c_int] * 6
+        ws.restype = ctypes.c_longlong
+    return fn, ws
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -161,7 +167,7 @@ def check_bwd(q, k, causal: bool, window: int) -> None:
     Sq, D = q.shape[2], q.shape[3]
     if D not in BWD_HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd: head dim {D} not in {BWD_HEAD_DIMS} "
-                         "(80 and 256: ROADMAP.md queue 1, the audio and hybrid slices)")
+                         "(80: ROADMAP.md queue 1 item 1.5, the audio slice)")
     first = first_masked_row(Sq, k.shape[2], causal, window)
     if first < Sq:
         raise ValueError(f"flash_attention_bwd: rows {first}..{Sq - 1} see no key "
@@ -174,10 +180,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True, window: int = 
     """The gradient of :func:`flash_attention` -> (dq, dk, dv) in q's dtype.
 
     q, o, do: (B, H, Sq, D); k, v: (B, KV, Sk, D); lse: (B, H, Sq) fp32 from
-    the forward, all on one CUDA device; D 64 or 128.  ``tiling`` defaults
-    to :func:`attention_bwd_tiling`'s choice; a tiling that does not take
-    the dtype raises.  Launches the CUDA backward once (three kernels on the
-    current stream), or raises: it never computes on another path.
+    the forward, all on one CUDA device; D 64, 128 or 256.  ``tiling``
+    defaults to :func:`attention_bwd_tiling`'s choice; a tiling that does not
+    take the dtype raises.  Launches the CUDA backward once (three kernels on
+    the current stream; at D = 256 the wgmma tiling may split the query heads
+    of a kv head into fp32 partials, from PyTorch's allocator, that a fourth
+    kernel adds in a fixed order), or raises: it never computes on another
+    path.
     """
     ts = (q, k, v, o, lse, do)
     if not all(t.is_cuda and t.device == q.device for t in ts):
@@ -205,10 +214,15 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True, window: int = 
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = _bwd_entry(tiling)(
+        fn, ws = _bwd_entries(tiling)
+        sms = sm_count(q.device.index)
+        nbytes = ws(B, H, KV, Sk, D, sms) if tiling == "wgmma" else 0
+        work = torch.empty(nbytes // 4, dtype=torch.float32, device=q.device) if nbytes else None
+        err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-            B, H, KV, Sq, Sk, D, int(bool(causal)), int(window), DTYPE_CODES[q.dtype],
+            None if work is None else work.data_ptr(),
+            B, H, KV, Sq, Sk, D, int(bool(causal)), int(window), sms, DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err:

@@ -21,12 +21,12 @@ launches the scan's backward kernel once a call, for all six gradients
 ``bag_lookup`` goes through :class:`EmbeddingBagFn`, whose backward launches
 the embedding bag's backward kernel (``bag_lookup_bwd_launches``, and by
 tiling ``bag_lookup_bwd_small_launches`` or ``bag_lookup_bwd_sorted_launches``).
+``lru_scan`` goes through :class:`LruScanFn`, whose backward launches the
+RG-LRU scan's backward kernel once a call, for da and db
+(``lru_scan_bwd_launches``).
 On the CPU under grad, each goes through the same Function on the plain
 versions (the bag's gradient drops ids outside the table as ``jax.grad`` of
-the reference's gather does).  The RG-LRU scan has no backward yet: its
-wrapper raises ``NotImplementedError`` on a CUDA input that requires grad
-while grad is enabled, rather than hand autograd a constant.  Its CPU path
-(the plain version) stays differentiable by autograd.
+the reference's gather does).
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ from .moe_gmm import GroupedMatmulFn, gmm_tiling, moe_gmm
 from .ref import (
     ref_embedding_bag, ref_flash_attention, ref_mamba_scan, ref_moe_gmm, ref_rglru_scan,
 )
-from .rglru_scan import rglru_scan
+from .rglru_scan import LruScanFn, rglru_scan
 
 attention_launches = 0
 attention_wgmma_launches = 0
@@ -58,6 +58,7 @@ grouped_matmul_bwd_fma_launches = 0
 selective_scan_launches = 0
 selective_scan_bwd_launches = 0  # counted by SelectiveScanFn.backward
 lru_scan_launches = 0
+lru_scan_bwd_launches = 0  # counted by LruScanFn.backward
 bag_lookup_launches = 0
 bag_lookup_bwd_launches = 0  # counted by EmbeddingBagFn.backward
 bag_lookup_bwd_small_launches = 0
@@ -66,15 +67,6 @@ bag_lookup_bwd_sorted_launches = 0
 
 def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
-
-
-def _refuse_grad(kernel: str, item: str, *tensors) -> None:
-    """Raises where autograd would take the kernel's output for a constant."""
-    if _needs_grad(*tensors):
-        raise NotImplementedError(
-            f"{kernel} has no backward kernel yet (ROADMAP.md queue 2 {item}); its CUDA "
-            "wrapper refuses inputs that require grad rather than drop their gradient"
-        )
 
 
 def attention(q, k, v, causal: bool = True, window: int = 0):
@@ -135,11 +127,13 @@ def lru_scan(a, b):
     """``h_t = a_t * h_{t-1} + b_t`` from h = 0: a, b (B, L, D) ->
     (h_all (B, L, D) fp32, h_final (B, D) fp32)."""
     global lru_scan_launches
-    if a.device.type == "cpu":
-        return ref_rglru_scan(a, b)
-    _refuse_grad("rglru_scan", "B2", a, b)
-    out = rglru_scan(a, b)
-    lru_scan_launches += 1
+    on_cpu = a.device.type == "cpu"
+    if _needs_grad(a, b):  # the kernels on the card, the plain versions on the CPU
+        out = LruScanFn.apply(a, b)
+    else:
+        out = (ref_rglru_scan if on_cpu else rglru_scan)(a, b)
+    if not on_cpu:
+        lru_scan_launches += 1
     return out
 
 

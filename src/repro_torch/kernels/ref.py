@@ -182,6 +182,24 @@ def ref_rglru_scan(a, b):
     return torch.stack(hs, dim=1), h
 
 
+def ref_rglru_scan_bwd(a, h_all, dh_all, dh_final=None):
+    """The gradient of :func:`ref_rglru_scan` given its ``a`` (B, L, D), its
+    h_all (B, L, D) fp32 and the cotangents dh_all (B, L, D) and dh_final
+    (B, D) (None: 0) -> (da, db) in a's dtype (b shares it).
+
+    A reverse-time loop in fp32: g_{L-1} = dh_{L-1} + dh_final, g_t = dh_t +
+    a_{t+1} g_{t+1}; db_t = g_t, da_t = g_t h_{t-1} with h_{-1} = 0."""
+    af, hf, dhf = a.float(), h_all.float(), dh_all.float()
+    w = torch.zeros_like(hf[:, 0]) if dh_final is None else dh_final.float()  # a_{t+1} g_{t+1}
+    da, db = torch.empty_like(hf), torch.empty_like(hf)
+    for t in reversed(range(a.shape[1])):
+        g = dhf[:, t] + w
+        db[:, t] = g
+        da[:, t] = g * hf[:, t - 1] if t > 0 else 0.0
+        w = af[:, t] * g
+    return da.to(a.dtype), db.to(a.dtype)
+
+
 def ref_embedding_bag(tables, indices):
     """tables: (T, R, E); indices: (B, T, NNZ) -> (B, T, E), summed in fp32
     and cast to the tables' dtype, as the Pallas kernel does.  Ids follow the

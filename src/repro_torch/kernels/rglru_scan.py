@@ -1,10 +1,18 @@
-"""RG-LRU linear recurrence on Hopper: the wrapper of ``csrc/rglru_scan.cu``.
+"""RG-LRU linear recurrence on Hopper: the wrappers of ``csrc/rglru_scan.cu``
+and ``csrc/rglru_scan_bwd.cu``.
 
 Replaces the Pallas TPU kernel ``repro.kernels.rglru_scan``.  The CUDA
 kernel computes the same function (``h_t = a_t * h_{t-1} + b_t`` from
 h = 0, in fp32) for any L and D, masking the ragged edges itself, so nothing
 here pads.  Its plain PyTorch version is
 :func:`repro_torch.kernels.ref.ref_rglru_scan`.
+
+Training: :func:`rglru_scan_bwd` wraps the backward kernel, which gives da
+and db from a, h_all and the cotangents of h_all and h_final (a scan over
+time chunks of 32 steps, carried across chunks in a fixed order: no float
+atomics).  Its plain version is
+:func:`repro_torch.kernels.ref.ref_rglru_scan_bwd`.  :class:`LruScanFn`
+joins the forward and the backward for autograd.
 """
 
 from __future__ import annotations
@@ -12,9 +20,11 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _build
 from .flash_attention import DTYPE_CODES
+from .ref import ref_rglru_scan, ref_rglru_scan_bwd
 
 
 def _entry():
@@ -55,3 +65,93 @@ def rglru_scan(a, b):
     if err:
         raise RuntimeError(f"rglru_scan: CUDA error {err} at launch")
     return h_all, h_fin
+
+
+def _bwd_entries():
+    lib = _build.load("rglru_scan_bwd")
+    fn, ws = lib.repro_rglru_scan_bwd, lib.repro_rglru_scan_bwd_workspace
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 7 + [i, i, i, i, p]
+        fn.restype = i
+        ws.argtypes = [i, i, i]
+        ws.restype = ctypes.c_longlong
+    return fn, ws
+
+
+def rglru_scan_bwd(a, h_all, dh_all, dh_final=None):
+    """The scan's gradient on the card: the forward's ``a`` (B, L, D; fp32,
+    fp16 or bf16), its h_all (B, L, D) fp32, the cotangent dh_all (B, L, D)
+    fp32 and dh_final (B, D) fp32 or None (0), all on one CUDA device ->
+    (da, db) in a's dtype (b shares it), the function of
+    :func:`repro_torch.kernels.ref.ref_rglru_scan_bwd`.
+
+    Launches the backward's three passes on the current stream (scratch from
+    PyTorch's allocator), or raises: this function never computes on another
+    path.
+    """
+    ts = (a, h_all, dh_all) + (() if dh_final is None else (dh_final,))
+    if not (a.is_cuda and all(t.device == a.device for t in ts)):
+        raise ValueError("rglru_scan_bwd: every input must lie on one CUDA device")
+    if a.dtype not in DTYPE_CODES:
+        raise ValueError(f"rglru_scan_bwd: a must be one of {list(DTYPE_CODES)}; got {a.dtype}")
+    if a.dim() != 3:
+        raise ValueError(f"rglru_scan_bwd: a (B,L,D); got {tuple(a.shape)}")
+    B, L, D = a.shape
+    if min(B, L, D) < 1 or B > 65535:
+        raise ValueError(f"rglru_scan_bwd: B={B}, L={L}, D={D} out of range")
+    for name, t, shape in (("h_all", h_all, (B, L, D)), ("dh_all", dh_all, (B, L, D)),
+                           ("dh_final", dh_final, (B, D))):
+        if t is not None and (t.dtype != torch.float32 or t.shape != shape):
+            raise ValueError(f"rglru_scan_bwd: {name} must be float32 {shape}; got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    a, h_all, dh_all = a.contiguous(), h_all.contiguous(), dh_all.contiguous()
+    dh_final = None if dh_final is None else dh_final.contiguous()
+    dev = a.device
+    da = torch.empty((B, L, D), dtype=torch.float32, device=dev)
+    db = torch.empty((B, L, D), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        fn, ws = _bwd_entries()
+        work = torch.empty(ws(B, L, D) // 4, dtype=torch.float32, device=dev)
+        err = fn(
+            a.data_ptr(), h_all.data_ptr(), dh_all.data_ptr(),
+            0 if dh_final is None else dh_final.data_ptr(), da.data_ptr(), db.data_ptr(),
+            work.data_ptr(), B, L, D, DTYPE_CODES[a.dtype],
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"rglru_scan_bwd: CUDA error {err} at launch")
+    return da.to(a.dtype), db.to(a.dtype)
+
+
+class LruScanFn(torch.autograd.Function):
+    """The RG-LRU scan with a gradient.  ``apply(a, b)`` -> (h_all, h_final):
+    on the card the forward launches :func:`rglru_scan` and the backward
+    launches :func:`rglru_scan_bwd` once (counted in
+    ``ops.lru_scan_bwd_launches``); on the CPU both are the plain versions.
+    Saves ``a`` and h_all, the output it already writes: nothing that remat
+    does not drop with the forward.  An unused output's gradient arrives as
+    None and counts as 0."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.set_materialize_grads(False)
+        h_all, h_fin = (ref_rglru_scan if a.device.type == "cpu" else rglru_scan)(a, b)
+        ctx.save_for_backward(a, h_all)
+        return h_all, h_fin
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dh_all, dh_final):
+        from . import ops  # the launch counter; ops imports this module
+
+        a, h_all = ctx.saved_tensors
+        if dh_all is None:
+            dh_all = torch.zeros(h_all.shape, dtype=torch.float32, device=a.device)
+        if a.device.type == "cpu":
+            da, db = ref_rglru_scan_bwd(a, h_all, dh_all, dh_final)
+        else:
+            da, db = rglru_scan_bwd(a, h_all, dh_all, dh_final)
+            ops.lru_scan_bwd_launches += 1
+        return (da if ctx.needs_input_grad[0] else None,
+                db if ctx.needs_input_grad[1] else None)

@@ -9,10 +9,11 @@ one untraced warm-up step on ``batch_for_step(0)``, then traces step 1 with
 ``torch.profiler`` and prints the host-clock wall time, the summed device
 time of its kernels, the device idle share, the kernels that took the most
 device time (as ``trace_serve`` does) and the device time by group: the
-attention backward kernels (either tiling), the attention forward kernels,
-the Mamba scan's backward (its kernel and the sum of its partials) and
-forward kernels, cuBLAS GEMMs and the rest.  Card only: device time is what
-it reports.
+attention backward kernels (either tiling, and the sum of the head dim 256
+kernel's partials), the attention forward kernels, the Mamba scan's
+backward (its kernel and the sum of its partials) and forward kernels, the
+RG-LRU scan's backward (its three passes) and forward kernels, cuBLAS GEMMs
+and the rest.  Card only: device time is what it reports.
 """
 
 from __future__ import annotations
@@ -40,10 +41,13 @@ from repro_torch.train.steps import make_train_step
 
 # Kernel-name patterns of each group, tried in order; the rest is "other".
 GROUPS = (
-    ("attention backward", re.compile(r"delta_kernel|dkdv_(wgmma_)?kernel|dq_(wgmma_)?kernel")),
+    ("attention backward",
+     re.compile(r"delta_kernel|dkdv_(wgmma_|sum_)?kernel|dq_(wgmma_)?kernel")),
     ("attention forward", re.compile(r"flash_attention_(wgmma|fwd)_kernel")),
     ("selective scan backward", re.compile(r"mamba_bwd_")),
     ("selective scan forward", re.compile(r"mamba_scan_kernel")),
+    ("RG-LRU backward", re.compile(r"lru_bwd_")),
+    ("RG-LRU forward", re.compile(r"rglru_scan_kernel")),
     ("GEMM", re.compile(r"gemm|cutlass|xmma|sm90_|nvjet", re.IGNORECASE)),  # cuBLAS
 )
 

@@ -6,18 +6,23 @@
 Runs on the card unless given ``--device cpu``; ``--smoke`` takes the
 reduced config, whose head dim 16 the attention kernels do not take, so
 smoke runs are CPU only, but for falcon-mamba-7b's (no attention).  On the
-card the dense, MoE and ssm families train (the grouped matmul and the Mamba
-scan have their backward kernels; the RG-LRU scan does not yet).
-qwen3-moe-30b-a3b's training state at full depth (about 490 GB) does not
-fit one card, nor does falcon-mamba-7b's (about 116 GB), so they train there
-at full width and a cut depth from Python, as ``chip_smoke.py`` phases 5c
-and 5d do::
+card the dense, MoE, ssm and hybrid families train (the grouped matmul, the
+Mamba scan, the RG-LRU scan and attention at head dims 64, 128 and 256 have
+their backward kernels).  qwen3-moe-30b-a3b's training state at full depth
+(about 490 GB) does not fit one card, nor do falcon-mamba-7b's (about
+116 GB) and recurrentgemma-9b's (about 167 GB), so they train there at full
+width and a cut depth from Python, as ``chip_smoke.py`` phases 5c, 5d and
+5e do (recurrentgemma-9b at 5 layers: one (rec, rec, attn) block and the
+(rec, rec) tail, its 4096-token sequence past its 2048-token window)::
 
     cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b"), n_layers=4)
     train(cfg, ShapeSpec("train", 4096, 4, "train"), adamw(wsd(3e-4, 100)),
           total_steps=100, remat="full", loss_chunk=1024)
     cfg = dataclasses.replace(get_config("falcon-mamba-7b"), n_layers=16)
     train(cfg, ShapeSpec("train", 4096, 4, "train"), adamw(cosine(3e-4, 100)),
+          total_steps=100, remat="full")
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"), n_layers=5)
+    train(cfg, ShapeSpec("train", 4096, 1, "train"), adamw(cosine(3e-4, 100)),
           total_steps=100, remat="full")
 
 This command line takes no depth flag, as the reference's has none.  The

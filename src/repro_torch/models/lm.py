@@ -124,9 +124,9 @@ def _hidden_xent_chunked(x, head, targets, mask, chunk: int):
 def loss_fn(params, batch, cfg: ArchConfig, remat: str = "full", loss_chunk: int = 0,
             aux_weight: float = 0.01):
     """Scalar training loss (+ metrics dict), grad-enabled; ``batch`` holds
-    tensors on the model's device.  On the card, a family whose kernel has
-    no backward yet (the hybrid's RG-LRU scan) raises ``NotImplementedError``
-    (``kernels/ops.py``)."""
+    tensors on the model's device.  On the card every family's kernels
+    have their backward kernels (``kernels/ops.py``); attention's takes head
+    dims 64, 128 and 256, so hubert-xlarge (80) does not train there yet."""
     transformer.require_ported(cfg)
     x, aux = _hidden(params, batch, cfg, remat)
     head = params.head()

@@ -12,9 +12,10 @@ in place (the reference returns new ones).
 Training runs :func:`mamba_hidden` / :func:`griffin_hidden` (grad-enabled,
 stopping before the head); any ``remat`` but ``"none"`` recomputes each
 layer in the backward, as the reference checkpoints each block for any
-policy but ``"none"``.  On the card the Mamba scan trains through its
-backward kernel (``kernels.mamba_scan.SelectiveScanFn``); the RG-LRU scan has
-none yet, so its wrapper raises under grad (``kernels/ops.py``).
+policy but ``"none"``.  On the card both scans train through their
+backward kernels (``kernels.mamba_scan.SelectiveScanFn``,
+``kernels.rglru_scan.LruScanFn``), and Griffin's local attention through
+the attention backward at head dim 256 with its window.
 """
 
 from __future__ import annotations

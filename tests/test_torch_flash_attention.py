@@ -261,6 +261,8 @@ BWD_SHAPES = [  # (B, H, KV, Sq, Sk, D, causal, window)
     (1, 4, 2, 30, 90, 64, False, 0),    # Sq < Sk
     (1, 4, 2, 90, 30, 64, True, 0),     # causal, Sq > Sk
     (1, 2, 2, 50, 50, 32, False, 8),    # window, not causal
+    (1, 4, 1, 40, 40, 256, True, 0),    # recurrentgemma-9b's head dim, MQA
+    (1, 4, 1, 70, 70, 256, True, 24),   # and its sliding window, S past it
 ]
 BWD_TOL = dict(rtol=1e-5, atol=1e-5)  # fp32: the same math, sums in another order
 
@@ -327,7 +329,7 @@ def test_plain_bwd_keeps_the_input_dtype():
         (256, 200, False, 16, 128, "see no key"),
         (64, 8, True, 1, 64, "see no key"),
         (128, 128, True, 0, 80, "head dim 80"),   # hubert-xlarge: the audio slice
-        (128, 128, True, 128, 256, "head dim 256"),  # recurrentgemma-9b: the hybrid slice
+        (256, 200, True, 16, 256, "see no key"),  # recurrentgemma-9b's head dim, rows 215..
     ],
 )
 def test_backward_refuses_what_it_does_not_take(Sq, Sk, causal, window, D, match):
@@ -338,7 +340,8 @@ def test_backward_refuses_what_it_does_not_take(Sq, Sk, causal, window, D, match
 
 
 @pytest.mark.parametrize("S,D,causal,window", [(4096, 64, True, 0), (2048, 128, True, 0),
-                                               (1000, 64, False, 0), (2048, 128, True, 2048)])
+                                               (1000, 64, False, 0), (2048, 128, True, 2048),
+                                               (4096, 256, True, 2048)])
 def test_backward_takes_the_training_shapes(S, D, causal, window):
     check_bwd(torch.zeros(1, 1, S, D), torch.zeros(1, 1, S, D), causal, window)
 
@@ -400,7 +403,8 @@ def test_ops_attention_on_cpu_in_half_counts_no_backward_tiling(monkeypatch, dty
         (torch.float32, 64, "fma"),      # the narrow fp32 models: exact fp32 products
         (torch.float32, 128, "fma"),
         (torch.bfloat16, 80, ValueError),   # hubert-xlarge: the audio slice
-        (torch.bfloat16, 256, ValueError),  # recurrentgemma-9b: the hybrid slice
+        (torch.bfloat16, 256, "wgmma"),     # recurrentgemma-9b's training attention
+        (torch.float32, 256, "fma"),        # its narrow fp32 models
         (torch.float32, 16, ValueError),    # the smoke configs' head dim: CPU only
         (torch.int32, 64, ValueError),
     ],
@@ -515,6 +519,16 @@ def test_wgmma_bwd_emulation_in_fp32_is_the_plain_backward():
          "selective scan backward"),
         ("void (anonymous namespace)::mamba_scan_kernel<__nv_bfloat16, 1, true>(CUtensorMap_st)",
          "selective scan forward"),
+        ("void (anonymous namespace)::dkdv_sum_kernel<__nv_bfloat16>(float const*, "
+         "__nv_bfloat16*, __nv_bfloat16*, int, unsigned long, float)", "attention backward"),
+        ("void (anonymous namespace)::lru_bwd_chunk_kernel<float>(float const*)",
+         "RG-LRU backward"),
+        ("void (anonymous namespace)::lru_bwd_carry_kernel(float*, float const*, int, int)",
+         "RG-LRU backward"),
+        ("void (anonymous namespace)::lru_bwd_fixup_kernel<__nv_bfloat16>(__nv_bfloat16 const*)",
+         "RG-LRU backward"),
+        ("void (anonymous namespace)::rglru_scan_kernel<float>(float const*, float const*, "
+         "float*, float*, int, int)", "RG-LRU forward"),
     ],
 )
 def test_trace_train_groups_both_backward_tilings(kernel, group):

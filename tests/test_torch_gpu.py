@@ -1,8 +1,8 @@
 """The CUDA kernels (flash attention and its backward, grouped matmul and its
-backward, Mamba selective scan and its backward, RG-LRU scan, embedding bag
-and its backward) against their plain versions, the narrow models (and a
-narrow DLRM) on the card against the CPU, narrow train steps (dense, MoE,
-Mamba and DLRM) on the card
+backward, Mamba selective scan and its backward, RG-LRU scan and its
+backward, embedding bag and its backward) against their plain versions, the
+narrow models (and a narrow DLRM) on the card against the CPU, narrow train
+steps (dense, MoE, Mamba, hybrid and DLRM) on the card
 against the same on the CPU, the planner's
 device path (pricing and chains) against its NumPy oracles, and the online
 controller's fused admission on the card against the same on the CPU.
@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import get_config
 from repro_torch.kernels import embedding_bag as bag_mod
+from repro_torch.kernels import flash_attention as attn_mod
 from repro_torch.kernels import ops
 from repro_torch.kernels.embedding_bag import (
     BWD_TILINGS, N_SMALL, bag_bwd_tiling, bag_fwd_split, embedding_bag, embedding_bag_bwd,
@@ -34,9 +35,9 @@ from repro_torch.kernels.moe_gmm import gmm_bwd_tiling, moe_gmm, moe_gmm_bwd
 from repro_torch.kernels.ref import (
     ref_embedding_bag, ref_embedding_bag_bwd, ref_embedding_bag_in_order, ref_flash_attention,
     ref_flash_attention_lse, ref_mamba_scan, ref_mamba_scan_bwd, ref_moe_gmm, ref_moe_gmm_bwd,
-    ref_rglru_scan,
+    ref_rglru_scan, ref_rglru_scan_bwd,
 )
-from repro_torch.kernels.rglru_scan import rglru_scan
+from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_bwd
 from repro_torch import optim
 from repro_torch.core import planeval_torch as pt
 from repro_torch.core import workloads as wl
@@ -828,6 +829,94 @@ def test_ops_count_scan_launches_and_reject_bad_inputs(cuda, monkeypatch):
     assert ops.selective_scan_launches == 1 and ops.lru_scan_launches == 1
 
 
+def _lru_bwd_inputs(device, B, L, D, dtype, seed=0):
+    """a in the forward's range (0.1..0.99), b, the forward's h_all, and the
+    cotangents of h_all and h_final (fp32)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    a = (torch.rand(B, L, D, generator=gen, device=device) * 0.89 + 0.1).to(dtype)
+    b = torch.randn(B, L, D, generator=gen, device=device).to(dtype)
+    h_all = rglru_scan(a, b)[0]
+    dh = torch.randn(B, L, D, generator=gen, device=device)
+    dhf = torch.randn(B, D, generator=gen, device=device)
+    return a, h_all, dh, dhf
+
+
+@pytest.mark.parametrize(
+    "B,L,D", [(1, 4096, 4096), (4, 2048, 4096), (3, 1000, 200), (2, 17, 130), (1, 1, 5),
+              (2, 64, 33), (1, 33, 7)],
+)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("with_dh", [False, True])
+def test_rglru_bwd_kernel_matches_plain(cuda, B, L, D, dtype, with_dh):
+    """da and db against the plain reverse walk: within 1e-4 of each one's
+    max|.| (the chunks' carries are products in another order), plus one
+    rounding of the dtype where a is 16-bit (the gradients come back in a's
+    dtype).  Recurrentgemma-9b's training shape (B = 1, L = D = 4096), L
+    off the 32-step chunks and D off the 128-channel blocks among them."""
+    a, h_all, dh, dhf = _lru_bwd_inputs(cuda, B, L, D, dtype)
+    dhf = dhf if with_dh else None
+    got = rglru_scan_bwd(a, h_all, dh, dhf)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("da", "db"), got, ref_rglru_scan_bwd(a, h_all, dh, dhf)):
+        assert g.dtype == w.dtype == dtype and g.shape == (B, L, D), name
+        g, w = g.float(), w.float()
+        bar = 1e-4 * float(w.abs().max())
+        if dtype != torch.float32:
+            bar = bar + torch.finfo(dtype).eps * w.abs()
+        assert bool(((g - w).abs() <= bar).all()), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_bwd_kernel_is_deterministic(cuda, dtype):
+    """No float atomics: two launches give the same bits."""
+    a, h_all, dh, dhf = _lru_bwd_inputs(cuda, 2, 1000, 520, dtype, seed=1)
+    first = rglru_scan_bwd(a, h_all, dh, dhf)
+    second = rglru_scan_bwd(a, h_all, dh, dhf)
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+def test_rglru_bwd_wrapper_refuses_what_it_does_not_take(cuda):
+    a, h_all, dh, dhf = _lru_bwd_inputs(cuda, 1, 8, 16, torch.float32)
+    with pytest.raises(ValueError, match="h_all"):
+        rglru_scan_bwd(a, h_all.half(), dh)
+    with pytest.raises(ValueError, match="dh_all"):
+        rglru_scan_bwd(a, h_all, dh[:, :4])
+    with pytest.raises(ValueError, match="dh_all"):
+        rglru_scan_bwd(a, h_all, dh.double())
+    with pytest.raises(ValueError, match="dh_final"):
+        rglru_scan_bwd(a, h_all, dh, dhf[:, :8])
+    with pytest.raises(ValueError, match="CUDA"):
+        rglru_scan_bwd(a, h_all, dh, dhf.cpu())
+    with pytest.raises(ValueError, match="one of"):
+        rglru_scan_bwd(a.double(), h_all, dh)
+    with pytest.raises(ValueError, match="B,L,D"):
+        rglru_scan_bwd(a[0], h_all, dh)
+
+
+def test_lru_scan_under_grad_counts_one_backward(cuda, monkeypatch):
+    """Under grad, ``ops.lru_scan`` goes through LruScanFn: one forward launch
+    (the serving kernel's bits), one backward launch when autograd asks (da
+    and db in it), the kernel's gradients; under no_grad, or with inputs
+    that need no grad, no graph.  (This replaces the refusal under grad the
+    scan had before its backward kernel.)"""
+    for name in ("lru_scan_launches", "lru_scan_bwd_launches"):
+        monkeypatch.setattr(ops, name, 0)
+    a, h_all, dh, dhf = _lru_bwd_inputs(cuda, 2, 300, 256, torch.float32, seed=2)
+    b = torch.randn_like(a)
+    assert ops.lru_scan(a, b)[0].grad_fn is None  # no input needs grad: serving
+    leaves = [a.clone().requires_grad_(True), b.clone().requires_grad_(True)]
+    h, f = ops.lru_scan(*leaves)
+    assert type(h.grad_fn).__name__ == "LruScanFnBackward"
+    assert torch.equal(h, rglru_scan(a, b)[0]) and torch.equal(f, rglru_scan(a, b)[1])
+    got = torch.autograd.grad((h, f), leaves, (dh, dhf))
+    assert (ops.lru_scan_launches, ops.lru_scan_bwd_launches) == (2, 1)
+    want = rglru_scan_bwd(a, h.detach(), dh, dhf)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with torch.no_grad():
+        assert ops.lru_scan(*leaves)[0].grad_fn is None
+    assert (ops.lru_scan_launches, ops.lru_scan_bwd_launches) == (3, 1)
+
+
 def _narrow_recurrent_config(arch):
     """The smoke configs widened, in fp32; Griffin's attention at head dim 64
     with a 32-token window, which the 77-token prompts pass."""
@@ -1578,7 +1667,7 @@ BWD_COUNTERS = ("attention_launches", "attention_wgmma_launches", "attention_fma
 
 
 @pytest.mark.parametrize("B,H,KV,Sq,Sk,causal,window", BWD_CASES)
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("tiling,dtype", BWD_TILINGS)
 def test_bwd_kernel_matches_autograd_of_plain(cuda, tiling, dtype, D, B, H, KV, Sq, Sk, causal,
                                               window):
@@ -1600,10 +1689,11 @@ def test_bwd_kernel_matches_autograd_of_plain(cuda, tiling, dtype, D, B, H, KV, 
 
 
 @pytest.mark.parametrize("tiling", ["wgmma", "fma"])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_bwd_kernel_is_deterministic(cuda, tiling, D):
     """No atomics: every sum runs in a fixed order, so repeated launches give
-    the same bits (GQA 4:1, so dk and dv sum over 4 heads)."""
+    the same bits (GQA 4:1, so dk and dv sum over 4 heads; at D = 256 on
+    wgmma in partials over the heads)."""
     q, k, v = _qkv(cuda, 2, 8, 2, 300, 300, D, torch.bfloat16, seed=6)
     do = torch.randn_like(q)
     lse = torch.empty(2, 8, 300, device=cuda)
@@ -1614,12 +1704,36 @@ def test_bwd_kernel_is_deterministic(cuda, tiling, D):
         assert all(torch.equal(a, b) for a, b in zip(again, first))
 
 
-@pytest.mark.parametrize("D", [80, 256])
+@pytest.mark.parametrize("D", [80, 96])
 def test_bwd_kernel_refuses_head_dims_it_does_not_take(cuda, D):
     q, k, v = _qkv(cuda, 1, 2, 2, 64, 64, D, torch.bfloat16)
     lse = torch.zeros(1, 2, 64, device=cuda)
     with pytest.raises(ValueError, match=f"head dim {D}"):
         flash_attention_bwd(q, k, v, q, lse, q)
+
+
+@pytest.mark.parametrize("sms", [1, 8, 64, 132, 1 << 20])
+@pytest.mark.parametrize("B,H,KV,S,window", [(1, 16, 1, 1000, 256), (2, 8, 2, 300, 0),
+                                             (1, 16, 1, 129, 64)])
+def test_bwd_d256_head_splits_match_plain(cuda, monkeypatch, sms, B, H, KV, S, window):
+    """At D = 256 the wgmma dk/dv launch cuts a kv head's query heads into as
+    many fp32 partials as fill the card's SMs (recurrentgemma-9b: GQA 16:1).
+    Launches sized for other SM counts (the wrapper's ``sm_count``
+    monkeypatched; 1 and 1 << 20: no split, one head a split) hold dq, dk,
+    dv to autograd of the plain version at the bf16 bar, and each gives the
+    same bits twice."""
+    monkeypatch.setattr(attn_mod, "sm_count", lambda index: sms)
+    q, k, v = _qkv(cuda, B, H, KV, S, S, 256, torch.bfloat16, seed=9)
+    do = torch.randn_like(q)
+    lse = torch.empty(B, H, S, device=cuda)
+    o = flash_attention(q, k, v, causal=True, window=window, lse=lse)
+    got = flash_attention_bwd(q, k, v, o, lse, do, True, window, tiling="wgmma")
+    again = flash_attention_bwd(q, k, v, o, lse, do, True, window, tiling="wgmma")
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    for g, want in zip(got, _plain_grads(q, k, v, do, True, window)):
+        err = float((g.float() - want).abs().max())
+        assert err <= TOL[torch.bfloat16] * float(want.abs().max()), err
 
 
 def test_bwd_wgmma_tiling_refuses_fp32(cuda):
@@ -1682,30 +1796,6 @@ def test_bwd_wrapper_refuses_what_it_does_not_take(cuda):
                             q[:, :, :200])
 
 
-def test_kernels_without_a_backward_raise_under_grad(cuda):
-    """rglru_scan has no backward kernel yet: on a CUDA input that requires
-    grad it raises, naming the ROADMAP item, rather than hand autograd a
-    constant; under no_grad, or with inputs that need no grad, it launches as
-    in serving.  (The embedding bag, the grouped matmul and the Mamba scan
-    have their backward: test_bag_lookup_under_grad_launches_both_kernels,
-    test_grouped_matmul_under_grad_counts_one_backward_a_product and
-    test_selective_scan_under_grad_counts_one_backward.)"""
-    gen = torch.Generator(device=cuda).manual_seed(8)
-    a = torch.rand(2, 10, 64, generator=gen, device=cuda)
-    b = torch.randn(2, 10, 64, generator=gen, device=cuda)
-    calls = {
-        "rglru_scan.*B2": (ops.lru_scan, (a, b), 1),
-    }
-    for match, (fn, args, i) in calls.items():
-        fn(*args)  # no input needs grad: the kernel launches
-        args = list(args)
-        args[i] = args[i].detach().clone().requires_grad_(True)
-        with pytest.raises(NotImplementedError, match=match):
-            fn(*args)
-        with torch.no_grad():
-            fn(*args)
-
-
 @pytest.mark.parametrize("remat", ["full", "dots", "none"])
 def test_train_step_on_card_matches_cpu(cuda, remat, monkeypatch):
     """One narrow fp32 train step (head dim 64, 2 layers, GQA): loss, grad
@@ -1728,6 +1818,39 @@ def test_train_step_on_card_matches_cpu(cuda, remat, monkeypatch):
     _, _, mg = step(m_gpu, opt.init(dict(m_gpu.named_parameters())), {"tokens": toks.to(cuda)}, 0)
     forward = cfg.n_layers * (1 if remat == "none" else 2)  # remat recomputes the forward
     assert (ops.attention_launches, ops.attention_bwd_launches) == (forward, cfg.n_layers)
+    for key in ("loss", "xent", "grad_norm"):
+        torch.testing.assert_close(mg[key].cpu(), mc[key], rtol=1e-4, atol=1e-6)
+    for (name, pg), pc in zip(m_gpu.named_parameters(), m_cpu.parameters()):
+        bar = 1e-4 * float(pc.abs().max())
+        assert float((pg.detach().cpu() - pc.detach()).abs().max()) <= bar, name
+
+
+def test_hybrid_train_step_on_card_matches_cpu(cuda, monkeypatch):
+    """One narrow fp32 recurrentgemma step (head dim 256, 5 layers: a (rec,
+    rec, attn) block and the (rec, rec) tail, a 32-token window that the
+    77-token sequences pass): loss, grad norm and every updated parameter
+    within 1e-4 of the same step on the CPU, with 8 forward and 4 backward
+    RG-LRU launches and 2 forward and 1 backward attention launches on the
+    fma tiling (remat "full" runs each forward twice).  SGD, as above."""
+    counters = ("lru_scan_launches", "lru_scan_bwd_launches", "attention_launches",
+                "attention_bwd_launches", "attention_bwd_fma_launches")
+    for name in counters:
+        monkeypatch.setattr(ops, name, 0)
+    cfg = dataclasses.replace(
+        get_config("recurrentgemma-9b").smoke(), d_model=256, n_heads=2, n_kv_heads=1,
+        head_dim=256, d_ff=512, lru_width=256, attn_window=32, n_layers=5,
+        param_dtype="float32", activation_dtype="float32")
+    m_cpu = lm.init(0, cfg, device="cpu")
+    m_gpu = lm.init(0, cfg, device=cuda)
+    m_gpu.load_state_dict(m_cpu.state_dict())
+    toks = torch.randint(0, cfg.vocab, (2, 77), generator=torch.Generator().manual_seed(4))
+    opt = optim.sgd_momentum(optim.constant(0.1))
+    step = make_train_step(cfg, opt)
+    _, _, mc = step(m_cpu, opt.init(dict(m_cpu.named_parameters())), {"tokens": toks}, 0)
+    _, _, mg = step(m_gpu, opt.init(dict(m_gpu.named_parameters())), {"tokens": toks.to(cuda)}, 0)
+    assert {n: getattr(ops, n) for n in counters} == dict(
+        lru_scan_launches=8, lru_scan_bwd_launches=4, attention_launches=2,
+        attention_bwd_launches=1, attention_bwd_fma_launches=1)
     for key in ("loss", "xent", "grad_norm"):
         torch.testing.assert_close(mg[key].cpu(), mc[key], rtol=1e-4, atol=1e-6)
     for (name, pg), pc in zip(m_gpu.named_parameters(), m_cpu.parameters()):

@@ -35,7 +35,8 @@ SLICE_MODULES = (
     "repro_torch.optim.adamw", "repro_torch.optim.schedule", "repro_torch.data.pipeline",
     "repro_torch.checkpoint.ckpt", "repro_torch.train.steps", "repro_torch.train.loop",
     "repro_torch.launch.train", "repro_torch.launch.trace_train",
-    "repro_torch.launch.dlrm_testbed",
+    "repro_torch.launch.dlrm_testbed", "repro_torch.launch.quickstart",
+    "repro_torch.launch.serve_decode",
 ) + tuple(f"repro_torch.core.{m}" for m in (
     "totient", "select_perms", "routing", "demand", "topology_finder", "netsim", "planeval",
     "costmodel", "schedules", "workloads", "strategy_search", "planeval_torch",

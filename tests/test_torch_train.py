@@ -105,8 +105,9 @@ def test_loss_and_every_gradient_match_reference(arch, remat, loss_chunk):
                                   "llama-3.2-vision-11b", "hubert-xlarge"])
 def test_loss_and_gradients_of_the_other_families_match_reference(arch):
     """Every family trains on the CPU (falcon-mamba-7b's scan through
-    SelectiveScanFn on the plain backward); on the card the families whose
-    kernels have no backward yet raise (test_torch_gpu.py)."""
+    SelectiveScanFn, recurrentgemma-9b's through LruScanFn, each on its
+    plain backward); on the card, hubert-xlarge's head dim 80 is the one
+    the attention backward does not take yet (test_torch_gpu.py)."""
     (jtotal, jmetrics), (total, metrics), grads, expect = _loss_and_grads(arch, "full", 8)
     np.testing.assert_allclose(float(total), jtotal, rtol=1e-5)
     assert sorted(metrics) == sorted(jmetrics)
@@ -162,7 +163,8 @@ def test_sgd_momentum_steps_match_reference(arch):
         assert float((p.detach() - expect[name]).abs().max()) <= bar, name
 
 
-@pytest.mark.parametrize("arch", ["granite-8b", "minicpm-2b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", ["granite-8b", "minicpm-2b", "falcon-mamba-7b",
+                                  "recurrentgemma-9b"])
 def test_adamw_wsd_steps_match_reference(arch):
     """AdamW's step is about lr * sign(g) per entry, so it amplifies the
     gradients' rounding differences where |g| is small: the parameters are
