@@ -1016,12 +1016,14 @@ def check_attention_bwd(case, gen, dev, smi) -> dict:
 # The RG-LRU backward's cases (name, B, L, D, dtype, with dh_final):
 # recurrentgemma-9b's training shape (fp32 a and b, as the layer passes
 # them; the main path's first), with a gradient for h_final, with bf16 a;
-# and ragged (L off the 32-step chunks, D off the 128-channel blocks).
+# and ragged (L off the 128-step rounds, D off the 32-channel tiles; D = 33
+# rows TMA cannot stride).
 LRU_BWD_CASES = (
     ("training", HYB_TRAIN_B, TRAIN_S, D_RG, torch.float32, False),
     ("training_dh", HYB_TRAIN_B, TRAIN_S, D_RG, torch.float32, True),
     ("training_bf16", HYB_TRAIN_B, TRAIN_S, D_RG, torch.bfloat16, False),
     ("ragged", 3, 1000, 200, torch.float32, True),
+    ("ragged_plain_loads", 2, 1000, 33, torch.float32, True),
 )
 
 
@@ -1031,11 +1033,12 @@ def check_lru_bwd(rglru_scan, rglru_scan_bwd, ref_rglru_scan_bwd, gen, dev, smi)
     the bit; da and db within 1e-4 of each one's max|.| (the chunks' carries
     are products in another order than the plain walk's), plus one rounding
     (eps times the value) where a is bf16 and the gradients come back in
-    it; the time per call (three launches) beside the bound and the plain
-    version's.  At the training shape also the forward at B = 1 and a
-    layer's scans as a remat step runs them (two forwards, then the
-    backward: ``pair_ms``).  No PyTorch call computes the function, so there
-    is no library time.  Returns each case's numbers, by name."""
+    it; the time per call (one launch, and the casts to a's dtype where it
+    is 16-bit) beside the bound and the plain version's.  At the training
+    shape also the forward at B = 1 and a layer's scans as a remat step runs
+    them (two forwards, then the backward: ``pair_ms``).  No PyTorch call
+    computes the function, so there is no library time.  Returns each case's
+    numbers, by name."""
     out = {}
     for name, Bl, L, Dl, dtype, with_dh in LRU_BWD_CASES:
         a = (torch.rand(Bl, L, Dl, generator=gen, device=dev) * 0.89 + 0.1).to(dtype)
@@ -1682,7 +1685,7 @@ def train_hybrid(lm, ops, optim, make_train_step, data, group_of, cfg, dev, smi)
     trace = trace_train_step(lm, run, cfg, group_of, "5e", smi, rules=(),
                              groups=("RG-LRU forward", "RG-LRU backward", "attention forward",
                                      "attention backward", "cuBLAS GEMMs"),
-                             want=(("rglru_scan_kernel",), ("lru_bwd_",),
+                             want=(("lru_fwd_kernel",), ("lru_bwd_kernel",),
                                    ("flash_attention_wgmma_kernel",), ("dkdv_wgmma_kernel",)),
                              head=loss_head_ops(cfg, HYB_TRAIN_B))
     trained = release(run)
@@ -1870,7 +1873,8 @@ def main() -> int:
                         and not info["serialised"], f"{fn} spills or serialises: {info}")
             if ("skinny_kernel" in fn or "mamba_scan_kernel" in fn  # the streams and the scan
                     or name in ("flash_attention_bwd", "moe_gmm_bwd", "mamba_scan_bwd",
-                                "rglru_scan_bwd", "embedding_bag", "embedding_bag_bwd")):
+                                "rglru_scan", "rglru_scan_bwd", "embedding_bag",
+                                "embedding_bag_bwd")):
                 require(info["spill_stores"] == info["spill_loads"] == 0 and not info["serialised"],
                         f"{fn} spills: {info}")
     bwd_report = ptxas_report(_build.build_logs.get("flash_attention_bwd", ""))
@@ -1883,14 +1887,13 @@ def main() -> int:
                         f"ptxas reports no {base} at D = {d}")
         got = sum(fn.startswith("dkdv_sum_kernel") for fn in bwd_report)
         require(got == 2, f"ptxas reports 2 dkdv_sum_kernels, not {got}")
-    lru_bwd_report = ptxas_report(_build.build_logs.get("rglru_scan_bwd", ""))
-    if lru_bwd_report:  # built in this run, every kernel checked for spills above: the chunk
-        # and fix-up passes for each dtype of a, and the carry pass
-        for base, want in (("lru_bwd_chunk_kernel", 3), ("lru_bwd_fixup_kernel", 3),
-                           ("lru_bwd_carry_kernel", 1)):
-            got = sum(base in fn for fn in lru_bwd_report)
-            require(got == want, f"ptxas reports {want} {base}s, not {got}: "
-                                 f"{sorted(lru_bwd_report)}")
+    for name, base in (("rglru_scan", "lru_fwd_kernel"), ("rglru_scan_bwd", "lru_bwd_kernel")):
+        lru_report = ptxas_report(_build.build_logs.get(name, ""))
+        if lru_report:  # built in this run, every kernel checked for spills above: one kernel
+            # a dtype of a (TMA or plain staging is an argument), and nothing else
+            got = sum(base in fn for fn in lru_report)
+            require(got == 3 == len(lru_report), f"ptxas reports 3 {base}s and nothing else, not "
+                                                 f"{sorted(lru_report)}")
     gmm_bwd_report = ptxas_report(_build.build_logs.get("moe_gmm_bwd", ""))
     if gmm_bwd_report:  # built in this run, every kernel checked above: dx and dw on wgmma in
         # bf16 and fp16 (the persistent kernel, launched alone or in pairs), and on fma in each
@@ -2148,24 +2151,32 @@ def main() -> int:
     mamba_bwd = check_mamba_bwd(mamba_scan, mamba_scan_bwd, ref_mamba_scan,
                                 ref_mamba_scan_bwd, gen, dev, smi)
 
-    # The RG-LRU scan at recurrentgemma-9b's prefill (fp32, as the layer
-    # passes it) and at a ragged shape, in fp32 and with bf16 inputs.
-    lru_cases = [  # (B, L, D, dtype)
-        (B, PROMPT_RG, D_RG, torch.float32),
-        (B, PROMPT_RG, D_RG, torch.bfloat16),
-        (3, 1000, 200, torch.float32),
-        (3, 1000, 200, torch.bfloat16),
-    ]
-    lru_main = {}
-    for Bm, L, Dl, dtype in lru_cases:
+    # The RG-LRU scan at recurrentgemma-9b's prefill and its training shape
+    # (fp32, as the layer passes it), at the prefill with bf16 inputs, and
+    # ragged: L off the rounds and D off the channel tiles, TMA staging at D =
+    # 200 and plain loads at D = 33 (rows TMA cannot stride).
+    lru_cases = {  # name: (B, L, D, dtype)
+        "prefill": (B, PROMPT_RG, D_RG, torch.float32),
+        "training": (HYB_TRAIN_B, TRAIN_S, D_RG, torch.float32),
+        "prefill_bf16": (B, PROMPT_RG, D_RG, torch.bfloat16),
+        "ragged": (3, 1000, 200, torch.float32),
+        "ragged_bf16": (3, 1000, 200, torch.bfloat16),
+        "ragged_plain_loads": (2, 1000, 33, torch.float32),
+    }
+    lru_fwd = {}
+    for name, (Bm, L, Dl, dtype) in lru_cases.items():
         a = (torch.rand(Bm, L, Dl, generator=gen, device=dev) * 0.89 + 0.1).to(dtype)
         bb = torch.randn(Bm, L, Dl, generator=gen, device=dev).to(dtype)
         h_all, h_fin = rglru_scan(a, bb)
         torch.cuda.synchronize()
+        again = rglru_scan(a, bb)
+        label = f"{name} B={Bm} L={L} D={Dl} {str(dtype)[6:]}"
+        require(torch.equal(h_all, again[0]) and torch.equal(h_fin, again[1]),
+                f"two RG-LRU forward launches equal to the bit, {label}")
+        del again
         e_all, e_fin = ref_rglru_scan(a, bb)
         err = max(float((h_all - e_all).abs().max()), float((h_fin - e_fin).abs().max()))
         tol = 1e-5  # fp32 arithmetic from the same inputs in both
-        label = f"B={Bm} L={L} D={Dl} {str(dtype)[6:]}"
         require(bool(torch.isfinite(h_all).all()), f"finite kernel output, {label}")
         require(torch.allclose(h_all, e_all, rtol=tol, atol=tol)
                 and torch.allclose(h_fin, e_fin, rtol=tol, atol=tol),
@@ -2173,12 +2184,11 @@ def main() -> int:
         kernel_ms = time_ms(lambda: rglru_scan(a, bb), 20)
         plain_ms = time_ms(lambda: ref_rglru_scan(a, bb), 3, warmup=1)
         bound_ms, bound_by = lru_bound(a, bb)
-        print(f"phase 3 kernel: rglru_scan {label}: max|err| {err} (tol {tol}) kernel_ms "
-              f"{kernel_ms} plain_ms {plain_ms} library_ms None bound_ms {bound_ms} "
-              f"({bound_by}) on {smi}")
-        if (Bm, L, Dl, dtype) == lru_cases[0]:
-            lru_main = dict(max_abs_err=err, kernel_ms=kernel_ms, plain_ms=plain_ms,
-                            library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+        print(f"phase 3 kernel: rglru_scan {label}: max|err| {err} (tol {tol}), two launches "
+              f"bitwise equal; kernel_ms {kernel_ms} plain_ms {plain_ms} library_ms None "
+              f"bound_ms {bound_ms} ({bound_by}) share of bound {bound_ms / kernel_ms} on {smi}")
+        lru_fwd[name] = dict(max_abs_err=err, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                             library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
         del a, bb, h_all, h_fin, e_all, e_fin
     torch.cuda.empty_cache()
     # The RG-LRU scan's backward at recurrentgemma-9b's training shape and the
@@ -2747,7 +2757,8 @@ def main() -> int:
     }, {
         "name": "rglru_scan",
         "route": "cuda",
-        "tiling": "sequential",
+        "tiling": "redesigned: a block a 32-channel tile walking time in 128-step rounds "
+                  "staged by TMA, 16-step chunks a warp, the carries composed in order",
         "source": "src/repro_torch/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan.py:42",
         "tpu_ref": "kernels/rglru_scan.py:42",
@@ -2755,14 +2766,15 @@ def main() -> int:
         "launches_by_path": {"recurrentgemma-9b": griffin["lru_scan_launches"],
                              hyb_path: hyb_counts["lru_scan_launches"]},
         "launches_per_train_step": hyb_trained["launches_per_step"]["lru_scan_launches"],
-        "ms": lru_main["kernel_ms"],
-        **lru_main,
-        "training_ms": lru_bwd["training"]["fwd_ms"],
-        "training_bound_ms": lru_bwd["training"]["fwd_bound_ms"],
+        "ms": lru_fwd["prefill"]["kernel_ms"],
+        **lru_fwd["prefill"],
+        **{f"{name}_{k}": v for name, numbers in lru_fwd.items() if name != "prefill"
+           for k, v in numbers.items()},
     }, {
         "name": "rglru_scan_bwd",
         "route": "cuda",
-        "tiling": "32-step chunks: a walk back each, the carries in order, a fix-up walk",
+        "tiling": "redesigned: one launch, the forward's rounds mirrored in reverse time "
+                  "(a, dh and h staged by TMA), the carries composed in order",
         "source": "src/repro_torch/csrc/rglru_scan_bwd.cu",
         # The TPU side has no backward kernel (jax.grad of the XLA scan).
         "replaces": "none: jax.grad of chunked_linear_scan at src/repro/models/layers.py:364",

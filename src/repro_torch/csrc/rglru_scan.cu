@@ -7,31 +7,65 @@
 // h_all (B, L, D) and h_final (B, D) in fp32.
 //
 // Design.  The TPU kernel walks time chunks as a sequential grid axis and
-// carries h in VMEM.  Here one thread owns one (batch, channel) lane and
-// loops over time with h in a register: at recurrentgemma-9b's prefill
-// (B = 4, L = 2048, D = 4096) that is 16,384 threads, each with 2048
-// dependent FMAs.  Neighbouring threads own neighbouring channels, so every
-// load and store of a time step is coalesced along D.  Loads do not wait on
-// h: the thread reads the next U = 16 steps of a and b into registers while
-// it runs the current 16, so each thread keeps 32 loads in flight behind its
-// dependency chain.  Steps past L and channels past D are masked.
+// carries h in VMEM.  Here a block owns a tile of CPB = 32 channels of one
+// batch row (a step's row of the tile is 128 bytes in fp32) and walks all of
+// time itself, in rounds of ROUND = WARPS x CH steps: at recurrentgemma-9b's
+// training shape (B = 1, D = 4096) that is 128 blocks for 132 SMs, at its
+// prefill (B = 4) 512.  A block is warp-specialised:
+// * One producer warp stages each round's a and b (one TMA box each, the
+//   tile's 32 channels x ROUND steps) in a ring of STAGES stages completing
+//   on mbarriers, as soon as the consumers free a stage: loads run up to
+//   STAGES - 1 rounds ahead of the walk.  Zeros past L and D come from TMA's
+//   out-of-bounds fill.  Where TMA cannot stride a row (D x the element size
+//   not a multiple of 16 bytes, or a base off 16 bytes) the producer's lanes
+//   load the same layout with plain loads.
+// * WARPS consumer warps each take a chunk of CH consecutive steps of the
+//   round, one lane a channel, and keep its a and b in registers (the stage
+//   is freed as soon as they are read):
+//   (a) each walks its chunk from a zero carry: its end value u and the
+//       product A of its decays (h_end = A h_in + u);
+//   (b) the carries across the round's chunks are composed in one fixed
+//       order, x_w = fmaf(A_w, x_{w-1}, u_w) from the carry of the round
+//       before: every warp reads the round's (A, u) from shared memory
+//       (written before one named barrier) and runs the same fold, so each
+//       has its own carry-in and the round's end with the bits one warp
+//       would give, and no second barrier is needed;
+//   (c) each walks its chunk again from its carry-in and stores h_all, one
+//       128-byte row a step, and h_final at step L - 1.
+// Every input is read once and every output written once; nothing depends
+// on timing, so two launches give the same bits.  The result is the
+// sequential walk's up to fp32 rounding (a chunk's product of 16 decays).
 //
-// Bound on the H100 SXM at recurrentgemma-9b's prefill: a and b (fp32) read
-// once and h_all written once, 3 x 134 MB = 403 MB, 0.120 ms at 3.35 TB/s;
-// its 33.5 M FMAs are nothing beside that, so the scan is bound by bytes.
-// With only about four warps on each SM, this first version is bound by
-// memory latency rather than by the rate; a chunked two-pass scan that
-// spreads time over more threads is the next step.
+// Bound on the H100 SXM: a and b read once and h_all written once, 3 x 67.1
+// MB = 201 MB at the training shape (B = 1, L = D = 4096, fp32), 0.0601 ms
+// at 3.35 TB/s, and 403 MB, 0.1202 ms, at the prefill (B = 4, L = 2048);
+// two flops a step and channel are nothing beside that, so the scan is
+// bound by bytes.  Measured by tools/time_bag_checks.py --lru on NVIDIA
+// H100 80GB HBM3, 700.00 W: 0.0781-0.0801 ms at B = 1 (75-77% of the bound)
+// and 0.1479-0.1518 ms at the prefill (79-81%), 2.5-2.7 TB/s.  One thread a
+// lane walking all of time (32 of 132 SMs busy at B = 1, bound by latency)
+// took 0.2518-0.2562 and 0.1758-0.1796 ms there, in turns with this.
+// tools/lru_variants.py: 2 or 3 stages, 8- or 32-step chunks and 16 warps
+// ran within 5% of this layout or behind it; the producer's plain loads at
+// every shape (no TMA) ran 7x slower.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int U = 16;  // time steps loaded ahead
+constexpr int CPB = 32;                  // channels a block, one a lane
+constexpr int WARPS = 8;                 // consumer warps, one chunk of a round each
+constexpr int CH = 16;                   // steps a chunk
+constexpr int ROUND = WARPS * CH;        // steps a round (one TMA box a row of channels)
+constexpr int STAGES = 4;                // rounds in the ring
+constexpr int BLOCK = (WARPS + 1) * 32;  // and one producer warp
 
 template <typename T> __device__ __forceinline__ float to_float(T x);
 template <> __device__ __forceinline__ float to_float<float>(float x) { return x; }
@@ -40,57 +74,153 @@ template <> __device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat
   return __bfloat162float(x);
 }
 
+// Shared memory, in bytes: the ring (a stage is a's box, then b's, each
+// [ROUND steps][CPB channels]), the chunks' (u, A) of two rounds, the
+// barriers.
+template <typename T> struct Ring {
+  static constexpr int IN = ROUND * CPB * sizeof(T);
+  static constexpr int STAGE = 2 * IN;
+  static constexpr int SUMS = 2 * 2 * WARPS * CPB * 4;
+  static constexpr int SMEM = 1024 + STAGES * STAGE + SUMS + 2 * STAGES * 8;
+  static_assert(IN % 128 == 0, "128-byte-aligned TMA destinations");
+};
+
+struct Maps {
+  CUtensorMap a, b;
+};
+
+// Batch row blockIdx.y, channels blockIdx.x * CPB .. + CPB - 1; tma says
+// whether the producer stages by TMA (else by plain loads).
 template <typename T>
-__device__ __forceinline__ void load_steps(float (&ra)[U], float (&rb)[U], const T* ap,
-                                           const T* bp, int t0, int L, int D) {
-#pragma unroll
-  for (int i = 0; i < U; ++i) {
-    const bool ok = t0 + i < L;
-    ra[i] = ok ? to_float<T>(ap[(size_t)(t0 + i) * D]) : 0.f;
-    rb[i] = ok ? to_float<T>(bp[(size_t)(t0 + i) * D]) : 0.f;
+__global__ void __launch_bounds__(BLOCK)
+lru_fwd_kernel(const __grid_constant__ Maps maps, const T* __restrict__ a,
+               const T* __restrict__ b, float* __restrict__ hall, float* __restrict__ hfin,
+               int L, int D, int tma) {
+  using S = Ring<T>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = hopper::align_1024(smem_raw);
+  // The chunks' (u, A): [round & 1][u, A][warp][lane].
+  float* sums = reinterpret_cast<float*>(ring + STAGES * S::STAGE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * S::STAGE + S::SUMS);
+  uint64_t* empty = full + STAGES;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int bi = blockIdx.y, d0 = blockIdx.x * CPB;
+  const int rounds = (L + ROUND - 1) / ROUND;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], tma ? 1 : 32);  // the TMA issuer, or every producer lane
+      hopper::mbar_init(&empty[s], WARPS);        // one arrive per consumer warp
+    }
+    hopper::mbar_fence_init();
   }
-}
+  __syncthreads();
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-rglru_scan_kernel(const T* __restrict__ a, const T* __restrict__ b, float* __restrict__ hall,
-                  float* __restrict__ hfin, int L, int D) {
-  const int d = blockIdx.x * THREADS + threadIdx.x;
-  const int bi = blockIdx.y;
-  if (d >= D) return;  // no barrier or shuffle below: threads past D may leave
-  const size_t base = (size_t)bi * L * D + d;
-  const T* ap = a + base;
-  const T* bp = b + base;
-  float* hp = hall + base;
-
-  float ra[U], rb[U], na[U], nb[U];
-  load_steps<T>(ra, rb, ap, bp, 0, L, D);
-  float h = 0.f;
-  for (int t0 = 0; t0 < L; t0 += U) {
-    load_steps<T>(na, nb, ap, bp, t0 + U, L, D);  // all masked past the end
-#pragma unroll
-    for (int i = 0; i < U; ++i) {
-      if (t0 + i < L) {
-        h = fmaf(ra[i], h, rb[i]);
-        hp[(size_t)(t0 + i) * D] = h;
+  if (warp == WARPS) {  // producer
+    for (int i = 0; i < rounds; ++i) {
+      const int s = i % STAGES, t0 = i * ROUND;
+      T* sa = reinterpret_cast<T*>(ring + s * S::STAGE);
+      T* sb = reinterpret_cast<T*>(ring + s * S::STAGE + S::IN);
+      if (tma) {
+        if (lane == 0) {
+          hopper::mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+          hopper::mbar_arrive_expect_tx(&full[s], S::STAGE);
+          hopper::tma_load_3d(sa, &maps.a, &full[s], d0, t0, bi);
+          hopper::tma_load_3d(sb, &maps.b, &full[s], d0, t0, bi);
+        }
+      } else {  // the same layout by plain loads; zeros past L and D
+        hopper::mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+        const T zero = T(0.f);
+        for (int e = lane; e < ROUND * CPB; e += 32) {
+          const int t = e / CPB, c = e % CPB;
+          const bool ok = t0 + t < L && d0 + c < D;
+          const size_t g = ((size_t)bi * L + t0 + t) * D + d0 + c;
+          sa[e] = ok ? a[g] : zero;
+          sb[e] = ok ? b[g] : zero;
+        }
+        hopper::mbar_arrive(&full[s]);
       }
     }
+    return;
+  }
+
+  // Consumers: warp `warp` owns steps warp * CH .. + CH - 1 of each round,
+  // lane `lane` channel d.
+  const int d = d0 + lane;
+  const bool live = d < D;
+  float* hp = hall + (size_t)bi * L * D + d;
+  float carry = 0.f;  // h entering the round
+  for (int i = 0; i < rounds; ++i) {
+    const int s = i % STAGES;
+    const T* sa = reinterpret_cast<const T*>(ring + s * S::STAGE) + warp * CH * CPB + lane;
+    const T* sb = reinterpret_cast<const T*>(ring + s * S::STAGE + S::IN) + warp * CH * CPB + lane;
+    hopper::mbar_wait(&full[s], (i / STAGES) & 1);
+    float ra[CH], rb[CH];
 #pragma unroll
-    for (int i = 0; i < U; ++i) {
-      ra[i] = na[i];
-      rb[i] = nb[i];
+    for (int j = 0; j < CH; ++j) {
+      ra[j] = to_float<T>(sa[j * CPB]);
+      rb[j] = to_float<T>(sb[j * CPB]);
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+
+    // (a) The chunk from a zero carry: h_end = A h_in + u.
+    float u = 0.f, A = 1.f;
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      u = fmaf(ra[j], u, rb[j]);
+      A *= ra[j];
+    }
+    float* su = sums + (i & 1) * 2 * WARPS * CPB;
+    float* sA = su + WARPS * CPB;
+    su[warp * CPB + lane] = u;
+    sA[warp * CPB + lane] = A;
+    hopper::named_barrier_sync(1, WARPS * 32);
+
+    // (b) The carries across the round's chunks, in order.
+    float x = carry, xin = 0.f;
+#pragma unroll
+    for (int k = 0; k < WARPS; ++k) {
+      if (k == warp) xin = x;
+      x = fmaf(sA[k * CPB + lane], x, su[k * CPB + lane]);
+    }
+    carry = x;
+
+    // (c) The chunk again from its carry-in.
+    const int t0 = i * ROUND + warp * CH;
+    float h = xin;
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      h = fmaf(ra[j], h, rb[j]);
+      if (live && t0 + j < L) hp[(size_t)(t0 + j) * D] = h;
+      if (live && t0 + j == L - 1) hfin[(size_t)bi * D + d] = h;
     }
   }
-  hfin[(size_t)bi * D + d] = h;
 }
 
 template <typename T>
 cudaError_t launch(const void* a, const void* b, void* hall, void* hfin, int B, int L, int D,
                    cudaStream_t stream) {
-  const dim3 grid((D + THREADS - 1) / THREADS, B);
-  rglru_scan_kernel<T><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<float*>(hall),
-      static_cast<float*>(hfin), L, D);
+  using S = Ring<T>;
+  constexpr uint64_t ES = sizeof(T);
+  auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const bool tma = aligned(a) && aligned(b) && D * ES % 16 == 0;
+  Maps maps = {};
+  if (tma) {
+    constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+    const uint64_t row = D * ES;
+    cudaError_t err =
+        hopper::make_map_3d_plain(&maps.a, a, ES, bf16, D, L, B, row, row * L, CPB, ROUND);
+    if (err == cudaSuccess)
+      err = hopper::make_map_3d_plain(&maps.b, b, ES, bf16, D, L, B, row, row * L, CPB, ROUND);
+    if (err != cudaSuccess) return err;
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      lru_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((D + CPB - 1) / CPB, B);
+  lru_fwd_kernel<T><<<grid, BLOCK, S::SMEM, stream>>>(
+      maps, static_cast<const T*>(a), static_cast<const T*>(b), static_cast<float*>(hall),
+      static_cast<float*>(hfin), L, D, tma ? 1 : 0);
   return cudaGetLastError();
 }
 
@@ -98,7 +228,7 @@ cudaError_t launch(const void* a, const void* b, void* hall, void* hfin, int B, 
 
 // a, b: contiguous (B, L, D) device arrays of one dtype (0 float32,
 // 1 float16, 2 bfloat16); hall (B, L, D) and hfin (B, D) fp32 outputs.
-// Returns a cudaError_t (0 on success).
+// One launch on `stream`; returns a cudaError_t (0 on success).
 extern "C" int repro_rglru_scan(const void* a, const void* b, void* hall, void* hfin, int B,
                                 int L, int D, int dtype, void* stream) {
   if (B < 1 || B > 65535 || L < 1 || D < 1) return (int)cudaErrorInvalidValue;

@@ -8,9 +8,11 @@ here pads.  Its plain PyTorch version is
 :func:`repro_torch.kernels.ref.ref_rglru_scan`.
 
 Training: :func:`rglru_scan_bwd` wraps the backward kernel, which gives da
-and db from a, h_all and the cotangents of h_all and h_final (a scan over
-time chunks of 32 steps, carried across chunks in a fixed order: no float
-atomics).  Its plain version is
+and db from a, h_all and the cotangents of h_all and h_final.  Both kernels
+are one launch that reads every input once: a block walks its channels'
+time in rounds, its warps each a chunk of steps, the carries across chunks
+composed in a fixed order (no float atomics, the same bits every launch).
+The backward's plain version is
 :func:`repro_torch.kernels.ref.ref_rglru_scan_bwd`.  :class:`LruScanFn`
 joins the forward and the backward for autograd.
 """
@@ -67,16 +69,13 @@ def rglru_scan(a, b):
     return h_all, h_fin
 
 
-def _bwd_entries():
-    lib = _build.load("rglru_scan_bwd")
-    fn, ws = lib.repro_rglru_scan_bwd, lib.repro_rglru_scan_bwd_workspace
+def _bwd_entry():
+    fn = _build.load("rglru_scan_bwd").repro_rglru_scan_bwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 7 + [i, i, i, i, p]
+        fn.argtypes = [p] * 6 + [i, i, i, i, p]
         fn.restype = i
-        ws.argtypes = [i, i, i]
-        ws.restype = ctypes.c_longlong
-    return fn, ws
+    return fn
 
 
 def rglru_scan_bwd(a, h_all, dh_all, dh_final=None):
@@ -86,9 +85,8 @@ def rglru_scan_bwd(a, h_all, dh_all, dh_final=None):
     (da, db) in a's dtype (b shares it), the function of
     :func:`repro_torch.kernels.ref.ref_rglru_scan_bwd`.
 
-    Launches the backward's three passes on the current stream (scratch from
-    PyTorch's allocator), or raises: this function never computes on another
-    path.
+    Launches the backward kernel once on the current stream, or raises: this
+    function never computes on another path.
     """
     ts = (a, h_all, dh_all) + (() if dh_final is None else (dh_final,))
     if not (a.is_cuda and all(t.device == a.device for t in ts)):
@@ -111,13 +109,10 @@ def rglru_scan_bwd(a, h_all, dh_all, dh_final=None):
     da = torch.empty((B, L, D), dtype=torch.float32, device=dev)
     db = torch.empty((B, L, D), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        fn, ws = _bwd_entries()
-        work = torch.empty(ws(B, L, D) // 4, dtype=torch.float32, device=dev)
-        err = fn(
+        err = _bwd_entry()(
             a.data_ptr(), h_all.data_ptr(), dh_all.data_ptr(),
             0 if dh_final is None else dh_final.data_ptr(), da.data_ptr(), db.data_ptr(),
-            work.data_ptr(), B, L, D, DTYPE_CODES[a.dtype],
-            torch.cuda.current_stream(dev).cuda_stream,
+            B, L, D, DTYPE_CODES[a.dtype], torch.cuda.current_stream(dev).cuda_stream,
         )
     if err:
         raise RuntimeError(f"rglru_scan_bwd: CUDA error {err} at launch")

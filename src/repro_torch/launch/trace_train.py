@@ -12,7 +12,7 @@ device time (as ``trace_serve`` does) and the device time by group: the
 attention backward kernels (either tiling, and the sum of the head dim 256
 kernel's partials), the attention forward kernels, the Mamba scan's
 backward (its kernel and the sum of its partials) and forward kernels, the
-RG-LRU scan's backward (its three passes) and forward kernels, cuBLAS GEMMs
+RG-LRU scan's backward and forward kernels (one launch each), cuBLAS GEMMs
 and the rest.  Card only: device time is what it reports.
 """
 
@@ -46,8 +46,8 @@ GROUPS = (
     ("attention forward", re.compile(r"flash_attention_(wgmma|fwd)_kernel")),
     ("selective scan backward", re.compile(r"mamba_bwd_")),
     ("selective scan forward", re.compile(r"mamba_scan_kernel")),
-    ("RG-LRU backward", re.compile(r"lru_bwd_")),
-    ("RG-LRU forward", re.compile(r"rglru_scan_kernel")),
+    ("RG-LRU backward", re.compile(r"lru_bwd_kernel")),
+    ("RG-LRU forward", re.compile(r"lru_fwd_kernel")),
     ("GEMM", re.compile(r"gemm|cutlass|xmma|sm90_|nvjet", re.IGNORECASE)),  # cuBLAS
 )
 

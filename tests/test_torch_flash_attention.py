@@ -521,14 +521,15 @@ def test_wgmma_bwd_emulation_in_fp32_is_the_plain_backward():
          "selective scan forward"),
         ("void (anonymous namespace)::dkdv_sum_kernel<__nv_bfloat16>(float const*, "
          "__nv_bfloat16*, __nv_bfloat16*, int, unsigned long, float)", "attention backward"),
-        ("void (anonymous namespace)::lru_bwd_chunk_kernel<float>(float const*)",
+        ("void (anonymous namespace)::lru_bwd_kernel<float>((anonymous namespace)::Maps, "
+         "float const*, float const*, float const*, float const*, float*, float*, int, int, int)",
          "RG-LRU backward"),
-        ("void (anonymous namespace)::lru_bwd_carry_kernel(float*, float const*, int, int)",
+        ("void (anonymous namespace)::lru_bwd_kernel<__nv_bfloat16>((anonymous namespace)::Maps)",
          "RG-LRU backward"),
-        ("void (anonymous namespace)::lru_bwd_fixup_kernel<__nv_bfloat16>(__nv_bfloat16 const*)",
-         "RG-LRU backward"),
-        ("void (anonymous namespace)::rglru_scan_kernel<float>(float const*, float const*, "
-         "float*, float*, int, int)", "RG-LRU forward"),
+        ("void (anonymous namespace)::lru_fwd_kernel<float>((anonymous namespace)::Maps, float "
+         "const*, float const*, float*, float*, int, int, int)", "RG-LRU forward"),
+        ("void (anonymous namespace)::lru_fwd_kernel<__half>((anonymous namespace)::Maps)",
+         "RG-LRU forward"),
     ],
 )
 def test_trace_train_groups_both_backward_tilings(kernel, group):

@@ -796,10 +796,16 @@ def test_mamba_kernel_matches_plain(cuda, B, L, DI, ST, R, dtype):
 
 
 @pytest.mark.parametrize(
-    "B,L,D", [(4, 2048, 4096), (3, 1000, 200), (2, 17, 130), (1, 1, 5)],
+    "B,L,D", [(4, 2048, 4096), (1, 4096, 4096), (3, 1000, 200), (2, 17, 130), (1, 1, 5),
+              (1, 33, 7), (2, 64, 33)],
 )
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
 def test_rglru_kernel_matches_plain(cuda, B, L, D, dtype):
+    """fp32 arithmetic from the same inputs in both; the kernel composes its
+    chunks' carries (products of 16 decays), a few dozen ulps inside 1e-5.
+    The prefill and training shapes; L off the 128-step rounds; D off the
+    32-channel tiles, and rows TMA cannot stride (D x the element size off
+    16 bytes: 130, 5, 7, 33 in fp32)."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     a = (torch.rand(B, L, D, generator=gen, device=cuda) * 0.89 + 0.1).to(dtype)
     b = torch.randn(B, L, D, generator=gen, device=cuda).to(dtype)
@@ -809,6 +815,19 @@ def test_rglru_kernel_matches_plain(cuda, B, L, D, dtype):
     assert h.dtype == f.dtype == torch.float32 and f.shape == (B, D)
     torch.testing.assert_close(h, eh, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(f, ef, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,L,D", [(1, 4096, 4096), (2, 1000, 33)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_kernel_is_deterministic(cuda, B, L, D, dtype):
+    """The carries are composed in a fixed order: two launches give the same
+    bits (TMA staging at the training shape, plain loads at D = 33)."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    a = (torch.rand(B, L, D, generator=gen, device=cuda) * 0.89 + 0.1).to(dtype)
+    b = torch.randn(B, L, D, generator=gen, device=cuda).to(dtype)
+    first, second = rglru_scan(a, b), rglru_scan(a, b)
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+    assert torch.equal(first[1], first[0][:, -1])  # h_final is h_all's last step
 
 
 def test_ops_count_scan_launches_and_reject_bad_inputs(cuda, monkeypatch):
@@ -852,7 +871,8 @@ def test_rglru_bwd_kernel_matches_plain(cuda, B, L, D, dtype, with_dh):
     max|.| (the chunks' carries are products in another order), plus one
     rounding of the dtype where a is 16-bit (the gradients come back in a's
     dtype).  Recurrentgemma-9b's training shape (B = 1, L = D = 4096), L
-    off the 32-step chunks and D off the 128-channel blocks among them."""
+    off the 128-step rounds and D off the 32-channel tiles among them, and
+    rows TMA cannot stride (D = 130, 5, 33, 7 in fp32)."""
     a, h_all, dh, dhf = _lru_bwd_inputs(cuda, B, L, D, dtype)
     dhf = dhf if with_dh else None
     got = rglru_scan_bwd(a, h_all, dh, dhf)

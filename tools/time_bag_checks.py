@@ -3,7 +3,8 @@
 one or more checkouts on one CUDA card, each checkout in a process of its
 own, so that two versions of the checks compare on the same card in one run:
 
-    python3 tools/time_bag_checks.py [--gmm | --gmm-moe | --scan | --scan-ssm] OUT.jsonl TREE ...
+    python3 tools/time_bag_checks.py [--gmm | --gmm-moe | --scan | --scan-ssm | --lru | --lru-hyb] \
+        OUT.jsonl TREE ...
 
 Each TREE is the root of a checkout (its ``chip_smoke.py`` and ``src/``),
 e.g. the parent commit unpacked by ``git archive`` into ``build/parent``
@@ -51,6 +52,28 @@ prints whether every run's bits agree.  ``--scan-ssm`` also trains phase
 5d's model (the tree's ``train_ssm``: 2 + 8 steps, 6 on a fixed batch, one
 traced) and records its step times, tokens/s, model FLOPs share, peak
 memory and the traced step's scan forward and backward (``ssm_step``).
+
+``--lru`` runs the tree's ``check_lru_bwd`` (its ``LRU_BWD_CASES``; each
+case's backward, plain and bound times, ``lru_bwd``), then times on every
+tree alike, by CUDA events, through the tree's own wrappers on inputs this
+tool makes from one seed (fp32, as the layer passes them): the forward at
+recurrentgemma-9b's training shape (``LRU_TRAIN``, B = 1, ``train_fwd_ms``)
+and at its prefill (``LRU_PREFILL``, B = 4, ``prefill_ms``), the backward at
+the training shape (``train_bwd_ms``; with bf16 a, ``train_bwd_bf16_ms``),
+and one layer's scans as a remat step runs them through the tree's
+``LruScanFn`` (non-reentrant ``torch.utils.checkpoint``: the forward twice,
+then the backward, ``pair_ms``: its host's autograd and checkpoint work
+shows); each beside its bound.  Beside them two elementwise passes over the
+same tensors give the rate the card's own kernels reach for a like mix of
+reads and writes: ``torch.add(a, b, out=h)`` moves exactly the forward's
+bytes (``add_ms``), ``torch.addcmul(dh, a, h, out=da)`` three reads and a
+write (``addcmul_ms``).  Then the SHA-256 of
+the forward's and the backward's bits at the training shape (``digests``),
+and prints whether the runs of each tree agree.  ``--lru-hyb`` also trains
+phase 5e's model (the tree's ``train_hybrid``: 2 + 8 steps, 6 on a fixed
+batch, one traced) and records its step times, tokens/s, model FLOPs share,
+peak memory and the traced step's RG-LRU forward and backward
+(``hyb_step``).
 """
 
 from __future__ import annotations
@@ -382,6 +405,118 @@ def one_scan(cs, tree: Path, ssm: bool) -> dict:
     return out
 
 
+# recurrentgemma-9b's RG-LRU scan at its training shape and its prefill: (B, L, D).
+LRU_TRAIN, LRU_PREFILL = (1, 4096, 4096), (4, 2048, 4096)
+
+
+def lru_inputs(dev, B, L, D, seed):
+    """a in the layer's range (0.1..0.99), b, the cotangent of h_all, fp32,
+    made on the card from ``seed``."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.rand(B, L, D, generator=gen, device=dev) * 0.89 + 0.1,
+            torch.randn(B, L, D, generator=gen, device=dev),
+            torch.randn(B, L, D, generator=gen, device=dev))
+
+
+def lru_times(cs, dev) -> dict:
+    """The tree's forward at LRU_TRAIN and LRU_PREFILL, its backward at
+    LRU_TRAIN (fp32 and bf16 a) and a layer's remat pair there through its
+    LruScanFn (ms a call, CUDA events), each beside its bound, and the bits
+    of the forward and the backward at LRU_TRAIN."""
+    import hashlib
+
+    import torch
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.kernels.rglru_scan import LruScanFn, rglru_scan, rglru_scan_bwd
+
+    a, b, dh = lru_inputs(dev, *LRU_PREFILL, seed=30)
+    out = dict(prefill_ms=cs.time_ms(lambda: rglru_scan(a, b), 20),
+               prefill_bound_ms=cs.lru_bound(a, b)[0])
+    a, b, dh = lru_inputs(dev, *LRU_TRAIN, seed=31)
+    h_all = rglru_scan(a, b)[0]
+    a16 = a.bfloat16()
+    out.update(train_fwd_ms=cs.time_ms(lambda: rglru_scan(a, b), 20),
+               train_fwd_bound_ms=cs.lru_bound(a, b)[0],
+               train_bwd_ms=cs.time_ms(lambda: rglru_scan_bwd(a, h_all, dh), 20),
+               train_bwd_bound_ms=cs.lru_bwd_bound(a, None)[0],
+               train_bwd_bf16_ms=cs.time_ms(lambda: rglru_scan_bwd(a16, h_all, dh), 20),
+               train_bwd_bf16_bound_ms=cs.lru_bwd_bound(a16, None)[0])
+    leaves = [t.clone().requires_grad_(True) for t in (a, b)]
+
+    def pair():  # the checkpointed layer's scans: the forward, again, then the backward
+        h, _ = checkpoint(LruScanFn.apply, *leaves, use_reentrant=False)
+        torch.autograd.grad(h, leaves, dh)
+
+    out["pair_ms"] = cs.time_ms(pair, 10, warmup=2)
+    scratch = torch.empty_like(h_all)
+    out.update(add_ms=cs.time_ms(lambda: torch.add(a, b, out=scratch), 20),
+               addcmul_ms=cs.time_ms(lambda: torch.addcmul(dh, a, h_all, out=scratch), 20))
+    del scratch
+    bits = dict(zip(("h_all", "h_final"), rglru_scan(a, b)))
+    bits.update(zip(("da", "db"), rglru_scan_bwd(a, h_all, dh)))
+    out["digests"] = {n: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+                      for n, t in bits.items()}
+    return out
+
+
+def hyb_step(cs, dev, smi) -> dict:
+    """Phase 5e of the tree's ``chip_smoke.py``: recurrentgemma-9b at 5
+    layers trained on the card, one step traced."""
+    import dataclasses
+
+    from repro_torch import optim
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import pipeline as data
+    from repro_torch.kernels import ops
+    from repro_torch.launch.trace_train import group_of
+    from repro_torch.models import lm
+    from repro_torch.train.steps import make_train_step
+
+    cfg = dataclasses.replace(get_config(cs.HYB_TRAIN_ARCH), n_layers=cs.HYB_TRAIN_LAYERS)
+    run = cs.train_hybrid(lm, ops, optim, make_train_step, data, group_of, cfg, dev, smi)
+    trace = run["trace"]
+    return dict({k: run[k] for k in ("step_ms", "step_ms_all", "tokens_per_s", "mfu", "peak_gb",
+                                     "launches_per_step", "losses", "fixed_losses")},
+                traced_ms=trace["traced_ms"], idle_share=trace["idle_share"],
+                lru_fwd_traced_ms=trace["split_ms"]["RG-LRU forward"],
+                lru_bwd_traced_ms=trace["split_ms"]["RG-LRU backward"])
+
+
+def one_lru(cs, tree: Path, hyb: bool) -> dict:
+    """The RG-LRU backward's check of the checkout at ``tree`` (whatever its
+    signature), this tool's timings of its scans, and with ``hyb`` phase 5e."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ref import ref_rglru_scan_bwd
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_bwd
+
+    kernels = ["rglru_scan", "rglru_scan_bwd"]
+    if hyb:
+        kernels += ["flash_attention", "flash_attention_bwd"]
+    _build.load_all(kernels)
+    dev = torch.device("cuda")
+    smi = cs.nvidia_smi_line()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    have = dict(rglru_scan=rglru_scan, rglru_scan_bwd=rglru_scan_bwd,
+                ref_rglru_scan_bwd=ref_rglru_scan_bwd, gen=gen, dev=dev, smi=smi)
+    check = cs.check_lru_bwd
+    t0 = time.perf_counter()
+    cases = check(**{n: have[n] for n in inspect.signature(check).parameters})
+    seconds = time.perf_counter() - t0
+    keys = ("kernel_ms", "plain_ms", "bound_ms", "fwd_ms", "pair_ms")
+    out = dict(tree=str(tree), card=smi, check_lru_bwd_s=seconds,
+               lru_bwd={name: {k: c[k] for k in keys if k in c} for name, c in cases.items()},
+               **lru_times(cs, dev))
+    torch.cuda.empty_cache()
+    if hyb:
+        out["hyb_step"] = hyb_step(cs, dev, smi)
+    return out
+
+
 def one(tree: Path, what: str = "bag") -> dict:
     """Runs the bag checks (``what`` "bag"), or the grouped matmul
     backward's ("gmm", "gmm-moe"), of the checkout at ``tree`` once."""
@@ -400,6 +535,8 @@ def one(tree: Path, what: str = "bag") -> dict:
     assert Path(_build.__file__).resolve().is_relative_to(tree.resolve()), _build.__file__
     if what in ("scan", "scan-ssm"):
         return one_scan(cs, tree, ssm=what == "scan-ssm")
+    if what in ("lru", "lru-hyb"):
+        return one_lru(cs, tree, hyb=what == "lru-hyb")
     if what != "bag":
         return one_gmm(cs, tree, moe=what == "gmm-moe")
     for name in ("embedding_bag", "embedding_bag_bwd"):
@@ -472,12 +609,41 @@ def scan_summary(runs: list[dict]) -> None:
              "; " + "; ".join(f"{r['tree']}: {r['digests']}" for r in runs)))
 
 
+def lru_summary(runs: list[dict]) -> None:
+    """Each backward case by run, this tool's scan timings, phase 5e's
+    numbers, and whether the runs of each tree give the same bits."""
+    print("RG-LRU backward ms a call by case / plain / bound; runs: "
+          + ", ".join(r["tree"] for r in runs))
+    for name in dict.fromkeys(k for r in runs for k in r["lru_bwd"]):
+        cells = []
+        for r in runs:
+            c = r["lru_bwd"].get(name)
+            cells.append("-" if c is None else f"{c['kernel_ms']} / {c['plain_ms']} / "
+                                               f"{c['bound_ms']}")
+        print(f"  {name}: " + " | ".join(cells))
+    for key in ("train_fwd_ms", "prefill_ms", "train_bwd_ms", "train_bwd_bf16_ms", "pair_ms",
+                "add_ms", "addcmul_ms"):
+        bound = runs[0].get(key.replace("_ms", "_bound_ms"))
+        print(f"{key}: " + " ".join(str(r[key]) for r in runs)
+              + ("" if bound is None else f" (bound {bound})"))
+    if all("hyb_step" in r for r in runs):
+        for key in ("step_ms", "tokens_per_s", "mfu", "peak_gb", "lru_fwd_traced_ms",
+                    "lru_bwd_traced_ms", "traced_ms", "idle_share", "launches_per_step"):
+            print(f"phase 5e {key}: " + " ".join(str(r["hyb_step"][key]) for r in runs))
+    by_tree: dict = {}
+    for r in runs:
+        by_tree.setdefault(r["tree"], set()).add(json.dumps(r["digests"], sort_keys=True))
+    print("the forward's and backward's bits at the training shape equal across the runs of "
+          "each tree: " + ", ".join(f"{t}: {len(d) == 1}" for t, d in by_tree.items()))
+
+
 def main(argv: list[str]) -> int:
     if argv[:1] == ["--one"]:
         print(json.dumps(one(Path(argv[1]), *argv[2:])))
         return 0
     what = "bag"
-    if argv[:1] in (["--gmm"], ["--gmm-moe"], ["--scan"], ["--scan-ssm"]):
+    if argv[:1] in (["--gmm"], ["--gmm-moe"], ["--scan"], ["--scan-ssm"], ["--lru"],
+                    ["--lru-hyb"]):
         what, argv = argv[0][2:], argv[1:]
     if len(argv) < 2:
         print(__doc__, file=sys.stderr)
@@ -501,6 +667,9 @@ def main(argv: list[str]) -> int:
         runs.append(json.loads(last[0]))
     if what in ("scan", "scan-ssm"):
         scan_summary(runs)
+        return 0
+    if what in ("lru", "lru-hyb"):
+        lru_summary(runs)
         return 0
     if what != "bag":
         gmm_summary(runs)
