@@ -16,8 +16,9 @@ result line:
    its backward's dx and dw) must report the 168 registers their setmaxnreg
    split (240 x 256 + 24 x 128) is sized for (the forward's lse store
    included; the attention backward's at head dim 256 too, whose consumers
-   split D and keep the same split), and the skinny grouped matmul, the
-   Mamba scan, every attention backward kernel (at head dims 64, 128 and
+   split D and keep the same split, and at head dim 80, which computes at
+   128), and the skinny grouped matmul, the
+   Mamba scan, every attention backward kernel (at head dims 64, 80, 128 and
    256 on both tilings, and the sums of the head dim 256 partials), the
    grouped matmul's backward (4 wgmma kernels, 6 fma ones), the Mamba scan's
    backward (12 kernels, 3 dtypes x 4 lane counts, and 3 sums of partials),
@@ -103,11 +104,16 @@ result line:
    D=64, causal, bf16), granite-8b's (H=32, KV=8, S=2048, D=128), in fp32
    on the fma forward and at a ragged non-causal shape, recurrentgemma-9b's
    (B=1, H=16, KV=1, S=4096, D=256, window 2048) and an fp32 one at D=256
-   (S=600, window 256), bf16 inputs on both backward tilings (wgmma and
-   fma), timed beside SDPA's backward (with a window, the window as a
-   boolean mask; the backend that served it printed) and the bound, and
-   at the training shape the plain forward and SDPA's forward beside the
-   forward kernel; and a narrow fp32 train step (head dim 64, 2
+   (S=600, window 256), hubert-xlarge's (B=4, H=KV=16, S=4096, D=80,
+   unmasked), D=80 at ragged shapes (causal GQA at S=1000; Sq=1000 against
+   Sk=777) and in fp32 on the fma tiling, and llama-3.2-vision-11b's cross
+   layer (B=4, H=32, KV=8, 4096 text tokens against 1601 image tokens,
+   D=128, unmasked), bf16 inputs on both backward tilings (wgmma and
+   fma), two launches equal to the bit, timed beside SDPA's backward (with
+   a window, the window as a boolean mask; the backend that served it
+   printed) and the bound, and at the three unmasked or causal training
+   shapes of phases 5, 5f and 5g the plain forward and SDPA's forward
+   beside the forward kernel; and a narrow fp32 train step (head dim 64, 2
    layers, MHA and GQA) on the card against the CPU: loss, every gradient,
    AdamW's arithmetic and the parameters after one SGD step; and a narrow
    fp32 qwen3-moe train step (its smoke widths at head dim 64, 2 layers; C
@@ -125,7 +131,10 @@ result line:
    256 over one kv head, window 32, 2 x 77 tokens) card against CPU: 8
    forward and 4 backward RG-LRU launches, 2 forward and 1 backward fma
    attention launches, the loss and every gradient within 1e-4, and the
-   parameters after one SGD step within 1e-4;
+   parameters after one SGD step within 1e-4; and narrow fp32 train steps
+   of the VLM (head dim 128, 10 layers of which 2 cross layers over 100
+   image tokens, the gates at 0.5: 18 forward and 10 backward fma attention
+   launches) and the encoder (4 heads of 80, 2 layers) held the same way;
 4. serve granite-8b at full width and depth in bf16 through
    ``repro_torch.launch.serve.generate`` (4 requests, prompt 1000, 16 decode
    steps), counting kernel launches (every prefill attention on the wgmma
@@ -213,6 +222,22 @@ result line:
    ``examples/serve_decode.py`` on the card in a process of its own
    (``--arch falcon-mamba-7b``, the smoke config: no attention), which must
    exit 0 and print its tokens/s line;
+5f. train llama-3.2-vision-11b at full width, cut to 10 of its 40 layers
+   (two groups of 4 self layers and a cross layer; bf16, fp32 AdamW state,
+   cosine, remat "full", loss chunk 1024) at 4 x 4096 with 1601-token
+   images: 2 warm-up and 8 timed steps (median, range, tokens/s, the model
+   FLOPs share with the cross layers' k and v over the image, peak memory),
+   each with 18 forward attention launches (2 a self layer, 1 a cross
+   layer, which is not rematerialized) and 10 backward, all on the wgmma
+   tilings, 2 and 2 of them at the cross shape, and no other kernel; the
+   cross gates start at 0, and the first cross layer's gate and wk must
+   move; then 6 steps on one fixed batch, whose loss must fall, and one
+   step under ``torch.profiler`` split into attention forward and backward,
+   cuBLAS GEMMs, the loss head, AdamW (traced apart) and the rest;
+5g. train hubert-xlarge whole (48 layers, bf16, fp32 AdamW state, cosine,
+   remat "full", its CE over 504 classes) at 4 x 4096 frames the same way,
+   each step with 96 forward and 48 backward attention launches at head dim
+   80, all wgmma and unmasked, the first loss within 0.5 of ln 504;
 6. plan: the planner (``repro_torch.core``) on the card at the paper's
    128-server scale (degree 4, 100 Gbps links), each result held against
    the same call on the CPU or against the NumPy oracles: (6a) pricing 256
@@ -346,6 +371,12 @@ SSM_TRAIN_ARCH, SSM_TRAIN_LAYERS, SSM_WARMUP = "falcon-mamba-7b", 16, 2
 # 4 x 4096 would take about 75 GB); the 4096-token sequence stays past the
 # 2048-token window.
 HYB_TRAIN_ARCH, HYB_TRAIN_LAYERS, HYB_TRAIN_B, HYB_WARMUP = "recurrentgemma-9b", 5, 1, 2
+# Training the vlm family (phase 5f): llama-3.2-vision-11b at full width, its
+# 40 layers cut to 10 (two groups of 4 self layers and a cross layer: about
+# 52 GB of training state, 17 GB of it the embedding and the head), and
+# TRAIN_4K's global batch of 256 to 4 with its 1601-token images.  The audio
+# family (phase 5g): hubert-xlarge whole (48 layers, about 15 GB of state).
+VLM_TRAIN_ARCH, VLM_TRAIN_LAYERS, AU_TRAIN_ARCH = "llama-3.2-vision-11b", 10, "hubert-xlarge"
 # The backward kernel's cases (B, H, KV, S, D, dtype, causal): minicpm-2b's
 # and granite-8b's training attention (the first is the main path's), one
 # fp32 case on the fma forward, and a ragged non-causal one.
@@ -359,7 +390,20 @@ BWD_CASES = (
     # path's); and fp32 on the fma tiling at a smaller shape, S past the window.
     (HYB_TRAIN_B, 16, 1, TRAIN_S, 256, torch.bfloat16, True, PROMPT_RG),
     (2, 8, 1, 600, 256, torch.float32, True, 256),
+    # hubert-xlarge's training attention (bidirectional MHA at head dim 80,
+    # bf16: phase 5g's), D = 80 at ragged edges (causal GQA at S = 1000;
+    # Sq = 1000 against Sk = 777, the case's last entry), fp32 at D = 80 on
+    # the fma tiling, and llama-3.2-vision-11b's training cross-attention
+    # (4096 text tokens against its 1601 image tokens, unmasked: phase 5f's).
+    (TRAIN_B, H_AU, H_AU, TRAIN_S, D_AU, torch.bfloat16, False),
+    (2, H_AU, 4, 1000, D_AU, torch.bfloat16, True),
+    (2, H_AU, H_AU, 1000, D_AU, torch.bfloat16, False, 0, 777),
+    (2, H_AU, H_AU, 1000, D_AU, torch.float32, False),
+    (TRAIN_B, H, KV, TRAIN_S, D, torch.bfloat16, False, 0, IMG_TOKENS),
 )
+# The training shapes whose forward also gets row 1's yardsticks (the plain
+# forward and SDPA's): minicpm-2b's, hubert-xlarge's and the VLM's cross layer.
+TRAIN_FWD_CASES = (BWD_CASES[0], BWD_CASES[6], BWD_CASES[10])
 
 
 def require(ok, what: str) -> None:
@@ -906,7 +950,9 @@ def check_attention_bwd(case, gen, dev, smi) -> dict:
     boolean mask, and the backend that served it) and the bound.  ``case``
     is (B, H, KV, S, D, dtype, causal[, window]).  At the main path's shape
     (``train_shape``) also the plain forward and SDPA's forward, row 1's
-    yardsticks at the training shape."""
+    yardsticks at the training shape.  ``case`` may end in Sk after the
+    window (Sq = S); without one, Sk = S.  Two launches of the case's tiling
+    must give the same bits."""
     from repro_torch.kernels.flash_attention import (
         attention_bwd_tiling, attention_tiling, flash_attention, flash_attention_bwd,
     )
@@ -916,8 +962,9 @@ def check_attention_bwd(case, gen, dev, smi) -> dict:
 
     Bc, Hc, KVc, S, Dc, dtype, causal, *rest = case
     window = rest[0] if rest else 0
+    Sk = rest[1] if len(rest) > 1 else S
     q = torch.randn(Bc, Hc, S, Dc, generator=gen, device=dev).to(dtype)
-    k, v = (torch.randn(Bc, KVc, S, Dc, generator=gen, device=dev).to(dtype) for _ in "kv")
+    k, v = (torch.randn(Bc, KVc, Sk, Dc, generator=gen, device=dev).to(dtype) for _ in "kv")
     do = torch.randn(Bc, Hc, S, Dc, generator=gen, device=dev).to(dtype)
     lse = torch.empty(Bc, Hc, S, dtype=torch.float32, device=dev)
     o = flash_attention(q, k, v, causal=causal, window=window, lse=lse)
@@ -925,9 +972,14 @@ def check_attention_bwd(case, gen, dev, smi) -> dict:
     tilings = (tiling, "fma") if tiling != "fma" else (tiling,)
     grads = {t: flash_attention_bwd(q, k, v, o, lse, do, causal, window, tiling=t)
              for t in tilings}
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal, window, tiling=tiling)
     torch.cuda.synchronize()
-    label = (f"B={Bc} H={Hc} KV={KVc} S={S} D={Dc} {str(dtype)[6:]} causal={causal} "
-             f"window={window} forward tiling={attention_tiling(dtype, Dc)}")
+    label = (f"B={Bc} H={Hc} KV={KVc} S={S}" + (f" Sk={Sk}" if Sk != S else "")
+             + f" D={Dc} {str(dtype)[6:]} causal={causal} window={window} forward "
+             f"tiling={attention_tiling(dtype, Dc)}")
+    require(all(torch.equal(a, b) for a, b in zip(again, grads[tiling])),
+            f"flash_attention_bwd, {label}, tiling {tiling}: two launches differ")
+    del again
     ref_lse = torch.cat([ref_flash_attention_lse(q[b:b + 1], k[b:b + 1], v[b:b + 1], causal,
                                                  window) for b in range(Bc)])
     lse_err = float((lse - ref_lse).abs().max())
@@ -964,7 +1016,7 @@ def check_attention_bwd(case, gen, dev, smi) -> dict:
                                                      window), 2, warmup=1)
     qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
     # SDPA has no window argument: a window shorter than S goes in as a mask.
-    mask = (dict(attn_mask=attention_mask(S, S, causal, window, dev))
+    mask = (dict(attn_mask=attention_mask(S, Sk, causal, window, dev))
             if 0 < window < S else dict(is_causal=causal))
     out = torch.nn.functional.scaled_dot_product_attention(qr, kr, vr, enable_gqa=True, **mask)
     library_ms = time_ms(
@@ -988,7 +1040,7 @@ def check_attention_bwd(case, gen, dev, smi) -> dict:
         finally:
             fa.sm_count = real
     fwd_yardsticks = ""
-    if case == BWD_CASES[0]:  # the training forward: plain (a batch row at a time) and SDPA
+    if case in TRAIN_FWD_CASES:  # the training forward: plain (a batch row at a time) and SDPA
         extra["fwd_plain_ms"] = time_ms(lambda: [ref_flash_attention(
             q[b:b + 1], k[b:b + 1], v[b:b + 1], causal=causal) for b in range(Bc)], 2, warmup=1)
         extra["fwd_library_ms"] = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -1003,8 +1055,10 @@ def check_attention_bwd(case, gen, dev, smi) -> dict:
              f"{extra['unsplit_kernel_ms']})" if "unsplit_kernel_ms" in extra else "")
           + f" plain_ms {plain_ms} (autograd of the plain version, fp32, a batch row at a time) library_ms "
           f"{library_ms} (SDPA's backward, {backend} backend) bound_ms {bound_ms} ({bound_by}; "
-          f"{11 if Dc == 256 and tiling == 'wgmma' else 7} products where the bound counts 5); "
-          f"forward {fwd_ms} ms, with lse {fwd_lse_ms} ms{fwd_yardsticks}; on {smi}")
+          f"{11 if Dc == 256 and tiling == 'wgmma' else 7} products where the bound counts 5"
+          + ("; wgmma at a compute width of 128" if Dc == 80 and tiling == "wgmma" else "")
+          + f"); two launches bitwise equal; forward {fwd_ms} ms, with lse {fwd_lse_ms} ms"
+          f"{fwd_yardsticks}; on {smi}")
     return dict(tiling=tiling, max_abs_err=max(errs[tiling].values()),
                 max_abs_err_by_grad=errs[tiling], lse_max_abs_err=lse_err,
                 kernel_ms=kernel_ms[tiling], plain_ms=plain_ms, library_ms=library_ms,
@@ -1115,11 +1169,46 @@ def max_rel_err(got: dict, want: dict) -> float:
                for n, w in want.items())
 
 
+def narrow_train_batch(cfg) -> dict:
+    """Two 77-token sequences of a narrow config's inputs on the CPU: tokens
+    (and a VLM's image embeddings), or the encoder's frames and labels."""
+    gen = torch.Generator().manual_seed(2)
+    if cfg.family == "audio":
+        return {"frames": torch.randn(2, 77, cfg.d_model, generator=gen),
+                "labels": torch.randint(0, cfg.vocab, (2, 77), generator=gen)}
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 77), generator=gen)}
+    if cfg.family == "vlm":
+        batch["image_embeds"] = torch.randn(2, cfg.img_tokens, cfg.d_model, generator=gen)
+    return batch
+
+
+def grads_rel_err(got: dict, want: dict) -> tuple[float, dict]:
+    """max_rel_err over the gradients, but a scalar leaf (a VLM cross gate)
+    is held against the largest gradient of its block: its gradient is one
+    sum over every position and width of tanh'(gate) att dh, which cancels
+    far below its terms, so two fp32 orders of the sum may differ by more
+    than 1e-4 of it (check_train_step prints how far the CPU's own fp32 sum
+    lies from an fp64 one).  Returns the bar's max and each scalar leaf's
+    error relative to itself, to print."""
+    scalars = {n for n, w in want.items() if w.numel() == 1}
+    worst = max_rel_err(got, {n: w for n, w in want.items() if n not in scalars})
+    own = {}
+    for n in scalars:
+        err = float((got[n].detach().cpu() - want[n]).abs().max())
+        block = n.rsplit(".", 2)[0] + "."  # blocks.i.
+        scale = max(float(w.abs().max()) for m, w in want.items() if m.startswith(block))
+        worst = max(worst, err / scale)
+        own[n] = err / max(float(want[n].abs().max()), 1e-30)
+    return worst, own
+
+
 def check_train_step(lm, make_train_step, optim, ops, cfg, dev, want=None) -> dict:
     """Phase 3 model: the loss and every gradient of a narrow fp32 model on
     the card (the attention kernels, forward and backward, and the scans'
     where the model has them) against the same model on the CPU (plain
-    versions), then one ``make_train_step`` on each.  ``want``: the
+    versions), then one ``make_train_step`` on each, on
+    ``narrow_train_batch``; a VLM's cross gates are opened to 0.5 first (at
+    0 no gradient reaches its cross-attention).  ``want``: the
     launches of the card's loss and gradients, by default the dense
     model's (attention on the fma tilings, its forward twice under remat).
     The step uses SGD with momentum, whose update is linear in the gradient,
@@ -1128,21 +1217,26 @@ def check_train_step(lm, make_train_step, optim, ops, cfg, dev, want=None) -> di
     0 into a 2 lr difference, so AdamW is held on the card to the CPU's
     arithmetic on the same gradients instead."""
     m_cpu = lm.init(0, cfg, device="cpu")
+    open_gates(m_cpu, 0.5)
     m_gpu = lm.init(0, cfg, device=dev)
     m_gpu.load_state_dict(m_cpu.state_dict())
-    toks = torch.randint(0, cfg.vocab, (2, 77), generator=torch.Generator().manual_seed(2))
-    batch = {"tokens": toks}
-    gpu_batch = {"tokens": toks.to(dev)}
+    batch = narrow_train_batch(cfg)
+    gpu_batch = {k: v.to(dev) for k, v in batch.items()}
     for m in (m_cpu, m_gpu):
         m.requires_grad_(True)
+    def grads_of(loss, model) -> dict:  # a parameter the loss does not read gets 0, as in
+        # make_train_step (a VLM cross block keeps the self norm it never reads)
+        params = dict(model.named_parameters())
+        got = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        return {n: torch.zeros_like(p) if g is None else g
+                for (n, p), g in zip(params.items(), got)}
+
     lc, _ = lm.loss_fn(m_cpu, batch, cfg, loss_chunk=32)
-    grads_cpu = dict(zip(dict(m_cpu.named_parameters()),
-                         torch.autograd.grad(lc, list(m_cpu.parameters()))))
+    grads_cpu = grads_of(lc, m_cpu)
     for n in COUNTERS:
         setattr(ops, n, 0)
     lg, _ = lm.loss_fn(m_gpu, gpu_batch, cfg, loss_chunk=32)
-    grads_gpu = dict(zip(dict(m_gpu.named_parameters()),
-                         torch.autograd.grad(lg, list(m_gpu.parameters()))))
+    grads_gpu = grads_of(lg, m_gpu)
     torch.cuda.synchronize()
     counts = {n: getattr(ops, n) for n in COUNTERS}
     if want is None:
@@ -1151,8 +1245,21 @@ def check_train_step(lm, make_train_step, optim, ops, cfg, dev, want=None) -> di
                     attention_bwd_fma_launches=cfg.n_layers)  # fp32: exact products
     want = {n: want.get(n, 0) for n in COUNTERS}
     require(counts == want, f"narrow train step launches {counts}, want {want}")
+    grads_err, own = grads_rel_err(grads_gpu, grads_cpu)
+    if own:  # the scalar leaves' fp64 gradients on the CPU, to print beside their errors
+        cfg64 = dataclasses.replace(cfg, param_dtype="float64", activation_dtype="float64")
+        m64 = lm.init(0, cfg64, device="cpu")
+        m64.load_state_dict(m_cpu.state_dict())
+        m64.requires_grad_(True)
+        l64, _ = lm.loss_fn(m64, {k: v.double() if v.is_floating_point() else v
+                                  for k, v in batch.items()}, cfg64, loss_chunk=32)
+        exact = grads_of(l64, m64)
+        off = {n: {"card": abs(float(grads_gpu[n]) - float(exact[n])) / abs(float(exact[n])),
+                   "CPU fp32": abs(float(grads_cpu[n]) - float(exact[n])) / abs(float(exact[n])),
+                   "fp64 value": float(exact[n])} for n in own}
+        del m64, l64, exact
     errs = {"loss": abs(float(lg.detach()) - float(lc.detach())) / abs(float(lc.detach())),
-            "grads": max_rel_err(grads_gpu, grads_cpu)}
+            "grads": grads_err}
     # AdamW's arithmetic on the card, on the CPU's gradients.
     opt = optim.adamw(optim.wsd(1e-3, 10))
     params_cpu = {n: p.detach().clone() for n, p in m_cpu.named_parameters()}
@@ -1173,6 +1280,9 @@ def check_train_step(lm, make_train_step, optim, ops, cfg, dev, want=None) -> di
     errs["step params"] = max_rel_err(dict(m_gpu.named_parameters()),
                                       {n: p.detach() for n, p in m_cpu.named_parameters()})
     require(max(errs.values()) <= 1e-4, f"narrow train step, card vs CPU: {errs} (tol 1e-4)")
+    if own:  # printed, not held: see grads_rel_err
+        print(f"phase 3 model: the scalar leaves' gradients against their own size, card vs CPU: "
+              f"{own}; each against the CPU's fp64 gradient: {off}")
     return errs
 
 
@@ -1417,27 +1527,40 @@ def release(run: dict) -> dict:
 def model_flops(cfg, params: dict, B: int, S: int) -> tuple[float, float]:
     """The model FLOPs of one training step at B x S, and the parameters they
     count: 6 a token for each parameter that the token's products read, plus
-    attention's 12 * attention layers * B * heads * head dim for each causal
-    (query, key) pair it keeps (the hybrid: one attention layer a block, its
-    window).  A token reads every parameter but the experts it is not
-    routed to and, where the head is untied, the input embedding (a lookup,
-    no product): every non-expert parameter, and top_k / n_experts of the
-    expert weights."""
+    attention's 12 * B * heads * head dim for each (query, key) pair an
+    attention layer keeps.  A token reads every parameter but the experts it
+    is not routed to and, where the head is untied, the input embedding (a
+    lookup, no product; the audio encoder has none): every non-expert
+    parameter, and top_k / n_experts of the expert weights.  A VLM's cross
+    layers project the image's ``img_tokens`` a sequence through wk and wv,
+    not its S tokens, and keep S x img_tokens pairs.  Self-attention keeps
+    the causal pairs (the hybrid: one attention layer a block, its window),
+    the encoder's all S x S."""
     total = sum(p.numel() for p in params.values())
     experts = sum(p.numel() for n, p in params.items() if ".moe.w" in n)  # wg, wu, wd
-    lookup = 0 if cfg.tie_embeddings else params["embed"].numel()
+    lookup = params["embed"].numel() if "embed" in params and not cfg.tie_embeddings else 0
     active = total - experts - lookup + (experts * cfg.top_k / cfg.n_experts if experts else 0)
-    n_attn, w = cfg.n_layers, S
+    n_attn, w, n_cross, image_kv = cfg.n_layers, S, 0, 0
     if cfg.family == "hybrid":
         n_attn, w = cfg.n_layers // len(cfg.block_pattern), min(cfg.attn_window, S)
-    pairs = w * (w + 1) // 2 + (S - w) * w  # row q keeps min(q + 1, w) keys
-    return 6.0 * active * B * S + 12.0 * n_attn * B * cfg.n_heads * cfg.hd * pairs, active
+    if cfg.family == "vlm":
+        cross = [i for i in range(cfg.n_layers) if i % cfg.cross_attn_every ==
+                 cfg.cross_attn_every - 1]
+        image_kv = sum(params[f"blocks.{i}.attn.{n}"].numel() for i in cross for n in ("wk", "wv"))
+        n_attn, n_cross = cfg.n_layers - len(cross), len(cross)
+    if cfg.family == "audio":
+        pairs = S * S
+    else:
+        pairs = w * (w + 1) // 2 + (S - w) * w  # row q keeps min(q + 1, w) keys
+    pairs = n_attn * pairs + n_cross * S * cfg.img_tokens
+    tokens = 6.0 * B * ((active - image_kv) * S + image_kv * cfg.img_tokens)
+    return tokens + 12.0 * B * cfg.n_heads * cfg.hd * pairs, active
 
 
 def train_full(lm, ops, optim, make_train_step, data, cfg, dev, smi, phase: str, want: dict,
                probes, warmup: int = 0, loss0_tol: float = 0.5, batch: int = TRAIN_B,
                schedule: str = "wsd") -> dict:
-    """Phases 5, 5c, 5d and 5e: trains ``cfg`` on the card (bf16, fp32 AdamW
+    """Phases 5 and 5c-5g: trains ``cfg`` on the card (bf16, fp32 AdamW
     state, WSD or, with ``schedule="cosine"``, cosine with a one-step warm-up)
     for ``warmup`` + TRAIN_STEPS steps of ``batch_for_step`` at ``batch`` x
     TRAIN_S, then FIXED_STEPS steps on one fixed batch, with remat
@@ -1511,14 +1634,17 @@ def train_full(lm, ops, optim, make_train_step, data, cfg, dev, smi, phase: str,
     print(f"phase {phase} train: {TRAIN_STEPS} steps after {warmup} warm-up, median {step_ms} ms "
           f"a step (min {min(timed) * 1e3}, max {max(timed) * 1e3}), {tokens / step_ms * 1e3} "
           f"tokens/s, model FLOPs {flops / 1e12} TFLOP a step (6 x {active} parameters a token "
-          f"read x {tokens} tokens + attention), {mfu} of 989 TFLOP/s, peak memory {peak_gb} GB, "
+          f"read x {tokens} tokens + attention"
+          + (", the cross layers' wk and wv over the image's tokens" if cfg.family == "vlm" else "")
+          + f"), {mfu} of 989 TFLOP/s, peak memory {peak_gb} GB, "
           f"launches per step {per_step[0]} (total {counts}), on {smi}")
 
     fixed = []
     for i in range(FIXED_STEPS):
         _, _, metrics = step_fn(model, state, batches[steps], steps + i)
         fixed.append(float(metrics["loss"]))
-        require(math.isfinite(float(metrics["aux"])), f"finite aux loss {metrics['aux']}")
+        if "aux" in metrics:  # the encoder's loss has none, as the reference's
+            require(math.isfinite(float(metrics["aux"])), f"finite aux loss {metrics['aux']}")
     require(all(math.isfinite(x) for x in fixed) and fixed[-1] < fixed[0],
             f"{FIXED_STEPS} steps on one fixed batch lower its loss: {fixed}")
     print(f"phase {phase} train: {FIXED_STEPS} steps on one fixed batch, losses {fixed}")
@@ -1573,7 +1699,9 @@ def trace_train_step(lm, run: dict, cfg, group_of, phase: str, smi, rules=MOE_SP
     params = dict(model.named_parameters())
     with torch.enable_grad():
         total, _ = lm.loss_fn(model, batch, cfg, remat="full", loss_chunk=LOSS_CHUNK)
-        grads = dict(zip(params, torch.autograd.grad(total, list(params.values()))))
+        got = torch.autograd.grad(total, list(params.values()), allow_unused=True)
+        grads = {n: torch.zeros_like(p) if g is None else g  # a VLM cross block's self norm
+                 for (n, p), g in zip(params.items(), got)}
     del total
     _, adamw_kernels = profiled(lambda i: opt.update(grads, state, params, step + 3 + i))
     adamw = sum(adamw_kernels.values())
@@ -1612,23 +1740,29 @@ def trace_train_step(lm, run: dict, cfg, group_of, phase: str, smi, rules=MOE_SP
                 head_gemm_ms=head_gemm if head is not None else None)
 
 
-def loss_head_ops(cfg, batch: int = TRAIN_B):
+def loss_head_ops(cfg, batch: int = TRAIN_B, chunk: int = TRAIN_S):
     """(predicate, GEMM bound ms) of the loss head of a ``batch`` x TRAIN_S
-    step of ``cfg`` with the full CE, for trace_train_step: its operators are
-    those that read a tensor of the logits' size (the logits, their fp32
-    copy, their gradients; the two backward products read one) and the
-    product with an operand shaped as the head (the logits' forward); the
-    bound is its three products at the bf16 peak."""
-    logits = batch * TRAIN_S * cfg.vocab
+    step of ``cfg`` with the CE over ``chunk`` positions at a time (TRAIN_S:
+    the full CE), for trace_train_step: its operators are those that read a
+    tensor of a chunk's logits' size (the logits, their fp32 copy, their
+    gradients; the two backward products read one) and the product with an
+    operand shaped as the head (the logits' forward, and its recomputation
+    under the chunked CE); the bound is the three products of the whole
+    sequence at the bf16 peak.  A tensor shaped as the head or the embedding
+    counts only in a product: the VLM's chunk of 4 x 1024 logits has the
+    size of its (4096, 128256) head, which AdamW and the grad norm read too."""
+    logits = batch * chunk * cfg.vocab
+    weights = ([cfg.d_model, cfg.vocab], [cfg.vocab, cfg.d_model])
 
     def numel(shape) -> int:  # 0 for a scalar or a list of tensors
         return math.prod(shape) if shape and all(isinstance(d, int) for d in shape) else 0
 
     def predicate(name: str, shapes) -> bool:
-        return (any(numel(s) == logits for s in shapes)
+        return (any(numel(s) == logits and s not in weights for s in shapes)
                 or (name == "aten::mm" and [cfg.d_model, cfg.vocab] in shapes))
 
-    return predicate, 3 * 2.0 * logits * cfg.d_model / PEAK_FLOPS[torch.bfloat16] * 1e3
+    flops = 3 * 2.0 * batch * TRAIN_S * cfg.vocab * cfg.d_model
+    return predicate, flops / PEAK_FLOPS[torch.bfloat16] * 1e3
 
 
 def train_ssm(lm, ops, optim, make_train_step, data, group_of, cfg, dev, smi) -> dict:
@@ -1695,6 +1829,55 @@ def train_hybrid(lm, ops, optim, make_train_step, data, group_of, cfg, dev, smi)
     wall_s = time.perf_counter() - t0
     print(f"phase 5e summary: {json.dumps(summary)} in {wall_s:.2f} s, reduced: layers 38 -> "
           f"{cfg.n_layers}, global batch 256 -> {HYB_TRAIN_B} (sequence {TRAIN_S} kept), on {smi}")
+    return dict(trained, trace=trace, wall_s=wall_s)
+
+
+def train_vlm_or_encoder(lm, ops, optim, make_train_step, data, group_of, cfg, dev, smi,
+                         phase: str, reduced: str) -> dict:
+    """Phases 5f and 5g: trains ``cfg`` (llama-3.2-vision-11b at full width
+    and a cut depth, or hubert-xlarge whole) at TRAIN_B x TRAIN_S through
+    train_full with the config's cosine schedule, remat "full" and
+    LOSS_CHUNK (the encoder's CE over its 504 classes is never chunked, as
+    in the reference).  Every step launches two forward attention kernels a
+    self layer (remat "full" runs it twice), one a VLM cross layer (not
+    rematerialized, as in the reference) and one backward a layer, all on
+    the wgmma tilings.  The VLM's cross gates start at 0, so no gradient
+    reaches a cross layer's wk before the gate has moved: its gate and wk
+    are among the probes that must change.  The untied head lifts the
+    first loss (logits of variance near 0.8 at init: about 0.4 above ln V);
+    the VLM's probes of the chunked loss include the head, and its bar is 1,
+    as for the other untied heads; the encoder's is 0.5.  Then traces one
+    step, the loss head apart; the model is freed before it returns.
+    ``reduced`` names the cuts.  Returns the numbers of the run."""
+    t0 = time.perf_counter()
+    L_ = cfg.n_layers
+    n_cross = L_ // cfg.cross_attn_every if cfg.family == "vlm" else 0
+    fwd = 2 * (L_ - n_cross) + n_cross
+    want = {n: 0 for n in COUNTERS}
+    want.update(attention_launches=fwd, attention_wgmma_launches=fwd,
+                attention_bwd_launches=L_, attention_bwd_wgmma_launches=L_)
+    if cfg.family == "vlm":
+        x0 = cfg.cross_attn_every - 1  # the first cross layer
+        probes = ("embed", "lm_head", "blocks.0.attn.wq", f"blocks.{x0}.attn.wk",
+                  f"blocks.{x0}.attn.gate", f"blocks.{L_ - 1}.attn.wv", "final_norm")
+        loss0_tol, head = 1.0, loss_head_ops(cfg, chunk=LOSS_CHUNK)
+    else:
+        probes = ("lm_head", "blocks.0.attn.wq", "blocks.0.mlp.w1", f"blocks.{L_ - 1}.mlp.w2",
+                  "final_norm")
+        loss0_tol, head = 0.5, loss_head_ops(cfg)
+    run = train_full(lm, ops, optim, make_train_step, data, cfg, dev, smi, phase, want, probes,
+                     warmup=2, loss0_tol=loss0_tol, schedule=cfg.schedule)
+    trace = trace_train_step(lm, run, cfg, group_of, phase, smi, rules=(),
+                             groups=("attention forward", "attention backward", "cuBLAS GEMMs"),
+                             want=(("flash_attention_wgmma_kernel",), ("dkdv_wgmma_kernel",)),
+                             head=head)
+    trained = release(run)
+    summary = {k: trained[k] for k in ("n_params", "active_params", "step_ms", "tokens_per_s",
+                                        "model_tflop", "mfu", "peak_gb")}
+    summary.update(trace)
+    wall_s = time.perf_counter() - t0
+    print(f"phase {phase} summary: {json.dumps(summary)} in {wall_s:.2f} s, reduced: {reduced}, "
+          f"on {smi}")
     return dict(trained, trace=trace, wall_s=wall_s)
 
 
@@ -1882,7 +2065,7 @@ def main() -> int:
         # head dim (the wgmma ones at D = 256 at the same 168 registers, its consumers splitting
         # D rather than rows), and the sum of the D = 256 dk/dv partials in bf16 and fp16
         for base in ("dkdv_wgmma_kernel", "dq_wgmma_kernel", "dkdv_kernel", "dq_kernel"):
-            for d in (64, 128, 256):
+            for d in (64, 80, 128, 256):
                 require(any(fn.startswith(base) and f"Li{d}E" in fn for fn in bwd_report),
                         f"ptxas reports no {base} at D = {d}")
         got = sum(fn.startswith("dkdv_sum_kernel") for fn in bwd_report)
@@ -2339,6 +2522,29 @@ def main() -> int:
           f"D={small.hd}, window {small.attn_window}, 2 x 77 tokens), card vs CPU plain: max "
           f"relative err {hybrid_step} (tol 1e-4)")
 
+    # Narrow fp32 train steps of the VLM (head dim 128, 10 layers of which
+    # 2 cross layers over 100 image tokens, the gates at 0.5) and of the
+    # encoder (head dim 80, unmasked): the attention kernels, forward and
+    # backward (the fma tilings in fp32; the cross layers run their forward
+    # once, not rematerialized), on the card against the plain versions on
+    # the CPU.
+    family_steps = {}
+    for arch in ("llama-3.2-vision-11b", "hubert-xlarge"):
+        small = narrow_config(get_config, arch)
+        n_cross = small.n_layers // small.cross_attn_every if small.family == "vlm" else 0
+        fwd = 2 * (small.n_layers - n_cross) + n_cross
+        family_steps[arch] = check_train_step(
+            lm, make_train_step, optim, ops, small, dev,
+            want=dict(attention_launches=fwd, attention_fma_launches=fwd,
+                      attention_bwd_launches=small.n_layers,
+                      attention_bwd_fma_launches=small.n_layers))
+        cross = (f" ({n_cross} cross over {small.img_tokens} image tokens, gates 0.5)"
+                 if n_cross else "")
+        print(f"phase 3 model: narrow fp32 {small.family} train step ({arch} smoke, d_model "
+              f"{small.d_model}, {small.n_layers} layers{cross}, H={small.n_heads} "
+              f"KV={small.n_kv_heads} D={small.hd}, 2 x 77 positions), card vs CPU plain: max "
+              f"relative err {family_steps[arch]} (tol 1e-4)")
+
     # Phase 4: serve granite-8b at full width and depth.
     cfg = get_config("granite-8b")
     t0 = time.perf_counter()
@@ -2562,6 +2768,23 @@ def main() -> int:
                 f"{HYB_WARMUP + TRAIN_STEPS} steps")
     decode_line = serve_decode_twin("falcon-mamba-7b", smi)
 
+    # Phase 5f: llama-3.2-vision-11b trained at full width, 10 of its 40
+    # layers (two groups of 4 self layers and a cross layer, so that the
+    # first cross layer's dk and dv feed later layers).  Phase 5g:
+    # hubert-xlarge trained whole.
+    vlm_cfg = dataclasses.replace(get_config(VLM_TRAIN_ARCH), n_layers=VLM_TRAIN_LAYERS)
+    vlm_trained = train_vlm_or_encoder(
+        lm, ops, optim, make_train_step, data, group_of, vlm_cfg, dev, smi, "5f",
+        f"layers 40 -> {VLM_TRAIN_LAYERS}, global batch 256 -> {TRAIN_B} (sequence {TRAIN_S} "
+        f"and {IMG_TOKENS} image tokens kept)")
+    au_trained = train_vlm_or_encoder(
+        lm, ops, optim, make_train_step, data, group_of, get_config(AU_TRAIN_ARCH), dev, smi,
+        "5g", f"global batch 256 -> {TRAIN_B} (sequence {TRAIN_S} kept; every layer)")
+    vlm_counts, au_counts = vlm_trained["counts"], au_trained["counts"]
+    vlm_path = (f"{VLM_TRAIN_ARCH} train ({VLM_TRAIN_LAYERS} layers), "
+                f"{2 + TRAIN_STEPS} steps")
+    au_path = f"{AU_TRAIN_ARCH} train, {2 + TRAIN_STEPS} steps"
+
     # Phase 6: the planner on the card.
     planned = plan_phase(dev, smi)
     print(f"phase 6 summary: {json.dumps(planned)} on {smi}")
@@ -2580,14 +2803,17 @@ def main() -> int:
         "tiling": main_case["tiling"],
         "launches": (granite_attention_launches + att_total + griffin["attention_launches"]
                      + vlm["attention_launches"] + hubert["attention_launches"] + train_fwd
-                     + moe_counts["attention_launches"] + hyb_counts["attention_launches"]),
+                     + moe_counts["attention_launches"] + hyb_counts["attention_launches"]
+                     + vlm_counts["attention_launches"] + au_counts["attention_launches"]),
         "launches_by_path": {"granite-8b": granite_attention_launches, qwen_name: att_total,
                              "recurrentgemma-9b": griffin["attention_launches"],
                              "llama-3.2-vision-11b": vlm["attention_launches"],
                              "hubert-xlarge": hubert["attention_launches"],
                              f"{TRAIN_ARCH} train, {TRAIN_STEPS} steps": train_fwd,
                              moe_path: moe_counts["attention_launches"],
-                             hyb_path: hyb_counts["attention_launches"]},
+                             hyb_path: hyb_counts["attention_launches"],
+                             vlm_path: vlm_counts["attention_launches"],
+                             au_path: au_counts["attention_launches"]},
         "max_abs_err": main_case["max_abs_err"],
         "max_err_bf16": main_case["max_abs_err"],
         "ms": main_case["kernel_ms"],
@@ -2629,6 +2855,9 @@ def main() -> int:
         "train_fwd_plain_ms": bwd[0]["fwd_plain_ms"],
         "train_fwd_library_ms": bwd[0]["fwd_library_ms"],
         "train_lse_max_abs_err": bwd[0]["lse_max_abs_err"],
+        **{f"train_{name}_{k}": bwd[i][k] for name, i in (("d80", 6), ("cross", 10))
+           for k in ("fwd_ms", "fwd_lse_ms", "fwd_plain_ms", "fwd_library_ms", "fwd_bound_ms",
+                     "lse_max_abs_err")},
     }, {
         "name": "flash_attention_bwd",
         "route": "cuda",
@@ -2636,15 +2865,22 @@ def main() -> int:
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
         "replaces": None,  # the TPU side has no backward kernel (jax.grad of XLA code)
         "launches": (train_bwd + moe_counts["attention_bwd_launches"]
-                     + hyb_counts["attention_bwd_launches"]),
+                     + hyb_counts["attention_bwd_launches"] + vlm_counts["attention_bwd_launches"]
+                     + au_counts["attention_bwd_launches"]),
         "launches_by_path": {f"{TRAIN_ARCH} train, {TRAIN_STEPS} steps": train_bwd,
                              moe_path: moe_counts["attention_bwd_launches"],
-                             hyb_path: hyb_counts["attention_bwd_launches"]},
+                             hyb_path: hyb_counts["attention_bwd_launches"],
+                             vlm_path: vlm_counts["attention_bwd_launches"],
+                             au_path: au_counts["attention_bwd_launches"]},
         "launches_per_step": trained["launches_per_step"]["attention_bwd_launches"],
         "launches_per_step_d256": hyb_trained["launches_per_step"]["attention_bwd_launches"],
+        "launches_per_step_vlm": vlm_trained["launches_per_step"]["attention_bwd_launches"],
+        "launches_per_step_d80": au_trained["launches_per_step"]["attention_bwd_launches"],
         "launches_wgmma": (trained["counts"]["attention_bwd_wgmma_launches"]
                            + moe_counts["attention_bwd_wgmma_launches"]
-                           + hyb_counts["attention_bwd_wgmma_launches"]),
+                           + hyb_counts["attention_bwd_wgmma_launches"]
+                           + vlm_counts["attention_bwd_wgmma_launches"]
+                           + au_counts["attention_bwd_wgmma_launches"]),
         "ms": bwd[0]["kernel_ms"],
         **{k: bwd[0][k] for k in ("max_abs_err", "max_abs_err_by_grad", "kernel_ms", "plain_ms",
                                   "library_ms", "bound_ms", "bound_by", "fma_kernel_ms",
@@ -2659,6 +2895,13 @@ def main() -> int:
                                              "fwd_ms", "fwd_bound_ms")},
         **{f"d256_fp32_{k}": bwd[5][k] for k in ("tiling", "max_abs_err", "kernel_ms",
                                                   "plain_ms", "library_ms", "bound_ms")},
+        **{f"{name}_{k}": bwd[i][k]
+           for name, i in (("d80", 6), ("d80_ragged", 7), ("d80_sq_ne_sk", 8), ("d80_fp32", 9),
+                           ("cross", 10))
+           for k in ("tiling", "max_abs_err", "kernel_ms", "plain_ms", "library_ms",
+                     "library_backend", "bound_ms", "bound_by", "fwd_ms", "fwd_bound_ms")},
+        **{f"{name}_fma_kernel_ms": bwd[i]["fma_kernel_ms"]
+           for name, i in (("d80", 6), ("d80_ragged", 7), ("d80_sq_ne_sk", 8), ("cross", 10))},
     }, {
         "name": "moe_gmm",
         "route": "cuda",

@@ -9,7 +9,7 @@
 // fp32 in (b, j) order and rounded once.  Ids follow the reference's
 // gather: a negative id wraps once by R, and an id still outside [0, R)
 // contributes no gradient (the forward reads a clamped row for it, but the
-// scatter drops it).  No float atomics (ROADMAP C5): every row of dtables is
+// scatter drops it).  No float atomics, so the bits repeat: every row of dtables is
 // written once, by one group of lanes, in one order, so two launches on the
 // same inputs give the same bits.  The wrapper (kernels/embedding_bag.py)
 // zeroes dtables; rows no id selects keep those zeros.  Every offset into

@@ -17,7 +17,7 @@
 // fp32; dq, dk, dv in the input dtype (fp32, fp16 or bf16); all sums fp32.
 // The masks are the forward's: query and key positions both count from 0,
 // a row q sees keys k < Sk with k <= q (causal) and k > q - window
-// (window > 0).  Head dims 64, 128 and 256.  Rows that see no key are refused
+// (window > 0).  Head dims 64, 80, 128 and 256.  Rows that see no key are refused
 // by the wrapper (kernels/flash_attention.py), so P never needs the
 // forward's mean-of-v repair.
 //
@@ -35,8 +35,8 @@
 // Two tilings, one C entry point each; kernels/flash_attention.py's
 // `attention_bwd_tiling` chooses among them:
 //
-// * wgmma (bf16/fp16; D = 64, 128 or 256; every training step of the card's
-//   bf16 models).  The dk/dv and dq kernels on the tensor cores, built like
+// * wgmma (bf16/fp16; D = 64, 80, 128 or 256; every training step of the
+//   card's bf16 models).  The dk/dv and dq kernels on the tensor cores, built like
 //   the wgmma forward: blocks of three warpgroups, a producer at 24
 //   registers (setmaxnreg) that feeds a 2-stage ring of 64-row tiles by TMA
 //   (128-byte swizzle, zeros past Sq and Sk), and two consumers at 240 that
@@ -72,6 +72,13 @@
 //   Shared memory: two 128-row operands and two stages of two 64-row tiles
 //   (plus 512 bytes of lse and delta a stage for dk/dv): 65 KB at D = 64,
 //   129 KB at D = 128.
+//   At D = 80 (hubert-xlarge) both kernels run at the compute width DP =
+//   128, as the forward does: the tensor maps keep the real inner extent
+//   (80 columns, 160 bytes a row), so TMA fills columns 80-127 of each row's
+//   second box with zeros; S and dP issue ceil(D / 16) = 5 k16 steps, dV,
+//   dK and dQ accumulate DP columns (the padded ones stay 0), the epilogue
+//   stores the first 80, and the scale is 1/sqrt(80).  D = 128's footprint:
+//   the padding costs 3/8 of the dV, dK and dQ products.
 //   At D = 256 (recurrentgemma-9b) that layout needs 256 KB of shared
 //   memory and 256 accumulator registers a consumer thread, past the 227 KB
 //   and the 240 of the setmaxnreg split.  So a block owns 64 keys (dk/dv)
@@ -92,7 +99,9 @@
 //   staged in shared memory as fp32 (row stride D + 4), S and dP are fp32
 //   FMAs on the CUDA cores, P and dS go through shared memory, and dV, dK
 //   (key rows 4ty .. 4ty+3, columns 64c + 4tx .. +3) and dQ accumulate in
-//   registers.  Keys past Sk and rows past Sq get P = 0.
+//   registers.  Keys past Sk and rows past Sq get P = 0.  At D = 80 a
+//   thread's columns of dV, dK and dQ are 4tx .. +3 and, for tx < 4 only,
+//   64 + 4tx .. +3 (the forward's column split).
 //
 // Bound on the H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): 5 products of
 // 2 * D flops a kept (query, key) pair.  At minicpm-2b's training shape
@@ -136,7 +145,8 @@ template <int D> struct Fma {
   static constexpr int LDP = BK + 4;             // row stride of the P and dS tiles, in floats
 };
 // Blocks of the dk/dv and dq kernels that fit on an SM by shared memory (104
-// and 87 KB at D = 64, 170 and 153 KB at D = 128, 139 and 135 KB at D = 256):
+// and 87 KB at D = 64, 119 and 102 KB at D = 80, 170 and 153 KB at D = 128,
+// 139 and 135 KB at D = 256):
 // the register budget ptxas is given, 128 or 255 a thread.
 #define BLOCKS_PER_SM(D) ((D) == 64 ? 2 : 1)
 
@@ -292,7 +302,7 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
             int KV, int Sq, int Sk, int causal, int window, float scale) {
   constexpr int BQ = Fma<D>::BQ, BK = Fma<D>::BK, RK = Fma<D>::RK, LDP = Fma<D>::LDP;
   constexpr int LD = D + 4;
-  constexpr int NC = D / 64;  // groups of 4 columns a thread owns in dK and dV
+  constexpr int NC = (D + 63) / 64;  // groups of 4 columns a thread owns in dK and dV
   extern __shared__ float4 smem4[];
   float* sK = reinterpret_cast<float*>(smem4);
   float* sV = sK + BK * LD;
@@ -359,6 +369,7 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
         }
 #pragma unroll
         for (int c = 0; c < NC; ++c) {
+          if (D % 64 != 0 && 64 * c + 4 * tx >= D) continue;  // columns past D
           const float4 dov = *reinterpret_cast<const float4*>(sdO + i * LD + 64 * c + 4 * tx);
           const float4 qv = *reinterpret_cast<const float4*>(sQ + i * LD + 64 * c + 4 * tx);
 #pragma unroll
@@ -384,12 +395,14 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
     T* dkrow = dk + kv_off + (size_t)kpos * D;
     T* dvrow = dv + kv_off + (size_t)kpos * D;
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
+    for (int c = 0; c < NC; ++c) {
+      if (D % 64 != 0 && 64 * c + 4 * tx >= D) continue;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         dkrow[64 * c + 4 * tx + e] = from_float<T>(dk_acc[kk][4 * c + e] * scale);
         dvrow[64 * c + 4 * tx + e] = from_float<T>(dv_acc[kk][4 * c + e]);
       }
+    }
   }
 }
 
@@ -401,7 +414,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
           int causal, int window, float scale) {
   constexpr int BQ = Fma<D>::BQ, BK = Fma<D>::BK, RQ = Fma<D>::RQ, LDP = Fma<D>::LDP;
   constexpr int LD = D + 4;
-  constexpr int NC = D / 64;  // groups of 4 columns a thread owns in dQ
+  constexpr int NC = (D + 63) / 64;  // groups of 4 columns a thread owns in dQ
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
   float* sdO = sQ + BQ * LD;
@@ -456,6 +469,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
       for (int jj = 0; jj < 4; ++jj) {
 #pragma unroll
         for (int c = 0; c < NC; ++c) {
+          if (D % 64 != 0 && 64 * c + 4 * tx >= D) continue;  // columns past D
           const float4 kv = *reinterpret_cast<const float4*>(sK + (j + jj) * LD + 64 * c + 4 * tx);
 #pragma unroll
           for (int i = 0; i < RQ; ++i) {
@@ -476,10 +490,12 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     if (qpos >= Sq) continue;
     T* dqrow = dq + bh * Sq * D + (size_t)qpos * D;
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
+    for (int c = 0; c < NC; ++c) {
+      if (D % 64 != 0 && 64 * c + 4 * tx >= D) continue;
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         dqrow[64 * c + 4 * tx + e] = from_float<T>(acc[i][4 * c + e] * scale);
+    }
   }
 }
 
@@ -529,6 +545,9 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, const void* o,
   if (D == 64)
     return launch<T, 64>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, KV, Sq, Sk, causal,
                          window, stream);
+  if (D == 80)
+    return launch<T, 80>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, KV, Sq, Sk, causal,
+                         window, stream);
   if (D == 128)
     return launch<T, 128>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, KV, Sq, Sk, causal,
                           window, stream);
@@ -545,6 +564,9 @@ constexpr int BN = 64;   // rows of a streamed tile: queries (dk/dv) or keys (dq
 constexpr int STAGES = 2;
 constexpr int THREADS = 384;  // consumer warpgroups 0 and 1, producer 2
 constexpr float LOG2E = 1.4426950408889634f;
+
+// The compute width of head dim D: whole 64-wide boxes (80 -> 128).
+template <int D> struct Width { static constexpr int value = (D + 63) / 64 * 64; };
 
 // How a block's two consumer warpgroups share its work.  At D = 64 and 128
 // the block owns 128 keys (dk/dv) or query rows (dq), 64 a consumer, and
@@ -601,11 +623,13 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                   int heads_per, float scale, float scale_log2) {
   using wg::BN;
   using wg::STAGES;
-  using S = wg::Smem<D>;
-  using C = wg::Cfg<D>;
+  constexpr int DP = wg::Width<D>::value;  // the compute width (80 -> 128)
+  using S = wg::Smem<DP>;
+  using C = wg::Cfg<DP>;
   constexpr int BM = C::BM;
   constexpr int NW = C::NW;
-  constexpr int CH = D / 64;  // 64-wide column boxes of a row
+  constexpr int NS = C::SPLIT ? NW : D;  // of its columns, the ones it stores
+  constexpr int CH = DP / 64;  // 64-wide column boxes of a row
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = hopper::align_1024(smem_raw);
   uint8_t* sk = smem;                  // K: the block's 128 keys
@@ -733,12 +757,12 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
           hopper::fence_regs(dpt);
           hopper::wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < D / 16; ++kk)
+          for (int kk = 0; kk < (D + 15) / 16; ++kk)
             hopper::Wgmma<BN, T>::template ss<0>(st, wg::kmajor<BM>(kw, kk),
                                                  wg::kmajor<BN>(qs, kk), kk > 0);
           hopper::wgmma_commit();
 #pragma unroll
-          for (int kk = 0; kk < D / 16; ++kk)
+          for (int kk = 0; kk < (D + 15) / 16; ++kk)
             hopper::Wgmma<BN, T>::template ss<0>(dpt, wg::kmajor<BM>(vw, kk),
                                                  wg::kmajor<BN>(dos, kk), kk > 0);
           hopper::wgmma_commit();
@@ -808,7 +832,7 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         const size_t n = (size_t)gridDim.z * KV * Sk * D;  // one partial of dk
         const size_t at = split * n + ((size_t)bkv * Sk + kpos) * D + wcol;
 #pragma unroll
-        for (int j = 0; j < NW / 8; ++j) {
+        for (int j = 0; j < NS / 8; ++j) {
           *reinterpret_cast<float2*>(part + at + 8 * j + col0) =
               make_float2(dk_acc[4 * j + 2 * rr], dk_acc[4 * j + 2 * rr + 1]);
           *reinterpret_cast<float2*>(part + splits * n + at + 8 * j + col0) =
@@ -819,7 +843,7 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       T* dkrow = dk + ((size_t)bkv * Sk + kpos) * D + wcol;
       T* dvrow = dv + ((size_t)bkv * Sk + kpos) * D + wcol;
 #pragma unroll
-      for (int j = 0; j < NW / 8; ++j) {
+      for (int j = 0; j < NS / 8; ++j) {
         *reinterpret_cast<uint32_t*>(dkrow + 8 * j + col0) =
             hopper::pack2<T>(dk_acc[4 * j + 2 * rr] * scale, dk_acc[4 * j + 2 * rr + 1] * scale);
         *reinterpret_cast<uint32_t*>(dvrow + 8 * j + col0) =
@@ -857,11 +881,13 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                 int causal, int window, float scale, float scale_log2) {
   using wg::BN;
   using wg::STAGES;
-  using S = wg::Smem<D>;
-  using C = wg::Cfg<D>;
+  constexpr int DP = wg::Width<D>::value;
+  using S = wg::Smem<DP>;
+  using C = wg::Cfg<DP>;
   constexpr int BM = C::BM;
   constexpr int NW = C::NW;
-  constexpr int CH = D / 64;
+  constexpr int NS = C::SPLIT ? NW : D;
+  constexpr int CH = DP / 64;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = hopper::align_1024(smem_raw);
   uint8_t* sq = smem;                   // Q: the block's 128 query rows
@@ -965,12 +991,12 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         hopper::fence_regs(dp);
         hopper::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
+        for (int kk = 0; kk < (D + 15) / 16; ++kk)
           hopper::Wgmma<BN, T>::template ss<0>(sc, wg::kmajor<BM>(qw, kk),
                                                wg::kmajor<BN>(ks, kk), kk > 0);
         hopper::wgmma_commit();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
+        for (int kk = 0; kk < (D + 15) / 16; ++kk)
           hopper::Wgmma<BN, T>::template ss<0>(dp, wg::kmajor<BM>(dow, kk),
                                                wg::kmajor<BN>(vs, kk), kk > 0);
         hopper::wgmma_commit();
@@ -1022,7 +1048,7 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       if (qpos > wq_last) continue;
       T* dqrow = dqp + (size_t)qpos * D + wcol;
 #pragma unroll
-      for (int j = 0; j < NW / 8; ++j)
+      for (int j = 0; j < NS / 8; ++j)
         *reinterpret_cast<uint32_t*>(dqrow + 8 * j + col0) =
             hopper::pack2<T>(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
     }
@@ -1038,8 +1064,9 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 template <int D>
 int heads_per_split(int B, int H, int KV, int Sk, int sms) {
   const int g = H / KV;
-  const long blocks = (long)((Sk + wg::Cfg<D>::BM - 1) / wg::Cfg<D>::BM) * KV * B;
-  if (!wg::Cfg<D>::SPLIT || blocks >= sms) return g;
+  using C = wg::Cfg<wg::Width<D>::value>;
+  const long blocks = (long)((Sk + C::BM - 1) / C::BM) * KV * B;
+  if (!C::SPLIT || blocks >= sms) return g;
   const int splits = (int)std::min<long>(g, sms / blocks);
   return (g + splits - 1) / splits;
 }
@@ -1050,8 +1077,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void
                          float* delta, float* work, int B, int H, int KV, int Sq, int Sk,
                          int causal, int window, int sms, cudaStream_t stream) {
   constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int bytes = wg::Smem<D>::BYTES;
-  constexpr int BM = wg::Cfg<D>::BM;
+  constexpr int bytes = wg::Smem<wg::Width<D>::value>::BYTES;
+  constexpr int BM = wg::Cfg<wg::Width<D>::value>::BM;
   const uint64_t bh = (uint64_t)B * H, bkv = (uint64_t)B * KV;
   // dk/dv streams 64-row tiles of q and dO past BM-key blocks of k and v;
   // dq the other way round.
@@ -1107,6 +1134,9 @@ cudaError_t launch_wgmma_d(const void* q, const void* k, const void* v, const vo
   if (D == 64)
     return launch_wgmma<T, 64>(q, k, v, o, dout, lse, dq, dk, dv, delta, work, B, H, KV, Sq, Sk,
                                causal, window, sms, stream);
+  if (D == 80)
+    return launch_wgmma<T, 80>(q, k, v, o, dout, lse, dq, dk, dv, delta, work, B, H, KV, Sq, Sk,
+                               causal, window, sms, stream);
   if (D == 128)
     return launch_wgmma<T, 128>(q, k, v, o, dout, lse, dq, dk, dv, delta, work, B, H, KV, Sq,
                                 Sk, causal, window, sms, stream);
@@ -1126,7 +1156,7 @@ bool valid(int B, int H, int KV, int Sq, int Sk, int window) {
 // q, o, dout, dq: (B, H, Sq, D); k, v, dk, dv: (B, KV, Sk, D); lse, delta:
 // (B, H, Sq) fp32, delta scratch the call overwrites.  Contiguous device
 // arrays, 16-byte aligned.  dtype: 0 float32, 1 float16, 2 bfloat16.  D: 64,
-// 128 or 256.  work: repro_flash_attention_bwd_workspace(B, H, KV, Sk, D,
+// 80, 128 or 256.  work: repro_flash_attention_bwd_workspace(B, H, KV, Sk, D,
 // sms) bytes of scratch (the wgmma tiling's partials of dk and dv at
 // D = 256; may be null where that is 0); sms: the card's SMs.  Each entry
 // point launches one tiling's kernels on `stream` and returns a cudaError_t

@@ -21,7 +21,8 @@ a key, and does nothing at Sq = Sk (every served prefill).
 
 Training: given ``lse``, either tiling also writes each query row's
 log-sum-exp, and :func:`flash_attention_bwd` (``csrc/flash_attention_bwd.cu``,
-head dims 64, 128 and 256) computes dq, dk and dv from it on one of two tilings,
+head dims 64, 80, 128 and 256; 80 at a compute width of 128 on ``wgmma``, as
+the forward) computes dq, dk and dv from it on one of two tilings,
 ``wgmma`` (bf16/fp16) and ``fma`` (any dtype; exact fp32), one C entry point
 each; :func:`attention_bwd_tiling` chooses.  :class:`FlashAttentionFn` joins
 the forward and the backward for autograd.  The backward refuses
@@ -43,7 +44,8 @@ DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 HALF_DTYPES = (torch.float16, torch.bfloat16)
 HEAD_DIMS = (64, 80, 128, 256)  # 80: hubert-xlarge, at a compute width of 128 on wgmma
 TILINGS = ("wgmma", "fma")
-BWD_HEAD_DIMS = (64, 128, 256)  # minicpm-2b; granite-8b/34b, deepseek-coder-33b; recurrentgemma
+# minicpm-2b; hubert-xlarge; granite-8b/34b, deepseek-coder-33b, the VLM; recurrentgemma
+BWD_HEAD_DIMS = (64, 80, 128, 256)
 
 
 def attention_tiling(dtype: torch.dtype, head_dim: int) -> str:
@@ -166,8 +168,7 @@ def check_bwd(q, k, causal: bool, window: int) -> None:
     dim outside ``BWD_HEAD_DIMS``, or rows that see no key."""
     Sq, D = q.shape[2], q.shape[3]
     if D not in BWD_HEAD_DIMS:
-        raise ValueError(f"flash_attention_bwd: head dim {D} not in {BWD_HEAD_DIMS} "
-                         "(80: ROADMAP.md queue 1 item 1.5, the audio slice)")
+        raise ValueError(f"flash_attention_bwd: head dim {D} not in {BWD_HEAD_DIMS}")
     first = first_masked_row(Sq, k.shape[2], causal, window)
     if first < Sq:
         raise ValueError(f"flash_attention_bwd: rows {first}..{Sq - 1} see no key "
@@ -180,7 +181,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True, window: int = 
     """The gradient of :func:`flash_attention` -> (dq, dk, dv) in q's dtype.
 
     q, o, do: (B, H, Sq, D); k, v: (B, KV, Sk, D); lse: (B, H, Sq) fp32 from
-    the forward, all on one CUDA device; D 64, 128 or 256.  ``tiling``
+    the forward, all on one CUDA device; D 64, 80, 128 or 256.  ``tiling``
     defaults to :func:`attention_bwd_tiling`'s choice; a tiling that does not
     take the dtype raises.  Launches the CUDA backward once (three kernels on
     the current stream; at D = 256 the wgmma tiling may split the query heads

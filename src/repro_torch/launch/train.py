@@ -6,14 +6,22 @@
 Runs on the card unless given ``--device cpu``; ``--smoke`` takes the
 reduced config, whose head dim 16 the attention kernels do not take, so
 smoke runs are CPU only, but for falcon-mamba-7b's (no attention).  On the
-card the dense, MoE, ssm and hybrid families train (the grouped matmul, the
-Mamba scan, the RG-LRU scan and attention at head dims 64, 128 and 256 have
-their backward kernels).  qwen3-moe-30b-a3b's training state at full depth
-(about 490 GB) does not fit one card, nor do falcon-mamba-7b's (about
-116 GB) and recurrentgemma-9b's (about 167 GB), so they train there at full
-width and a cut depth from Python, as ``chip_smoke.py`` phases 5c, 5d and
-5e do (recurrentgemma-9b at 5 layers: one (rec, rec, attn) block and the
-(rec, rec) tail, its 4096-token sequence past its 2048-token window)::
+card every family trains (the grouped matmul, the Mamba scan, the RG-LRU
+scan and attention at head dims 64, 80, 128 and 256 have their backward
+kernels); hubert-xlarge fits whole (about 15 GB of training state)::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch hubert-xlarge \
+        --seq-len 4096 --global-batch 4 --lr 3e-4 --steps 100 \
+        --ckpt-dir build/ckpt-hubert
+
+qwen3-moe-30b-a3b's training state at full depth (about 490 GB) does not
+fit one card, nor do falcon-mamba-7b's (about 116 GB), recurrentgemma-9b's
+(about 167 GB) and llama-3.2-vision-11b's (about 156 GB), so they train
+there at full width and a cut depth from Python, as ``chip_smoke.py``
+phases 5c, 5d, 5e and 5f do (recurrentgemma-9b at 5 layers: one (rec, rec,
+attn) block and the (rec, rec) tail, its 4096-token sequence past its
+2048-token window; the VLM at 10 layers, two groups of 4 self layers and a
+cross layer, each batch with its 1601-token images)::
 
     cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b"), n_layers=4)
     train(cfg, ShapeSpec("train", 4096, 4, "train"), adamw(wsd(3e-4, 100)),
@@ -24,11 +32,14 @@ width and a cut depth from Python, as ``chip_smoke.py`` phases 5c, 5d and
     cfg = dataclasses.replace(get_config("recurrentgemma-9b"), n_layers=5)
     train(cfg, ShapeSpec("train", 4096, 1, "train"), adamw(cosine(3e-4, 100)),
           total_steps=100, remat="full")
+    cfg = dataclasses.replace(get_config("llama-3.2-vision-11b"), n_layers=10)
+    train(cfg, ShapeSpec("train", 4096, 4, "train"), adamw(cosine(3e-4, 100)),
+          total_steps=100, remat="full", loss_chunk=1024)
 
 This command line takes no depth flag, as the reference's has none.  The
 schedule is WSD where the config asks for it
 (minicpm-2b), else cosine.  ``--mesh``, ``--no-fsdp`` and
-``--seq-parallel`` come with sharding (ROADMAP.md queue 1 item 5).
+``--seq-parallel`` come with sharding (ROADMAP.md queue 1 item 1.7).
 """
 
 from __future__ import annotations

@@ -126,7 +126,7 @@ def loss_fn(params, batch, cfg: ArchConfig, remat: str = "full", loss_chunk: int
     """Scalar training loss (+ metrics dict), grad-enabled; ``batch`` holds
     tensors on the model's device.  On the card every family's kernels
     have their backward kernels (``kernels/ops.py``); attention's takes head
-    dims 64, 128 and 256, so hubert-xlarge (80) does not train there yet."""
+    dims 64, 80, 128 and 256, so every family trains there."""
     transformer.require_ported(cfg)
     x, aux = _hidden(params, batch, cfg, remat)
     head = params.head()

@@ -9,7 +9,7 @@ counterpart).
 - failure injection (``fail_at``) for tests, proving restart works.
 
 The ``plan`` and ``mesh`` arguments of the reference come with ROADMAP.md
-queue 1 item 5 (sharding); this loop runs on one device.
+queue 1 item 1.7 (sharding); this loop runs on one device.
 """
 
 from __future__ import annotations

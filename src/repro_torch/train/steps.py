@@ -4,7 +4,7 @@ counterpart).
 The step computes the loss and every parameter's gradient with autograd,
 updates the parameters and the optimizer state in place, and returns the
 metrics.  The sharded and shard_map trainers come with ROADMAP.md queue 1
-item 5.
+item 1.7.
 """
 
 from __future__ import annotations

@@ -263,6 +263,9 @@ BWD_SHAPES = [  # (B, H, KV, Sq, Sk, D, causal, window)
     (1, 2, 2, 50, 50, 32, False, 8),    # window, not causal
     (1, 4, 1, 40, 40, 256, True, 0),    # recurrentgemma-9b's head dim, MQA
     (1, 4, 1, 70, 70, 256, True, 24),   # and its sliding window, S past it
+    (1, 4, 4, 70, 70, 80, False, 0),    # hubert-xlarge's head dim, bidirectional MHA
+    (1, 4, 2, 77, 77, 80, True, 0),     # causal GQA at D = 80, ragged
+    (1, 4, 4, 50, 90, 80, False, 0),    # D = 80, Sq != Sk
 ]
 BWD_TOL = dict(rtol=1e-5, atol=1e-5)  # fp32: the same math, sums in another order
 
@@ -328,7 +331,7 @@ def test_plain_bwd_keeps_the_input_dtype():
         (256, 200, True, 16, 64, "see no key"),   # rows 215.. see no key
         (256, 200, False, 16, 128, "see no key"),
         (64, 8, True, 1, 64, "see no key"),
-        (128, 128, True, 0, 80, "head dim 80"),   # hubert-xlarge: the audio slice
+        (128, 128, True, 0, 96, "head dim 96"),   # no model's head dim
         (256, 200, True, 16, 256, "see no key"),  # recurrentgemma-9b's head dim, rows 215..
     ],
 )
@@ -341,7 +344,7 @@ def test_backward_refuses_what_it_does_not_take(Sq, Sk, causal, window, D, match
 
 @pytest.mark.parametrize("S,D,causal,window", [(4096, 64, True, 0), (2048, 128, True, 0),
                                                (1000, 64, False, 0), (2048, 128, True, 2048),
-                                               (4096, 256, True, 2048)])
+                                               (4096, 256, True, 2048), (4096, 80, False, 0)])
 def test_backward_takes_the_training_shapes(S, D, causal, window):
     check_bwd(torch.zeros(1, 1, S, D), torch.zeros(1, 1, S, D), causal, window)
 
@@ -402,7 +405,10 @@ def test_ops_attention_on_cpu_in_half_counts_no_backward_tiling(monkeypatch, dty
         (torch.float16, 128, "wgmma"),
         (torch.float32, 64, "fma"),      # the narrow fp32 models: exact fp32 products
         (torch.float32, 128, "fma"),
-        (torch.bfloat16, 80, ValueError),   # hubert-xlarge: the audio slice
+        (torch.bfloat16, 80, "wgmma"),      # hubert-xlarge's training attention
+        (torch.float16, 80, "wgmma"),
+        (torch.float32, 80, "fma"),         # its narrow fp32 models
+        (torch.bfloat16, 96, ValueError),   # no model's head dim
         (torch.bfloat16, 256, "wgmma"),     # recurrentgemma-9b's training attention
         (torch.float32, 256, "fma"),        # its narrow fp32 models
         (torch.float32, 16, ValueError),    # the smoke configs' head dim: CPU only
@@ -467,7 +473,7 @@ def _jax_grad_of_sdpa(q, k, v, do, causal, window):
 
 
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 48), (False, 0)])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 80, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_wgmma_bwd_roundings_match_jax_grad_of_sdpa(dtype, D, causal, window):
     """The wgmma tiling rounds P and dS to 16 bits before its dV, dK and dQ
@@ -503,6 +509,11 @@ def test_wgmma_bwd_emulation_in_fp32_is_the_plain_backward():
          "attention backward"),
         ("void (anonymous namespace)::dq_wgmma_kernel<__half, 128>(CUtensorMap_st)",
          "attention backward"),
+        ("void (anonymous namespace)::dkdv_wgmma_kernel<__nv_bfloat16, 80>(CUtensorMap_st, "
+         "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float const*, float const*, "
+         "__nv_bfloat16*, __nv_bfloat16*, float*, int, int, int, int, int, int, int, float, "
+         "float)", "attention backward"),
+        ("void (anonymous namespace)::dkdv_kernel<float, 80>(float const*)", "attention backward"),
         ("void (anonymous namespace)::dkdv_kernel<float, 64>(float const*)", "attention backward"),
         ("void (anonymous namespace)::dq_kernel<float, 128>(float const*)", "attention backward"),
         ("void (anonymous namespace)::delta_kernel<__nv_bfloat16, 64>(__nv_bfloat16 const*)",

@@ -1687,7 +1687,7 @@ BWD_COUNTERS = ("attention_launches", "attention_wgmma_launches", "attention_fma
 
 
 @pytest.mark.parametrize("B,H,KV,Sq,Sk,causal,window", BWD_CASES)
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 80, 128, 256])
 @pytest.mark.parametrize("tiling,dtype", BWD_TILINGS)
 def test_bwd_kernel_matches_autograd_of_plain(cuda, tiling, dtype, D, B, H, KV, Sq, Sk, causal,
                                               window):
@@ -1709,7 +1709,7 @@ def test_bwd_kernel_matches_autograd_of_plain(cuda, tiling, dtype, D, B, H, KV, 
 
 
 @pytest.mark.parametrize("tiling", ["wgmma", "fma"])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 80, 128, 256])
 def test_bwd_kernel_is_deterministic(cuda, tiling, D):
     """No atomics: every sum runs in a fixed order, so repeated launches give
     the same bits (GQA 4:1, so dk and dv sum over 4 heads; at D = 256 on
@@ -1724,12 +1724,36 @@ def test_bwd_kernel_is_deterministic(cuda, tiling, D):
         assert all(torch.equal(a, b) for a, b in zip(again, first))
 
 
-@pytest.mark.parametrize("D", [80, 96])
+@pytest.mark.parametrize("D", [32, 96])
 def test_bwd_kernel_refuses_head_dims_it_does_not_take(cuda, D):
     q, k, v = _qkv(cuda, 1, 2, 2, 64, 64, D, torch.bfloat16)
     lse = torch.zeros(1, 2, 64, device=cuda)
     with pytest.raises(ValueError, match=f"head dim {D}"):
         flash_attention_bwd(q, k, v, q, lse, q)
+
+
+@pytest.mark.parametrize(
+    "B,H,KV,Sq,Sk,D",
+    [
+        (1, 16, 16, 4096, 4096, 80),  # hubert-xlarge's training attention, one sequence
+        (1, 32, 8, 4096, 1601, 128),  # llama-3.2-vision-11b's cross-attention to its image
+    ],
+)
+def test_bwd_kernel_at_the_unmasked_training_shapes(cuda, B, H, KV, Sq, Sk, D):
+    """The two unmasked training shapes of the audio encoder and the VLM's
+    cross layers on the wgmma tiling: dq, dk, dv within the bf16 bar of
+    autograd of the plain version, and the same bits twice."""
+    q, k, v = _qkv(cuda, B, H, KV, Sq, Sk, D, torch.bfloat16, seed=10)
+    do = torch.randn_like(q)
+    lse = torch.empty(B, H, Sq, device=cuda)
+    o = flash_attention(q, k, v, causal=False, lse=lse)
+    got = flash_attention_bwd(q, k, v, o, lse, do, False, 0, tiling="wgmma")
+    again = flash_attention_bwd(q, k, v, o, lse, do, False, 0, tiling="wgmma")
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    for g, want in zip(got, _plain_grads(q, k, v, do, False, 0)):
+        err = float((g.float() - want).abs().max())
+        assert err <= TOL[torch.bfloat16] * float(want.abs().max()), err
 
 
 @pytest.mark.parametrize("sms", [1, 8, 64, 132, 1 << 20])
@@ -1808,9 +1832,9 @@ def test_bwd_wrapper_refuses_what_it_does_not_take(cuda):
         flash_attention_bwd(q, k, v, q, lse, q, True, 16)
     with pytest.raises(ValueError, match="see no key"):
         FlashAttentionFn.apply(q.requires_grad_(True), k, v, True, 16, "wgmma")
-    q80, k80, v80 = _qkv(cuda, 1, 4, 2, 64, 64, 80, torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim 80"):
-        flash_attention_bwd(q80, k80, v80, q80, torch.empty(1, 4, 64, device=cuda), q80)
+    q96, k96, v96 = _qkv(cuda, 1, 4, 2, 64, 64, 96, torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 96"):
+        flash_attention_bwd(q96, k96, v96, q96, torch.empty(1, 4, 64, device=cuda), q96)
     with pytest.raises(ValueError, match="lse"):
         flash_attention_bwd(q[:, :, :200], k, v, q[:, :, :200], lse.half()[:, :, :200],
                             q[:, :, :200])
@@ -1871,6 +1895,49 @@ def test_hybrid_train_step_on_card_matches_cpu(cuda, monkeypatch):
     assert {n: getattr(ops, n) for n in counters} == dict(
         lru_scan_launches=8, lru_scan_bwd_launches=4, attention_launches=2,
         attention_bwd_launches=1, attention_bwd_fma_launches=1)
+    for key in ("loss", "xent", "grad_norm"):
+        torch.testing.assert_close(mg[key].cpu(), mc[key], rtol=1e-4, atol=1e-6)
+    for (name, pg), pc in zip(m_gpu.named_parameters(), m_cpu.parameters()):
+        bar = 1e-4 * float(pc.abs().max())
+        assert float((pg.detach().cpu() - pc.detach()).abs().max()) <= bar, name
+
+
+@pytest.mark.parametrize("family", ["vlm", "audio"])
+def test_vlm_and_encoder_train_steps_on_card_match_cpu(cuda, family, monkeypatch):
+    """One narrow fp32 train step of the VLM (head dim 128, 10 layers, two
+    of them cross layers over 100 image tokens, the gates opened to 0.5) and
+    of the encoder (head dim 80, 2 layers): loss, grad norm and every
+    updated parameter within 1e-4 of the same step on the CPU, every
+    attention on the fma tilings (the VLM's cross layers run once: they are
+    not rematerialized).  SGD, as above."""
+    counters = ("attention_launches", "attention_fma_launches", "attention_bwd_launches",
+                "attention_bwd_fma_launches")
+    for name in counters:
+        monkeypatch.setattr(ops, name, 0)
+    cfg = _narrow_vlm_and_encoder_configs()[family == "audio"]
+    m_cpu = lm.init(0, cfg, device="cpu")
+    for blk in m_cpu.blocks:
+        if hasattr(blk.attn, "gate"):
+            blk.attn.gate.fill_(0.5)
+    m_gpu = lm.init(0, cfg, device=cuda)
+    m_gpu.load_state_dict(m_cpu.state_dict())
+    gen = torch.Generator().manual_seed(6)
+    if family == "vlm":
+        batch = {"tokens": torch.randint(0, cfg.vocab, (2, 77), generator=gen),
+                 "image_embeds": torch.randn(2, cfg.img_tokens, cfg.d_model, generator=gen)}
+    else:
+        batch = {"frames": torch.randn(2, 77, cfg.d_model, generator=gen),
+                 "labels": torch.randint(0, cfg.vocab, (2, 77), generator=gen)}
+    opt = optim.sgd_momentum(optim.constant(0.1))
+    step = make_train_step(cfg, opt, loss_chunk=32)
+    _, _, mc = step(m_cpu, opt.init(dict(m_cpu.named_parameters())), batch, 0)
+    _, _, mg = step(m_gpu, opt.init(dict(m_gpu.named_parameters())),
+                    {k: v.to(cuda) for k, v in batch.items()}, 0)
+    n_cross = cfg.n_layers // cfg.cross_attn_every if family == "vlm" else 0
+    forward = 2 * (cfg.n_layers - n_cross) + n_cross
+    assert {n: getattr(ops, n) for n in counters} == dict(
+        attention_launches=forward, attention_fma_launches=forward,
+        attention_bwd_launches=cfg.n_layers, attention_bwd_fma_launches=cfg.n_layers)
     for key in ("loss", "xent", "grad_norm"):
         torch.testing.assert_close(mg[key].cpu(), mc[key], rtol=1e-4, atol=1e-6)
     for (name, pg), pc in zip(m_gpu.named_parameters(), m_cpu.parameters()):

@@ -60,8 +60,8 @@ def _batch(cfg, seed=0):
     return batch
 
 
-def _loss_and_grads(arch, remat, loss_chunk):
-    jcfg, tcfg = _cfgs(arch)
+def _loss_and_grads(arch, remat, loss_chunk, **over):
+    jcfg, tcfg = _cfgs(arch, **over)
     jparams, model = _models(jcfg, tcfg)
     batch = _batch(tcfg)
     (jtotal, jmetrics), jgrads = jax.value_and_grad(
@@ -101,14 +101,29 @@ def test_loss_and_every_gradient_match_reference(arch, remat, loss_chunk):
     _assert_grads_close(grads, expect)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "falcon-mamba-7b", "recurrentgemma-9b",
-                                  "llama-3.2-vision-11b", "hubert-xlarge"])
-def test_loss_and_gradients_of_the_other_families_match_reference(arch):
+# The narrow fp32 configs whose train steps chip_smoke.py holds on the card
+# against the CPU: the VLM at head dim 128 with two cross layers over a
+# ragged image of 100 tokens (its gates opened to 0.5 by ``_models``), and
+# the encoder at hubert-xlarge's head dim 80.
+NARROW_VLM = dict(d_model=256, n_heads=4, n_kv_heads=2, head_dim=128, d_ff=512, n_layers=10,
+                  cross_attn_every=5, img_tokens=100)
+NARROW_AUDIO = dict(d_model=320, n_heads=4, n_kv_heads=4, head_dim=80, d_ff=640, n_layers=2)
+
+
+@pytest.mark.parametrize("arch,over", [
+    pytest.param(arch, {}, id=arch)
+    for arch in ("qwen3-moe-30b-a3b", "falcon-mamba-7b", "recurrentgemma-9b",
+                 "llama-3.2-vision-11b", "hubert-xlarge")
+] + [pytest.param("llama-3.2-vision-11b", NARROW_VLM, id="llama-3.2-vision-11b-narrow"),
+     pytest.param("hubert-xlarge", NARROW_AUDIO, id="hubert-xlarge-narrow-d80")])
+def test_loss_and_gradients_of_the_other_families_match_reference(arch, over):
     """Every family trains on the CPU (falcon-mamba-7b's scan through
     SelectiveScanFn, recurrentgemma-9b's through LruScanFn, each on its
-    plain backward); on the card, hubert-xlarge's head dim 80 is the one
-    the attention backward does not take yet (test_torch_gpu.py)."""
-    (jtotal, jmetrics), (total, metrics), grads, expect = _loss_and_grads(arch, "full", 8)
+    plain backward), and at the widths of the narrow steps that the card
+    runs through the attention kernels (the VLM's cross layers and the
+    encoder's head dim 80)."""
+    (jtotal, jmetrics), (total, metrics), grads, expect = _loss_and_grads(arch, "full", 8,
+                                                                          **over)
     np.testing.assert_allclose(float(total), jtotal, rtol=1e-5)
     assert sorted(metrics) == sorted(jmetrics)
     for key in metrics:
