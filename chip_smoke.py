@@ -16,8 +16,10 @@ result line:
    its backward's dx and dw) must report the 168 registers their setmaxnreg
    split (240 x 256 + 24 x 128) is sized for (the forward's lse store
    included; the attention backward's at head dim 256 too, whose consumers
-   split D and keep the same split, and at head dim 80, which computes at
-   128), and the skinny grouped matmul, the
+   split D and keep the same split, and head dim 80's own forward and dk/dv
+   kernels, which compute at the true width of 80; the latter's producer
+   keeps 56 registers for the writers of dQ and its consumers 224), and the
+   skinny grouped matmul, the
    Mamba scan, every attention backward kernel (at head dims 64, 80, 128 and
    256 on both tilings, and the sums of the head dim 256 partials), the
    grouped matmul's backward (4 wgmma kernels, 6 fma ones), the Mamba scan's
@@ -34,7 +36,8 @@ result line:
    qwen3-moe-30b-a3b's attention (B=4, H=32, KV=8 or 4, D=128; S=1000 and
    2048) and at recurrentgemma-9b's (B=4, H=16, KV=1, S=2048, D=256, window
    2048), in bf16, fp16 and fp32, at hubert-xlarge's (B=4, H=KV=16, S=1000,
-   D=80, both ways; a 128-wide compute on wgmma) and at llama-3.2-vision-11b's
+   D=80, both ways; its own wgmma kernel at the true width, its time's ratio
+   to SDPA's printed) and at llama-3.2-vision-11b's
    cross-attention (H=32, KV=8, Sq=1000, Sk=1601, D=128, unmasked), and at
    ragged edges of the 128-row q and 64-row k tiles (Sq = Sk = 127, 129;
    Sq != Sk; D = 128 and 80), and with rows that see no key (Sq 256, Sk 200,
@@ -422,12 +425,13 @@ def nvidia_smi_line() -> str:
 def ptxas_report(log: str) -> dict:
     """Per kernel in an ``nvcc -Xptxas -v`` log: registers, static shared
     memory, spill bytes and whether ptxas serialised its wgmma instructions
-    (warning C7512).  Kernels are named by their unmangled base and template
+    (warning C7512, or any other "Potential Performance Loss: wgmma" one,
+    such as C7514).  Kernels are named by their unmangled base and template
     arguments as they appear in the mangled name."""
     import re
 
     def short(mangled):
-        m = re.search(r"([a-z_]+_kernel)(I.*?E)E?v", mangled)
+        m = re.search(r"([a-z_]+(?:80_[a-z_]+)?_kernel)(I.*?E)E?v", mangled)
         return m.group(1) + m.group(2) if m else mangled
 
     out: dict = {}
@@ -445,7 +449,7 @@ def ptxas_report(log: str) -> dict:
         if m and fn:
             out[fn]["registers"] = int(m.group(1))
             out[fn]["smem"] = int(m.group(2) or 0)
-        m = re.search(r"C7512.*function '(\w+)'", line)
+        m = re.search(r"(?:C7512|Potential Performance Loss: wgmma).*function '(\w+)'", line)
         if m:
             out.setdefault(short(m.group(1)), dict(registers=None, smem=0, spill_stores=0,
                                                    spill_loads=0, serialised=False))
@@ -1055,8 +1059,14 @@ def check_attention_bwd(case, gen, dev, smi) -> dict:
              f"{extra['unsplit_kernel_ms']})" if "unsplit_kernel_ms" in extra else "")
           + f" plain_ms {plain_ms} (autograd of the plain version, fp32, a batch row at a time) library_ms "
           f"{library_ms} (SDPA's backward, {backend} backend) bound_ms {bound_ms} ({bound_by}; "
-          f"{11 if Dc == 256 and tiling == 'wgmma' else 7} products where the bound counts 5"
-          + ("; wgmma at a compute width of 128" if Dc == 80 and tiling == "wgmma" else "")
+          + ("5 products as the bound counts, at the true width of 80 (S and dP once, dQ "
+             "summed in fp32 in a fixed order of turns)" if Dc == 80 and tiling == "wgmma"
+             else f"{11 if Dc == 256 and tiling == 'wgmma' else 7} products where the bound "
+                  "counts 5")
+          + (f"; kernel/SDPA backward {kernel_ms[tiling] / library_ms}"
+             + (f", forward kernel/SDPA {fwd_ms / extra['fwd_library_ms']}"
+                if "fwd_library_ms" in extra else "")
+             if Dc == 80 and tiling == "wgmma" else "")
           + f"); two launches bitwise equal; forward {fwd_ms} ms, with lse {fwd_lse_ms} ms"
           f"{fwd_yardsticks}; on {smi}")
     return dict(tiling=tiling, max_abs_err=max(errs[tiling].values()),
@@ -1869,7 +1879,9 @@ def train_vlm_or_encoder(lm, ops, optim, make_train_step, data, group_of, cfg, d
                      warmup=2, loss0_tol=loss0_tol, schedule=cfg.schedule)
     trace = trace_train_step(lm, run, cfg, group_of, phase, smi, rules=(),
                              groups=("attention forward", "attention backward", "cuBLAS GEMMs"),
-                             want=(("flash_attention_wgmma_kernel",), ("dkdv_wgmma_kernel",)),
+                             want=(("flash_attention_wgmma_kernel",
+                                    "flash_attention_d80_wgmma_kernel"),
+                                   ("dkdv_wgmma_kernel", "dkdv_d80_wgmma_kernel")),
                              head=head)
     trained = release(run)
     summary = {k: trained[k] for k in ("n_params", "active_params", "step_ms", "tokens_per_s",
@@ -2063,13 +2075,25 @@ def main() -> int:
     bwd_report = ptxas_report(_build.build_logs.get("flash_attention_bwd", ""))
     if bwd_report:  # built in this run: the checks above saw both tilings' kernels, at each
         # head dim (the wgmma ones at D = 256 at the same 168 registers, its consumers splitting
-        # D rather than rows), and the sum of the D = 256 dk/dv partials in bf16 and fp16
-        for base in ("dkdv_wgmma_kernel", "dq_wgmma_kernel", "dkdv_kernel", "dq_kernel"):
-            for d in (64, 80, 128, 256):
+        # D rather than rows; at D = 80 the dk/dv items that also sum dQ in turns, at 168, and
+        # the cast of dQ's sums), and the sum of the D = 256 dk/dv partials in bf16 and fp16
+        for base, dims in (("dkdv_wgmma_kernel", (64, 128, 256)),
+                           ("dq_wgmma_kernel", (64, 128, 256)),
+                           ("dkdv_kernel", (64, 80, 128, 256)), ("dq_kernel", (64, 80, 128, 256))):
+            for d in dims:
                 require(any(fn.startswith(base) and f"Li{d}E" in fn for fn in bwd_report),
                         f"ptxas reports no {base} at D = {d}")
-        got = sum(fn.startswith("dkdv_sum_kernel") for fn in bwd_report)
-        require(got == 2, f"ptxas reports 2 dkdv_sum_kernels, not {got}")
+        for base in ("dkdv_sum_kernel", "dkdv_d80_wgmma_kernel", "dq_d80_cast_kernel"):
+            got = sum(fn.startswith(base) for fn in bwd_report)
+            require(got == 2, f"ptxas reports 2 {base}s (bf16, fp16), not {got}")
+    fwd_report = ptxas_report(_build.build_logs.get("flash_attention", ""))
+    if fwd_report:  # built in this run: the wgmma forward at D = 64, 128 and 256, and at
+        # D = 80 its own kernel (true-width products, softmax overlapped), each checked above
+        for d in (64, 128, 256):
+            require(any(fn.startswith("flash_attention_wgmma_kernel") and f"Li{d}E" in fn
+                        for fn in fwd_report), f"ptxas reports no wgmma forward at D = {d}")
+        got = sum(fn.startswith("flash_attention_d80_wgmma_kernel") for fn in fwd_report)
+        require(got == 2, f"ptxas reports 2 flash_attention_d80_wgmma_kernels, not {got}")
     for name, base in (("rglru_scan", "lru_fwd_kernel"), ("rglru_scan_bwd", "lru_bwd_kernel")):
         lru_report = ptxas_report(_build.build_logs.get(name, ""))
         if lru_report:  # built in this run, every kernel checked for spills above: one kernel
@@ -2140,6 +2164,7 @@ def main() -> int:
         q = torch.randn(B, h, Sq, dh, generator=gen, device=dev).to(dtype)
         k, v = (torch.randn(B, kv, Sk, dh, generator=gen, device=dev).to(dtype) for _ in "kv")
         out = flash_attention(q, k, v, causal=causal, window=window)
+        again = flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         ref = ref_flash_attention(q, k, v, causal=causal, window=window)
         err = float((out.float() - ref.float()).abs().max())
@@ -2148,6 +2173,8 @@ def main() -> int:
         label = (f"H={h} KV={kv} Sq={Sq} Sk={Sk} D={dh} {str(dtype)[6:]} causal={causal} "
                  f"window={window} tiling={tiling}")
         require(bool(torch.isfinite(out).all()), f"finite kernel output, {label}")
+        require(torch.equal(out, again), f"two launches bitwise equal, {label}")
+        del again
         require(torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol),
                 f"kernel vs plain at {tol}, {label}: max|err| {err}")
         kernel_ms = time_ms(lambda: flash_attention(q, k, v, causal=causal, window=window), 20)
@@ -2162,9 +2189,14 @@ def main() -> int:
             fma_ms = time_ms(lambda: flash_attention(q, k, v, causal=causal, window=window,
                                                      tiling="fma"), 20)
         bound_ms, bound_by = attention_bound(q, k, causal, window)
+        # Head dim 80 on wgmma runs its own kernel (true-width products,
+        # softmax overlapped): its time against SDPA's.
+        ratio = (f" kernel/SDPA {kernel_ms / library_ms}"
+                 if dh == 80 and tiling == "wgmma" and library_ms else "")
         print(f"phase 3 kernel: flash_attention {label}: max|err| {err} (tol {tol}) "
               f"kernel_ms {kernel_ms} plain_ms {plain_ms} library_ms {library_ms} "
-              f"bound_ms {bound_ms} ({bound_by}) fma_ms {fma_ms} on {smi}")
+              f"bound_ms {bound_ms} ({bound_by}) fma_ms {fma_ms}{ratio}; two launches bitwise "
+              f"equal; on {smi}")
         attn[(Sq, Sk, dh, dtype, causal, window, kv, h)] = dict(
             tiling=tiling, max_abs_err=err, kernel_ms=kernel_ms, plain_ms=plain_ms,
             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, fma_ms=fma_ms)
@@ -2843,6 +2875,8 @@ def main() -> int:
         "d80_bf16_fma_ms": au_case["fma_ms"],
         "d80_fp16_kernel_ms": au_fp16["kernel_ms"],
         "d80_fp32_fma_ms": au_fp32["kernel_ms"],
+        "d80_kernel_over_library": au_case["kernel_ms"] / au_case["library_ms"],
+        "train_d80_kernel_over_library": bwd[6]["fwd_ms"] / bwd[6]["fwd_library_ms"],
         "cross_kernel_ms": cross_case["kernel_ms"],
         "cross_plain_ms": cross_case["plain_ms"],
         "cross_bound_ms": cross_case["bound_ms"],
@@ -2902,6 +2936,7 @@ def main() -> int:
                      "library_backend", "bound_ms", "bound_by", "fwd_ms", "fwd_bound_ms")},
         **{f"{name}_fma_kernel_ms": bwd[i]["fma_kernel_ms"]
            for name, i in (("d80", 6), ("d80_ragged", 7), ("d80_sq_ne_sk", 8), ("cross", 10))},
+        "d80_kernel_over_library": bwd[6]["kernel_ms"] / bwd[6]["library_ms"],
     }, {
         "name": "moe_gmm",
         "route": "cuda",

@@ -25,9 +25,10 @@
 // Two tilings, one C entry point each; kernels/flash_attention.py's
 // `attention_tiling` chooses among them:
 //
-// * wgmma (bf16/fp16; D = 64, 80, 128 or 256; every prefill of the served
-//   models).  An FA3-style forward on the tensor cores.  A block of three
-//   warpgroups owns 128 query rows of one (batch, head).  The producer
+// * wgmma (bf16/fp16; D = 64, 128 or 256; every prefill of the served
+//   models but hubert-xlarge's).  An FA3-style forward on the tensor
+//   cores.  A block of three warpgroups owns 128 query rows of one (batch,
+//   head).  The producer
 //   warpgroup gives its registers to the consumers (setmaxnreg); one of its
 //   threads loads the q tile once by TMA and then k and v tiles of 64 rows
 //   into a 2-stage ring (3-D tensor maps over (D, S, B*heads), one head a
@@ -45,12 +46,28 @@
 //   each: 96 KB at D = 128, 192 KB at D = 256.  What this does about the
 //   operation bound: every product runs on the tensor cores, and the work
 //   the mask discards is skipped at 64-key granularity per warpgroup.
-//   A head dim that is no multiple of 64 (hubert-xlarge's 80) runs at the
-//   compute width DP = D rounded up to 64: the tensor maps keep the real
-//   inner extent D (row stride 2D bytes), so TMA fills columns D .. DP-1
-//   of the last box with zeros; Q K^T issues only ceil(D / 16) k16 steps,
-//   P V produces DP columns of which the epilogue stores the first D, and
-//   the scale is 1/sqrt(D).
+// * wgmma at D = 80 (hubert-xlarge; flash_attention_d80_wgmma_kernel).  A
+//   row of 80 16-bit values fills no whole 128-byte box, so every tile is a
+//   64-column box with the 128-byte swizzle beside a 16-column box with the
+//   32-byte one (hopper.cuh's d80 layout): TMA moves the real 160 bytes a
+//   row, Q K^T takes 5 k16 steps (4 in the wide box, 1 in the narrow) and
+//   P V runs at N = 64 + 16, so no product runs on zero columns (at a
+//   padded width of 128, 3/8 of P V's work and 24 of 64 accumulator
+//   registers were zeros).  At this width the exps cost nearly as much as
+//   the products (about 0.28 ms of the SFU's time against 0.35 on the
+//   tensor cores at hubert's training shape), so the kernel overlaps them:
+//   k and v tiles of 128 keys arrive in rings of their own (a k tile is
+//   freed once S is in, a v tile after P V), and each consumer warpgroup's
+//   round t issues S of tile t and then O += P V of tile t - 1, computing
+//   tile t's softmax while that P V runs; the two warpgroups issue their
+//   rounds in turns (named barriers, as the backward's), so one's softmax
+//   runs under the other's products.  The rounds' commits and waits are
+//   fixed at compile time (a first round, the steady ones, a last one):
+//   with them chosen at run time ptxas cannot tell which products are in
+//   flight and serialises every wgmma.  Scores stay raw until the exp,
+//   exp2(s scale log2 e - m scale log2 e) in one FFMA, and a row whose
+//   keys are all masked so far gets p = 0.  Shared memory: q 20 KB, a
+//   ring of 2 k and 2 v tiles of 20 KB.
 // * fma (fp32, any of the four head dims; exact fp32 for the narrow fp32
 //   models).  One block of 256 threads per (BQ-row q tile, q head, batch),
 //   tiles staged in shared memory as fp32 (Q: BQ x (D + 4), K, V: BK x
@@ -65,9 +82,15 @@
 // 0.123 ms at granite-8b's shape (SDPA 0.085 ms, bound 0.033 ms) and
 // 0.318 ms at recurrentgemma-9b's (SDPA 0.250 ms, bound 0.139 ms); the fma
 // tiling takes 1.31 and 6.87 ms on the same bf16 inputs, 1.40 and 6.93 ms
-// in fp32; at hubert-xlarge's shape wgmma 0.088 ms (SDPA 0.066, bound
-// 0.021), fma 0.99; at the VLM's cross shape 0.277 ms (SDPA 0.192, bound
-// 0.106), fma 3.74.
+// in fp32; at hubert-xlarge's shape fma 0.99; at the VLM's cross shape
+// 0.277 ms (SDPA 0.192, bound 0.106), fma 3.74.  The D = 80 kernel
+// (tools/attn80_variants.py, medians of 5 rounds in turns, same card): at
+// hubert-xlarge's training shape (B = 4, H = KV = 16, S = 4096) 0.699-0.725
+// ms, 48-50% of its 0.347 ms bound (SDPA 0.83 ms; the kernel at a padded
+// width of 128, 1.17 ms), and 0.064-0.066 ms at its serving shape (4 x
+// 1000; SDPA 0.066, the padded kernel 0.088).  Its rings of 3 and 4 tiles,
+// 64-key tiles, the five-box 32-byte layout and the consumers without
+// turns all ran slower or level (PERF.md section 6).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -336,8 +359,6 @@ constexpr int BK = 64;   // keys per k/v tile
 constexpr int STAGES = 2;
 constexpr int THREADS = 384;  // consumer warpgroups 0 and 1, producer 2
 
-// The compute width of head dim D: whole 64-wide boxes (80 -> 128).
-template <int D> struct Width { static constexpr int value = (D + 63) / 64 * 64; };
 
 template <int D> struct Smem {
   static constexpr int Q = BQ * D * 2;   // D / 64 boxes of BQ x 128 bytes
@@ -356,9 +377,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   using wg::BK;
   using wg::BQ;
   using wg::STAGES;
-  constexpr int DP = wg::Width<D>::value;
-  using S = wg::Smem<DP>;
-  constexpr int CH = DP / 64;  // 64-wide column boxes of a row
+  static_assert(D % 64 == 0, "whole 64-column boxes (head dim 80 has a kernel of its own)");
+  using S = wg::Smem<D>;
+  constexpr int CH = D / 64;  // 64-wide column boxes of a row
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = hopper::align_1024(smem_raw);
   uint8_t* sq = smem;
@@ -425,9 +446,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     const int row0 = wq0 + 16 * warp + lane / 4;  // this thread's rows: row0 and row0 + 8
     const int col0 = 2 * (lane % 4);              // and columns col0, col0 + 1 of each 8
 
-    float acc[DP / 2];  // O: acc[4j + 2i + c] is row row0 + 8i, column 8j + col0 + c
+    float acc[D / 2];  // O: acc[4j + 2i + c] is row row0 + 8i, column 8j + col0 + c
 #pragma unroll
-    for (int n = 0; n < DP / 2; ++n) acc[n] = 0.f;
+    for (int n = 0; n < D / 2; ++n) acc[n] = 0.f;
     float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 
     hopper::mbar_wait(q_full, 0);
@@ -451,7 +472,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         hopper::fence_regs(sc);
         hopper::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < (D + 15) / 16; ++kk) {  // box kk / 4, 32 bytes a k16 step in it
+        for (int kk = 0; kk < D / 16; ++kk) {  // box kk / 4, 32 bytes a k16 step in it
           const int step = (kk % 4) * 32;
           hopper::Wgmma<BK, T>::template ss<0>(
               sc, hopper::desc_sw128(qw + (kk / 4) * BQ * 128 + step, 16, 1024),
@@ -503,14 +524,14 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         uint32_t pa[BK / 16][4];
         hopper::to_a_frags<T>(pa, sc);
 #pragma unroll
-        for (int n = 0; n < DP / 2; ++n) acc[n] *= alpha[(n / 2) % 2];
+        for (int n = 0; n < D / 2; ++n) acc[n] *= alpha[(n / 2) % 2];
 
         hopper::mbar_wait(&v_full[s], parity);
         hopper::fence_regs(acc);
         hopper::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)  // 16 keys, 16 rows of v's boxes, a step
-          hopper::Wgmma<DP, T>::template rs<1>(
+          hopper::Wgmma<D, T>::template rs<1>(
               acc, pa[kk], hopper::desc_sw128(vs + kk * 2048, BK * 128, 1024), 1);
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
@@ -552,7 +573,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, f
                          int H, int KV, int Sq, int Sk, int causal, int window,
                          cudaStream_t stream) {
   constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int bytes = wg::Smem<wg::Width<D>::value>::BYTES;
+  constexpr int bytes = wg::Smem<D>::BYTES;
   CUtensorMap map_q, map_k, map_v;
   cudaError_t err = hopper::make_map_3d(&map_q, q, bf16, D, Sq, (uint64_t)B * H, wg::BQ);
   if (err == cudaSuccess)
@@ -570,6 +591,288 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, f
   return cudaGetLastError();
 }
 
+// wgmma kernel at head dim 80: products at the true width (hopper.cuh's
+// d80 layout), each consumer's softmax overlapped with its own next S and
+// with the other consumer's products.
+
+namespace wg80 {
+constexpr int BQ = 128;       // query rows per block: two consumer warpgroups of 64
+constexpr int BK = 128;       // keys per k/v tile
+constexpr int STAGES = 2;     // k and v tiles in the ring
+constexpr int THREADS = 384;  // consumer warpgroups 0 and 1, producer 2
+constexpr int Q_BYTES = BQ * hopper::d80::ROW_BYTES;
+constexpr int KV_BYTES = BK * hopper::d80::ROW_BYTES;  // one k or v tile
+constexpr int SMEM_BYTES = Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 4 * STAGES) + 1024;
+
+// Ping-pong between the two consumer warpgroups (as the backward's): each
+// issues its products only in its turn, named barrier 1 + its index, at
+// which the other arrives once it has issued its own.
+__device__ __forceinline__ void take_turn(int warpgroup) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + warpgroup) : "memory");
+}
+__device__ __forceinline__ void pass_turn(int warpgroup) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - warpgroup) : "memory");
+}
+}  // namespace wg80
+
+// What a consumer warpgroup of the D = 80 kernel carries from tile to tile.
+struct Fwd80 {
+  float acc[40];  // O: acc[4j + 2i + c] is row row0 + 8i, column 8j + col0 + c
+  float m[2], l[2], alpha[2];  // the row max of the raw scores, this thread's share of l
+  float sc[wg80::BK / 2];  // S: sc[4j + 2i + c] is row row0 + 8i, key k0 + 8j + col0 + c
+  uint32_t pa[wg80::BK / 16][4];  // P of the previous tile as wgmma A fragments
+};
+
+// What a consumer warpgroup's rounds read.
+struct Fwd80Args {
+  uint8_t *sk, *sv;
+  uint64_t *k_full, *v_full, *k_empty, *v_empty;
+  uint32_t qw;
+  int warpgroup, lane, row0, col0, wq0, wq_last, kt_begin, Sk, causal, window;
+  float scale_log2;
+};
+
+// Round t of a consumer warpgroup: issues S of tile t (HAS_S) and O += P V
+// of tile t - 1 (HAS_PV) in its turn, then the softmax of tile t while
+// P V runs.  Each round's commits and waits are fixed at compile time, so
+// ptxas sees which products are in flight wherever a register is read, and
+// keeps them asynchronous.
+template <typename T, bool HAS_S, bool HAS_PV>
+__device__ __forceinline__ void fwd80_round(Fwd80& st, const Fwd80Args& a, int t) {
+  using wg80::BK;
+  using wg80::STAGES;
+  namespace d80 = hopper::d80;
+  const int s = t % STAGES, sp = (t + STAGES - 1) % STAGES;
+  const int k0 = (a.kt_begin + t) * BK;
+  if (HAS_S) hopper::mbar_wait(&a.k_full[s], (t / STAGES) & 1);
+  wg80::take_turn(a.warpgroup);
+  if (HAS_S) {
+    const uint32_t ks = hopper::opaque(hopper::smem_u32(a.sk) + s * wg80::KV_BYTES);
+    hopper::fence_regs(st.sc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 5; ++kk)
+      hopper::Wgmma<BK, T>::template ss<0>(
+          st.sc, d80::kmajor<wg80::BQ>(a.qw, 64 * a.warpgroup, kk), d80::kmajor<BK>(ks, 0, kk),
+          kk > 0);
+    hopper::wgmma_commit();
+  }
+  if (HAS_PV) {
+    const uint32_t vs = hopper::opaque(hopper::smem_u32(a.sv) + sp * wg80::KV_BYTES);
+#pragma unroll
+    for (int j = 0; j < 40; ++j) st.acc[j] *= st.alpha[(j / 2) % 2];
+    hopper::mbar_wait(&a.v_full[sp], ((t - 1) / STAGES) & 1);
+    hopper::fence_regs(st.acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)  // 16 keys, 16 rows of v's boxes, a step
+      d80::rs<T, BK>(st.acc, st.pa[kk], vs, kk, 1);
+    hopper::wgmma_commit();
+  }
+  wg80::pass_turn(a.warpgroup);
+  if (HAS_S) {
+    if (HAS_PV)
+      hopper::wgmma_wait<1>();  // S is in; P V runs on
+    else
+      hopper::wgmma_wait<0>();
+    hopper::fence_regs(st.sc);
+    __syncwarp();
+    if (a.lane == 0) hopper::mbar_arrive(&a.k_empty[s]);
+    const int causal = a.causal, window = a.window;
+    const bool masked = (causal && k0 + BK - 1 > a.wq0) ||
+                        (window > 0 && k0 <= a.wq_last - window) || k0 + BK > a.Sk;
+    if (masked) {
+#pragma unroll
+      for (int j = 0; j < BK / 2; ++j) {
+        const int qpos = a.row0 + 8 * ((j / 2) % 2);
+        const int kpos = k0 + 8 * (j / 4) + a.col0 + j % 2;
+        bool keep = kpos < a.Sk;
+        if (causal) keep = keep && kpos <= qpos;
+        if (window > 0) keep = keep && kpos > qpos - window;
+        if (!keep) st.sc[j] = NEG_INF;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = st.m[r];
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+        mx = fmaxf(mx, fmaxf(st.sc[4 * j + 2 * r], st.sc[4 * j + 2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      // In the log2 domain, exp2(s scale_log2 - m scale_log2); a row with
+      // every key masked so far gets p = 0 (NEG_INF is finite).
+      const float ms = mx == NEG_INF ? 0.f : mx * a.scale_log2;
+      st.alpha[r] = hopper::exp2_approx(fmaf(st.m[r], a.scale_log2, -ms));
+      st.m[r] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const float p0 = hopper::exp2_approx(fmaf(st.sc[4 * j + 2 * r], a.scale_log2, -ms));
+        const float p1 = hopper::exp2_approx(fmaf(st.sc[4 * j + 2 * r + 1], a.scale_log2, -ms));
+        st.sc[4 * j + 2 * r] = p0;
+        st.sc[4 * j + 2 * r + 1] = p1;
+        sum += p0 + p1;
+      }
+      st.l[r] = st.alpha[r] * st.l[r] + sum;  // this thread's share, summed over the row at the end
+    }
+  }
+  if (HAS_PV) {
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(st.acc);
+    __syncwarp();
+    if (a.lane == 0) hopper::mbar_arrive(&a.v_empty[sp]);
+  }
+  // P rounded to T as the A fragments of the next round's P V.
+  if (HAS_S) hopper::to_a_frags<T>(st.pa, st.sc);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(wg80::THREADS, 1)
+flash_attention_d80_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                               const __grid_constant__ CUtensorMap map_q16,
+                               const __grid_constant__ CUtensorMap map_k,
+                               const __grid_constant__ CUtensorMap map_k16,
+                               const __grid_constant__ CUtensorMap map_v,
+                               const __grid_constant__ CUtensorMap map_v16, T* __restrict__ o,
+                               float* __restrict__ lse, int H, int KV, int Sq, int Sk, int causal,
+                               int window, float scale_log2) {
+  using wg80::BK;
+  using wg80::BQ;
+  using wg80::STAGES;
+  namespace d80 = hopper::d80;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  uint8_t* sq = smem;
+  uint8_t* sk = sq + wg80::Q_BYTES;             // stage s at sk + s * KV_BYTES
+  uint8_t* sv = sk + STAGES * wg80::KV_BYTES;   // stage s at sv + s * KV_BYTES
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sv + STAGES * wg80::KV_BYTES);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* k_empty = v_full + STAGES;
+  uint64_t* v_empty = k_empty + STAGES;
+
+  // Causal q tiles late in the sequence do the most work: start them first.
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int bh = b * H + h;
+  const int bkv = b * KV + h / (H / KV);
+  const int q_last = min(q0 + BQ, Sq) - 1;
+
+  // k tiles this q tile can see: none above the diagonal, none before the window.
+  const int nk = (Sk + BK - 1) / BK;
+  const int kt_end = causal ? min(nk, q_last / BK + 1) : nk;
+  const int kt_begin = (window > 0 && q0 - window + 1 > 0) ? (q0 - window + 1) / BK : 0;
+  const int n = max(0, kt_end - kt_begin);
+  const int warpgroup = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&k_empty[s], 8);  // one arrive per consumer warp
+      hopper::mbar_init(&v_empty[s], 8);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warpgroup == 2) {  // producer
+    hopper::regs_dealloc<24>();
+    if (threadIdx.x == 256) {
+      hopper::mbar_arrive_expect_tx(q_full, wg80::Q_BYTES);
+      d80::load<BQ>(sq, &map_q, &map_q16, q_full, q0, bh);
+      // K and V have rings of their own: K of a tile is released once S is
+      // in, V only after P V, a tile later.
+      for (int i = 0; i < n; ++i) {
+        const int s = i % STAGES, kt = kt_begin + i;
+        const uint32_t phase = ((i / STAGES) & 1) ^ 1;
+        hopper::mbar_wait(&k_empty[s], phase);
+        hopper::mbar_arrive_expect_tx(&k_full[s], wg80::KV_BYTES);
+        d80::load<BK>(sk + s * wg80::KV_BYTES, &map_k, &map_k16, &k_full[s], kt * BK, bkv);
+        hopper::mbar_wait(&v_empty[s], phase);
+        hopper::mbar_arrive_expect_tx(&v_full[s], wg80::KV_BYTES);
+        d80::load<BK>(sv + s * wg80::KV_BYTES, &map_v, &map_v16, &v_full[s], kt * BK, bkv);
+      }
+    }
+  } else {  // consumers
+    hopper::regs_alloc<240>();
+    const int lane = threadIdx.x & 31;
+    const int warp = (threadIdx.x / 32) % 4;
+    const int wq0 = q0 + 64 * warpgroup;        // this warpgroup's first query row
+    const int wq_last = min(wq0 + 63, Sq - 1);  // and its last real one (< wq0 if none)
+    const int row0 = wq0 + 16 * warp + lane / 4;  // this thread's rows: row0 and row0 + 8
+    const int col0 = 2 * (lane % 4);              // and columns col0, col0 + 1 of each 8
+
+    Fwd80 st;
+#pragma unroll
+    for (int j = 0; j < 40; ++j) st.acc[j] = 0.f;
+    st.m[0] = st.m[1] = NEG_INF;
+    st.l[0] = st.l[1] = 0.f;
+    hopper::mbar_wait(q_full, 0);
+    const Fwd80Args args{sk,  sv,   k_full,  v_full,  k_empty,  v_empty, hopper::smem_u32(sq),
+                         warpgroup, lane, row0, col0, wq0, wq_last, kt_begin, Sk, causal,
+                         window, scale_log2};
+    if (warpgroup == 1) wg80::pass_turn(1);  // warpgroup 0 takes the first turn
+    // Round t issues S of tile t and O += P V of tile t - 1: this tile's
+    // softmax runs while the previous tile's P V does, and, by the turns,
+    // while the other warpgroup's products do.
+    if (n > 0) {
+      fwd80_round<T, true, false>(st, args, 0);
+      for (int t = 1; t < n; ++t) fwd80_round<T, true, true>(st, args, t);
+      fwd80_round<T, false, true>(st, args, n);
+    }
+    if (warpgroup == 0) wg80::take_turn(0);  // the turn warpgroup 1 passed last
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      st.l[r] += __shfl_xor_sync(0xffffffffu, st.l[r], 1);
+      st.l[r] += __shfl_xor_sync(0xffffffffu, st.l[r], 2);
+    }
+    T* op = o + (size_t)bh * Sq * 80;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qpos = row0 + 8 * r;
+      if (qpos > wq_last) continue;
+      const float denom = fmaxf(st.l[r], 1e-30f);
+      const float inv = 1.f / denom;
+      // The natural-log lse of the scaled scores: (m scale_log2 + log2 l) ln 2.
+      if (lse != nullptr && (lane & 3) == 0)
+        lse[(size_t)bh * Sq + qpos] = (st.m[r] * scale_log2 + log2f(denom)) * 0.6931471805599453f;
+      T* orow = op + (size_t)qpos * 80;
+#pragma unroll
+      for (int j = 0; j < 10; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j + col0) =
+            hopper::pack2<T>(st.acc[4 * j + 2 * r] * inv, st.acc[4 * j + 2 * r + 1] * inv);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_wgmma80(const void* q, const void* k, const void* v, void* o, float* lse,
+                           int B, int H, int KV, int Sq, int Sk, int causal, int window,
+                           cudaStream_t stream) {
+  constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+  CUtensorMap mq, mq16, mk, mk16, mv, mv16;
+  cudaError_t err = hopper::make_maps_d80(&mq, &mq16, q, bf16, Sq, (uint64_t)B * H, wg80::BQ);
+  if (err == cudaSuccess)
+    err = hopper::make_maps_d80(&mk, &mk16, k, bf16, Sk, (uint64_t)B * KV, wg80::BK);
+  if (err == cudaSuccess)
+    err = hopper::make_maps_d80(&mv, &mv16, v, bf16, Sk, (uint64_t)B * KV, wg80::BK);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_attention_d80_wgmma_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, wg80::SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + wg80::BQ - 1) / wg80::BQ, H, B);
+  const float scale_log2 = 1.4426950408889634f / sqrtf(80.f);
+  flash_attention_d80_wgmma_kernel<T><<<grid, wg80::THREADS, wg80::SMEM_BYTES, stream>>>(
+      mq, mq16, mk, mk16, mv, mv16, static_cast<T*>(o), lse, H, KV, Sq, Sk, causal, window,
+      scale_log2);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_wgmma_d(const void* q, const void* k, const void* v, void* o, float* lse,
                            int B, int H, int KV, int Sq, int Sk, int D, int causal, int window,
@@ -577,7 +880,7 @@ cudaError_t launch_wgmma_d(const void* q, const void* k, const void* v, void* o,
   if (D == 64)
     return launch_wgmma<T, 64>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, stream);
   if (D == 80)
-    return launch_wgmma<T, 80>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, stream);
+    return launch_wgmma80<T>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, stream);
   if (D == 128)
     return launch_wgmma<T, 128>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, stream);
   if (D == 256)

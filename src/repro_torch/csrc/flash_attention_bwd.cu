@@ -21,8 +21,10 @@
 // by the wrapper (kernels/flash_attention.py), so P never needs the
 // forward's mean-of-v repair.
 //
-// Three kernels on one stream, with no atomics, so dq, dk and dv are the
-// same bits from run to run: delta (one warp a row, delta = rowsum(dO o O));
+// Three kernels on one stream (at D = 80 on wgmma, below, the dq kernel's
+// work is done by the dk/dv blocks and a cast), with no float atomics, so
+// dq, dk and dv are the same bits from run to run: delta (one warp a row,
+// delta = rowsum(dO o O));
 // dk/dv, one block per (key tile, kv head, batch), which walks the g query
 // heads of its group in order and, for each, the query tiles that can see
 // the key tile (none below the diagonal, none past the window), recomputing
@@ -72,13 +74,27 @@
 //   Shared memory: two 128-row operands and two stages of two 64-row tiles
 //   (plus 512 bytes of lse and delta a stage for dk/dv): 65 KB at D = 64,
 //   129 KB at D = 128.
-//   At D = 80 (hubert-xlarge) both kernels run at the compute width DP =
-//   128, as the forward does: the tensor maps keep the real inner extent
-//   (80 columns, 160 bytes a row), so TMA fills columns 80-127 of each row's
-//   second box with zeros; S and dP issue ceil(D / 16) = 5 k16 steps, dV,
-//   dK and dQ accumulate DP columns (the padded ones stay 0), the epilogue
-//   stores the first 80, and the scale is 1/sqrt(80).  D = 128's footprint:
-//   the padding costs 3/8 of the dV, dK and dQ products.
+//   At D = 80 (hubert-xlarge) the tiling has kernels of its own
+//   (dkdv_d80_wgmma_kernel, dq_d80_cast_kernel) that run the math's 5
+//   products at the true width: every tile is hopper.cuh's d80 layout (a
+//   64-column box with the 128-byte swizzle beside a 16-column one with the
+//   32-byte swizzle), so S and dP take 5 k16 steps and dV, dK and dQ run at
+//   N = 64 + 16 (at a padded width of 128 the two kernels ran 7 products,
+//   3 of them on 48 zero columns: 704 product columns where the bound
+//   counts 400).  S and dP are computed once: the dk/dv blocks also form
+//   dQ's partial dS K for each query tile they visit (dS^T goes through
+//   shared memory, the MN-major A operand of a wgmma over the item's 128
+//   keys) and add it in fp32 into scratch, (B*H, ceil(Sq / 64)*64, 80), the
+//   items that see a query tile taking turns at it in a fixed order (a
+//   counter a tile, zeroed on every call; the first turn stores, the rest
+//   add by cp.reduce.async.bulk in L2), and dq_d80_cast_kernel scales and
+//   casts the sums.  So each (query, key) pair costs one exp, and no float
+//   atomics make the order vary.  The grid is persistent (a block an SM of
+//   the card at most) and walks its items in order, and the items of a kv
+//   head visit their tiles from staggered starts, so that the turns neither
+//   wait on a block that has not started nor queue the items behind one
+//   another (wg80 below).  Where the items, ceil(Sk / 128) x KV x B, are
+//   fewer than the SMs (small GQA shapes), SMs stay idle.
 //   At D = 256 (recurrentgemma-9b) that layout needs 256 KB of shared
 //   memory and 256 accumulator registers a consumer thread, past the 227 KB
 //   and the 240 of the setmaxnreg split.  So a block owns 64 keys (dk/dv)
@@ -116,7 +132,18 @@
 // shape wgmma 2.55 ms, fma 35.04 ms on the same bf16 inputs, SDPA's backward
 // 2.09 ms; at granite-8b's (B = 4, H = 32, KV = 8, S = 2048, D = 128) 1.03,
 // 17.19 and 0.97 ms.  Per product the wgmma tiling outruns SDPA's backward;
-// the two recomputed products are the gap.
+// the two recomputed products are the gap.  At D = 80 (tools/attn80_variants.py,
+// medians of 5 rounds in turns, same card), hubert-xlarge's training shape
+// (B = 4, H = KV = 16, S = 4096): 2.16-2.21 ms, 39-40% of its 0.8685 ms
+// bound (cuDNN 2.35-2.43; at a padded width of 128 with 7 products, 2.69);
+// with dq on a kernel of its own at the true width (7 products) 2.60-2.62;
+// with each dQ partial formed in its own step, its consumer waiting for the
+// other's half of dS^T, 2.29-2.45.  Without any of dQ's work the dk/dv
+// items take 1.53-1.58 ms; the stores and hand-offs of dS^T and of the
+// partials cost about 0.4 ms more and dQ's product about 0.2; the turns and
+// the L2 adds nothing that shows.  With fewer items than SMs (B = 2, H = 16,
+// KV = 4, S = 1000, causal: 64 items) 0.1385 ms, against 0.1283 with dq on
+// a kernel of its own and 0.1335 at the padded width (PERF.md section 6).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -565,8 +592,6 @@ constexpr int STAGES = 2;
 constexpr int THREADS = 384;  // consumer warpgroups 0 and 1, producer 2
 constexpr float LOG2E = 1.4426950408889634f;
 
-// The compute width of head dim D: whole 64-wide boxes (80 -> 128).
-template <int D> struct Width { static constexpr int value = (D + 63) / 64 * 64; };
 
 // How a block's two consumer warpgroups share its work.  At D = 64 and 128
 // the block owns 128 keys (dk/dv) or query rows (dq), 64 a consumer, and
@@ -623,13 +648,11 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                   int heads_per, float scale, float scale_log2) {
   using wg::BN;
   using wg::STAGES;
-  constexpr int DP = wg::Width<D>::value;  // the compute width (80 -> 128)
-  using S = wg::Smem<DP>;
-  using C = wg::Cfg<DP>;
+  using S = wg::Smem<D>;
+  using C = wg::Cfg<D>;
   constexpr int BM = C::BM;
   constexpr int NW = C::NW;
-  constexpr int NS = C::SPLIT ? NW : D;  // of its columns, the ones it stores
-  constexpr int CH = DP / 64;  // 64-wide column boxes of a row
+  constexpr int CH = D / 64;  // 64-wide column boxes of a row
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = hopper::align_1024(smem_raw);
   uint8_t* sk = smem;                  // K: the block's 128 keys
@@ -757,12 +780,12 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
           hopper::fence_regs(dpt);
           hopper::wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < (D + 15) / 16; ++kk)
+          for (int kk = 0; kk < D / 16; ++kk)
             hopper::Wgmma<BN, T>::template ss<0>(st, wg::kmajor<BM>(kw, kk),
                                                  wg::kmajor<BN>(qs, kk), kk > 0);
           hopper::wgmma_commit();
 #pragma unroll
-          for (int kk = 0; kk < (D + 15) / 16; ++kk)
+          for (int kk = 0; kk < D / 16; ++kk)
             hopper::Wgmma<BN, T>::template ss<0>(dpt, wg::kmajor<BM>(vw, kk),
                                                  wg::kmajor<BN>(dos, kk), kk > 0);
           hopper::wgmma_commit();
@@ -832,7 +855,7 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         const size_t n = (size_t)gridDim.z * KV * Sk * D;  // one partial of dk
         const size_t at = split * n + ((size_t)bkv * Sk + kpos) * D + wcol;
 #pragma unroll
-        for (int j = 0; j < NS / 8; ++j) {
+        for (int j = 0; j < NW / 8; ++j) {
           *reinterpret_cast<float2*>(part + at + 8 * j + col0) =
               make_float2(dk_acc[4 * j + 2 * rr], dk_acc[4 * j + 2 * rr + 1]);
           *reinterpret_cast<float2*>(part + splits * n + at + 8 * j + col0) =
@@ -843,7 +866,7 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       T* dkrow = dk + ((size_t)bkv * Sk + kpos) * D + wcol;
       T* dvrow = dv + ((size_t)bkv * Sk + kpos) * D + wcol;
 #pragma unroll
-      for (int j = 0; j < NS / 8; ++j) {
+      for (int j = 0; j < NW / 8; ++j) {
         *reinterpret_cast<uint32_t*>(dkrow + 8 * j + col0) =
             hopper::pack2<T>(dk_acc[4 * j + 2 * rr] * scale, dk_acc[4 * j + 2 * rr + 1] * scale);
         *reinterpret_cast<uint32_t*>(dvrow + 8 * j + col0) =
@@ -881,13 +904,11 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                 int causal, int window, float scale, float scale_log2) {
   using wg::BN;
   using wg::STAGES;
-  constexpr int DP = wg::Width<D>::value;
-  using S = wg::Smem<DP>;
-  using C = wg::Cfg<DP>;
+  using S = wg::Smem<D>;
+  using C = wg::Cfg<D>;
   constexpr int BM = C::BM;
   constexpr int NW = C::NW;
-  constexpr int NS = C::SPLIT ? NW : D;
-  constexpr int CH = DP / 64;
+  constexpr int CH = D / 64;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = hopper::align_1024(smem_raw);
   uint8_t* sq = smem;                   // Q: the block's 128 query rows
@@ -991,12 +1012,12 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         hopper::fence_regs(dp);
         hopper::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < (D + 15) / 16; ++kk)
+        for (int kk = 0; kk < D / 16; ++kk)
           hopper::Wgmma<BN, T>::template ss<0>(sc, wg::kmajor<BM>(qw, kk),
                                                wg::kmajor<BN>(ks, kk), kk > 0);
         hopper::wgmma_commit();
 #pragma unroll
-        for (int kk = 0; kk < (D + 15) / 16; ++kk)
+        for (int kk = 0; kk < D / 16; ++kk)
           hopper::Wgmma<BN, T>::template ss<0>(dp, wg::kmajor<BM>(dow, kk),
                                                wg::kmajor<BN>(vs, kk), kk > 0);
         hopper::wgmma_commit();
@@ -1048,11 +1069,496 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       if (qpos > wq_last) continue;
       T* dqrow = dqp + (size_t)qpos * D + wcol;
 #pragma unroll
-      for (int j = 0; j < NS / 8; ++j)
+      for (int j = 0; j < NW / 8; ++j)
         *reinterpret_cast<uint32_t*>(dqrow + 8 * j + col0) =
             hopper::pack2<T>(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
     }
   }
+}
+
+// ------------------------------------------------------------ head dim 80
+//
+// Products at the true width (hopper.cuh's d80 layout: a 64-column box with
+// the 128-byte swizzle beside a 16-column box with the 32-byte one), and S
+// and dP computed once: the dk/dv blocks also form dQ's partial dS K for
+// each query tile and add it, in fp32, into a (B*H, M*64, 80) buffer (M =
+// ceil(Sq / 64) query tiles a head), the key blocks of a query tile taking
+// turns in a fixed order; a last pass scales and casts it (dq_d80_cast_kernel).
+// That takes one block an SM at most.
+namespace wg80 {
+constexpr int BM = 128;  // keys of an item
+constexpr int STAGES = 2;  // (Q, dO) tiles in the ring
+constexpr int BIG = BM * hopper::d80::ROW_BYTES;      // K or V of an item
+constexpr int TILE = wg::BN * hopper::d80::ROW_BYTES;  // a streamed 64-row tile
+constexpr int ROWS = 2 * wg::BN * 4;                 // a query tile's lse and delta
+constexpr int DS = BM * 128;                          // dS^T of a step: 128 keys x 64 queries
+constexpr int DQP = wg::BN * 80 * 4;                 // dQ's fp32 partial of a step
+// Shared memory of the dk/dv kernel.
+constexpr int DKDV_BYTES = 2 * BIG + STAGES * (2 * TILE + ROWS) + 2 * (DS + DQP) +
+                           8 * (2 + 2 * STAGES + 8) + 1024;
+
+// The query tiles a key item sees and the order it walks them in: tiles
+// [lo, lo + len) (none above its keys under the causal mask, none past the
+// window of its last key), starting at lo + rot and wrapping.  Without a
+// causal mask every item would start at tile 0 and queue behind the others
+// at every tile's turn, so the items of a kv head start at staggered tiles
+// (stagger: when every item of a kv head is in flight at once, below).
+struct Walk {
+  int lo, len, rot;
+};
+__device__ __forceinline__ Walk walk_of(int n, int N, int M, int Sk, int causal, int window,
+                                        bool stagger) {
+  const int k0 = n * BM, k_last = min(k0 + BM, Sk) - 1;
+  const int lo = causal ? min(M, k0 / wg::BN) : 0;
+  const int hi = window > 0 ? min(M, (k_last + window - 1) / wg::BN + 1) : M;
+  const int len = max(0, hi - lo);
+  const int rot = stagger && !causal && len > 0 ? n * len / N : 0;  // n * len < 2^31
+  return Walk{lo, len, rot};
+}
+
+// Item n's turn at query tile m of query head r of its group: how many of
+// the N items of its kv head add their partial of that tile before it.
+// The items that see the tile add in the order of the step at which their
+// walks reach it (ties: n), which is the order they reach it in when their
+// walks are staggered; else in the order of n, so that an item only waits
+// for items of lower index, taken before it.  Computed by a warp.
+__device__ __forceinline__ int turn_of(int n, int r, int m, int N, int M, int Sk, int causal,
+                                       int window, bool stagger, int lane) {
+  const Walk w = walk_of(n, N, M, Sk, causal, window, stagger);
+  const int step = r * w.len + (m - w.lo - w.rot + 2 * w.len) % max(w.len, 1);
+  int before = 0;
+  for (int n2 = lane; n2 < N; n2 += 32) {
+    if (n2 == n) continue;
+    const Walk w2 = walk_of(n2, N, M, Sk, causal, window, stagger);
+    if (m < w2.lo || m >= w2.lo + w2.len) continue;
+    if (!stagger) {
+      before += n2 < n;
+    } else {
+      const int step2 = r * w2.len + (m - w2.lo - w2.rot + 2 * w2.len) % w2.len;
+      before += step2 < step || (step2 == step && n2 < n);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) before += __shfl_xor_sync(0xffffffffu, before, off);
+  return before;
+}
+// What a consumer reads to form dQ's partials.
+struct DqArgs {
+  uint8_t *sds, *sk, *sdq;
+  uint64_t *ds_full, *ds_empty, *dq_empty, *dq_full;
+  int warp, lane, col0;
+};
+
+// dQ's partial of step k, by consumer k % 2: dS (both halves of dS^T in
+// buffer k % 2) times the item's K, 128 keys, stored as fp32 rows of 80
+// (the layout of dq_acc's tile) for writer warp 1 + k % 2.
+template <typename T>
+__device__ __forceinline__ void dq_partial(const DqArgs& a, int k) {
+  const int buf = k % 2;
+  float dq[40];
+  hopper::mbar_wait(&a.ds_full[buf], (k / 2) & 1);
+  hopper::mbar_wait(&a.dq_empty[buf], ((k / 2) & 1) ^ 1);
+  const uint32_t dsa = hopper::opaque(hopper::smem_u32(a.sds + buf * DS));
+  const uint32_t kb = hopper::opaque(hopper::smem_u32(a.sk));
+  hopper::fence_regs(dq);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BM / 16; ++kk)  // 16 keys, 16 rows of dS^T and K, a step
+    hopper::d80::ss<T, BM, 1>(dq, hopper::desc_sw128(dsa + kk * 2048, DS, 1024), kb, kk, kk > 0);
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(dq);
+  __syncwarp();
+  if (a.lane == 0) hopper::mbar_arrive(&a.ds_empty[buf]);  // dS^T read
+  float* part = reinterpret_cast<float*>(a.sdq + buf * DQP);
+  const int qr = 16 * a.warp + a.lane / 4;
+#pragma unroll
+  for (int jj = 0; jj < 10; ++jj)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+      *reinterpret_cast<float2*>(part + (qr + 8 * rr) * 80 + 8 * jj + a.col0) =
+          make_float2(dq[4 * jj + 2 * rr], dq[4 * jj + 2 * rr + 1]);
+  hopper::fence_async_shared();
+  __syncwarp();
+  if (a.lane == 0) hopper::mbar_arrive(&a.dq_full[buf]);
+}
+}  // namespace wg80
+
+// One item is a key block of BM = 128 keys of one kv head and batch row; the
+// grid is persistent (at most one block an SM), block x taking items x,
+// x + gridDim.x, ..., so that with every item of a kv head in flight the
+// turns below cannot wait on an item that has not started.  Warpgroups as
+// dkdv_wgmma_kernel's (two consumers of 64 keys, a producer); the producer's
+// warp 0 streams (Q, dO) tiles and their lse and delta, and its warps 1
+// and 2 write dQ: each consumer step also stores dS^T (16-bit, the
+// 128-byte swizzle) into shared memory, and at step i consumer i % 2 forms
+// dQ's partial dS K (wgmma, A = dS MN-major, B = K MN-major, 128 keys) and
+// stores it as fp32 for writer warp 1 + i % 2, which waits for its item's
+// turn at the tile (a counter a tile in `turns`, acquire), copies the
+// partial into dq_acc (the first turn) or adds it there (cp.reduce.async.bulk
+// .add.f32, in L2), waits for the write to complete and passes the turn
+// (release).
+template <typename T>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+dkdv_d80_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_q16,
+                      const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_k16,
+                      const __grid_constant__ CUtensorMap map_v,
+                      const __grid_constant__ CUtensorMap map_v16,
+                      const __grid_constant__ CUtensorMap map_do,
+                      const __grid_constant__ CUtensorMap map_do16, const float* __restrict__ lse,
+                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                      float* __restrict__ dq_acc, int* __restrict__ turns, int B, int H, int KV,
+                      int Sq, int Sk, int causal, int window, float scale, float scale_log2) {
+  using wg::BN;
+  using wg80::BM;
+  using wg80::STAGES;
+  namespace d80 = hopper::d80;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  uint8_t* sk = smem;                          // K: the item's 128 keys
+  uint8_t* sv = sk + wg80::BIG;                // V
+  uint8_t* sq = sv + wg80::BIG;                // Q tile of stage s at sq + s * TILE
+  uint8_t* sdo = sq + STAGES * wg80::TILE;     // dO tile of stage s
+  uint8_t* sds = sdo + STAGES * wg80::TILE;    // dS^T of step i at sds + (i % 2) * DS
+  uint8_t* sdq = sds + 2 * wg80::DS;           // dQ's partial of step i at sdq + (i % 2) * DQP
+  float* srows = reinterpret_cast<float*>(sdq + 2 * wg80::DQP);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(srows + STAGES * 2 * BN);
+  uint64_t* kv_empty = kv_full + 1;
+  uint64_t* full = kv_empty + 1;
+  uint64_t* empty = full + STAGES;
+  uint64_t* dq_full = empty + STAGES;  // [2]
+  uint64_t* dq_empty = dq_full + 2;    // [2]
+  uint64_t* ds_full = dq_empty + 2;    // [2]
+  uint64_t* ds_empty = ds_full + 2;    // [2]
+
+  const int g = H / KV;
+  const int N = (Sk + BM - 1) / BM;  // items of a kv head
+  const int M = (Sq + BN - 1) / BN;  // query tiles of a head
+  const int items = N * KV * B;
+  const bool stagger = N <= (int)gridDim.x;
+  const int warpgroup = threadIdx.x / 128;
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    hopper::mbar_init(kv_empty, 8);  // one arrive per consumer warp
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 32);  // the producer warp's 32 lanes, one with the TMA bytes
+      hopper::mbar_init(&empty[s], 8);
+    }
+    for (int b2 = 0; b2 < 2; ++b2) {
+      hopper::mbar_init(&dq_full[b2], 4);  // the warps of the consumer that formed the partial
+      hopper::mbar_init(&dq_empty[b2], 1);
+      hopper::mbar_init(&ds_full[b2], 8);   // both consumers' warps, their halves of dS^T stored
+      hopper::mbar_init(&ds_empty[b2], 4);  // the warps of the consumer whose dQ product read it
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warpgroup == 2) {  // producer: 56 registers (the writers' turn arithmetic), 224 a consumer
+    hopper::regs_dealloc<56>();
+    const int pwarp = (threadIdx.x / 32) % 4;
+    if (pwarp == 0) {  // loads
+      int i = 0, ic = 0;
+      for (int it = blockIdx.x; it < items; it += gridDim.x, ++ic) {
+        const int n = it % N, kvh = (it / N) % KV, b = it / (N * KV);
+        const int bkv = b * KV + kvh;
+        const wg80::Walk w = wg80::walk_of(n, N, M, Sk, causal, window, stagger);
+        hopper::mbar_wait(kv_empty, (ic & 1) ^ 1);
+        if (lane == 0) {
+          hopper::mbar_arrive_expect_tx(kv_full, 2 * wg80::BIG);
+          d80::load<BM>(sk, &map_k, &map_k16, kv_full, n * BM, bkv);
+          d80::load<BM>(sv, &map_v, &map_v16, kv_full, n * BM, bkv);
+        }
+        for (int j = 0; j < g * w.len; ++j, ++i) {
+          const int bh = bkv * g + j / w.len;
+          const int q0 = (w.lo + (j % w.len + w.rot) % w.len) * BN;
+          const int s = i % STAGES;
+          hopper::mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+          float* rows = srows + s * 2 * BN;
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {  // rows past Sq: lse 0, delta 0 (the mask zeroes P)
+            const int row = q0 + lane + 32 * h2;
+            const bool in = row < Sq;
+            rows[lane + 32 * h2] = in ? lse[(size_t)bh * Sq + row] * wg::LOG2E : 0.f;
+            rows[BN + lane + 32 * h2] = in ? delta[(size_t)bh * Sq + row] : 0.f;
+          }
+          if (lane == 0) {  // after its own stores: its arrive releases them
+            hopper::mbar_arrive_expect_tx(&full[s], 2 * wg80::TILE);
+            d80::load<BN>(sq + s * wg80::TILE, &map_q, &map_q16, &full[s], q0, bh);
+            d80::load<BN>(sdo + s * wg80::TILE, &map_do, &map_do16, &full[s], q0, bh);
+          } else {
+            hopper::mbar_arrive(&full[s]);
+          }
+        }
+      }
+    } else if (pwarp <= 2) {  // dQ's writers: warp 1 the even steps, warp 2 the odd
+      const int mine = pwarp - 1;
+      int i = 0;
+      for (int it = blockIdx.x; it < items; it += gridDim.x) {
+        const int n = it % N, kvh = (it / N) % KV, b = it / (N * KV);
+        const wg80::Walk w = wg80::walk_of(n, N, M, Sk, causal, window, stagger);
+        for (int j = 0; j < g * w.len; ++j, ++i) {
+          if (i % 2 != mine) continue;
+          const int r = j / w.len;
+          const int m = w.lo + (j % w.len + w.rot) % w.len;
+          const int bh = (b * KV + kvh) * g + r;
+          const int turn = wg80::turn_of(n, r, m, N, M, Sk, causal, window, stagger, lane);
+          int* counter = turns + (size_t)bh * M + m;
+          hopper::mbar_wait(&dq_full[mine], (i / 2) & 1);
+          if (lane == 0) {
+            while (hopper::ld_acquire(counter) != turn) {
+            }
+            hopper::fence_async_global();
+            float* dst = dq_acc + ((size_t)bh * M + m) * BN * 80;
+            if (turn == 0)
+              hopper::bulk_store(dst, sdq + mine * wg80::DQP, wg80::DQP);
+            else
+              hopper::bulk_add_f32(dst, sdq + mine * wg80::DQP, wg80::DQP);
+            hopper::bulk_commit();
+            hopper::bulk_wait<0>();
+            hopper::fence_async_global();
+            hopper::red_release_add(counter, 1);
+            hopper::mbar_arrive(&dq_empty[mine]);
+          }
+          __syncwarp();
+        }
+      }
+    }
+  } else {  // consumers
+    hopper::regs_alloc<224>();
+    const int warp = (threadIdx.x / 32) % 4;
+    const int col0 = 2 * (lane % 4);  // this thread's queries col0, col0 + 1 of each 8
+    const wg80::DqArgs dqa{sds,      sk,       sdq,  ds_full, ds_empty,
+                           dq_empty, dq_full,  warp, lane,    col0};
+    if (warpgroup == 1) wg::pass_turn(1);  // warpgroup 0 takes the first turn
+    int i = 0, ic = 0;
+    for (int it = blockIdx.x; it < items; it += gridDim.x, ++ic) {
+      const int n = it % N, kvh = (it / N) % KV, b = it / (N * KV);
+      const int bkv = b * KV + kvh;
+      const wg80::Walk w = wg80::walk_of(n, N, M, Sk, causal, window, stagger);
+      const int i0 = i;                              // the item's first step
+      const int wk0 = n * BM + 64 * warpgroup;      // this warpgroup's first key
+      const int wk_last = min(wk0 + 63, Sk - 1);    // and its last real one (< wk0 if none)
+      const int row0 = wk0 + 16 * warp + lane / 4;  // this thread's keys: row0 and row0 + 8
+      // [4j + 2i + c]: key row0 + 8i, column 8j + col0 + c
+      float dk_acc[40], dv_acc[40];
+#pragma unroll
+      for (int e = 0; e < 40; ++e) dk_acc[e] = dv_acc[e] = 0.f;
+      hopper::mbar_wait(kv_full, ic & 1);
+      for (int j = 0; j < g * w.len; ++j, ++i) {
+        const int s = i % STAGES;
+        const int q0 = (w.lo + (j % w.len + w.rot) % w.len) * BN;
+        hopper::mbar_wait(&full[s], (i / STAGES) & 1);
+        // A tile wholly masked for this warpgroup's keys (or a warpgroup
+        // past Sk) computes nothing; its rows of dS^T are 0.
+        const bool skip = wk_last < wk0 || (causal && q0 + BN - 1 < wk0) ||
+                          (window > 0 && q0 >= wk_last + window);
+        const uint32_t qs = hopper::opaque(hopper::smem_u32(sq) + s * wg80::TILE);
+        const uint32_t dos = hopper::opaque(hopper::smem_u32(sdo) + s * wg80::TILE);
+        uint8_t* ds_tile = sds + (i % 2) * wg80::DS;  // this step's dS^T
+        wg::take_turn(warpgroup);
+        if (skip) {
+          wg::pass_turn(warpgroup);
+          hopper::mbar_wait(&ds_empty[i % 2], ((i / 2) & 1) ^ 1);  // its 64 rows of dS^T are 0
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            *reinterpret_cast<uint4*>(ds_tile + warpgroup * 64 * 128 + (threadIdx.x % 128) * 64 +
+                                      16 * e) = make_uint4(0, 0, 0, 0);
+        } else {
+          const uint32_t kw = hopper::opaque(hopper::smem_u32(sk));
+          const uint32_t vw = hopper::opaque(hopper::smem_u32(sv));
+          // S^T and dP^T: [4j + 2i + c] is key row0 + 8i, query q0 + 8j + col0 + c.
+          float st[BN / 2], dpt[BN / 2];
+          hopper::fence_regs(st);
+          hopper::fence_regs(dpt);
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 5; ++kk)
+            hopper::Wgmma<BN, T>::template ss<0>(st, d80::kmajor<BM>(kw, 64 * warpgroup, kk),
+                                                 d80::kmajor<BN>(qs, 0, kk), kk > 0);
+          hopper::wgmma_commit();
+#pragma unroll
+          for (int kk = 0; kk < 5; ++kk)
+            hopper::Wgmma<BN, T>::template ss<0>(dpt, d80::kmajor<BM>(vw, 64 * warpgroup, kk),
+                                                 d80::kmajor<BN>(dos, 0, kk), kk > 0);
+          hopper::wgmma_commit();
+          wg::pass_turn(warpgroup);
+          hopper::wgmma_wait<1>();  // S^T is in: P^T is computed while dP^T runs
+          hopper::fence_regs(st);
+
+          const bool masked = (causal && q0 < wk_last) ||
+                              (window > 0 && q0 + BN - 1 >= wk0 + window) || q0 + BN > Sq;
+          const float* rows = srows + s * 2 * BN;
+#pragma unroll
+          for (int jj = 0; jj < BN / 8; ++jj) {
+            const float2 l2 = *reinterpret_cast<const float2*>(rows + 8 * jj + col0);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int nn = 4 * jj + e;
+              float p = hopper::exp2_approx(st[nn] * scale_log2 - (e % 2 ? l2.y : l2.x));
+              if (masked) {
+                const int kpos = row0 + 8 * (e / 2);
+                const int qpos = q0 + 8 * jj + col0 + e % 2;
+                bool keep = qpos < Sq;
+                if (causal) keep = keep && kpos <= qpos;
+                if (window > 0) keep = keep && kpos > qpos - window;
+                if (!keep) p = 0.f;
+              }
+              st[nn] = p;
+            }
+          }
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(dpt);
+#pragma unroll
+          for (int jj = 0; jj < BN / 8; ++jj) {
+            const float2 dl = *reinterpret_cast<const float2*>(rows + BN + 8 * jj + col0);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              dpt[4 * jj + e] = st[4 * jj + e] * (dpt[4 * jj + e] - (e % 2 ? dl.y : dl.x));
+          }
+          uint32_t pa[BN / 16][4], da[BN / 16][4];
+          hopper::to_a_frags<T>(pa, st);
+          hopper::to_a_frags<T>(da, dpt);
+          hopper::fence_regs(dv_acc);
+          hopper::fence_regs(dk_acc);
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BN / 16; ++kk)  // 16 queries, 16 rows of the tiles, a step
+            d80::rs<T, BN>(dv_acc, pa[kk], dos, kk, 1);
+          // While dV runs, dS^T into shared memory (before dK's product
+          // reads da): key row kr of the item's 128, 64 queries in 128 bytes
+          // with the 128-byte swizzle (16-byte chunk c at c ^ (kr % 8)), the
+          // MN-major A operand of dQ = dS K, once the dQ product of two steps
+          // back has read the buffer.
+          hopper::mbar_wait(&ds_empty[i % 2], ((i / 2) & 1) ^ 1);
+#pragma unroll
+          for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int kr = 64 * warpgroup + 16 * warp + lane / 4 + 8 * (e % 2);
+              const int chunk = 2 * kk + e / 2;  // the queries' 8-column group
+              *reinterpret_cast<uint32_t*>(ds_tile + kr * 128 + ((chunk ^ (kr % 8)) * 16) +
+                                           col0 * 2) = da[kk][e];
+            }
+#pragma unroll
+          for (int kk = 0; kk < BN / 16; ++kk) d80::rs<T, BN>(dk_acc, da[kk], qs, kk, 1);
+          hopper::wgmma_commit();
+        }
+        // This warpgroup's half of dS^T is in.  dQ's partial of step k is
+        // formed by consumer k % 2 at step k + 1: a step late, when the other
+        // consumer's half has long been stored, so that neither waits for the
+        // other.
+        hopper::fence_async_shared();
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&ds_full[i % 2]);
+        if (i > i0 && (i - 1) % 2 == warpgroup) wg80::dq_partial<T>(dqa, i - 1);
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(dv_acc);
+        hopper::fence_regs(dk_acc);
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&empty[s]);
+      }
+      if (i > i0 && (i - 1) % 2 == warpgroup)
+        wg80::dq_partial<T>(dqa, i - 1);  // the item's last step, before K is released
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(kv_empty);  // K and V read for the last time
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int kpos = row0 + 8 * rr;
+        if (kpos > wk_last) continue;
+        T* dkrow = dk + ((size_t)bkv * Sk + kpos) * 80;
+        T* dvrow = dv + ((size_t)bkv * Sk + kpos) * 80;
+#pragma unroll
+        for (int jj = 0; jj < 10; ++jj) {
+          *reinterpret_cast<uint32_t*>(dkrow + 8 * jj + col0) = hopper::pack2<T>(
+              dk_acc[4 * jj + 2 * rr] * scale, dk_acc[4 * jj + 2 * rr + 1] * scale);
+          *reinterpret_cast<uint32_t*>(dvrow + 8 * jj + col0) =
+              hopper::pack2<T>(dv_acc[4 * jj + 2 * rr], dv_acc[4 * jj + 2 * rr + 1]);
+        }
+      }
+    }
+    if (warpgroup == 0) wg::take_turn(0);  // the turn warpgroup 1 passed last
+  }
+}
+
+// dq from dq_acc's fp32 sums: scaled once and rounded to T, 8 values a thread.
+template <typename T>
+__global__ void __launch_bounds__(256)
+dq_d80_cast_kernel(const float* __restrict__ dq_acc, T* __restrict__ dq, long rows, int Sq, int M,
+                   float scale) {
+  const long idx = (long)blockIdx.x * 256 + threadIdx.x;  // 8 values of row idx / 10
+  if (idx >= rows * 10) return;
+  const long row = idx / 10, bh = row / Sq;
+  const float* src = dq_acc + ((bh * M * wg::BN + row % Sq) * 80 + (idx % 10) * 8);
+  const float4 a = *reinterpret_cast<const float4*>(src);
+  const float4 c = *reinterpret_cast<const float4*>(src + 4);
+  uint4 out;
+  out.x = hopper::pack2<T>(a.x * scale, a.y * scale);
+  out.y = hopper::pack2<T>(a.z * scale, a.w * scale);
+  out.z = hopper::pack2<T>(c.x * scale, c.y * scale);
+  out.w = hopper::pack2<T>(c.z * scale, c.w * scale);
+  *reinterpret_cast<uint4*>(dq + idx * 8) = out;
+}
+
+// Scratch of the D = 80 wgmma backward: a turn counter a query tile
+// (rounded up to 256 bytes), then dq_acc, (B*H, M*64, 80) fp32.
+long long d80_workspace(int B, int H, int Sq) {
+  const long long tiles = (long long)B * H * ((Sq + wg::BN - 1) / wg::BN);
+  return (tiles * 4 + 255) / 256 * 256 + tiles * wg::BN * 80 * 4;
+}
+
+template <typename T>
+cudaError_t launch_wgmma80(const void* q, const void* k, const void* v, const void* o,
+                           const void* dout, const float* lse, void* dq, void* dk, void* dv,
+                           float* delta, float* work, int B, int H, int KV, int Sq, int Sk,
+                           int causal, int window, int sms, cudaStream_t stream) {
+  constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+  const uint64_t bh = (uint64_t)B * H, bkv = (uint64_t)B * KV;
+  // The dk/dv items stream 64-row tiles of q and dO past 128 keys of k and v.
+  CUtensorMap q64, q64n, do64, do64n, k_big, k_bign, v_big, v_bign;
+  cudaError_t err = hopper::make_maps_d80(&q64, &q64n, q, bf16, Sq, bh, wg::BN);
+  if (err == cudaSuccess) err = hopper::make_maps_d80(&do64, &do64n, dout, bf16, Sq, bh, wg::BN);
+  if (err == cudaSuccess) err = hopper::make_maps_d80(&k_big, &k_bign, k, bf16, Sk, bkv, wg80::BM);
+  if (err == cudaSuccess) err = hopper::make_maps_d80(&v_big, &v_bign, v, bf16, Sk, bkv, wg80::BM);
+  if (err != cudaSuccess) return err;
+  if (work == nullptr) return cudaErrorInvalidValue;
+  const float scale = 1.0f / sqrtf(80.f);
+  const float scale_log2 = scale * wg::LOG2E;
+  const int M = (Sq + wg::BN - 1) / wg::BN;
+  // At most one block an SM (the card's, whatever `sms` says), so that every
+  // block is resident and the turns cannot wait on one that is not.
+  int device, card_sms;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&card_sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const long items = (long)((Sk + wg80::BM - 1) / wg80::BM) * KV * B;
+  const int grid = (int)std::min<long>(items, std::min(sms, card_sms));
+
+  err = launch_delta<T, 80>(o, dout, delta, (long)B * H * Sq, stream);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (long long)B * H * M;
+  int* turns = reinterpret_cast<int*>(work);
+  float* dq_acc =
+      reinterpret_cast<float*>(reinterpret_cast<char*>(work) + (tiles * 4 + 255) / 256 * 256);
+  err = cudaMemsetAsync(turns, 0, tiles * 4, stream);  // every call: the turns start at 0
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(dkdv_d80_wgmma_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, wg80::DKDV_BYTES);
+  if (err != cudaSuccess) return err;
+  dkdv_d80_wgmma_kernel<T><<<grid, wg::THREADS, wg80::DKDV_BYTES, stream>>>(
+      q64, q64n, k_big, k_bign, v_big, v_bign, do64, do64n, lse, delta, static_cast<T*>(dk),
+      static_cast<T*>(dv), dq_acc, turns, B, H, KV, Sq, Sk, causal, window, scale, scale_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long rows = (long)B * H * Sq;
+  dq_d80_cast_kernel<T><<<(unsigned)((rows * 10 + 255) / 256), 256, 0, stream>>>(
+      dq_acc, static_cast<T*>(dq), rows, Sq, M, scale);
+  return cudaGetLastError();
 }
 
 // The query-head splits of the dk/dv launch (its blockIdx.y), as heads per
@@ -1064,7 +1570,7 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 template <int D>
 int heads_per_split(int B, int H, int KV, int Sk, int sms) {
   const int g = H / KV;
-  using C = wg::Cfg<wg::Width<D>::value>;
+  using C = wg::Cfg<D>;
   const long blocks = (long)((Sk + C::BM - 1) / C::BM) * KV * B;
   if (!C::SPLIT || blocks >= sms) return g;
   const int splits = (int)std::min<long>(g, sms / blocks);
@@ -1077,8 +1583,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void
                          float* delta, float* work, int B, int H, int KV, int Sq, int Sk,
                          int causal, int window, int sms, cudaStream_t stream) {
   constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int bytes = wg::Smem<wg::Width<D>::value>::BYTES;
-  constexpr int BM = wg::Cfg<wg::Width<D>::value>::BM;
+  constexpr int bytes = wg::Smem<D>::BYTES;
+  constexpr int BM = wg::Cfg<D>::BM;
   const uint64_t bh = (uint64_t)B * H, bkv = (uint64_t)B * KV;
   // dk/dv streams 64-row tiles of q and dO past BM-key blocks of k and v;
   // dq the other way round.
@@ -1135,8 +1641,8 @@ cudaError_t launch_wgmma_d(const void* q, const void* k, const void* v, const vo
     return launch_wgmma<T, 64>(q, k, v, o, dout, lse, dq, dk, dv, delta, work, B, H, KV, Sq, Sk,
                                causal, window, sms, stream);
   if (D == 80)
-    return launch_wgmma<T, 80>(q, k, v, o, dout, lse, dq, dk, dv, delta, work, B, H, KV, Sq, Sk,
-                               causal, window, sms, stream);
+    return launch_wgmma80<T>(q, k, v, o, dout, lse, dq, dk, dv, delta, work, B, H, KV, Sq, Sk,
+                             causal, window, sms, stream);
   if (D == 128)
     return launch_wgmma<T, 128>(q, k, v, o, dout, lse, dq, dk, dv, delta, work, B, H, KV, Sq,
                                 Sk, causal, window, sms, stream);
@@ -1156,18 +1662,22 @@ bool valid(int B, int H, int KV, int Sq, int Sk, int window) {
 // q, o, dout, dq: (B, H, Sq, D); k, v, dk, dv: (B, KV, Sk, D); lse, delta:
 // (B, H, Sq) fp32, delta scratch the call overwrites.  Contiguous device
 // arrays, 16-byte aligned.  dtype: 0 float32, 1 float16, 2 bfloat16.  D: 64,
-// 80, 128 or 256.  work: repro_flash_attention_bwd_workspace(B, H, KV, Sk, D,
-// sms) bytes of scratch (the wgmma tiling's partials of dk and dv at
-// D = 256; may be null where that is 0); sms: the card's SMs.  Each entry
+// 80, 128 or 256.  work: repro_flash_attention_bwd_workspace(B, H, KV, Sq, Sk,
+// D, sms) bytes of scratch (the wgmma tiling's partials of dk and dv at
+// D = 256, its turn counters and fp32 dq sums at D = 80; may be null where
+// that is 0); sms: the card's SMs.  Each entry
 // point launches one tiling's kernels on `stream` and returns a cudaError_t
 // (0 on success); a shape or dtype its tiling does not take returns
 // cudaErrorInvalidValue.
 
-// Bytes of scratch the wgmma tiling needs (the fma tiling needs none): two
-// fp32 partials of dk and dv for each query-head split, or 0 without splits.
-extern "C" long long repro_flash_attention_bwd_workspace(int B, int H, int KV, int Sk, int D,
-                                                         int sms) {
-  if (!valid(B, H, KV, 1, Sk, 0) || sms < 1) return 0;
+// Bytes of scratch the wgmma tiling needs (the fma tiling needs none): at
+// D = 256 two fp32 partials of dk and dv for each query-head split, or 0
+// without splits; at D = 80 a turn counter a 64-row query tile and dq's
+// fp32 sums, (B*H, ceil(Sq / 64)*64, 80).
+extern "C" long long repro_flash_attention_bwd_workspace(int B, int H, int KV, int Sq, int Sk,
+                                                         int D, int sms) {
+  if (!valid(B, H, KV, Sq, Sk, 0) || sms < 1) return 0;
+  if (D == 80) return d80_workspace(B, H, Sq);
   const int g = H / KV;
   const int per = D == 256 ? heads_per_split<256>(B, H, KV, Sk, sms) : g;
   const long long splits = (g + per - 1) / per;

@@ -23,6 +23,13 @@
 //     for B (TRANS_B) or for A from shared memory (TRANS_A).
 // Boxes start on 1024-byte boundaries, so the swizzle phase of an address is
 // the same for TMA and wgmma and the descriptors' base offset stays 0.
+//
+// Head dim 80 (namespace d80 below) fills no whole 128-byte box: a row of 80
+// 16-bit values is 160 bytes.  Its tiles are a box of columns 0-63 with the
+// 128-byte swizzle (R x 128 bytes) followed by a box of columns 64-79 with
+// the 32-byte swizzle (R x 32 bytes: 32-byte rows, each 8-row group SBO = 256
+// bytes on; a k16 step, 16 rows, 512 bytes), so TMA moves the real 160 bytes
+// a row and no product runs on zero columns.
 
 #pragma once
 
@@ -215,6 +222,13 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint
   return ((uint64_t)hi << 32) | lo;
 }
 
+// The same for the 32-byte swizzle (layout type 3).
+__device__ __forceinline__ uint64_t desc_sw32(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  const uint32_t lo = ((addr & 0x3FFFFu) >> 4) | (((lbo & 0x3FFFFu) >> 4) << 16);
+  const uint32_t hi = ((sbo & 0x3FFFFu) >> 4) | (3u << 30);
+  return ((uint64_t)hi << 32) | lo;
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -356,6 +370,115 @@ HOPPER_WGMMA_128(__half, "f16")
 HOPPER_WGMMA_256(__nv_bfloat16, "bf16")
 HOPPER_WGMMA_256(__half, "f16")
 
+#define HOPPER_ACC8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define HOPPER_ACC8_OPS(d) "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+#define HOPPER_WGMMA_16(CTYPE, TY) \
+  template <> struct Wgmma<16, CTYPE> { \
+    template <int TRANS_B, int TRANS_A = 0> \
+    static __device__ __forceinline__ void ss(float (&d)[8], uint64_t a, uint64_t b, \
+                                              int scale_d) { \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n" \
+                   "wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " " \
+                   HOPPER_ACC8 ", %8, %9, p, 1, 1, %12, %11;\n}\n" \
+                   : HOPPER_ACC8_OPS(d) \
+                   : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A)); \
+    } \
+    template <int TRANS_B> \
+    static __device__ __forceinline__ void rs(float (&d)[8], const uint32_t (&a)[4], \
+                                              uint64_t b, int scale_d) { \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n" \
+                   "wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " " \
+                   HOPPER_ACC8 ", {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n" \
+                   : HOPPER_ACC8_OPS(d) \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), \
+                     "n"(TRANS_B)); \
+    } \
+  };
+
+HOPPER_WGMMA_16(__nv_bfloat16, "bf16")
+HOPPER_WGMMA_16(__half, "f16")
+
+// Head dim 80 (the layout note at the top): a tile of ROWS rows is a
+// 128-byte-swizzled box of columns 0-63 (ROWS x 128 bytes) followed by a
+// 32-byte-swizzled box of columns 64-79 (ROWS x 32 bytes).
+namespace d80 {
+constexpr int ROW_BYTES = 160;
+
+// Loads rows [row, row + ROWS) of plane z of a (80, rows, planes) array into
+// the tile at dst: `wide` reads boxes of (64, ROWS) with the 128-byte swizzle,
+// `narrow` boxes of (16, ROWS) with the 32-byte swizzle.
+template <int ROWS>
+__device__ __forceinline__ void load(uint8_t* dst, const CUtensorMap* wide,
+                                     const CUtensorMap* narrow, uint64_t* bar, int row, int z) {
+  tma_load_3d(dst, wide, bar, 0, row, z);
+  tma_load_3d(dst + ROWS * 128, narrow, bar, 64, row, z);
+}
+
+// The K-major descriptor of k16 step kk (columns 16kk .. 16kk+15) of the
+// 64 rows from row r0 of a ROWS-row tile at shared address base.
+template <int ROWS>
+__device__ __forceinline__ uint64_t kmajor(uint32_t base, int r0, int kk) {
+  return kk < 4 ? desc_sw128(base + r0 * 128 + kk * 32, 16, 1024)
+                : desc_sw32(base + ROWS * 128 + r0 * 32, 16, 256);
+}
+
+// d (an m64n80 fp32 accumulator: d[4j + 2i + c] is column 8j + ...) +=
+// A x the tile's rows 16kk .. 16kk+15 as the MN-major B operand (K = the
+// tile's rows, N = its 80 columns), A from registers (rs) or a descriptor
+// (ss, TRANS_A as Wgmma::ss): an m64n64k16 on the wide box and an m64n16k16
+// on the narrow one.
+template <typename T, int ROWS>
+__device__ __forceinline__ void rs(float (&d)[40], const uint32_t (&a)[4], uint32_t base, int kk,
+                                   int scale_d) {
+  Wgmma<64, T>::template rs<1>(*reinterpret_cast<float(*)[32]>(&d[0]), a,
+                               desc_sw128(base + kk * 2048, ROWS * 128, 1024), scale_d);
+  Wgmma<16, T>::template rs<1>(*reinterpret_cast<float(*)[8]>(&d[32]), a,
+                               desc_sw32(base + ROWS * 128 + kk * 512, ROWS * 32, 256), scale_d);
+}
+template <typename T, int ROWS, int TRANS_A>
+__device__ __forceinline__ void ss(float (&d)[40], uint64_t a, uint32_t base, int kk,
+                                   int scale_d) {
+  Wgmma<64, T>::template ss<1, TRANS_A>(*reinterpret_cast<float(*)[32]>(&d[0]), a,
+                                        desc_sw128(base + kk * 2048, ROWS * 128, 1024), scale_d);
+  Wgmma<16, T>::template ss<1, TRANS_A>(*reinterpret_cast<float(*)[8]>(&d[32]), a,
+                                        desc_sw32(base + ROWS * 128 + kk * 512, ROWS * 32, 256),
+                                        scale_d);
+}
+}  // namespace d80
+
+// ------------------------------------------- bulk copies and turns across blocks
+//
+// A bulk copy or fp32 add of `bytes` contiguous bytes (a multiple of 16, both
+// addresses 16-byte aligned) from shared to global memory, in this thread's
+// bulk group (bulk_commit, bulk_wait above).  The add is done in L2, so
+// blocks that take turns at one buffer add in the order of their turns.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_add_f32(float* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n" ::
+                   "l"(dst),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+// Orders this thread's global accesses through the generic proxy against its
+// bulk copies (the async proxy), both ways.
+__device__ __forceinline__ void fence_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+// A counter in global memory that blocks take turns by: read with acquire
+// semantics at GPU scope, and added to with release semantics.
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void red_release_add(int* p, int v) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
 // ------------------------------------------------------------------ host side
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -415,13 +538,32 @@ inline cudaError_t encode_3d(CUtensorMap* map, const void* base, CUtensorMapData
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The tensor-core kernels' map: a contiguous 16-bit array read in boxes of
-// (64, box1, 1) with the 128-byte swizzle (the layout convention above).
-inline cudaError_t make_map_3d(CUtensorMap* map, const void* base, bool bf16, uint64_t n0,
-                               uint64_t n1, uint64_t n2, uint32_t box1) {
+// A contiguous 16-bit array read in boxes of (box0, box1, 1) with the given
+// swizzle (head dim 80: (64, R) with the 128-byte swizzle and (16, R) with
+// the 32-byte one; see d80).
+inline cudaError_t make_map_3d_box(CUtensorMap* map, const void* base, bool bf16, uint64_t n0,
+                                   uint64_t n1, uint64_t n2, uint32_t box0, uint32_t box1,
+                                   CUtensorMapSwizzle swizzle) {
   return encode_3d(map, base,
                    bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-                   n0, n1, n2, n0 * 2, n0 * n1 * 2, 64, box1, CU_TENSOR_MAP_SWIZZLE_128B);
+                   n0, n1, n2, n0 * 2, n0 * n1 * 2, box0, box1, swizzle);
+}
+
+// The tensor-core kernels' map: boxes of (64, box1, 1) with the 128-byte
+// swizzle (the layout convention above).
+inline cudaError_t make_map_3d(CUtensorMap* map, const void* base, bool bf16, uint64_t n0,
+                               uint64_t n1, uint64_t n2, uint32_t box1) {
+  return make_map_3d_box(map, base, bf16, n0, n1, n2, 64, box1, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// The two maps of a (80, n1, n2) array for d80::load: the wide one (64-column
+// boxes, 128-byte swizzle) and the narrow one (16-column, 32-byte swizzle).
+inline cudaError_t make_maps_d80(CUtensorMap* wide, CUtensorMap* narrow, const void* base,
+                                 bool bf16, uint64_t n1, uint64_t n2, uint32_t rows) {
+  cudaError_t err =
+      make_map_3d_box(wide, base, bf16, 80, n1, n2, 64, rows, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  return make_map_3d_box(narrow, base, bf16, 80, n1, n2, 16, rows, CU_TENSOR_MAP_SWIZZLE_32B);
 }
 
 // An unswizzled map of fp32 (elem_bytes 4) or bf16 / fp16 values: a box

@@ -21,10 +21,11 @@ a key, and does nothing at Sq = Sk (every served prefill).
 
 Training: given ``lse``, either tiling also writes each query row's
 log-sum-exp, and :func:`flash_attention_bwd` (``csrc/flash_attention_bwd.cu``,
-head dims 64, 80, 128 and 256; 80 at a compute width of 128 on ``wgmma``, as
-the forward) computes dq, dk and dv from it on one of two tilings,
-``wgmma`` (bf16/fp16) and ``fma`` (any dtype; exact fp32), one C entry point
-each; :func:`attention_bwd_tiling` chooses.  :class:`FlashAttentionFn` joins
+head dims 64, 80, 128 and 256; 80 at its true width on ``wgmma``, as the
+forward, S and dP computed once and dq summed in fp32 scratch in a fixed
+order) computes dq, dk and dv from it on one of two tilings, ``wgmma``
+(bf16/fp16) and ``fma`` (any dtype; exact fp32), one C entry point each;
+:func:`attention_bwd_tiling` chooses.  :class:`FlashAttentionFn` joins
 the forward and the backward for autograd.  The backward refuses
 shapes with rows that see no key: the mean-of-v rows have a gradient the
 kernel does not compute, and no training shape (Sq = Sk) has them.
@@ -42,7 +43,7 @@ from ._build import sm_count
 
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 HALF_DTYPES = (torch.float16, torch.bfloat16)
-HEAD_DIMS = (64, 80, 128, 256)  # 80: hubert-xlarge, at a compute width of 128 on wgmma
+HEAD_DIMS = (64, 80, 128, 256)  # 80: hubert-xlarge, its own wgmma kernels at the true width
 TILINGS = ("wgmma", "fma")
 # minicpm-2b; hubert-xlarge; granite-8b/34b, deepseek-coder-33b, the VLM; recurrentgemma
 BWD_HEAD_DIMS = (64, 80, 128, 256)
@@ -99,7 +100,7 @@ def _bwd_entries(tiling: str):
         fn.argtypes = [p] * 11 + [i] * 10 + [p]
         fn.restype = i
     if ws.argtypes is None:
-        ws.argtypes = [ctypes.c_int] * 6
+        ws.argtypes = [ctypes.c_int] * 7
         ws.restype = ctypes.c_longlong
     return fn, ws
 
@@ -186,8 +187,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True, window: int = 
     take the dtype raises.  Launches the CUDA backward once (three kernels on
     the current stream; at D = 256 the wgmma tiling may split the query heads
     of a kv head into fp32 partials, from PyTorch's allocator, that a fourth
-    kernel adds in a fixed order), or raises: it never computes on another
-    path.
+    kernel adds in a fixed order; at D = 80 it sums dq in fp32 scratch from
+    PyTorch's allocator, its turn counters zeroed on every call, and a last
+    kernel casts it), or raises:
+    it never computes on another path.
     """
     ts = (q, k, v, o, lse, do)
     if not all(t.is_cuda and t.device == q.device for t in ts):
@@ -217,7 +220,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True, window: int = 
     with torch.cuda.device(q.device):
         fn, ws = _bwd_entries(tiling)
         sms = sm_count(q.device.index)
-        nbytes = ws(B, H, KV, Sk, D, sms) if tiling == "wgmma" else 0
+        nbytes = ws(B, H, KV, Sq, Sk, D, sms) if tiling == "wgmma" else 0
         work = torch.empty(nbytes // 4, dtype=torch.float32, device=q.device) if nbytes else None
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),

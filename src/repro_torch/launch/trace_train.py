@@ -42,8 +42,8 @@ from repro_torch.train.steps import make_train_step
 # Kernel-name patterns of each group, tried in order; the rest is "other".
 GROUPS = (
     ("attention backward",
-     re.compile(r"delta_kernel|dkdv_(wgmma_|sum_)?kernel|dq_(wgmma_)?kernel")),
-    ("attention forward", re.compile(r"flash_attention_(wgmma|fwd)_kernel")),
+     re.compile(r"delta_kernel|dkdv_(d80_)?(wgmma_|sum_)?kernel|dq_(wgmma_|d80_cast_)?kernel")),
+    ("attention forward", re.compile(r"flash_attention_(d80_)?(wgmma|fwd)_kernel")),
     ("selective scan backward", re.compile(r"mamba_bwd_")),
     ("selective scan forward", re.compile(r"mamba_scan_kernel")),
     ("RG-LRU backward", re.compile(r"lru_bwd_kernel")),

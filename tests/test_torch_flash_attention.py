@@ -541,6 +541,16 @@ def test_wgmma_bwd_emulation_in_fp32_is_the_plain_backward():
          "const*, float const*, float*, float*, int, int, int)", "RG-LRU forward"),
         ("void (anonymous namespace)::lru_fwd_kernel<__half>((anonymous namespace)::Maps)",
          "RG-LRU forward"),
+        # Head dim 80's kernels: the forward, the dk/dv items that also sum dQ
+        # in turns, and the cast of dQ's sums.
+        ("void (anonymous namespace)::flash_attention_d80_wgmma_kernel<__nv_bfloat16>("
+         "CUtensorMap_st)", "attention forward"),
+        ("void (anonymous namespace)::dkdv_d80_wgmma_kernel<__nv_bfloat16>(CUtensorMap_st)",
+         "attention backward"),
+        ("void (anonymous namespace)::dq_d80_cast_kernel<__half>(float const*, __half*, long, int, "
+         "int, float)", "attention backward"),
+        ("void (anonymous namespace)::dkdv_d80_wgmma_kernel<__half>(CUtensorMap_st, "
+         "CUtensorMap_st)", "attention backward"),
     ],
 )
 def test_trace_train_groups_both_backward_tilings(kernel, group):

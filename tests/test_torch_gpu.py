@@ -1780,6 +1780,90 @@ def test_bwd_d256_head_splits_match_plain(cuda, monkeypatch, sms, B, H, KV, S, w
         assert err <= TOL[torch.bfloat16] * float(want.abs().max()), err
 
 
+# Head dim 80 on wgmma: the forward's own kernel (true-width products, 128-key
+# tiles) and the backward's dk/dv items, which also add dQ in turns.  (B, H,
+# KV, Sq, Sk, causal, window): Sq and Sk off a multiple of 64 (the 16-column
+# box's ragged tails), causal GQA 4:1 and with a window (fewer items than the
+# H100's 132 SMs), and S = 4096 unmasked with six heads (192 items, 32 of a
+# kv head sharing each query tile's turns).
+D80_CASES = [
+    (2, 4, 4, 333, 200, False, 0),
+    (2, 4, 4, 200, 333, False, 0),
+    (1, 8, 2, 333, 333, True, 0),
+    (1, 8, 2, 300, 300, True, 100),
+    (1, 8, 2, 300, 300, False, 100),
+    (1, 6, 6, 4096, 4096, False, 0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,causal,window", D80_CASES)
+def test_d80_kernels_match_plain_and_repeat_their_bits(cuda, B, H, KV, Sq, Sk, causal, window,
+                                                       dtype):
+    """The D = 80 forward within the bar of the plain version and its lse
+    within 1e-4, the backward within the bar of autograd of the plain
+    version, and two launches of each the same bits."""
+    q, k, v = _qkv(cuda, B, H, KV, Sq, Sk, 80, dtype, seed=11)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(12),
+                     device=cuda).to(dtype)
+    lse = torch.empty(B, H, Sq, device=cuda)
+    o = flash_attention(q, k, v, causal=causal, window=window, lse=lse)
+    o2 = flash_attention(q, k, v, causal=causal, window=window)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal, window, tiling="wgmma")
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal, window, tiling="wgmma")
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = ref_flash_attention(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(o.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    torch.testing.assert_close(lse, ref_flash_attention_lse(q, k, v, causal=causal, window=window),
+                               rtol=1e-5, atol=1e-4)
+    for g, want in zip(got, _plain_grads(q, k, v, do, causal, window)):
+        err = float((g.float() - want).abs().max())
+        assert err <= TOL[dtype] * float(want.abs().max()), err
+
+
+def test_d80_bwd_starts_afresh_after_another_shape(cuda):
+    """The turn counters are zeroed on every call and every query tile's
+    first turn stores its sum, so each of three shapes (more and fewer
+    query tiles and items, another scratch), called straight after another,
+    gives the bits of its own first call."""
+    def grads(B, H, KV, S, causal, seed):
+        q, k, v = _qkv(cuda, B, H, KV, S, S, 80, torch.bfloat16, seed=seed)
+        do = torch.randn_like(q)
+        lse = torch.empty(B, H, S, device=cuda)
+        o = flash_attention(q, k, v, causal=causal, lse=lse)
+        return lambda: flash_attention_bwd(q, k, v, o, lse, do, causal, 0, tiling="wgmma")
+
+    calls = {"first": grads(2, 8, 2, 700, True, 13), "big": grads(1, 16, 16, 2048, False, 14),
+             "small": grads(1, 2, 1, 130, True, 15)}
+    want = {name: call() for name, call in calls.items()}
+    for name in ("first", "big", "first", "small", "big", "small", "first"):
+        assert all(torch.equal(a, b) for a, b in zip(calls[name](), want[name])), name
+
+
+@pytest.mark.parametrize("sms", [1, 2, 7, 132, 1 << 20])
+@pytest.mark.parametrize("B,H,KV,S,causal", [(1, 4, 2, 1000, True), (2, 4, 4, 1000, False)])
+def test_d80_bwd_on_any_grid(cuda, monkeypatch, sms, B, H, KV, S, causal):
+    """The dk/dv launch at D = 80 is persistent, at most one block an SM of
+    the card whatever the SM count the wrapper passes: with 1, 2 and 7
+    blocks, fewer than a kv head's 8 items, the walks are unstaggered and
+    the turns in the order of the items; with 132 and 1 << 20 there is a
+    block an item (16 and 64 items) and the walks are staggered.  Either
+    way the gradients within the bar and the same bits twice."""
+    monkeypatch.setattr(attn_mod, "sm_count", lambda index: sms)
+    q, k, v = _qkv(cuda, B, H, KV, S, S, 80, torch.bfloat16, seed=16)
+    do = torch.randn_like(q)
+    lse = torch.empty(B, H, S, device=cuda)
+    o = flash_attention(q, k, v, causal=causal, lse=lse)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal, 0, tiling="wgmma")
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal, 0, tiling="wgmma")
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for g, want in zip(got, _plain_grads(q, k, v, do, causal, 0)):
+        err = float((g.float() - want).abs().max())
+        assert err <= TOL[torch.bfloat16] * float(want.abs().max()), err
+
+
 def test_bwd_wgmma_tiling_refuses_fp32(cuda):
     q, k, v = _qkv(cuda, 1, 2, 2, 64, 64, 64, torch.float32)
     lse = torch.zeros(1, 2, 64, device=cuda)

@@ -98,6 +98,24 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 10) -> float:
+    """ms of device time a call of ``fn``: the CUDA kernels and memsets it
+    launches, summed from ``torch.profiler`` over ``iters`` calls after one
+    (the host's own time between launches left out)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / iters
+
+
 def in_turns(runs: dict, rounds: int, seed: int = 0) -> dict:
     """``runs`` (label -> a function that returns a time, or a tuple of
     times) called once a round, ``rounds`` rounds, each round in an order

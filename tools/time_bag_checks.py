@@ -3,8 +3,8 @@
 one or more checkouts on one CUDA card, each checkout in a process of its
 own, so that two versions of the checks compare on the same card in one run:
 
-    python3 tools/time_bag_checks.py [--gmm | --gmm-moe | --scan | --scan-ssm | --lru | --lru-hyb] \
-        OUT.jsonl TREE ...
+    python3 tools/time_bag_checks.py [--gmm | --gmm-moe | --scan | --scan-ssm | --lru | --lru-hyb \
+        | --attn | --attn-au] OUT.jsonl TREE ...
 
 Each TREE is the root of a checkout (its ``chip_smoke.py`` and ``src/``),
 e.g. the parent commit unpacked by ``git archive`` into ``build/parent``
@@ -74,6 +74,21 @@ phase 5e's model (the tree's ``train_hybrid``: 2 + 8 steps, 6 on a fixed
 batch, one traced) and records its step times, tokens/s, model FLOPs share,
 peak memory and the traced step's RG-LRU forward and backward
 (``hyb_step``).
+
+``--attn`` times, on every tree alike, through the tree's own wrappers and
+on inputs this tool makes from one seed, the attention forward (without and
+with lse) and backward at ``ATTN_CASES`` (hubert-xlarge's training and
+serving shapes at head dim 80, the other D = 80 shapes of phase 3, and the
+D = 64, 128 and 256 and fp32 shapes whose kernels must not move) by CUDA
+events and, the kernels alone, by ``torch.profiler`` (``fwd_device_ms``,
+``bwd_device_ms``), SDPA's forward and backward beside the hubert shapes,
+and the SHA-256 of each case's o, lse, dq, dk and dv bits (``attn``, by
+case); it prints each case's times by run and whether the runs' bits
+agree.
+``--attn-au`` also trains phase 5g's model (the tree's
+``train_vlm_or_encoder`` on hubert-xlarge: 2 + 8 steps, 6 on a fixed batch,
+one traced) and records its step times, tokens/s, model FLOPs share, peak
+memory and the traced step's attention forward and backward (``au_step``).
 """
 
 from __future__ import annotations
@@ -517,6 +532,116 @@ def one_lru(cs, tree: Path, hyb: bool) -> dict:
     return out
 
 
+# (label, B, H, KV, Sq, Sk, D, dtype, causal, window): hubert-xlarge's training
+# and serving attention first, then phase 3's other D = 80 shapes, then the
+# shapes of the kernels this tool shows unmoved (D = 64, 128 and 256 on
+# wgmma, fp32 on fma).
+ATTN_CASES = (
+    ("hubert train", 4, 16, 16, 4096, 4096, 80, "bfloat16", False, 0),
+    ("hubert serve", 4, 16, 16, 1000, 1000, 80, "bfloat16", False, 0),
+    ("hubert serve fp16", 4, 16, 16, 1000, 1000, 80, "float16", False, 0),
+    ("d80 causal GQA", 2, 16, 4, 1000, 1000, 80, "bfloat16", True, 0),
+    ("d80 Sq 1000 Sk 777", 2, 16, 16, 1000, 777, 80, "bfloat16", False, 0),
+    ("d80 127 causal", 4, 16, 16, 127, 127, 80, "bfloat16", True, 0),
+    ("d80 129 causal", 4, 16, 16, 129, 129, 80, "bfloat16", True, 0),
+    ("d80 Sq 127 Sk 129", 4, 16, 16, 127, 129, 80, "bfloat16", False, 0),
+    ("d80 fp32 fma", 2, 16, 16, 1000, 1000, 80, "float32", False, 0),
+    ("granite prefill d128", 4, 32, 8, 1000, 1000, 128, "bfloat16", True, 0),
+    ("minicpm train d64", 4, 36, 36, 4096, 4096, 64, "bfloat16", True, 0),
+    ("granite train d128", 4, 32, 8, 2048, 2048, 128, "bfloat16", True, 0),
+    ("recurrentgemma d256", 1, 16, 1, 4096, 4096, 256, "bfloat16", True, 2048),
+    ("vlm cross d128", 4, 32, 8, 4096, 1601, 128, "bfloat16", False, 0),
+    ("minicpm fp32 d64 fma", 4, 36, 36, 1024, 1024, 64, "float32", True, 0),
+)
+
+
+def attn_times(cs, dev) -> dict:
+    """Each of ATTN_CASES through the tree's wrappers: the forward without
+    and with lse, the backward, SDPA's forward and backward at the hubert
+    shapes, and the SHA-256 of the bits of o, lse, dq, dk and dv."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+
+    out = {}
+    for label, B, H, KV, Sq, Sk, D, dtype, causal, window in ATTN_CASES:
+        gen = torch.Generator(device=dev).manual_seed(40)
+        dt = getattr(torch, dtype)
+        q, do = (torch.randn(B, H, Sq, D, generator=gen, device=dev).to(dt) for _ in "qd")
+        k, v = (torch.randn(B, KV, Sk, D, generator=gen, device=dev).to(dt) for _ in "kv")
+        lse = torch.empty(B, H, Sq, device=dev)
+        o = flash_attention(q, k, v, causal=causal, window=window, lse=lse)
+        grads = flash_attention_bwd(q, k, v, o, lse, do, causal, window)
+        digest = hashlib.sha256()
+        for t in (o, lse, *grads):
+            digest.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        case = dict(
+            fwd_ms=cs.time_ms(lambda: flash_attention(q, k, v, causal=causal, window=window), 20),
+            fwd_lse_ms=cs.time_ms(lambda: flash_attention(q, k, v, causal=causal, window=window,
+                                                          lse=lse), 20),
+            bwd_ms=cs.time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, causal, window),
+                              10),
+            # The kernels' own device time (torch.profiler): at the small
+            # shapes the CUDA events above also time the host's launches.
+            fwd_device_ms=sum(cs.kernel_device_ms(
+                lambda: flash_attention(q, k, v, causal=causal, window=window), 20).values()),
+            bwd_device_ms=sum(cs.kernel_device_ms(
+                lambda: flash_attention_bwd(q, k, v, o, lse, do, causal, window), 10).values()),
+            digest=digest.hexdigest())
+        if label.startswith("hubert") and dt == torch.bfloat16:
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            case["sdpa_fwd_ms"] = cs.time_ms(lambda: sdpa(q, k, v), 20)
+            qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+            y = sdpa(qr, kr, vr)
+            case["sdpa_bwd_ms"] = cs.time_ms(
+                lambda: torch.autograd.grad(y, (qr, kr, vr), do, retain_graph=True), 10)
+            del y, qr, kr, vr
+        out[label] = case
+        del q, k, v, do, o, lse, grads
+        torch.cuda.empty_cache()
+    return out
+
+
+def au_step(cs, dev, smi) -> dict:
+    """Phase 5g of the tree's ``chip_smoke.py``: hubert-xlarge trained whole
+    on the card, one step traced."""
+    from repro_torch import optim
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import pipeline as data
+    from repro_torch.kernels import ops
+    from repro_torch.launch.trace_train import group_of
+    from repro_torch.models import lm
+    from repro_torch.train.steps import make_train_step
+
+    run = cs.train_vlm_or_encoder(lm, ops, optim, make_train_step, data, group_of,
+                                  get_config(cs.AU_TRAIN_ARCH), dev, smi, "5g",
+                                  "global batch 256 -> 4 (sequence 4096 kept; every layer)")
+    trace = run["trace"]
+    return dict({k: run[k] for k in ("step_ms", "step_ms_all", "tokens_per_s", "mfu", "peak_gb",
+                                     "launches_per_step", "losses", "fixed_losses")},
+                traced_ms=trace["traced_ms"], idle_share=trace["idle_share"],
+                attn_fwd_traced_ms=trace["split_ms"]["attention forward"],
+                attn_bwd_traced_ms=trace["split_ms"]["attention backward"])
+
+
+def one_attn(cs, tree: Path, au: bool) -> dict:
+    """This tool's attention timings and bits of the checkout at ``tree``,
+    and with ``au`` phase 5g."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    _build.load_all(["flash_attention", "flash_attention_bwd"])
+    dev = torch.device("cuda")
+    smi = cs.nvidia_smi_line()
+    out = dict(tree=str(tree), card=smi, attn=attn_times(cs, dev))
+    if au:
+        out["au_step"] = au_step(cs, dev, smi)
+    return out
+
+
 def one(tree: Path, what: str = "bag") -> dict:
     """Runs the bag checks (``what`` "bag"), or the grouped matmul
     backward's ("gmm", "gmm-moe"), of the checkout at ``tree`` once."""
@@ -537,6 +662,8 @@ def one(tree: Path, what: str = "bag") -> dict:
         return one_scan(cs, tree, ssm=what == "scan-ssm")
     if what in ("lru", "lru-hyb"):
         return one_lru(cs, tree, hyb=what == "lru-hyb")
+    if what in ("attn", "attn-au"):
+        return one_attn(cs, tree, au=what == "attn-au")
     if what != "bag":
         return one_gmm(cs, tree, moe=what == "gmm-moe")
     for name in ("embedding_bag", "embedding_bag_bwd"):
@@ -637,13 +764,38 @@ def lru_summary(runs: list[dict]) -> None:
           "each tree: " + ", ".join(f"{t}: {len(d) == 1}" for t, d in by_tree.items()))
 
 
+def attn_summary(runs: list[dict]) -> None:
+    """Each case's times by run, whether the runs' bits agree, and phase 5g's
+    numbers."""
+    print("attention ms by case, forward / with lse / backward [the kernels' device time, "
+          "forward / backward] (SDPA forward / backward); runs: "
+          + ", ".join(r["tree"] for r in runs))
+    for label in dict.fromkeys(k for r in runs for k in r["attn"]):
+        cells = []
+        for r in runs:
+            c = r["attn"].get(label, {})
+            cell = (f"{c.get('fwd_ms')} / {c.get('fwd_lse_ms')} / {c.get('bwd_ms')} [device "
+                    f"{c.get('fwd_device_ms')} / {c.get('bwd_device_ms')}]")
+            if "sdpa_fwd_ms" in c:
+                cell += f" ({c['sdpa_fwd_ms']} / {c['sdpa_bwd_ms']})"
+            cells.append(cell)
+        digests = {r["attn"].get(label, {}).get("digest") for r in runs}
+        print(f"  {label}: " + " | ".join(cells)
+              + f"; bits {'agree' if len(digests) == 1 else 'differ'} across runs")
+    if any("au_step" in r for r in runs):
+        print("phase 5g by run:")
+        for key in ("step_ms", "tokens_per_s", "mfu", "peak_gb", "attn_fwd_traced_ms",
+                    "attn_bwd_traced_ms", "traced_ms", "idle_share", "launches_per_step"):
+            print(f"  {key}: " + " ".join(str(r.get("au_step", {}).get(key)) for r in runs))
+
+
 def main(argv: list[str]) -> int:
     if argv[:1] == ["--one"]:
         print(json.dumps(one(Path(argv[1]), *argv[2:])))
         return 0
     what = "bag"
     if argv[:1] in (["--gmm"], ["--gmm-moe"], ["--scan"], ["--scan-ssm"], ["--lru"],
-                    ["--lru-hyb"]):
+                    ["--lru-hyb"], ["--attn"], ["--attn-au"]):
         what, argv = argv[0][2:], argv[1:]
     if len(argv) < 2:
         print(__doc__, file=sys.stderr)
@@ -670,6 +822,9 @@ def main(argv: list[str]) -> int:
         return 0
     if what in ("lru", "lru-hyb"):
         lru_summary(runs)
+        return 0
+    if what in ("attn", "attn-au"):
+        attn_summary(runs)
         return 0
     if what != "bag":
         gmm_summary(runs)
