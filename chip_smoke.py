@@ -21,7 +21,8 @@ result line:
    keeps 56 registers for the writers of dQ and its consumers 224), and the
    skinny grouped matmul, the
    Mamba scan, every attention backward kernel (at head dims 64, 80, 128 and
-   256 on both tilings, and the sums of the head dim 256 partials), the
+   256 on both tilings and 32 on fma, and the sums of the head dim 256
+   partials), the fma forward at every head dim, the
    grouped matmul's backward (4 wgmma kernels, 6 fma ones), the Mamba scan's
    backward (12 kernels, 3 dtypes x 4 lane counts, and 3 sums of partials),
    the RG-LRU scan's backward (a chunk and a fix-up pass for each of 3
@@ -169,6 +170,10 @@ result line:
 4g. encode 4 clips of 1000 frames with hubert-xlarge (48 flash-attention
    launches at D = 80 per forward, all wgmma), timing the forward, and hold
    its first layer (bf16, card) against the same layer in fp32 on the CPU;
+4h. serve deepseek-coder-33b the same way at full width and depth (62
+   layers, about 66.7 GB of bf16 weights drawn on the card a layer at a
+   time; 62 wgmma attention launches a prefill), and hold prefill(1001)
+   against prefill(1000) plus a decode step;
 5. train: a narrow fp32 run through ``train.loop.train`` that fails at step
    4 and resumes from its checkpoint, against an uninterrupted one; then
    minicpm-2b at full width and depth (bf16, fp32 AdamW state, WSD, remat
@@ -279,7 +284,25 @@ result line:
    on ``benchmarks/bench_online.py``'s FAILURES trace, reactive, and a
    seeded ``FaultModel`` storm (flapping fibers and server 1's domain) at
    16, reactive with a one-iteration hysteresis;
-7. the script's wall time, one JSON line of per-kernel numbers, the
+7a. the fma attention at head dim 32 in fp32 (the model of
+   ``examples/train_lm_topoopt.py``), forward and backward against the
+   plain version, at the twin's training shape (B=2, H=8, KV=4, S=128,
+   causal), at S=2048 (B=4) and ragged (S=127; Sq=129 against Sk=100,
+   unmasked): two launches equal to the bit, phase 3's bars, each time
+   beside the bound and SDPA's;
+7b. the twin of ``examples/train_lm_topoopt.py`` at world size 1 on the
+   card: ``python -m repro_torch.launch.train_lm_topoopt --steps 60
+   --ckpt-dir DIR`` in a process of its own, then ``--steps 80``, which
+   resumes from step 50 (exit 0, finite losses, the last below the first,
+   its ms a step printed); then its ``main`` here for 3 steps, counting 2
+   forward and 1 backward fma attention launches a layer a step;
+7c. the §6 trainer at full width: hubert-xlarge whole at 4 x 4096 (phase
+   5g's shape), two steps of ``make_train_step`` and then two of
+   ``make_shardmap_dp_train_step`` at world size 1 from the same seed and
+   batches, once on the ring schedule and once with the int8
+   ``Compressor``: losses and every parameter equal to the bit, each step's
+   time beside phase 5g's;
+8. the script's wall time, one JSON line of per-kernel numbers, the
    ``nvidia-smi`` line, and the result line ``{"ok": true, "device": {...}}``
    last.
 
@@ -407,6 +430,19 @@ BWD_CASES = (
 # The training shapes whose forward also gets row 1's yardsticks (the plain
 # forward and SDPA's): minicpm-2b's, hubert-xlarge's and the VLM's cross layer.
 TRAIN_FWD_CASES = (BWD_CASES[0], BWD_CASES[6], BWD_CASES[10])
+# Phase 7a: head dim 32 in fp32 on the fma tilings, both ways (the model of
+# examples/train_lm_topoopt.py: 8 heads over 4 kv heads), as BWD_CASES: the
+# twin's training shape (B=2, S=128, causal; the main path's), a larger one
+# (B=4, S=2048), and ragged ones (S=127; Sq=129 against Sk=100, unmasked).
+D32_CASES = (
+    (2, 8, 4, 128, 32, torch.float32, True),
+    (4, 8, 4, 2048, 32, torch.float32, True),
+    (2, 8, 4, 127, 32, torch.float32, True),
+    (2, 8, 4, 129, 32, torch.float32, False, 0, 100),
+)
+TWIN_STEPS = (60, 80)  # phase 7b: a run past the step-50 checkpoint, then one resumed from it
+TWIN_PATH = "train_lm_topoopt twin (world size 1), 3 steps"  # phase 7b's counted run
+DP_PATH = "hubert-xlarge DP step (ring, then compressed), 2 steps each"  # phase 7c
 
 
 def require(ok, what: str) -> None:
@@ -945,7 +981,58 @@ def sdpa_backend(q, k, v, **kwargs) -> str:
     return names.get(choice, str(choice))
 
 
-def check_attention_bwd(case, gen, dev, smi) -> dict:
+def check_attention_fwd(case, gen, dev, smi, batch: int = B, phase: str = "3") -> dict:
+    """Phases 3 and 7a: flash attention against its plain version on one
+    ``case`` (Sq, Sk, D, dtype, causal, window, KV, H) at ``batch``: finite,
+    two launches equal to the bit, within TOL; its time beside the plain
+    version's, SDPA's (where SDPA computes the same function) and the bound,
+    and bf16/fp16 serving shapes on the fma tiling too.  Returns the numbers."""
+    from repro_torch.kernels.flash_attention import attention_tiling, flash_attention
+    from repro_torch.kernels.ref import ref_flash_attention
+
+    Sq, Sk, dh, dtype, causal, window, kv, h = case
+    q = torch.randn(batch, h, Sq, dh, generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn(batch, kv, Sk, dh, generator=gen, device=dev).to(dtype) for _ in "kv")
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    again = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    ref = ref_flash_attention(q, k, v, causal=causal, window=window)
+    err = float((out.float() - ref.float()).abs().max())
+    tol = TOL[dtype]
+    tiling = attention_tiling(dtype, dh)
+    label = ((f"B={batch} " if batch != B else "")
+             + f"H={h} KV={kv} Sq={Sq} Sk={Sk} D={dh} {str(dtype)[6:]} causal={causal} "
+             f"window={window} tiling={tiling}")
+    require(bool(torch.isfinite(out).all()), f"finite kernel output, {label}")
+    require(torch.equal(out, again), f"two launches bitwise equal, {label}")
+    del again
+    require(torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol),
+            f"kernel vs plain at {tol}, {label}: max|err| {err}")
+    kernel_ms = time_ms(lambda: flash_attention(q, k, v, causal=causal, window=window), 20)
+    plain_ms = time_ms(lambda: ref_flash_attention(q, k, v, causal=causal, window=window), 5)
+    library_ms = fma_ms = None
+    # SDPA has no sliding window (a window of S or more is none); a
+    # yardstick only, never on the port's path.
+    if window == 0 or window >= max(Sq, Sk):
+        library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True), 20)
+    if tiling == "wgmma" and Sq >= PROMPT:  # the earlier tiling, on the same inputs
+        fma_ms = time_ms(lambda: flash_attention(q, k, v, causal=causal, window=window,
+                                                 tiling="fma"), 20)
+    bound_ms, bound_by = attention_bound(q, k, causal, window)
+    # Head dim 80 on wgmma runs its own kernel (true-width products,
+    # softmax overlapped): its time against SDPA's.
+    ratio = (f" kernel/SDPA {kernel_ms / library_ms}"
+             if dh == 80 and tiling == "wgmma" and library_ms else "")
+    print(f"phase {phase} kernel: flash_attention {label}: max|err| {err} (tol {tol}) "
+          f"kernel_ms {kernel_ms} plain_ms {plain_ms} library_ms {library_ms} "
+          f"bound_ms {bound_ms} ({bound_by}) fma_ms {fma_ms}{ratio}; two launches bitwise "
+          f"equal; on {smi}")
+    return dict(tiling=tiling, max_abs_err=err, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, fma_ms=fma_ms)
+
+
+def check_attention_bwd(case, gen, dev, smi, phase: str = "3") -> dict:
     """Phase 3: the forward's lse against the plain one and the backward
     kernel against autograd of the plain version (fp32) on the same inputs,
     on the tiling that serves the dtype and, for bf16/fp16 inputs, on the fma
@@ -1051,7 +1138,7 @@ def check_attention_bwd(case, gen, dev, smi) -> dict:
             q, k, v, is_causal=causal, enable_gqa=True), 10)
         fwd_yardsticks = (f", plain forward {extra['fwd_plain_ms']} ms (a batch row at a time), "
                           f"SDPA's forward {extra['fwd_library_ms']} ms")
-    print(f"phase 3 kernel: flash_attention_bwd {label}: lse max|err| {lse_err} (tol {lse_tol}); "
+    print(f"phase {phase} kernel: flash_attention_bwd {label}: lse max|err| {lse_err} (tol {lse_tol}); "
           f"max|err| by tiling {errs} (bars {bars})"
           + (f", vs ref_flash_attention_bwd {plain_errs}" if plain_errs else "")
           + f" kernel_ms by tiling {kernel_ms}"
@@ -1914,6 +2001,160 @@ def serve_decode_twin(arch: str, smi) -> str:
     return lines[-1]
 
 
+def topoopt_twin(ops, train_lm_topoopt, smi) -> dict:
+    """Phase 7b: the twin of ``examples/train_lm_topoopt.py`` at world size 1
+    on the card (no ``torch.distributed.run`` environment).  ``python -m
+    repro_torch.launch.train_lm_topoopt --steps 60 --ckpt-dir DIR`` in a
+    process of its own, then the same with ``--steps 80``, which resumes from
+    the step-50 checkpoint: both exit 0 with finite losses, and the last loss
+    lies below the first.  Then its ``main`` in this process for 3 steps,
+    every count set to 0 just before and read just after: each step launches
+    2 forward (remat "full") and 1 backward attention kernel a layer, all on
+    the fma tilings at head dim 32, and no other kernel.  The checkpoints go
+    to a temporary directory under ``build/`` and are removed."""
+    import io
+    import re
+    import tempfile
+
+    root = Path(__file__).resolve().parent
+    (root / "build").mkdir(exist_ok=True)
+    env = {k: v for k, v in os.environ.items() if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    env["PYTHONPATH"] = str(root / "src")
+    runs = []
+    with tempfile.TemporaryDirectory(dir=root / "build") as ckpt_dir:
+        for steps in TWIN_STEPS:
+            cmd = [sys.executable, "-m", "repro_torch.launch.train_lm_topoopt", "--steps",
+                   str(steps), "--ckpt-dir", ckpt_dir]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=root,
+                                  env=env)
+            wall_s = time.perf_counter() - t0
+            require(proc.returncode == 0, f"train_lm_topoopt --steps {steps}: exit "
+                    f"{proc.returncode}, stdout {proc.stdout[-2000:]!r}, stderr "
+                    f"{proc.stderr[-2000:]!r}")
+            logged = [(int(m[1]), float(m[2]), float(m[3])) for m in
+                      re.finditer(r"step +(\d+) loss (\S+) \((\d+) ms/step\)", proc.stdout)]
+            final = re.search(r"final loss: (\S+)", proc.stdout)
+            resumed = re.search(r"resumed from step (\d+)", proc.stdout)
+            require(logged and final, f"train_lm_topoopt --steps {steps} printed {proc.stdout!r}")
+            runs.append(dict(steps=steps, wall_s=wall_s, logged=logged, final=float(final[1]),
+                             resumed=int(resumed[1]) if resumed else None))
+            print(f"phase 7b twin: python -m repro_torch.launch.train_lm_topoopt --steps {steps} "
+                  f"--ckpt-dir <tmp>: exit 0 in {wall_s:.2f} s (its process's start and the "
+                  f"libraries' load included): {proc.stdout.strip().splitlines()!r}, on {smi}")
+    losses = [x[1] for r in runs for x in r["logged"]] + [r["final"] for r in runs]
+    require(runs[0]["resumed"] is None and runs[1]["resumed"] == 50,
+            f"the second run resumes from step 50: {runs}")
+    require(all(math.isfinite(x) for x in losses), f"finite twin losses {losses}")
+    first, last = runs[0]["logged"][0][1], runs[1]["final"]
+    require(last < first, f"the twin's last loss {last} lies below its first {first}")
+
+    out = io.StringIO()
+    for n in COUNTERS:
+        setattr(ops, n, 0)
+    with contextlib.redirect_stdout(out):
+        train_lm_topoopt.main(["--steps", "3"])
+    torch.cuda.synchronize()
+    counts = {n: getattr(ops, n) for n in COUNTERS}
+    layers_ = 8  # the example's --n-layers default
+    want = {n: 0 for n in COUNTERS}
+    want.update(attention_launches=3 * 2 * layers_, attention_fma_launches=3 * 2 * layers_,
+                attention_bwd_launches=3 * layers_, attention_bwd_fma_launches=3 * layers_)
+    require(counts == want, f"the twin's 3 steps launched {counts}, want {want}")
+    ms_step = runs[0]["logged"][-1][2]
+    print(f"phase 7b twin: losses {runs[0]['logged'][0][1]} (step 0) -> {runs[0]['final']} "
+          f"(step 59) -> {last} (step 79, resumed from 50); {ms_step} ms a step (the twin's "
+          f"mean over steps 0-{runs[0]['logged'][-1][0]}, its first step included); its main() "
+          f"here, 3 steps: launches {counts}; on {smi}")
+    return dict(first_loss=first, last_loss=last, ms_per_step=ms_step,
+                wall_s=[r["wall_s"] for r in runs], counts=counts)
+
+
+def dp_step_check(lm, ops, optim, data, train_steps, compression, device_order, cfg, dev, smi,
+                  au_step_ms: float) -> dict:
+    """Phase 7c: the §6 trainer at world size 1 and full width: ``cfg``
+    (hubert-xlarge whole) at TRAIN_B x TRAIN_S, phase 5g's shape.  Two steps
+    of ``make_train_step`` (remat "full"), then two of
+    ``make_shardmap_dp_train_step`` on a one-rank mesh from the same seed
+    and batches, once with the ring schedule and once with the int8
+    ``Compressor``: the losses and every parameter equal the plain step's to
+    the bit (a sync over one rank is the identity, and /1 is exact).  Only
+    one model lives on the card at a time: the plain run's parameters wait
+    on the host.  Every count is set to 0 just before each DP run and read
+    just after; each step launches 2 forward and 1 backward attention kernel
+    a layer, all wgmma.  Each step's time is printed beside phase 5g's
+    median."""
+    from repro_torch.configs.base import ShapeSpec
+
+    spec = data.DataSpec(cfg=cfg, shape=ShapeSpec("dp", TRAIN_S, TRAIN_B, "train"))
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in data.batch_for_step(spec, i).items()}
+               for i in range(2)]
+    mesh = device_order.topoopt_mesh((1,), ("data",))
+    L_ = cfg.n_layers
+    want = {n: 0 for n in COUNTERS}
+    want.update(attention_launches=2 * L_, attention_wgmma_launches=2 * L_,
+                attention_bwd_launches=L_, attention_bwd_wgmma_launches=L_)
+
+    def run(kind):
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = lm.init(0, cfg, device=dev)
+        opt = optim.adamw(optim.cosine(TRAIN_LR, 2, warmup=1))
+        state = opt.init(dict(model.named_parameters()))
+        comp = compression.Compressor() if kind == "compressed" else None
+        if kind == "plain":
+            step = train_steps.make_train_step(cfg, opt, remat="full")
+        else:
+            step = train_steps.make_shardmap_dp_train_step(cfg, opt, mesh, ring_strides=(1,),
+                                                           compressor=comp, schedule="ring")
+        residual = train_steps.init_compressor_residual(comp, model) if comp else None
+        torch.cuda.synchronize()
+        for n in COUNTERS:
+            setattr(ops, n, 0)
+        losses, times, per_step = [], [], []
+        for i, batch in enumerate(batches):
+            before = {n: getattr(ops, n) for n in COUNTERS}
+            t0 = time.perf_counter()
+            if kind == "plain":
+                loss = step(model, state, batch, i)[2]["loss"]
+            else:
+                _, _, loss, residual = step(model, state, batch, i, residual)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss.detach().cpu())
+            per_step.append({n: getattr(ops, n) - before[n] for n in COUNTERS})
+        counts = {n: getattr(ops, n) for n in COUNTERS}
+        params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        del model, state, residual, step
+        return dict(losses=losses, params=params, step_ms=times, per_step=per_step,
+                    counts=counts)
+
+    plain = run("plain")
+    out = {"plain_step_ms": plain["step_ms"], "phase_5g_step_ms": au_step_ms}
+    total = {n: 0 for n in COUNTERS}
+    for kind in ("ring", "compressed"):
+        got = run(kind)
+        require(all(c == want for c in got["per_step"]),
+                f"DP step ({kind}) launches per step {got['per_step']}, want {want}")
+        same_loss = all(torch.equal(a, b) for a, b in zip(got["losses"], plain["losses"]))
+        differ = [n for n, p in plain["params"].items() if not torch.equal(got["params"][n], p)]
+        require(same_loss and not differ,
+                f"DP step ({kind}) vs make_train_step: losses {got['losses']} vs "
+                f"{plain['losses']}, parameters that differ {differ[:5]} of {len(differ)}")
+        print(f"phase 7c dp: {cfg.name} whole at {TRAIN_B} x {TRAIN_S}, "
+              f"make_shardmap_dp_train_step ({kind}, world size 1) vs make_train_step, 2 steps "
+              f"from seed 0: losses {[float(x) for x in got['losses']]} equal to the bit, all "
+              f"{len(plain['params'])} parameters equal to the bit; step ms {got['step_ms']} "
+              f"(make_train_step {plain['step_ms']}, phase 5g's median {au_step_ms}); launches "
+              f"per step {got['per_step'][0]}; on {smi}")
+        out[f"{kind}_step_ms"] = got["step_ms"]
+        total = {n: total[n] + got["counts"][n] for n in COUNTERS}
+        del got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(out, counts=total)
+
+
 def train_dlrm_paper(dlrm, dlrm_testbed, optim, ops, group_of, dev, smi) -> dict:
     """Phase 5b: trains the paper's DLRM (``paper_config(T_TRAIN_DLRM)``) on the
     freed card through ``dlrm_testbed.train_dlrm`` for DLRM_WARMUP +
@@ -2017,9 +2258,7 @@ def main() -> int:
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_bwd
-    from repro_torch.kernels.flash_attention import (
-        attention_tiling, first_masked_row, flash_attention,
-    )
+    from repro_torch.kernels.flash_attention import first_masked_row, flash_attention
     from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_bwd
     from repro_torch.kernels.moe_gmm import gmm_bwd_tiling, gmm_tiling, moe_gmm, moe_gmm_bwd
     from repro_torch.kernels.ref import (
@@ -2033,7 +2272,11 @@ def main() -> int:
     from repro_torch.launch.serve import generate
     from repro_torch.launch.trace_train import group_of
     from repro_torch.models import dlrm, layers, lm
+    from repro_torch.core import device_order
+    from repro_torch.launch import train_lm_topoopt
+    from repro_torch.parallel import compression
     from repro_torch.train import loop as train_loop
+    from repro_torch.train import steps as train_steps
     from repro_torch.train.steps import make_train_step
 
     dev = torch.device("cuda")
@@ -2079,7 +2322,8 @@ def main() -> int:
         # the cast of dQ's sums), and the sum of the D = 256 dk/dv partials in bf16 and fp16
         for base, dims in (("dkdv_wgmma_kernel", (64, 128, 256)),
                            ("dq_wgmma_kernel", (64, 128, 256)),
-                           ("dkdv_kernel", (64, 80, 128, 256)), ("dq_kernel", (64, 80, 128, 256))):
+                           ("dkdv_kernel", (32, 64, 80, 128, 256)),
+                           ("dq_kernel", (32, 64, 80, 128, 256))):
             for d in dims:
                 require(any(fn.startswith(base) and f"Li{d}E" in fn for fn in bwd_report),
                         f"ptxas reports no {base} at D = {d}")
@@ -2094,6 +2338,10 @@ def main() -> int:
                         for fn in fwd_report), f"ptxas reports no wgmma forward at D = {d}")
         got = sum(fn.startswith("flash_attention_d80_wgmma_kernel") for fn in fwd_report)
         require(got == 2, f"ptxas reports 2 flash_attention_d80_wgmma_kernels, not {got}")
+        # the fma forward at every head dim, 32 (examples/train_lm_topoopt.py's model) among them
+        for d in (32, 64, 80, 128, 256):
+            require(any(fn.startswith("flash_attention_fwd_kernel") and f"Li{d}E" in fn
+                        for fn in fwd_report), f"ptxas reports no fma forward at D = {d}")
     for name, base in (("rglru_scan", "lru_fwd_kernel"), ("rglru_scan_bwd", "lru_bwd_kernel")):
         lru_report = ptxas_report(_build.build_logs.get(name, ""))
         if lru_report:  # built in this run, every kernel checked for spills above: one kernel
@@ -2159,48 +2407,7 @@ def main() -> int:
         (127, 129, D_AU, torch.bfloat16, False, 0, H_AU, H_AU),
         (129, 127, D_AU, torch.float32, False, 0, H_AU, H_AU),
     ]
-    attn = {}  # numbers of each case, by its tuple
-    for Sq, Sk, dh, dtype, causal, window, kv, h in cases:
-        q = torch.randn(B, h, Sq, dh, generator=gen, device=dev).to(dtype)
-        k, v = (torch.randn(B, kv, Sk, dh, generator=gen, device=dev).to(dtype) for _ in "kv")
-        out = flash_attention(q, k, v, causal=causal, window=window)
-        again = flash_attention(q, k, v, causal=causal, window=window)
-        torch.cuda.synchronize()
-        ref = ref_flash_attention(q, k, v, causal=causal, window=window)
-        err = float((out.float() - ref.float()).abs().max())
-        tol = TOL[dtype]
-        tiling = attention_tiling(dtype, dh)
-        label = (f"H={h} KV={kv} Sq={Sq} Sk={Sk} D={dh} {str(dtype)[6:]} causal={causal} "
-                 f"window={window} tiling={tiling}")
-        require(bool(torch.isfinite(out).all()), f"finite kernel output, {label}")
-        require(torch.equal(out, again), f"two launches bitwise equal, {label}")
-        del again
-        require(torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol),
-                f"kernel vs plain at {tol}, {label}: max|err| {err}")
-        kernel_ms = time_ms(lambda: flash_attention(q, k, v, causal=causal, window=window), 20)
-        plain_ms = time_ms(lambda: ref_flash_attention(q, k, v, causal=causal, window=window), 5)
-        library_ms = fma_ms = None
-        # SDPA has no sliding window (a window of S or more is none); a
-        # yardstick only, never on the port's path.
-        if window == 0 or window >= max(Sq, Sk):
-            library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, is_causal=causal, enable_gqa=True), 20)
-        if tiling == "wgmma" and Sq >= PROMPT:  # the earlier tiling, on the same inputs
-            fma_ms = time_ms(lambda: flash_attention(q, k, v, causal=causal, window=window,
-                                                     tiling="fma"), 20)
-        bound_ms, bound_by = attention_bound(q, k, causal, window)
-        # Head dim 80 on wgmma runs its own kernel (true-width products,
-        # softmax overlapped): its time against SDPA's.
-        ratio = (f" kernel/SDPA {kernel_ms / library_ms}"
-                 if dh == 80 and tiling == "wgmma" and library_ms else "")
-        print(f"phase 3 kernel: flash_attention {label}: max|err| {err} (tol {tol}) "
-              f"kernel_ms {kernel_ms} plain_ms {plain_ms} library_ms {library_ms} "
-              f"bound_ms {bound_ms} ({bound_by}) fma_ms {fma_ms}{ratio}; two launches bitwise "
-              f"equal; on {smi}")
-        attn[(Sq, Sk, dh, dtype, causal, window, kv, h)] = dict(
-            tiling=tiling, max_abs_err=err, kernel_ms=kernel_ms, plain_ms=plain_ms,
-            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, fma_ms=fma_ms)
-        del q, k, v, out, ref
+    attn = {case: check_attention_fwd(case, gen, dev, smi) for case in cases}
     # Rows that see no key (Sq 256, Sk 200, causal, window 16: rows 215 on)
     # take the mean of v over all Sk keys, as in the plain version, on both
     # tilings; the rows that see a key are held to the same bar.
@@ -2704,6 +2911,10 @@ def main() -> int:
     vlm = serve_checked(lm, ops, generate, get_config("llama-3.2-vision-11b"), PROMPT, gen,
                         dev, smi, "4f")
     hubert = encode_audio(lm, ops, get_config("hubert-xlarge"), dev, smi)
+    # Phase 4h: deepseek-coder-33b at full depth (62 layers, about 66.7 GB of
+    # bf16 weights, drawn on the card a layer at a time).
+    deepseek = serve_checked(lm, ops, generate, get_config("deepseek-coder-33b"), PROMPT, gen,
+                             dev, smi, "4h")
 
     # Phase 5: training.  The narrow config's resume first, then minicpm-2b
     # at full width and depth.
@@ -2823,6 +3034,21 @@ def main() -> int:
     replanned = online_phase(dev, smi)
     print(f"phase 6e-6f summary: {json.dumps(replanned)} on {smi}")
 
+    # Phase 7: the §6 data-parallel trainer.  7a: the fma attention at head
+    # dim 32, both ways; 7b: the twin of examples/train_lm_topoopt.py at world
+    # size 1; 7c: the DP step at full width against make_train_step.
+    d32 = [dict(fwd=check_attention_fwd((S, rest[1] if len(rest) > 1 else S, Dc, dt, causal, 0,
+                                         kv, h), gen, dev, smi, batch=Bc, phase="7a"),
+                bwd=check_attention_bwd((Bc, h, kv, S, Dc, dt, causal, *rest), gen, dev, smi,
+                                        phase="7a"))
+           for Bc, h, kv, S, Dc, dt, causal, *rest in D32_CASES]
+    require(all(c["fwd"]["tiling"] == c["bwd"]["tiling"] == "fma" for c in d32),
+            "head dim 32 runs on the fma tilings")
+    torch.cuda.empty_cache()
+    twin = topoopt_twin(ops, train_lm_topoopt, smi)
+    dp = dp_step_check(lm, ops, optim, data, train_steps, compression, device_order,
+                       get_config(AU_TRAIN_ARCH), dev, smi, au_trained["step_ms"])
+
     print(f"chip_smoke: wall time {time.perf_counter() - T_START} s, the kernels' build "
           "included")
 
@@ -2834,18 +3060,24 @@ def main() -> int:
         "tpu_ref": "kernels/flash_attention.py:84",
         "tiling": main_case["tiling"],
         "launches": (granite_attention_launches + att_total + griffin["attention_launches"]
-                     + vlm["attention_launches"] + hubert["attention_launches"] + train_fwd
+                     + vlm["attention_launches"] + hubert["attention_launches"]
+                     + deepseek["attention_launches"] + train_fwd
                      + moe_counts["attention_launches"] + hyb_counts["attention_launches"]
-                     + vlm_counts["attention_launches"] + au_counts["attention_launches"]),
+                     + vlm_counts["attention_launches"] + au_counts["attention_launches"]
+                     + twin["counts"]["attention_launches"] + dp["counts"]["attention_launches"]),
         "launches_by_path": {"granite-8b": granite_attention_launches, qwen_name: att_total,
                              "recurrentgemma-9b": griffin["attention_launches"],
                              "llama-3.2-vision-11b": vlm["attention_launches"],
                              "hubert-xlarge": hubert["attention_launches"],
+                             "deepseek-coder-33b": deepseek["attention_launches"],
                              f"{TRAIN_ARCH} train, {TRAIN_STEPS} steps": train_fwd,
                              moe_path: moe_counts["attention_launches"],
                              hyb_path: hyb_counts["attention_launches"],
                              vlm_path: vlm_counts["attention_launches"],
-                             au_path: au_counts["attention_launches"]},
+                             au_path: au_counts["attention_launches"],
+                             TWIN_PATH: twin["counts"]["attention_launches"],
+                             DP_PATH: dp["counts"]["attention_launches"]},
+        "launches_d32": twin["counts"]["attention_fma_launches"],
         "max_abs_err": main_case["max_abs_err"],
         "max_err_bf16": main_case["max_abs_err"],
         "ms": main_case["kernel_ms"],
@@ -2892,6 +3124,10 @@ def main() -> int:
         **{f"train_{name}_{k}": bwd[i][k] for name, i in (("d80", 6), ("cross", 10))
            for k in ("fwd_ms", "fwd_lse_ms", "fwd_plain_ms", "fwd_library_ms", "fwd_bound_ms",
                      "lse_max_abs_err")},
+        **{f"{name}_{k}": d32[i]["fwd"][k]
+           for name, i in (("d32", 0), ("d32_s2048", 1), ("d32_ragged", 2), ("d32_sq_ne_sk", 3))
+           for k in ("tiling", "max_abs_err", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                     "bound_by")},
     }, {
         "name": "flash_attention_bwd",
         "route": "cuda",
@@ -2900,12 +3136,17 @@ def main() -> int:
         "replaces": None,  # the TPU side has no backward kernel (jax.grad of XLA code)
         "launches": (train_bwd + moe_counts["attention_bwd_launches"]
                      + hyb_counts["attention_bwd_launches"] + vlm_counts["attention_bwd_launches"]
-                     + au_counts["attention_bwd_launches"]),
+                     + au_counts["attention_bwd_launches"]
+                     + twin["counts"]["attention_bwd_launches"]
+                     + dp["counts"]["attention_bwd_launches"]),
         "launches_by_path": {f"{TRAIN_ARCH} train, {TRAIN_STEPS} steps": train_bwd,
                              moe_path: moe_counts["attention_bwd_launches"],
                              hyb_path: hyb_counts["attention_bwd_launches"],
                              vlm_path: vlm_counts["attention_bwd_launches"],
-                             au_path: au_counts["attention_bwd_launches"]},
+                             au_path: au_counts["attention_bwd_launches"],
+                             TWIN_PATH: twin["counts"]["attention_bwd_launches"],
+                             DP_PATH: dp["counts"]["attention_bwd_launches"]},
+        "launches_d32": twin["counts"]["attention_bwd_fma_launches"],
         "launches_per_step": trained["launches_per_step"]["attention_bwd_launches"],
         "launches_per_step_d256": hyb_trained["launches_per_step"]["attention_bwd_launches"],
         "launches_per_step_vlm": vlm_trained["launches_per_step"]["attention_bwd_launches"],
@@ -2936,6 +3177,10 @@ def main() -> int:
                      "library_backend", "bound_ms", "bound_by", "fwd_ms", "fwd_bound_ms")},
         **{f"{name}_fma_kernel_ms": bwd[i]["fma_kernel_ms"]
            for name, i in (("d80", 6), ("d80_ragged", 7), ("d80_sq_ne_sk", 8), ("cross", 10))},
+        **{f"{name}_{k}": d32[i]["bwd"][k]
+           for name, i in (("d32", 0), ("d32_s2048", 1), ("d32_ragged", 2), ("d32_sq_ne_sk", 3))
+           for k in ("tiling", "max_abs_err", "kernel_ms", "plain_ms", "library_ms",
+                     "library_backend", "bound_ms", "bound_by", "fwd_ms", "fwd_bound_ms")},
         "d80_kernel_over_library": bwd[6]["kernel_ms"] / bwd[6]["library_ms"],
     }, {
         "name": "moe_gmm",
@@ -3647,7 +3892,7 @@ def score_dlrm(dlrm, ops, ref_embedding_bag, dev, smi) -> dict:
 
 
 def serve_checked(lm, ops, generate, cfg, prompt, gen, dev, smi, phase) -> dict:
-    """Serves a recurrent model or the VLM at full width and depth after
+    """Serves a recurrent model, a dense one or the VLM at full width and depth after
     freeing the card, checks its launch counts and outputs, holds
     prefill(S + 1) against prefill(S) plus a decode step, and returns the
     prefill's launch counts.  The VLM's cross gates are set to 1 first, and
@@ -3661,7 +3906,7 @@ def serve_checked(lm, ops, generate, cfg, prompt, gen, dev, smi, phase) -> dict:
     model = lm.init(0, cfg, device=dev)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    fp32 = "" if cfg.family == "vlm" else "; scan parameters fp32"
+    fp32 = "; scan parameters fp32" if cfg.family in ("ssm", "hybrid") else ""
     print(f"phase {phase} serve: {cfg.name} init on the card: {n_params} parameters "
           f"({cfg.param_dtype}{fp32}) in {time.perf_counter() - t0:.2f} s")
     extra = {}
@@ -3679,7 +3924,7 @@ def serve_checked(lm, ops, generate, cfg, prompt, gen, dev, smi, phase) -> dict:
     check_served(cfg, ids, logits)
     if cfg.family == "ssm":
         want = {"selective_scan_launches": cfg.n_layers}
-    elif cfg.family == "vlm":  # 32 self and 8 cross layers
+    elif cfg.family in ("vlm", "dense"):  # the VLM: 32 self and 8 cross layers
         want = {"attention_launches": cfg.n_layers, "attention_wgmma_launches": cfg.n_layers}
     else:
         n_blocks = cfg.n_layers // len(cfg.block_pattern)  # each: rec, rec, attn

@@ -68,14 +68,15 @@
 //   exp2(s scale log2 e - m scale log2 e) in one FFMA, and a row whose
 //   keys are all masked so far gets p = 0.  Shared memory: q 20 KB, a
 //   ring of 2 k and 2 v tiles of 20 KB.
-// * fma (fp32, any of the four head dims; exact fp32 for the narrow fp32
-//   models).  One block of 256 threads per (BQ-row q tile, q head, batch),
+// * fma (fp32, head dims 32, 64, 80, 128 and 256; exact fp32 for the narrow
+//   fp32 models).  One block of 256 threads per (BQ-row q tile, q head, batch),
 //   tiles staged in shared memory as fp32 (Q: BQ x (D + 4), K, V: BK x
 //   (D + 4), P: BQ x (BK + 4)); thread (ty, tx) of a 16 x 16 grid owns
 //   query rows RQ*ty .. RQ*ty+RQ-1 (RQ = BQ / 16), scores against keys
 //   tx + 16*j and output columns 64*g + 4*tx .. +3 (g < ceil(D / 64);
-//   at D = 80 only threads tx < 4 own columns in group 1), with fp32 FMAs
-//   on the CUDA cores.  BQ = BK = 64 at D = 64, 80 and 128, 32 at D = 256.
+//   at D = 80 only threads tx < 4 own columns in group 1, at D = 32 only
+//   threads tx < 8), with fp32 FMAs on the CUDA cores.  BQ = BK = 64 at
+//   D = 32, 64, 80 and 128, 32 at D = 256.
 //
 // Measured on NVIDIA H100 80GB HBM3, 700.00 W (chip_smoke.py phase 3,
 // CUDA-event means over 20 launches; PERF.md section 6, row 1): wgmma
@@ -344,6 +345,7 @@ template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                      int H, int KV, int Sq, int Sk, int D, int causal, int window,
                      cudaStream_t stream) {
+  if (D == 32) return launch<T, 32>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, stream);
   if (D == 64) return launch<T, 64>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, stream);
   if (D == 80) return launch<T, 80>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, stream);
   if (D == 128) return launch<T, 128>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, stream);
@@ -900,7 +902,8 @@ bool valid(int B, int H, int KV, int Sq, int Sk, int window) {
 // is stored), or a (B, H, Sq) fp32 array that gets each query row's
 // log-sum-exp of its scaled, masked scores, in natural log on both tilings
 // (the backward, csrc/flash_attention_bwd.cu, recomputes P from it).
-// dtype: 0 float32, 1 float16, 2 bfloat16.  D: 64, 80, 128 or 256.  Each
+// dtype: 0 float32, 1 float16, 2 bfloat16.  D: 64, 80, 128 or 256 (and 32
+// on the fma tiling; the wgmma entry refuses it).  Each
 // entry point launches one tiling on `stream` and returns a cudaError_t (0
 // on success); a shape or dtype its tiling does not take returns
 // cudaErrorInvalidValue.

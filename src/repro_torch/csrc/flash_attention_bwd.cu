@@ -17,7 +17,8 @@
 // fp32; dq, dk, dv in the input dtype (fp32, fp16 or bf16); all sums fp32.
 // The masks are the forward's: query and key positions both count from 0,
 // a row q sees keys k < Sk with k <= q (causal) and k > q - window
-// (window > 0).  Head dims 64, 80, 128 and 256.  Rows that see no key are refused
+// (window > 0).  Head dims 64, 80, 128 and 256, and 32 on the fma tiling
+// (the twin of examples/train_lm_topoopt.py).  Rows that see no key are refused
 // by the wrapper (kernels/flash_attention.py), so P never needs the
 // forward's mean-of-v repair.
 //
@@ -117,7 +118,8 @@
 //   (key rows 4ty .. 4ty+3, columns 64c + 4tx .. +3) and dQ accumulate in
 //   registers.  Keys past Sk and rows past Sq get P = 0.  At D = 80 a
 //   thread's columns of dV, dK and dQ are 4tx .. +3 and, for tx < 4 only,
-//   64 + 4tx .. +3 (the forward's column split).
+//   64 + 4tx .. +3 (the forward's column split); at D = 32 only threads
+//   tx < 8 own columns, 4tx .. +3.
 //
 // Bound on the H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): 5 products of
 // 2 * D flops a kept (query, key) pair.  At minicpm-2b's training shape
@@ -171,11 +173,14 @@ template <int D> struct Fma {
   static constexpr int RK = BK / 16;             // key rows a thread owns in dK and dV
   static constexpr int LDP = BK + 4;             // row stride of the P and dS tiles, in floats
 };
-// Blocks of the dk/dv and dq kernels that fit on an SM by shared memory (104
-// and 87 KB at D = 64, 119 and 102 KB at D = 80, 170 and 153 KB at D = 128,
-// 139 and 135 KB at D = 256):
-// the register budget ptxas is given, 128 or 255 a thread.
-#define BLOCKS_PER_SM(D) ((D) == 64 ? 2 : 1)
+// Blocks of the dk/dv and dq kernels a launch asks of an SM (the shared
+// memory of a block: 72 and 55 KB at D = 32, 104 and 87 KB at D = 64, 119 and
+// 102 KB at D = 80, 170 and 153 KB at D = 128, 139 and 135 KB at D = 256),
+// which sets the register budget ptxas is given: 128 a thread at 2, 255 at
+// 1.  The dk/dv kernel at D = 32 spills at 128 (its column guard, which
+// D = 64 compiles out), so it asks for 1.
+#define DKDV_BLOCKS_PER_SM(D) ((D) == 64 ? 2 : 1)
+#define DQ_BLOCKS_PER_SM(D) ((D) <= 64 ? 2 : 1)
 
 template <typename T> __device__ __forceinline__ float to_float(T x);
 template <> __device__ __forceinline__ float to_float<float>(float x) { return x; }
@@ -322,7 +327,7 @@ delta_kernel(const T* __restrict__ o, const T* __restrict__ dout, float* __restr
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM(D))
+__global__ void __launch_bounds__(THREADS, DKDV_BLOCKS_PER_SM(D))
 dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
             const T* __restrict__ dout, const float* __restrict__ lse,
             const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int H,
@@ -434,7 +439,7 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM(D))
+__global__ void __launch_bounds__(THREADS, DQ_BLOCKS_PER_SM(D))
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           const T* __restrict__ dout, const float* __restrict__ lse,
           const float* __restrict__ delta, T* __restrict__ dq, int H, int KV, int Sq, int Sk,
@@ -569,6 +574,9 @@ template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v, const void* o, const void* dout,
                      const float* lse, void* dq, void* dk, void* dv, float* delta, int B, int H,
                      int KV, int Sq, int Sk, int D, int causal, int window, cudaStream_t stream) {
+  if (D == 32)
+    return launch<T, 32>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, KV, Sq, Sk, causal,
+                         window, stream);
   if (D == 64)
     return launch<T, 64>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, KV, Sq, Sk, causal,
                          window, stream);
@@ -1662,7 +1670,7 @@ bool valid(int B, int H, int KV, int Sq, int Sk, int window) {
 // q, o, dout, dq: (B, H, Sq, D); k, v, dk, dv: (B, KV, Sk, D); lse, delta:
 // (B, H, Sq) fp32, delta scratch the call overwrites.  Contiguous device
 // arrays, 16-byte aligned.  dtype: 0 float32, 1 float16, 2 bfloat16.  D: 64,
-// 80, 128 or 256.  work: repro_flash_attention_bwd_workspace(B, H, KV, Sq, Sk,
+// 80, 128 or 256, and 32 on the fma tiling.  work: repro_flash_attention_bwd_workspace(B, H, KV, Sq, Sk,
 // D, sms) bytes of scratch (the wgmma tiling's partials of dk and dv at
 // D = 256, its turn counters and fp32 dq sums at D = 80; may be null where
 // that is 0); sms: the card's SMs.  Each entry

@@ -5,7 +5,8 @@ kernels compute the same function (GQA; causal, sliding-window or full; fp32
 online softmax; output in q's dtype) and mask ragged sequence tails
 themselves, so nothing here pads.  Two tilings, one C entry point each:
 ``wgmma`` (tensor cores, TMA loads; bf16/fp16) and ``fma`` (fp32 FMAs on the
-CUDA cores; fp32), each at head dims 64, 80, 128 and 256, and at any Sq and
+CUDA cores; fp32), each at head dims 64, 80, 128 and 256 (``fma`` also at 32,
+the fp32 model of ``examples/train_lm_topoopt.py``), and at any Sq and
 Sk (cross-attention: Sq the prompt, Sk the image tokens).
 :func:`attention_tiling` chooses.  Their plain PyTorch
 version is :func:`repro_torch.kernels.ref.ref_flash_attention`.
@@ -21,9 +22,9 @@ a key, and does nothing at Sq = Sk (every served prefill).
 
 Training: given ``lse``, either tiling also writes each query row's
 log-sum-exp, and :func:`flash_attention_bwd` (``csrc/flash_attention_bwd.cu``,
-head dims 64, 80, 128 and 256; 80 at its true width on ``wgmma``, as the
-forward, S and dP computed once and dq summed in fp32 scratch in a fixed
-order) computes dq, dk and dv from it on one of two tilings, ``wgmma``
+head dims 64, 80, 128 and 256, and 32 on ``fma``; 80 at its true width on
+``wgmma``, as the forward, S and dP computed once and dq summed in fp32
+scratch in a fixed order) computes dq, dk and dv from it on one of two tilings, ``wgmma``
 (bf16/fp16) and ``fma`` (any dtype; exact fp32), one C entry point each;
 :func:`attention_bwd_tiling` chooses.  :class:`FlashAttentionFn` joins
 the forward and the backward for autograd.  The backward refuses
@@ -43,20 +44,33 @@ from ._build import sm_count
 
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 HALF_DTYPES = (torch.float16, torch.bfloat16)
-HEAD_DIMS = (64, 80, 128, 256)  # 80: hubert-xlarge, its own wgmma kernels at the true width
 TILINGS = ("wgmma", "fma")
-# minicpm-2b; hubert-xlarge; granite-8b/34b, deepseek-coder-33b, the VLM; recurrentgemma
-BWD_HEAD_DIMS = (64, 80, 128, 256)
+# The head dims each tiling takes, forward and backward: 32, the fp32 model of
+# examples/train_lm_topoopt.py (fma only); 64 minicpm-2b; 80 hubert-xlarge (its
+# own wgmma kernels at the true width); 128 granite-8b/34b, deepseek-coder-33b,
+# the VLM; 256 recurrentgemma.
+HEAD_DIMS = {"wgmma": (64, 80, 128, 256), "fma": (32, 64, 80, 128, 256)}
+
+
+def _tiling(name: str, dtype: torch.dtype, head_dim: int, tiling: str | None) -> str:
+    """``tiling``, else ``"wgmma"`` for bf16/fp16 and ``"fma"`` for fp32;
+    raises for a dtype or a head dim that tiling does not take."""
+    if dtype not in DTYPE_CODES:
+        raise ValueError(f"{name}: dtype {dtype} not in {list(DTYPE_CODES)}")
+    tiling = tiling or ("wgmma" if dtype in HALF_DTYPES else "fma")
+    if tiling not in TILINGS or (tiling == "wgmma" and dtype not in HALF_DTYPES):
+        raise ValueError(f"{name}: tiling {tiling!r} does not take {dtype}")
+    if head_dim not in HEAD_DIMS[tiling]:
+        raise ValueError(f"{name}: head dim {head_dim} not in {HEAD_DIMS[tiling]} "
+                         f"of the {tiling} tiling")
+    return tiling
 
 
 def attention_tiling(dtype: torch.dtype, head_dim: int) -> str:
     """The tiling that serves q, k, v of this dtype and head dim: ``"wgmma"``
-    for bf16/fp16, ``"fma"`` for fp32."""
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {head_dim} not in {HEAD_DIMS}")
-    if dtype not in DTYPE_CODES:
-        raise ValueError(f"flash_attention: dtype {dtype} not in {list(DTYPE_CODES)}")
-    return "wgmma" if dtype in HALF_DTYPES else "fma"
+    for bf16/fp16, ``"fma"`` for fp32.  Raises where that tiling does not
+    take the head dim (32 on wgmma)."""
+    return _tiling("flash_attention", dtype, head_dim, None)
 
 
 def first_masked_row(Sq: int, Sk: int, causal: bool, window: int) -> int:
@@ -83,12 +97,8 @@ def _entry(tiling: str):
 def attention_bwd_tiling(dtype: torch.dtype, head_dim: int) -> str:
     """The backward tiling for this dtype and head dim: ``"wgmma"`` for
     bf16/fp16, ``"fma"`` for fp32 (exact fp32 products, which TF32 would not
-    give)."""
-    if head_dim not in BWD_HEAD_DIMS:
-        raise ValueError(f"flash_attention_bwd: head dim {head_dim} not in {BWD_HEAD_DIMS}")
-    if dtype not in DTYPE_CODES:
-        raise ValueError(f"flash_attention_bwd: dtype {dtype} not in {list(DTYPE_CODES)}")
-    return "wgmma" if dtype in HALF_DTYPES else "fma"
+    give).  Raises where that tiling does not take the head dim."""
+    return _tiling("flash_attention_bwd", dtype, head_dim, None)
 
 
 def _bwd_entries(tiling: str):
@@ -134,10 +144,7 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0, tiling: str |
     _, KV, Sk, _ = k.shape
     if k.shape[0] != B or k.shape[3] != D or KV < 1 or H % KV:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} vs k {tuple(k.shape)}")
-    chosen = attention_tiling(q.dtype, D)  # also refuses a head dim no tiling takes
-    tiling = tiling or chosen
-    if tiling not in TILINGS or (tiling == "wgmma" and q.dtype not in HALF_DTYPES):
-        raise ValueError(f"flash_attention: tiling {tiling!r} does not take {q.dtype}")
+    tiling = _tiling("flash_attention", q.dtype, D, tiling)
     if min(B, H, Sq, Sk) < 1 or window < 0:
         raise ValueError("flash_attention: empty input or negative window")
     if lse is not None and not (
@@ -166,10 +173,14 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0, tiling: str |
 
 def check_bwd(q, k, causal: bool, window: int) -> None:
     """Raises ``ValueError`` for what the backward kernel does not take: a head
-    dim outside ``BWD_HEAD_DIMS``, or rows that see no key."""
-    Sq, D = q.shape[2], q.shape[3]
-    if D not in BWD_HEAD_DIMS:
-        raise ValueError(f"flash_attention_bwd: head dim {D} not in {BWD_HEAD_DIMS}")
+    dim that :func:`attention_bwd_tiling`'s tiling does not take, or rows
+    that see no key."""
+    attention_bwd_tiling(q.dtype, q.shape[3])
+    _check_rows(q, k, causal, window)
+
+
+def _check_rows(q, k, causal: bool, window: int) -> None:
+    Sq = q.shape[2]
     first = first_masked_row(Sq, k.shape[2], causal, window)
     if first < Sq:
         raise ValueError(f"flash_attention_bwd: rows {first}..{Sq - 1} see no key "
@@ -182,12 +193,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True, window: int = 
     """The gradient of :func:`flash_attention` -> (dq, dk, dv) in q's dtype.
 
     q, o, do: (B, H, Sq, D); k, v: (B, KV, Sk, D); lse: (B, H, Sq) fp32 from
-    the forward, all on one CUDA device; D 64, 80, 128 or 256.  ``tiling``
-    defaults to :func:`attention_bwd_tiling`'s choice; a tiling that does not
-    take the dtype raises.  Launches the CUDA backward once (three kernels on
-    the current stream; at D = 256 the wgmma tiling may split the query heads
-    of a kv head into fp32 partials, from PyTorch's allocator, that a fourth
-    kernel adds in a fixed order; at D = 80 it sums dq in fp32 scratch from
+    the forward, all on one CUDA device; D 64, 80, 128 or 256 (32 on
+    ``fma``).  ``tiling`` defaults to :func:`attention_bwd_tiling`'s
+    choice; a tiling that does not take the dtype or the head dim raises.
+    Launches the CUDA backward once (three kernels on the current stream; at
+    D = 256 the wgmma tiling may split the query heads of a kv head into
+    fp32 partials, from PyTorch's allocator, that a fourth kernel adds in a
+    fixed order; at D = 80 it sums dq in fp32 scratch from
     PyTorch's allocator, its turn counters zeroed on every call, and a last
     kernel casts it), or raises:
     it never computes on another path.
@@ -209,10 +221,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True, window: int = 
         raise ValueError(f"flash_attention_bwd: lse must be ({B}, {H}, {Sq}) fp32")
     if window < 0:
         raise ValueError("flash_attention_bwd: negative window")
-    check_bwd(q, k, causal, window)
-    tiling = tiling or attention_bwd_tiling(q.dtype, D)
-    if tiling not in TILINGS or (tiling == "wgmma" and q.dtype not in HALF_DTYPES):
-        raise ValueError(f"flash_attention_bwd: tiling {tiling!r} does not take {q.dtype}")
+    tiling = _tiling("flash_attention_bwd", q.dtype, D, tiling)
+    _check_rows(q, k, causal, window)
     q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))
     lse = lse.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)

@@ -105,6 +105,38 @@ def params_from_jax(np_params: dict, cfg: ArchConfig) -> dict[str, torch.Tensor]
     return sd
 
 
+def jax_leaf_path(name: str, cfg: ArchConfig) -> tuple[str, ...]:
+    """The key path of the reference's leaf that carries the port's parameter
+    ``name`` (the inverse of :func:`params_from_jax`'s mapping, layer index
+    dropped: the reference stacks layers along the leaf's leading axes)."""
+    parts = name.split(".")
+    if len(parts) == 1:
+        return (name,)
+    j, rest = int(parts[1]), tuple(parts[2:])
+    if cfg.family == "ssm":
+        return ("blocks", *rest)
+    if cfg.family == "hybrid":
+        n_blocks = cfg.n_layers // len(cfg.block_pattern)
+        if j >= 3 * n_blocks:
+            return ("tail", *rest)
+        return ("blocks", "attn" if j % 3 == 2 else "rec", *rest)
+    if cfg.family == "vlm":
+        k = cfg.cross_attn_every
+        return ("blocks", "cross" if j % k == k - 1 else "self", *rest)
+    return ("blocks", *rest)
+
+
+def jax_leaf_groups(cfg: ArchConfig, names) -> dict[tuple[str, ...], list[str]]:
+    """The reference's leaves, each key path -> the port's parameters it
+    carries, in its stacking order: ``torch.stack`` of the group, flattened,
+    runs through the leaf's elements in the leaf's own flat order (the
+    reference stacks layers in ascending layer index in every family)."""
+    groups: dict[tuple[str, ...], list[str]] = {}
+    for n in sorted(names, key=lambda n: int(n.split(".")[1]) if "." in n else -1):
+        groups.setdefault(jax_leaf_path(n, cfg), []).append(n)
+    return groups
+
+
 def _check_depth(where: str, stacked, want: int) -> None:
     if len(stacked) != want:
         raise ValueError(f"{where}: {len(stacked)} layers, want {want}")

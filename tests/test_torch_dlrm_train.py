@@ -101,7 +101,8 @@ def test_ref_embedding_bag_bwd_drops_ids_as_jax_grad_does():
     assert got[:, :, 0].tolist() == [[2.0, 0.0, 0.0, 0.0, 2.0]] * 2
     f = lambda t: jref.ref_embedding_bag(t, jnp.asarray(ids.numpy()))  # noqa: E731
     _, vjp = jax.vjp(f, jnp.zeros((2, 5, 3), jnp.float32))
-    np.testing.assert_array_equal(got.numpy(), np.asarray(vjp(jnp.ones((8, 2, 3)))[0]))
+    ct = jnp.ones((8, 2, 3), jnp.float32)  # float32 whatever jax_enable_x64 says
+    np.testing.assert_array_equal(got.numpy(), np.asarray(vjp(ct)[0]))
 
 
 def _kernel_walk(keys, pos, dout, nnz, n_rows, dtype):

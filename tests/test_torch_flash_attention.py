@@ -206,6 +206,8 @@ def test_kernel_wrapper_refuses_cpu_tensors_for_every_tiling(tiling, dtype):
         (torch.bfloat16, 80, "wgmma"),  # hubert-xlarge's prefill
         (torch.float16, 80, "wgmma"),
         (torch.float32, 80, "fma"),
+        (torch.float32, 32, "fma"),  # examples/train_lm_topoopt.py's fp32 model
+        (torch.bfloat16, 32, ValueError),  # the wgmma tiling does not take 32
         (torch.bfloat16, 16, ValueError),  # the smoke configs' head dim: CPU only
         (torch.float32, 72, ValueError),
         (torch.int32, 128, ValueError),
@@ -411,6 +413,8 @@ def test_ops_attention_on_cpu_in_half_counts_no_backward_tiling(monkeypatch, dty
         (torch.bfloat16, 96, ValueError),   # no model's head dim
         (torch.bfloat16, 256, "wgmma"),     # recurrentgemma-9b's training attention
         (torch.float32, 256, "fma"),        # its narrow fp32 models
+        (torch.float32, 32, "fma"),         # examples/train_lm_topoopt.py's fp32 model
+        (torch.float16, 32, ValueError),    # the wgmma tiling does not take 32
         (torch.float32, 16, ValueError),    # the smoke configs' head dim: CPU only
         (torch.int32, 64, ValueError),
     ],

@@ -2160,3 +2160,97 @@ def test_online_admission_on_card_matches_cpu(cuda, monkeypatch):
     assert "VGG16" in card.plan.strategies and not card.plan_violations(card.topology)
     repriced = evaluate_jobset(card.plan.strategies, card.jobset, card.plan.topology, PLAN_HW)
     assert repriced[0] == card.plan.iter_time
+
+
+# Head dim 32 (the fp32 model of examples/train_lm_topoopt.py) on the fma
+# tilings, forward and backward; wgmma does not take it.
+D32_DTYPES = [torch.float32, torch.float16, torch.bfloat16]
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,causal,window", BWD_CASES)
+@pytest.mark.parametrize("dtype", D32_DTYPES)
+def test_d32_fma_forward_matches_plain(cuda, dtype, B, H, KV, Sq, Sk, causal, window):
+    q, k, v = _qkv(cuda, B, H, KV, Sq, Sk, 32, dtype, seed=7)
+    lse = torch.empty(B, H, Sq, device=cuda)
+    out = flash_attention(q, k, v, causal=causal, window=window, tiling="fma", lse=lse)
+    again = flash_attention(q, k, v, causal=causal, window=window, tiling="fma")
+    want = ref_flash_attention(q, k, v, causal=causal, window=window)
+    assert out.dtype == dtype and torch.equal(out, again)
+    torch.testing.assert_close(out.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    want_lse = ref_flash_attention_lse(q, k, v, causal, window)
+    assert float((lse - want_lse).abs().max()) <= 1e-4 * max(1.0, float(want_lse.abs().max()))
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,causal,window", BWD_CASES)
+@pytest.mark.parametrize("dtype", D32_DTYPES)
+def test_d32_fma_bwd_matches_autograd_of_plain(cuda, dtype, B, H, KV, Sq, Sk, causal, window):
+    q, k, v = _qkv(cuda, B, H, KV, Sq, Sk, 32, dtype, seed=8)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(9),
+                     device=cuda).to(dtype)
+    lse = torch.empty(B, H, Sq, device=cuda)
+    o = flash_attention(q, k, v, causal=causal, window=window, tiling="fma", lse=lse)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal, window, tiling="fma")
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal, window, tiling="fma")
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for g, want, t in zip(got, _plain_grads(q, k, v, do, causal, window), (q, k, v)):
+        assert g.dtype == dtype and g.shape == t.shape
+        err = float((g.float() - want).abs().max())
+        assert err <= TOL[dtype] * max(float(want.abs().max()), 1.0), err
+
+
+def test_d32_runs_on_fma_and_wgmma_refuses_it(cuda, monkeypatch):
+    """fp32 at head dim 32 goes through the fma kernels under autograd, 1
+    forward and 1 backward launch; bf16 (wgmma) raises, naming the tiling."""
+    for n in BWD_COUNTERS:
+        monkeypatch.setattr(ops, n, 0)
+    q, k, v = (t.requires_grad_(True) for t in _qkv(cuda, 2, 8, 4, 128, 128, 32, torch.float32))
+    ops.attention(q, k, v).sum().backward()
+    assert {n: getattr(ops, n) for n in BWD_COUNTERS} == dict(
+        attention_launches=1, attention_wgmma_launches=0, attention_fma_launches=1,
+        attention_bwd_launches=1, attention_bwd_wgmma_launches=0, attention_bwd_fma_launches=1)
+    qb, kb, vb = _qkv(cuda, 1, 2, 2, 64, 64, 32, torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 32 not in .* of the wgmma tiling"):
+        flash_attention(qb, kb, vb)
+    with pytest.raises(ValueError, match="head dim 32 not in .* of the wgmma tiling"):
+        attn_mod.attention_bwd_tiling(torch.bfloat16, 32)
+
+
+@pytest.mark.parametrize("kind", ["ring", "recursive_hd", "multi_tree", "compressed"])
+def test_dp_step_at_world_size_1_equals_train_step_on_card(cuda, kind):
+    """The §6 trainer on a one-rank mesh on the card: two steps give
+    make_train_step's losses and parameters to the bit.  A narrow fp32
+    audio encoder at head dim 32 (the fma attention kernels both ways; no
+    embedding, whose gradient is an atomic scatter on the card)."""
+    from repro_torch.core.device_order import topoopt_mesh
+    from repro_torch.parallel.compression import Compressor
+    from repro_torch.train.steps import init_compressor_residual, make_shardmap_dp_train_step
+
+    cfg = dataclasses.replace(get_config("hubert-xlarge").smoke(), head_dim=32, n_heads=4,
+                              n_kv_heads=4, param_dtype="float32", activation_dtype="float32")
+    gen = torch.Generator().manual_seed(0)
+    batches = [{"frames": torch.randn(2, 77, cfg.d_model, generator=gen).to(cuda),
+                "labels": torch.randint(0, cfg.vocab, (2, 77), generator=gen).to(cuda)}
+               for _ in range(2)]
+
+    def run(dp):
+        model = lm.init(0, cfg, device=cuda)
+        opt = optim.adamw(optim.constant(1e-3))
+        state = opt.init(dict(model.named_parameters()))
+        comp = Compressor() if kind == "compressed" else None
+        step = (make_shardmap_dp_train_step(cfg, opt, topoopt_mesh((1,), ("data",)),
+                                            compressor=comp,
+                                            schedule="ring" if comp else kind)
+                if dp else make_train_step(cfg, opt))
+        residual = init_compressor_residual(comp, model) if comp else None
+        losses = []
+        for i, batch in enumerate(batches):
+            if dp:
+                _, _, loss, residual = step(model, state, batch, i, residual)
+            else:
+                loss = step(model, state, batch, i)[2]["loss"]
+            losses.append(loss)
+        return losses, dict(model.named_parameters())
+
+    (want_l, want_p), (got_l, got_p) = run(False), run(True)
+    assert all(torch.equal(a, b) for a, b in zip(got_l, want_l))
+    assert all(torch.equal(got_p[n], want_p[n]) for n in want_p)

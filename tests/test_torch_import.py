@@ -36,12 +36,13 @@ SLICE_MODULES = (
     "repro_torch.checkpoint.ckpt", "repro_torch.train.steps", "repro_torch.train.loop",
     "repro_torch.launch.train", "repro_torch.launch.trace_train",
     "repro_torch.launch.dlrm_testbed", "repro_torch.launch.quickstart",
-    "repro_torch.launch.serve_decode",
+    "repro_torch.launch.serve_decode", "repro_torch.parallel.compression",
+    "repro_torch.parallel.pipeline", "repro_torch.launch.train_lm_topoopt",
 ) + tuple(f"repro_torch.core.{m}" for m in (
     "totient", "select_perms", "routing", "demand", "topology_finder", "netsim", "planeval",
     "costmodel", "schedules", "workloads", "strategy_search", "planeval_torch",
     "ocs_reconfig", "simengine", "alternating", "online", "faults", "fabrics", "scheduler",
-    "packetsim",
+    "packetsim", "device_order", "collectives",
 )) + ("repro_torch.core",)
 
 
@@ -100,12 +101,13 @@ print(len(core))
 
 
 def test_planner_core_imports_leave_jax_and_repro_out():
-    """The planner (``repro_torch.core`` and its 20 modules) imports neither
-    JAX nor the JAX package, not even the NumPy half it was forked from."""
+    """The planner and the collectives (``repro_torch.core`` and its 22
+    modules) import neither JAX nor the JAX package, not even the NumPy half
+    the planner was forked from."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT / "tests")]))
     proc = subprocess.run(
         [sys.executable, "-c", _IMPORT_CORE], capture_output=True, text=True,
         env=env, cwd=ROOT, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) == 21
+    assert int(proc.stdout.split()[-1]) == 23
