@@ -302,6 +302,18 @@ result line:
    batches, once on the ring schedule and once with the int8
    ``Compressor``: losses and every parameter equal to the bit, each step's
    time beside phase 5g's;
+7d. the GSPMD/FSDP trainer at full width: hubert-xlarge whole at 4 x 4096,
+   ``jit_train_step`` under ``ShardingPlan(fsdp=True)`` on a (1, 1)
+   ("data", "model") mesh over a one-rank NCCL group, the model drawn block
+   by block into its layouts: two steps on 7c's batches, losses and every
+   parameter equal to 7c's ``make_train_step`` run to the bit, 2 forward and
+   1 backward wgmma attention launches a layer a step, each step's time
+   beside 7c's; then a plain model beside it, the two steps timed in
+   alternating turns, and one step of each under ``torch.profiler``: idle
+   share, NCCL launches, and the host time of DTensor's autograd functions
+   and of the collectives' operators; then ``python -m repro_torch.launch.train --arch
+   hubert-xlarge --mesh cpu --seq-len 4096 --global-batch 4 --steps 3`` in a
+   process of its own, exit 0;
 8. the script's wall time, one JSON line of per-kernel numbers, the
    ``nvidia-smi`` line, and the result line ``{"ok": true, "device": {...}}``
    last.
@@ -443,6 +455,7 @@ D32_CASES = (
 TWIN_STEPS = (60, 80)  # phase 7b: a run past the step-50 checkpoint, then one resumed from it
 TWIN_PATH = "train_lm_topoopt twin (world size 1), 3 steps"  # phase 7b's counted run
 DP_PATH = "hubert-xlarge DP step (ring, then compressed), 2 steps each"  # phase 7c
+GSPMD_PATH = "hubert-xlarge GSPMD step (fsdp, world size 1), 2 steps"  # phase 7d
 
 
 def require(ok, what: str) -> None:
@@ -1588,10 +1601,12 @@ def resume_check(train_loop, optim, cfg, dev) -> dict:
     import tempfile
 
     from repro_torch.configs.base import ShapeSpec
+    from repro_torch.parallel.sharding import ShardingPlan
 
     shape = ShapeSpec("resume", 64, 4, "train")
     opt = optim.adamw(optim.wsd(1e-3, 8))
-    quiet = dict(log_every=100, logger=lambda *a: None, device=dev, loss_chunk=32)
+    quiet = dict(plan=ShardingPlan(fsdp=False, loss_chunk=32), log_every=100,
+                 logger=lambda *a: None, device=dev)
     whole = train_loop.train(cfg, shape, opt, total_steps=8, **quiet)
     root = Path(__file__).resolve().parent / "build"
     root.mkdir(exist_ok=True)
@@ -1835,6 +1850,64 @@ def trace_train_step(lm, run: dict, cfg, group_of, phase: str, smi, rules=MOE_SP
           "most first: " + "; ".join(f"{k} {t} ms" for k, t in top))
     return dict(traced_ms=traced_ms, busy_ms=busy, idle_share=idle, split_ms=split,
                 head_gemm_ms=head_gemm if head is not None else None)
+
+
+# The host operators a GSPMD step adds (torch.profiler's CPU event names):
+# DTensor's autograd functions (Redistribute, to_local's _ToTorchTensor,
+# from_local's _FromTorchTensor, and their backward nodes) and the
+# collectives' operators (c10d, functional collectives, NCCL's records).
+DTENSOR_HOST = ("Redistribute", "TorchTensor")
+COLLECTIVE_HOST = ("c10d", "nccl", "record_param_comms")
+
+
+def trace_host_split(fn, want=(), tries: int = 3) -> dict:
+    """``fn(i)`` (i the attempt) under ``torch.profiler``, retried up to
+    ``tries`` times while the session saw no kernel named like one of each
+    tuple of ``want`` (the profiler drops events now and then) -> the traced
+    host wall ms, the device busy ms and idle share, the NCCL kernels'
+    launches and device ms, and, by operator name, the calls and inclusive
+    host ms of DTENSOR_HOST's and COLLECTIVE_HOST's operators (the backward
+    nodes themselves, not the engine's ``evaluate_function`` frames around
+    them, so nothing is counted twice), with their sums (without
+    ``NestedRedistribute``, which runs inside ``RedistributeBackward``), and
+    the 12 operators of most self host time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn(i)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+        kernels = {e.key: (e.count, e.self_device_time_total / 1e3) for e in events
+                   if e.device_type == DeviceType.CUDA}
+        if kernels and all(any(p in k for k in kernels for p in alts) for alts in want):
+            break
+    else:
+        require(False, f"the profiler saw kernels named like each of {want} in {tries} "
+                       f"sessions: {sorted(kernels)}")
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+
+    def host(patterns) -> dict:
+        return {e.key: (e.count, e.cpu_time_total / 1e3) for e in cpu
+                if any(p in e.key for p in patterns)
+                and not e.key.startswith("autograd::engine::evaluate_function")}
+
+    busy = sum(t for _, t in kernels.values())
+    nccl = [(c, t) for k, (c, t) in kernels.items() if "nccl" in k.lower()]
+    dtensor, collectives = host(DTENSOR_HOST), host(COLLECTIVE_HOST)
+    top = sorted(cpu, key=lambda e: -e.self_cpu_time_total)[:12]
+    return dict(traced_ms=wall_ms, busy_ms=busy, idle_share=1.0 - busy / wall_ms,
+                nccl_launches=sum(c for c, _ in nccl), nccl_ms=sum(t for _, t in nccl),
+                dtensor_host=dtensor,
+                dtensor_host_ms=sum(t for k, (_, t) in dtensor.items() if not k.startswith("Nested")),
+                dtensor_calls=sum(c for k, (c, _) in dtensor.items() if not k.startswith("Nested")),
+                collectives_host=collectives,
+                collectives_host_ms=sum(t for _, t in collectives.values()),
+                top_self_host=[(e.key, e.count, e.self_cpu_time_total / 1e3) for e in top])
 
 
 def loss_head_ops(cfg, batch: int = TRAIN_B, chunk: int = TRAIN_S):
@@ -2152,7 +2225,146 @@ def dp_step_check(lm, ops, optim, data, train_steps, compression, device_order, 
         del got
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(out, counts=total)
+    return dict(out, counts=total, plain=plain, batches=batches, want=want)
+
+
+def gspmd_step_check(lm, ops, optim, train_steps, sharding, device_order, cfg, dev, smi,
+                     dp: dict) -> dict:
+    """Phase 7d: the GSPMD/FSDP trainer at world size 1 and full width:
+    ``jit_train_step`` under ``ShardingPlan(fsdp=True)`` on a (1, 1)
+    ("data", "model") mesh over a one-rank NCCL group, ``cfg`` (hubert-xlarge
+    whole) drawn block by block into its layouts from seed 0, two steps on
+    phase 7c's batches: the losses and every parameter equal phase 7c's
+    ``make_train_step`` run to the bit (every gather, reduce-scatter and mean
+    is over one rank).  Every count is set to 0 just before the run and read
+    just after; each step launches 2 forward and 1 backward wgmma attention
+    kernels a layer.  Each step's time is printed beside phase 7c's.  Then
+    a plain model from the same seed joins it on the card, and the two
+    steps (``make_train_step`` and the GSPMD one, on phase 7c's first batch)
+    are timed in GSPMD_TURNS alternating turns, so both see the same host,
+    and one step of each is traced (trace_host_split): where the GSPMD
+    step's extra time goes, idle device or device work, DTensor's host
+    operators or collectives.  Then ``python -m repro_torch.launch.train
+    --arch hubert-xlarge --mesh cpu --seq-len 4096 --global-batch 4 --steps
+    3`` in a process of its own must exit 0."""
+    import torch.distributed as dist
+
+    plain = dp["plain"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt = optim.adamw(optim.cosine(TRAIN_LR, 2, warmup=1))  # phase 7c's
+    mesh = device_order.Mesh(np.zeros((1, 1), dtype=np.int64), ("data", "model"))
+    try:
+        step, (_, _, p_layouts, o_layouts, _) = train_steps.jit_train_step(
+            cfg, opt, sharding.ShardingPlan(fsdp=True), mesh, device=dev)
+        model = lm.init(0, cfg, device=dev, place=sharding.placer(p_layouts))
+        state = train_steps.init_opt_state(opt, model, o_layouts)
+        torch.cuda.synchronize()
+        for n in COUNTERS:
+            setattr(ops, n, 0)
+        losses, times, per_step = [], [], []
+        for i, batch in enumerate(dp["batches"]):
+            before = {n: getattr(ops, n) for n in COUNTERS}
+            t0 = time.perf_counter()
+            loss = step(model, state, batch, i)[2]["loss"]
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss.detach().cpu())
+            per_step.append({n: getattr(ops, n) - before[n] for n in COUNTERS})
+        counts = {n: getattr(ops, n) for n in COUNTERS}
+        params = {n: p.detach().full_tensor().cpu()
+                  for n, p in sharding.parameters(model).items()}
+        split = gspmd_turns(lm, train_steps, opt, cfg, dev, (model, state, step),
+                            dp["batches"][0], smi)
+        del model, state, step
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    require(all(c == dp["want"] for c in per_step),
+            f"GSPMD step launches per step {per_step}, want {dp['want']}")
+    same_loss = all(torch.equal(a, b) for a, b in zip(losses, plain["losses"]))
+    differ = [n for n, p in plain["params"].items() if not torch.equal(params[n], p)]
+    require(same_loss and not differ and sorted(params) == sorted(plain["params"]),
+            f"GSPMD step vs make_train_step: losses {losses} vs {plain['losses']}, "
+            f"parameters that differ {differ[:5]} of {len(differ)}")
+    print(f"phase 7d gspmd: {cfg.name} whole at {TRAIN_B} x {TRAIN_S}, jit_train_step "
+          f"(ShardingPlan(fsdp=True), (1, 1) data x model mesh, one-rank NCCL group) vs "
+          f"make_train_step, 2 steps from seed 0: losses {[float(x) for x in losses]} equal to "
+          f"the bit, all {len(params)} parameters equal to the bit; step ms {times} "
+          f"(phase 7c: make_train_step {plain['step_ms']}, ring {dp['ring_step_ms']}); "
+          f"launches per step {per_step[0]}; on {smi}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", cfg.name, "--mesh", "cpu",
+           "--seq-len", str(TRAIN_S), "--global-batch", str(TRAIN_B), "--steps", "3"]
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=600)
+    wall_s = time.perf_counter() - t0
+    done = [ln for ln in proc.stdout.splitlines() if ln.startswith("done: step=3")]
+    require(proc.returncode == 0 and len(done) == 1,
+            f"{' '.join(cmd[1:])}: exit {proc.returncode}\n{proc.stdout[-2000:]}"
+            f"\n{proc.stderr[-3000:]}")
+    print(f"phase 7d cli: python {' '.join(cmd[1:])}: exit 0 in {wall_s:.2f} s (its process's "
+          f"start, the model's init and 3 steps): {done[0]}")
+    return dict(step_ms=times, counts=counts, cli_wall_s=wall_s, **split)
+
+
+GSPMD_TURNS = 4  # phase 7d's alternating turns of the plain and the GSPMD step
+
+
+def gspmd_turns(lm, train_steps, opt, cfg, dev, gspmd: tuple, batch: dict, smi) -> dict:
+    """Phase 7d's comparison within one run: a plain model from seed 0 (its
+    own state, ``make_train_step``, remat "full") beside ``gspmd`` (model,
+    state, step), each step timed in GSPMD_TURNS turns of plain then GSPMD
+    on ``batch``, then one step of each traced (trace_host_split).  The
+    plain model is freed before it returns."""
+    model, state, step = gspmd
+    plain_model = lm.init(0, cfg, device=dev)
+    plain_state = opt.init(dict(plain_model.named_parameters()))
+    plain_step = train_steps.make_train_step(cfg, opt, remat="full")
+    runs = {"plain": lambda i: plain_step(plain_model, plain_state, batch, 2 + i),
+            "gspmd": lambda i: step(model, state, batch, 2 + i)}
+    turns = {k: [] for k in runs}
+    for t in range(GSPMD_TURNS):
+        for kind, fn in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(t)
+            torch.cuda.synchronize()
+            turns[kind].append((time.perf_counter() - t0) * 1e3)
+    want = (("flash_attention_wgmma_kernel", "flash_attention_d80_wgmma_kernel"),
+            ("dkdv_wgmma_kernel", "dkdv_d80_wgmma_kernel"))
+    traces = {kind: trace_host_split(lambda i, fn=fn: fn(GSPMD_TURNS + i), want)
+              for kind, fn in runs.items()}
+    del plain_model, plain_state, plain_step, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    med = {k: float(np.median(v)) for k, v in turns.items()}
+    print(f"phase 7d turns: {cfg.name} at {TRAIN_B} x {TRAIN_S}, {GSPMD_TURNS} turns of "
+          f"make_train_step then jit_train_step (world size 1) on one batch: plain ms "
+          f"{turns['plain']}, GSPMD ms {turns['gspmd']}; medians {med['plain']} and "
+          f"{med['gspmd']} ({med['gspmd'] / med['plain'] - 1:+.2%}); on {smi}")
+    for kind, tr in traces.items():
+        print(f"phase 7d trace ({kind}): one step {tr['traced_ms']} ms traced wall, "
+              f"{tr['busy_ms']} ms device busy, idle {tr['idle_share']:.4f}; NCCL "
+              f"{tr['nccl_launches']} launches, {tr['nccl_ms']} ms; DTensor's host operators "
+              f"{tr['dtensor_calls']} calls, {tr['dtensor_host_ms']} ms inclusive "
+              f"({tr['dtensor_host_ms'] / tr['traced_ms']:.2%} of the wall): "
+              + "; ".join(f"{k} {c} calls {t} ms" for k, (c, t) in tr["dtensor_host"].items())
+              + f"; collectives' host operators {tr['collectives_host_ms']} ms: "
+              + "; ".join(f"{k} {c} calls {t} ms"
+                          for k, (c, t) in tr["collectives_host"].items())
+              + f"; on {smi}")
+        print(f"phase 7d trace ({kind}): the operators of most self host time: "
+              + "; ".join(f"{k} {c} calls {t} ms" for k, c, t in tr["top_self_host"]))
+    return dict(turns_ms=turns, turn_medians_ms=med,
+                traces={k: {f: v for f, v in tr.items() if f not in ("dtensor_host",
+                                                                     "collectives_host",
+                                                                     "top_self_host")}
+                        for k, tr in traces.items()})
 
 
 def train_dlrm_paper(dlrm, dlrm_testbed, optim, ops, group_of, dev, smi) -> dict:
@@ -2274,7 +2486,7 @@ def main() -> int:
     from repro_torch.models import dlrm, layers, lm
     from repro_torch.core import device_order
     from repro_torch.launch import train_lm_topoopt
-    from repro_torch.parallel import compression
+    from repro_torch.parallel import compression, sharding
     from repro_torch.train import loop as train_loop
     from repro_torch.train import steps as train_steps
     from repro_torch.train.steps import make_train_step
@@ -2960,9 +3172,10 @@ def main() -> int:
         setattr(ops, n, 0)
     t0 = time.perf_counter()
     looped = train_loop.train(moe_cfg, ShapeSpec("train_4k_b4", TRAIN_S, TRAIN_B, "train"),
-                              optim.adamw(optim.wsd(TRAIN_LR, 3)), total_steps=3,
-                              logger=lambda *a: None, device=dev, remat="full",
-                              loss_chunk=LOSS_CHUNK)
+                              optim.adamw(optim.wsd(TRAIN_LR, 3)),
+                              sharding.ShardingPlan(fsdp=False, remat="full",
+                                                    loss_chunk=LOSS_CHUNK),
+                              total_steps=3, logger=lambda *a: None, device=dev)
     torch.cuda.synchronize()
     loop_counts = {n: getattr(ops, n) for n in COUNTERS}
     require(looped.final_step == 3 and all(math.isfinite(x) for x in looped.losses),
@@ -3048,6 +3261,10 @@ def main() -> int:
     twin = topoopt_twin(ops, train_lm_topoopt, smi)
     dp = dp_step_check(lm, ops, optim, data, train_steps, compression, device_order,
                        get_config(AU_TRAIN_ARCH), dev, smi, au_trained["step_ms"])
+    # Phase 7d: the GSPMD/FSDP trainer at world size 1 against 7c's plain run.
+    gspmd = gspmd_step_check(lm, ops, optim, train_steps, sharding, device_order,
+                             get_config(AU_TRAIN_ARCH), dev, smi, dp)
+    del dp["plain"], dp["batches"]
 
     print(f"chip_smoke: wall time {time.perf_counter() - T_START} s, the kernels' build "
           "included")
@@ -3064,7 +3281,8 @@ def main() -> int:
                      + deepseek["attention_launches"] + train_fwd
                      + moe_counts["attention_launches"] + hyb_counts["attention_launches"]
                      + vlm_counts["attention_launches"] + au_counts["attention_launches"]
-                     + twin["counts"]["attention_launches"] + dp["counts"]["attention_launches"]),
+                     + twin["counts"]["attention_launches"] + dp["counts"]["attention_launches"]
+                     + gspmd["counts"]["attention_launches"]),
         "launches_by_path": {"granite-8b": granite_attention_launches, qwen_name: att_total,
                              "recurrentgemma-9b": griffin["attention_launches"],
                              "llama-3.2-vision-11b": vlm["attention_launches"],
@@ -3076,7 +3294,8 @@ def main() -> int:
                              vlm_path: vlm_counts["attention_launches"],
                              au_path: au_counts["attention_launches"],
                              TWIN_PATH: twin["counts"]["attention_launches"],
-                             DP_PATH: dp["counts"]["attention_launches"]},
+                             DP_PATH: dp["counts"]["attention_launches"],
+                             GSPMD_PATH: gspmd["counts"]["attention_launches"]},
         "launches_d32": twin["counts"]["attention_fma_launches"],
         "max_abs_err": main_case["max_abs_err"],
         "max_err_bf16": main_case["max_abs_err"],
@@ -3138,14 +3357,16 @@ def main() -> int:
                      + hyb_counts["attention_bwd_launches"] + vlm_counts["attention_bwd_launches"]
                      + au_counts["attention_bwd_launches"]
                      + twin["counts"]["attention_bwd_launches"]
-                     + dp["counts"]["attention_bwd_launches"]),
+                     + dp["counts"]["attention_bwd_launches"]
+                     + gspmd["counts"]["attention_bwd_launches"]),
         "launches_by_path": {f"{TRAIN_ARCH} train, {TRAIN_STEPS} steps": train_bwd,
                              moe_path: moe_counts["attention_bwd_launches"],
                              hyb_path: hyb_counts["attention_bwd_launches"],
                              vlm_path: vlm_counts["attention_bwd_launches"],
                              au_path: au_counts["attention_bwd_launches"],
                              TWIN_PATH: twin["counts"]["attention_bwd_launches"],
-                             DP_PATH: dp["counts"]["attention_bwd_launches"]},
+                             DP_PATH: dp["counts"]["attention_bwd_launches"],
+                             GSPMD_PATH: gspmd["counts"]["attention_bwd_launches"]},
         "launches_d32": twin["counts"]["attention_bwd_fma_launches"],
         "launches_per_step": trained["launches_per_step"]["attention_bwd_launches"],
         "launches_per_step_d256": hyb_trained["launches_per_step"]["attention_bwd_launches"],

@@ -7,6 +7,12 @@ moved into place with one ``os.replace``.  Trees are dicts of tensors
 (``named_parameters()`` names, and the optimizer's name -> tensor maps);
 keys are their paths joined by ``/``.  bf16, which numpy cannot store, is
 kept as a ``uint16`` view under ``<key>::bfloat16``.
+
+Leaves may be DTensors (``train.steps.jit_train_step``): a checkpoint holds
+global tensors, each DTensor's ``full_tensor()``, written by rank 0 while
+the other ranks wait at a barrier, so one file serves every mesh.  The
+loader places each leaf into the layout it is given, whatever the mesh it
+was saved on (the reference's elastic restore).
 """
 
 from __future__ import annotations
@@ -19,20 +25,35 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from ..parallel.sharding import shard
 
 # numpy cannot store bfloat16: it is kept as a uint16 bit view under the
 # key with this tag appended.
 _BF16_TAG = "::bfloat16"
 
 
-def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _flatten(tree, prefix: str = "", keep: bool = True) -> dict[str, np.ndarray]:
+    """The leaves as numpy arrays by key; a DTensor's whole tensor, which
+    every rank gathers (a collective) and only a rank that ``keep``\\ s it holds."""
     flat = {}
     for name, leaf in tree.items():
         key = f"{prefix}{name}"
         if isinstance(leaf, dict):
-            flat.update(_flatten(leaf, key + "/"))
+            flat.update(_flatten(leaf, key + "/", keep))
             continue
-        t = leaf.detach().cpu()
+        t = leaf.detach()
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
+        if not keep:
+            continue
+        t = t.cpu()
         if t.dtype == torch.bfloat16:
             flat[key + _BF16_TAG] = t.view(torch.int16).numpy().view(np.uint16)
         else:
@@ -40,14 +61,17 @@ def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
     return flat
 
 
-def _unflatten_like(spec_tree, flat: dict[str, torch.Tensor], device, prefix: str = ""):
+def _unflatten_like(spec_tree, flat: dict[str, torch.Tensor], device, layouts=None,
+                    prefix: str = ""):
     """``spec_tree``'s structure with each leaf read from ``flat`` in the
-    spec leaf's dtype, on ``device`` (else the spec leaf's device)."""
+    spec leaf's dtype, on ``device`` (else the spec leaf's device), and
+    placed into its entry of ``layouts`` (a tree of ``Layout``), where given."""
     out = {}
     for name, spec in spec_tree.items():
         key = f"{prefix}{name}"
         if isinstance(spec, dict):
-            out[name] = _unflatten_like(spec, flat, device, key + "/")
+            out[name] = _unflatten_like(spec, flat, device,
+                                        None if layouts is None else layouts[name], key + "/")
             continue
         arr = flat[key]
         if tuple(arr.shape) != tuple(spec.shape):
@@ -55,6 +79,8 @@ def _unflatten_like(spec_tree, flat: dict[str, torch.Tensor], device, prefix: st
                 f"checkpoint leaf {key}: shape {arr.shape} != expected {tuple(spec.shape)}"
             )
         out[name] = arr.to(device=device or spec.device, dtype=spec.dtype)
+        if layouts is not None:
+            out[name] = shard(out[name], layouts[name])
     return out
 
 
@@ -73,18 +99,32 @@ def _read(path: str) -> dict[str, torch.Tensor]:
 
 def save_checkpoint(ckpt_dir: str, step: int, params, opt_state=None,
                     extra: dict | None = None) -> str:
-    """Atomic write: stage into a tmp dir, then rename to step-NNNNNNNN."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Atomic write: stage into a tmp dir, then rename to step-NNNNNNNN.
+    Under a process group every rank calls it (the DTensors' gathers are
+    collectives), rank 0 writes, and all leave together after a barrier."""
     final = os.path.join(ckpt_dir, f"step-{step:08d}")
+    writer = _rank() == 0
+    flat_params = _flatten(params, keep=writer)
+    flat_state = None if opt_state is None else _flatten(opt_state, keep=writer)
+    if writer:
+        _write(ckpt_dir, final, step, flat_params, flat_state, extra)
+    if dist.is_initialized():
+        dist.barrier()
+    return final
+
+
+def _write(ckpt_dir: str, final: str, step: int, flat_params: dict, flat_state,
+           extra: dict | None) -> None:
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix=".staging-", dir=ckpt_dir)
     try:
-        np.savez(os.path.join(tmp, "params.npz"), **_flatten(params))
-        if opt_state is not None:
-            np.savez(os.path.join(tmp, "opt_state.npz"), **_flatten(opt_state))
+        np.savez(os.path.join(tmp, "params.npz"), **flat_params)
+        if flat_state is not None:
+            np.savez(os.path.join(tmp, "opt_state.npz"), **flat_state)
         manifest = {
             "step": step,
             "time": time.time(),
-            "has_opt_state": opt_state is not None,
+            "has_opt_state": flat_state is not None,
             **(extra or {}),
         }
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
@@ -95,7 +135,6 @@ def save_checkpoint(ckpt_dir: str, step: int, params, opt_state=None,
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
-    return final
 
 
 def available_steps(ckpt_dir: str) -> list[int]:
@@ -116,11 +155,14 @@ def latest_step(ckpt_dir: str) -> int | None:
 
 
 def load_checkpoint(ckpt_dir: str, param_specs, opt_specs=None, step: int | None = None,
-                    device=None):
+                    device=None, param_layouts=None, opt_layouts=None):
     """Loads step ``step`` (default the latest) -> (step, params, opt_state,
     manifest).  The specs are trees of tensors shaped like what was saved;
     each loaded leaf takes its spec's dtype and lies on ``device`` (default:
-    the spec leaf's).  A leaf whose shape differs raises ``ValueError``."""
+    the spec leaf's), placed as a DTensor into its ``param_layouts`` /
+    ``opt_layouts`` entry (trees of ``parallel.sharding.Layout``) where
+    given: a checkpoint saved on one mesh resumes on another.  A leaf whose
+    shape differs raises ``ValueError``."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -128,10 +170,12 @@ def load_checkpoint(ckpt_dir: str, param_specs, opt_specs=None, step: int | None
     d = os.path.join(ckpt_dir, f"step-{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
-    params = _unflatten_like(param_specs, _read(os.path.join(d, "params.npz")), device)
+    params = _unflatten_like(param_specs, _read(os.path.join(d, "params.npz")), device,
+                             param_layouts)
     opt_state = None
     if opt_specs is not None and manifest.get("has_opt_state"):
-        opt_state = _unflatten_like(opt_specs, _read(os.path.join(d, "opt_state.npz")), device)
+        opt_state = _unflatten_like(opt_specs, _read(os.path.join(d, "opt_state.npz")), device,
+                                    opt_layouts)
     return step, params, opt_state, manifest
 
 

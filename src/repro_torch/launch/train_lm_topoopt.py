@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import os
 import time
 
 import torch
@@ -42,33 +41,10 @@ from repro_torch.core import topology_finder
 from repro_torch.core.demand import data_parallel_demand
 from repro_torch.core.device_order import topoopt_mesh
 from repro_torch.data.pipeline import DataSpec, batch_for_step
+from repro_torch.launch.mesh import init_world
 from repro_torch.models import lm
 from repro_torch.optim import adamw, cosine
 from repro_torch.train.steps import make_shardmap_dp_train_step
-
-
-def _init_world(device: torch.device) -> int:
-    """Joins the process group ``torch.distributed.run`` describes in the
-    environment (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``), with NCCL for a
-    CUDA ``device`` and gloo for the CPU, and returns the world size; 1,
-    with no process group, where that environment is absent.  On CUDA each
-    rank takes card ``LOCAL_RANK``: NCCL does not put two ranks on one card,
-    so more ranks than cards raise."""
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if world == 1 or dist.is_initialized():
-        return dist.get_world_size() if dist.is_initialized() else 1
-    if device.type == "cuda":
-        local = int(os.environ["LOCAL_RANK"])
-        if local >= torch.cuda.device_count():
-            raise RuntimeError(f"local rank {local} has no card of its own "
-                               f"({torch.cuda.device_count()} cards): NCCL takes one rank a card")
-        torch.cuda.set_device(local)
-        dist.init_process_group("nccl")
-    elif device.type == "cpu":
-        dist.init_process_group("gloo")
-    else:
-        raise ValueError(f"no process-group backend for device {device}")
-    return dist.get_world_size()
 
 
 @torch.no_grad()
@@ -94,7 +70,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    n_dev = _init_world(device)
+    n_dev = init_world(device)
     rank = dist.get_rank() if dist.is_initialized() else 0
     if device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
@@ -143,7 +119,7 @@ def main(argv=None) -> None:
             value = float(loss)  # waits for the step
             dt = (time.perf_counter() - t0) / max(step - start, 1)
             say(f"step {step:4d} loss {value:.4f} ({dt*1e3:.0f} ms/step)")
-        if args.ckpt_dir and (step + 1) % 50 == 0 and rank == 0:
+        if args.ckpt_dir and (step + 1) % 50 == 0:  # rank 0 writes, every rank waits
             save_checkpoint(args.ckpt_dir, step + 1, params, state)
     if loss is not None:
         say(f"final loss: {float(loss):.4f}")

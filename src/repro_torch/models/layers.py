@@ -19,11 +19,23 @@ from torch import nn
 from ..configs.base import torch_dtype
 from ..kernels import ops
 from ..kernels.ref import NEG_INF
+from ..parallel.act_sharding import gather_batch
 from ..parallel.options import get_options
 
 
+def generator(seed: int, device: torch.device):
+    """The weights' ``torch.Generator`` on ``device``; None on ``meta``, where
+    nothing is drawn (shapes only: ``models.lm.param_specs``)."""
+    if device.type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def truncated_normal_(t, gen, scale):
-    """Fills ``t`` in place: standard normal truncated to [-2, 2], times ``scale``."""
+    """Fills ``t`` in place: standard normal truncated to [-2, 2], times
+    ``scale``; a ``meta`` tensor has no values and is left as it is."""
+    if t.is_meta:
+        return t
     nn.init.trunc_normal_(t, a=-2.0, b=2.0, generator=gen)
     return t.mul_(scale)
 
@@ -235,7 +247,14 @@ def moe(p, x, cfg):
     matmuls through ``ops.grouped_matmul``, then gather and weighted combine.
     Nothing here waits on the device: counts are a ``scatter_add_``, drops
     are masked rather than indexed out.  Returns (out (B, S, D), aux_loss).
+
+    Capacity, drops and the aux loss are functions of the global batch:
+    under a policy whose data axes span several ranks
+    (``parallel.act_sharding.gather_batch``) the layer routes the rows of
+    every data rank, as one device routes the global batch, and returns its
+    own rows.
     """
+    x, rows = gather_batch(x)
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     N = B * S
@@ -286,7 +305,7 @@ def moe(p, x, cfg):
     # in fp32 only by the order of K additions.
     per_token = torch.empty_like(gathered).index_copy_(0, order, gathered)
     out = per_token.reshape(N, K, D).sum(dim=1)
-    return out.reshape(B, S, D), aux
+    return out.reshape(B, S, D)[rows], aux
 
 
 # ---------------------------------------------------------------------------

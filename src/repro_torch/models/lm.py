@@ -20,15 +20,30 @@ from ..configs.base import ArchConfig
 from . import recurrent, transformer
 
 
-def init(seed: int, cfg: ArchConfig, device: str | torch.device | None = None):
-    """Random weights drawn directly on ``device`` (the card by default)."""
+def init(seed: int, cfg: ArchConfig, device: str | torch.device | None = None, place=None):
+    """Random weights drawn directly on ``device`` (the card by default).
+
+    ``place(module, prefix) -> module``, where given, is called on each block
+    as soon as it is built (``prefix`` its parameters' name prefix, e.g.
+    ``"blocks.3."``) and on the model for the parameters outside the blocks
+    (prefix ``""``): ``parallel.sharding.placer`` shards them there, so no
+    rank holds more than a block unsharded.  The weights are those of
+    ``init(seed, cfg, device)``."""
     transformer.require_ported(cfg)
     device = resolve_device(device)
     if cfg.family == "ssm":
-        return recurrent.MambaLM(cfg, seed, device)
+        return recurrent.MambaLM(cfg, seed, device, place)
     if cfg.family == "hybrid":
-        return recurrent.GriffinLM(cfg, seed, device)
-    return transformer.Transformer(cfg, seed, device)
+        return recurrent.GriffinLM(cfg, seed, device, place)
+    return transformer.Transformer(cfg, seed, device, place)
+
+
+def param_specs(cfg: ArchConfig) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+    """Each parameter's ``(shape, dtype)`` by name, without allocating (for
+    the sharding plan and the dry-run): the model is built on the ``meta``
+    device, where nothing is drawn."""
+    model = init(0, cfg, device="meta")
+    return {n: (tuple(p.shape), p.dtype) for n, p in model.named_parameters()}
 
 
 def forward(params, batch, cfg: ArchConfig):

@@ -25,14 +25,14 @@ from torch import nn
 
 from ..configs.base import ArchConfig, cache_specs, torch_dtype
 from . import layers as L
-from .transformer import _remat
+from .transformer import _remat, as_built
 
 
 class _LM(nn.Module):
     """Embedding, final norm and a separate ``lm_head``, as both reference
     inits have; subclasses add the layers."""
 
-    def __init__(self, cfg: ArchConfig, gen, device):
+    def __init__(self, cfg: ArchConfig, gen, device, place):
         super().__init__()
         self.cfg = cfg
         dt = torch_dtype(cfg.param_dtype)
@@ -41,6 +41,7 @@ class _LM(nn.Module):
         )
         self.final_norm = L.parameter(torch.zeros(cfg.d_model, dtype=dt, device=device))
         self.lm_head = L.parameter(L.dense_init(gen, cfg.d_model, cfg.vocab, dt, device))
+        place(self, "")
 
     def head(self) -> torch.Tensor:
         return self.lm_head
@@ -63,12 +64,15 @@ def _zero_cache(cfg, batch, seq_len, device):
 
 
 class MambaLM(_LM):
-    """``init_mamba_params``: ``blocks`` is one ``layers.Mamba`` per layer."""
+    """``init_mamba_params``: ``blocks`` is one ``layers.Mamba`` per layer;
+    ``place`` as in ``transformer.Transformer``."""
 
-    def __init__(self, cfg: ArchConfig, seed: int, device: torch.device):
-        gen = torch.Generator(device=device).manual_seed(seed)
-        super().__init__(cfg, gen, device)
-        self.blocks = nn.ModuleList(L.Mamba(cfg, gen, device) for _ in range(cfg.n_layers))
+    def __init__(self, cfg: ArchConfig, seed: int, device: torch.device, place=None):
+        place = place or as_built
+        gen = L.generator(seed, device)
+        super().__init__(cfg, gen, device, place)
+        self.blocks = nn.ModuleList(place(L.Mamba(cfg, gen, device), f"blocks.{i}.")
+                                    for i in range(cfg.n_layers))
 
 
 def _mamba_layer(blk, x, cfg):
@@ -151,15 +155,13 @@ class GriffinLM(_LM):
     ``n_layers // 3`` blocks, two ``RecLayer``s and an ``AttnLayer``, then
     one ``RecLayer`` for each entry of ``tail_pattern``, in that order."""
 
-    def __init__(self, cfg: ArchConfig, seed: int, device: torch.device):
-        gen = torch.Generator(device=device).manual_seed(seed)
-        super().__init__(cfg, gen, device)
-        layers = []
-        for _ in range(n_blocks(cfg)):
-            layers += [RecLayer(cfg, gen, device), RecLayer(cfg, gen, device),
-                       AttnLayer(cfg, gen, device)]
-        layers += [RecLayer(cfg, gen, device) for _ in cfg.tail_pattern]
-        self.layers = nn.ModuleList(layers)
+    def __init__(self, cfg: ArchConfig, seed: int, device: torch.device, place=None):
+        place = place or as_built
+        gen = L.generator(seed, device)
+        super().__init__(cfg, gen, device, place)
+        kinds = [RecLayer, RecLayer, AttnLayer] * n_blocks(cfg) + [RecLayer] * len(cfg.tail_pattern)
+        self.layers = nn.ModuleList(place(kind(cfg, gen, device), f"layers.{j}.")
+                                    for j, kind in enumerate(kinds))
 
 
 def n_blocks(cfg: ArchConfig) -> int:

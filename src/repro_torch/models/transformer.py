@@ -83,22 +83,28 @@ class Transformer(nn.Module):
     Weights are drawn on ``device`` from a ``torch.Generator`` seeded with
     ``seed``; the same seed gives other numbers than ``jax.random`` does,
     so tests copy the reference's weights in with ``weights.params_from_jax``.
+    ``place(module, prefix)`` (see :func:`models.lm.init`) is called on the
+    embedding as soon as it is drawn, on each block as soon as it is built,
+    and on the model at the end.
     """
 
-    def __init__(self, cfg: ArchConfig, seed: int, device: torch.device):
+    def __init__(self, cfg: ArchConfig, seed: int, device: torch.device, place=None):
         super().__init__()
         require_ported(cfg)
         self.cfg = cfg
+        place = place or as_built
         dt = torch_dtype(cfg.param_dtype)
-        gen = torch.Generator(device=device).manual_seed(seed)
+        gen = L.generator(seed, device)
         if cfg.family == "audio":
             self.register_parameter("embed", None)
         else:
             self.embed = L.parameter(
                 L.truncated_normal(gen, (cfg.vocab, cfg.d_model), 0.02, dt, device)
             )
+            place(self, "")
         self.blocks = nn.ModuleList(
-            (CrossBlock if is_cross_layer(cfg, i) else Block)(cfg, gen, device)
+            place((CrossBlock if is_cross_layer(cfg, i) else Block)(cfg, gen, device),
+                  f"blocks.{i}.")
             for i in range(cfg.n_layers)
         )
         self.final_norm = L.parameter(torch.zeros(cfg.d_model, dtype=dt, device=device))
@@ -106,9 +112,18 @@ class Transformer(nn.Module):
             self.register_parameter("lm_head", None)
         else:
             self.lm_head = L.parameter(L.dense_init(gen, cfg.d_model, cfg.vocab, dt, device))
+        place(self, "")
 
     def head(self) -> torch.Tensor:
-        return self.embed.T if self.lm_head is None else self.lm_head
+        # The config, not ``lm_head``, says which: reading a placed
+        # parameter gathers it.
+        return self.embed.T if self.cfg.tie_embeddings else self.lm_head
+
+
+def as_built(module, prefix: str):
+    """The default ``place`` hook of the models' constructors: the module as
+    it was built, on its device."""
+    return module
 
 
 def _self_block_apply(blk, x, cfg, positions):

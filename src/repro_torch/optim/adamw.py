@@ -11,6 +11,11 @@ than ``SLICE_ELEMENTS`` elements (DLRM's tables: 2.56e9 at 2 tables) slice
 by slice along dim 0 of its flattened view, so those temporaries stay near
 1 GB; every element sees the same arithmetic, so the result is bitwise the
 whole leaf's.  It returns ``(params, state)``, the same objects.
+
+Parameters may be DTensors (``train.steps.jit_train_step``): ``init`` makes
+each state tensor in its parameter's placements (``zeros_like``), and
+AdamW's ``update`` runs on the ``to_local()`` shards of the parameter, its
+gradient, moments and master, which must share placements.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 
 # AdamW's largest slice of a leaf: 2**28 fp32 elements, 1.07 GB a temporary.
@@ -27,6 +33,11 @@ SLICE_ELEMENTS = 2**28
 class Optimizer(NamedTuple):
     init: Callable  # (params) -> state
     update: Callable  # (grads, state, params, step) -> (params, state), in place
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (a view: writes reach the DTensor), else ``t``."""
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def _needs_master(p) -> bool:
@@ -44,10 +55,8 @@ def adamw(
     @torch.no_grad()
     def init(params):
         state = {
-            "m": {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                  for n, p in params.items()},
-            "v": {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                  for n, p in params.items()},
+            "m": {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()},
+            "v": {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()},
         }
         if master_fp32:
             state["master"] = {n: p.detach().float() if _needs_master(p) else p.detach()
@@ -76,10 +85,12 @@ def adamw(
             # The master (the parameter itself where it is fp32) updates in
             # place; a bf16/fp16 parameter without one goes through an fp32 copy.
             src = state["master"][name] if "master" in state else p.detach()
-            leaf = (grads[name], state["m"][name], state["v"][name], src, p.detach())
-            if p.numel() > SLICE_ELEMENTS:
+            leaf = tuple(_local(x) for x in
+                         (grads[name], state["m"][name], state["v"][name], src, p.detach()))
+            n = leaf[-1].numel()
+            if n > SLICE_ELEMENTS:
                 flat = [leaf[0].reshape(-1)] + [x.view(-1) for x in leaf[1:]]
-                for i in range(0, p.numel(), SLICE_ELEMENTS):
+                for i in range(0, n, SLICE_ELEMENTS):
                     update_leaf(lr, c1, c2, *(x[i:i + SLICE_ELEMENTS] for x in flat))
             else:
                 update_leaf(lr, c1, c2, *leaf)
@@ -91,8 +102,7 @@ def adamw(
 def sgd_momentum(lr_fn: Callable[[int], float], momentum: float = 0.9) -> Optimizer:
     @torch.no_grad()
     def init(params):
-        return {"mom": {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                        for n, p in params.items()}}
+        return {"mom": {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()}}
 
     @torch.no_grad()
     def update(grads, state, params, step):

@@ -3,8 +3,11 @@
 Set process-globally before a model runs.  The fields and defaults are the
 reference's (``repro.parallel.options``).  In the port both attention impls
 run the hand-written flash-attention kernel on the card: the kernel already
-is the chunked online-softmax path.  Activation-sharding constraints have
-no counterpart yet (they do nothing without a mesh).
+is the chunked online-softmax path.  ``moe_constrain`` and
+``moe_gather_constrain`` are read by no model yet: they name
+``parallel.act_sharding.constrain`` calls, which the models make once
+compute is split over ``"model"`` (ROADMAP.md); the GSPMD trainer's
+activations are plain local tensors, where a constraint is the identity.
 """
 
 from __future__ import annotations

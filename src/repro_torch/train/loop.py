@@ -1,5 +1,4 @@
-"""Fault-tolerant training loop on one device (``repro.train.loop``'s
-counterpart).
+"""Fault-tolerant training loop (``repro.train.loop``'s counterpart).
 
 - checkpoint every N steps (atomic), resume from the latest on start;
 - deterministic stateless data pipeline (restart-safe): the loop checks
@@ -8,8 +7,13 @@ counterpart).
   steps are counted and logged;
 - failure injection (``fail_at``) for tests, proving restart works.
 
-The ``plan`` and ``mesh`` arguments of the reference come with ROADMAP.md
-queue 1 item 1.7 (sharding); this loop runs on one device.
+It trains through ``train.steps.jit_train_step`` on a sharding plan and a
+mesh: by default ``ShardingPlan(fsdp=False)`` on a ``("data",)`` mesh over
+every rank of the process group (one rank, joined here, where there is
+none).  The model is drawn from the seed block by block, each block placed
+into its layout before the next is drawn; every rank reads the same global
+batch and computes on its own rows; rank 0 logs and writes the checkpoints,
+which hold global tensors, so a run resumes on another mesh.
 """
 
 from __future__ import annotations
@@ -19,14 +23,18 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..checkpoint.ckpt import latest_step, load_checkpoint, prune_checkpoints, save_checkpoint
 from ..compat import resolve_device
 from ..configs.base import ArchConfig, ShapeSpec
+from ..core.device_order import Mesh
 from ..data.pipeline import DataSpec, Prefetcher
+from ..launch.mesh import one_rank_world
 from ..models import lm
 from ..optim import Optimizer
-from .steps import make_train_step
+from ..parallel.sharding import ShardingPlan, parameters, placer
+from .steps import init_opt_state, jit_train_step
 
 
 class InjectedFailure(RuntimeError):
@@ -58,6 +66,9 @@ def train(
     cfg: ArchConfig,
     shape: ShapeSpec,
     optimizer: Optimizer,
+    plan: ShardingPlan | None = None,
+    mesh: Mesh | None = None,
+    *,
     total_steps: int,
     ckpt_dir: str | None = None,
     ckpt_every: int = 50,
@@ -66,22 +77,41 @@ def train(
     straggler_factor: float = 3.0,
     log_every: int = 10,
     logger=print,
-    remat: str = "full",
-    loss_chunk: int = 0,
     device=None,
 ) -> TrainResult:
-    """Trains ``lm.init(seed, cfg)`` on ``device`` (the card unless given
-    ``"cpu"``) from the latest checkpoint in ``ckpt_dir``, if any, to
-    ``total_steps``."""
+    """Trains ``lm.init(seed, cfg)`` laid out by ``plan`` (which also
+    carries ``remat`` and ``loss_chunk``) on ``mesh``, the module
+    docstring's defaults where None, on ``device`` (the card unless given
+    ``"cpu"``), from the latest checkpoint in ``ckpt_dir``, if any, to
+    ``total_steps``.  Every rank of the process group calls it."""
     device = resolve_device(device)
-    step_fn = make_train_step(cfg, optimizer, remat=remat, loss_chunk=loss_chunk)
-    model = lm.init(seed, cfg, device=device)
-    params = dict(model.named_parameters())
-    opt_state = optimizer.init(params)
+    made_world = one_rank_world(device)
+    try:
+        if mesh is None:
+            mesh = Mesh(np.arange(dist.get_world_size()), ("data",))
+        if plan is None:
+            plan = ShardingPlan(fsdp=False)
+        return _train(cfg, shape, optimizer, plan, mesh, total_steps, ckpt_dir, ckpt_every,
+                      seed, fail_at, straggler_factor, log_every, logger, device)
+    finally:
+        if made_world:
+            dist.destroy_process_group()
+
+
+def _train(cfg, shape, optimizer, plan, mesh, total_steps, ckpt_dir, ckpt_every, seed,
+           fail_at, straggler_factor, log_every, logger, device) -> TrainResult:
+    rank = dist.get_rank()
+    if rank != 0:
+        logger = _quiet
+    step_fn, (_, _, p_layouts, o_layouts, _) = jit_train_step(cfg, optimizer, plan, mesh, device)
+    model = lm.init(seed, cfg, device=device, place=placer(p_layouts))
+    params = parameters(model)
+    opt_state = init_opt_state(optimizer, model, o_layouts)
 
     start_step = 0
     if ckpt_dir and latest_step(ckpt_dir) is not None:
-        start_step, p, o, _ = load_checkpoint(ckpt_dir, params, opt_state, device=device)
+        start_step, p, o, _ = load_checkpoint(ckpt_dir, params, opt_state, device=device,
+                                              param_layouts=p_layouts, opt_layouts=o_layouts)
         _restore(params, p)
         if o is not None:
             _restore(opt_state, o)
@@ -116,7 +146,8 @@ def train(
 
             if ckpt_dir and step % ckpt_every == 0:
                 save_checkpoint(ckpt_dir, step, params, opt_state)
-                prune_checkpoints(ckpt_dir, keep=3)
+                if rank == 0:
+                    prune_checkpoints(ckpt_dir, keep=3)
 
             if fail_at is not None and step == fail_at:
                 raise InjectedFailure(f"injected failure at step {step}")
@@ -126,3 +157,7 @@ def train(
     if ckpt_dir:
         save_checkpoint(ckpt_dir, result.final_step, params, opt_state)
     return result
+
+
+def _quiet(*args, **kwargs) -> None:
+    pass

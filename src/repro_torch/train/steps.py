@@ -9,30 +9,66 @@
   (:mod:`repro_torch.core.collectives`), optionally int8-compressed.  Every
   rank of the mesh axis runs it on the same global batch and keeps the rows
   of its own mesh position.
+* :func:`jit_train_step`: the GSPMD/FSDP trainer.  The reference writes the
+  step in global terms and lets GSPMD insert the collectives its sharding
+  plan implies; the port writes them out with DTensor:
 
-The GSPMD trainer (the reference's ``jit_train_step`` with its sharding
-plan) comes with ROADMAP.md queue 1 item 1.7.
+  - every parameter is a DTensor in its spec's placements
+    (``parallel.sharding``), gathered whole where the model reads it and
+    its gradient averaged back into those placements (a reduce-scatter over
+    a sharded dim): the kernels see plain tensors;
+  - the batch is split over the data axes only: each rank computes the
+    loss of its own contiguous rows, and the average over the data ranks of
+    those equal shards' means is the global mean (every row of every
+    family masks the same number of tokens).  The MoE layer, whose capacity,
+    drops and aux loss depend on the global batch, gathers the rows of
+    every data rank (``parallel.act_sharding.gather_batch``);
+  - the ``"model"`` axis shards the parameters' storage only: compute is
+    replicated over it.  Tensor- and sequence-parallel compute is a later
+    slice (ROADMAP.md), so ``plan.seq_parallel`` changes the batch spec tree
+    and the policy, not the numbers;
+  - AdamW updates each rank's shards in place; under ZeRO-1 (moments and
+    master sharded, parameters replicated) each rank updates the slice its
+    moments own, then the parameter is all-gathered.
+
+  At world size 1 it joins a process group of one rank and runs the same
+  path, and equals :func:`make_train_step` to the bit.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..configs.base import ArchConfig
+from ..compat import resolve_device
+from ..configs.base import ArchConfig, ShapeSpec, input_specs
 from ..core.collectives import psum, topoopt_psum_fn
+from ..launch.mesh import one_rank_world
 from ..models import lm
 from ..optim import Optimizer
+from ..parallel.act_sharding import ActivationPolicy, set_policy, using_policy
+from ..parallel.sharding import (
+    ShardingPlan,
+    batch_spec_tree,
+    data_axes,
+    data_position,
+    device_mesh,
+    layouts,
+    opt_state_sharding,
+    param_spec_tree,
+    parameters,
+)
 from ..weights import jax_leaf_groups
 
 
 def loss_and_grads(model, batch, cfg: ArchConfig, remat: str = "full", loss_chunk: int = 0):
     """-> (loss, metrics, params, grads): the loss (0-d, detached), the loss
-    function's metrics, ``named_parameters()`` as a dict, and each
+    function's metrics, the parameters by name (``parallel.sharding.parameters``:
+    a placed model's DTensors under their plain names), and each
     parameter's gradient by name.  Makes the parameters trainable
     (``requires_grad_``); a parameter the loss does not read gets a zero
     gradient, as ``jax.grad`` gives it."""
     model.requires_grad_(True)
-    params = dict(model.named_parameters())
+    params = parameters(model)
     with torch.enable_grad():
         total, metrics = lm.loss_fn(model, batch, cfg, remat=remat, loss_chunk=loss_chunk)
         grads = torch.autograd.grad(total, list(params.values()), allow_unused=True)
@@ -58,6 +94,169 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, remat: str = "full",
         return model, opt_state, metrics
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# The GSPMD/FSDP trainer: a sharding plan on a mesh, through DTensor
+# ---------------------------------------------------------------------------
+
+
+def activation_policy(plan: ShardingPlan, mesh) -> ActivationPolicy:
+    """The plan's activation policy: batch over the data axes (see
+    ``parallel.act_sharding``)."""
+    return ActivationPolicy(
+        dp=plan.dp_axes(mesh),
+        tp="model" if "model" in mesh.axis_names else None,
+        seq="model" if plan.seq_parallel else None,
+        mesh=mesh,
+    )
+
+
+def install_activation_policy(plan: ShardingPlan, mesh) -> ActivationPolicy:
+    """Installs :func:`activation_policy` for the whole process, as the
+    reference's does, and returns it.  :func:`jit_train_step` does not call
+    it: its step installs the policy for its own duration only, so no MoE
+    layer run later in the process gathers over this mesh."""
+    policy = activation_policy(plan, mesh)
+    set_policy(policy)
+    return policy
+
+
+def make_serve_step(cfg: ArchConfig, shape: ShapeSpec):
+    """``serve_step(params, batch)``: ``lm.prefill`` for a prefill cell, else
+    ``lm.decode_step``."""
+    if shape.kind == "prefill":
+        def serve_step(params, batch):
+            return lm.prefill(params, batch, cfg)
+        return serve_step
+
+    def serve_step(params, batch):
+        return lm.decode_step(params, batch, cfg)
+
+    return serve_step
+
+
+def shapes_of(tree: dict) -> dict:
+    """A dict tree of tensors -> the same tree of ``(shape, dtype)`` pairs."""
+    return {k: shapes_of(v) if isinstance(v, dict) else (tuple(v.shape), v.dtype)
+            for k, v in tree.items()}
+
+
+def _state_layouts(o_layouts: dict) -> dict:
+    """name -> the Layout every optimizer-state tensor of that parameter has."""
+    return next(iter(o_layouts.values()))
+
+
+def init_opt_state(optimizer: Optimizer, model, o_layouts: dict) -> dict:
+    """``optimizer.init`` of a placed model's parameters, each state tensor in
+    its ``o_layouts`` placements: the parameters' own, or under ZeRO-1 the
+    moments' (the parameter is sliced, and the slice copied, into them)."""
+    want = _state_layouts(o_layouts)
+    with torch.no_grad():
+        views = {n: p.detach() if p.placements == want[n].placements
+                 else p.detach().redistribute(want[n].mesh, want[n].placements).clone()
+                 for n, p in parameters(model).items()}
+    return optimizer.init(views)
+
+
+def jit_train_step(cfg: ArchConfig, optimizer: Optimizer, plan: ShardingPlan, mesh,
+                   device=None):
+    """The train step with the plan's layouts on ``mesh`` (the port's
+    :class:`~repro_torch.core.device_order.Mesh` over the process group).
+
+    Returns ``(step, (p_specs, o_specs, p_layouts, o_layouts, batch_fn))``
+    in the reference's order: the parameters' and the optimizer state's
+    ``(shape, dtype)`` trees, their :class:`~repro_torch.parallel.sharding.Layout`
+    trees (the reference's shardings) and ``batch_fn(shape)``, a cell's
+    batch layouts.  Build the model with ``lm.init(seed, cfg, device,
+    place=parallel.sharding.placer(p_layouts))`` (or :func:`place` a built
+    one) and its state with :func:`init_opt_state`.
+
+    ``step(model, opt_state, batch, step_idx) -> (model, opt_state,
+    metrics)`` takes the global batch (every rank the same, on ``device``)
+    and computes on this rank's rows of it; ``metrics`` (``loss``,
+    ``xent``, ``aux``, ``grad_norm``) are the global batch's.  ``device``:
+    the card unless ``"cpu"``; without a process group the step joins one
+    of one rank (NCCL on the card, gloo on the CPU).
+    """
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    device = resolve_device(device)
+    one_rank_world(device)
+    policy = activation_policy(plan, mesh)
+    p_specs = lm.param_specs(cfg)
+    o_specs = shapes_of(optimizer.init(
+        {n: torch.empty(shape, dtype=dt, device="meta") for n, (shape, dt) in p_specs.items()}))
+    dmesh = device_mesh(mesh, device)
+    p_layouts = layouts(param_spec_tree(p_specs, plan, mesh), dmesh)
+    o_layouts = layouts(opt_state_sharding(o_specs, plan, mesh), dmesh)
+    state_layouts = _state_layouts(o_layouts)
+    # A list: every rank must run the gathers below in the same order.
+    zero1 = [n for n, lay in p_layouts.items() if lay.placements != state_layouts[n].placements]
+    dp_names = data_axes(plan, mesh)
+    pos, n_dp = data_position(mesh, dp_names)
+    mean_over_dp = [Partial("avg") if a in dp_names else Replicate() for a in mesh.axis_names]
+
+    def batch_fn(shape: ShapeSpec) -> dict:
+        return layouts(batch_spec_tree(input_specs(cfg, shape), cfg, plan, mesh), dmesh)
+
+    def grad_norm(grads: dict):
+        """The square root of the sum of squares of every gradient, summed
+        in ``grads``' order as make_train_step sums them.  Each local
+        shard's sum of squares is partial over the mesh dims its DTensor is
+        sharded on (not over a replica's dims, which would count it twice);
+        the sums with the same such dims are added over the ranks in one
+        all-reduce."""
+        sums = [(g.to_local().float() ** 2).sum() for g in grads.values()]
+        sharded = [tuple(isinstance(pl, Shard) for pl in g.placements) for g in grads.values()]
+        for dims in sorted(set(sharded)):  # sorted: every rank in the same order
+            at = [i for i, d in enumerate(sharded) if d == dims]
+            partial = [Partial("sum") if d else Replicate() for d in dims]
+            whole = DTensor.from_local(torch.stack([sums[i] for i in at]), dmesh, partial,
+                                       run_check=False).full_tensor()
+            for j, i in enumerate(at):
+                sums[i] = whole[j]
+        return torch.sqrt(sum(sums))
+
+    def global_mean(t):
+        """The mean over the data ranks of a 0-d tensor each computed."""
+        return DTensor.from_local(torch.as_tensor(t).detach().reshape(()), dmesh,
+                                  mean_over_dp, run_check=False).full_tensor()
+
+    def step(model, opt_state, batch, step_idx: int):
+        rows = {k: v.shape[0] for k, v in batch.items()}
+        if any(r % n_dp for r in rows.values()):
+            raise ValueError(f"global batch rows {rows} do not split over {n_dp} data ranks")
+        local = {k: v[pos * (v.shape[0] // n_dp):(pos + 1) * (v.shape[0] // n_dp)]
+                 for k, v in batch.items()}
+        with using_policy(policy):
+            total, metrics, params, grads = loss_and_grads(
+                model, local, cfg, remat=plan.remat, loss_chunk=plan.loss_chunk)
+        # The unplaced model's order (placing reorders a module's
+        # parameters), so the norm adds its terms in make_train_step's order.
+        params = {n: params[n] for n in p_specs}
+        grads = {n: grads[n] for n in p_specs}
+        gnorm = grad_norm(grads)
+        if zero1:
+            with torch.no_grad():
+                lay = state_layouts
+                views = {n: p.detach().redistribute(lay[n].mesh, lay[n].placements)
+                         if n in zero1 else p for n, p in params.items()}
+                grads = {n: g.redistribute(lay[n].mesh, lay[n].placements)
+                         if n in zero1 else g for n, g in grads.items()}
+            optimizer.update(grads, opt_state, views, step_idx)
+            with torch.no_grad():
+                for n in zero1:
+                    lay = p_layouts[n]
+                    whole = views[n].redistribute(lay.mesh, lay.placements)
+                    params[n].to_local().copy_(whole.to_local())
+        else:
+            optimizer.update(grads, opt_state, params, step_idx)
+        metrics = {k: global_mean(v) for k, v in metrics.items()}
+        metrics.update(loss=global_mean(total), grad_norm=gnorm)
+        return model, opt_state, metrics
+
+    return step, (p_specs, o_specs, p_layouts, o_layouts, batch_fn)
 
 
 def make_shardmap_dp_train_step(

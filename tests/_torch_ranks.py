@@ -217,8 +217,130 @@ def _dp_train(rank, inputs):
     return out
 
 
+# The GSPMD trainer's cases on a (2, 4) ("data", "model") mesh: name ->
+# (arch, ShardingPlan fields).  ZeRO-1 replicates the parameters
+# (fsdp=False) and shards the moments.
+GSPMD_VARIANTS = {
+    "fsdp": ("granite-8b", {"fsdp": True}),
+    "no_fsdp": ("granite-8b", {"fsdp": False}),
+    "zero1": ("granite-8b", {"fsdp": False, "zero1": True}),
+    "seq_parallel": ("granite-8b", {"fsdp": True, "seq_parallel": True}),
+    "moe": ("qwen3-moe-30b-a3b", {"fsdp": True}),
+    "ssm": ("falcon-mamba-7b", {"fsdp": True}),
+}
+# The smoke configs' changes, the same on both sides: fp32, and a capacity
+# of 1.0 for the MoE (the smoke config's 4.0 drops nothing), so its drops
+# depend on the global batch.
+GSPMD_CONFIGS = {
+    "granite-8b": {"param_dtype": "float32", "activation_dtype": "float32"},
+    "qwen3-moe-30b-a3b": {"param_dtype": "float32", "activation_dtype": "float32",
+                          "capacity_factor": 1.0},
+    "falcon-mamba-7b": {"param_dtype": "float32", "activation_dtype": "float32"},
+}
+GSPMD_LR, GSPMD_STEPS, GSPMD_SEQ, GSPMD_BATCH = 1e-3, 3, 32, 8
+
+
+def gspmd_config(arch: str):
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+
+    return dataclasses.replace(get_config(arch).smoke(), **GSPMD_CONFIGS[arch])
+
+
+def _gspmd_train(rank, inputs):
+    """Each of ``inputs["variants"]`` (names of GSPMD_VARIANTS; or
+    ``"moe_local"``: the MoE routing each rank's rows alone, as it would
+    without ``gather_batch``; or ``"reordered"``: "fsdp" on a (4, 2) mesh
+    whose data axis takes TotientPerms stride 3, ranks 0, 6, 4, 2 in data
+    order) from the JAX weights: losses and grad norms of 3 steps, every
+    parameter's and first moment's local shard shape, this rank's data
+    position, and on rank 0 the parameters whole."""
+    import torch
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.device_order import topoopt_mesh
+    from repro_torch.data.pipeline import DataSpec, batch_for_step
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import layers, lm
+    from repro_torch.optim import adamw, wsd
+    from repro_torch.parallel.sharding import ShardingPlan, parameters, place
+    from repro_torch.train.steps import init_opt_state, jit_train_step
+    from repro_torch.weights import params_from_jax
+
+    test_mesh = make_test_mesh((2, 4), ("data", "model"))
+    reordered = topoopt_mesh((4, 2), ("data", "model"), allreduce_axis="data", stride=3)
+    gather = layers.gather_batch
+    out = {"pos": {a: test_mesh.axis(a).index for a in test_mesh.axis_names}}
+    for name in inputs["variants"]:
+        arch, kw = GSPMD_VARIANTS[{"moe_local": "moe", "reordered": "fsdp"}.get(name, name)]
+        mesh = reordered if name == "reordered" else test_mesh
+        layers.gather_batch = (lambda x: (x, slice(None))) if name == "moe_local" else gather
+        cfg = gspmd_config(arch)
+        opt = adamw(wsd(GSPMD_LR, 10))
+        step, (_, _, p_layouts, o_layouts, _) = jit_train_step(cfg, opt, ShardingPlan(**kw),
+                                                               mesh, device="cpu")
+        model = lm.init(0, cfg, device="cpu")
+        model.load_state_dict(params_from_jax(inputs["params"][arch], cfg))
+        place(model, p_layouts)
+        state = init_opt_state(opt, model, o_layouts)
+        spec = DataSpec(cfg=cfg, shape=ShapeSpec("gspmd", GSPMD_SEQ, GSPMD_BATCH, "train"))
+        losses, norms = [], []
+        for s in range(GSPMD_STEPS):
+            batch = {k: torch.from_numpy(v) for k, v in batch_for_step(spec, s).items()}
+            _, _, metrics = step(model, state, batch, s)
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+        params = parameters(model)
+        whole = {n: p.detach().full_tensor().numpy() for n, p in params.items()}
+        out[name] = {
+            "losses": losses, "grad_norms": norms,
+            "local": {n: tuple(p.to_local().shape) for n, p in params.items()},
+            "local_m": {n: tuple(t.to_local().shape) for n, t in state["m"].items()},
+            "data_pos": mesh.axis("data").index,
+            "params": whole if rank == 0 else None,
+        }
+    layers.gather_batch = gather
+    return out
+
+
+def _gspmd_loop(rank, inputs):
+    """The training loop on a (2, 4) mesh under ``fsdp=True``: an
+    uninterrupted run, and a run failing at step 10 then resumed, with
+    checkpoints every 5 steps in ``inputs["dirs"]``; then the command line's
+    ``--mesh single`` at this world of 8."""
+    from repro_torch.checkpoint.ckpt import latest_step
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.optim import adamw, wsd
+    from repro_torch.parallel.sharding import ShardingPlan
+    from repro_torch.train.loop import InjectedFailure, train
+
+    cfg, shape = gspmd_config("granite-8b"), inputs["shape"]
+    mesh = make_test_mesh((2, 4), ("data", "model"))
+    run = dict(total_steps=12, ckpt_every=5, log_every=100, logger=lambda *a: None,
+               device="cpu")
+    opt = adamw(wsd(GSPMD_LR, 12))
+    plan = ShardingPlan(fsdp=True)
+    whole = train(cfg, shape, opt, plan, mesh, ckpt_dir=inputs["dirs"]["whole"], **run)
+    try:
+        train(cfg, shape, opt, plan, mesh, ckpt_dir=inputs["dirs"]["run"], fail_at=10, **run)
+        failed_at = None
+    except InjectedFailure:
+        failed_at = latest_step(inputs["dirs"]["run"])
+    resumed = train(cfg, shape, opt, plan, mesh, ckpt_dir=inputs["dirs"]["run"], **run)
+    try:
+        train_cli.main(["--arch", "granite-8b", "--smoke", "--device", "cpu", "--mesh", "single",
+                        "--steps", "1"])
+        single = None
+    except ValueError as e:
+        single = str(e)
+    return {"whole": whole.losses, "failed_at": failed_at, "resumed": resumed.losses,
+            "resumed_final": resumed.final_step, "single": single}
+
+
 JOBS = {"collectives": _collectives, "four_ranks": _four_ranks, "compression": _compression,
-        "dp_train": _dp_train}
+        "dp_train": _dp_train, "gspmd_train": _gspmd_train, "gspmd_loop": _gspmd_loop}
 
 
 def _main(job: str, rank: int, world: int, workdir: str) -> None:

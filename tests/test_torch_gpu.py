@@ -2254,3 +2254,48 @@ def test_dp_step_at_world_size_1_equals_train_step_on_card(cuda, kind):
     (want_l, want_p), (got_l, got_p) = run(False), run(True)
     assert all(torch.equal(a, b) for a, b in zip(got_l, want_l))
     assert all(torch.equal(got_p[n], want_p[n]) for n in want_p)
+
+
+def test_jit_train_step_at_world_size_1_equals_train_step_on_card(cuda):
+    """The GSPMD trainer under fsdp on a one-rank (1, 1) mesh on the card (a
+    one-rank NCCL group): two steps give make_train_step's metrics and
+    parameters to the bit.  A narrow fp32 granite-8b (head dim 64: the
+    attention kernels both ways); deterministic algorithms, so the
+    embedding's gradient is summed in one order in both runs."""
+    import torch.distributed as dist
+
+    from repro_torch.core.device_order import Mesh
+    from repro_torch.parallel.sharding import ShardingPlan, parameters, placer
+    from repro_torch.train.steps import init_opt_state, jit_train_step
+
+    cfg = dataclasses.replace(
+        get_config("granite-8b").smoke(), d_model=256, n_heads=4, n_kv_heads=2,
+        head_dim=64, d_ff=512, param_dtype="float32", activation_dtype="float32",
+    )
+    gen = torch.Generator().manual_seed(0)
+    batches = [{"tokens": torch.randint(0, cfg.vocab, (4, 96), generator=gen).to(cuda)}
+               for _ in range(2)]
+    opt = optim.adamw(optim.constant(1e-3))
+    assert not dist.is_initialized()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        model = lm.init(0, cfg, device=cuda)
+        state = opt.init(dict(model.named_parameters()))
+        plain = make_train_step(cfg, opt)
+        want = [plain(model, state, b, i)[2] for i, b in enumerate(batches)]
+        mesh = Mesh(np.zeros((1, 1), dtype=np.int64), ("data", "model"))
+        step, (_, _, p_layouts, o_layouts, _) = jit_train_step(cfg, opt, ShardingPlan(fsdp=True),
+                                                               mesh, device=cuda)
+        placed = lm.init(0, cfg, device=cuda, place=placer(p_layouts))
+        placed_state = init_opt_state(opt, placed, o_layouts)
+        before = ops.attention_launches, ops.attention_bwd_launches
+        got = [step(placed, placed_state, b, i)[2] for i, b in enumerate(batches)]
+        assert (ops.attention_launches - before[0], ops.attention_bwd_launches - before[1]) == (
+            2 * 2 * cfg.n_layers, 2 * cfg.n_layers)  # forward and remat; backward
+        assert all(torch.equal(g[k], w[k]) for g, w in zip(got, want) for k in w)
+        params = parameters(placed)
+        assert all(torch.equal(params[n].full_tensor(), p) for n, p in model.named_parameters())
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if dist.is_initialized():
+            dist.destroy_process_group()

@@ -38,6 +38,8 @@ SLICE_MODULES = (
     "repro_torch.launch.dlrm_testbed", "repro_torch.launch.quickstart",
     "repro_torch.launch.serve_decode", "repro_torch.parallel.compression",
     "repro_torch.parallel.pipeline", "repro_torch.launch.train_lm_topoopt",
+    "repro_torch.parallel.sharding", "repro_torch.parallel.act_sharding",
+    "repro_torch.launch.mesh",
 ) + tuple(f"repro_torch.core.{m}" for m in (
     "totient", "select_perms", "routing", "demand", "topology_finder", "netsim", "planeval",
     "costmodel", "schedules", "workloads", "strategy_search", "planeval_torch",
