@@ -31,7 +31,8 @@ result line:
    the keys kernel's 4) must not spill;
 3. kernels vs their plain PyTorch versions at the serving shapes, with times
    beside the bound and beside one PyTorch library call where one computes
-   the same function, each case printing the tiling that served it (wgmma
+   the same function (SDPA for attention, a window shorter than the keys as
+   a boolean mask), each case printing the tiling that served it (wgmma
    for bf16/fp16, fma for fp32, skinny for C <= 16), and the bf16 serving
    shapes also timed on the fma tiling: flash attention at granite-8b's and
    qwen3-moe-30b-a3b's attention (B=4, H=32, KV=8 or 4, D=128; S=1000 and
@@ -96,7 +97,15 @@ result line:
    fill (with the path's launches a call, and the other tiling's where both
    take the case) beside the bound, the wrapper's whole time, the fill
    apart, the plain version and ``index_add_`` (CUDA events and the
-   profiler); then
+   profiler); one model rank's share on the production mesh's model axis of
+   16 (``jit_train_step``'s split compute; TP16_ATTN_CASES, E_TP16, DI_TP16,
+   D_RG_TP16), each kernel forward and backward against its plain version
+   and timed beside its bound and its full-width row: qwen3-moe-30b-a3b's
+   attention (B=4, 2 query heads over 1 KV head, S=4096, D=128, causal) and
+   its grouped matmul at 8 of 128 experts (C=1280, gate/up and down),
+   falcon-mamba-7b's scan at 512 of 8192 channels (B=4, L=4096), and
+   recurrentgemma-9b's RG-LRU scan at 256 of 4096 channels (B=1, L=4096) and
+   its attention (1 query head, 1 KV head, D=256, window 2048); then
    narrow fp32 granite, MoE, Mamba, Griffin and DLRM models on the card
    against the same models on the CPU, and a narrow fp32 VLM (head dim 128,
    two super-blocks, cross gates opened) and encoder (4 heads of 80); the
@@ -314,6 +323,12 @@ result line:
    and of the collectives' operators; then ``python -m repro_torch.launch.train --arch
    hubert-xlarge --mesh cpu --seq-len 4096 --global-batch 4 --steps 3`` in a
    process of its own, exit 0;
+7e. the GSPMD trainer on the MoE at 5c's depth and batch: qwen3-moe-30b-a3b
+   at 4 layers, 4 x 4096, two steps of 5c's plain step and then two of
+   ``jit_train_step`` under ``ShardingPlan(fsdp=True)`` on a (1, 1) mesh,
+   from seed 0 on 5c's first batches under deterministic algorithms:
+   losses and every parameter equal to the bit, 5c's launches each step,
+   each step's time and each run's peak memory beside 5c's median;
 8. the script's wall time, one JSON line of per-kernel numbers, the
    ``nvidia-smi`` line, and the result line ``{"ok": true, "device": {...}}``
    last.
@@ -439,6 +454,19 @@ BWD_CASES = (
     (2, H_AU, H_AU, 1000, D_AU, torch.float32, False),
     (TRAIN_B, H, KV, TRAIN_S, D, torch.bfloat16, False, 0, IMG_TOKENS),
 )
+# One model rank's share on the production mesh's model axis of 16
+# (parallel.sharding.model_reads, the split compute of jit_train_step), each
+# at its training phase's batch and length: qwen3-moe-30b-a3b's attention (2
+# query heads over its 1 KV head) and 8 of its 128 experts (5c); falcon-
+# mamba-7b's 512 of 8192 channels (5d); recurrentgemma-9b's 256 of 4096
+# RG-LRU channels and its attention (1 query head, 1 KV head, window 2048;
+# 5e).  Attention cases as BWD_CASES.
+TP_PROD = 16
+TP16_ATTN_CASES = (
+    (TRAIN_B, 32 // TP_PROD, 1, TRAIN_S, D, torch.bfloat16, True),
+    (HYB_TRAIN_B, 16 // TP_PROD, 1, TRAIN_S, 256, torch.bfloat16, True, PROMPT_RG),
+)
+E_TP16, DI_TP16, D_RG_TP16 = E_MOE // TP_PROD, DI_MAMBA // TP_PROD, D_RG // TP_PROD
 # The training shapes whose forward also gets row 1's yardsticks (the plain
 # forward and SDPA's): minicpm-2b's, hubert-xlarge's and the VLM's cross layer.
 TRAIN_FWD_CASES = (BWD_CASES[0], BWD_CASES[6], BWD_CASES[10])
@@ -456,6 +484,7 @@ TWIN_STEPS = (60, 80)  # phase 7b: a run past the step-50 checkpoint, then one r
 TWIN_PATH = "train_lm_topoopt twin (world size 1), 3 steps"  # phase 7b's counted run
 DP_PATH = "hubert-xlarge DP step (ring, then compressed), 2 steps each"  # phase 7c
 GSPMD_PATH = "hubert-xlarge GSPMD step (fsdp, world size 1), 2 steps"  # phase 7d
+GSPMD_MOE_PATH = "qwen3-moe-30b-a3b GSPMD step (4 layers, world size 1), 2 steps"  # phase 7e
 
 
 def require(ok, what: str) -> None:
@@ -783,6 +812,8 @@ GMM_BWD_CASES = (
     ("ragged", 4, 129, 72, 136, torch.bfloat16),
     ("ragged_fp16", 4, 129, 72, 136, torch.float16),
     ("decode", E_MOE, 1, D_MOE, F_MOE, torch.bfloat16),
+    ("tp16_gate_up", E_TP16, C_TRAIN, D_MOE, F_MOE, torch.bfloat16),
+    ("tp16_down", E_TP16, C_TRAIN, F_MOE, D_MOE, torch.bfloat16),
 )
 
 
@@ -865,6 +896,7 @@ MAMBA_BWD_CASES = (
     ("st64", 2, 333, 520, 64, None, torch.float32, False),
     ("st128", 2, 100, 100, 128, 8, torch.bfloat16, False),
     ("dh", 2, 500, 300, ST_MAMBA, 8, torch.float32, True),
+    ("tp16", TRAIN_B, TRAIN_S, DI_TP16, ST_MAMBA, R_MAMBA, torch.bfloat16, False),
 )
 
 
@@ -998,10 +1030,10 @@ def check_attention_fwd(case, gen, dev, smi, batch: int = B, phase: str = "3") -
     """Phases 3 and 7a: flash attention against its plain version on one
     ``case`` (Sq, Sk, D, dtype, causal, window, KV, H) at ``batch``: finite,
     two launches equal to the bit, within TOL; its time beside the plain
-    version's, SDPA's (where SDPA computes the same function) and the bound,
+    version's, SDPA's (with a window, the window as a mask) and the bound,
     and bf16/fp16 serving shapes on the fma tiling too.  Returns the numbers."""
     from repro_torch.kernels.flash_attention import attention_tiling, flash_attention
-    from repro_torch.kernels.ref import ref_flash_attention
+    from repro_torch.kernels.ref import attention_mask, ref_flash_attention
 
     Sq, Sk, dh, dtype, causal, window, kv, h = case
     q = torch.randn(batch, h, Sq, dh, generator=gen, device=dev).to(dtype)
@@ -1023,12 +1055,13 @@ def check_attention_fwd(case, gen, dev, smi, batch: int = B, phase: str = "3") -
             f"kernel vs plain at {tol}, {label}: max|err| {err}")
     kernel_ms = time_ms(lambda: flash_attention(q, k, v, causal=causal, window=window), 20)
     plain_ms = time_ms(lambda: ref_flash_attention(q, k, v, causal=causal, window=window), 5)
-    library_ms = fma_ms = None
-    # SDPA has no sliding window (a window of S or more is none); a
-    # yardstick only, never on the port's path.
-    if window == 0 or window >= max(Sq, Sk):
-        library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=causal, enable_gqa=True), 20)
+    fma_ms = None
+    # SDPA, a yardstick only, never on the port's path.  It has no window
+    # argument: a window shorter than the keys goes in as a boolean mask.
+    mask = (dict(attn_mask=attention_mask(Sq, Sk, causal, window, dev))
+            if 0 < window < max(Sq, Sk) else dict(is_causal=causal))
+    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, enable_gqa=True, **mask), 20)
     if tiling == "wgmma" and Sq >= PROMPT:  # the earlier tiling, on the same inputs
         fma_ms = time_ms(lambda: flash_attention(q, k, v, causal=causal, window=window,
                                                  tiling="fma"), 20)
@@ -1188,6 +1221,7 @@ LRU_BWD_CASES = (
     ("training_bf16", HYB_TRAIN_B, TRAIN_S, D_RG, torch.bfloat16, False),
     ("ragged", 3, 1000, 200, torch.float32, True),
     ("ragged_plain_loads", 2, 1000, 33, torch.float32, True),
+    ("tp16", HYB_TRAIN_B, TRAIN_S, D_RG_TP16, torch.float32, False),
 )
 
 
@@ -1252,6 +1286,43 @@ def check_lru_bwd(rglru_scan, rglru_scan_bwd, ref_rglru_scan_bwd, gen, dev, smi)
         del a, b, h_all, dh, dhf
     torch.cuda.empty_cache()
     return out
+
+
+def tp16_summary(attn, gmm_fwd, gmm_fwd_down, gmm_bwd, mamba_fwd, mamba_bwd, lru_fwd,
+                 lru_bwd) -> dict:
+    """Phase 3's numbers at one model rank's shapes on the production mesh
+    (TP16_ATTN_CASES, E_TP16, DI_TP16, D_RG_TP16), by kernel: kernel, bound,
+    plain and library ms and the largest error, and where phase 3 times the
+    same kernel at full width and the same batch and length, ``x16_over_full``:
+    TP_PROD times the rank's time over the full width's (1.0 where a rank
+    takes its share of the time; more where its smaller grid leaves the card
+    idle)."""
+    keys = ("kernel_ms", "bound_ms", "bound_by", "plain_ms", "library_ms", "max_abs_err")
+
+    def row(numbers, full=None):
+        out = {k: numbers.get(k) for k in keys}
+        if full is not None:
+            out["full_kernel_ms"] = full["kernel_ms"]
+            out["x16_over_full"] = TP_PROD * numbers["kernel_ms"] / full["kernel_ms"]
+        return out
+
+    return {
+        "flash_attention qwen3 H=2 KV=1 D=128 causal 4x4096": row(attn[0]["fwd"]),
+        "flash_attention_bwd qwen3 H=2 KV=1 D=128 causal 4x4096": row(attn[0]["bwd"]),
+        "flash_attention recurrentgemma H=1 KV=1 D=256 window 2048 1x4096": row(attn[1]["fwd"]),
+        "flash_attention_bwd recurrentgemma H=1 KV=1 D=256 window 2048 1x4096":
+            row(attn[1]["bwd"]),
+        f"moe_gmm gate/up E={E_TP16} C={C_TRAIN}": row(gmm_fwd),
+        f"moe_gmm down E={E_TP16} C={C_TRAIN}": row(gmm_fwd_down),
+        f"moe_gmm_bwd gate/up E={E_TP16} C={C_TRAIN}": row(gmm_bwd["tp16_gate_up"],
+                                                            gmm_bwd["gate_up"]),
+        f"moe_gmm_bwd down E={E_TP16} C={C_TRAIN}": row(gmm_bwd["tp16_down"], gmm_bwd["down"]),
+        f"mamba_scan DI={DI_TP16} 4x4096": row(mamba_fwd,
+                                               {"kernel_ms": mamba_bwd["training"]["fwd_ms"]}),
+        f"mamba_scan_bwd DI={DI_TP16} 4x4096": row(mamba_bwd["tp16"], mamba_bwd["training"]),
+        f"rglru_scan D={D_RG_TP16} 1x4096": row(lru_fwd["tp16"], lru_fwd["training"]),
+        f"rglru_scan_bwd D={D_RG_TP16} 1x4096": row(lru_bwd["tp16"], lru_bwd["training"]),
+    }
 
 
 def hybrid_train_config(get_config):
@@ -1772,12 +1843,13 @@ def train_full(lm, ops, optim, make_train_step, data, cfg, dev, smi, phase: str,
 # Kernel-name patterns of the MoE training step's device-time split (phase
 # 5c), tried in order before trace_train's groups: the grouped matmul's
 # forward tilings, its backward, and the MoE's dispatch and combine (the
-# index_add_, gathers and index_copy_ of layers.moe and their backward, the
-# routing's scatters; the embedding's lookup shares their kernels).
+# gathers and the segment sum of layers.moe and their backward, the
+# routing's scatters; the embedding's lookup shares their kernels; the
+# routing's and the combine's integer sorts stay in the rest).
 MOE_SPLIT = (
     ("grouped matmul forward", ("gmm_wgmma_kernel", "gmm_tiled_kernel", "gmm_skinny_kernel")),
     ("grouped matmul backward", ("gmm_bwd_",)),
-    ("dispatch and combine", ("index", "Index", "gather", "scatter", "Scatter")),
+    ("dispatch and combine", ("index", "Index", "gather", "scatter", "Scatter", "segment")),
 )
 
 
@@ -2312,6 +2384,95 @@ def gspmd_step_check(lm, ops, optim, train_steps, sharding, device_order, cfg, d
     return dict(step_ms=times, counts=counts, cli_wall_s=wall_s, **split)
 
 
+def gspmd_moe_check(lm, ops, optim, data, train_steps, sharding, device_order, cfg, dev, smi,
+                    want: dict, moe_step_ms: float) -> dict:
+    """Phase 7e: the GSPMD trainer on the MoE at 5c's depth and batch:
+    ``cfg`` (qwen3-moe-30b-a3b at 4 layers) at TRAIN_B x TRAIN_S, two steps
+    of 5c's plain step (``make_train_step``, remat "full", LOSS_CHUNK, 5c's
+    AdamW and WSD schedule) on 5c's first two batches, then two of
+    ``jit_train_step`` under ``ShardingPlan(fsdp=True)`` on a (1, 1)
+    ("data", "model") mesh over a one-rank NCCL group, the model drawn block
+    by block into its layouts from the same seed: losses and every parameter
+    equal to the bit, under deterministic algorithms so that the embedding's
+    gradient is summed in one order in both runs.  One model lives on the
+    card at a time (the plain run's parameters wait on the host).  Every
+    count is set to 0 just before the GSPMD run and read just after; each
+    step launches ``want`` (5c's).  Each step's time and each run's peak
+    memory are printed beside 5c's median."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeSpec
+
+    spec = data.DataSpec(cfg=cfg, shape=ShapeSpec(f"train_4k_b{TRAIN_B}", TRAIN_S, TRAIN_B,
+                                                  "train"))
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in data.batch_for_step(spec, i).items()}
+               for i in range(2)]
+    total_steps = MOE_WARMUP + TRAIN_STEPS + FIXED_STEPS  # 5c's schedule
+
+    def run(kind):
+        gc.collect()
+        torch.cuda.empty_cache()
+        opt = optim.adamw(optim.wsd(TRAIN_LR, total_steps))
+        if kind == "plain":
+            model = lm.init(0, cfg, device=dev)
+            state = opt.init(dict(model.named_parameters()))
+            step = train_steps.make_train_step(cfg, opt, remat="full", loss_chunk=LOSS_CHUNK)
+        else:
+            mesh = device_order.Mesh(np.zeros((1, 1), dtype=np.int64), ("data", "model"))
+            plan = sharding.ShardingPlan(fsdp=True, remat="full", loss_chunk=LOSS_CHUNK)
+            step, (_, _, p_layouts, o_layouts, _) = train_steps.jit_train_step(
+                cfg, opt, plan, mesh, device=dev)
+            model = lm.init(0, cfg, device=dev, place=sharding.placer(p_layouts))
+            state = train_steps.init_opt_state(opt, model, o_layouts)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for n in COUNTERS:
+            setattr(ops, n, 0)
+        losses, times, per_step = [], [], []
+        for i, batch in enumerate(batches):
+            before = {n: getattr(ops, n) for n in COUNTERS}
+            t0 = time.perf_counter()
+            loss = step(model, state, batch, i)[2]["loss"]
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss.detach().cpu())
+            per_step.append({n: getattr(ops, n) - before[n] for n in COUNTERS})
+        counts = {n: getattr(ops, n) for n in COUNTERS}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        params = {n: p.detach().full_tensor().cpu() if kind == "gspmd" else p.detach().cpu()
+                  for n, p in sharding.parameters(model).items()}
+        del model, state, step
+        return dict(losses=losses, params=params, step_ms=times, per_step=per_step,
+                    counts=counts, peak_gb=peak_gb)
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        plain = run("plain")
+        got = run("gspmd")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    for kind, r in (("plain", plain), ("GSPMD", got)):
+        require(all(c == want for c in r["per_step"]),
+                f"{kind} step launches per step {r['per_step']}, want {want}")
+    same_loss = all(torch.equal(a, b) for a, b in zip(got["losses"], plain["losses"]))
+    differ = [n for n, p in plain["params"].items() if not torch.equal(got["params"][n], p)]
+    require(same_loss and not differ and sorted(got["params"]) == sorted(plain["params"]),
+            f"GSPMD MoE step vs make_train_step: losses {got['losses']} vs {plain['losses']}, "
+            f"parameters that differ {differ[:5]} of {len(differ)}")
+    print(f"phase 7e gspmd: {cfg.name} ({cfg.n_layers} layers) at {TRAIN_B} x {TRAIN_S}, "
+          f"jit_train_step (ShardingPlan(fsdp=True), (1, 1) data x model mesh, one-rank NCCL "
+          f"group) vs 5c's make_train_step, 2 steps from seed 0 under deterministic algorithms: "
+          f"losses {[float(x) for x in got['losses']]} equal to the bit, all "
+          f"{len(plain['params'])} parameters equal to the bit; step ms {got['step_ms']} (plain "
+          f"{plain['step_ms']}; phase 5c's median {moe_step_ms}), peak memory {got['peak_gb']} "
+          f"GB (plain {plain['peak_gb']} GB); launches per step {got['per_step'][0]}; on {smi}")
+    return dict(step_ms=got["step_ms"], plain_step_ms=plain["step_ms"],
+                phase_5c_step_ms=moe_step_ms, peak_gb=got["peak_gb"],
+                plain_peak_gb=plain["peak_gb"], counts=got["counts"],
+                losses=[float(x) for x in got["losses"]])
+
+
 GSPMD_TURNS = 4  # phase 7d's alternating turns of the plain and the GSPMD step
 
 
@@ -2646,6 +2807,14 @@ def main() -> int:
     # The backward kernel, and the forward's lse, at the training shapes.
     bwd = [check_attention_bwd(case, gen, dev, smi) for case in BWD_CASES]
     torch.cuda.empty_cache()
+    # One model rank's attention on the production mesh (TP16_ATTN_CASES),
+    # forward and backward.
+    tp16_attn = [dict(fwd=check_attention_fwd((S, S, Dc, dt, causal, rest[0] if rest else 0, kv, h),
+                                              gen, dev, smi, batch=Bc, phase="3 tp16"),
+                      bwd=check_attention_bwd((Bc, h, kv, S, Dc, dt, causal, *rest), gen, dev,
+                                              smi, phase="3 tp16"))
+                 for Bc, h, kv, S, Dc, dt, causal, *rest in TP16_ATTN_CASES]
+    torch.cuda.empty_cache()
     main_case, rg_case = attn[cases[0]], attn[cases[8]]
     main_fp32, rg_fp32 = attn[cases[2]], attn[cases[10]]
     au_case, au_fp16, au_fp32 = (attn[c] for c in HUBERT_CASES)
@@ -2670,6 +2839,9 @@ def main() -> int:
         # qwen3-moe-30b-a3b's training forward (C = C_TRAIN): gate/up and down.
         (E_MOE, C_TRAIN, D_MOE, F_MOE, torch.bfloat16, False),
         (E_MOE, C_TRAIN, F_MOE, D_MOE, torch.bfloat16, False),
+        # One model rank's 8 experts of them on the production mesh.
+        (E_TP16, C_TRAIN, D_MOE, F_MOE, torch.bfloat16, False),
+        (E_TP16, C_TRAIN, F_MOE, D_MOE, torch.bfloat16, False),
     ]
     gmm = {}
     for E, C, Dx, F, dtype, realistic in gmm_cases:
@@ -2706,7 +2878,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     gmm_main, gmm_down, gmm_fp32 = gmm[gmm_cases[0]], gmm[gmm_cases[1]], gmm[gmm_cases[3]]
     gmm_decode, gmm_decode_down = gmm[gmm_cases[6]], gmm[gmm_cases[7]]
-    gmm_train, gmm_train_down = gmm[gmm_cases[-2]], gmm[gmm_cases[-1]]
+    gmm_train, gmm_train_down = gmm[gmm_cases[-4]], gmm[gmm_cases[-3]]
+    gmm_tp16, gmm_tp16_down = gmm[gmm_cases[-2]], gmm[gmm_cases[-1]]
 
     # A decode step's own buffers: what layers.moe passes to the grouped
     # matmul for the 4 served requests on a full-width layer.  Experts that
@@ -2754,8 +2927,10 @@ def main() -> int:
         (B, PROMPT, DI_MAMBA, ST_MAMBA, R_MAMBA, torch.float32),
         (2, 37, 200, ST_MAMBA, None, torch.bfloat16),
         (2, 37, 200, ST_MAMBA, None, torch.float32),
+        # One model rank's 512 channels on the production mesh, at 5d's shape.
+        (TRAIN_B, TRAIN_S, DI_TP16, ST_MAMBA, R_MAMBA, torch.bfloat16),
     ]
-    mamba_main = {}
+    mamba_main = mamba_tp16 = {}
     for Bm, L, DI, ST, R, dtype in mamba_cases:
         args = mamba_inputs(gen, Bm, L, DI, ST, dtype, R)
         y, h = mamba_scan(*args)
@@ -2775,9 +2950,12 @@ def main() -> int:
         print(f"phase 3 kernel: mamba_scan {label}: max|err| y {err} (tol {tol}) h {herr} "
               f"(tol {htol}) kernel_ms {kernel_ms} plain_ms {plain_ms} library_ms None "
               f"bound_ms {bound_ms} ({bound_by}; bytes {bytes_ms} ms, exps {exp_ms} ms) on {smi}")
+        numbers = dict(max_abs_err=err, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                       library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
         if (Bm, L, DI, ST, R, dtype) == mamba_cases[0]:
-            mamba_main = dict(max_abs_err=err, kernel_ms=kernel_ms, plain_ms=plain_ms,
-                              library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+            mamba_main = numbers
+        if (Bm, L, DI, ST, R, dtype) == mamba_cases[-1]:
+            mamba_tp16 = numbers
         del args, y, h, ey, eh
 
     # The selective scan's backward at falcon-mamba-7b's training shape and
@@ -2796,6 +2974,7 @@ def main() -> int:
         "ragged": (3, 1000, 200, torch.float32),
         "ragged_bf16": (3, 1000, 200, torch.bfloat16),
         "ragged_plain_loads": (2, 1000, 33, torch.float32),
+        "tp16": (HYB_TRAIN_B, TRAIN_S, D_RG_TP16, torch.float32),  # a model rank's 256 channels
     }
     lru_fwd = {}
     for name, (Bm, L, Dl, dtype) in lru_cases.items():
@@ -2828,6 +3007,10 @@ def main() -> int:
     # The RG-LRU scan's backward at recurrentgemma-9b's training shape and the
     # other LRU_BWD_CASES.
     lru_bwd = check_lru_bwd(rglru_scan, rglru_scan_bwd, ref_rglru_scan_bwd, gen, dev, smi)
+    tp16 = tp16_summary(tp16_attn, gmm_tp16, gmm_tp16_down, gmm_bwd, mamba_tp16, mamba_bwd,
+                        lru_fwd, lru_bwd)
+    print(f"phase 3 tp16 summary: one model rank's kernels on the production mesh (model = "
+          f"{TP_PROD}), each beside its full-width training row: {json.dumps(tp16)} on {smi}")
 
     t_bag = time.perf_counter()
     bag = check_bag(embedding_bag, ref_embedding_bag, gen, dev, smi)
@@ -3163,6 +3346,7 @@ def main() -> int:
                 attention_bwd_launches=L_, attention_bwd_wgmma_launches=L_,
                 grouped_matmul_launches=6 * L_, grouped_matmul_wgmma_launches=6 * L_,
                 grouped_matmul_bwd_launches=3 * L_, grouped_matmul_bwd_wgmma_launches=3 * L_)
+    want_moe = dict(want)
     # First through the training loop a user calls (train.loop.train: its own
     # model, optimizer state and data stream), 3 steps, every count set to 0
     # just before and read just after; then the timed run below.
@@ -3265,6 +3449,11 @@ def main() -> int:
     gspmd = gspmd_step_check(lm, ops, optim, train_steps, sharding, device_order,
                              get_config(AU_TRAIN_ARCH), dev, smi, dp)
     del dp["plain"], dp["batches"]
+    # Phase 7e: the GSPMD trainer on the MoE at 5c's depth and batch against
+    # 5c's plain step.
+    gspmd_moe = gspmd_moe_check(lm, ops, optim, data, train_steps, sharding, device_order,
+                                moe_cfg, dev, smi, want_moe, moe_trained["step_ms"])
+    print(f"phase 7e summary: {json.dumps(gspmd_moe)} on {smi}")
 
     print(f"chip_smoke: wall time {time.perf_counter() - T_START} s, the kernels' build "
           "included")
@@ -3282,7 +3471,8 @@ def main() -> int:
                      + moe_counts["attention_launches"] + hyb_counts["attention_launches"]
                      + vlm_counts["attention_launches"] + au_counts["attention_launches"]
                      + twin["counts"]["attention_launches"] + dp["counts"]["attention_launches"]
-                     + gspmd["counts"]["attention_launches"]),
+                     + gspmd["counts"]["attention_launches"]
+                     + gspmd_moe["counts"]["attention_launches"]),
         "launches_by_path": {"granite-8b": granite_attention_launches, qwen_name: att_total,
                              "recurrentgemma-9b": griffin["attention_launches"],
                              "llama-3.2-vision-11b": vlm["attention_launches"],
@@ -3295,7 +3485,8 @@ def main() -> int:
                              au_path: au_counts["attention_launches"],
                              TWIN_PATH: twin["counts"]["attention_launches"],
                              DP_PATH: dp["counts"]["attention_launches"],
-                             GSPMD_PATH: gspmd["counts"]["attention_launches"]},
+                             GSPMD_PATH: gspmd["counts"]["attention_launches"],
+                             GSPMD_MOE_PATH: gspmd_moe["counts"]["attention_launches"]},
         "launches_d32": twin["counts"]["attention_fma_launches"],
         "max_abs_err": main_case["max_abs_err"],
         "max_err_bf16": main_case["max_abs_err"],
@@ -3358,7 +3549,8 @@ def main() -> int:
                      + au_counts["attention_bwd_launches"]
                      + twin["counts"]["attention_bwd_launches"]
                      + dp["counts"]["attention_bwd_launches"]
-                     + gspmd["counts"]["attention_bwd_launches"]),
+                     + gspmd["counts"]["attention_bwd_launches"]
+                     + gspmd_moe["counts"]["attention_bwd_launches"]),
         "launches_by_path": {f"{TRAIN_ARCH} train, {TRAIN_STEPS} steps": train_bwd,
                              moe_path: moe_counts["attention_bwd_launches"],
                              hyb_path: hyb_counts["attention_bwd_launches"],
@@ -3366,7 +3558,8 @@ def main() -> int:
                              au_path: au_counts["attention_bwd_launches"],
                              TWIN_PATH: twin["counts"]["attention_bwd_launches"],
                              DP_PATH: dp["counts"]["attention_bwd_launches"],
-                             GSPMD_PATH: gspmd["counts"]["attention_bwd_launches"]},
+                             GSPMD_PATH: gspmd["counts"]["attention_bwd_launches"],
+                             GSPMD_MOE_PATH: gspmd_moe["counts"]["attention_bwd_launches"]},
         "launches_d32": twin["counts"]["attention_bwd_fma_launches"],
         "launches_per_step": trained["launches_per_step"]["attention_bwd_launches"],
         "launches_per_step_d256": hyb_trained["launches_per_step"]["attention_bwd_launches"],
@@ -3403,6 +3596,10 @@ def main() -> int:
            for k in ("tiling", "max_abs_err", "kernel_ms", "plain_ms", "library_ms",
                      "library_backend", "bound_ms", "bound_by", "fwd_ms", "fwd_bound_ms")},
         "d80_kernel_over_library": bwd[6]["kernel_ms"] / bwd[6]["library_ms"],
+        **{f"tp16_{name}_{k}": tp16_attn[i]["bwd"][k]
+           for name, i in (("qwen3", 0), ("recurrentgemma", 1))
+           for k in ("max_abs_err", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                     "bound_by")},
     }, {
         "name": "moe_gmm",
         "route": "cuda",
@@ -3411,9 +3608,11 @@ def main() -> int:
         "tpu_ref": "kernels/moe_gmm.py:40",
         "tiling": gmm_main["tiling"],
         "decode_tiling": gmm_decode["tiling"],
-        "launches": gmm_total + moe_counts["grouped_matmul_launches"],
+        "launches": (gmm_total + moe_counts["grouped_matmul_launches"]
+                     + gspmd_moe["counts"]["grouped_matmul_launches"]),
         "launches_by_path": {qwen_name: gmm_total,
-                             moe_path: moe_counts["grouped_matmul_launches"]},
+                             moe_path: moe_counts["grouped_matmul_launches"],
+                             GSPMD_MOE_PATH: gspmd_moe["counts"]["grouped_matmul_launches"]},
         "launches_per_train_step": moe_trained["launches_per_step"]["grouped_matmul_launches"],
         "launches_prefill": gmm_prefill,
         "launches_per_decode_step": gmm_decode_loop // (DECODE_STEPS - 1),
@@ -3443,6 +3642,10 @@ def main() -> int:
         "train_down_kernel_ms": gmm_train_down["kernel_ms"],
         "train_down_bound_ms": gmm_train_down["bound_ms"],
         "train_down_library_ms": gmm_train_down["library_ms"],
+        **{f"tp16_{name}_{k}": numbers[k] for name, numbers in (("gate_up", gmm_tp16),
+                                                                ("down", gmm_tp16_down))
+           for k in ("tiling", "max_abs_err", "kernel_ms", "plain_ms", "library_ms",
+                     "bound_ms", "bound_by")},
         "skinny_decode_like_kernel_ms": decode_like["gate"]["kernel_ms"],
         "skinny_decode_like_bound_ms": decode_like["gate"]["bound_ms"],
         "skinny_decode_like_library_ms": decode_like["gate"]["library_ms"],
@@ -3460,8 +3663,10 @@ def main() -> int:
         # The TPU side has no backward kernel (jax.grad of the XLA einsums).
         "replaces": "none: jax.grad of the XLA einsums at src/repro/models/layers.py:346-348",
         "library": "torch.bmm (dx and dw)",
-        "launches": moe_counts["grouped_matmul_bwd_launches"],
-        "launches_by_path": {moe_path: moe_counts["grouped_matmul_bwd_launches"]},
+        "launches": (moe_counts["grouped_matmul_bwd_launches"]
+                     + gspmd_moe["counts"]["grouped_matmul_bwd_launches"]),
+        "launches_by_path": {moe_path: moe_counts["grouped_matmul_bwd_launches"],
+                             GSPMD_MOE_PATH: gspmd_moe["counts"]["grouped_matmul_bwd_launches"]},
         "launches_per_step": moe_trained["launches_per_step"]["grouped_matmul_bwd_launches"],
         "launches_wgmma": moe_counts["grouped_matmul_bwd_wgmma_launches"],
         "ms": gmm_bwd["gate_up"]["kernel_ms"],
@@ -3483,6 +3688,7 @@ def main() -> int:
         **mamba_main,
         "training_ms": mamba_bwd["training"]["fwd_ms"],
         "training_ckpt_ms": mamba_bwd["training"]["fwd_ckpt_ms"],
+        **{f"tp16_{k}": v for k, v in mamba_tp16.items()},
     }, {
         "name": "mamba_scan_bwd",
         "route": "cuda",

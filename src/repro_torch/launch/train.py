@@ -47,13 +47,19 @@ schedule is WSD where the config asks for it
 reference's) is a 1-D ``("data",)`` mesh over every rank of the world with
 ``fsdp=False``, on the card unless given ``--device cpu``; ``single`` and
 ``multi`` are the production meshes (``launch.mesh``: 256 ranks as
-(data 16, model 16), or 512 with a pod axis of 2) with ``fsdp=not
---no-fsdp`` and ``--seq-parallel``.  Under ``torch.distributed.run`` every
-rank joins its process group (NCCL on cards, one rank a card; gloo with
-``--device cpu``); without it the world is one rank.  Eight gloo ranks::
+(data 16, model 16), or 512 with a pod axis of 2), and ``DxM`` (``2x4``) a
+(data D, model M) mesh over a world of D x M ranks, each with ``fsdp=not
+--no-fsdp`` and ``--seq-parallel``: over a model axis of more than one rank
+each rank computes its own heads, MLP columns, experts, channels and
+vocabulary rows (``train.steps.jit_train_step``).  Under
+``torch.distributed.run`` every rank joins its process group (NCCL on
+cards, one rank a card; gloo with ``--device cpu``); without it the world
+is one rank.  Eight gloo ranks, data parallel and on a (2, 4) mesh::
 
     PYTHONPATH=src torchrun --standalone --nproc-per-node 8 -m repro_torch.launch.train \
         --arch granite-8b --smoke --device cpu --mesh cpu --steps 20
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 8 -m repro_torch.launch.train \
+        --arch qwen3-moe-30b-a3b --smoke --device cpu --mesh 2x4 --seq-parallel --steps 20
 """
 
 from __future__ import annotations
@@ -65,10 +71,20 @@ import torch.distributed as dist
 
 from repro_torch.compat import resolve_device
 from repro_torch.configs.base import ShapeSpec, get_config
-from repro_torch.launch.mesh import init_world, make_production_mesh
+from repro_torch.launch.mesh import init_world, make_production_mesh, make_test_mesh
 from repro_torch.optim import adamw, cosine, wsd
 from repro_torch.parallel.sharding import ShardingPlan
 from repro_torch.train.loop import train
+
+
+def mesh_arg(value: str) -> str:
+    """``cpu``, ``single``, ``multi`` or ``DxM`` (two positive ints)."""
+    if value in ("cpu", "single", "multi"):
+        return value
+    parts = value.split("x")
+    if len(parts) != 2 or not all(p.isdigit() and int(p) > 0 for p in parts):
+        raise argparse.ArgumentTypeError(f"--mesh {value!r}: cpu, single, multi or DxM (2x4)")
+    return value
 
 
 def main(argv=None) -> None:
@@ -81,7 +97,8 @@ def main(argv=None) -> None:
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
-    ap.add_argument("--mesh", choices=["cpu", "single", "multi"], default="cpu")
+    ap.add_argument("--mesh", type=mesh_arg, default="cpu",
+                    help="cpu, single, multi, or DxM: a (data D, model M) mesh")
     ap.add_argument("--no-fsdp", action="store_true")
     ap.add_argument("--seq-parallel", action="store_true")
     ap.add_argument("--remat", default="full", choices=["full", "dots", "none"])
@@ -105,7 +122,10 @@ def main(argv=None) -> None:
             mesh = None
             plan = ShardingPlan(fsdp=False, remat=args.remat, loss_chunk=args.loss_chunk)
         else:
-            mesh = make_production_mesh(multi_pod=args.mesh == "multi")
+            if args.mesh in ("single", "multi"):
+                mesh = make_production_mesh(multi_pod=args.mesh == "multi")
+            else:
+                mesh = make_test_mesh(tuple(int(p) for p in args.mesh.split("x")))
             plan = ShardingPlan(fsdp=not args.no_fsdp, seq_parallel=args.seq_parallel,
                                 remat=args.remat, loss_chunk=args.loss_chunk)
         sched = (wsd if cfg.schedule == "wsd" else cosine)(args.lr, args.steps)

@@ -6,6 +6,15 @@ Each layer is ``f(params, inputs, cfg) -> out``, as in the reference, with
 layouts: projections ``(d_in, d_out)``, activations ``(B, S, H, D)``, KV
 caches ``(B, KV, T, D)``.  Norms and softmax accumulate in fp32; matmul
 inputs are ``cfg.activation_dtype``.
+
+Under a model axis of more than one rank (``train.steps.jit_train_step``)
+a layer whose weights read as this rank's block
+(``parallel.act_sharding.reads_block``) computes its own heads, MLP
+columns, experts or channels: it takes the residual stream and returns its
+output in the stream's layout, through ``constrain`` where it enters and
+leaves its split compute; a layer whose units do not divide computes whole.
+Without a policy every layer computes whole and ``constrain`` is the
+identity.
 """
 
 from __future__ import annotations
@@ -19,7 +28,9 @@ from torch import nn
 from ..configs.base import torch_dtype
 from ..kernels import ops
 from ..kernels.ref import NEG_INF
-from ..parallel.act_sharding import gather_batch
+from ..parallel.act_sharding import (
+    constrain, enter, gather_batch, model_rank, reads_block, reduce, scatter_seq, seq_share,
+)
 from ..parallel.options import get_options
 
 
@@ -87,6 +98,21 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def embed(params, tokens, dtype):
+    """The token embeddings in the residual stream's layout.  Split over the
+    model axis by vocabulary: a lookup in this rank's rows, zero for the
+    tokens outside them, summed over the model ranks; read whole, under
+    sequence parallelism, a lookup of this rank's share of the sequence."""
+    if not reads_block(params, "embed"):
+        return params.embed[seq_share(tokens)].to(dtype)
+    table = params.embed
+    mi, _ = model_rank()
+    ids = tokens - mi * table.shape[0]
+    mine = (ids >= 0) & (ids < table.shape[0])
+    rows = table[torch.where(mine, ids, 0)].to(dtype)
+    return constrain(torch.where(mine[..., None], rows, 0.0), "btd", partial=True)
+
+
 # ---------------------------------------------------------------------------
 # Attention (GQA; causal / bidirectional / sliding-window; self / cross)
 # ---------------------------------------------------------------------------
@@ -118,20 +144,34 @@ def attention(p, x, cfg, *, causal=True, window=0, positions=None, kv_x=None,
               use_rope=True):
     """Self- or cross-attention over full sequences (train / prefill).
 
-    x: (B, S, d_model); kv_x: (B, T, d_model) for cross-attention, whose keys
-    and values come from it, unrotated and unmasked, as in the reference.
+    x: (B, S, d_model), the residual stream; kv_x: (B, T, d_model) for
+    cross-attention, whose keys and values come from it, unrotated and
+    unmasked, as in the reference.
     Rope applies only to self-attention with ``use_rope``.  Returns (out
-    (B, S, d_model), k, v) with k and v as (B, KV, T, D), which prefill
-    caches.  Both attention impls of ``ModelOptions`` go through
+    (B, S, d_model) in the stream's layout, k, v) with k and v as (B, KV, T,
+    D), this model rank's KV heads, which prefill caches.  Both attention impls of ``ModelOptions`` go through
     ``ops.attention``: the flash-attention kernel on the card, its plain
     version on the CPU.
     """
     hd = cfg.hd
+    H, KV, wk, wv = cfg.n_heads, cfg.n_kv_heads, p.wk, p.wv
+    split = reads_block(p, "wq")
+    if split:
+        # This model rank's query heads; its KV heads, or (``wk`` read whole)
+        # the one KV head all of them use.
+        mi, tp = model_rank()
+        H = cfg.n_heads // tp
+        if reads_block(p, "wk"):
+            KV = cfg.n_kv_heads // tp
+        else:
+            j = mi * H // (cfg.n_heads // cfg.n_kv_heads)
+            KV, wk, wv = 1, wk[:, j * hd:(j + 1) * hd], wv[:, j * hd:(j + 1) * hd]
+    x = constrain(x, "btf" if split else "whole")
     B, S, _ = x.shape
     src = x if kv_x is None else kv_x
-    q = _split_heads(x @ p.wq, cfg.n_heads, hd)
-    k = _split_heads(src @ p.wk, cfg.n_kv_heads, hd)
-    v = _split_heads(src @ p.wv, cfg.n_kv_heads, hd)
+    q = _split_heads(x @ p.wq, H, hd)
+    k = _split_heads(src @ wk, KV, hd)
+    v = _split_heads(src @ wv, KV, hd)
     if use_rope and kv_x is None:
         if positions is None:
             positions = torch.arange(S, device=x.device)[None, :]
@@ -141,8 +181,8 @@ def attention(p, x, cfg, *, causal=True, window=0, positions=None, kv_x=None,
         causal, window = False, 0
     k, v = k.transpose(1, 2), v.transpose(1, 2)  # (B, KV, T, D)
     out = ops.attention(q.transpose(1, 2), k, v, causal=causal, window=window)
-    out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * hd)
-    return out @ p.wo, k, v
+    out = out.transpose(1, 2).reshape(B, S, H * hd)
+    return constrain(out @ p.wo, "btd", partial=split), k, v
 
 
 def attention_decode(p, x, cache_k, cache_v, pos, cfg, *, window: int = 0):
@@ -201,7 +241,8 @@ class MLP(nn.Module):
     def __init__(self, cfg, gen, device, kind: str = "swiglu"):
         super().__init__()
         dt, D, F_ = torch_dtype(cfg.param_dtype), cfg.d_model, cfg.d_ff
-        if kind == "swiglu":
+        self.swiglu = kind == "swiglu"
+        if self.swiglu:
             self.wg = parameter(dense_init(gen, D, F_, dt, device))
             self.wu = parameter(dense_init(gen, D, F_, dt, device))
             self.wd = parameter(dense_init(gen, F_, D, dt, device))
@@ -213,10 +254,17 @@ class MLP(nn.Module):
 
 def mlp(p, x):
     """SwiGLU where ``p`` holds ``wg``, else GELU (``jax.nn.gelu``'s default,
-    the tanh approximation), as the reference dispatches on ``"wg" in p``."""
-    if hasattr(p, "wg"):
-        return (F.silu(x @ p.wg) * (x @ p.wu)) @ p.wd
-    return F.gelu(x @ p.w1, approximate="tanh") @ p.w2
+    the tanh approximation), as the reference dispatches on ``"wg" in p``
+    (``p.swiglu``: a placed module would gather ``wg`` to answer ``hasattr``).
+    Split over the model axis: ``wg``/``wu``/``w1`` column-parallel,
+    ``wd``/``w2`` row-parallel."""
+    split = reads_block(p, "wg" if p.swiglu else "w1")
+    x = constrain(x, "btf" if split else "whole")
+    if p.swiglu:
+        y = (F.silu(x @ p.wg) * (x @ p.wu)) @ p.wd
+    else:
+        y = F.gelu(x @ p.w1, approximate="tanh") @ p.w2
+    return constrain(y, "btd", partial=split)
 
 
 # ---------------------------------------------------------------------------
@@ -243,25 +291,47 @@ def moe(p, x, cfg):
     """Top-k routed MoE with per-expert capacity (GShard-style dropping).
 
     Step for step ``repro.models.layers.moe``: a stable sort of the (token,
-    expert) entries, a scatter into an (E, C, D) buffer, three grouped
-    matmuls through ``ops.grouped_matmul``, then gather and weighted combine.
-    Nothing here waits on the device: counts are a ``scatter_add_``, drops
-    are masked rather than indexed out.  Returns (out (B, S, D), aux_loss).
+    expert) entries, an (E, C, D) buffer, three grouped matmuls through
+    ``ops.grouped_matmul``, then a weighted combine.  The buffer is filled
+    by slot: slot c of expert e holds the c-th entry routed to e (the
+    sort's entry ``starts[e] + c``), empty where e has c or fewer, so the
+    dispatch gathers one row a slot and the combine adds one row a slot
+    into its token, in the order of the reference's scatter-add (there a
+    dropped entry adds 0, here an empty slot).  Nothing here waits on the
+    device: counts are a ``scatter_add_``, empty slots are masked rather
+    than indexed out.  Returns (out (B, S, D), aux_loss).
 
     Capacity, drops and the aux loss are functions of the global batch:
     under a policy whose data axes span several ranks
     (``parallel.act_sharding.gather_batch``) the layer routes the rows of
     every data rank, as one device routes the global batch, and returns its
-    own rows.
+    own rows.  Split over the model axis, every model rank routes and sorts
+    all entries; its buffer, its dispatch and its combine hold only its own
+    E/tp experts' slots, the grouped matmuls run at E/tp, and the combine's
+    (N, D) addends are reduced over the model ranks.
     """
-    x, rows = gather_batch(x)
-    B, S, D = x.shape
+    split = reads_block(p, "wg")
     E, K = cfg.n_experts, cfg.top_k
+    e0, El = 0, E
+    if split:
+        # This model rank's experts; the router and the sort run on every
+        # model rank, on the stream's rows (gathered along the sequence under
+        # sequence parallelism, its gradient this rank's share).
+        mi, tp = model_rank()
+        El = E // tp
+        e0 = mi * El
+        logits = constrain(x.float() @ p.router, "whole")
+        x = constrain(x, "btf")
+    else:
+        x = constrain(x, "whole")
+        logits = x.float() @ p.router
+    x, rows = gather_batch(x)
+    logits, _ = gather_batch(logits)
+    B, S, D = x.shape
     N = B * S
     xt = x.reshape(N, D)
 
-    logits = xt.float() @ p.router
-    probs = torch.softmax(logits, dim=-1)
+    probs = torch.softmax(logits.reshape(N, E), dim=-1)
     top_vals, top_idx = torch.topk(probs, K, dim=-1)  # (N, K)
     top_vals = top_vals / top_vals.sum(dim=-1, keepdim=True)
 
@@ -278,34 +348,38 @@ def moe(p, x, cfg):
     C = max(1, int(cfg.capacity_factor * N * K / E))
 
     order = torch.argsort(flat_e, stable=True)  # as jnp.argsort: slots follow token order
-    sorted_e = flat_e[order]
     starts = torch.cumsum(counts, dim=0) - counts
-    pos_in_e = torch.arange(N * K, device=x.device) - starts[sorted_e]
-    keep = pos_in_e < C
-    slot = torch.where(keep, pos_in_e, 0)
+    # This rank's (El * C) slots: the (token, k) entry each holds, the
+    # sort's entry starts[e] + c.  An empty slot points at entry (its index
+    # mod N*K), whose row it reads and adds masked to 0, so that no row is
+    # read or added to by many slots (a hot row serializes the adds).
+    mine = slice(e0, e0 + El)
+    slot = torch.arange(C, device=x.device)
+    filled = (slot < counts[mine, None]).reshape(-1)
+    pos = torch.where(filled, (starts[mine, None] + slot).reshape(-1), 0)
+    spare = torch.arange(El * C, device=x.device) % (N * K)
+    entry = torch.where(filled, order[pos], spare)
+    tok = entry // K
 
-    tok_of = order // K  # source token per dispatch entry
-    dispatched = torch.where(keep[:, None], xt[tok_of], 0.0)
-    # Dropped entries add zero rows to slot 0, as the reference's .at[].add.
-    # Each slot gets at most one row that is not zero, so the sum is exact
-    # in any order and the adds need no sort.
-    buf = torch.zeros((E * C, D), dtype=xt.dtype, device=x.device)
-    buf.index_add_(0, sorted_e * C + slot, dispatched)
-    buf = buf.view(E, C, D)
-
+    buf = torch.where(filled[:, None], xt[tok], 0.0).view(El, C, D)
     h = F.silu(ops.grouped_matmul(buf, p.wg)) * ops.grouped_matmul(buf, p.wu)
     y = ops.grouped_matmul(h, p.wd)
 
-    gathered = y[sorted_e, slot]  # (N*K, D)
-    wts = top_vals.reshape(-1)[order]
-    gathered = gathered * torch.where(keep, wts, 0.0)[:, None].to(y.dtype)
-    # Combine without atomics: put the entries back in (token, k) order and
-    # sum over k.  The reference scatter-adds them one by one; in bf16 that
-    # order of rounding differs from this sum only within the bf16 bar, and
-    # in fp32 only by the order of K additions.
-    per_token = torch.empty_like(gathered).index_copy_(0, order, gathered)
-    out = per_token.reshape(N, K, D).sum(dim=1)
-    return out.reshape(B, S, D)[rows], aux
+    wts = top_vals.reshape(-1)
+    if split:
+        wts = enter(wts)  # each rank's gradient reaches its own entries' weights only
+    wts = torch.where(filled, wts[entry], 0.0)
+    # The combine in one order on every device, without atomics: the slots
+    # sorted by token (stably, so each token's come in slot order, the
+    # reference's order of adds; an empty slot adds an exact 0) and summed
+    # a token at a time.  The lengths sum to the slots, so nothing checks
+    # them on the host (``unsafe``).
+    by_tok = torch.argsort(tok, stable=True)
+    lengths = torch.zeros(N, dtype=torch.int64, device=x.device)
+    lengths.scatter_add_(0, tok, torch.ones_like(tok))
+    rows_out = (y.reshape(El * C, D) * wts[:, None].to(y.dtype))[by_tok]
+    out = torch.segment_reduce(rows_out, "sum", lengths=lengths, unsafe=True)
+    return constrain(out.reshape(B, S, D)[rows], "btd", partial=split), aux
 
 
 # ---------------------------------------------------------------------------
@@ -368,15 +442,19 @@ class Mamba(nn.Module):
         self.norm = parameter(torch.zeros(D, dtype=dt, device=device))
 
 
-def mamba_ssm(p, xc, cfg, h0=None):
+def mamba_ssm(p, xc, cfg, h0=None, split: bool = False):
     """Selective scan given the post-conv activations xc: (B, L, DI).
 
     ``h0`` None: the scan from h = 0 through ``ops.selective_scan`` (under
     grad its backward kernel gives all six gradients).  Otherwise plain steps
-    from ``h0`` (decode).  Returns (y (B, L, DI) in
-    xc's dtype, h_last (B, DI, ST) fp32)."""
+    from ``h0`` (decode).  ``split``: xc holds this model rank's channels,
+    ``w_xdbc`` its rows, whose product is summed over the model ranks.
+    Returns (y (B, L, DI) in xc's dtype, h_last (B, DI, ST) fp32)."""
     ST, R = cfg.ssm_state, cfg.dt_rank_
     xdbc = xc @ p.w_xdbc
+    if split:
+        # Every rank's channels read dt_r, b and c: an all-reduce both ways.
+        xdbc = enter(reduce(xdbc))
     dt_r, b_ssm, c_ssm = xdbc[..., :R], xdbc[..., R : R + ST], xdbc[..., R + ST :]
     dt = F.softplus((dt_r @ p.w_dt).float() + p.b_dt)  # (B, L, DI)
     a = -torch.exp(p.a_log)  # (DI, ST)
@@ -392,16 +470,28 @@ def mamba_ssm(p, xc, cfg, h0=None):
 
 
 def mamba_block(p, x, cfg, state=None):
-    """Full Mamba-1 block.  x: (B, L, D).  state: None (prefill / forward) or
-    {'conv': (B, W-1, DI), 'ssm': (B, DI, ST)} (decode).  Returns (out, new_state)."""
-    xi, z = (x @ p.w_in).chunk(2, dim=-1)
+    """Full Mamba-1 block.  x: (B, L, D), the residual stream.  state: None
+    (prefill / forward) or {'conv': (B, W-1, DI), 'ssm': (B, DI, ST)}
+    (decode).  Returns (out in the stream's layout, new_state).  Split over
+    the model axis each rank runs its DI/tp channels: ``w_in`` is read whole
+    and the rank takes its channels of each of its x and z halves."""
+    split = reads_block(p, "conv_w")
+    x = constrain(x, "btf" if split else "whole")
+    w_in = p.w_in
+    if split:
+        mi, tp = model_rank()
+        di, n = cfg.d_inner, cfg.d_inner // tp
+        w_in = torch.cat([w_in[:, mi * n:(mi + 1) * n], w_in[:, di + mi * n:di + (mi + 1) * n]],
+                         dim=1)
+    xi, z = (x @ w_in).chunk(2, dim=-1)
     prev = state["conv"] if state is not None else None
     xc, new_conv = causal_conv1d(xi, p.conv_w, prev)
     xc = F.silu(xc + p.conv_b)
     h0 = state["ssm"] if state is not None else None
-    y, h_last = mamba_ssm(p, xc, cfg, h0=h0)
+    y, h_last = mamba_ssm(p, xc, cfg, h0=h0, split=split)
     y = y * F.silu(z)
-    return y @ p.w_out, {"conv": new_conv.to(x.dtype), "ssm": h_last}
+    out = constrain(y @ p.w_out, "btd", partial=split)
+    return out, {"conv": new_conv.to(x.dtype), "ssm": h_last}
 
 
 class RGLRU(nn.Module):
@@ -429,16 +519,24 @@ RGLRU_C = 8.0
 def rglru_block(p, x, cfg, state=None):
     """Griffin recurrent block: conv1d -> RG-LRU, gated by a GeLU branch.
 
-    x: (B, L, D); state: None or {'conv': (B, 3, DI), 'lru': (B, DI) fp32}.
-    Returns (out, new_state)."""
+    x: (B, L, D), the residual stream; state: None or {'conv': (B, 3, DI),
+    'lru': (B, DI) fp32}.  Returns (out in the stream's layout, new_state).
+    Split over the model axis each rank runs its DI/tp channels: ``w_x`` and
+    ``w_y`` column-parallel, the gates' rows its channels, their full-DI
+    addends reduce-scattered onto its channels, ``w_out`` row-parallel."""
+    split = reads_block(p, "w_x")
+    x = constrain(x, "btf" if split else "whole")
     xb = x @ p.w_x
     yb = F.gelu(x @ p.w_y, approximate="tanh")  # jax.nn.gelu's default
     prev = state["conv"] if state is not None else None
     xc, new_conv = causal_conv1d(xb, p.conv_w, prev)
     xc = xc + p.conv_b
 
-    i_gate = torch.sigmoid((xc @ p.w_input_gate).float())
-    r_gate = torch.sigmoid((xc @ p.w_rec_gate).float())
+    gate_in, gate_rec = xc @ p.w_input_gate, xc @ p.w_rec_gate
+    if split:
+        gate_in, gate_rec = scatter_seq(gate_in, dim=-1), scatter_seq(gate_rec, dim=-1)
+    i_gate = torch.sigmoid(gate_in.float())
+    r_gate = torch.sigmoid(gate_rec.float())
     log_a = -RGLRU_C * r_gate * F.softplus(p.lambda_p)
     a = torch.exp(log_a)
     gated_x = i_gate * xc.float()
@@ -448,5 +546,5 @@ def rglru_block(p, x, cfg, state=None):
         h_all, h_last = ops.lru_scan(a, drive)
     else:
         h_all, h_last = _plain_scan_from(state["lru"], a, drive)
-    out = (h_all.to(x.dtype) * yb) @ p.w_out
+    out = constrain((h_all.to(x.dtype) * yb) @ p.w_out, "btd", partial=split)
     return out, {"conv": new_conv.to(x.dtype), "lru": h_last}

@@ -17,6 +17,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..compat import resolve_device
 from ..configs.base import ArchConfig
+from ..parallel.act_sharding import (
+    all_reduce_max, constrain, model_rank, reads_block, reduce, seq_parallel, seq_share,
+)
 from . import recurrent, transformer
 
 
@@ -101,26 +104,36 @@ def _hidden(params, batch, cfg: ArchConfig, remat: str):
                                       image_embeds=batch.get("image_embeds"), remat=remat)
 
 
-def _nll(logits, targets, mask):
-    """The masked next-token NLL summed over (B, S), in fp32."""
+def _nll(logits, targets, mask, v0=None):
+    """The masked next-token NLL summed over (B, S), in fp32.  ``v0`` not
+    None: ``logits`` are this model rank's vocabulary columns from ``v0``
+    on, and the row max, the sum of exponentials and the target's logit are
+    reduced over the model ranks (the (B, S, V) logits are never gathered)."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    if v0 is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    else:
+        top = all_reduce_max(logits.detach().amax(dim=-1))
+        logz = top + torch.log(reduce(torch.exp(logits - top[..., None]).sum(dim=-1)))
+        ids = targets.long() - v0
+        mine = (ids >= 0) & (ids < logits.shape[-1])
+        gold = torch.gather(logits, -1, torch.where(mine, ids, 0)[..., None])[..., 0]
+        gold = reduce(torch.where(mine, gold, 0.0))
     return ((logz - gold) * mask).sum()
 
 
-def _xent(logits, targets, mask):
-    return _nll(logits, targets, mask) / torch.clamp(mask.sum(), min=1.0)
+def _chunk_nll(x, head, targets, mask, v0=None):
+    return _nll(x @ head, targets, mask, v0)
 
 
-def _chunk_nll(x, head, targets, mask):
-    return _nll(x @ head, targets, mask), mask.sum()
-
-
-def _hidden_xent_chunked(x, head, targets, mask, chunk: int):
-    """CE over sequence chunks, each chunk's logits recomputed in the
-    backward (``torch.utils.checkpoint``), so the (B, S, V) logits never
-    exist at once: minicpm-2b at 4 x 4096 would need 8 GB for them in fp32."""
+def _nll_sum(x, head, targets, mask, chunk: int = 0, v0=None):
+    """The NLL summed over the rows of ``x``.  With ``chunk``, over sequence
+    chunks, each chunk's logits recomputed in the backward
+    (``torch.utils.checkpoint``), so the (B, S, V) logits never exist at
+    once: minicpm-2b at 4 x 4096 would need 8 GB for them in fp32."""
+    if chunk <= 0:
+        return _chunk_nll(x, head, targets, mask, v0)
     S = x.shape[1]
     chunk = min(chunk, S)
     pad = (-S) % chunk
@@ -128,12 +141,30 @@ def _hidden_xent_chunked(x, head, targets, mask, chunk: int):
         x = F.pad(x, (0, 0, 0, pad))
         targets = F.pad(targets, (0, pad))
         mask = F.pad(mask, (0, pad))
-    nll = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    nll = torch.zeros((), dtype=torch.float32, device=x.device)
     for c in range(0, S + pad, chunk):
-        part = (x[:, c:c + chunk], head, targets[:, c:c + chunk], mask[:, c:c + chunk])
-        n, m = checkpoint(_chunk_nll, *part, use_reentrant=False)
-        nll, cnt = nll + n, cnt + m
-    return nll / torch.clamp(cnt, min=1.0)
+        part = (x[:, c:c + chunk], head, targets[:, c:c + chunk], mask[:, c:c + chunk], v0)
+        nll = nll + checkpoint(_chunk_nll, *part, use_reentrant=False)
+    return nll
+
+
+def _xent(params, x, targets, mask, cfg: ArchConfig, chunk: int = 0):
+    """The mean masked CE of the head over the final hidden ``x`` (the
+    residual stream's layout).  Over a model axis: the head split by
+    vocabulary (its columns this rank's, over the whole sequence), or read
+    whole on this rank's share of the sequence under sequence parallelism,
+    the NLL summed over the model ranks."""
+    head = params.head()
+    owner = "embed" if cfg.tie_embeddings else "lm_head"
+    if reads_block(params, owner):
+        mi, _ = model_rank()
+        v0 = mi * head.shape[1]
+        nll = _nll_sum(constrain(x, "btf"), head, targets, mask, chunk, v0)
+    elif seq_parallel():
+        nll = reduce(_nll_sum(x, head, seq_share(targets), seq_share(mask), chunk))
+    else:
+        nll = _nll_sum(x, head, targets, mask, chunk)
+    return nll / torch.clamp(mask.sum(), min=1.0)
 
 
 def loss_fn(params, batch, cfg: ArchConfig, remat: str = "full", loss_chunk: int = 0,
@@ -144,20 +175,17 @@ def loss_fn(params, batch, cfg: ArchConfig, remat: str = "full", loss_chunk: int
     dims 64, 80, 128 and 256, so every family trains there."""
     transformer.require_ported(cfg)
     x, aux = _hidden(params, batch, cfg, remat)
-    head = params.head()
     if cfg.family == "audio":
         targets = batch["labels"]
-        loss = _xent(x @ head, targets, torch.ones(targets.shape, device=x.device))
+        loss = _xent(params, x, targets, torch.ones(targets.shape, device=x.device), cfg)
         return loss, {"xent": loss}
 
     tokens = batch["tokens"]
     targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
     mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
     mask[:, -1] = 0.0
-    if loss_chunk > 0 and cfg.family not in ("ssm", "hybrid"):
-        # the recurrent stacks take the full CE, as in the reference
-        loss = _hidden_xent_chunked(x, head, targets, mask, loss_chunk)
-    else:
-        loss = _xent(x @ head, targets, mask)
+    # the recurrent stacks take the full CE, as in the reference
+    chunk = loss_chunk if cfg.family not in ("ssm", "hybrid") else 0
+    loss = _xent(params, x, targets, mask, cfg, chunk)
     total = loss + aux_weight * aux
     return total, {"xent": loss, "aux": aux}

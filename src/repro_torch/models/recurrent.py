@@ -48,7 +48,7 @@ class _LM(nn.Module):
 
 
 def _embed(params, cfg, tokens):
-    return params.embed[tokens].to(torch_dtype(cfg.activation_dtype))
+    return L.embed(params, tokens, torch_dtype(cfg.activation_dtype))
 
 
 def _zero_cache(cfg, batch, seq_len, device):
@@ -81,8 +81,8 @@ def _mamba_layer(blk, x, cfg):
 
 
 def mamba_hidden(params: MambaLM, cfg: ArchConfig, tokens, remat: str = "full"):
-    """Full-sequence forward up to the final norm -> x (B, S, d_model),
-    grad-enabled."""
+    """Full-sequence forward up to the final norm -> x (B, S, d_model) in
+    the residual stream's layout, grad-enabled."""
     x = _embed(params, cfg, tokens)
     layer = _remat(_mamba_layer, "none" if remat == "none" else "full")
     for blk in params.blocks:
@@ -193,8 +193,8 @@ def _griffin_layer(lyr, x, cfg, positions):
 
 
 def griffin_hidden(params: GriffinLM, cfg: ArchConfig, tokens, remat: str = "full"):
-    """Full-sequence forward up to the final norm -> x (B, S, d_model),
-    grad-enabled."""
+    """Full-sequence forward up to the final norm -> x (B, S, d_model) in
+    the residual stream's layout, grad-enabled."""
     x = _embed(params, cfg, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
     layer = _remat(_griffin_layer, "none" if remat == "none" else "full")

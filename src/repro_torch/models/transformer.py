@@ -27,6 +27,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ArchConfig, cache_specs, torch_dtype
+from ..parallel.act_sharding import constrain
 from . import layers as L
 
 # Why the LM facade takes no config of the other families.
@@ -167,16 +168,17 @@ def _layers(params):
 
 
 def _embed(params, cfg, tokens):
-    return params.embed[tokens].to(torch_dtype(cfg.activation_dtype))
+    return L.embed(params, tokens, torch_dtype(cfg.activation_dtype))
 
 
 def _inputs(params, cfg, tokens, frames, image_embeds):
-    """The residual stream's input (token embeddings, or ``audio``'s frames
-    in the activation dtype) and the image in the same dtype (or None)."""
+    """The residual stream's input in its layout (token embeddings, or
+    ``audio``'s frames in the activation dtype) and the image in the same
+    dtype (or None)."""
     if cfg.family == "vlm" and image_embeds is None:
         raise ValueError(f"{cfg.name}: the cross-attention layers need image_embeds")
     if cfg.family == "audio":
-        x = frames.to(torch_dtype(cfg.activation_dtype))
+        x = constrain(frames.to(torch_dtype(cfg.activation_dtype)), "btd")
     else:
         x = _embed(params, cfg, tokens)
     img = None if image_embeds is None else image_embeds.to(x.dtype)
@@ -215,11 +217,13 @@ def _self_block(blk, x, cfg, positions):
 
 def hidden_forward(params: Transformer, cfg: ArchConfig, tokens=None, frames=None,
                    image_embeds=None, remat: str = "full"):
-    """Full-sequence forward up to the final norm -> (x (B, S, d_model),
-    aux_loss), grad-enabled.  Self blocks run under ``remat``; a VLM's cross
-    blocks are not rematerialized, as in the reference."""
+    """Full-sequence forward up to the final norm -> (x (B, S, d_model) in
+    the residual stream's layout, aux_loss), grad-enabled.  Self blocks run
+    under ``remat``; a VLM's cross blocks are not rematerialized, as in the
+    reference."""
     x, img = _inputs(params, cfg, tokens, frames, image_embeds)
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    S = (frames if tokens is None else tokens).shape[1]  # the stream may hold a share
+    positions = torch.arange(S, device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     self_block = _remat(_self_block, remat)
     for blk, cross, _ in _layers(params):

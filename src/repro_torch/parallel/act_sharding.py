@@ -1,16 +1,37 @@
-"""Activation sharding (``repro.parallel.act_sharding``'s counterpart).
+"""Activation sharding and the ``"model"`` axis's collectives
+(``repro.parallel.act_sharding``'s counterpart).
 
-The reference constrains activations to batch-over-data at block
-boundaries (GSPMD hints, ``with_sharding_constraint``), so the partitioner
-all-gathers the small layer weights and keeps the activations sharded.  The
-port writes that schedule out (``train.steps.jit_train_step``): each rank
-computes on plain local tensors, its own rows of the batch, with every
-weight gathered whole.  :func:`constrain` is kept for the slice that
-computes over ``"model"``: on a DTensor it redistributes to the kind's
-placements, on a plain tensor it returns it, as the reference does outside
-a mesh.  The models do not call it yet.
+The reference constrains activations at block boundaries (GSPMD hints,
+``with_sharding_constraint``) and lets the partitioner insert the
+collectives its tensor-, sequence- and expert-parallel rules imply.  The
+port writes them out (``train.steps.jit_train_step``): each rank computes on
+plain local tensors, its own rows of the batch, and under a ``"model"``
+axis of more than one rank its own heads, MLP columns, experts, channels
+and vocabulary rows, reading those weights as its block
+(``parallel.sharding.model_reads``).  The residual stream between blocks is
+whole and the same on every model rank, or under sequence parallelism
+(``ActivationPolicy.seq``) the rank's share of the sequence.  The layers
+change its layout where they enter and leave their split compute:
 
-:func:`gather_batch` is what the MoE layer needs of the policy now: its
+* ``constrain(x, "btf")``: the stream -> the input of column-parallel
+  products, the full sequence on every model rank (:func:`enter`, or under
+  sequence parallelism :func:`gather_seq`);
+* ``constrain(y, "btd", partial=True)``: a row-parallel product's addend
+  on this rank -> the stream (:func:`reduce`, or :func:`scatter_seq`);
+* ``constrain(x, "btd")``: a tensor whole and the same on every model rank
+  (an input, or a layer computed whole) -> the stream (``x``, or this
+  rank's share of the sequence);
+* ``constrain(x, "whole")``: the stream -> whole on every model rank, for a
+  layer computed whole (``x``, or an all-gather along the sequence whose
+  backward keeps this rank's share).
+
+The collectives are autograd functions over the model axis's process group:
+its ranks in rank order are the model ranks in order, as the parameters'
+``DeviceMesh`` places their blocks.  With no policy, or a model axis of one
+rank, every one of them returns ``x`` itself, so world size 1 is
+:func:`~repro_torch.train.steps.make_train_step` to the bit.
+
+:func:`gather_batch` is what the MoE layer needs of the data axes: its
 capacity, its drops and its aux loss are functions of the global batch, so
 under a policy whose data axes span more than one rank it gathers the rows
 of every data rank, with a gradient, and keeps its own.
@@ -23,12 +44,12 @@ The policy is process-global, as in the reference (models are functions of
 from __future__ import annotations
 
 import contextlib
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 import torch.distributed as dist
 
-from .sharding import data_position, placements
+from .sharding import WHOLE, Read, data_position
 
 
 @dataclass(frozen=True)
@@ -37,6 +58,9 @@ class ActivationPolicy:
     tp: str | None  # axis for feature/head dims
     seq: str | None = None  # axis for the sequence dim (sequence parallelism)
     mesh: object = None  # the port's Mesh: its axes' ranks and groups
+    # parameter name -> how a placed model reads it (sharding.model_reads);
+    # train.steps.activation_policy fills it for every parameter
+    reads: dict = field(default_factory=dict)
 
 
 _POLICY: ActivationPolicy | None = None
@@ -62,26 +86,228 @@ def using_policy(policy: ActivationPolicy | None):
         set_policy(before)
 
 
-def _spec(pol: ActivationPolicy, kind: str):
-    return {"btd": (pol.dp, pol.seq, None), "bd": (pol.dp, None),
-            "btf": (pol.dp, pol.seq, pol.tp), "ecd": (pol.tp, None, None),
-            "nd": (pol.dp, None)}.get(kind)
+# --- the model axis ----------------------------------------------------------
 
 
-def constrain(x, kind: str):
-    """Redistribute a DTensor ``x`` by activation kind.
-
-    kinds: 'btd' (batch, seq, features), 'bd' (batch, features),
-    'btf' (batch, seq, sharded features), 'ecd' (expert, capacity, features),
-    'nd' (flattened tokens, features).  A plain tensor, or no policy, or an
-    unknown kind: ``x`` as it is."""
-    from torch.distributed.tensor import DTensor
-
+def model_size() -> int:
+    """The model axis's rank count under the installed policy; 1 without one."""
     pol = _POLICY
-    spec = None if pol is None else _spec(pol, kind)
-    if spec is None or not isinstance(x, DTensor):
+    if pol is None or pol.tp is None or pol.mesh is None:
+        return 1
+    return pol.mesh.shape[pol.tp]
+
+
+def model_rank() -> tuple[int, int]:
+    """(this rank's position on the model axis, its rank count): the
+    position among the axis's ranks in rank order, which is the order of
+    its process group and of the parameters' ``DeviceMesh``; (0, 1) without
+    a policy or a model axis."""
+    n = model_size()
+    if n == 1:
+        return 0, 1
+    axis = _POLICY.mesh.axis(_POLICY.tp)
+    return sorted(axis.ranks).index(dist.get_rank()), n
+
+
+def seq_parallel() -> bool:
+    """Whether the residual stream holds this rank's share of the sequence."""
+    return _POLICY is not None and _POLICY.seq is not None and model_size() > 1
+
+
+def read_of(name: str) -> Read:
+    """How a placed model reads parameter ``name`` under the installed
+    policy: whole, without one or over a model axis of one rank.  Raises
+    where the policy has no read of it (one not built by
+    ``train.steps.activation_policy``)."""
+    pol = _POLICY
+    if pol is None or model_size() == 1:
+        return WHOLE
+    if name not in pol.reads:
+        raise KeyError(f"{name}: the activation policy has no read of it; build the policy "
+                       "with train.steps.activation_policy(plan, mesh, cfg)")
+    return pol.reads[name]
+
+
+def reads_block(module, name: str) -> bool:
+    """Whether ``module.<name>`` reads as this model rank's block of it
+    (``parallel.sharding.place`` and the policy's reads): the layers compute
+    on their own heads, columns, experts or channels where it does."""
+    plist = getattr(module, "parametrizations", None)
+    if plist is None or name not in plist:
+        return False
+    return read_of(plist[name][0].name).dim is not None
+
+
+class _Axis:
+    """The model axis as the collectives see it: its process group, its
+    rank count and this rank's position; taken at the forward, so a
+    backward runs on the forward's axis."""
+
+    def __init__(self):
+        self.index, self.size = model_rank()
+        self.group = _POLICY.mesh.axis(_POLICY.tp).group
+
+    def gather(self, x, dim: int):
+        parts = [torch.empty_like(x) for _ in range(self.size)]
+        dist.all_gather(parts, x.contiguous(), group=self.group)
+        return torch.cat(parts, dim=dim)
+
+    def reduce_scatter(self, x, dim: int):
+        x = x.movedim(dim, 0).contiguous()
+        out = x.new_empty((x.shape[0] // self.size,) + tuple(x.shape[1:]))
+        dist.reduce_scatter_tensor(out, x, group=self.group)
+        return out.movedim(0, dim)
+
+    def all_reduce(self, x):
+        x = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(x, group=self.group)
         return x
-    return x.redistribute(x.device_mesh, placements(spec, x.device_mesh))
+
+    def own(self, x, dim: int):
+        n = x.shape[dim] // self.size
+        return x.narrow(dim, self.index * n, n)
+
+
+class _Enter(torch.autograd.Function):
+    """Identity forward, all-reduce backward: the start of a column-parallel region."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.axis = _Axis()
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.axis.all_reduce(grad)
+
+
+class _Reduce(torch.autograd.Function):
+    """All-reduce forward, identity backward: the end of a row-parallel product."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _Axis().all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad
+
+
+class _GatherSeq(torch.autograd.Function):
+    """All-gather along ``dim`` forward, reduce-scatter backward."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.axis, ctx.dim = _Axis(), dim
+        return ctx.axis.gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.axis.reduce_scatter(grad, ctx.dim), None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """Reduce-scatter along ``dim`` forward, all-gather backward."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.axis, ctx.dim = _Axis(), dim
+        return ctx.axis.reduce_scatter(x, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.axis.gather(grad, ctx.dim), None
+
+
+class _ReplicateSeq(torch.autograd.Function):
+    """All-gather along ``dim`` forward for a consumer that computes the
+    same on every model rank; the backward keeps this rank's share of the
+    (equal) gradients."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.axis, ctx.dim = _Axis(), dim
+        return ctx.axis.gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.axis.own(grad, ctx.dim).contiguous(), None
+
+
+class _SplitSeq(torch.autograd.Function):
+    """This rank's share along ``dim`` forward; the backward all-gathers the
+    shares' gradients, so every model rank gets the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.axis, ctx.dim = _Axis(), dim
+        return ctx.axis.own(x, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.axis.gather(grad, ctx.dim), None
+
+
+def enter(x):
+    """Identity forward, all-reduce over the model axis backward."""
+    return x if model_size() == 1 else _Enter.apply(x)
+
+
+def reduce(x):
+    """All-reduce over the model axis forward, identity backward."""
+    return x if model_size() == 1 else _Reduce.apply(x)
+
+
+def gather_seq(x, dim: int = 1):
+    """The model ranks' shares along ``dim`` concatenated in order, forward;
+    reduce-scatter backward."""
+    return x if model_size() == 1 else _GatherSeq.apply(x, dim)
+
+
+def scatter_seq(x, dim: int = 1):
+    """The sum over the model ranks, this rank's share of it along ``dim``,
+    forward; all-gather backward."""
+    return x if model_size() == 1 else _ScatterSeq.apply(x, dim)
+
+
+def all_reduce_max(x):
+    """The elementwise max over the model ranks of ``x``, which carries no
+    gradient (a softmax's shift)."""
+    if model_size() == 1:
+        return x
+    x = x.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=_Axis().group)
+    return x
+
+
+def seq_share(x, dim: int = 1):
+    """This rank's share of the sequence of an input that needs no gradient
+    (tokens, targets, masks) under sequence parallelism; else ``x``."""
+    return _Axis().own(x, dim) if seq_parallel() else x
+
+
+def constrain(x, kind: str, partial: bool = False):
+    """``x`` in the layout of activation kind ``kind`` over the model axis.
+
+    kinds: 'btd' (the residual stream: batch, sequence, features; from a
+    row-parallel addend with ``partial``, else from a tensor whole on every
+    model rank), 'btf' (from the stream, the input of column-parallel
+    products: batch, the whole sequence, features to be split), 'whole'
+    (from the stream, whole on every model rank).  'bd', 'ecd', 'nd' and
+    unknown kinds, no policy, or a model axis of one rank: ``x`` as it is.
+    See the module's docstring."""
+    if model_size() == 1:
+        return x
+    sp = seq_parallel()
+    if kind == "btd":
+        if partial:
+            return scatter_seq(x) if sp else reduce(x)
+        return _SplitSeq.apply(x, 1) if sp else x
+    if kind == "btf":
+        return gather_seq(x) if sp else enter(x)
+    if kind == "whole":
+        return _ReplicateSeq.apply(x, 1) if sp else x
+    return x
 
 
 class _GatherRows(torch.autograd.Function):

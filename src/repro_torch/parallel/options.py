@@ -4,10 +4,9 @@ Set process-globally before a model runs.  The fields and defaults are the
 reference's (``repro.parallel.options``).  In the port both attention impls
 run the hand-written flash-attention kernel on the card: the kernel already
 is the chunked online-softmax path.  ``moe_constrain`` and
-``moe_gather_constrain`` are read by no model yet: they name
-``parallel.act_sharding.constrain`` calls, which the models make once
-compute is split over ``"model"`` (ROADMAP.md); the GSPMD trainer's
-activations are plain local tensors, where a constraint is the identity.
+``moe_gather_constrain`` are read by no model: in the reference they add
+GSPMD hints on the MoE's dispatch buffers, and the port's MoE layer writes
+its expert-parallel dispatch out (``models.layers.moe``) whatever they say.
 """
 
 from __future__ import annotations

@@ -22,7 +22,10 @@ parameter it carries.
 :func:`placements` turns a spec into one DTensor placement a mesh dim, and
 :class:`Layout` pairs them with a ``DeviceMesh`` (``NamedSharding``'s
 counterpart).  :func:`place` shards a module's parameters into DTensors
-and has each one gathered whole where the model reads it (see
+and has each one gathered where the model reads it: over the data axes
+only, as this model rank's block, where :func:`model_reads` says the layer
+computes on its own heads, columns, experts, channels or vocabulary rows,
+else whole (see :mod:`repro_torch.parallel.act_sharding` and
 :mod:`repro_torch.train.steps`).
 """
 
@@ -322,18 +325,130 @@ def shard(t: torch.Tensor, layout: Layout):
                               shape=d.shape, stride=d.stride())
 
 
+class Read(NamedTuple):
+    """How a layer reads a placed parameter under a model axis of more than
+    one rank.  ``dim`` not None: this model rank's block along that dim (the
+    dim its spec splits over ``"model"``), gathered over the data axes only;
+    its gradient is exact and stays a shard.  ``dim`` None: the parameter
+    whole; ``reduce`` says how its gradient adds up over the model ranks,
+    ``"avg"`` where every model rank uses all of it (each holds the whole
+    gradient) and ``"sum"`` where each uses a part (a norm on the rank's
+    share of the sequence, the one K/V head of its query heads)."""
+
+    dim: int | None = None
+    reduce: str = "avg"
+
+
+WHOLE = Read()
+
+
+def _attention_split(n_heads: int, n_kv_heads: int, tp: int) -> str | None:
+    """How attention splits over ``tp`` model ranks: ``"kv"``, query and KV
+    heads both (each rank its own of each); ``"q"``, query heads only, where
+    every rank's query heads share one KV head, which it computes from
+    ``wk``/``wv`` read whole; None, computed whole (heads that do not divide,
+    or a rank's query heads across KV heads)."""
+    if tp == 1 or n_heads % tp:
+        return None
+    if n_kv_heads % tp == 0:
+        return "kv"
+    return "q" if (n_heads // n_kv_heads) % (n_heads // tp) == 0 else None
+
+
+_CHANNELS = {"conv_w": 1, "conv_b": 0, "w_xdbc": 0, "w_dt": 1, "b_dt": 0, "a_log": 0,
+             "d_skip": 0, "w_x": 1, "w_y": 1, "w_input_gate": 0, "w_rec_gate": 0,
+             "lambda_p": 0, "w_out": 0}
+_STREAM = ("norm", "xnorm", "final_norm", "gate")
+
+
+def model_reads(cfg: ArchConfig, p_specs: dict, plan: ShardingPlan, mesh) -> dict:
+    """name -> :class:`Read` for every parameter of ``p_specs`` (name ->
+    ``(shape, dtype)``) on ``mesh``: the reference's tensor-, sequence- and
+    expert-parallel compute.  A block read where the spec's ``"model"``
+    split falls on whole units: attention heads (:func:`_attention_split`),
+    MLP columns, experts, Mamba and RG-LRU channels, vocabulary rows (the
+    embedding's and the head's, tied or not).  Read whole: ``w_in`` (its x
+    and z halves are each split; summed), K/V with fewer heads than ranks
+    (summed), the router, and the weights of a layer whose units do not
+    divide; norms, the cross gates and a split MoE's router are summed under
+    sequence parallelism, where each rank applies them to its share.  Raises where a block read's
+    dim is not split over ``"model"`` by the plan's specs."""
+    tp = mesh.shape["model"] if "model" in mesh.axis_names else 1
+    if tp == 1:
+        return {n: WHOLE for n in p_specs}
+    stream = Read(reduce="sum") if plan.seq_parallel else WHOLE
+    heads = _attention_split(cfg.n_heads, cfg.n_kv_heads, tp)
+    by_unit = {
+        "vocab": cfg.vocab % tp == 0,
+        "ff": cfg.d_ff % tp == 0,
+        "experts": cfg.n_experts > 0 and cfg.n_experts % tp == 0,
+        "channels": cfg.d_inner % tp == 0,
+    }
+
+    def one(name: str) -> Read:
+        path = name.split(".")
+        leaf, ctx = path[-1], path[-2] if len(path) > 1 else ""
+        if leaf == "embed":
+            return Read(0) if by_unit["vocab"] else stream
+        if leaf == "lm_head":
+            return Read(1) if by_unit["vocab"] else stream
+        if leaf in _STREAM:
+            return stream
+        if ctx == "moe":
+            if leaf == "router":  # every rank routes its share of the stream
+                return stream if by_unit["experts"] else WHOLE
+            return Read(0) if by_unit["experts"] else WHOLE
+        if ctx == "attn":
+            if heads is None:
+                return WHOLE
+            if leaf in ("wk", "wv") and heads == "q":
+                return Read(reduce="sum")
+            return Read(0 if leaf == "wo" else 1)
+        if ctx == "mlp":
+            return Read(0 if leaf in ("wd", "w2") else 1) if by_unit["ff"] else WHOLE
+        if leaf == "w_in":
+            return Read(reduce="sum") if by_unit["channels"] else WHOLE
+        if leaf in _CHANNELS:
+            return Read(_CHANNELS[leaf]) if by_unit["channels"] else WHOLE
+        return WHOLE
+
+    reads = {n: one(n) for n in p_specs}
+    specs = param_spec_tree(p_specs, plan, mesh)
+    for n, r in reads.items():
+        if r.dim is not None and specs[n][r.dim] != "model":
+            raise ValueError(f"{n}: read as a model block along dim {r.dim}, but its spec "
+                             f"{specs[n]} does not split that dim over 'model'")
+    return reads
+
+
 class _Gather(nn.Module):
-    """The parametrization that reads a DTensor parameter whole: an
-    all-gather over every mesh dim, whose backward sends each gradient
-    back to the parameter's placements averaged over the ranks (a
-    reduce-scatter over a sharded dim, an all-reduce over a replicated one)."""
+    """The parametrization that reads a DTensor parameter ``name``: by the
+    installed activation policy's :class:`Read` of it
+    (``act_sharding.read_of``), this model rank's block (an all-gather over
+    the other mesh dims) or the whole (an all-gather over every mesh dim).
+    The backward sends each gradient back to the parameter's placements:
+    averaged over the data dims (a reduce-scatter over a sharded dim, an
+    all-reduce over a replicated one), a shard over ``"model"`` for a block,
+    and for a whole read by its ``reduce`` over ``"model"``."""
+
+    def __init__(self, name: str):
+        super().__init__()
+        self.name = name
 
     def forward(self, w):
-        from torch.distributed.tensor import Partial, Replicate
+        from torch.distributed.tensor import Partial, Replicate, Shard
 
-        n = w.device_mesh.ndim
-        return w.redistribute(w.device_mesh, [Replicate()] * n).to_local(
-            grad_placements=[Partial("avg")] * n)
+        from .act_sharding import read_of
+
+        read = read_of(self.name)
+        names = w.device_mesh.mesh_dim_names
+        if read.dim is None:
+            to = [Replicate()] * len(names)
+            grad = [Partial(read.reduce if a == "model" else "avg") for a in names]
+        else:
+            to = [Shard(read.dim) if a == "model" else Replicate() for a in names]
+            grad = [Shard(read.dim) if a == "model" else Partial("avg") for a in names]
+        return w.redistribute(w.device_mesh, to).to_local(grad_placements=grad)
 
 
 def _is_dtensor(t) -> bool:
@@ -345,9 +460,9 @@ def _is_dtensor(t) -> bool:
 def place(module: nn.Module, param_layouts: dict, prefix: str = "") -> nn.Module:
     """Shards every parameter of ``module`` that is not yet a DTensor into
     the :class:`Layout` of its name (``prefix`` + its name in ``module``)
-    and has the module gather it whole where it is read
-    (``torch.nn.utils.parametrize``), so the model's code and the kernels
-    see plain tensors.  Returns ``module``."""
+    and has the module gather it where it is read
+    (``torch.nn.utils.parametrize``, :class:`_Gather`), so the model's code
+    and the kernels see plain tensors.  Returns ``module``."""
     from torch.nn.utils import parametrize
 
     for name, p in list(module.named_parameters()):
@@ -358,7 +473,7 @@ def place(module: nn.Module, param_layouts: dict, prefix: str = "") -> nn.Module
         setattr(sub, leaf, nn.Parameter(shard(p, param_layouts[prefix + name]),
                                         requires_grad=p.requires_grad))
         del p
-        parametrize.register_parametrization(sub, leaf, _Gather(), unsafe=True)
+        parametrize.register_parametrization(sub, leaf, _Gather(prefix + name), unsafe=True)
     return module
 
 

@@ -14,19 +14,26 @@
   plan implies; the port writes them out with DTensor:
 
   - every parameter is a DTensor in its spec's placements
-    (``parallel.sharding``), gathered whole where the model reads it and
-    its gradient averaged back into those placements (a reduce-scatter over
-    a sharded dim): the kernels see plain tensors;
-  - the batch is split over the data axes only: each rank computes the
-    loss of its own contiguous rows, and the average over the data ranks of
-    those equal shards' means is the global mean (every row of every
-    family masks the same number of tokens).  The MoE layer, whose capacity,
+    (``parallel.sharding``), gathered where the model reads it and its
+    gradient sent back into those placements (averaged over the data axes:
+    a reduce-scatter over a sharded dim);
+  - the batch is split over the data axes: each rank computes the loss of
+    its own contiguous rows, and the average over the data ranks of those
+    equal shards' means is the global mean (every row of every family
+    masks the same number of tokens).  The MoE layer, whose capacity,
     drops and aux loss depend on the global batch, gathers the rows of
     every data rank (``parallel.act_sharding.gather_batch``);
-  - the ``"model"`` axis shards the parameters' storage only: compute is
-    replicated over it.  Tensor- and sequence-parallel compute is a later
-    slice (ROADMAP.md), so ``plan.seq_parallel`` changes the batch spec tree
-    and the policy, not the numbers;
+  - over ``"model"`` each rank computes the reference's tensor- and
+    expert-parallel share (``parallel.sharding.model_reads``): its own
+    attention heads, MLP columns, experts, Mamba and RG-LRU channels and
+    vocabulary rows, each such weight gathered over the data axes only as
+    its block, the kernels run at those local widths, and the row-parallel
+    products' addends reduced over the model axis's process group
+    (``parallel.act_sharding.constrain``).  A layer whose units do not
+    divide the axis computes whole, from weights gathered whole.  Under
+    ``plan.seq_parallel`` the residual stream between blocks holds the
+    rank's share of the sequence: the norms run on it, the column-parallel
+    products take it gathered, the row-parallel ones reduce-scatter it;
   - AdamW updates each rank's shards in place; under ZeRO-1 (moments and
     master sharded, parameters replicated) each rank updates the slice its
     moments own, then the parameter is all-gathered.
@@ -53,6 +60,7 @@ from ..parallel.sharding import (
     data_position,
     device_mesh,
     layouts,
+    model_reads,
     opt_state_sharding,
     param_spec_tree,
     parameters,
@@ -101,23 +109,26 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer, remat: str = "full",
 # ---------------------------------------------------------------------------
 
 
-def activation_policy(plan: ShardingPlan, mesh) -> ActivationPolicy:
-    """The plan's activation policy: batch over the data axes (see
-    ``parallel.act_sharding``)."""
+def activation_policy(plan: ShardingPlan, mesh, cfg: ArchConfig) -> ActivationPolicy:
+    """The plan's activation policy: batch over the data axes, features over
+    ``"model"``, the sequence too under ``plan.seq_parallel`` (see
+    ``parallel.act_sharding``), and how a placed model of ``cfg`` reads each
+    parameter (``parallel.sharding.model_reads``)."""
     return ActivationPolicy(
         dp=plan.dp_axes(mesh),
         tp="model" if "model" in mesh.axis_names else None,
         seq="model" if plan.seq_parallel else None,
         mesh=mesh,
+        reads=model_reads(cfg, lm.param_specs(cfg), plan, mesh),
     )
 
 
-def install_activation_policy(plan: ShardingPlan, mesh) -> ActivationPolicy:
+def install_activation_policy(plan: ShardingPlan, mesh, cfg: ArchConfig) -> ActivationPolicy:
     """Installs :func:`activation_policy` for the whole process, as the
     reference's does, and returns it.  :func:`jit_train_step` does not call
     it: its step installs the policy for its own duration only, so no MoE
     layer run later in the process gathers over this mesh."""
-    policy = activation_policy(plan, mesh)
+    policy = activation_policy(plan, mesh, cfg)
     set_policy(policy)
     return policy
 
@@ -183,7 +194,7 @@ def jit_train_step(cfg: ArchConfig, optimizer: Optimizer, plan: ShardingPlan, me
 
     device = resolve_device(device)
     one_rank_world(device)
-    policy = activation_policy(plan, mesh)
+    policy = activation_policy(plan, mesh, cfg)
     p_specs = lm.param_specs(cfg)
     o_specs = shapes_of(optimizer.init(
         {n: torch.empty(shape, dtype=dt, device="meta") for n, (shape, dt) in p_specs.items()}))

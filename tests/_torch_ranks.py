@@ -218,8 +218,11 @@ def _dp_train(rank, inputs):
 
 
 # The GSPMD trainer's cases on a (2, 4) ("data", "model") mesh: name ->
-# (arch, ShardingPlan fields).  ZeRO-1 replicates the parameters
-# (fsdp=False) and shards the moments.
+# (GSPMD_CONFIGS key, ShardingPlan fields).  ZeRO-1 replicates the
+# parameters (fsdp=False) and shards the moments.  "tied_chunk*": the tied
+# vocabulary-parallel head through the chunked loss (8-token chunks, each
+# recomputed in the backward); "indivisible*": layers whose heads,
+# vocabulary and MLP columns do not divide the model axis, computed whole.
 GSPMD_VARIANTS = {
     "fsdp": ("granite-8b", {"fsdp": True}),
     "no_fsdp": ("granite-8b", {"fsdp": False}),
@@ -227,25 +230,45 @@ GSPMD_VARIANTS = {
     "seq_parallel": ("granite-8b", {"fsdp": True, "seq_parallel": True}),
     "moe": ("qwen3-moe-30b-a3b", {"fsdp": True}),
     "ssm": ("falcon-mamba-7b", {"fsdp": True}),
+    "hybrid": ("recurrentgemma-9b", {"fsdp": True}),
+    "vlm": ("llama-3.2-vision-11b", {"fsdp": True}),
+    "audio": ("hubert-xlarge", {"fsdp": True}),
+    "moe_seq": ("qwen3-moe-30b-a3b", {"fsdp": True, "seq_parallel": True}),
+    "tied_chunk": ("minicpm-2b", {"fsdp": True, "loss_chunk": 8}),
+    "tied_chunk_seq": ("minicpm-2b", {"fsdp": True, "seq_parallel": True, "loss_chunk": 8}),
+    "indivisible": ("indivisible", {"fsdp": True}),
+    "indivisible_seq": ("indivisible", {"fsdp": True, "seq_parallel": True}),
 }
-# The smoke configs' changes, the same on both sides: fp32, and a capacity
-# of 1.0 for the MoE (the smoke config's 4.0 drops nothing), so its drops
-# depend on the global batch.
+# The configs: name -> (arch, changes to its smoke config), the same on both
+# sides: fp32, and a capacity of 1.0 for the MoE (the smoke config's 4.0
+# drops nothing), so its drops depend on the global batch.  "indivisible":
+# granite-8b's with 2 query heads, 250 tokens and 130 MLP columns, none of
+# which divides 4.
+_FP32 = {"param_dtype": "float32", "activation_dtype": "float32"}
 GSPMD_CONFIGS = {
-    "granite-8b": {"param_dtype": "float32", "activation_dtype": "float32"},
-    "qwen3-moe-30b-a3b": {"param_dtype": "float32", "activation_dtype": "float32",
-                          "capacity_factor": 1.0},
-    "falcon-mamba-7b": {"param_dtype": "float32", "activation_dtype": "float32"},
+    "granite-8b": ("granite-8b", _FP32),
+    "qwen3-moe-30b-a3b": ("qwen3-moe-30b-a3b", dict(_FP32, capacity_factor=1.0)),
+    "falcon-mamba-7b": ("falcon-mamba-7b", _FP32),
+    "recurrentgemma-9b": ("recurrentgemma-9b", _FP32),
+    "llama-3.2-vision-11b": ("llama-3.2-vision-11b", _FP32),
+    "hubert-xlarge": ("hubert-xlarge", _FP32),
+    "minicpm-2b": ("minicpm-2b", _FP32),
+    "indivisible": ("granite-8b", dict(_FP32, n_heads=2, vocab=250, d_ff=130)),
 }
+# The VLM's cross gates, set in the JAX parameters before both sides run:
+# at their initial 0, tanh(0) = 0 throws the cross-attention away.
+GSPMD_GATE = 0.5
 GSPMD_LR, GSPMD_STEPS, GSPMD_SEQ, GSPMD_BATCH = 1e-3, 3, 32, 8
 
 
-def gspmd_config(arch: str):
+def gspmd_config(name: str):
+    """The port's config ``name`` of GSPMD_CONFIGS."""
     import dataclasses
 
     from repro_torch.configs.base import get_config
 
-    return dataclasses.replace(get_config(arch).smoke(), **GSPMD_CONFIGS[arch])
+    arch, over = GSPMD_CONFIGS[name]
+    return dataclasses.replace(get_config(arch).smoke(), **over)
 
 
 def _gspmd_train(rank, inputs):
@@ -273,15 +296,15 @@ def _gspmd_train(rank, inputs):
     gather = layers.gather_batch
     out = {"pos": {a: test_mesh.axis(a).index for a in test_mesh.axis_names}}
     for name in inputs["variants"]:
-        arch, kw = GSPMD_VARIANTS[{"moe_local": "moe", "reordered": "fsdp"}.get(name, name)]
+        key, kw = GSPMD_VARIANTS[{"moe_local": "moe", "reordered": "fsdp"}.get(name, name)]
         mesh = reordered if name == "reordered" else test_mesh
         layers.gather_batch = (lambda x: (x, slice(None))) if name == "moe_local" else gather
-        cfg = gspmd_config(arch)
+        cfg = gspmd_config(key)
         opt = adamw(wsd(GSPMD_LR, 10))
         step, (_, _, p_layouts, o_layouts, _) = jit_train_step(cfg, opt, ShardingPlan(**kw),
                                                                mesh, device="cpu")
         model = lm.init(0, cfg, device="cpu")
-        model.load_state_dict(params_from_jax(inputs["params"][arch], cfg))
+        model.load_state_dict(params_from_jax(inputs["params"][key], cfg))
         place(model, p_layouts)
         state = init_opt_state(opt, model, o_layouts)
         spec = DataSpec(cfg=cfg, shape=ShapeSpec("gspmd", GSPMD_SEQ, GSPMD_BATCH, "train"))
@@ -301,6 +324,167 @@ def _gspmd_train(rank, inputs):
             "params": whole if rank == 0 else None,
         }
     layers.gather_batch = gather
+    return out
+
+
+# The split compute's cases on the (2, 4) mesh: name -> (arch, changes to its
+# smoke config on top of GSPMD_CONFIGS' fp32).  "indivisible": 2 query heads,
+# 250 tokens and 130 MLP columns, none of which divides 4; "experts6": 6
+# experts; "lru66": 66 RG-LRU channels, whose layers compute whole.
+TP_CASES = {
+    "dense": ("granite-8b", {}),
+    "tied": ("minicpm-2b", {}),
+    "moe": ("qwen3-moe-30b-a3b", {}),
+    "ssm": ("falcon-mamba-7b", {}),
+    "hybrid": ("recurrentgemma-9b", {}),
+    "vlm": ("llama-3.2-vision-11b", {}),
+    "audio": ("hubert-xlarge", {}),
+    "indivisible": ("granite-8b", {"n_heads": 2, "vocab": 250, "d_ff": 130}),
+    "experts6": ("qwen3-moe-30b-a3b", {"n_experts": 6}),
+    "lru66": ("recurrentgemma-9b", {"lru_width": 66}),
+}
+TP_PLANS = {"fsdp": {"fsdp": True}, "seq": {"fsdp": True, "seq_parallel": True}}
+
+
+def tp_config(case: str):
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+
+    arch, over = TP_CASES[case]
+    return dataclasses.replace(get_config(arch).smoke(), param_dtype="float32",
+                               activation_dtype="float32", **over)
+
+
+def tp_collective_inputs(index: int) -> dict:
+    """Model rank ``index``'s inputs and upstream gradients for each model
+    axis collective (the same on both data rows of the mesh)."""
+    rng = np.random.default_rng(100 + index)
+    f = lambda *shape: rng.standard_normal(shape).astype(np.float32)  # noqa: E731
+    common = np.random.default_rng(99).standard_normal((2, 12, 5)).astype(np.float32)
+    return {"x": f(2, 3, 5), "x_seq": f(2, 12, 5), "g_share": f(2, 3, 5),
+            "g_whole": f(2, 12, 5), "g_common": common}
+
+
+def _tp_collectives(mesh):
+    """enter / reduce / gather_seq / scatter_seq, and constrain's 'whole'
+    and 'btd' under sequence parallelism, each forward and its input's
+    gradient under an upstream gradient of this model rank's own ('whole':
+    one the same on every rank, as its consumers give it)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.parallel import act_sharding as A
+
+    index = sorted(mesh.axis("model").ranks).index(dist.get_rank())
+    inp = {k: torch.from_numpy(v) for k, v in tp_collective_inputs(index).items()}
+    cases = {"enter": (A.enter, "x", "g_share"), "reduce": (A.reduce, "x", "g_share"),
+             "gather_seq": (A.gather_seq, "x", "g_whole"),
+             "scatter_seq": (A.scatter_seq, "x_seq", "g_share"),
+             "whole": (lambda t: A.constrain(t, "whole"), "x", "g_common"),
+             "btd": (lambda t: A.constrain(t, "btd"), "x_seq", "g_share")}
+    policy = A.ActivationPolicy(dp="data", tp="model", seq="model", mesh=mesh)
+    out = {"index": index}
+    with A.using_policy(policy):
+        for name, (fn, x_of, g_of) in cases.items():
+            x = inp[x_of].clone().requires_grad_(True)
+            y = fn(x)
+            (grad,) = torch.autograd.grad(y, x, inp[g_of])
+            out[name] = (y.detach().numpy(), grad.numpy())
+    return out
+
+
+def _tp_compute(rank, inputs):
+    """Each TP_CASES case under each TP_PLANS plan on the (2, 4) mesh, one
+    ``jit_train_step`` from seed 0: the shapes the plain kernels and the
+    matmuls received (``ops.attention``'s q and k, ``ops.grouped_matmul``'s
+    x, the scans' first input, every ``@``'s right operand, the loss's
+    logits), the parameters gathered over ``"model"``, the loss and the
+    gradients' largest error against ``loss_and_grads`` of the plain model
+    on the global batch; then the model axis's collectives."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import DataSpec, batch_for_step
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw, wsd
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.act_sharding import using_policy
+    from repro_torch.train import steps
+
+    mesh = make_test_mesh((2, 4), ("data", "model"))
+    record = None
+
+    def recording(name, fn, shape_of):
+        def wrapped(*args, **kwargs):
+            if record is not None:
+                record[name].append(shape_of(*args))
+            return fn(*args, **kwargs)
+        return wrapped
+
+    kernels = {"attention": lambda q, k, *a: (tuple(q.shape), tuple(k.shape)),
+               "grouped_matmul": lambda x, w: tuple(x.shape),
+               "selective_scan": lambda xc, *a: tuple(xc.shape),
+               "lru_scan": lambda a, b: tuple(a.shape)}
+    real = {name: getattr(ops, name) for name in kernels}
+    real_nll, real_gather = lm._nll, sharding._Gather.forward
+    for name, shape_of in kernels.items():
+        setattr(ops, name, recording(name, real[name], shape_of))
+    lm._nll = recording("logits", real_nll, lambda logits, *a: tuple(logits.shape))
+
+    def gather(self, w):
+        if record is not None:
+            from repro_torch.parallel.act_sharding import read_of
+            split = any(a == "model" and pl.is_shard()
+                        for a, pl in zip(w.device_mesh.mesh_dim_names, w.placements))
+            if split and read_of(self.name).dim is None:
+                record["whole_over_model"].add(self.name)
+        return real_gather(self, w)
+
+    sharding._Gather.forward = gather
+
+    class Products(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if record is not None and getattr(func, "__name__", "") in ("matmul", "__matmul__"):
+                record["matmul"].add(tuple(args[1].shape))
+            return func(*args, **(kwargs or {}))
+
+    out = {"collectives": _tp_collectives(mesh), "cases": {}}
+    try:
+        for case in TP_CASES:
+            cfg = tp_config(case)
+            spec = DataSpec(cfg=cfg, shape=ShapeSpec("tp", GSPMD_SEQ, GSPMD_BATCH, "train"))
+            batch = {k: torch.from_numpy(v) for k, v in batch_for_step(spec, 0).items()}
+            plain = lm.init(0, cfg, device="cpu")
+            want_loss, _, _, want = steps.loss_and_grads(plain, batch, cfg)
+            for plan_name, kw in TP_PLANS.items():
+                plan = sharding.ShardingPlan(**kw)
+                opt = adamw(wsd(GSPMD_LR, 10))
+                _, (_, _, p_layouts, _, _) = steps.jit_train_step(cfg, opt, plan, mesh,
+                                                                 device="cpu")
+                model = lm.init(0, cfg, device="cpu", place=sharding.placer(p_layouts))
+                pos = mesh.axis("data").index
+                local = {k: v[pos * (v.shape[0] // 2):(pos + 1) * (v.shape[0] // 2)]
+                         for k, v in batch.items()}
+                record = {name: [] for name in list(kernels) + ["logits"]}
+                record.update(matmul=set(), whole_over_model=set())
+                with using_policy(steps.activation_policy(plan, mesh, cfg)), Products():
+                    loss, _, _, grads = steps.loss_and_grads(model, local, cfg)
+                got = record
+                record = None
+                errs = {n: float((grads[n].full_tensor() - g).abs().max()
+                                 / max(float(g.abs().max()), 1e-30)) for n, g in want.items()}
+                out["cases"][(case, plan_name)] = {
+                    **{k: v for k, v in got.items()},
+                    "loss": float(loss), "want_loss": float(want_loss), "grad_errs": errs,
+                }
+    finally:
+        for name in kernels:
+            setattr(ops, name, real[name])
+        lm._nll, sharding._Gather.forward = real_nll, real_gather
     return out
 
 
@@ -340,7 +524,8 @@ def _gspmd_loop(rank, inputs):
 
 
 JOBS = {"collectives": _collectives, "four_ranks": _four_ranks, "compression": _compression,
-        "dp_train": _dp_train, "gspmd_train": _gspmd_train, "gspmd_loop": _gspmd_loop}
+        "dp_train": _dp_train, "gspmd_train": _gspmd_train, "gspmd_loop": _gspmd_loop,
+        "tp_compute": _tp_compute}
 
 
 def _main(job: str, rank: int, world: int, workdir: str) -> None:

@@ -2299,3 +2299,123 @@ def test_jit_train_step_at_world_size_1_equals_train_step_on_card(cuda):
         torch.use_deterministic_algorithms(False)
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# One model rank's share on the production mesh's model axis of 16
+# (``train.steps.jit_train_step``'s split compute): qwen3-moe-30b-a3b's
+# attention (2 query heads over its 1 KV head) and 8 of its 128 experts,
+# falcon-mamba-7b's 512 of 8192 channels, recurrentgemma-9b's 256 of 4096
+# RG-LRU channels and its attention (1 query head, 1 KV head, window 2048),
+# each at its training batch and length.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,H,KV,S,D,window", [(4, 2, 1, 4096, 128, 0),
+                                               (1, 1, 1, 4096, 256, 2048)])
+def test_attention_at_a_model_ranks_training_shape(cuda, B, H, KV, S, D, window):
+    """Forward and backward (wgmma, bf16) against the plain version and
+    autograd of it (fp32), within the bf16 bar."""
+    q, k, v = _qkv(cuda, B, H, KV, S, S, D, torch.bfloat16, seed=11)
+    do = torch.randn_like(q)
+    lse = torch.empty(B, H, S, device=cuda)
+    o = flash_attention(q, k, v, causal=True, window=window, lse=lse)
+    got = flash_attention_bwd(q, k, v, o, lse, do, True, window, tiling="wgmma")
+    torch.cuda.synchronize()
+    ref = ref_flash_attention(q, k, v, causal=True, window=window)
+    assert float((o.float() - ref.float()).abs().max()) <= TOL[torch.bfloat16]
+    for g, want in zip(got, _plain_grads(q, k, v, do, True, window)):
+        err = float((g.float() - want).abs().max())
+        assert err <= TOL[torch.bfloat16] * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("D,F", [(2048, 768), (768, 2048)])
+def test_gmm_at_a_model_ranks_training_shape(cuda, D, F):
+    """8 experts at qwen3-moe-30b-a3b's training capacity (C = 1280), gate/up
+    and down: the forward and the backward against their plain versions."""
+    x, w, dy = _xwdy(cuda, 8, 1280, D, F, torch.bfloat16)
+    out = moe_gmm(x, w)
+    dx, dw = moe_gmm_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref_moe_gmm(x, w).float(), rtol=tol, atol=tol)
+    rx, rw = ref_moe_gmm_bwd(x, w, dy)
+    torch.testing.assert_close(dx.float(), rx.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(dw.float(), rw.float(), rtol=tol, atol=tol)
+
+
+def test_mamba_scan_at_a_model_ranks_training_shape(cuda):
+    """512 channels at falcon-mamba-7b's training batch and length, b and c
+    strided: the forward (and its checkpoints) and the backward against
+    their plain versions."""
+    args = _mamba_inputs(cuda, 4, 4096, 512, 16, torch.bfloat16, R=256)
+    y, h, ckpt = mamba_scan(*args, checkpoints=True)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    dy = torch.randn(4, 4096, 512, generator=gen, device=cuda)
+    got = mamba_scan_bwd(*args, dy, None, ckpt)
+    torch.cuda.synchronize()
+    ey, eh = ref_mamba_scan(*args)
+    assert float((y - ey).abs().max()) <= 2e-2
+    _assert_mamba_bwd_close(got, ref_mamba_scan_bwd(*args, dy, None), torch.bfloat16)
+
+
+def test_rglru_scan_at_a_model_ranks_training_shape(cuda):
+    """256 channels at recurrentgemma-9b's training shape (B = 1, L = 4096,
+    fp32 as the layer passes them): the forward and the backward against
+    their plain versions."""
+    a, h_all, dh, dhf = _lru_bwd_inputs(cuda, 1, 4096, 256, torch.float32)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    b = torch.randn(1, 4096, 256, generator=gen, device=cuda)
+    h, f = rglru_scan(a, b)
+    got = rglru_scan_bwd(a, h_all, dh, dhf)
+    torch.cuda.synchronize()
+    eh, ef = ref_rglru_scan(a, b)
+    torch.testing.assert_close(h, eh, rtol=1e-5, atol=1e-5)
+    for g, w in zip(got, ref_rglru_scan_bwd(a, h_all, dh, dhf)):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+def test_jit_train_step_at_world_size_1_equals_train_step_on_card_for_the_moe(cuda):
+    """The GSPMD trainer on a narrow fp32 qwen3-moe-30b-a3b (head dim 64, 8
+    experts, top 2, capacity 1.0, so entries drop) on a one-rank (1, 1) mesh
+    on the card: two steps give make_train_step's metrics and parameters to
+    the bit, under deterministic algorithms (the embedding's gradient)."""
+    import torch.distributed as dist
+
+    from repro_torch.core.device_order import Mesh
+    from repro_torch.parallel.sharding import ShardingPlan, parameters, placer
+    from repro_torch.train.steps import init_opt_state, jit_train_step
+
+    cfg = dataclasses.replace(
+        get_config("qwen3-moe-30b-a3b").smoke(), d_model=256, n_heads=4, n_kv_heads=2,
+        head_dim=64, n_experts=8, top_k=2, d_ff=128, capacity_factor=1.0,
+        param_dtype="float32", activation_dtype="float32",
+    )
+    gen = torch.Generator().manual_seed(0)
+    batches = [{"tokens": torch.randint(0, cfg.vocab, (4, 96), generator=gen).to(cuda)}
+               for _ in range(2)]
+    opt = optim.adamw(optim.constant(1e-3))
+    assert not dist.is_initialized()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        model = lm.init(0, cfg, device=cuda)
+        state = opt.init(dict(model.named_parameters()))
+        plain = make_train_step(cfg, opt)
+        want = [plain(model, state, b, i)[2] for i, b in enumerate(batches)]
+        mesh = Mesh(np.zeros((1, 1), dtype=np.int64), ("data", "model"))
+        step, (_, _, p_layouts, o_layouts, _) = jit_train_step(cfg, opt, ShardingPlan(fsdp=True),
+                                                               mesh, device=cuda)
+        placed = lm.init(0, cfg, device=cuda, place=placer(p_layouts))
+        placed_state = init_opt_state(opt, placed, o_layouts)
+        before = ops.grouped_matmul_launches, ops.grouped_matmul_bwd_launches
+        got = [step(placed, placed_state, b, i)[2] for i, b in enumerate(batches)]
+        assert (ops.grouped_matmul_launches - before[0],
+                ops.grouped_matmul_bwd_launches - before[1]) == (
+            2 * 6 * cfg.n_layers, 2 * 3 * cfg.n_layers)  # forward and remat; backward
+        assert all(torch.equal(g[k], w[k]) for g, w in zip(got, want) for k in w)
+        params = parameters(placed)
+        assert all(torch.equal(params[n].full_tensor(), p) for n, p in model.named_parameters())
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if dist.is_initialized():
+            dist.destroy_process_group()

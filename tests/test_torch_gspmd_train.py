@@ -8,17 +8,24 @@ same weights (``weights.params_from_jax``) and the same global batches
 (sequence 32, global batch 8): granite-8b's smoke config under fsdp, no
 fsdp, ZeRO-1 (parameters replicated, moments sharded) and sequence
 parallelism, qwen3-moe-30b-a3b's at capacity 1.0, whose capacity and drops
-are the global batch's, and falcon-mamba-7b's, all in fp32, 3 AdamW steps
-each.  GSPMD computes the single-device function of the global batch; the
-port computes each data rank's rows and averages, so the two differ in the
-order of additions only.  Losses and grad norms are held at rtol 1e-5.
+are the global batch's, with and without sequence parallelism,
+falcon-mamba-7b's, recurrentgemma-9b's, llama-3.2-vision-11b's (its cross
+gates at 0.5 on both sides), hubert-xlarge's, minicpm-2b's (its tied head
+split by vocabulary through the chunked loss, with and without sequence
+parallelism) and granite-8b's with heads, vocabulary and MLP columns that
+do not divide the model axis (with and without sequence parallelism), all
+in fp32, 3 AdamW steps each.  GSPMD computes the single-device function of the global batch; the
+port computes each data rank's rows, each model rank its own heads, MLP
+columns, experts, channels and vocabulary rows (``tests/test_torch_tp_compute.py``
+shows the split), and reduces, so the two differ in the order of additions
+only.  Losses and grad norms are held at rtol 1e-5.
 Parameters are held as ``tests/test_torch_dp_train.py`` holds them, and for
 its reason: 1e-4 of each leaf's largest entry on all but 1 in 1000 entries
 of a leaf; AdamW's update is lr * m / (sqrt(v) + eps), about lr times the
 sign of the gradient, so where a gradient entry cancels to near 0 the last
 bits of the sums move it by up to 2 lr a step, and every entry is held to
 3 steps * 2 lr.  At world size 1 the step equals ``make_train_step`` to the
-bit.
+bit, for all six LM families.
 """
 
 import dataclasses
@@ -33,8 +40,8 @@ import torch
 import torch.distributed as dist
 from _subproc import run_with_devices
 from _torch_ranks import (
-    GSPMD_BATCH, GSPMD_CONFIGS, GSPMD_LR, GSPMD_SEQ, GSPMD_STEPS, GSPMD_VARIANTS, gspmd_config,
-    launch,
+    GSPMD_BATCH, GSPMD_CONFIGS, GSPMD_GATE, GSPMD_LR, GSPMD_SEQ, GSPMD_STEPS, GSPMD_VARIANTS,
+    gspmd_config, launch,
 )
 
 from repro.configs.base import get_config as jget_config
@@ -57,6 +64,7 @@ torch.set_num_threads(2)  # several test processes share the cores
 LOSS_RTOL = 1e-5
 BEYOND = 1e-3  # the share of a leaf's entries allowed beyond 1e-4 of its largest entry
 MESH = {"data": 2, "model": 4}
+JAX_RUNS = 2  # JAX subprocesses beside the port's ranks
 
 _JAX = """
 import dataclasses, pickle
@@ -75,12 +83,13 @@ with open({inputs!r}, "rb") as f:
 mesh = Mesh(np.array(jax.devices()).reshape(2, 4), ("data", "model"))
 out = {{}}
 for name in {variants!r}:
-    arch, kw = inp["variants"][name]
-    cfg = dataclasses.replace(get_config(arch).smoke(), **inp["configs"][arch])
+    key, kw = inp["variants"][name]
+    arch, over = inp["configs"][key]
+    cfg = dataclasses.replace(get_config(arch).smoke(), **over)
     opt = adamw(wsd({lr!r}, 10))
     step, (_, _, p_sh, o_sh, _) = jit_train_step(cfg, opt, ShardingPlan(**kw), mesh,
                                                  donate=False)
-    params = jax.device_put(jax.tree.map(jnp.asarray, inp["params"][arch]), p_sh)
+    params = jax.device_put(jax.tree.map(jnp.asarray, inp["params"][key]), p_sh)
     state = jax.device_put(opt.init(params), o_sh)
     spec = DataSpec(cfg=cfg, shape=ShapeSpec("gspmd", {seq!r}, {batch!r}, "train"))
     losses, norms = [], []
@@ -97,34 +106,42 @@ print("PASS")
 """
 
 
-def _jcfg(arch):
-    return dataclasses.replace(jget_config(arch).smoke(), **GSPMD_CONFIGS[arch])
+def _jcfg(name):
+    arch, over = GSPMD_CONFIGS[name]
+    return dataclasses.replace(jget_config(arch).smoke(), **over)
+
+
+def _jparams(name):
+    """The JAX package's weights of config ``name`` from seed 0 as numpy, a
+    VLM's cross gates set to GSPMD_GATE."""
+    params = jax.tree.map(np.asarray, jlm.init(jax.random.PRNGKey(0), _jcfg(name)))
+    if _jcfg(name).family == "vlm":
+        attn = params["blocks"]["cross"]["attn"]
+        attn["gate"] = np.full_like(attn["gate"], GSPMD_GATE)
+    return params
 
 
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
-    """(JAX's results by variant, the port's by rank).  Two JAX subprocesses,
-    three variants each, run beside the port's 8 ranks."""
+    """(JAX's results by variant, the port's by rank).  JAX_RUNS subprocesses,
+    a share of the variants each, run beside the port's 8 ranks."""
     tmp = tmp_path_factory.mktemp("gspmd_train")
-    inputs = {
-        "params": {a: jax.tree.map(np.asarray, jlm.init(jax.random.PRNGKey(0), _jcfg(a)))
-                   for a in GSPMD_CONFIGS},
-        "configs": GSPMD_CONFIGS, "variants": GSPMD_VARIANTS,
-    }
+    inputs = {"params": {a: _jparams(a) for a in GSPMD_CONFIGS},
+              "configs": GSPMD_CONFIGS, "variants": GSPMD_VARIANTS}
     with open(tmp / "inputs.pkl", "wb") as f:
         pickle.dump(inputs, f)
     names = list(GSPMD_VARIANTS)
-    halves = (names[:3], names[3:])
+    shares = [names[i::JAX_RUNS] for i in range(JAX_RUNS)]
     codes = [_JAX.format(inputs=str(tmp / "inputs.pkl"), variants=v, lr=GSPMD_LR,
                          seq=GSPMD_SEQ, batch=GSPMD_BATCH, steps=GSPMD_STEPS,
-                         path=str(tmp / f"jax{i}.pkl")) for i, v in enumerate(halves)]
-    with ThreadPoolExecutor(2) as pool:
+                         path=str(tmp / f"jax{i}.pkl")) for i, v in enumerate(shares)]
+    with ThreadPoolExecutor(JAX_RUNS) as pool:
         runs = [pool.submit(run_with_devices, code, 8) for code in codes]
         port = launch("gspmd_train", 8, tmp / "port",
                       dict(inputs, variants=names + ["moe_local", "reordered"]))
         assert all("PASS" in r.result() for r in runs)
     ref = {}
-    for i in range(2):
+    for i in range(JAX_RUNS):
         with open(tmp / f"jax{i}.pkl", "rb") as f:
             ref.update(pickle.load(f))
     return ref, port
@@ -148,8 +165,8 @@ def test_parameters_match_jax(results, variant):
     function on any mesh.)"""
     ref, port = results
     want_of = "fsdp" if variant == "reordered" else variant
-    arch = GSPMD_VARIANTS[want_of][0]
-    want = {k: v.numpy() for k, v in params_from_jax(ref[want_of][2], gspmd_config(arch)).items()}
+    key = GSPMD_VARIANTS[want_of][0]
+    want = {k: v.numpy() for k, v in params_from_jax(ref[want_of][2], gspmd_config(key)).items()}
     got = port[0][variant]["params"]
     assert sorted(got) == sorted(want)
     for name, w in want.items():
@@ -174,8 +191,8 @@ def test_every_local_shard_has_its_specs_shape(results, variant):
     spec gives on the (2, 4) mesh; the moments are sharded over "model", and
     over "data" too under fsdp or ZeRO-1."""
     _, port = results
-    arch, kw = GSPMD_VARIANTS[variant]
-    specs = lm.param_specs(gspmd_config(arch))
+    key, kw = GSPMD_VARIANTS[variant]
+    specs = lm.param_specs(gspmd_config(key))
     mesh = SimpleNamespace(axis_names=tuple(MESH), shape=MESH)  # all the rules read
     plan = ShardingPlan(**kw)
     p_spec = param_spec_tree(specs, plan, mesh)
@@ -229,9 +246,9 @@ def one_rank():
 
 @pytest.mark.parametrize("arch", list(GSPMD_CONFIGS))
 def test_world_size_one_equals_make_train_step_to_the_bit(one_rank, arch):
-    """On a one-rank (1, 1) mesh under fsdp, every gather, reduce-scatter and
-    mean is over one rank: two steps give make_train_step's metrics and
-    parameters bit for bit.  The step installs its activation policy for its
+    """(``arch``: a GSPMD_CONFIGS key.)  On a one-rank (1, 1) mesh under
+    fsdp, every gather, reduce-scatter and mean is over one rank: two steps
+    give make_train_step's metrics and parameters bit for bit.  The step installs its activation policy for its
     own duration only: none is left behind."""
     cfg = gspmd_config(arch)
     spec = DataSpec(cfg=cfg, shape=ShapeSpec("t", GSPMD_SEQ, 4, "train"), seed=0)

@@ -224,20 +224,35 @@ def test_activation_policy_leaves_plain_tensors_alone():
 @pytest.mark.parametrize("mesh_name", list(MESHES))
 def test_only_install_activation_policy_leaves_a_policy_behind(mesh_name):
     """``activation_policy`` builds the plan's policy (batch over the data
-    axes, sequence over ``"model"`` under seq-parallel) and installs
-    nothing, which is what the step builder uses; ``install_activation_policy``
-    installs it for the whole process, as the reference's does."""
+    axes, sequence over ``"model"`` under seq-parallel, and how a placed
+    model of the config reads each parameter) and installs nothing, which is
+    what the step builder uses; ``install_activation_policy`` installs it for
+    the whole process, as the reference's does."""
     _, mesh = _meshes(mesh_name)
+    cfg = tbase.get_config("granite-8b")
     plan = sharding.ShardingPlan(seq_parallel=True)
-    policy = activation_policy(plan, mesh)
+    policy = activation_policy(plan, mesh, cfg)
     assert act_sharding.get_policy() is None
     assert (policy.dp, policy.tp, policy.seq) == (plan.dp_axes(mesh), "model", "model")
     assert policy.dp == (("pod", "data") if "pod" in mesh.axis_names else "data")
+    assert policy.reads == sharding.model_reads(cfg, lm.param_specs(cfg), plan, mesh)
+    assert sorted(policy.reads) == sorted(lm.param_specs(cfg))
     try:
-        assert install_activation_policy(plan, mesh) == policy
+        assert install_activation_policy(plan, mesh, cfg) == policy
         assert act_sharding.get_policy() == policy
     finally:
         act_sharding.set_policy(None)
+
+
+def test_a_policy_without_reads_refuses_to_say_how_a_weight_reads():
+    """Over a model axis of more than one rank every weight's read comes from
+    the policy (``activation_policy`` fills one for every parameter): a
+    policy built without them raises, not read every weight whole."""
+    _, mesh = _meshes("2x4")
+    policy = act_sharding.ActivationPolicy(dp="data", tp="model", seq="model", mesh=mesh)
+    with act_sharding.using_policy(policy), pytest.raises(KeyError, match="no read"):
+        act_sharding.read_of("blocks.0.norm")
+    assert act_sharding.read_of("blocks.0.norm") == sharding.WHOLE  # no policy
 
 
 @pytest.mark.parametrize("shape,axis,stride", [((8,), 0, 3), ((4, 2), 0, 3), ((2, 8), 1, 5),

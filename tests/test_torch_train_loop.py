@@ -1,6 +1,7 @@
 """The port's optimizers, schedules, data pipeline, checkpoints, training
 loop and training CLI against the JAX package's, on the same numpy arrays."""
 
+import argparse
 import dataclasses
 import os
 import subprocess
@@ -292,3 +293,41 @@ def test_train_cli_runs_on_the_cpu(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert "done: step=3" in proc.stdout
     assert latest_step(str(tmp_path)) == 3
+
+
+def test_train_cli_trains_on_a_data_by_model_mesh(capsys):
+    """The README's command on a (2, 4) mesh with sequence parallelism (8 gloo
+    ranks under ``torch.distributed.run``, 2 steps): each model rank computes
+    its own heads and experts, and the first step's loss, before any update,
+    is the one-rank run's on the same weights and batch."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    args = ["--arch", "qwen3-moe-30b-a3b", "--smoke", "--device", "cpu", "--steps", "2"]
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "8",
+         "-m", "repro_torch.launch.train", *args, "--mesh", "2x4", "--seq-parallel"],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    done = [line for line in proc.stdout.splitlines() if line.startswith("done:")]
+    assert len(done) == 1 and done[0].startswith("done: step=2"), proc.stdout
+    from repro_torch.launch.train import main
+
+    main(args)
+    one = [line for line in capsys.readouterr().out.splitlines() if line.startswith("done:")]
+    first = [float(line.split()[3]) for line in (done[0], one[0])]
+    assert np.isfinite(first).all()
+    np.testing.assert_allclose(first[0], first[1], rtol=5e-4)
+
+
+@pytest.mark.parametrize("value,ok", [("cpu", True), ("single", True), ("multi", True),
+                                      ("2x4", True), ("1x1", True), ("2x", False),
+                                      ("0x4", False), ("2x4x2", False), ("mesh", False)])
+def test_train_cli_mesh_takes_the_named_meshes_and_data_by_model(value, ok):
+    """``--mesh``: the reference's names, or DxM, a (data D, model M) mesh."""
+    from repro_torch.launch.train import mesh_arg
+
+    if ok:
+        assert mesh_arg(value) == value
+    else:
+        with pytest.raises(argparse.ArgumentTypeError):
+            mesh_arg(value)
