@@ -329,6 +329,15 @@ result line:
    from seed 0 on 5c's first batches under deterministic algorithms:
    losses and every parameter equal to the bit, 5c's launches each step,
    each step's time and each run's peak memory beside 5c's median;
+7f. serving under a mesh at full width and depth, run inside phases 4
+   and 4b on the models they served (no second copy: each weight is freed
+   as its shard replaces it): granite-8b and qwen3-moe-30b-a3b placed on a
+   (1, 1) ("data", "model") mesh over a one-rank NCCL group under
+   ``ShardingPlan(fsdp=True)``, prefill padded to PROMPT + DECODE_STEPS and
+   the greedy decode loop through ``train.steps.jit_serve_step``: logits,
+   ids and launches equal to the phase's plain serve to the bit (the caches
+   DTensors in the decode cell's layouts), prefill ms and decode ms/token
+   beside the plain serve's;
 8. the script's wall time, one JSON line of per-kernel numbers, the
    ``nvidia-smi`` line, and the result line ``{"ok": true, "device": {...}}``
    last.
@@ -485,6 +494,7 @@ TWIN_PATH = "train_lm_topoopt twin (world size 1), 3 steps"  # phase 7b's counte
 DP_PATH = "hubert-xlarge DP step (ring, then compressed), 2 steps each"  # phase 7c
 GSPMD_PATH = "hubert-xlarge GSPMD step (fsdp, world size 1), 2 steps"  # phase 7d
 GSPMD_MOE_PATH = "qwen3-moe-30b-a3b GSPMD step (4 layers, world size 1), 2 steps"  # phase 7e
+MESH_SERVE_PATH = "jit_serve_step (world size 1), prefill and decode loop"  # phase 7f
 
 
 def require(ok, what: str) -> None:
@@ -2476,6 +2486,87 @@ def gspmd_moe_check(lm, ops, optim, data, train_steps, sharding, device_order, c
 GSPMD_TURNS = 4  # phase 7d's alternating turns of the plain and the GSPMD step
 
 
+def mesh_serve_check(train_steps, sharding, device_order, ops, model, tokens, plain: dict,
+                     dev, smi, label: str) -> dict:
+    """Phase 7f: ``model``, already on the card and just served by ``label``'s
+    phase (4 or 4b), placed on a (1, 1) ("data", "model") mesh over a
+    one-rank NCCL group under ``ShardingPlan(fsdp=True)`` (no second copy:
+    each weight is freed as its shard replaces it) and served through
+    ``train_steps.jit_serve_step``: prefill padded to PROMPT + DECODE_STEPS,
+    then DECODE_STEPS - 1 greedy decode steps, after one short warm-up.
+    Every count is set to 0 just before the prefill and read just after it
+    and after the loop.  The logits, the ids and the launches must equal
+    ``plain``'s (the phase's ``served`` run: ``ids``, ``logits``, ``pre``,
+    ``dec``, ``timings``) to the bit.  Returns the times beside the plain
+    run's, the peak memory and the counts.  Leaves no process group."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeSpec
+
+    cfg = model.cfg
+    mesh = device_order.Mesh(np.zeros((1, 1), dtype=np.int64), ("data", "model"))
+    plan = sharding.ShardingPlan(fsdp=True)
+    T = PROMPT + DECODE_STEPS
+    try:
+        prefill, (_, p_layouts, _) = train_steps.jit_serve_step(
+            cfg, ShapeSpec("prefill", PROMPT, B, "prefill"), plan, mesh, device=dev, pad_to=T)
+        decode, _ = train_steps.jit_serve_step(cfg, ShapeSpec("decode", T, B, "decode"), plan,
+                                               mesh, device=dev)
+        sharding.place(model, p_layouts)
+        warm, cache = prefill(model, {"tokens": tokens[:, :64]})  # NCCL, DTensor's caches
+        decode(model, {"token": warm.argmax(-1), "pos": 64, "cache": cache})
+        del warm, cache
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for n in COUNTERS:
+            setattr(ops, n, 0)
+        t0 = time.perf_counter()
+        logits, cache = prefill(model, {"tokens": tokens})
+        tok = logits.argmax(dim=-1)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        pre = {n: getattr(ops, n) for n in COUNTERS}
+        seen, ids = [logits], [tok]
+        t0 = time.perf_counter()
+        for i in range(DECODE_STEPS - 1):
+            logits, cache = decode(model, {"token": tok, "pos": PROMPT + i, "cache": cache})
+            tok = logits.argmax(dim=-1)
+            seen.append(logits)
+            ids.append(tok)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        counts = {n: getattr(ops, n) for n in COUNTERS}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        placements = sorted({str(t.placements) for t in cache.values()})
+        del cache
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    dec = {n: counts[n] - pre[n] for n in COUNTERS}
+    differ = [i for i, (a, b) in enumerate(zip(seen, plain["logits"])) if not torch.equal(a, b)]
+    require(len(seen) == len(plain["logits"]) and not differ,
+            f"{cfg.name} jit_serve_step vs the plain serve: logits of steps {differ} differ")
+    require(torch.equal(torch.stack(ids, dim=1), plain["ids"]),
+            f"{cfg.name} jit_serve_step's generated ids differ from the plain serve's")
+    require(pre == plain["pre"] and dec == plain["dec"],
+            f"{cfg.name} jit_serve_step launches {pre} + {dec}, plain {plain['pre']} + "
+            f"{plain['dec']}")
+    out = {
+        "prefill_ms": prefill_s * 1e3,
+        "decode_ms_per_token": decode_s / (DECODE_STEPS - 1) * 1e3,
+        "plain_prefill_ms": plain["timings"]["prefill_s"] * 1e3,
+        "plain_decode_ms_per_token": plain["timings"]["decode_s"] / (DECODE_STEPS - 1) * 1e3,
+        "peak_gb": peak_gb, "counts": counts,
+    }
+    print(f"phase 7f mesh serve: {cfg.name} ({label}'s model, placed) through jit_serve_step on "
+          f"a (1, 1) mesh: {B}x{PROMPT} prefill {out['prefill_ms']} ms (plain "
+          f"{out['plain_prefill_ms']} ms), decode {out['decode_ms_per_token']} ms/token over "
+          f"{DECODE_STEPS - 1} steps (plain {out['plain_decode_ms_per_token']} ms/token), peak "
+          f"memory {peak_gb} GB; logits of {len(seen)} steps and ids equal to {label}'s to the "
+          f"bit; launches: prefill {pre}, decode loop {dec}; cache placements {placements}; on "
+          f"{smi}")
+    return out
+
+
 def gspmd_turns(lm, train_steps, opt, cfg, dev, gspmd: tuple, batch: dict, smi) -> dict:
     """Phase 7d's comparison within one run: a plain model from seed 0 (its
     own state, ``make_train_step``, remat "full") beside ``gspmd`` (model,
@@ -3223,10 +3314,15 @@ def main() -> int:
     print(f"phase 4 consistency: last-token logits, kernel prefill vs prefill(S-1)+plain "
           f"decode: max|diff| {diff} <= {bar} (5e-2 max|logits|); argmax agrees {agree}/{B}")
     granite_attention_launches = launches
+    # Phase 7f (granite-8b): the same model and prompts through jit_serve_step.
+    del full, part, step, cache
+    mesh_served = {cfg.name: mesh_serve_check(
+        train_steps, sharding, device_order, ops, model, tokens,
+        dict(ids=ids, logits=logits, pre=pre, dec=dec, timings=timings), dev, smi, "phase 4")}
 
     # Phase 4b: serve qwen3-moe-30b-a3b at full width and depth.  Its 61 GB
     # of weights need the room granite's model and caches hold.
-    del model, full, part, step, cache, tokens, ids, logits
+    del model, tokens, ids, logits
     gc.collect()
     torch.cuda.empty_cache()
     cfg = get_config("qwen3-moe-30b-a3b")
@@ -3273,6 +3369,7 @@ def main() -> int:
           f"{gmm_prefill} (prefill, wgmma) + {gmm_decode_loop} ({DECODE_STEPS - 1} decode "
           f"steps, skinny), on {smi}")
     print(f"phase 4b serve: generated ids (first request): {ids[0].tolist()}")
+    qwen_served = dict(ids=ids, logits=logits, pre=pre, dec=dec, timings=timings)
     del logits
 
     # The served model's first MoE layer, bf16 on the card, against an fp32
@@ -3293,7 +3390,12 @@ def main() -> int:
           f"vs fp32 CPU: max|err| {err} (tol 2e-2), max|out| {float(y_cpu.abs().max())}, "
           f"aux {float(aux_gpu)} vs {float(aux_cpu)}")
     qwen_name = cfg.name
-    del model, moe0, moe_cpu, x_in, y_gpu, y_cpu, tokens, ids
+    del moe0, moe_cpu, x_in, y_gpu, y_cpu
+    # Phase 7f (qwen3-moe-30b-a3b): the same model and prompts through
+    # jit_serve_step.
+    mesh_served[qwen_name] = mesh_serve_check(train_steps, sharding, device_order, ops, model,
+                                              tokens, qwen_served, dev, smi, "phase 4b")
+    del model, tokens, ids, qwen_served
 
     # Phases 4c and 4d: the recurrent families, each after the previous model
     # is freed.  Each layer's scan runs the kernel at prefill and a plain step
@@ -3472,7 +3574,8 @@ def main() -> int:
                      + vlm_counts["attention_launches"] + au_counts["attention_launches"]
                      + twin["counts"]["attention_launches"] + dp["counts"]["attention_launches"]
                      + gspmd["counts"]["attention_launches"]
-                     + gspmd_moe["counts"]["attention_launches"]),
+                     + gspmd_moe["counts"]["attention_launches"]
+                     + sum(m["counts"]["attention_launches"] for m in mesh_served.values())),
         "launches_by_path": {"granite-8b": granite_attention_launches, qwen_name: att_total,
                              "recurrentgemma-9b": griffin["attention_launches"],
                              "llama-3.2-vision-11b": vlm["attention_launches"],
@@ -3486,7 +3589,9 @@ def main() -> int:
                              TWIN_PATH: twin["counts"]["attention_launches"],
                              DP_PATH: dp["counts"]["attention_launches"],
                              GSPMD_PATH: gspmd["counts"]["attention_launches"],
-                             GSPMD_MOE_PATH: gspmd_moe["counts"]["attention_launches"]},
+                             GSPMD_MOE_PATH: gspmd_moe["counts"]["attention_launches"],
+                             **{f"{n} {MESH_SERVE_PATH}": m["counts"]["attention_launches"]
+                                for n, m in mesh_served.items()}},
         "launches_d32": twin["counts"]["attention_fma_launches"],
         "max_abs_err": main_case["max_abs_err"],
         "max_err_bf16": main_case["max_abs_err"],
@@ -3609,10 +3714,13 @@ def main() -> int:
         "tiling": gmm_main["tiling"],
         "decode_tiling": gmm_decode["tiling"],
         "launches": (gmm_total + moe_counts["grouped_matmul_launches"]
-                     + gspmd_moe["counts"]["grouped_matmul_launches"]),
+                     + gspmd_moe["counts"]["grouped_matmul_launches"]
+                     + mesh_served[qwen_name]["counts"]["grouped_matmul_launches"]),
         "launches_by_path": {qwen_name: gmm_total,
                              moe_path: moe_counts["grouped_matmul_launches"],
-                             GSPMD_MOE_PATH: gspmd_moe["counts"]["grouped_matmul_launches"]},
+                             GSPMD_MOE_PATH: gspmd_moe["counts"]["grouped_matmul_launches"],
+                             f"{qwen_name} {MESH_SERVE_PATH}":
+                                 mesh_served[qwen_name]["counts"]["grouped_matmul_launches"]},
         "launches_per_train_step": moe_trained["launches_per_step"]["grouped_matmul_launches"],
         "launches_prefill": gmm_prefill,
         "launches_per_decode_step": gmm_decode_loop // (DECODE_STEPS - 1),

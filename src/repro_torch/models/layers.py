@@ -15,6 +15,14 @@ output in the stream's layout, through ``constrain`` where it enters and
 leaves its split compute; a layer whose units do not divide computes whole.
 Without a policy every layer computes whole and ``constrain`` is the
 identity.
+
+Serving under a model axis (``train.steps.jit_serve_step``) keeps each KV
+cache's positions split over the model ranks where the policy says so
+(``act_sharding.cache_share``): prefill moves every KV head's keys and
+values to the rank that holds their positions (:func:`cache_kv`), and a
+decode step gathers every head's query, attends over the rank's positions
+and combines the ranks' shares (:func:`decode_softmax`) before the rank's
+heads go through the row-parallel ``wo``.
 """
 
 from __future__ import annotations
@@ -29,7 +37,8 @@ from ..configs.base import torch_dtype
 from ..kernels import ops
 from ..kernels.ref import NEG_INF
 from ..parallel.act_sharding import (
-    constrain, enter, gather_batch, model_rank, reads_block, reduce, scatter_seq, seq_share,
+    all_reduce_max, all_to_all, cache_share, constrain, enter, gather_batch, gather_seq,
+    model_rank, reads_block, reduce, scatter_seq, seq_share,
 )
 from ..parallel.options import get_options
 
@@ -113,6 +122,25 @@ def embed(params, tokens, dtype):
     return constrain(torch.where(mine[..., None], rows, 0.0), "btd", partial=True)
 
 
+def last_position(x):
+    """The residual stream's last position (B, d_model), whole on every model
+    rank: under sequence parallelism the last model rank's share holds it."""
+    return constrain(x[:, -1:], "whole")[:, -1]
+
+
+def head_logits(params, x):
+    """The LM head over the final hidden ``x`` -> logits whole over the
+    vocabulary on every model rank.  ``x``: (B, d_model), whole on every
+    model rank, or (B, S, d_model) in the residual stream's layout (its
+    shares gathered under sequence parallelism).  A head split by vocabulary
+    makes this rank's columns, gathered over the model ranks."""
+    if x.dim() == 3:
+        x = constrain(x, "whole")
+    logits = x @ params.head()
+    split = reads_block(params, "embed" if params.cfg.tie_embeddings else "lm_head")
+    return gather_seq(logits, dim=-1) if split else logits
+
+
 # ---------------------------------------------------------------------------
 # Attention (GQA; causal / bidirectional / sliding-window; self / cross)
 # ---------------------------------------------------------------------------
@@ -140,6 +168,91 @@ def _split_heads(x, n_heads, head_dim):
     return x.reshape(*x.shape[:-1], n_heads, head_dim)
 
 
+def head_share(p, cfg) -> tuple[bool, int, int, int | None]:
+    """-> (split, H, KV, j): whether attention ``p`` computes this model
+    rank's heads (its ``wq`` read as a block), its query heads' and KV
+    heads' counts, and where ``wk``/``wv`` are read whole (every rank's
+    query heads share one KV head) that head's index ``j``, else None."""
+    if not reads_block(p, "wq"):
+        return False, cfg.n_heads, cfg.n_kv_heads, None
+    mi, tp = model_rank()
+    H = cfg.n_heads // tp
+    if reads_block(p, "wk"):
+        return True, H, cfg.n_kv_heads // tp, None
+    return True, H, 1, mi * H // (cfg.n_heads // cfg.n_kv_heads)
+
+
+def _kv_weights(p, j, hd):
+    """``p``'s ``wk`` and ``wv``, or their columns of KV head ``j``."""
+    wk, wv = p.wk, p.wv
+    if j is None:
+        return wk, wv
+    return wk[:, j * hd:(j + 1) * hd], wv[:, j * hd:(j + 1) * hd]
+
+
+def _one_copy(t, n_kv: int, dim: int):
+    """``t`` holding the KV heads of every model rank in rank order along
+    ``dim``, a head held by several ranks (fewer KV heads than ranks) once
+    a rank -> every KV head once, in order."""
+    step = t.shape[dim] // n_kv
+    return t if step == 1 else t[(slice(None),) * dim + (slice(None, None, step),)]
+
+
+def all_kv_heads(t, n_kv: int, dim: int = 1):
+    """``t`` holding a split attention's KV heads along ``dim`` (this model
+    rank's, or the one its query heads share) -> every KV head, gathered
+    over the model ranks; ``t`` itself where it holds them all."""
+    return t if t.shape[dim] == n_kv else _one_copy(gather_seq(t, dim), n_kv, dim)
+
+
+def own_heads(out, H: int, hd: int):
+    """(B, n_heads * hd) -> this model rank's H heads' columns, which its
+    block of ``wo`` reads."""
+    mi, _ = model_rank()
+    return out[:, mi * H * hd:(mi + 1) * H * hd]
+
+
+def cache_kv(buf, k, n_kv: int, name: str) -> None:
+    """Writes a prefill's keys (or values) into this rank's share of a cache.
+
+    ``k``: (B, KVl, S, D), an attention's KV heads over the whole sequence:
+    this model rank's where attention is split, else all of them.  ``buf``:
+    (B, KV, Tl, D), every KV head over the positions [i * Tl, (i + 1) * Tl)
+    of cache ``name``, where (i, n) is ``act_sharding.cache_share(name)``;
+    the positions at and past S are left as they are.  Where both the heads
+    and the positions are split, each rank sends each other rank its heads
+    at that rank's positions (one all-to-all over the model axis)."""
+    S, Tl = k.shape[2], buf.shape[2]
+    i, n = cache_share(name)
+    if k.shape[1] != n_kv:
+        if n > 1:
+            B, kv, _, D = k.shape
+            k = F.pad(k, (0, 0, 0, n * Tl - S))
+            parts = all_to_all(k.reshape(B, kv, n, Tl, D).movedim(2, 0))
+            buf.copy_(_one_copy(parts.movedim(0, 1).reshape(B, n * kv, Tl, D), n_kv, 1))
+            return
+        k = all_kv_heads(k, n_kv)
+    part = k[:, :, i * Tl:(i + 1) * Tl]
+    buf[:, :, :part.shape[2]] = part
+
+
+def decode_softmax(scores, v, shared: bool):
+    """softmax(scores) @ v for one token: scores (B, KV, g, T) fp32, masked
+    positions at ``NEG_INF``; v (B, KV, T, D) -> (B, KV, g, D), the
+    probabilities cast to v's dtype as the reference casts them.
+    ``shared``: the T positions are this model rank's share of the cache's;
+    the max and the sum of exponentials are combined over the model ranks
+    before the product and the products summed after, so a share without a
+    valid position adds exact zeros (exp(NEG_INF - max) = 0)."""
+    if shared:
+        e = torch.exp(scores - all_reduce_max(scores.amax(dim=-1, keepdim=True)))
+        probs = e / reduce(e.sum(dim=-1, keepdim=True))
+    else:
+        probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgt,bktd->bkgd", probs.to(v.dtype), v)
+    return reduce(out) if shared else out
+
+
 def attention(p, x, cfg, *, causal=True, window=0, positions=None, kv_x=None,
               use_rope=True):
     """Self- or cross-attention over full sequences (train / prefill).
@@ -154,18 +267,8 @@ def attention(p, x, cfg, *, causal=True, window=0, positions=None, kv_x=None,
     version on the CPU.
     """
     hd = cfg.hd
-    H, KV, wk, wv = cfg.n_heads, cfg.n_kv_heads, p.wk, p.wv
-    split = reads_block(p, "wq")
-    if split:
-        # This model rank's query heads; its KV heads, or (``wk`` read whole)
-        # the one KV head all of them use.
-        mi, tp = model_rank()
-        H = cfg.n_heads // tp
-        if reads_block(p, "wk"):
-            KV = cfg.n_kv_heads // tp
-        else:
-            j = mi * H // (cfg.n_heads // cfg.n_kv_heads)
-            KV, wk, wv = 1, wk[:, j * hd:(j + 1) * hd], wv[:, j * hd:(j + 1) * hd]
+    split, H, KV, j = head_share(p, cfg)
+    wk, wv = _kv_weights(p, j, hd)
     x = constrain(x, "btf" if split else "whole")
     B, S, _ = x.shape
     src = x if kv_x is None else kv_x
@@ -188,45 +291,58 @@ def attention(p, x, cfg, *, causal=True, window=0, positions=None, kv_x=None,
 def attention_decode(p, x, cache_k, cache_v, pos, cfg, *, window: int = 0):
     """One-token decode against a KV cache, in plain PyTorch.
 
-    x: (B, d_model); cache_k/v: (B, KV, T, D); pos: the current index.
-    Writes the new key and value into ``cache_k``/``cache_v`` in place (the
-    reference returns updated copies) and returns (out (B, d_model),
-    cache_k, cache_v).
+    x: (B, d_model); cache_k/v: (B, KV, T, D), or under a policy that splits
+    the ``"k"`` cache's positions this rank's share of them (every KV head);
+    pos: the current index.  Writes the new key and value into
+    ``cache_k``/``cache_v`` in place on the rank whose share holds the slot
+    (the reference returns updated copies) and returns (out (B, d_model),
+    cache_k, cache_v).  A split attention gathers every head's query and
+    the new KV heads over the model ranks and keeps its own heads' output
+    for its block of ``wo``.
     """
     hd = cfg.hd
     B = x.shape[0]
     pos = int(pos)
-    q = _split_heads(x @ p.wq, cfg.n_heads, hd)
-    k = _split_heads(x @ p.wk, cfg.n_kv_heads, hd)
-    v = _split_heads(x @ p.wv, cfg.n_kv_heads, hd)
+    split, H, KV, j = head_share(p, cfg)
+    wk, wv = _kv_weights(p, j, hd)
+    x = constrain(x, "btf" if split else "whole")
+    q = _split_heads(x @ p.wq, H, hd)
+    k = _split_heads(x @ wk, KV, hd)
+    v = _split_heads(x @ wv, KV, hd)
     posb = torch.full((B, 1), pos, device=x.device)
     q = apply_rope(q[:, None], posb, cfg.rope_theta)[:, 0]
     k = apply_rope(k[:, None], posb, cfg.rope_theta)[:, 0]
+    if split:
+        q = gather_seq(q, dim=1)
+        k, v = all_kv_heads(k, cfg.n_kv_heads), all_kv_heads(v, cfg.n_kv_heads)
 
-    T = cache_k.shape[2]
+    i, n = cache_share("k")
+    Tl = cache_k.shape[2]
+    T, t0 = n * Tl, i * Tl
     rolling = window > 0 and window == T
     # Rolling window cache: slot = pos % window.  Otherwise slot = pos, clamped
     # to the last slot as the reference's lax.dynamic_update_slice clamps it
     # (a windowed cache shorter than the window, after a prompt shorter than
     # the window: the new key overwrites the last prompt key).
     slot = pos % T if rolling else min(pos, T - 1)
-    cache_k[:, :, slot] = k.to(cache_k.dtype)
-    cache_v[:, :, slot] = v.to(cache_v.dtype)
+    if t0 <= slot < t0 + Tl:
+        cache_k[:, :, slot - t0] = k.to(cache_k.dtype)
+        cache_v[:, :, slot - t0] = v.to(cache_v.dtype)
 
     g = cfg.n_heads // cfg.n_kv_heads
     qg = q.reshape(B, cfg.n_kv_heads, g, hd)
     scale = 1.0 / math.sqrt(hd)
     scores = torch.einsum("bkgd,bktd->bkgt", qg, cache_k).float() * scale
-    t_idx = torch.arange(T, device=x.device)
+    t_idx = torch.arange(t0, t0 + Tl, device=x.device)
     if rolling:
         valid = (t_idx <= slot) | (pos >= T)  # whole ring valid once wrapped
     else:
         valid = t_idx <= pos
     scores = torch.where(valid, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgt,bktd->bkgd", probs.to(cache_v.dtype), cache_v)
-    out = out.reshape(B, cfg.n_heads * hd)
-    return out @ p.wo, cache_k, cache_v
+    out = decode_softmax(scores, cache_v, shared=n > 1).reshape(B, cfg.n_heads * hd)
+    if split:
+        out = own_heads(out, H, hd)
+    return constrain(out @ p.wo, "btd", partial=split), cache_k, cache_v
 
 
 # ---------------------------------------------------------------------------

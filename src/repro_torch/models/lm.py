@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..compat import resolve_device
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, cache_specs
 from ..parallel.act_sharding import (
     all_reduce_max, constrain, model_rank, reads_block, reduce, seq_parallel, seq_share,
 )
@@ -75,6 +75,17 @@ def prefill(params, batch, cfg: ArchConfig, pad_to: int = 0):
         return logits, {}
     return transformer.prefill(params, cfg, batch["tokens"],
                                image_embeds=batch.get("image_embeds"), pad_to=pad_to)
+
+
+def prefill_cache_specs(cfg: ArchConfig, batch: int, seq_len: int, pad_to: int = 0) -> dict:
+    """The cache :func:`prefill` returns for ``batch`` prompts of ``seq_len``
+    tokens, as ``(shape, dtype)`` pairs (``cache_specs``): a transformer's at
+    ``max(pad_to, seq_len)`` positions, the recurrent families' at the
+    prompt's; none for the audio encoder."""
+    if cfg.family == "audio":
+        return {}
+    return cache_specs(cfg, batch, seq_len if cfg.family in ("ssm", "hybrid")
+                       else max(pad_to, seq_len))
 
 
 def decode_step(params, batch, cfg: ArchConfig):

@@ -25,7 +25,7 @@ from torch import nn
 
 from ..configs.base import ArchConfig, cache_specs, torch_dtype
 from . import layers as L
-from .transformer import _remat, as_built
+from .transformer import _remat, as_built, cache_shares
 
 
 class _LM(nn.Module):
@@ -51,11 +51,13 @@ def _embed(params, cfg, tokens):
     return L.embed(params, tokens, torch_dtype(cfg.activation_dtype))
 
 
-def _zero_cache(cfg, batch, seq_len, device):
-    return {
-        name: torch.zeros(shape, dtype=dt, device=device)
-        for name, (shape, dt) in cache_specs(cfg, batch, seq_len).items()
-    }
+def _stacked(cfg, batch, seq_len, layers: dict) -> dict:
+    """name -> each layer's state in order -> the cache, each leaf stacked
+    over the layers in ``cache_specs``' dtype.  Under a mesh the states are
+    this rank's (its rows and channels, its share of the ring's slots), so
+    the leaves take their shapes from them."""
+    specs = cache_specs(cfg, batch, seq_len)
+    return {name: torch.stack(states).to(specs[name][1]) for name, states in layers.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -94,22 +96,24 @@ def mamba_hidden(params: MambaLM, cfg: ArchConfig, tokens, remat: str = "full"):
 def mamba_forward(params: MambaLM, cfg: ArchConfig, tokens):
     """Full-sequence forward -> (logits (B, S, V), aux_loss 0)."""
     x = mamba_hidden(params, cfg, tokens, remat="none")
-    return x @ params.lm_head, torch.zeros((), dtype=torch.float32, device=x.device)
+    return L.head_logits(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 @torch.no_grad()
 def mamba_prefill(params: MambaLM, cfg: ArchConfig, tokens):
-    """-> (last-token logits (B, V), cache {"conv", "ssm"} per ``cache_specs``)."""
+    """-> (last-token logits (B, V), cache {"conv", "ssm"} per ``cache_specs``).
+    Under a mesh: this rank's rows, its logits whole over the vocabulary,
+    its states over its channels where the layers split them."""
     x = _embed(params, cfg, tokens)
     B, S = tokens.shape
-    cache = _zero_cache(cfg, B, S, x.device)
-    for i, blk in enumerate(params.blocks):
+    states = {"conv": [], "ssm": []}
+    for blk in params.blocks:
         y, st = L.mamba_block(blk, L.rms_norm(x, blk.norm), cfg)
         x = x + y
-        cache["conv"][i] = st["conv"]
-        cache["ssm"][i] = st["ssm"]
-    x = L.rms_norm(x[:, -1], params.final_norm)
-    return x @ params.lm_head, cache
+        states["conv"].append(st["conv"])
+        states["ssm"].append(st["ssm"])
+    x = L.rms_norm(L.last_position(x), params.final_norm)
+    return L.head_logits(params, x), _stacked(cfg, B, S, states)
 
 
 @torch.no_grad()
@@ -124,7 +128,7 @@ def mamba_decode_step(params: MambaLM, cfg: ArchConfig, token, pos, cache):
         cache["conv"][i] = st["conv"]
         cache["ssm"][i] = st["ssm"]
     x = L.rms_norm(x, params.final_norm)
-    return x @ params.lm_head, cache
+    return L.head_logits(params, x), cache
 
 
 # ---------------------------------------------------------------------------
@@ -207,7 +211,7 @@ def griffin_hidden(params: GriffinLM, cfg: ArchConfig, tokens, remat: str = "ful
 def griffin_forward(params: GriffinLM, cfg: ArchConfig, tokens):
     """Full-sequence forward -> (logits (B, S, V), aux_loss 0)."""
     x = griffin_hidden(params, cfg, tokens, remat="none")
-    return x @ params.lm_head, torch.zeros((), dtype=torch.float32, device=x.device)
+    return L.head_logits(params, x), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 @torch.no_grad()
@@ -217,28 +221,32 @@ def griffin_prefill(params: GriffinLM, cfg: ArchConfig, tokens):
     The K/V cache keeps the last ``min(attn_window, S)`` positions as a ring
     buffer (slot = pos % window), so decode continues in place.  Below the
     window the cache is S long and decode's write clamps to its last slot,
-    as the reference's does (``layers.attention_decode``).
+    as the reference's does (``layers.attention_decode``).  Under a mesh:
+    this rank's rows, its logits whole over the vocabulary, its RG-LRU
+    states over its channels, and every KV head over its share of the
+    ring's slots, the ring laid out in slot order first.
     """
     x = _embed(params, cfg, tokens)
     B, S = tokens.shape
     positions = torch.arange(S, device=x.device)[None, :]
     window = min(cfg.attn_window, S)
     roll = -((S - window) % window)
-    cache = _zero_cache(cfg, B, S, x.device)
-    i_rec = i_attn = 0
+    ring_shape = cache_shares(cfg, B, S)["k"][0][1:]
+    states = {"lru": [], "conv": [], "k": [], "v": []}
     for lyr in params.layers:
         if isinstance(lyr, AttnLayer):
             x, k, v = _attn_layer_apply(lyr, x, cfg, positions)
-            cache["k"][i_attn] = torch.roll(k[:, :, S - window:], roll, dims=2)
-            cache["v"][i_attn] = torch.roll(v[:, :, S - window:], roll, dims=2)
-            i_attn += 1
+            for name, t in (("k", k), ("v", v)):
+                ring = torch.zeros(ring_shape, dtype=t.dtype, device=t.device)
+                L.cache_kv(ring, torch.roll(t[:, :, S - window:], roll, dims=2),
+                           cfg.n_kv_heads, "k")
+                states[name].append(ring)
         else:
             x, st = _rec_layer_apply(lyr, x, cfg)
-            cache["lru"][i_rec] = st["lru"]
-            cache["conv"][i_rec] = st["conv"]
-            i_rec += 1
-    x = L.rms_norm(x[:, -1], params.final_norm)
-    return x @ params.lm_head, cache
+            states["lru"].append(st["lru"])
+            states["conv"].append(st["conv"])
+    x = L.rms_norm(L.last_position(x), params.final_norm)
+    return L.head_logits(params, x), _stacked(cfg, B, S, states)
 
 
 @torch.no_grad()
@@ -266,4 +274,4 @@ def griffin_decode_step(params: GriffinLM, cfg: ArchConfig, token, pos, cache):
             cache["conv"][i_rec] = st["conv"]
             i_rec += 1
     x = L.rms_norm(x, params.final_norm)
-    return x @ params.lm_head, cache
+    return L.head_logits(params, x), cache

@@ -27,7 +27,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ArchConfig, cache_specs, torch_dtype
-from ..parallel.act_sharding import constrain
+from ..parallel.act_sharding import cache_share, constrain, gather_seq
 from . import layers as L
 
 # Why the LM facade takes no config of the other families.
@@ -237,14 +237,28 @@ def hidden_forward(params: Transformer, cfg: ArchConfig, tokens=None, frames=Non
 
 @torch.no_grad()
 def forward(params: Transformer, cfg: ArchConfig, tokens=None, frames=None, image_embeds=None):
-    """Full-sequence forward -> (logits (B, S, V), aux_loss)."""
+    """Full-sequence forward -> (logits (B, S, V), aux_loss); the logits are
+    whole on every model rank (``layers.head_logits``)."""
     x, aux = hidden_forward(params, cfg, tokens, frames, image_embeds, remat="none")
-    return x @ params.head(), aux
+    return L.head_logits(params, x), aux
 
 
 # ---------------------------------------------------------------------------
 # Serving: prefill + single-token decode
 # ---------------------------------------------------------------------------
+
+
+def cache_shares(cfg: ArchConfig, batch: int, seq_len: int) -> dict:
+    """``cache_specs(cfg, batch, seq_len)`` as this rank holds it: a cache
+    whose positions the installed policy splits over the model axis
+    (``act_sharding.cache_share``) keeps its share of them."""
+    out = {}
+    for name, (shape, dt) in cache_specs(cfg, batch, seq_len).items():
+        if name in ("k", "v", "xk", "xv"):
+            _, n = cache_share(name[:-1] + "k")
+            shape = shape[:3] + (shape[3] // n,) + shape[4:]
+        out[name] = (shape, dt)
+    return out
 
 
 @torch.no_grad()
@@ -256,38 +270,53 @@ def prefill(params: Transformer, cfg: ArchConfig, tokens, image_embeds=None, pad
     cache as in ``cache_specs``: {"k", "v"} of (n_self, B, KV, T, D), and for
     the VLM {"xk", "xv"} of (n_cross, B, KV, img_tokens, D), the image's
     keys and values).
+
+    Under a mesh (``train.steps.jit_serve_step``) each rank gets its rows of
+    the batch and returns their logits, whole over the vocabulary; the
+    layers compute its heads, columns and experts, the stream holding its
+    share of the sequence under sequence parallelism (the last position
+    comes from the last model rank).  Its cache holds its rows, and every
+    KV head over its share of the positions where the policy splits them
+    (``cache_shares``; ``layers.cache_kv`` moves them there).
     """
     x, img = _inputs(params, cfg, tokens, None, image_embeds)
     B, S = tokens.shape
     positions = torch.arange(S, device=x.device)[None, :]
     cache = {
         name: torch.zeros(shape, dtype=dt, device=x.device)
-        for name, (shape, dt) in cache_specs(cfg, B, max(pad_to, S)).items()
+        for name, (shape, dt) in cache_shares(cfg, B, max(pad_to, S)).items()
     }
     for blk, cross, i in _layers(params):
         if cross:
             x, k, v = _cross_block_apply(blk, x, img, cfg)
-            cache["xk"][i] = k
-            cache["xv"][i] = v
+            L.cache_kv(cache["xk"][i], k, cfg.n_kv_heads, "xk")
+            L.cache_kv(cache["xv"][i], v, cfg.n_kv_heads, "xk")
         else:
             x, _, k, v = _self_block_apply(blk, x, cfg, positions)
-            cache["k"][i, :, :, :S] = k
-            cache["v"][i, :, :, :S] = v
-    x = L.rms_norm(x[:, -1], params.final_norm)
-    return x @ params.head(), cache
+            L.cache_kv(cache["k"][i], k, cfg.n_kv_heads, "k")
+            L.cache_kv(cache["v"][i], v, cfg.n_kv_heads, "k")
+    x = L.rms_norm(L.last_position(x), params.final_norm)
+    return L.head_logits(params, x), cache
 
 
 def _cross_decode(blk, x, xk, xv, cfg):
     """One token's cross-attention against the cached image K/V (no mask),
-    in plain PyTorch as in the reference, then the MLP.  x: (B, d_model)."""
+    in plain PyTorch as in the reference, then the MLP.  x: (B, d_model).
+    A split attention gathers every head's query, and where the image's
+    tokens are split over the model ranks their shares are combined
+    (``layers.decode_softmax``)."""
     hd = cfg.hd
     B = x.shape[0]
-    q = L.rms_norm(x, blk.attn.xnorm) @ blk.attn.wq
+    split, H, _, _ = L.head_share(blk.attn, cfg)
+    q = constrain(L.rms_norm(x, blk.attn.xnorm), "btf" if split else "whole") @ blk.attn.wq
+    if split:
+        q = gather_seq(q, dim=1)
     qg = q.reshape(B, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, hd)
     scores = torch.einsum("bkgd,bktd->bkgt", qg, xk).float() / math.sqrt(hd)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgt,bktd->bkgd", probs.to(xv.dtype), xv)
-    h = x + _gate(blk, x) * (out.reshape(B, -1) @ blk.attn.wo)
+    out = L.decode_softmax(scores, xv, shared=cache_share("xk")[1] > 1).reshape(B, -1)
+    if split:
+        out = L.own_heads(out, H, hd)
+    h = x + _gate(blk, x) * constrain(out @ blk.attn.wo, "btd", partial=split)
     return h + L.mlp(blk.mlp, L.rms_norm(h, blk.mlp.norm))
 
 
@@ -297,6 +326,14 @@ def decode_step(params: Transformer, cfg: ArchConfig, token, pos, cache):
 
     Updates ``cache`` in place (each self layer writes its slot at ``pos``)
     and returns (logits (B, V), cache).
+
+    Under a mesh each rank takes its rows and its cache, as ``prefill``
+    left them, and returns its rows' logits whole over the vocabulary.  A
+    decode token has no sequence to split: the step runs without sequence
+    parallelism, every (B, d_model) tensor whole on every model rank.
+    Attention gathers every head's query, the rank holding the slot writes
+    it, and each rank attends over its share of the positions, the shares
+    combined over the model ranks (flash-decoding).
     """
     if cfg.is_encoder:
         raise ValueError(f"{cfg.name} is encoder-only: no decode step")
@@ -316,4 +353,4 @@ def decode_step(params: Transformer, cfg: ArchConfig, token, pos, cache):
         else:
             x = x + L.mlp(blk.mlp, L.rms_norm(x, blk.mlp.norm))
     x = L.rms_norm(x, params.final_norm)
-    return x @ params.head(), cache
+    return L.head_logits(params, x), cache

@@ -39,6 +39,13 @@ of every data rank, with a gradient, and keeps its own.
 The policy is process-global, as in the reference (models are functions of
 (params, batch)); the step installs it for its own duration
 (:func:`using_policy`), so none outlives the step.
+
+Serving (``train.steps.jit_serve_step``) adds the KV caches' layout: a
+cache leaf named in ``ActivationPolicy.cache_seq`` holds, on each model
+rank, every KV head over the rank's share of its positions
+(flash-decoding).  :func:`cache_share` says which share; prefill moves its
+keys and values there (:func:`all_to_all`), and a decode step's attention
+combines the ranks' shares (``models.layers.attention_decode``).
 """
 
 from __future__ import annotations
@@ -61,6 +68,8 @@ class ActivationPolicy:
     # parameter name -> how a placed model reads it (sharding.model_reads);
     # train.steps.activation_policy fills it for every parameter
     reads: dict = field(default_factory=dict)
+    # cache leaves ("k", "xk") whose sequence is split over ``tp``
+    cache_seq: frozenset = frozenset()
 
 
 _POLICY: ActivationPolicy | None = None
@@ -114,6 +123,16 @@ def seq_parallel() -> bool:
     return _POLICY is not None and _POLICY.seq is not None and model_size() > 1
 
 
+def cache_share(name: str) -> tuple[int, int]:
+    """(this rank's share, the number of shares) of the positions of cache
+    leaf ``name`` (``"k"`` for self-attention, ``"xk"`` for the image's):
+    (its model position, the model axis's rank count) where the installed
+    policy splits that cache's sequence over the model axis, else (0, 1)."""
+    if model_size() == 1 or name not in _POLICY.cache_seq:
+        return 0, 1
+    return model_rank()
+
+
 def read_of(name: str) -> Read:
     """How a placed model reads parameter ``name`` under the installed
     policy: whole, without one or over a model axis of one rank.  Raises
@@ -162,6 +181,12 @@ class _Axis:
         x = x.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(x, group=self.group)
         return x
+
+    def all_to_all(self, x):
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=self.group)
+        return out
 
     def own(self, x, dim: int):
         n = x.shape[dim] // self.size
@@ -280,6 +305,13 @@ def all_reduce_max(x):
     return x
 
 
+def all_to_all(x):
+    """``x``: (n, ...), one piece for each model rank in order, the model
+    axis's n ranks -> (n, ...), piece r the one model rank r sent this rank
+    (no gradient)."""
+    return x if model_size() == 1 else _Axis().all_to_all(x)
+
+
 def seq_share(x, dim: int = 1):
     """This rank's share of the sequence of an input that needs no gradient
     (tokens, targets, masks) under sequence parallelism; else ``x``."""
@@ -299,6 +331,9 @@ def constrain(x, kind: str, partial: bool = False):
     if model_size() == 1:
         return x
     sp = seq_parallel()
+    if sp and kind in ("btd", "btf", "whole") and x.dim() != 3:
+        # A (B, d_model) decode tensor has no sequence: dim 1 is its features.
+        raise ValueError(f"sequence parallelism splits dim 1 of (B, S, D); got {tuple(x.shape)}")
     if kind == "btd":
         if partial:
             return scatter_seq(x) if sp else reduce(x)

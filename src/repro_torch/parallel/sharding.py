@@ -465,11 +465,13 @@ def place(module: nn.Module, param_layouts: dict, prefix: str = "") -> nn.Module
     and the kernels see plain tensors.  Returns ``module``."""
     from torch.nn.utils import parametrize
 
-    for name, p in list(module.named_parameters()):
-        if _is_dtensor(p):
-            continue
+    # Names, not the parameters: each whole tensor is freed as soon as its
+    # shard replaces it, so placing a built model holds one tensor twice at
+    # most, not all of them.
+    for name in [n for n, p in module.named_parameters() if not _is_dtensor(p)]:
         owner, _, leaf = name.rpartition(".")
         sub = module.get_submodule(owner)
+        p = sub._parameters[leaf]
         setattr(sub, leaf, nn.Parameter(shard(p, param_layouts[prefix + name]),
                                         requires_grad=p.requires_grad))
         del p

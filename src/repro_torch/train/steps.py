@@ -40,9 +40,20 @@
 
   At world size 1 it joins a process group of one rank and runs the same
   path, and equals :func:`make_train_step` to the bit.
+* :func:`jit_serve_step`: serving under the same plan and mesh, the
+  reference's sharded serve step (``repro.launch.dryrun``'s prefill and
+  decode cells).  Each rank computes its rows of the batch over its share
+  of ``"model"`` as the trainer does; the KV caches keep every KV head over
+  the rank's share of their positions (flash-decoding: a decode step's
+  attention combines the shares over ``"model"``), the recurrent states
+  the rank's channels; the logits come back whole, the caches as DTensors
+  in the reference's ``out_shardings``.  At world size 1 it equals
+  :func:`make_serve_step` to the bit.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -52,7 +63,7 @@ from ..core.collectives import psum, topoopt_psum_fn
 from ..launch.mesh import one_rank_world
 from ..models import lm
 from ..optim import Optimizer
-from ..parallel.act_sharding import ActivationPolicy, set_policy, using_policy
+from ..parallel.act_sharding import ActivationPolicy, gather_batch, set_policy, using_policy
 from ..parallel.sharding import (
     ShardingPlan,
     batch_spec_tree,
@@ -268,6 +279,100 @@ def jit_train_step(cfg: ArchConfig, optimizer: Optimizer, plan: ShardingPlan, me
         return model, opt_state, metrics
 
     return step, (p_specs, o_specs, p_layouts, o_layouts, batch_fn)
+
+
+def jit_serve_step(cfg: ArchConfig, shape: ShapeSpec, plan: ShardingPlan, mesh, device=None,
+                   pad_to: int = 0):
+    """The serve step of ``shape.kind`` with the plan's layouts on ``mesh``
+    (the port's :class:`~repro_torch.core.device_order.Mesh`).
+
+    Returns ``(step, (p_specs, p_layouts, batch_fn))``: the parameters'
+    ``(shape, dtype)`` tree and :class:`~repro_torch.parallel.sharding.Layout`
+    tree, and ``batch_fn(shape)``, a cell's batch layouts.  Build the model
+    with ``lm.init(seed, cfg, device, place=parallel.sharding.placer(p_layouts))``
+    (or :func:`place` a built one).
+
+    Prefill (``shape.kind == "prefill"``): ``step(model, batch) -> (logits,
+    cache)`` takes the global batch (every rank the same, on ``device``) and
+    computes this rank's rows with ``lm.prefill(..., pad_to=pad_to)``; the
+    logits are the global batch's, (B, V) or the audio encoder's (B, S, V),
+    on every rank; the cache is a dict of DTensors in
+    ``batch_fn(decode shape)["cache"]``'s layouts (batch over the data axes,
+    the K/V caches' positions over ``"model"`` where they divide, the
+    recurrent states' channels over it).  Sequence parallelism runs where
+    the plan asks for it and the prompt divides over ``"model"``.
+
+    Decode: ``step(model, {"token", "pos", "cache"}) -> (logits, cache)``
+    takes the global tokens (B,) and the cache as prefill returned it,
+    updates this rank's shard of it in place and returns the global logits
+    (B, V) and the cache.  It runs without sequence parallelism.
+
+    The rows of the batch must divide over the data ranks.  ``device``: the
+    card unless ``"cpu"``; without a process group the step joins one of
+    one rank.  The step installs its activation policy for its own duration
+    only.
+    """
+    from torch.distributed.tensor import DTensor
+
+    device = resolve_device(device)
+    one_rank_world(device)
+    p_specs = lm.param_specs(cfg)
+    dmesh = device_mesh(mesh, device)
+    p_layouts = layouts(param_spec_tree(p_specs, plan, mesh), dmesh)
+    pos, n_dp = data_position(mesh, data_axes(plan, mesh))
+    base = activation_policy(plan, mesh, cfg)
+
+    def batch_fn(shape: ShapeSpec) -> dict:
+        return layouts(batch_spec_tree(input_specs(cfg, shape), cfg, plan, mesh), dmesh)
+
+    def policy_for(shapes: dict) -> ActivationPolicy:
+        """The policy for a batch of these global ``(shape, dtype)``s: the
+        sequence over ``"model"`` where the inputs' spec splits it, and the
+        caches whose positions their spec splits."""
+        specs = batch_spec_tree(shapes, cfg, plan, mesh)
+        seq = any(specs[k][1] == "model" for k in ("tokens", "frames") if k in specs)
+        cache_seq = frozenset(n for n, s in specs.get("cache", {}).items()
+                              if n in ("k", "xk") and s[3] == "model")
+        return dataclasses.replace(base, seq=base.tp if seq else None, cache_seq=cache_seq)
+
+    def rows(t):
+        if t.shape[0] % n_dp:
+            raise ValueError(f"global batch rows {t.shape[0]} do not split over {n_dp} "
+                             "data ranks")
+        b = t.shape[0] // n_dp
+        return t[pos * b:(pos + 1) * b]
+
+    def as_dtensors(cache: dict, specs: dict) -> dict:
+        lay = layouts(batch_spec_tree({"cache": specs}, cfg, plan, mesh), dmesh)["cache"]
+        return {n: DTensor.from_local(t, lay[n].mesh, lay[n].placements, run_check=False,
+                                      shape=specs[n][0],
+                                      stride=torch.empty(specs[n][0], device="meta").stride())
+                for n, t in cache.items()}
+
+    if shape.kind == "prefill":
+        @torch.no_grad()
+        def step(model, batch):
+            B, S = batch["frames" if cfg.family == "audio" else "tokens"].shape[:2]
+            specs = lm.prefill_cache_specs(cfg, B, S, pad_to)
+            with using_policy(policy_for({**shapes_of(batch), "cache": specs})):
+                logits, cache = lm.prefill(model, {k: rows(v) for k, v in batch.items()}, cfg,
+                                           pad_to=pad_to)
+                logits, _ = gather_batch(logits)
+            return logits, as_dtensors(cache, specs)
+        return step, (p_specs, p_layouts, batch_fn)
+
+    @torch.no_grad()
+    def step(model, batch):
+        cache = batch["cache"]
+        shapes = {"cache": {n: (tuple(t.shape), t.dtype) for n, t in cache.items()}}
+        local = {"token": rows(batch["token"]), "pos": batch["pos"],
+                 "cache": {n: t.to_local() for n, t in cache.items()}}
+        with using_policy(policy_for(shapes)):
+            logits, _ = lm.decode_step(model, local, cfg)
+            logits, _ = gather_batch(logits)
+        return logits, cache
+
+    return step, (p_specs, p_layouts, batch_fn)
 
 
 def make_shardmap_dp_train_step(

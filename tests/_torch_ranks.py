@@ -488,6 +488,94 @@ def _tp_compute(rank, inputs):
     return out
 
 
+# The mesh serve step's cases on the (2, 4) mesh: name -> (GSPMD_CONFIGS key,
+# ShardingPlan fields, prompt length, pad_to).  A prompt of 12 and 4 decode
+# steps in 16 slots: 4 positions a model rank.  "masked": 32 slots, so at the
+# first decode step ranks 2 and 3 hold no valid position; "whole": 30 slots,
+# which do not divide over 4, so each rank holds the whole sequence.
+# Griffin's window is 16: its 12-token prompt leaves a 12-slot cache, its
+# 20-token one a ring that has wrapped.  minicpm-2b: 4 KV heads, one a rank
+# (the all-to-all), and a tied head split by vocabulary.
+SERVE_CASES = {
+    "fsdp": ("granite-8b", {"fsdp": True}, 12, 16),
+    "no_fsdp": ("granite-8b", {"fsdp": False}, 12, 16),
+    "seq_parallel": ("granite-8b", {"fsdp": True, "seq_parallel": True}, 12, 16),
+    "moe": ("qwen3-moe-30b-a3b", {"fsdp": True}, 12, 16),
+    "ssm_12": ("falcon-mamba-7b", {"fsdp": True}, 12, 0),
+    "ssm_20": ("falcon-mamba-7b", {"fsdp": True}, 20, 0),
+    "hybrid_12": ("recurrentgemma-9b", {"fsdp": True}, 12, 0),
+    "hybrid_20": ("recurrentgemma-9b", {"fsdp": True}, 20, 0),
+    "hybrid_20_seq": ("recurrentgemma-9b", {"fsdp": True, "seq_parallel": True}, 20, 0),
+    "vlm": ("llama-3.2-vision-11b", {"fsdp": True}, 12, 16),
+    "audio": ("hubert-xlarge", {"fsdp": True}, 12, 0),
+    "masked": ("granite-8b", {"fsdp": True}, 12, 32),
+    "whole": ("granite-8b", {"fsdp": True}, 12, 30),
+    "kv_heads": ("minicpm-2b", {"fsdp": True, "seq_parallel": True}, 12, 16),
+}
+SERVE_BATCH, SERVE_DECODE = 4, 4
+
+
+def serve_inputs(name: str, cfg) -> dict:
+    """Case ``name``'s global prefill batch, numpy from a seed: the tokens
+    (the audio encoder's frames), and the VLM's image."""
+    _, _, S, _ = SERVE_CASES[name]
+    rng = np.random.default_rng(7)
+    if cfg.family == "audio":
+        return {"frames": rng.standard_normal((SERVE_BATCH, S, cfg.d_model)).astype(np.float32)}
+    batch = {"tokens": rng.integers(0, cfg.vocab, (SERVE_BATCH, S)).astype(np.int32)}
+    if cfg.family == "vlm":
+        batch["image_embeds"] = rng.standard_normal(
+            (SERVE_BATCH, cfg.img_tokens, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def _serve_mesh(rank, inputs):
+    """Each SERVE_CASES case from the JAX weights: ``jit_serve_step``'s
+    prefill and SERVE_DECODE greedy decode steps; the logits of each, the
+    generated ids, every cache leaf whole after the prefill and after the
+    last step, and this rank's shard shapes."""
+    import torch
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import ShardingPlan, place
+    from repro_torch.train.steps import jit_serve_step
+    from repro_torch.weights import params_from_jax
+
+    mesh = make_test_mesh((2, 4), ("data", "model"))
+    out = {"pos": {a: mesh.axis(a).index for a in mesh.axis_names}}
+    for name in inputs["cases"]:
+        key, kw, S, pad_to = SERVE_CASES[name]
+        cfg, plan = gspmd_config(key), ShardingPlan(**kw)
+        prefill, (_, p_layouts, _) = jit_serve_step(
+            cfg, ShapeSpec("p", S, SERVE_BATCH, "prefill"), plan, mesh, device="cpu",
+            pad_to=pad_to)
+        model = lm.init(0, cfg, device="cpu")
+        model.load_state_dict(params_from_jax(inputs["params"][key], cfg))
+        place(model, p_layouts)
+        batch = {k: torch.from_numpy(v) for k, v in serve_inputs(name, cfg).items()}
+        logits, cache = prefill(model, batch)
+        whole = lambda c: {n: t.full_tensor().numpy().copy() for n, t in c.items()}  # noqa: E731
+        rec = {"logits": [logits.numpy().copy()], "cache0": whole(cache),
+               "local": {n: tuple(t.to_local().shape) for n, t in cache.items()}}
+        if not cfg.is_encoder:
+            T = cache["k"].shape[3] if "k" in cache else S
+            decode, _ = jit_serve_step(cfg, ShapeSpec("d", T, SERVE_BATCH, "decode"), plan, mesh,
+                                       device="cpu")
+            tok = logits.argmax(-1)
+            ids = [tok]
+            for i in range(SERVE_DECODE):
+                logits, cache = decode(model, {"token": tok, "pos": S + i, "cache": cache})
+                rec["logits"].append(logits.numpy().copy())
+                tok = logits.argmax(-1)
+                ids.append(tok)
+            rec["ids"] = torch.stack(ids, dim=1).numpy()
+            rec["cache"] = whole(cache)
+        out[name] = rec
+    return out
+
+
 def _gspmd_loop(rank, inputs):
     """The training loop on a (2, 4) mesh under ``fsdp=True``: an
     uninterrupted run, and a run failing at step 10 then resumed, with
@@ -525,7 +613,7 @@ def _gspmd_loop(rank, inputs):
 
 JOBS = {"collectives": _collectives, "four_ranks": _four_ranks, "compression": _compression,
         "dp_train": _dp_train, "gspmd_train": _gspmd_train, "gspmd_loop": _gspmd_loop,
-        "tp_compute": _tp_compute}
+        "tp_compute": _tp_compute, "serve_mesh": _serve_mesh}
 
 
 def _main(job: str, rank: int, world: int, workdir: str) -> None:

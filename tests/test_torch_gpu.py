@@ -2301,6 +2301,59 @@ def test_jit_train_step_at_world_size_1_equals_train_step_on_card(cuda):
             dist.destroy_process_group()
 
 
+@pytest.mark.parametrize("arch", ["granite-8b", "qwen3-moe-30b-a3b"])
+def test_jit_serve_step_at_world_size_1_equals_make_serve_step_on_card(cuda, arch):
+    """Serving under a one-rank (1, 1) mesh on the card (a one-rank NCCL
+    group): prefill, padded as serving pads it, and 4 greedy decode steps of
+    ``jit_serve_step`` give ``make_serve_step``'s logits and caches to the
+    bit.  A narrow fp32 granite-8b and qwen3-moe-30b-a3b (head dim 64: the
+    attention kernel in the prefill; the MoE's grouped matmuls in both)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.device_order import Mesh
+    from repro_torch.parallel.sharding import ShardingPlan, placer
+    from repro_torch.train.steps import jit_serve_step, make_serve_step
+
+    over = dict(d_model=256, n_heads=4, n_kv_heads=2, head_dim=64, d_ff=512,
+                param_dtype="float32", activation_dtype="float32")
+    if arch == "qwen3-moe-30b-a3b":
+        over.update(n_experts=8, top_k=2, d_ff=128, capacity_factor=1.0)
+    cfg = dataclasses.replace(get_config(arch).smoke(), **over)
+    S, steps = 96, 4
+    tokens = torch.randint(0, cfg.vocab, (4, S), generator=torch.Generator().manual_seed(0))
+    batch = {"tokens": tokens.to(cuda)}
+    assert not dist.is_initialized()
+    try:
+        model = lm.init(0, cfg, device=cuda)
+        want, want_cache = lm.prefill(model, batch, cfg, pad_to=S + steps)
+        mesh = Mesh(np.zeros((1, 1), dtype=np.int64), ("data", "model"))
+        plan = ShardingPlan(fsdp=True)
+        prefill, (_, p_layouts, _) = jit_serve_step(
+            cfg, ShapeSpec("p", S, 4, "prefill"), plan, mesh, device=cuda, pad_to=S + steps)
+        decode_shape = ShapeSpec("d", S + steps, 4, "decode")
+        decode, _ = jit_serve_step(cfg, decode_shape, plan, mesh, device=cuda)
+        plain = make_serve_step(cfg, decode_shape)
+        placed = lm.init(0, cfg, device=cuda, place=placer(p_layouts))
+        before = ops.attention_launches, ops.grouped_matmul_launches
+        got, cache = prefill(placed, batch)
+        moe = 3 * cfg.n_layers if cfg.family == "moe" else 0
+        assert (ops.attention_launches - before[0],
+                ops.grouped_matmul_launches - before[1]) == (cfg.n_layers, moe)
+        assert torch.equal(got, want)
+        assert all(torch.equal(cache[n].full_tensor(), w) for n, w in want_cache.items())
+        tok = want.argmax(-1)
+        for i in range(steps):
+            want, want_cache = plain(model, {"token": tok, "pos": S + i, "cache": want_cache})
+            got, cache = decode(placed, {"token": tok, "pos": S + i, "cache": cache})
+            assert torch.equal(got, want)
+            assert all(torch.equal(cache[n].full_tensor(), w) for n, w in want_cache.items())
+            tok = want.argmax(-1)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
 # ---------------------------------------------------------------------------
 # One model rank's share on the production mesh's model axis of 16
 # (``train.steps.jit_train_step``'s split compute): qwen3-moe-30b-a3b's

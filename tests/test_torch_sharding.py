@@ -90,6 +90,33 @@ def test_param_spec_tree_matches_jax(arch):
                                    shape, (size, mesh_name, kw, name))
 
 
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+@pytest.mark.parametrize("fsdp", [True, False])
+def test_dlrm_param_spec_tree_matches_jax(mesh_name, fsdp):
+    """DLRM (the family ARCHS leaves out): its default config's ``tables``
+    (T, R, E) under the rule (None, "model", None), R = 1000 split over a
+    model axis of 4 and left whole over 16, and its MLPs' weights, which no
+    rule names, replicated; each port parameter against the reference's
+    leaf, fsdp on and off."""
+    from repro.models import dlrm as jdlrm
+    from repro_torch.models import dlrm
+
+    jspecs = jax.eval_shape(lambda: jdlrm.init(jax.random.PRNGKey(0), jdlrm.DLRMConfig()))
+    model = dlrm.init(0, dlrm.DLRMConfig(), device="cpu")
+    specs = {n: (tuple(p.shape), p.dtype) for n, p in model.named_parameters()}
+    jmesh, mesh = _meshes(mesh_name)
+    ref = jsh.param_spec_tree(jspecs, jsh.ShardingPlan(fsdp=fsdp), jmesh)
+    got = sharding.param_spec_tree(specs, sharding.ShardingPlan(fsdp=fsdp), mesh)
+    assert sorted(got) == sorted(specs)
+    for name, (shape, _) in specs.items():
+        path = [int(k) if k.isdigit() else k for k in name.split(".")]
+        assert _leaf(jspecs, path).shape == shape, name
+        _check_stacked(_leaf(ref, path), shape, got[name], shape, (mesh_name, fsdp, name))
+    split = 1000 % mesh.shape["model"] == 0
+    assert got["tables"] == (None, "model" if split else None, None)
+    assert all(spec == (None,) * len(spec) for n, spec in got.items() if n != "tables")
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_opt_state_sharding_matches_jax(arch):
     """m, v and master, with ZeRO-1 off and on."""
