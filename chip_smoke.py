@@ -338,7 +338,16 @@ result line:
    ids and launches equal to the phase's plain serve to the bit (the caches
    DTensors in the decode cell's layouts), prefill ms and decode ms/token
    beside the plain serve's;
-8. the script's wall time, one JSON line of per-kernel numbers, the
+8. the dry run (``launch.dryrun``), in processes of their own, since its
+   ``"fake"`` process group cannot share a process with 7e's NCCL group:
+   (a) ``dryrun_cell`` at a (1, 1) mesh on 7e's config, shape and plan, on
+   ``meta`` tensors that stand for the card: its launches by kernel equal to
+   7e's a step, its predicted peak within 10% of 7e's measured
+   ``max_memory_allocated``, and its roofline step time (an estimate from
+   the card's published peaks) beside 7e's measured step; (b) the CLI on
+   qwen3-moe-30b-a3b train_4k and granite-8b decode_32k on the single pod,
+   256 ranks, one summary line each;
+9. the script's wall time, one JSON line of per-kernel numbers, the
    ``nvidia-smi`` line, and the result line ``{"ok": true, "device": {...}}``
    last.
 
@@ -372,8 +381,9 @@ import torch  # noqa: E402
 
 T_START = time.perf_counter()
 
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
-PEAK_BYTES_PER_S = 3.35e12
+from repro_torch.launch.roofline import HBM_BW as PEAK_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.roofline import PEAK_FLOPS  # noqa: E402
+
 SFU_EXP_PER_S = PEAK_FLOPS[torch.float32] / 2 / 128 * 16  # 4.19e12 exps/s
 # bf16/fp16: tests/test_kernels.py's fp16 bar.  fp32: sums of up to 2048
 # terms run in another order on the card than in the plain version.
@@ -2484,6 +2494,90 @@ def gspmd_moe_check(lm, ops, optim, data, train_steps, sharding, device_order, c
 
 
 GSPMD_TURNS = 4  # phase 7d's alternating turns of the plain and the GSPMD step
+DRYRUN_CELLS = (("qwen3-moe-30b-a3b", "train_4k"), ("granite-8b", "decode_32k"))  # phase 8b
+# Phase 8a: dryrun_cell on 7e's cell, in a process of its own; prints the record.
+_DRYRUN_7E = """
+import dataclasses, json, sys
+import numpy as np
+from repro_torch.configs.base import ShapeSpec, get_config
+from repro_torch.core.device_order import Mesh
+from repro_torch.launch.dryrun import dryrun_cell
+from repro_torch.launch.mesh import fake_world
+from repro_torch.parallel.sharding import ShardingPlan
+arch, layers, batch, seq, chunk = sys.argv[1:6]
+fake_world(1)
+cfg = dataclasses.replace(get_config(arch), n_layers=int(layers))
+rec = dryrun_cell(cfg, ShapeSpec("train_4k_b" + batch, int(seq), int(batch), "train"),
+                  Mesh(np.zeros((1, 1), dtype=np.int64), ("data", "model")),
+                  ShardingPlan(fsdp=True, remat="full", loss_chunk=int(chunk)))
+print(json.dumps(rec))
+"""
+
+
+def dryrun_check(want: dict, gspmd_moe: dict, smi: str) -> dict:
+    """Phase 8: the dry run, each run in a process of its own (its fake
+    process group cannot share a process with an NCCL group).  (a)
+    ``dryrun_cell`` on 7e's cell: qwen3-moe-30b-a3b at 4 layers, TRAIN_B x
+    TRAIN_S, ``ShardingPlan(fsdp=True, remat="full", loss_chunk=LOSS_CHUNK)``
+    on a (1, 1) mesh: its launches by kernel equal to ``want`` (7e's a
+    step), its predicted peak within 10% of 7e's measured peak, its
+    roofline step time printed beside 7e's step ms.  (b) ``python -m
+    repro_torch.launch.dryrun`` on each of DRYRUN_CELLS on the single pod:
+    exit 0 and one OK line each.  The three processes run at once."""
+    root = Path(__file__).resolve().parent
+    env = {k: v for k, v in os.environ.items() if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    env["PYTHONPATH"] = str(root / "src")
+    t0 = time.perf_counter()
+    cmds = [[sys.executable, "-c", _DRYRUN_7E, MOE_TRAIN_ARCH, str(MOE_TRAIN_LAYERS),
+             str(TRAIN_B), str(TRAIN_S), str(LOSS_CHUNK)]]
+    cmds += [[sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+              "--mesh", "single", "--out", str(root / "build" / "dryrun")]
+             for arch, shape in DRYRUN_CELLS]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              cwd=root, env=env) for cmd in cmds]
+    outs = []
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=600)
+            outs.append((proc.returncode, out, err))
+    finally:
+        for proc in procs:  # stop every process this phase started
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    rc, out, err = outs[0]
+    require(rc == 0, f"phase 8a dry run exited {rc}: {err[-3000:]}")
+    rec = json.loads(out.splitlines()[-1])
+    launches = {n: rec["launches"].get(n, 0) for n in want}
+    require(launches == want, f"phase 8a dry-run launches {launches}, 7e's a step {want}")
+    peak_gb = rec["memory"]["peak_size_in_bytes"] / 1e9
+    peak_err = abs(peak_gb - gspmd_moe["peak_gb"]) / gspmd_moe["peak_gb"]
+    require(peak_err <= 0.10, f"phase 8a predicted peak {peak_gb} GB vs 7e's measured "
+                              f"{gspmd_moe['peak_gb']} GB: {peak_err:.1%} off, more than 10%")
+    r = rec["roofline"]
+    print(f"phase 8a dry run: dryrun_cell on 7e's cell ({MOE_TRAIN_ARCH}, {MOE_TRAIN_LAYERS} "
+          f"layers, {TRAIN_B} x {TRAIN_S}, fsdp, (1, 1) mesh) on meta tensors (phase 8's three "
+          f"processes in {wall:.2f} s): launches equal to 7e's a step; "
+          f"predicted peak {peak_gb} GB (held {rec['memory']['argument_size_in_bytes'] / 1e9} "
+          f"GB + the step's own {rec['memory']['temp_size_in_bytes'] / 1e9} GB) vs 7e's "
+          f"measured {gspmd_moe['peak_gb']} GB, {peak_err:.2%} off; roofline step "
+          f"{r['step_time_s'] * 1e3} ms ({r['dominant']}: compute {r['compute_s'] * 1e3} ms, "
+          f"memory {r['memory_s'] * 1e3} ms; estimates from the card's published peaks) vs "
+          f"7e's measured step ms {gspmd_moe['step_ms']}; product FLOPs "
+          f"{rec['hlo']['flops_per_dev']}, bytes {rec['hlo']['bytes_per_dev']}, useful "
+          f"{r['useful_fraction']}; on {smi}")
+    cli = []
+    for (arch, shape), (rc, out, err) in zip(DRYRUN_CELLS, outs[1:]):
+        ok = [line for line in out.splitlines() if line.startswith("OK ")]
+        require(rc == 0 and len(ok) == 1, f"phase 8b dry run of {arch} {shape} exited {rc}: "
+                                          f"{out[-2000:]}{err[-3000:]}")
+        cli.append(ok[0])
+        print(f"phase 8b dry run CLI: {ok[0]} (256 fake ranks; roofline terms are estimates "
+              f"from the card's published peaks); on {smi}")
+    return dict(peak_gb=peak_gb, measured_peak_gb=gspmd_moe["peak_gb"], peak_err=peak_err,
+                roofline_step_ms=r["step_time_s"] * 1e3, measured_step_ms=gspmd_moe["step_ms"],
+                cli=cli)
 
 
 def mesh_serve_check(train_steps, sharding, device_order, ops, model, tokens, plain: dict,
@@ -3556,6 +3650,9 @@ def main() -> int:
     gspmd_moe = gspmd_moe_check(lm, ops, optim, data, train_steps, sharding, device_order,
                                 moe_cfg, dev, smi, want_moe, moe_trained["step_ms"])
     print(f"phase 7e summary: {json.dumps(gspmd_moe)} on {smi}")
+    # Phase 8: the dry run of 7e's cell against what 7e measured, and the CLI.
+    dryrun = dryrun_check(want_moe, gspmd_moe, smi)
+    print(f"phase 8 summary: {json.dumps(dryrun)} on {smi}")
 
     print(f"chip_smoke: wall time {time.perf_counter() - T_START} s, the kernels' build "
           "included")

@@ -35,6 +35,7 @@ kernel does not compute, and no training shape (Sq = Sk) has them.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -50,6 +51,7 @@ TILINGS = ("wgmma", "fma")
 # own wgmma kernels at the true width); 128 granite-8b/34b, deepseek-coder-33b,
 # the VLM; 256 recurrentgemma.
 HEAD_DIMS = {"wgmma": (64, 80, 128, 256), "fma": (32, 64, 80, 128, 256)}
+MODELLED_SMS = 132  # the H100 SXM5's SMs, which size launches on the dry run's card
 
 
 def _tiling(name: str, dtype: torch.dtype, head_dim: int, tiling: str | None) -> str:
@@ -115,10 +117,26 @@ def _bwd_entries(tiling: str):
     return fn, ws
 
 
+def on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` lies on the card: a CUDA tensor, or a ``meta`` one, which
+    stands for the card in the dry run (``launch.dryrun``).  A wrapper calls
+    its kernel's launch directly on a CUDA tensor and its ``torch.library``
+    op on a meta one, whose fake implementation gives the outputs and
+    computes nothing."""
+    return t.is_cuda or t.is_meta
+
+
+def sms_of(device: torch.device) -> int:
+    """The SMs that size a launch on ``device``: the card's own, or
+    :data:`MODELLED_SMS` on the dry run's ``meta`` card."""
+    return sm_count(device.index) if device.type == "cuda" else MODELLED_SMS
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous, with a 16-byte-aligned start (vector and TMA loads)."""
+    """Contiguous, with a 16-byte-aligned start on the card (vector and TMA
+    loads)."""
     t = t.contiguous()
-    return t.clone() if t.data_ptr() % 16 else t
+    return t.clone() if t.is_cuda and t.data_ptr() % 16 else t
 
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0, tiling: str | None = None,
@@ -131,7 +149,7 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0, tiling: str |
     log-sum-exp (natural log).  Launches the CUDA kernel once, or raises:
     this function never computes on another path.
     """
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+    if not (on_card(q) and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention: q, k and v must lie on one CUDA device")
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(
@@ -154,21 +172,41 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0, tiling: str |
         raise ValueError(f"flash_attention: lse must be a contiguous ({B}, {H}, {Sq}) fp32 "
                          "tensor on q's device")
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = _entry(tiling)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(),
-            B, H, KV, Sq, Sk, D, int(bool(causal)), int(window),
-            DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if err:
-        raise RuntimeError(f"flash_attention ({tiling}): CUDA error {err} at launch")
+    launch = _launch if q.is_cuda else torch.ops.repro.flash_attention
+    out = launch(q, k, v, lse, bool(causal), int(window), tiling)
     first = first_masked_row(Sq, Sk, causal, window)
     if first < Sq:  # rows that see no key: the mean of v over all Sk keys
         v_mean = v.float().mean(dim=2).repeat_interleave(H // KV, dim=1)  # (B, H, D)
         out[:, :, first:] = v_mean[:, :, None].to(out.dtype)
     return out
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lse: Optional[torch.Tensor],
+            causal: bool, window: int, tiling: str) -> torch.Tensor:
+    """The forward kernel's launch on checked, aligned inputs: the CUDA
+    implementation of ``repro::flash_attention``."""
+    B, H, Sq, D = q.shape
+    _, KV, Sk, _ = k.shape
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = _entry(tiling)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
+            B, H, KV, Sq, Sk, D, int(causal), window,
+            DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"flash_attention ({tiling}): CUDA error {err} at launch")
+    return out
+
+
+_fwd_op = torch.library.custom_op("repro::flash_attention", _launch, mutates_args=("lse",),
+                                  device_types="cuda")
+
+
+@_fwd_op.register_fake
+def _(q, k, v, lse, causal, window, tiling):
+    return torch.empty_like(q)
 
 
 def check_bwd(q, k, causal: bool, window: int) -> None:
@@ -188,6 +226,26 @@ def _check_rows(q, k, causal: bool, window: int) -> None:
                          "output has a gradient the kernel does not compute")
 
 
+def bwd_work_bytes(B: int, H: int, KV: int, Sq: int, Sk: int, D: int, sms: int) -> int:
+    """Bytes of scratch the wgmma backward takes (the fma tiling takes none):
+    ``repro_flash_attention_bwd_workspace``'s count, which the launch checks
+    it against.  At D = 80 a turn counter a 64-row query tile (256-byte
+    aligned) and dq's fp32 sums, (B*H, ceil(Sq / 64)*64, 80); at D = 256,
+    where the key blocks (64 keys each) of all kv heads are fewer than the
+    SMs, the query heads of a kv head split over the spare SMs and each
+    split writes fp32 partials of dk and dv; else none."""
+    if D == 80:
+        tiles = B * H * -(-Sq // 64)
+        return (tiles * 4 + 255) // 256 * 256 + tiles * 64 * 80 * 4
+    g = H // KV
+    blocks = -(-Sk // 64) * KV * B
+    if D != 256 or blocks >= sms:
+        return 0
+    per = -(-g // min(g, sms // blocks))
+    splits = -(-g // per)
+    return 2 * splits * B * KV * Sk * D * 4 if splits > 1 else 0
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True, window: int = 0,
                         tiling: str | None = None):
     """The gradient of :func:`flash_attention` -> (dq, dk, dv) in q's dtype.
@@ -202,10 +260,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True, window: int = 
     fixed order; at D = 80 it sums dq in fp32 scratch from
     PyTorch's allocator, its turn counters zeroed on every call, and a last
     kernel casts it), or raises:
-    it never computes on another path.
+    it never computes on another path.  The scratch (``delta`` and
+    :func:`bwd_work_bytes`) is taken here, where the dry run sees it.
     """
     ts = (q, k, v, o, lse, do)
-    if not all(t.is_cuda and t.device == q.device for t in ts):
+    if not all(on_card(t) and t.device == q.device for t in ts):
         raise ValueError("flash_attention_bwd: every input must lie on one CUDA device")
     if q.dtype not in DTYPE_CODES or any(t.dtype != q.dtype for t in (k, v, o, do)):
         raise ValueError(f"flash_attention_bwd: q, k, v, o, do must share one of "
@@ -225,23 +284,52 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True, window: int = 
     _check_rows(q, k, causal, window)
     q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))
     lse = lse.contiguous()
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    sms = sms_of(q.device)
+    nbytes = bwd_work_bytes(B, H, KV, Sq, Sk, D, sms) if tiling == "wgmma" else 0
+    work = torch.empty(nbytes // 4, dtype=torch.float32, device=q.device) if nbytes else None
+    launch = _launch_bwd if q.is_cuda else torch.ops.repro.flash_attention_bwd
+    dq, dk, dv = launch(q, k, v, o, lse, do, delta, work, bool(causal), int(window), sms,
+                        tiling)
+    return dq, dk, dv
+
+
+def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                lse: torch.Tensor, do: torch.Tensor, delta: torch.Tensor,
+                work: Optional[torch.Tensor], causal: bool, window: int, sms: int,
+                tiling: str) -> list[torch.Tensor]:
+    """The backward kernels' launch on checked, aligned inputs -> [dq, dk,
+    dv], ``delta`` and ``work`` their scratch: the CUDA implementation of
+    ``repro::flash_attention_bwd``.  Raises where ``work`` is not the size
+    the library asks for."""
+    B, H, Sq, D = q.shape
+    _, KV, Sk, _ = k.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         fn, ws = _bwd_entries(tiling)
-        sms = sm_count(q.device.index)
         nbytes = ws(B, H, KV, Sq, Sk, D, sms) if tiling == "wgmma" else 0
-        work = torch.empty(nbytes // 4, dtype=torch.float32, device=q.device) if nbytes else None
+        if nbytes != (0 if work is None else work.numel() * 4):
+            raise RuntimeError(f"flash_attention_bwd: {nbytes} bytes of scratch wanted, "
+                               f"{0 if work is None else work.numel() * 4} given")
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
             None if work is None else work.data_ptr(),
-            B, H, KV, Sq, Sk, D, int(bool(causal)), int(window), sms, DTYPE_CODES[q.dtype],
+            B, H, KV, Sq, Sk, D, int(causal), window, sms, DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err:
         raise RuntimeError(f"flash_attention_bwd ({tiling}): CUDA error {err} at launch")
-    return dq, dk, dv
+    return [dq, dk, dv]
+
+
+_bwd_op = torch.library.custom_op("repro::flash_attention_bwd", _launch_bwd,
+                                  mutates_args=("delta", "work"), device_types="cuda")
+
+
+@_bwd_op.register_fake
+def _(q, k, v, o, lse, do, delta, work, causal, window, sms, tiling):
+    return [torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)]
 
 
 class FlashAttentionFn(torch.autograd.Function):

@@ -22,12 +22,13 @@ and :func:`repro_torch.kernels.ref.ref_mamba_scan_bwd`.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from . import _build
-from .flash_attention import DTYPE_CODES
+from .flash_attention import DTYPE_CODES, on_card
 from .ref import CKPT_STEPS, ckpt_shape, ref_mamba_scan, ref_mamba_scan_bwd
 
 MAX_STATE = 128
@@ -65,7 +66,7 @@ def _checked(name, xc, dt, a, b, c, d_skip):
     c, d_skip) with xc, dt, a and d_skip contiguous and b, c of unit state
     stride, and (B, L, DI, ST)."""
     ts = (xc, dt, a, b, c, d_skip)
-    if not (xc.is_cuda and all(t.device == xc.device for t in ts)):
+    if not (on_card(xc) and all(t.device == xc.device for t in ts)):
         raise ValueError(f"{name}: every input must lie on one CUDA device")
     if xc.dtype not in DTYPE_CODES or b.dtype != xc.dtype or c.dtype != xc.dtype:
         raise ValueError(
@@ -102,22 +103,60 @@ def mamba_scan(xc, dt, a, b, c, d_skip, checkpoints: bool = False):
     computes on another path.
     """
     (xc, dt, a, b, c, d_skip), (B, L, DI, ST) = _checked("mamba_scan", xc, dt, a, b, c, d_skip)
-    y = torch.empty((B, L, DI), dtype=torch.float32, device=xc.device)
-    h = torch.empty((B, DI, ST), dtype=torch.float32, device=xc.device)
-    outs = [y.data_ptr(), h.data_ptr()]
-    if checkpoints:
-        ckpt = torch.empty(ckpt_shape(B, L, DI, ST), dtype=torch.float32, device=xc.device)
-        outs.append(ckpt.data_ptr())
+    launch = _launch if xc.is_cuda else torch.ops.repro.mamba_scan
+    return tuple(launch(xc, dt, a, b, c, d_skip, bool(checkpoints)))
+
+
+def _scan_outputs(xc, a, checkpoints: bool) -> list[torch.Tensor]:
+    B, L, DI = xc.shape
+    ST = a.shape[1]
+    shapes = [(B, L, DI), (B, DI, ST)] + ([ckpt_shape(B, L, DI, ST)] if checkpoints else [])
+    return [torch.empty(s, dtype=torch.float32, device=xc.device) for s in shapes]
+
+
+def _launch(xc: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor, d_skip: torch.Tensor, checkpoints: bool) -> list[torch.Tensor]:
+    """The forward kernel's launch on checked inputs (``_checked``'s) -> [y,
+    h_final] and with ``checkpoints`` the checkpoints: the CUDA
+    implementation of ``repro::mamba_scan``."""
+    B, L, DI = xc.shape
+    ST = a.shape[1]
+    outs = _scan_outputs(xc, a, checkpoints)
     with torch.cuda.device(xc.device):
         err = _entry(checkpoints)(
             xc.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-            d_skip.data_ptr(), *outs, B, L, DI, ST,
+            d_skip.data_ptr(), *(t.data_ptr() for t in outs), B, L, DI, ST,
             b.stride(0), b.stride(1), c.stride(0), c.stride(1),
             DTYPE_CODES[xc.dtype], torch.cuda.current_stream(xc.device).cuda_stream,
         )
     if err:
         raise RuntimeError(f"mamba_scan: CUDA error {err} at launch")
-    return (y, h, ckpt) if checkpoints else (y, h)
+    return outs
+
+
+_fwd_op = torch.library.custom_op("repro::mamba_scan", _launch, mutates_args=(),
+                                  device_types="cuda")
+
+
+@_fwd_op.register_fake
+def _(xc, dt, a, b, c, d_skip, checkpoints):
+    return _scan_outputs(xc, a, checkpoints)
+
+
+def bwd_work_bytes(B: int, L: int, DI: int, ST: int) -> int:
+    """Bytes of scratch the backward takes (``repro_mamba_scan_bwd_workspace``'s
+    count, which the launch checks it against): fp32 partials of db and dc,
+    one a group of channels (a 128-thread block holds 2 channels a thread
+    over ``lpc`` lanes a channel, 4 states a lane), and of dA and dD, one a
+    batch row, each 256-byte aligned."""
+    lpc = 4 if ST <= 16 else 8 if ST <= 32 else 16 if ST <= 64 else 32
+    groups = -(-DI // (128 // lpc * 2))
+
+    def aligned(n: int) -> int:
+        return (n + 255) // 256 * 256
+
+    return (2 * aligned(groups * B * L * ST * 4) + aligned(B * DI * ST * 4)
+            + aligned(B * DI * 4))
 
 
 def mamba_scan_bwd(xc, dt, a, b, c, d_skip, dy, dh, ckpt):
@@ -129,7 +168,8 @@ def mamba_scan_bwd(xc, dt, a, b, c, d_skip, dy, dh, ckpt):
     :func:`repro_torch.kernels.ref.ref_mamba_scan_bwd`.
 
     Launches the backward kernel and its fixed-order sum of partials on the
-    current stream (scratch from PyTorch's allocator), or raises: this
+    current stream (scratch, :func:`bwd_work_bytes`, from PyTorch's
+    allocator, taken here, where the dry run sees it), or raises: this
     function never computes on another path.
     """
     (xc, dt, a, b, c, d_skip), (B, L, DI, ST) = _checked(
@@ -143,12 +183,27 @@ def mamba_scan_bwd(xc, dt, a, b, c, d_skip, dy, dh, ckpt):
                          f"{xc.device}; got {dh.dtype} {tuple(dh.shape)} on {dh.device}")
     if (ckpt.device != xc.device or ckpt.dtype != torch.float32
             or ckpt.shape != ckpt_shape(B, L, DI, ST) or not ckpt.is_contiguous()
-            or ckpt.data_ptr() % 16):  # the kernel reads it with float4 loads
+            or (ckpt.is_cuda and ckpt.data_ptr() % 16)):  # the kernel reads it with float4 loads
         raise ValueError(f"mamba_scan_bwd: ckpt must be contiguous, 16-byte aligned float32 "
                          f"{ckpt_shape(B, L, DI, ST)} on {xc.device}; got {ckpt.dtype} "
                          f"{tuple(ckpt.shape)} on {ckpt.device}")
     dy = dy.contiguous()
     dh = None if dh is None else dh.contiguous()
+    work = torch.empty(bwd_work_bytes(B, L, DI, ST), dtype=torch.uint8, device=xc.device)
+    launch = _launch_bwd if xc.is_cuda else torch.ops.repro.mamba_scan_bwd
+    return tuple(launch(xc, dt, a, b, c, d_skip, dy, dh, ckpt, work))
+
+
+def _launch_bwd(xc: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                c: torch.Tensor, d_skip: torch.Tensor, dy: torch.Tensor,
+                dh: Optional[torch.Tensor], ckpt: torch.Tensor,
+                work: torch.Tensor) -> list[torch.Tensor]:
+    """The backward's launches on checked inputs -> [dxc, ddt, da, db, dc,
+    dd], ``work`` their scratch: the CUDA implementation of
+    ``repro::mamba_scan_bwd``.  Raises where ``work`` is not the size the
+    library asks for."""
+    B, L, DI = xc.shape
+    ST = a.shape[1]
     dev = xc.device
     dxc = torch.empty_like(xc)
     ddt = torch.empty((B, L, DI), dtype=torch.float32, device=dev)
@@ -158,7 +213,9 @@ def mamba_scan_bwd(xc, dt, a, b, c, d_skip, dy, dh, ckpt):
     dd = torch.empty((DI,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         fn, ws = _bwd_entries()
-        work = torch.empty(ws(B, L, DI, ST), dtype=torch.uint8, device=dev)
+        if ws(B, L, DI, ST) != work.numel():
+            raise RuntimeError(f"mamba_scan_bwd: {ws(B, L, DI, ST)} bytes of scratch wanted, "
+                               f"{work.numel()} given")
         err = fn(
             xc.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
             d_skip.data_ptr(), dy.data_ptr(), 0 if dh is None else dh.data_ptr(),
@@ -169,7 +226,24 @@ def mamba_scan_bwd(xc, dt, a, b, c, d_skip, dy, dh, ckpt):
         )
     if err:
         raise RuntimeError(f"mamba_scan_bwd: CUDA error {err} at launch")
-    return dxc, ddt, da, db, dc, dd
+    return [dxc, ddt, da, db, dc, dd]
+
+
+_bwd_op = torch.library.custom_op("repro::mamba_scan_bwd", _launch_bwd, mutates_args=("work",),
+                                  device_types="cuda")
+
+
+@_bwd_op.register_fake
+def _(xc, dt, a, b, c, d_skip, dy, dh, ckpt, work):
+    B, L, DI = xc.shape
+    ST = a.shape[1]
+    dev = xc.device
+    return [torch.empty_like(xc),
+            torch.empty((B, L, DI), dtype=torch.float32, device=dev),
+            torch.empty((DI, ST), dtype=torch.float32, device=dev),
+            torch.empty((B, L, ST), dtype=b.dtype, device=dev),
+            torch.empty((B, L, ST), dtype=c.dtype, device=dev),
+            torch.empty((DI,), dtype=torch.float32, device=dev)]
 
 
 class SelectiveScanFn(torch.autograd.Function):

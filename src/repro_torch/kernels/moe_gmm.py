@@ -28,7 +28,7 @@ from torch.autograd.function import once_differentiable
 
 from . import _build
 from ._build import sm_count
-from .flash_attention import DTYPE_CODES, HALF_DTYPES, _aligned
+from .flash_attention import DTYPE_CODES, HALF_DTYPES, _aligned, on_card
 from .ref import ref_moe_gmm, ref_moe_gmm_bwd
 
 SKINNY_MAX_C = 16  # rows of x up to which the weight stream beats a tiled product
@@ -100,7 +100,7 @@ def moe_gmm(x, w, tiling: str | None = None):
     (0 * w = 0); where w holds an inf or a NaN, the plain version gives NaN
     in those rows and the kernel 0.
     """
-    if not (x.is_cuda and w.device == x.device):
+    if not (on_card(x) and w.device == x.device):
         raise ValueError("moe_gmm: x and w must lie on one CUDA device")
     if x.dtype not in DTYPE_CODES or w.dtype != x.dtype:
         raise ValueError(
@@ -118,6 +118,14 @@ def moe_gmm(x, w, tiling: str | None = None):
     if tiling not in TILINGS or not _takes(tiling, x.dtype, C, D, F):
         raise ValueError(f"moe_gmm: tiling {tiling!r} does not take {x.dtype} at C={C} D={D} F={F}")
     x, w = _aligned(x), _aligned(w)
+    return (_launch if x.is_cuda else torch.ops.repro.moe_gmm)(x, w, tiling)
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, tiling: str) -> torch.Tensor:
+    """The forward kernel's launch on checked, aligned inputs: the CUDA
+    implementation of ``repro::moe_gmm``."""
+    E, C, D = x.shape
+    F = w.shape[2]
     out = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = _entry(tiling)(
@@ -127,6 +135,15 @@ def moe_gmm(x, w, tiling: str | None = None):
     if err:
         raise RuntimeError(f"moe_gmm ({tiling}): CUDA error {err} at launch")
     return out
+
+
+_fwd_op = torch.library.custom_op("repro::moe_gmm", _launch, mutates_args=(),
+                                  device_types="cuda")
+
+
+@_fwd_op.register_fake
+def _(x, w, tiling):
+    return x.new_empty((x.shape[0], x.shape[1], w.shape[2]))
 
 
 def moe_gmm_bwd(x, w, dy, need_dx: bool = True, need_dw: bool = True,
@@ -143,7 +160,7 @@ def moe_gmm_bwd(x, w, dy, need_dx: bool = True, need_dw: bool = True,
     it never computes on another path.  The ``wgmma`` tiling's launch is
     sized by the device's SMs.
     """
-    if not all(t.is_cuda and t.device == x.device for t in (x, w, dy)):
+    if not all(on_card(t) and t.device == x.device for t in (x, w, dy)):
         raise ValueError("moe_gmm_bwd: x, w and dy must lie on one CUDA device")
     if x.dtype not in DTYPE_CODES or w.dtype != x.dtype or dy.dtype != x.dtype:
         raise ValueError(f"moe_gmm_bwd: x, w and dy must share one of {list(DTYPE_CODES)}; "
@@ -164,8 +181,22 @@ def moe_gmm_bwd(x, w, dy, need_dx: bool = True, need_dw: bool = True,
                                      and gmm_bwd_tiling(x.dtype, C, D, F) != "wgmma"):
         raise ValueError(f"moe_gmm_bwd: tiling {tiling!r} does not take {x.dtype} at C={C} "
                          f"D={D} F={F}")
-    sms = [sm_count(x.device.index)] if tiling == "wgmma" else []
     x, w, dy = _aligned(x), _aligned(w), _aligned(dy)
+    launch = _launch_bwd if x.is_cuda else torch.ops.repro.moe_gmm_bwd
+    grads = iter(launch(x, w, dy, bool(need_dx), bool(need_dw), tiling))
+    dx = next(grads) if need_dx else None
+    dw = next(grads) if need_dw else None
+    return dx, dw
+
+
+def _launch_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, need_dx: bool,
+                need_dw: bool, tiling: str) -> list[torch.Tensor]:
+    """The backward kernels' launch on checked, aligned inputs -> [dx, dw],
+    each only where asked for: the CUDA implementation of
+    ``repro::moe_gmm_bwd``."""
+    sms = [sm_count(x.device.index)] if tiling == "wgmma" else []
+    E, C, D = x.shape
+    F = w.shape[2]
     dx = torch.empty_like(x) if need_dx else None
     dw = torch.empty_like(w) if need_dw else None
     with torch.cuda.device(x.device):
@@ -176,7 +207,16 @@ def moe_gmm_bwd(x, w, dy, need_dx: bool = True, need_dw: bool = True,
         )
     if err:
         raise RuntimeError(f"moe_gmm_bwd ({tiling}): CUDA error {err} at launch")
-    return dx, dw
+    return [g for g in (dx, dw) if g is not None]
+
+
+_bwd_op = torch.library.custom_op("repro::moe_gmm_bwd", _launch_bwd, mutates_args=(),
+                                  device_types="cuda")
+
+
+@_bwd_op.register_fake
+def _(x, w, dy, need_dx, need_dw, tiling):
+    return [torch.empty_like(t) for t, need in ((x, need_dx), (w, need_dw)) if need]
 
 
 class GroupedMatmulFn(torch.autograd.Function):

@@ -27,6 +27,19 @@ RG-LRU scan's backward kernel once a call, for da and db
 On the CPU under grad, each goes through the same Function on the plain
 versions (the bag's gradient drops ids outside the table as ``jax.grad`` of
 the reference's gather does).
+
+Each launch of the attention, grouped-matmul and scan kernels, both ways,
+is also a ``torch.library`` custom op (``torch.ops.repro.flash_attention``,
+..., ``rglru_scan_bwd``): its CUDA implementation is the launch, which
+holds all that touches the card or the build (``_build``, ``sm_count``, TMA
+maps, ``ctypes``), and its fake implementation gives the outputs' shapes
+and dtypes.  On a CUDA tensor a wrapper calls the launch itself, so the
+op's dispatch costs no host time there.  A ``meta`` tensor stands for the
+card in the dry run (``launch.dryrun``): the wrappers take it as a CUDA
+tensor and call the op, which gives its fake outputs, the counters count,
+and nothing is built or launched.  The embedding bag and
+its backward are not ops: the dry run leaves out recsys, as the
+reference's does, so no path of it reaches them.
 """
 
 from __future__ import annotations

@@ -20,12 +20,13 @@ joins the forward and the backward for autograd.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from . import _build
-from .flash_attention import DTYPE_CODES
+from .flash_attention import DTYPE_CODES, on_card
 from .ref import ref_rglru_scan, ref_rglru_scan_bwd
 
 
@@ -45,7 +46,7 @@ def rglru_scan(a, b):
     Launches the CUDA kernel once, or raises: this function never computes
     on another path.
     """
-    if not (a.is_cuda and b.device == a.device):
+    if not (on_card(a) and b.device == a.device):
         raise ValueError("rglru_scan: a and b must lie on one CUDA device")
     if a.dtype not in DTYPE_CODES or b.dtype != a.dtype:
         raise ValueError(
@@ -57,8 +58,20 @@ def rglru_scan(a, b):
     if min(B, L, D) < 1 or B > 65535:
         raise ValueError(f"rglru_scan: B={B}, L={L}, D={D} out of range")
     a, b = a.contiguous(), b.contiguous()
-    h_all = torch.empty((B, L, D), dtype=torch.float32, device=a.device)
-    h_fin = torch.empty((B, D), dtype=torch.float32, device=a.device)
+    return tuple((_launch if a.is_cuda else torch.ops.repro.rglru_scan)(a, b))
+
+
+def _lru_outputs(a) -> list[torch.Tensor]:
+    B, L, D = a.shape
+    return [torch.empty((B, L, D), dtype=torch.float32, device=a.device),
+            torch.empty((B, D), dtype=torch.float32, device=a.device)]
+
+
+def _launch(a: torch.Tensor, b: torch.Tensor) -> list[torch.Tensor]:
+    """The forward kernel's launch on checked, contiguous inputs -> [h_all,
+    h_final]: the CUDA implementation of ``repro::rglru_scan``."""
+    B, L, D = a.shape
+    h_all, h_fin = _lru_outputs(a)
     with torch.cuda.device(a.device):
         err = _entry()(
             a.data_ptr(), b.data_ptr(), h_all.data_ptr(), h_fin.data_ptr(), B, L, D,
@@ -66,7 +79,16 @@ def rglru_scan(a, b):
         )
     if err:
         raise RuntimeError(f"rglru_scan: CUDA error {err} at launch")
-    return h_all, h_fin
+    return [h_all, h_fin]
+
+
+_fwd_op = torch.library.custom_op("repro::rglru_scan", _launch, mutates_args=(),
+                                  device_types="cuda")
+
+
+@_fwd_op.register_fake
+def _(a, b):
+    return _lru_outputs(a)
 
 
 def _bwd_entry():
@@ -89,7 +111,7 @@ def rglru_scan_bwd(a, h_all, dh_all, dh_final=None):
     function never computes on another path.
     """
     ts = (a, h_all, dh_all) + (() if dh_final is None else (dh_final,))
-    if not (a.is_cuda and all(t.device == a.device for t in ts)):
+    if not (on_card(a) and all(t.device == a.device for t in ts)):
         raise ValueError("rglru_scan_bwd: every input must lie on one CUDA device")
     if a.dtype not in DTYPE_CODES:
         raise ValueError(f"rglru_scan_bwd: a must be one of {list(DTYPE_CODES)}; got {a.dtype}")
@@ -105,6 +127,16 @@ def rglru_scan_bwd(a, h_all, dh_all, dh_final=None):
                              f"{tuple(t.shape)}")
     a, h_all, dh_all = a.contiguous(), h_all.contiguous(), dh_all.contiguous()
     dh_final = None if dh_final is None else dh_final.contiguous()
+    launch = _launch_bwd if a.is_cuda else torch.ops.repro.rglru_scan_bwd
+    return tuple(launch(a, h_all, dh_all, dh_final))
+
+
+def _launch_bwd(a: torch.Tensor, h_all: torch.Tensor, dh_all: torch.Tensor,
+                dh_final: Optional[torch.Tensor]) -> list[torch.Tensor]:
+    """The backward kernel's launch on checked, contiguous inputs -> [da, db]
+    in a's dtype (the kernel writes them in fp32): the CUDA implementation
+    of ``repro::rglru_scan_bwd``."""
+    B, L, D = a.shape
     dev = a.device
     da = torch.empty((B, L, D), dtype=torch.float32, device=dev)
     db = torch.empty((B, L, D), dtype=torch.float32, device=dev)
@@ -116,7 +148,16 @@ def rglru_scan_bwd(a, h_all, dh_all, dh_final=None):
         )
     if err:
         raise RuntimeError(f"rglru_scan_bwd: CUDA error {err} at launch")
-    return da.to(a.dtype), db.to(a.dtype)
+    return [da.to(a.dtype), db.to(a.dtype)]
+
+
+_bwd_op = torch.library.custom_op("repro::rglru_scan_bwd", _launch_bwd, mutates_args=(),
+                                  device_types="cuda")
+
+
+@_bwd_op.register_fake
+def _(a, h_all, dh_all, dh_final):
+    return [torch.empty_like(a), torch.empty_like(a)]
 
 
 class LruScanFn(torch.autograd.Function):

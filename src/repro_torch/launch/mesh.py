@@ -4,7 +4,7 @@ Functions, never module-level meshes, so importing this module touches no
 process group.  A mesh is the port's :class:`~repro_torch.core.device_order.Mesh`
 over ranks 0..n-1 of the process group, which must hold exactly n ranks:
 a mesh is never shrunk to fit a smaller world.  The hardware constants of
-the roofline analysis come with ``roofline.py`` (ROADMAP.md item 1.8).
+the roofline analysis live in :mod:`repro_torch.launch.roofline`.
 """
 
 from __future__ import annotations
@@ -81,4 +81,21 @@ def one_rank_world(device: torch.device) -> bool:
     dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1,
                             device_id=torch.device("cuda", torch.cuda.current_device())
                             if backend == "nccl" else None)
+    return True
+
+
+def fake_world(n: int) -> bool:
+    """Joins a process group of ``n`` ranks as rank 0 on PyTorch's ``"fake"``
+    backend, whose collectives move nothing, so one process can run the
+    production mesh (the dry run, ``launch.dryrun``); does nothing where a
+    group of ``n`` ranks exists, and raises where one of another size does.
+    Returns whether it made one."""
+    if dist.is_initialized():
+        if dist.get_world_size() != n:
+            raise ValueError(f"a process group of {dist.get_world_size()} ranks exists; "
+                             f"the fake world needs {n}")
+        return False
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
     return True

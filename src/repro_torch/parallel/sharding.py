@@ -303,10 +303,13 @@ def device_mesh(mesh, device: torch.device):
     axis (``device_order.topoopt_mesh``) would put them out of order.  The
     parameters' shards follow the ``DeviceMesh``; the batch's rows follow
     the port's mesh.  Every rank must build it, in the same order, as with
-    any ``new_group``."""
+    any ``new_group``.  A ``meta`` device (the dry run's stand-in for the
+    card) gets a CPU mesh, whose shards stay on ``meta``: DTensor asks a
+    mesh's device module for its device count, and ``meta`` has none."""
     from torch.distributed.device_mesh import DeviceMesh
 
-    return DeviceMesh(device.type, ascending_grid(mesh.devices), mesh_dim_names=mesh.axis_names)
+    kind = "cpu" if device.type == "meta" else device.type
+    return DeviceMesh(kind, ascending_grid(mesh.devices), mesh_dim_names=mesh.axis_names)
 
 
 # --- sharded parameters -------------------------------------------------------

@@ -158,6 +158,16 @@ def make_serve_step(cfg: ArchConfig, shape: ShapeSpec):
     return serve_step
 
 
+def contiguous_stride(shape: tuple[int, ...]) -> tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape``, worked out without
+    making one (the dry run counts every tensor a step makes, meta or not)."""
+    stride, n = [], 1
+    for d in reversed(shape):
+        stride.append(n)
+        n *= d
+    return tuple(reversed(stride))
+
+
 def shapes_of(tree: dict) -> dict:
     """A dict tree of tensors -> the same tree of ``(shape, dtype)`` pairs."""
     return {k: shapes_of(v) if isinstance(v, dict) else (tuple(v.shape), v.dtype)
@@ -307,9 +317,11 @@ def jit_serve_step(cfg: ArchConfig, shape: ShapeSpec, plan: ShardingPlan, mesh, 
     updates this rank's shard of it in place and returns the global logits
     (B, V) and the cache.  It runs without sequence parallelism.
 
-    The rows of the batch must divide over the data ranks.  ``device``: the
-    card unless ``"cpu"``; without a process group the step joins one of
-    one rank.  The step installs its activation policy for its own duration
+    Rows that do not divide over the data ranks (``long_500k``'s one
+    sequence) are not split: the batch's spec leaves them whole, as
+    ``sanitize`` leaves any dim an axis does not divide, and every data
+    rank computes all of them.  ``device``: the card unless ``"cpu"``;
+    without a process group the step joins one of one rank.  The step installs its activation policy for its own duration
     only.
     """
     from torch.distributed.tensor import DTensor
@@ -325,28 +337,28 @@ def jit_serve_step(cfg: ArchConfig, shape: ShapeSpec, plan: ShardingPlan, mesh, 
     def batch_fn(shape: ShapeSpec) -> dict:
         return layouts(batch_spec_tree(input_specs(cfg, shape), cfg, plan, mesh), dmesh)
 
-    def policy_for(shapes: dict) -> ActivationPolicy:
-        """The policy for a batch of these global ``(shape, dtype)``s: the
+    def policy_for(shapes: dict, rows: int) -> ActivationPolicy:
+        """The policy for a batch of these global ``(shape, dtype)``s and
+        ``rows`` rows: the rows over the data axes where they divide, the
         sequence over ``"model"`` where the inputs' spec splits it, and the
         caches whose positions their spec splits."""
         specs = batch_spec_tree(shapes, cfg, plan, mesh)
         seq = any(specs[k][1] == "model" for k in ("tokens", "frames") if k in specs)
         cache_seq = frozenset(n for n, s in specs.get("cache", {}).items()
                               if n in ("k", "xk") and s[3] == "model")
-        return dataclasses.replace(base, seq=base.tp if seq else None, cache_seq=cache_seq)
+        return dataclasses.replace(base, dp=base.dp if rows % n_dp == 0 else None,
+                                   seq=base.tp if seq else None, cache_seq=cache_seq)
 
     def rows(t):
-        if t.shape[0] % n_dp:
-            raise ValueError(f"global batch rows {t.shape[0]} do not split over {n_dp} "
-                             "data ranks")
+        if t.shape[0] % n_dp:  # left whole on every data rank
+            return t
         b = t.shape[0] // n_dp
         return t[pos * b:(pos + 1) * b]
 
     def as_dtensors(cache: dict, specs: dict) -> dict:
         lay = layouts(batch_spec_tree({"cache": specs}, cfg, plan, mesh), dmesh)["cache"]
         return {n: DTensor.from_local(t, lay[n].mesh, lay[n].placements, run_check=False,
-                                      shape=specs[n][0],
-                                      stride=torch.empty(specs[n][0], device="meta").stride())
+                                      shape=specs[n][0], stride=contiguous_stride(specs[n][0]))
                 for n, t in cache.items()}
 
     if shape.kind == "prefill":
@@ -354,7 +366,7 @@ def jit_serve_step(cfg: ArchConfig, shape: ShapeSpec, plan: ShardingPlan, mesh, 
         def step(model, batch):
             B, S = batch["frames" if cfg.family == "audio" else "tokens"].shape[:2]
             specs = lm.prefill_cache_specs(cfg, B, S, pad_to)
-            with using_policy(policy_for({**shapes_of(batch), "cache": specs})):
+            with using_policy(policy_for({**shapes_of(batch), "cache": specs}, B)):
                 logits, cache = lm.prefill(model, {k: rows(v) for k, v in batch.items()}, cfg,
                                            pad_to=pad_to)
                 logits, _ = gather_batch(logits)
@@ -367,7 +379,7 @@ def jit_serve_step(cfg: ArchConfig, shape: ShapeSpec, plan: ShardingPlan, mesh, 
         shapes = {"cache": {n: (tuple(t.shape), t.dtype) for n, t in cache.items()}}
         local = {"token": rows(batch["token"]), "pos": batch["pos"],
                  "cache": {n: t.to_local() for n, t in cache.items()}}
-        with using_policy(policy_for(shapes)):
+        with using_policy(policy_for(shapes, batch["token"].shape[0])):
             logits, _ = lm.decode_step(model, local, cfg)
             logits, _ = gather_batch(logits)
         return logits, cache

@@ -576,6 +576,37 @@ def _serve_mesh(rank, inputs):
     return out
 
 
+def _serve_one_row(rank, inputs):
+    """``jit_serve_step`` on one prompt, a row the 2 data ranks cannot split
+    (``long_500k``'s batch): prefill and SERVE_DECODE greedy decode steps of
+    each of ``inputs["cases"]`` (GSPMD_CONFIGS names, fsdp), from
+    ``lm.init(0, ...)``; the logits of each step."""
+    import torch
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import ShardingPlan, place
+    from repro_torch.train.steps import jit_serve_step
+
+    mesh, plan, S = make_test_mesh((2, 4), ("data", "model")), ShardingPlan(fsdp=True), 12
+    out = {}
+    for key in inputs["cases"]:
+        cfg = gspmd_config(key)
+        prefill, (_, p_layouts, _) = jit_serve_step(
+            cfg, ShapeSpec("p", S, 1, "prefill"), plan, mesh, device="cpu", pad_to=16)
+        model = place(lm.init(0, cfg, device="cpu"), p_layouts)
+        logits, cache = prefill(model, {"tokens": torch.from_numpy(inputs["tokens"])})
+        decode, _ = jit_serve_step(cfg, ShapeSpec("d", 16, 1, "decode"), plan, mesh,
+                                   device="cpu")
+        out[key] = [logits.numpy().copy()]
+        for i in range(SERVE_DECODE):
+            logits, cache = decode(model, {"token": logits.argmax(-1), "pos": S + i,
+                                           "cache": cache})
+            out[key].append(logits.numpy().copy())
+    return out
+
+
 def _gspmd_loop(rank, inputs):
     """The training loop on a (2, 4) mesh under ``fsdp=True``: an
     uninterrupted run, and a run failing at step 10 then resumed, with
@@ -613,7 +644,7 @@ def _gspmd_loop(rank, inputs):
 
 JOBS = {"collectives": _collectives, "four_ranks": _four_ranks, "compression": _compression,
         "dp_train": _dp_train, "gspmd_train": _gspmd_train, "gspmd_loop": _gspmd_loop,
-        "tp_compute": _tp_compute, "serve_mesh": _serve_mesh}
+        "tp_compute": _tp_compute, "serve_mesh": _serve_mesh, "serve_one_row": _serve_one_row}
 
 
 def _main(job: str, rank: int, world: int, workdir: str) -> None:

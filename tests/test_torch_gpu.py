@@ -1062,6 +1062,27 @@ def test_mamba_bwd_kernel_is_deterministic(cuda, ST, dtype):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
+@pytest.mark.parametrize("sms", [1, 78, 132])
+def test_backward_scratch_sizes_equal_the_librarys(cuda, sms):
+    """The wrappers size the backward kernels' scratch themselves (so the dry
+    run sees it); each size must be the one the library asks for."""
+    import itertools
+
+    from repro_torch.kernels import mamba_scan as scan_mod
+
+    _, attn_ws = attn_mod._bwd_entries("wgmma")
+    for (B, H, KV, Sq, Sk), D in itertools.product(
+            [(1, 16, 1, 4096, 4096), (4, 32, 8, 1000, 1000), (1, 8, 1, 512, 512),
+             (2, 16, 16, 4096, 4096), (1, 16, 1, 100, 100), (4, 32, 8, 4096, 1601),
+             (1, 3, 1, 65, 65)], (64, 80, 128, 256)):
+        assert attn_mod.bwd_work_bytes(B, H, KV, Sq, Sk, D, sms) == attn_ws(
+            B, H, KV, Sq, Sk, D, sms), (B, H, KV, Sq, Sk, D)
+    _, scan_ws = scan_mod._bwd_entries()
+    for B, L, DI, ST in itertools.product((1, 4), (7, 4096), (16, 500, 8192),
+                                          (1, 4, 16, 17, 32, 33, 64, 65, 128)):
+        assert scan_mod.bwd_work_bytes(B, L, DI, ST) == scan_ws(B, L, DI, ST), (B, L, DI, ST)
+
+
 def test_mamba_bwd_wrapper_refuses_what_it_does_not_take(cuda):
     xc, dt, a, b, c, d = _mamba_inputs(cuda, 1, 8, 16, 8, torch.float32)
     dy = torch.randn(1, 8, 16, device=cuda)

@@ -39,7 +39,8 @@ SLICE_MODULES = (
     "repro_torch.launch.serve_decode", "repro_torch.parallel.compression",
     "repro_torch.parallel.pipeline", "repro_torch.launch.train_lm_topoopt",
     "repro_torch.parallel.sharding", "repro_torch.parallel.act_sharding",
-    "repro_torch.launch.mesh",
+    "repro_torch.launch.mesh", "repro_torch.launch.roofline", "repro_torch.launch.op_analysis",
+    "repro_torch.launch.dryrun",
 ) + tuple(f"repro_torch.core.{m}" for m in (
     "totient", "select_perms", "routing", "demand", "topology_finder", "netsim", "planeval",
     "costmodel", "schedules", "workloads", "strategy_search", "planeval_torch",

@@ -25,7 +25,9 @@ experts, channels and positions, so the two differ in the order of
 additions only: prefill's and 4 decode steps' logits, and every cache leaf
 gathered, are held at ``tests/test_torch_model.py``'s fp32 bar, the greedy
 ids exactly.  At world size 1 the step equals ``make_serve_step`` to the
-bit, for all six LM families.
+bit, for all six LM families.  On a job of its own (``serve_one_row``), one
+prompt, which the 2 data ranks cannot split, is held to the single-device
+step on every rank.
 """
 
 import dataclasses
@@ -335,3 +337,34 @@ def test_world_size_one_equals_make_serve_step_to_the_bit(one_rank, key):
             assert all(torch.equal(cache[n].full_tensor(), w) for n, w in want_cache.items())
             tok = want.argmax(-1)
     assert act_sharding.get_policy() is None
+
+
+ONE_ROW = ("granite-8b", "falcon-mamba-7b", "recurrentgemma-9b")
+
+
+def test_one_row_is_left_whole_on_every_data_rank(tmp_path):
+    """A batch of one prompt (``long_500k``'s), which the 2 data ranks
+    cannot split: every data rank computes the row, nothing is gathered over
+    them, and prefill's and each decode step's logits are the single-device
+    step's at the fp32 bar, on every rank."""
+    tokens = np.random.default_rng(11).integers(0, 256, (1, 12)).astype(np.int32)
+    port = launch("serve_one_row", 8, tmp_path, {"cases": ONE_ROW, "tokens": tokens})
+    for key in ONE_ROW:
+        cfg = gspmd_config(key)
+        model = lm.init(0, cfg, device="cpu")
+        prefill = make_serve_step(cfg, ShapeSpec("p", 12, 1, "prefill"))
+        decode = make_serve_step(cfg, ShapeSpec("d", 16, 1, "decode"))
+        with torch.no_grad():
+            if cfg.family in ("ssm", "hybrid"):
+                logits, cache = prefill(model, {"tokens": torch.from_numpy(tokens)})
+            else:
+                logits, cache = lm.prefill(model, {"tokens": torch.from_numpy(tokens)}, cfg,
+                                           pad_to=16)
+            want = [logits.numpy()]
+            for i in range(SERVE_DECODE):
+                logits, cache = decode(model, {"token": logits.argmax(-1), "pos": 12 + i,
+                                               "cache": cache})
+                want.append(logits.numpy())
+        for rank in port:
+            for got, w in zip(rank[key], want, strict=True):
+                np.testing.assert_allclose(got, w, rtol=RTOL, atol=ATOL)

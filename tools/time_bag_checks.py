@@ -4,7 +4,7 @@ one or more checkouts on one CUDA card, each checkout in a process of its
 own, so that two versions of the checks compare on the same card in one run:
 
     python3 tools/time_bag_checks.py [--gmm | --gmm-moe | --scan | --scan-ssm | --lru | --lru-hyb \
-        | --attn | --attn-au] OUT.jsonl TREE ...
+        | --attn | --attn-au | --bits | --overhead] OUT.jsonl TREE ...
 
 Each TREE is the root of a checkout (its ``chip_smoke.py`` and ``src/``),
 e.g. the parent commit unpacked by ``git archive`` into ``build/parent``
@@ -89,6 +89,26 @@ agree.
 ``train_vlm_or_encoder`` on hubert-xlarge: 2 + 8 steps, 6 on a fixed batch,
 one traced) and records its step times, tokens/s, model FLOPs share, peak
 memory and the traced step's attention forward and backward (``au_step``).
+
+``--bits`` calls the tree's public kernel functions on inputs this tool
+makes from one seed (``BITS_*``): ``flash_attention`` with ``lse`` and
+``flash_attention_bwd`` (head dims 64, 80, 128 and 256, a window, fp32),
+``moe_gmm`` on its three tilings and ``moe_gmm_bwd`` (dw alone too),
+``mamba_scan`` with and without checkpoints and ``mamba_scan_bwd``,
+``rglru_scan`` and ``rglru_scan_bwd``, and records the SHA-256 of each
+case's outputs (``digests``); it prints whether every run's digests agree
+and exits 1 where they do not.
+
+``--overhead`` times the host's work a launch and what it costs a served
+token.  First each ``kernels.ops`` wrapper at decode-sized shapes, where the
+host's work outweighs the kernel's (``OVERHEAD_CASES``: the grouped matmul on
+qwen3-moe-30b-a3b's decode buffer, 32 of 128 experts live, skinny;
+attention at B 4, H 32, KV 4, S 16, D 128; both scans at B 4, L 16):
+``OVERHEAD_CALLS`` calls back to back without a synchronise, ``OVERHEAD_ROUNDS``
+times, the median host µs a call (``host_us``).  Then phase 4's and 4b's
+serving (granite-8b and qwen3-moe-30b-a3b at full width and depth, the
+tree's ``served`` on its prompts) ``DECODE_REPEATS`` times each after a
+warm-up, the decode's ms a token each time (``decode_ms``).
 """
 
 from __future__ import annotations
@@ -110,6 +130,18 @@ BWD = re.compile(r"^phase 3 kernel: embedding_bag_bwd (.+?): tiling (\w+),.*? ke
 BWD_OTHER = re.compile(r"^phase 3 kernel: embedding_bag_bwd (.+?) forced to (\w+): kernel_ms "
                        r"(\S+) path_ms (\S+) ")
 SCORE = re.compile(r"^phase 4e score: B=(\d+) forward (\S+) ms ")
+
+# --bits: (B, H, KV, S, D, dtype, causal, window)
+BITS_ATTENTION = ((2, 8, 2, 512, 64, "bfloat16", True, 0),
+                  (2, 8, 2, 512, 128, "bfloat16", True, 0), (2, 8, 8, 500, 80, "bfloat16", False, 0),
+                  (1, 8, 1, 512, 256, "bfloat16", True, 128), (2, 4, 2, 256, 64, "float32", True, 0))
+# (E, C, D, F, dtype): the wgmma, fma and skinny tilings
+BITS_GMM = ((8, 320, 512, 256, "bfloat16"), (8, 100, 96, 72, "float32"),
+            (8, 4, 512, 256, "bfloat16"))
+BITS_MAMBA = (2, 300, 256, 16)  # B, L, DI, ST in bf16
+BITS_LRU = ((2, 1000, 512, "float32"), (1, 700, 96, "bfloat16"))  # B, L, D, dtype
+# --overhead
+OVERHEAD_CALLS, OVERHEAD_ROUNDS, DECODE_REPEATS = 500, 7, 3
 
 
 class _Tee(io.StringIO):
@@ -642,9 +674,156 @@ def one_attn(cs, tree: Path, au: bool) -> dict:
     return out
 
 
+def kernel_digests(dev) -> dict:
+    """The SHA-256 of each ``BITS_*`` case's outputs through the public
+    kernel functions, on inputs made from one seed."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_bwd
+    from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_bwd
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_bwd
+
+    gen = torch.Generator().manual_seed(0)
+
+    def rand(*shape, dtype="float32"):
+        return torch.randn(shape, generator=gen).to(getattr(torch, dtype)).to(dev)
+
+    def digest(*tensors) -> str:
+        h = hashlib.sha256()
+        for t in tensors:
+            if t is not None:
+                h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy()
+                         .tobytes())
+        return h.hexdigest()
+
+    out = {}
+    for B, H, KV, S, D, dt, causal, window in BITS_ATTENTION:
+        q, do = rand(B, H, S, D, dtype=dt), rand(B, H, S, D, dtype=dt)
+        k, v = rand(B, KV, S, D, dtype=dt), rand(B, KV, S, D, dtype=dt)
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+        o = flash_attention(q, k, v, causal=causal, window=window, lse=lse)
+        label = f"attention B{B} H{H} KV{KV} S{S} D{D} {dt} causal{int(causal)} w{window}"
+        out[label] = digest(o, lse)
+        out[label + " bwd"] = digest(*flash_attention_bwd(q, k, v, o, lse, do, causal, window))
+    for E, C, D, F, dt in BITS_GMM:
+        x, w, dy = rand(E, C, D, dtype=dt), rand(E, D, F, dtype=dt), rand(E, C, F, dtype=dt)
+        label = f"gmm E{E} C{C} D{D} F{F} {dt}"
+        out[label] = digest(moe_gmm(x, w))
+        if C > 16:
+            out[label + " bwd"] = digest(*moe_gmm_bwd(x, w, dy))
+            out[label + " bwd dw"] = digest(*moe_gmm_bwd(x, w, dy, need_dx=False))
+    B, L, DI, ST = BITS_MAMBA
+    xc, dt_, a = rand(B, L, DI, dtype="bfloat16"), rand(B, L, DI).abs() * 0.1, -rand(DI, ST).abs()
+    bc = rand(B, L, 2 * ST, dtype="bfloat16")
+    b, c, d_skip = bc[..., :ST], bc[..., ST:], rand(DI)
+    out["mamba"] = digest(*mamba_scan(xc, dt_, a, b, c, d_skip))
+    y, h, ckpt = mamba_scan(xc, dt_, a, b, c, d_skip, checkpoints=True)
+    out["mamba ckpt"] = digest(y, h, ckpt)
+    out["mamba bwd"] = digest(*mamba_scan_bwd(xc, dt_, a, b, c, d_skip, rand(B, L, DI),
+                                              rand(B, DI, ST), ckpt))
+    for B, L, D, dt in BITS_LRU:
+        a, b = torch.sigmoid(rand(B, L, D)).to(getattr(torch, dt)), rand(B, L, D, dtype=dt)
+        h_all, h_fin = rglru_scan(a, b)
+        out[f"lru B{B} L{L} D{D} {dt}"] = digest(h_all, h_fin)
+        out[f"lru B{B} L{L} D{D} {dt} bwd"] = digest(*rglru_scan_bwd(a, h_all, rand(B, L, D),
+                                                                     rand(B, D)))
+    return out
+
+
+def overhead_host_us(ops, dev) -> dict:
+    """The median host µs a call of each ``kernels.ops`` wrapper at decode-sized
+    shapes, calls issued back to back (the card keeps up)."""
+    import statistics
+
+    import torch
+
+    bf16 = torch.bfloat16
+    x = torch.zeros(128, 1, 2048, device=dev, dtype=bf16)
+    w = torch.randn(128, 2048, 768, device=dev, dtype=bf16)
+    x[:32] = torch.randn(32, 1, 2048, device=dev, dtype=bf16)  # 4 tokens x top 8 live
+    q = torch.randn(4, 32, 16, 128, device=dev, dtype=bf16)
+    k = torch.randn(4, 4, 16, 128, device=dev, dtype=bf16)
+    xc, dt = torch.randn(4, 16, 1024, device=dev, dtype=bf16), torch.rand(4, 16, 1024, device=dev)
+    a, bc = -torch.rand(1024, 16, device=dev), torch.randn(4, 16, 16, device=dev, dtype=bf16)
+    d_skip = torch.randn(1024, device=dev)
+    la, lb = torch.rand(4, 16, 1024, device=dev), torch.randn(4, 16, 1024, device=dev)
+    calls = {
+        "grouped_matmul": lambda: ops.grouped_matmul(x, w),
+        "attention": lambda: ops.attention(q, k, k),
+        "selective_scan": lambda: ops.selective_scan(xc, dt, a, bc, bc, d_skip),
+        "lru_scan": lambda: ops.lru_scan(la, lb),
+    }
+    out = {}
+    with torch.no_grad():
+        for name, fn in calls.items():
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(OVERHEAD_ROUNDS):
+                t0 = time.perf_counter()
+                for _ in range(OVERHEAD_CALLS):
+                    fn()
+                times.append((time.perf_counter() - t0) / OVERHEAD_CALLS * 1e6)
+                torch.cuda.synchronize()
+            out[name] = statistics.median(times)
+    return out
+
+
+def decode_ms(cs, ops, dev) -> dict:
+    """Phase 4's and 4b's decode ms a token, ``DECODE_REPEATS`` times each,
+    through the tree's ``served`` at full width and depth."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import lm
+
+    out = {}
+    for arch in ("granite-8b", "qwen3-moe-30b-a3b"):
+        cfg = get_config(arch)
+        model = lm.init(0, cfg, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        tokens = torch.randint(0, cfg.vocab, (cs.B, cs.PROMPT), generator=gen, device=dev)
+        generate(model, tokens[:, :64], 2)  # warm-up: cuBLAS handles and heuristics
+        out[arch] = []
+        for _ in range(DECODE_REPEATS):
+            timings = cs.served(lm, ops, generate, model, tokens)[1]
+            out[arch].append(timings["decode_s"] / (cs.DECODE_STEPS - 1) * 1e3)
+        del model, tokens
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def overhead_summary(runs: list[dict]) -> None:
+    """Each wrapper's host µs a call and each model's decode ms a token by run."""
+    print("host µs a wrapper call; runs: " + ", ".join(r["tree"] for r in runs))
+    for name in runs[0]["host_us"]:
+        print(f"  {name}: " + " ".join(str(r["host_us"][name]) for r in runs))
+    print("decode ms a token (each repeat); runs: " + ", ".join(r["tree"] for r in runs))
+    for arch in runs[0]["decode_ms"]:
+        print(f"  {arch}: " + " | ".join(" ".join(str(t) for t in r["decode_ms"][arch])
+                                          for r in runs))
+
+
+def bits_summary(runs: list[dict]) -> int:
+    """Whether every run's digests agree; 1 where they do not."""
+    differ = sorted({k for r in runs for k in r["digests"]
+                     if r["digests"].get(k) != runs[0]["digests"].get(k)})
+    print(f"kernel bits: {len(runs[0]['digests'])} cases on {len(runs)} runs: "
+          + ("every digest agrees" if not differ else f"digests differ at {differ}"))
+    return 1 if differ else 0
+
+
 def one(tree: Path, what: str = "bag") -> dict:
-    """Runs the bag checks (``what`` "bag"), or the grouped matmul
-    backward's ("gmm", "gmm-moe"), of the checkout at ``tree`` once."""
+    """Runs the bag checks (``what`` "bag"), or another mode's (the module
+    docstring's flags without their dashes), of the checkout at ``tree`` once."""
     spec = importlib.util.spec_from_file_location("chip_smoke_of_tree", tree / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)  # puts tree/src first on sys.path
@@ -664,6 +843,14 @@ def one(tree: Path, what: str = "bag") -> dict:
         return one_lru(cs, tree, hyb=what == "lru-hyb")
     if what in ("attn", "attn-au"):
         return one_attn(cs, tree, au=what == "attn-au")
+    if what in ("bits", "overhead"):
+        _build.load_all(("flash_attention", "flash_attention_bwd", "moe_gmm", "moe_gmm_bwd",
+                         "mamba_scan", "mamba_scan_bwd", "rglru_scan", "rglru_scan_bwd"))
+        dev = torch.device("cuda")
+        out = dict(tree=str(tree), card=cs.nvidia_smi_line())
+        if what == "bits":
+            return dict(out, digests=kernel_digests(dev))
+        return dict(out, host_us=overhead_host_us(ops, dev), decode_ms=decode_ms(cs, ops, dev))
     if what != "bag":
         return one_gmm(cs, tree, moe=what == "gmm-moe")
     for name in ("embedding_bag", "embedding_bag_bwd"):
@@ -795,7 +982,7 @@ def main(argv: list[str]) -> int:
         return 0
     what = "bag"
     if argv[:1] in (["--gmm"], ["--gmm-moe"], ["--scan"], ["--scan-ssm"], ["--lru"],
-                    ["--lru-hyb"], ["--attn"], ["--attn-au"]):
+                    ["--lru-hyb"], ["--attn"], ["--attn-au"], ["--bits"], ["--overhead"]):
         what, argv = argv[0][2:], argv[1:]
     if len(argv) < 2:
         print(__doc__, file=sys.stderr)
@@ -825,6 +1012,11 @@ def main(argv: list[str]) -> int:
         return 0
     if what in ("attn", "attn-au"):
         attn_summary(runs)
+        return 0
+    if what == "bits":
+        return bits_summary(runs)
+    if what == "overhead":
+        overhead_summary(runs)
         return 0
     if what != "bag":
         gmm_summary(runs)
