@@ -148,6 +148,14 @@ result line:
    of the VLM (head dim 128, 10 layers of which 2 cross layers over 100
    image tokens, the gates at 0.5: 18 forward and 10 backward fma attention
    launches) and the encoder (4 heads of 80, 2 layers) held the same way;
+   then (``3 dims``) attention at head dims no served model has (16, 24,
+   32, 48, 96, 112, 192, 200), computed at a wider width (wgmma at 64, 128
+   or 256 with TMA's zeros past D; fma on its ragged instances): forward,
+   lse and backward of the wgmma and fma tilings on bf16 inputs and of fma
+   on fp32 ones, against the plain version at ragged Sq and Sk (two
+   launches equal to the bit), and each D timed at B=4, H=32, KV=8,
+   S=2048, causal, bf16, on both tilings beside its bound and SDPA's
+   forward and backward;
 4. serve granite-8b at full width and depth in bf16 through
    ``repro_torch.launch.serve.generate`` (4 requests, prompt 1000, 16 decode
    steps), counting kernel launches (every prefill attention on the wgmma
@@ -347,7 +355,27 @@ result line:
    the card's published peaks) beside 7e's measured step; (b) the CLI on
    qwen3-moe-30b-a3b train_4k and granite-8b decode_32k on the single pod,
    256 ranks, one summary line each;
-9. the script's wall time, one JSON line of per-kernel numbers, the
+9. the JAX package's smoke configs (``ArchConfig.smoke()``: head dim 16,
+   bf16) on the card through the command lines a user runs, with no
+   ``--device``: ``launch.serve --smoke`` for granite-8b, qwen3-moe-30b-a3b,
+   recurrentgemma-9b and llama-3.2-vision-11b (prefill and 16 greedy
+   tokens), hubert-xlarge's smoke forward (``models.lm.forward`` on
+   frames: ``serve`` exits for an encoder) and ``launch.train --smoke
+   --steps 20`` for minicpm-2b, qwen3-moe-30b-a3b and hubert-xlarge, the
+   weights drawn on the CPU from the seed for both sides: each step's
+   logits (the CPU fed the card's tokens) within 3e-2 of max|ref| of the
+   CPU's plain path (the MoE's prefill layer by layer on the CPU's stream,
+   as the repo holds bf16 MoE checks, on the tokens whose top-2 experts
+   agree: the others must be near ties), the encoder's output likewise;
+   each training step's loss finite and within 5e-3 of the CPU run's
+   (relative), and the first step's gradient of every parameter within
+   6e-2 of its largest (the CPU routing the MoE's tokens as the card
+   did), with controls (attention's dq, and the MoE's dw, off by 20% on
+   the card) that must fail that bar; every kernel launch
+   of every run, the MoE's decode steps' skinny grouped matmuls among
+   them, held to the plain version on its own inputs (TOL); the launches
+   of every kernel each run makes, attention on wgmma at width 64;
+10. the script's wall time, one JSON line of per-kernel numbers, the
    ``nvidia-smi`` line, and the result line ``{"ok": true, "device": {...}}``
    last.
 
@@ -499,6 +527,27 @@ D32_CASES = (
     (2, 8, 4, 127, 32, torch.float32, True),
     (2, 8, 4, 129, 32, torch.float32, False, 0, 100),
 )
+# Phase 3 dims: head dims no served model has, each computed at a wider
+# width (flash_attention.compute_width); timed at granite-8b's training GQA
+# (B, H, KV, S; causal, bf16) and held to the plain version there and at
+# ragged shapes (B, H, KV, Sq, Sk, causal, window): Sq off the tiles, Sq !=
+# Sk both ways, and a window.
+NEW_HEAD_DIMS = (16, 24, 32, 48, 96, 112, 192, 200)
+DIMS_TIMED = (TRAIN_B, H, KV, 2048)
+DIMS_RAGGED = ((2, 8, 2, 333, 333, True, 0), (2, 8, 2, 200, 333, False, 0),
+               (1, 8, 1, 300, 300, True, 64))
+# Phase 9: the JAX package's smoke configs through the command lines.
+SMOKE_SERVE_ARCHS = ("granite-8b", "qwen3-moe-30b-a3b", "recurrentgemma-9b",
+                     "llama-3.2-vision-11b")
+SMOKE_ENCODE_ARCH, SMOKE_FRAMES = "hubert-xlarge", 64
+SMOKE_TRAIN_ARCHS = ("minicpm-2b", "qwen3-moe-30b-a3b", "hubert-xlarge")
+SMOKE_STEPS = 20
+# Phase 9's training bars, from the card's readings on the H100 (PERF.md):
+# each step's loss (relative) and each parameter's first-step gradient
+# (max|err| / max|ref|), card against CPU; a control scales one backward
+# kernel output by CONTROL_SCALE.
+SMOKE_LOSS_BAR, SMOKE_GRAD_BAR, CONTROL_SCALE = 5e-3, 6e-2, 0.8
+SMOKE_PATH = "smoke configs through launch.serve and launch.train (phase 9)"
 TWIN_STEPS = (60, 80)  # phase 7b: a run past the step-50 checkpoint, then one resumed from it
 TWIN_PATH = "train_lm_topoopt twin (world size 1), 3 steps"  # phase 7b's counted run
 DP_PATH = "hubert-xlarge DP step (ring, then compressed), 2 steps each"  # phase 7c
@@ -1111,7 +1160,8 @@ def check_attention_bwd(case, gen, dev, smi, phase: str = "3") -> dict:
     window (Sq = S); without one, Sk = S.  Two launches of the case's tiling
     must give the same bits."""
     from repro_torch.kernels.flash_attention import (
-        attention_bwd_tiling, attention_tiling, flash_attention, flash_attention_bwd,
+        attention_bwd_tiling, attention_tiling, compute_width, flash_attention,
+        flash_attention_bwd,
     )
     from repro_torch.kernels.ref import (
         attention_mask, ref_flash_attention, ref_flash_attention_bwd, ref_flash_attention_lse,
@@ -1126,6 +1176,7 @@ def check_attention_bwd(case, gen, dev, smi, phase: str = "3") -> dict:
     lse = torch.empty(Bc, Hc, S, dtype=torch.float32, device=dev)
     o = flash_attention(q, k, v, causal=causal, window=window, lse=lse)
     tiling = attention_bwd_tiling(dtype, Dc)
+    width = compute_width(tiling, Dc)
     tilings = (tiling, "fma") if tiling != "fma" else (tiling,)
     grads = {t: flash_attention_bwd(q, k, v, o, lse, do, causal, window, tiling=t)
              for t in tilings}
@@ -1214,8 +1265,8 @@ def check_attention_bwd(case, gen, dev, smi, phase: str = "3") -> dict:
           f"{library_ms} (SDPA's backward, {backend} backend) bound_ms {bound_ms} ({bound_by}; "
           + ("5 products as the bound counts, at the true width of 80 (S and dP once, dQ "
              "summed in fp32 in a fixed order of turns)" if Dc == 80 and tiling == "wgmma"
-             else f"{11 if Dc == 256 and tiling == 'wgmma' else 7} products where the bound "
-                  "counts 5")
+             else f"{11 if width == 256 and tiling == 'wgmma' else 7} products where the bound "
+                  "counts 5" + (f", at a width of {width}" if width != Dc else ""))
           + (f"; kernel/SDPA backward {kernel_ms[tiling] / library_ms}"
              + (f", forward kernel/SDPA {fwd_ms / extra['fwd_library_ms']}"
                 if "fwd_library_ms" in extra else "")
@@ -2808,6 +2859,509 @@ def train_dlrm_paper(dlrm, dlrm_testbed, optim, ops, group_of, dev, smi) -> dict
                 idle_share=idle, split_ms=split)
 
 
+def check_attention_dims(gen, dev, smi) -> dict:
+    """Phase 3 dims: each of NEW_HEAD_DIMS, which the kernels compute at a
+    wider width, against the plain version on DIMS_RAGGED (the forward, its
+    lse and the backward of wgmma and fma on bf16 inputs and of fma on fp32
+    ones; two launches of each the same bits), then timed at DIMS_TIMED on
+    both tilings beside the bound and SDPA (``check_attention_fwd`` and
+    ``check_attention_bwd``, which hold it to the plain version there too).
+    Returns the numbers by head dim."""
+    from repro_torch.kernels.flash_attention import (
+        compute_width, flash_attention, flash_attention_bwd,
+    )
+    from repro_torch.kernels.ref import ref_flash_attention, ref_flash_attention_lse
+
+    out = {}
+    for dh in NEW_HEAD_DIMS:
+        errs = {}
+        for Bc, h, kv, Sq, Sk, causal, window in DIMS_RAGGED:
+            for tiling, dtype in (("wgmma", torch.bfloat16), ("fma", torch.bfloat16),
+                                  ("fma", torch.float32)):
+                q = torch.randn(Bc, h, Sq, dh, generator=gen, device=dev).to(dtype)
+                k, v = (torch.randn(Bc, kv, Sk, dh, generator=gen, device=dev).to(dtype)
+                        for _ in "kv")
+                do = torch.randn(Bc, h, Sq, dh, generator=gen, device=dev).to(dtype)
+                lse = torch.empty(Bc, h, Sq, dtype=torch.float32, device=dev)
+                o = flash_attention(q, k, v, causal=causal, window=window, tiling=tiling, lse=lse)
+                grads = flash_attention_bwd(q, k, v, o, lse, do, causal, window, tiling=tiling)
+                again = (flash_attention(q, k, v, causal=causal, window=window, tiling=tiling),
+                         *flash_attention_bwd(q, k, v, o, lse, do, causal, window, tiling=tiling))
+                torch.cuda.synchronize()
+                label = (f"D={dh} width={compute_width(tiling, dh)} tiling={tiling} "
+                         f"{str(dtype)[6:]} B={Bc} H={h} KV={kv} Sq={Sq} Sk={Sk} causal={causal} "
+                         f"window={window}")
+                require(all(torch.equal(a, b) for a, b in zip(again, (o, *grads))),
+                        f"two launches bitwise equal, {label}")
+                ref = ref_flash_attention(q, k, v, causal=causal, window=window)
+                want = plain_attention_grads(ref_flash_attention, q, k, v, do, causal, window)
+                tol = TOL[dtype]
+                err = {"o": float((o.float() - ref.float()).abs().max()),
+                       "lse": float((lse - ref_flash_attention_lse(q, k, v, causal, window))
+                                    .abs().max())}
+                require(bool(torch.isfinite(o).all()) and err["o"] <= tol * max(
+                    1.0, float(ref.float().abs().max())), f"forward vs plain, {label}: {err}")
+                require(err["lse"] <= 1e-4 * max(1.0, float(lse.abs().max())),
+                        f"lse vs plain, {label}: {err}")
+                for name, got, w in zip(("dq", "dk", "dv"), grads, want):
+                    err[name] = float((got.float() - w).abs().max())
+                    require(bool(torch.isfinite(got).all())
+                            and err[name] <= tol * max(1.0, float(w.abs().max())),
+                            f"{name} vs autograd of plain, {label}: {err}")
+                errs[label] = err
+                del q, k, v, do, lse, o, grads, again, ref, want
+        Bc, h, kv, S = DIMS_TIMED
+        fwd = check_attention_fwd((S, S, dh, torch.bfloat16, True, 0, kv, h), gen, dev, smi,
+                                  batch=Bc, phase="3 dims")
+        bwd = check_attention_bwd((Bc, h, kv, S, dh, torch.bfloat16, True), gen, dev, smi,
+                                  phase="3 dims")
+        worst = max(max(e.values()) for e in errs.values())
+        print(f"phase 3 dims: head dim {dh} (wgmma width {compute_width('wgmma', dh)}, fma "
+              f"width {compute_width('fma', dh)}): {len(errs)} ragged cases on both tilings "
+              f"within the bars (largest max|err| {worst}); at B={Bc} H={h} KV={kv} S={S} "
+              f"causal bf16: forward {fwd['kernel_ms']} ms (fma {fwd['fma_ms']}, SDPA "
+              f"{fwd['library_ms']}, bound {fwd['bound_ms']}), backward {bwd['kernel_ms']} ms "
+              f"(fma {bwd['fma_kernel_ms']}, SDPA {bwd['library_ms']}, bound {bwd['bound_ms']}) "
+              f"on {smi}")
+        out[dh] = dict(ragged_max_abs_err=worst, fwd=fwd, bwd=bwd)
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def cpu_drawn_weights(lm):
+    """Within the block, ``lm.init`` draws a model's weights on the CPU from
+    its seed and copies them in before each block is placed, on any device:
+    a card draws another stream from a seed than the CPU, and phase 9 holds
+    the card's run to the CPU's on the same weights."""
+    real = lm.init
+
+    def init(seed, cfg, device=None, place=None):
+        state = real(seed, cfg, "cpu").state_dict()
+
+        def copy_then_place(module, prefix):
+            with torch.no_grad():
+                for name, p in module.named_parameters():
+                    if prefix + name in state and not hasattr(p, "placements"):
+                        p.copy_(state[prefix + name])
+            return module if place is None else place(module, prefix)
+
+        return real(seed, cfg, device, copy_then_place)
+
+    lm.init = init
+    try:
+        yield
+    finally:
+        lm.init = real
+
+
+def zero_counts(ops) -> None:
+    for n in COUNTERS:
+        setattr(ops, n, 0)
+
+
+def rel_err(got, want) -> float:
+    """max|got - want| / max|want| in fp32 (phase 3's measure without its
+    floor of 1: the smoke models' gradients are far below 1)."""
+    want = want.float()
+    return float((got.float() - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def hold_attention(a, out) -> dict:
+    from repro_torch.kernels.ref import ref_flash_attention, ref_flash_attention_lse
+
+    q, k, v, causal, window = a["q"], a["k"], a["v"], a["causal"], a["window"]
+    errs = {"o": (rel_err(out, ref_flash_attention(q, k, v, causal=causal, window=window)),
+                  TOL[q.dtype])}
+    if a["lse"] is not None:
+        errs["lse"] = (rel_err(a["lse"], ref_flash_attention_lse(q, k, v, causal, window)), 1e-4)
+    return errs
+
+
+def hold_attention_bwd(a, out) -> dict:
+    from repro_torch.kernels.ref import ref_flash_attention
+
+    with torch.enable_grad():  # called from within the backward
+        want = plain_attention_grads(ref_flash_attention, a["q"], a["k"], a["v"], a["do"],
+                                     a["causal"], a["window"])
+    return {n: (rel_err(g, w), TOL[a["q"].dtype]) for n, g, w in zip(("dq", "dk", "dv"), out, want)}
+
+
+def hold_gmm(a, out) -> dict:
+    from repro_torch.kernels.ref import ref_moe_gmm
+
+    return {"out": (rel_err(out, ref_moe_gmm(a["x"], a["w"])), TOL[a["x"].dtype])}
+
+
+def hold_gmm_bwd(a, out) -> dict:
+    from repro_torch.kernels.ref import ref_moe_gmm_bwd
+
+    want = ref_moe_gmm_bwd(a["x"], a["w"], a["dy"])
+    return {n: (rel_err(g, w), TOL[a["x"].dtype])
+            for n, g, w in zip(("dx", "dw"), out, want) if g is not None}
+
+
+def hold_lru(a, out) -> dict:
+    from repro_torch.kernels.ref import ref_rglru_scan
+
+    # fp32 arithmetic from the same inputs in both: phase 3's bar.
+    return {n: (rel_err(g, w), 1e-5)
+            for n, g, w in zip(("h_all", "h_final"), out, ref_rglru_scan(a["a"], a["b"]))}
+
+
+# The kernel wrappers whose every call phase 9 holds, each under the modules
+# that call it (ops on inference, the kernel's autograd Function in its own
+# module), and the check that holds a call to the plain version.
+HELD = (
+    ("flash_attention", ("ops", "flash_attention"), "flash_attention", hold_attention),
+    ("flash_attention_bwd", ("flash_attention",), "flash_attention_bwd", hold_attention_bwd),
+    ("moe_gmm", ("ops", "moe_gmm"), "moe_gmm", hold_gmm),
+    ("moe_gmm_bwd", ("moe_gmm",), "moe_gmm_bwd", hold_gmm_bwd),
+    ("rglru_scan", ("ops",), "rglru_scan", hold_lru),
+)
+
+
+@contextlib.contextmanager
+def held_calls(held: dict, what: str, tamper=None):
+    """Within the block, each wrapper of HELD holds every call, as it
+    returns and before its caller sees the outputs, to the plain version on
+    the same inputs: each output's max|err| / max|ref| within its bar (TOL
+    of the inputs' dtype; lse 1e-4, the RG-LRU scan 1e-5), else it raises.
+    ``held[wrapper]`` counts the calls and keeps the largest error.  The
+    launches are the run's own, counted once, by the wrapper; the plain
+    versions launch no kernel of the port.  ``tamper`` ({wrapper:
+    fn(outputs) -> outputs}) alters what a wrapper returns to its caller,
+    after the check: phase 9's controls."""
+    import importlib
+    import inspect
+
+    tamper = tamper or {}
+    saved = []
+    for label, modules, attr, check in HELD:
+        for m in modules:
+            mod = importlib.import_module(f"repro_torch.kernels.{m}")
+            real = getattr(mod, attr)
+
+            def keep(*args, _real=real, _sig=inspect.signature(real), _label=label,
+                     _check=check, **kw):
+                out = _real(*args, **kw)
+                bound = _sig.bind(*args, **kw)
+                bound.apply_defaults()
+                a = bound.arguments
+                with torch.no_grad():
+                    errs = _check(a, out)
+                rec = held.setdefault(_label, {"calls": 0, "max_err": 0.0})
+                rec["calls"] += 1
+                for name, (err, bar) in errs.items():
+                    require(math.isfinite(err) and err <= bar,
+                            f"{what}: {_label} {name} vs plain {err} > {bar} at "
+                            + str({n: tuple(t.shape) for n, t in a.items()
+                                   if isinstance(t, torch.Tensor)}))
+                    rec["max_err"] = max(rec["max_err"], err)
+                return tamper[_label](out) if _label in tamper else out
+
+            saved.append((mod, attr, real))
+            setattr(mod, attr, keep)
+    try:
+        yield held
+    finally:
+        for mod, attr, real in reversed(saved):
+            setattr(mod, attr, real)
+
+
+@contextlib.contextmanager
+def first_grads(into: dict):
+    """Within the block, the train step's first ``loss_and_grads`` call
+    leaves every parameter's gradient, fp32 on the CPU, in ``into``."""
+    from repro_torch.train import steps
+
+    real = steps.loss_and_grads
+
+    def keep(*args, **kw):
+        total, metrics, params, grads = real(*args, **kw)
+        if not into:
+            into.update({n: (g.to_local() if hasattr(g, "to_local") else g).detach().float().cpu()
+                         for n, g in grads.items()})
+        return total, metrics, params, grads
+
+    steps.loss_and_grads = keep
+    try:
+        yield into
+    finally:
+        steps.loss_and_grads = real
+
+
+@contextlib.contextmanager
+def routed_as(choices: list, replay: bool):
+    """Within the block, the MoE's top-k choices (``torch.topk``, which only
+    ``layers.moe`` calls) are appended to ``choices`` in call order, or,
+    with ``replay``, taken from it in that order (the values gathered from
+    the router's own probabilities, so the gradient flows as through
+    topk): the CPU's run then routes each token to the experts the card's
+    run chose, and a near tie that rounds the other way on the card is not
+    counted as an arithmetic error."""
+    real = torch.topk
+    taken = list(choices) if replay else []
+
+    def topk(probs, k, dim=-1, **kw):
+        if not replay:
+            vals, idx = real(probs, k, dim=dim, **kw)
+            choices.append(idx.cpu())
+            return vals, idx
+        require(bool(taken), f"a replayed run routes as often as the recorded one ({len(choices)})")
+        idx = taken.pop(0).to(probs.device)
+        return probs.gather(dim, idx), idx
+
+    torch.topk = topk
+    try:
+        yield choices
+    finally:
+        torch.topk = real
+    require(not taken, f"a replayed run routes as often as the recorded one: {len(taken)} of "
+            f"{len(choices)} choices left")
+
+
+def leaf_errs(got: dict, want: dict) -> dict:
+    """max|got - want| / max|want| of each parameter's gradient."""
+    require(got.keys() == want.keys(), f"the same parameters: {sorted(got)} vs {sorted(want)}")
+    return {n: rel_err(got[n], w) for n, w in want.items()}
+
+
+def moe_layers_rel_err(card, cpu, tokens, cfg) -> tuple[list, int]:
+    """A bf16 MoE's prefill, each block on the card from the CPU's residual
+    stream against the CPU's block, then the head on the CPU's last
+    position: max|err| / max|ref| of each.  The card's attention rounds P to
+    bf16 where the plain version does not, and an ulp of the stream flips a
+    near-tied top-k choice (another routing, not an arithmetic error), so a
+    block's router logits are held to the bar on every token and its output
+    on the tokens whose experts agree (a flip then needs a gap within twice
+    the logits' difference: a near tie).  Returns (the errors, the
+    token-layers whose experts differ)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    dev = next(card.parameters()).device
+    pos = torch.arange(tokens.shape[1])[None, :]
+    K, E = cfg.top_k, cfg.n_experts
+
+    def router_logits(blk, x, p):
+        att = L.attention(blk.attn, L.rms_norm(x, blk.attn.norm), cfg, causal=True,
+                          window=cfg.attn_window, positions=p, use_rope=True)[0]
+        h = L.rms_norm(x + att, blk.moe.norm)
+        return (h.float() @ blk.moe.router).reshape(-1, E).cpu()
+
+    x = T._embed(cpu, cfg, tokens)
+    errs, flipped = [], 0
+    for blk_cpu, blk_card in zip(cpu.blocks, card.blocks):
+        lc = router_logits(blk_cpu, x, pos)
+        lg = router_logits(blk_card, x.to(dev), pos.to(dev))
+        same = (lc.topk(K).indices.sort().values == lg.topk(K).indices.sort().values).all(-1)
+        flipped += int((~same).sum())
+        ref = T._self_block_apply(blk_cpu, x, cfg, pos)[0]
+        got = T._self_block_apply(blk_card, x.to(dev), cfg, pos.to(dev))[0].float().cpu()
+        rows = same.reshape(ref.shape[:2])
+        errs.append(max(float((lg - lc).abs().max()) / float(lc.abs().max()),
+                        float((got - ref.float())[rows].abs().max())
+                        / float(ref.float()[rows].abs().max())))
+        x = ref
+    ref = L.rms_norm(x[:, -1], cpu.final_norm) @ cpu.head()
+    got = L.rms_norm(x[:, -1].to(dev), card.final_norm) @ card.head()
+    errs.append(float((got.float().cpu() - ref.float()).abs().max())
+                / float(ref.float().abs().max()))
+    return errs, flipped
+
+
+def smoke_serve(arch, lm, ops, serve_cli, get_config, smi) -> dict:
+    """Phase 9: ``python -m repro_torch.launch.serve --arch ARCH --smoke`` as
+    its ``main``, on the card, the launch counts set to 0 just before and
+    read just after; the prefill's and each decode step's logits kept.  Then
+    the CPU's plain path on the same weights and batch, fed the card's
+    tokens: every step's logits within 3e-2 of max|ref|; the MoE's prefill
+    layer by layer on the CPU's stream (``moe_layers_rel_err``), its decode
+    steps finite (their routing flips as the prefill's may).  Every kernel
+    launch of the run, the MoE's decode steps' too, is held to the plain
+    version on its own inputs as it returns (``held_calls``)."""
+    cfg = get_config(arch).smoke()
+    seen: dict = {"logits": []}
+    held: dict = {}
+    real_prefill, real_decode = lm.prefill, lm.decode_step
+
+    def kept_prefill(model, batch, cfg_, **kw):
+        seen.update(model=model, batch={n: t.cpu() for n, t in batch.items()},
+                    pad_to=kw.get("pad_to"))
+        logits, cache = real_prefill(model, batch, cfg_, **kw)
+        seen["logits"].append(logits.float().cpu())
+        return logits, cache
+
+    def kept_decode(model, batch, cfg_):
+        logits, cache = real_decode(model, batch, cfg_)
+        seen["logits"].append(logits.float().cpu())
+        return logits, cache
+
+    lm.prefill, lm.decode_step = kept_prefill, kept_decode
+    try:
+        with cpu_drawn_weights(lm), held_calls(held, f"{arch} smoke serve"):
+            zero_counts(ops)
+            t0 = time.perf_counter()
+            serve_cli.main(["--arch", arch, "--smoke"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {n: getattr(ops, n) for n in COUNTERS}
+    finally:
+        lm.prefill, lm.decode_step = real_prefill, real_decode
+    logits = seen["logits"]
+    require(len(logits) == DECODE_STEPS and all(bool(torch.isfinite(t).all()) for t in logits),
+            f"{arch} smoke: {DECODE_STEPS} finite logits, got {len(logits)}")
+    model = lm.init(0, cfg, "cpu")  # the weights the card's run drew on the CPU
+    batch = seen["batch"]
+    S = batch["tokens"].shape[1]
+    if cfg.family == "moe":
+        errs, flipped = moe_layers_rel_err(seen["model"], model, batch["tokens"], cfg)
+        what = (f"each layer's prefill output on the CPU's stream ({flipped} token-layers with "
+                "other experts by a near tie left out), then the head")
+    else:
+        lc, cache = lm.prefill(model, batch, cfg, pad_to=seen["pad_to"])
+        errs = []
+        for t, got in enumerate(logits):
+            if t:
+                tok = logits[t - 1].argmax(dim=-1)
+                lc, cache = lm.decode_step(model, {"token": tok, "pos": S + t - 1,
+                                                   "cache": cache}, cfg)
+            ref = lc.float()
+            errs.append(float((got - ref).abs().max()) / float(ref.abs().max()))
+        what = "logits, each step"
+    del seen["model"]
+    require(max(errs) <= 3e-2, f"{arch} smoke, card vs CPU ({what}): {errs} of max|ref| > 3e-2")
+    require(counts["attention_launches"] > 0
+            and counts["attention_wgmma_launches"] == counts["attention_launches"],
+            f"{arch} smoke: attention on wgmma at head dim {cfg.hd}: {counts}")
+    print(f"phase 9 serve: python -m repro_torch.launch.serve --arch {arch} --smoke (head dim "
+          f"{cfg.hd}, {cfg.activation_dtype}) on the card in {wall} s: card vs CPU, {what}, "
+          f"max|err| / max|ref| {max(errs)} (bar 3e-2); each launch vs plain on its inputs "
+          f"{held}; launches { {n: c for n, c in counts.items() if c} } on {smi}")
+    return dict(wall_s=wall, max_rel_err=max(errs), held=held, counts=counts)
+
+
+def smoke_encode(lm, ops, get_config, dev, smi) -> dict:
+    """Phase 9: hubert-xlarge's smoke forward (``serve`` exits for an
+    encoder) on the card and on the CPU, the same weights and frames: the
+    output within 3e-2 of max|ref|, and each launch held to the plain
+    version on its own inputs."""
+    cfg = get_config(SMOKE_ENCODE_ARCH).smoke()
+    with cpu_drawn_weights(lm):
+        model = lm.init(0, cfg, dev)
+    frames = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (B, SMOKE_FRAMES, cfg.d_model), dtype=np.float32)).to(getattr(torch, cfg.activation_dtype))
+    held: dict = {}
+    with held_calls(held, f"{SMOKE_ENCODE_ARCH} smoke forward"):
+        zero_counts(ops)
+        got, _ = lm.forward(model, {"frames": frames.to(dev)}, cfg)
+        torch.cuda.synchronize()
+        counts = {n: getattr(ops, n) for n in COUNTERS}
+    ref, _ = lm.forward(lm.init(0, cfg, "cpu"), {"frames": frames}, cfg)
+    err = float((got.float().cpu() - ref.float()).abs().max()) / float(ref.float().abs().max())
+    require(bool(torch.isfinite(got).all()) and err <= 3e-2,
+            f"{SMOKE_ENCODE_ARCH} smoke forward, card vs CPU: {err} of max|ref| > 3e-2")
+    require(counts["attention_launches"] == cfg.n_layers
+            and counts["attention_wgmma_launches"] == cfg.n_layers,
+            f"{SMOKE_ENCODE_ARCH} smoke forward: a wgmma attention launch a layer: {counts}")
+    print(f"phase 9 encode: {SMOKE_ENCODE_ARCH} smoke forward ({B} x {SMOKE_FRAMES} frames, head "
+          f"dim {cfg.hd}) card vs CPU max|err| / max|ref| {err} (bar 3e-2); each launch vs "
+          f"plain on its inputs {held}; launches { {n: c for n, c in counts.items() if c} } "
+          f"on {smi}")
+    del model
+    return dict(max_rel_err=err, held=held, counts=counts)
+
+
+def smoke_controls(arch: str) -> dict:
+    """Phase 9's controls: backward outputs off by CONTROL_SCALE, which the
+    gradient bar must catch: attention's dq, and the MoE's expert weights'
+    dw."""
+    c = CONTROL_SCALE
+    out = {f"attention dq x {c}": {"flash_attention_bwd": lambda g: (g[0] * c, *g[1:])}}
+    if arch == "qwen3-moe-30b-a3b":
+        out[f"grouped matmul dw x {c}"] = {
+            "moe_gmm_bwd": lambda g: (g[0], None if g[1] is None else g[1] * c)}
+    return out
+
+
+def smoke_train(arch, lm, ops, train_cli, smi) -> dict:
+    """Phase 9: ``python -m repro_torch.launch.train --arch ARCH --smoke
+    --steps 20`` as its ``main`` on the card (launch counts set to 0 just
+    before, read just after), then with ``--device cpu``, from the same
+    weights and batches, the MoE routed as the card routed (``routed_as``).
+    Held to the CPU's plain path: the first step's gradient of every
+    parameter within SMOKE_GRAD_BAR of its largest (``leaf_errs``), and
+    each step's loss within SMOKE_LOSS_BAR (relative; the smoke batches are
+    uniform random tokens, so the losses stay near ln(vocab) rather than
+    fall).  Every kernel launch of the card's run is held to the plain
+    version on its own inputs as it returns (``held_calls``).  Then
+    the controls: a one-step card run with a backward kernel's output
+    scaled (``smoke_controls``) must fail the gradient bar."""
+    argv = ["--arch", arch, "--smoke", "--steps", str(SMOKE_STEPS)]
+    held, card_g, cpu_g, choices = {}, {}, {}, []
+    what = f"{arch} smoke training"
+    with cpu_drawn_weights(lm):
+        with held_calls(held, what), first_grads(card_g), routed_as(choices, replay=False):
+            zero_counts(ops)
+            t0 = time.perf_counter()
+            card = train_cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {n: getattr(ops, n) for n in COUNTERS}
+        with first_grads(cpu_g), routed_as(choices, replay=True):
+            cpu = train_cli.main(argv + ["--device", "cpu"])
+        controls = {}
+        for label, tamper in smoke_controls(arch).items():
+            got: dict = {}
+            with held_calls({}, f"{what} control", tamper), first_grads(got):
+                train_cli.main(["--arch", arch, "--smoke", "--steps", "1"])
+            controls[label] = max(leaf_errs(got, cpu_g).values())
+    require(len(card.losses) == len(cpu.losses) == SMOKE_STEPS
+            and all(math.isfinite(x) for x in card.losses),
+            f"{arch} smoke training: {SMOKE_STEPS} finite losses: {card.losses}")
+    errs = [abs(a - b) / abs(b) for a, b in zip(card.losses, cpu.losses)]
+    require(max(errs) <= SMOKE_LOSS_BAR,
+            f"{arch} smoke training, card vs CPU losses: {errs} > {SMOKE_LOSS_BAR}")
+    grads = leaf_errs(card_g, cpu_g)
+    worst = max(grads, key=grads.get)
+    require(grads[worst] <= SMOKE_GRAD_BAR,
+            f"{arch} smoke training, card vs CPU first-step gradients: {grads} > {SMOKE_GRAD_BAR}")
+    for label, err in controls.items():
+        require(err > SMOKE_GRAD_BAR, f"{arch} smoke training control ({label}): the largest "
+                f"gradient error {err} passes the bar {SMOKE_GRAD_BAR}")
+    require(counts["attention_bwd_launches"] > 0
+            and counts["attention_bwd_wgmma_launches"] == counts["attention_bwd_launches"]
+            and counts["attention_wgmma_launches"] == counts["attention_launches"],
+            f"{arch} smoke training: attention both ways on wgmma: {counts}")
+    print(f"phase 9 train: python -m repro_torch.launch.train --arch {arch} --smoke --steps "
+          f"{SMOKE_STEPS} on the card in {wall} s: losses {card.losses[0]} -> "
+          f"{card.losses[-1]}, card vs CPU each step max relative {max(errs)} (bar "
+          f"{SMOKE_LOSS_BAR}); first-step gradients of {len(grads)} parameters, largest "
+          f"max|err| / max|ref| {grads[worst]} ({worst}; bar {SMOKE_GRAD_BAR}); controls "
+          f"{controls} (each must pass the bar); each launch vs plain on its inputs {held}; "
+          f"launches { {n: c for n, c in counts.items() if c} } on {smi}")
+    return dict(wall_s=wall, losses=card.losses, max_rel_err=max(errs),
+                grad_max_rel_err=grads[worst], grad_worst_leaf=worst, grad_errs=grads,
+                controls=controls, held=held, counts=counts)
+
+
+def smoke_phase(lm, ops, serve_cli, train_cli, get_config, dev, smi) -> dict:
+    """Phase 9: the JAX package's smoke configs through the command lines on
+    the card (``smoke_serve``, ``smoke_encode``, ``smoke_train``); returns
+    each run's numbers and the launches summed over the phase."""
+    t0 = time.perf_counter()
+    runs = {f"serve {a}": smoke_serve(a, lm, ops, serve_cli, get_config, smi)
+            for a in SMOKE_SERVE_ARCHS}
+    runs[f"encode {SMOKE_ENCODE_ARCH}"] = smoke_encode(lm, ops, get_config, dev, smi)
+    runs.update({f"train {a}": smoke_train(a, lm, ops, train_cli, smi)
+                 for a in SMOKE_TRAIN_ARCHS})
+    counts = {n: sum(r["counts"][n] for r in runs.values()) for n in COUNTERS}
+    print(f"phase 9 summary: {len(runs)} runs in {time.perf_counter() - t0} s, launches "
+          f"{ {n: c for n, c in counts.items() if c} } on {smi}")
+    return dict(runs=runs, counts=counts)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2827,6 +3381,8 @@ def main() -> int:
     from repro_torch import optim
     from repro_torch.data import pipeline as data
     from repro_torch.launch import dlrm_testbed
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
     from repro_torch.launch.serve import generate
     from repro_torch.launch.trace_train import group_of
     from repro_torch.models import dlrm, layers, lm
@@ -2878,16 +3434,23 @@ def main() -> int:
         # head dim (the wgmma ones at D = 256 at the same 168 registers, its consumers splitting
         # D rather than rows; at D = 80 the dk/dv items that also sum dQ in turns, at 168, and
         # the cast of dQ's sums), and the sum of the D = 256 dk/dv partials in bf16 and fp16
-        for base, dims in (("dkdv_wgmma_kernel", (64, 128, 256)),
-                           ("dq_wgmma_kernel", (64, 128, 256)),
-                           ("dkdv_kernel", (32, 64, 80, 128, 256)),
-                           ("dq_kernel", (32, 64, 80, 128, 256))):
+        for base, dims, tail in (("dkdv_wgmma_kernel", (64, 128, 256), "E"),
+                                 ("dq_wgmma_kernel", (64, 128, 256), "E"),
+                                 ("dkdv_kernel", (32, 64, 80, 128, 256), "ELb0E"),
+                                 ("dq_kernel", (32, 64, 80, 128, 256), "ELb0E")):
             for d in dims:
-                require(any(fn.startswith(base) and f"Li{d}E" in fn for fn in bwd_report),
+                require(any(fn.startswith(base) and f"Li{d}{tail}" in fn for fn in bwd_report),
                         f"ptxas reports no {base} at D = {d}")
-        for base in ("dkdv_sum_kernel", "dkdv_d80_wgmma_kernel", "dq_d80_cast_kernel"):
+        # the fma backward's ragged instances (any other head dim) at each of its widths,
+        # checked for spills above with every backward kernel
+        for base in ("dkdv_kernel", "dq_kernel"):
+            for w in (32, 64, 128, 256):
+                require(sum(fn.startswith(base) and f"Li{w}ELb1E" in fn for fn in bwd_report) == 3,
+                        f"ptxas reports no ragged {base} at width {w} in each of 3 dtypes")
+        for base, want in (("dkdv_sum_kernel", 2), ("dkdv_d80_wgmma_kernel", 2),
+                           ("dq_d80_cast_kernel", 4)):  # the cast at D 80 and 72
             got = sum(fn.startswith(base) for fn in bwd_report)
-            require(got == 2, f"ptxas reports 2 {base}s (bf16, fp16), not {got}")
+            require(got == want, f"ptxas reports {want} {base}s (bf16, fp16), not {got}")
     fwd_report = ptxas_report(_build.build_logs.get("flash_attention", ""))
     if fwd_report:  # built in this run: the wgmma forward at D = 64, 128 and 256, and at
         # D = 80 its own kernel (true-width products, softmax overlapped), each checked above
@@ -2900,6 +3463,16 @@ def main() -> int:
         for d in (32, 64, 80, 128, 256):
             require(any(fn.startswith("flash_attention_fwd_kernel") and f"Li{d}E" in fn
                         for fn in fwd_report), f"ptxas reports no fma forward at D = {d}")
+        # and its ragged kernel (any other head dim) at each of its widths in each dtype, none
+        # spilling
+        ragged = {fn: info for fn, info in fwd_report.items()
+                  if fn.startswith("flash_attention_fwd_ragged_kernel")}
+        require(len(ragged) == 12 and all(any(f"Li{w}E" in fn for fn in ragged) for w in
+                                          (32, 64, 128, 256)),
+                f"ptxas reports {sorted(ragged)}, not the ragged fma forward at widths 32, 64, "
+                "128 and 256 in 3 dtypes")
+        require(all(i["spill_stores"] == i["spill_loads"] == 0 for i in ragged.values()),
+                f"a ragged fma forward spills: {ragged}")
     for name, base in (("rglru_scan", "lru_fwd_kernel"), ("rglru_scan_bwd", "lru_bwd_kernel")):
         lru_report = ptxas_report(_build.build_logs.get(name, ""))
         if lru_report:  # built in this run, every kernel checked for spills above: one kernel
@@ -3000,6 +3573,8 @@ def main() -> int:
                                               smi, phase="3 tp16"))
                  for Bc, h, kv, S, Dc, dt, causal, *rest in TP16_ATTN_CASES]
     torch.cuda.empty_cache()
+    # Head dims no served model has, on both tilings, both ways.
+    dims = check_attention_dims(gen, dev, smi)
     main_case, rg_case = attn[cases[0]], attn[cases[8]]
     main_fp32, rg_fp32 = attn[cases[2]], attn[cases[10]]
     au_case, au_fp16, au_fp32 = (attn[c] for c in HUBERT_CASES)
@@ -3653,6 +4228,10 @@ def main() -> int:
     # Phase 8: the dry run of 7e's cell against what 7e measured, and the CLI.
     dryrun = dryrun_check(want_moe, gspmd_moe, smi)
     print(f"phase 8 summary: {json.dumps(dryrun)} on {smi}")
+    # Phase 9: the JAX package's smoke configs through the command lines.
+    require(not torch.distributed.is_initialized(), "phase 9 starts with no process group")
+    smoke = smoke_phase(lm, ops, serve_cli, train_cli, get_config, dev, smi)
+    smoke_counts = smoke["counts"]
 
     print(f"chip_smoke: wall time {time.perf_counter() - T_START} s, the kernels' build "
           "included")
@@ -3672,7 +4251,8 @@ def main() -> int:
                      + twin["counts"]["attention_launches"] + dp["counts"]["attention_launches"]
                      + gspmd["counts"]["attention_launches"]
                      + gspmd_moe["counts"]["attention_launches"]
-                     + sum(m["counts"]["attention_launches"] for m in mesh_served.values())),
+                     + sum(m["counts"]["attention_launches"] for m in mesh_served.values())
+                     + smoke_counts["attention_launches"]),
         "launches_by_path": {"granite-8b": granite_attention_launches, qwen_name: att_total,
                              "recurrentgemma-9b": griffin["attention_launches"],
                              "llama-3.2-vision-11b": vlm["attention_launches"],
@@ -3688,8 +4268,10 @@ def main() -> int:
                              GSPMD_PATH: gspmd["counts"]["attention_launches"],
                              GSPMD_MOE_PATH: gspmd_moe["counts"]["attention_launches"],
                              **{f"{n} {MESH_SERVE_PATH}": m["counts"]["attention_launches"]
-                                for n, m in mesh_served.items()}},
+                                for n, m in mesh_served.items()},
+                             SMOKE_PATH: smoke_counts["attention_launches"]},
         "launches_d32": twin["counts"]["attention_fma_launches"],
+        "launches_d16": smoke_counts["attention_wgmma_launches"],
         "max_abs_err": main_case["max_abs_err"],
         "max_err_bf16": main_case["max_abs_err"],
         "ms": main_case["kernel_ms"],
@@ -3740,6 +4322,11 @@ def main() -> int:
            for name, i in (("d32", 0), ("d32_s2048", 1), ("d32_ragged", 2), ("d32_sq_ne_sk", 3))
            for k in ("tiling", "max_abs_err", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
                      "bound_by")},
+        **{f"dims_d{dh}_{k}": numbers["fwd"][k] for dh, numbers in dims.items()
+           for k in ("tiling", "max_abs_err", "kernel_ms", "fma_ms", "plain_ms", "library_ms",
+                     "bound_ms", "bound_by")},
+        **{f"dims_d{dh}_ragged_max_abs_err": numbers["ragged_max_abs_err"]
+           for dh, numbers in dims.items()},
     }, {
         "name": "flash_attention_bwd",
         "route": "cuda",
@@ -3752,7 +4339,8 @@ def main() -> int:
                      + twin["counts"]["attention_bwd_launches"]
                      + dp["counts"]["attention_bwd_launches"]
                      + gspmd["counts"]["attention_bwd_launches"]
-                     + gspmd_moe["counts"]["attention_bwd_launches"]),
+                     + gspmd_moe["counts"]["attention_bwd_launches"]
+                     + smoke_counts["attention_bwd_launches"]),
         "launches_by_path": {f"{TRAIN_ARCH} train, {TRAIN_STEPS} steps": train_bwd,
                              moe_path: moe_counts["attention_bwd_launches"],
                              hyb_path: hyb_counts["attention_bwd_launches"],
@@ -3761,8 +4349,10 @@ def main() -> int:
                              TWIN_PATH: twin["counts"]["attention_bwd_launches"],
                              DP_PATH: dp["counts"]["attention_bwd_launches"],
                              GSPMD_PATH: gspmd["counts"]["attention_bwd_launches"],
-                             GSPMD_MOE_PATH: gspmd_moe["counts"]["attention_bwd_launches"]},
+                             GSPMD_MOE_PATH: gspmd_moe["counts"]["attention_bwd_launches"],
+                             SMOKE_PATH: smoke_counts["attention_bwd_launches"]},
         "launches_d32": twin["counts"]["attention_bwd_fma_launches"],
+        "launches_d16": smoke_counts["attention_bwd_wgmma_launches"],
         "launches_per_step": trained["launches_per_step"]["attention_bwd_launches"],
         "launches_per_step_d256": hyb_trained["launches_per_step"]["attention_bwd_launches"],
         "launches_per_step_vlm": vlm_trained["launches_per_step"]["attention_bwd_launches"],
@@ -3802,6 +4392,9 @@ def main() -> int:
            for name, i in (("qwen3", 0), ("recurrentgemma", 1))
            for k in ("max_abs_err", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
                      "bound_by")},
+        **{f"dims_d{dh}_{k}": numbers["bwd"][k] for dh, numbers in dims.items()
+           for k in ("tiling", "max_abs_err", "kernel_ms", "fma_kernel_ms", "plain_ms",
+                     "library_ms", "bound_ms", "bound_by")},
     }, {
         "name": "moe_gmm",
         "route": "cuda",
@@ -3812,12 +4405,14 @@ def main() -> int:
         "decode_tiling": gmm_decode["tiling"],
         "launches": (gmm_total + moe_counts["grouped_matmul_launches"]
                      + gspmd_moe["counts"]["grouped_matmul_launches"]
-                     + mesh_served[qwen_name]["counts"]["grouped_matmul_launches"]),
+                     + mesh_served[qwen_name]["counts"]["grouped_matmul_launches"]
+                     + smoke_counts["grouped_matmul_launches"]),
         "launches_by_path": {qwen_name: gmm_total,
                              moe_path: moe_counts["grouped_matmul_launches"],
                              GSPMD_MOE_PATH: gspmd_moe["counts"]["grouped_matmul_launches"],
                              f"{qwen_name} {MESH_SERVE_PATH}":
-                                 mesh_served[qwen_name]["counts"]["grouped_matmul_launches"]},
+                                 mesh_served[qwen_name]["counts"]["grouped_matmul_launches"],
+                             SMOKE_PATH: smoke_counts["grouped_matmul_launches"]},
         "launches_per_train_step": moe_trained["launches_per_step"]["grouped_matmul_launches"],
         "launches_prefill": gmm_prefill,
         "launches_per_decode_step": gmm_decode_loop // (DECODE_STEPS - 1),
@@ -3869,9 +4464,11 @@ def main() -> int:
         "replaces": "none: jax.grad of the XLA einsums at src/repro/models/layers.py:346-348",
         "library": "torch.bmm (dx and dw)",
         "launches": (moe_counts["grouped_matmul_bwd_launches"]
-                     + gspmd_moe["counts"]["grouped_matmul_bwd_launches"]),
+                     + gspmd_moe["counts"]["grouped_matmul_bwd_launches"]
+                     + smoke_counts["grouped_matmul_bwd_launches"]),
         "launches_by_path": {moe_path: moe_counts["grouped_matmul_bwd_launches"],
-                             GSPMD_MOE_PATH: gspmd_moe["counts"]["grouped_matmul_bwd_launches"]},
+                             GSPMD_MOE_PATH: gspmd_moe["counts"]["grouped_matmul_bwd_launches"],
+                             SMOKE_PATH: smoke_counts["grouped_matmul_bwd_launches"]},
         "launches_per_step": moe_trained["launches_per_step"]["grouped_matmul_bwd_launches"],
         "launches_wgmma": moe_counts["grouped_matmul_bwd_wgmma_launches"],
         "ms": gmm_bwd["gate_up"]["kernel_ms"],
@@ -3917,9 +4514,11 @@ def main() -> int:
         "source": "src/repro_torch/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan.py:42",
         "tpu_ref": "kernels/rglru_scan.py:42",
-        "launches": griffin["lru_scan_launches"] + hyb_counts["lru_scan_launches"],
+        "launches": (griffin["lru_scan_launches"] + hyb_counts["lru_scan_launches"]
+                     + smoke_counts["lru_scan_launches"]),
         "launches_by_path": {"recurrentgemma-9b": griffin["lru_scan_launches"],
-                             hyb_path: hyb_counts["lru_scan_launches"]},
+                             hyb_path: hyb_counts["lru_scan_launches"],
+                             SMOKE_PATH: smoke_counts["lru_scan_launches"]},
         "launches_per_train_step": hyb_trained["launches_per_step"]["lru_scan_launches"],
         "ms": lru_fwd["prefill"]["kernel_ms"],
         **lru_fwd["prefill"],

@@ -23,9 +23,19 @@
 // unmasked) 0.106 ms, all by operations.
 //
 // Two tilings, one C entry point each; kernels/flash_attention.py's
-// `attention_tiling` chooses among them:
+// `attention_tiling` chooses among them.  Every head dim D from 1 to 256
+// runs, as the TPU kernel takes any D: a block computes at a width W >= D
+// that its instances are built for and reads the columns past D as zeros
+// (TMA's out-of-bounds fill on wgmma, masked loads on fma), which add exact
+// zeros to S = Q K^T and give zero columns of O that are not stored; the
+// scale is 1/sqrt(D) of the true D.  wgmma takes D % 8 == 0 (TMA's 16-byte
+// row strides) at W = 64 (D 8-64: the smoke configs' 16), 80 (72, 80), 128
+// (88-128) or 256 (136-256); fma takes any D, at W = D for 32, 64, 80, 128
+// and 256 and in a ragged instance at the next of 32, 64, 128 and 256 for
+// the rest (one block an SM: at the default 128 registers its masked loads
+// and stores spill).  The widths cost what D = W costs.
 //
-// * wgmma (bf16/fp16; D = 64, 128 or 256; every prefill of the served
+// * wgmma (bf16/fp16; W = 64, 128 or 256; every prefill of the served
 //   models but hubert-xlarge's).  An FA3-style forward on the tensor
 //   cores.  A block of three warpgroups owns 128 query rows of one (batch,
 //   head).  The producer
@@ -68,8 +78,8 @@
 //   exp2(s scale log2 e - m scale log2 e) in one FFMA, and a row whose
 //   keys are all masked so far gets p = 0.  Shared memory: q 20 KB, a
 //   ring of 2 k and 2 v tiles of 20 KB.
-// * fma (fp32, head dims 32, 64, 80, 128 and 256; exact fp32 for the narrow
-//   fp32 models).  One block of 256 threads per (BQ-row q tile, q head, batch),
+// * fma (fp32, and bf16/fp16 at a D TMA cannot stride; exact fp32 for the
+//   narrow fp32 models).  One block of 256 threads per (BQ-row q tile, q head, batch),
 //   tiles staged in shared memory as fp32 (Q: BQ x (D + 4), K, V: BK x
 //   (D + 4), P: BQ x (BK + 4)); thread (ty, tx) of a 16 x 16 grid owns
 //   query rows RQ*ty .. RQ*ty+RQ-1 (RQ = BQ / 16), scores against keys
@@ -132,44 +142,57 @@ constexpr int smem_bytes() {
 }
 
 // Copies rows [row0, row0 + ROWS) of a contiguous (rows, D) matrix into
-// shared memory as fp32 with row stride D + 4; rows at or past `rows` are
-// zero, so padded keys add nothing before the mask removes them.
-template <typename T, int D, int ROWS>
+// shared memory as fp32, W columns a row with row stride W + 4; rows at or
+// past `rows` are zero, so padded keys add nothing before the mask removes
+// them.  D is W but in RAGGED instances (any D < W), whose columns at or
+// past D are zero too, so they add exact zeros to every product: 16-byte
+// loads where a row of D values is a whole number of them, else one value
+// a thread at a time.
+template <typename T, int W, int ROWS, bool RAGGED>
 __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int row0,
-                                          int rows, int tid) {
+                                          int rows, int D, int tid) {
   constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load: 4 or 8
-  constexpr int VPR = D / VEC;         // 16-byte loads per row
-  constexpr int LD = D + 4;
-  for (int i = tid; i < ROWS * VPR; i += THREADS) {
-    const int r = i / VPR;
-    const int c = (i % VPR) * VEC;
-    float* d = dst + r * LD + c;
-    const int row = row0 + r;
-    float f[VEC];
-    if (row < rows) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(src + (size_t)row * D + c);
-      const T* e = reinterpret_cast<const T*>(&raw);
+  constexpr int VPR = W / VEC;         // 16-byte loads per row
+  constexpr int LD = W + 4;
+  const int d = RAGGED ? D : W;
+  if (!RAGGED || d % VEC == 0) {
+    for (int i = tid; i < ROWS * VPR; i += THREADS) {
+      const int r = i / VPR;
+      const int c = (i % VPR) * VEC;
+      float* dp = dst + r * LD + c;
+      const int row = row0 + r;
+      float f[VEC];
+      if (row < rows && (!RAGGED || c < d)) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(src + (size_t)row * d + c);
+        const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) f[j] = to_float<T>(e[j]);
-    } else {
+        for (int j = 0; j < VEC; ++j) f[j] = to_float<T>(e[j]);
+      } else {
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) f[j] = 0.f;
+        for (int j = 0; j < VEC; ++j) f[j] = 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < VEC; j += 4)
+        *reinterpret_cast<float4*>(dp + j) = make_float4(f[j], f[j + 1], f[j + 2], f[j + 3]);
     }
-#pragma unroll
-    for (int j = 0; j < VEC; j += 4)
-      *reinterpret_cast<float4*>(d + j) = make_float4(f[j], f[j + 1], f[j + 2], f[j + 3]);
+  } else {
+    for (int i = tid; i < ROWS * W; i += THREADS) {
+      const int r = i / W, c = i % W, row = row0 + r;
+      dst[r * LD + c] = row < rows && c < d ? to_float<T>(src[(size_t)row * d + c]) : 0.f;
+    }
   }
 }
 
-template <typename T, int D, int BQ, int BK>
-__global__ void __launch_bounds__(THREADS)
-flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o,
-                           float* __restrict__ lse, int H, int KV, int Sq, int Sk, int causal,
-                           int window, float scale) {
-  constexpr int LD = D + 4;
+// The fma block's work.  W: the width it computes at, D (RAGGED) or W
+// itself: the head dim.
+template <typename T, int W, int BQ, int BK, bool RAGGED>
+__device__ __forceinline__ void fwd_fma(const T* __restrict__ q, const T* __restrict__ k,
+                                        const T* __restrict__ v, T* __restrict__ o,
+                                        float* __restrict__ lse, int H, int KV, int Sq, int Sk,
+                                        int D, int causal, int window, float scale) {
+  constexpr int LD = W + 4;
   constexpr int LDP = BK + 4;  // row stride of the P tile, in floats
-  constexpr int NG = (D + 63) / 64;  // groups of 4 output columns per thread
+  constexpr int NG = (W + 63) / 64;  // groups of 4 output columns per thread
   constexpr int RQ = BQ / 16;  // query rows per thread
   constexpr int KJ = BK / 16;  // keys per thread in a k/v tile
   extern __shared__ float4 smem4[];
@@ -187,13 +210,14 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.z;
   const int kvh = h / (H / KV);
   const int q0 = qt * BQ;
+  const int d = RAGGED ? D : W;
 
-  const T* qp = q + (size_t)(b * H + h) * Sq * D;
-  const T* kp = k + (size_t)(b * KV + kvh) * Sk * D;
-  const T* vp = v + (size_t)(b * KV + kvh) * Sk * D;
-  T* op = o + (size_t)(b * H + h) * Sq * D;
+  const T* qp = q + (size_t)(b * H + h) * Sq * d;
+  const T* kp = k + (size_t)(b * KV + kvh) * Sk * d;
+  const T* vp = v + (size_t)(b * KV + kvh) * Sk * d;
+  T* op = o + (size_t)(b * H + h) * Sq * d;
 
-  load_tile<T, D, BQ>(sQ, qp, q0, Sq, tid);
+  load_tile<T, W, BQ, RAGGED>(sQ, qp, q0, Sq, d, tid);
 
   // k tiles this q tile can see: none above the diagonal, none before the window.
   const int nk = (Sk + BK - 1) / BK;
@@ -214,8 +238,8 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile's readers of sK, sV and sP are done
-    load_tile<T, D, BK>(sK, kp, k0, Sk, tid);
-    load_tile<T, D, BK>(sV, vp, k0, Sk, tid);
+    load_tile<T, W, BK, RAGGED>(sK, kp, k0, Sk, d, tid);
+    load_tile<T, W, BK, RAGGED>(sV, vp, k0, Sk, d, tid);
     __syncthreads();
 
     // s[i][j] = q[RQ*ty + i] . k[tx + 16*j]
@@ -225,14 +249,14 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < KJ; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
+    for (int c = 0; c < W; c += 4) {
       float4 qv[RQ], kv[KJ];
 #pragma unroll
       for (int i = 0; i < RQ; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(sQ + (RQ * ty + i) * LD + d);
+        qv[i] = *reinterpret_cast<const float4*>(sQ + (RQ * ty + i) * LD + c);
 #pragma unroll
       for (int j = 0; j < KJ; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(sK + (tx + 16 * j) * LD + d);
+        kv[j] = *reinterpret_cast<const float4*>(sK + (tx + 16 * j) * LD + c);
 #pragma unroll
       for (int i = 0; i < RQ; ++i)
 #pragma unroll
@@ -291,7 +315,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int jj = 0; jj < 4; ++jj) {
 #pragma unroll
         for (int g = 0; g < NG; ++g) {
-          if (D % 64 != 0 && 64 * g + 4 * tx >= D) continue;  // columns past D
+          if (W % 64 != 0 && 64 * g + 4 * tx >= W) continue;  // columns past W
           const float4 vv =
               *reinterpret_cast<const float4*>(sV + (j + jj) * LD + 64 * g + 4 * tx);
 #pragma unroll
@@ -314,43 +338,86 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = fmaxf(l[i], 1e-30f);
     // m is in the natural-log domain of the scaled scores here: lse = m + ln l.
     if (lse != nullptr && tx == 0) lse[(size_t)(b * H + h) * Sq + qpos] = m[i] + logf(denom);
-    T* orow = op + (size_t)qpos * D;
+    T* orow = op + (size_t)qpos * d;
 #pragma unroll
     for (int g = 0; g < NG; ++g) {
-      if (D % 64 != 0 && 64 * g + 4 * tx >= D) continue;
+      if (W % 64 != 0 && 64 * g + 4 * tx >= W) continue;
 #pragma unroll
       for (int c = 0; c < 4; ++c)
-        orow[64 * g + 4 * tx + c] = from_float<T>(acc[i][4 * g + c] / denom);
+        if (!RAGGED || 64 * g + 4 * tx + c < d)
+          orow[64 * g + 4 * tx + c] = from_float<T>(acc[i][4 * g + c] / denom);
     }
   }
 }
 
-template <typename T, int D>
+// Head dims 32, 64, 80, 128 and 256: the kernel at the head dim itself.
+template <typename T, int D, int BQ, int BK>
+__global__ void __launch_bounds__(THREADS)
+flash_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, T* __restrict__ o,
+                           float* __restrict__ lse, int H, int KV, int Sq, int Sk, int causal,
+                           int window, float scale) {
+  fwd_fma<T, D, BQ, BK, false>(q, k, v, o, lse, H, KV, Sq, Sk, D, causal, window, scale);
+}
+
+// Any other head dim D < W: loads and stores masked to D.  One block an SM
+// lets ptxas give a thread up to 255 registers: within the 128 that the
+// launch bounds alone leave it, the masked loads and stores spill.
+template <typename T, int W, int BQ, int BK>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attention_fwd_ragged_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                  const T* __restrict__ v, T* __restrict__ o,
+                                  float* __restrict__ lse, int H, int KV, int Sq, int Sk, int D,
+                                  int causal, int window, float scale) {
+  fwd_fma<T, W, BQ, BK, true>(q, k, v, o, lse, H, KV, Sq, Sk, D, causal, window, scale);
+}
+
+template <typename T, int W, bool RAGGED>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
-                   int KV, int Sq, int Sk, int causal, int window, cudaStream_t stream) {
-  constexpr int BQ = Tiles<D>::BQ, BK = Tiles<D>::BK;
-  constexpr int bytes = smem_bytes<D, BQ, BK>();
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_fwd_kernel<T, D, BQ, BK>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
+                   int KV, int Sq, int Sk, int D, int causal, int window, cudaStream_t stream) {
+  constexpr int BQ = Tiles<W>::BQ, BK = Tiles<W>::BK;
+  constexpr int bytes = smem_bytes<W, BQ, BK>();
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   const float scale = 1.0f / sqrtf((float)D);
-  flash_attention_fwd_kernel<T, D, BQ, BK><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, H, KV, Sq, Sk, causal, window, scale);
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  if constexpr (RAGGED) {
+    cudaError_t err = cudaFuncSetAttribute(flash_attention_fwd_ragged_kernel<T, W, BQ, BK>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    flash_attention_fwd_ragged_kernel<T, W, BQ, BK><<<grid, THREADS, bytes, stream>>>(
+        qt, kt, vt, static_cast<T*>(o), lse, H, KV, Sq, Sk, D, causal, window, scale);
+  } else {
+    cudaError_t err = cudaFuncSetAttribute(flash_attention_fwd_kernel<T, W, BQ, BK>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    flash_attention_fwd_kernel<T, W, BQ, BK><<<grid, THREADS, bytes, stream>>>(
+        qt, kt, vt, static_cast<T*>(o), lse, H, KV, Sq, Sk, causal, window, scale);
+  }
   return cudaGetLastError();
 }
 
+// Head dims 32, 64, 80, 128 and 256 have instances of their own; any other
+// D from 1 to 256 runs a RAGGED instance at the next of the widths 32, 64,
+// 128 and 256.
 template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                      int H, int KV, int Sq, int Sk, int D, int causal, int window,
                      cudaStream_t stream) {
-  if (D == 32) return launch<T, 32>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, stream);
-  if (D == 64) return launch<T, 64>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, stream);
-  if (D == 80) return launch<T, 80>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, stream);
-  if (D == 128) return launch<T, 128>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, stream);
-  if (D == 256) return launch<T, 256>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, stream);
-  return cudaErrorInvalidValue;
+#define REPRO_FMA_FWD(W, RAGGED) \
+  launch<T, W, RAGGED>(q, k, v, o, lse, B, H, KV, Sq, Sk, D, causal, window, stream)
+  if (D == 32) return REPRO_FMA_FWD(32, false);
+  if (D == 64) return REPRO_FMA_FWD(64, false);
+  if (D == 80) return REPRO_FMA_FWD(80, false);
+  if (D == 128) return REPRO_FMA_FWD(128, false);
+  if (D == 256) return REPRO_FMA_FWD(256, false);
+  if (D < 1 || D > 256) return cudaErrorInvalidValue;
+  if (D < 32) return REPRO_FMA_FWD(32, true);
+  if (D < 64) return REPRO_FMA_FWD(64, true);
+  if (D < 128) return REPRO_FMA_FWD(128, true);
+  return REPRO_FMA_FWD(256, true);
+#undef REPRO_FMA_FWD
 }
 
 // wgmma kernel.
@@ -369,19 +436,23 @@ template <int D> struct Smem {
 };
 }  // namespace wg
 
-template <typename T, int D>
+// W: the width the block computes at; the head dim D is W but in RAGGED
+// instances (D < W).  The maps' rows hold D values, so TMA fills the columns
+// past D of every box with zeros, which add exact zeros to S and give zero
+// columns of O that are not stored.
+template <typename T, int W, bool RAGGED>
 __global__ void __launch_bounds__(wg::THREADS, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                              const __grid_constant__ CUtensorMap map_k,
                              const __grid_constant__ CUtensorMap map_v, T* __restrict__ o,
-                             float* __restrict__ lse, int H, int KV, int Sq, int Sk, int causal,
-                             int window, float scale_log2) {
+                             float* __restrict__ lse, int H, int KV, int Sq, int Sk, int D,
+                             int causal, int window, float scale_log2) {
   using wg::BK;
   using wg::BQ;
   using wg::STAGES;
-  static_assert(D % 64 == 0, "whole 64-column boxes (head dim 80 has a kernel of its own)");
-  using S = wg::Smem<D>;
-  constexpr int CH = D / 64;  // 64-wide column boxes of a row
+  static_assert(W % 64 == 0, "whole 64-column boxes (width 80 has a kernel of its own)");
+  using S = wg::Smem<W>;
+  constexpr int CH = W / 64;  // 64-wide column boxes of a row
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = hopper::align_1024(smem_raw);
   uint8_t* sq = smem;
@@ -448,9 +519,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     const int row0 = wq0 + 16 * warp + lane / 4;  // this thread's rows: row0 and row0 + 8
     const int col0 = 2 * (lane % 4);              // and columns col0, col0 + 1 of each 8
 
-    float acc[D / 2];  // O: acc[4j + 2i + c] is row row0 + 8i, column 8j + col0 + c
+    float acc[W / 2];  // O: acc[4j + 2i + c] is row row0 + 8i, column 8j + col0 + c
 #pragma unroll
-    for (int n = 0; n < D / 2; ++n) acc[n] = 0.f;
+    for (int n = 0; n < W / 2; ++n) acc[n] = 0.f;
     float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 
     hopper::mbar_wait(q_full, 0);
@@ -474,7 +545,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         hopper::fence_regs(sc);
         hopper::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {  // box kk / 4, 32 bytes a k16 step in it
+        for (int kk = 0; kk < W / 16; ++kk) {  // box kk / 4, 32 bytes a k16 step in it
           const int step = (kk % 4) * 32;
           hopper::Wgmma<BK, T>::template ss<0>(
               sc, hopper::desc_sw128(qw + (kk / 4) * BQ * 128 + step, 16, 1024),
@@ -526,14 +597,14 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         uint32_t pa[BK / 16][4];
         hopper::to_a_frags<T>(pa, sc);
 #pragma unroll
-        for (int n = 0; n < D / 2; ++n) acc[n] *= alpha[(n / 2) % 2];
+        for (int n = 0; n < W / 2; ++n) acc[n] *= alpha[(n / 2) % 2];
 
         hopper::mbar_wait(&v_full[s], parity);
         hopper::fence_regs(acc);
         hopper::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)  // 16 keys, 16 rows of v's boxes, a step
-          hopper::Wgmma<D, T>::template rs<1>(
+          hopper::Wgmma<W, T>::template rs<1>(
               acc, pa[kk], hopper::desc_sw128(vs + kk * 2048, BK * 128, 1024), 1);
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
@@ -550,7 +621,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     }
-    T* op = o + (size_t)bh * Sq * D;
+    const int d = RAGGED ? D : W;
+    T* op = o + (size_t)bh * Sq * d;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int qpos = row0 + 8 * r;
@@ -561,21 +633,22 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       // the natural-log lse is (m + log2 l) * ln 2.
       if (lse != nullptr && (lane & 3) == 0)
         lse[(size_t)bh * Sq + qpos] = (m[r] + log2f(denom)) * 0.6931471805599453f;
-      T* orow = op + (size_t)qpos * D;
+      T* orow = op + (size_t)qpos * d;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<uint32_t*>(orow + 8 * j + col0) =
-            hopper::pack2<T>(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+      for (int j = 0; j < W / 8; ++j)
+        if (!RAGGED || 8 * j < d)  // D % 8 == 0: a pair of columns lies before D or past it
+          *reinterpret_cast<uint32_t*>(orow + 8 * j + col0) =
+              hopper::pack2<T>(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
     }
   }
 }
 
-template <typename T, int D>
+template <typename T, int W>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                         int H, int KV, int Sq, int Sk, int causal, int window,
+                         int H, int KV, int Sq, int Sk, int D, int causal, int window,
                          cudaStream_t stream) {
   constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int bytes = wg::Smem<D>::BYTES;
+  constexpr int bytes = wg::Smem<W>::BYTES;
   CUtensorMap map_q, map_k, map_v;
   cudaError_t err = hopper::make_map_3d(&map_q, q, bf16, D, Sq, (uint64_t)B * H, wg::BQ);
   if (err == cudaSuccess)
@@ -583,13 +656,20 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, f
   if (err == cudaSuccess)
     err = hopper::make_map_3d(&map_v, v, bf16, D, Sk, (uint64_t)B * KV, wg::BK);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_attention_wgmma_kernel<T, D>,
+    err = cudaFuncSetAttribute(D == W ? flash_attention_wgmma_kernel<T, W, false>
+                                      : flash_attention_wgmma_kernel<T, W, true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + wg::BQ - 1) / wg::BQ, H, B);
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
-  flash_attention_wgmma_kernel<T, D><<<grid, wg::THREADS, bytes, stream>>>(
-      map_q, map_k, map_v, static_cast<T*>(o), lse, H, KV, Sq, Sk, causal, window, scale_log2);
+  if (D == W)  // the head dims with widths of their own: stores unmasked, as before
+    flash_attention_wgmma_kernel<T, W, false><<<grid, wg::THREADS, bytes, stream>>>(
+        map_q, map_k, map_v, static_cast<T*>(o), lse, H, KV, Sq, Sk, D, causal, window,
+        scale_log2);
+  else
+    flash_attention_wgmma_kernel<T, W, true><<<grid, wg::THREADS, bytes, stream>>>(
+        map_q, map_k, map_v, static_cast<T*>(o), lse, H, KV, Sq, Sk, D, causal, window,
+        scale_log2);
   return cudaGetLastError();
 }
 
@@ -737,8 +817,8 @@ flash_attention_d80_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                                const __grid_constant__ CUtensorMap map_k16,
                                const __grid_constant__ CUtensorMap map_v,
                                const __grid_constant__ CUtensorMap map_v16, T* __restrict__ o,
-                               float* __restrict__ lse, int H, int KV, int Sq, int Sk, int causal,
-                               int window, float scale_log2) {
+                               float* __restrict__ lse, int H, int KV, int Sq, int Sk, int D,
+                               int causal, int window, float scale_log2) {
   using wg80::BK;
   using wg80::BQ;
   using wg80::STAGES;
@@ -833,7 +913,7 @@ flash_attention_d80_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       st.l[r] += __shfl_xor_sync(0xffffffffu, st.l[r], 1);
       st.l[r] += __shfl_xor_sync(0xffffffffu, st.l[r], 2);
     }
-    T* op = o + (size_t)bh * Sq * 80;
+    T* op = o + (size_t)bh * Sq * D;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int qpos = row0 + 8 * r;
@@ -843,51 +923,53 @@ flash_attention_d80_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       // The natural-log lse of the scaled scores: (m scale_log2 + log2 l) ln 2.
       if (lse != nullptr && (lane & 3) == 0)
         lse[(size_t)bh * Sq + qpos] = (st.m[r] * scale_log2 + log2f(denom)) * 0.6931471805599453f;
-      T* orow = op + (size_t)qpos * 80;
+      T* orow = op + (size_t)qpos * D;
 #pragma unroll
       for (int j = 0; j < 10; ++j)
-        *reinterpret_cast<uint32_t*>(orow + 8 * j + col0) =
-            hopper::pack2<T>(st.acc[4 * j + 2 * r] * inv, st.acc[4 * j + 2 * r + 1] * inv);
+        if (8 * j < D)  // D 72: the narrow box's last 8 columns are TMA's zeros
+          *reinterpret_cast<uint32_t*>(orow + 8 * j + col0) =
+              hopper::pack2<T>(st.acc[4 * j + 2 * r] * inv, st.acc[4 * j + 2 * r + 1] * inv);
     }
   }
 }
 
 template <typename T>
 cudaError_t launch_wgmma80(const void* q, const void* k, const void* v, void* o, float* lse,
-                           int B, int H, int KV, int Sq, int Sk, int causal, int window,
+                           int B, int H, int KV, int Sq, int Sk, int D, int causal, int window,
                            cudaStream_t stream) {
   constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
   CUtensorMap mq, mq16, mk, mk16, mv, mv16;
-  cudaError_t err = hopper::make_maps_d80(&mq, &mq16, q, bf16, Sq, (uint64_t)B * H, wg80::BQ);
+  cudaError_t err = hopper::make_maps_d80(&mq, &mq16, q, bf16, D, Sq, (uint64_t)B * H, wg80::BQ);
   if (err == cudaSuccess)
-    err = hopper::make_maps_d80(&mk, &mk16, k, bf16, Sk, (uint64_t)B * KV, wg80::BK);
+    err = hopper::make_maps_d80(&mk, &mk16, k, bf16, D, Sk, (uint64_t)B * KV, wg80::BK);
   if (err == cudaSuccess)
-    err = hopper::make_maps_d80(&mv, &mv16, v, bf16, Sk, (uint64_t)B * KV, wg80::BK);
+    err = hopper::make_maps_d80(&mv, &mv16, v, bf16, D, Sk, (uint64_t)B * KV, wg80::BK);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(flash_attention_d80_wgmma_kernel<T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, wg80::SMEM_BYTES);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + wg80::BQ - 1) / wg80::BQ, H, B);
-  const float scale_log2 = 1.4426950408889634f / sqrtf(80.f);
+  const float scale_log2 = 1.4426950408889634f / sqrtf((float)D);
   flash_attention_d80_wgmma_kernel<T><<<grid, wg80::THREADS, wg80::SMEM_BYTES, stream>>>(
-      mq, mq16, mk, mk16, mv, mv16, static_cast<T*>(o), lse, H, KV, Sq, Sk, causal, window,
+      mq, mq16, mk, mk16, mv, mv16, static_cast<T*>(o), lse, H, KV, Sq, Sk, D, causal, window,
       scale_log2);
   return cudaGetLastError();
 }
 
+// Any D that is a multiple of 8 (TMA's 16-byte row stride) up to 256, at
+// the next of the widths 64, 80, 128 and 256.
 template <typename T>
 cudaError_t launch_wgmma_d(const void* q, const void* k, const void* v, void* o, float* lse,
                            int B, int H, int KV, int Sq, int Sk, int D, int causal, int window,
                            cudaStream_t stream) {
-  if (D == 64)
-    return launch_wgmma<T, 64>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, stream);
-  if (D == 80)
-    return launch_wgmma80<T>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, stream);
-  if (D == 128)
-    return launch_wgmma<T, 128>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, stream);
-  if (D == 256)
-    return launch_wgmma<T, 256>(q, k, v, o, lse, B, H, KV, Sq, Sk, causal, window, stream);
-  return cudaErrorInvalidValue;
+  if (D < 8 || D > 256 || D % 8) return cudaErrorInvalidValue;
+  if (D <= 64)
+    return launch_wgmma<T, 64>(q, k, v, o, lse, B, H, KV, Sq, Sk, D, causal, window, stream);
+  if (D <= 80)
+    return launch_wgmma80<T>(q, k, v, o, lse, B, H, KV, Sq, Sk, D, causal, window, stream);
+  if (D <= 128)
+    return launch_wgmma<T, 128>(q, k, v, o, lse, B, H, KV, Sq, Sk, D, causal, window, stream);
+  return launch_wgmma<T, 256>(q, k, v, o, lse, B, H, KV, Sq, Sk, D, causal, window, stream);
 }
 
 bool valid(int B, int H, int KV, int Sq, int Sk, int window) {
@@ -902,8 +984,8 @@ bool valid(int B, int H, int KV, int Sq, int Sk, int window) {
 // is stored), or a (B, H, Sq) fp32 array that gets each query row's
 // log-sum-exp of its scaled, masked scores, in natural log on both tilings
 // (the backward, csrc/flash_attention_bwd.cu, recomputes P from it).
-// dtype: 0 float32, 1 float16, 2 bfloat16.  D: 64, 80, 128 or 256 (and 32
-// on the fma tiling; the wgmma entry refuses it).  Each
+// dtype: 0 float32, 1 float16, 2 bfloat16.  D: 1 to 256 (a multiple of 8
+// on the wgmma tiling).  Each
 // entry point launches one tiling on `stream` and returns a cudaError_t (0
 // on success); a shape or dtype its tiling does not take returns
 // cudaErrorInvalidValue.

@@ -17,8 +17,12 @@
 // fp32; dq, dk, dv in the input dtype (fp32, fp16 or bf16); all sums fp32.
 // The masks are the forward's: query and key positions both count from 0,
 // a row q sees keys k < Sk with k <= q (causal) and k > q - window
-// (window > 0).  Head dims 64, 80, 128 and 256, and 32 on the fma tiling
-// (the twin of examples/train_lm_topoopt.py).  Rows that see no key are refused
+// (window > 0).  Every head dim from 1 to 256, at the forward's widths
+// (csrc/flash_attention.cu): wgmma at D % 8 == 0, computed at W = 64, 80,
+// 128 or 256 with TMA's zeros past D (dk, dv and dq stored to D; at W = 256
+// the partials of dk and dv are (B, KV, Sk, D)), fma at any D, at W = D for
+// 32, 64, 80, 128 and 256 and in ragged instances at the next of 32, 64, 128
+// and 256 (one block an SM).  Rows that see no key are refused
 // by the wrapper (kernels/flash_attention.py), so P never needs the
 // forward's mean-of-v repair.
 //
@@ -38,7 +42,7 @@
 // Two tilings, one C entry point each; kernels/flash_attention.py's
 // `attention_bwd_tiling` chooses among them:
 //
-// * wgmma (bf16/fp16; D = 64, 80, 128 or 256; every training step of the
+// * wgmma (bf16/fp16; W = 64, 80, 128 or 256; every training step of the
 //   card's bf16 models).  The dk/dv and dq kernels on the tensor cores, built like
 //   the wgmma forward: blocks of three warpgroups, a producer at 24
 //   registers (setmaxnreg) that feeds a 2-stage ring of 64-row tiles by TMA
@@ -162,11 +166,12 @@ namespace {
 
 constexpr int THREADS = 256;  // 16 x 16 threads
 
-// The fma tiling's tiles: 64 query rows and 64 keys, 32 at D = 256, where
+// The fma tiling's tiles at width W (the head dim, or the width a ragged
+// head dim is computed at): 64 query rows and 64 keys, 32 at W = 256, where
 // 64-row fp32 tiles would take 294 KB of shared memory (as the forward's
-// fma tiling cuts its tiles at D = 256).
-template <int D> struct Fma {
-  static constexpr int BQ = D == 256 ? 32 : 64;  // query rows of a tile
+// fma tiling cuts its tiles at W = 256).
+template <int W> struct Fma {
+  static constexpr int BQ = W == 256 ? 32 : 64;  // query rows of a tile
   static constexpr int BK = BQ;                  // keys of a tile
   static constexpr int RQ = BQ / 16;             // query rows a thread owns in S, dP and dQ
   static constexpr int KJ = BK / 16;             // keys a thread owns in S and dP
@@ -174,13 +179,14 @@ template <int D> struct Fma {
   static constexpr int LDP = BK + 4;             // row stride of the P and dS tiles, in floats
 };
 // Blocks of the dk/dv and dq kernels a launch asks of an SM (the shared
-// memory of a block: 72 and 55 KB at D = 32, 104 and 87 KB at D = 64, 119 and
-// 102 KB at D = 80, 170 and 153 KB at D = 128, 139 and 135 KB at D = 256),
+// memory of a block: 72 and 55 KB at W = 32, 104 and 87 KB at W = 64, 119 and
+// 102 KB at W = 80, 170 and 153 KB at W = 128, 139 and 135 KB at W = 256),
 // which sets the register budget ptxas is given: 128 a thread at 2, 255 at
-// 1.  The dk/dv kernel at D = 32 spills at 128 (its column guard, which
-// D = 64 compiles out), so it asks for 1.
-#define DKDV_BLOCKS_PER_SM(D) ((D) == 64 ? 2 : 1)
-#define DQ_BLOCKS_PER_SM(D) ((D) <= 64 ? 2 : 1)
+// 1.  The dk/dv kernel at W = 32 spills at 128 (its column guard, which
+// W = 64 compiles out), so it asks for 1, as do the ragged ones (their
+// masked loads and stores spill at 128).
+#define DKDV_BLOCKS_PER_SM(W, RAGGED) ((W) == 64 && !(RAGGED) ? 2 : 1)
+#define DQ_BLOCKS_PER_SM(W, RAGGED) ((W) <= 64 && !(RAGGED) ? 2 : 1)
 
 template <typename T> __device__ __forceinline__ float to_float(T x);
 template <> __device__ __forceinline__ float to_float<float>(float x) { return x; }
@@ -198,45 +204,56 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
   return __float2bfloat16_rn(x);
 }
 
-template <int D>
+template <int W>
 constexpr int dkdv_smem_bytes() {  // K, V, Q, dO tiles; P, dS; lse, delta
-  using F = Fma<D>;
-  return (2 * (F::BK + F::BQ) * (D + 4) + 2 * F::BQ * F::LDP + 2 * F::BQ) * (int)sizeof(float);
+  using F = Fma<W>;
+  return (2 * (F::BK + F::BQ) * (W + 4) + 2 * F::BQ * F::LDP + 2 * F::BQ) * (int)sizeof(float);
 }
 
-template <int D>
+template <int W>
 constexpr int dq_smem_bytes() {  // Q, dO, K, V tiles; dS; lse, delta
-  using F = Fma<D>;
-  return (2 * (F::BK + F::BQ) * (D + 4) + F::BQ * F::LDP + 2 * F::BQ) * (int)sizeof(float);
+  using F = Fma<W>;
+  return (2 * (F::BK + F::BQ) * (W + 4) + F::BQ * F::LDP + 2 * F::BQ) * (int)sizeof(float);
 }
 
 // Copies rows [row0, row0 + ROWS) of a contiguous (rows, D) matrix into
-// shared memory as fp32 with row stride D + 4; rows at or past `rows` are
-// zero.
-template <typename T, int D, int ROWS>
+// shared memory as fp32, W columns a row with row stride W + 4; rows at or
+// past `rows` are zero.  D is W but in RAGGED instances (any D < W), whose
+// columns at or past D are zero too, so they add exact zeros to every
+// product: 16-byte loads where a row of D values is a whole number of them,
+// else one value a thread at a time.
+template <typename T, int W, int ROWS, bool RAGGED>
 __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int row0,
-                                          int rows, int tid) {
+                                          int rows, int D, int tid) {
   constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load: 4 or 8
-  constexpr int VPR = D / VEC;         // 16-byte loads per row
-  constexpr int LD = D + 4;
-  for (int i = tid; i < ROWS * VPR; i += THREADS) {
-    const int r = i / VPR;
-    const int c = (i % VPR) * VEC;
-    float* d = dst + r * LD + c;
-    const int row = row0 + r;
-    float f[VEC];
-    if (row < rows) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(src + (size_t)row * D + c);
-      const T* e = reinterpret_cast<const T*>(&raw);
+  constexpr int VPR = W / VEC;         // 16-byte loads per row
+  constexpr int LD = W + 4;
+  const int d = RAGGED ? D : W;
+  if (!RAGGED || d % VEC == 0) {
+    for (int i = tid; i < ROWS * VPR; i += THREADS) {
+      const int r = i / VPR;
+      const int c = (i % VPR) * VEC;
+      float* dp = dst + r * LD + c;
+      const int row = row0 + r;
+      float f[VEC];
+      if (row < rows && (!RAGGED || c < d)) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(src + (size_t)row * d + c);
+        const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) f[j] = to_float<T>(e[j]);
-    } else {
+        for (int j = 0; j < VEC; ++j) f[j] = to_float<T>(e[j]);
+      } else {
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) f[j] = 0.f;
+        for (int j = 0; j < VEC; ++j) f[j] = 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < VEC; j += 4)
+        *reinterpret_cast<float4*>(dp + j) = make_float4(f[j], f[j + 1], f[j + 2], f[j + 3]);
     }
-#pragma unroll
-    for (int j = 0; j < VEC; j += 4)
-      *reinterpret_cast<float4*>(d + j) = make_float4(f[j], f[j + 1], f[j + 2], f[j + 3]);
+  } else {
+    for (int i = tid; i < ROWS * W; i += THREADS) {
+      const int r = i / W, c = i % W, row = row0 + r;
+      dst[r * LD + c] = row < rows && c < d ? to_float<T>(src[(size_t)row * d + c]) : 0.f;
+    }
   }
 }
 
@@ -247,18 +264,18 @@ __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ 
   if (tid < BQ) dst[tid] = row0 + tid < rows ? src[row0 + tid] : 0.f;
 }
 
-// acc[i][j] = a[RQ*ty + i] . b[tx + 16*j] over D, for two (rows, D) tiles in
-// shared memory with row stride D + 4.
-template <int D, int RQ = Fma<D>::RQ, int KJ = Fma<D>::KJ>
+// acc[i][j] = a[RQ*ty + i] . b[tx + 16*j] over W, for two (rows, W) tiles in
+// shared memory with row stride W + 4.
+template <int W, int RQ = Fma<W>::RQ, int KJ = Fma<W>::KJ>
 __device__ __forceinline__ void dot_tile(float (&acc)[RQ][KJ], const float* a, const float* b,
                                          int ty, int tx) {
-  constexpr int LD = D + 4;
+  constexpr int LD = W + 4;
 #pragma unroll
   for (int i = 0; i < RQ; ++i)
 #pragma unroll
     for (int j = 0; j < KJ; ++j) acc[i][j] = 0.f;
 #pragma unroll 2
-  for (int d = 0; d < D; d += 4) {
+  for (int d = 0; d < W; d += 4) {
     float4 av[RQ], bv[KJ];
 #pragma unroll
     for (int i = 0; i < RQ; ++i)
@@ -282,15 +299,15 @@ __device__ __forceinline__ void dot_tile(float (&acc)[RQ][KJ], const float* a, c
 // P and dS of this thread's entries (rows RQ*ty + i, keys tx + 16*j) to sP
 // (if given) and sdS.  sQ, sK, sdO and sV hold the tiles, sLse and sDelta
 // the query rows' lse and delta.
-template <int D>
+template <int W>
 __device__ __forceinline__ void p_and_ds(float* sP, float* sdS, const float* sQ, const float* sK,
                                          const float* sdO, const float* sV, const float* sLse,
                                          const float* sDelta, int q0, int k0, int Sq, int Sk,
                                          int causal, int window, float scale, int ty, int tx) {
-  constexpr int RQ = Fma<D>::RQ, KJ = Fma<D>::KJ, LDP = Fma<D>::LDP;
+  constexpr int RQ = Fma<W>::RQ, KJ = Fma<W>::KJ, LDP = Fma<W>::LDP;
   float s[RQ][KJ], dp[RQ][KJ];
-  dot_tile<D>(s, sQ, sK, ty, tx);
-  dot_tile<D>(dp, sdO, sV, ty, tx);
+  dot_tile<W>(s, sQ, sK, ty, tx);
+  dot_tile<W>(dp, sdO, sV, ty, tx);
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
     const int r = RQ * ty + i;
@@ -309,10 +326,12 @@ __device__ __forceinline__ void p_and_ds(float* sP, float* sdS, const float* sQ,
   }
 }
 
-template <typename T, int D>
+// W: the width of the launch's other kernels, D <= W the head dim (the
+// loop unrolled over W keeps a lane's loads in flight together).
+template <typename T, int W>
 __global__ void __launch_bounds__(THREADS)
 delta_kernel(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ delta,
-             long rows) {
+             long rows, int D) {
   const long row = ((long)blockIdx.x * THREADS + threadIdx.x) / 32;  // one warp a row
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;  // the whole warp leaves together
@@ -320,21 +339,23 @@ delta_kernel(const T* __restrict__ o, const T* __restrict__ dout, float* __restr
   const T* drow = dout + row * D;
   float sum = 0.f;
 #pragma unroll
-  for (int c = lane; c < D; c += 32) sum = fmaf(to_float<T>(orow[c]), to_float<T>(drow[c]), sum);
+  for (int c = lane; c < W; c += 32)
+    if (c < D) sum = fmaf(to_float<T>(orow[c]), to_float<T>(drow[c]), sum);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
   if (lane == 0) delta[row] = sum;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS, DKDV_BLOCKS_PER_SM(D))
+// W: the width the block computes at, D (RAGGED) or W itself: the head dim.
+template <typename T, int W, bool RAGGED>
+__global__ void __launch_bounds__(THREADS, DKDV_BLOCKS_PER_SM(W, RAGGED))
 dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
             const T* __restrict__ dout, const float* __restrict__ lse,
             const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int H,
-            int KV, int Sq, int Sk, int causal, int window, float scale) {
-  constexpr int BQ = Fma<D>::BQ, BK = Fma<D>::BK, RK = Fma<D>::RK, LDP = Fma<D>::LDP;
-  constexpr int LD = D + 4;
-  constexpr int NC = (D + 63) / 64;  // groups of 4 columns a thread owns in dK and dV
+            int KV, int Sq, int Sk, int D, int causal, int window, float scale) {
+  constexpr int BQ = Fma<W>::BQ, BK = Fma<W>::BK, RK = Fma<W>::RK, LDP = Fma<W>::LDP;
+  constexpr int LD = W + 4;
+  constexpr int NC = (W + 63) / 64;  // groups of 4 columns a thread owns in dK and dV
   extern __shared__ float4 smem4[];
   float* sK = reinterpret_cast<float*>(smem4);
   float* sV = sK + BK * LD;
@@ -352,10 +373,11 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
   const int g = H / KV;
-  const size_t kv_off = (size_t)(b * KV + kvh) * Sk * D;
+  const int d = RAGGED ? D : W;
+  const size_t kv_off = (size_t)(b * KV + kvh) * Sk * d;
 
-  load_tile<T, D, BK>(sK, k + kv_off, k0, Sk, tid);
-  load_tile<T, D, BK>(sV, v + kv_off, k0, Sk, tid);
+  load_tile<T, W, BK, RAGGED>(sK, k + kv_off, k0, Sk, d, tid);
+  load_tile<T, W, BK, RAGGED>(sV, v + kv_off, k0, Sk, d, tid);
 
   // Query tiles that see a key of this tile: none above it (causal), none
   // whose rows are all past the window of its last key.
@@ -371,17 +393,17 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
 
   for (int r = 0; r < g; ++r) {  // the group's query heads, in order
     const size_t bh = (size_t)b * H + kvh * g + r;
-    const T* qp = q + bh * Sq * D;
-    const T* dop = dout + bh * Sq * D;
+    const T* qp = q + bh * Sq * d;
+    const T* dop = dout + bh * Sq * d;
     for (int qt = qt_begin; qt < qt_end; ++qt) {
       const int q0 = qt * BQ;
       __syncthreads();  // the previous tile's readers are done
-      load_tile<T, D, BQ>(sQ, qp, q0, Sq, tid);
-      load_tile<T, D, BQ>(sdO, dop, q0, Sq, tid);
+      load_tile<T, W, BQ, RAGGED>(sQ, qp, q0, Sq, d, tid);
+      load_tile<T, W, BQ, RAGGED>(sdO, dop, q0, Sq, d, tid);
       load_rows<BQ>(sLse, lse + bh * Sq, q0, Sq, tid);
       load_rows<BQ>(sDelta, delta + bh * Sq, q0, Sq, tid);
       __syncthreads();
-      p_and_ds<D>(sP, sdS, sQ, sK, sdO, sV, sLse, sDelta, q0, k0, Sq, Sk, causal, window, scale,
+      p_and_ds<W>(sP, sdS, sQ, sK, sdO, sV, sLse, sDelta, q0, k0, Sq, Sk, causal, window, scale,
                   ty, tx);
       __syncthreads();
       // dV[kr][c] += sum_i P[i][kr] dO[i][c];  dK[kr][c] += sum_i dS[i][kr] Q[i][c]
@@ -401,7 +423,7 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
         }
 #pragma unroll
         for (int c = 0; c < NC; ++c) {
-          if (D % 64 != 0 && 64 * c + 4 * tx >= D) continue;  // columns past D
+          if (W % 64 != 0 && 64 * c + 4 * tx >= W) continue;  // columns past W
           const float4 dov = *reinterpret_cast<const float4*>(sdO + i * LD + 64 * c + 4 * tx);
           const float4 qv = *reinterpret_cast<const float4*>(sQ + i * LD + 64 * c + 4 * tx);
 #pragma unroll
@@ -424,13 +446,14 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   for (int kk = 0; kk < RK; ++kk) {
     const int kpos = k0 + RK * ty + kk;
     if (kpos >= Sk) continue;
-    T* dkrow = dk + kv_off + (size_t)kpos * D;
-    T* dvrow = dv + kv_off + (size_t)kpos * D;
+    T* dkrow = dk + kv_off + (size_t)kpos * d;
+    T* dvrow = dv + kv_off + (size_t)kpos * d;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      if (D % 64 != 0 && 64 * c + 4 * tx >= D) continue;
+      if (W % 64 != 0 && 64 * c + 4 * tx >= W) continue;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
+        if (RAGGED && 64 * c + 4 * tx + e >= d) continue;
         dkrow[64 * c + 4 * tx + e] = from_float<T>(dk_acc[kk][4 * c + e] * scale);
         dvrow[64 * c + 4 * tx + e] = from_float<T>(dv_acc[kk][4 * c + e]);
       }
@@ -438,15 +461,15 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS, DQ_BLOCKS_PER_SM(D))
+template <typename T, int W, bool RAGGED>
+__global__ void __launch_bounds__(THREADS, DQ_BLOCKS_PER_SM(W, RAGGED))
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           const T* __restrict__ dout, const float* __restrict__ lse,
           const float* __restrict__ delta, T* __restrict__ dq, int H, int KV, int Sq, int Sk,
-          int causal, int window, float scale) {
-  constexpr int BQ = Fma<D>::BQ, BK = Fma<D>::BK, RQ = Fma<D>::RQ, LDP = Fma<D>::LDP;
-  constexpr int LD = D + 4;
-  constexpr int NC = (D + 63) / 64;  // groups of 4 columns a thread owns in dQ
+          int D, int causal, int window, float scale) {
+  constexpr int BQ = Fma<W>::BQ, BK = Fma<W>::BK, RQ = Fma<W>::RQ, LDP = Fma<W>::LDP;
+  constexpr int LD = W + 4;
+  constexpr int NC = (W + 63) / 64;  // groups of 4 columns a thread owns in dQ
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
   float* sdO = sQ + BQ * LD;
@@ -463,10 +486,11 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const size_t bh = (size_t)b * H + h;
-  const size_t kv_off = (size_t)(b * KV + h / (H / KV)) * Sk * D;
+  const int d = RAGGED ? D : W;
+  const size_t kv_off = (size_t)(b * KV + h / (H / KV)) * Sk * d;
 
-  load_tile<T, D, BQ>(sQ, q + bh * Sq * D, q0, Sq, tid);
-  load_tile<T, D, BQ>(sdO, dout + bh * Sq * D, q0, Sq, tid);
+  load_tile<T, W, BQ, RAGGED>(sQ, q + bh * Sq * d, q0, Sq, d, tid);
+  load_tile<T, W, BQ, RAGGED>(sdO, dout + bh * Sq * d, q0, Sq, d, tid);
   load_rows<BQ>(sLse, lse + bh * Sq, q0, Sq, tid);
   load_rows<BQ>(sDelta, delta + bh * Sq, q0, Sq, tid);
 
@@ -484,10 +508,10 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile's readers of sK, sV and sdS are done
-    load_tile<T, D, BK>(sK, k + kv_off, k0, Sk, tid);
-    load_tile<T, D, BK>(sV, v + kv_off, k0, Sk, tid);
+    load_tile<T, W, BK, RAGGED>(sK, k + kv_off, k0, Sk, d, tid);
+    load_tile<T, W, BK, RAGGED>(sV, v + kv_off, k0, Sk, d, tid);
     __syncthreads();
-    p_and_ds<D>(nullptr, sdS, sQ, sK, sdO, sV, sLse, sDelta, q0, k0, Sq, Sk, causal, window,
+    p_and_ds<W>(nullptr, sdS, sQ, sK, sdO, sV, sLse, sDelta, q0, k0, Sq, Sk, causal, window,
                 scale, ty, tx);
     __syncthreads();
     // dQ[RQ*ty + i][64c + 4tx + e] += sum_j dS[RQ*ty + i][j] K[j][64c + 4tx + e]
@@ -501,7 +525,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
       for (int jj = 0; jj < 4; ++jj) {
 #pragma unroll
         for (int c = 0; c < NC; ++c) {
-          if (D % 64 != 0 && 64 * c + 4 * tx >= D) continue;  // columns past D
+          if (W % 64 != 0 && 64 * c + 4 * tx >= W) continue;  // columns past W
           const float4 kv = *reinterpret_cast<const float4*>(sK + (j + jj) * LD + 64 * c + 4 * tx);
 #pragma unroll
           for (int i = 0; i < RQ; ++i) {
@@ -520,37 +544,38 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   for (int i = 0; i < RQ; ++i) {
     const int qpos = q0 + RQ * ty + i;
     if (qpos >= Sq) continue;
-    T* dqrow = dq + bh * Sq * D + (size_t)qpos * D;
+    T* dqrow = dq + bh * Sq * d + (size_t)qpos * d;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      if (D % 64 != 0 && 64 * c + 4 * tx >= D) continue;
+      if (W % 64 != 0 && 64 * c + 4 * tx >= W) continue;
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        dqrow[64 * c + 4 * tx + e] = from_float<T>(acc[i][4 * c + e] * scale);
+        if (!RAGGED || 64 * c + 4 * tx + e < d)
+          dqrow[64 * c + 4 * tx + e] = from_float<T>(acc[i][4 * c + e] * scale);
     }
   }
 }
 
-template <typename T, int D>
-cudaError_t launch_delta(const void* o, const void* dout, float* delta, long rows,
+template <typename T, int W>
+cudaError_t launch_delta(const void* o, const void* dout, float* delta, long rows, int D,
                          cudaStream_t stream) {
-  delta_kernel<T, D><<<(unsigned)((rows + THREADS / 32 - 1) / (THREADS / 32)), THREADS, 0,
+  delta_kernel<T, W><<<(unsigned)((rows + THREADS / 32 - 1) / (THREADS / 32)), THREADS, 0,
                        stream>>>(static_cast<const T*>(o), static_cast<const T*>(dout), delta,
-                                 rows);
+                                 rows, D);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int W, bool RAGGED>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
                    const float* lse, void* dq, void* dk, void* dv, float* delta, int B, int H,
-                   int KV, int Sq, int Sk, int causal, int window, cudaStream_t stream) {
-  constexpr int BQ = Fma<D>::BQ, BK = Fma<D>::BK;
-  constexpr int dkdv_bytes = dkdv_smem_bytes<D>(), dq_bytes = dq_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(dkdv_kernel<T, D>,
+                   int KV, int Sq, int Sk, int D, int causal, int window, cudaStream_t stream) {
+  constexpr int BQ = Fma<W>::BQ, BK = Fma<W>::BK;
+  constexpr int dkdv_bytes = dkdv_smem_bytes<W>(), dq_bytes = dq_smem_bytes<W>();
+  cudaError_t err = cudaFuncSetAttribute(dkdv_kernel<T, W, RAGGED>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_bytes);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               dq_bytes);
+    err = cudaFuncSetAttribute(dq_kernel<T, W, RAGGED>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
   if (err != cudaSuccess) return err;
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
@@ -558,38 +583,39 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
   const T* dot = static_cast<const T*>(dout);
   const float scale = 1.0f / sqrtf((float)D);
 
-  err = launch_delta<T, D>(o, dout, delta, (long)B * H * Sq, stream);
+  err = launch_delta<T, W>(o, dout, delta, (long)B * H * Sq, D, stream);
   if (err != cudaSuccess) return err;
-  dkdv_kernel<T, D><<<dim3((Sk + BK - 1) / BK, KV, B), THREADS, dkdv_bytes, stream>>>(
-      qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), H, KV, Sq, Sk,
+  dkdv_kernel<T, W, RAGGED><<<dim3((Sk + BK - 1) / BK, KV, B), THREADS, dkdv_bytes, stream>>>(
+      qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), H, KV, Sq, Sk, D,
       causal, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dq_kernel<T, D><<<dim3((Sq + BQ - 1) / BQ, H, B), THREADS, dq_bytes, stream>>>(
-      qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), H, KV, Sq, Sk, causal, window, scale);
+  dq_kernel<T, W, RAGGED><<<dim3((Sq + BQ - 1) / BQ, H, B), THREADS, dq_bytes, stream>>>(
+      qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), H, KV, Sq, Sk, D, causal, window, scale);
   return cudaGetLastError();
 }
 
+// Head dims 32, 64, 80, 128 and 256 have instances of their own; any other
+// D from 1 to 256 runs a RAGGED instance at the next of the widths 32, 64,
+// 128 and 256 (as the forward's fma tiling).
 template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v, const void* o, const void* dout,
                      const float* lse, void* dq, void* dk, void* dv, float* delta, int B, int H,
                      int KV, int Sq, int Sk, int D, int causal, int window, cudaStream_t stream) {
-  if (D == 32)
-    return launch<T, 32>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, KV, Sq, Sk, causal,
-                         window, stream);
-  if (D == 64)
-    return launch<T, 64>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, KV, Sq, Sk, causal,
-                         window, stream);
-  if (D == 80)
-    return launch<T, 80>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, KV, Sq, Sk, causal,
-                         window, stream);
-  if (D == 128)
-    return launch<T, 128>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, KV, Sq, Sk, causal,
-                          window, stream);
-  if (D == 256)
-    return launch<T, 256>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, KV, Sq, Sk, causal,
-                          window, stream);
-  return cudaErrorInvalidValue;
+#define REPRO_FMA_BWD(W, RAGGED)                                                                \
+  launch<T, W, RAGGED>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, KV, Sq, Sk, D, causal, \
+                       window, stream)
+  if (D == 32) return REPRO_FMA_BWD(32, false);
+  if (D == 64) return REPRO_FMA_BWD(64, false);
+  if (D == 80) return REPRO_FMA_BWD(80, false);
+  if (D == 128) return REPRO_FMA_BWD(128, false);
+  if (D == 256) return REPRO_FMA_BWD(256, false);
+  if (D < 1 || D > 256) return cudaErrorInvalidValue;
+  if (D < 32) return REPRO_FMA_BWD(32, true);
+  if (D < 64) return REPRO_FMA_BWD(64, true);
+  if (D < 128) return REPRO_FMA_BWD(128, true);
+  return REPRO_FMA_BWD(256, true);
+#undef REPRO_FMA_BWD
 }
 
 // wgmma tiling.
@@ -645,22 +671,26 @@ __device__ __forceinline__ void pass_turn(int warpgroup) {
 }
 }  // namespace wg
 
-template <typename T, int D>
+// W: the width the block computes at (64, 128 or 256); D <= W the head dim.
+// The maps' rows hold D values, so TMA fills the columns past D of every box
+// with zeros: they add exact zeros to S^T and dP^T and give zero columns of
+// dK and dV, which are not stored.
+template <typename T, int W>
 __global__ void __launch_bounds__(wg::THREADS, 1)
 dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                   const __grid_constant__ CUtensorMap map_k,
                   const __grid_constant__ CUtensorMap map_v,
                   const __grid_constant__ CUtensorMap map_do, const float* __restrict__ lse,
                   const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                  float* __restrict__ part, int H, int KV, int Sq, int Sk, int causal, int window,
-                  int heads_per, float scale, float scale_log2) {
+                  float* __restrict__ part, int H, int KV, int Sq, int Sk, int D, int causal,
+                  int window, int heads_per, float scale, float scale_log2) {
   using wg::BN;
   using wg::STAGES;
-  using S = wg::Smem<D>;
-  using C = wg::Cfg<D>;
+  using S = wg::Smem<W>;
+  using C = wg::Cfg<W>;
   constexpr int BM = C::BM;
   constexpr int NW = C::NW;
-  constexpr int CH = D / 64;  // 64-wide column boxes of a row
+  constexpr int CH = W / 64;  // 64-wide column boxes of a row
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = hopper::align_1024(smem_raw);
   uint8_t* sk = smem;                  // K: the block's 128 keys
@@ -788,12 +818,12 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
           hopper::fence_regs(dpt);
           hopper::wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < D / 16; ++kk)
+          for (int kk = 0; kk < W / 16; ++kk)
             hopper::Wgmma<BN, T>::template ss<0>(st, wg::kmajor<BM>(kw, kk),
                                                  wg::kmajor<BN>(qs, kk), kk > 0);
           hopper::wgmma_commit();
 #pragma unroll
-          for (int kk = 0; kk < D / 16; ++kk)
+          for (int kk = 0; kk < W / 16; ++kk)
             hopper::Wgmma<BN, T>::template ss<0>(dpt, wg::kmajor<BM>(vw, kk),
                                                  wg::kmajor<BN>(dos, kk), kk > 0);
           hopper::wgmma_commit();
@@ -864,6 +894,7 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         const size_t at = split * n + ((size_t)bkv * Sk + kpos) * D + wcol;
 #pragma unroll
         for (int j = 0; j < NW / 8; ++j) {
+          if (wcol + 8 * j >= D) continue;  // D % 8 == 0: whole pairs of columns past D
           *reinterpret_cast<float2*>(part + at + 8 * j + col0) =
               make_float2(dk_acc[4 * j + 2 * rr], dk_acc[4 * j + 2 * rr + 1]);
           *reinterpret_cast<float2*>(part + splits * n + at + 8 * j + col0) =
@@ -875,6 +906,7 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       T* dvrow = dv + ((size_t)bkv * Sk + kpos) * D + wcol;
 #pragma unroll
       for (int j = 0; j < NW / 8; ++j) {
+        if (wcol + 8 * j >= D) continue;
         *reinterpret_cast<uint32_t*>(dkrow + 8 * j + col0) =
             hopper::pack2<T>(dk_acc[4 * j + 2 * rr] * scale, dk_acc[4 * j + 2 * rr + 1] * scale);
         *reinterpret_cast<uint32_t*>(dvrow + 8 * j + col0) =
@@ -902,21 +934,22 @@ dkdv_sum_kernel(const float* __restrict__ part, T* __restrict__ dk, T* __restric
   dv[idx] = from_float<T>(sv);
 }
 
-template <typename T, int D>
+// W and D as dkdv_wgmma_kernel's.
+template <typename T, int W>
 __global__ void __launch_bounds__(wg::THREADS, 1)
 dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                 const __grid_constant__ CUtensorMap map_k,
                 const __grid_constant__ CUtensorMap map_v,
                 const __grid_constant__ CUtensorMap map_do, const float* __restrict__ lse,
                 const float* __restrict__ delta, T* __restrict__ dq, int H, int KV, int Sq, int Sk,
-                int causal, int window, float scale, float scale_log2) {
+                int D, int causal, int window, float scale, float scale_log2) {
   using wg::BN;
   using wg::STAGES;
-  using S = wg::Smem<D>;
-  using C = wg::Cfg<D>;
+  using S = wg::Smem<W>;
+  using C = wg::Cfg<W>;
   constexpr int BM = C::BM;
   constexpr int NW = C::NW;
-  constexpr int CH = D / 64;
+  constexpr int CH = W / 64;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = hopper::align_1024(smem_raw);
   uint8_t* sq = smem;                   // Q: the block's 128 query rows
@@ -1020,12 +1053,12 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         hopper::fence_regs(dp);
         hopper::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
+        for (int kk = 0; kk < W / 16; ++kk)
           hopper::Wgmma<BN, T>::template ss<0>(sc, wg::kmajor<BM>(qw, kk),
                                                wg::kmajor<BN>(ks, kk), kk > 0);
         hopper::wgmma_commit();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
+        for (int kk = 0; kk < W / 16; ++kk)
           hopper::Wgmma<BN, T>::template ss<0>(dp, wg::kmajor<BM>(dow, kk),
                                                wg::kmajor<BN>(vs, kk), kk > 0);
         hopper::wgmma_commit();
@@ -1078,8 +1111,9 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       T* dqrow = dqp + (size_t)qpos * D + wcol;
 #pragma unroll
       for (int j = 0; j < NW / 8; ++j)
-        *reinterpret_cast<uint32_t*>(dqrow + 8 * j + col0) =
-            hopper::pack2<T>(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
+        if (wcol + 8 * j < D)  // D % 8 == 0: whole pairs of columns past D
+          *reinterpret_cast<uint32_t*>(dqrow + 8 * j + col0) =
+              hopper::pack2<T>(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
     }
   }
 }
@@ -1218,7 +1252,8 @@ dkdv_d80_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                       const __grid_constant__ CUtensorMap map_do16, const float* __restrict__ lse,
                       const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                       float* __restrict__ dq_acc, int* __restrict__ turns, int B, int H, int KV,
-                      int Sq, int Sk, int causal, int window, float scale, float scale_log2) {
+                      int Sq, int Sk, int D, int causal, int window, float scale,
+                      float scale_log2) {
   using wg::BN;
   using wg80::BM;
   using wg80::STAGES;
@@ -1478,10 +1513,11 @@ dkdv_d80_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       for (int rr = 0; rr < 2; ++rr) {
         const int kpos = row0 + 8 * rr;
         if (kpos > wk_last) continue;
-        T* dkrow = dk + ((size_t)bkv * Sk + kpos) * 80;
-        T* dvrow = dv + ((size_t)bkv * Sk + kpos) * 80;
+        T* dkrow = dk + ((size_t)bkv * Sk + kpos) * D;
+        T* dvrow = dv + ((size_t)bkv * Sk + kpos) * D;
 #pragma unroll
         for (int jj = 0; jj < 10; ++jj) {
+          if (8 * jj >= D) continue;  // D 72: the narrow box's last 8 columns are TMA's zeros
           *reinterpret_cast<uint32_t*>(dkrow + 8 * jj + col0) = hopper::pack2<T>(
               dk_acc[4 * jj + 2 * rr] * scale, dk_acc[4 * jj + 2 * rr + 1] * scale);
           *reinterpret_cast<uint32_t*>(dvrow + 8 * jj + col0) =
@@ -1493,15 +1529,19 @@ dkdv_d80_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-// dq from dq_acc's fp32 sums: scaled once and rounded to T, 8 values a thread.
-template <typename T>
+// dq from dq_acc's fp32 sums (rows of 80): scaled once and rounded to T, 8
+// values a thread, the D / 8 groups of a row of dq (D 80 or 72: a constant
+// divisor, as the index arithmetic is the kernel's cost).
+template <typename T, int D>
 __global__ void __launch_bounds__(256)
 dq_d80_cast_kernel(const float* __restrict__ dq_acc, T* __restrict__ dq, long rows, int Sq, int M,
                    float scale) {
-  const long idx = (long)blockIdx.x * 256 + threadIdx.x;  // 8 values of row idx / 10
-  if (idx >= rows * 10) return;
-  const long row = idx / 10, bh = row / Sq;
-  const float* src = dq_acc + ((bh * M * wg::BN + row % Sq) * 80 + (idx % 10) * 8);
+  constexpr int groups = D / 8;
+  const long idx = (long)blockIdx.x * 256 + threadIdx.x;  // 8 values of row idx / groups
+  if (idx >= rows * groups) return;
+  const long row = idx / groups, bh = row / Sq;
+  const int group = (int)(idx % groups);
+  const float* src = dq_acc + ((bh * M * wg::BN + row % Sq) * 80 + group * 8);
   const float4 a = *reinterpret_cast<const float4*>(src);
   const float4 c = *reinterpret_cast<const float4*>(src + 4);
   uint4 out;
@@ -1509,11 +1549,11 @@ dq_d80_cast_kernel(const float* __restrict__ dq_acc, T* __restrict__ dq, long ro
   out.y = hopper::pack2<T>(a.z * scale, a.w * scale);
   out.z = hopper::pack2<T>(c.x * scale, c.y * scale);
   out.w = hopper::pack2<T>(c.z * scale, c.w * scale);
-  *reinterpret_cast<uint4*>(dq + idx * 8) = out;
+  *reinterpret_cast<uint4*>(dq + row * D + group * 8) = out;
 }
 
-// Scratch of the D = 80 wgmma backward: a turn counter a query tile
-// (rounded up to 256 bytes), then dq_acc, (B*H, M*64, 80) fp32.
+// Scratch of the width-80 wgmma backward (D 72 and 80): a turn counter a
+// query tile (rounded up to 256 bytes), then dq_acc, (B*H, M*64, 80) fp32.
 long long d80_workspace(int B, int H, int Sq) {
   const long long tiles = (long long)B * H * ((Sq + wg::BN - 1) / wg::BN);
   return (tiles * 4 + 255) / 256 * 256 + tiles * wg::BN * 80 * 4;
@@ -1523,18 +1563,21 @@ template <typename T>
 cudaError_t launch_wgmma80(const void* q, const void* k, const void* v, const void* o,
                            const void* dout, const float* lse, void* dq, void* dk, void* dv,
                            float* delta, float* work, int B, int H, int KV, int Sq, int Sk,
-                           int causal, int window, int sms, cudaStream_t stream) {
+                           int D, int causal, int window, int sms, cudaStream_t stream) {
   constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
   const uint64_t bh = (uint64_t)B * H, bkv = (uint64_t)B * KV;
   // The dk/dv items stream 64-row tiles of q and dO past 128 keys of k and v.
   CUtensorMap q64, q64n, do64, do64n, k_big, k_bign, v_big, v_bign;
-  cudaError_t err = hopper::make_maps_d80(&q64, &q64n, q, bf16, Sq, bh, wg::BN);
-  if (err == cudaSuccess) err = hopper::make_maps_d80(&do64, &do64n, dout, bf16, Sq, bh, wg::BN);
-  if (err == cudaSuccess) err = hopper::make_maps_d80(&k_big, &k_bign, k, bf16, Sk, bkv, wg80::BM);
-  if (err == cudaSuccess) err = hopper::make_maps_d80(&v_big, &v_bign, v, bf16, Sk, bkv, wg80::BM);
+  cudaError_t err = hopper::make_maps_d80(&q64, &q64n, q, bf16, D, Sq, bh, wg::BN);
+  if (err == cudaSuccess)
+    err = hopper::make_maps_d80(&do64, &do64n, dout, bf16, D, Sq, bh, wg::BN);
+  if (err == cudaSuccess)
+    err = hopper::make_maps_d80(&k_big, &k_bign, k, bf16, D, Sk, bkv, wg80::BM);
+  if (err == cudaSuccess)
+    err = hopper::make_maps_d80(&v_big, &v_bign, v, bf16, D, Sk, bkv, wg80::BM);
   if (err != cudaSuccess) return err;
   if (work == nullptr) return cudaErrorInvalidValue;
-  const float scale = 1.0f / sqrtf(80.f);
+  const float scale = 1.0f / sqrtf((float)D);
   const float scale_log2 = scale * wg::LOG2E;
   const int M = (Sq + wg::BN - 1) / wg::BN;
   // At most one block an SM (the card's, whatever `sms` says), so that every
@@ -1547,7 +1590,7 @@ cudaError_t launch_wgmma80(const void* q, const void* k, const void* v, const vo
   const long items = (long)((Sk + wg80::BM - 1) / wg80::BM) * KV * B;
   const int grid = (int)std::min<long>(items, std::min(sms, card_sms));
 
-  err = launch_delta<T, 80>(o, dout, delta, (long)B * H * Sq, stream);
+  err = launch_delta<T, 80>(o, dout, delta, (long)B * H * Sq, D, stream);
   if (err != cudaSuccess) return err;
   const long long tiles = (long long)B * H * M;
   int* turns = reinterpret_cast<int*>(work);
@@ -1560,12 +1603,18 @@ cudaError_t launch_wgmma80(const void* q, const void* k, const void* v, const vo
   if (err != cudaSuccess) return err;
   dkdv_d80_wgmma_kernel<T><<<grid, wg::THREADS, wg80::DKDV_BYTES, stream>>>(
       q64, q64n, k_big, k_bign, v_big, v_bign, do64, do64n, lse, delta, static_cast<T*>(dk),
-      static_cast<T*>(dv), dq_acc, turns, B, H, KV, Sq, Sk, causal, window, scale, scale_log2);
+      static_cast<T*>(dv), dq_acc, turns, B, H, KV, Sq, Sk, D, causal, window, scale,
+      scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long rows = (long)B * H * Sq;
-  dq_d80_cast_kernel<T><<<(unsigned)((rows * 10 + 255) / 256), 256, 0, stream>>>(
-      dq_acc, static_cast<T*>(dq), rows, Sq, M, scale);
+  const unsigned cast_blocks = (unsigned)((rows * (D / 8) + 255) / 256);
+  if (D == 80)
+    dq_d80_cast_kernel<T, 80><<<cast_blocks, 256, 0, stream>>>(dq_acc, static_cast<T*>(dq), rows,
+                                                                Sq, M, scale);
+  else
+    dq_d80_cast_kernel<T, 72><<<cast_blocks, 256, 0, stream>>>(dq_acc, static_cast<T*>(dq), rows,
+                                                                Sq, M, scale);
   return cudaGetLastError();
 }
 
@@ -1575,24 +1624,24 @@ cudaError_t launch_wgmma80(const void* q, const void* k, const void* v, const vo
 // 4096: 64 blocks on 132 SMs); there the g heads are cut into as many
 // splits as fill the SMs, whose fp32 partials dkdv_sum_kernel adds in
 // order.  The bits depend on the split, and so on `sms`.
-template <int D>
+template <int W>
 int heads_per_split(int B, int H, int KV, int Sk, int sms) {
   const int g = H / KV;
-  using C = wg::Cfg<D>;
+  using C = wg::Cfg<W>;
   const long blocks = (long)((Sk + C::BM - 1) / C::BM) * KV * B;
   if (!C::SPLIT || blocks >= sms) return g;
   const int splits = (int)std::min<long>(g, sms / blocks);
   return (g + splits - 1) / splits;
 }
 
-template <typename T, int D>
+template <typename T, int W>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void* o,
                          const void* dout, const float* lse, void* dq, void* dk, void* dv,
-                         float* delta, float* work, int B, int H, int KV, int Sq, int Sk,
+                         float* delta, float* work, int B, int H, int KV, int Sq, int Sk, int D,
                          int causal, int window, int sms, cudaStream_t stream) {
   constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int bytes = wg::Smem<D>::BYTES;
-  constexpr int BM = wg::Cfg<D>::BM;
+  constexpr int bytes = wg::Smem<W>::BYTES;
+  constexpr int BM = wg::Cfg<W>::BM;
   const uint64_t bh = (uint64_t)B * H, bkv = (uint64_t)B * KV;
   // dk/dv streams 64-row tiles of q and dO past BM-key blocks of k and v;
   // dq the other way round.
@@ -1606,25 +1655,26 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void
   if (err == cudaSuccess) err = hopper::make_map_3d(&k64, k, bf16, D, Sk, bkv, wg::BN);
   if (err == cudaSuccess) err = hopper::make_map_3d(&v64, v, bf16, D, Sk, bkv, wg::BN);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(dkdv_wgmma_kernel<T, D>,
+    err = cudaFuncSetAttribute(dkdv_wgmma_kernel<T, W>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(dq_wgmma_kernel<T, D>,
+    err = cudaFuncSetAttribute(dq_wgmma_kernel<T, W>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const float scale = 1.0f / sqrtf((float)D);
   const float scale_log2 = scale * wg::LOG2E;
   const int g = H / KV;
-  const int heads_per = heads_per_split<D>(B, H, KV, Sk, sms);
+  const int heads_per = heads_per_split<W>(B, H, KV, Sk, sms);
   const int splits = (g + heads_per - 1) / heads_per;
   if (splits > 1 && work == nullptr) return cudaErrorInvalidValue;
 
-  err = launch_delta<T, D>(o, dout, delta, (long)B * H * Sq, stream);
+  err = launch_delta<T, W>(o, dout, delta, (long)B * H * Sq, D, stream);
   if (err != cudaSuccess) return err;
-  dkdv_wgmma_kernel<T, D><<<dim3((Sk + BM - 1) / BM, KV * splits, B), wg::THREADS, bytes,
+  dkdv_wgmma_kernel<T, W><<<dim3((Sk + BM - 1) / BM, KV * splits, B), wg::THREADS, bytes,
                             stream>>>(
       q64, k_big, v_big, do64, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      splits > 1 ? work : nullptr, H, KV, Sq, Sk, causal, window, heads_per, scale, scale_log2);
+      splits > 1 ? work : nullptr, H, KV, Sq, Sk, D, causal, window, heads_per, scale,
+      scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (splits > 1) {
@@ -1634,30 +1684,31 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  dq_wgmma_kernel<T, D><<<dim3((Sq + BM - 1) / BM, H, B), wg::THREADS, bytes, stream>>>(
-      q_big, k64, v64, do_big, lse, delta, static_cast<T*>(dq), H, KV, Sq, Sk, causal, window,
+  dq_wgmma_kernel<T, W><<<dim3((Sq + BM - 1) / BM, H, B), wg::THREADS, bytes, stream>>>(
+      q_big, k64, v64, do_big, lse, delta, static_cast<T*>(dq), H, KV, Sq, Sk, D, causal, window,
       scale, scale_log2);
   return cudaGetLastError();
 }
 
+// Any D that is a multiple of 8 (TMA's 16-byte row stride) up to 256, at
+// the next of the widths 64, 80, 128 and 256 (the forward's).
 template <typename T>
 cudaError_t launch_wgmma_d(const void* q, const void* k, const void* v, const void* o,
                            const void* dout, const float* lse, void* dq, void* dk, void* dv,
                            float* delta, float* work, int B, int H, int KV, int Sq, int Sk, int D,
                            int causal, int window, int sms, cudaStream_t stream) {
-  if (D == 64)
+  if (D < 8 || D > 256 || D % 8) return cudaErrorInvalidValue;
+  if (D <= 64)
     return launch_wgmma<T, 64>(q, k, v, o, dout, lse, dq, dk, dv, delta, work, B, H, KV, Sq, Sk,
-                               causal, window, sms, stream);
-  if (D == 80)
+                               D, causal, window, sms, stream);
+  if (D <= 80)
     return launch_wgmma80<T>(q, k, v, o, dout, lse, dq, dk, dv, delta, work, B, H, KV, Sq, Sk,
-                             causal, window, sms, stream);
-  if (D == 128)
+                             D, causal, window, sms, stream);
+  if (D <= 128)
     return launch_wgmma<T, 128>(q, k, v, o, dout, lse, dq, dk, dv, delta, work, B, H, KV, Sq,
-                                Sk, causal, window, sms, stream);
-  if (D == 256)
-    return launch_wgmma<T, 256>(q, k, v, o, dout, lse, dq, dk, dv, delta, work, B, H, KV, Sq,
-                                Sk, causal, window, sms, stream);
-  return cudaErrorInvalidValue;
+                                Sk, D, causal, window, sms, stream);
+  return launch_wgmma<T, 256>(q, k, v, o, dout, lse, dq, dk, dv, delta, work, B, H, KV, Sq, Sk,
+                              D, causal, window, sms, stream);
 }
 
 bool valid(int B, int H, int KV, int Sq, int Sk, int window) {
@@ -1669,25 +1720,27 @@ bool valid(int B, int H, int KV, int Sq, int Sk, int window) {
 
 // q, o, dout, dq: (B, H, Sq, D); k, v, dk, dv: (B, KV, Sk, D); lse, delta:
 // (B, H, Sq) fp32, delta scratch the call overwrites.  Contiguous device
-// arrays, 16-byte aligned.  dtype: 0 float32, 1 float16, 2 bfloat16.  D: 64,
-// 80, 128 or 256, and 32 on the fma tiling.  work: repro_flash_attention_bwd_workspace(B, H, KV, Sq, Sk,
-// D, sms) bytes of scratch (the wgmma tiling's partials of dk and dv at
-// D = 256, its turn counters and fp32 dq sums at D = 80; may be null where
-// that is 0); sms: the card's SMs.  Each entry
+// arrays, 16-byte aligned.  dtype: 0 float32, 1 float16, 2 bfloat16.  D: 1
+// to 256 (a multiple of 8 on the wgmma tiling).  work:
+// repro_flash_attention_bwd_workspace(B, H, KV, Sq, Sk, D, sms) bytes of
+// scratch (the wgmma tiling's partials of dk and dv at width 256, its turn
+// counters and fp32 dq sums at width 80; may be null where that is 0); sms:
+// the card's SMs.  Each entry
 // point launches one tiling's kernels on `stream` and returns a cudaError_t
 // (0 on success); a shape or dtype its tiling does not take returns
 // cudaErrorInvalidValue.
 
 // Bytes of scratch the wgmma tiling needs (the fma tiling needs none): at
-// D = 256 two fp32 partials of dk and dv for each query-head split, or 0
-// without splits; at D = 80 a turn counter a 64-row query tile and dq's
-// fp32 sums, (B*H, ceil(Sq / 64)*64, 80).
+// width 256 (D 136-256) two fp32 partials of dk and dv, (B, KV, Sk, D), for
+// each query-head split, or 0 without splits; at width 80 (D 72, 80) a turn
+// counter a 64-row query tile and dq's fp32 sums, (B*H, ceil(Sq / 64)*64,
+// 80); else 0.
 extern "C" long long repro_flash_attention_bwd_workspace(int B, int H, int KV, int Sq, int Sk,
                                                          int D, int sms) {
-  if (!valid(B, H, KV, Sq, Sk, 0) || sms < 1) return 0;
-  if (D == 80) return d80_workspace(B, H, Sq);
+  if (!valid(B, H, KV, Sq, Sk, 0) || sms < 1 || D < 8 || D > 256 || D % 8) return 0;
+  if (D > 64 && D <= 80) return d80_workspace(B, H, Sq);
   const int g = H / KV;
-  const int per = D == 256 ? heads_per_split<256>(B, H, KV, Sk, sms) : g;
+  const int per = D > 128 ? heads_per_split<256>(B, H, KV, Sk, sms) : g;
   const long long splits = (g + per - 1) / per;
   return splits > 1 ? 2LL * splits * B * KV * Sk * D * (long long)sizeof(float) : 0;
 }

@@ -556,14 +556,15 @@ inline cudaError_t make_map_3d(CUtensorMap* map, const void* base, bool bf16, ui
   return make_map_3d_box(map, base, bf16, n0, n1, n2, 64, box1, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-// The two maps of a (80, n1, n2) array for d80::load: the wide one (64-column
-// boxes, 128-byte swizzle) and the narrow one (16-column, 32-byte swizzle).
+// The two maps of an (n0, n1, n2) array, n0 = 80 or 72, for d80::load: the
+// wide one (64-column boxes, 128-byte swizzle) and the narrow one (16-column,
+// 32-byte swizzle; at n0 = 72 its last 8 columns are zeros).
 inline cudaError_t make_maps_d80(CUtensorMap* wide, CUtensorMap* narrow, const void* base,
-                                 bool bf16, uint64_t n1, uint64_t n2, uint32_t rows) {
+                                 bool bf16, uint64_t n0, uint64_t n1, uint64_t n2, uint32_t rows) {
   cudaError_t err =
-      make_map_3d_box(wide, base, bf16, 80, n1, n2, 64, rows, CU_TENSOR_MAP_SWIZZLE_128B);
+      make_map_3d_box(wide, base, bf16, n0, n1, n2, 64, rows, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != cudaSuccess) return err;
-  return make_map_3d_box(narrow, base, bf16, 80, n1, n2, 16, rows, CU_TENSOR_MAP_SWIZZLE_32B);
+  return make_map_3d_box(narrow, base, bf16, n0, n1, n2, 16, rows, CU_TENSOR_MAP_SWIZZLE_32B);
 }
 
 // An unswizzled map of fp32 (elem_bytes 4) or bf16 / fp16 values: a box

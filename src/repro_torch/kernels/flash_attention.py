@@ -4,11 +4,14 @@ Replaces the Pallas TPU kernel ``repro.kernels.flash_attention``.  The CUDA
 kernels compute the same function (GQA; causal, sliding-window or full; fp32
 online softmax; output in q's dtype) and mask ragged sequence tails
 themselves, so nothing here pads.  Two tilings, one C entry point each:
-``wgmma`` (tensor cores, TMA loads; bf16/fp16) and ``fma`` (fp32 FMAs on the
-CUDA cores; fp32), each at head dims 64, 80, 128 and 256 (``fma`` also at 32,
-the fp32 model of ``examples/train_lm_topoopt.py``), and at any Sq and
-Sk (cross-attention: Sq the prompt, Sk the image tokens).
-:func:`attention_tiling` chooses.  Their plain PyTorch
+``wgmma`` (tensor cores, TMA loads; bf16/fp16 at a head dim that is a
+multiple of 8, TMA's 16-byte rows) and ``fma`` (fp32 FMAs on the CUDA cores;
+any dtype and any head dim), at every head dim from 1 to
+:data:`MAX_HEAD_DIM` (the JAX kernel blocks only the sequence and takes any)
+and at any Sq and Sk (cross-attention: Sq the prompt, Sk the image tokens).
+A kernel computes at a width (:func:`compute_width`) of its own at or above
+the head dim; columns past the head dim are zeros in every product and are
+not stored.  :func:`attention_tiling` chooses.  Their plain PyTorch
 version is :func:`repro_torch.kernels.ref.ref_flash_attention`.
 
 A query row that sees no key (a window with ``Sq >= Sk + window``; see
@@ -22,14 +25,14 @@ a key, and does nothing at Sq = Sk (every served prefill).
 
 Training: given ``lse``, either tiling also writes each query row's
 log-sum-exp, and :func:`flash_attention_bwd` (``csrc/flash_attention_bwd.cu``,
-head dims 64, 80, 128 and 256, and 32 on ``fma``; 80 at its true width on
-``wgmma``, as the forward, S and dP computed once and dq summed in fp32
-scratch in a fixed order) computes dq, dk and dv from it on one of two tilings, ``wgmma``
+the forward's head dims at the forward's widths; width 80 on ``wgmma`` at its
+true width, S and dP computed once and dq summed in fp32 scratch in a fixed
+order) computes dq, dk and dv from it on one of two tilings, ``wgmma``
 (bf16/fp16) and ``fma`` (any dtype; exact fp32), one C entry point each;
 :func:`attention_bwd_tiling` chooses.  :class:`FlashAttentionFn` joins
-the forward and the backward for autograd.  The backward refuses
-shapes with rows that see no key: the mean-of-v rows have a gradient the
-kernel does not compute, and no training shape (Sq = Sk) has them.
+the forward and the backward for autograd.  The backward refuses shapes with rows that see no key: the mean-of-v rows
+have a gradient the kernel does not compute, and no training shape (Sq = Sk)
+has them.
 """
 
 from __future__ import annotations
@@ -46,32 +49,54 @@ from ._build import sm_count
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 HALF_DTYPES = (torch.float16, torch.bfloat16)
 TILINGS = ("wgmma", "fma")
-# The head dims each tiling takes, forward and backward: 32, the fp32 model of
-# examples/train_lm_topoopt.py (fma only); 64 minicpm-2b; 80 hubert-xlarge (its
-# own wgmma kernels at the true width); 128 granite-8b/34b, deepseek-coder-33b,
-# the VLM; 256 recurrentgemma.
-HEAD_DIMS = {"wgmma": (64, 80, 128, 256), "fma": (32, 64, 80, 128, 256)}
+MAX_HEAD_DIM = 256  # the largest head dim the kernels take (recurrentgemma-9b's)
+# The widths the kernels compute at, forward and backward.  wgmma: 64 (head
+# dims 8-64, the smoke configs' 16 among them), 80 (hubert-xlarge's 80, and
+# 72: its own kernels, products at the true width), 128 (granite-8b/34b,
+# deepseek-coder-33b, the VLM) and 256 (recurrentgemma-9b).  fma: 32 (the fp32
+# model of examples/train_lm_topoopt.py), 64 (minicpm-2b), 80, 128 and 256 each
+# have instances of their own; any other head dim runs a ragged instance at
+# the next of FMA_RAGGED_WIDTHS, whose loads and stores are masked to it.
+WGMMA_WIDTHS = (64, 80, 128, 256)
+FMA_WIDTHS = (32, 64, 80, 128, 256)
+FMA_RAGGED_WIDTHS = (32, 64, 128, 256)
 MODELLED_SMS = 132  # the H100 SXM5's SMs, which size launches on the dry run's card
 
 
+def compute_width(tiling: str, head_dim: int) -> int:
+    """The width that ``tiling``'s kernels compute ``head_dim`` at: the head
+    dim itself where it has instances of its own, else the next width above
+    (``csrc/flash_attention.cu``'s and ``flash_attention_bwd.cu``'s dispatch)."""
+    if tiling == "fma" and head_dim in FMA_WIDTHS:
+        return head_dim
+    widths = WGMMA_WIDTHS if tiling == "wgmma" else FMA_RAGGED_WIDTHS
+    return next(w for w in widths if w >= head_dim)
+
+
 def _tiling(name: str, dtype: torch.dtype, head_dim: int, tiling: str | None) -> str:
-    """``tiling``, else ``"wgmma"`` for bf16/fp16 and ``"fma"`` for fp32;
-    raises for a dtype or a head dim that tiling does not take."""
+    """``tiling``, else ``"wgmma"`` for bf16/fp16 at a head dim that is a
+    multiple of 8 and ``"fma"`` for the rest; raises for a dtype or a head
+    dim that tiling does not take, and for a head dim past
+    :data:`MAX_HEAD_DIM`."""
     if dtype not in DTYPE_CODES:
         raise ValueError(f"{name}: dtype {dtype} not in {list(DTYPE_CODES)}")
-    tiling = tiling or ("wgmma" if dtype in HALF_DTYPES else "fma")
+    if not 1 <= head_dim <= MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {head_dim} outside 1..{MAX_HEAD_DIM}: the kernels "
+                         f"take head dims up to MAX_HEAD_DIM = {MAX_HEAD_DIM}")
+    tiling = tiling or ("wgmma" if dtype in HALF_DTYPES and head_dim % 8 == 0 else "fma")
     if tiling not in TILINGS or (tiling == "wgmma" and dtype not in HALF_DTYPES):
         raise ValueError(f"{name}: tiling {tiling!r} does not take {dtype}")
-    if head_dim not in HEAD_DIMS[tiling]:
-        raise ValueError(f"{name}: head dim {head_dim} not in {HEAD_DIMS[tiling]} "
-                         f"of the {tiling} tiling")
+    if tiling == "wgmma" and head_dim % 8:
+        raise ValueError(f"{name}: head dim {head_dim} is not a multiple of 8, which the wgmma "
+                         "tiling's TMA loads need (16-byte rows)")
     return tiling
 
 
 def attention_tiling(dtype: torch.dtype, head_dim: int) -> str:
     """The tiling that serves q, k, v of this dtype and head dim: ``"wgmma"``
-    for bf16/fp16, ``"fma"`` for fp32.  Raises where that tiling does not
-    take the head dim (32 on wgmma)."""
+    for bf16/fp16 at a head dim that is a multiple of 8, ``"fma"`` for fp32
+    and for bf16/fp16 rows TMA cannot stride.  Raises past
+    :data:`MAX_HEAD_DIM`."""
     return _tiling("flash_attention", dtype, head_dim, None)
 
 
@@ -97,9 +122,10 @@ def _entry(tiling: str):
 
 
 def attention_bwd_tiling(dtype: torch.dtype, head_dim: int) -> str:
-    """The backward tiling for this dtype and head dim: ``"wgmma"`` for
-    bf16/fp16, ``"fma"`` for fp32 (exact fp32 products, which TF32 would not
-    give).  Raises where that tiling does not take the head dim."""
+    """The backward tiling for this dtype and head dim: the forward's,
+    ``"wgmma"`` for bf16/fp16 at a head dim that is a multiple of 8, ``"fma"``
+    for the rest (for fp32, exact fp32 products, which TF32 would not give).
+    Raises past :data:`MAX_HEAD_DIM`."""
     return _tiling("flash_attention_bwd", dtype, head_dim, None)
 
 
@@ -229,17 +255,19 @@ def _check_rows(q, k, causal: bool, window: int) -> None:
 def bwd_work_bytes(B: int, H: int, KV: int, Sq: int, Sk: int, D: int, sms: int) -> int:
     """Bytes of scratch the wgmma backward takes (the fma tiling takes none):
     ``repro_flash_attention_bwd_workspace``'s count, which the launch checks
-    it against.  At D = 80 a turn counter a 64-row query tile (256-byte
-    aligned) and dq's fp32 sums, (B*H, ceil(Sq / 64)*64, 80); at D = 256,
-    where the key blocks (64 keys each) of all kv heads are fewer than the
-    SMs, the query heads of a kv head split over the spare SMs and each
-    split writes fp32 partials of dk and dv; else none."""
-    if D == 80:
+    it against.  At width 80 (D 72 and 80) a turn counter a 64-row query tile
+    (256-byte aligned) and dq's fp32 sums, (B*H, ceil(Sq / 64)*64, 80); at
+    width 256 (D 136-256), where the key blocks (64 keys each) of all kv heads
+    are fewer than the SMs, the query heads of a kv head split over the spare
+    SMs and each split writes fp32 partials of dk and dv, (B, KV, Sk, D) each;
+    else none."""
+    width = compute_width("wgmma", D)
+    if width == 80:
         tiles = B * H * -(-Sq // 64)
         return (tiles * 4 + 255) // 256 * 256 + tiles * 64 * 80 * 4
     g = H // KV
     blocks = -(-Sk // 64) * KV * B
-    if D != 256 or blocks >= sms:
+    if width != 256 or blocks >= sms:
         return 0
     per = -(-g // min(g, sms // blocks))
     splits = -(-g // per)
@@ -251,13 +279,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True, window: int = 
     """The gradient of :func:`flash_attention` -> (dq, dk, dv) in q's dtype.
 
     q, o, do: (B, H, Sq, D); k, v: (B, KV, Sk, D); lse: (B, H, Sq) fp32 from
-    the forward, all on one CUDA device; D 64, 80, 128 or 256 (32 on
-    ``fma``).  ``tiling`` defaults to :func:`attention_bwd_tiling`'s
+    the forward, all on one CUDA device; D from 1 to :data:`MAX_HEAD_DIM`.
+    ``tiling`` defaults to :func:`attention_bwd_tiling`'s
     choice; a tiling that does not take the dtype or the head dim raises.
     Launches the CUDA backward once (three kernels on the current stream; at
-    D = 256 the wgmma tiling may split the query heads of a kv head into
+    width 256 the wgmma tiling may split the query heads of a kv head into
     fp32 partials, from PyTorch's allocator, that a fourth kernel adds in a
-    fixed order; at D = 80 it sums dq in fp32 scratch from
+    fixed order; at width 80 it sums dq in fp32 scratch from
     PyTorch's allocator, its turn counters zeroed on every call, and a last
     kernel casts it), or raises:
     it never computes on another path.  The scratch (``delta`` and

@@ -10,6 +10,7 @@
         --batch 4 --prompt-len 2048 --decode-steps 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-3.2-vision-11b \
         --batch 4 --prompt-len 1000 --decode-steps 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b --smoke
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b --smoke \
         --device cpu
 
@@ -18,10 +19,9 @@ Weights are drawn on the device from ``--seed``; prompts (and the VLM's image
 embeddings, drawn after them) are the same numpy draws as
 ``repro.launch.serve``'s.  Encoder-only archs (hubert-xlarge) have no decode
 and exit, as the reference does; their forward is ``models.lm.forward`` on
-``frames`` (``launch/trace_serve.py`` times one).  The smoke configs' head
-dim (16) is not one the CUDA attention kernel takes, so ``--smoke`` runs with
-``--device cpu`` (falcon-mamba-7b's smoke model has no attention and also
-runs on the card).
+``frames`` (``launch/trace_serve.py`` times one).  ``--smoke`` takes the
+reduced config (head dim 16, which the attention kernels compute at a width
+of 64 on the card), on the card or the CPU.
 recurrentgemma-9b's decode cache is exact once the prompt reaches its
 2048-token window; below it the reference overwrites the last prompt key,
 and the port does the same.

@@ -2,6 +2,7 @@
 greedy decode with a KV cache, reporting tokens/s; the twin of
 ``examples/serve_decode.py``.
 
+    PYTHONPATH=src python -m repro_torch.launch.serve_decode --arch recurrentgemma-9b
     PYTHONPATH=src python -m repro_torch.launch.serve_decode --arch recurrentgemma-9b \
         --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve_decode --arch falcon-mamba-7b
@@ -12,12 +13,9 @@ loop, with ``pos`` a Python int as the port's decode takes it), with the
 example's flags and defaults, on the card unless given ``--device cpu``;
 without a card it raises.  Weights are drawn from seed 0 on the device,
 prompts (and the VLM's image embeddings, drawn after them) from numpy seed
-0 as the example draws them.  The smoke configs' head dim (16) is one no
-attention kernel takes, so on the card an arch with attention raises the
-attention wrapper's error (there is no CPU fallback): run those with
-``--device cpu``, and on the card an arch without attention
-(``--arch falcon-mamba-7b``).  The rate is the decode loop's tokens over its
-host-clock seconds, ended by a device synchronise.
+0 as the example draws them.  The smoke configs' head dim (16) runs on the
+card's attention kernels at a width of 64.  The rate is the decode loop's
+tokens over its host-clock seconds, ended by a device synchronise.
 """
 
 from __future__ import annotations

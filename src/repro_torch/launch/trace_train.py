@@ -43,7 +43,7 @@ from repro_torch.train.steps import make_train_step
 GROUPS = (
     ("attention backward",
      re.compile(r"delta_kernel|dkdv_(d80_)?(wgmma_|sum_)?kernel|dq_(wgmma_|d80_cast_)?kernel")),
-    ("attention forward", re.compile(r"flash_attention_(d80_)?(wgmma|fwd)_kernel")),
+    ("attention forward", re.compile(r"flash_attention_(d80_)?(wgmma|fwd|fwd_ragged)_kernel")),
     ("selective scan backward", re.compile(r"mamba_bwd_")),
     ("selective scan forward", re.compile(r"mamba_scan_kernel")),
     ("RG-LRU backward", re.compile(r"lru_bwd_kernel")),

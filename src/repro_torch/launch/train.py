@@ -4,11 +4,15 @@
         --device cpu --steps 20 --ckpt-dir /tmp/ckpt
 
 Runs on the card unless given ``--device cpu``; ``--smoke`` takes the
-reduced config, whose head dim 16 the attention kernels do not take, so
-smoke runs are CPU only, but for falcon-mamba-7b's (no attention).  On the
-card every family trains (the grouped matmul, the Mamba scan, the RG-LRU
-scan and attention at head dims 64, 80, 128 and 256 have their backward
-kernels); hubert-xlarge fits whole (about 15 GB of training state)::
+reduced config (head dim 16, which the attention kernels compute at a width
+of 64 on the card), on either::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b --smoke \
+        --steps 20
+
+On the card every family trains (the grouped matmul, the Mamba scan, the
+RG-LRU scan and attention at every head dim from 1 to 256 have their
+backward kernels); hubert-xlarge fits whole (about 15 GB of training state)::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch hubert-xlarge \
         --seq-len 4096 --global-batch 4 --lr 3e-4 --steps 100 \
@@ -87,7 +91,9 @@ def mesh_arg(value: str) -> str:
     return value
 
 
-def main(argv=None) -> None:
+def main(argv=None):
+    """Runs the command line ``argv`` (``sys.argv`` by default) and returns
+    the loop's ``TrainResult``."""
     ap = argparse.ArgumentParser(description="TopoOpt training (PyTorch port)")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true", help="reduced config")
@@ -142,6 +148,7 @@ def main(argv=None) -> None:
     finally:
         if joined:
             dist.destroy_process_group()
+    return res
 
 
 if __name__ == "__main__":

@@ -182,8 +182,8 @@ def loss_fn(params, batch, cfg: ArchConfig, remat: str = "full", loss_chunk: int
             aux_weight: float = 0.01):
     """Scalar training loss (+ metrics dict), grad-enabled; ``batch`` holds
     tensors on the model's device.  On the card every family's kernels
-    have their backward kernels (``kernels/ops.py``); attention's takes head
-    dims 64, 80, 128 and 256, so every family trains there."""
+    have their backward kernels (``kernels/ops.py``); attention's takes every
+    head dim from 1 to 256, so every family trains there."""
     transformer.require_ported(cfg)
     x, aux = _hidden(params, batch, cfg, remat)
     if cfg.family == "audio":

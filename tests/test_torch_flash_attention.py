@@ -207,9 +207,9 @@ def test_kernel_wrapper_refuses_cpu_tensors_for_every_tiling(tiling, dtype):
         (torch.float16, 80, "wgmma"),
         (torch.float32, 80, "fma"),
         (torch.float32, 32, "fma"),  # examples/train_lm_topoopt.py's fp32 model
-        (torch.bfloat16, 32, ValueError),  # the wgmma tiling does not take 32
-        (torch.bfloat16, 16, ValueError),  # the smoke configs' head dim: CPU only
-        (torch.float32, 72, ValueError),
+        (torch.bfloat16, 32, "wgmma"),  # computed at width 64, TMA's zeros past 32
+        (torch.bfloat16, 16, "wgmma"),  # the smoke configs' head dim
+        (torch.float32, 72, "fma"),     # a ragged instance at width 128
         (torch.int32, 128, ValueError),
     ],
 )
@@ -333,7 +333,7 @@ def test_plain_bwd_keeps_the_input_dtype():
         (256, 200, True, 16, 64, "see no key"),   # rows 215.. see no key
         (256, 200, False, 16, 128, "see no key"),
         (64, 8, True, 1, 64, "see no key"),
-        (128, 128, True, 0, 96, "head dim 96"),   # no model's head dim
+        (128, 128, True, 0, 264, "head dim 264"),  # past MAX_HEAD_DIM
         (256, 200, True, 16, 256, "see no key"),  # recurrentgemma-9b's head dim, rows 215..
     ],
 )
@@ -410,12 +410,12 @@ def test_ops_attention_on_cpu_in_half_counts_no_backward_tiling(monkeypatch, dty
         (torch.bfloat16, 80, "wgmma"),      # hubert-xlarge's training attention
         (torch.float16, 80, "wgmma"),
         (torch.float32, 80, "fma"),         # its narrow fp32 models
-        (torch.bfloat16, 96, ValueError),   # no model's head dim
+        (torch.bfloat16, 96, "wgmma"),      # no model's head dim: width 128
         (torch.bfloat16, 256, "wgmma"),     # recurrentgemma-9b's training attention
         (torch.float32, 256, "fma"),        # its narrow fp32 models
         (torch.float32, 32, "fma"),         # examples/train_lm_topoopt.py's fp32 model
-        (torch.float16, 32, ValueError),    # the wgmma tiling does not take 32
-        (torch.float32, 16, ValueError),    # the smoke configs' head dim: CPU only
+        (torch.float16, 32, "wgmma"),       # width 64
+        (torch.float32, 16, "fma"),         # the smoke configs' head dim in fp32
         (torch.int32, 64, ValueError),
     ],
 )
@@ -555,6 +555,14 @@ def test_wgmma_bwd_emulation_in_fp32_is_the_plain_backward():
          "int, float)", "attention backward"),
         ("void (anonymous namespace)::dkdv_d80_wgmma_kernel<__half>(CUtensorMap_st, "
          "CUtensorMap_st)", "attention backward"),
+        # The head dims computed at a wider width: the fma forward's ragged
+        # kernel and the fma backward's ragged instances.
+        ("void (anonymous namespace)::flash_attention_fwd_ragged_kernel<__nv_bfloat16, 32, 64, "
+         "64>(__nv_bfloat16 const*)", "attention forward"),
+        ("void (anonymous namespace)::dkdv_kernel<float, 128, true>(float const*)",
+         "attention backward"),
+        ("void (anonymous namespace)::dq_kernel<__half, 32, true>(__half const*)",
+         "attention backward"),
     ],
 )
 def test_trace_train_groups_both_backward_tilings(kernel, group):

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs.base import get_config
+from repro_torch.configs.base import get_config, torch_dtype
 from repro_torch.kernels import embedding_bag as bag_mod
 from repro_torch.kernels import flash_attention as attn_mod
 from repro_torch.kernels import ops
@@ -177,9 +177,9 @@ def test_ops_counts_launches_and_rejects_bad_shapes(cuda, monkeypatch):
     ops.attention(q, k, v)
     ops.attention(q, k, v, causal=False)
     assert ops.attention_launches == 2
-    q32, k32, v32 = _qkv(cuda, 1, 4, 2, 64, 64, 32, torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim"):
-        ops.attention(q32, k32, v32)
+    q264, k264, v264 = _qkv(cuda, 1, 4, 2, 64, 64, 264, torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 264"):
+        ops.attention(q264, k264, v264)
     with pytest.raises(ValueError):
         ops.attention(q, k.float(), v)
     assert ops.attention_launches == 2
@@ -1074,7 +1074,7 @@ def test_backward_scratch_sizes_equal_the_librarys(cuda, sms):
     for (B, H, KV, Sq, Sk), D in itertools.product(
             [(1, 16, 1, 4096, 4096), (4, 32, 8, 1000, 1000), (1, 8, 1, 512, 512),
              (2, 16, 16, 4096, 4096), (1, 16, 1, 100, 100), (4, 32, 8, 4096, 1601),
-             (1, 3, 1, 65, 65)], (64, 80, 128, 256)):
+             (1, 3, 1, 65, 65)], (16, 64, 72, 80, 96, 128, 136, 200, 256)):
         assert attn_mod.bwd_work_bytes(B, H, KV, Sq, Sk, D, sms) == attn_ws(
             B, H, KV, Sq, Sk, D, sms), (B, H, KV, Sq, Sk, D)
     _, scan_ws = scan_mod._bwd_entries()
@@ -1745,7 +1745,7 @@ def test_bwd_kernel_is_deterministic(cuda, tiling, D):
         assert all(torch.equal(a, b) for a, b in zip(again, first))
 
 
-@pytest.mark.parametrize("D", [32, 96])
+@pytest.mark.parametrize("D", [257, 320])
 def test_bwd_kernel_refuses_head_dims_it_does_not_take(cuda, D):
     q, k, v = _qkv(cuda, 1, 2, 2, 64, 64, D, torch.bfloat16)
     lse = torch.zeros(1, 2, 64, device=cuda)
@@ -1937,9 +1937,13 @@ def test_bwd_wrapper_refuses_what_it_does_not_take(cuda):
         flash_attention_bwd(q, k, v, q, lse, q, True, 16)
     with pytest.raises(ValueError, match="see no key"):
         FlashAttentionFn.apply(q.requires_grad_(True), k, v, True, 16, "wgmma")
-    q96, k96, v96 = _qkv(cuda, 1, 4, 2, 64, 64, 96, torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim 96"):
-        flash_attention_bwd(q96, k96, v96, q96, torch.empty(1, 4, 64, device=cuda), q96)
+    q264, k264, v264 = _qkv(cuda, 1, 4, 2, 64, 64, 264, torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 264"):
+        flash_attention_bwd(q264, k264, v264, q264, torch.empty(1, 4, 64, device=cuda), q264)
+    q36, k36, v36 = _qkv(cuda, 1, 4, 2, 64, 64, 36, torch.bfloat16)  # rows TMA cannot stride
+    with pytest.raises(ValueError, match="multiple of 8"):
+        flash_attention_bwd(q36, k36, v36, q36, torch.empty(1, 4, 64, device=cuda), q36,
+                            tiling="wgmma")
     with pytest.raises(ValueError, match="lse"):
         flash_attention_bwd(q[:, :, :200], k, v, q[:, :, :200], lse.half()[:, :, :200],
                             q[:, :, :200])
@@ -2221,7 +2225,9 @@ def test_d32_fma_bwd_matches_autograd_of_plain(cuda, dtype, B, H, KV, Sq, Sk, ca
 
 def test_d32_runs_on_fma_and_wgmma_refuses_it(cuda, monkeypatch):
     """fp32 at head dim 32 goes through the fma kernels under autograd, 1
-    forward and 1 backward launch; bf16 (wgmma) raises, naming the tiling."""
+    forward and 1 backward launch.  bf16 at head dim 32, which the wgmma
+    tiling once refused, now runs on it at width 64, 1 launch each way, and
+    its gradients hold the bf16 bar."""
     for n in BWD_COUNTERS:
         monkeypatch.setattr(ops, n, 0)
     q, k, v = (t.requires_grad_(True) for t in _qkv(cuda, 2, 8, 4, 128, 128, 32, torch.float32))
@@ -2229,11 +2235,15 @@ def test_d32_runs_on_fma_and_wgmma_refuses_it(cuda, monkeypatch):
     assert {n: getattr(ops, n) for n in BWD_COUNTERS} == dict(
         attention_launches=1, attention_wgmma_launches=0, attention_fma_launches=1,
         attention_bwd_launches=1, attention_bwd_wgmma_launches=0, attention_bwd_fma_launches=1)
-    qb, kb, vb = _qkv(cuda, 1, 2, 2, 64, 64, 32, torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim 32 not in .* of the wgmma tiling"):
-        flash_attention(qb, kb, vb)
-    with pytest.raises(ValueError, match="head dim 32 not in .* of the wgmma tiling"):
-        attn_mod.attention_bwd_tiling(torch.bfloat16, 32)
+    assert attn_mod.attention_tiling(torch.bfloat16, 32) == "wgmma"
+    assert attn_mod.attention_bwd_tiling(torch.bfloat16, 32) == "wgmma"
+    qb, kb, vb = (t.requires_grad_(True) for t in _qkv(cuda, 1, 2, 2, 64, 64, 32, torch.bfloat16))
+    do = torch.randn_like(qb)
+    got = torch.autograd.grad(ops.attention(qb, kb, vb), (qb, kb, vb), do)
+    assert ops.attention_wgmma_launches == 1 and ops.attention_bwd_wgmma_launches == 1
+    for g, want in zip(got, _plain_grads(qb.detach(), kb.detach(), vb.detach(), do, True, 0)):
+        err = float((g.float() - want).abs().max())
+        assert err <= TOL[torch.bfloat16] * max(float(want.abs().max()), 1.0), err
 
 
 @pytest.mark.parametrize("kind", ["ring", "recursive_hd", "multi_tree", "compressed"])
@@ -2493,3 +2503,173 @@ def test_jit_train_step_at_world_size_1_equals_train_step_on_card_for_the_moe(cu
         torch.use_deterministic_algorithms(False)
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# Every head dim from 1 to 256: the kernels compute at a width of their own
+# (attn_mod.compute_width) with zeros past the head dim, store only D columns
+# ---------------------------------------------------------------------------
+
+# (B, H, KV, Sq, Sk, causal, window): causal GQA off the tiles' edges, a
+# window, cross-attention either way round.
+DIM_SHAPES = [
+    (2, 4, 2, 130, 130, True, 0),
+    (1, 4, 1, 257, 257, True, 64),
+    (1, 4, 4, 100, 300, False, 0),
+    (1, 4, 2, 127, 65, True, 0),
+]
+# wgmma: multiples of 8 at each width (64: 8-64, 80: 72, 128: 88-120, 256:
+# 136-248); fma: any head dim, ragged at each of its widths.
+WGMMA_DIMS = [8, 16, 24, 32, 48, 72, 96, 112, 136, 192, 200, 248]
+FMA_DIMS = [1, 7, 16, 24, 33, 48, 72, 96, 100, 112, 129, 192, 200, 255]
+DIM_CASES = ([("wgmma", dt, D) for dt in (torch.bfloat16, torch.float16) for D in WGMMA_DIMS]
+             + [("fma", dt, D) for dt in (torch.float32, torch.bfloat16) for D in FMA_DIMS])
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,causal,window", DIM_SHAPES)
+@pytest.mark.parametrize("tiling,dtype,D", DIM_CASES)
+def test_every_head_dim_matches_plain_both_ways(cuda, tiling, dtype, D, B, H, KV, Sq, Sk, causal,
+                                                window):
+    """The forward and its lse within the bar of the plain version, the
+    backward within the bar of autograd of the plain version, at head dims
+    the kernels compute at a wider width, and two launches of each the same
+    bits."""
+    q, k, v = _qkv(cuda, B, H, KV, Sq, Sk, D, dtype, seed=21)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(22),
+                     device=cuda).to(dtype)
+    lse = torch.empty(B, H, Sq, device=cuda)
+    o = flash_attention(q, k, v, causal=causal, window=window, tiling=tiling, lse=lse)
+    o2 = flash_attention(q, k, v, causal=causal, window=window, tiling=tiling)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal, window, tiling=tiling)
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal, window, tiling=tiling)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = ref_flash_attention(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(o.float(), ref.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    torch.testing.assert_close(lse, ref_flash_attention_lse(q, k, v, causal=causal, window=window),
+                               rtol=1e-5, atol=1e-4)
+    for g, want, t in zip(got, _plain_grads(q, k, v, do, causal, window), (q, k, v)):
+        assert g.dtype == dtype and g.shape == t.shape
+        err = float((g.float() - want).abs().max())
+        assert err <= TOL[dtype] * max(float(want.abs().max()), 1.0), err
+
+
+def test_every_head_dim_leaves_the_bytes_past_its_outputs_alone(cuda):
+    """Kernels computing D = 40 at a wider width store D columns a row and
+    nothing past their outputs: each output carved from a buffer of
+    sentinels (the C entry points called directly) leaves the sentinels
+    around it as they were, forward and backward, on both tilings."""
+    for tiling, dtype in (("wgmma", torch.bfloat16), ("fma", torch.float32)):
+        B, H, KV, S, D = 1, 4, 2, 130, 40
+        q, k, v = _qkv(cuda, B, H, KV, S, S, D, dtype, seed=23)
+        lse = torch.empty(B, H, S, device=cuda)
+        o = flash_attention(q, k, v, lse=lse, tiling=tiling)
+        n_q, n_k = q.numel(), k.numel()
+        buf = torch.full((2 * n_q + 2 * n_k + 4 * 64,), 7.0, device=cuda, dtype=dtype)
+        at = [64, n_q + 128, n_q + n_k + 192]  # dq (and the forward's o), dk, dv
+        stream = torch.cuda.current_stream().cuda_stream
+        code = attn_mod.DTYPE_CODES[dtype]
+        err = attn_mod._entry(tiling)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                      buf[at[0]:].data_ptr(), None, B, H, KV, S, S, D, 1, 0,
+                                      code, stream)
+        assert err == 0
+        torch.testing.assert_close(buf[at[0]:at[0] + n_q].view(q.shape), o, rtol=0, atol=0)
+        keep = torch.ones_like(buf, dtype=torch.bool)
+        keep[at[0]:at[0] + n_q] = False
+        assert bool((buf[keep] == 7).all())
+        buf.fill_(7.0)
+        fn, ws = attn_mod._bwd_entries(tiling)
+        sms = attn_mod.sms_of(q.device)
+        nbytes = ws(B, H, KV, S, S, D, sms) if tiling == "wgmma" else 0
+        work = torch.empty(max(nbytes // 4, 1), device=cuda)
+        delta = torch.empty(B, H, S, device=cuda)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), q.data_ptr(),
+                 lse.data_ptr(), buf[at[0]:].data_ptr(), buf[at[1]:].data_ptr(),
+                 buf[at[2]:].data_ptr(), delta.data_ptr(), work.data_ptr(), B, H, KV, S, S, D,
+                 1, 0, sms, code, stream)
+        assert err == 0
+        want = flash_attention_bwd(q, k, v, o, lse, q, tiling=tiling)
+        keep.fill_(True)
+        for start, g in zip(at, want):
+            torch.testing.assert_close(buf[start:start + g.numel()].view(g.shape), g, rtol=0,
+                                       atol=0)
+            keep[start:start + g.numel()] = False
+        assert bool((buf[keep] == 7).all())
+
+
+@pytest.mark.parametrize("D,dtype,want", [(16, torch.bfloat16, "wgmma"), (16, torch.float32, "fma"),
+                                          (36, torch.bfloat16, "fma"), (200, torch.float16, "wgmma"),
+                                          (255, torch.float32, "fma")])
+def test_ops_counts_every_head_dim_under_its_tiling(cuda, monkeypatch, D, dtype, want):
+    """``ops.attention`` on a card tensor at any head dim up to 256 launches
+    a kernel, forward and, under grad, backward, counted under the tiling
+    that served it; bf16 rows TMA cannot stride go to fma by design."""
+    for name in BWD_COUNTERS:
+        monkeypatch.setattr(ops, name, 0)
+    q, k, v = (t.requires_grad_(True) for t in _qkv(cuda, 1, 4, 2, 100, 100, D, dtype, seed=24))
+    out = ops.attention(q, k, v)
+    torch.autograd.grad(out, (q, k, v), torch.randn_like(out))
+    other = "fma" if want == "wgmma" else "wgmma"
+    assert {n: getattr(ops, n) for n in BWD_COUNTERS} == {
+        "attention_launches": 1, f"attention_{want}_launches": 1,
+        f"attention_{other}_launches": 0, "attention_bwd_launches": 1,
+        f"attention_bwd_{want}_launches": 1, f"attention_bwd_{other}_launches": 0}
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "qwen3-moe-30b-a3b", "recurrentgemma-9b",
+                                  "llama-3.2-vision-11b", "hubert-xlarge"])
+def test_smoke_configs_forward_on_card_matches_cpu(cuda, arch):
+    """The JAX package's reduced configs at their own head dim 16 in bf16:
+    the forward on the card (wgmma at width 64) within the dense bar, 3e-2
+    of max|ref|, of the same weights on the CPU.  The MoE layer by layer on
+    the CPU's stream: its bf16 stream parts by an ulp where wgmma rounds P,
+    and that flips a near-tied top-2 choice, so each block's router logits
+    are held to the bar on every token and its output on the tokens whose
+    experts agree."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(arch).smoke()
+    assert cfg.hd == 16
+    m_cpu = lm.init(0, cfg, device="cpu")
+    m_gpu = lm.init(0, cfg, device=cuda)
+    m_gpu.load_state_dict(m_cpu.state_dict())
+    rng = np.random.default_rng(0)
+    if cfg.family == "moe":
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40)))
+        pos = torch.arange(40)[None, :]
+        x = T._embed(m_cpu, cfg, tok)
+
+        def router_logits(blk, x, p):
+            att = L.attention(blk.attn, L.rms_norm(x, blk.attn.norm), cfg, causal=True,
+                              window=cfg.attn_window, positions=p, use_rope=True)[0]
+            h = L.rms_norm(x + att, blk.moe.norm)
+            return (h.float() @ blk.moe.router).reshape(-1, cfg.n_experts).cpu()
+
+        for blk_cpu, blk_gpu in zip(m_cpu.blocks, m_gpu.blocks):
+            lc = router_logits(blk_cpu, x, pos)
+            lg = router_logits(blk_gpu, x.to(cuda), pos.to(cuda))
+            k = cfg.top_k
+            same = (lc.topk(k).indices.sort().values == lg.topk(k).indices.sort().values).all(-1)
+            assert float((lg - lc).abs().max()) <= 3e-2 * float(lc.abs().max())
+            ref = T._self_block_apply(blk_cpu, x, cfg, pos)[0].float()
+            got = T._self_block_apply(blk_gpu, x.to(cuda), cfg, pos.to(cuda))[0].float().cpu()
+            rows = same.reshape(ref.shape[:2])
+            assert float((got - ref)[rows].abs().max()) <= 3e-2 * float(ref[rows].abs().max())
+            x = ref.to(x.dtype)
+        ref = (L.rms_norm(x[:, -1], m_cpu.final_norm) @ m_cpu.head()).float()
+        got = L.rms_norm(x[:, -1].to(cuda), m_gpu.final_norm) @ m_gpu.head()
+        assert float((got.float().cpu() - ref).abs().max()) <= 3e-2 * float(ref.abs().max())
+        return
+    if cfg.is_encoder:
+        batch = {"frames": torch.from_numpy(rng.standard_normal((2, 40, cfg.d_model))).to(
+            torch_dtype(cfg.activation_dtype))}
+    else:
+        batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40)))}
+        if cfg.family == "vlm":
+            batch["image_embeds"] = torch.from_numpy(rng.standard_normal(
+                (2, cfg.img_tokens, cfg.d_model))).to(torch_dtype(cfg.activation_dtype))
+    ref, _ = lm.forward(m_cpu, batch, cfg)
+    got, _ = lm.forward(m_gpu, {n: t.to(cuda) for n, t in batch.items()}, cfg)
+    ref = ref.float()
+    assert float((got.float().cpu() - ref).abs().max()) <= 3e-2 * float(ref.abs().max())

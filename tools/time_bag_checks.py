@@ -79,7 +79,8 @@ peak memory and the traced step's RG-LRU forward and backward
 on inputs this tool makes from one seed, the attention forward (without and
 with lse) and backward at ``ATTN_CASES`` (hubert-xlarge's training and
 serving shapes at head dim 80, the other D = 80 shapes of phase 3, and the
-D = 64, 128 and 256 and fp32 shapes whose kernels must not move) by CUDA
+D = 64, 128 and 256 and fp32 shapes (D 32 among them) whose kernels must not
+move) by CUDA
 events and, the kernels alone, by ``torch.profiler`` (``fwd_device_ms``,
 ``bwd_device_ms``), SDPA's forward and backward beside the hubert shapes,
 and the SHA-256 of each case's o, lse, dq, dk and dv bits (``attn``, by
@@ -92,7 +93,8 @@ memory and the traced step's attention forward and backward (``au_step``).
 
 ``--bits`` calls the tree's public kernel functions on inputs this tool
 makes from one seed (``BITS_*``): ``flash_attention`` with ``lse`` and
-``flash_attention_bwd`` (head dims 64, 80, 128 and 256, a window, fp32),
+``flash_attention_bwd`` (head dims 64, 80, 128 and 256, a window, fp32 at
+each head dim with fma instances of its own),
 ``moe_gmm`` on its three tilings and ``moe_gmm_bwd`` (dw alone too),
 ``mamba_scan`` with and without checkpoints and ``mamba_scan_bwd``,
 ``rglru_scan`` and ``rglru_scan_bwd``, and records the SHA-256 of each
@@ -134,7 +136,10 @@ SCORE = re.compile(r"^phase 4e score: B=(\d+) forward (\S+) ms ")
 # --bits: (B, H, KV, S, D, dtype, causal, window)
 BITS_ATTENTION = ((2, 8, 2, 512, 64, "bfloat16", True, 0),
                   (2, 8, 2, 512, 128, "bfloat16", True, 0), (2, 8, 8, 500, 80, "bfloat16", False, 0),
-                  (1, 8, 1, 512, 256, "bfloat16", True, 128), (2, 4, 2, 256, 64, "float32", True, 0))
+                  (1, 8, 1, 512, 256, "bfloat16", True, 128), (2, 4, 2, 256, 64, "float32", True, 0),
+                  # the fma tiling's other head dims with instances of their own
+                  (2, 8, 4, 128, 32, "float32", True, 0), (2, 4, 4, 200, 80, "float32", False, 0),
+                  (2, 4, 2, 256, 128, "float32", True, 0), (1, 4, 1, 300, 256, "float32", True, 64))
 # (E, C, D, F, dtype): the wgmma, fma and skinny tilings
 BITS_GMM = ((8, 320, 512, 256, "bfloat16"), (8, 100, 96, 72, "float32"),
             (8, 4, 512, 256, "bfloat16"))
@@ -584,6 +589,7 @@ ATTN_CASES = (
     ("recurrentgemma d256", 1, 16, 1, 4096, 4096, 256, "bfloat16", True, 2048),
     ("vlm cross d128", 4, 32, 8, 4096, 1601, 128, "bfloat16", False, 0),
     ("minicpm fp32 d64 fma", 4, 36, 36, 1024, 1024, 64, "float32", True, 0),
+    ("d32 fp32 fma", 4, 8, 4, 2048, 2048, 32, "float32", True, 0),
 )
 
 
